@@ -1,0 +1,29 @@
+"""Weights from the JAX package into the port.
+
+The port keeps the JAX param tree's key names and stacked `[L, ...]`
+layout, so converting is a tree map over numpy arrays (as `np.asarray`
+gives them from JAX arrays). bf16 arrays arrive with numpy's `bfloat16`
+extension dtype, which torch cannot read directly; they go by way of f32,
+which holds every bf16 value exactly, so the conversion is exact.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def array_to_torch(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device=device,
+                                                         dtype=torch.bfloat16)
+    # a copy: arrays from JAX are read-only, torch tensors are writable
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_jax(tree, device):
+    """Nested dict of numpy arrays (the JAX package's params) -> the same
+    dict of tensors on `device`, dtypes kept (bf16 exact via f32)."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    return array_to_torch(tree, device)

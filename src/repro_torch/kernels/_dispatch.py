@@ -1,0 +1,28 @@
+"""Argument checks shared by the kernel wrappers."""
+from __future__ import annotations
+
+import torch
+
+
+def on_cpu(*tensors) -> bool:
+    """True iff every tensor lies on the CPU (the plain version's case).
+    A CUDA tensor makes it False; any other device raises."""
+    devs = {t.device.type for t in tensors if t is not None}
+    if devs <= {"cpu"}:
+        return True
+    if devs == {"cuda"}:
+        return False
+    raise ValueError(f"tensors must all be on the CPU or all on CUDA, got {devs}")
+
+
+def require(t: torch.Tensor, name: str, *, dtypes, ndim: int, device) -> None:
+    """Raise unless t is contiguous, on `device`, of one of `dtypes`, with
+    `ndim` dimensions — everything a kernel takes on trust."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {ndim} dims")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,61 @@
+// Python binding of the port's CUDA kernels: the one source that includes
+// PyTorch's headers. Each function takes the tensors its Python wrapper
+// checked and allocated, reads the sizes off their shapes and the element
+// types off their dtypes, launches on the current stream of the tensors'
+// card, and raises if the launch failed.
+#include <ATen/cuda/CUDAContext.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <cuda_runtime.h>
+#include <torch/extension.h>
+
+#include "kernels.h"
+
+namespace {
+
+repro::DType dtype_of(const torch::Tensor& t) {
+  switch (t.scalar_type()) {
+    case torch::kFloat32: return repro::kF32;
+    case torch::kBFloat16: return repro::kBF16;
+    case torch::kInt8: return repro::kI8;
+    default: TORCH_CHECK(false, "no kernel takes dtype ", t.scalar_type());
+  }
+}
+
+void check_launch(int err, const char* what) {
+  TORCH_CHECK(err == 0, what, ": CUDA launch failed: ",
+              cudaGetErrorString(static_cast<cudaError_t>(err)));
+}
+
+void* current_stream() { return at::cuda::getCurrentCUDAStream().stream(); }
+
+void flash_decode_paged(const torch::Tensor& q, const torch::Tensor& k, const torch::Tensor& v,
+                        const std::optional<torch::Tensor>& k_scale,
+                        const std::optional<torch::Tensor>& v_scale,
+                        const torch::Tensor& kv_len, const torch::Tensor& table,
+                        torch::Tensor out, double sm_scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const bool quant = k_scale.has_value();
+  TORCH_CHECK(quant == v_scale.has_value(), "give both k_scale and v_scale, or neither");
+  const int err = repro::flash_decode_paged(
+      q.data_ptr(), dtype_of(q), k.data_ptr(), v.data_ptr(), dtype_of(k),
+      quant ? k_scale->data_ptr<float>() : nullptr, quant ? v_scale->data_ptr<float>() : nullptr,
+      kv_len.data_ptr<int32_t>(), table.data_ptr<int32_t>(), out.data_ptr(), q.size(0),
+      q.size(1), k.size(2), q.size(2), k.size(1), table.size(1), static_cast<float>(sm_scale),
+      current_stream());
+  check_launch(err, "flash_decode_paged");
+}
+
+void quantize_rows(const torch::Tensor& x, torch::Tensor q, torch::Tensor scale) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const int err = repro::quantize_rows(x.data_ptr(), dtype_of(x), q.data_ptr<int8_t>(),
+                                       scale.data_ptr<float>(), x.size(0), x.size(1),
+                                       current_stream());
+  check_launch(err, "quantize_rows");
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("flash_decode_paged", &flash_decode_paged, "paged flash-decode into out");
+  m.def("quantize_rows", &quantize_rows, "per-row int8 quantize into q, scale");
+}

@@ -1,0 +1,57 @@
+"""Plain PyTorch versions of the decode-attention kernels: the CPU path and
+the versions the CUDA kernel is held against. GQA by head grouping: query
+head h reads kv head h // G, G = H // K.
+"""
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def flash_decode_ref(q, k_cache, v_cache, kv_len, *, k_scale=None,
+                     v_scale=None):
+    """Dense decode attention. q [B,H,D]; caches [B,Smax,K,D] (model
+    layout: seq before heads); kv_len [B] (or a scalar). k_scale/v_scale
+    [B,Smax,K] iff the caches hold int8 codes. Rows with kv_len == 0 return
+    exact zeros, as the kernel does (its softmax sum stays 0)."""
+    b, h, d = q.shape
+    smax, kh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kh
+    kf = k_cache.float()
+    vf = v_cache.float()
+    if k_scale is not None:
+        kf = kf * k_scale[..., None].float()
+        vf = vf * v_scale[..., None].float()
+    kv_len = torch.as_tensor(kv_len, dtype=torch.int32,
+                             device=q.device).reshape(-1).expand(b)
+    qg = q.reshape(b, kh, g, d).float() / math.sqrt(d)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, kf)
+    mask = torch.arange(smax, device=q.device)[None, :] < kv_len[:, None]
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, vf)
+    o = torch.where((kv_len > 0)[:, None, None, None], o, torch.zeros_like(o))
+    return o.reshape(b, h, d).to(q.dtype)
+
+
+def gather_pages(arena, table):
+    """arena [P,ps,...] + table [B,max_pages] -> [B, max_pages*ps, ...]."""
+    g = arena[table.long()]
+    b, mp, ps = g.shape[:3]
+    return g.reshape((b, mp * ps) + tuple(g.shape[3:]))
+
+
+def flash_decode_paged_ref(q, k_pages, v_pages, kv_len, page_table, *,
+                           k_scale=None, v_scale=None):
+    """Paged decode attention: gathers each slot's pages through the table
+    back into the slot-contiguous layout and runs `flash_decode_ref`.
+    q [B,H,D]; arenas [P,page_size,K,D]; page_table [B,max_pages];
+    k_scale/v_scale [P,page_size,K] iff the arenas hold int8 codes."""
+    kf = gather_pages(k_pages, page_table)
+    vf = gather_pages(v_pages, page_table)
+    ks = vs = None
+    if k_scale is not None:
+        ks = gather_pages(k_scale, page_table)
+        vs = gather_pages(v_scale, page_table)
+    return flash_decode_ref(q, kf, vf, kv_len, k_scale=ks, v_scale=vs)

@@ -1,0 +1,19 @@
+"""Plain PyTorch symmetric per-row int8 quantizer: the CPU path and the
+version the CUDA kernel is held against."""
+import numpy as np
+import torch
+
+# 1/127 rounded to f32. The scale is amax times this constant, not amax / 127:
+# XLA rewrites a division by a constant into a multiplication by its f32
+# reciprocal, so this is what the JAX package computes (to the bit) when
+# its quantizer runs under jit; the CUDA kernel uses the same constant.
+INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def quantize_ref(x):
+    """x [rows, cols] float -> (q int8 [rows, cols], scale f32 [rows])."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax * INV_127, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale[:, None]), -127, 127).to(torch.int8)
+    return q, scale

@@ -1,0 +1,91 @@
+"""Public model API of the serve path: `Model(cfg)` with init, init_cache,
+prefill, prefill_chunk and decode_slots over a nested dict of tensors."""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.config.base import ModelConfig
+from repro_torch.models import transformer as tr
+from repro_torch.models.layers import (apply_norm, embed_defs, embed_tokens,
+                                       lm_logits, norm_defs, tree_init,
+                                       tree_map_defs, DTYPES)
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig, *, attn_impl: str = "blockwise",
+                 attn_chunk: int = 512):
+        self.cfg = cfg
+        self.attn_impl = attn_impl
+        self.attn_chunk = attn_chunk
+
+    # ---- params ----------------------------------------------------------
+    def param_defs(self):
+        cfg = self.cfg
+        return {"embed": embed_defs(cfg),
+                "decoder": tr.decoder_defs(cfg),
+                "final_norm": norm_defs(cfg, cfg.d_model)}
+
+    def init(self, seed: int, device):
+        """Random params from a seeded torch Generator on `device` (torch and
+        jax.random draw different numbers from one seed; tests copy params
+        across with `repro_torch.convert.params_from_jax`)."""
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return tree_init(self.param_defs(), gen, device)
+
+    def init_cache(self, batch: int, cache_len: int, device):
+        return tree_map_defs(
+            lambda d: torch.zeros(d.shape, dtype=DTYPES[d.dtype], device=device),
+            tr.cache_defs(self.cfg, batch, cache_len))
+
+    # ---- context ---------------------------------------------------------
+    def _ctx(self, seq: int, device, offset: int = 0):
+        return {"attn_impl": self.attn_impl, "attn_chunk": self.attn_chunk,
+                "positions": torch.arange(seq, device=device)[None, :] + offset}
+
+    # ---- serving ----------------------------------------------------------
+    def prefill(self, params, batch, cache_len: Optional[int] = None):
+        """-> (last-token logits [B,V], cache)."""
+        cfg = self.cfg
+        x = embed_tokens(cfg, params["embed"], batch["tokens"])
+        seq = x.shape[1]
+        ctx = self._ctx(seq, x.device)
+        x, cache = tr.apply_decoder_prefill(cfg, params["decoder"], x, ctx,
+                                            cache_len or seq)
+        x = apply_norm(cfg, params["final_norm"], x)
+        return lm_logits(cfg, params["embed"], x[:, -1:])[:, 0], cache
+
+    def prefill_chunk(self, params, cache, batch, start: int, length: int):
+        """One chunked-prefill step: the C-token chunk in `batch` at absolute
+        positions [start, start+C) against the already populated cache,
+        which is updated in place. `length` is the valid prompt tokens after
+        this chunk. -> (chunk logits [B,C,V], cache)."""
+        cfg = self.cfg
+        x = embed_tokens(cfg, params["embed"], batch["tokens"])
+        ctx = self._ctx(x.shape[1], x.device, offset=start)
+        x, cache = tr.apply_decoder_prefill_chunk(
+            cfg, params["decoder"], cache, x, start, length, ctx)
+        x = apply_norm(cfg, params["final_norm"], x)
+        return lm_logits(cfg, params["embed"], x), cache
+
+    def decode_slots(self, params, cache: Dict, batch, positions, active,
+                     page_size: Optional[int] = None):
+        """Slot-batched decode: each batch row is an independent request.
+        positions [B] int32, active [B] bool. The cache is the page arena
+        with its top-level "page_table" leaf; the arenas are updated in place
+        and the same dict is returned. -> (logits [B,V], cache)."""
+        cfg = self.cfg
+        if "page_table" not in cache or page_size is None:
+            raise NotImplementedError(
+                "slot decode without a page arena needs flash_decode_fwd, "
+                "which is not ported yet")
+        x = embed_tokens(cfg, params["embed"], batch["tokens"])
+        ctx = {"positions": positions[:, None], "page_table": cache["page_table"],
+               "page_size": page_size}
+        layers = {k: v for k, v in cache.items() if k != "page_table"}
+        x, _ = tr.apply_decoder_decode_slots(cfg, params["decoder"], layers, x,
+                                             positions, active, ctx)
+        x = apply_norm(cfg, params["final_norm"], x)
+        return lm_logits(cfg, params["embed"], x)[:, 0], cache

@@ -1,0 +1,214 @@
+"""Decoder stack for the "attn" layer kind: stacked [L, ...] params and
+caches, with the JAX package's `lax.scan` over layers as a Python loop over
+the leading axis. Prefill, chunked prefill and the paged slot decode of
+the serve engine.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.config.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import kvquant, paging
+from repro_torch.models.attention import (attention_defs, decode_attention,
+                                          out_proj, project_qkv)
+from repro_torch.models.layers import (ParamDef, apply_mlp, apply_norm,
+                                       apply_rope, mlp_defs, norm_defs,
+                                       tree_map_defs)
+
+# ---------------------------------------------------------------------------
+# Stack layout
+# ---------------------------------------------------------------------------
+
+def _check_kinds(cfg: ModelConfig):
+    kinds = set(cfg.layer_kinds())
+    if kinds != {"attn"} or cfg.num_experts or cfg.mrope_sections or cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: only dense 'attn' stacks are ported yet "
+            f"(layer kinds {sorted(kinds)})")
+
+
+def _stack(defs, n: int):
+    """Add a leading ("layers", n) axis to every ParamDef in a tree."""
+    return tree_map_defs(
+        lambda d: ParamDef((n,) + d.shape, ("layers",) + d.axes,
+                           init=d.init, scale=d.scale, dtype=d.dtype), defs)
+
+
+def layer_defs(cfg: ModelConfig, kind: str):
+    if kind != "attn":
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    return {"ln1": norm_defs(cfg, cfg.d_model),
+            "attn": attention_defs(cfg),
+            "ln2": norm_defs(cfg, cfg.d_model),
+            "ffn": mlp_defs(cfg)}
+
+
+def decoder_defs(cfg: ModelConfig):
+    _check_kinds(cfg)
+    return {"stack0": _stack({"attn_0": layer_defs(cfg, "attn")},
+                             cfg.num_layers)}
+
+
+def cache_defs(cfg: ModelConfig, batch: int, cache_len: int):
+    _check_kinds(cfg)
+    kd = ParamDef((batch, cache_len, cfg.num_kv_heads, cfg.head_dim),
+                  ("batch", "kv_seq", "kv_heads", None), init="zeros")
+    return {"stack0": _stack({"attn_0": {"k": kd, "v": kd}}, cfg.num_layers)}
+
+
+def _layer(tree, i: int):
+    """Layer i of a stacked tree: views into the [L, ...] tensors, so an
+    in-place write to a layer's cache lands in the stacked cache."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def dynamic_update_slice_(dst, src, starts):
+    """In-place `jax.lax.dynamic_update_slice`: each start index is clamped
+    to [0, dst_dim - src_dim] so the update always fits, as JAX clamps it
+    (a torch slice assignment does not clamp)."""
+    idx = []
+    for s, n, m in zip(starts, src.shape, dst.shape):
+        s = min(max(int(s), 0), m - n)
+        idx.append(slice(s, s + n))
+    dst[tuple(idx)] = src
+    return dst
+
+
+# ---------------------------------------------------------------------------
+# Layer pieces
+# ---------------------------------------------------------------------------
+
+def _rope_qk(cfg, q, k, ctx):
+    return (apply_rope(q, ctx["positions"], cfg.rope_theta),
+            apply_rope(k, ctx["positions"], cfg.rope_theta))
+
+
+def _ffn(cfg, p, x):
+    h = apply_norm(cfg, p["ln2"], x)
+    return x + apply_mlp(cfg, p["ffn"], h)
+
+
+# ---------------------------------------------------------------------------
+# Prefill (whole prompt)
+# ---------------------------------------------------------------------------
+
+def apply_layer_prefill(cfg, kind, p, x, ctx, cache_len: int):
+    """-> (x, layer cache {"k","v"} [B, cache_len, K, D])."""
+    if kind != "attn":
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    h = apply_norm(cfg, p["ln1"], x)
+    q, k, v = project_qkv(cfg, p["attn"], h)
+    q, k = _rope_qk(cfg, q, k, ctx)
+    o = attn_mod.attention(q, k, v, causal=True, impl=ctx["attn_impl"],
+                           chunk=ctx["attn_chunk"])
+    x2 = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o))
+    b, s = x.shape[:2]
+    n = min(s, cache_len)
+    ck = torch.zeros((b, cache_len, cfg.num_kv_heads, cfg.head_dim),
+                     dtype=k.dtype, device=k.device)
+    cv = torch.zeros_like(ck)
+    dynamic_update_slice_(ck, k[:, :n], (0, 0, 0, 0))
+    dynamic_update_slice_(cv, v[:, :n], (0, 0, 0, 0))
+    return x2, {"k": ck, "v": cv}
+
+
+def apply_decoder_prefill(cfg, params, x, ctx, cache_len: int):
+    """-> (x, stacked cache)."""
+    stack = params["stack0"]
+    layers = []
+    for i in range(cfg.num_layers):
+        x, c = apply_layer_prefill(cfg, "attn", _layer(stack, i)["attn_0"],
+                                   x, ctx, cache_len)
+        layers.append(c)
+    cache = {"attn_0": {key: torch.stack([c[key] for c in layers])
+                        for key in ("k", "v")}}
+    return x, {"stack0": cache}
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill (serve engine: prompt processed in fixed-size chunks)
+# ---------------------------------------------------------------------------
+
+def apply_layer_prefill_chunk(cfg, kind, p, x, cache, start: int, length: int,
+                              ctx):
+    """One prompt chunk against an already partially populated cache.
+
+    x [B,C,d] holds tokens [start, start+C) (tail rows may be padding);
+    `length` is the valid token count after this chunk. The chunk's keys
+    land in the cache (IN PLACE) at their absolute positions, then the chunk
+    queries attend over the cache with the causal + kv_len masks — per
+    valid query row exactly the whole-prompt softmax."""
+    if kind != "attn":
+        raise ValueError(
+            f"chunked prefill supports 'attn' layers only, got {kind!r}")
+    h = apply_norm(cfg, p["ln1"], x)
+    q, k, v = project_qkv(cfg, p["attn"], h)
+    q, k = _rope_qk(cfg, q, k, ctx)
+    ck = dynamic_update_slice_(cache["k"], k, (0, start, 0, 0))
+    cv = dynamic_update_slice_(cache["v"], v, (0, start, 0, 0))
+    o = attn_mod.naive_attention(q, ck, cv, causal=True, q_offset=start,
+                                 kv_len=length)
+    x2 = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o))
+    return x2, {"k": ck, "v": cv}
+
+
+def apply_decoder_prefill_chunk(cfg, params, caches, x, start: int,
+                                length: int, ctx):
+    """-> (x, caches): one chunk through every layer; each layer reads the
+    earlier chunks' keys and appends its own to the stacked cache in place."""
+    stack, cstack = params["stack0"], caches["stack0"]
+    for i in range(cfg.num_layers):
+        x, _ = apply_layer_prefill_chunk(
+            cfg, "attn", _layer(stack, i)["attn_0"], x,
+            _layer(cstack, i)["attn_0"], start, length, ctx)
+    return x, caches
+
+
+# ---------------------------------------------------------------------------
+# Slot-batched paged decode (serve engine)
+# ---------------------------------------------------------------------------
+
+def apply_layer_decode_slots(cfg, kind, p, x, cache, positions, active, ctx):
+    """Slot-batched decode of one layer over the page arena: every batch
+    row is an independent request at its own position. positions [B]
+    int32, active [B] bool. The new token's k/v row (int8 codes + scales
+    under kv_dtype="int8") is written through the page table IN PLACE, then
+    the paged flash-decode reads each slot's kv_len positions."""
+    if kind != "attn":
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    table = ctx["page_table"]
+    ps = ctx["page_size"]
+    cap = table.shape[1] * ps
+    h = apply_norm(cfg, p["ln1"], x)
+    q, k, v = project_qkv(cfg, p["attn"], h)
+    q, k = _rope_qk(cfg, q, k, ctx)
+    kv_len = torch.where(active, torch.clamp(positions + 1, max=cap),
+                         torch.zeros_like(positions)).to(torch.int32)
+    scales = {}
+    if "k_scale" in cache:
+        k, ks = kvquant.quantize_kv_leaf(k)
+        v, vs = kvquant.quantize_kv_leaf(v)
+        scales["k_scale"] = paging.paged_write(cache["k_scale"], ks, table,
+                                               positions, active, ps)
+        scales["v_scale"] = paging.paged_write(cache["v_scale"], vs, table,
+                                               positions, active, ps)
+    ck = paging.paged_write(cache["k"], k, table, positions, active, ps)
+    cv = paging.paged_write(cache["v"], v, table, positions, active, ps)
+    o = decode_attention(q.contiguous(), ck, cv, kv_len,
+                         k_scale=scales.get("k_scale"),
+                         v_scale=scales.get("v_scale"), page_table=table)
+    x = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o))
+    return x, {"k": ck, "v": cv, **scales}
+
+
+def apply_decoder_decode_slots(cfg, params, caches, x, positions, active, ctx):
+    """Slot-batched decode sweep: -> (x, caches), caches updated in place."""
+    stack, cstack = params["stack0"], caches["stack0"]
+    for i in range(cfg.num_layers):
+        x, _ = apply_layer_decode_slots(
+            cfg, "attn", _layer(stack, i)["attn_0"], x,
+            _layer(cstack, i)["attn_0"], positions, active, ctx)
+    return x, caches

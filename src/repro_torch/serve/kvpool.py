@@ -1,0 +1,369 @@
+"""Paged, host-spilling KV-cache pool — the serving side of the paper's
+Large Model Support: only what a decode tick needs stays on the device.
+
+The pool owns two arenas per paged leaf (attn k/v, and their int8 scales):
+
+* the **device arena**, a shared page pool ``[L, device_pages + 1,
+  page_size, ...]`` addressed through an ``int32[slots, max_pages]`` page
+  table that lives inside the cache dict (top-level ``"page_table"``), so
+  the decode step reads it next to the arenas. Slot ``b``'s position ``p``
+  lives at arena row ``page_table[b, p // page_size]``, offset
+  ``p % page_size``; attach and release are page-table edits. Row
+  ``device_pages`` is the null page free slots point at.
+* the **host arena**, ``[host_pages, L, page_size, ...]`` in pinned host
+  memory on the card (page-major, so each page is one contiguous block),
+  holding the pages of requests that are prefilled but still waiting for
+  a decode slot.
+
+Lifecycle: ``spill`` copies a prefilled request's content pages out to the
+host arena; ``prefetch`` claims the request's device pages and copies its
+content pages into the arena ahead of its slot attach; ``attach`` is then
+only a page-table edit (or copies the pages itself when no prefetch ran);
+``release`` nulls the slot's table row and returns its pages. A request
+reserves ``pages_needed(prompt + max_new)`` device pages up front; a spill
+moves only the ``ceil(prompt / page_size)`` pages that hold keys.
+
+Host<->device page copies are ``non_blocking`` copies on the current
+stream, so they are ordered with the decode ticks on that stream and never
+wait for the host. Running them on a side stream to overlap the tick is
+later work. The free lists are LIFO, so churn scrambles page placement;
+the page table makes that free.
+
+Only layer caches that page are ported: a pool over per-slot state leaves
+(recurrent state, local-attention rings) raises.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models import kvquant
+from repro_torch.models import transformer as tr
+from repro_torch.models.layers import DTYPES, is_def
+from repro_torch.models.paging import PAGED_LEAF_KEYS
+from repro_torch.obs import Obs, get_obs
+
+__all__ = ["PagedKVPool", "PAGED_LEAF_KEYS"]
+
+
+def _flatten(tree, prefix: Tuple[str, ...] = ()):
+    """[(key path, leaf)] of a nested dict, in key order."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.extend(_flatten(v, prefix + (k,)))
+        else:
+            out.append((prefix + (k,), v))
+    return out
+
+
+def _set(tree, keys, value):
+    for k in keys[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[keys[-1]] = value
+
+
+def _get(tree, keys):
+    for k in keys:
+        tree = tree[k]
+    return tree
+
+
+@dataclass
+class _Entry:
+    reserve_pages: int          # device pages reserved at admission
+    content_pages: int          # pages actually holding prefilled keys
+    length: int                 # valid prompt tokens
+    where: str                  # "host" | "staged" | "dev"
+    host_ids: Optional[np.ndarray] = None
+    host_slot: Optional[int] = None
+    slot: Optional[int] = None
+    dev_ids: Optional[np.ndarray] = None   # arena rows owned (staged/dev)
+
+
+class PagedKVPool:
+    def __init__(self, model, *, slots: int, max_len: int, page_size: int,
+                 device_pages: int, host_pages: int, device,
+                 host_slots: Optional[int] = None, cache_defs=None,
+                 kv_dtype: str = "model", obs: Optional[Obs] = None):
+        cfg = model.cfg
+        self._obs = obs if obs is not None else get_obs()
+        if max_len % page_size:
+            raise ValueError(
+                f"page_size={page_size} must divide max_len={max_len}: a "
+                "ragged tail page would make spill's page reshape and the "
+                "page table's fixed width disagree about the content extent")
+        self.device = torch.device(device)
+        self.slots, self.max_len, self.page_size = slots, max_len, page_size
+        self.device_pages = device_pages
+        self.max_pages = max_len // page_size
+        self.null_page = device_pages
+        self.kv_dtype = kvquant.validate_kv_dtype(kv_dtype)
+        base = tr.cache_defs(cfg, slots, max_len)
+        if kvquant.is_int8(self.kv_dtype):
+            # int8 KV pages: both arenas store codes + per-row scales
+            base = kvquant.quantize_cache_defs(base, max_len)
+        # spilled requests the host arena holds at once
+        host_slots = host_slots if host_slots is not None else max(
+            host_pages // max(self.max_pages, 1), 1)
+        pin = self.device.type == "cuda"
+
+        # leaf path -> has a leading ("layers",) axis
+        self._stacked: Dict[Tuple[str, ...], bool] = {}
+        self._host: Dict[Tuple[str, ...], torch.Tensor] = {}
+        self.cache: Dict = {}
+        # bytes one page moves across all leaves: the spans' byte accounting
+        self._page_bytes = 0
+        for keys, d in _flatten(base):
+            assert is_def(d)
+            stacked = keys[0].startswith("stack")
+            ba = 1 if stacked else 0
+            if not (keys[-1] in PAGED_LEAF_KEYS and len(d.shape) > ba + 1
+                    and d.shape[ba + 1] == max_len):
+                raise NotImplementedError(
+                    f"cache leaf {'/'.join(keys)} does not page; per-slot "
+                    "state leaves are not ported yet")
+            self._stacked[keys] = stacked
+            lead, tail = d.shape[:ba], d.shape[ba + 2:]
+            dt = DTYPES[d.dtype]
+            # every host page is written (spill) before it is read (prefetch)
+            self._host[keys] = torch.empty(
+                (host_pages,) + lead + (page_size,) + tail, dtype=dt,
+                pin_memory=pin)
+            self._page_bytes += self._host[keys][0].nbytes
+            _set(self.cache, keys, torch.zeros(
+                lead + (device_pages + 1, page_size) + tail, dtype=dt,
+                device=self.device))
+        self._ptab = np.full((slots, self.max_pages), self.null_page, np.int32)
+        self.cache["page_table"] = torch.from_numpy(self._ptab.copy()).to(self.device)
+        if cache_defs is not None:
+            self._check_layout(cache_defs)
+
+        self._free_dev: List[int] = list(range(device_pages))
+        self._free_host_pages: List[int] = list(range(host_pages))
+        self._free_host_slots: List[int] = list(range(host_slots))
+        self._table: Dict[int, _Entry] = {}
+        self._resident = 0          # reserved device pages (active slots)
+        # the JAX pool's stat keys, all kept so the engine's metrics() key set
+        # matches; preemption and fault injection are not ported, so those
+        # counters stay 0, and repack_pages is 0 by construction
+        self.stats = {"spilled_pages": 0, "fetched_pages": 0,
+                      "prefetched_pages": 0, "direct_pages": 0,
+                      "peak_resident_pages": 0, "spilled_requests": 0,
+                      "preempted_requests": 0, "preempted_pages": 0,
+                      "injected_exhaustions": 0, "repack_pages": 0}
+
+    def _check_layout(self, defs) -> None:
+        """The arenas must be laid out as the decode step expects."""
+        want = {keys: (tuple(d.shape), DTYPES[d.dtype]) for keys, d in _flatten(defs)}
+        have = {keys: (tuple(t.shape), t.dtype) for keys, t in _flatten(self.cache)}
+        if want != have:
+            raise ValueError(f"pool cache layout {have} != decode step's {want}")
+
+    # ---- admission arithmetic --------------------------------------------
+    def pages_needed(self, total_len: int) -> int:
+        return -(-min(total_len, self.max_len) // self.page_size)
+
+    def _has_dev(self, n_pages: int) -> bool:
+        return n_pages <= len(self._free_dev)
+
+    def _has_host(self, content_pages: int) -> bool:
+        return (len(self._free_host_pages) >= content_pages
+                and len(self._free_host_slots) >= 1)
+
+    def can_reserve(self, n_pages: int) -> bool:
+        return self._has_dev(n_pages)
+
+    def can_spill(self, content_pages: int) -> bool:
+        return self._has_host(content_pages)
+
+    def status(self, rid: int) -> Optional[str]:
+        """"host" | "staged" | "dev" | None (not pooled)."""
+        e = self._table.get(rid)
+        return e.where if e is not None else None
+
+    # ---- page movement ----------------------------------------------------
+    def _pages(self, leaf, stacked: bool, n: int):
+        """The first n pages of a B=1 request cache leaf, page-major:
+        [*lead, 1, max_len, ...] -> [n, *lead, ps, ...] (contiguous)."""
+        ps = self.page_size
+        if stacked:
+            block = leaf[:, 0, :n * ps]
+            return block.reshape((block.shape[0], n, ps) + tuple(block.shape[2:])
+                                 ).transpose(0, 1).contiguous()
+        block = leaf[0, :n * ps]
+        return block.reshape((n, ps) + tuple(block.shape[1:])).contiguous()
+
+    def _arena_page(self, keys, page: int):
+        """One device arena page of a leaf: a view [*lead, ps, ...]."""
+        arena = _get(self.cache, keys)
+        return arena[:, page] if self._stacked[keys] else arena[page]
+
+    def _host_to_arena(self, e: _Entry) -> None:
+        """Copy a request's content pages from the host arena into its
+        claimed device pages."""
+        for keys in self._stacked:
+            host = self._host[keys]
+            for hid, pid in zip(e.host_ids[:e.content_pages],
+                                e.dev_ids[:e.content_pages]):
+                self._arena_page(keys, int(pid)).copy_(host[int(hid)],
+                                                       non_blocking=True)
+
+    def _sync_table(self):
+        """Copy the numpy master page table into the cache's table tensor,
+        in place (the JAX pool swaps in a new array that the decode step
+        then donates)."""
+        self.cache["page_table"].copy_(torch.from_numpy(self._ptab))
+
+    def _map_slot(self, slot: int, dev_ids: Optional[np.ndarray]):
+        """Point a slot's table row at its arena pages (unmapped logical
+        pages stay on the null page)."""
+        row = np.full((self.max_pages,), self.null_page, np.int32)
+        if dev_ids is not None and len(dev_ids):
+            row[:len(dev_ids)] = dev_ids
+        self._ptab[slot] = row
+        self._sync_table()
+
+    def _ingest(self, req_cache):
+        """Prefill output enters the pool at model width; int8 pools
+        quantize it here, so prefill math itself stays untouched."""
+        if kvquant.is_int8(self.kv_dtype):
+            return kvquant.quantize_cache_tree(req_cache, self.max_len)
+        return req_cache
+
+    def _claim_dev(self, n: int) -> np.ndarray:
+        assert n <= len(self._free_dev), "device arena page budget exceeded"
+        return np.asarray([self._free_dev.pop() for _ in range(n)], np.int32)
+
+    def _swap_bytes(self, pages: int) -> int:
+        return pages * self._page_bytes
+
+    # ---- lifecycle --------------------------------------------------------
+    def spill(self, rid: int, req_cache, length: int,
+              reserve_pages: int) -> None:
+        """Copy a prefilled request's content pages out to the host arena
+        (the cold path a request takes when no slot admits it yet)."""
+        with self._obs.span("pool.spill", rid=rid, cls="kvcache") as ev:
+            req_cache = self._ingest(req_cache)
+            n = self.pages_needed(length)
+            ev.attrs.update(pages=n, bytes=self._swap_bytes(n))
+            assert self._has_host(n), f"host arena full (need {n} pages)"
+            assert rid not in self._table, f"request {rid} already pooled"
+            ids = np.asarray([self._free_host_pages.pop() for _ in range(n)],
+                             np.int32)
+            hslot = self._free_host_slots.pop()
+            if n:
+                for keys, leaf in _flatten(req_cache):
+                    pages = self._pages(leaf, self._stacked[keys], n)
+                    host = self._host[keys]
+                    for j, hid in enumerate(ids):
+                        host[int(hid)].copy_(pages[j], non_blocking=True)
+            self._table[rid] = _Entry(reserve_pages, n, length, "host",
+                                      host_ids=ids, host_slot=hslot)
+        self.stats["spilled_pages"] += int(n)
+        self.stats["spilled_requests"] += 1
+
+    def prefetch(self, rid: int) -> bool:
+        """Claim a spilled request's device pages and copy its content
+        pages into the arena ahead of its slot attach, so the attach is a
+        pure page-table edit. The full reservation is claimed here so the
+        attach can never find the budget taken. No-op unless the request is
+        host-resident and the budget admits it."""
+        e = self._table.get(rid)
+        if e is None or e.where != "host":
+            return False
+        if not self._has_dev(e.reserve_pages):
+            return False
+        with self._obs.span("pool.prefetch", rid=rid, cls="kvcache",
+                            pages=int(e.content_pages),
+                            bytes=self._swap_bytes(e.content_pages)):
+            e.dev_ids = self._claim_dev(e.reserve_pages)
+            self._host_to_arena(e)
+        e.where = "staged"
+        self.stats["prefetched_pages"] += int(e.content_pages)
+        return True
+
+    def attach(self, rid: int, slot: int) -> None:
+        """Map a spilled (or staged) request into a free slot. A staged
+        request's pages already sit in the arena, so this is only a
+        page-table edit; a host-resident one pays the copy here."""
+        e = self._table[rid]
+        assert e.where in ("host", "staged"), e.where
+        moved = self._swap_bytes(e.content_pages) if e.where == "host" else 0
+        with self._obs.span("pool.attach", rid=rid, slot=slot, cls="kvcache",
+                            staged=(e.where == "staged"), bytes=moved):
+            if e.where == "host":
+                e.dev_ids = self._claim_dev(e.reserve_pages)
+                self._host_to_arena(e)
+                self.stats["fetched_pages"] += int(e.content_pages)
+        self._map_slot(slot, e.dev_ids)
+        self._free_host_pages.extend(int(i) for i in e.host_ids)
+        self._free_host_slots.append(e.host_slot)
+        e.host_ids, e.host_slot = None, None
+        e.where, e.slot = "dev", slot
+        self._resident += e.reserve_pages
+        self.stats["peak_resident_pages"] = max(
+            self.stats["peak_resident_pages"], self._resident)
+
+    def attach_fresh(self, rid: int, slot: int, req_cache, length: int,
+                     reserve_pages: int) -> None:
+        """Hot path: a slot was free at admission, so the prefilled pages go
+        straight from the prefill output into freshly claimed arena rows —
+        no host hop — and the slot's table row is pointed at them."""
+        assert rid not in self._table, f"request {rid} already pooled"
+        req_cache = self._ingest(req_cache)
+        n = self.pages_needed(length)
+        assert self._has_dev(reserve_pages), "admission check missing"
+        dev_ids = self._claim_dev(reserve_pages)
+        with self._obs.span("pool.attach_fresh", rid=rid, slot=slot,
+                            cls="kvcache", pages=n,
+                            bytes=self._swap_bytes(n)):
+            if n:
+                rows = torch.from_numpy(dev_ids[:n].astype(np.int64)).to(self.device)
+                for keys, leaf in _flatten(req_cache):
+                    arena = _get(self.cache, keys)
+                    pages = self._pages(leaf, self._stacked[keys], n)
+                    if self._stacked[keys]:
+                        arena[:, rows] = pages.transpose(0, 1)
+                    else:
+                        arena[rows] = pages
+        self._table[rid] = _Entry(reserve_pages, n, length, "dev", slot=slot,
+                                  dev_ids=dev_ids)
+        self._map_slot(slot, dev_ids)
+        self._resident += reserve_pages
+        self.stats["direct_pages"] += int(n)
+        self.stats["peak_resident_pages"] = max(
+            self.stats["peak_resident_pages"], self._resident)
+
+    def release(self, rid: int) -> None:
+        """Return a finished request's pages: null the slot's table row and
+        push its arena rows back on the free list — pointer writes only."""
+        e = self._table.pop(rid)
+        assert e.where == "dev", f"release of non-resident request: {e.where}"
+        self._obs.instant("pool.release", rid=rid, pages=int(e.reserve_pages))
+        self._resident -= e.reserve_pages
+        self._free_dev.extend(int(i) for i in e.dev_ids)
+        self._ptab[e.slot] = self.null_page
+        self._sync_table()
+
+    def drop(self, rid: int) -> None:
+        """Free everything a request holds, wherever it is — the terminal
+        path for cancelled / timed-out / failed requests (release() is the
+        happy path and insists on device residency)."""
+        e = self._table.pop(rid, None)
+        if e is None:
+            return
+        if e.where == "dev":
+            self._resident -= e.reserve_pages
+        if e.dev_ids is not None:
+            self._free_dev.extend(int(i) for i in e.dev_ids)
+        if e.host_ids is not None:
+            self._free_host_pages.extend(int(i) for i in e.host_ids)
+        if e.host_slot is not None:
+            self._free_host_slots.append(e.host_slot)
+        if e.where == "dev":
+            self._ptab[e.slot] = self.null_page
+            self._sync_table()
