@@ -10,23 +10,35 @@ non-zero, printing no result):
    printed raw on a line of its own);
 2. build — the CUDA kernels built from the repo's sources (seconds);
 3. kernels — each kernel on the card against its plain PyTorch version at
-   every shape the served trace gives it and at a long-context shape, with
+   every shape the paths below give it and at a long-context shape, with
    its time, the plain version's, the least time the card could take
-   (bound) and, for decode, one PyTorch SDPA call on gathered caches as a
-   yardstick (never called by the port);
-4. engine — the serve engine at the full width of qwen2.5-14b, first at 2
-   layers, then at the full 48 (random bf16 weights from a seed), serving
-   8 requests with half the device pages full residency needs, so the
-   backlog spills to pinned host memory; each with model-width KV pages,
-   then int8. Every kernel launch's shape must be one the kernel phases
-   checked, and the logits are held against a dense one-shot pass over
-   each request's prompt and tokens;
-5. determinism — the 48-layer model-width trace again, token for token;
-6. profile — that trace once more under torch.profiler: the device's busy
+   (bound) and, where one exists, one PyTorch call computing the same
+   function (SDPA) as a yardstick, never called by the port;
+4. reference (qwen2.5-14b at full width, 2 layers, random bf16 weights
+   from a seed) — the serve engine with model-width and int8 KV pages;
+   the engine with the flash-attention prefill (attn_impl="pallas",
+   whole-prompt prefill); the static whole-batch loop (`run_static`:
+   flash-attention prefill, then lockstep decode through the
+   slot-contiguous flash-decode kernel, whose greedy tokens may part from
+   the engine's only at a narrow dense margin); the slot decode step
+   without a page arena against the paged one, bf16 and int8. Logits are
+   held against a dense one-shot pass over each request's prompt and
+   tokens;
+5. engine and static at the full 48 layers — the engine serving 8
+   requests with half the device pages full residency needs (the backlog
+   spills to pinned host memory), with model-width then int8 KV pages;
+   then `run_static` on the same weights, held to the same loop with its
+   kernels swapped for their plain versions (teacher-forced), its dense
+   deviation and its parity with the engine's tokens reported;
+6. determinism — the 48-layer model-width trace again, token for token;
+7. profile — that trace once more under torch.profiler: the device's busy
    share and its top kernels.
 
-The line before the last lists every ported kernel with its launches on
-the main path; the last line is {"ok": true, "device": {...}}.
+Every run of a path records the shape of each kernel call and fails on one
+the kernel phases did not check, and its launch counts are reset just
+before and read just after. The line before the last lists every ported
+kernel with its launches on the main path; the last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -43,6 +55,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12          # CUDA cores, outside the tensor cores
+BF16_TENSOR_FLOPS_PER_S = 989e12  # tensor cores, dense
 
 ARCH = "qwen2.5-14b"
 H, K, D, PAGE = 40, 8, 128, 16   # qwen2.5-14b attention
@@ -57,11 +70,12 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
     """-> (bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    operations over the f32 peak (the kernels compute in f32)."""
+    operations over the card's peak for their type (f32 on the CUDA cores
+    by default; bf16 products on the tensor cores where the work is one)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -125,16 +139,27 @@ def build_phase():
           "cuda_flags": list(_build.CUDA_FLAGS)})
 
 
-def _paged_inputs(kv_lens, seed, pages=None, max_pages=None):
-    """q + bf16 arenas + a scrambled table on the card: each slot owns
-    distinct random pages in random order; empty slots and unused entries
-    point at the null page (the last row); spare pages and the null page
-    hold garbage. `pages` (arena rows less the null page) and `max_pages`
-    (table width) default to what kv_lens need, plus 8 spare pages."""
+def _decode_inputs(kv_lens, seed, paged: bool, pages=None, max_pages=None, smax=None):
+    """q + bf16 caches on the card. Paged: arenas and a scrambled table,
+    each slot owning distinct random pages in random order; empty slots
+    and unused entries point at the null page (the last row); spare pages
+    and the null page hold garbage. `pages` (arena rows less the null page)
+    and `max_pages` (table width) default to what kv_lens need, plus 8
+    spare pages. Contiguous: caches [B, smax, K, D] whose positions past
+    each kv_len hold garbage. -> (q, k, v, kv_len, table or None)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     b = len(kv_lens)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    q = torch.randn((b, H, D), generator=gen, device=dev).bfloat16()
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    if not paged:
+        assert max(kv_lens) <= smax
+        k = torch.randn((b, smax, K, D), generator=gen, device=dev).bfloat16()
+        v = torch.randn((b, smax, K, D), generator=gen, device=dev).bfloat16()
+        return q, k, v, kvl, None
     need = sum(-(-n // PAGE) for n in kv_lens)
     max_pages = max_pages or -(-max(kv_lens) // PAGE)
     pages = pages or need + 8
@@ -146,13 +171,9 @@ def _paged_inputs(kv_lens, seed, pages=None, max_pages=None):
         need = -(-n // PAGE)
         tab[i, :need] = perm[nxt:nxt + need]
         nxt += need
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    dev = "cuda"
-    q = torch.randn((b, H, D), generator=gen, device=dev).bfloat16()
     k = torch.randn((pages + 1, PAGE, K, D), generator=gen, device=dev).bfloat16()
     v = torch.randn((pages + 1, PAGE, K, D), generator=gen, device=dev).bfloat16()
-    return (q, k, v, torch.tensor(kv_lens, dtype=torch.int32, device=dev),
-            torch.from_numpy(tab).to(dev))
+    return q, k, v, kvl, torch.from_numpy(tab).to(dev)
 
 
 def _sdpa_ms(q, kc, vc, kv_len):
@@ -168,10 +189,22 @@ def _sdpa_ms(q, kc, vc, kv_len):
         qs, ks, vs, attn_mask=mask, enable_gqa=True))
 
 
-def decode_sig(q, k_pages, page_table):
-    """What the decode kernel's launch depends on besides the data."""
+# What each kernel's launch depends on besides the data: a run of a path
+# fails on a call whose signature no kernel phase checked.
+
+def attention_sig(q, k, causal, window, q_offset):
+    if q_offset is None:
+        q_offset = k.shape[1] - q.shape[1] if causal else 0
+    return ("flash_attention", tuple(q.shape), str(q.dtype), tuple(k.shape),
+            bool(causal), int(window), int(q_offset))
+
+
+def decode_sig(q, k, page_table=None):
+    """q [B,H,D]; k the cache (or arena, with its table)."""
+    if page_table is None:
+        return ("flash_decode", tuple(q.shape), str(q.dtype), tuple(k.shape), str(k.dtype))
     return ("flash_decode_paged", tuple(q.shape), str(q.dtype),
-            tuple(k_pages.shape), str(k_pages.dtype), tuple(page_table.shape))
+            tuple(k.shape), str(k.dtype), tuple(page_table.shape))
 
 
 def quantize_sig(x):
@@ -179,13 +212,17 @@ def quantize_sig(x):
 
 
 def decode_kernel_phase(shape: str, kv_lens, int8: bool, seed: int, checked: set,
-                        pages=None, max_pages=None):
+                        paged: bool = True, pages=None, max_pages=None, smax=None):
+    """One decode kernel (paged, or slot-contiguous with `smax` positions)
+    against its plain version: within one bf16 ulp of each output row's
+    largest |o|, and exact zeros for kv_len 0."""
     import torch
-    from repro_torch.kernels.flash_attention.ops import flash_decode_paged_cuda
+    from repro_torch.kernels.flash_attention.ops import (flash_decode_cuda,
+                                                         flash_decode_paged_cuda)
     from repro_torch.kernels.flash_attention.ref import (flash_decode_paged_ref,
-                                                         gather_pages)
+                                                         flash_decode_ref, gather_pages)
     from repro_torch.kernels.quantize.ref import quantize_ref
-    q, k, v, kvl, tab = _paged_inputs(kv_lens, seed, pages, max_pages)
+    q, k, v, kvl, tab = _decode_inputs(kv_lens, seed, paged, pages, max_pages, smax)
     kw = {}
     if int8:
         def quant(x):
@@ -194,46 +231,137 @@ def decode_kernel_phase(shape: str, kv_lens, int8: bool, seed: int, checked: set
         k, ks = quant(k)
         v, vs = quant(v)
         kw = {"k_scale": ks, "v_scale": vs}
-    out = flash_decode_paged_cuda(q, k, v, kvl, tab, **kw)
+    if paged:
+        def kernel():
+            return flash_decode_paged_cuda(q, k, v, kvl, tab, **kw)
+
+        def plain():
+            return flash_decode_paged_ref(q, k, v, kvl, tab, **kw)
+
+        def dense(x):
+            return gather_pages(x, tab)
+    else:
+        def kernel():
+            return flash_decode_cuda(q, k, v, kvl, **kw)
+
+        def plain():
+            return flash_decode_ref(q, k, v, kvl, **kw)
+
+        def dense(x):
+            return x
+    out = kernel()
     torch.cuda.synchronize()
-    plain = flash_decode_paged_ref(q, k, v, kvl, tab, **kw)
-    err = (out.float() - plain.float()).abs()
-    ulps = (err / bf16_row_ulp(plain)).max().item()
+    want = plain()
+    err = (out.float() - want.float()).abs()
+    ulps = (err / bf16_row_ulp(want)).max().item()
     ok = ulps <= 1.0
     zeros = bool((out[kvl == 0] == 0).all())
+    name = ("flash_decode_paged_" if paged else "flash_decode_") + ("int8" if int8 else "bf16")
     if not (ok and zeros and torch.isfinite(out).all()):
-        raise AssertionError(f"decode {shape} int8={int8}: kernel vs plain max "
-                             f"|diff| {err.max().item()} ({ulps} row ulps), "
-                             f"zeros={zeros}")
+        raise AssertionError(f"{name} {shape}: kernel vs plain max |diff| "
+                             f"{err.max().item()} ({ulps} row ulps), zeros={zeros}")
     checked.add(decode_sig(q, k, tab))
-    kernel_ms = time_ms(lambda: flash_decode_paged_cuda(q, k, v, kvl, tab, **kw))
-    plain_ms = time_ms(lambda: flash_decode_paged_ref(q, k, v, kvl, tab, **kw),
-                       iters=10, warmup=2)
+    kernel_ms = time_ms(kernel)
+    plain_ms = time_ms(plain, iters=10, warmup=2)
     # the yardstick sees the same values as slot-contiguous bf16 caches
-    kc, vc = gather_pages(k, tab), gather_pages(v, tab)
+    kc, vc = dense(k), dense(v)
     if int8:
-        kc = (kc.float() * gather_pages(ks, tab)[..., None]).bfloat16()
-        vc = (vc.float() * gather_pages(vs, tab)[..., None]).bfloat16()
+        kc = (kc.float() * dense(ks)[..., None]).bfloat16()
+        vc = (vc.float() * dense(vs)[..., None]).bfloat16()
     library_ms = _sdpa_ms(q, kc, vc, kvl)
     b = len(kv_lens)
     tokens = sum(kv_lens)
     kv_bytes = tokens * K * D * (1 if int8 else 2) * 2
     if int8:
         kv_bytes += tokens * K * 4 * 2
-    table_bytes = sum(-(-n // PAGE) for n in kv_lens) * 4 + b * 4
-    nbytes = 2 * b * H * D * 2 + kv_bytes + table_bytes
+    table_bytes = sum(-(-n // PAGE) for n in kv_lens) * 4 if paged else 0
+    nbytes = 2 * b * H * D * 2 + kv_bytes + table_bytes + b * 4
     flops = 4 * H * D * tokens + (2 * K * D * tokens * 2 if int8 else 0)
     bound_ms, bound_by = bound(nbytes, flops)
-    row = {"phase": "kernel", "kernel": "flash_decode_paged_" + ("int8" if int8 else "bf16"),
-           "shape": shape, "slots": b, "arena_pages": k.shape[0],
-           "table_width": tab.shape[1], "kv_len_min": min(kv_lens),
-           "kv_len_max": max(kv_lens), "kv_tokens": tokens,
-           "max_abs_err": err.max().item(), "max_row_ulps": ulps,
+    row = {"phase": "kernel", "kernel": name, "shape": shape, "slots": b,
+           "cache": list(k.shape), "kv_len_min": min(kv_lens), "kv_len_max": max(kv_lens),
+           "kv_tokens": tokens, "max_abs_err": err.max().item(), "max_row_ulps": ulps,
            "tolerance": "1 bf16 ulp of each row's max |plain|",
            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms,
            "library": "F.scaled_dot_product_attention(enable_gqa=True)"}
+    if paged:
+        row["table_width"] = tab.shape[1]
     emit(row)
+    return row
+
+
+def attention_kernel_phase(shape: str, b: int, sq: int, seed: int, checked: set, *,
+                           skv=None, heads=H, kv_heads=K, d=D, dtype="bfloat16",
+                           window=0, q_offset=0):
+    """The flash-attention kernel (causal) against its plain version: within
+    one bf16 ulp of each output row's largest |o| (f32 inputs: 1e-5 of
+    it), and exact zeros on rows with no visible key."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                         flash_attention_ref)
+    skv = skv or sq
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(shp, generator=gen, device="cuda").to(dt)
+               for shp in ((b, sq, heads, d), (b, skv, kv_heads, d), (b, skv, kv_heads, d)))
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))   # kernel layout
+
+    def kernel():
+        return flash_attention_cuda(q, k, v, **kw)
+
+    def plain():
+        return flash_attention_ref(qt, kt, vt, **kw)
+    out = kernel()
+    torch.cuda.synchronize()
+    want = plain().transpose(1, 2)
+    err = (out.float() - want.float()).abs()
+    if dtype == "bfloat16":
+        unit, tol = bf16_row_ulp(want), 1.0
+    else:
+        unit, tol = want.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30), 1e-5
+    worst = (err / unit).max().item()
+    off = k.shape[1] - sq if q_offset is None else q_offset
+    mask = attention_mask(sq, skv, "cuda", causal=True, window=window, q_offset=off)
+    empty = ~mask.any(dim=-1)                                     # rows with no key
+    zeros = bool((out[:, empty] == 0).all())
+    if not (worst <= tol and zeros and torch.isfinite(out).all()):
+        raise AssertionError(f"flash_attention {shape}: kernel vs plain max |diff| "
+                             f"{err.max().item()} ({worst} of the tolerance unit), "
+                             f"zeros={zeros}")
+    checked.add(attention_sig(q, k, True, window, q_offset))
+    kernel_ms = time_ms(kernel, iters=20, warmup=3)
+    plain_ms = time_ms(plain, iters=5, warmup=1)
+    if q_offset == 0 and window == 0 and sq == skv:
+        sdpa_kw = {"is_causal": True}
+    else:   # SDPA's causal mask is top-left aligned: give it ours
+        sdpa_kw = {"attn_mask": mask}
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True, **sdpa_kw), iters=20, warmup=3)
+    pairs = int(mask.sum().item())                 # (query, key) pairs this run computes
+    esize = q.element_size()
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * esize
+    flops = 4 * d * pairs * b * heads
+    peak = BF16_TENSOR_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+    bound_ms, bound_by = bound(nbytes, flops, peak)
+    row = {"phase": "kernel", "kernel": "flash_attention_fwd", "shape": shape,
+           "q": list(q.shape), "kv": list(k.shape), "dtype": dtype, "window": window,
+           "q_offset": q_offset, "pairs": pairs * b * heads, "gflop": flops / 1e9,
+           "rows_without_key": int(empty.sum().item()), "max_abs_err": err.max().item(),
+           "max_err_over_unit": worst,
+           "tolerance": ("1 bf16 ulp of each row's max |plain|" if dtype == "bfloat16"
+                         else "1e-5 of each row's max |plain|"),
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bound_peak": peak, "library_ms": library_ms,
+           "library": "F.scaled_dot_product_attention(enable_gqa=True, "
+                      + ("is_causal=True)" if "is_causal" in sdpa_kw else "attn_mask=mask)"),
+           "kernel_tflop_s": flops / kernel_ms / 1e9}
+    emit(row)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
     return row
 
 
@@ -264,15 +392,49 @@ def quantize_kernel_phase(shape: str, rows: int, seed: int, checked: set):
 
 
 def kernel_phases(num_layers: int):
-    """Each kernel against its plain version at every shape the served
-    trace gives it (the engine's arena and table for decode; each decoded
-    token's rows, and the pool's quantize of a prefill cache of 2 and of
-    num_layers layers) and at a long-context shape. -> ({kernel: [rows]},
-    the launch signatures checked)."""
+    """Each kernel against its plain version at every shape the paths give
+    it and at a long-context shape: flash attention at the static prefill
+    (8 prompts of 128), the engine's whole-prompt prefill (1 of 128) and a
+    long prompt, plus f32 / window / offset branches; slot-contiguous
+    decode at the static loop's cache (8 x 160, kv_len 129..159) and the
+    slot decode's (4 x 160, ragged with a 0), bf16 and int8; paged decode
+    at the engine's arena and table; quantize at each decoded token's rows
+    and the pool's quantize of a prefill cache of 2 and of num_layers
+    layers. The first row of each kernel is the main path's shape.
+    -> ({kernel: [rows]}, the launch signatures checked)."""
     import numpy as np
     rng = np.random.default_rng(SEED)
     long_lens = [int(n) for n in rng.integers(2048, 4097, 16)]
     out, checked = {}, set()
+    out["flash_attention_fwd"] = [
+        attention_kernel_phase("static_prefill", REQUESTS, PROMPT, 11, checked),
+        attention_kernel_phase("engine_prefill", 1, PROMPT, 12, checked),
+        attention_kernel_phase("long_prompt", 2, 4096, 13, checked),
+        attention_kernel_phase("f32_window_offset", 2, 100, 14, checked, skv=230, heads=10,
+                               kv_heads=2, d=64, dtype="float32", window=50, q_offset=130),
+        attention_kernel_phase("rows_without_key", 1, 96, 15, checked, skv=80, heads=4,
+                               kv_heads=4, d=256, q_offset=None),
+    ]
+    # the static loop's decode steps see kv_len PROMPT + 1 .. MAX_LEN - 1
+    static_lens = [(PROMPT + 1 + MAX_LEN - 1) // 2] * REQUESTS
+    out["flash_decode_bf16"] = [
+        decode_kernel_phase("static_decode", static_lens, False, 16, checked, paged=False,
+                            smax=MAX_LEN),
+        decode_kernel_phase("static_decode_first", [PROMPT + 1] * REQUESTS, False, 17, checked,
+                            paged=False, smax=MAX_LEN),
+        decode_kernel_phase("static_decode_last", [MAX_LEN - 1] * REQUESTS, False, 18, checked,
+                            paged=False, smax=MAX_LEN),
+        decode_kernel_phase("slot_decode", [160, 97, 0, 33], False, 19, checked, paged=False,
+                            smax=MAX_LEN),
+        decode_kernel_phase("long_context", long_lens, False, 20, checked, paged=False,
+                            smax=4096),
+    ]
+    out["flash_decode_int8"] = [
+        decode_kernel_phase("slot_decode", [160, 97, 0, 33], True, 21, checked, paged=False,
+                            smax=MAX_LEN),
+        decode_kernel_phase("long_context", long_lens, True, 22, checked, paged=False,
+                            smax=4096),
+    ]
     for int8 in (False, True):
         name = "flash_decode_paged_" + ("int8" if int8 else "bf16")
         out[name] = [decode_kernel_phase("engine", [160, 97, 0, 33], int8, 1, checked,
@@ -288,42 +450,70 @@ def kernel_phases(num_layers: int):
     return out, checked
 
 
-@contextlib.contextmanager
-def launch_signatures():
-    """Record the launch signature of every kernel call inside the block.
-    The dispatchers the model calls through (`flash_decode_paged`,
-    `quantize`) are swapped for recording stand-ins that call them; the
-    wrappers below them launch and count as always. -> (signatures seen,
-    {kernel: calls recorded}), for the caller to match against the
-    wrappers' launch counts."""
+# the CUDA launchers whose counts a run of a path resets and reads
+def _launchers():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.quantize import ops as q_ops
-    seen, calls = set(), {"flash_decode_paged": 0, "quantize_rows": 0}
-    decode, quantize = fa_ops.flash_decode_paged, q_ops.quantize
+    return {"flash_attention": fa_ops.flash_attention_cuda,
+            "flash_decode": fa_ops.flash_decode_cuda,
+            "flash_decode_paged": fa_ops.flash_decode_paged_cuda,
+            "quantize_rows": q_ops.quantize_cuda}
 
-    def decode_spy(q, k_pages, v_pages, kv_len, page_table, **kw):
+
+@contextlib.contextmanager
+def launch_signatures():
+    """Record the launch signature of every kernel call inside the block,
+    with every launch count set to 0 on entry. The dispatchers the model
+    calls through (`flash_attention`, `flash_decode`, `flash_decode_paged`,
+    `quantize`) are swapped for recording stand-ins that call them; the
+    wrappers below them launch and count as always. -> (signatures seen,
+    {kernel: calls recorded}, {kernel: launches}), the last filled on exit,
+    for the caller to match the calls against."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.quantize import ops as q_ops
+    launchers = _launchers()
+    seen, calls, launches = set(), {name: 0 for name in launchers}, {}
+    attend, decode, paged, quantize = (fa_ops.flash_attention, fa_ops.flash_decode,
+                                       fa_ops.flash_decode_paged, q_ops.quantize)
+
+    def attend_spy(q, k, v, *, causal=True, window=0, q_offset=None):
+        seen.add(attention_sig(q, k, causal, window, q_offset))
+        calls["flash_attention"] += 1
+        return attend(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+    def decode_spy(q, k_cache, v_cache, kv_len, **kw):
+        seen.add(decode_sig(q[:, 0] if q.dim() == 4 else q, k_cache))
+        calls["flash_decode"] += 1
+        return decode(q, k_cache, v_cache, kv_len, **kw)
+
+    def paged_spy(q, k_pages, v_pages, kv_len, page_table, **kw):
         seen.add(decode_sig(q[:, 0] if q.dim() == 4 else q, k_pages, page_table))
         calls["flash_decode_paged"] += 1
-        return decode(q, k_pages, v_pages, kv_len, page_table, **kw)
+        return paged(q, k_pages, v_pages, kv_len, page_table, **kw)
 
     def quantize_spy(x):
         seen.add(quantize_sig(x))
         calls["quantize_rows"] += 1
         return quantize(x)
-    fa_ops.flash_decode_paged, q_ops.quantize = decode_spy, quantize_spy
+    (fa_ops.flash_attention, fa_ops.flash_decode, fa_ops.flash_decode_paged,
+     q_ops.quantize) = attend_spy, decode_spy, paged_spy, quantize_spy
+    for fn in launchers.values():
+        fn.launches = 0
     try:
-        yield seen, calls
+        yield seen, calls, launches
     finally:
-        fa_ops.flash_decode_paged, q_ops.quantize = decode, quantize
+        (fa_ops.flash_attention, fa_ops.flash_decode, fa_ops.flash_decode_paged,
+         q_ops.quantize) = attend, decode, paged, quantize
+        launches.update({name: fn.launches for name, fn in launchers.items()})
 
 
-def _serve(model, params, kv_dtype, rows=None, around_run=None):
+def _serve(model, params, kv_dtype, rows=None, around_run=None, prefill_chunk=CHUNK):
     """Serve the trace once, inside `around_run` (a context manager) if
     given; -> (engine, requests, finite logits?, seconds of eng.run)."""
     import numpy as np
     from repro_torch.serve import ServeEngine, synth_requests
     eng = ServeEngine(model, slots=SLOTS, max_len=MAX_LEN, page_size=PAGE,
-                      prefill_chunk=CHUNK, device_pages=DEVICE_PAGES, params=params,
+                      prefill_chunk=prefill_chunk, device_pages=DEVICE_PAGES, params=params,
                       kv_dtype=kv_dtype, device="cuda")
     finite = [True]
     select = eng._select
@@ -343,73 +533,84 @@ def _serve(model, params, kv_dtype, rows=None, around_run=None):
     return eng, reqs, finite[0], wall
 
 
-def _dense_deviation(model, params, reqs, rows):
-    """The engine's logits rows (chunked prefill, then paged decode through
-    the kernels, with spills and returns) of the first and last request
-    against one dense pass over each one's prompt and generated tokens at
-    model width. -> {"worst": max over rows of max |diff| / max |dense|,
-    "prefill_row": the same for the prefill rows alone, "argmax_mismatches":
-    rows whose argmax differs where the dense top-2 margin exceeds 2**-4 of
-    the row's max |logit|}."""
+def _dense_rows(model, params, req):
+    """One dense pass at model width (naive attention, no kernel) over a
+    request's prompt and its generated tokens but the last; row j scores
+    generated token j. -> [GEN, V] f32 numpy."""
     import numpy as np
     import torch
+    toks = np.concatenate([req.prompt, np.asarray(req.tokens[:-1], np.int32)])
+    cache = model.init_cache(1, MAX_LEN, "cuda")
+    with torch.no_grad():
+        logits, _ = model.prefill_chunk(
+            params, cache, {"tokens": torch.from_numpy(toks[None]).cuda()}, 0, len(toks))
+    return logits[0, len(req.prompt) - 1:].float().cpu().numpy()
+
+
+def _wide(w) -> bool:
+    """The dense row's top-2 margin exceeds 2**-4 of its max |logit|."""
+    import numpy as np
+    top2 = np.partition(w, -2)[-2:]
+    return top2[1] - top2[0] > 2.0 ** -4 * float(np.abs(w).max())
+
+
+def _deviation(reference, rows):
+    """Logits rows of a run against a reference's, per request ({rid:
+    rows}). -> {"worst": max over rows of max |diff| / max |reference|,
+    "prefill_row": the same for the prefill rows alone, "argmax_mismatches":
+    rows whose argmax differs where the reference's top-2 margin is wide}."""
+    import numpy as np
     worst = first = 0.0
     mismatches = 0
-    for req in (reqs[0], reqs[-1]):
-        toks = np.concatenate([req.prompt, np.asarray(req.tokens[:-1], np.int32)])
-        n = len(toks)
-        cache = model.init_cache(1, MAX_LEN, "cuda")
-        with torch.no_grad():
-            logits, _ = model.prefill_chunk(
-                params, cache, {"tokens": torch.from_numpy(toks[None]).cuda()}, 0, n)
-        dense = logits[0, len(req.prompt) - 1:].float().cpu().numpy()
-        got = np.stack(rows[req.rid])
-        assert dense.shape == got.shape, (dense.shape, got.shape)
-        for i, (g, w) in enumerate(zip(got, dense)):
-            top = float(np.abs(w).max())
-            dev = float(np.abs(g - w).max()) / top
+    for rid, want in reference.items():
+        got = np.stack(rows[rid])
+        assert want.shape == got.shape, (want.shape, got.shape)
+        for i, (g, w) in enumerate(zip(got, want)):
+            dev = float(np.abs(g - w).max()) / float(np.abs(w).max())
             worst = max(worst, dev)
             if i == 0:
                 first = max(first, dev)
-            srt = np.sort(w)
-            if srt[-1] - srt[-2] > 2.0 ** -4 * top and int(np.argmax(g)) != int(np.argmax(w)):
+            if _wide(w) and int(np.argmax(g)) != int(np.argmax(w)):
                 mismatches += 1
     return {"worst": worst, "prefill_row": first, "argmax_mismatches": mismatches}
 
 
-def engine_phase(model, params, kv_dtype, line, checked, dense_tol=None):
+def engine_phase(model, params, kv_dtype, line, checked, dense_tol=None,
+                 prefill_chunk=CHUNK):
     """Serve the trace with counts reset just before and read just after;
     check the run, that every launch had a signature the kernel phases
-    held against the plain version, and the logits against the dense pass
-    (argmax always; the deviation too when dense_tol is given)."""
+    held against the plain version, and the logits of the first and last
+    request against the dense pass (argmax always; the deviation too when
+    dense_tol is given). prefill_chunk=0 prefills whole prompts, through
+    the flash-attention kernel when the model's attn_impl is "pallas"."""
     import torch
-    from repro_torch.kernels.flash_attention.ops import flash_decode_paged_cuda
-    from repro_torch.kernels.quantize.ops import quantize_cuda
     rows = {}
     torch.cuda.reset_peak_memory_stats()
-    with launch_signatures() as (seen, calls):
-        flash_decode_paged_cuda.launches = 0
-        quantize_cuda.launches = 0
-        eng, reqs, finite, wall = _serve(model, params, kv_dtype, rows)
-        decode_launches = flash_decode_paged_cuda.launches
-        quant_launches = quantize_cuda.launches
+    with launch_signatures() as (seen, calls, launches):
+        eng, reqs, finite, wall = _serve(model, params, kv_dtype, rows,
+                                         prefill_chunk=prefill_chunk)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     m = eng.metrics()
     cfg = model.cfg
+    layers = cfg.num_layers
+    kernel_prefill = prefill_chunk == 0 and model.attn_impl == "pallas"
     bad = [(r.rid, r.status, len(r.tokens)) for r in reqs
            if r.status != "ok" or len(r.tokens) != GEN]
-    dense = _dense_deviation(model, params, reqs, rows)
+    dense = _deviation({r.rid: _dense_rows(model, params, r) for r in (reqs[0], reqs[-1])},
+                       rows)
     unchecked = sorted(seen - checked)
     checks = {
         "all_ok_32_tokens": not bad,
         "spilled": m["pool_spilled_pages"] > 0,
         "returned": m["pool_fetched_pages"] + m["pool_prefetched_pages"] > 0,
         "decode_launches_eq_layers_x_ticks":
-            decode_launches == cfg.num_layers * int(m["ticks"]),
-        "quantize_launches": (quant_launches > 0) if kv_dtype == "int8"
-                             else quant_launches == 0,
-        "every_launch_recorded": calls == {"flash_decode_paged": decode_launches,
-                                           "quantize_rows": quant_launches},
+            launches["flash_decode_paged"] == layers * int(m["ticks"]),
+        "quantize_launches": (launches["quantize_rows"] > 0) if kv_dtype == "int8"
+                             else launches["quantize_rows"] == 0,
+        "attention_launches": launches["flash_attention"]
+            == (layers * len(reqs) if kernel_prefill else 0),
+        "no_contiguous_decode": launches["flash_decode"] == 0,
+        "every_launch_recorded": calls == launches,
         "every_launch_shape_checked": not unchecked,
         "finite_logits": finite,
         "dense_argmax": dense["argmax_mismatches"] == 0,
@@ -417,9 +618,10 @@ def engine_phase(model, params, kv_dtype, line, checked, dense_tol=None):
     if dense_tol is not None:
         checks["dense_within_tol"] = dense["worst"] <= dense_tol
     row = {"phase": "engine", "kv_dtype": kv_dtype, "arch": ARCH,
-           "layers": cfg.num_layers, "d_model": cfg.d_model, "requests": len(reqs),
+           "layers": layers, "d_model": cfg.d_model, "requests": len(reqs),
            "prompt": PROMPT, "gen": GEN, "slots": SLOTS, "page_size": PAGE,
-           "device_pages": DEVICE_PAGES, "prefill_chunk": CHUNK, "card": line,
+           "device_pages": DEVICE_PAGES, "prefill_chunk": prefill_chunk,
+           "attn_impl": model.attn_impl, "card": line,
            "decode_tok_s": m["decode_tok_s"], "ttft_mean_s": m.get("ttft_mean_s"),
            "ttft_p95_s": m.get("ttft_p95_s"), "tpot_p50_s": m.get("tpot_p50_s"),
            "tpot_p95_s": m.get("tpot_p95_s"), "ticks": m["ticks"],
@@ -428,14 +630,245 @@ def engine_phase(model, params, kv_dtype, line, checked, dense_tol=None):
            "pool_spilled_pages": m["pool_spilled_pages"],
            "pool_fetched_pages": m["pool_fetched_pages"],
            "pool_prefetched_pages": m["pool_prefetched_pages"],
-           "decode_launches": decode_launches, "quantize_launches": quant_launches,
+           "decode_launches": launches["flash_decode_paged"],
+           "quantize_launches": launches["quantize_rows"],
+           "attention_launches": launches["flash_attention"],
            "launch_signatures": sorted(seen), "unchecked_signatures": unchecked,
            "dense": dense, "dense_tol": dense_tol, "checks": checks, "bad": bad}
     emit(row)
     if not all(checks.values()):
-        raise AssertionError(f"engine {kv_dtype} ({cfg.num_layers} layers): failed "
-                             f"checks {[k for k, v in checks.items() if not v]}")
+        raise AssertionError(f"engine {kv_dtype} ({layers} layers, prefill_chunk "
+                             f"{prefill_chunk}): failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
     return row, {r.rid: list(r.tokens) for r in reqs}
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Swap the attention dispatchers the model calls for their plain
+    versions, which then run on the same (CUDA) tensors."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
+                                                         flash_decode_ref)
+    attend, decode = fa_ops.flash_attention, fa_ops.flash_decode
+
+    def attend_plain(q, k, v, *, causal=True, window=0, q_offset=None):
+        return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   causal=causal, window=window,
+                                   q_offset=q_offset).transpose(1, 2)
+
+    def decode_plain(q, k_cache, v_cache, kv_len, **kw):
+        return flash_decode_ref(q[:, 0], k_cache, v_cache, kv_len, **kw)[:, None]
+    fa_ops.flash_attention, fa_ops.flash_decode = attend_plain, decode_plain
+    try:
+        yield
+    finally:
+        fa_ops.flash_attention, fa_ops.flash_decode = attend, decode
+
+
+def _static_plain_steps(model, params, reqs, toks):
+    """The static loop's steps with its kernels swapped for their plain
+    versions (the same GEMMs at the same shapes), teacher-forced with the
+    kernel run's tokens. -> [GEN, N, V] f32 numpy."""
+    import torch
+    from repro_torch.serve import static_batch_from_requests
+    forced = torch.from_numpy(toks).cuda()
+    with plain_versions():
+        logits, cache = model.prefill(params, static_batch_from_requests(model.cfg, reqs, "cuda"),
+                                      cache_len=MAX_LEN)
+        steps = [logits]
+        for i in range(GEN - 1):
+            logits, cache = model.decode_step(params, cache, {"tokens": forced[:, i:i + 1]},
+                                              PROMPT + i)
+            steps.append(logits)
+    return torch.stack(steps).float().cpu().numpy()
+
+
+def static_phase(model, params, line, checked, engine_tokens, dense_tol=None):
+    """`run_static` on the engine's trace (8 prompts of 128, 32 greedy
+    tokens): the flash-attention prefill of the whole batch, then 31
+    lockstep decode steps through the slot-contiguous flash-decode kernel,
+    with counts reset just before and read just after.
+
+    Every request's logits are held against the same loop with its kernels
+    swapped for their plain versions, teacher-forced with its tokens (the
+    same GEMMs at the same shapes, so only the kernels differ): no argmax
+    flip where that run's top-2 margin is wide. Against the dense pass
+    (other GEMM shapes, naive attention) and the engine's greedy tokens —
+    which may part only at a step whose dense margin is narrow — they are
+    held when dense_tol is given (2 layers, with the deviations within it)
+    and reported at full depth, where bf16 GEMMs of other shapes alone move
+    the logits by more than the margin rule allows."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import run_static
+    from repro_torch.serve import synth_requests
+    cfg = model.cfg
+    layers = cfg.num_layers
+    reqs = synth_requests(cfg, REQUESTS, PROMPT, GEN, np.random.default_rng(SEED))
+    recorded = []          # each step's logits, kept on the card until the end
+    prefill, decode_step = model.prefill, model.decode_step
+
+    def prefill_rec(*args, **kw):
+        logits, cache = prefill(*args, **kw)
+        recorded.append(logits)
+        return logits, cache
+
+    def decode_rec(*args, **kw):
+        logits, cache = decode_step(*args, **kw)
+        recorded.append(logits)
+        return logits, cache
+    model.prefill, model.decode_step = prefill_rec, decode_rec
+    try:
+        with launch_signatures() as (seen, calls, launches):
+            _, toks, t = run_static(model, reqs, PROMPT, GEN, params=params, device="cuda")
+    finally:
+        del model.prefill, model.decode_step
+    steps = torch.stack(recorded).float().cpu().numpy()        # [GEN, N, V]
+    del recorded
+    rows = {r.rid: list(steps[:, i]) for i, r in enumerate(reqs)}
+    plain_steps = _static_plain_steps(model, params, reqs, toks)
+    plain_rows = {r.rid: plain_steps[:, i] for i, r in enumerate(reqs)}
+    plain = _deviation(plain_rows, rows)
+    for i, r in enumerate(reqs):
+        r.tokens = [int(x) for x in toks[i]]
+    dense_rows = {r.rid: _dense_rows(model, params, r) for r in reqs}
+    dense = _deviation(dense_rows, rows)
+    plain_dense = _deviation(dense_rows, {rid: list(x) for rid, x in plain_rows.items()})
+    parted = []    # (rid, first step where static and engine differ, its dense margin / max)
+    for r in reqs:
+        diff = [j for j, (a, b) in enumerate(zip(r.tokens, engine_tokens[r.rid])) if a != b]
+        if diff:
+            w = dense_rows[r.rid][diff[0]]
+            top2 = np.partition(w, -2)[-2:]
+            parted.append((r.rid, diff[0], float((top2[1] - top2[0]) / np.abs(w).max())))
+    unchecked = sorted(seen - checked)
+    checks = {
+        "tokens_shape": toks.shape == (REQUESTS, GEN),
+        "attention_launches_eq_layers": launches["flash_attention"] == layers,
+        "decode_launches_eq_layers_x_steps": launches["flash_decode"] == layers * (GEN - 1),
+        "no_paged_or_quantize_launches":
+            launches["flash_decode_paged"] == 0 and launches["quantize_rows"] == 0,
+        "every_launch_recorded": calls == launches,
+        "every_launch_shape_checked": not unchecked,
+        "finite_logits": bool(np.isfinite(steps).all()),
+        "plain_argmax": plain["argmax_mismatches"] == 0,
+    }
+    if dense_tol is not None:
+        checks["plain_within_tol"] = plain["worst"] <= dense_tol
+        checks["dense_within_tol"] = dense["worst"] <= dense_tol
+        checks["dense_argmax"] = dense["argmax_mismatches"] == 0
+        checks["engine_parity"] = all(m <= 2.0 ** -4 for _, _, m in parted)
+    row = {"phase": "static", "arch": ARCH, "layers": layers, "d_model": cfg.d_model,
+           "attn_impl": model.attn_impl, "requests": REQUESTS, "prompt": PROMPT, "gen": GEN,
+           "card": line, "prefill_ms": t["prefill_s"] * 1e3, "decode_s": t["decode_s"],
+           "decode_tok_s": t["decode_tok_s"], "launches": launches,
+           "launch_signatures": sorted(seen), "unchecked_signatures": unchecked,
+           "plain": plain, "dense": dense, "plain_vs_dense": plain_dense,
+           "dense_tol": dense_tol,
+           "engine_parity": {"requests_identical": REQUESTS - len(parted),
+                             "parted_at_margin": parted},
+           "checks": checks}
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"static ({layers} layers): failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return row
+
+
+def _shapes(tree):
+    """Sorted leaf shapes of a nested dict (of tensors or ParamDefs)."""
+    if isinstance(tree, dict):
+        return sorted(x for sub in tree.values() for x in _shapes(sub))
+    return [tuple(tree.shape)]
+
+
+def slot_decode_phase(model, params, line, checked):
+    """The slot decode step without a page arena (slot-contiguous caches,
+    the flash_decode kernel) against the paged step (flash_decode_paged)
+    on the same params, cache contents, positions and tokens, with model-
+    width then int8 KV: 4 steps of 4 slots (one inactive), counts reset
+    just before and read just after; the logits of the active slots within
+    2**-5 of each row's max |logit|. -> {kv_dtype: flash_decode launches}."""
+    import numpy as np
+    import torch
+    from repro_torch.config.base import ShapeConfig
+    from repro_torch.models import kvquant
+    from repro_torch.models.paging import PageArena
+    from repro_torch.train.steps import StepSpec, build_slot_decode_step
+    cfg = model.cfg
+    layers = cfg.num_layers
+    steps = 4
+    shape = ShapeConfig("slot_decode", "decode", MAX_LEN, SLOTS)
+    max_pages = MAX_LEN // PAGE
+    arena = PageArena(page_size=PAGE, device_pages=DEVICE_PAGES, slots=SLOTS,
+                      max_pages=max_pages)
+    start = np.array([120, 97, 0, 33], np.int32)
+    active = np.array([True, True, False, True])
+    rng = np.random.default_rng(SEED + 3)
+    # a scrambled table mapping every page the steps reach; the rest null
+    table = np.full((SLOTS, max_pages), DEVICE_PAGES, np.int32)
+    perm = rng.permutation(DEVICE_PAGES)
+    nxt = 0
+    for b in np.flatnonzero(active):
+        need = -(-(int(start[b]) + steps) // PAGE)
+        table[b, :need] = perm[nxt:nxt + need]
+        nxt += need
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    content = {key: torch.randn((layers, SLOTS, MAX_LEN, K, D), generator=gen,
+                                device="cuda").bfloat16() for key in ("k", "v")}
+    toks = rng.integers(0, cfg.vocab_size, (steps, SLOTS, 1))
+    active_t = torch.from_numpy(active).cuda()
+    out = {}
+    for kv_dtype in ("model", "int8"):
+        layer = (kvquant.quantize_cache_tree(content) if kv_dtype == "int8"
+                 else dict(content))
+        contiguous = {"stack0": {"attn_0": {key: x.clone() for key, x in layer.items()}}}
+        paged_layer = {}
+        for key, x in layer.items():      # [L, SLOTS, MAX_LEN, ...] -> arena rows
+            a = torch.zeros((layers, DEVICE_PAGES + 1, PAGE) + tuple(x.shape[3:]),
+                            dtype=x.dtype, device="cuda")
+            for b, j in zip(*np.nonzero(table != DEVICE_PAGES)):
+                a[:, table[b, j]] = x[:, b, j * PAGE:(j + 1) * PAGE]
+            paged_layer[key] = a
+        paged = {"stack0": {"attn_0": paged_layer},
+                 "page_table": torch.from_numpy(table).cuda()}
+        runs = {}
+        with launch_signatures() as (seen, calls, launches):
+            for name, cache, spec in (("contiguous", contiguous, StepSpec(kv_dtype=kv_dtype)),
+                                      ("paged", paged, StepSpec(kv_dtype=kv_dtype, arena=arena))):
+                fn, defs = build_slot_decode_step(model, shape, spec)
+                assert _shapes(defs) == _shapes(cache), (name, _shapes(defs), _shapes(cache))
+                logits = []
+                for i in range(steps):
+                    pos = torch.from_numpy(np.where(active, start + i, 0).astype(np.int32)).cuda()
+                    lg, _ = fn(params, cache, {"tokens": torch.from_numpy(toks[i]).cuda()},
+                               pos, active_t)
+                    logits.append(lg[active_t].float())
+                runs[name] = torch.stack(logits)
+        got, want = runs["contiguous"], runs["paged"]
+        dev = ((got - want).abs().amax(dim=-1) / want.abs().amax(dim=-1)).max().item()
+        unchecked = sorted(seen - checked)
+        quant = 2 * 2 * layers * steps if kv_dtype == "int8" else 0   # k, v rows per run
+        checks = {
+            "contiguous_launches_eq_layers_x_steps": launches["flash_decode"] == layers * steps,
+            "paged_launches_eq_layers_x_steps": launches["flash_decode_paged"] == layers * steps,
+            "quantize_launches": launches["quantize_rows"] == quant,
+            "every_launch_recorded": calls == launches,
+            "every_launch_shape_checked": not unchecked,
+            "finite_logits": bool(torch.isfinite(got).all()),
+            "within_tol": dev <= 2.0 ** -5,
+        }
+        emit({"phase": "slot_decode", "kv_dtype": kv_dtype, "layers": layers, "slots": SLOTS,
+              "max_len": MAX_LEN, "steps": steps, "card": line, "max_dev": dev,
+              "bitwise_equal": bool(torch.equal(got, want)), "tolerance": 2.0 ** -5,
+              "launches": launches, "launch_signatures": sorted(seen),
+              "unchecked_signatures": unchecked, "checks": checks})
+        if not all(checks.values()):
+            raise AssertionError(f"slot decode {kv_dtype}: failed checks "
+                                 f"{[k for k, v in checks.items() if not v]}")
+        out[kv_dtype] = launches["flash_decode"]
+    return out
 
 
 def busy_seconds(intervals) -> float:
@@ -493,22 +926,32 @@ def profile_phase(model, params, line):
 def reference_phase(line, checked):
     """The trace at full width but 2 layers, where bf16 rounding stays
     small, held against the dense pass: 4 bf16 ulps of each row's largest
-    |logit| (2**-5 of it) at model width, 2**-4 with int8 KV pages. (At 48 layers, GEMMs of other
-    shapes alone — chunked against one-shot prefill, no kernel involved —
-    move the logits by several percent, so the full-depth run holds only
-    the argmax where the dense margin is wide.)"""
+    |logit| (2**-5 of it) at model width, 2**-4 with int8 KV pages. (At 48
+    layers, GEMMs of other shapes alone — chunked against one-shot prefill,
+    no kernel involved — move the logits by several percent, so the
+    full-depth run holds only the argmax where the dense margin is wide.)
+    On the same weights: the engine with the flash-attention prefill
+    (argmax), the static loop (2**-5, and the engine's tokens), and the
+    slot decode step without a page arena against the paged one.
+    -> {kv_dtype: flash_decode launches of the slot decode phase}."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    model = Model(dataclasses.replace(get_config(ARCH), num_layers=2), attn_impl="naive")
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=2)
+    model = Model(cfg, attn_impl="blockwise")
     params = model.init(SEED + 1, "cuda")
-    engine_phase(model, params, "model", line, checked, dense_tol=2.0 ** -5)
+    _, tokens = engine_phase(model, params, "model", line, checked, dense_tol=2.0 ** -5)
     # int8 codes hold each k/v element to half a step of its row's amax/127
     # (0.4% of the row's largest |value|) on top of the bf16 rounding
     engine_phase(model, params, "int8", line, checked, dense_tol=2.0 ** -4)
+    kernel_model = Model(cfg, attn_impl="pallas")
+    engine_phase(kernel_model, params, "model", line, checked, prefill_chunk=0)
+    static_phase(kernel_model, params, line, checked, tokens, dense_tol=2.0 ** -5)
+    launches = slot_decode_phase(kernel_model, params, line, checked)
     del params
     torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -519,10 +962,10 @@ def main() -> int:
 
     build_phase()
     kernels, checked = kernel_phases(get_config(ARCH).num_layers)
-    reference_phase(line, checked)
+    slot_launches = reference_phase(line, checked)
 
     t0 = time.monotonic()
-    model = Model(get_config(ARCH), attn_impl="naive")
+    model = Model(get_config(ARCH), attn_impl="blockwise")
     params = model.init(SEED, "cuda")
     torch.cuda.synchronize()
     emit({"phase": "init", "arch": ARCH, "seconds": time.monotonic() - t0,
@@ -530,6 +973,8 @@ def main() -> int:
           "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
     model_row, tokens = engine_phase(model, params, "model", line, checked)
     int8_row, _ = engine_phase(model, params, "int8", line, checked)
+    static_row = static_phase(Model(get_config(ARCH), attn_impl="pallas"), params, line,
+                              checked, tokens)
 
     eng, reqs, _, _ = _serve(model, params, "model")
     again = {r.rid: list(r.tokens) for r in reqs}
@@ -540,22 +985,35 @@ def main() -> int:
     del eng
     profile_phase(model, params, line)
 
+    decode_kernel = "src/repro/kernels/flash_attention/decode_kernel.py"
     replaces = {
-        "flash_decode_paged_bf16": "src/repro/kernels/flash_attention/decode_kernel.py:155",
-        "flash_decode_paged_int8": "src/repro/kernels/flash_attention/decode_kernel.py:155",
+        "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:76",
+        "flash_decode_bf16": f"{decode_kernel}:233",
+        "flash_decode_int8": f"{decode_kernel}:233",
+        "flash_decode_paged_bf16": f"{decode_kernel}:155",
+        "flash_decode_paged_int8": f"{decode_kernel}:155",
         "quantize_rows": "src/repro/kernels/quantize/kernel.py:25",
     }
+    csrc = "src/repro_torch/kernels/csrc"
     sources = {
-        "flash_decode_paged_bf16": "src/repro_torch/kernels/csrc/flash_decode_paged.cu",
-        "flash_decode_paged_int8": "src/repro_torch/kernels/csrc/flash_decode_paged.cu",
-        "quantize_rows": "src/repro_torch/kernels/csrc/quantize.cu",
+        "flash_attention_fwd": f"{csrc}/flash_attention_fwd.cu",
+        "flash_decode_bf16": f"{csrc}/flash_decode.cu",
+        "flash_decode_int8": f"{csrc}/flash_decode.cu",
+        "flash_decode_paged_bf16": f"{csrc}/flash_decode.cu",
+        "flash_decode_paged_int8": f"{csrc}/flash_decode.cu",
+        "quantize_rows": f"{csrc}/quantize.cu",
     }
-    launches = {"flash_decode_paged_bf16": model_row["decode_launches"],
+    # each kernel's launches on its main path: the 48-layer static loop,
+    # the slot decode without an arena (int8), the 48-layer engine
+    launches = {"flash_attention_fwd": static_row["launches"]["flash_attention"],
+                "flash_decode_bf16": static_row["launches"]["flash_decode"],
+                "flash_decode_int8": slot_launches["int8"],
+                "flash_decode_paged_bf16": model_row["decode_launches"],
                 "flash_decode_paged_int8": int8_row["decode_launches"],
                 "quantize_rows": int8_row["quantize_launches"]}
     out = []
     for name, phase_rows in kernels.items():
-        main_row = phase_rows[0]              # the engine's shape
+        main_row = phase_rows[0]              # the main path's shape
         out.append({"name": name, "route": "cuda", "source": sources[name],
                     "replaces": replaces[name], "launches": launches[name],
                     "max_abs_err": max(r["max_abs_err"] for r in phase_rows),

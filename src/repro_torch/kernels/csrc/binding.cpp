@@ -28,21 +28,45 @@ void check_launch(int err, const char* what) {
 
 void* current_stream() { return at::cuda::getCurrentCUDAStream().stream(); }
 
+void flash_attention(const torch::Tensor& q, const torch::Tensor& k, const torch::Tensor& v,
+                     torch::Tensor out, bool causal, int64_t window, int64_t q_offset,
+                     double sm_scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const int err = repro::flash_attention(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dtype_of(q), q.size(0),
+      q.size(1), k.size(1), q.size(2), k.size(2), q.size(3), causal, static_cast<int>(window),
+      static_cast<int>(q_offset), static_cast<float>(sm_scale), current_stream());
+  check_launch(err, "flash_attention");
+}
+
+const float* scale_ptr(const std::optional<torch::Tensor>& s) {
+  return s.has_value() ? s->data_ptr<float>() : nullptr;
+}
+
 void flash_decode_paged(const torch::Tensor& q, const torch::Tensor& k, const torch::Tensor& v,
                         const std::optional<torch::Tensor>& k_scale,
                         const std::optional<torch::Tensor>& v_scale,
                         const torch::Tensor& kv_len, const torch::Tensor& table,
                         torch::Tensor out, double sm_scale) {
   const c10::cuda::CUDAGuard guard(q.device());
-  const bool quant = k_scale.has_value();
-  TORCH_CHECK(quant == v_scale.has_value(), "give both k_scale and v_scale, or neither");
   const int err = repro::flash_decode_paged(
-      q.data_ptr(), dtype_of(q), k.data_ptr(), v.data_ptr(), dtype_of(k),
-      quant ? k_scale->data_ptr<float>() : nullptr, quant ? v_scale->data_ptr<float>() : nullptr,
-      kv_len.data_ptr<int32_t>(), table.data_ptr<int32_t>(), out.data_ptr(), q.size(0),
-      q.size(1), k.size(2), q.size(2), k.size(1), table.size(1), static_cast<float>(sm_scale),
-      current_stream());
+      q.data_ptr(), dtype_of(q), k.data_ptr(), v.data_ptr(), dtype_of(k), scale_ptr(k_scale),
+      scale_ptr(v_scale), kv_len.data_ptr<int32_t>(), table.data_ptr<int32_t>(), out.data_ptr(),
+      q.size(0), q.size(1), k.size(2), q.size(2), k.size(1), table.size(1),
+      static_cast<float>(sm_scale), current_stream());
   check_launch(err, "flash_decode_paged");
+}
+
+void flash_decode(const torch::Tensor& q, const torch::Tensor& k, const torch::Tensor& v,
+                  const std::optional<torch::Tensor>& k_scale,
+                  const std::optional<torch::Tensor>& v_scale, const torch::Tensor& kv_len,
+                  torch::Tensor out, double sm_scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const int err = repro::flash_decode(
+      q.data_ptr(), dtype_of(q), k.data_ptr(), v.data_ptr(), dtype_of(k), scale_ptr(k_scale),
+      scale_ptr(v_scale), kv_len.data_ptr<int32_t>(), out.data_ptr(), q.size(0), q.size(1),
+      k.size(2), q.size(2), k.size(1), static_cast<float>(sm_scale), current_stream());
+  check_launch(err, "flash_decode");
 }
 
 void quantize_rows(const torch::Tensor& x, torch::Tensor q, torch::Tensor scale) {
@@ -56,6 +80,8 @@ void quantize_rows(const torch::Tensor& x, torch::Tensor q, torch::Tensor scale)
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("flash_attention", &flash_attention, "flash attention forward into out");
+  m.def("flash_decode", &flash_decode, "slot-contiguous flash-decode into out");
   m.def("flash_decode_paged", &flash_decode_paged, "paged flash-decode into out");
   m.def("quantize_rows", &quantize_rows, "per-row int8 quantize into q, scale");
 }

@@ -14,13 +14,25 @@ enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 // Each launcher enqueues its kernel on `stream` (a cudaStream_t) and returns
 // the cudaError_t of the launch: 0 on success.
 
-// Paged flash-decode (flash_decode_paged.cu). q/out [B,H,D]; k/v arenas
-// [pages,ps,K,D] of q's dtype, or int8 codes with f32 scales [pages,ps,K];
-// kv_len [B]; table [B,max_pages] arena row ids.
+// Flash attention forward (flash_attention_fwd.cu). q/out [B,Sq,H,D], k/v
+// [B,Skv,K,D], all of `dtype` (f32 or bf16), contiguous and 16-byte
+// aligned; query row i sits at kv position i + q_offset; window 0 = none.
+int flash_attention(const void* q, const void* k, const void* v, void* out, DType dtype, int B,
+                    int Sq, int Skv, int H, int K, int D, bool causal, int window, int q_offset,
+                    float sm_scale, void* stream);
+
+// Flash-decode (flash_decode.cu): q/out [B,H,D]; caches of q's dtype, or
+// int8 codes with f32 per-row scales; kv_len [B].
+// Paged: k/v arenas [pages,ps,K,D], scales [pages,ps,K], table
+// [B,max_pages] arena row ids.
 int flash_decode_paged(const void* q, DType q_dtype, const void* k, const void* v,
                        DType kv_dtype, const float* k_scale, const float* v_scale,
                        const int32_t* kv_len, const int32_t* table, void* out, int B, int H,
                        int K, int D, int ps, int max_pages, float sm_scale, void* stream);
+// Slot-contiguous: k/v caches [B,Smax,K,D], scales [B,Smax,K].
+int flash_decode(const void* q, DType q_dtype, const void* k, const void* v, DType kv_dtype,
+                 const float* k_scale, const float* v_scale, const int32_t* kv_len, void* out,
+                 int B, int H, int K, int D, int smax, float sm_scale, void* stream);
 
 // Symmetric per-row int8 quantizer (quantize.cu). x [rows,cols] f32 or
 // bf16 -> q int8 [rows,cols], scale f32 [rows].

@@ -1,6 +1,17 @@
-"""`flash_decode_paged` dispatch: CPU tensors take the plain version, CUDA
-tensors the hand-written kernel (csrc/flash_decode_paged.cu), which
-replaces the JAX package's `flash_decode_paged_fwd` Pallas kernel."""
+"""Attention kernel dispatch: CPU tensors take the plain versions, CUDA
+tensors the hand-written kernels, which replace the JAX package's Pallas
+kernels:
+
+- `flash_attention` (csrc/flash_attention_fwd.cu) — `flash_attention_fwd`,
+  the whole-prompt prefill;
+- `flash_decode` (csrc/flash_decode.cu, slot-contiguous caches) —
+  `flash_decode_fwd`, the static loop's decode and slot decode without a
+  page arena;
+- `flash_decode_paged` (csrc/flash_decode.cu, page arena) —
+  `flash_decode_paged_fwd`, the serve engine's decode.
+
+Every `*_cuda` launcher counts its launches in `.launches`.
+"""
 from __future__ import annotations
 
 import math
@@ -9,10 +20,150 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._dispatch import on_cpu, require
-from repro_torch.kernels.flash_attention.ref import flash_decode_paged_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
+                                                     flash_decode_paged_ref,
+                                                     flash_decode_ref)
 
-MAX_GROUP = 8   # query heads per kv head one block holds (csrc kMaxG)
+MAX_GROUP = 8     # query heads per kv head a decode block holds (csrc kMaxG)
+MAX_HEAD_DIM = 256   # largest head_dim the prefill kernel takes (csrc kMaxD)
 
+
+def _kv_len_vector(kv_len, b: int, device) -> torch.Tensor:
+    """A scalar or [B] kv_len as a contiguous [B] int32 tensor on `device`,
+    as `decode_kernel.py` broadcasts it."""
+    if isinstance(kv_len, torch.Tensor):
+        return kv_len.to(device=device, dtype=torch.int32).reshape(-1).expand(b).contiguous()
+    return torch.full((b,), int(kv_len), dtype=torch.int32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Prefill
+# ---------------------------------------------------------------------------
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset=None):
+    """Prefill attention in the model layout: q [B,S,H,D], k/v [B,Skv,K,D]
+    -> [B,S,H,D]. q_offset: absolute kv position of query row 0 (None: the
+    end of kv when causal, else 0). A query row with no visible key returns
+    zeros."""
+    if on_cpu(q, k, v):
+        o = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                window=window, q_offset=q_offset)
+        return o.transpose(1, 2)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset)
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
+                         q_offset=None):
+    """Launch the CUDA kernel on the model layout (no transposes): q
+    [B,S,H,D] bf16/f32, k/v [B,Skv,K,D] of q's dtype, all contiguous on one
+    card; H a multiple of K; D a multiple of 32, at most 256."""
+    dev = q.device
+    require(q, "q", dtypes=(torch.bfloat16, torch.float32), ndim=4, device=dev)
+    require(k, "k", dtypes=(q.dtype,), ndim=4, device=dev)
+    require(v, "v", dtypes=(q.dtype,), ndim=4, device=dev)
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if kh == 0 or h % kh:
+        raise ValueError(f"H={h} must be a multiple of K={kh}")
+    if d % 32 or d > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim={d} must be a multiple of 32, at most "
+                         f"{MAX_HEAD_DIM}")
+    if window < 0:
+        raise ValueError(f"window={window} must be >= 0")
+    if q_offset is None:
+        q_offset = skv - sq if causal else 0
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if skv == 0:
+        return out.zero_()
+    # launches on the current stream, raises if the launch failed
+    _build.extension().flash_attention(q, k, v, out, bool(causal), int(window),
+                                       int(q_offset), 1.0 / math.sqrt(d))
+    flash_attention_cuda.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Decode against slot-contiguous caches
+# ---------------------------------------------------------------------------
+
+def _check_decode(q, k, v, kv_len, k_scale, v_scale, scale_shape):
+    """The checks both decode launchers share; -> (B, H, K, D)."""
+    dev = q.device
+    require(q, "q", dtypes=(torch.bfloat16, torch.float32), ndim=3, device=dev)
+    quantized = k_scale is not None
+    kv_types = (torch.int8,) if quantized else (q.dtype,)
+    require(k, "k", dtypes=kv_types, ndim=4, device=dev)
+    require(v, "v", dtypes=kv_types, ndim=4, device=dev)
+    require(kv_len, "kv_len", dtypes=(torch.int32,), ndim=1, device=dev)
+    b, h, d = q.shape
+    kh = k.shape[2]
+    if v.shape != k.shape or k.shape[3] != d:
+        raise ValueError(f"cache shapes {tuple(k.shape)}/{tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if quantized or v_scale is not None:
+        if not quantized or v_scale is None:
+            raise ValueError("int8 caches need both k_scale and v_scale")
+        for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+            require(s, name, dtypes=(torch.float32,), ndim=3, device=dev)
+            if s.shape != scale_shape:
+                raise ValueError(f"{name} has shape {tuple(s.shape)}, "
+                                 f"expected {scale_shape}")
+    if kh == 0 or h % kh or h // kh > MAX_GROUP:
+        raise ValueError(f"H={h} must be a multiple of K={kh} with at most "
+                         f"{MAX_GROUP} query heads per kv head")
+    if d % 32 or d > 1024:
+        raise ValueError(f"head_dim={d} must be a multiple of 32, at most 1024")
+    if kv_len.shape != (b,):
+        raise ValueError(f"kv_len {tuple(kv_len.shape)} does not match B={b}")
+    return b, h, kh, d
+
+
+def flash_decode(q, k_cache, v_cache, kv_len, *, k_scale=None, v_scale=None):
+    """Decode attention: q [B,1,H,D] or [B,H,D]; caches [B,Smax,K,D] (model
+    layout); kv_len a scalar or [B] valid positions per slot (0 gives exact
+    zeros). k_scale/v_scale [B,Smax,K] f32 iff the caches hold int8 codes.
+    Returns q's shape."""
+    squeeze = q.dim() == 4
+    q3 = q[:, 0] if squeeze else q
+    if on_cpu(q3, k_cache, v_cache, k_scale, v_scale):
+        o = flash_decode_ref(q3, k_cache, v_cache, kv_len, k_scale=k_scale,
+                             v_scale=v_scale)
+    else:
+        o = flash_decode_cuda(q3.contiguous(), k_cache, v_cache,
+                              _kv_len_vector(kv_len, q3.shape[0], q3.device),
+                              k_scale=k_scale, v_scale=v_scale)
+    return o[:, None] if squeeze else o
+
+
+def flash_decode_cuda(q, k_cache, v_cache, kv_len, *, k_scale=None,
+                      v_scale=None):
+    """Launch the CUDA kernel. q [B,H,D] bf16/f32; caches [B,Smax,K,D] of
+    q's dtype, or int8 with f32 scales [B,Smax,K]; kv_len [B] int32; all
+    contiguous on one card. The kernel reads positions < kv_len only."""
+    b, h, kh, d = _check_decode(q, k_cache, v_cache, kv_len, k_scale, v_scale,
+                                tuple(k_cache.shape[:3]))
+    if k_cache.shape[0] != b:
+        raise ValueError(f"caches {tuple(k_cache.shape)} do not match B={b}")
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    _build.extension().flash_decode(q, k_cache, v_cache, k_scale, v_scale,
+                                    kv_len, out, 1.0 / math.sqrt(d))
+    flash_decode_cuda.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Decode through a page table
+# ---------------------------------------------------------------------------
 
 def flash_decode_paged(q, k_pages, v_pages, kv_len, page_table, *,
                        k_scale=None, v_scale=None):
@@ -38,35 +189,13 @@ def flash_decode_paged_cuda(q, k_pages, v_pages, kv_len, page_table, *,
     page_table [B,max_pages] int32; all contiguous on one card. Every
     table entry a slot reads (its first ceil(kv_len/ps)) must be a valid
     arena row: the kernel reads positions < kv_len only."""
-    dev = q.device
-    require(q, "q", dtypes=(torch.bfloat16, torch.float32), ndim=3, device=dev)
-    quantized = k_scale is not None
-    kv_types = (torch.int8,) if quantized else (q.dtype,)
-    require(k_pages, "k_pages", dtypes=kv_types, ndim=4, device=dev)
-    require(v_pages, "v_pages", dtypes=kv_types, ndim=4, device=dev)
-    require(kv_len, "kv_len", dtypes=(torch.int32,), ndim=1, device=dev)
-    require(page_table, "page_table", dtypes=(torch.int32,), ndim=2, device=dev)
-    b, h, d = q.shape
-    pages, ps, kh, dk = k_pages.shape
-    if v_pages.shape != k_pages.shape or dk != d:
-        raise ValueError(f"arena shapes {tuple(k_pages.shape)}/"
-                         f"{tuple(v_pages.shape)} do not match q {tuple(q.shape)}")
-    if quantized:
-        if v_scale is None:
-            raise ValueError("int8 arenas need both k_scale and v_scale")
-        for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
-            require(s, name, dtypes=(torch.float32,), ndim=3, device=dev)
-            if s.shape != (pages, ps, kh):
-                raise ValueError(f"{name} has shape {tuple(s.shape)}, "
-                                 f"expected {(pages, ps, kh)}")
-    if h % kh or h // kh > MAX_GROUP:
-        raise ValueError(f"H={h} must be a multiple of K={kh} with at most "
-                         f"{MAX_GROUP} query heads per kv head")
-    if d % 32 or d > 1024:
-        raise ValueError(f"head_dim={d} must be a multiple of 32, at most 1024")
-    if kv_len.shape != (b,) or page_table.shape[0] != b:
-        raise ValueError(f"kv_len {tuple(kv_len.shape)} / page_table "
-                         f"{tuple(page_table.shape)} do not match B={b}")
+    b, h, kh, d = _check_decode(q, k_pages, v_pages, kv_len, k_scale, v_scale,
+                                tuple(k_pages.shape[:3]))
+    require(page_table, "page_table", dtypes=(torch.int32,), ndim=2,
+            device=q.device)
+    if page_table.shape[0] != b:
+        raise ValueError(f"page_table {tuple(page_table.shape)} does not "
+                         f"match B={b}")
     out = torch.empty_like(q)
     if b == 0:
         return out
@@ -77,5 +206,7 @@ def flash_decode_paged_cuda(q, k_pages, v_pages, kv_len, page_table, *,
     return out
 
 
-# launches of the CUDA kernel; a run resets it to 0 and reads it back
+# launches of the CUDA kernels; a run resets them to 0 and reads them back
+flash_attention_cuda.launches = 0
+flash_decode_cuda.launches = 0
 flash_decode_paged_cuda.launches = 0

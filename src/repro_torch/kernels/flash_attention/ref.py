@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the decode-attention kernels: the CPU path and
-the versions the CUDA kernel is held against. GQA by head grouping: query
+"""Plain PyTorch versions of the attention kernels: the CPU path and the
+versions the CUDA kernels are held against. GQA by head grouping: query
 head h reads kv head h // G, G = H // K.
 """
 import math
@@ -7,6 +7,50 @@ import math
 import torch
 
 NEG_INF = -1e30
+
+
+def attention_mask(sq: int, skv: int, device, *, causal: bool, window: int,
+                   q_offset: int):
+    """[Sq, Skv] bool: key t is visible to query row i at absolute position
+    i + q_offset (causal: t <= pos; window: t > pos - window)."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset=None):
+    """Prefill attention in the kernel layout: q [B,H,Sq,D], k/v [B,K,Skv,D]
+    -> [B,H,Sq,D] in q's dtype. q_offset: absolute kv position of query row
+    0; None aligns the queries to the end of kv when causal (Skv - Sq), 0
+    otherwise. Scores, probabilities and the accumulation are f32 and the
+    output is cast once, as in the JAX oracle.
+
+    A query row with no visible key returns exact zeros, as the CUDA kernel
+    does (its softmax sum stays 0). The JAX package's oracle gives such a
+    row a uniform softmax, and its Pallas kernel an average of v over the
+    kv blocks (masked scores are a finite -1e30, so each counts exp(0) = 1
+    in its sum): both read keys the mask forbids. The model's prefill
+    (causal, q_offset 0, Sq == Skv) never makes such a row."""
+    b, h, sq, d = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    g = h // kh
+    if q_offset is None:
+        q_offset = skv - sq if causal else 0
+    qg = q.reshape(b, kh, g, sq, d).float() / math.sqrt(d)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float())
+    mask = attention_mask(sq, skv, q.device, causal=causal, window=window,
+                          q_offset=q_offset)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    o = torch.where(mask.any(dim=-1)[:, None], o, torch.zeros_like(o))
+    return o.reshape(b, h, sq, d).to(q.dtype)
 
 
 def flash_decode_ref(q, k_cache, v_cache, kv_len, *, k_scale=None,

@@ -1,6 +1,8 @@
 """Serving entry point: the continuous-batching engine (chunked prefill,
 slot-batched paged decode, host-spilling KV pool) on a synthetic request
-trace. Runs on the card unless `--device cpu` is given.
+trace; `--static` runs the whole-batch prefill-then-decode loop instead
+(the baseline the engine is parity-tested against). Runs on the card
+unless `--device cpu` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \
         --requests 8 --slots 4 --prompt-len 128 --gen 32
@@ -9,13 +11,65 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 import numpy as np
+import torch
 
+from repro_torch.config.base import ShapeConfig
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.models import kvquant
 from repro_torch.models.model import Model
 from repro_torch.obs import configure, get_obs
-from repro_torch.serve import ServeEngine, resolve_device, synth_requests
+from repro_torch.serve import (ServeEngine, decode_step_batch, resolve_device,
+                               static_batch_from_requests, synth_requests)
+from repro_torch.train.steps import (StepSpec, build_decode_step,
+                                    build_prefill_step)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_static(model, reqs, prompt_len: int, gen: int, params=None,
+               device=None):
+    """Static whole-batch greedy baseline: one prefill over every request's
+    prompt into the decode-capacity cache, then `gen-1` lockstep decode
+    steps. -> (params, tokens [N, gen] numpy, timings dict)."""
+    device = resolve_device(device)
+    cfg = model.cfg
+    n = len(reqs)
+    total = prompt_len + gen
+    prefill_fn, _ = build_prefill_step(
+        model, ShapeConfig("serve_prefill", "prefill", prompt_len, n),
+        StepSpec(cache_len=total))
+    decode_fn, _ = build_decode_step(
+        model, ShapeConfig("serve", "decode", total, n))
+    if params is None:
+        params = model.init(0, device)
+    batch = static_batch_from_requests(cfg, reqs, device)
+
+    t0 = time.monotonic()
+    logits, cache = prefill_fn(params, batch)
+    _sync(device)
+    t_prefill = time.monotonic() - t0
+
+    toks = torch.argmax(logits, dim=-1)[:, None]
+    out_tokens = [toks]
+    t0 = time.monotonic()
+    for i in range(gen - 1):
+        step_batch = decode_step_batch(
+            cfg, toks, np.full((n,), prompt_len + i, np.int32))
+        logits, cache = decode_fn(params, cache, step_batch, prompt_len + i)
+        toks = torch.argmax(logits, dim=-1)[:, None]
+        out_tokens.append(toks)
+    _sync(device)
+    t_decode = time.monotonic() - t0
+    gen_toks = torch.cat(out_tokens, dim=1).cpu().numpy().astype(np.int32)
+    return params, gen_toks, {
+        "prefill_s": t_prefill, "decode_s": t_decode,
+        "decode_tok_s": (gen - 1) * n / max(t_decode, 1e-9)}
 
 
 def main(argv=None):
@@ -44,16 +98,34 @@ def main(argv=None):
     p.add_argument("--kv-dtype", choices=("model", "int8"), default="model",
                    help="KV page storage width: int8 stores codes + per-row "
                         "scales")
+    p.add_argument("--static", action="store_true",
+                   help="run the whole-batch baseline loop instead")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--obs-jsonl", default="",
                    help="stream span events to this JSONL file")
     args = p.parse_args(argv)
+    if args.static and (args.temperature > 0 or args.top_k):
+        p.error("--temperature/--top-k sample in the engine only; the "
+                "--static baseline loop is greedy by construction")
+    if args.static and kvquant.validate_kv_dtype(args.kv_dtype) != "model":
+        p.error("--kv-dtype applies to the engine's paged pool; the "
+                "--static baseline decodes a model-width cache")
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = Model(cfg, attn_impl="naive" if args.smoke else "blockwise")
     rng = np.random.default_rng(args.seed)
     reqs = synth_requests(cfg, args.requests, args.prompt_len, args.gen, rng)
+
+    if args.static:
+        _, gen_toks, t = run_static(model, reqs, args.prompt_len, args.gen,
+                                    params=model.init(args.seed, device),
+                                    device=device)
+        print(f"device {device} | prefill: {t['prefill_s']*1e3:.1f} ms | "
+              f"decode: {t['decode_s']*1e3:.1f} ms "
+              f"({t['decode_tok_s']:.1f} tok/s)")
+        print("generated token ids (first row):", gen_toks[0][:16])
+        return 0
 
     configure(jsonl_path=args.obs_jsonl or None)
     obs = get_obs()

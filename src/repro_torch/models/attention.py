@@ -9,6 +9,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                     flash_decode_ref)
 from repro_torch.models.layers import ParamDef
 
 NEG_INF = -1e30
@@ -61,15 +64,10 @@ def out_proj(cfg, p, o):
 
 def _mask(sq: int, skv: int, device, *, causal: bool, window: int,
           q_offset, kv_len=None):
-    qpos = torch.arange(sq, device=device)[:, None] + q_offset
-    kpos = torch.arange(skv, device=device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
-    if causal:
-        mask &= kpos <= qpos
-    if window:
-        mask &= kpos > qpos - window
+    mask = attention_mask(sq, skv, device, causal=causal, window=window,
+                          q_offset=q_offset)
     if kv_len is not None:
-        mask &= kpos < kv_len
+        mask &= torch.arange(skv, device=device)[None, :] < kv_len
     return mask
 
 
@@ -135,7 +133,6 @@ def dense_decode_attention(q, k_cache, v_cache, kv_len, *, k_scale=None,
                            v_scale=None):
     """Dense decode oracle: q [B,1,H,D]; caches [B,Smax,K,D]; kv_len scalar
     or [B]. k_scale/v_scale [B,Smax,K] iff the caches hold int8 codes."""
-    from repro_torch.kernels.flash_attention.ref import flash_decode_ref
     o = flash_decode_ref(q[:, 0], k_cache, v_cache, kv_len,
                          k_scale=k_scale, v_scale=v_scale)
     return o[:, None]
@@ -143,28 +140,23 @@ def dense_decode_attention(q, k_cache, v_cache, kv_len, *, k_scale=None,
 
 def decode_attention(q, k_cache, v_cache, kv_len, *, window: int = 0,
                      k_scale=None, v_scale=None, page_table=None):
-    """Decode-attention entry (the serve hot path): q [B,1,H,D]; kv_len [B]
-    valid positions per slot. page_table [B,max_pages] int32: the caches
-    (and scales) are a shared page arena [P,page_size,K,D] and slot b's
-    position p lives at (page_table[b, p // page_size], p % page_size).
+    """Decode-attention entry (the serve hot path): q [B,1,H,D]; kv_len
+    scalar or [B] valid positions per slot (ring caches of a window too:
+    validity is positional recency). Without a table the caches are
+    slot-contiguous [B,Smax,K,D]. page_table [B,max_pages] int32: the
+    caches (and scales) are a shared page arena [P,page_size,K,D] and slot
+    b's position p lives at (page_table[b, p // page_size], p % page_size).
 
-    With a table this is the paged flash-decode kernel on the card and its
-    plain version on the CPU. Slot-contiguous caches take the dense
-    version on the CPU; their kernel (`flash_decode_fwd`) is not ported
-    yet, so a CUDA tensor raises."""
+    The flash-decode kernels on the card (paged with a table, contiguous
+    without), their plain versions on the CPU."""
     if page_table is not None:
         if window:
             raise ValueError("the page arena carries no window rings")
-        from repro_torch.kernels.flash_attention import ops as fa_ops
         return fa_ops.flash_decode_paged(q, k_cache, v_cache, kv_len,
                                          page_table, k_scale=k_scale,
                                          v_scale=v_scale)
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            "slot-contiguous decode on the card needs flash_decode_fwd, "
-            "which is not ported yet; the serve engine uses the page arena")
-    return dense_decode_attention(q, k_cache, v_cache, kv_len,
-                                  k_scale=k_scale, v_scale=v_scale)
+    return fa_ops.flash_decode(q, k_cache, v_cache, kv_len,
+                               k_scale=k_scale, v_scale=v_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +174,7 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
         return blockwise_attention(q, k, v, causal=causal, chunk=chunk,
                                    q_offset=q_offset)
     if impl == "pallas":
-        raise NotImplementedError(
-            "attn_impl='pallas' needs flash_attention_fwd, not ported yet")
+        # the flash-attention kernel on the card, its plain version on the CPU
+        return fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset)
     raise ValueError(impl)

@@ -1,5 +1,8 @@
 """Public model API of the serve path: `Model(cfg)` with init, init_cache,
-prefill, prefill_chunk and decode_slots over a nested dict of tensors."""
+prefill, prefill_chunk, decode_step and decode_slots over a nested dict of
+tensors. `attn_impl` picks the prefill attention: "naive", "blockwise", or
+"pallas" — the flash-attention kernel (its plain version on the CPU), the
+name the JAX package gives its Pallas kernel path."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -70,19 +73,31 @@ class Model:
         x = apply_norm(cfg, params["final_norm"], x)
         return lm_logits(cfg, params["embed"], x), cache
 
+    def decode_step(self, params, cache: Dict, batch, pos: int):
+        """Whole-batch decode: batch {"tokens" [B,1]}, every row at position
+        `pos`. The cache's k/v are updated in place and the same dict is
+        returned. -> (logits [B,V], cache)."""
+        cfg = self.cfg
+        x = embed_tokens(cfg, params["embed"], batch["tokens"])
+        ctx = {"positions": torch.full((1, 1), pos, device=x.device)}
+        x, cache = tr.apply_decoder_decode(cfg, params["decoder"], cache, x,
+                                           pos, ctx)
+        x = apply_norm(cfg, params["final_norm"], x)
+        return lm_logits(cfg, params["embed"], x)[:, 0], cache
+
     def decode_slots(self, params, cache: Dict, batch, positions, active,
                      page_size: Optional[int] = None):
         """Slot-batched decode: each batch row is an independent request.
-        positions [B] int32, active [B] bool. The cache is the page arena
-        with its top-level "page_table" leaf; the arenas are updated in place
+        positions [B] int32, active [B] bool. With a top-level "page_table"
+        leaf the cache is the page arena (and `page_size` its page length);
+        without one it is slot-contiguous. The caches are updated in place
         and the same dict is returned. -> (logits [B,V], cache)."""
         cfg = self.cfg
-        if "page_table" not in cache or page_size is None:
-            raise NotImplementedError(
-                "slot decode without a page arena needs flash_decode_fwd, "
-                "which is not ported yet")
+        table = cache.get("page_table")
+        if table is not None and page_size is None:
+            raise ValueError("a paged cache needs page_size")
         x = embed_tokens(cfg, params["embed"], batch["tokens"])
-        ctx = {"positions": positions[:, None], "page_table": cache["page_table"],
+        ctx = {"positions": positions[:, None], "page_table": table,
                "page_size": page_size}
         layers = {k: v for k, v in cache.items() if k != "page_table"}
         x, _ = tr.apply_decoder_decode_slots(cfg, params["decoder"], layers, x,

@@ -1,7 +1,8 @@
 """Decoder stack for the "attn" layer kind: stacked [L, ...] params and
 caches, with the JAX package's `lax.scan` over layers as a Python loop over
-the leading axis. Prefill, chunked prefill and the paged slot decode of
-the serve engine.
+the leading axis. Prefill, chunked prefill, the whole-batch decode of the
+static loop, and the slot decode of the serve engine (through the page
+arena, or over slot-contiguous caches).
 """
 from __future__ import annotations
 
@@ -168,35 +169,94 @@ def apply_decoder_prefill_chunk(cfg, params, caches, x, start: int,
 
 
 # ---------------------------------------------------------------------------
-# Slot-batched paged decode (serve engine)
+# Whole-batch decode (static loop: every row at the same position)
 # ---------------------------------------------------------------------------
 
-def apply_layer_decode_slots(cfg, kind, p, x, cache, positions, active, ctx):
-    """Slot-batched decode of one layer over the page arena: every batch
-    row is an independent request at its own position. positions [B]
-    int32, active [B] bool. The new token's k/v row (int8 codes + scales
-    under kv_dtype="int8") is written through the page table IN PLACE, then
-    the paged flash-decode reads each slot's kv_len positions."""
+def apply_layer_decode(cfg, kind, p, x, cache, pos: int, ctx):
+    """x [B,1,d], pos the position every row decodes at. The new token's
+    k/v row is written into the cache IN PLACE at min(pos, Smax - 1), as
+    JAX's dynamic_update_slice clamps it; -> (x, cache)."""
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-    table = ctx["page_table"]
-    ps = ctx["page_size"]
-    cap = table.shape[1] * ps
     h = apply_norm(cfg, p["ln1"], x)
     q, k, v = project_qkv(cfg, p["attn"], h)
     q, k = _rope_qk(cfg, q, k, ctx)
+    smax = cache["k"].shape[1]
+    slot = min(pos, smax - 1)
+    ck = dynamic_update_slice_(cache["k"], k, (0, slot, 0, 0))
+    cv = dynamic_update_slice_(cache["v"], v, (0, slot, 0, 0))
+    o = decode_attention(q, ck, cv, min(pos + 1, smax))
+    x = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o))
+    return x, {"k": ck, "v": cv}
+
+
+def apply_decoder_decode(cfg, params, caches, x, pos: int, ctx):
+    """Whole-batch decode sweep: -> (x, caches), caches updated in place."""
+    stack, cstack = params["stack0"], caches["stack0"]
+    for i in range(cfg.num_layers):
+        x, _ = apply_layer_decode(cfg, "attn", _layer(stack, i)["attn_0"], x,
+                                  _layer(cstack, i)["attn_0"], pos, ctx)
+    return x, caches
+
+
+# ---------------------------------------------------------------------------
+# Slot-batched decode (serve engine)
+# ---------------------------------------------------------------------------
+
+def _slot_write(cache_t, new_t, slots, active):
+    """Per-slot cache write, IN PLACE: cache [B,S,...], new [B,1,...], slots
+    [B] write positions, active [B] bool. Inactive rows keep their current
+    value, so a freed slot's cache region stays byte-stable until its next
+    occupant's pages are attached."""
+    b = cache_t.shape[0]
+    bidx = torch.arange(b, device=cache_t.device)
+    slots = slots.long()
+    cur = cache_t[bidx, slots]
+    val = torch.where(active.reshape((b,) + (1,) * (cur.dim() - 1)),
+                      new_t[:, 0].to(cache_t.dtype), cur)
+    cache_t[bidx, slots] = val
+    return cache_t
+
+
+def apply_layer_decode_slots(cfg, kind, p, x, cache, positions, active, ctx):
+    """Slot-batched decode of one layer: every batch row is an independent
+    request at its own position. positions [B] int32, active [B] bool.
+
+    With a page table in ctx the caches are the shared page arena and the
+    new token's k/v row (int8 codes + scales under kv_dtype="int8") is
+    written through the table; without one they are slot-contiguous
+    [B,Smax,...] and the row lands at min(pos, Smax - 1) of its slot.
+    Either write is IN PLACE, and inactive rows attend to nothing (kv_len
+    0). Attention math is row-independent, so an active row's output is
+    the whole-batch decode's at that row's position."""
+    if kind != "attn":
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    table = ctx.get("page_table")
+    h = apply_norm(cfg, p["ln1"], x)
+    q, k, v = project_qkv(cfg, p["attn"], h)
+    q, k = _rope_qk(cfg, q, k, ctx)
+    if table is not None:
+        ps = ctx["page_size"]
+        cap = table.shape[1] * ps
+
+        def write(arena, new):
+            return paging.paged_write(arena, new, table, positions, active, ps)
+    else:
+        cap = cache["k"].shape[1]
+        slots = torch.clamp(positions, max=cap - 1)
+
+        def write(cache_t, new):
+            return _slot_write(cache_t, new, slots, active)
     kv_len = torch.where(active, torch.clamp(positions + 1, max=cap),
                          torch.zeros_like(positions)).to(torch.int32)
     scales = {}
     if "k_scale" in cache:
         k, ks = kvquant.quantize_kv_leaf(k)
         v, vs = kvquant.quantize_kv_leaf(v)
-        scales["k_scale"] = paging.paged_write(cache["k_scale"], ks, table,
-                                               positions, active, ps)
-        scales["v_scale"] = paging.paged_write(cache["v_scale"], vs, table,
-                                               positions, active, ps)
-    ck = paging.paged_write(cache["k"], k, table, positions, active, ps)
-    cv = paging.paged_write(cache["v"], v, table, positions, active, ps)
+        scales["k_scale"] = write(cache["k_scale"], ks)
+        scales["v_scale"] = write(cache["v_scale"], vs)
+    ck = write(cache["k"], k)
+    cv = write(cache["v"], v)
     o = decode_attention(q.contiguous(), ck, cv, kv_len,
                          k_scale=scales.get("k_scale"),
                          v_scale=scales.get("v_scale"), page_table=table)

@@ -1,5 +1,6 @@
 """Serve-batch synthesis: which input tensors the prefill and decode steps
-take, for the token-input families the port serves."""
+take, for the token-input families the port serves (the vlm and audio
+families' embeds are not ported yet)."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional
@@ -8,6 +9,37 @@ import numpy as np
 import torch
 
 from repro_torch.serve.scheduler import Request
+
+
+def _check_text(cfg) -> None:
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.family} serve batches are not ported yet")
+
+
+def synth_prompt_batch(cfg, batch_size: int, prompt_len: int,
+                       rng: np.random.Generator, device) -> Dict:
+    """Synthetic whole-batch prompt inputs for `Model.prefill` (the static
+    serving loop) — the JAX package's draw for the same rng."""
+    _check_text(cfg)
+    toks = rng.integers(0, cfg.vocab_size, (batch_size, prompt_len))
+    return {"tokens": torch.from_numpy(toks.astype(np.int32)).to(device)}
+
+
+def decode_step_batch(cfg, toks, positions) -> Dict:
+    """One-token decode-step inputs: toks [B,1] int tensor; positions [B]
+    per-slot positions (a whole-batch loop passes a constant vector; token
+    inputs do not read them)."""
+    _check_text(cfg)
+    return {"tokens": toks}
+
+
+def static_batch_from_requests(cfg, reqs, device) -> Dict:
+    """Whole-batch prefill inputs covering the same prompts as a request
+    list: the static side of the engine-vs-static parity checks."""
+    _check_text(cfg)
+    toks = np.stack([np.asarray(r.prompt, np.int32) for r in reqs])
+    return {"tokens": torch.from_numpy(toks).to(device)}
 
 
 def request_prompt_len(cfg, req) -> int:

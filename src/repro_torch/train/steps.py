@@ -1,8 +1,10 @@
-"""Step construction. Only the serve engine's slot decode step is ported: the
-train, zero1, prefill and whole-batch decode steps come in later slices.
+"""Step construction for the serve path: the whole-batch prefill and decode
+steps of the static loop and the serve engine's slot decode step. The
+train and zero1 steps come in later slices.
 
 PyTorch runs eagerly, so a step is a plain callable: no jit, no shardings
-and no buffer donation — the decode step updates the page arena in place.
+and no buffer donation — where the JAX package donates a cache, the step
+updates the caches in place instead.
 """
 from __future__ import annotations
 
@@ -18,10 +20,12 @@ from repro_torch.models.model import Model
 @dataclass(frozen=True)
 class StepSpec:
     """The argument surface of the `build_*_step` functions. kv_dtype=None
-    resolves to model width; a memory plan (`plan`) is not ported yet."""
+    resolves to model width; a memory plan (`plan`) is not ported yet.
+    cache_len: capacity of the cache the prefill step emits."""
     plan: Any = None
     kv_dtype: Optional[str] = None
     arena: Optional[paging.PageArena] = None
+    cache_len: Optional[int] = None
 
     def resolved_kv_dtype(self) -> str:
         """Explicit kv_dtype > model width, validated so a typo raises here."""
@@ -30,6 +34,40 @@ class StepSpec:
         if self.kv_dtype is not None:
             return kvquant.validate_kv_dtype(self.kv_dtype)
         return "model"
+
+
+def build_prefill_step(model: Model, shape: ShapeConfig,
+                       spec: StepSpec = StepSpec()):
+    """Whole-prompt prefill of `shape.global_batch` prompts of
+    `shape.seq_len` tokens into a cache of `spec.cache_len` positions
+    (default: the prompt), so serving prefills straight into the
+    decode-capacity cache. -> (fn(params, batch) -> (last-token logits
+    [B,V], cache), cache_defs)."""
+    if spec.plan is not None:
+        raise NotImplementedError("memory plans are not ported yet")
+    cache_len = spec.cache_len or shape.seq_len
+    defs = tr.cache_defs(model.cfg, shape.global_batch, cache_len)
+
+    def prefill(params, batch):
+        return model.prefill(params, batch, cache_len=cache_len)
+
+    return prefill, defs
+
+
+def build_decode_step(model: Model, shape: ShapeConfig,
+                      spec: StepSpec = StepSpec()):
+    """Whole-batch decode step of the static loop: `shape.global_batch`
+    rows, each at the same position, against caches of `shape.seq_len`
+    positions, which are updated in place. -> (fn(params, cache, batch,
+    pos) -> (logits [B,V], cache), cache_defs)."""
+    if spec.plan is not None:
+        raise NotImplementedError("memory plans are not ported yet")
+    defs = tr.cache_defs(model.cfg, shape.global_batch, shape.seq_len)
+
+    def decode(params, cache, batch, pos: int):
+        return model.decode_step(params, cache, batch, pos)
+
+    return decode, defs
 
 
 def build_slot_decode_step(model: Model, shape: ShapeConfig,
@@ -44,21 +82,20 @@ def build_slot_decode_step(model: Model, shape: ShapeConfig,
     scale leaves, and each new token's rows are quantized on write. arena:
     every pageable leaf is re-laid into the shared page arena with an int32
     page table at the top of the cache tree; the int8 transform runs first
-    so the scales page too. The arena is required: slot-contiguous decode
-    on the card needs a kernel that is not ported yet.
+    so the scales page too. Without an arena the caches stay
+    slot-contiguous [B, seq_len, ...]. The caches are updated in place.
 
     -> (fn(params, cache, batch, positions, active) -> (logits [B,V],
     cache), cache_defs): cache_defs is the tree of ParamDefs giving the
     cache layout fn expects."""
     kv_dtype = spec.resolved_kv_dtype()
-    if spec.arena is None:
-        raise NotImplementedError(
-            "slot decode without a page arena is not ported yet")
     defs = tr.cache_defs(model.cfg, shape.global_batch, shape.seq_len)
     if kvquant.is_int8(kv_dtype):
         defs = kvquant.quantize_cache_defs(defs, shape.seq_len)
-    defs = paging.page_cache_defs(defs, shape.seq_len, spec.arena)
-    page_size = spec.arena.page_size
+    page_size = None
+    if spec.arena is not None:
+        defs = paging.page_cache_defs(defs, shape.seq_len, spec.arena)
+        page_size = spec.arena.page_size
 
     def decode(params, cache, batch, positions, active):
         return model.decode_slots(params, cache, batch, positions, active,

@@ -1,6 +1,7 @@
 """The port's kernel modules against the JAX package, on the CPU.
 
-The paged flash-decode and the int8 row quantizer have hand-written CUDA
+Flash attention (prefill), flash-decode over slot-contiguous caches and
+over the page arena, and the int8 row quantizer have hand-written CUDA
 kernels that run only on the card (chip_smoke.py holds each against its
 plain version there). Here the plain versions — what a CPU tensor
 dispatches to — are held against the JAX Pallas kernels run in interpret
@@ -18,10 +19,17 @@ import torch
 from tests.test_torch_ref import jax_ref, jax_ref_scope  # noqa: F401 (autouse fixture)
 
 from repro_torch.kernels._dispatch import on_cpu
-from repro_torch.kernels.flash_attention import (flash_decode_paged,
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_ref,
+                                                 flash_decode,
+                                                 flash_decode_paged,
                                                  flash_decode_paged_ref,
                                                  flash_decode_ref)
+from repro_torch.kernels.flash_attention.ops import (flash_attention_cuda,
+                                                     flash_decode_cuda)
+from repro_torch.kernels.flash_attention.ref import attention_mask
 from repro_torch.kernels.quantize import quantize, quantize_ref
+from repro_torch.models import attention
 
 
 def _bf16_ulp(x: np.ndarray) -> np.ndarray:
@@ -86,6 +94,123 @@ def test_paged_decode_plain_matches_jax(case, dtype):
             assert np.all(np.abs(got - want) <= _bf16_ulp(want)), \
                 np.max(np.abs(got - want))
     assert np.all(got[kvl == 0] == 0.0)   # empty slots: exact zeros
+
+
+def _close(got, want, dtype, what=""):
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5, err_msg=what)
+    else:
+        assert np.all(np.abs(got - want) <= _bf16_ulp(want)), \
+            (what, np.max(np.abs(got - want)))
+
+
+ATTN_CASES = [
+    # b, h, kh, sq, skv, d, window, q_offset, JAX block (q and k)
+    (2, 4, 2, 37, 37, 16, 0, 0, 16),         # G=2, ragged last block
+    (1, 5, 1, 20, 45, 16, 0, None, 16),      # G=5, Sq < Skv aligned to the end
+    (2, 3, 3, 24, 50, 32, 8, 10, 16),        # G=1, window, positive offset
+    (1, 10, 2, 40, 24, 16, 0, None, 256),    # Sq > Skv: 16 rows see no key
+    (1, 4, 2, 33, 33, 16, 5, 0, 8),          # window, ragged
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_flash_attention_plain_matches_jax(case, dtype):
+    """The port's flash_attention on CPU tensors (model layout) against the
+    JAX Pallas kernel in interpret mode and its oracle (kernel layout).
+    Rows with a visible key: f32 to 1e-5, bf16 to one bf16 ulp. Rows with
+    none are exact zeros in the port; the JAX oracle gives them a uniform
+    softmax and the JAX kernel an average of v, so neither is compared
+    there (the model's prefill never makes such a row)."""
+    ref = jax_ref()
+    jnp = ref.jnp
+    b, h, kh, sq, skv, d, window, q_offset, blk = case
+    rng = np.random.default_rng(sq * skv + d)
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, skv, kh, d)).astype(np.float32)
+    v = rng.standard_normal((b, skv, kh, d)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    got = flash_attention(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)), causal=True,
+                          window=window, q_offset=q_offset)
+    assert got.dtype == tdt and got.shape == (b, sq, h, d)
+    got = got.float().numpy()
+    jargs = [jnp.asarray(a.transpose(0, 2, 1, 3), dtype) for a in (q, k, v)]
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    kern = ref.fa_kernel.flash_attention_fwd(*jargs, **kw, block_q=blk, block_k=blk,
+                                             interpret=True)
+    oracle = ref.fa_ref.flash_attention_ref(*jargs, **kw)
+    off = skv - sq if q_offset is None else q_offset
+    seen = attention_mask(sq, skv, "cpu", causal=True, window=window,
+                          q_offset=off).any(dim=-1).numpy()
+    for name, want in (("kernel", kern), ("oracle", oracle)):
+        want = np.asarray(want).astype(np.float32).transpose(0, 2, 1, 3)
+        _close(got[:, seen], want[:, seen], dtype, name)
+    assert np.all(got[:, ~seen] == 0.0)
+    assert (~seen).sum() == min(sq, max(0, -off))   # causal rows before key 0
+
+
+def _decode_case(b, h, kh, smax, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, d)).astype(np.float32),
+            rng.standard_normal((b, smax, kh, d)).astype(np.float32),
+            rng.standard_normal((b, smax, kh, d)).astype(np.float32))
+
+
+DECODE_CASES = [
+    # b, h, kh, smax, d, kv_len (a list is [B], an int a scalar)
+    (3, 4, 2, 20, 16, [5, 0, 20]),           # G=2, a 0, full capacity
+    (2, 10, 2, 33, 32, 17),                  # G=5, scalar kv_len
+    (4, 4, 4, 9, 16, [9, 1, 0, 4]),          # G=1
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_flash_decode_plain_matches_jax(case, dtype):
+    """The port's flash_decode on CPU tensors against the JAX
+    flash_decode_fwd in interpret mode and flash_decode_ref: f32 to 1e-5,
+    bf16 to one bf16 ulp; kv_len 0 gives exact zeros; q as [B,1,H,D] keeps
+    its shape."""
+    ref = jax_ref()
+    jnp = ref.jnp
+    b, h, kh, smax, d, kv_len = case
+    q, k, v = _decode_case(b, h, kh, smax, d, seed=smax)
+    if dtype == "bfloat16":   # round inputs to bf16 once, on both sides
+        q, k, v = (torch.from_numpy(a).bfloat16().float().numpy() for a in (q, k, v))
+    tdt = getattr(torch, dtype)
+    tkv = torch.tensor(kv_len, dtype=torch.int32) if isinstance(kv_len, list) else kv_len
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    got = flash_decode(tq, tk, tv, tkv).float().numpy()
+    assert flash_decode(tq[:, None], tk, tv, tkv).shape == (b, 1, h, d)
+    jargs = [jnp.asarray(a, dtype) for a in (q, k, v)] + [jnp.asarray(kv_len, jnp.int32)]
+    kern = ref.decode_kernel.flash_decode_fwd(*jargs, block_k=8, interpret=True)
+    oracle = ref.fa_ref.flash_decode_ref(*jargs)
+    for name, want in (("kernel", kern), ("oracle", oracle)):
+        _close(got, np.asarray(want).astype(np.float32), dtype, name)
+    empty = np.broadcast_to(np.asarray(kv_len), (b,)) == 0
+    assert np.all(got[empty] == 0.0)
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_flash_decode_int8_plain_matches_jax(case):
+    """int8 codes with f32 per-row scales: to 1e-5 of the JAX kernel in
+    interpret mode and of its oracle."""
+    ref = jax_ref()
+    jnp = ref.jnp
+    b, h, kh, smax, d, kv_len = case
+    q, k, v = _decode_case(b, h, kh, smax, d, seed=smax + 1)
+    kq, ks = _quant_np(k)
+    vq, vs = _quant_np(v)
+    tkv = torch.tensor(kv_len, dtype=torch.int32) if isinstance(kv_len, list) else kv_len
+    got = flash_decode(torch.from_numpy(q), torch.from_numpy(kq), torch.from_numpy(vq), tkv,
+                       k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs)).numpy()
+    jargs = (jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), jnp.asarray(kv_len, jnp.int32))
+    jkw = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    kern = ref.decode_kernel.flash_decode_fwd(*jargs, **jkw, block_k=8, interpret=True)
+    oracle = ref.fa_ref.flash_decode_ref(*jargs, **jkw)
+    np.testing.assert_allclose(got, np.asarray(kern), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(oracle), rtol=0, atol=1e-5)
 
 
 def _quant_np(x):
@@ -157,6 +282,50 @@ def test_quantize_plain_matches_jax_bitwise(dtype):
 def test_dispatch_goes_by_device():
     x = torch.randn(4, 8)
     assert all(torch.equal(a, b) for a, b in zip(quantize(x), quantize_ref(x)))
+    q, k = torch.randn(2, 6, 4, 32), torch.randn(2, 6, 2, 32)
+    assert torch.equal(flash_attention(q, k, k, q_offset=0),
+                       flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                           k.transpose(1, 2), q_offset=0).transpose(1, 2))
+    assert torch.equal(flash_decode(q[:, 0], k, k, 3), flash_decode_ref(q[:, 0], k, k, 3))
+    # the model's decode entry takes the same path; the dense oracle agrees
+    assert torch.equal(attention.decode_attention(q[:, :1], k, k, 3),
+                       attention.dense_decode_attention(q[:, :1], k, k, 3))
     assert on_cpu(x, None)
     with pytest.raises(ValueError, match="all be on the CPU or all on CUDA"):
         on_cpu(x, torch.empty(1, device="meta"))
+
+
+def _attn_args(**over):
+    a = dict(q=torch.zeros(1, 8, 4, 32, dtype=torch.bfloat16),
+             k=torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16))
+    a.update(over)
+    return a["q"], a["k"], a.get("v", a["k"])
+
+
+@pytest.mark.parametrize("args,err,match", [
+    (_attn_args(k=torch.zeros(1, 8, 2, 32)), TypeError, "dtype"),
+    (_attn_args(q=torch.zeros(1, 8, 4, 48, dtype=torch.bfloat16),
+                k=torch.zeros(1, 8, 2, 48, dtype=torch.bfloat16)), ValueError, "multiple of 32"),
+    (_attn_args(k=torch.zeros(1, 8, 3, 32, dtype=torch.bfloat16)), ValueError, "multiple of K"),
+    (_attn_args(q=torch.zeros(1, 4, 8, 32, dtype=torch.bfloat16).transpose(1, 2)),
+     ValueError, "contiguous"),
+])
+def test_flash_attention_launcher_rejects_what_the_kernel_does_not_take(args, err, match):
+    """The CUDA launcher's checks run before anything is built or launched."""
+    with pytest.raises(err, match=match):
+        flash_attention_cuda(*args)
+
+
+def test_flash_decode_launcher_rejects_what_the_kernel_does_not_take():
+    q = torch.zeros(2, 4, 32, dtype=torch.bfloat16)
+    k = torch.zeros(2, 8, 2, 32, dtype=torch.bfloat16)
+    kv = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_decode_cuda(q, k.float(), k.float(), kv)
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
+        flash_decode_cuda(q, k.to(torch.int8), k.to(torch.int8), kv,
+                          k_scale=torch.zeros(2, 8, 2))
+    with pytest.raises(ValueError, match="at most 8 query heads"):
+        flash_decode_cuda(torch.zeros(2, 18, 32, dtype=torch.bfloat16), k, k, kv)
+    with pytest.raises(ValueError, match="kv_len"):
+        flash_decode_cuda(q, k, k, torch.zeros(3, dtype=torch.int32))

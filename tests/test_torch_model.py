@@ -213,3 +213,127 @@ def test_decode_slots_paged_matches_jax(setup, kv_dtype):
     after = tnew["stack0"]["attn_0"]["k"].float().numpy()
     changed = {(p, r) for p, r in zip(*np.nonzero(np.any(before != after, axis=(0, 3, 4))))}
     assert changed <= {(2, 1), (1, 2)} and changed
+
+
+def test_pallas_prefill_matches_jax_kernel_prefill(setup, monkeypatch):
+    """Model(attn_impl="pallas").prefill — flash_attention's plain version
+    on the CPU — against the JAX package's pallas prefill with its Pallas
+    kernel forced on (interpret mode on the CPU), and against the port's
+    naive prefill: logits and caches to 2**-5 of the largest |value|."""
+    ref, cfg, jcfg, jparams, tparams = setup
+    toks = _prompt(2, 11, seed=8)
+    monkeypatch.setenv("REPRO_FORCE_PALLAS", "1")
+    jm = ref.Model(jcfg, attn_impl="pallas")
+    jlog, jcache = ref.jax.jit(lambda p, b: jm.prefill(p, b, cache_len=16))(
+        jparams, {"tokens": ref.jnp.asarray(toks)})
+    tlog, tcache = Model(cfg, attn_impl="pallas").prefill(
+        tparams, {"tokens": torch.from_numpy(toks)}, cache_len=16)
+    bf16_close(tlog.float(), f32(jlog), "logits")
+    for key in ("k", "v"):
+        bf16_close(tcache["stack0"]["attn_0"][key].float(),
+                   f32(jcache["stack0"]["attn_0"][key]), key)
+    nlog, _ = Model(cfg, attn_impl="naive").prefill(
+        tparams, {"tokens": torch.from_numpy(toks)}, cache_len=16)
+    bf16_close(tlog.float(), nlog.float(), "pallas vs naive")
+
+
+def _to_jax(ref, t):
+    if t.dtype == torch.bfloat16:
+        return ref.jnp.asarray(t.float().numpy(), ref.jnp.bfloat16)
+    return ref.jnp.asarray(t.numpy())
+
+
+def test_decode_step_matches_jax(setup):
+    """Model.decode_step (whole batch, every row at one position) against
+    the JAX Model.decode_step, teacher-forced over 3 steps from the same
+    prefilled cache: logits and caches to 2**-5 of the largest |value|.
+    The cache is updated in place; a position past the cache end writes
+    its last row, as JAX's clamping dynamic_update_slice does."""
+    ref, cfg, jcfg, jparams, tparams = setup
+    toks = _prompt(2, 11, seed=4)
+    jm = ref.Model(jcfg, attn_impl="naive")
+    _, jcache = ref.jax.jit(lambda p, b: jm.prefill(p, b, cache_len=14))(
+        jparams, {"tokens": ref.jnp.asarray(toks)})
+    tcache = {"stack0": {"attn_0": {k: torch.from_numpy(f32(v)).bfloat16()
+                                    for k, v in jcache["stack0"]["attn_0"].items()}}}
+    jstep = ref.jax.jit(jm.decode_step)
+    model = Model(cfg)
+    for i, pos in enumerate((11, 12, 13, 14)):     # 14: past the end, clamped
+        tok = np.array([[7 + i], [200 - i]], np.int32)
+        jlog, jcache = jstep(jparams, jcache, {"tokens": ref.jnp.asarray(tok)},
+                             ref.jnp.int32(pos))
+        tlog, new = model.decode_step(tparams, tcache, {"tokens": torch.from_numpy(tok)}, pos)
+        assert new is tcache
+        bf16_close(tlog.float(), f32(jlog), f"logits at {pos}")
+    for key in ("k", "v"):
+        bf16_close(tcache["stack0"]["attn_0"][key].float(),
+                   f32(jcache["stack0"]["attn_0"][key]), key)
+
+
+def test_apply_layer_decode_matches_jax(setup):
+    """One layer of the whole-batch decode against the JAX layer, from the
+    same random bf16 cache: output and the written cache rows to 2**-5."""
+    ref, cfg, jcfg, jparams, tparams = setup
+    from repro.models import transformer as jtr
+    from repro_torch.models import transformer as tr
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((3, 1, 64)).astype(np.float32)).bfloat16()
+    cache = {k: torch.from_numpy(rng.standard_normal((3, 12, 2, 16)).astype(np.float32)
+                                 ).bfloat16() for k in ("k", "v")}
+    pos = 7
+    jp = ref.jax.tree.map(lambda a: a[0], jparams["decoder"]["stack0"]["attn_0"])
+    tp = {k: (v[0] if isinstance(v, torch.Tensor) else {kk: vv[0] for kk, vv in v.items()})
+          for k, v in tparams["decoder"]["stack0"]["attn_0"].items()}
+    jx, jc = jtr.apply_layer_decode(jcfg, "attn", jp, _to_jax(ref, x),
+                                    {k: _to_jax(ref, v) for k, v in cache.items()}, pos,
+                                    {"positions": ref.jnp.full((1, 1), pos, ref.jnp.int32)})
+    tc = {k: v.clone() for k, v in cache.items()}
+    tx, tc2 = tr.apply_layer_decode(cfg, "attn", tp, x, tc, pos,
+                                    {"positions": torch.full((1, 1), pos)})
+    assert tc2["k"] is tc["k"]
+    bf16_close(tx.float(), f32(jx), "x")
+    for key in ("k", "v"):
+        bf16_close(tc[key].float(), f32(jc[key]), key)
+        untouched = [p for p in range(12) if p != pos]
+        assert torch.equal(tc[key][:, untouched], cache[key][:, untouched])
+
+
+@pytest.mark.parametrize("kv_dtype", ["model", "int8"])
+def test_decode_slots_contiguous_matches_jax(setup, kv_dtype):
+    """Slot decode without a page table (slot-contiguous caches, int8 codes
+    + scales too) against the JAX decode_slots: logits of the active slots
+    and the caches to 2**-5; only the active slots' rows at their positions
+    change, in place."""
+    ref, cfg, jcfg, jparams, tparams = setup
+    jnp = ref.jnp
+    rng = np.random.default_rng(10)
+    k = torch.from_numpy(rng.standard_normal((2, 3, 12, 2, 16)).astype(np.float32)).bfloat16()
+    v = torch.from_numpy(rng.standard_normal((2, 3, 12, 2, 16)).astype(np.float32)).bfloat16()
+    if kvquant.is_int8(kv_dtype):
+        kq, ks = kvquant.quantize_kv_leaf(k)
+        vq, vs = kvquant.quantize_kv_leaf(v)
+        layer = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        layer = {"k": k, "v": v}
+    positions = np.array([9, 0, 11], np.int32)
+    active = np.array([True, False, True])
+    toks = np.array([[3], [0], [200]], np.int32)
+    jcache = {"stack0": {"attn_0": {n: _to_jax(ref, t) for n, t in layer.items()}}}
+    tcache = {"stack0": {"attn_0": {n: t.clone() for n, t in layer.items()}}}
+    jlog, jnew = ref.jax.jit(ref.Model(jcfg, attn_impl="naive").decode_slots)(
+        jparams, jcache, {"tokens": jnp.asarray(toks)}, jnp.asarray(positions),
+        jnp.asarray(active))
+    tlog, tnew = Model(cfg).decode_slots(
+        tparams, tcache, {"tokens": torch.from_numpy(toks)}, torch.from_numpy(positions),
+        torch.from_numpy(active))
+    assert tnew is tcache
+    bf16_close(tlog[torch.from_numpy(active)].float(), f32(jlog)[active], "logits")
+    tl, jl = tnew["stack0"]["attn_0"], jnew["stack0"]["attn_0"]
+    for key in ("k", "v"):
+        got, want = tl[key].float().numpy(), f32(jl[key])
+        if kv_dtype == "int8":
+            got = got * tl[key + "_scale"].numpy()[..., None]
+            want = want * f32(jl[key + "_scale"])[..., None]
+        bf16_close(got, want, key)
+    changed = np.any(layer["k"].float().numpy() != tl["k"].float().numpy(), axis=(0, 3, 4))
+    assert set(zip(*np.nonzero(changed))) <= {(0, 9), (2, 11)} and changed.any()

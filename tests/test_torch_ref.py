@@ -56,15 +56,18 @@ def jax_ref():
     import jax.numpy as jnp
     from repro.config.base import MeshSpec
     from repro.configs import get_smoke_config
-    from repro.kernels.flash_attention import decode_kernel, ref as fa_ref
+    from repro.kernels.flash_attention import decode_kernel, kernel as fa_kernel
+    from repro.kernels.flash_attention import ref as fa_ref
     from repro.kernels.quantize import kernel as q_kernel, ref as q_ref
+    from repro.launch import serve as launch_serve
     from repro.launch.mesh import make_mesh
     from repro.models import attention, kvquant, layers, paging
     from repro.models.model import Model
     from repro.serve import ServeEngine, synth_requests
     _state["ref"] = types.SimpleNamespace(
         jax=jax, jnp=jnp, get_smoke_config=get_smoke_config,
-        decode_kernel=decode_kernel, fa_ref=fa_ref, q_kernel=q_kernel,
+        decode_kernel=decode_kernel, fa_kernel=fa_kernel, fa_ref=fa_ref,
+        launch_serve=launch_serve, q_kernel=q_kernel,
         q_ref=q_ref, attention=attention, kvquant=kvquant, layers=layers,
         paging=paging, Model=Model, ServeEngine=ServeEngine,
         synth_requests=synth_requests,
