@@ -13,7 +13,11 @@ non-zero, printing no result):
    every shape the paths below give it and at a long-context shape, with
    its time, the plain version's, the least time the card could take
    (bound) and, where one exists, one PyTorch call computing the same
-   function (SDPA) as a yardstick, never called by the port;
+   function (SDPA) as a yardstick, never called by the port; the quantize
+   and SSD scan rows also take the kernel's device time from
+   torch.profiler; SSD rows with dt in a trained model's range also show
+   that the plain scan with the decayed state dropped from what each chunk
+   hands on fails the row's rule;
 4. reference (qwen2.5-14b at full width, 2 layers, random bf16 weights
    from a seed) — the serve engine with model-width and int8 KV pages;
    the engine with the flash-attention prefill (attn_impl="pallas",
@@ -23,15 +27,21 @@ non-zero, printing no result):
    the engine's only at a narrow dense margin); the slot decode step
    without a page arena against the paged one, bf16 and int8. Logits are
    held against a dense one-shot pass over each request's prompt and
-   tokens;
-5. engine and static at the full 48 layers — the engine serving 8
+   tokens. Then `Model.forward` (attn_impl="pallas") against
+   `Model.prefill` on the static prefill's batch;
+5. Mamba-2 (mamba2-1.3b at full width, random weights from a seed with
+   dt_bias drawn as Mamba-2 draws it, 4 x 2048 tokens) — `Model.forward` and `loss` through the SSD scan kernel
+   (ssd_impl="pallas") against the same model through the plain scan, at
+   2 layers (values and argmax) and at the full 48 (launches exactly 48,
+   argmax where the margin is wide, both losses, forward time);
+6. engine and static at the full 48 layers — the engine serving 8
    requests with half the device pages full residency needs (the backlog
    spills to pinned host memory), with model-width then int8 KV pages;
    then `run_static` on the same weights, held to the same loop with its
    kernels swapped for their plain versions (teacher-forced), its dense
    deviation and its parity with the engine's tokens reported;
-6. determinism — the 48-layer model-width trace again, token for token;
-7. profile — that trace once more under torch.profiler: the device's busy
+7. determinism — the 48-layer model-width trace again, token for token;
+8. profile — that trace once more under torch.profiler: the device's busy
    share and its top kernels.
 
 Every run of a path records the shape of each kernel call and fails on one
@@ -64,6 +74,10 @@ SEED = 0
 # with half the 40 device pages full residency needs
 REQUESTS, PROMPT, GEN = 8, 128, 32
 SLOTS, MAX_LEN, CHUNK, DEVICE_PAGES = 4, 160, 32, 20
+# Mamba-2's forward and loss: mamba2-1.3b at 4 sequences of 2048 tokens,
+# the Mamba-2 paper's training context
+MAMBA = "mamba2-1.3b"
+SSD_BATCH, SSD_LEN = 4, 2048
 
 
 def emit(obj) -> None:
@@ -93,6 +107,36 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str, iters: int = 20, attempts: int = 3) -> float:
+    """Mean device time of one launch of the kernel whose name contains
+    `kernel`, over `iters` calls of fn() under torch.profiler: the kernel's
+    own time on the card. (Back-to-back timing by CUDA events reads the
+    wrapper's host time instead where that is the longer.) A session that
+    records another number of launches than `iters` is reported and run
+    again, up to `attempts` sessions: once in a run of thirteen sessions
+    on the card it recorded none at all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        durs = [ev.duration_ns() for ev in prof.profiler.kineto_results.events()
+                if ev.device_type() == DeviceType.CUDA and kernel in ev.name()]
+        if len(durs) == iters:
+            return sum(durs) / len(durs) / 1e6
+        seen.append(len(durs))
+        emit({"phase": "profiler_miss", "kernel": kernel, "launches": iters,
+              "recorded": len(durs)})
+    raise AssertionError(f"the profiler saw {seen} launches of {kernel} in {attempts} "
+                         f"sessions, not {iters}")
 
 
 def bf16_row_ulp(o):
@@ -209,6 +253,12 @@ def decode_sig(q, k, page_table=None):
 
 def quantize_sig(x):
     return ("quantize_rows", tuple(x.shape), str(x.dtype))
+
+
+def ssd_sig(x, B, chunk):
+    """x, B and C are read through their strides: those are part of it."""
+    return ("ssd_scan", tuple(x.shape), str(x.dtype), tuple(x.stride()), tuple(B.shape),
+            tuple(B.stride()), int(chunk))
 
 
 def decode_kernel_phase(shape: str, kv_lens, int8: bool, seed: int, checked: set,
@@ -380,14 +430,164 @@ def quantize_kernel_phase(shape: str, rows: int, seed: int, checked: set):
         raise AssertionError(f"quantize {shape}: codes or scales differ from the "
                              "plain version")
     checked.add(quantize_sig(x))
-    kernel_ms = time_ms(lambda: quantize_cuda(x))
+    # the launch is shorter than its wrapper's host time: back-to-back
+    # events read the host, the profiler the kernel itself
+    back_to_back_ms = time_ms(lambda: quantize_cuda(x))
+    kernel_ms = device_ms(lambda: quantize_cuda(x), "quantize_rows_kernel")
     plain_ms = time_ms(lambda: quantize_ref(x), iters=20)
     bound_ms, bound_by = bound(rows * D * 2 + rows * D + rows * 4, rows * D * 5)
     row = {"phase": "kernel", "kernel": "quantize_rows", "shape": shape, "rows": rows,
            "cols": D, "max_abs_err": float((q.float() - pq.float()).abs().max()),
-           "tolerance": "bitwise", "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "tolerance": "bitwise", "kernel_ms": kernel_ms, "kernel_ms_by": "torch.profiler",
+           "back_to_back_ms": back_to_back_ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     emit(row)
+    return row
+
+
+def _log_uniform(shape, lo, hi, gen):
+    """exp(U[log lo, log hi]) on the card."""
+    import math
+    import torch
+    u = torch.rand(shape, generator=gen, device="cuda")
+    return torch.exp(math.log(lo) + u * (math.log(hi) - math.log(lo)))
+
+
+def _ssd_inputs(b, l, h, p, g, n, dtype, seed, dt_kind):
+    """Scan inputs on the card as apply_ssm hands them over: x, B and C
+    views into one [b, l, h*p + 2*g*n] buffer of `dtype` (the convolution's
+    output), A = -uniform[1, 16) [h] (the range of the `ssm_a` init) and
+    dt f32 [b, l, h]: "softplus", softplus(normal), as a model with
+    dt_bias 0 gives it; "trained", a level per (batch row, head) log-
+    uniform on [1e-3, 1e-1] (the range Mamba-2 draws dt_bias from) times
+    exp(N(0, 0.5**2)) per position, where the state carried from one chunk
+    to the next keeps a share of itself that the check can see."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    di = h * p
+    buf = torch.randn((b, l, di + 2 * g * n), generator=gen, device="cuda").to(dtype)
+    x = buf[..., :di].reshape(b, l, h, p)
+    B = buf[..., di:di + g * n].reshape(b, l, g, n)
+    C = buf[..., di + g * n:].reshape(b, l, g, n)
+    noise = torch.randn((b, l, h), generator=gen, device="cuda")
+    if dt_kind == "softplus":
+        dt = F.softplus(noise)
+    elif dt_kind == "trained":
+        dt = _log_uniform((b, 1, h), 1e-3, 1e-1, gen) * torch.exp(0.5 * noise)
+    else:
+        raise ValueError(dt_kind)
+    A = -(torch.rand((h,), generator=gen, device="cuda") * 15.0 + 1.0)
+    return x, dt, A, B, C
+
+
+def _scan_without_decayed_state(x, dt, A, B, C, chunk):
+    """The plain scan with a planted fault: the state handed to each chunk
+    is the previous chunk's own contribution S alone, the older state it
+    should carry on, exp(cum_last) * h, dropped. Chunk c's rows are the
+    plain scan's over chunks c-1 and c from a zero state."""
+    import torch
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    q = min(chunk, x.shape[1])
+    ys = []
+    for c0 in range(0, x.shape[1], q):
+        a, e = max(c0 - q, 0), c0 + q
+        y = ssd_scan_ref(x[:, a:e], dt[:, a:e], A, B[:, a:e], C[:, a:e], chunk=q)[0]
+        ys.append(y[:, c0 - a:])
+    return torch.cat(ys, dim=1)
+
+
+def _chunk_decays(dt, A, chunk):
+    """exp(cum_last) of every chunk but the last, per (batch row, chunk,
+    head): the share of the state that each chunk hands on to the next."""
+    import torch
+    b, l, h = dt.shape
+    q = min(chunk, l)
+    dA = torch.nn.functional.pad(dt * A, (0, 0, 0, (-l) % q))
+    cum_last = dA.double().reshape(b, -1, q, h).sum(dim=2)
+    return torch.exp(cum_last[:, :-1]).flatten()
+
+
+def ssd_kernel_phase(shape: str, b: int, l: int, seed: int, checked: set, *, h=64, p=64,
+                     g=1, n=128, chunk=256, dtype="bfloat16", dt_kind="softplus"):
+    """The SSD scan kernel against its plain version, per (batch row,
+    head): bf16 within one bf16 ulp of that head's largest |y| (the two
+    f32 results, summed in other orders, round apart by at most that);
+    f32 within 2e-5 of it. Both take the chunk's prefix sums of dt * A in
+    f64 and round each once, so their decays differ only by the f32 exp;
+    the products over n and the chunk's rows sum in other orders.
+
+    Where the sequence spans chunks, the plain scan with a planted fault —
+    the older state exp(cum_last) * h dropped from what each chunk hands
+    on — is held to the plain scan by the same rule and its error
+    reported, with the chunks' decays exp(cum_last): with softplus(normal)
+    dt they are ~0 and the fault is invisible; with "trained" dt the row
+    fails unless the faulty scan lies 10 tolerances away, so a kernel
+    with that fault could not pass it."""
+    import torch
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    x, dt, A, B, C = _ssd_inputs(b, l, h, p, g, n, getattr(torch, dtype), seed, dt_kind)
+
+    def kernel():
+        return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
+
+    def plain():
+        return ssd_scan_ref(x, dt, A, B, C, chunk=chunk)[0]
+    out = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    err = (out.float() - want.float()).abs().amax(dim=(1, 3))          # [b, h]
+    top = want.float().abs().amax(dim=(1, 3)).clamp_min(1e-30)
+    if dtype == "bfloat16":
+        unit, tol = torch.exp2(torch.floor(torch.log2(top)) - 7), 1.0
+    else:
+        unit, tol = top, 2e-5
+    worst = (err / unit).max().item()
+    if not (worst <= tol and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"ssd_scan {shape}: kernel vs plain max |diff| "
+                             f"{err.max().item()} ({worst} of the tolerance unit)")
+    carry = None
+    if l > chunk:
+        faulty = _scan_without_decayed_state(x, dt, A, B, C, chunk).float()
+        fault_worst = ((faulty - want.float()).abs().amax(dim=(1, 3)) / unit).max().item()
+        decays = _chunk_decays(dt, A, chunk)
+        carry = {"chunk_decay_min": decays.min().item(),
+                 "chunk_decay_median": decays.median().item(),
+                 "chunk_decay_max": decays.max().item(),
+                 "chunk_decay_share_above_1e-3": (decays > 1e-3).double().mean().item(),
+                 "decayed_state_dropped_err_over_unit": fault_worst}
+        del faulty
+        if dt_kind == "trained" and not fault_worst > 10 * tol:
+            raise AssertionError(f"ssd_scan {shape}: the plain scan without the decayed "
+                                 f"state lies only {fault_worst} units from it")
+    checked.add(ssd_sig(x, B, chunk))
+    kernel_ms = time_ms(kernel, iters=10, warmup=2)
+    profiled_ms = device_ms(kernel, "ssd_scan_kernel", iters=5)
+    plain_ms = time_ms(plain, iters=3, warmup=1)
+    q = min(chunk, l)
+    rows = [min(q, l - c0) for c0 in range(0, l, q)]
+    pairs = sum(r * (r + 1) // 2 for r in rows)     # causal (i, j) pairs in the chunks
+    # scores C_i . B_j and S . (dt x) over the pairs; the inter-chunk readout
+    # and the state update, p x n products per row each
+    flops = b * h * (2 * pairs * (n + p) + 4 * l * p * n)
+    esize = x.element_size()
+    nbytes = 2 * b * l * h * p * esize + b * l * h * 4 + h * 4 + 2 * b * l * g * n * esize
+    peak = BF16_TENSOR_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+    bound_ms, bound_by = bound(nbytes, flops, peak)
+    row = {"phase": "kernel", "kernel": "ssd_scan", "shape": shape, "x": list(x.shape),
+           "groups": g, "state": n, "chunk": chunk, "dtype": dtype, "gflop": flops / 1e9,
+           "mbytes": nbytes / 1e6, "max_abs_err": err.max().item(),
+           "max_err_over_unit": worst, "dt": dt_kind, "carry": carry,
+           "tolerance": ("1 bf16 ulp of each (batch, head)'s max |plain|"
+                         if dtype == "bfloat16" else "2e-5 of each (batch, head)'s max |plain|"),
+           "kernel_ms": kernel_ms, "profiled_ms": profiled_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bound_peak": peak,
+           "library_ms": None, "library": "none: no single PyTorch call computes the scan",
+           "kernel_tflop_s": flops / kernel_ms / 1e9}
+    emit(row)
+    del x, dt, A, B, C, out, want
+    torch.cuda.empty_cache()
     return row
 
 
@@ -400,7 +600,12 @@ def kernel_phases(num_layers: int):
     slot decode's (4 x 160, ragged with a 0), bf16 and int8; paged decode
     at the engine's arena and table; quantize at each decoded token's rows
     and the pool's quantize of a prefill cache of 2 and of num_layers
-    layers. The first row of each kernel is the main path's shape.
+    layers; the SSD scan at the Mamba-2 forward's 4 x 2048 tokens (views
+    of the convolution's output, as apply_ssm passes them), a ragged
+    length, a length under the chunk, f32, two groups and a narrow head,
+    and the main and ragged shapes again with dt in a trained model's
+    range, where the state carried across chunks shows.
+    The first row of each kernel is the main path's shape.
     -> ({kernel: [rows]}, the launch signatures checked)."""
     import numpy as np
     rng = np.random.default_rng(SEED)
@@ -447,6 +652,22 @@ def kernel_phases(num_layers: int):
         quantize_kernel_phase("pool_ingest_2_layers", 2 * MAX_LEN * K, 6, checked),
         quantize_kernel_phase(f"pool_ingest_{num_layers}_layers",
                               num_layers * MAX_LEN * K, 7, checked)]
+    from repro_torch.configs import get_config
+    m = get_config(MAMBA)
+    out["ssd_scan"] = [
+        ssd_kernel_phase("mamba2_forward", SSD_BATCH, SSD_LEN, 23, checked, h=m.ssm_nheads,
+                         p=m.ssm_headdim, g=m.ssm_ngroups, n=m.ssm_state, chunk=m.ssm_chunk),
+        ssd_kernel_phase("mamba2_forward_trained_dt", SSD_BATCH, SSD_LEN, 29, checked,
+                         h=m.ssm_nheads, p=m.ssm_headdim, g=m.ssm_ngroups, n=m.ssm_state,
+                         chunk=m.ssm_chunk, dt_kind="trained"),
+        ssd_kernel_phase("ragged_2000", 2, 2000, 24, checked),
+        ssd_kernel_phase("ragged_2000_trained_dt", 2, 2000, 30, checked, dt_kind="trained"),
+        ssd_kernel_phase("under_chunk_100", SSD_BATCH, 100, 25, checked),
+        ssd_kernel_phase("f32", 2, SSD_LEN, 26, checked, dtype="float32"),
+        ssd_kernel_phase("groups_2", 2, SSD_LEN, 27, checked, g=2),
+        ssd_kernel_phase("narrow_f32", 2, 300, 28, checked, h=8, p=40, g=2, n=48, chunk=64,
+                         dtype="float32"),
+    ]
     return out, checked
 
 
@@ -454,10 +675,12 @@ def kernel_phases(num_layers: int):
 def _launchers():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.quantize import ops as q_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     return {"flash_attention": fa_ops.flash_attention_cuda,
             "flash_decode": fa_ops.flash_decode_cuda,
             "flash_decode_paged": fa_ops.flash_decode_paged_cuda,
-            "quantize_rows": q_ops.quantize_cuda}
+            "quantize_rows": q_ops.quantize_cuda,
+            "ssd_scan": ssd_ops.ssd_scan_cuda}
 
 
 @contextlib.contextmanager
@@ -465,16 +688,18 @@ def launch_signatures():
     """Record the launch signature of every kernel call inside the block,
     with every launch count set to 0 on entry. The dispatchers the model
     calls through (`flash_attention`, `flash_decode`, `flash_decode_paged`,
-    `quantize`) are swapped for recording stand-ins that call them; the
+    `quantize`, `ssd_scan`) are swapped for recording stand-ins that call them; the
     wrappers below them launch and count as always. -> (signatures seen,
     {kernel: calls recorded}, {kernel: launches}), the last filled on exit,
     for the caller to match the calls against."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.quantize import ops as q_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     launchers = _launchers()
     seen, calls, launches = set(), {name: 0 for name in launchers}, {}
-    attend, decode, paged, quantize = (fa_ops.flash_attention, fa_ops.flash_decode,
-                                       fa_ops.flash_decode_paged, q_ops.quantize)
+    attend, decode, paged, quantize, scan = (fa_ops.flash_attention, fa_ops.flash_decode,
+                                             fa_ops.flash_decode_paged, q_ops.quantize,
+                                             ssd_ops.ssd_scan)
 
     def attend_spy(q, k, v, *, causal=True, window=0, q_offset=None):
         seen.add(attention_sig(q, k, causal, window, q_offset))
@@ -495,15 +720,21 @@ def launch_signatures():
         seen.add(quantize_sig(x))
         calls["quantize_rows"] += 1
         return quantize(x)
+
+    def scan_spy(x, dt, A, B, C, *, chunk=256):
+        seen.add(ssd_sig(x, B, chunk))
+        calls["ssd_scan"] += 1
+        return scan(x, dt, A, B, C, chunk=chunk)
     (fa_ops.flash_attention, fa_ops.flash_decode, fa_ops.flash_decode_paged,
-     q_ops.quantize) = attend_spy, decode_spy, paged_spy, quantize_spy
+     q_ops.quantize, ssd_ops.ssd_scan) = (attend_spy, decode_spy, paged_spy, quantize_spy,
+                                          scan_spy)
     for fn in launchers.values():
         fn.launches = 0
     try:
         yield seen, calls, launches
     finally:
         (fa_ops.flash_attention, fa_ops.flash_decode, fa_ops.flash_decode_paged,
-         q_ops.quantize) = attend, decode, paged, quantize
+         q_ops.quantize, ssd_ops.ssd_scan) = attend, decode, paged, quantize, scan
         launches.update({name: fn.launches for name, fn in launchers.items()})
 
 
@@ -888,17 +1119,13 @@ def busy_seconds(intervals) -> float:
     return total / 1e9
 
 
-def profile_phase(model, params, line):
-    """The model-width trace once more, under torch.profiler. The device
-    is busy while at least one kernel, copy or fill the profiler saw on the
-    card runs (the union of their intervals, so overlaps count once); its
-    busy share is that over the seconds of eng.run, which the profiler's
-    own host overhead lengthens, so the share is a lower bound."""
+def device_summary(prof, wall: float):
+    """What a torch.profiler run saw on the card. The device is busy while
+    at least one kernel, copy or fill runs (the union of their intervals,
+    so overlaps count once); its busy share is that over `wall`, the
+    host's seconds for the run, which the profiler's own host overhead
+    lengthens, so the share is a lower bound. -> a dict for the phase row."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    t0 = time.monotonic()
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    eng, _, _, wall = _serve(model, params, "model", around_run=prof)
     intervals, by_name, runtime_launches = [], {}, 0
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() == DeviceType.CUDA:
@@ -912,15 +1139,258 @@ def profile_phase(model, params, line):
         raise AssertionError("the profiler saw no device activity")
     busy = busy_seconds(intervals)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"run_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
+            "device_summed_s": sum(e - s for s, e in intervals) / 1e9,
+            "device_events": len(intervals), "runtime_launch_calls": runtime_launches,
+            "top_device": [{"name": n[:120], "s": t / 1e9, "count": c} for n, (t, c) in top]}
+
+
+def profile_phase(model, params, line):
+    """The model-width trace once more, under torch.profiler: the device's
+    busy share over the seconds of eng.run and its top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.monotonic()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    eng, _, _, wall = _serve(model, params, "model", around_run=prof)
     m = eng.metrics()
     emit({"phase": "profile", "kv_dtype": "model", "layers": model.cfg.num_layers,
-          "card": line, "seconds": time.monotonic() - t0, "run_s": wall, "device_busy_s": busy,
-          "device_busy_share": busy / wall,
-          "device_summed_s": sum(e - s for s, e in intervals) / 1e9,
-          "device_events": len(intervals), "runtime_launch_calls": runtime_launches,
-          "ticks": m["ticks"], "decode_tok_s": m["decode_tok_s"],
-          "top_device": [{"name": n[:120], "s": t / 1e9, "count": c}
-                         for n, (t, c) in top]})
+          "card": line, "seconds": time.monotonic() - t0, **device_summary(prof, wall),
+          "ticks": m["ticks"], "decode_tok_s": m["decode_tok_s"]})
+
+
+def compare_logits(got, want, margin: float):
+    """Logits [..., V] of a run against a reference's, row by row on the
+    card. -> {"worst": max over rows of max |diff| / max |want|,
+    "argmax_flips": rows whose argmax differs, "argmax_flips_wide": those
+    where want's top-2 margin exceeds `margin` of its max |logit|,
+    "wide_rows": rows with such a margin, "rows"}."""
+    import torch
+    v = want.shape[-1]
+    g_all, w_all = got.reshape(-1, v), want.reshape(-1, v)
+    worst, flips, flips_wide, wide = 0.0, 0, 0, 0
+    for i in range(0, w_all.shape[0], 1024):
+        g, w = g_all[i:i + 1024].float(), w_all[i:i + 1024].float()
+        top = w.abs().amax(dim=-1)
+        worst = max(worst, ((g - w).abs().amax(dim=-1) / top.clamp_min(1e-30)).max().item())
+        top2 = w.topk(2, dim=-1).values
+        is_wide = (top2[:, 0] - top2[:, 1]) > margin * top
+        flip = g.argmax(dim=-1) != w.argmax(dim=-1)
+        flips += int(flip.sum().item())
+        flips_wide += int((flip & is_wide).sum().item())
+        wide += int(is_wide.sum().item())
+    return {"worst": worst, "argmax_flips": flips, "argmax_flips_wide": flips_wide,
+            "wide_rows": wide, "rows": int(w_all.shape[0]), "margin": margin}
+
+
+def forward_phase(model, params, line, checked):
+    """qwen2.5-14b `Model.forward` (2 layers, attn_impl="pallas") on the
+    static prefill's batch, 8 prompts of 128, against `Model.prefill` on
+    the same tokens: the same ops at the same shapes up to the head, so the
+    hidden state entering the head is bitwise equal at the last position;
+    the head's GEMM has another M (all rows against the last), so the
+    logits are held within one bf16 ulp of each row's max |logit|. Counts
+    reset just before, read just after: 2 flash-attention launches each."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as model_mod
+    rng = np.random.default_rng(SEED + 4)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (REQUESTS, PROMPT))).cuda()
+    heads = []
+    head = model_mod.lm_logits
+
+    def head_rec(cfg, p, x):
+        heads.append(x)
+        return head(cfg, p, x)
+    model_mod.lm_logits = head_rec
+    try:
+        with torch.no_grad(), launch_signatures() as (seen, calls, launches):
+            logits, aux = model.forward(params, {"tokens": toks})
+            last, _ = model.prefill(params, {"tokens": toks})
+    finally:
+        model_mod.lm_logits = head
+    layers = model.cfg.num_layers
+    diff = (logits[:, -1].float() - last.float()).abs()
+    ulps = (diff / bf16_row_ulp(last)).max().item()
+    unchecked = sorted(seen - checked)
+    checks = {
+        "logits_shape": tuple(logits.shape) == (REQUESTS, PROMPT, model.cfg.vocab_size),
+        "aux_zero": aux.item() == 0.0,
+        "hidden_bitwise_equal": torch.equal(heads[0][:, -1], heads[1][:, 0]),
+        "last_row_within_1_ulp": ulps <= 1.0,
+        "same_argmax": torch.equal(logits[:, -1].argmax(-1), last.argmax(-1)),
+        "attention_launches": launches["flash_attention"] == 2 * layers,
+        "every_launch_recorded": calls == launches,
+        "every_launch_shape_checked": not unchecked,
+        "finite_logits": bool(torch.isfinite(logits).all()),
+    }
+    row = {"phase": "forward_vs_prefill", "arch": ARCH, "layers": layers,
+           "attn_impl": model.attn_impl, "batch": REQUESTS, "seq": PROMPT, "card": line,
+           "last_row_bitwise_equal": torch.equal(logits[:, -1], last),
+           "last_row_max_ulps": ulps, "launches": launches,
+           "launch_signatures": sorted(seen), "unchecked_signatures": unchecked,
+           "checks": checks}
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"forward vs prefill: failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return row
+
+
+def _first_layers(params, n: int):
+    """The model's params with the decoder cut to its first n layers
+    (views into the stacked [L, ...] leaves)."""
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:n]
+    return {**params, "decoder": cut(params["decoder"])}
+
+
+def _mamba_batch(cfg, seed):
+    """SSD_BATCH sequences of SSD_LEN random tokens, next-token labels."""
+    import numpy as np
+    import torch
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (SSD_BATCH, SSD_LEN + 1))
+    return {"tokens": torch.from_numpy(toks[:, :-1]).cuda(),
+            "labels": torch.from_numpy(toks[:, 1:]).cuda()}
+
+
+def _trained_dt_bias(params, seed):
+    """Every dt_bias leaf drawn as Mamba-2 draws it, in place: softplus^-1
+    of a per-head dt0 log-uniform on [1e-3, 1e-1]. (The JAX package and
+    the port init it to 0, so dt = softplus(dt_raw) ~ 0.7 and exp(cum_last)
+    over a chunk of 256 rows is ~0: the state carried across chunks would
+    not show in the comparison.)"""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for key, leaf in params.items():
+        if isinstance(leaf, dict):
+            _trained_dt_bias(leaf, seed + 1)
+        elif key == "dt_bias":
+            dt0 = _log_uniform(leaf.shape, 1e-3, 1e-1, gen)
+            leaf.copy_(dt0 + torch.log(-torch.expm1(-dt0)))
+
+
+def _timed_forward(model, params, batch):
+    """-> (logits, aux, seconds to the last kernel's end)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits, aux = model.forward(params, batch)
+    torch.cuda.synchronize()
+    return logits, aux, time.monotonic() - t0
+
+
+def mamba_phases(line, checked):
+    """mamba2-1.3b's forward and loss at full width (d_model 2048, 64 SSM
+    heads of 64, state 128, chunk 256, vocab 50280) on 4 x 2048 tokens,
+    random weights from a seed with dt_bias as Mamba-2 draws it (so the
+    state carried across chunks counts), with counts reset just before and
+    read just after each run.
+
+    2 layers: Model(ssd_impl="pallas").forward and .loss against the same
+    model with ssd_impl="ref" (the plain scan; every other op the same):
+    logits within 2**-5 of each row's max |logit|, no argmax flip where
+    the plain run's top-2 margin exceeds that, the loss within 1%.
+    48 layers: the forward through the kernel, 48 launches exactly, against
+    the same forward through the plain scan: no argmax flip where the
+    margin exceeds 2**-4 of the row max (48 random bf16 layers carry
+    one-ulp differences far: the value deviation is reported, not held),
+    both losses reported; the forward timed three more times, and once
+    under torch.profiler (busy share, top kernels).
+    -> the 48-layer row."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.layers import cross_entropy
+    from repro_torch.models.model import Model
+    cfg = get_config(MAMBA)
+    t0 = time.monotonic()
+    params = Model(cfg).init(SEED + 5, "cuda")
+    _trained_dt_bias(params, SEED + 6)
+    torch.cuda.synchronize()
+    emit({"phase": "init", "arch": MAMBA, "seconds": time.monotonic() - t0,
+          "params": cfg.param_count(), "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    batch = _mamba_batch(cfg, SEED + 5)
+    tokens = SSD_BATCH * SSD_LEN
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    params2 = _first_layers(params, 2)
+    kernel2, plain2 = Model(cfg2, ssd_impl="pallas"), Model(cfg2, ssd_impl="ref")
+    with torch.no_grad():
+        with launch_signatures() as (seen, calls, launches):
+            logits_k, aux_k = kernel2.forward(params2, batch)
+            loss_k, parts_k = kernel2.loss(params2, batch)
+        logits_p, _ = plain2.forward(params2, batch)
+        loss_p, _ = plain2.loss(params2, batch)
+    cmp2 = compare_logits(logits_k, logits_p, 2.0 ** -5)
+    unchecked = sorted(seen - checked)
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    checks = {
+        "logits_shape": tuple(logits_k.shape) == (SSD_BATCH, SSD_LEN, cfg.vocab_size),
+        "aux_zero": aux_k.item() == 0.0,
+        "scan_launches_eq_layers_x_2": launches["ssd_scan"] == 2 * 2,
+        "no_other_launches": all(n == 0 for k, n in launches.items() if k != "ssd_scan"),
+        "every_launch_recorded": calls == launches,
+        "every_launch_shape_checked": not unchecked,
+        "finite": bool(torch.isfinite(logits_k).all()) and bool(torch.isfinite(loss_k)),
+        "within_2**-5": cmp2["worst"] <= 2.0 ** -5,
+        "argmax_wide": cmp2["argmax_flips_wide"] == 0,
+        "loss_within_1%": loss_rel <= 1e-2,
+    }
+    emit({"phase": "mamba2_reference", "arch": MAMBA, "layers": 2, "batch": SSD_BATCH,
+          "seq": SSD_LEN, "card": line, "plain": cmp2, "loss_kernel": loss_k.item(),
+          "loss_plain": loss_p.item(), "ce_kernel": parts_k["ce"].item(),
+          "loss_rel_diff": loss_rel, "launches": launches,
+          "launch_signatures": sorted(seen), "unchecked_signatures": unchecked,
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"mamba2 2 layers: failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
+    del logits_k, logits_p, params2
+    torch.cuda.empty_cache()
+
+    layers = cfg.num_layers
+    kernel_model, plain_model = Model(cfg, ssd_impl="pallas"), Model(cfg, ssd_impl="ref")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        with launch_signatures() as (seen, calls, launches):
+            logits_k, aux_k, kernel_s = _timed_forward(kernel_model, params, batch)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        loss_k = cross_entropy(logits_k, batch["labels"]).item()
+        logits_p, _, plain_s = _timed_forward(plain_model, params, batch)
+        loss_p = cross_entropy(logits_p, batch["labels"]).item()
+        cmp48 = compare_logits(logits_k, logits_p, 2.0 ** -4)
+        finite = bool(torch.isfinite(logits_k).all())
+        del logits_k, logits_p
+        again = [_timed_forward(kernel_model, params, batch)[2] for _ in range(3)]
+        again_plain = _timed_forward(plain_model, params, batch)[2]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiled_s = _timed_forward(kernel_model, params, batch)[2]
+    unchecked = sorted(seen - checked)
+    checks = {
+        "scan_launches_eq_layers": launches["ssd_scan"] == layers,
+        "no_other_launches": all(n == 0 for k, n in launches.items() if k != "ssd_scan"),
+        "every_launch_recorded": calls == launches,
+        "every_launch_shape_checked": not unchecked,
+        "finite": finite and loss_k == loss_k,
+        "argmax_wide": cmp48["argmax_flips_wide"] == 0,
+    }
+    row = {"phase": "mamba2_forward", "arch": MAMBA, "layers": layers, "batch": SSD_BATCH,
+           "seq": SSD_LEN, "card": line, "forward_s": kernel_s, "forward_s_again": again,
+           "tokens_per_s": tokens / min(again), "plain_forward_s": [plain_s, again_plain],
+           "max_memory_allocated_gb": peak_gb, "plain": cmp48, "loss_kernel": loss_k,
+           "loss_plain": loss_p, "launches": launches, "launch_signatures": sorted(seen),
+           "unchecked_signatures": unchecked, "checks": checks,
+           "profile": device_summary(prof, profiled_s)}
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"mamba2 48 layers: failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
+    del params
+    torch.cuda.empty_cache()
+    return row
 
 
 def reference_phase(line, checked):
@@ -931,8 +1401,9 @@ def reference_phase(line, checked):
     no kernel involved — move the logits by several percent, so the
     full-depth run holds only the argmax where the dense margin is wide.)
     On the same weights: the engine with the flash-attention prefill
-    (argmax), the static loop (2**-5, and the engine's tokens), and the
-    slot decode step without a page arena against the paged one.
+    (argmax), the static loop (2**-5, and the engine's tokens), the slot
+    decode step without a page arena against the paged one, and
+    `Model.forward` against `Model.prefill`.
     -> {kv_dtype: flash_decode launches of the slot decode phase}."""
     import dataclasses
     import torch
@@ -949,6 +1420,7 @@ def reference_phase(line, checked):
     engine_phase(kernel_model, params, "model", line, checked, prefill_chunk=0)
     static_phase(kernel_model, params, line, checked, tokens, dense_tol=2.0 ** -5)
     launches = slot_decode_phase(kernel_model, params, line, checked)
+    forward_phase(kernel_model, params, line, checked)
     del params
     torch.cuda.empty_cache()
     return launches
@@ -963,6 +1435,7 @@ def main() -> int:
     build_phase()
     kernels, checked = kernel_phases(get_config(ARCH).num_layers)
     slot_launches = reference_phase(line, checked)
+    mamba_row = mamba_phases(line, checked)
 
     t0 = time.monotonic()
     model = Model(get_config(ARCH), attn_impl="blockwise")
@@ -993,6 +1466,7 @@ def main() -> int:
         "flash_decode_paged_bf16": f"{decode_kernel}:155",
         "flash_decode_paged_int8": f"{decode_kernel}:155",
         "quantize_rows": "src/repro/kernels/quantize/kernel.py:25",
+        "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:72",
     }
     csrc = "src/repro_torch/kernels/csrc"
     sources = {
@@ -1002,15 +1476,18 @@ def main() -> int:
         "flash_decode_paged_bf16": f"{csrc}/flash_decode.cu",
         "flash_decode_paged_int8": f"{csrc}/flash_decode.cu",
         "quantize_rows": f"{csrc}/quantize.cu",
+        "ssd_scan": f"{csrc}/ssd_scan.cu",
     }
     # each kernel's launches on its main path: the 48-layer static loop,
-    # the slot decode without an arena (int8), the 48-layer engine
+    # the slot decode without an arena (int8), the 48-layer engine, the
+    # 48-layer Mamba-2 forward
     launches = {"flash_attention_fwd": static_row["launches"]["flash_attention"],
                 "flash_decode_bf16": static_row["launches"]["flash_decode"],
                 "flash_decode_int8": slot_launches["int8"],
                 "flash_decode_paged_bf16": model_row["decode_launches"],
                 "flash_decode_paged_int8": int8_row["decode_launches"],
-                "quantize_rows": int8_row["quantize_launches"]}
+                "quantize_rows": int8_row["quantize_launches"],
+                "ssd_scan": mamba_row["launches"]["ssd_scan"]}
     out = []
     for name, phase_rows in kernels.items():
         main_row = phase_rows[0]              # the main path's shape

@@ -2,9 +2,9 @@
 
 Only the architectures whose layer kinds the port runs are registered; the
 JAX package's other ids raise "not ported yet"."""
-from repro_torch.configs import qwen2_5_14b
+from repro_torch.configs import mamba2_1_3b, qwen2_5_14b
 
-_MODULES = (qwen2_5_14b,)
+_MODULES = (qwen2_5_14b, mamba2_1_3b)
 
 REGISTRY = {m.ARCH_ID: m for m in _MODULES}
 ARCH_IDS = tuple(REGISTRY)

@@ -77,6 +77,20 @@ void quantize_rows(const torch::Tensor& x, torch::Tensor q, torch::Tensor scale)
   check_launch(err, "quantize_rows");
 }
 
+void ssd_scan(const torch::Tensor& x, const torch::Tensor& dt, const torch::Tensor& A,
+              const torch::Tensor& B, const torch::Tensor& C, torch::Tensor y, int64_t chunk) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const int64_t xs[3] = {x.stride(0), x.stride(1), x.stride(2)};
+  const int64_t dts[3] = {dt.stride(0), dt.stride(1), dt.stride(2)};
+  const int64_t bs[3] = {B.stride(0), B.stride(1), B.stride(2)};
+  const int64_t cs[3] = {C.stride(0), C.stride(1), C.stride(2)};
+  const int err = repro::ssd_scan(
+      x.data_ptr(), dt.data_ptr<float>(), A.data_ptr<float>(), B.data_ptr(), C.data_ptr(),
+      y.data_ptr(), dtype_of(x), x.size(0), x.size(1), x.size(2), B.size(2), x.size(3),
+      B.size(3), static_cast<int>(chunk), xs, dts, bs, cs, current_stream());
+  check_launch(err, "ssd_scan");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -84,4 +98,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_decode", &flash_decode, "slot-contiguous flash-decode into out");
   m.def("flash_decode_paged", &flash_decode_paged, "paged flash-decode into out");
   m.def("quantize_rows", &quantize_rows, "per-row int8 quantize into q, scale");
+  m.def("ssd_scan", &ssd_scan, "Mamba-2 SSD chunked scan into y");
 }

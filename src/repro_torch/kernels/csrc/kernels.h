@@ -39,4 +39,14 @@ int flash_decode(const void* q, DType q_dtype, const void* k, const void* v, DTy
 int quantize_rows(const void* x, DType x_dtype, int8_t* q, float* scale, int rows, int cols,
                   void* stream);
 
+// Mamba-2 SSD chunked scan (ssd_scan.cu). x [batch,L,H,P] f32 or bf16,
+// dt [batch,L,H] f32, A [H] f32, B/C [batch,L,G,N] of x's type -> y
+// [batch,L,H,P] of x's type, contiguous. x, dt, B and C are read through
+// their strides in elements (batch, token, head or group; the last
+// dimension is contiguous); A contiguous. P <= 64, N <= 128, H % G == 0.
+int ssd_scan(const void* x, const float* dt, const float* A, const void* B, const void* C,
+             void* y, DType dtype, int batch, int L, int H, int G, int P, int N, int chunk,
+             const int64_t* x_strides, const int64_t* dt_strides, const int64_t* b_strides,
+             const int64_t* c_strides, void* stream);
+
 }  // namespace repro

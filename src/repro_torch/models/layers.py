@@ -1,5 +1,5 @@
-"""Common layers: param declaration, RMSNorm, the SwiGLU MLP, RoPE,
-embedding and head.
+"""Common layers: param declaration, RMSNorm and Mamba-2's gated RMSNorm,
+the SwiGLU MLP, RoPE, embedding, head and the cross-entropy loss.
 
 Params are nested dicts of tensors keyed as in the JAX package. One
 declarative source, `ParamDef`, gives each leaf's shape, dtype and init.
@@ -26,7 +26,7 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 class ParamDef:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]   # logical axis names, len == len(shape)
-    init: str = "normal"              # normal | zeros | ones
+    init: str = "normal"              # normal | zeros | ones | ssm_a
     scale: float = 0.02
     dtype: str = "bfloat16"
 
@@ -51,6 +51,10 @@ def init_array(d: ParamDef, generator: torch.Generator, device) -> torch.Tensor:
         return torch.zeros(d.shape, dtype=dt, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dt, device=device)
+    if d.init == "ssm_a":   # A_log: log of uniform [1, 16]
+        u = torch.rand(d.shape, generator=generator, dtype=torch.float32,
+                       device=device) * 15.0 + 1.0
+        return torch.log(u).to(dt)
     if d.init != "normal":
         raise ValueError(d.init)
     out = torch.empty(d.shape, dtype=dt, device=device)
@@ -85,6 +89,15 @@ def apply_norm(cfg, p, x, eps=None):
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * p["scale"]
     return out.to(x.dtype)
+
+
+def gated_rmsnorm(p, x, gate, eps=1e-5):
+    """Mamba-2 output norm: RMSNorm(x * silu(gate)), the gate's silu taken
+    in f32 and cast to x's dtype before the product, as the JAX package
+    rounds it."""
+    xf = (x * F.silu(gate.float()).to(x.dtype)).float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -154,3 +167,14 @@ def lm_logits(cfg, p, x):
     else:
         w = p["lm_head"]
     return x @ w
+
+
+def cross_entropy(logits, labels, ignore_id: int = -1):
+    """Mean token CE in f32; labels == ignore_id are masked (and clipped to
+    0 for the gather, as the JAX package takes them)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.clamp(min=0)[..., None].long())[..., 0]
+    mask = (labels != ignore_id).float()
+    loss = (lse - ll) * mask
+    return loss.sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,8 +1,12 @@
-"""Public model API of the serve path: `Model(cfg)` with init, init_cache,
-prefill, prefill_chunk, decode_step and decode_slots over a nested dict of
-tensors. `attn_impl` picks the prefill attention: "naive", "blockwise", or
-"pallas" — the flash-attention kernel (its plain version on the CPU), the
-name the JAX package gives its Pallas kernel path."""
+"""Public model API: `Model(cfg)` with init, forward and loss (dense and
+Mamba-2 stacks), and for dense stacks the serve path's init_cache,
+prefill, prefill_chunk, decode_step and decode_slots, over a nested dict
+of tensors. `attn_impl` picks the whole-sequence attention: "naive",
+"blockwise", or "pallas" — the flash-attention kernel (its plain version
+on the CPU), the name the JAX package gives its Pallas kernel path.
+`ssd_impl` picks Mamba-2's chunked scan: "ref" (the plain version, the
+default as in the JAX package) or "pallas" — the SSD scan kernel (its
+plain version on the CPU)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -11,17 +15,19 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import transformer as tr
-from repro_torch.models.layers import (apply_norm, embed_defs, embed_tokens,
-                                       lm_logits, norm_defs, tree_init,
-                                       tree_map_defs, DTYPES)
+from repro_torch.models.layers import (apply_norm, cross_entropy,
+                                       embed_defs, embed_tokens, lm_logits,
+                                       norm_defs, tree_init, tree_map_defs,
+                                       DTYPES)
 
 
 class Model:
     def __init__(self, cfg: ModelConfig, *, attn_impl: str = "blockwise",
-                 attn_chunk: int = 512):
+                 attn_chunk: int = 512, ssd_impl: str = "ref"):
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.attn_chunk = attn_chunk
+        self.ssd_impl = ssd_impl
 
     # ---- params ----------------------------------------------------------
     def param_defs(self):
@@ -46,7 +52,25 @@ class Model:
     # ---- context ---------------------------------------------------------
     def _ctx(self, seq: int, device, offset: int = 0):
         return {"attn_impl": self.attn_impl, "attn_chunk": self.attn_chunk,
+                "ssd_impl": self.ssd_impl,
                 "positions": torch.arange(seq, device=device)[None, :] + offset}
+
+    # ---- train forward ----------------------------------------------------
+    def forward(self, params, batch):
+        """batch {"tokens" [B,S]} -> (logits [B,S,V], aux_loss f32 scalar)."""
+        cfg = self.cfg
+        x = embed_tokens(cfg, params["embed"], batch["tokens"])
+        ctx = self._ctx(x.shape[1], x.device)
+        x, aux = tr.apply_decoder(cfg, params["decoder"], x, ctx)
+        x = apply_norm(cfg, params["final_norm"], x)
+        return lm_logits(cfg, params["embed"], x), aux
+
+    def loss(self, params, batch, *, aux_weight: float = 0.01):
+        """batch {"tokens", "labels" [B,S]}, label -1 ignored -> (mean token
+        cross-entropy + aux_weight * aux, {"ce", "aux"})."""
+        logits, aux = self.forward(params, batch)
+        ce = cross_entropy(logits, batch["labels"])
+        return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
     # ---- serving ----------------------------------------------------------
     def prefill(self, params, batch, cache_len: Optional[int] = None):

@@ -1,8 +1,10 @@
-"""Decoder stack for the "attn" layer kind: stacked [L, ...] params and
-caches, with the JAX package's `lax.scan` over layers as a Python loop over
-the leading axis. Prefill, chunked prefill, the whole-batch decode of the
-static loop, and the slot decode of the serve engine (through the page
-arena, or over slot-contiguous caches).
+"""Decoder stack for the "attn" (dense decoder) and "ssd" (Mamba-2) layer
+kinds: stacked [L, ...] params and caches, with the JAX package's
+`lax.scan` over layers as a Python loop over the leading axis. The
+forward pass (train / loss) for both kinds; for "attn" also prefill,
+chunked prefill, the whole-batch decode of the static loop, and the slot
+decode of the serve engine (through the page arena, or over
+slot-contiguous caches).
 """
 from __future__ import annotations
 
@@ -16,17 +18,32 @@ from repro_torch.models.attention import (attention_defs, decode_attention,
 from repro_torch.models.layers import (ParamDef, apply_mlp, apply_norm,
                                        apply_rope, mlp_defs, norm_defs,
                                        tree_map_defs)
+from repro_torch.models.ssm import apply_ssm, ssm_defs
 
 # ---------------------------------------------------------------------------
 # Stack layout
 # ---------------------------------------------------------------------------
 
-def _check_kinds(cfg: ModelConfig):
+def _check_kinds(cfg: ModelConfig) -> str:
+    """-> the stack's one layer kind, "attn" or "ssd"."""
     kinds = set(cfg.layer_kinds())
-    if kinds != {"attn"} or cfg.num_experts or cfg.mrope_sections or cfg.frontend:
+    if (kinds not in ({"attn"}, {"ssd"}) or cfg.num_experts
+            or cfg.mrope_sections or cfg.frontend):
         raise NotImplementedError(
-            f"{cfg.name}: only dense 'attn' stacks are ported yet "
-            f"(layer kinds {sorted(kinds)})")
+            f"{cfg.name}: only dense 'attn' and Mamba-2 'ssd' stacks are "
+            f"ported yet (layer kinds {sorted(kinds)})")
+    return kinds.pop()
+
+
+def _check_serve(cfg: ModelConfig) -> None:
+    """The serve paths run 'attn' stacks only: the caches (which every
+    decode and chunked-prefill step takes) and the whole-prompt prefill
+    check it."""
+    if _check_kinds(cfg) != "attn":
+        raise NotImplementedError(
+            f"{cfg.name}: serving Mamba-2 ('ssd' layers: prefill with the "
+            f"final states, decode_ssm, the SSM state caches) is not ported "
+            f"yet; Model.forward and Model.loss are")
 
 
 def _stack(defs, n: int):
@@ -37,22 +54,24 @@ def _stack(defs, n: int):
 
 
 def layer_defs(cfg: ModelConfig, kind: str):
-    if kind != "attn":
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-    return {"ln1": norm_defs(cfg, cfg.d_model),
-            "attn": attention_defs(cfg),
-            "ln2": norm_defs(cfg, cfg.d_model),
-            "ffn": mlp_defs(cfg)}
+    if kind == "attn":
+        return {"ln1": norm_defs(cfg, cfg.d_model),
+                "attn": attention_defs(cfg),
+                "ln2": norm_defs(cfg, cfg.d_model),
+                "ffn": mlp_defs(cfg)}
+    if kind == "ssd":
+        return {"ln1": norm_defs(cfg, cfg.d_model), "ssm": ssm_defs(cfg)}
+    raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
 
 
 def decoder_defs(cfg: ModelConfig):
-    _check_kinds(cfg)
-    return {"stack0": _stack({"attn_0": layer_defs(cfg, "attn")},
+    kind = _check_kinds(cfg)
+    return {"stack0": _stack({f"{kind}_0": layer_defs(cfg, kind)},
                              cfg.num_layers)}
 
 
 def cache_defs(cfg: ModelConfig, batch: int, cache_len: int):
-    _check_kinds(cfg)
+    _check_serve(cfg)
     kd = ParamDef((batch, cache_len, cfg.num_kv_heads, cfg.head_dim),
                   ("batch", "kv_seq", "kv_heads", None), init="zeros")
     return {"stack0": _stack({"attn_0": {"k": kd, "v": kd}}, cfg.num_layers)}
@@ -92,6 +111,45 @@ def _ffn(cfg, p, x):
     return x + apply_mlp(cfg, p["ffn"], h)
 
 
+def _attn_block(cfg, p, x, ctx):
+    """A whole-sequence causal "attn" layer: -> (x, k, v). The forward
+    pass and the prefill share it, so they run the same ops."""
+    h = apply_norm(cfg, p["ln1"], x)
+    q, k, v = project_qkv(cfg, p["attn"], h)
+    q, k = _rope_qk(cfg, q, k, ctx)
+    o = attn_mod.attention(q, k, v, causal=True, impl=ctx["attn_impl"],
+                           chunk=ctx["attn_chunk"])
+    return _ffn(cfg, p, x + out_proj(cfg, p["attn"], o)), k, v
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / loss)
+# ---------------------------------------------------------------------------
+
+def apply_layer(cfg, kind, p, x, ctx):
+    """-> (x, aux_loss). ctx carries attn_impl / attn_chunk / positions for
+    "attn" and ssd_impl for "ssd"."""
+    if kind == "attn":
+        return _attn_block(cfg, p, x, ctx)[0], 0.0
+    if kind == "ssd":
+        h = apply_norm(cfg, p["ln1"], x)
+        y, _ = apply_ssm(cfg, p["ssm"], h, ssd_impl=ctx["ssd_impl"])
+        return x + y, 0.0
+    raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+
+
+def apply_decoder(cfg, params, x, ctx):
+    """-> (x, aux_loss f32 scalar): every layer of the stack in order, their
+    aux losses summed (0 for the dense and SSM layers)."""
+    kind = _check_kinds(cfg)
+    stack = params["stack0"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.num_layers):
+        x, da = apply_layer(cfg, kind, _layer(stack, i)[f"{kind}_0"], x, ctx)
+        aux = aux + da
+    return x, aux
+
+
 # ---------------------------------------------------------------------------
 # Prefill (whole prompt)
 # ---------------------------------------------------------------------------
@@ -100,12 +158,7 @@ def apply_layer_prefill(cfg, kind, p, x, ctx, cache_len: int):
     """-> (x, layer cache {"k","v"} [B, cache_len, K, D])."""
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-    h = apply_norm(cfg, p["ln1"], x)
-    q, k, v = project_qkv(cfg, p["attn"], h)
-    q, k = _rope_qk(cfg, q, k, ctx)
-    o = attn_mod.attention(q, k, v, causal=True, impl=ctx["attn_impl"],
-                           chunk=ctx["attn_chunk"])
-    x2 = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o))
+    x2, k, v = _attn_block(cfg, p, x, ctx)
     b, s = x.shape[:2]
     n = min(s, cache_len)
     ck = torch.zeros((b, cache_len, cfg.num_kv_heads, cfg.head_dim),
@@ -118,6 +171,7 @@ def apply_layer_prefill(cfg, kind, p, x, ctx, cache_len: int):
 
 def apply_decoder_prefill(cfg, params, x, ctx, cache_len: int):
     """-> (x, stacked cache)."""
+    _check_serve(cfg)
     stack = params["stack0"]
     layers = []
     for i in range(cfg.num_layers):
