@@ -13,11 +13,12 @@ non-zero, printing no result):
    every shape the paths below give it and at a long-context shape, with
    its time, the plain version's, the least time the card could take
    (bound) and, where one exists, one PyTorch call computing the same
-   function (SDPA) as a yardstick, never called by the port; the quantize
-   and SSD scan rows also take the kernel's device time from
-   torch.profiler; SSD rows with dt in a trained model's range also show
-   that the plain scan with the decayed state dropped from what each chunk
-   hands on fails the row's rule;
+   function (SDPA, F.rms_norm) as a yardstick, never called by the port;
+   the quantize, RMSNorm and SSD scan rows also take the kernel's device
+   time from torch.profiler; SSD rows with dt in a trained model's range
+   also show that the plain scan with the decayed state dropped from what
+   each chunk hands on fails the row's rule; the RMSNorm autograd
+   Function's gradient against autograd through the plain version;
 4. reference (qwen2.5-14b at full width, 2 layers, random bf16 weights
    from a seed) — the serve engine with model-width and int8 KV pages;
    the engine with the flash-attention prefill (attn_impl="pallas",
@@ -34,14 +35,22 @@ non-zero, printing no result):
    (ssd_impl="pallas") against the same model through the plain scan, at
    2 layers (values and argmax) and at the full 48 (launches exactly 48,
    argmax where the margin is wide, both losses, forward time);
-6. engine and static at the full 48 layers — the engine serving 8
+6. training (qwen2.5-14b at full width, bf16, 2 x 2048 tokens of the
+   synthetic stream) — at 2 layers, 3 steps of `build_train_step` from one
+   init through the kernels and through the plain versions (step 1's
+   grads, each step's loss and grad norm, RMSNorm launches exactly 4L+1 a
+   step: 2L+1 in the forward, 2L in the checkpointed layers' recompute);
+   at 4 layers, the main path: `Trainer.train` for 5 steps (losses, step
+   time, tokens/s, model FLOP/s, peak memory, launches) and one more step
+   under torch.profiler;
+7. engine and static at the full 48 layers — the engine serving 8
    requests with half the device pages full residency needs (the backlog
    spills to pinned host memory), with model-width then int8 KV pages;
    then `run_static` on the same weights, held to the same loop with its
    kernels swapped for their plain versions (teacher-forced), its dense
    deviation and its parity with the engine's tokens reported;
-7. determinism — the 48-layer model-width trace again, token for token;
-8. profile — that trace once more under torch.profiler: the device's busy
+8. determinism — the 48-layer model-width trace again, token for token;
+9. profile — that trace once more under torch.profiler: the device's busy
    share and its top kernels.
 
 Every run of a path records the shape of each kernel call and fails on one
@@ -78,6 +87,13 @@ SLOTS, MAX_LEN, CHUNK, DEVICE_PAGES = 4, 160, 32, 20
 # the Mamba-2 paper's training context
 MAMBA = "mamba2-1.3b"
 SSD_BATCH, SSD_LEN = 4, 2048
+# training: 2 sequences of 2048 tokens a step; the reference check at 2
+# layers, the main path (Trainer) at 4, where params, grads and f32 Adam
+# state stay resident (~16 B a param: ~42.5 GB; the 48 layers need ~236 GB,
+# the case of LMS streaming, not ported yet)
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_STEPS = 2, 3
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 4, 5, 3e-4, 1
 
 
 def emit(obj) -> None:
@@ -255,6 +271,12 @@ def quantize_sig(x):
     return ("quantize_rows", tuple(x.shape), str(x.dtype))
 
 
+def rmsnorm_sig(x, eps):
+    """x [..., d] as the kernel sees it: [rows, d]."""
+    return ("rmsnorm", int(x.numel() // x.shape[-1]), int(x.shape[-1]), str(x.dtype),
+            float(eps))
+
+
 def ssd_sig(x, B, chunk):
     """x, B and C are read through their strides: those are part of it."""
     return ("ssd_scan", tuple(x.shape), str(x.dtype), tuple(x.stride()), tuple(B.shape),
@@ -346,7 +368,9 @@ def attention_kernel_phase(shape: str, b: int, sq: int, seed: int, checked: set,
                            window=0, q_offset=0):
     """The flash-attention kernel (causal) against its plain version: within
     one bf16 ulp of each output row's largest |o| (f32 inputs: 1e-5 of
-    it), and exact zeros on rows with no visible key."""
+    it), every row; a row with no visible key holds the mean of v over
+    all keys of its kv head (as the JAX kernel's), which it is held to by
+    the same rule."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
@@ -377,11 +401,14 @@ def attention_kernel_phase(shape: str, b: int, sq: int, seed: int, checked: set,
     off = k.shape[1] - sq if q_offset is None else q_offset
     mask = attention_mask(sq, skv, "cuda", causal=True, window=window, q_offset=off)
     empty = ~mask.any(dim=-1)                                     # rows with no key
-    zeros = bool((out[:, empty] == 0).all())
-    if not (worst <= tol and zeros and torch.isfinite(out).all()):
+    # [B, Sq, H, D]: query head h reads kv head h // (H / K)
+    vmean = v.float().mean(dim=1).repeat_interleave(heads // kv_heads, dim=1)
+    no_key_err = (out[:, empty].float() - vmean[:, None]).abs()
+    no_key_worst = (no_key_err / unit[:, empty]).max().item() if bool(empty.any()) else 0.0
+    if not (worst <= tol and no_key_worst <= tol and torch.isfinite(out).all()):
         raise AssertionError(f"flash_attention {shape}: kernel vs plain max |diff| "
-                             f"{err.max().item()} ({worst} of the tolerance unit), "
-                             f"zeros={zeros}")
+                             f"{err.max().item()} ({worst} of the tolerance unit), rows "
+                             f"without a key {no_key_worst} units from the mean of v")
     checked.add(attention_sig(q, k, True, window, q_offset))
     kernel_ms = time_ms(kernel, iters=20, warmup=3)
     plain_ms = time_ms(plain, iters=5, warmup=1)
@@ -400,7 +427,8 @@ def attention_kernel_phase(shape: str, b: int, sq: int, seed: int, checked: set,
     row = {"phase": "kernel", "kernel": "flash_attention_fwd", "shape": shape,
            "q": list(q.shape), "kv": list(k.shape), "dtype": dtype, "window": window,
            "q_offset": q_offset, "pairs": pairs * b * heads, "gflop": flops / 1e9,
-           "rows_without_key": int(empty.sum().item()), "max_abs_err": err.max().item(),
+           "rows_without_key": int(empty.sum().item()),
+           "no_key_rows_vs_mean_of_v_over_unit": no_key_worst, "max_abs_err": err.max().item(),
            "max_err_over_unit": worst,
            "tolerance": ("1 bf16 ulp of each row's max |plain|" if dtype == "bfloat16"
                          else "1e-5 of each row's max |plain|"),
@@ -443,6 +471,116 @@ def quantize_kernel_phase(shape: str, rows: int, seed: int, checked: set):
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     emit(row)
     return row
+
+
+def bf16_ulp(x):
+    """One bf16 ulp (8 significand bits) at each element's |x|, floored at
+    the smallest normal."""
+    import torch
+    e = torch.floor(torch.log2(x.abs().float().clamp_min(1e-30)))
+    return torch.exp2(e - 7).clamp_min(2.0 ** -126)
+
+
+def rmsnorm_kernel_phase(shape: str, rows: int, d: int, seed: int, checked: set, *,
+                         dtype="bfloat16", eps=1e-6):
+    """The RMSNorm kernel against its plain version on rows of varied
+    scale (one all zero): bf16 within one bf16 ulp of each element (both
+    are the f32 value x * r * s rounded once, and the f32 values differ by
+    a few f32 ulps of the row's sum of squares and rsqrt, so they round to
+    the same or neighbouring bf16 values); f32 within 2e-6 of each
+    element (one product chain per element, with r = rsqrt(mean + eps)
+    computed from sums in other orders: a few f32 ulps)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((rows, d), generator=gen, device="cuda")
+         * (torch.rand((rows, 1), generator=gen, device="cuda") * 8 + 0.05)).to(
+             getattr(torch, dtype))
+    x[min(1, rows - 1)] = 0
+    scale = 1 + 0.2 * torch.randn((d,), generator=gen, device="cuda")
+
+    def kernel():
+        return rmsnorm_cuda(x, scale, eps=eps)
+
+    def plain():
+        return rmsnorm_ref(x, scale, eps=eps)
+    out = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    err = (out.float() - want.float()).abs()
+    if dtype == "bfloat16":
+        unit, tol = bf16_ulp(want), 1.0
+    else:
+        unit, tol = want.abs().clamp_min(1e-30), 2e-6
+    worst = (err / unit).max().item()
+    differing = (out != want).double().mean().item()
+    if not (worst <= tol and out.dtype == x.dtype and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"rmsnorm {shape}: kernel vs plain max |diff| "
+                             f"{err.max().item()} ({worst} of the tolerance unit)")
+    checked.add(rmsnorm_sig(x, eps))
+    back_to_back_ms = time_ms(kernel)
+    kernel_ms = device_ms(kernel, "rmsnorm_kernel")
+    plain_ms = time_ms(plain, iters=20)
+    w = scale.to(x.dtype)             # F.rms_norm takes a weight of the input's type
+    library_ms = time_ms(lambda: F.rms_norm(x, (d,), weight=w, eps=eps))
+    nbytes = 2 * x.numel() * x.element_size() + 4 * d
+    bound_ms, bound_by = bound(nbytes, 4 * x.numel())
+    row = {"phase": "kernel", "kernel": "rmsnorm", "shape": shape, "rows": rows, "d": d,
+           "dtype": dtype, "eps": eps, "max_abs_err": err.max().item(),
+           "max_err_over_unit": worst, "share_of_elements_differing": differing,
+           "tolerance": ("1 bf16 ulp of each element" if dtype == "bfloat16"
+                         else "2e-6 of each element"),
+           "kernel_ms": kernel_ms, "kernel_ms_by": "torch.profiler",
+           "back_to_back_ms": back_to_back_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms,
+           "library": "F.rms_norm(x, (d,), weight=scale in x's dtype, eps=eps)",
+           "kernel_gb_s": nbytes / kernel_ms / 1e6}
+    emit(row)
+    return row
+
+
+def rmsnorm_grad_phase(rows: int, d: int, seed: int):
+    """The autograd Function the model calls on the card (kernel forward,
+    plain analytic backward) against torch autograd through the plain
+    version, f32: output within 2e-6 of each element, dx and dscale within
+    1e-5 of their largest |value| (the terms of dx cancel); the forward
+    launches the kernel once; bf16 x gives a bf16 dx and an f32 dscale."""
+    import torch
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((rows, d), generator=gen, device="cuda") * 3
+    scale = 1 + 0.2 * torch.randn((d,), generator=gen, device="cuda")
+    dy = torch.randn((rows, d), generator=gen, device="cuda")
+    before = rms_ops.rmsnorm_cuda.launches
+    xk, sk = x.clone().requires_grad_(), scale.clone().requires_grad_()
+    out = rms_ops.rmsnorm(xk, sk, eps=1e-6)
+    out.backward(dy)
+    launched = rms_ops.rmsnorm_cuda.launches - before
+    xp, sp = x.clone().requires_grad_(), scale.clone().requires_grad_()
+    want = rmsnorm_ref(xp, sp, eps=1e-6)
+    want.backward(dy)
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+    xb = x.bfloat16().requires_grad_()
+    rms_ops.rmsnorm(xb, sk.detach().requires_grad_(), eps=1e-6).backward(dy.bfloat16())
+    checks = {
+        "out_within_2e-6": ((out - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+                           <= 2e-6,
+        "dx_within_1e-5": rel(xk.grad, xp.grad) <= 1e-5,
+        "dscale_within_1e-5": rel(sk.grad, sp.grad) <= 1e-5,
+        "one_launch": launched == 1,
+        "bf16_dx_dtype": xb.grad.dtype == torch.bfloat16,
+    }
+    emit({"phase": "rmsnorm_grad", "rows": rows, "d": d, "dx_rel_err": rel(xk.grad, xp.grad),
+          "dscale_rel_err": rel(sk.grad, sp.grad), "tolerance": "1e-5 of the largest |value|",
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"rmsnorm grad: failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
 
 
 def _log_uniform(shape, lo, hi, gen):
@@ -604,7 +742,9 @@ def kernel_phases(num_layers: int):
     of the convolution's output, as apply_ssm passes them), a ragged
     length, a length under the chunk, f32, two groups and a narrow head,
     and the main and ragged shapes again with dt in a trained model's
-    range, where the state carried across chunks shows.
+    range, where the state carried across chunks shows; RMSNorm at the
+    train step's rows, every serve path's, Mamba-2's, ragged, f32 and a
+    narrow row, and its autograd Function's gradient.
     The first row of each kernel is the main path's shape.
     -> ({kernel: [rows]}, the launch signatures checked)."""
     import numpy as np
@@ -668,6 +808,23 @@ def kernel_phases(num_layers: int):
         ssd_kernel_phase("narrow_f32", 2, 300, 28, checked, h=8, p=40, g=2, n=48, chunk=64,
                          dtype="float32"),
     ]
+    d, md = get_config(ARCH).d_model, m.d_model
+    out["rmsnorm"] = [
+        rmsnorm_kernel_phase("train_step", TRAIN_BATCH * TRAIN_SEQ, d, 31, checked),
+        rmsnorm_kernel_phase("static_prefill", REQUESTS * PROMPT, d, 32, checked),
+        rmsnorm_kernel_phase("static_decode", REQUESTS, d, 33, checked),
+        rmsnorm_kernel_phase("engine_prefill_chunk", CHUNK, d, 34, checked),
+        rmsnorm_kernel_phase("engine_whole_prefill", PROMPT, d, 35, checked),
+        rmsnorm_kernel_phase("engine_decode", SLOTS, d, 36, checked),
+        rmsnorm_kernel_phase("ragged_300", 300, d, 37, checked),
+        rmsnorm_kernel_phase("mamba2_forward", SSD_BATCH * SSD_LEN, md, 38, checked,
+                             eps=m.norm_eps),
+        rmsnorm_kernel_phase("mamba2_2x2048", 2 * SSD_LEN, md, 39, checked, eps=m.norm_eps),
+        rmsnorm_kernel_phase("train_step_f32", TRAIN_BATCH * TRAIN_SEQ, d, 40, checked,
+                             dtype="float32"),
+        rmsnorm_kernel_phase("narrow_37x64", 37, 64, 41, checked),
+    ]
+    rmsnorm_grad_phase(TRAIN_BATCH * TRAIN_SEQ, d, 42)
     return out, checked
 
 
@@ -675,11 +832,13 @@ def kernel_phases(num_layers: int):
 def _launchers():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.quantize import ops as q_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     return {"flash_attention": fa_ops.flash_attention_cuda,
             "flash_decode": fa_ops.flash_decode_cuda,
             "flash_decode_paged": fa_ops.flash_decode_paged_cuda,
             "quantize_rows": q_ops.quantize_cuda,
+            "rmsnorm": rms_ops.rmsnorm_cuda,
             "ssd_scan": ssd_ops.ssd_scan_cuda}
 
 
@@ -688,18 +847,20 @@ def launch_signatures():
     """Record the launch signature of every kernel call inside the block,
     with every launch count set to 0 on entry. The dispatchers the model
     calls through (`flash_attention`, `flash_decode`, `flash_decode_paged`,
-    `quantize`, `ssd_scan`) are swapped for recording stand-ins that call them; the
-    wrappers below them launch and count as always. -> (signatures seen,
-    {kernel: calls recorded}, {kernel: launches}), the last filled on exit,
-    for the caller to match the calls against."""
+    `quantize`, `rmsnorm`, `ssd_scan`) are swapped for recording stand-ins
+    that call them; the wrappers below them launch and count as always. ->
+    (signatures seen, {kernel: calls recorded}, {kernel: launches}), the
+    last filled on exit, for the caller to match the calls against."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.quantize import ops as q_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     launchers = _launchers()
     seen, calls, launches = set(), {name: 0 for name in launchers}, {}
     attend, decode, paged, quantize, scan = (fa_ops.flash_attention, fa_ops.flash_decode,
                                              fa_ops.flash_decode_paged, q_ops.quantize,
                                              ssd_ops.ssd_scan)
+    norm = rms_ops.rmsnorm
 
     def attend_spy(q, k, v, *, causal=True, window=0, q_offset=None):
         seen.add(attention_sig(q, k, causal, window, q_offset))
@@ -725,9 +886,15 @@ def launch_signatures():
         seen.add(ssd_sig(x, B, chunk))
         calls["ssd_scan"] += 1
         return scan(x, dt, A, B, C, chunk=chunk)
+
+    def norm_spy(x, scale, *, eps=1e-6):
+        seen.add(rmsnorm_sig(x, eps))
+        calls["rmsnorm"] += 1
+        return norm(x, scale, eps=eps)
     (fa_ops.flash_attention, fa_ops.flash_decode, fa_ops.flash_decode_paged,
      q_ops.quantize, ssd_ops.ssd_scan) = (attend_spy, decode_spy, paged_spy, quantize_spy,
                                           scan_spy)
+    rms_ops.rmsnorm = norm_spy
     for fn in launchers.values():
         fn.launches = 0
     try:
@@ -735,6 +902,7 @@ def launch_signatures():
     finally:
         (fa_ops.flash_attention, fa_ops.flash_decode, fa_ops.flash_decode_paged,
          q_ops.quantize, ssd_ops.ssd_scan) = attend, decode, paged, quantize, scan
+        rms_ops.rmsnorm = norm
         launches.update({name: fn.launches for name, fn in launchers.items()})
 
 
@@ -765,14 +933,14 @@ def _serve(model, params, kv_dtype, rows=None, around_run=None, prefill_chunk=CH
 
 
 def _dense_rows(model, params, req):
-    """One dense pass at model width (naive attention, no kernel) over a
-    request's prompt and its generated tokens but the last; row j scores
-    generated token j. -> [GEN, V] f32 numpy."""
+    """One dense pass at model width (naive attention, plain RMSNorm, no
+    kernel) over a request's prompt and its generated tokens but the last;
+    row j scores generated token j. -> [GEN, V] f32 numpy."""
     import numpy as np
     import torch
     toks = np.concatenate([req.prompt, np.asarray(req.tokens[:-1], np.int32)])
     cache = model.init_cache(1, MAX_LEN, "cuda")
-    with torch.no_grad():
+    with torch.no_grad(), plain_versions():
         logits, _ = model.prefill_chunk(
             params, cache, {"tokens": torch.from_numpy(toks[None]).cuda()}, 0, len(toks))
     return logits[0, len(req.prompt) - 1:].float().cpu().numpy()
@@ -830,6 +998,10 @@ def engine_phase(model, params, kv_dtype, line, checked, dense_tol=None,
     dense = _deviation({r.rid: _dense_rows(model, params, r) for r in (reqs[0], reqs[-1])},
                        rows)
     unchecked = sorted(seen - checked)
+    # every model call (each prefill chunk or whole prompt, each tick)
+    # normalises 2 x layers + 1 times
+    prefill_calls = len(reqs) * (-(-PROMPT // prefill_chunk) if prefill_chunk else 1)
+    norms = (2 * layers + 1) * (int(m["ticks"]) + prefill_calls)
     checks = {
         "all_ok_32_tokens": not bad,
         "spilled": m["pool_spilled_pages"] > 0,
@@ -841,6 +1013,7 @@ def engine_phase(model, params, kv_dtype, line, checked, dense_tol=None,
         "attention_launches": launches["flash_attention"]
             == (layers * len(reqs) if kernel_prefill else 0),
         "no_contiguous_decode": launches["flash_decode"] == 0,
+        "rmsnorm_launches": launches["rmsnorm"] == norms,
         "every_launch_recorded": calls == launches,
         "every_launch_shape_checked": not unchecked,
         "finite_logits": finite,
@@ -864,6 +1037,7 @@ def engine_phase(model, params, kv_dtype, line, checked, dense_tol=None,
            "decode_launches": launches["flash_decode_paged"],
            "quantize_launches": launches["quantize_rows"],
            "attention_launches": launches["flash_attention"],
+           "rmsnorm_launches": launches["rmsnorm"],
            "launch_signatures": sorted(seen), "unchecked_signatures": unchecked,
            "dense": dense, "dense_tol": dense_tol, "checks": checks, "bad": bad}
     emit(row)
@@ -876,12 +1050,15 @@ def engine_phase(model, params, kv_dtype, line, checked, dense_tol=None,
 
 @contextlib.contextmanager
 def plain_versions():
-    """Swap the attention dispatchers the model calls for their plain
-    versions, which then run on the same (CUDA) tensors."""
+    """Swap the attention and RMSNorm dispatchers the model calls for their
+    plain versions, which then run on the same (CUDA) tensors, RMSNorm
+    under ordinary autograd."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
                                                          flash_decode_ref)
-    attend, decode = fa_ops.flash_attention, fa_ops.flash_decode
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    attend, decode, norm = fa_ops.flash_attention, fa_ops.flash_decode, rms_ops.rmsnorm
 
     def attend_plain(q, k, v, *, causal=True, window=0, q_offset=None):
         return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -890,11 +1067,12 @@ def plain_versions():
 
     def decode_plain(q, k_cache, v_cache, kv_len, **kw):
         return flash_decode_ref(q[:, 0], k_cache, v_cache, kv_len, **kw)[:, None]
-    fa_ops.flash_attention, fa_ops.flash_decode = attend_plain, decode_plain
+    fa_ops.flash_attention, fa_ops.flash_decode, rms_ops.rmsnorm = (attend_plain,
+                                                                    decode_plain, rmsnorm_ref)
     try:
         yield
     finally:
-        fa_ops.flash_attention, fa_ops.flash_decode = attend, decode
+        fa_ops.flash_attention, fa_ops.flash_decode, rms_ops.rmsnorm = attend, decode, norm
 
 
 def _static_plain_steps(model, params, reqs, toks):
@@ -980,6 +1158,7 @@ def static_phase(model, params, line, checked, engine_tokens, dense_tol=None):
         "decode_launches_eq_layers_x_steps": launches["flash_decode"] == layers * (GEN - 1),
         "no_paged_or_quantize_launches":
             launches["flash_decode_paged"] == 0 and launches["quantize_rows"] == 0,
+        "rmsnorm_launches_eq_norms_x_steps": launches["rmsnorm"] == (2 * layers + 1) * GEN,
         "every_launch_recorded": calls == launches,
         "every_launch_shape_checked": not unchecked,
         "finite_logits": bool(np.isfinite(steps).all()),
@@ -1085,6 +1264,7 @@ def slot_decode_phase(model, params, line, checked):
             "contiguous_launches_eq_layers_x_steps": launches["flash_decode"] == layers * steps,
             "paged_launches_eq_layers_x_steps": launches["flash_decode_paged"] == layers * steps,
             "quantize_launches": launches["quantize_rows"] == quant,
+            "rmsnorm_launches": launches["rmsnorm"] == 2 * (2 * layers + 1) * steps,
             "every_launch_recorded": calls == launches,
             "every_launch_shape_checked": not unchecked,
             "finite_logits": bool(torch.isfinite(got).all()),
@@ -1189,7 +1369,8 @@ def forward_phase(model, params, line, checked):
     hidden state entering the head is bitwise equal at the last position;
     the head's GEMM has another M (all rows against the last), so the
     logits are held within one bf16 ulp of each row's max |logit|. Counts
-    reset just before, read just after: 2 flash-attention launches each."""
+    reset just before, read just after: per layer 1 flash-attention and 2
+    RMSNorm launches each, and the final norm."""
     import numpy as np
     import torch
     from repro_torch.models import model as model_mod
@@ -1219,6 +1400,7 @@ def forward_phase(model, params, line, checked):
         "last_row_within_1_ulp": ulps <= 1.0,
         "same_argmax": torch.equal(logits[:, -1].argmax(-1), last.argmax(-1)),
         "attention_launches": launches["flash_attention"] == 2 * layers,
+        "rmsnorm_launches": launches["rmsnorm"] == 2 * (2 * layers + 1),
         "every_launch_recorded": calls == launches,
         "every_launch_shape_checked": not unchecked,
         "finite_logits": bool(torch.isfinite(logits).all()),
@@ -1292,6 +1474,7 @@ def mamba_phases(line, checked):
     model with ssd_impl="ref" (the plain scan; every other op the same):
     logits within 2**-5 of each row's max |logit|, no argmax flip where
     the plain run's top-2 margin exceeds that, the loss within 1%.
+    Each forward launches the RMSNorm kernel layers + 1 times.
     48 layers: the forward through the kernel, 48 launches exactly, against
     the same forward through the plain scan: no argmax flip where the
     margin exceeds 2**-4 of the row max (48 random bf16 layers carry
@@ -1331,7 +1514,9 @@ def mamba_phases(line, checked):
         "logits_shape": tuple(logits_k.shape) == (SSD_BATCH, SSD_LEN, cfg.vocab_size),
         "aux_zero": aux_k.item() == 0.0,
         "scan_launches_eq_layers_x_2": launches["ssd_scan"] == 2 * 2,
-        "no_other_launches": all(n == 0 for k, n in launches.items() if k != "ssd_scan"),
+        "rmsnorm_launches_eq_2_x_(layers+1)": launches["rmsnorm"] == 2 * (2 + 1),
+        "no_other_launches": all(n == 0 for k, n in launches.items()
+                                 if k not in ("ssd_scan", "rmsnorm")),
         "every_launch_recorded": calls == launches,
         "every_launch_shape_checked": not unchecked,
         "finite": bool(torch.isfinite(logits_k).all()) and bool(torch.isfinite(loss_k)),
@@ -1371,7 +1556,9 @@ def mamba_phases(line, checked):
     unchecked = sorted(seen - checked)
     checks = {
         "scan_launches_eq_layers": launches["ssd_scan"] == layers,
-        "no_other_launches": all(n == 0 for k, n in launches.items() if k != "ssd_scan"),
+        "rmsnorm_launches_eq_layers+1": launches["rmsnorm"] == layers + 1,
+        "no_other_launches": all(n == 0 for k, n in launches.items()
+                                 if k not in ("ssd_scan", "rmsnorm")),
         "every_launch_recorded": calls == launches,
         "every_launch_shape_checked": not unchecked,
         "finite": finite and loss_k == loss_k,
@@ -1389,6 +1576,310 @@ def mamba_phases(line, checked):
         raise AssertionError(f"mamba2 48 layers: failed checks "
                              f"{[k for k, v in checks.items() if not v]}")
     del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def _train_config(layers: int, **kw):
+    """qwen2.5-14b at full width, cut to `layers`, trained on one device with
+    LMS off on TRAIN_BATCH x TRAIN_SEQ tokens a step."""
+    import dataclasses
+    from repro_torch.config.base import LMSConfig, MeshSpec, ShapeConfig, TrainConfig
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=layers)
+    return TrainConfig(model=cfg, shape=ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_BATCH),
+                       mesh=MeshSpec((1, 1), ("data", "model")),
+                       lms=LMSConfig(enabled=False), seed=SEED, **kw)
+
+
+def _rel_frobenius(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
+
+
+@contextlib.contextmanager
+def _norm_as(fn):
+    """The RMSNorm dispatcher the model calls swapped for fn."""
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    norm = rms_ops.rmsnorm
+    rms_ops.rmsnorm = fn
+    try:
+        yield
+    finally:
+        rms_ops.rmsnorm = norm
+
+
+def _plain_norm_analytic_backward(x, scale, *, eps=1e-6):
+    """RMSNorm's plain forward with the kernel Function's backward (the
+    analytic gradient in f32): a second plain version, which differs from
+    autograd through the plain version only in the backward's f32
+    roundings."""
+    import torch
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
+
+    class PlainAnalytic(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, scale):
+            ctx.save_for_backward(x, scale)
+            return rmsnorm_ref(x, scale, eps=eps)
+
+        @staticmethod
+        def backward(ctx, dy):
+            return rmsnorm_bwd_ref(*ctx.saved_tensors, dy, eps=eps)
+    return PlainAnalytic.apply(x, scale)
+
+
+def train_reference_phase(line, checked):
+    """3 steps of `build_train_step` at 2 layers from one init (a seeded
+    torch generator, drawn again for each run) on the same 3 batches of the
+    synthetic stream, through the kernels (counts reset just before, read
+    just after) and through the plain versions; and step 1 once more with
+    the plain forward and the kernel's analytic backward, the rounding
+    floor: two plain versions that differ only in f32 roundings.
+
+    Held: each step's loss and grad norm within 1%; exactly 4L+1 RMSNorm
+    launches a step (2L+1 in the forward, 2L in the checkpointed layers'
+    recompute) and none through the plain versions; step 1's grads leaf by
+    leaf within 2**-5 relative Frobenius error. At random init the bf16
+    grads are small sums of large terms that cancel, so roundings move
+    them far: the kernel's outputs differ from the plain version's in a
+    small share of elements by one bf16 ulp (the kernel rows report it),
+    yet the grads move by about 1%, and the floor route lies about as far
+    from the plain one. Both errors are reported."""
+    import torch
+    from repro_torch.data import DataLoader, SyntheticTokens
+    from repro_torch.models.model import Model
+    from repro_torch.train import steps as steps_mod
+    from repro_torch.tree import tree_leaves, tree_map
+    L, n = TRAIN_CHECK_LAYERS, TRAIN_CHECK_STEPS
+    tcfg = _train_config(L, learning_rate=TRAIN_LR, warmup_steps=0, total_steps=n)
+    model = Model(tcfg.model)
+    loader = DataLoader(SyntheticTokens(tcfg.model.vocab_size, seed=SEED), shard=0,
+                        num_shards=1, batch_per_shard=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in next(loader).items()}
+               for _ in range(n)]
+    clip = steps_mod.clip_by_global_norm
+
+    def run(around, steps):
+        """-> (step 1's grads, [metrics as floats], [RMSNorm launches a
+        step], what `around` yields)."""
+        state = steps_mod.init_train_state(model, tcfg, SEED + 7, "cuda")
+        step = steps_mod.build_train_step(model, tcfg)
+        first = []
+
+        def clip_rec(grads, max_norm):
+            if not first:
+                first.append(tree_map(lambda g: g.clone(), grads))
+            return clip(grads, max_norm)
+        steps_mod.clip_by_global_norm = clip_rec
+        mets, per_step = [], []
+        try:
+            with around as rec:
+                for b in batches[:steps]:
+                    before = _launchers()["rmsnorm"].launches
+                    state, m = step(state, b)
+                    mets.append({k: float(v) for k, v in m.items()})
+                    per_step.append(_launchers()["rmsnorm"].launches - before)
+        finally:
+            steps_mod.clip_by_global_norm = clip
+        del state
+        torch.cuda.empty_cache()
+        return first[0], mets, per_step, rec
+
+    def leaf_errors(got, want):
+        return {f"/{i}": _rel_frobenius(g, w)
+                for i, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want)))}
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    grads_k, mets_k, per_step, (seen, calls, launches) = run(launch_signatures(), n)
+    kernel_s = time.monotonic() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    grads_p, mets_p, plain_per_step, _ = run(plain_versions(), n)
+    names = []
+    tree_map(lambda g: names.append(tuple(g.shape)), grads_k)
+    err = leaf_errors(grads_k, grads_p)
+    dtypes_ok = all(g.dtype == p.dtype for g, p in zip(tree_leaves(grads_k),
+                                                      tree_leaves(grads_p)))
+    del grads_k
+    torch.cuda.empty_cache()
+    grads_f, _, floor_per_step, _ = run(_norm_as(_plain_norm_analytic_backward), 1)
+    floor = leaf_errors(grads_f, grads_p)
+    del grads_p, grads_f
+    torch.cuda.empty_cache()
+    rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(mets_k, mets_p)]
+           for k in ("loss", "grad_norm")}
+    unchecked = sorted(seen - checked)
+    checks = {
+        "grads_within_2**-5": max(err.values()) <= 2.0 ** -5,
+        "grad_dtypes": dtypes_ok,
+        "loss_within_1%": max(rel["loss"]) <= 1e-2,
+        "grad_norm_within_1%": max(rel["grad_norm"]) <= 1e-2,
+        "finite": all(x == x and abs(x) != float("inf") for m in mets_k for x in m.values()),
+        "rmsnorm_launches_4L+1_a_step": per_step == [4 * L + 1] * n,
+        "plain_runs_launch_no_rmsnorm": plain_per_step + floor_per_step == [0] * (n + 1),
+        "no_other_launches": all(v == 0 for k, v in launches.items() if k != "rmsnorm"),
+        "every_launch_recorded": calls == launches,
+        "every_launch_shape_checked": not unchecked,
+    }
+    row = {"phase": "train_reference", "arch": ARCH, "layers": L, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": n, "lr": TRAIN_LR, "card": line,
+           "loss_kernel": [m["loss"] for m in mets_k], "loss_plain": [m["loss"] for m in mets_p],
+           "grad_norm_kernel": [m["grad_norm"] for m in mets_k],
+           "grad_norm_plain": [m["grad_norm"] for m in mets_p], "rel_diff": rel,
+           "grad_rel_frobenius_max": max(err.values()),
+           "grad_rel_frobenius_floor_max": max(floor.values()),
+           "grad_leaf_shapes": names, "grad_rel_frobenius": err,
+           "grad_rel_frobenius_floor": floor,
+           "rmsnorm_launches_per_step": per_step, "launches": launches,
+           "kernel_run_s": kernel_s, "max_memory_allocated_gb": peak_gb,
+           "launch_signatures": sorted(seen), "unchecked_signatures": unchecked,
+           "checks": checks}
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"train reference ({L} layers): failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return row
+
+
+def _train_flops(cfg, tokens: int, seq: int):
+    """-> (model FLOPs a step, FLOPs a step with the recompute): 6 N T over
+    the matmul params N (attention and MLP projections and the head; the
+    embedding is a lookup) plus causal attention (QK^T and PV, 4 D per
+    visible (query, key) pair a head, 3x for forward and backward); the
+    recompute runs every layer's forward once more."""
+    d, hd = cfg.d_model, cfg.num_heads * cfg.head_dim
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    layer = d * hd + 2 * d * kvd + hd * d + 3 * d * cfg.d_ff
+    head = d * cfg.vocab_size
+    pairs = tokens * (seq + 1) / 2                 # visible pairs over the batch
+    attn_fwd = 4 * hd * pairs * cfg.num_layers
+    model = 6 * (layer * cfg.num_layers + head) * tokens + 3 * attn_fwd
+    return model, model + 2 * layer * cfg.num_layers * tokens + attn_fwd
+
+
+def device_time_by_kind(prof) -> dict:
+    """Device seconds of a torch.profiler run by kind of kernel: cuBLAS
+    GEMMs (bf16 on the tensor cores, f32 on the CUDA cores), the port's
+    RMSNorm kernel, reductions, and the elementwise kernels and copies."""
+    from torch.autograd import DeviceType
+    out = {"gemm_bf16_s": 0.0, "gemm_f32_s": 0.0, "rmsnorm_kernel_s": 0.0,
+           "reduce_s": 0.0, "elementwise_and_copy_s": 0.0}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        name, dur = ev.name(), ev.duration_ns() / 1e9
+        if "f32f32" in name and "gemm" in name:
+            out["gemm_f32_s"] += dur
+        elif any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass")):
+            out["gemm_bf16_s"] += dur
+        elif "rmsnorm_kernel" in name:
+            out["rmsnorm_kernel_s"] += dur
+        elif "reduce" in name:
+            out["reduce_s"] += dur
+        else:
+            out["elementwise_and_copy_s"] += dur
+    return out
+
+
+def step_split_ms(step_fn, state, batch):
+    """One train step with CUDA events at its start, at the clip (the end
+    of the loss and its grads: forward, the layers' recompute and the
+    backward), after the clip and at its end (the optimizer). -> (state,
+    {part: ms}); device time, idle gaps included."""
+    import torch
+    from repro_torch.train import steps as steps_mod
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    clip = steps_mod.clip_by_global_norm
+
+    def clip_timed(grads, max_norm):
+        ev[1].record()
+        out = clip(grads, max_norm)
+        ev[2].record()
+        return out
+    steps_mod.clip_by_global_norm = clip_timed
+    try:
+        ev[0].record()
+        state, _ = step_fn(state, batch)
+        ev[3].record()
+    finally:
+        steps_mod.clip_by_global_norm = clip
+    torch.cuda.synchronize()
+    return state, {"loss_and_grads_ms": ev[0].elapsed_time(ev[1]),
+                   "clip_ms": ev[1].elapsed_time(ev[2]),
+                   "optimizer_ms": ev[2].elapsed_time(ev[3]),
+                   "step_ms": ev[0].elapsed_time(ev[3])}
+
+
+def trainer_phase(line, checked):
+    """The main path: `Trainer(tcfg).train(TRAIN_STEPS)` at 4 layers of
+    qwen2.5-14b's full width (warmup 1, lr 3e-4, log_every 1, so each step
+    is timed to its last kernel), counts reset just before and read just
+    after: finite losses, 4L+1 RMSNorm launches a step and no other kernel
+    (blockwise attention, as the JAX trainer's default); then one more step
+    under torch.profiler (busy share, top kernels, device time by kind of
+    kernel) and one split by CUDA events into the loss and its grads, the
+    clip and the optimizer. -> the phase row."""
+    import statistics
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves
+    L = TRAIN_LAYERS
+    tcfg = _train_config(L, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                         total_steps=TRAIN_STEPS)
+    trainer = Trainer(tcfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with launch_signatures() as (seen, calls, launches):
+        state, hist = trainer.train(steps=TRAIN_STEPS)
+    run_s = time.monotonic() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batch = trainer._make_batch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.monotonic()
+        state, _ = trainer.step_fn(state, batch)
+        torch.cuda.synchronize()
+        profiled_s = time.monotonic() - t1
+    state, split = step_split_ms(trainer.step_fn, state, batch)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = statistics.median(r["time_s"] for r in hist[1:])
+    model_flops, hw_flops = _train_flops(tcfg.model, tokens, TRAIN_SEQ)
+    n_params = sum(x.numel() for x in tree_leaves(state.params))
+    unchecked = sorted(seen - checked)
+    checks = {
+        "steps": [r["step"] for r in hist] == list(range(1, TRAIN_STEPS + 1)),
+        "finite_losses": all(r["loss"] == r["loss"] and abs(r["loss"]) != float("inf")
+                             for r in hist),
+        "rmsnorm_launches_4L+1_a_step": launches["rmsnorm"] == (4 * L + 1) * TRAIN_STEPS,
+        "no_other_launches": all(v == 0 for k, v in launches.items() if k != "rmsnorm"),
+        "every_launch_recorded": calls == launches,
+        "every_launch_shape_checked": not unchecked,
+    }
+    row = {"phase": "trainer", "arch": ARCH, "layers": L, "d_model": tcfg.model.d_model,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+           "warmup": TRAIN_WARMUP, "card": line, "params": n_params,
+           "why_4_layers": "params + grads + f32 Adam mu/nu/master stay resident at ~16 B a "
+                           "param (~42.5 GB); all 48 layers need ~236 GB, the case of LMS "
+                           "streaming, not ported yet",
+           "loss": [r["loss"] for r in hist], "grad_norm": [r["grad_norm"] for r in hist],
+           "lr_per_step": [r["lr"] for r in hist], "step_s": [r["time_s"] for r in hist],
+           "median_step_s_after_1": step_s, "tokens_per_s": tokens / step_s,
+           "model_tflop_per_step": model_flops / 1e12,
+           "model_tflop_s": model_flops / step_s / 1e12,
+           "model_flops_share_of_989": model_flops / step_s / BF16_TENSOR_FLOPS_PER_S,
+           "with_recompute_tflop_s": hw_flops / step_s / 1e12,
+           "with_recompute_share_of_989": hw_flops / step_s / BF16_TENSOR_FLOPS_PER_S,
+           "run_s": run_s, "max_memory_allocated_gb": peak_gb, "launches": launches,
+           "launch_signatures": sorted(seen), "unchecked_signatures": unchecked,
+           "checks": checks, "step_split_ms": split,
+           "profile": {**device_summary(prof, profiled_s),
+                       "by_kind": device_time_by_kind(prof)}}
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"trainer ({L} layers): failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
+    del trainer, state, batch
     torch.cuda.empty_cache()
     return row
 
@@ -1436,6 +1927,8 @@ def main() -> int:
     kernels, checked = kernel_phases(get_config(ARCH).num_layers)
     slot_launches = reference_phase(line, checked)
     mamba_row = mamba_phases(line, checked)
+    train_reference_phase(line, checked)
+    trainer_row = trainer_phase(line, checked)
 
     t0 = time.monotonic()
     model = Model(get_config(ARCH), attn_impl="blockwise")
@@ -1467,6 +1960,7 @@ def main() -> int:
         "flash_decode_paged_int8": f"{decode_kernel}:155",
         "quantize_rows": "src/repro/kernels/quantize/kernel.py:25",
         "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:72",
+        "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:24",
     }
     csrc = "src/repro_torch/kernels/csrc"
     sources = {
@@ -1477,17 +1971,19 @@ def main() -> int:
         "flash_decode_paged_int8": f"{csrc}/flash_decode.cu",
         "quantize_rows": f"{csrc}/quantize.cu",
         "ssd_scan": f"{csrc}/ssd_scan.cu",
+        "rmsnorm": f"{csrc}/rmsnorm.cu",
     }
     # each kernel's launches on its main path: the 48-layer static loop,
     # the slot decode without an arena (int8), the 48-layer engine, the
-    # 48-layer Mamba-2 forward
+    # 48-layer Mamba-2 forward, the 4-layer Trainer's 5 steps
     launches = {"flash_attention_fwd": static_row["launches"]["flash_attention"],
                 "flash_decode_bf16": static_row["launches"]["flash_decode"],
                 "flash_decode_int8": slot_launches["int8"],
                 "flash_decode_paged_bf16": model_row["decode_launches"],
                 "flash_decode_paged_int8": int8_row["decode_launches"],
                 "quantize_rows": int8_row["quantize_launches"],
-                "ssd_scan": mamba_row["launches"]["ssd_scan"]}
+                "ssd_scan": mamba_row["launches"]["ssd_scan"],
+                "rmsnorm": trainer_row["launches"]["rmsnorm"]}
     out = []
     for name, phase_rows in kernels.items():
         main_row = phase_rows[0]              # the main path's shape

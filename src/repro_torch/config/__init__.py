@@ -1,3 +1,5 @@
-from repro_torch.config.base import ModelConfig, ShapeConfig
+from repro_torch.config.base import (DDLConfig, LMSConfig, MeshSpec,
+                                     ModelConfig, ShapeConfig, TrainConfig)
 
-__all__ = ["ModelConfig", "ShapeConfig"]
+__all__ = ["DDLConfig", "LMSConfig", "MeshSpec", "ModelConfig", "ShapeConfig",
+           "TrainConfig"]

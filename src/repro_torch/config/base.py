@@ -1,10 +1,11 @@
-"""Model and shape configuration: the frozen dataclasses the serve path
-reads. A copy of the JAX package's `config/base.py` (ModelConfig and
-ShapeConfig only), kept here so the port never imports the JAX package.
+"""Model, shape, mesh, LMS, DDL and training configuration: the frozen
+dataclasses the serve and train paths read. A copy of the JAX package's
+`config/base.py` (its validation helpers and smoke shapes left out), kept
+here so the port never imports the JAX package.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 # ---------------------------------------------------------------------------
@@ -183,3 +184,76 @@ class ShapeConfig:
     kind: str          # "train" | "prefill" | "decode"
     seq_len: int
     global_batch: int
+
+
+# ---------------------------------------------------------------------------
+# LMS / DDL / mesh / train configs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LMSConfig:
+    enabled: bool = True
+    hbm_budget: int = 0               # 0 => hardware HBM size
+    offload_params: str = "auto"      # "auto" | "always" | "never"
+    offload_optimizer: str = "auto"
+    offload_activations: str = "auto"
+    remat: bool = True                # allow remat as alternative to swap
+    # planner safety margin for workspace / fragmentation
+    workspace_frac: float = 0.10
+
+
+@dataclass(frozen=True)
+class DDLConfig:
+    mode: str = "allreduce"           # "allreduce" (paper) | "zero1" (beyond) | "none"
+    compress_dcn: bool = False        # int8 + error feedback on pod hop
+    # gradient bucketing for overlap. None = auto
+    bucket_mb: Optional[int] = None
+    topology_aware: bool = True       # False => flat single all-reduce
+    # per-layer reduction inside the backward pass vs a post-hoc tree pass;
+    # None = auto
+    overlap_grads: Optional[bool] = None
+
+
+@dataclass(frozen=True)
+class MeshSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+SINGLE_POD = MeshSpec((16, 16), ("data", "model"))
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshSpec = SINGLE_POD
+    lms: LMSConfig = field(default_factory=LMSConfig)
+    ddl: DDLConfig = field(default_factory=DDLConfig)
+    # optimizer
+    optimizer: str = "adamw"
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    # execution
+    microbatches: int = 1             # grad accumulation
+    remat_policy: str = "auto"        # "auto" (planner) | "none" | "full" | "offload"
+    seed: int = 0
+    # checkpointing
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    checkpoint_every: int = 100
+    async_checkpoint: bool = True
+    # observability: metrics cross to the host (the per-step float() sync)
+    # only every log_every steps
+    log_every: int = 1

@@ -1,4 +1,4 @@
-"""Weights from the JAX package into the port.
+"""Weights and train states from the JAX package into the port.
 
 The port keeps the JAX param tree's key names and stacked `[L, ...]`
 layout, so converting is a tree map over numpy arrays (as `np.asarray`
@@ -27,3 +27,24 @@ def params_from_jax(tree, device):
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return array_to_torch(tree, device)
+
+
+def train_state_from_jax(state, device):
+    """A JAX `TrainState` whose leaves are numpy arrays (`jax.tree.map(
+    np.asarray, state)`) -> the port's `TrainState` on `device`: the step
+    counters as int32 scalars, params and the optimizer's trees through
+    `params_from_jax` (an AdamState's mu/nu/master, or an SGDState's
+    momentum), so both sides can start from one state."""
+    from repro_torch.optim.adamw import AdamState, SGDState
+    from repro_torch.train.steps import TrainState
+
+    def step(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32, device=device)
+    opt = state.opt
+    if hasattr(opt, "master"):
+        opt = AdamState(step(opt.step), params_from_jax(opt.mu, device),
+                        params_from_jax(opt.nu, device),
+                        params_from_jax(opt.master, device))
+    else:
+        opt = SGDState(step(opt.step), params_from_jax(opt.momentum, device))
+    return TrainState(step(state.step), params_from_jax(state.params, device), opt)

@@ -77,6 +77,15 @@ void quantize_rows(const torch::Tensor& x, torch::Tensor q, torch::Tensor scale)
   check_launch(err, "quantize_rows");
 }
 
+void rmsnorm(const torch::Tensor& x, const torch::Tensor& scale, torch::Tensor out,
+             double eps) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const int err = repro::rmsnorm(x.data_ptr(), dtype_of(x), scale.data_ptr<float>(),
+                                 out.data_ptr(), x.size(0), x.size(1), static_cast<float>(eps),
+                                 current_stream());
+  check_launch(err, "rmsnorm");
+}
+
 void ssd_scan(const torch::Tensor& x, const torch::Tensor& dt, const torch::Tensor& A,
               const torch::Tensor& B, const torch::Tensor& C, torch::Tensor y, int64_t chunk) {
   const c10::cuda::CUDAGuard guard(x.device());
@@ -98,5 +107,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_decode", &flash_decode, "slot-contiguous flash-decode into out");
   m.def("flash_decode_paged", &flash_decode_paged, "paged flash-decode into out");
   m.def("quantize_rows", &quantize_rows, "per-row int8 quantize into q, scale");
+  m.def("rmsnorm", &rmsnorm, "RMSNorm forward into out");
   m.def("ssd_scan", &ssd_scan, "Mamba-2 SSD chunked scan into y");
 }

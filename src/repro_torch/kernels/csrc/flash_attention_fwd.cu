@@ -9,8 +9,10 @@
 // and kv head kvh = h * K / H (grouped KV is never expanded):
 //   o[b, i, h] = softmax_t((q[b, i, h] / sqrt(D)) . k[b, t, kvh]) . v[b, t, kvh]
 // over the keys t < Skv that the masks leave: t <= p when causal, and
-// t > p - window when window > 0. A row with no such key returns zeros (its
-// softmax sum stays 0). q, k, v and o stay in the model layout
+// t > p - window when window > 0. A row with no such key returns the mean
+// of v over all Skv keys of its kv head, as the TPU kernel does (its masked
+// scores are a finite -1e30, so such a row's softmax is uniform). q, k, v
+// and o stay in the model layout
 // [B, S, heads, D]: the kernel computes each row's offset from the strides
 // of that layout, so the call needs no transposes.
 //
@@ -38,8 +40,11 @@
 // become -inf; each row's max and sum reduce over the 16 threads of its
 // half-warp by shuffles; m and l live in registers (each of the 16 holds
 // the row's copy) and acc in registers, all f32; the probabilities pass
-// through shared memory to the P . V product. The blocks of the last q
-// tiles, which see the most keys under the causal mask, start first.
+// through shared memory to the P . V product. A row whose softmax sum
+// stays 0 saw no key: if a block has one, its threads then sum v over all
+// Skv rows for their output columns, in f32, and such rows take that sum
+// over Skv. The blocks of the last q tiles, which see the most keys under
+// the causal mask, start first.
 
 #include <math_constants.h>
 
@@ -226,6 +231,29 @@ __global__ void __launch_bounds__(kThreads)
           for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
         }
       }
+    }
+  }
+
+  // rows with no visible key (l stays 0: a visible key's exp(0) adds 1)
+  // take the mean of v over every key of the kv head
+  bool no_key = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) no_key |= ty + 16 * i < nq && l[i] == 0.f;
+  if (__syncthreads_or(no_key)) {
+    float vsum[kMaxCols];
+#pragma unroll
+    for (int c = 0; c < kMaxCols; ++c) vsum[c] = 0.f;
+    for (int t = 0; t < Skv; ++t) {
+#pragma unroll
+      for (int c = 0; c < kMaxCols; ++c)
+        if (c < nd) vsum[c] += repro::to_f32(vb[t * kv_stride + tx + 16 * c]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (l[i] != 0.f) continue;
+      l[i] = static_cast<float>(Skv);
+#pragma unroll
+      for (int c = 0; c < kMaxCols; ++c) acc[i][c] = vsum[c];
     }
   }
 

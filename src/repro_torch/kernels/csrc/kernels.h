@@ -39,6 +39,11 @@ int flash_decode(const void* q, DType q_dtype, const void* k, const void* v, DTy
 int quantize_rows(const void* x, DType x_dtype, int8_t* q, float* scale, int rows, int cols,
                   void* stream);
 
+// RMSNorm forward (rmsnorm.cu). x/out [rows,d] f32 or bf16, scale [d] f32,
+// contiguous: out = (x * rsqrt(mean(x^2) + eps)) * scale in x's dtype.
+int rmsnorm(const void* x, DType dtype, const float* scale, void* out, int rows, int d,
+            float eps, void* stream);
+
 // Mamba-2 SSD chunked scan (ssd_scan.cu). x [batch,L,H,P] f32 or bf16,
 // dt [batch,L,H] f32, A [H] f32, B/C [batch,L,G,N] of x's type -> y
 // [batch,L,H,P] of x's type, contiguous. x, dt, B and C are read through

@@ -45,7 +45,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """Prefill attention in the model layout: q [B,S,H,D], k/v [B,Skv,K,D]
     -> [B,S,H,D]. q_offset: absolute kv position of query row 0 (None: the
     end of kv when causal, else 0). A query row with no visible key returns
-    zeros."""
+    the mean of v over all Skv keys of its kv head, as the JAX kernel
+    does."""
     if on_cpu(q, k, v):
         o = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=causal,

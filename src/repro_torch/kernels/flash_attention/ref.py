@@ -31,12 +31,11 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     otherwise. Scores, probabilities and the accumulation are f32 and the
     output is cast once, as in the JAX oracle.
 
-    A query row with no visible key returns exact zeros, as the CUDA kernel
-    does (its softmax sum stays 0). The JAX package's oracle gives such a
-    row a uniform softmax, and its Pallas kernel an average of v over the
-    kv blocks (masked scores are a finite -1e30, so each counts exp(0) = 1
-    in its sum): both read keys the mask forbids. The model's prefill
-    (causal, q_offset 0, Sq == Skv) never makes such a row."""
+    A query row with no visible key returns the mean of v over all Skv keys
+    of its kv head, as the JAX package's oracle and Pallas kernel do: the
+    masked scores are a finite -1e30, so the softmax of such a row is
+    uniform. The model's prefill (causal, q_offset 0, Sq == Skv) never
+    makes such a row."""
     b, h, sq, d = q.shape
     kh, skv = k.shape[1], k.shape[2]
     g = h // kh
@@ -49,7 +48,6 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
-    o = torch.where(mask.any(dim=-1)[:, None], o, torch.zeros_like(o))
     return o.reshape(b, h, sq, d).to(q.dtype)
 
 

@@ -1,0 +1,131 @@
+"""Training entry point on one device (the `ddlrun` analogue of the JAX
+package's launcher, whose flag names it keeps). Runs on the card unless
+`--device cpu` is given.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-14b \\
+        --smoke --no-lms --steps 20 --batch 8 --seq 128
+
+LMS, DDL's zero1 mode and compression, checkpoints, the Supervisor, fault
+drills, heartbeats, planner profiles, loss-spike telemetry and the trace
+and obs-report exports are not ported yet: their flags raise.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from repro_torch.config.base import (DDLConfig, LMSConfig, MeshSpec,
+                                     ShapeConfig, TrainConfig)
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.obs import configure, get_obs
+from repro_torch.train.trainer import Trainer
+
+
+def parse_mesh(s: str) -> MeshSpec:
+    dims = tuple(int(x) for x in s.split("x"))
+    if len(dims) == 3:
+        return MeshSpec(dims, ("pod", "data", "model"))
+    if len(dims) == 2:
+        return MeshSpec(dims, ("data", "model"))
+    return MeshSpec(dims, ("data",))
+
+
+def _unported(args) -> list:
+    """The flags given whose feature is not ported yet."""
+    given = {
+        "--no-lms absent (LMS)": not args.no_lms,
+        "--ddl-mode zero1": args.ddl_mode == "zero1",
+        "--compress-dcn": args.compress_dcn,
+        "--ckpt-dir": args.ckpt_dir is not None,
+        "--ckpt-every": args.ckpt_every is not None,
+        "--trace": bool(args.trace),
+        "--obs-report": bool(args.obs_report),
+        "--profile": bool(args.profile),
+        "--spike-action": args.spike_action != "off",
+        "--supervise": args.supervise,
+        "--heartbeat-dir": bool(args.heartbeat_dir),
+        "--max-restarts": args.max_restarts is not None,
+        "--fault-step": args.fault_step >= 0,
+        "--lost-devices": args.lost_devices > 0,
+        "--fault-seed": args.fault_seed >= 0,
+    }
+    return [flag for flag, on in given.items() if on]
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", required=True)
+    p.add_argument("--smoke", action="store_true",
+                   help="use the reduced smoke config")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the card; 'cpu' to run here)")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seq", type=int, default=128)
+    p.add_argument("--mesh", default="1x1", help="only 1 / 1x1 is ported")
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--warmup", type=int, default=20)
+    p.add_argument("--ddl-mode", default="allreduce",
+                   choices=["allreduce", "zero1", "none"])
+    p.add_argument("--compress-dcn", action="store_true")
+    p.add_argument("--no-lms", action="store_true",
+                   help="required: LMS is not ported yet")
+    p.add_argument("--microbatches", type=int, default=1)
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--ckpt-every", type=int, default=None)
+    p.add_argument("--log", default="",
+                   help="write the history rows to this JSON file")
+    p.add_argument("--log-every", type=int, default=1,
+                   help="flush device metrics to the host every N steps")
+    p.add_argument("--obs-jsonl", default="",
+                   help="stream span events to this JSONL file")
+    p.add_argument("--trace", default="")
+    p.add_argument("--obs-report", default="")
+    p.add_argument("--profile", default="")
+    p.add_argument("--spike-action", default="off",
+                   choices=["off", "record", "stop"])
+    p.add_argument("--supervise", action="store_true")
+    p.add_argument("--heartbeat-dir", default="")
+    p.add_argument("--max-restarts", type=int, default=None)
+    p.add_argument("--fault-step", type=int, default=-1)
+    p.add_argument("--lost-devices", type=int, default=0)
+    p.add_argument("--fault-seed", type=int, default=-1)
+    args = p.parse_args(argv)
+    unported = _unported(args)
+    if unported:
+        raise NotImplementedError(
+            f"not ported yet: {', '.join(unported)} (pass --no-lms; the port "
+            "trains on one device without checkpoints)")
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    tcfg = TrainConfig(
+        model=cfg,
+        shape=ShapeConfig("cli", "train", args.seq, args.batch),
+        mesh=parse_mesh(args.mesh),
+        lms=LMSConfig(enabled=False),
+        ddl=DDLConfig(mode=args.ddl_mode),
+        learning_rate=args.lr, warmup_steps=args.warmup,
+        total_steps=args.steps, microbatches=args.microbatches,
+        log_every=max(1, args.log_every))
+
+    configure(jsonl_path=args.obs_jsonl or None)
+    trainer = Trainer(tcfg, device=args.device, obs=get_obs())
+
+    def log(step, m):
+        print(f"step {step:5d} | loss {m['loss']:.4f} | gnorm "
+              f"{m['grad_norm']:.3f} | lr {m['lr']:.2e} | {m['time_s']*1e3:.0f} ms")
+
+    _, hist = trainer.train(steps=args.steps, on_step=log)
+    if args.log:
+        with open(args.log, "w") as f:
+            json.dump(hist, f, indent=1)
+    print(f"final loss: {hist[-1]['loss']:.4f} (from {hist[0]['loss']:.4f})")
+    print("-- metrics --")
+    for line in trainer.obs.registry.summary_lines():
+        print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,6 +14,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.tree import tree_map
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "int8": torch.int8, "int32": torch.int32}
 
@@ -36,13 +39,6 @@ class ParamDef:
 
 def is_def(x) -> bool:
     return isinstance(x, ParamDef)
-
-
-def tree_map_defs(fn, defs):
-    """Apply fn to every ParamDef of a nested dict (dict keys in order)."""
-    if is_def(defs):
-        return fn(defs)
-    return {k: tree_map_defs(fn, v) for k, v in defs.items()}
 
 
 def init_array(d: ParamDef, generator: torch.Generator, device) -> torch.Tensor:
@@ -69,7 +65,7 @@ def init_array(d: ParamDef, generator: torch.Generator, device) -> torch.Tensor:
 
 def tree_init(defs, generator: torch.Generator, device):
     """defs: nested dict of ParamDef -> same-structure dict of tensors."""
-    return tree_map_defs(lambda d: init_array(d, generator, device), defs)
+    return tree_map(lambda d: init_array(d, generator, device), defs)
 
 
 # ---------------------------------------------------------------------------
@@ -83,12 +79,9 @@ def norm_defs(cfg, dim: int, logical: str = "d_model"):
 
 
 def apply_norm(cfg, p, x, eps=None):
-    """RMSNorm in f32, cast back to x's dtype."""
-    eps = eps or cfg.norm_eps
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * p["scale"]
-    return out.to(x.dtype)
+    """RMSNorm in f32, cast back to x's dtype: the RMSNorm kernel on a CUDA
+    tensor, its plain version on a CPU one."""
+    return rms_ops.rmsnorm(x, p["scale"], eps=eps or cfg.norm_eps)
 
 
 def gated_rmsnorm(p, x, gate, eps=1e-5):

@@ -15,10 +15,10 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import transformer as tr
+from repro_torch.tree import tree_map
 from repro_torch.models.layers import (apply_norm, cross_entropy,
                                        embed_defs, embed_tokens, lm_logits,
-                                       norm_defs, tree_init, tree_map_defs,
-                                       DTYPES)
+                                       norm_defs, tree_init, DTYPES)
 
 
 class Model:
@@ -45,7 +45,7 @@ class Model:
         return tree_init(self.param_defs(), gen, device)
 
     def init_cache(self, batch: int, cache_len: int, device):
-        return tree_map_defs(
+        return tree_map(
             lambda d: torch.zeros(d.shape, dtype=DTYPES[d.dtype], device=device),
             tr.cache_defs(self.cfg, batch, cache_len))
 
@@ -56,19 +56,25 @@ class Model:
                 "positions": torch.arange(seq, device=device)[None, :] + offset}
 
     # ---- train forward ----------------------------------------------------
-    def forward(self, params, batch):
-        """batch {"tokens" [B,S]} -> (logits [B,S,V], aux_loss f32 scalar)."""
+    def forward(self, params, batch, *, policy=None, no_remat=False):
+        """batch {"tokens" [B,S]} -> (logits [B,S,V], aux_loss f32 scalar).
+        Each decoder layer is recomputed in the backward unless no_remat
+        (`transformer.apply_decoder`); `policy` (an LMS remat policy) is not
+        ported yet."""
         cfg = self.cfg
         x = embed_tokens(cfg, params["embed"], batch["tokens"])
         ctx = self._ctx(x.shape[1], x.device)
-        x, aux = tr.apply_decoder(cfg, params["decoder"], x, ctx)
+        x, aux = tr.apply_decoder(cfg, params["decoder"], x, ctx,
+                                  policy=policy, no_remat=no_remat)
         x = apply_norm(cfg, params["final_norm"], x)
         return lm_logits(cfg, params["embed"], x), aux
 
-    def loss(self, params, batch, *, aux_weight: float = 0.01):
+    def loss(self, params, batch, *, policy=None, no_remat=False,
+             aux_weight: float = 0.01):
         """batch {"tokens", "labels" [B,S]}, label -1 ignored -> (mean token
         cross-entropy + aux_weight * aux, {"ce", "aux"})."""
-        logits, aux = self.forward(params, batch)
+        logits, aux = self.forward(params, batch, policy=policy,
+                                   no_remat=no_remat)
         ce = cross_entropy(logits, batch["labels"])
         return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 

@@ -9,6 +9,7 @@ slot-contiguous caches).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -16,9 +17,9 @@ from repro_torch.models import kvquant, paging
 from repro_torch.models.attention import (attention_defs, decode_attention,
                                           out_proj, project_qkv)
 from repro_torch.models.layers import (ParamDef, apply_mlp, apply_norm,
-                                       apply_rope, mlp_defs, norm_defs,
-                                       tree_map_defs)
+                                       apply_rope, mlp_defs, norm_defs)
 from repro_torch.models.ssm import apply_ssm, ssm_defs
+from repro_torch.tree import tree_map
 
 # ---------------------------------------------------------------------------
 # Stack layout
@@ -48,7 +49,7 @@ def _check_serve(cfg: ModelConfig) -> None:
 
 def _stack(defs, n: int):
     """Add a leading ("layers", n) axis to every ParamDef in a tree."""
-    return tree_map_defs(
+    return tree_map(
         lambda d: ParamDef((n,) + d.shape, ("layers",) + d.axes,
                            init=d.init, scale=d.scale, dtype=d.dtype), defs)
 
@@ -138,14 +139,28 @@ def apply_layer(cfg, kind, p, x, ctx):
     raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
 
 
-def apply_decoder(cfg, params, x, ctx):
+def apply_decoder(cfg, params, x, ctx, *, policy=None, no_remat=False):
     """-> (x, aux_loss f32 scalar): every layer of the stack in order, their
-    aux losses summed (0 for the dense and SSM layers)."""
+    aux losses summed (0 for the dense and SSM layers).
+
+    Each layer runs under `torch.utils.checkpoint` (non-reentrant) unless
+    no_remat: its activations are dropped after the forward and recomputed
+    in the backward, as the JAX package's `jax.checkpoint(body,
+    policy=None)` of its layer scan does. The layers draw no random
+    numbers, so no RNG state is kept for the recompute. The LMS planner's
+    remat policies (`policy`) are not ported yet."""
+    if policy is not None:
+        raise NotImplementedError("LMS remat policies are not ported yet")
     kind = _check_kinds(cfg)
     stack = params["stack0"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        x, da = apply_layer(cfg, kind, _layer(stack, i)[f"{kind}_0"], x, ctx)
+        p = _layer(stack, i)[f"{kind}_0"]
+        if no_remat:
+            x, da = apply_layer(cfg, kind, p, x, ctx)
+        else:
+            x, da = checkpoint(apply_layer, cfg, kind, p, x, ctx,
+                               use_reentrant=False, preserve_rng_state=False)
         aux = aux + da
     return x, aux
 

@@ -1,4 +1,4 @@
-"""Metrics registry: counters, gauges and histograms.
+"""Metrics registry: counters, gauges, histograms, and bounded series.
 
 Dependency-free (stdlib only) so every layer — planner, LMS executor, DDL,
 trainer, serve engine, supervisor, checkpointer — can record without
@@ -100,6 +100,28 @@ class Histogram:
         return out
 
 
+class Series:
+    """Bounded append-only sequence of dict rows (the trainer's history)."""
+
+    __slots__ = ("name", "rows")
+
+    def __init__(self, name: str, maxlen: int = 65536):
+        self.name = name
+        self.rows: Deque[dict] = collections.deque(maxlen=maxlen)
+
+    def append(self, row: dict) -> None:
+        self.rows.append(row)
+
+    def last(self) -> Optional[dict]:
+        return self.rows[-1] if self.rows else None
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def __iter__(self) -> Iterator[dict]:
+        return iter(self.rows)
+
+
 class MetricsRegistry:
     """Named instruments, created on first use, site-validated.
 
@@ -134,13 +156,17 @@ class MetricsRegistry:
     def histogram(self, name: str, window: int = 512) -> Histogram:
         return self._get(name, Histogram, window=window)
 
+    def series(self, name: str, maxlen: int = 65536) -> Series:
+        return self._get(name, Series, maxlen=maxlen)
+
     def names(self) -> List[str]:
         with self._lock:
             return sorted(self._instruments)
 
     def snapshot(self) -> Dict[str, dict]:
-        """JSON-ready view of every instrument."""
-        out = {"counters": {}, "gauges": {}, "histograms": {}}
+        """JSON-ready view of every instrument (series report their length
+        only: their rows are the caller's payload, not a metric)."""
+        out = {"counters": {}, "gauges": {}, "histograms": {}, "series": {}}
         with self._lock:
             items = list(self._instruments.items())
         for name, inst in items:
@@ -150,6 +176,8 @@ class MetricsRegistry:
                 out["gauges"][name] = inst.value
             elif isinstance(inst, Histogram):
                 out["histograms"][name] = inst.summary()
+            elif isinstance(inst, Series):
+                out["series"][name] = len(inst)
         return out
 
     def summary_lines(self) -> List[str]:
@@ -166,4 +194,6 @@ class MetricsRegistry:
                     f"{name}: n={s['count']:g} mean={s.get('mean', 0):.6g} "
                     f"p50={s.get('p50', 0):.6g} p95={s.get('p95', 0):.6g} "
                     f"p99={s.get('p99', 0):.6g}")
+        for name, n in sorted(snap["series"].items()):
+            lines.append(f"{name}: {n} rows")
         return lines

@@ -1,0 +1,102 @@
+"""Training loop on one device: train steps from `build_train_step` over
+the deterministic synthetic token stream, with the deferred metrics flush
+(`log_every`), a `train.step` span per step and the `train.step_s`
+histogram and `train.history` series on the trainer's own metrics
+registry, as in the JAX package.
+
+Not ported yet: LMS (the memory planner and streaming), checkpoints and
+resume, heartbeats, the fault injector, loss-spike telemetry, the
+Supervisor, and the VLM and audio batches. The trainer does not
+checkpoint.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+from repro_torch.config.base import TrainConfig
+from repro_torch.data import DataLoader, SyntheticTokens
+from repro_torch.models.model import Model
+from repro_torch.obs import Obs
+from repro_torch.serve.engine import resolve_device
+from repro_torch.train.steps import build_train_step, init_train_state
+
+
+class Trainer:
+    def __init__(self, tcfg: TrainConfig, *, attn_impl: str = "blockwise",
+                 device=None, obs: Optional[Obs] = None):
+        if tcfg.lms.enabled:
+            raise NotImplementedError(
+                "LMS is not ported yet; pass LMSConfig(enabled=False)")
+        self.tcfg = tcfg
+        self.device = resolve_device(device)
+        # a private registry over the shared span ring, as the JAX trainer's
+        self.obs = obs if obs is not None else Obs()
+        self.model = Model(tcfg.model, attn_impl=attn_impl)
+        self.plan = None
+        self.step_fn = build_train_step(self.model, tcfg)
+        self.loader = DataLoader(
+            SyntheticTokens(tcfg.model.vocab_size, seed=tcfg.seed),
+            shard=0, num_shards=1, batch_per_shard=tcfg.shape.global_batch,
+            seq_len=tcfg.shape.seq_len)
+
+    # ---- state ---------------------------------------------------------
+    def init_state(self):
+        return init_train_state(self.model, self.tcfg, self.tcfg.seed,
+                                self.device)
+
+    def _make_batch(self) -> Dict[str, torch.Tensor]:
+        if self.tcfg.model.family in ("vlm", "audio"):
+            raise NotImplementedError(
+                f"{self.tcfg.model.family} batches are not ported yet")
+        raw = next(self.loader)
+        return {k: torch.from_numpy(v).to(self.device) for k, v in raw.items()}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ---- loop ----------------------------------------------------------
+    def train(self, steps: Optional[int] = None,
+              on_step: Optional[Callable] = None):
+        """-> (final state, history rows {step, loss, grad_norm, lr,
+        time_s, ce, aux}). Metrics stay on the device until a flush step
+        (every log_every steps and the last), which syncs inside its timed
+        span; the other steps' time_s is the host's dispatch time."""
+        state = self.init_state()
+        steps = steps or self.tcfg.total_steps
+        log_every = max(1, self.tcfg.log_every)
+        series = self.obs.registry.series("train.history")
+        step_hist = self.obs.registry.histogram("train.step_s")
+        metrics_hist: list = []
+        pending: list = []
+
+        def _flush():
+            for step, metrics, dt in pending:
+                row = {"step": step, "loss": float(metrics["loss"]),
+                       "grad_norm": float(metrics["grad_norm"]),
+                       "lr": float(metrics["lr"]), "time_s": dt,
+                       "ce": float(metrics["ce"]),
+                       "aux": float(metrics["aux"])}
+                metrics_hist.append(row)
+                series.append(row)
+                if on_step:
+                    on_step(step, row)
+            pending.clear()
+
+        for i in range(steps):
+            t0 = time.monotonic()
+            flush_now = (i + 1) % log_every == 0 or i + 1 == steps
+            with self.obs.span("train.step", step=i + 1):
+                batch = self._make_batch()
+                state, metrics = self.step_fn(state, batch)
+                if flush_now:
+                    self._sync()
+            dt = time.monotonic() - t0
+            step_hist.observe(dt)
+            pending.append((i + 1, metrics, dt))
+            if flush_now:
+                _flush()
+        return state, metrics_hist

@@ -1,7 +1,7 @@
 """The port's kernel modules against the JAX package, on the CPU.
 
 Flash attention (prefill), flash-decode over slot-contiguous caches and
-over the page arena, and the int8 row quantizer have hand-written CUDA
+over the page arena, the int8 row quantizer and RMSNorm have hand-written CUDA
 kernels that run only on the card (chip_smoke.py holds each against its
 plain version there). Here the plain versions — what a CPU tensor
 dispatches to — are held against the JAX Pallas kernels run in interpret
@@ -29,6 +29,8 @@ from repro_torch.kernels.flash_attention.ops import (flash_attention_cuda,
                                                      flash_decode_cuda)
 from repro_torch.kernels.flash_attention.ref import attention_mask
 from repro_torch.kernels.quantize import quantize, quantize_ref
+from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd_ref, rmsnorm_cuda,
+                                         rmsnorm_ref)
 from repro_torch.models import attention
 
 
@@ -118,11 +120,10 @@ ATTN_CASES = [
 @pytest.mark.parametrize("case", ATTN_CASES)
 def test_flash_attention_plain_matches_jax(case, dtype):
     """The port's flash_attention on CPU tensors (model layout) against the
-    JAX Pallas kernel in interpret mode and its oracle (kernel layout).
-    Rows with a visible key: f32 to 1e-5, bf16 to one bf16 ulp. Rows with
-    none are exact zeros in the port; the JAX oracle gives them a uniform
-    softmax and the JAX kernel an average of v, so neither is compared
-    there (the model's prefill never makes such a row)."""
+    JAX Pallas kernel in interpret mode and its oracle (kernel layout),
+    every row: f32 to 1e-5, bf16 to one bf16 ulp. A row with no visible
+    key is the mean of v over all keys of its kv head on all three (the
+    masked scores are a finite -1e30, so its softmax is uniform)."""
     ref = jax_ref()
     jnp = ref.jnp
     b, h, kh, sq, skv, d, window, q_offset, blk = case
@@ -146,7 +147,7 @@ def test_flash_attention_plain_matches_jax(case, dtype):
     for name, want in (("kernel", kern), ("oracle", oracle)):
         want = np.asarray(want).astype(np.float32).transpose(0, 2, 1, 3)
         _close(got[:, seen], want[:, seen], dtype, name)
-    assert np.all(got[:, ~seen] == 0.0)
+        _close(got[:, ~seen], want[:, ~seen], dtype, name + " (rows without a key)")
     assert (~seen).sum() == min(sq, max(0, -off))   # causal rows before key 0
 
 
@@ -329,3 +330,112 @@ def test_flash_decode_launcher_rejects_what_the_kernel_does_not_take():
         flash_decode_cuda(torch.zeros(2, 18, 32, dtype=torch.bfloat16), k, k, kv)
     with pytest.raises(ValueError, match="kv_len"):
         flash_decode_cuda(q, k, k, torch.zeros(3, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+def _rms_inputs(rows, d, seed):
+    """x with rows of varied scale (one all-zero row where there are several)
+    and a scale around 1, as a trained norm's."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((rows, d)) * rng.uniform(0.05, 8.0, (rows, 1))).astype(np.float32)
+    if rows > 1:
+        x[1] = 0.0
+    s = (1.0 + 0.2 * rng.standard_normal(d)).astype(np.float32)
+    return x, s
+
+
+@pytest.mark.parametrize("eps", [1e-6, 1e-5])
+@pytest.mark.parametrize("rows,d", [(1, 64), (37, 64), (300, 64), (1, 5120), (37, 5120),
+                                    (300, 5120)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_matches_jax(dtype, rows, d, eps):
+    """The port's rmsnorm on CPU tensors against the JAX rmsnorm_fwd in
+    interpret mode, its rmsnorm_ref and layers.apply_norm (what the JAX
+    model computes): f32 within 1e-6 of each element (a product of x, one
+    rsqrt per row and the scale, so every element carries only the few-ulp
+    error of that rsqrt), bf16 within one bf16 ulp of each element (the f32
+    results round to neighbouring bf16 values at most)."""
+    ref = jax_ref()
+    jnp = ref.jnp
+    from repro.kernels.rmsnorm import kernel as rk, ref as rr
+    x, s = _rms_inputs(rows, d, seed=rows * d)
+    tdt = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(tdt)
+    got = rmsnorm(xt, torch.from_numpy(s), eps=eps)
+    assert got.dtype == tdt and got.shape == (rows, d)
+    got = got.float().numpy()
+    jx, js = jnp.asarray(xt.float().numpy(), dtype), jnp.asarray(s)
+    cfg = ref.get_smoke_config("qwen2.5-14b")
+    wants = {"kernel": rk.rmsnorm_fwd(jx, js, eps=eps, interpret=True),
+             "ref": rr.rmsnorm_ref(jx, js, eps=eps),
+             "apply_norm": ref.layers.apply_norm(cfg, {"scale": js}, jx, eps=eps)}
+    for name, want in wants.items():
+        want = np.asarray(want).astype(np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=0, err_msg=name)
+        else:
+            assert np.all(np.abs(got - want) <= _bf16_ulp(want)), \
+                (name, np.max(np.abs(got - want)))
+    if rows > 1:
+        assert not got[1].any()                       # a zero row stays zero
+
+
+@pytest.mark.parametrize("rows,d,eps", [(1, 64, 1e-6), (37, 64, 1e-5), (300, 512, 1e-6)])
+def test_rmsnorm_gradient_matches_jax(rows, d, eps):
+    """rmsnorm_bwd_ref (the backward of the kernel's autograd Function)
+    against jax.vjp of the JAX apply_norm and against torch autograd
+    through rmsnorm_ref, in f32: dx within 1e-5 of its largest |value|
+    (its terms cancel, so an element-wise bound would not hold near 0)
+    and dscale likewise; bf16 x gives a bf16 dx and an f32 dscale."""
+    ref = jax_ref()
+    jnp = ref.jnp
+    x, s = _rms_inputs(rows, d, seed=rows + d)
+    dy = np.random.default_rng(rows).standard_normal((rows, d)).astype(np.float32)
+    cfg = ref.get_smoke_config("qwen2.5-14b")
+    _, vjp = ref.jax.vjp(lambda x_, s_: ref.layers.apply_norm(cfg, {"scale": s_}, x_, eps=eps),
+                         jnp.asarray(x), jnp.asarray(s))
+    jdx, jds = (np.asarray(a) for a in vjp(jnp.asarray(dy)))
+    xt = torch.from_numpy(x).requires_grad_()
+    st = torch.from_numpy(s).requires_grad_()
+    rmsnorm_ref(xt, st, eps=eps).backward(torch.from_numpy(dy))
+    dx, ds = rmsnorm_bwd_ref(torch.from_numpy(x), torch.from_numpy(s), torch.from_numpy(dy),
+                             eps=eps)
+    assert dx.dtype == torch.float32 and ds.dtype == torch.float32 and ds.shape == (d,)
+    for name, (wx, ws) in {"jax": (jdx, jds), "torch autograd": (xt.grad.numpy(),
+                                                                 st.grad.numpy())}.items():
+        for got, want in ((dx.numpy(), wx), (ds.numpy(), ws)):
+            assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), name
+    bx, bs = rmsnorm_bwd_ref(torch.from_numpy(x).bfloat16(), torch.from_numpy(s),
+                             torch.from_numpy(dy).bfloat16(), eps=eps)
+    assert bx.dtype == torch.bfloat16 and bs.dtype == torch.float32
+
+
+def test_rmsnorm_dispatch_on_cpu_takes_the_plain_version():
+    """CPU tensors take rmsnorm_ref under ordinary autograd: the same
+    values and grads, any leading shape, and no kernel launch."""
+    before = rmsnorm_cuda.launches
+    x = torch.randn(2, 5, 64, requires_grad=True)
+    s = (1 + 0.1 * torch.randn(64)).requires_grad_()
+    out = rmsnorm(x, s, eps=1e-5)
+    assert out.shape == x.shape and torch.equal(out, rmsnorm_ref(x, s, eps=1e-5))
+    out.square().sum().backward()
+    dx, ds = rmsnorm_bwd_ref(x.detach(), s.detach(), 2 * out.detach(), eps=1e-5)
+    torch.testing.assert_close(x.grad, dx, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(s.grad, ds, rtol=1e-5, atol=1e-5)
+    assert rmsnorm_cuda.launches == before
+
+
+@pytest.mark.parametrize("x,scale,err,match", [
+    (torch.zeros(4, 64), torch.ones(64), ValueError, "on the card"),
+    (torch.zeros(4, 64, dtype=torch.float16), torch.ones(64), TypeError, "dtype"),
+    (torch.zeros(64, 4).t(), torch.ones(64), ValueError, "contiguous"),
+    (torch.zeros(4, 64), torch.ones(64, dtype=torch.bfloat16), TypeError, "dtype"),
+    (torch.zeros(4, 64), torch.ones(32), ValueError, "shape"),
+])
+def test_rmsnorm_launcher_rejects_what_the_kernel_does_not_take(x, scale, err, match):
+    """The CUDA launcher's checks run before anything is built or launched."""
+    with pytest.raises(err, match=match):
+        rmsnorm_cuda(x, scale)

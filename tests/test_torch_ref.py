@@ -158,14 +158,15 @@ def test_config_matches_reference():
 
 def test_converter_is_exact_and_keeps_the_tree():
     from repro_torch.convert import params_from_jax
-    from repro_torch.models.layers import DTYPES, tree_map_defs
+    from repro_torch.models.layers import DTYPES
+    from repro_torch.tree import tree_map
     from repro_torch.models.model import Model
     ref = jax_ref()
     cfg = smoke_cfg()
     _, nparams = random_params(ref, cfg, seed=3)
     tparams = params_from_jax(nparams, "cpu")
     want = []
-    tree_map_defs(lambda d: want.append((d.shape, DTYPES[d.dtype])),
+    tree_map(lambda d: want.append((d.shape, DTYPES[d.dtype])),
                   Model(cfg).param_defs())
     got = []
 

@@ -32,6 +32,7 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.models import layers, ssm
 from repro_torch.models import transformer as tr
 from repro_torch.models.model import Model
+from repro_torch.tree import tree_map
 
 ARCH = "mamba2-1.3b"
 
@@ -287,7 +288,7 @@ def test_converter_carries_the_ssm_tree(ref, mamba):
     """params_from_jax keeps every SSM leaf: key, shape, dtype and value."""
     cfg, _, _, nparams, tparams = mamba
     want = []
-    layers.tree_map_defs(lambda d: want.append((d.shape, layers.DTYPES[d.dtype])),
+    tree_map(lambda d: want.append((d.shape, layers.DTYPES[d.dtype])),
                          Model(cfg).param_defs())
     got = []
 
