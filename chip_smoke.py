@@ -14,8 +14,9 @@ non-zero, printing no result):
    its time, the plain version's, the least time the card could take
    (bound) and, where one exists, one PyTorch call computing the same
    function (SDPA, F.rms_norm) as a yardstick, never called by the port;
-   the quantize, RMSNorm and SSD scan rows also take the kernel's device
-   time from torch.profiler; SSD rows with dt in a trained model's range
+   the quantize, dequantize, RMSNorm and SSD scan rows also take the
+   kernel's device time from torch.profiler (quantize and dequantize also
+   at DDL's pod-hop slices, bitwise); SSD rows with dt in a trained model's range
    also show that the plain scan with the decayed state dropped from what
    each chunk hands on fails the row's rule; the RMSNorm autograd
    Function's gradient against autograd through the plain version;
@@ -51,7 +52,17 @@ non-zero, printing no result):
    deviation and its parity with the engine's tokens reported;
 8. determinism — the 48-layer model-width trace again, token for token;
 9. profile — that trace once more under torch.profiler: the device's busy
-   share and its top kernels.
+   share and its top kernels;
+10. DDL at full width (qwen2.5-14b cut to 1 layer, random weights from a
+   seed, 2 ranks spawned on the one card over gloo, a 2x1x1 mesh,
+   compress_dcn, the overlapped backward, 2048 tokens a rank) —
+   `Trainer.train` for 3 steps: replicas bitwise in sync, the int8 pod hop
+   through the kernels bitwise against the plain quantizers and within
+   the int8 bound of the exact sum, the launches the leaf sizes give, the
+   step time, the reduction's share and the pod-hop bytes;
+11. DDL at smoke width (4 ranks, a 2x2x1 mesh) — the overlapped backward
+   off and on x compression off and on, each against one rank on the
+   global batch.
 
 Every run of a path records the shape of each kernel call and fails on one
 the kernel phases did not check, and its launch counts are reset just
@@ -63,6 +74,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -94,6 +106,15 @@ SSD_BATCH, SSD_LEN = 4, 2048
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_STEPS = 2, 3
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 4, 5, 3e-4, 1
+# data-parallel training (DDL) over torch.distributed, its ranks sharing the
+# one card over gloo: qwen2.5-14b at full width cut to 1 layer (1.83 B
+# params, ~32 GB a rank with AdamW) on a 2x1x1 mesh (2 pods of 1 data rank)
+# with the int8 pod hop, 2048 tokens a rank a step; then the smoke config on
+# a 2x2x1 mesh, held against one rank on the global batch
+DDL_LAYERS, DDL_STEPS, DDL_MESH = 1, 3, (2, 1, 1)
+DDL_SMOKE_MESH, DDL_SMOKE_BATCH, DDL_SMOKE_SEQ = (2, 2, 1), 8, 128
+DDL_AXES = ("pod", "data", "model")
+DDL_TIMEOUT_S = 420
 
 
 def emit(obj) -> None:
@@ -271,6 +292,10 @@ def quantize_sig(x):
     return ("quantize_rows", tuple(x.shape), str(x.dtype))
 
 
+def dequantize_sig(q, out_dtype):
+    return ("dequantize_rows", tuple(q.shape), str(out_dtype))
+
+
 def rmsnorm_sig(x, eps):
     """x [..., d] as the kernel sees it: [rows, d]."""
     return ("rmsnorm", int(x.numel() // x.shape[-1]), int(x.shape[-1]), str(x.dtype),
@@ -443,14 +468,25 @@ def attention_kernel_phase(shape: str, b: int, sq: int, seed: int, checked: set,
     return row
 
 
-def quantize_kernel_phase(shape: str, rows: int, seed: int, checked: set):
+def _quantize_input(rows: int, cols: int, dtype: str, seed: int):
+    """Rows of very different sizes, the first all zeros (scale 1)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((rows, cols), generator=gen, device="cuda")
+         * torch.rand((rows, 1), generator=gen, device="cuda") * 4).to(getattr(torch, dtype))
+    x[0] = 0
+    return x
+
+
+def quantize_kernel_phase(shape: str, rows: int, seed: int, checked: set, *, cols: int = D,
+                          dtype: str = "bfloat16", timed: bool = True):
+    """The quantizer against its plain version, bitwise (codes and scales);
+    timed unless `timed` is False (a shape checked only for its launch
+    signature)."""
     import torch
     from repro_torch.kernels.quantize.ops import quantize_cuda
     from repro_torch.kernels.quantize.ref import quantize_ref
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = (torch.randn((rows, D), generator=gen, device="cuda")
-         * torch.rand((rows, 1), generator=gen, device="cuda") * 4).bfloat16()
-    x[0] = 0                                  # an all-zero row: scale 1
+    x = _quantize_input(rows, cols, dtype, seed)
     q, s = quantize_cuda(x)
     torch.cuda.synchronize()
     pq, ps = quantize_ref(x)
@@ -458,18 +494,59 @@ def quantize_kernel_phase(shape: str, rows: int, seed: int, checked: set):
         raise AssertionError(f"quantize {shape}: codes or scales differ from the "
                              "plain version")
     checked.add(quantize_sig(x))
-    # the launch is shorter than its wrapper's host time: back-to-back
-    # events read the host, the profiler the kernel itself
-    back_to_back_ms = time_ms(lambda: quantize_cuda(x))
-    kernel_ms = device_ms(lambda: quantize_cuda(x), "quantize_rows_kernel")
-    plain_ms = time_ms(lambda: quantize_ref(x), iters=20)
-    bound_ms, bound_by = bound(rows * D * 2 + rows * D + rows * 4, rows * D * 5)
     row = {"phase": "kernel", "kernel": "quantize_rows", "shape": shape, "rows": rows,
-           "cols": D, "max_abs_err": float((q.float() - pq.float()).abs().max()),
-           "tolerance": "bitwise", "kernel_ms": kernel_ms, "kernel_ms_by": "torch.profiler",
-           "back_to_back_ms": back_to_back_ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+           "cols": cols, "dtype": dtype, "max_abs_err": float((q.float() - pq.float()).abs().max()),
+           "tolerance": "bitwise"}
+    if timed:
+        # the launch is shorter than its wrapper's host time: back-to-back
+        # events read the host, the profiler the kernel itself
+        back_to_back_ms = time_ms(lambda: quantize_cuda(x))
+        kernel_ms = device_ms(lambda: quantize_cuda(x), "quantize_rows_kernel")
+        plain_ms = time_ms(lambda: quantize_ref(x), iters=20)
+        bound_ms, bound_by = bound(rows * cols * x.element_size() + rows * cols + rows * 4,
+                                   rows * cols * 5)
+        row.update({"kernel_ms": kernel_ms, "kernel_ms_by": "torch.profiler",
+                    "back_to_back_ms": back_to_back_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     emit(row)
+    return row
+
+
+def dequantize_kernel_phase(shape: str, rows: int, cols: int, seed: int, checked: set, *,
+                            out_dtype: str = "float32", timed: bool = True):
+    """The dequantizer against its plain version, bitwise, on the codes and
+    scales of the quantizer's plain version; timed unless `timed` is False.
+    Its bound is bytes: 1 B of code in and 4 (f32) or 2 (bf16) B out an
+    element, 4 B of scale a row, for one multiply an element. No single
+    PyTorch call computes it (`q.float() * scale[:, None]` is two passes):
+    library_ms is null."""
+    import torch
+    from repro_torch.kernels.quantize.ops import dequantize_cuda
+    from repro_torch.kernels.quantize.ref import dequantize_ref, quantize_ref
+    q, s = quantize_ref(_quantize_input(rows, cols, "float32", seed))
+    dt = getattr(torch, out_dtype)
+    out = dequantize_cuda(q, s, dt)
+    torch.cuda.synchronize()
+    want = dequantize_ref(q, s, dt)
+    ints = torch.int32 if dt == torch.float32 else torch.int16
+    if not torch.equal(out.view(ints), want.view(ints)):
+        raise AssertionError(f"dequantize {shape}: output differs from the plain version")
+    checked.add(dequantize_sig(q, dt))
+    row = {"phase": "kernel", "kernel": "dequantize_rows", "shape": shape, "rows": rows,
+           "cols": cols, "out_dtype": out_dtype,
+           "max_abs_err": float((out.float() - want.float()).abs().max()),
+           "tolerance": "bitwise"}
+    if timed:
+        back_to_back_ms = time_ms(lambda: dequantize_cuda(q, s, dt))
+        kernel_ms = device_ms(lambda: dequantize_cuda(q, s, dt), "dequantize_rows")
+        plain_ms = time_ms(lambda: dequantize_ref(q, s, dt), iters=20)
+        bound_ms, bound_by = bound(rows * cols * (1 + out.element_size()) + rows * 4,
+                                   rows * cols)
+        row.update({"kernel_ms": kernel_ms, "kernel_ms_by": "torch.profiler",
+                    "back_to_back_ms": back_to_back_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    emit(row)
+    del q, s, out, want
     return row
 
 
@@ -825,7 +902,44 @@ def kernel_phases(num_layers: int):
         rmsnorm_kernel_phase("narrow_37x64", 37, 64, 41, checked),
     ]
     rmsnorm_grad_phase(TRAIN_BATCH * TRAIN_SEQ, d, 42)
+    ddl_kernel_phases(out, checked)
     return out, checked
+
+
+def ddl_kernel_phases(out: dict, checked: set):
+    """The quantizer and dequantizer at DDL's compressed pod hop: a full
+    2**24-element slice of a gradient shard ([16384, 1024] f32), the
+    ragged tail of the embedding's grad, a bf16 output and a narrow shape,
+    each timed; then every other slice the two DDL phases give the
+    kernels, checked without timing. Adds the rows to `out`."""
+    from repro_torch.configs import get_smoke_config
+    cfg = _ddl_config(DDL_LAYERS, DDL_MESH).model
+    d = cfg.d_model
+    full = ddl_pod_hop_sizes(cfg, 1, overlap=True)
+    tail = cfg.vocab_size * d % (1 << 24)
+    out["dequantize_rows"] = [
+        dequantize_kernel_phase("pod_hop_slice", 1 << 14, 1024, 43, checked),
+        dequantize_kernel_phase("embedding_grad_tail", -(-tail // 1024), 1024, 44, checked),
+        dequantize_kernel_phase("pod_hop_slice_bf16", 1 << 14, 1024, 45, checked,
+                                out_dtype="bfloat16"),
+        dequantize_kernel_phase("narrow_37x64", 37, 64, 46, checked)]
+    out.setdefault("quantize_rows", []).extend([
+        quantize_kernel_phase("pod_hop_slice", 1 << 14, 47, checked, cols=1024, dtype="float32"),
+        quantize_kernel_phase("embedding_grad_tail", -(-tail // 1024), 48, checked, cols=1024,
+                              dtype="float32")])
+    smoke = get_smoke_config(ARCH)
+    # RMSNorm at each DDL rank's rows
+    out.setdefault("rmsnorm", []).extend([
+        rmsnorm_kernel_phase("ddl_rank", TRAIN_BATCH * TRAIN_SEQ // DDL_MESH[0], d, 49, checked),
+        rmsnorm_kernel_phase("ddl_smoke_rank", DDL_SMOKE_BATCH // 4 * DDL_SMOKE_SEQ,
+                             smoke.d_model, 49, checked, eps=smoke.norm_eps)])
+    sizes = set(full) | {n for ov in (False, True)
+                         for n in ddl_pod_hop_sizes(smoke, DDL_SMOKE_MESH[1], overlap=ov)}
+    for i, n in enumerate(sorted(sizes)):
+        quantize_kernel_phase(f"pod_hop_{n}", -(-n // 1024), 50 + i, checked, cols=1024,
+                              dtype="float32", timed=False)
+        dequantize_kernel_phase(f"pod_hop_{n}", -(-n // 1024), 1024, 50 + i, checked,
+                                timed=False)
 
 
 # the CUDA launchers whose counts a run of a path resets and reads
@@ -838,6 +952,7 @@ def _launchers():
             "flash_decode": fa_ops.flash_decode_cuda,
             "flash_decode_paged": fa_ops.flash_decode_paged_cuda,
             "quantize_rows": q_ops.quantize_cuda,
+            "dequantize_rows": q_ops.dequantize_cuda,
             "rmsnorm": rms_ops.rmsnorm_cuda,
             "ssd_scan": ssd_ops.ssd_scan_cuda}
 
@@ -847,10 +962,11 @@ def launch_signatures():
     """Record the launch signature of every kernel call inside the block,
     with every launch count set to 0 on entry. The dispatchers the model
     calls through (`flash_attention`, `flash_decode`, `flash_decode_paged`,
-    `quantize`, `rmsnorm`, `ssd_scan`) are swapped for recording stand-ins
+    `quantize`, `dequantize`, `rmsnorm`, `ssd_scan`) are swapped for recording stand-ins
     that call them; the wrappers below them launch and count as always. ->
     (signatures seen, {kernel: calls recorded}, {kernel: launches}), the
     last filled on exit, for the caller to match the calls against."""
+    import torch
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.quantize import ops as q_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
@@ -860,7 +976,7 @@ def launch_signatures():
     attend, decode, paged, quantize, scan = (fa_ops.flash_attention, fa_ops.flash_decode,
                                              fa_ops.flash_decode_paged, q_ops.quantize,
                                              ssd_ops.ssd_scan)
-    norm = rms_ops.rmsnorm
+    norm, dequantize = rms_ops.rmsnorm, q_ops.dequantize
 
     def attend_spy(q, k, v, *, causal=True, window=0, q_offset=None):
         seen.add(attention_sig(q, k, causal, window, q_offset))
@@ -882,6 +998,11 @@ def launch_signatures():
         calls["quantize_rows"] += 1
         return quantize(x)
 
+    def dequantize_spy(q, scale, out_dtype=torch.float32):
+        seen.add(dequantize_sig(q, out_dtype))
+        calls["dequantize_rows"] += 1
+        return dequantize(q, scale, out_dtype)
+
     def scan_spy(x, dt, A, B, C, *, chunk=256):
         seen.add(ssd_sig(x, B, chunk))
         calls["ssd_scan"] += 1
@@ -894,7 +1015,7 @@ def launch_signatures():
     (fa_ops.flash_attention, fa_ops.flash_decode, fa_ops.flash_decode_paged,
      q_ops.quantize, ssd_ops.ssd_scan) = (attend_spy, decode_spy, paged_spy, quantize_spy,
                                           scan_spy)
-    rms_ops.rmsnorm = norm_spy
+    rms_ops.rmsnorm, q_ops.dequantize = norm_spy, dequantize_spy
     for fn in launchers.values():
         fn.launches = 0
     try:
@@ -902,7 +1023,7 @@ def launch_signatures():
     finally:
         (fa_ops.flash_attention, fa_ops.flash_decode, fa_ops.flash_decode_paged,
          q_ops.quantize, ssd_ops.ssd_scan) = attend, decode, paged, quantize, scan
-        rms_ops.rmsnorm = norm
+        rms_ops.rmsnorm, q_ops.dequantize = norm, dequantize
         launches.update({name: fn.launches for name, fn in launchers.items()})
 
 
@@ -1884,6 +2005,447 @@ def trainer_phase(line, checked):
     return row
 
 
+# ---------------------------------------------------------------------------
+# DDL: data-parallel training, its ranks in processes of their own
+# ---------------------------------------------------------------------------
+
+def _ddl_config(layers: int, mesh, *, smoke: bool = False, batch: int = TRAIN_BATCH,
+                seq: int = TRAIN_SEQ, **kw):
+    """qwen2.5-14b at full width cut to `layers` (or its smoke config) on
+    `mesh` (pod, data, model), LMS off, `batch` x `seq` tokens a step over
+    all the ranks."""
+    import dataclasses
+    from repro_torch.config.base import LMSConfig, MeshSpec, ShapeConfig, TrainConfig
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_smoke_config(ARCH) if smoke
+           else dataclasses.replace(get_config(ARCH), num_layers=layers))
+    return TrainConfig(model=cfg, shape=ShapeConfig("ddl", "train", seq, batch),
+                       mesh=MeshSpec(tuple(mesh), DDL_AXES), lms=LMSConfig(enabled=False),
+                       seed=SEED, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                       total_steps=DDL_STEPS, **kw)
+
+
+def ddl_pod_hop_sizes(cfg, data_size: int, *, overlap: bool):
+    """Elements of each call of the compressed pod hop in one train step,
+    worked out from the leaf sizes: with the overlapped backward each
+    layer's buckets (`make_buckets` at the default 64 MiB, padded to
+    |data|, this rank's 1/|data| shard of each) and then the other leaves
+    (embedding, head, final norm); without it every leaf; a leaf with no
+    dimension divisible by |data| takes a plain psum. Each shard is cut into
+    POD_SLICE-element slices, one call each."""
+    import math
+    from repro_torch.config.base import DDLConfig
+    from repro_torch.core.ddl.allreduce import POD_SLICE, _choose_scatter_dim, make_buckets
+    from repro_torch.core.ddl.overlap import _bucket_elems
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_leaves
+    defs = Model(cfg).param_defs()
+    stacked = tree_leaves(defs["decoder"]["stack0"])
+    rest = tree_leaves({k: v for k, v in defs.items() if k != "decoder"})
+    shards = []
+
+    def per_leaf(shape):
+        if _choose_scatter_dim(shape, data_size) is not None:
+            shards.append(math.prod(shape) // data_size)
+    if overlap:
+        sizes = [max(math.prod(d.shape[1:]), 1) for d in stacked]
+        for _ in range(cfg.num_layers):
+            for b in make_buckets(sizes, _bucket_elems(DDLConfig())):
+                n = sum(sizes[i] for i in b)
+                shards.append((n + (-n) % data_size) // data_size)
+    else:
+        for d in stacked:
+            per_leaf(d.shape)
+    for d in rest:
+        per_leaf(d.shape)
+    return [min(POD_SLICE, n - i) for n in shards for i in range(0, n, POD_SLICE)]
+
+
+def _tuplify(x):
+    return tuple(_tuplify(i) for i in x) if isinstance(x, list) else x
+
+
+def _checksums(params) -> list:
+    """Each leaf's bits summed with positional weights in int64 (wrapping):
+    two replicas whose leaves are bitwise equal give equal sums, and a
+    changed or moved element changes them."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    out = []
+    for t in tree_leaves(params):
+        flat = t.detach().reshape(-1).view(torch.int32 if t.element_size() == 4 else torch.int16)
+        acc = torch.zeros((), dtype=torch.int64, device=t.device)
+        for i in range(0, flat.numel(), 1 << 24):
+            part = flat[i:i + (1 << 24)].long()
+            acc += (part * torch.arange(i + 1, i + 1 + part.numel(), device=t.device)).sum()
+        out.append(int(acc))
+    return out
+
+
+def _same_on_all_ranks(obj) -> bool:
+    import torch.distributed as dist
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, obj)
+    return all(g == got[0] for g in got)
+
+
+def _rank_main(rank: int, world: int, tmp: str, name: str, args):
+    """A spawned rank: join the gloo group through a FileStore in `tmp`,
+    run the function `name`, write its JSON result to tmp/rank<r>.json."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    store = dist.FileStore(os.path.join(tmp, "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=DDL_TIMEOUT_S))
+    try:
+        out = globals()[name](rank, world, *args)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(name: str, world: int, *args, timeout: float = DDL_TIMEOUT_S):
+    """Run the function `name`(rank, world, *args) in `world` processes
+    started with the spawn method, all on the one card, joined over gloo;
+    -> each rank's result. A failed rank stops the others and raises; so
+    does the timeout, after killing them."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ddl_")
+    try:
+        ctx = mp.start_processes(_rank_main, args=(world, tmp, name, args), nprocs=world,
+                                 start_method="spawn", join=False)
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=2):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                    p.join()
+                raise TimeoutError(f"{name}: {world} ranks did not finish in {timeout} s")
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                out.append(json.load(f))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def _plain_quantizers():
+    """The quantize/dequantize dispatchers the pod hop calls swapped for
+    their plain versions."""
+    from repro_torch.kernels.quantize import ops as q_ops
+    from repro_torch.kernels.quantize.ref import dequantize_ref, quantize_ref
+    saved = q_ops.quantize, q_ops.dequantize
+    q_ops.quantize, q_ops.dequantize = quantize_ref, dequantize_ref
+    try:
+        yield
+    finally:
+        q_ops.quantize, q_ops.dequantize = saved
+
+
+def _ddl_full_rank(rank: int, world: int):
+    """One rank of the full-width DDL phase: `Trainer.train` on the 2x1x1
+    mesh with compress_dcn and the overlapped backward. Every compressed
+    pod-hop call counts the bytes this rank sends (int8 codes and f32
+    scales, against 4 B an element uncompressed); on step 1 each call is
+    also run through the plain quantizers (bitwise equal required) and
+    uncompressed (the int8 result within the sum over pods of each row's
+    scale / 2 of the exact f32 sum). The reductions are timed by CUDA
+    events; after each step the params' checksums are compared across the
+    ranks and the step's kernel launches read and reset."""
+    import importlib
+    import torch
+    from repro_torch.config.base import DDLConfig
+    from repro_torch.core.ddl import allreduce, overlap
+    from repro_torch.kernels.quantize import ops as q_ops
+    from repro_torch.kernels.quantize.ref import quantize_ref
+    from repro_torch.train import steps as steps_mod
+    from repro_torch.train.trainer import Trainer
+    comp = importlib.import_module("repro_torch.core.ddl.compress")
+    tcfg = _ddl_config(DDL_LAYERS, DDL_MESH, ddl=DDLConfig(compress_dcn=True), log_every=1)
+    trainer = Trainer(tcfg, device="cuda")
+    box, in_sync = {}, []
+    init = trainer.init_state
+
+    def init_state():
+        st = init()
+        box["params"] = st.params
+        in_sync.append(_same_on_all_ranks(_checksums(st.params)))
+        return st
+    trainer.init_state = init_state
+
+    hop = allreduce.compressed_allreduce_pod
+    stats = {"calls": 0, "int8_bytes": 0, "f32_bytes": 0, "kernel_eq_plain": True,
+             "worst_err_over_bound": 0.0, "max_abs_err": 0.0, "checked_calls": 0}
+    check = [True]
+
+    def hop_checked(x, axis, *, mesh, error_feedback=None):
+        out, ef = hop(x, axis, mesh=mesh, error_feedback=error_feedback)
+        rows = -(-x.numel() // 1024)
+        stats["calls"] += 1
+        stats["int8_bytes"] += rows * 1024 + rows * 4
+        stats["f32_bytes"] += x.numel() * 4
+        if check[0]:
+            with _plain_quantizers():
+                plain, _ = hop(x, axis, mesh=mesh, error_feedback=error_feedback)
+            stats["kernel_eq_plain"] &= torch.equal(out.view(torch.int32),
+                                                    plain.view(torch.int32))
+            exact = mesh.psum(x.float(), axis)
+            _, sc = quantize_ref(comp._to_rows(x)[0])
+            pods = mesh.size(axis)
+            half = mesh.all_gather(sc, axis).view(pods, -1).sum(0) / 2
+            bound = half.repeat_interleave(1024)[:x.numel()] * (1 + 2.0 ** -10)
+            err = (out.float() - exact).abs()
+            stats["worst_err_over_bound"] = max(stats["worst_err_over_bound"],
+                                                float((err / bound).max()))
+            stats["max_abs_err"] = max(stats["max_abs_err"], float(err.max()))
+            stats["checked_calls"] += 1
+        return out, ef
+    allreduce.compressed_allreduce_pod = hop_checked
+
+    spans = []
+
+    def timed(fn):
+        def run(*a, **k):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            r = fn(*a, **k)
+            e1.record()
+            spans.append((e0, e1))
+            return r
+        return run
+    overlap.reduce_tree_bucketed = timed(overlap.reduce_tree_bucketed)
+    steps_mod.ddl_reduce_tree = timed(steps_mod.ddl_reduce_tree)
+    step_events = []
+    step_fn = trainer.step_fn
+
+    def step_timed(state, batch):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = step_fn(state, batch)
+        e1.record()
+        step_events.append((e0, e1))
+        return out
+    trainer.step_fn = step_timed
+
+    steps = []
+
+    def on_step(step, row):
+        torch.cuda.synchronize()
+        e0, e1 = step_events[-1]
+        reduce_ms = sum(a.elapsed_time(b) for a, b in spans)
+        spans.clear()
+        steps.append({"step": step, "loss": row["loss"], "grad_norm": row["grad_norm"],
+                      "time_s": row["time_s"], "step_ms": e0.elapsed_time(e1),
+                      "reduce_ms": reduce_ms,
+                      "quantize_launches": q_ops.quantize_cuda.launches,
+                      "dequantize_launches": q_ops.dequantize_cuda.launches,
+                      "pod_hop_calls": stats["calls"]})
+        q_ops.quantize_cuda.launches = q_ops.dequantize_cuda.launches = 0
+        stats["calls"] = 0
+        in_sync.append(_same_on_all_ranks(_checksums(box["params"])))
+        check[0] = False
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with launch_signatures() as (seen, _, _):
+        trainer.train(DDL_STEPS, on_step=on_step)
+    wall = time.monotonic() - t0
+    same_losses = _same_on_all_ranks([(r["loss"], r["grad_norm"]) for r in steps])
+    return {"rank": rank, "steps": steps, "in_sync": in_sync, "same_losses": same_losses,
+            "pod_hop": {k: v for k, v in stats.items() if k != "calls"},
+            "signatures": sorted(seen), "seconds": wall,
+            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "card_free_gb": torch.cuda.mem_get_info()[0] / 1e9}
+
+
+def _ddl_smoke_rank(rank: int, world: int):
+    """One rank of the smoke-width DDL phase on the 2x2x1 mesh: the train
+    step with the overlapped backward off and on, compression off and on,
+    3 steps each from one init, on this rank's rows of the global batch;
+    each step's loss and grad norm, and whether the params' checksums agree
+    across all ranks after each step."""
+    import dataclasses
+    import torch
+    from repro_torch.config.base import DDLConfig
+    from repro_torch.data import local_rows
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.train.steps import build_train_step, init_train_state
+    tcfg0 = _ddl_config(0, DDL_SMOKE_MESH, smoke=True, batch=DDL_SMOKE_BATCH,
+                        seq=DDL_SMOKE_SEQ)
+    mesh = make_mesh(tcfg0.mesh)
+    out = {}
+    for ov in (False, True):
+        for c in (False, True):
+            tcfg = dataclasses.replace(tcfg0, ddl=DDLConfig(compress_dcn=c, overlap_grads=ov))
+            model = Model(tcfg.model)
+            step = build_train_step(model, tcfg, mesh=mesh)
+            state = init_train_state(model, tcfg, SEED, "cuda")
+            rows, in_sync = [], [_same_on_all_ranks(_checksums(state.params))]
+            with launch_signatures() as (seen, _, launches):
+                for b in _ddl_batches(tcfg):
+                    local = local_rows(b, mesh.dp_index, mesh.dp_size)
+                    state, met = step(state, {k: torch.from_numpy(v).cuda()
+                                              for k, v in local.items()})
+                    rows.append({"loss": float(met["loss"]),
+                                 "grad_norm": float(met["grad_norm"])})
+                    in_sync.append(_same_on_all_ranks(_checksums(state.params)))
+            out[f"overlap={ov},compress={c}"] = {
+                "rows": rows, "in_sync": in_sync, "signatures": sorted(seen),
+                "quantize_launches": launches["quantize_rows"],
+                "dequantize_launches": launches["dequantize_rows"]}
+    return out
+
+
+def _ddl_batches(tcfg):
+    """The global batches of DDL_STEPS steps of the synthetic stream."""
+    from repro_torch.data import DataLoader, SyntheticTokens
+    loader = DataLoader(SyntheticTokens(tcfg.model.vocab_size, seed=tcfg.seed), shard=0,
+                        num_shards=1, batch_per_shard=tcfg.shape.global_batch,
+                        seq_len=tcfg.shape.seq_len)
+    return [next(loader) for _ in range(DDL_STEPS)]
+
+
+def ddl_phase(line, checked):
+    """The main path of data-parallel training at qwen2.5-14b's full width,
+    cut to 1 layer: `Trainer.train` for 3 steps on 2 ranks (a 2x1x1 mesh:
+    2 pods of 1 data rank) with compress_dcn and the overlapped backward,
+    2048 tokens a rank a step. The ranks share the one card and talk over
+    gloo, staged through host memory, so the times are those of two ranks
+    time-slicing one card, not DDL's speed across cards.
+
+    Memory: 1 layer is 1.833 B params (embedding and head 778.6 M each, the
+    layer 275.3 M); with the f32 embedding, bf16 weights, their grads and
+    AdamW's f32 moments and master copy that is ~32.4 GB a rank, ~65 GB for
+    two, and the reduction works on 2**24-element slices of a leaf.
+
+    Held: (a) every param leaf's checksum equal across the ranks at init
+    and after every step; (b) on step 1, every pod-hop call through the
+    kernels bitwise equal to the same call through the plain quantizers;
+    (c) the int8 sum within the sum over pods of scale/2 of each 1024-row
+    of the exact f32 sum; (d) each step's launches: quantize once and
+    dequantize once per pod for each compressed slice, worked out from the
+    leaf sizes and buckets; (e) finite losses, equal on both ranks; and
+    every launch at a shape the kernel phases checked.
+    -> the phase row."""
+    import torch
+    tcfg = _ddl_config(DDL_LAYERS, DDL_MESH)
+    pods = DDL_MESH[0]
+    slices = len(ddl_pod_hop_sizes(tcfg.model, DDL_MESH[1], overlap=True))
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    ranks = spawn_ranks("_ddl_full_rank", pods)
+    r0 = ranks[0]
+    unchecked = {_tuplify(sig) for r in ranks for sig in r["signatures"]} - checked
+    checks = {
+        "replicas_in_sync": all(all(r["in_sync"]) and len(r["in_sync"]) == DDL_STEPS + 1
+                                for r in ranks),
+        "kernels_eq_plain_bitwise": all(r["pod_hop"]["kernel_eq_plain"]
+                                        and r["pod_hop"]["checked_calls"] == slices
+                                        for r in ranks),
+        "within_int8_bound": all(r["pod_hop"]["worst_err_over_bound"] <= 1.0 for r in ranks),
+        "launches": all(s["quantize_launches"] == slices
+                        and s["dequantize_launches"] == pods * slices
+                        and s["pod_hop_calls"] == slices for r in ranks for s in r["steps"]),
+        "finite_equal_losses": all(r["same_losses"] for r in ranks) and all(
+            math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) for s in r0["steps"]),
+        "shapes_checked": not unchecked}
+    steady = r0["steps"][1:]
+    row = {"phase": "ddl_full_width", "arch": ARCH, "layers": DDL_LAYERS,
+           "mesh": list(DDL_MESH), "ranks": pods, "backend": "gloo (host-staged)",
+           "compress_dcn": True, "overlap_grads": True,
+           "tokens_per_rank": TRAIN_BATCH * TRAIN_SEQ // pods, "card": line,
+           "note": "two ranks time-slice one card over gloo through host memory: "
+                   "not DDL's speed across cards",
+           "steps": r0["steps"], "expected_slices_per_step": slices,
+           "step_ms_steady": sum(s["step_ms"] for s in steady) / len(steady),
+           "reduce_ms_steady": sum(s["reduce_ms"] for s in steady) / len(steady),
+           "reduce_share_steady": (sum(s["reduce_ms"] for s in steady)
+                                   / sum(s["step_ms"] for s in steady)),
+           "pod_hop_bytes_per_step": r0["pod_hop"]["int8_bytes"] / DDL_STEPS,
+           "pod_hop_f32_bytes_per_step": r0["pod_hop"]["f32_bytes"] / DDL_STEPS,
+           "pod_hop_worst_err_over_bound": max(r["pod_hop"]["worst_err_over_bound"]
+                                               for r in ranks),
+           "pod_hop_max_abs_err": max(r["pod_hop"]["max_abs_err"] for r in ranks),
+           "peak_allocated_gb": [r["peak_allocated_gb"] for r in ranks],
+           "card_free_gb_at_end": [r["card_free_gb"] for r in ranks],
+           "rank_seconds": [r["seconds"] for r in ranks],
+           "seconds": time.monotonic() - t0, "checks": checks,
+           "unchecked_shapes": sorted(map(str, unchecked))}
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"ddl (full width): failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return row
+
+
+def ddl_smoke_phase(line, checked):
+    """The hierarchical schedule with |data| = 2 on the card: 4 ranks on a
+    2x2x1 mesh at the qwen2.5-14b smoke config (the one part at reduced
+    width: 4 full-width replicas do not fit one card), the overlapped
+    backward off and on x compression off and on, 3 steps each, each held
+    against one rank (the train step on a 1-device mesh) on the global
+    batch from the same init. Tolerance, stated before the first run: the
+    ranks' bf16 GEMMs have a quarter of the rows, so cuBLAS may sum in
+    another order, and the int8 pod hop rounds each grad element by up to
+    half its row's scale: loss within 5e-3 relative, grad norm within
+    2e-2. Replicas stay bitwise in sync; compressed runs launch quantize
+    and dequantize as the leaf sizes say. -> the phase row."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.train.steps import build_train_step, init_train_state
+    tcfg = _ddl_config(0, (1, 1, 1), smoke=True, batch=DDL_SMOKE_BATCH, seq=DDL_SMOKE_SEQ)
+    model = Model(tcfg.model)
+    step = build_train_step(model, tcfg)
+    state = init_train_state(model, tcfg, SEED, "cuda")
+    reference = []
+    for b in _ddl_batches(tcfg):
+        state, met = step(state, {k: torch.from_numpy(v).cuda() for k, v in b.items()})
+        reference.append({"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"])})
+    del state
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    ranks = spawn_ranks("_ddl_smoke_rank", 4)
+    pods, data = DDL_SMOKE_MESH[:2]
+    variants, checks, unchecked = {}, {}, set()
+    for name, v in ranks[0].items():
+        ov, c = "overlap=True" in name, "compress=True" in name
+        slices = len(ddl_pod_hop_sizes(tcfg.model, data, overlap=ov)) * DDL_STEPS if c else 0
+        err = [{k: abs(row[k] - ref[k]) / abs(ref[k]) for k in ("loss", "grad_norm")}
+               for row, ref in zip(v["rows"], reference)]
+        unchecked |= {_tuplify(sig) for r in ranks for sig in r[name]["signatures"]} - checked
+        checks[name] = {
+            "in_sync": all(all(r[name]["in_sync"]) for r in ranks),
+            "same_metrics": all(r[name]["rows"] == v["rows"] for r in ranks),
+            "loss": max(e["loss"] for e in err) <= 5e-3,
+            "grad_norm": max(e["grad_norm"] for e in err) <= 2e-2,
+            "launches": all(r[name]["quantize_launches"] == slices
+                            and r[name]["dequantize_launches"] == pods * slices
+                            for r in ranks)}
+        variants[name] = {"rows": v["rows"], "rel_err": err,
+                          "quantize_launches": v["quantize_launches"],
+                          "dequantize_launches": v["dequantize_launches"]}
+    ok = all(all(c.values()) for c in checks.values()) and not unchecked
+    emit({"phase": "ddl_smoke_width", "arch": ARCH, "config": "smoke",
+          "mesh": list(DDL_SMOKE_MESH), "ranks": 4, "backend": "gloo (host-staged)",
+          "batch": DDL_SMOKE_BATCH, "seq": DDL_SMOKE_SEQ, "card": line,
+          "reference": reference, "variants": variants, "checks": checks,
+          "unchecked_shapes": sorted(map(str, unchecked)),
+          "seconds": time.monotonic() - t0})
+    if not ok:
+        raise AssertionError("ddl (smoke width, 4 ranks): failed checks")
+
+
+
 def reference_phase(line, checked):
     """The trace at full width but 2 layers, where bf16 rounding stays
     small, held against the dense pass: 4 bf16 ulps of each row's largest
@@ -1950,6 +2512,13 @@ def main() -> int:
         raise AssertionError("the model-width trace gave other tokens on a rerun")
     del eng
     profile_phase(model, params, line)
+    # the DDL ranks are processes of their own on the same card: free it
+    del model, params
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    ddl_row = ddl_phase(line, checked)
+    ddl_smoke_phase(line, checked)
 
     decode_kernel = "src/repro/kernels/flash_attention/decode_kernel.py"
     replaces = {
@@ -1959,6 +2528,7 @@ def main() -> int:
         "flash_decode_paged_bf16": f"{decode_kernel}:155",
         "flash_decode_paged_int8": f"{decode_kernel}:155",
         "quantize_rows": "src/repro/kernels/quantize/kernel.py:25",
+        "dequantize_rows": "src/repro/kernels/quantize/kernel.py:46",
         "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:72",
         "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:24",
     }
@@ -1970,18 +2540,21 @@ def main() -> int:
         "flash_decode_paged_bf16": f"{csrc}/flash_decode.cu",
         "flash_decode_paged_int8": f"{csrc}/flash_decode.cu",
         "quantize_rows": f"{csrc}/quantize.cu",
+        "dequantize_rows": f"{csrc}/quantize.cu",
         "ssd_scan": f"{csrc}/ssd_scan.cu",
         "rmsnorm": f"{csrc}/rmsnorm.cu",
     }
     # each kernel's launches on its main path: the 48-layer static loop,
     # the slot decode without an arena (int8), the 48-layer engine, the
-    # 48-layer Mamba-2 forward, the 4-layer Trainer's 5 steps
+    # 48-layer Mamba-2 forward, the 4-layer Trainer's 5 steps, the
+    # full-width DDL Trainer's 3 steps (rank 0)
     launches = {"flash_attention_fwd": static_row["launches"]["flash_attention"],
                 "flash_decode_bf16": static_row["launches"]["flash_decode"],
                 "flash_decode_int8": slot_launches["int8"],
                 "flash_decode_paged_bf16": model_row["decode_launches"],
                 "flash_decode_paged_int8": int8_row["decode_launches"],
                 "quantize_rows": int8_row["quantize_launches"],
+                "dequantize_rows": sum(st["dequantize_launches"] for st in ddl_row["steps"]),
                 "ssd_scan": mamba_row["launches"]["ssd_scan"],
                 "rmsnorm": trainer_row["launches"]["rmsnorm"]}
     out = []

@@ -1,4 +1,4 @@
 from repro_torch.data.pipeline import (DataLoader, DataState, MMapTokens,
-                                       SyntheticTokens)
+                                       SyntheticTokens, local_rows)
 
-__all__ = ["DataLoader", "DataState", "MMapTokens", "SyntheticTokens"]
+__all__ = ["DataLoader", "DataState", "MMapTokens", "SyntheticTokens", "local_rows"]

@@ -5,6 +5,8 @@ rank-based data split, generalized to the mesh).
 
 A copy of the JAX package's `data/pipeline.py` (numpy only, so the batches
 are the same bit for bit); its VLM and audio batch stubs are not ported yet.
+`local_rows` cuts a rank's rows from the global batch, which the JAX
+package leaves to its batch sharding.
 """
 from __future__ import annotations
 
@@ -81,6 +83,20 @@ class MMapTokens:
                    + shard * batch_per_shard + i) % seqs_total
             out[i] = self.arr[idx * stride:(idx + 1) * stride]
         return {"tokens": out[:, :-1], "labels": out[:, 1:]}
+
+
+def local_rows(batch: Dict[str, np.ndarray], index: int,
+               count: int) -> Dict[str, np.ndarray]:
+    """Data-parallel rank `index` of `count`'s rows of a global batch: the
+    index-th of count equal row blocks, as the JAX package's batch sharding
+    over ("pod", "data") hands them out."""
+    def rows(x):
+        if x.shape[0] % count:
+            raise ValueError(f"a global batch of {x.shape[0]} rows does not split "
+                             f"over {count} data-parallel ranks")
+        n = x.shape[0] // count
+        return x[index * n:(index + 1) * n]
+    return {k: rows(v) for k, v in batch.items()}
 
 
 class DataLoader:

@@ -77,6 +77,14 @@ void quantize_rows(const torch::Tensor& x, torch::Tensor q, torch::Tensor scale)
   check_launch(err, "quantize_rows");
 }
 
+void dequantize_rows(const torch::Tensor& q, const torch::Tensor& scale, torch::Tensor out) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const int err = repro::dequantize_rows(q.data_ptr<int8_t>(), scale.data_ptr<float>(),
+                                         out.data_ptr(), dtype_of(out), q.size(0), q.size(1),
+                                         current_stream());
+  check_launch(err, "dequantize_rows");
+}
+
 void rmsnorm(const torch::Tensor& x, const torch::Tensor& scale, torch::Tensor out,
              double eps) {
   const c10::cuda::CUDAGuard guard(x.device());
@@ -107,6 +115,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_decode", &flash_decode, "slot-contiguous flash-decode into out");
   m.def("flash_decode_paged", &flash_decode_paged, "paged flash-decode into out");
   m.def("quantize_rows", &quantize_rows, "per-row int8 quantize into q, scale");
+  m.def("dequantize_rows", &dequantize_rows, "per-row int8 dequantize into out");
   m.def("rmsnorm", &rmsnorm, "RMSNorm forward into out");
   m.def("ssd_scan", &ssd_scan, "Mamba-2 SSD chunked scan into y");
 }

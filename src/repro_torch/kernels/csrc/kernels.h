@@ -38,6 +38,10 @@ int flash_decode(const void* q, DType q_dtype, const void* k, const void* v, DTy
 // bf16 -> q int8 [rows,cols], scale f32 [rows].
 int quantize_rows(const void* x, DType x_dtype, int8_t* q, float* scale, int rows, int cols,
                   void* stream);
+// Its inverse (quantize.cu): q int8 [rows,cols], scale f32 [rows] -> out
+// [rows,cols] of out_dtype (f32 or bf16) = q * scale[row], contiguous.
+int dequantize_rows(const int8_t* q, const float* scale, void* out, DType out_dtype, int rows,
+                    int cols, void* stream);
 
 // RMSNorm forward (rmsnorm.cu). x/out [rows,d] f32 or bf16, scale [d] f32,
 // contiguous: out = (x * rsqrt(mean(x^2) + eps)) * scale in x's dtype.

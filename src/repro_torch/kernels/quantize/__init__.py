@@ -1,4 +1,4 @@
-from repro_torch.kernels.quantize.ops import quantize
-from repro_torch.kernels.quantize.ref import quantize_ref
+from repro_torch.kernels.quantize.ops import dequantize, quantize
+from repro_torch.kernels.quantize.ref import dequantize_ref, quantize_ref
 
-__all__ = ["quantize", "quantize_ref"]
+__all__ = ["dequantize", "dequantize_ref", "quantize", "quantize_ref"]

@@ -1,5 +1,5 @@
-"""Plain PyTorch symmetric per-row int8 quantizer: the CPU path and the
-version the CUDA kernel is held against."""
+"""Plain PyTorch symmetric per-row int8 quantizer and dequantizer: the CPU
+path and the versions the CUDA kernels are held against."""
 import numpy as np
 import torch
 
@@ -17,3 +17,9 @@ def quantize_ref(x):
     scale = torch.where(amax > 0, amax * INV_127, torch.ones_like(amax))
     q = torch.clamp(torch.round(xf / scale[:, None]), -127, 127).to(torch.int8)
     return q, scale
+
+
+def dequantize_ref(q, scale, out_dtype=torch.float32):
+    """q int8 [rows, cols], scale f32 [rows] -> q * scale[row] in out_dtype:
+    one f32 multiply an element, then the cast (round to nearest even)."""
+    return (q.float() * scale[:, None]).to(out_dtype)

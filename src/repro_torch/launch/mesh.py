@@ -1,0 +1,200 @@
+"""The device mesh of a data-parallel run over `torch.distributed`.
+
+The JAX package runs one process over a `("pod", "data", "model")` mesh of
+devices and reduces gradients with collectives over named axes inside a
+`shard_map`. The port runs one process per mesh device, in the torchrun
+idiom (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`), numbered row-major over the
+mesh's axes, which is the JAX mesh's device order: on a
+`("pod", "data", "model")` mesh with |model| = 1, rank = pod * |data| +
+data. `make_mesh` gives each rank a `Mesh`: its coordinates, the axis
+sizes, one process group per axis, and the three collectives the DDL
+schedule needs over a named axis (`psum`, `psum_scatter`, `all_gather`).
+
+Backends. NCCL needs a card of its own for each rank, so ranks that share
+one card (and ranks on the CPU) talk over gloo. A group's collectives pick
+their path by the group's backend, never by catching an error: on NCCL
+they run on the tensors where they lie; on gloo a CUDA tensor is staged
+through a host buffer explicitly, so the port relies on no gloo support
+for CUDA tensors. Reductions run in f32, as the DDL schedule's callers
+cast (`core/ddl/allreduce.py`).
+"""
+from __future__ import annotations
+
+import itertools
+import os
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.config.base import MeshSpec
+
+
+class Mesh:
+    """One rank's view of the mesh: `shape` {axis: size}, `coords` {axis:
+    this rank's index}, and `groups` {axis: the process group of the ranks
+    that differ from this one only along that axis} for each axis of size
+    > 1."""
+
+    def __init__(self, spec: MeshSpec, rank: int = 0,
+                 groups: Optional[Dict[str, object]] = None):
+        self.spec = spec
+        self.axis_names: Tuple[str, ...] = tuple(spec.axes)
+        self.shape = {a: int(s) for a, s in zip(spec.axes, spec.shape)}
+        self.rank = rank
+        self.coords = dict(zip(self.axis_names, _unravel(rank, spec.shape)))
+        self.groups = groups or {}
+
+    def size(self, axis: str) -> int:
+        """|axis|, 1 for an axis the mesh lacks (its collectives are the
+        identity, as over a JAX axis of size 1)."""
+        return self.shape.get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+    @property
+    def dp_index(self) -> int:
+        """This rank's block of the global batch: the batch is split over
+        ("pod", "data") row-major, as the JAX package's batch sharding."""
+        return self.index("pod") * self.size("data") + self.index("data")
+
+    @property
+    def dp_size(self) -> int:
+        return self.size("pod") * self.size("data")
+
+    # ---- collectives over one named axis --------------------------------
+    def _group(self, axis: str):
+        return self.groups.get(axis) if self.size(axis) > 1 else None
+
+    def _staged(self, group) -> bool:
+        return dist.get_backend(group) == "gloo"
+
+    def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum of x over `axis` (a new tensor; x is not changed)."""
+        group = self._group(axis)
+        if group is None:
+            return x
+        if x.is_cuda and self._staged(group):
+            y = x.detach().to("cpu", copy=True)
+            dist.all_reduce(y, group=group)
+            return y.to(x.device)
+        y = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    def psum_scatter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Tiled reduce-scatter along dim 0: x [n * |axis|, ...] contiguous
+        -> this rank's [n, ...] block of the sum over `axis`."""
+        group = self._group(axis)
+        if group is None:
+            return x
+        size = self.size(axis)
+        if x.shape[0] % size:
+            raise ValueError(f"psum_scatter over {axis!r}: dim 0 of {tuple(x.shape)} is "
+                             f"not divisible by {size}")
+        x = x.contiguous()
+        out_shape = (x.shape[0] // size,) + tuple(x.shape[1:])
+        if x.is_cuda and self._staged(group):
+            src = x.detach().to("cpu", copy=True)
+            out = torch.empty(out_shape, dtype=x.dtype)
+            dist.reduce_scatter_tensor(out, src, group=group)
+            return out.to(x.device)
+        out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, x.detach(), group=group)
+        return out
+
+    def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Tiled all-gather along dim 0: x [n, ...] -> [n * |axis|, ...],
+        the blocks in axis order."""
+        group = self._group(axis)
+        if group is None:
+            return x
+        size = self.size(axis)
+        x = x.contiguous()
+        out_shape = (x.shape[0] * size,) + tuple(x.shape[1:])
+        if x.is_cuda and self._staged(group):
+            src = x.detach().to("cpu", copy=True)
+            out = torch.empty(out_shape, dtype=x.dtype)
+            dist.all_gather_into_tensor(out, src, group=group)
+            return out.to(x.device)
+        out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x.detach(), group=group)
+        return out
+
+    def pmean(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """The mean of x over `axes` (summed axis by axis, in order)."""
+        n = 1
+        for a in axes:
+            x = self.psum(x, a)
+            n *= self.size(a)
+        return x / n if n > 1 else x
+
+
+def local_device() -> torch.device:
+    """This rank's card: cuda:(LOCAL_RANK % the host's card count), so
+    ranks beyond the host's cards share them. Raises without CUDA."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)) % torch.cuda.device_count())
+
+
+def _unravel(rank: int, shape) -> Tuple[int, ...]:
+    out = []
+    for s in reversed(tuple(shape)):
+        out.append(rank % s)
+        rank //= s
+    return tuple(reversed(out))
+
+
+def make_mesh(spec: MeshSpec) -> Mesh:
+    """This rank's `Mesh` of `spec`. A mesh of one device needs no process
+    group; a larger one needs `torch.distributed` initialised with a world
+    of `spec.num_devices` ranks. Every rank creates every axis group, in
+    the same order, as `dist.new_group` requires. A `model` axis above 1
+    (tensor parallelism) raises: it is not ported yet."""
+    sizes = dict(zip(spec.axes, spec.shape))
+    if sizes.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"mesh {spec.shape} {spec.axes}: tensor parallelism (a 'model' axis "
+            "above 1) is not ported yet")
+    n = spec.num_devices
+    if n == 1:
+        return Mesh(spec)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise ValueError(
+            f"a mesh of {n} devices {tuple(spec.shape)} needs torch.distributed "
+            f"initialised with WORLD_SIZE {n}, not {world} (run one process per "
+            "device, e.g. under torchrun)")
+    rank = dist.get_rank()
+    groups = {}
+    for ai, axis in enumerate(spec.axes):
+        if spec.shape[ai] <= 1:
+            continue
+        others = [range(s) if j != ai else [None] for j, s in enumerate(spec.shape)]
+        for fixed in itertools.product(*others):
+            ranks = []
+            for k in range(spec.shape[ai]):
+                coord = list(fixed)
+                coord[ai] = k
+                ranks.append(_ravel(coord, spec.shape))
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                groups[axis] = group
+    return Mesh(spec, rank, groups)
+
+
+def _ravel(coord, shape) -> int:
+    r = 0
+    for c, s in zip(coord, shape):
+        r = r * s + c
+    return r
+
+
+def mesh_axis_sizes(mesh: Mesh) -> dict:
+    return dict(mesh.shape)
+
+
+def dp_axes(mesh: Mesh) -> tuple:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)

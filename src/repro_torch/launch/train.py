@@ -1,23 +1,41 @@
-"""Training entry point on one device (the `ddlrun` analogue of the JAX
-package's launcher, whose flag names it keeps). Runs on the card unless
+"""Training entry point (the `ddlrun` analogue of the JAX package's
+launcher, whose flag names it keeps). Runs on the card unless
 `--device cpu` is given.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-14b \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-14b \
         --smoke --no-lms --steps 20 --batch 8 --seq 128
 
-LMS, DDL's zero1 mode and compression, checkpoints, the Supervisor, fault
-drills, heartbeats, planner profiles, loss-spike telemetry and the trace
-and obs-report exports are not ported yet: their flags raise.
+Data-parallel training runs one process per mesh device under torchrun,
+which sets RANK, WORLD_SIZE and LOCAL_RANK; the mesh (`--mesh PxDxM`, as
+the JAX launcher parses it) must have WORLD_SIZE devices:
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --arch qwen2.5-14b --smoke --no-lms \
+        --mesh 2x1x1 --compress-dcn --steps 20 --batch 8 --seq 128
+
+The process group is NCCL when every rank has a card of its own, gloo
+otherwise (ranks on the CPU, or sharing a card). Only rank 0 prints.
+
+LMS, DDL's zero1 mode, tensor parallelism (a `model` axis above 1),
+checkpoints, the Supervisor, fault drills, heartbeats, planner profiles,
+loss-spike telemetry and the trace and obs-report exports are not ported
+yet: their flags raise.
 """
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
+import os
 import sys
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.config.base import (DDLConfig, LMSConfig, MeshSpec,
                                      ShapeConfig, TrainConfig)
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.launch.mesh import local_device
 from repro_torch.obs import configure, get_obs
 from repro_torch.train.trainer import Trainer
 
@@ -33,10 +51,15 @@ def parse_mesh(s: str) -> MeshSpec:
 
 def _unported(args) -> list:
     """The flags given whose feature is not ported yet."""
+    mesh = parse_mesh(args.mesh)
     given = {
         "--no-lms absent (LMS)": not args.no_lms,
         "--ddl-mode zero1": args.ddl_mode == "zero1",
-        "--compress-dcn": args.compress_dcn,
+        "--mesh with a model axis above 1 (tensor parallelism)":
+            dict(zip(mesh.axes, mesh.shape)).get("model", 1) > 1,
+        "--microbatches above 1 with the overlapped backward on a mesh of "
+        "several ranks": (args.microbatches > 1 and args.ddl_mode != "none"
+                          and mesh.num_devices > 1),
         "--ckpt-dir": args.ckpt_dir is not None,
         "--ckpt-every": args.ckpt_every is not None,
         "--trace": bool(args.trace),
@@ -63,7 +86,9 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--seq", type=int, default=128)
-    p.add_argument("--mesh", default="1x1", help="only 1 / 1x1 is ported")
+    p.add_argument("--mesh", default="1x1",
+                   help="DxM or PxDxM; M (tensor parallelism) must be 1, and "
+                        "the mesh must have WORLD_SIZE devices")
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--warmup", type=int, default=20)
     p.add_argument("--ddl-mode", default="allreduce",
@@ -96,15 +121,23 @@ def main(argv=None):
     if unported:
         raise NotImplementedError(
             f"not ported yet: {', '.join(unported)} (pass --no-lms; the port "
-            "trains on one device without checkpoints)")
+            "trains without checkpoints)")
+    mesh = parse_mesh(args.mesh)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != mesh.num_devices:
+        raise ValueError(f"WORLD_SIZE {world} disagrees with --mesh {args.mesh} "
+                         f"({mesh.num_devices} devices): run one process per device")
+    if world > 1 and not dist.is_initialized():
+        _init_process_group(args.device, world)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     tcfg = TrainConfig(
         model=cfg,
         shape=ShapeConfig("cli", "train", args.seq, args.batch),
-        mesh=parse_mesh(args.mesh),
+        mesh=mesh,
         lms=LMSConfig(enabled=False),
-        ddl=DDLConfig(mode=args.ddl_mode),
+        ddl=DDLConfig(mode=args.ddl_mode, compress_dcn=args.compress_dcn),
         learning_rate=args.lr, warmup_steps=args.warmup,
         total_steps=args.steps, microbatches=args.microbatches,
         log_every=max(1, args.log_every))
@@ -113,18 +146,36 @@ def main(argv=None):
     trainer = Trainer(tcfg, device=args.device, obs=get_obs())
 
     def log(step, m):
-        print(f"step {step:5d} | loss {m['loss']:.4f} | gnorm "
-              f"{m['grad_norm']:.3f} | lr {m['lr']:.2e} | {m['time_s']*1e3:.0f} ms")
+        if rank0:
+            print(f"step {step:5d} | loss {m['loss']:.4f} | gnorm "
+                  f"{m['grad_norm']:.3f} | lr {m['lr']:.2e} | "
+                  f"{m['time_s']*1e3:.0f} ms")
 
     _, hist = trainer.train(steps=args.steps, on_step=log)
-    if args.log:
-        with open(args.log, "w") as f:
-            json.dump(hist, f, indent=1)
-    print(f"final loss: {hist[-1]['loss']:.4f} (from {hist[0]['loss']:.4f})")
-    print("-- metrics --")
-    for line in trainer.obs.registry.summary_lines():
-        print(line)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if rank0:
+        if args.log:
+            with open(args.log, "w") as f:
+                json.dump(hist, f, indent=1)
+        print(f"final loss: {hist[-1]['loss']:.4f} (from {hist[0]['loss']:.4f})")
+        print("-- metrics --")
+        for line in trainer.obs.registry.summary_lines():
+            print(line)
     return 0
+
+
+def _init_process_group(device, world: int) -> None:
+    """Join the torchrun world: NCCL when the ranks are on the card and each
+    has a card of its own (`local_device`), gloo otherwise."""
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    on_card = device is None or torch.device(device).type == "cuda"
+    if on_card and torch.cuda.is_available() and local_world <= torch.cuda.device_count():
+        torch.cuda.set_device(local_device())
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend, timeout=datetime.timedelta(minutes=10))
 
 
 if __name__ == "__main__":

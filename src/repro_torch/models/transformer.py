@@ -139,9 +139,16 @@ def apply_layer(cfg, kind, p, x, ctx):
     raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
 
 
-def apply_decoder(cfg, params, x, ctx, *, policy=None, no_remat=False):
+def apply_decoder(cfg, params, x, ctx, *, policy=None, no_remat=False,
+                  grad_hooks=None):
     """-> (x, aux_loss f32 scalar): every layer of the stack in order, their
     aux losses summed (0 for the dense and SSM layers).
+
+    grad_hooks: {stack group name -> reduce-as-you-go hook}, the DDL
+    overlapped backward (`core/ddl/overlap.py`): each layer's slice of the
+    group's params goes through the hook before the layer runs, outside its
+    checkpoint, so its grads are reduced once, as soon as the backward has
+    them, and the recompute reruns no collective.
 
     Each layer runs under `torch.utils.checkpoint` (non-reentrant) unless
     no_remat: its activations are dropped after the forward and recomputed
@@ -153,9 +160,13 @@ def apply_decoder(cfg, params, x, ctx, *, policy=None, no_remat=False):
         raise NotImplementedError("LMS remat policies are not ported yet")
     kind = _check_kinds(cfg)
     stack = params["stack0"]
+    hook = (grad_hooks or {}).get("stack0")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        p = _layer(stack, i)[f"{kind}_0"]
+        lp = _layer(stack, i)
+        if hook is not None:
+            lp = hook(lp)
+        p = lp[f"{kind}_0"]
         if no_remat:
             x, da = apply_layer(cfg, kind, p, x, ctx)
         else:

@@ -1,8 +1,8 @@
-"""Step construction: the one-device train step (the JAX package's
-paper-faithful mode on a mesh of one device), and for the serve path the
-whole-batch prefill and decode steps of the static loop and the serve
-engine's slot decode step. The zero1 step and the multi-device train step
-come in later slices.
+"""Step construction: the train step in the JAX package's paper-faithful
+mode (DDL allreduce over the ranks of a data-parallel mesh, replicated
+optimizer), and for the serve path the whole-batch prefill and decode
+steps of the static loop and the serve engine's slot decode step. The
+zero1 step comes in a later slice.
 
 PyTorch runs eagerly, so a step is a plain callable: no jit, no shardings
 and no buffer donation — where the JAX package donates a cache or a train
@@ -16,6 +16,9 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.config.base import ShapeConfig, TrainConfig
+from repro_torch.core.ddl.allreduce import ddl_reduce_tree
+from repro_torch.core.ddl.overlap import make_stack_hooks
+from repro_torch.launch.mesh import Mesh, dp_axes, make_mesh, mesh_axis_sizes
 from repro_torch.models import kvquant, paging
 from repro_torch.models import transformer as tr
 from repro_torch.models.model import Model
@@ -118,8 +121,34 @@ def build_slot_decode_step(model: Model, shape: ShapeConfig,
 
 
 # ---------------------------------------------------------------------------
-# Train step (paper-faithful mode: replicated optimizer; one device)
+# Train step (paper-faithful mode: DDL allreduce, replicated optimizer)
 # ---------------------------------------------------------------------------
+
+def _resolve_overlap(tcfg: TrainConfig, dp_total: int) -> bool:
+    """The DDLConfig knob, else overlap; forced off with nothing to reduce
+    (dp 1) or no reduction at all, as in the JAX package (whose
+    `overlap_grads` argument of build_train_step and memory plan's
+    recommendation, ranked above the knob and below it, the port does not
+    take yet)."""
+    if tcfg.ddl.mode == "none" or dp_total <= 1:
+        return False
+    if tcfg.ddl.overlap_grads is not None:
+        return bool(tcfg.ddl.overlap_grads)
+    return True
+
+
+def _split_stack_grads(tree):
+    """-> (stack-group subtrees, everything else with empty stacks)."""
+    dec = tree["decoder"]
+    stacks = {k: v for k, v in dec.items() if k.startswith("stack")}
+    rest = {**tree, "decoder": {k: v for k, v in dec.items()
+                                if not k.startswith("stack")}}
+    return stacks, rest
+
+
+def _merge_stack_grads(rest, stacks):
+    return {**rest, "decoder": {**rest["decoder"], **stacks}}
+
 
 def _microbatch_split(batch, m: int):
     """[B, ...] -> [m, B/m, ...]. Only 0-d (scalar) leaves broadcast; any
@@ -136,43 +165,65 @@ def _microbatch_split(batch, m: int):
     return {k: split(k, v) for k, v in batch.items()}
 
 
-def build_train_step(model: Model, tcfg: TrainConfig, plan: Any = None):
-    """-> step_fn(state, batch) -> (state, metrics), for one device.
+def build_train_step(model: Model, tcfg: TrainConfig, plan: Any = None,
+                     mesh: Optional[Mesh] = None):
+    """-> step_fn(state, batch) -> (state, metrics), for this rank of
+    `mesh` (default: `make_mesh(tcfg.mesh)`), whose batch is the rank's
+    rows of the global batch.
 
     The loss and its grads over every param leaf (`torch.autograd.grad`),
     with m = tcfg.microbatches > 1 accumulated in f32 over the microbatches
-    and divided by m, as the JAX package's scan does; then the grads are
-    clipped to tcfg.grad_clip by their global norm and the optimizer steps
-    with the lr of `warmup_cosine(state.step)`. The state is updated in
-    place and returned in a new TrainState with step + 1. The metrics are
-    f32 scalars on the device: loss, grad_norm, lr, ce and aux. On one
-    device the data-parallel mean of the grads and the loss is the
-    identity, as the JAX package's `pmean` over an axis of size 1 is.
+    and divided by m, as the JAX package's scan does. On a mesh of several
+    data-parallel ranks the grads are then DDL-reduced to their mean over
+    the ranks (`core/ddl`): with the overlapped backward (the default, m ==
+    1), the decoder stack's layer by layer inside the backward and the rest
+    (embedding, final norm, head) after it; otherwise the whole tree after
+    the backward. Then the grads are clipped to tcfg.grad_clip by their
+    global norm and the optimizer steps with the lr of
+    `warmup_cosine(state.step)`. The state is updated in place and
+    returned in a new TrainState with step + 1. The metrics are f32
+    scalars on the device: loss, grad_norm, lr, ce and aux, the loss, ce
+    and aux as means over the ranks. Every rank ends the step with the
+    same params. On one device every reduction is the identity, as the
+    JAX package's collectives over axes of size 1 are.
 
-    A tcfg.mesh of more than one device, ddl.mode "zero1", compress_dcn
-    and a memory plan (LMS) are not ported yet and raise."""
-    mesh = tcfg.mesh
-    if mesh.num_devices > 1:
-        raise NotImplementedError(
-            f"a mesh of {mesh.num_devices} devices {mesh.shape} is not ported "
-            "yet; the port trains on one device (mesh 1x1)")
+    ddl.mode "none" leaves the grads unreduced, as in the JAX package.
+    ddl.mode "zero1", m > 1 with the overlapped backward (the JAX
+    package's sharded accumulator) and a memory plan (LMS) are not ported
+    yet and raise; so does a tensor-parallel `model` axis (`make_mesh`)."""
     if tcfg.ddl.mode == "zero1":
         raise NotImplementedError("DDL zero1 is not ported yet")
-    if tcfg.ddl.compress_dcn:
-        raise NotImplementedError("DDL compress_dcn is not ported yet")
     if plan is not None:
         raise NotImplementedError("memory plans (LMS) are not ported yet")
+    mesh = make_mesh(tcfg.mesh) if mesh is None else mesh
+    sizes = mesh_axis_sizes(mesh)
+    dpa = dp_axes(mesh)
+    data_size = sizes.get("data", 1)
+    pod_size = sizes.get("pod", 1)
+    pod_axis = "pod" if "pod" in sizes and pod_size > 1 else None
+    mean_over = data_size * pod_size
+    ddl = tcfg.ddl
     _, opt_update = OPTIMIZERS[tcfg.optimizer]
     sched = SCHEDULES["warmup_cosine"]
     m = tcfg.microbatches
+    overlap = _resolve_overlap(tcfg, mean_over)
+    if overlap and m > 1:
+        raise NotImplementedError(
+            f"microbatches={m} with the overlapped backward (the sharded "
+            "microbatch accumulator) is not ported yet; pass "
+            "DDLConfig(overlap_grads=False)")
+    reduce = dict(mesh=mesh, data_axis="data", pod_axis=pod_axis,
+                  data_size=data_size, pod_size=pod_size)
+    hooks = make_stack_hooks(["stack0"], ddl, **reduce) if overlap else None
 
     def loss_and_grads(params, batch):
         """-> (loss, {"ce", "aux"}, grads): detached tensors; grads in the
-        params' dtypes, or f32 when accumulated over microbatches."""
+        params' dtypes, or f32 when accumulated over microbatches. With
+        the hooks the decoder stack's grads come back reduced."""
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
         flat = tree_leaves(leaves)
         if m == 1:
-            loss, mets = model.loss(leaves, batch)
+            loss, mets = model.loss(leaves, batch, grad_hooks=hooks)
             grads = torch.autograd.grad(loss, flat)
             return (loss.detach(), {k: v.detach() for k, v in mets.items()},
                     tree_unflatten(params, grads))
@@ -190,9 +241,20 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Any = None):
         grads = [a.div_(m) for a in acc]
         return l_acc / m, {k: v / m for k, v in m_acc.items()}, tree_unflatten(params, grads)
 
+    def reduce_grads(grads):
+        """The DDL mean over the ranks of what the hooks left unreduced."""
+        if mean_over == 1:
+            return grads
+        if not overlap:
+            return ddl_reduce_tree(grads, ddl, **reduce)[0]
+        stacks, rest = _split_stack_grads(grads)
+        rest, _ = ddl_reduce_tree(rest, ddl, **reduce)
+        return _merge_stack_grads(rest, stacks)
+
     def step_fn(state: TrainState, batch):
         loss, mets, grads = loss_and_grads(state.params, batch)
         with torch.no_grad():
+            grads = reduce_grads(grads)
             lr = sched(state.step, base_lr=tcfg.learning_rate,
                        warmup_steps=tcfg.warmup_steps,
                        total_steps=tcfg.total_steps)
@@ -200,8 +262,9 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Any = None):
             params, opt = opt_update(grads, state.opt, state.params, lr=lr,
                                      beta1=tcfg.beta1, beta2=tcfg.beta2,
                                      weight_decay=tcfg.weight_decay)
-        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
-                   "ce": mets["ce"], "aux": mets["aux"]}
+            # the means over the ranks, in one collective per axis
+            loss, ce, aux = mesh.pmean(torch.stack([loss, mets["ce"], mets["aux"]]), dpa)
+            metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr, "ce": ce, "aux": aux}
         return TrainState(state.step + 1, params, opt), metrics
 
     return step_fn

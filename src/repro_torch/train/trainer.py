@@ -1,8 +1,14 @@
-"""Training loop on one device: train steps from `build_train_step` over
-the deterministic synthetic token stream, with the deferred metrics flush
+"""Training loop: train steps from `build_train_step` over the
+deterministic synthetic token stream, with the deferred metrics flush
 (`log_every`), a `train.step` span per step and the `train.step_s`
 histogram and `train.history` series on the trainer's own metrics
 registry, as in the JAX package.
+
+On a mesh of several ranks (`tcfg.mesh`, one process per device under
+`torch.distributed`) every rank builds the same global batch from the
+seed and trains on its own rows of it, in the JAX batch sharding's order;
+the metrics are the means over the ranks, so every rank's history is the
+same.
 
 Not ported yet: LMS (the memory planner and streaming), checkpoints and
 resume, heartbeats, the fault injector, loss-spike telemetry, the
@@ -17,7 +23,8 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.config.base import TrainConfig
-from repro_torch.data import DataLoader, SyntheticTokens
+from repro_torch.data import DataLoader, SyntheticTokens, local_rows
+from repro_torch.launch.mesh import local_device, make_mesh
 from repro_torch.models.model import Model
 from repro_torch.obs import Obs
 from repro_torch.serve.engine import resolve_device
@@ -31,12 +38,13 @@ class Trainer:
             raise NotImplementedError(
                 "LMS is not ported yet; pass LMSConfig(enabled=False)")
         self.tcfg = tcfg
-        self.device = resolve_device(device)
+        self.mesh = make_mesh(tcfg.mesh)
+        self.device = resolve_device(local_device() if device is None else device)
         # a private registry over the shared span ring, as the JAX trainer's
         self.obs = obs if obs is not None else Obs()
         self.model = Model(tcfg.model, attn_impl=attn_impl)
         self.plan = None
-        self.step_fn = build_train_step(self.model, tcfg)
+        self.step_fn = build_train_step(self.model, tcfg, mesh=self.mesh)
         self.loader = DataLoader(
             SyntheticTokens(tcfg.model.vocab_size, seed=tcfg.seed),
             shard=0, num_shards=1, batch_per_shard=tcfg.shape.global_batch,
@@ -51,7 +59,7 @@ class Trainer:
         if self.tcfg.model.family in ("vlm", "audio"):
             raise NotImplementedError(
                 f"{self.tcfg.model.family} batches are not ported yet")
-        raw = next(self.loader)
+        raw = local_rows(next(self.loader), self.mesh.dp_index, self.mesh.dp_size)
         return {k: torch.from_numpy(v).to(self.device) for k, v in raw.items()}
 
     def _sync(self) -> None:

@@ -404,12 +404,14 @@ def test_train_step_rejects_what_is_not_ported(jmods):
     _, tt = _tcfgs(jmods)
     model = Model(tt.model)
     for bad, match in (
-            (dataclasses.replace(tt, mesh=MeshSpec((2, 1), ("data", "model"))), "mesh of 2"),
-            (dataclasses.replace(tt, ddl=dataclasses.replace(tt.ddl, mode="zero1")), "zero1"),
-            (dataclasses.replace(tt, ddl=dataclasses.replace(tt.ddl, compress_dcn=True)),
-             "compress_dcn")):
+            (dataclasses.replace(tt, mesh=MeshSpec((1, 2), ("data", "model"))),
+             "tensor parallelism"),
+            (dataclasses.replace(tt, ddl=dataclasses.replace(tt.ddl, mode="zero1")), "zero1")):
         with pytest.raises(NotImplementedError, match=match):
             build_train_step(model, bad)
+    # a data-parallel mesh needs one process per device (tests/test_torch_ddl_train.py)
+    with pytest.raises(ValueError, match="mesh of 2 devices"):
+        build_train_step(model, dataclasses.replace(tt, mesh=MeshSpec((2, 1), ("data", "model"))))
     with pytest.raises(NotImplementedError, match="memory plans"):
         build_train_step(model, tt, plan=object())
     with pytest.raises(ValueError, match="does not divide"):
@@ -494,14 +496,14 @@ def test_launch_train_on_cpu(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [[], ["--no-lms", "--ddl-mode", "zero1"],
-                                   ["--no-lms", "--compress-dcn"],
+                                   ["--no-lms", "--mesh", "1x1x2"],
                                    ["--no-lms", "--supervise"],
                                    ["--no-lms", "--fault-step", "1"],
                                    ["--no-lms", "--heartbeat-dir", "hb"],
                                    ["--no-lms", "--profile", "p.json"],
                                    ["--no-lms", "--spike-action", "stop"],
                                    ["--no-lms", "--ckpt-every", "5"],
-                                   ["--no-lms", "--mesh", "2x1"]])
+                                   ["--no-lms", "--mesh", "2x1", "--microbatches", "2"]])
 def test_launch_train_rejects_what_is_not_ported(flags):
     """Without --no-lms, and with any flag whose feature is not ported."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
