@@ -40,7 +40,9 @@ non-zero, printing no result):
    synthetic stream) — at 2 layers, 3 steps of `build_train_step` from one
    init through the kernels and through the plain versions (step 1's
    grads, each step's loss and grad norm, RMSNorm launches exactly 4L+1 a
-   step: 2L+1 in the forward, 2L in the checkpointed layers' recompute);
+   step: 2L+1 in the forward, 2L in the checkpointed layers' recompute;
+   step 1 again with RMSNorm's plain forward, and with RMSNorm swapped for
+   its plain version, each against both runs);
    at 4 layers, the main path: `Trainer.train` for 5 steps (losses, step
    time, tokens/s, model FLOP/s, peak memory, launches) and one more step
    under torch.profiler;
@@ -49,7 +51,9 @@ non-zero, printing no result):
    spills to pinned host memory), with model-width then int8 KV pages;
    then `run_static` on the same weights, held to the same loop with its
    kernels swapped for their plain versions (teacher-forced), its dense
-   deviation and its parity with the engine's tokens reported;
+   deviation and its parity with the engine's tokens reported; then its
+   prefill step timed warm with flash attention on the tensor cores and
+   on the CUDA cores, in turns;
 8. determinism — the 48-layer model-width trace again, token for token;
 9. profile — that trace once more under torch.profiler: the device's busy
    share and its top kernels;
@@ -65,10 +69,12 @@ non-zero, printing no result):
    global batch.
 
 Every run of a path records the shape of each kernel call and fails on one
-the kernel phases did not check, and its launch counts are reset just
-before and read just after. The line before the last lists every ported
-kernel with its launches on the main path; the last line is
-{"ok": true, "device": {...}}.
+the kernel phases did not check, and its launch counts (flash attention's
+also by route) are reset just before and read just after: the static
+loop's, the engine's whole-prompt prefill's and `Model.forward`'s attention
+launches must all take the tensor-core route. The line before the last
+lists every ported kernel (flash attention once per route) with its
+launches on the main path; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -218,6 +224,35 @@ def build_phase():
           "route": "torch.utils.cpp_extension.load",
           "sources": [f"src/repro_torch/kernels/csrc/{s}" for s in _build.SOURCES],
           "cuda_flags": list(_build.CUDA_FLAGS)})
+    return sass_phase()
+
+
+def sass_phase():
+    """The HGMMA (wgmma) instructions in the built extension's SASS, by
+    instance of the tensor-core flash-attention kernel (`fa_wgmma_kernel<D>`),
+    from `cuobjdump -sass`: fails if there are none, since that route must
+    run on the tensor cores."""
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+    lib = sorted(_build.BUILD_DIR.glob("*.so"))[0]
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for text in sass.splitlines():
+        if "Function :" in text:
+            fn = text.split("Function :", 1)[1].strip()
+        elif fn and "fa_wgmma_kernel" in fn and "HGMMA" in text:
+            d = re.search(r"fa_wgmma_kernelILi(\d+)E", fn)
+            key = f"head_dim_{d.group(1)}" if d else fn
+            counts[key] = counts.get(key, 0) + 1
+    row = {"phase": "sass", "library": os.path.relpath(lib, ROOT),
+           "kernel": "fa_wgmma_kernel", "hgmma": counts, "hgmma_total": sum(counts.values())}
+    emit(row)
+    if not row["hgmma_total"]:
+        raise AssertionError("the tensor-core flash-attention kernel has no HGMMA in its SASS")
+    return row
 
 
 def _decode_inputs(kv_lens, seed, paged: bool, pages=None, max_pages=None, smax=None):
@@ -272,6 +307,15 @@ def _sdpa_ms(q, kc, vc, kv_len):
 
 # What each kernel's launch depends on besides the data: a run of a path
 # fails on a call whose signature no kernel phase checked.
+
+def attention_route(q) -> str:
+    """The route of kernel #1 a CUDA call should take, as the wrapper's
+    docstring states it: bf16 at head_dim 64, 128 or 256 on the tensor
+    cores (wgmma), everything else on the CUDA cores."""
+    import torch
+    return ("wgmma" if q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128, 256)
+            else "cuda_core")
+
 
 def attention_sig(q, k, causal, window, q_offset):
     if q_offset is None:
@@ -391,11 +435,12 @@ def decode_kernel_phase(shape: str, kv_lens, int8: bool, seed: int, checked: set
 def attention_kernel_phase(shape: str, b: int, sq: int, seed: int, checked: set, *,
                            skv=None, heads=H, kv_heads=K, d=D, dtype="bfloat16",
                            window=0, q_offset=0):
-    """The flash-attention kernel (causal) against its plain version: within
-    one bf16 ulp of each output row's largest |o| (f32 inputs: 1e-5 of
-    it), every row; a row with no visible key holds the mean of v over
-    all keys of its kv head (as the JAX kernel's), which it is held to by
-    the same rule."""
+    """Kernel #1 (causal) against its plain version: within one bf16 ulp of
+    each output row's largest |o| (f32 inputs: 1e-5 of it), every row; a
+    row with no visible key holds the mean of v over all keys of its kv
+    head (as the JAX oracle's), which it is held to by the same rule. The
+    call must take the route `attention_route` names (bf16 at head_dim 64,
+    128 or 256: wgmma; else the CUDA cores); the row reports it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
@@ -414,8 +459,14 @@ def attention_kernel_phase(shape: str, b: int, sq: int, seed: int, checked: set,
 
     def plain():
         return flash_attention_ref(qt, kt, vt, **kw)
+    counters = {r: f"{r}_launches" for r in ("wgmma", "cuda_core")}
+    before = {r: getattr(flash_attention_cuda, a) for r, a in counters.items()}
     out = kernel()
     torch.cuda.synchronize()
+    took = [r for r, a in counters.items() if getattr(flash_attention_cuda, a) > before[r]]
+    if took != [attention_route(q)]:
+        raise AssertionError(f"flash_attention {shape}: took route {took}, expected "
+                             f"{attention_route(q)}")
     want = plain().transpose(1, 2)
     err = (out.float() - want.float()).abs()
     if dtype == "bfloat16":
@@ -450,7 +501,8 @@ def attention_kernel_phase(shape: str, b: int, sq: int, seed: int, checked: set,
     peak = BF16_TENSOR_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
     bound_ms, bound_by = bound(nbytes, flops, peak)
     row = {"phase": "kernel", "kernel": "flash_attention_fwd", "shape": shape,
-           "q": list(q.shape), "kv": list(k.shape), "dtype": dtype, "window": window,
+           "route": took[0], "q": list(q.shape), "kv": list(k.shape), "dtype": dtype,
+           "window": window,
            "q_offset": q_offset, "pairs": pairs * b * heads, "gflop": flops / 1e9,
            "rows_without_key": int(empty.sum().item()),
            "no_key_rows_vs_mean_of_v_over_unit": no_key_worst, "max_abs_err": err.max().item(),
@@ -468,25 +520,35 @@ def attention_kernel_phase(shape: str, b: int, sq: int, seed: int, checked: set,
     return row
 
 
-def _quantize_input(rows: int, cols: int, dtype: str, seed: int):
-    """Rows of very different sizes, the first all zeros (scale 1)."""
+def _quantize_input(rows: int, cols: int, dtype: str, seed: int, nonfinite: bool = False):
+    """Rows of very different sizes, the first all zeros (scale 1). With
+    `nonfinite`, rows 1-5 hold a NaN, +inf, -inf, NaN with both infinities,
+    and only NaN (a NaN or an infinity in a gradient on DDL's pod hop, or
+    in a k/v row on the int8 serve path)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn((rows, cols), generator=gen, device="cuda")
          * torch.rand((rows, 1), generator=gen, device="cuda") * 4).to(getattr(torch, dtype))
     x[0] = 0
+    if nonfinite:
+        nan, inf = float("nan"), float("inf")
+        x[1, 3] = nan
+        x[2, 0] = inf
+        x[3, cols - 1] = -inf
+        x[4, :3] = torch.tensor([nan, inf, -inf])
+        x[5] = nan
     return x
 
 
 def quantize_kernel_phase(shape: str, rows: int, seed: int, checked: set, *, cols: int = D,
-                          dtype: str = "bfloat16", timed: bool = True):
+                          dtype: str = "bfloat16", timed: bool = True, nonfinite: bool = False):
     """The quantizer against its plain version, bitwise (codes and scales);
     timed unless `timed` is False (a shape checked only for its launch
-    signature)."""
+    signature); with `nonfinite`, on rows holding NaN and infinities."""
     import torch
     from repro_torch.kernels.quantize.ops import quantize_cuda
     from repro_torch.kernels.quantize.ref import quantize_ref
-    x = _quantize_input(rows, cols, dtype, seed)
+    x = _quantize_input(rows, cols, dtype, seed, nonfinite)
     q, s = quantize_cuda(x)
     torch.cuda.synchronize()
     pq, ps = quantize_ref(x)
@@ -497,6 +559,9 @@ def quantize_kernel_phase(shape: str, rows: int, seed: int, checked: set, *, col
     row = {"phase": "kernel", "kernel": "quantize_rows", "shape": shape, "rows": rows,
            "cols": cols, "dtype": dtype, "max_abs_err": float((q.float() - pq.float()).abs().max()),
            "tolerance": "bitwise"}
+    if nonfinite:
+        row["nonfinite_rows"] = {"scales": [str(x) for x in s[1:6].tolist()],
+                                 "codes_of_nan_elements": q[x.isnan()].unique().tolist()}
     if timed:
         # the launch is shorter than its wrapper's host time: back-to-back
         # events read the host, the profiler the kernel itself
@@ -808,9 +873,13 @@ def ssd_kernel_phase(shape: str, b: int, l: int, seed: int, checked: set, *, h=6
 
 def kernel_phases(num_layers: int):
     """Each kernel against its plain version at every shape the paths give
-    it and at a long-context shape: flash attention at the static prefill
-    (8 prompts of 128), the engine's whole-prompt prefill (1 of 128) and a
-    long prompt, plus f32 / window / offset branches; slot-contiguous
+    it and at a long-context shape: flash attention's tensor-core route at
+    the static prefill (8 prompts of 128), the engine's whole-prompt
+    prefill (1 of 128), a long prompt, a ragged long prompt, a window with
+    an offset, head_dim 64, a window over a long prompt and rows without a
+    key at head_dim 256, and its
+    CUDA-core route in f32 at the static prefill's shape and with a window
+    and an offset; slot-contiguous
     decode at the static loop's cache (8 x 160, kv_len 129..159) and the
     slot decode's (4 x 160, ragged with a 0), bf16 and int8; paged decode
     at the engine's arena and table; quantize at each decoded token's rows
@@ -828,14 +897,28 @@ def kernel_phases(num_layers: int):
     rng = np.random.default_rng(SEED)
     long_lens = [int(n) for n in rng.integers(2048, 4097, 16)]
     out, checked = {}, set()
-    out["flash_attention_fwd"] = [
+    # kernel #1 by route: bf16 at head_dim 64/128/256 on the tensor cores
+    # (the model's prefill), f32 on the CUDA cores
+    out["flash_attention_fwd_wgmma"] = [
         attention_kernel_phase("static_prefill", REQUESTS, PROMPT, 11, checked),
         attention_kernel_phase("engine_prefill", 1, PROMPT, 12, checked),
         attention_kernel_phase("long_prompt", 2, 4096, 13, checked),
-        attention_kernel_phase("f32_window_offset", 2, 100, 14, checked, skv=230, heads=10,
-                               kv_heads=2, d=64, dtype="float32", window=50, q_offset=130),
+        attention_kernel_phase("long_prompt_ragged", 2, 3001, 51, checked),
+        attention_kernel_phase("bf16_window_offset", 2, 100, 52, checked, skv=230, heads=10,
+                               kv_heads=2, window=50, q_offset=130),
+        attention_kernel_phase("d64", 1, 1500, 53, checked, heads=6, kv_heads=6, d=64),
+        # a window that starts the kv walk past the first tiles, and tiles
+        # wholly outside it for one warpgroup's rows only
+        attention_kernel_phase("bf16_window_long", 1, 1000, 55, checked, heads=8, kv_heads=2,
+                               window=200),
         attention_kernel_phase("rows_without_key", 1, 96, 15, checked, skv=80, heads=4,
                                kv_heads=4, d=256, q_offset=None),
+    ]
+    out["flash_attention_fwd_cuda_core"] = [
+        attention_kernel_phase("f32_prefill", REQUESTS, PROMPT, 54, checked,
+                               dtype="float32"),
+        attention_kernel_phase("f32_window_offset", 2, 100, 14, checked, skv=230, heads=10,
+                               kv_heads=2, d=64, dtype="float32", window=50, q_offset=130),
     ]
     # the static loop's decode steps see kv_len PROMPT + 1 .. MAX_LEN - 1
     static_lens = [(PROMPT + 1 + MAX_LEN - 1) // 2] * REQUESTS
@@ -868,7 +951,10 @@ def kernel_phases(num_layers: int):
         quantize_kernel_phase("prefill", 4 * MAX_LEN * K, 5, checked),
         quantize_kernel_phase("pool_ingest_2_layers", 2 * MAX_LEN * K, 6, checked),
         quantize_kernel_phase(f"pool_ingest_{num_layers}_layers",
-                              num_layers * MAX_LEN * K, 7, checked)]
+                              num_layers * MAX_LEN * K, 7, checked),
+        quantize_kernel_phase("nonfinite_rows", 64, 8, checked, timed=False, nonfinite=True),
+        quantize_kernel_phase("nonfinite_rows_pod_hop", 64, 9, checked, cols=1024,
+                              dtype="float32", timed=False, nonfinite=True)]
     from repro_torch.configs import get_config
     m = get_config(MAMBA)
     out["ssd_scan"] = [
@@ -965,14 +1051,19 @@ def launch_signatures():
     `quantize`, `dequantize`, `rmsnorm`, `ssd_scan`) are swapped for recording stand-ins
     that call them; the wrappers below them launch and count as always. ->
     (signatures seen, {kernel: calls recorded}, {kernel: launches}), the
-    last filled on exit, for the caller to match the calls against."""
+    last filled on exit, for the caller to match the calls against. The
+    flash-attention calls are also counted by the route `attention_route`
+    expects (`flash_attention_wgmma`, `flash_attention_cuda_core`), against
+    the wrapper's per-route counts."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.quantize import ops as q_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     launchers = _launchers()
-    seen, calls, launches = set(), {name: 0 for name in launchers}, {}
+    routes = {"flash_attention_wgmma": "wgmma_launches",
+              "flash_attention_cuda_core": "cuda_core_launches"}
+    seen, calls, launches = set(), {name: 0 for name in [*launchers, *routes]}, {}
     attend, decode, paged, quantize, scan = (fa_ops.flash_attention, fa_ops.flash_decode,
                                              fa_ops.flash_decode_paged, q_ops.quantize,
                                              ssd_ops.ssd_scan)
@@ -981,6 +1072,7 @@ def launch_signatures():
     def attend_spy(q, k, v, *, causal=True, window=0, q_offset=None):
         seen.add(attention_sig(q, k, causal, window, q_offset))
         calls["flash_attention"] += 1
+        calls["flash_attention_" + attention_route(q)] += 1
         return attend(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
     def decode_spy(q, k_cache, v_cache, kv_len, **kw):
@@ -1018,6 +1110,8 @@ def launch_signatures():
     rms_ops.rmsnorm, q_ops.dequantize = norm_spy, dequantize_spy
     for fn in launchers.values():
         fn.launches = 0
+    for attr in routes.values():
+        setattr(fa_ops.flash_attention_cuda, attr, 0)
     try:
         yield seen, calls, launches
     finally:
@@ -1025,6 +1119,8 @@ def launch_signatures():
          q_ops.quantize, ssd_ops.ssd_scan) = attend, decode, paged, quantize, scan
         rms_ops.rmsnorm, q_ops.dequantize = norm, dequantize
         launches.update({name: fn.launches for name, fn in launchers.items()})
+        launches.update({name: getattr(fa_ops.flash_attention_cuda, attr)
+                         for name, attr in routes.items()})
 
 
 def _serve(model, params, kv_dtype, rows=None, around_run=None, prefill_chunk=CHUNK):
@@ -1133,6 +1229,8 @@ def engine_phase(model, params, kv_dtype, line, checked, dense_tol=None,
                              else launches["quantize_rows"] == 0,
         "attention_launches": launches["flash_attention"]
             == (layers * len(reqs) if kernel_prefill else 0),
+        "attention_took_wgmma": launches["flash_attention_wgmma"]
+            == launches["flash_attention"],
         "no_contiguous_decode": launches["flash_decode"] == 0,
         "rmsnorm_launches": launches["rmsnorm"] == norms,
         "every_launch_recorded": calls == launches,
@@ -1158,6 +1256,7 @@ def engine_phase(model, params, kv_dtype, line, checked, dense_tol=None,
            "decode_launches": launches["flash_decode_paged"],
            "quantize_launches": launches["quantize_rows"],
            "attention_launches": launches["flash_attention"],
+           "attention_wgmma_launches": launches["flash_attention_wgmma"],
            "rmsnorm_launches": launches["rmsnorm"],
            "launch_signatures": sorted(seen), "unchecked_signatures": unchecked,
            "dense": dense, "dense_tol": dense_tol, "checks": checks, "bad": bad}
@@ -1276,6 +1375,7 @@ def static_phase(model, params, line, checked, engine_tokens, dense_tol=None):
     checks = {
         "tokens_shape": toks.shape == (REQUESTS, GEN),
         "attention_launches_eq_layers": launches["flash_attention"] == layers,
+        "attention_took_wgmma": launches["flash_attention_wgmma"] == layers,
         "decode_launches_eq_layers_x_steps": launches["flash_decode"] == layers * (GEN - 1),
         "no_paged_or_quantize_launches":
             launches["flash_decode_paged"] == 0 and launches["quantize_rows"] == 0,
@@ -1304,6 +1404,57 @@ def static_phase(model, params, line, checked, engine_tokens, dense_tol=None):
     if not all(checks.values()):
         raise AssertionError(f"static ({layers} layers): failed checks "
                              f"{[k for k, v in checks.items() if not v]}")
+    return row
+
+
+def prefill_route_ab_phase(model, params, line):
+    """What kernel #1's redesign moves end to end: the static loop's
+    prefill step (`build_prefill_step`, as `run_static` builds it: 8
+    prompts of 128 into the decode-capacity cache) on the same weights in
+    one process, with the prefill attention on its tensor-core route and
+    with the CUDA-core kernel (flash_attention_fwd.cu, which takes bf16 at
+    head_dim 128 too) called in its place, in turns (tensor cores, CUDA
+    cores, CUDA cores, tensor cores), 3 warm prefills a turn, each timed
+    on the host clock to its synchronize. The run_static row's prefill_ms
+    is one cold call; these are warm. Launches here are not counted."""
+    import numpy as np
+    import torch
+    from repro_torch.config.base import ShapeConfig
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.serve import static_batch_from_requests, synth_requests
+    from repro_torch.train.steps import StepSpec, build_prefill_step
+    reqs = synth_requests(model.cfg, REQUESTS, PROMPT, GEN, np.random.default_rng(SEED))
+    batch = static_batch_from_requests(model.cfg, reqs, "cuda")
+    prefill_fn, _ = build_prefill_step(model, ShapeConfig("serve_prefill", "prefill", PROMPT,
+                                                          REQUESTS), StepSpec(cache_len=MAX_LEN))
+    attend = fa_ops.flash_attention
+
+    def cuda_core(q, k, v, *, causal=True, window=0, q_offset=None):
+        if q_offset is None:
+            q_offset = k.shape[1] - q.shape[1] if causal else 0
+        out = torch.empty_like(q)
+        _build.extension().flash_attention(q, k, v, out, bool(causal), int(window),
+                                           int(q_offset), 1.0 / math.sqrt(q.shape[-1]))
+        return out
+    times = {"wgmma": [], "cuda_core": []}
+    prefill_fn(params, batch)                   # warm: allocator, cuBLAS
+    for route in ("wgmma", "cuda_core", "cuda_core", "wgmma"):
+        fa_ops.flash_attention = attend if route == "wgmma" else cuda_core
+        try:
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prefill_fn(params, batch)
+                torch.cuda.synchronize()
+                times[route].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            fa_ops.flash_attention = attend
+    med = {r: float(np.median(t)) for r, t in times.items()}
+    row = {"phase": "prefill_route_ab", "arch": ARCH, "layers": model.cfg.num_layers,
+           "requests": REQUESTS, "prompt": PROMPT, "card": line, "prefill_ms": times,
+           "median_ms": med, "wgmma_minus_cuda_core_ms": med["wgmma"] - med["cuda_core"]}
+    emit(row)
     return row
 
 
@@ -1521,6 +1672,7 @@ def forward_phase(model, params, line, checked):
         "last_row_within_1_ulp": ulps <= 1.0,
         "same_argmax": torch.equal(logits[:, -1].argmax(-1), last.argmax(-1)),
         "attention_launches": launches["flash_attention"] == 2 * layers,
+        "attention_took_wgmma": launches["flash_attention_wgmma"] == 2 * layers,
         "rmsnorm_launches": launches["rmsnorm"] == 2 * (2 * layers + 1),
         "every_launch_recorded": calls == launches,
         "every_launch_shape_checked": not unchecked,
@@ -1535,6 +1687,42 @@ def forward_phase(model, params, line, checked):
     emit(row)
     if not all(checks.values()):
         raise AssertionError(f"forward vs prefill: failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return row
+
+
+def f32_attention_phase(line, checked):
+    """Kernel #1's CUDA-core route on its own path. No configuration of the
+    repo reaches that route from a model (all are bf16 at head_dim 64, 128
+    or 256), so its path is the attention entry `flash_attention` on f32
+    tensors at qwen2.5-14b's attention width and the static prefill's
+    shape (q [8, 128, 40, 128], k and v [8, 128, 8, 128]), counts reset
+    just before and read just after: one launch, on the CUDA cores, of a
+    shape the kernel phases checked, and a finite f32 output."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    q = torch.randn((REQUESTS, PROMPT, H, D), generator=gen, device="cuda")
+    k, v = (torch.randn((REQUESTS, PROMPT, K, D), generator=gen, device="cuda")
+            for _ in range(2))
+    with launch_signatures() as (seen, calls, launches):
+        o = fa_ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+    unchecked = sorted(seen - checked)
+    checks = {
+        "one_launch": launches["flash_attention"] == 1,
+        "took_cuda_core": launches["flash_attention_cuda_core"] == 1,
+        "every_launch_recorded": calls == launches,
+        "every_launch_shape_checked": not unchecked,
+        "f32_output": o.shape == q.shape and o.dtype == torch.float32,
+        "finite": bool(torch.isfinite(o).all()),
+    }
+    row = {"phase": "f32_attention", "q": list(q.shape), "kv": list(k.shape), "card": line,
+           "launches": launches, "launch_signatures": sorted(seen),
+           "unchecked_signatures": unchecked, "checks": checks}
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"f32 attention: failed checks "
                              f"{[k for k, v in checks.items() if not v]}")
     return row
 
@@ -1765,9 +1953,17 @@ def train_reference_phase(line, checked):
     them far: the kernel's outputs differ from the plain version's in a
     small share of elements by one bf16 ulp (the kernel rows report it),
     yet the grads move by about 1%, and the floor route lies about as far
-    from the plain one. Both errors are reported."""
+    from the plain one. Both errors are reported.
+
+    The A/B of that gap (ROADMAP 3.3): step 1 once more with RMSNorm swapped
+    for its plain version as `plain_versions()` swaps it and every other
+    kernel on (in training none other runs), reported against the plain
+    run (what a rerun of it gives) and against the kernel run; and the
+    floor route against the kernel run, the two differing only in
+    RMSNorm's forward (kernel against plain)."""
     import torch
     from repro_torch.data import DataLoader, SyntheticTokens
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.models.model import Model
     from repro_torch.train import steps as steps_mod
     from repro_torch.tree import tree_leaves, tree_map
@@ -1807,7 +2003,7 @@ def train_reference_phase(line, checked):
         return first[0], mets, per_step, rec
 
     def leaf_errors(got, want):
-        return {f"/{i}": _rel_frobenius(g, w)
+        return {f"/{i}": _rel_frobenius(g, w.to(g.device))
                 for i, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want)))}
 
     torch.cuda.reset_peak_memory_stats()
@@ -1821,11 +2017,20 @@ def train_reference_phase(line, checked):
     err = leaf_errors(grads_k, grads_p)
     dtypes_ok = all(g.dtype == p.dtype for g, p in zip(tree_leaves(grads_k),
                                                       tree_leaves(grads_p)))
-    del grads_k
+    grads_k = tree_map(lambda g: g.cpu(), grads_k)     # kept on the host for the A/B
     torch.cuda.empty_cache()
     grads_f, _, floor_per_step, _ = run(_norm_as(_plain_norm_analytic_backward), 1)
     floor = leaf_errors(grads_f, grads_p)
-    del grads_p, grads_f
+    floor_vs_kernel = leaf_errors(grads_f, grads_k)
+    del grads_f
+    torch.cuda.empty_cache()
+    # A/B of the kernel route's gap: RMSNorm swapped for its plain version as
+    # plain_versions() swaps it (plain forward, autograd backward), every
+    # other kernel left on (none other runs in training): step 1 again
+    grads_a, _, ab_per_step, _ = run(_norm_as(rmsnorm_ref), 1)
+    ab_vs_plain = leaf_errors(grads_a, grads_p)
+    ab_vs_kernel = leaf_errors(grads_a, grads_k)
+    del grads_p, grads_a, grads_k
     torch.cuda.empty_cache()
     rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(mets_k, mets_p)]
            for k in ("loss", "grad_norm")}
@@ -1837,7 +2042,8 @@ def train_reference_phase(line, checked):
         "grad_norm_within_1%": max(rel["grad_norm"]) <= 1e-2,
         "finite": all(x == x and abs(x) != float("inf") for m in mets_k for x in m.values()),
         "rmsnorm_launches_4L+1_a_step": per_step == [4 * L + 1] * n,
-        "plain_runs_launch_no_rmsnorm": plain_per_step + floor_per_step == [0] * (n + 1),
+        "plain_runs_launch_no_rmsnorm":
+            plain_per_step + floor_per_step + ab_per_step == [0] * (n + 2),
         "no_other_launches": all(v == 0 for k, v in launches.items() if k != "rmsnorm"),
         "every_launch_recorded": calls == launches,
         "every_launch_shape_checked": not unchecked,
@@ -1849,8 +2055,13 @@ def train_reference_phase(line, checked):
            "grad_norm_plain": [m["grad_norm"] for m in mets_p], "rel_diff": rel,
            "grad_rel_frobenius_max": max(err.values()),
            "grad_rel_frobenius_floor_max": max(floor.values()),
+           "grad_rel_frobenius_floor_vs_kernel_max": max(floor_vs_kernel.values()),
+           "ab_plain_rmsnorm_vs_plain_max": max(ab_vs_plain.values()),
+           "ab_plain_rmsnorm_vs_kernel_max": max(ab_vs_kernel.values()),
            "grad_leaf_shapes": names, "grad_rel_frobenius": err,
            "grad_rel_frobenius_floor": floor,
+           "grad_rel_frobenius_floor_vs_kernel": floor_vs_kernel,
+           "ab_plain_rmsnorm_vs_plain": ab_vs_plain, "ab_plain_rmsnorm_vs_kernel": ab_vs_kernel,
            "rmsnorm_launches_per_step": per_step, "launches": launches,
            "kernel_run_s": kernel_s, "max_memory_allocated_gb": peak_gb,
            "launch_signatures": sorted(seen), "unchecked_signatures": unchecked,
@@ -2485,8 +2696,9 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
 
-    build_phase()
+    sass_row = build_phase()
     kernels, checked = kernel_phases(get_config(ARCH).num_layers)
+    f32_attention_row = f32_attention_phase(line, checked)
     slot_launches = reference_phase(line, checked)
     mamba_row = mamba_phases(line, checked)
     train_reference_phase(line, checked)
@@ -2501,8 +2713,9 @@ def main() -> int:
           "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
     model_row, tokens = engine_phase(model, params, "model", line, checked)
     int8_row, _ = engine_phase(model, params, "int8", line, checked)
-    static_row = static_phase(Model(get_config(ARCH), attn_impl="pallas"), params, line,
-                              checked, tokens)
+    kernel_model = Model(get_config(ARCH), attn_impl="pallas")
+    static_row = static_phase(kernel_model, params, line, checked, tokens)
+    prefill_route_ab_phase(kernel_model, params, line)
 
     eng, reqs, _, _ = _serve(model, params, "model")
     again = {r.rid: list(r.tokens) for r in reqs}
@@ -2522,7 +2735,8 @@ def main() -> int:
 
     decode_kernel = "src/repro/kernels/flash_attention/decode_kernel.py"
     replaces = {
-        "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:76",
+        "flash_attention_fwd_wgmma": "src/repro/kernels/flash_attention/kernel.py:76",
+        "flash_attention_fwd_cuda_core": "src/repro/kernels/flash_attention/kernel.py:76",
         "flash_decode_bf16": f"{decode_kernel}:233",
         "flash_decode_int8": f"{decode_kernel}:233",
         "flash_decode_paged_bf16": f"{decode_kernel}:155",
@@ -2534,7 +2748,8 @@ def main() -> int:
     }
     csrc = "src/repro_torch/kernels/csrc"
     sources = {
-        "flash_attention_fwd": f"{csrc}/flash_attention_fwd.cu",
+        "flash_attention_fwd_wgmma": f"{csrc}/flash_attention_wgmma.cu",
+        "flash_attention_fwd_cuda_core": f"{csrc}/flash_attention_fwd.cu",
         "flash_decode_bf16": f"{csrc}/flash_decode.cu",
         "flash_decode_int8": f"{csrc}/flash_decode.cu",
         "flash_decode_paged_bf16": f"{csrc}/flash_decode.cu",
@@ -2544,11 +2759,14 @@ def main() -> int:
         "ssd_scan": f"{csrc}/ssd_scan.cu",
         "rmsnorm": f"{csrc}/rmsnorm.cu",
     }
-    # each kernel's launches on its main path: the 48-layer static loop,
-    # the slot decode without an arena (int8), the 48-layer engine, the
-    # 48-layer Mamba-2 forward, the 4-layer Trainer's 5 steps, the
+    # each kernel's launches on its main path: the 48-layer static loop
+    # (kernel #1's tensor-core route), the f32 attention call (its CUDA-core
+    # route), the slot decode without an arena (int8), the 48-layer engine,
+    # the 48-layer Mamba-2 forward, the 4-layer Trainer's 5 steps, the
     # full-width DDL Trainer's 3 steps (rank 0)
-    launches = {"flash_attention_fwd": static_row["launches"]["flash_attention"],
+    launches = {"flash_attention_fwd_wgmma": static_row["launches"]["flash_attention_wgmma"],
+                "flash_attention_fwd_cuda_core":
+                    f32_attention_row["launches"]["flash_attention_cuda_core"],
                 "flash_decode_bf16": static_row["launches"]["flash_decode"],
                 "flash_decode_int8": slot_launches["int8"],
                 "flash_decode_paged_bf16": model_row["decode_launches"],
@@ -2566,6 +2784,8 @@ def main() -> int:
                     "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
                     "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                     "library_ms": main_row["library_ms"]})
+    emit({"phase": "sass_summary", "kernel": "fa_wgmma_kernel",
+          "hgmma_total": sass_row["hgmma_total"], "hgmma": sass_row["hgmma"]})
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,18 @@ void flash_attention(const torch::Tensor& q, const torch::Tensor& k, const torch
   check_launch(err, "flash_attention");
 }
 
+void flash_attention_wgmma(const torch::Tensor& q, const torch::Tensor& k,
+                           const torch::Tensor& v, torch::Tensor out, bool causal,
+                           int64_t window, int64_t q_offset, double sm_scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  TORCH_CHECK(q.scalar_type() == torch::kBFloat16, "flash_attention_wgmma takes bf16");
+  const int err = repro::flash_attention_wgmma(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q.size(0), q.size(1),
+      k.size(1), q.size(2), k.size(2), q.size(3), causal, static_cast<int>(window),
+      static_cast<int>(q_offset), static_cast<float>(sm_scale), current_stream());
+  check_launch(err, "flash_attention_wgmma");
+}
+
 const float* scale_ptr(const std::optional<torch::Tensor>& s) {
   return s.has_value() ? s->data_ptr<float>() : nullptr;
 }
@@ -112,6 +124,8 @@ void ssd_scan(const torch::Tensor& x, const torch::Tensor& dt, const torch::Tens
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention", &flash_attention, "flash attention forward into out");
+  m.def("flash_attention_wgmma", &flash_attention_wgmma,
+        "flash attention forward on the tensor cores (bf16) into out");
   m.def("flash_decode", &flash_decode, "slot-contiguous flash-decode into out");
   m.def("flash_decode_paged", &flash_decode_paged, "paged flash-decode into out");
   m.def("quantize_rows", &quantize_rows, "per-row int8 quantize into q, scale");

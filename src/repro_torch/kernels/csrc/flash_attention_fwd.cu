@@ -1,4 +1,8 @@
-// Flash attention forward (prefill) for Hopper (sm_90a).
+// Flash attention forward (prefill) for Hopper (sm_90a) on the CUDA cores:
+// the route for f32 inputs and for head widths other than 64, 128 and 256.
+// bf16 at those widths (every config's prefill) takes the tensor-core
+// kernel, flash_attention_wgmma.cu; the wrapper
+// (kernels/flash_attention/ops.py `flash_attention_cuda`) picks the route.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py `flash_attention_fwd`
 // (body `_fa_kernel`), reached by the whole-prompt prefill of
@@ -10,8 +14,10 @@
 //   o[b, i, h] = softmax_t((q[b, i, h] / sqrt(D)) . k[b, t, kvh]) . v[b, t, kvh]
 // over the keys t < Skv that the masks leave: t <= p when causal, and
 // t > p - window when window > 0. A row with no such key returns the mean
-// of v over all Skv keys of its kv head, as the TPU kernel does (its masked
-// scores are a finite -1e30, so such a row's softmax is uniform). q, k, v
+// of v over all Skv keys of its kv head, as the JAX package's oracle
+// `flash_attention_ref` does (its masked scores are a finite -1e30, so such
+// a row's softmax is uniform); the TPU kernel masks the padded keys of a
+// ragged last block too, and there averages over the padded length. q, k, v
 // and o stay in the model layout
 // [B, S, heads, D]: the kernel computes each row's offset from the strides
 // of that layout, so the call needs no transposes.

@@ -20,6 +20,11 @@ enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 int flash_attention(const void* q, const void* k, const void* v, void* out, DType dtype, int B,
                     int Sq, int Skv, int H, int K, int D, bool causal, int window, int q_offset,
                     float sm_scale, void* stream);
+// Its tensor-core route (flash_attention_wgmma.cu): the same contract for
+// bf16 tensors with D 64, 128 or 256.
+int flash_attention_wgmma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                          int Skv, int H, int K, int D, bool causal, int window, int q_offset,
+                          float sm_scale, void* stream);
 
 // Flash-decode (flash_decode.cu): q/out [B,H,D]; caches of q's dtype, or
 // int8 codes with f32 per-row scales; kv_len [B].

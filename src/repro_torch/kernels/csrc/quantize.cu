@@ -24,6 +24,11 @@
 // package's `amax / 127.0` into exactly that multiplication; x / scale is
 // an IEEE division (no fast math); rintf rounds half to even as
 // torch.round and jnp.round do; the clamp and int8 conversion are exact.
+// Non-finite rows take the reference's values: the amax keeps a NaN (as
+// jnp.max and torch.amax do), so a row holding one gets scale 1; a NaN
+// quotient (a NaN element, or an infinity over an infinite scale) gets
+// code 0, as the JAX package's jitted float -> int8 conversion gives; so a
+// row holding an infinity and no NaN gets scale inf and all codes 0.
 
 #include "common.cuh"
 
@@ -31,6 +36,13 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr float kInv127 = 1.0f / 127.0f;   // rounded to f32 at compile time
+
+// max that returns NaN when either operand is one (fmaxf drops it)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
 
 template <typename T>
 __global__ void quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
@@ -40,13 +52,14 @@ __global__ void quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict
   if (row >= rows) return;
   const T* xr = x + static_cast<size_t>(row) * cols;
   float amax = 0.f;
-  for (int c = lane; c < cols; c += 32) amax = fmaxf(amax, fabsf(repro::to_f32(xr[c])));
-  amax = repro::warp_max(amax);
-  const float s = amax > 0.f ? amax * kInv127 : 1.f;
+  for (int c = lane; c < cols; c += 32) amax = max_nan(amax, fabsf(repro::to_f32(xr[c])));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) amax = max_nan(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float s = amax > 0.f ? amax * kInv127 : 1.f;   // NaN > 0 is false: scale 1
   int8_t* qr = q + static_cast<size_t>(row) * cols;
   for (int c = lane; c < cols; c += 32) {
     const float v = rintf(repro::to_f32(xr[c]) / s);
-    qr[c] = static_cast<int8_t>(fminf(fmaxf(v, -127.f), 127.f));
+    qr[c] = v != v ? 0 : static_cast<int8_t>(fminf(fmaxf(v, -127.f), 127.f));
   }
   if (lane == 0) scale[row] = s;
 }

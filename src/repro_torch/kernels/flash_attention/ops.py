@@ -2,15 +2,19 @@
 tensors the hand-written kernels, which replace the JAX package's Pallas
 kernels:
 
-- `flash_attention` (csrc/flash_attention_fwd.cu) — `flash_attention_fwd`,
-  the whole-prompt prefill;
+- `flash_attention` — `flash_attention_fwd`, the whole-prompt prefill, by
+  two routes: bf16 at head_dim 64, 128 or 256 on the tensor cores
+  (csrc/flash_attention_wgmma.cu), everything else on the CUDA cores
+  (csrc/flash_attention_fwd.cu);
 - `flash_decode` (csrc/flash_decode.cu, slot-contiguous caches) —
   `flash_decode_fwd`, the static loop's decode and slot decode without a
   page arena;
 - `flash_decode_paged` (csrc/flash_decode.cu, page arena) —
   `flash_decode_paged_fwd`, the serve engine's decode.
 
-Every `*_cuda` launcher counts its launches in `.launches`.
+Every `*_cuda` launcher counts its launches in `.launches`;
+`flash_attention_cuda` also counts each route's, in `.wgmma_launches` and
+`.cuda_core_launches`.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
 
 MAX_GROUP = 8     # query heads per kv head a decode block holds (csrc kMaxG)
 MAX_HEAD_DIM = 256   # largest head_dim the prefill kernel takes (csrc kMaxD)
+WGMMA_HEAD_DIMS = (64, 128, 256)   # head_dims of the tensor-core route (bf16)
 
 
 def _kv_len_vector(kv_len, b: int, device) -> torch.Tensor:
@@ -45,8 +50,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """Prefill attention in the model layout: q [B,S,H,D], k/v [B,Skv,K,D]
     -> [B,S,H,D]. q_offset: absolute kv position of query row 0 (None: the
     end of kv when causal, else 0). A query row with no visible key returns
-    the mean of v over all Skv keys of its kv head, as the JAX kernel
-    does."""
+    the mean of v over all Skv keys of its kv head, as the JAX package's
+    oracle `flash_attention_ref` does. (Its Pallas kernel masks the padded
+    kv positions of a ragged Skv too, so there it returns Skv / (nk *
+    block_k) times that mean.)"""
     if on_cpu(q, k, v):
         o = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=causal,
@@ -58,9 +65,21 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          q_offset=None):
-    """Launch the CUDA kernel on the model layout (no transposes): q
+    """Launch a CUDA kernel on the model layout (no transposes): q
     [B,S,H,D] bf16/f32, k/v [B,Skv,K,D] of q's dtype, all contiguous on one
-    card; H a multiple of K; D a multiple of 32, at most 256."""
+    card; H a multiple of K; D a multiple of 32, at most 256.
+
+    The route goes by dtype and D: bf16 with D in WGMMA_HEAD_DIMS (the
+    head widths of the repo's configs) takes the tensor-core kernel
+    (csrc/flash_attention_wgmma.cu: wgmma fed by TMA, P rounded to bf16
+    for the P.V product); f32, or bf16 at another D, the CUDA-core kernel
+    (csrc/flash_attention_fwd.cu, all f32), since bf16 operands cannot hold
+    an f32 result to 1e-5. Neither falls back to the other: a failed build
+    or launch raises. Neither has a backward (nor has the JAX kernel): it
+    raises when autograd would need one."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("the flash-attention kernel has no backward (nor has the JAX "
+                           "package's); take gradients through attn_impl='blockwise'")
     dev = q.device
     require(q, "q", dtypes=(torch.bfloat16, torch.float32), ndim=4, device=dev)
     require(k, "k", dtypes=(q.dtype,), ndim=4, device=dev)
@@ -84,9 +103,14 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         return out
     if skv == 0:
         return out.zero_()
+    args = (q, k, v, out, bool(causal), int(window), int(q_offset), 1.0 / math.sqrt(d))
     # launches on the current stream, raises if the launch failed
-    _build.extension().flash_attention(q, k, v, out, bool(causal), int(window),
-                                       int(q_offset), 1.0 / math.sqrt(d))
+    if q.dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        _build.extension().flash_attention_wgmma(*args)
+        flash_attention_cuda.wgmma_launches += 1
+    else:
+        _build.extension().flash_attention(*args)
+        flash_attention_cuda.cuda_core_launches += 1
     flash_attention_cuda.launches += 1
     return out
 
@@ -209,5 +233,7 @@ def flash_decode_paged_cuda(q, k_pages, v_pages, kv_len, page_table, *,
 
 # launches of the CUDA kernels; a run resets them to 0 and reads them back
 flash_attention_cuda.launches = 0
+flash_attention_cuda.wgmma_launches = 0
+flash_attention_cuda.cuda_core_launches = 0
 flash_decode_cuda.launches = 0
 flash_decode_paged_cuda.launches = 0

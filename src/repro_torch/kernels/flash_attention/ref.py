@@ -32,10 +32,12 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     output is cast once, as in the JAX oracle.
 
     A query row with no visible key returns the mean of v over all Skv keys
-    of its kv head, as the JAX package's oracle and Pallas kernel do: the
-    masked scores are a finite -1e30, so the softmax of such a row is
-    uniform. The model's prefill (causal, q_offset 0, Sq == Skv) never
-    makes such a row."""
+    of its kv head, as the JAX package's oracle `flash_attention_ref` does:
+    the masked scores are a finite -1e30, so the softmax of such a row is
+    uniform. Its Pallas kernel agrees where Skv is a multiple of its
+    block_k; otherwise it masks the padded keys of the last block with
+    -1e30 too and returns Skv / (nk * block_k) times that mean. The model's
+    prefill (causal, q_offset 0, Sq == Skv) never makes such a row."""
     b, h, sq, d = q.shape
     kh, skv = k.shape[1], k.shape[2]
     g = h // kh

@@ -11,11 +11,16 @@ INV_127 = float(np.float32(1.0) / np.float32(127.0))
 
 
 def quantize_ref(x):
-    """x [rows, cols] float -> (q int8 [rows, cols], scale f32 [rows])."""
+    """x [rows, cols] float -> (q int8 [rows, cols], scale f32 [rows]).
+    Non-finite rows as `jax.jit(quantize_ref)` of the JAX package gives: the
+    amax keeps a NaN, so a row holding one gets scale 1; a NaN quotient (a
+    NaN element, or an infinity over an infinite scale) gets code 0. The
+    cast of a NaN to int8 is undefined in C++, so that 0 is explicit."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1)
     scale = torch.where(amax > 0, amax * INV_127, torch.ones_like(amax))
-    q = torch.clamp(torch.round(xf / scale[:, None]), -127, 127).to(torch.int8)
+    r = torch.clamp(torch.round(xf / scale[:, None]), -127, 127)
+    q = torch.where(torch.isnan(r), torch.zeros_like(r), r).to(torch.int8)
     return q, scale
 
 

@@ -175,6 +175,70 @@ def test_compress_decompress_match_jax_bitwise(ref, n, dtype):
         assert np.array_equal(bits(got.float()), bits(np.asarray(want, np.float32)))
 
 
+class _TwoPods:
+    """A mesh of two pods in one process: all_gather returns both pods'
+    codes (int8) or scales (f32), as the pod hop's gather would."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def size(self, axis):
+        return len(self.parts)
+
+    def all_gather(self, t, axis):
+        return torch.cat([q if t.dtype == torch.int8 else s for q, s in self.parts])
+
+
+def _pod_hops(ref, xs):
+    """The compressed pod hop over two pods' flat f32 gradients xs [2, n]
+    in both packages, emulated in one process: the JAX package's
+    `compressed_allreduce_pod` jitted under vmap over the pod axis, and the
+    port's with a two-pod stand-in for the mesh. -> (port's sum on each
+    pod, JAX's [2, n], the port's (codes, scales) of each pod)."""
+    jax, jnp = ref.jax, ref.jnp
+    from repro.core.ddl.compress import compressed_allreduce_pod as jax_pod_hop
+    want = np.asarray(jax.jit(jax.vmap(lambda x: jax_pod_hop(x, "pod")[0],
+                                       axis_name="pod"))(jnp.asarray(xs)))
+    mesh = _TwoPods([comp.compress(torch.from_numpy(x)) for x in xs])
+    got = [comp.compressed_allreduce_pod(torch.from_numpy(x), "pod", mesh=mesh)[0].numpy()
+           for x in xs]
+    return got, want, mesh.parts
+
+
+def test_pod_hop_hides_a_nan_gradient_in_both_packages(ref):
+    """A NaN in one pod's gradient does not survive the compressed pod hop
+    in either package: its row quantizes to scale 1 with code 0 for the
+    NaN (the other values rounded to integers), so the sum is finite, and
+    so is the grad norm taken after the reduction: it hides the step that
+    made the NaN. An infinity does not hide: its row quantizes to scale inf
+    with codes 0, and 0 * inf dequantizes to NaN over the whole 1024-value
+    row, in both packages. The port agrees with the JAX package within the
+    FMA bound of test_compressed_collectives_match_jax, NaN for NaN."""
+    rng = np.random.default_rng(3)
+    xs = rng.standard_normal((2, 3000)).astype(np.float32)
+    xs[0, 5] = np.nan                      # pod 0, row 0 of 1024
+    xs[1, 1500] = np.nan                   # pod 1, row 1
+    got, want, parts = _pod_hops(ref, xs)
+    assert np.array_equal(bits(got[0]), bits(got[1]))        # both pods hold the same sum
+    for total in (got[0], want[0], want[1]):
+        assert np.isfinite(total).all() and np.isfinite(np.linalg.norm(total))
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=2.0 ** -21 * np.abs(want[0]).max())
+    (q0, s0), (q1, s1) = parts
+    assert s0[0] == 1.0 and q0[0, 5] == 0 and s1[1] == 1.0 and q1[1, 1500 - 1024] == 0
+    assert np.array_equal(bits(got[0][:1024]),                 # pod 0's NaN row at scale 1
+                          bits(q0[0].float().numpy() + comp.decompress(q1, s1, 1024).numpy()))
+
+    xs[0, 2500] = np.inf                   # pod 0, row 2: the infinity poisons its row
+    got, want, parts = _pod_hops(ref, xs)
+    q0, s0 = parts[0]
+    assert s0[2] == float("inf") and not q0[2].any()
+    for total in (got[0], want[0]):
+        assert np.isnan(total[2048:]).all() and np.isfinite(total[:2048]).all()
+        assert np.isnan(np.linalg.norm(total))
+    np.testing.assert_allclose(got[0], want[0], rtol=0,
+                               atol=2.0 ** -21 * np.abs(want[0][:2048]).max())
+
+
 def test_compress_in_pod_slices_equals_the_whole_leaf():
     """The pod hop compresses a shard in POD_SLICE = 2**24-element slices:
     2**24 is a multiple of the row, so the slices' codes and scales are the

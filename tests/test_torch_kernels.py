@@ -18,7 +18,9 @@ import torch
 
 from tests.test_torch_ref import jax_ref, jax_ref_scope  # noqa: F401 (autouse fixture)
 
+from repro_torch.kernels import _build
 from repro_torch.kernels._dispatch import on_cpu
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref,
                                                  flash_decode,
@@ -113,6 +115,8 @@ ATTN_CASES = [
     (2, 3, 3, 24, 50, 32, 8, 10, 16),        # G=1, window, positive offset
     (1, 10, 2, 40, 24, 16, 0, None, 256),    # Sq > Skv: 16 rows see no key
     (1, 4, 2, 33, 33, 16, 5, 0, 8),          # window, ragged
+    (1, 10, 2, 40, 24, 16, 0, None, 16),     # rows without a key, Skv ragged to the block
+    (1, 10, 2, 40, 20, 16, 0, None, 16),     # ... 20 such rows, 20 of 32 padded keys real
 ]
 
 
@@ -122,8 +126,14 @@ def test_flash_attention_plain_matches_jax(case, dtype):
     """The port's flash_attention on CPU tensors (model layout) against the
     JAX Pallas kernel in interpret mode and its oracle (kernel layout),
     every row: f32 to 1e-5, bf16 to one bf16 ulp. A row with no visible
-    key is the mean of v over all keys of its kv head on all three (the
-    masked scores are a finite -1e30, so its softmax is uniform)."""
+    key is the mean of v over all Skv keys of its kv head in the port and
+    the oracle (the masked scores are a finite -1e30, so its softmax is
+    uniform). The Pallas kernel masks the padded keys of a ragged last
+    block with -1e30 too, so there it averages over nk * block_k keys, the
+    padded ones zero: Skv / (nk * block_k) times the mean (0.75 at Skv 24,
+    block 16). Where Skv fills its blocks the three agree on those rows;
+    where it does not, the kernel is held to that scaled mean, and its
+    distance from the port is that of the mean it drops."""
     ref = jax_ref()
     jnp = ref.jnp
     b, h, kh, sq, skv, d, window, q_offset, blk = case
@@ -144,10 +154,22 @@ def test_flash_attention_plain_matches_jax(case, dtype):
     off = skv - sq if q_offset is None else q_offset
     seen = attention_mask(sq, skv, "cpu", causal=True, window=window,
                           q_offset=off).any(dim=-1).numpy()
+    bk = min(blk, skv)
+    padded = -(-skv // bk) * bk                     # the kernel's kv length
     for name, want in (("kernel", kern), ("oracle", oracle)):
         want = np.asarray(want).astype(np.float32).transpose(0, 2, 1, 3)
         _close(got[:, seen], want[:, seen], dtype, name)
-        _close(got[:, ~seen], want[:, ~seen], dtype, name + " (rows without a key)")
+        if name == "oracle" or padded == skv or seen.all():
+            _close(got[:, ~seen], want[:, ~seen], dtype, name + " (rows without a key)")
+        else:
+            # the inputs as both sides saw them, summed over the real keys
+            vin = torch.from_numpy(v).to(tdt).double().numpy()
+            vsum = np.repeat(vin.sum(axis=1), h // kh, axis=1)       # [b, h, d]
+            scaled = np.broadcast_to((vsum / padded)[:, None], want[:, ~seen].shape)
+            _close(want[:, ~seen], scaled.astype(np.float32), dtype, "kernel's scaled mean")
+            lost = np.abs(vsum / skv - vsum / padded).max()
+            assert lost > 0.05
+            assert np.abs(got[:, ~seen] - want[:, ~seen]).max() == pytest.approx(lost, rel=0.02)
     assert (~seen).sum() == min(sq, max(0, -off))   # causal rows before key 0
 
 
@@ -280,6 +302,44 @@ def test_quantize_plain_matches_jax_bitwise(dtype):
     assert q[5, 1:6].tolist() == [0, 2, 2, 0, -2]  # half to even
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_plain_matches_jax_on_nonfinite_rows(dtype):
+    """Rows holding NaN and infinities: the port's plain quantizer against
+    the JAX package's jitted `quantize_ref` and its Pallas kernel in
+    interpret mode, bitwise. A row holding a NaN gets scale 1 and its NaN
+    elements code 0; a row holding an infinity and no NaN gets scale inf
+    and all codes 0 (each quotient is 0, or inf / inf = NaN); the CUDA
+    kernel takes the same values (chip_smoke.py holds it to this plain
+    version on such rows)."""
+    ref = jax_ref()
+    jnp = ref.jnp
+    nan, inf = np.nan, np.inf
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((8, 64)) * 3).astype(np.float32)
+    x[0, 7] = nan                                # a NaN among finite values
+    x[1, 0] = inf
+    x[2, 63] = -inf
+    x[3, :2] = [inf, -inf]
+    x[4, :3] = [nan, inf, -inf]                  # NaN with both infinities
+    x[5] = nan
+    x[6, 10] = 300.0                             # a finite row, for contrast
+    tdt = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(tdt)
+    x_in = jnp.asarray(xt.float().numpy(), dtype)
+    q, s = quantize(xt)
+    jq, js = ref.jax.jit(ref.q_ref.quantize_ref)(x_in)
+    kq, ks = ref.q_kernel.quantize_fwd(x_in, interpret=True)
+    for wq, ws in ((jq, js), (kq, ks)):
+        assert np.array_equal(q.numpy(), np.asarray(wq))
+        assert np.array_equal(s.numpy().view(np.uint32),
+                              np.asarray(ws).astype(np.float32).view(np.uint32))
+    assert s[[0, 4, 5]].tolist() == [1.0, 1.0, 1.0]
+    assert s[[1, 2, 3]].tolist() == [inf, inf, inf] and not q[1:4].any()
+    assert q[0, 7] == 0 and q[4, 0] == 0 and not q[5].any()
+    assert q[4, 1:3].tolist() == [127, -127]     # +-inf / 1, clipped
+    assert torch.equal(q[0, :7], torch.round(xt[0, :7].float()).clamp(-127, 127).to(torch.int8))
+
+
 def test_dispatch_goes_by_device():
     x = torch.randn(4, 8)
     assert all(torch.equal(a, b) for a, b in zip(quantize(x), quantize_ref(x)))
@@ -315,6 +375,100 @@ def test_flash_attention_launcher_rejects_what_the_kernel_does_not_take(args, er
     """The CUDA launcher's checks run before anything is built or launched."""
     with pytest.raises(err, match=match):
         flash_attention_cuda(*args)
+
+
+class _AttentionExtension:
+    """Stands in for the built extension: records which kernel entry each
+    launch reaches and computes the plain version into `out`."""
+
+    def __init__(self):
+        self.entries = []
+
+    def _attend(self, entry, q, k, v, out, causal, window, q_offset, sm_scale):
+        assert sm_scale == pytest.approx(q.shape[-1] ** -0.5)
+        self.entries.append(entry)
+        out.copy_(flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                      causal=causal, window=window,
+                                      q_offset=q_offset).transpose(1, 2))
+
+    def flash_attention(self, *args):
+        self._attend("cuda_core", *args)
+
+    def flash_attention_wgmma(self, *args):
+        self._attend("wgmma", *args)
+
+
+@pytest.fixture
+def attention_extension(monkeypatch):
+    """CPU tensors routed as CUDA ones: `on_cpu` says False, and the
+    extension is the stand-in above."""
+    ext = _AttentionExtension()
+    monkeypatch.setattr(_build, "extension", lambda: ext)
+    monkeypatch.setattr(fa_ops, "on_cpu", lambda *tensors: False)
+    return ext
+
+
+def _route_counts():
+    f = flash_attention_cuda
+    return f.launches, f.wgmma_launches, f.cuda_core_launches
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    ("bfloat16", 64, "wgmma"), ("bfloat16", 128, "wgmma"), ("bfloat16", 256, "wgmma"),
+    ("float32", 64, "cuda_core"), ("float32", 128, "cuda_core"), ("float32", 256, "cuda_core"),
+    ("bfloat16", 96, "cuda_core"), ("bfloat16", 32, "cuda_core"), ("bfloat16", 160, "cuda_core"),
+])
+def test_flash_attention_routes_by_dtype_and_head_dim(attention_extension, dtype, d, route):
+    """`flash_attention` on tensors that count as CUDA ones launches through
+    `flash_attention_cuda`: bf16 at head_dim 64/128/256 reaches the
+    tensor-core entry, f32 or another head_dim the CUDA-core one, once;
+    the total and that route's count each rise by one; the output is what
+    the entry wrote."""
+    tdt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(d)
+    q = torch.randn(2, 9, 4, d, generator=g).to(tdt)
+    k = torch.randn(2, 13, 2, d, generator=g).to(tdt)
+    v = torch.randn(2, 13, 2, d, generator=g).to(tdt)
+    before = _route_counts()
+    out = fa_ops.flash_attention(q, k, v, causal=True, window=5, q_offset=3)
+    after = _route_counts()
+    assert attention_extension.entries == [route]
+    assert after[0] - before[0] == 1
+    assert (after[1] - before[1], after[2] - before[2]) == ((1, 0) if route == "wgmma" else (0, 1))
+    want = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                               window=5, q_offset=3).transpose(1, 2)
+    assert out.dtype == tdt and torch.equal(out, want)
+
+
+@pytest.mark.parametrize("dtype,d,err,match", [
+    ("bfloat16", 48, ValueError, "multiple of 32"),
+    ("float32", 288, ValueError, "at most 256"),
+    ("float16", 128, TypeError, "dtype"),
+])
+def test_flash_attention_neither_route_takes(attention_extension, dtype, d, err, match):
+    """What neither kernel takes raises before any launch or count."""
+    tdt = getattr(torch, dtype)
+    q, k = torch.zeros(1, 8, 4, d, dtype=tdt), torch.zeros(1, 8, 2, d, dtype=tdt)
+    before = _route_counts()
+    with pytest.raises(err, match=match):
+        fa_ops.flash_attention(q, k, k)
+    assert attention_extension.entries == [] and _route_counts() == before
+
+
+def test_flash_attention_launcher_has_no_backward(attention_extension):
+    """Like the JAX kernel (and the SSD scan launcher), the launcher has no
+    backward: with autograd on and an input that needs a gradient it
+    raises before launching; under no_grad, or with inputs that need
+    none, it launches."""
+    q = torch.randn(1, 8, 4, 64, dtype=torch.bfloat16, requires_grad=True)
+    k = torch.randn(1, 8, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention_cuda(q, k, k)
+    assert attention_extension.entries == []
+    with torch.no_grad():
+        flash_attention_cuda(q, k, k)
+    flash_attention_cuda(q.detach(), k, k)
+    assert attention_extension.entries == ["wgmma", "wgmma"]
 
 
 def test_flash_decode_launcher_rejects_what_the_kernel_does_not_take():
