@@ -8,12 +8,20 @@ non-zero, printing no result):
 
 1. device — the card's name and power limit as nvidia-smi gives them (also
    printed raw on a line of its own);
-2. build — the CUDA kernels built from the repo's sources (seconds);
+2. build — the CUDA kernels built from the repo's sources (seconds), and
+   the tensor-core instructions in their SASS (HGMMA in the prefill
+   kernel, HMMA in the decode kernel);
 3. kernels — each kernel on the card against its plain PyTorch version at
    every shape the paths below give it and at a long-context shape, with
    its time, the plain version's, the least time the card could take
    (bound) and, where one exists, one PyTorch call computing the same
    function (SDPA, F.rms_norm) as a yardstick, never called by the port;
+   the decode rows take every kernel one call launches (split and
+   combine) by torch.profiler, beside the CUDA-event wall time, with the
+   route and splits, and SDPA's device time likewise; the decode entries
+   also run under torch.cuda.set_sync_debug_mode("error") (no host sync
+   in a call), and the decode route of f32 tensors (the CUDA cores) on its
+   own path;
    the quantize, dequantize, RMSNorm and SSD scan rows also take the
    kernel's device time from torch.profiler (quantize and dequantize also
    at DDL's pod-hop slices, bitwise); SSD rows with dt in a trained model's range
@@ -72,9 +80,11 @@ Every run of a path records the shape of each kernel call and fails on one
 the kernel phases did not check, and its launch counts (flash attention's
 also by route) are reset just before and read just after: the static
 loop's, the engine's whole-prompt prefill's and `Model.forward`'s attention
-launches must all take the tensor-core route. The line before the last
-lists every ported kernel (flash attention once per route) with its
-launches on the main path; the last line is {"ok": true, "device": {...}}.
+launches must all take the tensor-core route, and so must every decode
+launch of the engine, the static loop and the slot decode. The line before
+the last lists every ported kernel (flash attention and decode once per
+route) with its launches on the main path; the last line is {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -182,6 +192,42 @@ def device_ms(fn, kernel: str, iters: int = 20, attempts: int = 3) -> float:
                          f"sessions, not {iters}")
 
 
+def device_ms_per_call(fn, iters: int = 20, attempts: int = 3):
+    """Mean device time of one call of fn(), summed over every CUDA kernel
+    (and copy or fill) the call launches, over `iters` calls under
+    torch.profiler: a call that launches a split kernel and its combine,
+    or SDPA's own kernels, is timed whole, and the wrapper's host time is
+    left out. -> (ms, device operations a call, {kernel: ms a call}). A
+    session whose count of operations is not a positive multiple of
+    `iters` is reported and run again, up to `attempts` sessions."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.profiler.kineto_results.events()
+               if ev.device_type() == DeviceType.CUDA]
+        if evs and len(evs) % iters == 0:
+            by = {}
+            for ev in evs:   # short names: "fd_mma_kernel", "fd_combine_kernel", ...
+                name = re.sub(r"[<(].*", "", ev.name().replace("(anonymous namespace)", ""))
+                name = name.split("::")[-1].split()[-1]
+                by[name] = by.get(name, 0.0) + ev.duration_ns() / iters / 1e6
+            return sum(by.values()), len(evs) // iters, by
+        seen.append(len(evs))
+        emit({"phase": "profiler_miss", "kernel": "per call", "launches": iters,
+              "recorded": len(evs)})
+    raise AssertionError(f"the profiler saw {seen} device operations for {iters} calls "
+                         f"in {attempts} sessions")
+
+
 def bf16_row_ulp(o):
     """One bf16 ulp (8 significand bits) at each output row's largest |o|.
     Per row, not per element: an output near zero is a sum that cancels,
@@ -228,10 +274,11 @@ def build_phase():
 
 
 def sass_phase():
-    """The HGMMA (wgmma) instructions in the built extension's SASS, by
-    instance of the tensor-core flash-attention kernel (`fa_wgmma_kernel<D>`),
-    from `cuobjdump -sass`: fails if there are none, since that route must
-    run on the tensor cores."""
+    """The tensor-core instructions in the built extension's SASS, from
+    `cuobjdump -sass`: HGMMA (wgmma) by instance of the flash-attention
+    kernel (`fa_wgmma_kernel<D>`) and HMMA (mma.sync) in the decode kernel
+    (`fd_mma_kernel`). Fails if either has none, since both routes must run
+    on the tensor cores."""
     import re
     import shutil
     from repro_torch.kernels import _build
@@ -239,7 +286,7 @@ def sass_phase():
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    counts, fn = {}, None
+    counts, hmma, fn = {}, 0, None
     for text in sass.splitlines():
         if "Function :" in text:
             fn = text.split("Function :", 1)[1].strip()
@@ -247,34 +294,41 @@ def sass_phase():
             d = re.search(r"fa_wgmma_kernelILi(\d+)E", fn)
             key = f"head_dim_{d.group(1)}" if d else fn
             counts[key] = counts.get(key, 0) + 1
+        elif fn and "fd_mma_kernel" in fn and "HMMA" in text:
+            hmma += 1
     row = {"phase": "sass", "library": os.path.relpath(lib, ROOT),
-           "kernel": "fa_wgmma_kernel", "hgmma": counts, "hgmma_total": sum(counts.values())}
+           "kernel": "fa_wgmma_kernel", "hgmma": counts, "hgmma_total": sum(counts.values()),
+           "decode_kernel": "fd_mma_kernel", "decode_hmma_total": hmma}
     emit(row)
     if not row["hgmma_total"]:
         raise AssertionError("the tensor-core flash-attention kernel has no HGMMA in its SASS")
+    if not hmma:
+        raise AssertionError("the tensor-core decode kernel has no HMMA in its SASS")
     return row
 
 
-def _decode_inputs(kv_lens, seed, paged: bool, pages=None, max_pages=None, smax=None):
-    """q + bf16 caches on the card. Paged: arenas and a scrambled table,
+def _decode_inputs(kv_lens, seed, paged: bool, pages=None, max_pages=None, smax=None,
+                   heads=H, kv_heads=K, d=D, dtype="bfloat16"):
+    """q + caches of `dtype` on the card. Paged: arenas and a scrambled table,
     each slot owning distinct random pages in random order; empty slots
     and unused entries point at the null page (the last row); spare pages
     and the null page hold garbage. `pages` (arena rows less the null page)
     and `max_pages` (table width) default to what kv_lens need, plus 8
-    spare pages. Contiguous: caches [B, smax, K, D] whose positions past
-    each kv_len hold garbage. -> (q, k, v, kv_len, table or None)."""
+    spare pages. Contiguous: caches [B, smax, kv_heads, d] whose positions
+    past each kv_len hold garbage. -> (q, k, v, kv_len, table or None)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     b = len(kv_lens)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
-    q = torch.randn((b, H, D), generator=gen, device=dev).bfloat16()
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, heads, d), generator=gen, device=dev).to(dt)
     kvl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
     if not paged:
         assert max(kv_lens) <= smax
-        k = torch.randn((b, smax, K, D), generator=gen, device=dev).bfloat16()
-        v = torch.randn((b, smax, K, D), generator=gen, device=dev).bfloat16()
+        k = torch.randn((b, smax, kv_heads, d), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, smax, kv_heads, d), generator=gen, device=dev).to(dt)
         return q, k, v, kvl, None
     need = sum(-(-n // PAGE) for n in kv_lens)
     max_pages = max_pages or -(-max(kv_lens) // PAGE)
@@ -287,13 +341,22 @@ def _decode_inputs(kv_lens, seed, paged: bool, pages=None, max_pages=None, smax=
         need = -(-n // PAGE)
         tab[i, :need] = perm[nxt:nxt + need]
         nxt += need
-    k = torch.randn((pages + 1, PAGE, K, D), generator=gen, device=dev).bfloat16()
-    v = torch.randn((pages + 1, PAGE, K, D), generator=gen, device=dev).bfloat16()
+    k = torch.randn((pages + 1, PAGE, kv_heads, d), generator=gen, device=dev).to(dt)
+    v = torch.randn((pages + 1, PAGE, kv_heads, d), generator=gen, device=dev).to(dt)
     return q, k, v, kvl, torch.from_numpy(tab).to(dev)
 
 
-def _sdpa_ms(q, kc, vc, kv_len):
-    """One SDPA call (GQA) on slot-contiguous caches: the yardstick."""
+def _quantize_cache(x):
+    """A cache [..., D] as int8 codes of its shape and f32 scales [...], by
+    the plain quantizer."""
+    from repro_torch.kernels.quantize.ref import quantize_ref
+    c, s = quantize_ref(x.reshape(-1, x.shape[-1]))
+    return c.reshape(x.shape), s.reshape(x.shape[:-1])
+
+
+def _sdpa(q, kc, vc, kv_len):
+    """One SDPA call (GQA) on slot-contiguous caches, the yardstick: -> a
+    function of no arguments that makes it."""
     import torch
     import torch.nn.functional as F
     s = kc.shape[1]
@@ -301,8 +364,7 @@ def _sdpa_ms(q, kc, vc, kv_len):
     ks, vs = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
     mask = (torch.arange(s, device=q.device)[None, :] < kv_len[:, None].long()
             )[:, None, None, :]
-    return time_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask, enable_gqa=True))
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
 
 
 # What each kernel's launch depends on besides the data: a run of a path
@@ -315,6 +377,16 @@ def attention_route(q) -> str:
     import torch
     return ("wgmma" if q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128, 256)
             else "cuda_core")
+
+
+def decode_route(q, k) -> str:
+    """The route of kernels #2 and #3 a CUDA call should take, as the
+    wrappers' docstrings state it: bf16 q at head_dim 64, 128 or 256 with
+    at most 16 query heads per kv head on the tensor cores (mma.sync),
+    everything else on the CUDA cores. q [B,H,D]; k the cache or arena."""
+    import torch
+    return ("tensor_core" if q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128, 256)
+            and q.shape[1] // k.shape[2] <= 16 else "cuda_core")
 
 
 def attention_sig(q, k, causal, window, q_offset):
@@ -353,28 +425,30 @@ def ssd_sig(x, B, chunk):
 
 
 def decode_kernel_phase(shape: str, kv_lens, int8: bool, seed: int, checked: set,
-                        paged: bool = True, pages=None, max_pages=None, smax=None):
+                        paged: bool = True, pages=None, max_pages=None, smax=None, *,
+                        heads=H, kv_heads=K, d=D, dtype="bfloat16"):
     """One decode kernel (paged, or slot-contiguous with `smax` positions)
     against its plain version: within one bf16 ulp of each output row's
-    largest |o|, and exact zeros for kv_len 0."""
+    largest |o| (f32: 1e-5 of it), and exact zeros for kv_len 0. The call
+    must take the route `decode_route` names; the row reports it, the
+    splits, the device time of one call (every kernel it launches, by
+    torch.profiler) and of SDPA on the same values, and the back-to-back
+    CUDA-event time (`wall_ms`, which reads the host's time where that is
+    the longer)."""
     import torch
-    from repro_torch.kernels.flash_attention.ops import (flash_decode_cuda,
-                                                         flash_decode_paged_cuda)
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (flash_decode_paged_ref,
                                                          flash_decode_ref, gather_pages)
-    from repro_torch.kernels.quantize.ref import quantize_ref
-    q, k, v, kvl, tab = _decode_inputs(kv_lens, seed, paged, pages, max_pages, smax)
+    q, k, v, kvl, tab = _decode_inputs(kv_lens, seed, paged, pages, max_pages, smax,
+                                       heads=heads, kv_heads=kv_heads, d=d, dtype=dtype)
     kw = {}
     if int8:
-        def quant(x):
-            c, s = quantize_ref(x.reshape(-1, D))
-            return c.reshape(x.shape), s.reshape(x.shape[:-1])
-        k, ks = quant(k)
-        v, vs = quant(v)
+        (k, ks), (v, vs) = _quantize_cache(k), _quantize_cache(v)
         kw = {"k_scale": ks, "v_scale": vs}
+    launcher = fa_ops.flash_decode_paged_cuda if paged else fa_ops.flash_decode_cuda
     if paged:
         def kernel():
-            return flash_decode_paged_cuda(q, k, v, kvl, tab, **kw)
+            return launcher(q, k, v, kvl, tab, **kw)
 
         def plain():
             return flash_decode_paged_ref(q, k, v, kvl, tab, **kw)
@@ -383,52 +457,163 @@ def decode_kernel_phase(shape: str, kv_lens, int8: bool, seed: int, checked: set
             return gather_pages(x, tab)
     else:
         def kernel():
-            return flash_decode_cuda(q, k, v, kvl, **kw)
+            return launcher(q, k, v, kvl, **kw)
 
         def plain():
             return flash_decode_ref(q, k, v, kvl, **kw)
 
         def dense(x):
             return x
+    counters = {r: f"{r}_launches" for r in ("tensor_core", "cuda_core")}
+    before = {r: getattr(launcher, a) for r, a in counters.items()}
     out = kernel()
     torch.cuda.synchronize()
+    took = [r for r, a in counters.items() if getattr(launcher, a) > before[r]]
+    name = (("flash_decode_paged_" if paged else "flash_decode_")
+            + ("int8" if int8 else {"bfloat16": "bf16", "float32": "f32"}[dtype]))
+    if took != [decode_route(q, k)]:
+        raise AssertionError(f"{name} {shape}: took route {took}, expected "
+                             f"{decode_route(q, k)}")
     want = plain()
     err = (out.float() - want.float()).abs()
-    ulps = (err / bf16_row_ulp(want)).max().item()
-    ok = ulps <= 1.0
+    if dtype == "bfloat16":
+        unit, tol = bf16_row_ulp(want), 1.0
+    else:
+        unit, tol = want.abs().float().amax(dim=-1, keepdim=True).clamp_min(1e-30), 1e-5
+    worst = (err / unit).max().item()
     zeros = bool((out[kvl == 0] == 0).all())
-    name = ("flash_decode_paged_" if paged else "flash_decode_") + ("int8" if int8 else "bf16")
-    if not (ok and zeros and torch.isfinite(out).all()):
+    if not (worst <= tol and zeros and torch.isfinite(out).all()):
         raise AssertionError(f"{name} {shape}: kernel vs plain max |diff| "
-                             f"{err.max().item()} ({ulps} row ulps), zeros={zeros}")
+                             f"{err.max().item()} ({worst} of the tolerance unit), "
+                             f"zeros={zeros}")
     checked.add(decode_sig(q, k, tab))
-    kernel_ms = time_ms(kernel)
+    capacity = tab.shape[1] * PAGE if paged else smax
+    b = len(kv_lens)
+    splits = (fa_ops.decode_splits(b, kv_heads, capacity, fa_ops._sm_count(q.device))[0]
+              if took[0] == "tensor_core" else 1)
+    kernel_ms, device_ops, by_kernel = device_ms_per_call(kernel)
+    wall_ms = time_ms(kernel)
     plain_ms = time_ms(plain, iters=10, warmup=2)
-    # the yardstick sees the same values as slot-contiguous bf16 caches
+    # the yardstick sees the same values as slot-contiguous caches of q's type
     kc, vc = dense(k), dense(v)
     if int8:
-        kc = (kc.float() * dense(ks)[..., None]).bfloat16()
-        vc = (vc.float() * dense(vs)[..., None]).bfloat16()
-    library_ms = _sdpa_ms(q, kc, vc, kvl)
-    b = len(kv_lens)
+        kc = (kc.float() * dense(ks)[..., None]).to(q.dtype)
+        vc = (vc.float() * dense(vs)[..., None]).to(q.dtype)
+    sdpa = _sdpa(q, kc, vc, kvl)
+    library_ms, library_ops, _ = device_ms_per_call(sdpa)
+    library_wall_ms = time_ms(sdpa)
     tokens = sum(kv_lens)
-    kv_bytes = tokens * K * D * (1 if int8 else 2) * 2
+    esize = q.element_size()
+    kv_bytes = tokens * kv_heads * d * (1 if int8 else esize) * 2
     if int8:
-        kv_bytes += tokens * K * 4 * 2
+        kv_bytes += tokens * kv_heads * 4 * 2
     table_bytes = sum(-(-n // PAGE) for n in kv_lens) * 4 if paged else 0
-    nbytes = 2 * b * H * D * 2 + kv_bytes + table_bytes + b * 4
-    flops = 4 * H * D * tokens + (2 * K * D * tokens * 2 if int8 else 0)
-    bound_ms, bound_by = bound(nbytes, flops)
-    row = {"phase": "kernel", "kernel": name, "shape": shape, "slots": b,
+    nbytes = 2 * b * heads * d * esize + kv_bytes + table_bytes + b * 4
+    flops = 4 * heads * d * tokens + (2 * kv_heads * d * tokens * 2 if int8 else 0)
+    peak = BF16_TENSOR_FLOPS_PER_S if took[0] == "tensor_core" else F32_FLOPS_PER_S
+    bound_ms, bound_by = bound(nbytes, flops, peak)
+    row = {"phase": "kernel", "kernel": name, "shape": shape, "route": took[0],
+           "splits": splits, "device_ops_per_call": device_ops,
+           "device_ms_by_kernel": by_kernel, "slots": b,
+           "heads": heads, "kv_heads": kv_heads, "head_dim": d, "dtype": dtype,
            "cache": list(k.shape), "kv_len_min": min(kv_lens), "kv_len_max": max(kv_lens),
-           "kv_tokens": tokens, "max_abs_err": err.max().item(), "max_row_ulps": ulps,
-           "tolerance": "1 bf16 ulp of each row's max |plain|",
-           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": library_ms,
-           "library": "F.scaled_dot_product_attention(enable_gqa=True)"}
+           "kv_tokens": tokens, "max_abs_err": err.max().item(),
+           "max_err_over_unit": worst,
+           "tolerance": ("1 bf16 ulp of each row's max |plain|" if dtype == "bfloat16"
+                         else "1e-5 of each row's max |plain|"),
+           "kernel_ms": kernel_ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / kernel_ms,
+           "library_ms": library_ms, "library_ops_per_call": library_ops,
+           "library_wall_ms": library_wall_ms,
+           "library": "F.scaled_dot_product_attention(enable_gqa=True)",
+           "timing": "kernel_ms, library_ms: device time a call (torch.profiler); "
+                     "wall_ms, library_wall_ms, plain_ms: CUDA events, back to back"}
     if paged:
         row["table_width"] = tab.shape[1]
     emit(row)
+    return row
+
+
+def decode_sync_phase(line):
+    """The decode entries (`flash_decode_paged`, `flash_decode`) at the
+    engine's shape and at long context, bf16 and int8, under
+    torch.cuda.set_sync_debug_mode("error"), which raises on any host
+    synchronisation inside the call; each output equals, bitwise, that of
+    the same call made outside the mode."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    rng = np.random.default_rng(SEED + 6)
+    long_lens = [int(n) for n in rng.integers(2048, 4097, 16)]
+    cases = []
+    for shape, lens, paged, kw in (
+            ("engine", [160, 97, 0, 33], True,
+             {"pages": DEVICE_PAGES, "max_pages": MAX_LEN // PAGE}),
+            ("static_decode", [144] * REQUESTS, False, {"smax": MAX_LEN}),
+            ("long_context", long_lens, True, {}),
+            ("long_context", long_lens, False, {"smax": 4096})):
+        for int8 in (False, True):
+            q, k, v, kvl, tab = _decode_inputs(lens, 60 + len(cases), paged, **kw)
+            extra = {}
+            if int8:
+                (k, ks), (v, vs) = _quantize_cache(k), _quantize_cache(v)
+                extra = {"k_scale": ks, "v_scale": vs}
+            call = ((lambda q=q, k=k, v=v, kvl=kvl, tab=tab, extra=extra:
+                     fa_ops.flash_decode_paged(q, k, v, kvl, tab, **extra)) if paged else
+                    (lambda q=q, k=k, v=v, kvl=kvl, extra=extra:
+                     fa_ops.flash_decode(q, k, v, kvl, **extra)))
+            cases.append((f"{'paged' if paged else 'contiguous'}_{shape}_"
+                          f"{'int8' if int8 else 'bf16'}", call))
+    outside = {name: call() for name, call in cases}
+    torch.cuda.synchronize()
+    inside = {}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name, call in cases:
+            inside[name] = call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    same = {name: bool(torch.equal(inside[name], outside[name])) for name in inside}
+    row = {"phase": "decode_sync_debug", "card": line, "mode": "error",
+           "calls": list(inside), "bitwise_equal": same}
+    emit(row)
+    if not all(same.values()):
+        raise AssertionError(f"decode under sync debug: outputs differ {same}")
+    return row
+
+
+def f32_decode_phase(line, checked):
+    """The decode kernels' CUDA-core route on its own path. No configuration
+    of the repo reaches it from a model (every serve path is bf16 at
+    head_dim 128), so its path is the decode entry `flash_decode` on f32
+    tensors at qwen2.5-14b's attention width and the static loop's shape
+    (q [8, 40, 128], caches [8, 160, 8, 128], kv_len 144), counts reset just
+    before and read just after: one launch, on the CUDA cores, of a shape
+    the kernel phases checked, and a finite f32 output."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    q, k, v, kvl, _ = _decode_inputs([144] * REQUESTS, SEED + 7, False, smax=MAX_LEN,
+                                     dtype="float32")
+    with launch_signatures() as (seen, calls, launches):
+        o = fa_ops.flash_decode(q, k, v, kvl)
+        torch.cuda.synchronize()
+    unchecked = sorted(seen - checked)
+    checks = {
+        "one_launch": launches["flash_decode"] == 1,
+        "took_cuda_core": launches["flash_decode_cuda_core"] == 1,
+        "every_launch_recorded": calls == launches,
+        "every_launch_shape_checked": not unchecked,
+        "f32_output": o.shape == q.shape and o.dtype == torch.float32,
+        "finite": bool(torch.isfinite(o).all()),
+    }
+    row = {"phase": "f32_decode", "q": list(q.shape), "kv": list(k.shape), "card": line,
+           "launches": launches, "launch_signatures": sorted(seen),
+           "unchecked_signatures": unchecked, "checks": checks}
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"f32 decode: failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
     return row
 
 
@@ -882,7 +1067,9 @@ def kernel_phases(num_layers: int):
     and an offset; slot-contiguous
     decode at the static loop's cache (8 x 160, kv_len 129..159) and the
     slot decode's (4 x 160, ragged with a 0), bf16 and int8; paged decode
-    at the engine's arena and table; quantize at each decoded token's rows
+    at the engine's arena and table; both decode layouts at long context,
+    with 16 and 9 query heads per kv head, head_dim 256 and 64, on the
+    tensor cores, and in f32 on the CUDA cores; quantize at each decoded token's rows
     and the pool's quantize of a prefill cache of 2 and of num_layers
     layers; the SSD scan at the Mamba-2 forward's 4 x 2048 tokens (views
     of the convolution's output, as apply_ssm passes them), a ragged
@@ -945,6 +1132,28 @@ def kernel_phases(num_layers: int):
         out[name] = [decode_kernel_phase("engine", [160, 97, 0, 33], int8, 1, checked,
                                          pages=DEVICE_PAGES, max_pages=MAX_LEN // PAGE),
                      decode_kernel_phase("long_context", long_lens, int8, 2, checked)]
+    # the tensor-core route at the group sizes and head widths of the repo's
+    # other configs: G 16 at D 128 (qwen3-moe, 64/4 heads), G 9 (starcoder2-7b,
+    # 36/4), G 16 at D 256 (recurrentgemma-9b, 16/1), D 64 with G 1 (6/6)
+    for int8 in (False, True):
+        kind = "int8" if int8 else "bf16"
+        out[f"flash_decode_paged_{kind}"].append(decode_kernel_phase(
+            "long_context_g16", long_lens, int8, 61 + int8, checked, heads=64, kv_heads=4))
+        out[f"flash_decode_{kind}"].append(decode_kernel_phase(
+            "long_context_g9", long_lens, int8, 63 + int8, checked, paged=False, smax=4096,
+            heads=36, kv_heads=4))
+    out["flash_decode_paged_bf16"].append(decode_kernel_phase(
+        "long_context_g16_d256", long_lens, False, 65, checked, heads=16, kv_heads=1, d=256))
+    out["flash_decode_bf16"].append(decode_kernel_phase(
+        "d64_g1", [160, 97, 0, 33, 1500], False, 66, checked, paged=False, smax=1536,
+        heads=6, kv_heads=6, d=64))
+    # the CUDA-core route: f32 (its own path, `f32_decode_phase`)
+    out["flash_decode_cuda_core"] = [
+        decode_kernel_phase("f32_static_decode", [144] * REQUESTS, False, 67, checked,
+                            paged=False, smax=MAX_LEN, dtype="float32"),
+        decode_kernel_phase("f32_engine", [160, 97, 0, 33], False, 68, checked,
+                            pages=DEVICE_PAGES, max_pages=MAX_LEN // PAGE, dtype="float32"),
+    ]
     out["quantize_rows"] = [
         quantize_kernel_phase("decode_token", SLOTS * K, 3, checked),
         quantize_kernel_phase("decode_token_long", 16 * K, 4, checked),
@@ -1053,16 +1262,21 @@ def launch_signatures():
     (signatures seen, {kernel: calls recorded}, {kernel: launches}), the
     last filled on exit, for the caller to match the calls against. The
     flash-attention calls are also counted by the route `attention_route`
-    expects (`flash_attention_wgmma`, `flash_attention_cuda_core`), against
-    the wrapper's per-route counts."""
+    expects (`flash_attention_wgmma`, `flash_attention_cuda_core`), and the
+    decode calls by the route `decode_route` expects
+    (`flash_decode_tensor_core`, `flash_decode_paged_cuda_core`, ...),
+    against the wrappers' per-route counts."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.quantize import ops as q_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     launchers = _launchers()
-    routes = {"flash_attention_wgmma": "wgmma_launches",
-              "flash_attention_cuda_core": "cuda_core_launches"}
+    routes = {"flash_attention_wgmma": ("flash_attention", "wgmma_launches"),
+              "flash_attention_cuda_core": ("flash_attention", "cuda_core_launches")}
+    for name in ("flash_decode", "flash_decode_paged"):
+        for route in ("tensor_core", "cuda_core"):
+            routes[f"{name}_{route}"] = (name, f"{route}_launches")
     seen, calls, launches = set(), {name: 0 for name in [*launchers, *routes]}, {}
     attend, decode, paged, quantize, scan = (fa_ops.flash_attention, fa_ops.flash_decode,
                                              fa_ops.flash_decode_paged, q_ops.quantize,
@@ -1076,13 +1290,17 @@ def launch_signatures():
         return attend(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
     def decode_spy(q, k_cache, v_cache, kv_len, **kw):
-        seen.add(decode_sig(q[:, 0] if q.dim() == 4 else q, k_cache))
+        q3 = q[:, 0] if q.dim() == 4 else q
+        seen.add(decode_sig(q3, k_cache))
         calls["flash_decode"] += 1
+        calls["flash_decode_" + decode_route(q3, k_cache)] += 1
         return decode(q, k_cache, v_cache, kv_len, **kw)
 
     def paged_spy(q, k_pages, v_pages, kv_len, page_table, **kw):
-        seen.add(decode_sig(q[:, 0] if q.dim() == 4 else q, k_pages, page_table))
+        q3 = q[:, 0] if q.dim() == 4 else q
+        seen.add(decode_sig(q3, k_pages, page_table))
         calls["flash_decode_paged"] += 1
+        calls["flash_decode_paged_" + decode_route(q3, k_pages)] += 1
         return paged(q, k_pages, v_pages, kv_len, page_table, **kw)
 
     def quantize_spy(x):
@@ -1110,8 +1328,8 @@ def launch_signatures():
     rms_ops.rmsnorm, q_ops.dequantize = norm_spy, dequantize_spy
     for fn in launchers.values():
         fn.launches = 0
-    for attr in routes.values():
-        setattr(fa_ops.flash_attention_cuda, attr, 0)
+    for owner, attr in routes.values():
+        setattr(launchers[owner], attr, 0)
     try:
         yield seen, calls, launches
     finally:
@@ -1119,8 +1337,8 @@ def launch_signatures():
          q_ops.quantize, ssd_ops.ssd_scan) = attend, decode, paged, quantize, scan
         rms_ops.rmsnorm, q_ops.dequantize = norm, dequantize
         launches.update({name: fn.launches for name, fn in launchers.items()})
-        launches.update({name: getattr(fa_ops.flash_attention_cuda, attr)
-                         for name, attr in routes.items()})
+        launches.update({name: getattr(launchers[owner], attr)
+                         for name, (owner, attr) in routes.items()})
 
 
 def _serve(model, params, kv_dtype, rows=None, around_run=None, prefill_chunk=CHUNK):
@@ -1231,6 +1449,8 @@ def engine_phase(model, params, kv_dtype, line, checked, dense_tol=None,
             == (layers * len(reqs) if kernel_prefill else 0),
         "attention_took_wgmma": launches["flash_attention_wgmma"]
             == launches["flash_attention"],
+        "decode_took_tensor_core":
+            launches["flash_decode_paged_tensor_core"] == launches["flash_decode_paged"],
         "no_contiguous_decode": launches["flash_decode"] == 0,
         "rmsnorm_launches": launches["rmsnorm"] == norms,
         "every_launch_recorded": calls == launches,
@@ -1254,6 +1474,7 @@ def engine_phase(model, params, kv_dtype, line, checked, dense_tol=None,
            "pool_fetched_pages": m["pool_fetched_pages"],
            "pool_prefetched_pages": m["pool_prefetched_pages"],
            "decode_launches": launches["flash_decode_paged"],
+           "decode_tensor_core_launches": launches["flash_decode_paged_tensor_core"],
            "quantize_launches": launches["quantize_rows"],
            "attention_launches": launches["flash_attention"],
            "attention_wgmma_launches": launches["flash_attention_wgmma"],
@@ -1377,6 +1598,8 @@ def static_phase(model, params, line, checked, engine_tokens, dense_tol=None):
         "attention_launches_eq_layers": launches["flash_attention"] == layers,
         "attention_took_wgmma": launches["flash_attention_wgmma"] == layers,
         "decode_launches_eq_layers_x_steps": launches["flash_decode"] == layers * (GEN - 1),
+        "decode_took_tensor_core":
+            launches["flash_decode_tensor_core"] == launches["flash_decode"],
         "no_paged_or_quantize_launches":
             launches["flash_decode_paged"] == 0 and launches["quantize_rows"] == 0,
         "rmsnorm_launches_eq_norms_x_steps": launches["rmsnorm"] == (2 * layers + 1) * GEN,
@@ -1535,6 +1758,9 @@ def slot_decode_phase(model, params, line, checked):
         checks = {
             "contiguous_launches_eq_layers_x_steps": launches["flash_decode"] == layers * steps,
             "paged_launches_eq_layers_x_steps": launches["flash_decode_paged"] == layers * steps,
+            "decode_took_tensor_core":
+                launches["flash_decode_tensor_core"] == layers * steps
+                and launches["flash_decode_paged_tensor_core"] == layers * steps,
             "quantize_launches": launches["quantize_rows"] == quant,
             "rmsnorm_launches": launches["rmsnorm"] == 2 * (2 * layers + 1) * steps,
             "every_launch_recorded": calls == launches,
@@ -1576,8 +1802,14 @@ def device_summary(prof, wall: float):
     at least one kernel, copy or fill runs (the union of their intervals,
     so overlaps count once); its busy share is that over `wall`, the
     host's seconds for the run, which the profiler's own host overhead
-    lengthens, so the share is a lower bound. -> a dict for the phase row."""
+    lengthens, so the share is a lower bound. The port's own kernels (the
+    `__global__` functions of csrc/) are also summed by kernel. -> a dict
+    for the phase row."""
+    import re
     from torch.autograd import DeviceType
+    from repro_torch.kernels import _build
+    ours = {name for src in _build.CSRC.glob("*.cu") for name in re.findall(
+        r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?\s+(\w+)\(", src.read_text())}
     intervals, by_name, runtime_launches = [], {}, 0
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() == DeviceType.CUDA:
@@ -1591,10 +1823,18 @@ def device_summary(prof, wall: float):
         raise AssertionError("the profiler saw no device activity")
     busy = busy_seconds(intervals)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    port = {}
+    for n, (t, c) in by_name.items():
+        short = re.sub(r"[<(].*", "", n.replace("(anonymous namespace)", ""))
+        short = short.split("::")[-1].split()[-1]
+        if short in ours:
+            total, count = port.get(short, (0, 0))
+            port[short] = (total + t, count + c)
     return {"run_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
             "device_summed_s": sum(e - s for s, e in intervals) / 1e9,
             "device_events": len(intervals), "runtime_launch_calls": runtime_launches,
-            "top_device": [{"name": n[:120], "s": t / 1e9, "count": c} for n, (t, c) in top]}
+            "top_device": [{"name": n[:120], "s": t / 1e9, "count": c} for n, (t, c) in top],
+            "port_kernels": {n: {"s": t / 1e9, "count": c} for n, (t, c) in sorted(port.items())}}
 
 
 def profile_phase(model, params, line):
@@ -2699,6 +2939,8 @@ def main() -> int:
     sass_row = build_phase()
     kernels, checked = kernel_phases(get_config(ARCH).num_layers)
     f32_attention_row = f32_attention_phase(line, checked)
+    f32_decode_row = f32_decode_phase(line, checked)
+    decode_sync_phase(line)
     slot_launches = reference_phase(line, checked)
     mamba_row = mamba_phases(line, checked)
     train_reference_phase(line, checked)
@@ -2741,6 +2983,7 @@ def main() -> int:
         "flash_decode_int8": f"{decode_kernel}:233",
         "flash_decode_paged_bf16": f"{decode_kernel}:155",
         "flash_decode_paged_int8": f"{decode_kernel}:155",
+        "flash_decode_cuda_core": f"{decode_kernel}:233",
         "quantize_rows": "src/repro/kernels/quantize/kernel.py:25",
         "dequantize_rows": "src/repro/kernels/quantize/kernel.py:46",
         "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:72",
@@ -2754,14 +2997,16 @@ def main() -> int:
         "flash_decode_int8": f"{csrc}/flash_decode.cu",
         "flash_decode_paged_bf16": f"{csrc}/flash_decode.cu",
         "flash_decode_paged_int8": f"{csrc}/flash_decode.cu",
+        "flash_decode_cuda_core": f"{csrc}/flash_decode.cu",
         "quantize_rows": f"{csrc}/quantize.cu",
         "dequantize_rows": f"{csrc}/quantize.cu",
         "ssd_scan": f"{csrc}/ssd_scan.cu",
         "rmsnorm": f"{csrc}/rmsnorm.cu",
     }
     # each kernel's launches on its main path: the 48-layer static loop
-    # (kernel #1's tensor-core route), the f32 attention call (its CUDA-core
-    # route), the slot decode without an arena (int8), the 48-layer engine,
+    # (kernel #1's tensor-core route, kernel #3's), the f32 attention call
+    # (kernel #1's CUDA-core route), the f32 decode call (that of #2 and #3),
+    # the slot decode without an arena (int8), the 48-layer engine,
     # the 48-layer Mamba-2 forward, the 4-layer Trainer's 5 steps, the
     # full-width DDL Trainer's 3 steps (rank 0)
     launches = {"flash_attention_fwd_wgmma": static_row["launches"]["flash_attention_wgmma"],
@@ -2771,6 +3016,7 @@ def main() -> int:
                 "flash_decode_int8": slot_launches["int8"],
                 "flash_decode_paged_bf16": model_row["decode_launches"],
                 "flash_decode_paged_int8": int8_row["decode_launches"],
+                "flash_decode_cuda_core": f32_decode_row["launches"]["flash_decode_cuda_core"],
                 "quantize_rows": int8_row["quantize_launches"],
                 "dequantize_rows": sum(st["dequantize_launches"] for st in ddl_row["steps"]),
                 "ssd_scan": mamba_row["launches"]["ssd_scan"],
@@ -2785,7 +3031,8 @@ def main() -> int:
                     "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                     "library_ms": main_row["library_ms"]})
     emit({"phase": "sass_summary", "kernel": "fa_wgmma_kernel",
-          "hgmma_total": sass_row["hgmma_total"], "hgmma": sass_row["hgmma"]})
+          "hgmma_total": sass_row["hgmma_total"], "hgmma": sass_row["hgmma"],
+          "decode_kernel": "fd_mma_kernel", "decode_hmma_total": sass_row["decode_hmma_total"]})
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,8 +51,9 @@ void flash_attention_wgmma(const torch::Tensor& q, const torch::Tensor& k,
   check_launch(err, "flash_attention_wgmma");
 }
 
-const float* scale_ptr(const std::optional<torch::Tensor>& s) {
-  return s.has_value() ? s->data_ptr<float>() : nullptr;
+// an optional f32 tensor's data, or null
+float* f32_ptr(const std::optional<torch::Tensor>& t) {
+  return t.has_value() ? t->data_ptr<float>() : nullptr;
 }
 
 void flash_decode_paged(const torch::Tensor& q, const torch::Tensor& k, const torch::Tensor& v,
@@ -62,8 +63,8 @@ void flash_decode_paged(const torch::Tensor& q, const torch::Tensor& k, const to
                         torch::Tensor out, double sm_scale) {
   const c10::cuda::CUDAGuard guard(q.device());
   const int err = repro::flash_decode_paged(
-      q.data_ptr(), dtype_of(q), k.data_ptr(), v.data_ptr(), dtype_of(k), scale_ptr(k_scale),
-      scale_ptr(v_scale), kv_len.data_ptr<int32_t>(), table.data_ptr<int32_t>(), out.data_ptr(),
+      q.data_ptr(), dtype_of(q), k.data_ptr(), v.data_ptr(), dtype_of(k), f32_ptr(k_scale),
+      f32_ptr(v_scale), kv_len.data_ptr<int32_t>(), table.data_ptr<int32_t>(), out.data_ptr(),
       q.size(0), q.size(1), k.size(2), q.size(2), k.size(1), table.size(1),
       static_cast<float>(sm_scale), current_stream());
   check_launch(err, "flash_decode_paged");
@@ -75,10 +76,50 @@ void flash_decode(const torch::Tensor& q, const torch::Tensor& k, const torch::T
                   torch::Tensor out, double sm_scale) {
   const c10::cuda::CUDAGuard guard(q.device());
   const int err = repro::flash_decode(
-      q.data_ptr(), dtype_of(q), k.data_ptr(), v.data_ptr(), dtype_of(k), scale_ptr(k_scale),
-      scale_ptr(v_scale), kv_len.data_ptr<int32_t>(), out.data_ptr(), q.size(0), q.size(1),
+      q.data_ptr(), dtype_of(q), k.data_ptr(), v.data_ptr(), dtype_of(k), f32_ptr(k_scale),
+      f32_ptr(v_scale), kv_len.data_ptr<int32_t>(), out.data_ptr(), q.size(0), q.size(1),
       k.size(2), q.size(2), k.size(1), static_cast<float>(sm_scale), current_stream());
   check_launch(err, "flash_decode");
+}
+
+// the splits of the tensor-core decode: part_acc [B,K,splits,G,D], or one
+int splits_of(const std::optional<torch::Tensor>& part_acc) {
+  return part_acc.has_value() ? static_cast<int>(part_acc->size(2)) : 1;
+}
+
+void flash_decode_paged_mma(const torch::Tensor& q, const torch::Tensor& k,
+                            const torch::Tensor& v, const std::optional<torch::Tensor>& k_scale,
+                            const std::optional<torch::Tensor>& v_scale,
+                            const torch::Tensor& kv_len, const torch::Tensor& table,
+                            torch::Tensor out, const std::optional<torch::Tensor>& part_ml,
+                            const std::optional<torch::Tensor>& part_acc, int64_t chunk,
+                            double sm_scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  TORCH_CHECK(q.scalar_type() == torch::kBFloat16, "flash_decode_paged_mma takes bf16 q");
+  const int err = repro::flash_decode_paged_mma(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dtype_of(k), f32_ptr(k_scale),
+      f32_ptr(v_scale), kv_len.data_ptr<int32_t>(), table.data_ptr<int32_t>(),
+      out.data_ptr(), f32_ptr(part_ml), f32_ptr(part_acc), q.size(0), q.size(1), k.size(2),
+      q.size(2), k.size(1), table.size(1), splits_of(part_acc), static_cast<int>(chunk),
+      static_cast<float>(sm_scale), current_stream());
+  check_launch(err, "flash_decode_paged_mma");
+}
+
+void flash_decode_mma(const torch::Tensor& q, const torch::Tensor& k, const torch::Tensor& v,
+                      const std::optional<torch::Tensor>& k_scale,
+                      const std::optional<torch::Tensor>& v_scale, const torch::Tensor& kv_len,
+                      torch::Tensor out, const std::optional<torch::Tensor>& part_ml,
+                      const std::optional<torch::Tensor>& part_acc, int64_t chunk,
+                      double sm_scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  TORCH_CHECK(q.scalar_type() == torch::kBFloat16, "flash_decode_mma takes bf16 q");
+  const int err = repro::flash_decode_mma(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dtype_of(k), f32_ptr(k_scale),
+      f32_ptr(v_scale), kv_len.data_ptr<int32_t>(), out.data_ptr(), f32_ptr(part_ml),
+      f32_ptr(part_acc), q.size(0), q.size(1), k.size(2), q.size(2), k.size(1),
+      splits_of(part_acc), static_cast<int>(chunk), static_cast<float>(sm_scale),
+      current_stream());
+  check_launch(err, "flash_decode_mma");
 }
 
 void quantize_rows(const torch::Tensor& x, torch::Tensor q, torch::Tensor scale) {
@@ -128,6 +169,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "flash attention forward on the tensor cores (bf16) into out");
   m.def("flash_decode", &flash_decode, "slot-contiguous flash-decode into out");
   m.def("flash_decode_paged", &flash_decode_paged, "paged flash-decode into out");
+  m.def("flash_decode_mma", &flash_decode_mma,
+        "slot-contiguous flash-decode on the tensor cores (bf16 q) into out");
+  m.def("flash_decode_paged_mma", &flash_decode_paged_mma,
+        "paged flash-decode on the tensor cores (bf16 q) into out");
   m.def("quantize_rows", &quantize_rows, "per-row int8 quantize into q, scale");
   m.def("dequantize_rows", &dequantize_rows, "per-row int8 dequantize into out");
   m.def("rmsnorm", &rmsnorm, "RMSNorm forward into out");

@@ -1,12 +1,12 @@
 // Flash-decode for Hopper (sm_90a): one query token per slot against the
 // slot's first kv_len cached positions, for the two cache layouts of the
-// serve path. One kernel body, templated on the address rule that says
+// serve path. Every kernel here is templated on the address rule that says
 // which cache row holds position t of slot b:
 //
-//   PagedRows       arena row table[b, t / ps] * ps + t % ps   (launcher
-//                   flash_decode_paged: arenas [pages, ps, K, D])
-//   ContiguousRows  row b * Smax + t                            (launcher
-//                   flash_decode: caches [B, Smax, K, D])
+//   PagedRows       arena row table[b, t / ps] * ps + t % ps   (launchers
+//                   flash_decode_paged*: arenas [pages, ps, K, D])
+//   ContiguousRows  row b * Smax + t                            (launchers
+//                   flash_decode*: caches [B, Smax, K, D])
 //
 // Replaces: src/repro/kernels/flash_attention/decode_kernel.py
 // `flash_decode_paged_fwd` (:155, the serve engine's decode) and
@@ -26,35 +26,71 @@
 // Bound on this card: bytes. Each slot's kv_len rows of k and v are read
 // once (2 * kv_len * K * D * bytes, plus 8 bytes of scales per row for
 // int8) for 4 * G flops per element read, far below the ~295 operations
-// per byte at which the tensor cores would become the limit; at G = 5 the
-// work is not worth a tensor-core tile, so it runs on the CUDA cores in f32.
+// per byte at which the tensor cores become the limit. At long context
+// (16 slots of 2-4k positions, 8 kv heads) that is 202 MB of bf16, 0.060
+// ms at 3.35 TB/s: the kernel must keep the whole card's memory system
+// busy, which one block per (slot, kv head) walking its positions in
+// series cannot (128 blocks of scalar loads, ~3% of the rate).
 //
-// Design. One block per (slot, kv head), D threads (a multiple of 32). The
-// TPU kernel walks KV blocks as a sequential grid axis with (m, l, acc) in
-// VMEM scratch; here one block loops over tiles of kTile positions and
-// keeps the online softmax state in shared memory (m, l) and in registers
-// (acc: thread d owns column d of every query row of its group). A tile
-// first resolves its positions into cache rows through the address rule,
-// then each warp scores positions lane-interleaved over D (coalesced row
-// reads) and reduces the G dots by shuffle, one warp per query row updates
-// (m, l) and turns the tile's scores into probabilities, and finally every
-// thread accumulates p . v for its column. The query rows are scaled by
-// 1/sqrt(D) in f32 before the dot, as the TPU body does. Split-KV across
-// blocks, cp.async/TMA loads and wgmma are later work.
+// Two routes, chosen by the wrapper (kernels/flash_attention/ops.py) by
+// dtype and shape alone:
+//
+// tensor_core (bf16 q, bf16 or int8 caches, D in {64, 128, 256}, G <= 16):
+// - Split-KV over the card (flash-decoding). The grid is (slot x kv head,
+//   split); split s owns positions [s * chunk, (s + 1) * chunk), chunk a
+//   multiple of kTile that the wrapper derives from host-known sizes only
+//   (B, K, the capacity, the SM count), so the launch never reads kv_len on
+//   the host. Each split writes its partial (m, l, acc[G, D]) in f32 to
+//   scratch, and fd_combine_kernel merges them with log-sum-exp weights
+//   into o; with one split the block writes o itself and there is no
+//   second launch. A split wholly past kv_len writes m = -1e30 (finite, so
+//   exp2(m_s - M) has no NaN when every split of a slot is empty), l = 0,
+//   acc = 0; a kv_len == 0 slot then combines to exact zeros.
+// - Loads. Each of a block's four warps streams its own 16-position
+//   sub-tiles (warp w takes sub-tiles w, w + 4, ... of its split) through a
+//   private ring in shared memory with 16-byte cp.async.cg, so two (bf16)
+//   or four (int8, whose sub-tiles are half the bytes) sub-tiles are in
+//   flight while one is scored, and no block barrier sits in the loop.
+//   Paged rows resolve through the page table as the sub-tile is issued
+//   (one table read per row, by lanes 0-15, shared by shuffle). Rows past
+//   kv_len are zero-filled (src-size 0), never read. Every shared row is
+//   padded by 16 bytes, so ldmatrix's eight rows fall in distinct bank
+//   groups. int8 rows come in with their f32 scales; ldmatrix reads their
+//   codes as bytes straight into registers, where they become bf16 codes
+//   (exact, since |c| <= 127) by integer ops; the shared q tile's columns
+//   are permuted to match the bytes' order (q_column, o_column).
+// - Products on the tensor cores with mma.sync.m16n8k16 (bf16 in, f32
+//   accumulate): the G query rows of the kv head fill one m16 tile (rows
+//   G..15 zero), so S = Q K^T of a sub-tile is two n8 tiles and needs no
+//   shuffle reductions. 1/sqrt(D) (with log2 e, for exp2) and the int8 k
+//   scale apply to the f32 scores after the product; the TPU body scales q
+//   in f32 before it, so the two differ by f32 roundings only.
+// - Softmax online per warp, on the score fragment (each thread holds two
+//   rows, reduced over a quad by two shuffles). P goes from the score
+//   registers straight to the A fragment of P.V (the layouts agree),
+//   rounded to bf16; for int8 it carries the v scale (p * v_scale, rounded
+//   once). l sums the P actually multiplied (for int8, each weight divided
+//   back by its scale), so each row's weights sum to one.
+// - The four warps' (m, l, O) merge in shared memory at the end of the
+//   split.
+//
+// cuda_core (everything else the launchers take: f32 q, other head widths,
+// G <= 8): one block per (slot, kv head), D threads, the online softmax
+// state in shared memory and registers, all in f32 (fd_kernel below). No
+// configuration of the repo's serve paths reaches it (all are bf16 at D
+// 64, 128 or 256).
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTile = 64;   // kv positions per tile
-constexpr int kMaxG = 8;    // query rows per kv head a block holds
 constexpr float kNegInf = -1e30f;
 
 // position t of slot b lives at arena row table[b, t / ps] * ps + t % ps
 struct PagedRows {
   const int* table;
   int max_pages, ps;
-  __device__ int capacity() const { return max_pages * ps; }
+  __host__ __device__ int capacity() const { return max_pages * ps; }
   __device__ int row(int b, int t) const {
     return table[static_cast<size_t>(b) * max_pages + t / ps] * ps + t % ps;
   }
@@ -63,9 +99,552 @@ struct PagedRows {
 // position t of slot b lives at row b * Smax + t
 struct ContiguousRows {
   int smax;
-  __device__ int capacity() const { return smax; }
+  __host__ __device__ int capacity() const { return smax; }
   __device__ int row(int b, int t) const { return b * smax + t; }
 };
+
+// ---- tensor_core route ---------------------------------------------------------
+
+namespace tc {
+
+constexpr int kWarps = 4;               // warps of a block
+constexpr int kRows = 16;               // kv positions a warp takes at a time (a sub-tile)
+constexpr int kTile = kWarps * kRows;   // positions a block takes at a time (ops.py DECODE_TILE)
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxG = 16;               // query rows of a kv head: one m16 tile
+constexpr int kPad = 16;                // bytes after each shared row (bank groups)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory, in bytes: the q tile (16 bf16 rows), then per warp its
+// ring, per stage a sub-tile of K rows and one of V rows (and for int8
+// their 16 + 16 scales). int8 stages are half the bytes, so its rings are
+// deeper: the same bytes in flight. The merge at the end reuses the space.
+template <int D, typename KVT>
+struct Layout {
+  static constexpr bool kQuant = sizeof(KVT) == 1;
+  static constexpr int kStages = kQuant ? 5 : 3;      // depth of each warp's cp.async ring
+  static constexpr int kChunks = D * static_cast<int>(sizeof(KVT)) / 16;  // per cached row
+  static constexpr int kRowBytes = D * static_cast<int>(sizeof(KVT)) + kPad;
+  static constexpr int kQRowBytes = D * 2 + kPad;
+  static constexpr int kSub = kRows * kRowBytes;      // one sub-tile of K or of V
+  static constexpr int kStage = 2 * kSub + (kQuant ? 2 * kRows * 4 : 0);
+  static constexpr int kQ = kMaxG * kQRowBytes;
+  static constexpr int kLoop = kQ + kWarps * kStages * kStage;
+  static constexpr int kOStride = D + 8;              // floats per row of a warp's O
+  static constexpr int kMerge = kWarps * kMaxG * (2 + kOStride) * 4;
+  static constexpr int kBytes = kLoop > kMerge ? kLoop : kMerge;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled and not read unless valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// c += a . b for one m16n8k16 tile: bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two int8 codes of the 32-bit word w, picked by the byte selector `sel`,
+// as a bf16 pair: exact, and without conversion instructions. With m = c &
+// 0x7f and s = c's sign bit, c = (128 + m) - (128 + 128 s), and both terms
+// are bf16 bit patterns, 0x4300 | m and 0x4300 | (c & 0x80): the selector
+// puts each code in the low byte of a 16-bit lane and 0x43 in its high
+// byte, two masks make the terms, and c being a bf16 value (|c| <= 128
+// needs 8 significant bits) makes the bf16x2 subtraction exact.
+__device__ __forceinline__ uint32_t codes_bf16(uint32_t w, uint32_t sel) {
+  const uint32_t pair = __byte_perm(w, 0x43434343u, sel);
+  uint32_t x = pair & 0xff7fff7fu;
+  uint32_t y = pair & 0xff80ff80u;
+  return bits(__hsub2(*reinterpret_cast<__nv_bfloat162*>(&x),
+                      *reinterpret_cast<__nv_bfloat162*>(&y)));
+}
+
+// 2^x, flushing results below 2^-126 to zero (softmax weights that small
+// are zero to f32 sums of weights near one)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rcp_ftz(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Column of q (and k) that the shared q tile holds at column c. For int8
+// caches the kernel reads K's codes by ldmatrix as bytes, so the B fragment
+// of a thread holds four consecutive columns 4 tig .. 4 tig + 3 of each
+// 16-column step; q's columns are stored permuted to match (the product
+// sums over the same pairs of columns, in another order).
+template <bool kQuant>
+__device__ __forceinline__ int q_column(int c) {
+  if (!kQuant) return c;
+  const int j = c & 15;
+  return (c & ~15) + (j < 8 ? 4 * (j >> 1) + (j & 1) : 4 * ((j - 8) >> 1) + 2 + (j & 1));
+}
+
+// Column of the output that accumulator o[n][e] (e = 0, 1; rows grp and
+// grp + 8 alike) holds: n8 tile n of columns for bf16; for int8, whose V
+// codes come by a transposed ldmatrix of bytes, tile 2 k + p holds the
+// columns 16 k + 2 j + p of its 16-column block k
+template <bool kQuant>
+__device__ __forceinline__ int o_column(int n, int tig, int e) {
+  if (!kQuant) return 8 * n + 2 * tig + e;
+  return 16 * (n >> 1) + 2 * (2 * tig + e) + (n & 1);
+}
+
+template <int D, typename KVT, typename Rows>
+__global__ void __launch_bounds__(kThreads)
+    fd_mma_kernel(const __nv_bfloat16* __restrict__ q, const KVT* __restrict__ kc,
+                  const KVT* __restrict__ vc, const float* __restrict__ ks,
+                  const float* __restrict__ vs, const int* __restrict__ kv_len, Rows rows,
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ part_ml,
+                  float* __restrict__ part_acc, int H, int K, int chunk, float scale_log2) {
+  using L = Layout<D, KVT>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int pair = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int b = pair / K, kvh = pair % K, G = H / K;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const size_t q_row0 = static_cast<size_t>(b) * H + kvh * G;   // first of the G query rows
+  const size_t part = static_cast<size_t>(pair) * splits + split;
+  // never past the cache's capacity, never below zero
+  const int len = max(0, min(kv_len[b], rows.capacity()));
+  const int t_begin = split * chunk;
+  const int t_end = min(len, t_begin + chunk);
+
+  if (t_begin >= t_end) {   // wholly past kv_len: an empty partial (zeros if alone)
+    for (int i = tid; i < G * D; i += kThreads) {
+      if (splits == 1)
+        out[q_row0 * D + i] = __float2bfloat16_rn(0.f);
+      else
+        part_acc[part * G * D + i] = 0.f;
+    }
+    if (splits > 1 && tid < G) {
+      part_ml[part * 2 * G + tid] = kNegInf;
+      part_ml[part * 2 * G + G + tid] = 0.f;
+    }
+    return;
+  }
+
+  // the G query rows as bf16 (columns as q_column says), rows G..15 zero
+  unsigned char* q_s = smem;
+  if constexpr (L::kQuant) {   // a 16-column block a thread, permuted in registers
+    for (int c = tid; c < kMaxG * (D / 16); c += kThreads) {
+      const int g = c / (D / 16), blk = c % (D / 16);
+      int4 src[2] = {make_int4(0, 0, 0, 0), make_int4(0, 0, 0, 0)};
+      if (g < G) {
+        const int4* from = reinterpret_cast<const int4*>(q + (q_row0 + g) * D + blk * 16);
+        src[0] = from[0];
+        src[1] = from[1];
+      }
+      const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(src);
+      int4 dst[2];
+      __nv_bfloat16* w = reinterpret_cast<__nv_bfloat16*>(dst);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) w[j] = v[q_column<true>(j)];
+      int4* to = reinterpret_cast<int4*>(q_s + g * L::kQRowBytes + blk * 32);
+      to[0] = dst[0];
+      to[1] = dst[1];
+    }
+  } else {   // in 16-byte chunks
+    for (int c = tid; c < kMaxG * (D / 8); c += kThreads) {
+      const int g = c / (D / 8), cc = c % (D / 8);
+      int4 val = make_int4(0, 0, 0, 0);
+      if (g < G) val = *reinterpret_cast<const int4*>(q + (q_row0 + g) * D + cc * 8);
+      *reinterpret_cast<int4*>(q_s + g * L::kQRowBytes + cc * 16) = val;
+    }
+  }
+  __syncthreads();
+
+  unsigned char* wbase = smem + L::kQ + warp * kStages * L::kStage;
+  const int first = t_begin + warp * kRows;   // this warp's first position
+  const int n_sub = first < t_end ? (t_end - first + kTile - 1) / kTile : 0;
+
+  // sub-tile i of this warp (positions first + i * kTile + [0, 16)) into its stage
+  auto issue = [&](int i) {
+    const int t0 = first + i * kTile;
+    unsigned char* st = wbase + (i % kStages) * L::kStage;
+    int my_row = 0;
+    if (lane < kRows && t0 + lane < t_end) my_row = rows.row(b, t0 + lane);
+#pragma unroll
+    for (int c = lane; c < kRows * L::kChunks; c += 32) {
+      const int r = c / L::kChunks, cc = c % L::kChunks;
+      const int row = __shfl_sync(0xffffffffu, my_row, r);
+      const bool valid = t0 + r < t_end;
+      const size_t off = (static_cast<size_t>(row) * K + kvh) * D + cc * (16 / sizeof(KVT));
+      cp_async16(smem_u32(st + r * L::kRowBytes + cc * 16), kc + off, valid);
+      cp_async16(smem_u32(st + L::kSub + r * L::kRowBytes + cc * 16), vc + off, valid);
+    }
+    if constexpr (L::kQuant) {   // lanes 0-15: k scales, 16-31: v scales
+      const int r = lane & (kRows - 1);
+      const int row = __shfl_sync(0xffffffffu, my_row, r);
+      const float* src = (lane < kRows ? ks : vs) + static_cast<size_t>(row) * K + kvh;
+      cp_async4(smem_u32(st + 2 * L::kSub + lane * 4), src, t0 + r < t_end);
+    }
+  };
+
+  // the warp's unnormalised output (columns as o_column says) and softmax
+  // state, for rows grp and grp + 8
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  // ldmatrix row addresses: q (A), V (B, transposed) and int8 K (B, as
+  // bytes) by row = lane % 8 + 8 * (lane / 8 % 2), 16 bytes times lane / 16
+  // along it; bf16 K (B) by row = lane % 8 + 8 * (lane / 16), 16 bytes times
+  // lane / 8 % 2 along it
+  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_byte = 16 * (lane >> 4);
+  const int k_row = L::kQuant ? a_row : (lane & 7) + 8 * (lane >> 4);
+  const int k_byte = L::kQuant ? a_byte : 16 * ((lane >> 3) & 1);
+  const uint32_t q_addr = smem_u32(q_s) + a_row * L::kQRowBytes + a_byte;
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_sub) issue(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_sub; ++i) {
+    __syncwarp();   // every lane is done with the stage the next issue refills
+    if (i + kStages - 1 < n_sub) issue(i + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncwarp();   // every lane's copies of sub-tile i have landed
+    const unsigned char* st = wbase + (i % kStages) * L::kStage;
+    const uint32_t k_addr = smem_u32(st) + k_row * L::kRowBytes + k_byte;
+    const uint32_t v_addr = smem_u32(st + L::kSub) + a_row * L::kRowBytes + a_byte;
+    const float* ksc = reinterpret_cast<const float*>(st + 2 * L::kSub);
+    const float* vsc = ksc + kRows;
+
+    // S = Q K^T: rows grp, grp + 8; positions 8 * n + 2 * tig + {0, 1}
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    if constexpr (L::kQuant) {
+      // codes[0, 1]: positions 0-7, 8-15 of 16-column step kk; [2, 3]: step kk + 1
+#pragma unroll
+      for (int kk = 0; kk < D / 16; kk += 2) {
+        uint32_t codes[4];
+        ldsm_x4(codes, k_addr + kk * 16);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t a[4];
+          ldsm_x4(a, q_addr + (kk + h) * 32);
+          mma_bf16(s[0], a, codes_bf16(codes[2 * h], 0x4140), codes_bf16(codes[2 * h], 0x4342));
+          mma_bf16(s[1], a, codes_bf16(codes[2 * h + 1], 0x4140),
+                   codes_bf16(codes[2 * h + 1], 0x4342));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4], bk[4];
+        ldsm_x4(a, q_addr + kk * 32);
+        ldsm_x4(bk, k_addr + kk * 32);
+        mma_bf16(s[0], a, bk[0], bk[1]);
+        mma_bf16(s[1], a, bk[2], bk[3]);
+      }
+    }
+
+    // scores in log2 units; positions past kv_len masked
+    const int t0 = first + i * kTile;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 8 * n + 2 * tig + (e & 1);
+        float x = s[n][e] * scale_log2;
+        if constexpr (L::kQuant) x *= ksc[r];
+        if (t0 + r >= t_end) x = kNegInf;
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      corr[h] = exp2_ftz(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+    // int8: 1 / v scale of this thread's positions 2 tig + {0, 1} (+ 8), 0 past kv_len
+    float rv[2][2];
+    if constexpr (L::kQuant) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 8 * n + 2 * tig + e;
+          rv[n][e] = t0 + r < t_end ? rcp_ftz(vsc[r]) : 0.f;
+        }
+    }
+
+    // P as the A fragment of P.V: register 2 * n + h holds row grp + 8 h,
+    // positions 8 n + 2 tig + {0, 1}
+    uint32_t pa[4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 8 * n + 2 * tig;
+        float p0 = exp2_ftz(s[n][2 * h] - m[h]);
+        float p1 = exp2_ftz(s[n][2 * h + 1] - m[h]);
+        if constexpr (L::kQuant) {
+          p0 *= vsc[r];
+          p1 *= vsc[r + 1];
+        }
+        const __nv_bfloat162 pb = __floats2bfloat162_rn(p0, p1);
+        const float b0 = __low2float(pb), b1 = __high2float(pb);
+        if constexpr (L::kQuant) {   // the weight of v = code * scale is P / scale
+          l[h] += b0 * rv[n][0] + b1 * rv[n][1];
+        } else {
+          l[h] += b0 + b1;
+        }
+        pa[2 * n + h] = bits(pb);
+      }
+    }
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {   // a max moved
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
+    }
+
+    // O += P V
+    if constexpr (L::kQuant) {
+      // codes[0, 1]: positions 0-7, 8-15 of 16-column block kb; [2, 3]: block
+      // kb + 1; in each 32-bit register, bytes 0 and 2 are column 2 grp of
+      // positions 2 tig and 2 tig + 1, bytes 1 and 3 column 2 grp + 1
+#pragma unroll
+      for (int kb = 0; kb < D / 16; kb += 2) {
+        uint32_t codes[4];
+        ldsm_x4_trans(codes, v_addr + kb * 16);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mma_bf16(o[2 * (kb + h)], pa, codes_bf16(codes[2 * h], 0x4240),
+                   codes_bf16(codes[2 * h + 1], 0x4240));
+          mma_bf16(o[2 * (kb + h) + 1], pa, codes_bf16(codes[2 * h], 0x4341),
+                   codes_bf16(codes[2 * h + 1], 0x4341));
+        }
+      }
+    } else {   // n8 tiles of columns, two per ldmatrix
+#pragma unroll
+      for (int n = 0; n < D / 8; n += 2) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, v_addr + n * 16);
+        mma_bf16(o[n], pa, bv[0], bv[1]);
+        mma_bf16(o[n + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+
+  // merge the four warps' (m, l, O) in shared memory
+  cp_async_wait<0>();
+  __syncthreads();   // the ring and q are free
+  float* cm = reinterpret_cast<float*>(smem);   // [kWarps][16]
+  float* cl = cm + kWarps * kMaxG;              // [kWarps][16]
+  float* co = cl + kWarps * kMaxG;              // [kWarps][16][kOStride]
+  if (tig == 0) {
+    cm[warp * kMaxG + grp] = m[0];
+    cm[warp * kMaxG + grp + 8] = m[1];
+    cl[warp * kMaxG + grp] = l[0];
+    cl[warp * kMaxG + grp + 8] = l[1];
+  }
+  float* ow = co + warp * kMaxG * L::kOStride;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if constexpr (L::kQuant) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = o_column<true>(n, tig, e);
+        ow[grp * L::kOStride + col] = o[n][e];
+        ow[(grp + 8) * L::kOStride + col] = o[n][2 + e];
+      }
+    } else {   // columns 2 tig, 2 tig + 1 of tile n side by side
+      const int col = o_column<false>(n, tig, 0);
+      *reinterpret_cast<float2*>(ow + grp * L::kOStride + col) = make_float2(o[n][0], o[n][1]);
+      *reinterpret_cast<float2*>(ow + (grp + 8) * L::kOStride + col) =
+          make_float2(o[n][2], o[n][3]);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int g = i / D, d = i % D;
+    float mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, cm[w * kMaxG + g]);
+    float ll = 0.f, acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = exp2f(cm[w * kMaxG + g] - mm);
+      ll += cl[w * kMaxG + g] * f;
+      acc += co[(w * kMaxG + g) * L::kOStride + d] * f;
+    }
+    if (splits == 1) {
+      out[q_row0 * D + i] = __float2bfloat16_rn(acc / fmaxf(ll, 1e-30f));
+    } else {
+      part_acc[part * G * D + i] = acc;
+      if (d == 0) {
+        part_ml[part * 2 * G + g] = mm;
+        part_ml[part * 2 * G + G + g] = ll;
+      }
+    }
+  }
+}
+
+// o = sum_s acc_s 2^(m_s - M) / max(sum_s l_s 2^(m_s - M), 1e-30), M = max_s m_s,
+// over the splits of one (slot, kv head): a block per query row, a thread
+// per column
+__global__ void fd_combine_kernel(const float* __restrict__ part_ml,
+                                  const float* __restrict__ part_acc,
+                                  __nv_bfloat16* __restrict__ out, int H, int K, int D,
+                                  int splits) {
+  const int row = blockIdx.x, d = threadIdx.x;   // row = b * H + h
+  const int G = H / K, b = row / H, h = row % H, g = h % G;
+  const size_t pair = static_cast<size_t>(b) * K + h / G;
+  const float* ml = part_ml + pair * splits * 2 * G;
+  const float* acc = part_acc + (pair * splits * G + g) * D + d;
+  float mm = kNegInf;
+  for (int s = 0; s < splits; ++s) mm = fmaxf(mm, ml[s * 2 * G + g]);
+  float ll = 0.f, a = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float f = exp2f(ml[s * 2 * G + g] - mm);
+    ll += ml[s * 2 * G + G + g] * f;
+    a += acc[static_cast<size_t>(s) * G * D] * f;
+  }
+  out[static_cast<size_t>(row) * D + d] = __float2bfloat16_rn(a / fmaxf(ll, 1e-30f));
+}
+
+template <int D, typename KVT, typename Rows>
+int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
+           const int32_t* kv_len, Rows rows, void* out, float* part_ml, float* part_acc, int B,
+           int H, int K, int splits, int chunk, float sm_scale, cudaStream_t stream) {
+  using L = Layout<D, KVT>;
+  auto kernel = fd_mma_kernel<D, KVT, Rows>;
+  // above 48 KB of dynamic shared memory only after opting in, once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<dim3(B * K, splits), kThreads, L::kBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KVT*>(k),
+      static_cast<const KVT*>(v), ks, vs, kv_len, rows, static_cast<__nv_bfloat16*>(out),
+      part_ml, part_acc, H, K, chunk, sm_scale * kLog2e);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  fd_combine_kernel<<<B * H, D, 0, stream>>>(part_ml, part_acc,
+                                            static_cast<__nv_bfloat16*>(out), H, K, D,
+                                            splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, typename Rows>
+int dispatch_kv(repro::DType kv_dtype, const void* q, const void* k, const void* v,
+                const float* ks, const float* vs, const int32_t* kv_len, Rows rows, void* out,
+                float* part_ml, float* part_acc, int B, int H, int K, int splits, int chunk,
+                float sm_scale, cudaStream_t st) {
+  if (kv_dtype == repro::kI8)
+    return launch<D, int8_t>(q, k, v, ks, vs, kv_len, rows, out, part_ml, part_acc, B, H, K,
+                             splits, chunk, sm_scale, st);
+  if (kv_dtype == repro::kBF16)
+    return launch<D, __nv_bfloat16>(q, k, v, ks, vs, kv_len, rows, out, part_ml, part_acc, B,
+                                    H, K, splits, chunk, sm_scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename Rows>
+int decode(const void* q, const void* k, const void* v, repro::DType kv_dtype,
+           const float* ks, const float* vs, const int32_t* kv_len, Rows rows, void* out,
+           float* part_ml, float* part_acc, int B, int H, int K, int D, int splits, int chunk,
+           float sm_scale, void* stream) {
+  // the wrappers check these too; a bad call must never reach the launch
+  if (B <= 0 || K <= 0 || H % K != 0 || H / K > kMaxG || splits <= 0 || splits > 65535 ||
+      chunk <= 0 || static_cast<long long>(splits) * chunk < rows.capacity() ||
+      (splits > 1) != (part_ml != nullptr && part_acc != nullptr) ||
+      (kv_dtype == repro::kI8) != (ks != nullptr && vs != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return dispatch_kv<64>(kv_dtype, q, k, v, ks, vs, kv_len, rows, out, part_ml, part_acc,
+                             B, H, K, splits, chunk, sm_scale, st);
+    case 128:
+      return dispatch_kv<128>(kv_dtype, q, k, v, ks, vs, kv_len, rows, out, part_ml, part_acc,
+                              B, H, K, splits, chunk, sm_scale, st);
+    case 256:
+      return dispatch_kv<256>(kv_dtype, q, k, v, ks, vs, kv_len, rows, out, part_ml, part_acc,
+                              B, H, K, splits, chunk, sm_scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace tc
+
+// ---- cuda_core route -----------------------------------------------------------
+
+namespace cuda_core {
+
+constexpr int kTile = 64;   // kv positions per tile
+constexpr int kMaxG = 8;    // query rows per kv head a block holds
 
 template <typename QT, typename KVT, bool kQuant, typename Rows>
 __global__ void fd_kernel(const QT* __restrict__ q, const KVT* __restrict__ kc,
@@ -229,6 +808,8 @@ int decode(const void* q, repro::DType q_dtype, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace cuda_core
+
 }  // namespace
 
 int repro::flash_decode_paged(const void* q, DType q_dtype, const void* k, const void* v,
@@ -237,8 +818,8 @@ int repro::flash_decode_paged(const void* q, DType q_dtype, const void* k, const
                               int H, int K, int D, int ps, int max_pages, float sm_scale,
                               void* stream) {
   if (ps <= 0 || max_pages <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return decode(q, q_dtype, k, v, kv_dtype, k_scale, v_scale, kv_len,
-                PagedRows{table, max_pages, ps}, out, B, H, K, D, sm_scale, stream);
+  return cuda_core::decode(q, q_dtype, k, v, kv_dtype, k_scale, v_scale, kv_len,
+                           PagedRows{table, max_pages, ps}, out, B, H, K, D, sm_scale, stream);
 }
 
 int repro::flash_decode(const void* q, DType q_dtype, const void* k, const void* v,
@@ -246,6 +827,27 @@ int repro::flash_decode(const void* q, DType q_dtype, const void* k, const void*
                         const int32_t* kv_len, void* out, int B, int H, int K, int D,
                         int smax, float sm_scale, void* stream) {
   if (smax < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return decode(q, q_dtype, k, v, kv_dtype, k_scale, v_scale, kv_len, ContiguousRows{smax},
-                out, B, H, K, D, sm_scale, stream);
+  return cuda_core::decode(q, q_dtype, k, v, kv_dtype, k_scale, v_scale, kv_len,
+                           ContiguousRows{smax}, out, B, H, K, D, sm_scale, stream);
+}
+
+int repro::flash_decode_paged_mma(const void* q, const void* k, const void* v, DType kv_dtype,
+                                  const float* k_scale, const float* v_scale,
+                                  const int32_t* kv_len, const int32_t* table, void* out,
+                                  float* part_ml, float* part_acc, int B, int H, int K, int D,
+                                  int ps, int max_pages, int splits, int chunk, float sm_scale,
+                                  void* stream) {
+  if (ps <= 0 || max_pages <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return tc::decode(q, k, v, kv_dtype, k_scale, v_scale, kv_len, PagedRows{table, max_pages, ps},
+                    out, part_ml, part_acc, B, H, K, D, splits, chunk, sm_scale, stream);
+}
+
+int repro::flash_decode_mma(const void* q, const void* k, const void* v, DType kv_dtype,
+                            const float* k_scale, const float* v_scale, const int32_t* kv_len,
+                            void* out, float* part_ml, float* part_acc, int B, int H, int K,
+                            int D, int smax, int splits, int chunk, float sm_scale,
+                            void* stream) {
+  if (smax < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return tc::decode(q, k, v, kv_dtype, k_scale, v_scale, kv_len, ContiguousRows{smax}, out,
+                    part_ml, part_acc, B, H, K, D, splits, chunk, sm_scale, stream);
 }

@@ -26,7 +26,8 @@ int flash_attention_wgmma(const void* q, const void* k, const void* v, void* out
                           int Skv, int H, int K, int D, bool causal, int window, int q_offset,
                           float sm_scale, void* stream);
 
-// Flash-decode (flash_decode.cu): q/out [B,H,D]; caches of q's dtype, or
+// Flash-decode (flash_decode.cu), the CUDA-core route: q/out [B,H,D]
+// (f32 or bf16, H / K <= 8, D a multiple of 32); caches of q's dtype, or
 // int8 codes with f32 per-row scales; kv_len [B].
 // Paged: k/v arenas [pages,ps,K,D], scales [pages,ps,K], table
 // [B,max_pages] arena row ids.
@@ -38,6 +39,21 @@ int flash_decode_paged(const void* q, DType q_dtype, const void* k, const void* 
 int flash_decode(const void* q, DType q_dtype, const void* k, const void* v, DType kv_dtype,
                  const float* k_scale, const float* v_scale, const int32_t* kv_len, void* out,
                  int B, int H, int K, int D, int smax, float sm_scale, void* stream);
+// Its tensor-core route: bf16 q/out, caches of bf16 or int8 codes with f32
+// scales, D 64, 128 or 256, H / K <= 16; all 16-byte aligned. Split s of
+// `splits` covers positions [s * chunk, (s + 1) * chunk), and splits * chunk
+// must cover the capacity. With splits > 1, part_ml [B,K,splits,2,G] and
+// part_acc [B,K,splits,G,D] (f32) take the partials and a second kernel
+// combines them into out; with one split both are null.
+int flash_decode_paged_mma(const void* q, const void* k, const void* v, DType kv_dtype,
+                           const float* k_scale, const float* v_scale, const int32_t* kv_len,
+                           const int32_t* table, void* out, float* part_ml, float* part_acc,
+                           int B, int H, int K, int D, int ps, int max_pages, int splits,
+                           int chunk, float sm_scale, void* stream);
+int flash_decode_mma(const void* q, const void* k, const void* v, DType kv_dtype,
+                     const float* k_scale, const float* v_scale, const int32_t* kv_len,
+                     void* out, float* part_ml, float* part_acc, int B, int H, int K, int D,
+                     int smax, int splits, int chunk, float sm_scale, void* stream);
 
 // Symmetric per-row int8 quantizer (quantize.cu). x [rows,cols] f32 or
 // bf16 -> q int8 [rows,cols], scale f32 [rows].

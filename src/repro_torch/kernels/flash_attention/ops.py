@@ -12,12 +12,18 @@ kernels:
 - `flash_decode_paged` (csrc/flash_decode.cu, page arena) —
   `flash_decode_paged_fwd`, the serve engine's decode.
 
+Both decode entries have two routes: bf16 q at head_dim 64, 128 or 256
+with at most 16 query heads per kv head on the tensor cores, split over
+the card (`decode_splits`), everything else on the CUDA cores.
+
 Every `*_cuda` launcher counts its launches in `.launches`;
 `flash_attention_cuda` also counts each route's, in `.wgmma_launches` and
-`.cuda_core_launches`.
+`.cuda_core_launches`, and the decode launchers in `.tensor_core_launches`
+and `.cuda_core_launches`.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -28,9 +34,13 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
                                                      flash_decode_paged_ref,
                                                      flash_decode_ref)
 
-MAX_GROUP = 8     # query heads per kv head a decode block holds (csrc kMaxG)
+MAX_GROUP = 8     # query heads per kv head of the CUDA-core decode (csrc kMaxG)
 MAX_HEAD_DIM = 256   # largest head_dim the prefill kernel takes (csrc kMaxD)
-WGMMA_HEAD_DIMS = (64, 128, 256)   # head_dims of the tensor-core route (bf16)
+WGMMA_HEAD_DIMS = (64, 128, 256)   # head_dims of the tensor-core routes (bf16)
+MMA_MAX_GROUP = 16   # query heads per kv head of the tensor-core decode: one m16 tile
+DECODE_TILE = 64     # kv positions a tensor-core decode block takes at a time (csrc kTile)
+DECODE_BLOCKS_PER_SM = 4    # blocks of (slot, kv head, split) the splits aim for
+DECODE_MIN_SPLIT_TILES = 4  # tiles a split takes at least, so its ring fills
 
 
 def _kv_len_vector(kv_len, b: int, device) -> torch.Tensor:
@@ -116,11 +126,44 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 # ---------------------------------------------------------------------------
-# Decode against slot-contiguous caches
+# Decode: routes, splits, checks
 # ---------------------------------------------------------------------------
 
+def decode_splits(b: int, kh: int, capacity: int, sm_count: int) -> tuple[int, int]:
+    """-> (splits, chunk): how the tensor-core decode cuts each slot's
+    positions [0, capacity) over the card. Split s takes [s * chunk,
+    (s + 1) * chunk): chunk is whole DECODE_TILEs and the splits cover the
+    capacity exactly (splits * chunk >= capacity > (splits - 1) * chunk).
+    From host-known sizes only (B, K, the cache's capacity, the SM count),
+    never from kv_len: the launch reads no device value. Enough splits for
+    DECODE_BLOCKS_PER_SM blocks an SM over the b * kh (slot, kv head)
+    pairs, each of at least DECODE_MIN_SPLIT_TILES tiles; one split (and
+    no combine launch) where the capacity is that short."""
+    tiles = max(1, -(-capacity // DECODE_TILE))
+    want = -(-DECODE_BLOCKS_PER_SM * max(1, sm_count) // max(1, b * kh))
+    splits = max(1, min(want, tiles // DECODE_MIN_SPLIT_TILES))
+    chunk_tiles = -(-tiles // splits)
+    return -(-tiles // chunk_tiles), chunk_tiles * DECODE_TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def decode_route(q_dtype, d: int, group: int) -> str:
+    """The decode route by dtype and shape alone: bf16 q at head_dim 64,
+    128 or 256 with at most MMA_MAX_GROUP query heads per kv head takes the
+    tensor cores ("tensor_core"), anything else the CUDA cores
+    ("cuda_core"), which take f32 or bf16 q, at most MAX_GROUP query heads
+    per kv head and a head_dim that is a multiple of 32, at most 1024."""
+    if q_dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS and group <= MMA_MAX_GROUP:
+        return "tensor_core"
+    return "cuda_core"
+
+
 def _check_decode(q, k, v, kv_len, k_scale, v_scale, scale_shape):
-    """The checks both decode launchers share; -> (B, H, K, D)."""
+    """The checks both decode launchers share; -> (B, H, K, D, route)."""
     dev = q.device
     require(q, "q", dtypes=(torch.bfloat16, torch.float32), ndim=3, device=dev)
     quantized = k_scale is not None
@@ -141,15 +184,39 @@ def _check_decode(q, k, v, kv_len, k_scale, v_scale, scale_shape):
             if s.shape != scale_shape:
                 raise ValueError(f"{name} has shape {tuple(s.shape)}, "
                                  f"expected {scale_shape}")
-    if kh == 0 or h % kh or h // kh > MAX_GROUP:
+    if kh == 0 or h % kh:
+        raise ValueError(f"H={h} must be a multiple of K={kh}")
+    route = decode_route(q.dtype, d, h // kh)
+    if route == "tensor_core":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
+    elif h // kh > MAX_GROUP:
+        # bf16 at a tensor-core head_dim got here with G > MMA_MAX_GROUP
+        limit = MMA_MAX_GROUP if q.dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS else MAX_GROUP
         raise ValueError(f"H={h} must be a multiple of K={kh} with at most "
-                         f"{MAX_GROUP} query heads per kv head")
-    if d % 32 or d > 1024:
+                         f"{limit} query heads per kv head")
+    elif d % 32 or d > 1024:
         raise ValueError(f"head_dim={d} must be a multiple of 32, at most 1024")
     if kv_len.shape != (b,):
         raise ValueError(f"kv_len {tuple(kv_len.shape)} does not match B={b}")
-    return b, h, kh, d
+    return b, h, kh, d, route
 
+
+def _decode_scratch(q, b: int, kh: int, g: int, d: int, capacity: int):
+    """-> (chunk, part_ml, part_acc) for the tensor-core decode: the f32
+    partials of each split, [B, K, splits, 2, G] (m, l) and [B, K, splits,
+    G, D] (acc), or None and None for one split."""
+    splits, chunk = decode_splits(b, kh, capacity, _sm_count(q.device))
+    if splits == 1:
+        return chunk, None, None
+    return (chunk, torch.empty((b, kh, splits, 2, g), dtype=torch.float32, device=q.device),
+            torch.empty((b, kh, splits, g, d), dtype=torch.float32, device=q.device))
+
+
+# ---------------------------------------------------------------------------
+# Decode against slot-contiguous caches
+# ---------------------------------------------------------------------------
 
 def flash_decode(q, k_cache, v_cache, kv_len, *, k_scale=None, v_scale=None):
     """Decode attention: q [B,1,H,D] or [B,H,D]; caches [B,Smax,K,D] (model
@@ -170,18 +237,35 @@ def flash_decode(q, k_cache, v_cache, kv_len, *, k_scale=None, v_scale=None):
 
 def flash_decode_cuda(q, k_cache, v_cache, kv_len, *, k_scale=None,
                       v_scale=None):
-    """Launch the CUDA kernel. q [B,H,D] bf16/f32; caches [B,Smax,K,D] of
+    """Launch a CUDA kernel. q [B,H,D] bf16/f32; caches [B,Smax,K,D] of
     q's dtype, or int8 with f32 scales [B,Smax,K]; kv_len [B] int32; all
-    contiguous on one card. The kernel reads positions < kv_len only."""
-    b, h, kh, d = _check_decode(q, k_cache, v_cache, kv_len, k_scale, v_scale,
-                                tuple(k_cache.shape[:3]))
+    contiguous on one card. The kernels read positions < kv_len only.
+
+    The route goes by dtype and shape (`decode_route`): bf16 q at head_dim
+    64/128/256 with G = H / K <= 16 takes the tensor-core kernel
+    (csrc/flash_decode.cu `fd_mma_kernel`: split over the card by
+    `decode_splits`, cp.async rings, QK^T and P.V by mma.sync, then
+    `fd_combine_kernel` where there are several splits); anything else the
+    CUDA-core kernel (`fd_kernel`, all f32, G <= 8). Neither falls back to
+    the other: a failed build or launch raises. No device value is read on
+    the host, so a call never synchronises."""
+    b, h, kh, d, route = _check_decode(q, k_cache, v_cache, kv_len, k_scale, v_scale,
+                                       tuple(k_cache.shape[:3]))
     if k_cache.shape[0] != b:
         raise ValueError(f"caches {tuple(k_cache.shape)} do not match B={b}")
     out = torch.empty_like(q)
     if b == 0:
         return out
-    _build.extension().flash_decode(q, k_cache, v_cache, k_scale, v_scale,
-                                    kv_len, out, 1.0 / math.sqrt(d))
+    # launches on the current stream, raises if the launch failed
+    if route == "tensor_core":
+        chunk, part_ml, part_acc = _decode_scratch(q, b, kh, h // kh, d, k_cache.shape[1])
+        _build.extension().flash_decode_mma(q, k_cache, v_cache, k_scale, v_scale, kv_len,
+                                            out, part_ml, part_acc, chunk, 1.0 / math.sqrt(d))
+        flash_decode_cuda.tensor_core_launches += 1
+    else:
+        _build.extension().flash_decode(q, k_cache, v_cache, k_scale, v_scale,
+                                        kv_len, out, 1.0 / math.sqrt(d))
+        flash_decode_cuda.cuda_core_launches += 1
     flash_decode_cuda.launches += 1
     return out
 
@@ -209,13 +293,14 @@ def flash_decode_paged(q, k_pages, v_pages, kv_len, page_table, *,
 
 def flash_decode_paged_cuda(q, k_pages, v_pages, kv_len, page_table, *,
                             k_scale=None, v_scale=None):
-    """Launch the CUDA kernel. q [B,H,D] bf16/f32; arenas [P,ps,K,D] of
+    """Launch a CUDA kernel. q [B,H,D] bf16/f32; arenas [P,ps,K,D] of
     q's dtype, or int8 with f32 scales [P,ps,K]; kv_len [B] int32;
     page_table [B,max_pages] int32; all contiguous on one card. Every
     table entry a slot reads (its first ceil(kv_len/ps)) must be a valid
-    arena row: the kernel reads positions < kv_len only."""
-    b, h, kh, d = _check_decode(q, k_pages, v_pages, kv_len, k_scale, v_scale,
-                                tuple(k_pages.shape[:3]))
+    arena row: the kernels read positions < kv_len only. Routes as in
+    `flash_decode_cuda`, the capacity being max_pages * ps."""
+    b, h, kh, d, route = _check_decode(q, k_pages, v_pages, kv_len, k_scale, v_scale,
+                                       tuple(k_pages.shape[:3]))
     require(page_table, "page_table", dtypes=(torch.int32,), ndim=2,
             device=q.device)
     if page_table.shape[0] != b:
@@ -225,8 +310,17 @@ def flash_decode_paged_cuda(q, k_pages, v_pages, kv_len, page_table, *,
     if b == 0:
         return out
     # launches on the current stream, raises if the launch failed
-    _build.extension().flash_decode_paged(q, k_pages, v_pages, k_scale, v_scale,
-                                          kv_len, page_table, out, 1.0 / math.sqrt(d))
+    if route == "tensor_core":
+        capacity = page_table.shape[1] * k_pages.shape[1]
+        chunk, part_ml, part_acc = _decode_scratch(q, b, kh, h // kh, d, capacity)
+        _build.extension().flash_decode_paged_mma(q, k_pages, v_pages, k_scale, v_scale,
+                                                  kv_len, page_table, out, part_ml, part_acc,
+                                                  chunk, 1.0 / math.sqrt(d))
+        flash_decode_paged_cuda.tensor_core_launches += 1
+    else:
+        _build.extension().flash_decode_paged(q, k_pages, v_pages, k_scale, v_scale,
+                                              kv_len, page_table, out, 1.0 / math.sqrt(d))
+        flash_decode_paged_cuda.cuda_core_launches += 1
     flash_decode_paged_cuda.launches += 1
     return out
 
@@ -236,4 +330,8 @@ flash_attention_cuda.launches = 0
 flash_attention_cuda.wgmma_launches = 0
 flash_attention_cuda.cuda_core_launches = 0
 flash_decode_cuda.launches = 0
+flash_decode_cuda.tensor_core_launches = 0
+flash_decode_cuda.cuda_core_launches = 0
 flash_decode_paged_cuda.launches = 0
+flash_decode_paged_cuda.tensor_core_launches = 0
+flash_decode_paged_cuda.cuda_core_launches = 0

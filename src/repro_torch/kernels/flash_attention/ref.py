@@ -99,3 +99,54 @@ def flash_decode_paged_ref(q, k_pages, v_pages, kv_len, page_table, *,
         ks = gather_pages(k_scale, page_table)
         vs = gather_pages(v_scale, page_table)
     return flash_decode_ref(q, kf, vf, kv_len, k_scale=ks, v_scale=vs)
+
+
+def flash_decode_split_ref(q, k_cache, v_cache, kv_len, splits: int, *,
+                           chunk=None, k_scale=None, v_scale=None,
+                           page_table=None):
+    """A plain model of the tensor-core decode's split and combine, for the
+    tests (never on a path): split s takes positions [s * chunk, (s + 1) *
+    chunk) of each slot (chunk defaults to ceil(capacity / splits); the
+    splits must cover the capacity) and yields its partial (m, l, acc): the
+    max score, the sum of exp(score - m) and its weighted sum of v, with m
+    = -1e30, l = 0, acc = 0 for a split that holds no position < kv_len.
+    The partials combine with log-sum-exp weights exp(m_s - M), M = max_s
+    m_s, into acc / max(l, 1e-30): exact zeros where kv_len == 0. Same
+    arguments as `flash_decode_ref` (caches [B,Smax,K,D]), or with
+    `page_table` those of `flash_decode_paged_ref` (page arenas)."""
+    if page_table is not None:
+        k_cache, v_cache = gather_pages(k_cache, page_table), gather_pages(v_cache, page_table)
+        if k_scale is not None:
+            k_scale = gather_pages(k_scale, page_table)
+            v_scale = gather_pages(v_scale, page_table)
+    b, h, d = q.shape
+    smax, kh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kh
+    chunk = chunk or max(1, -(-smax // splits))
+    if splits * chunk < smax:
+        raise ValueError(f"{splits} splits of {chunk} do not cover {smax} positions")
+    kf, vf = k_cache.float(), v_cache.float()
+    if k_scale is not None:
+        kf = kf * k_scale[..., None].float()
+        vf = vf * v_scale[..., None].float()
+    kv_len = torch.as_tensor(kv_len, dtype=torch.int32,
+                             device=q.device).reshape(-1).expand(b)
+    qg = q.reshape(b, kh, g, d).float() / math.sqrt(d)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, kf)
+    # pad the positions to splits x chunk, masked
+    pad = splits * chunk - smax
+    s = torch.nn.functional.pad(s, (0, pad), value=NEG_INF)
+    vf = torch.nn.functional.pad(vf, (0, 0, 0, 0, 0, pad))
+    pos = torch.arange(splits * chunk, device=q.device)
+    valid = (pos[None, :] < kv_len[:, None])[:, None, None, :]       # [B,1,1,T]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    s = s.reshape(b, kh, g, splits, chunk)
+    valid = valid.reshape(b, 1, 1, splits, chunk)
+    m = s.amax(dim=-1)                                                # [B,K,G,S]
+    p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgsc,bsckd->bkgsd", p, vf.reshape(b, splits, chunk, kh, d))
+    big = m.amax(dim=-1, keepdim=True)                                # M
+    w = torch.exp(m - big)
+    o = (acc * w[..., None]).sum(dim=-2) / torch.clamp((l * w).sum(dim=-1), min=1e-30)[..., None]
+    return o.reshape(b, h, d).to(q.dtype)

@@ -29,6 +29,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_decode_ref)
 from repro_torch.kernels.flash_attention.ops import (flash_attention_cuda,
                                                      flash_decode_cuda)
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.flash_attention.ref import attention_mask
 from repro_torch.kernels.quantize import quantize, quantize_ref
 from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd_ref, rmsnorm_cuda,
@@ -484,6 +485,311 @@ def test_flash_decode_launcher_rejects_what_the_kernel_does_not_take():
         flash_decode_cuda(torch.zeros(2, 18, 32, dtype=torch.bfloat16), k, k, kv)
     with pytest.raises(ValueError, match="kv_len"):
         flash_decode_cuda(q, k, k, torch.zeros(3, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Decode: the tensor-core route's splits, its plain model, the routing
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,kh,capacity,sm", [
+    (16, 8, 4096, 132),     # long context: a few blocks an SM
+    (4, 8, 160, 132),       # the engine: one split, no combine launch
+    (8, 8, 160, 132),       # the static loop
+    (16, 8, 10, 132),       # capacity below one tile
+    (1, 1, 0, 132),         # no positions at all
+    (1, 1, 64, 132),        # exactly one tile
+    (1, 1, 4096, 132),      # one slot, one kv head: many splits
+    (1, 1, 100_000, 132),
+    (128, 8, 4096, 132),    # enough (slot, head) pairs to fill the card alone
+    (16, 8, 4096, 1),
+    (3, 2, 1000, 16),
+])
+def test_decode_splits_cover_the_capacity_in_whole_tiles(b, kh, capacity, sm):
+    """`decode_splits` cuts [0, capacity) into `splits` chunks of whole
+    tiles that cover it exactly (the last split holds a position), aims at
+    DECODE_BLOCKS_PER_SM blocks an SM, and keeps every split at least
+    DECODE_MIN_SPLIT_TILES tiles long unless there is one."""
+    splits, chunk = fa_ops.decode_splits(b, kh, capacity, sm)
+    tile = fa_ops.DECODE_TILE
+    assert splits >= 1 and chunk >= tile and chunk % tile == 0
+    assert splits * chunk >= capacity > (splits - 1) * chunk or (splits == 1 and capacity <= chunk)
+    blocks = b * kh * splits
+    if splits > 1:
+        assert chunk >= fa_ops.DECODE_MIN_SPLIT_TILES * tile
+        # never more splits than it takes to reach the target
+        assert b * kh * (splits - 1) < fa_ops.DECODE_BLOCKS_PER_SM * sm
+    if capacity <= tile:
+        assert (splits, chunk) == (1, tile)
+    if (b, kh, capacity, sm) == (16, 8, 4096, 132):
+        assert 4 <= splits <= 8 and blocks >= 4 * sm
+    if (b, kh, capacity) in ((4, 8, 160), (8, 8, 160), (128, 8, 4096)):
+        assert splits == 1
+
+
+SPLIT_CASES = [
+    # b, h, kh, smax (contiguous) or page_size (paged), d, kv_lens
+    (3, 4, 2, 20, 16, [5, 0, 20]),          # G=2, a 0, full capacity
+    (2, 10, 2, 33, 32, [17, 33]),           # G=5
+    (4, 4, 4, 9, 16, [9, 1, 0, 4]),         # G=1
+    (2, 36, 4, 24, 32, [24, 7]),            # G=9 (starcoder2-7b's 36/4)
+    (2, 32, 2, 16, 16, [3, 16]),            # G=16 (qwen3-moe's 64/4)
+]
+
+
+@pytest.mark.parametrize("splits", [1, 3, 50])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_ref_matches_plain_and_jax(case, paged, dtype, splits):
+    """The plain model of the tensor-core decode's split and combine
+    (`flash_decode_split_ref`) against `flash_decode_ref` /
+    `flash_decode_paged_ref` and the JAX `flash_decode_fwd` /
+    `flash_decode_paged_fwd` in interpret mode: f32 to 1e-5, bf16 to one
+    bf16 ulp, int8 codes (f32 q, f32 scales) to 1e-5. 50 splits is more
+    than there are positions, so most splits lie wholly past kv_len and
+    some past the capacity; kv_len 0 gives exact zeros, and no NaN."""
+    ref = jax_ref()
+    jnp = ref.jnp
+    b, h, kh, n, d, kv_lens = case
+    int8 = dtype == "int8"
+    qdt = "float32" if int8 else dtype
+    if paged:
+        q, k, v, kvl, tab = _paged_case(b, h, kh, n, d, kv_lens, qdt, seed=h + n)
+    else:
+        q, k, v = _decode_case(b, h, kh, n, d, seed=h + n)
+        if qdt == "bfloat16":
+            q, k, v = (torch.from_numpy(a).bfloat16().float().numpy() for a in (q, k, v))
+        kvl, tab = np.asarray(kv_lens, np.int32), None
+    tdt = getattr(torch, qdt)
+    tq = torch.from_numpy(q).to(tdt)
+    kw, jkw = {}, {}
+    if int8:
+        k, ks = _quant_np(k)
+        v, vs = _quant_np(v)
+        kw = {"k_scale": torch.from_numpy(ks), "v_scale": torch.from_numpy(vs)}
+        jkw = {"k_scale": jnp.asarray(ks), "v_scale": jnp.asarray(vs)}
+        tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+    else:
+        tk, tv = torch.from_numpy(k).to(tdt), torch.from_numpy(v).to(tdt)
+    tkvl = torch.from_numpy(kvl)
+    ttab = None if tab is None else torch.from_numpy(tab)
+    got = fa_ref.flash_decode_split_ref(tq, tk, tv, tkvl, splits, page_table=ttab, **kw)
+    assert got.dtype == tdt and got.shape == (b, h, d)
+    got = got.float().numpy()
+    jdt = jnp.int8 if int8 else qdt
+    jargs = [jnp.asarray(q, qdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt), jnp.asarray(kvl)]
+    if paged:
+        plain = flash_decode_paged_ref(tq, tk, tv, tkvl, ttab, **kw)
+        kern = ref.decode_kernel.flash_decode_paged_fwd(*jargs, jnp.asarray(tab), **jkw,
+                                                        interpret=True)
+    else:
+        plain = flash_decode_ref(tq, tk, tv, tkvl, **kw)
+        kern = ref.decode_kernel.flash_decode_fwd(*jargs, **jkw, block_k=8, interpret=True)
+    for name, want in (("plain", plain.float().numpy()),
+                       ("jax kernel", np.asarray(kern).astype(np.float32))):
+        _close(got, want, qdt, name)
+    assert np.isfinite(got).all()
+    assert np.all(got[kvl == 0] == 0.0)
+
+
+def test_split_ref_refuses_splits_that_do_not_cover():
+    q, k = torch.zeros(1, 2, 16), torch.zeros(1, 20, 1, 16)
+    with pytest.raises(ValueError, match="do not cover"):
+        fa_ref.flash_decode_split_ref(q, k, k, torch.tensor([20], dtype=torch.int32), 2,
+                                      chunk=8)
+
+
+DECODE_GROUP_CASES = [
+    # b, h, kh, smax / page_size, d, kv_lens: the group sizes of the configs
+    # the tensor-core route takes beyond the CUDA-core limit of 8
+    (2, 36, 4, 24, 32, [24, 7]),            # G=9: starcoder2-7b (36/4)
+    (3, 32, 2, 16, 16, [3, 16, 0]),         # G=16: qwen3-moe-235b (64/4)
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECODE_GROUP_CASES)
+def test_decode_plain_matches_jax_at_large_groups(case, dtype):
+    """The plain decode versions, slot-contiguous and paged, against the
+    JAX kernels in interpret mode and their oracles at 9 and 16 query
+    heads per kv head: f32 to 1e-5, bf16 to one bf16 ulp, kv_len 0 exact
+    zeros."""
+    ref = jax_ref()
+    jnp = ref.jnp
+    b, h, kh, n, d, kv_lens = case
+    tdt = getattr(torch, dtype)
+    # slot-contiguous caches of n positions
+    q, k, v = _decode_case(b, h, kh, n, d, seed=h * n)
+    if dtype == "bfloat16":
+        q, k, v = (torch.from_numpy(a).bfloat16().float().numpy() for a in (q, k, v))
+    kvl = np.asarray(kv_lens, np.int32)
+    got = flash_decode(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                       torch.from_numpy(kvl)).float().numpy()
+    jargs = [jnp.asarray(a, dtype) for a in (q, k, v)] + [jnp.asarray(kvl)]
+    for name, want in (
+            ("kernel", ref.decode_kernel.flash_decode_fwd(*jargs, block_k=8, interpret=True)),
+            ("oracle", ref.fa_ref.flash_decode_ref(*jargs))):
+        _close(got, np.asarray(want).astype(np.float32), dtype, "contiguous " + name)
+    assert np.all(got[kvl == 0] == 0.0)
+    # page arenas of page size n
+    q, k, v, kvl, tab = _paged_case(b, h, kh, n, d, kv_lens, dtype, seed=h + n)
+    got = flash_decode_paged(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                             torch.from_numpy(kvl), torch.from_numpy(tab)).float().numpy()
+    jargs = [jnp.asarray(a, dtype) for a in (q, k, v)] + [jnp.asarray(kvl), jnp.asarray(tab)]
+    for name, want in (
+            ("kernel", ref.decode_kernel.flash_decode_paged_fwd(*jargs, interpret=True)),
+            ("oracle", ref.fa_ref.flash_decode_paged_ref(*jargs))):
+        _close(got, np.asarray(want).astype(np.float32), dtype, "paged " + name)
+    assert np.all(got[kvl == 0] == 0.0)
+
+
+class _DecodeExtension:
+    """Stands in for the built extension's decode entries: records each
+    launch (entry, chunk, scratch shapes) and computes into `out` what the
+    entry's kernel computes: the split-and-combine model on the tensor-core
+    entries, the plain version on the CUDA-core ones."""
+
+    def __init__(self):
+        self.launches = []
+
+    def _record(self, entry, q, ml, acc, chunk, sm_scale):
+        assert sm_scale == pytest.approx(q.shape[-1] ** -0.5)
+        self.launches.append({"entry": entry, "chunk": chunk,
+                              "part_ml": None if ml is None else tuple(ml.shape),
+                              "part_acc": None if acc is None else tuple(acc.shape),
+                              "scratch_dtype": None if acc is None else acc.dtype})
+
+    def flash_decode_mma(self, q, k, v, ks, vs, kvl, out, ml, acc, chunk, sm_scale):
+        self._record("flash_decode_mma", q, ml, acc, chunk, sm_scale)
+        splits = 1 if acc is None else acc.shape[2]
+        out.copy_(fa_ref.flash_decode_split_ref(q, k, v, kvl, splits, chunk=chunk,
+                                                k_scale=ks, v_scale=vs))
+
+    def flash_decode_paged_mma(self, q, k, v, ks, vs, kvl, tab, out, ml, acc, chunk,
+                               sm_scale):
+        self._record("flash_decode_paged_mma", q, ml, acc, chunk, sm_scale)
+        splits = 1 if acc is None else acc.shape[2]
+        out.copy_(fa_ref.flash_decode_split_ref(q, k, v, kvl, splits, chunk=chunk,
+                                                k_scale=ks, v_scale=vs, page_table=tab))
+
+    def flash_decode(self, q, k, v, ks, vs, kvl, out, sm_scale):
+        self._record("flash_decode", q, None, None, None, sm_scale)
+        out.copy_(flash_decode_ref(q, k, v, kvl, k_scale=ks, v_scale=vs))
+
+    def flash_decode_paged(self, q, k, v, ks, vs, kvl, tab, out, sm_scale):
+        self._record("flash_decode_paged", q, None, None, None, sm_scale)
+        out.copy_(flash_decode_paged_ref(q, k, v, kvl, tab, k_scale=ks, v_scale=vs))
+
+
+SM_COUNT = 132
+
+
+@pytest.fixture
+def decode_extension(monkeypatch):
+    """CPU tensors routed as CUDA ones: `on_cpu` says False, the card has
+    SM_COUNT SMs, and the extension is the stand-in above."""
+    ext = _DecodeExtension()
+    monkeypatch.setattr(_build, "extension", lambda: ext)
+    monkeypatch.setattr(fa_ops, "on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(fa_ops, "_sm_count", lambda device: SM_COUNT)
+    return ext
+
+
+def _decode_counts(launcher):
+    return launcher.launches, launcher.tensor_core_launches, launcher.cuda_core_launches
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["kv_model", "kv_int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+@pytest.mark.parametrize("dtype,h,kh,d,capacity,route", [
+    ("bfloat16", 4, 2, 64, 1024, "tensor_core"),     # G 2, splits over the card
+    ("bfloat16", 32, 2, 128, 1024, "tensor_core"),   # G 16
+    ("bfloat16", 18, 2, 256, 96, "tensor_core"),     # G 9, one split
+    ("bfloat16", 6, 6, 64, 160, "tensor_core"),      # G 1
+    ("float32", 4, 2, 128, 1024, "cuda_core"),
+    ("bfloat16", 4, 2, 32, 96, "cuda_core"),          # head_dim 32
+    ("bfloat16", 16, 2, 96, 96, "cuda_core"),         # head_dim 96, G 8
+])
+def test_decode_routes_by_dtype_and_shape(decode_extension, dtype, h, kh, d, capacity, route,
+                                          paged, int8):
+    """`flash_decode` / `flash_decode_paged` on tensors that count as CUDA
+    ones launch once through their `*_cuda` launcher: bf16 q at head_dim
+    64/128/256 with G <= 16 reaches the tensor-core entry with the chunk
+    and f32 scratch shapes `decode_splits` gives ([B, K, splits, 2, G] and
+    [B, K, splits, G, D], or none for one split); anything else the
+    CUDA-core entry. The total and that route's count each rise by one,
+    and the output is what the entry wrote."""
+    tdt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(h * d)
+    b, ps = 2, 16
+    kv_lens = [capacity, capacity // 3]
+    q = torch.randn(b, h, d, generator=g).to(tdt)
+    if paged:
+        pages = b * capacity // ps
+        shape = (pages + 1, ps, kh, d)
+        table = torch.randperm(pages, generator=g).reshape(b, -1).to(torch.int32)
+    else:
+        shape = (b, capacity, kh, d)
+    k, v = (torch.randn(shape, generator=g).to(tdt) for _ in range(2))
+    kw = {}
+    if int8:
+        (k, ks), (v, vs) = (quantize_ref(x.reshape(-1, d)) for x in (k, v))
+        k, v = k.reshape(shape), v.reshape(shape)
+        kw = {"k_scale": ks.reshape(shape[:3]), "v_scale": vs.reshape(shape[:3])}
+    kvl = torch.tensor(kv_lens, dtype=torch.int32)
+    launcher = fa_ops.flash_decode_paged_cuda if paged else fa_ops.flash_decode_cuda
+    before = _decode_counts(launcher)
+    if paged:
+        out = fa_ops.flash_decode_paged(q, k, v, kvl, table, **kw)
+    else:
+        out = fa_ops.flash_decode(q, k, v, kvl, **kw)
+    after = _decode_counts(launcher)
+    [launch] = decode_extension.launches
+    entry = ("flash_decode_paged" if paged else "flash_decode") + (
+        "_mma" if route == "tensor_core" else "")
+    assert launch["entry"] == entry
+    assert after[0] - before[0] == 1
+    assert (after[1] - before[1], after[2] - before[2]) == (
+        (1, 0) if route == "tensor_core" else (0, 1))
+    tab = {"page_table": table} if paged else {}
+    if route == "tensor_core":
+        splits, chunk = fa_ops.decode_splits(b, kh, capacity, SM_COUNT)
+        assert launch["chunk"] == chunk
+        if splits == 1:
+            assert launch["part_ml"] is None and launch["part_acc"] is None
+        else:
+            assert launch["part_ml"] == (b, kh, splits, 2, h // kh)
+            assert launch["part_acc"] == (b, kh, splits, h // kh, d)
+            assert launch["scratch_dtype"] == torch.float32
+        assert (splits > 1) == (capacity == 1024)
+        want = fa_ref.flash_decode_split_ref(q, k, v, kvl, splits, chunk=chunk, **tab, **kw)
+    elif paged:
+        want = flash_decode_paged_ref(q, k, v, kvl, table, **kw)
+    else:
+        want = flash_decode_ref(q, k, v, kvl, **kw)
+    assert out.dtype == tdt and out.shape == q.shape and torch.equal(out, want)
+
+
+@pytest.mark.parametrize("dtype,h,kh,d,err,match", [
+    ("bfloat16", 34, 2, 128, ValueError, "at most 16 query heads"),   # G 17
+    ("bfloat16", 18, 2, 32, ValueError, "at most 8 query heads"),     # G 9 at head_dim 32
+    ("float32", 18, 2, 128, ValueError, "at most 8 query heads"),     # G 9 in f32
+    ("bfloat16", 4, 2, 48, ValueError, "multiple of 32"),
+    ("float16", 4, 2, 128, TypeError, "dtype"),
+])
+def test_decode_neither_route_takes(decode_extension, dtype, h, kh, d, err, match):
+    """What neither decode kernel takes raises before any launch or count."""
+    tdt = getattr(torch, dtype)
+    q, k = torch.zeros(2, h, d, dtype=tdt), torch.zeros(2, 8, kh, d, dtype=tdt)
+    kvl = torch.tensor([8, 3], dtype=torch.int32)
+    for launcher, call in ((fa_ops.flash_decode_cuda, lambda: fa_ops.flash_decode(q, k, k, kvl)),
+                           (fa_ops.flash_decode_paged_cuda, lambda: fa_ops.flash_decode_paged(
+                               q, k, k, kvl, torch.zeros(2, 1, dtype=torch.int32)))):
+        before = _decode_counts(launcher)
+        with pytest.raises(err, match=match):
+            call()
+        assert _decode_counts(launcher) == before
+    assert decode_extension.launches == []
 
 
 # ---------------------------------------------------------------------------
