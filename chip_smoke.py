@@ -10,7 +10,8 @@ non-zero, printing no result):
    printed raw on a line of its own);
 2. build — the CUDA kernels built from the repo's sources (seconds), and
    the tensor-core instructions in their SASS (HGMMA in the prefill
-   kernel, HMMA in the decode kernel);
+   kernel, HMMA in the decode kernel and in the SSD scan's two product
+   kernels);
 3. kernels — each kernel on the card against its plain PyTorch version at
    every shape the paths below give it and at a long-context shape, with
    its time, the plain version's, the least time the card could take
@@ -24,10 +25,15 @@ non-zero, printing no result):
    own path;
    the quantize, dequantize, RMSNorm and SSD scan rows also take the
    kernel's device time from torch.profiler (quantize and dequantize also
-   at DDL's pod-hop slices, bitwise); SSD rows with dt in a trained model's range
+   at DDL's pod-hop slices, bitwise; the SSD rows every kernel a call
+   launches, the RMSNorm rows `F.rms_norm`'s device time likewise); the
+   SSD and RMSNorm rows assert the route or path they took (the scan on
+   the tensor cores or the CUDA cores, RMSNorm's row held in registers or
+   element by element); SSD rows with dt in a trained model's range
    also show that the plain scan with the decayed state dropped from what
    each chunk hands on fails the row's rule; the RMSNorm autograd
-   Function's gradient against autograd through the plain version;
+   Function's gradient against autograd through the plain version; the
+   scan's CUDA-core route on its own path (the scan entry on f32 views);
 4. reference (qwen2.5-14b at full width, 2 layers, random bf16 weights
    from a seed) — the serve engine with model-width and int8 KV pages;
    the engine with the flash-attention prefill (attn_impl="pallas",
@@ -43,7 +49,8 @@ non-zero, printing no result):
    dt_bias drawn as Mamba-2 draws it, 4 x 2048 tokens) — `Model.forward` and `loss` through the SSD scan kernel
    (ssd_impl="pallas") against the same model through the plain scan, at
    2 layers (values and argmax) and at the full 48 (launches exactly 48,
-   argmax where the margin is wide, both losses, forward time);
+   all on the tensor-core route, argmax where the margin is wide, both
+   losses, forward time);
 6. training (qwen2.5-14b at full width, bf16, 2 x 2048 tokens of the
    synthetic stream) — at 2 layers, 3 steps of `build_train_step` from one
    init through the kernels and through the plain versions (step 1's
@@ -81,10 +88,10 @@ the kernel phases did not check, and its launch counts (flash attention's
 also by route) are reset just before and read just after: the static
 loop's, the engine's whole-prompt prefill's and `Model.forward`'s attention
 launches must all take the tensor-core route, and so must every decode
-launch of the engine, the static loop and the slot decode. The line before
-the last lists every ported kernel (flash attention and decode once per
-route) with its launches on the main path; the last line is {"ok": true,
-"device": {...}}.
+launch of the engine, the static loop and the slot decode, and every scan
+launch of the Mamba-2 forward. The line before the last lists every ported
+kernel (flash attention, decode and the SSD scan once per route) with its
+launches on the main path; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -131,6 +138,15 @@ DDL_LAYERS, DDL_STEPS, DDL_MESH = 1, 3, (2, 1, 1)
 DDL_SMOKE_MESH, DDL_SMOKE_BATCH, DDL_SMOKE_SEQ = (2, 2, 1), 8, 128
 DDL_AXES = ("pod", "data", "model")
 DDL_TIMEOUT_S = 420
+# the kernels of each route of the SSD scan and RMSNorm (csrc/ssd_scan_mma.cu,
+# ssd_scan.cu, rmsnorm.cu); the first two SSD ones run on the tensor cores
+SSD_MMA_KERNELS = ("ssd_chunk_state_kernel", "ssd_chunk_out_kernel")
+SSD_KERNELS = {"tensor_core": (*SSD_MMA_KERNELS, "ssd_state_pass_kernel"),
+               "cuda_core": ("ssd_scan_kernel",)}
+RMSNORM_KERNELS = {"register": "rmsnorm_rows_kernel", "element": "rmsnorm_elements_kernel"}
+# torch.profiler sessions that time a kernel: at most this many for one
+# number, the timed calls this far (s) inside each end of a session
+PROFILE_ATTEMPTS, PROFILE_PAD_S = 8, 0.02
 
 
 def emit(obj) -> None:
@@ -162,70 +178,77 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int = 20, attempts: int = 3) -> float:
-    """Mean device time of one launch of the kernel whose name contains
-    `kernel`, over `iters` calls of fn() under torch.profiler: the kernel's
-    own time on the card. (Back-to-back timing by CUDA events reads the
-    wrapper's host time instead where that is the longer.) A session that
-    records another number of launches than `iters` is reported and run
-    again, up to `attempts` sessions: once in a run of thirteen sessions
-    on the card it recorded none at all."""
+def _profiled_events(fn, iters: int, accept, what: str, attempts: int = PROFILE_ATTEMPTS):
+    """-> the CUDA events (kernels, copies, fills) of a torch.profiler
+    session of `iters` calls of fn(), from the first session of up to
+    `attempts` whose events `accept` takes. The calls sit PROFILE_PAD_S of
+    host time inside each end of the session, so that a device timestamp
+    placed a little off the host's clock still falls in it. A session the
+    check rejects is reported (`profiler_miss`: what it recorded, and where
+    its missing launches fall among the session's runtime launches) and run
+    again after a pause: now and then a session on the card records only
+    part of its device operations, or none, and the next one or two
+    sessions may too."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     seen = []
-    for _ in range(attempts):
+    for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        durs = [ev.duration_ns() for ev in prof.profiler.kineto_results.events()
-                if ev.device_type() == DeviceType.CUDA and kernel in ev.name()]
-        if len(durs) == iters:
-            return sum(durs) / len(durs) / 1e6
-        seen.append(len(durs))
-        emit({"phase": "profiler_miss", "kernel": kernel, "launches": iters,
-              "recorded": len(durs)})
-    raise AssertionError(f"the profiler saw {seen} launches of {kernel} in {attempts} "
-                         f"sessions, not {iters}")
+            time.sleep(PROFILE_PAD_S)
+        evs = list(prof.profiler.kineto_results.events())
+        dev = [ev for ev in evs if ev.device_type() == DeviceType.CUDA]
+        if accept(dev):
+            return dev
+        seen.append(len(dev))
+        got = ({ev.correlation_id() for ev in dev}
+               | {ev.linked_correlation_id() for ev in dev})
+        launches = sorted(ev.correlation_id() for ev in evs
+                          if ev.device_type() == DeviceType.CPU
+                          and ev.name().startswith("cuda") and ev.correlation_id())
+        emit({"phase": "profiler_miss", "kernel": what, "calls": iters,
+              "recorded": len(dev), "runtime_launches": len(launches),
+              "missing_at": [j for j, c in enumerate(launches) if c not in got][:40]})
+        time.sleep(0.5 * (attempt + 1))
+    raise AssertionError(f"{what}: the profiler recorded {seen} device operations for "
+                         f"{iters} calls in {attempts} sessions")
 
 
-def device_ms_per_call(fn, iters: int = 20, attempts: int = 3):
+def device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Mean device time of one launch of the kernel whose name contains
+    `kernel`, over `iters` calls of fn() under torch.profiler: the kernel's
+    own time on the card. (Back-to-back timing by CUDA events reads the
+    wrapper's host time instead where that is the longer.) Only a session
+    that recorded all `iters` launches counts."""
+    dev = _profiled_events(
+        fn, iters, lambda dev: sum(kernel in ev.name() for ev in dev) == iters, kernel)
+    durs = [ev.duration_ns() for ev in dev if kernel in ev.name()]
+    return sum(durs) / len(durs) / 1e6
+
+
+def device_ms_per_call(fn, iters: int = 20):
     """Mean device time of one call of fn(), summed over every CUDA kernel
     (and copy or fill) the call launches, over `iters` calls under
     torch.profiler: a call that launches a split kernel and its combine,
     or SDPA's own kernels, is timed whole, and the wrapper's host time is
-    left out. -> (ms, device operations a call, {kernel: ms a call}). A
-    session whose count of operations is not a positive multiple of
-    `iters` is reported and run again, up to `attempts` sessions."""
+    left out. -> (ms, device operations a call, {kernel: ms a call}). Only
+    a session whose count of operations is a positive multiple of `iters`
+    counts."""
     import re
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    seen = []
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        evs = [ev for ev in prof.profiler.kineto_results.events()
-               if ev.device_type() == DeviceType.CUDA]
-        if evs and len(evs) % iters == 0:
-            by = {}
-            for ev in evs:   # short names: "fd_mma_kernel", "fd_combine_kernel", ...
-                name = re.sub(r"[<(].*", "", ev.name().replace("(anonymous namespace)", ""))
-                name = name.split("::")[-1].split()[-1]
-                by[name] = by.get(name, 0.0) + ev.duration_ns() / iters / 1e6
-            return sum(by.values()), len(evs) // iters, by
-        seen.append(len(evs))
-        emit({"phase": "profiler_miss", "kernel": "per call", "launches": iters,
-              "recorded": len(evs)})
-    raise AssertionError(f"the profiler saw {seen} device operations for {iters} calls "
-                         f"in {attempts} sessions")
+    evs = _profiled_events(fn, iters, lambda dev: dev and len(dev) % iters == 0,
+                           "per call")
+    by = {}
+    for ev in evs:   # short names: "fd_mma_kernel", "fd_combine_kernel", ...
+        name = re.sub(r"[<(].*", "", ev.name().replace("(anonymous namespace)", ""))
+        name = name.split("::")[-1].split()[-1]
+        by[name] = by.get(name, 0.0) + ev.duration_ns() / iters / 1e6
+    return sum(by.values()), len(evs) // iters, by
 
 
 def bf16_row_ulp(o):
@@ -276,9 +299,10 @@ def build_phase():
 def sass_phase():
     """The tensor-core instructions in the built extension's SASS, from
     `cuobjdump -sass`: HGMMA (wgmma) by instance of the flash-attention
-    kernel (`fa_wgmma_kernel<D>`) and HMMA (mma.sync) in the decode kernel
-    (`fd_mma_kernel`). Fails if either has none, since both routes must run
-    on the tensor cores."""
+    kernel (`fa_wgmma_kernel<D>`), HMMA (mma.sync) in the decode kernel
+    (`fd_mma_kernel`), and HMMA and HGMMA in the SSD scan's two product
+    kernels (`ssd_chunk_state_kernel`, `ssd_chunk_out_kernel`). Fails if any
+    has none, since each of those routes must run on the tensor cores."""
     import re
     import shutil
     from repro_torch.kernels import _build
@@ -287,6 +311,7 @@ def sass_phase():
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
     counts, hmma, fn = {}, 0, None
+    ssd = {name: {"HMMA": 0, "HGMMA": 0} for name in SSD_MMA_KERNELS}
     for text in sass.splitlines():
         if "Function :" in text:
             fn = text.split("Function :", 1)[1].strip()
@@ -296,14 +321,20 @@ def sass_phase():
             counts[key] = counts.get(key, 0) + 1
         elif fn and "fd_mma_kernel" in fn and "HMMA" in text:
             hmma += 1
+        elif fn and ("HMMA" in text or "HGMMA" in text):
+            for name in ssd:
+                if name in fn:
+                    ssd[name]["HGMMA" if "HGMMA" in text else "HMMA"] += 1
     row = {"phase": "sass", "library": os.path.relpath(lib, ROOT),
            "kernel": "fa_wgmma_kernel", "hgmma": counts, "hgmma_total": sum(counts.values()),
-           "decode_kernel": "fd_mma_kernel", "decode_hmma_total": hmma}
+           "decode_kernel": "fd_mma_kernel", "decode_hmma_total": hmma, "ssd_tensor_core": ssd}
     emit(row)
     if not row["hgmma_total"]:
         raise AssertionError("the tensor-core flash-attention kernel has no HGMMA in its SASS")
     if not hmma:
         raise AssertionError("the tensor-core decode kernel has no HMMA in its SASS")
+    if not all(sum(n.values()) for n in ssd.values()):
+        raise AssertionError(f"a tensor-core SSD kernel has no HMMA or HGMMA in its SASS: {ssd}")
     return row
 
 
@@ -422,6 +453,16 @@ def ssd_sig(x, B, chunk):
     """x, B and C are read through their strides: those are part of it."""
     return ("ssd_scan", tuple(x.shape), str(x.dtype), tuple(x.stride()), tuple(B.shape),
             tuple(B.stride()), int(chunk))
+
+
+def rmsnorm_path(x, scale) -> str:
+    """The path of the RMSNorm kernel a CUDA call of `rmsnorm` takes, as
+    `rms_ops.rmsnorm_layout` chooses it: "register" (the row held in
+    registers) or "element". A non-contiguous x is copied, so aligned."""
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_layout
+    aligned = (not x.is_contiguous() or x.data_ptr() % 16 == 0) and scale.data_ptr() % 16 == 0
+    return ("register" if rmsnorm_layout(x.shape[-1], x.element_size(), aligned)
+            else "element")
 
 
 def decode_kernel_phase(shape: str, kv_lens, int8: bool, seed: int, checked: set,
@@ -809,22 +850,29 @@ def bf16_ulp(x):
 
 
 def rmsnorm_kernel_phase(shape: str, rows: int, d: int, seed: int, checked: set, *,
-                         dtype="bfloat16", eps=1e-6):
+                         dtype="bfloat16", eps=1e-6, offset=0):
     """The RMSNorm kernel against its plain version on rows of varied
     scale (one all zero): bf16 within one bf16 ulp of each element (both
     are the f32 value x * r * s rounded once, and the f32 values differ by
     a few f32 ulps of the row's sum of squares and rsqrt, so they round to
     the same or neighbouring bf16 values); f32 within 2e-6 of each
     element (one product chain per element, with r = rsqrt(mean + eps)
-    computed from sums in other orders: a few f32 ulps)."""
+    computed from sums in other orders: a few f32 ulps). x starts `offset`
+    elements into its buffer (an unaligned start with offset 1). The call
+    must take the path `rmsnorm_path` names, which the row reports with the
+    warps a row (`ops.rmsnorm_layout`). Kernel and `F.rms_norm` are both
+    timed on the card by torch.profiler (every kernel a call launches), and
+    both back to back by CUDA events too."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_cuda, rmsnorm_layout
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn((rows, d), generator=gen, device="cuda")
          * (torch.rand((rows, 1), generator=gen, device="cuda") * 8 + 0.05)).to(
              getattr(torch, dtype))
+    if offset:
+        x = torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(rows, d)
     x[min(1, rows - 1)] = 0
     scale = 1 + 0.2 * torch.randn((d,), generator=gen, device="cuda")
 
@@ -833,8 +881,14 @@ def rmsnorm_kernel_phase(shape: str, rows: int, d: int, seed: int, checked: set,
 
     def plain():
         return rmsnorm_ref(x, scale, eps=eps)
+    path = rmsnorm_path(x, scale)
+    counters = {p: f"{p}_launches" for p in RMSNORM_KERNELS}
+    before = {p: getattr(rmsnorm_cuda, a) for p, a in counters.items()}
     out = kernel()
     torch.cuda.synchronize()
+    took = [p for p, a in counters.items() if getattr(rmsnorm_cuda, a) > before[p]]
+    if took != [path]:
+        raise AssertionError(f"rmsnorm {shape}: took path {took}, expected {path}")
     want = plain()
     err = (out.float() - want.float()).abs()
     if dtype == "bfloat16":
@@ -848,21 +902,33 @@ def rmsnorm_kernel_phase(shape: str, rows: int, d: int, seed: int, checked: set,
                              f"{err.max().item()} ({worst} of the tolerance unit)")
     checked.add(rmsnorm_sig(x, eps))
     back_to_back_ms = time_ms(kernel)
-    kernel_ms = device_ms(kernel, "rmsnorm_kernel")
+    kernel_ms = device_ms(kernel, RMSNORM_KERNELS[path])
     plain_ms = time_ms(plain, iters=20)
     w = scale.to(x.dtype)             # F.rms_norm takes a weight of the input's type
-    library_ms = time_ms(lambda: F.rms_norm(x, (d,), weight=w, eps=eps))
+
+    def library():
+        return F.rms_norm(x, (d,), weight=w, eps=eps)
+    library_ms, library_ops, library_by = device_ms_per_call(library)
+    library_back_to_back_ms = time_ms(library)
     nbytes = 2 * x.numel() * x.element_size() + 4 * d
     bound_ms, bound_by = bound(nbytes, 4 * x.numel())
+    layout = rmsnorm_layout(d, x.element_size(), path == "register")
     row = {"phase": "kernel", "kernel": "rmsnorm", "shape": shape, "rows": rows, "d": d,
-           "dtype": dtype, "eps": eps, "max_abs_err": err.max().item(),
+           "dtype": dtype, "eps": eps, "path": path, "kernel_name": RMSNORM_KERNELS[path],
+           "warps_per_row": layout[0] if layout else None,
+           "vectors_per_lane": layout[1] if layout else None, "x_offset": offset,
+           "max_abs_err": err.max().item(),
            "max_err_over_unit": worst, "share_of_elements_differing": differing,
            "tolerance": ("1 bf16 ulp of each element" if dtype == "bfloat16"
                          else "2e-6 of each element"),
            "kernel_ms": kernel_ms, "kernel_ms_by": "torch.profiler",
            "back_to_back_ms": back_to_back_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": library_ms,
+           "bound_by": bound_by, "bound_share": bound_ms / kernel_ms,
+           "library_ms": library_ms, "library_ms_by": "torch.profiler, every kernel a call",
+           "library_ops_per_call": library_ops, "library_ms_by_kernel": library_by,
+           "library_back_to_back_ms": library_back_to_back_ms,
            "library": "F.rms_norm(x, (d,), weight=scale in x's dtype, eps=eps)",
+           "kernel_over_library": kernel_ms / library_ms,
            "kernel_gb_s": nbytes / kernel_ms / 1e6}
     emit(row)
     return row
@@ -974,7 +1040,7 @@ def _chunk_decays(dt, A, chunk):
 
 
 def ssd_kernel_phase(shape: str, b: int, l: int, seed: int, checked: set, *, h=64, p=64,
-                     g=1, n=128, chunk=256, dtype="bfloat16", dt_kind="softplus"):
+                     g=1, n=128, chunk=256, dtype="bfloat16", dt_kind="softplus", route=None):
     """The SSD scan kernel against its plain version, per (batch row,
     head): bf16 within one bf16 ulp of that head's largest |y| (the two
     f32 results, summed in other orders, round apart by at most that);
@@ -988,19 +1054,32 @@ def ssd_kernel_phase(shape: str, b: int, l: int, seed: int, checked: set, *, h=6
     reported, with the chunks' decays exp(cum_last): with softplus(normal)
     dt they are ~0 and the fault is invisible; with "trained" dt the row
     fails unless the faulty scan lies 10 tolerances away, so a kernel
-    with that fault could not pass it."""
+    with that fault could not pass it.
+
+    The call must take the route `ssd_ops.ssd_route` names (`route`, where
+    given, must be it too); the row reports it, and the device time of one
+    call, every kernel it launches summed (torch.profiler), beside the
+    back-to-back CUDA-event time (`wall_ms`)."""
     import torch
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     x, dt, A, B, C = _ssd_inputs(b, l, h, p, g, n, getattr(torch, dtype), seed, dt_kind)
+    launcher = ssd_ops.ssd_scan_cuda
 
     def kernel():
-        return ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
+        return launcher(x, dt, A, B, C, chunk=chunk)
 
     def plain():
         return ssd_scan_ref(x, dt, A, B, C, chunk=chunk)[0]
+    expected = ssd_ops.ssd_route(x, B, C, chunk)
+    counters = {r: f"{r}_launches" for r in SSD_KERNELS}
+    before = {r: getattr(launcher, a) for r, a in counters.items()}
     out = kernel()
     torch.cuda.synchronize()
+    took = [r for r, a in counters.items() if getattr(launcher, a) > before[r]]
+    if took != [expected] or (route is not None and expected != route):
+        raise AssertionError(f"ssd_scan {shape}: took route {took}, expected {expected} "
+                             f"(wanted {route})")
     want = plain()
     err = (out.float() - want.float()).abs().amax(dim=(1, 3))          # [b, h]
     top = want.float().abs().amax(dim=(1, 3)).clamp_min(1e-30)
@@ -1027,8 +1106,10 @@ def ssd_kernel_phase(shape: str, b: int, l: int, seed: int, checked: set, *, h=6
             raise AssertionError(f"ssd_scan {shape}: the plain scan without the decayed "
                                  f"state lies only {fault_worst} units from it")
     checked.add(ssd_sig(x, B, chunk))
-    kernel_ms = time_ms(kernel, iters=10, warmup=2)
-    profiled_ms = device_ms(kernel, "ssd_scan_kernel", iters=5)
+    wall_ms = time_ms(kernel, iters=10, warmup=2)
+    kernel_ms, device_ops, by_kernel = device_ms_per_call(kernel)
+    if not set(by_kernel) <= set(SSD_KERNELS[took[0]]) | {"Memset"}:
+        raise AssertionError(f"ssd_scan {shape}: a call ran {sorted(by_kernel)}")
     plain_ms = time_ms(plain, iters=3, warmup=1)
     q = min(chunk, l)
     rows = [min(q, l - c0) for c0 in range(0, l, q)]
@@ -1040,15 +1121,24 @@ def ssd_kernel_phase(shape: str, b: int, l: int, seed: int, checked: set, *, h=6
     nbytes = 2 * b * l * h * p * esize + b * l * h * 4 + h * 4 + 2 * b * l * g * n * esize
     peak = BF16_TENSOR_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
     bound_ms, bound_by = bound(nbytes, flops, peak)
-    row = {"phase": "kernel", "kernel": "ssd_scan", "shape": shape, "x": list(x.shape),
-           "groups": g, "state": n, "chunk": chunk, "dtype": dtype, "gflop": flops / 1e9,
-           "mbytes": nbytes / 1e6, "max_abs_err": err.max().item(),
+    q = min(chunk, l)
+    nc1 = -(-l // q) - 1
+    row = {"phase": "kernel", "kernel": "ssd_scan", "shape": shape, "route": took[0],
+           "x": list(x.shape), "groups": g, "state": n, "chunk": chunk, "dtype": dtype,
+           "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+           "workspace_mbytes": (b * nc1 * h * (p * n + 1) * 4 / 1e6
+                                if took[0] == "tensor_core" else 0.0),
+           "max_abs_err": err.max().item(),
            "max_err_over_unit": worst, "dt": dt_kind, "carry": carry,
            "tolerance": ("1 bf16 ulp of each (batch, head)'s max |plain|"
                          if dtype == "bfloat16" else "2e-5 of each (batch, head)'s max |plain|"),
-           "kernel_ms": kernel_ms, "profiled_ms": profiled_ms, "plain_ms": plain_ms,
+           "kernel_ms": kernel_ms, "device_ops_per_call": device_ops,
+           "device_ms_by_kernel": by_kernel, "wall_ms": wall_ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "bound_peak": peak,
+           "bound_share": bound_ms / kernel_ms,
            "library_ms": None, "library": "none: no single PyTorch call computes the scan",
+           "timing": "kernel_ms: device time a call, every kernel summed (torch.profiler); "
+                     "wall_ms, plain_ms: CUDA events, back to back",
            "kernel_tflop_s": flops / kernel_ms / 1e9}
     emit(row)
     del x, dt, A, B, C, out, want
@@ -1073,11 +1163,15 @@ def kernel_phases(num_layers: int):
     and the pool's quantize of a prefill cache of 2 and of num_layers
     layers; the SSD scan at the Mamba-2 forward's 4 x 2048 tokens (views
     of the convolution's output, as apply_ssm passes them), a ragged
-    length, a length under the chunk, f32, two groups and a narrow head,
-    and the main and ragged shapes again with dt in a trained model's
-    range, where the state carried across chunks shows; RMSNorm at the
-    train step's rows, every serve path's, Mamba-2's, ragged, f32 and a
-    narrow row, and its autograd Function's gradient.
+    length, a length under the chunk, two groups, a chunk of 100 rows and
+    head_dim 32 with state 64 on the tensor cores, f32, a narrow f32 head
+    and a narrow bf16 head on the CUDA cores, and the main and ragged
+    shapes again with dt in a trained model's range, where the state
+    carried across chunks shows; RMSNorm at the train step's rows, every
+    serve path's, Mamba-2's, ragged, f32 and a narrow row (the row held in
+    registers by 1, 2, 4 and 8 warps), two rows of the element path (a
+    width of no whole 16-byte vectors, an unaligned start), and its
+    autograd Function's gradient.
     The first row of each kernel is the main path's shape.
     -> ({kernel: [rows]}, the launch signatures checked)."""
     import numpy as np
@@ -1166,19 +1260,34 @@ def kernel_phases(num_layers: int):
                               dtype="float32", timed=False, nonfinite=True)]
     from repro_torch.configs import get_config
     m = get_config(MAMBA)
-    out["ssd_scan"] = [
+    # the SSD scan by route: bf16 at head_dim and state multiples of 16 on
+    # the tensor cores (the model's scan), f32 and other shapes on the CUDA cores
+    tc = {"route": "tensor_core"}
+    out["ssd_scan_tensor_core"] = [
         ssd_kernel_phase("mamba2_forward", SSD_BATCH, SSD_LEN, 23, checked, h=m.ssm_nheads,
-                         p=m.ssm_headdim, g=m.ssm_ngroups, n=m.ssm_state, chunk=m.ssm_chunk),
+                         p=m.ssm_headdim, g=m.ssm_ngroups, n=m.ssm_state, chunk=m.ssm_chunk,
+                         **tc),
         ssd_kernel_phase("mamba2_forward_trained_dt", SSD_BATCH, SSD_LEN, 29, checked,
                          h=m.ssm_nheads, p=m.ssm_headdim, g=m.ssm_ngroups, n=m.ssm_state,
-                         chunk=m.ssm_chunk, dt_kind="trained"),
-        ssd_kernel_phase("ragged_2000", 2, 2000, 24, checked),
-        ssd_kernel_phase("ragged_2000_trained_dt", 2, 2000, 30, checked, dt_kind="trained"),
-        ssd_kernel_phase("under_chunk_100", SSD_BATCH, 100, 25, checked),
-        ssd_kernel_phase("f32", 2, SSD_LEN, 26, checked, dtype="float32"),
-        ssd_kernel_phase("groups_2", 2, SSD_LEN, 27, checked, g=2),
+                         chunk=m.ssm_chunk, dt_kind="trained", **tc),
+        ssd_kernel_phase("ragged_2000", 2, 2000, 24, checked, **tc),
+        ssd_kernel_phase("ragged_2000_trained_dt", 2, 2000, 30, checked, dt_kind="trained",
+                         **tc),
+        ssd_kernel_phase("under_chunk_100", SSD_BATCH, 100, 25, checked, **tc),
+        ssd_kernel_phase("groups_2", 2, SSD_LEN, 27, checked, g=2, **tc),
+        # a chunk that is not a whole number of 64-row tiles, ragged at the end
+        ssd_kernel_phase("chunk_100_ragged_trained_dt", 2, 1000, 70, checked, chunk=100,
+                         dt_kind="trained", **tc),
+        # head_dim 32 and state 64: half the warps of a state block idle
+        ssd_kernel_phase("p32_n64_g2_trained_dt", 2, 700, 71, checked, h=8, p=32, g=2, n=64,
+                         chunk=128, dt_kind="trained", **tc),
+    ]
+    out["ssd_scan_cuda_core"] = [
+        ssd_kernel_phase("f32", 2, SSD_LEN, 26, checked, dtype="float32", route="cuda_core"),
         ssd_kernel_phase("narrow_f32", 2, 300, 28, checked, h=8, p=40, g=2, n=48, chunk=64,
-                         dtype="float32"),
+                         dtype="float32", route="cuda_core"),
+        ssd_kernel_phase("narrow_bf16", 2, 300, 72, checked, h=8, p=40, g=2, n=48, chunk=64,
+                         route="cuda_core"),
     ]
     d, md = get_config(ARCH).d_model, m.d_model
     out["rmsnorm"] = [
@@ -1195,6 +1304,13 @@ def kernel_phases(num_layers: int):
         rmsnorm_kernel_phase("train_step_f32", TRAIN_BATCH * TRAIN_SEQ, d, 40, checked,
                              dtype="float32"),
         rmsnorm_kernel_phase("narrow_37x64", 37, 64, 41, checked),
+        # the element path: a width that is no whole number of vectors, and an
+        # unaligned start
+        rmsnorm_kernel_phase("element_37x100", 37, 100, 73, checked),
+        rmsnorm_kernel_phase("element_unaligned_300", 300, d, 74, checked, offset=1),
+        # the row over four and eight warps: f32 at d 8192 and 16384
+        rmsnorm_kernel_phase("f32_8192", 512, 8192, 75, checked, dtype="float32"),
+        rmsnorm_kernel_phase("f32_16384", 256, 16384, 76, checked, dtype="float32"),
     ]
     rmsnorm_grad_phase(TRAIN_BATCH * TRAIN_SEQ, d, 42)
     ddl_kernel_phases(out, checked)
@@ -1264,8 +1380,11 @@ def launch_signatures():
     flash-attention calls are also counted by the route `attention_route`
     expects (`flash_attention_wgmma`, `flash_attention_cuda_core`), and the
     decode calls by the route `decode_route` expects
-    (`flash_decode_tensor_core`, `flash_decode_paged_cuda_core`, ...),
-    against the wrappers' per-route counts."""
+    (`flash_decode_tensor_core`, `flash_decode_paged_cuda_core`, ...), the
+    scan calls by the route `ssd_ops.ssd_route` names (`ssd_scan_tensor_core`,
+    `ssd_scan_cuda_core`) and the RMSNorm calls by the path `rmsnorm_path`
+    names (`rmsnorm_register`, `rmsnorm_element`), against the wrappers'
+    per-route counts."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.quantize import ops as q_ops
@@ -1273,8 +1392,10 @@ def launch_signatures():
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     launchers = _launchers()
     routes = {"flash_attention_wgmma": ("flash_attention", "wgmma_launches"),
-              "flash_attention_cuda_core": ("flash_attention", "cuda_core_launches")}
-    for name in ("flash_decode", "flash_decode_paged"):
+              "flash_attention_cuda_core": ("flash_attention", "cuda_core_launches"),
+              "rmsnorm_register": ("rmsnorm", "register_launches"),
+              "rmsnorm_element": ("rmsnorm", "element_launches")}
+    for name in ("flash_decode", "flash_decode_paged", "ssd_scan"):
         for route in ("tensor_core", "cuda_core"):
             routes[f"{name}_{route}"] = (name, f"{route}_launches")
     seen, calls, launches = set(), {name: 0 for name in [*launchers, *routes]}, {}
@@ -1316,11 +1437,13 @@ def launch_signatures():
     def scan_spy(x, dt, A, B, C, *, chunk=256):
         seen.add(ssd_sig(x, B, chunk))
         calls["ssd_scan"] += 1
+        calls["ssd_scan_" + ssd_ops.ssd_route(x, B, C, chunk)] += 1
         return scan(x, dt, A, B, C, chunk=chunk)
 
     def norm_spy(x, scale, *, eps=1e-6):
         seen.add(rmsnorm_sig(x, eps))
         calls["rmsnorm"] += 1
+        calls["rmsnorm_" + rmsnorm_path(x, scale)] += 1
         return norm(x, scale, eps=eps)
     (fa_ops.flash_attention, fa_ops.flash_decode, fa_ops.flash_decode_paged,
      q_ops.quantize, ssd_ops.ssd_scan) = (attend_spy, decode_spy, paged_spy, quantize_spy,
@@ -1967,6 +2090,39 @@ def f32_attention_phase(line, checked):
     return row
 
 
+def f32_ssd_phase(line, checked):
+    """The SSD scan's CUDA-core route on its own path. The repo's Mamba-2
+    config (bf16, head_dim 64, state 128) reaches only the tensor-core
+    route, so this path is the scan entry `ssd_scan` on f32 views of one
+    buffer, as apply_ssm hands them over, at mamba2-1.3b's widths (64 heads
+    of 64, state 128, chunk 256) on 2 x 2048 tokens, counts reset just
+    before and read just after: one launch, on the CUDA cores, of a shape
+    the kernel phases checked, and a finite f32 output."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    x, dt, A, B, C = _ssd_inputs(2, SSD_LEN, 64, 64, 1, 128, torch.float32, 26, "softplus")
+    with launch_signatures() as (seen, calls, launches):
+        y = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=256)
+        torch.cuda.synchronize()
+    unchecked = sorted(seen - checked)
+    checks = {
+        "one_launch": launches["ssd_scan"] == 1,
+        "took_cuda_core": launches["ssd_scan_cuda_core"] == 1,
+        "every_launch_recorded": calls == launches,
+        "every_launch_shape_checked": not unchecked,
+        "f32_output": y.shape == x.shape and y.dtype == torch.float32,
+        "finite": bool(torch.isfinite(y).all()),
+    }
+    row = {"phase": "f32_ssd", "x": list(x.shape), "card": line, "launches": launches,
+           "launch_signatures": sorted(seen), "unchecked_signatures": unchecked,
+           "checks": checks}
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"f32 ssd scan: failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return row
+
+
 def _first_layers(params, n: int):
     """The model's params with the decoder cut to its first n layers
     (views into the stacked [L, ...] leaves)."""
@@ -2063,9 +2219,10 @@ def mamba_phases(line, checked):
         "logits_shape": tuple(logits_k.shape) == (SSD_BATCH, SSD_LEN, cfg.vocab_size),
         "aux_zero": aux_k.item() == 0.0,
         "scan_launches_eq_layers_x_2": launches["ssd_scan"] == 2 * 2,
+        "scan_on_tensor_cores": launches["ssd_scan_tensor_core"] == 2 * 2,
         "rmsnorm_launches_eq_2_x_(layers+1)": launches["rmsnorm"] == 2 * (2 + 1),
         "no_other_launches": all(n == 0 for k, n in launches.items()
-                                 if k not in ("ssd_scan", "rmsnorm")),
+                                 if k.split("_")[0] not in ("ssd", "rmsnorm")),
         "every_launch_recorded": calls == launches,
         "every_launch_shape_checked": not unchecked,
         "finite": bool(torch.isfinite(logits_k).all()) and bool(torch.isfinite(loss_k)),
@@ -2105,9 +2262,10 @@ def mamba_phases(line, checked):
     unchecked = sorted(seen - checked)
     checks = {
         "scan_launches_eq_layers": launches["ssd_scan"] == layers,
+        "scan_on_tensor_cores": launches["ssd_scan_tensor_core"] == layers,
         "rmsnorm_launches_eq_layers+1": launches["rmsnorm"] == layers + 1,
         "no_other_launches": all(n == 0 for k, n in launches.items()
-                                 if k not in ("ssd_scan", "rmsnorm")),
+                                 if k.split("_")[0] not in ("ssd", "rmsnorm")),
         "every_launch_recorded": calls == launches,
         "every_launch_shape_checked": not unchecked,
         "finite": finite and loss_k == loss_k,
@@ -2284,7 +2442,8 @@ def train_reference_phase(line, checked):
         "rmsnorm_launches_4L+1_a_step": per_step == [4 * L + 1] * n,
         "plain_runs_launch_no_rmsnorm":
             plain_per_step + floor_per_step + ab_per_step == [0] * (n + 2),
-        "no_other_launches": all(v == 0 for k, v in launches.items() if k != "rmsnorm"),
+        "no_other_launches": all(v == 0 for k, v in launches.items()
+                                 if not k.startswith("rmsnorm")),
         "every_launch_recorded": calls == launches,
         "every_launch_shape_checked": not unchecked,
     }
@@ -2424,7 +2583,8 @@ def trainer_phase(line, checked):
         "finite_losses": all(r["loss"] == r["loss"] and abs(r["loss"]) != float("inf")
                              for r in hist),
         "rmsnorm_launches_4L+1_a_step": launches["rmsnorm"] == (4 * L + 1) * TRAIN_STEPS,
-        "no_other_launches": all(v == 0 for k, v in launches.items() if k != "rmsnorm"),
+        "no_other_launches": all(v == 0 for k, v in launches.items()
+                                 if not k.startswith("rmsnorm")),
         "every_launch_recorded": calls == launches,
         "every_launch_shape_checked": not unchecked,
     }
@@ -2940,6 +3100,7 @@ def main() -> int:
     kernels, checked = kernel_phases(get_config(ARCH).num_layers)
     f32_attention_row = f32_attention_phase(line, checked)
     f32_decode_row = f32_decode_phase(line, checked)
+    f32_ssd_row = f32_ssd_phase(line, checked)
     decode_sync_phase(line)
     slot_launches = reference_phase(line, checked)
     mamba_row = mamba_phases(line, checked)
@@ -2986,7 +3147,8 @@ def main() -> int:
         "flash_decode_cuda_core": f"{decode_kernel}:233",
         "quantize_rows": "src/repro/kernels/quantize/kernel.py:25",
         "dequantize_rows": "src/repro/kernels/quantize/kernel.py:46",
-        "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:72",
+        "ssd_scan_tensor_core": "src/repro/kernels/ssd_scan/kernel.py:72",
+        "ssd_scan_cuda_core": "src/repro/kernels/ssd_scan/kernel.py:72",
         "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:24",
     }
     csrc = "src/repro_torch/kernels/csrc"
@@ -3000,14 +3162,16 @@ def main() -> int:
         "flash_decode_cuda_core": f"{csrc}/flash_decode.cu",
         "quantize_rows": f"{csrc}/quantize.cu",
         "dequantize_rows": f"{csrc}/quantize.cu",
-        "ssd_scan": f"{csrc}/ssd_scan.cu",
+        "ssd_scan_tensor_core": f"{csrc}/ssd_scan_mma.cu",
+        "ssd_scan_cuda_core": f"{csrc}/ssd_scan.cu",
         "rmsnorm": f"{csrc}/rmsnorm.cu",
     }
     # each kernel's launches on its main path: the 48-layer static loop
     # (kernel #1's tensor-core route, kernel #3's), the f32 attention call
     # (kernel #1's CUDA-core route), the f32 decode call (that of #2 and #3),
     # the slot decode without an arena (int8), the 48-layer engine,
-    # the 48-layer Mamba-2 forward, the 4-layer Trainer's 5 steps, the
+    # the 48-layer Mamba-2 forward (the scan's tensor-core route), the f32
+    # scan call (its CUDA-core route), the 4-layer Trainer's 5 steps, the
     # full-width DDL Trainer's 3 steps (rank 0)
     launches = {"flash_attention_fwd_wgmma": static_row["launches"]["flash_attention_wgmma"],
                 "flash_attention_fwd_cuda_core":
@@ -3019,7 +3183,8 @@ def main() -> int:
                 "flash_decode_cuda_core": f32_decode_row["launches"]["flash_decode_cuda_core"],
                 "quantize_rows": int8_row["quantize_launches"],
                 "dequantize_rows": sum(st["dequantize_launches"] for st in ddl_row["steps"]),
-                "ssd_scan": mamba_row["launches"]["ssd_scan"],
+                "ssd_scan_tensor_core": mamba_row["launches"]["ssd_scan_tensor_core"],
+                "ssd_scan_cuda_core": f32_ssd_row["launches"]["ssd_scan_cuda_core"],
                 "rmsnorm": trainer_row["launches"]["rmsnorm"]}
     out = []
     for name, phase_rows in kernels.items():
@@ -3032,7 +3197,8 @@ def main() -> int:
                     "library_ms": main_row["library_ms"]})
     emit({"phase": "sass_summary", "kernel": "fa_wgmma_kernel",
           "hgmma_total": sass_row["hgmma_total"], "hgmma": sass_row["hgmma"],
-          "decode_kernel": "fd_mma_kernel", "decode_hmma_total": sass_row["decode_hmma_total"]})
+          "decode_kernel": "fd_mma_kernel", "decode_hmma_total": sass_row["decode_hmma_total"],
+          "ssd_tensor_core": sass_row["ssd_tensor_core"]})
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("binding.cpp", "flash_attention_fwd.cu", "flash_attention_wgmma.cu",
-           "flash_decode.cu", "quantize.cu", "rmsnorm.cu", "ssd_scan.cu")
+           "flash_decode.cu", "quantize.cu", "rmsnorm.cu", "ssd_scan.cu", "ssd_scan_mma.cu")
 # no --use_fast_math: the quantizer's codes must equal the plain version's
 # bitwise, which needs IEEE division and round-half-to-even
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-lineinfo")

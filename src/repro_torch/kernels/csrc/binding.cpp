@@ -139,10 +139,11 @@ void dequantize_rows(const torch::Tensor& q, const torch::Tensor& scale, torch::
 }
 
 void rmsnorm(const torch::Tensor& x, const torch::Tensor& scale, torch::Tensor out,
-             double eps) {
+             double eps, int64_t warps_per_row) {
   const c10::cuda::CUDAGuard guard(x.device());
   const int err = repro::rmsnorm(x.data_ptr(), dtype_of(x), scale.data_ptr<float>(),
-                                 out.data_ptr(), x.size(0), x.size(1), static_cast<float>(eps),
+                                 out.data_ptr(), x.size(0), x.size(1),
+                                 static_cast<int>(warps_per_row), static_cast<float>(eps),
                                  current_stream());
   check_launch(err, "rmsnorm");
 }
@@ -161,6 +162,24 @@ void ssd_scan(const torch::Tensor& x, const torch::Tensor& dt, const torch::Tens
   check_launch(err, "ssd_scan");
 }
 
+void ssd_scan_mma(const torch::Tensor& x, const torch::Tensor& dt, const torch::Tensor& A,
+                  const torch::Tensor& B, const torch::Tensor& C, torch::Tensor y,
+                  torch::Tensor states, torch::Tensor decays, int64_t chunk) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  TORCH_CHECK(x.scalar_type() == torch::kBFloat16, "ssd_scan_mma takes bf16");
+  const int64_t xs[3] = {x.stride(0), x.stride(1), x.stride(2)};
+  const int64_t dts[3] = {dt.stride(0), dt.stride(1), dt.stride(2)};
+  const int64_t bs[3] = {B.stride(0), B.stride(1), B.stride(2)};
+  const int64_t cs[3] = {C.stride(0), C.stride(1), C.stride(2)};
+  const int err = repro::ssd_scan_mma(
+      x.data_ptr(), dt.data_ptr<float>(), A.data_ptr<float>(), B.data_ptr(), C.data_ptr(),
+      y.data_ptr(), states.numel() ? states.data_ptr<float>() : nullptr,
+      decays.numel() ? decays.data_ptr<float>() : nullptr, x.size(0), x.size(1), x.size(2),
+      B.size(2), x.size(3), B.size(3), static_cast<int>(chunk), xs, dts, bs, cs,
+      current_stream());
+  check_launch(err, "ssd_scan_mma");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -177,4 +196,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("dequantize_rows", &dequantize_rows, "per-row int8 dequantize into out");
   m.def("rmsnorm", &rmsnorm, "RMSNorm forward into out");
   m.def("ssd_scan", &ssd_scan, "Mamba-2 SSD chunked scan into y");
+  m.def("ssd_scan_mma", &ssd_scan_mma,
+        "Mamba-2 SSD chunked scan on the tensor cores (bf16) into y, with its workspace");
 }

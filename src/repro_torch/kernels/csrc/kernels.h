@@ -66,8 +66,12 @@ int dequantize_rows(const int8_t* q, const float* scale, void* out, DType out_dt
 
 // RMSNorm forward (rmsnorm.cu). x/out [rows,d] f32 or bf16, scale [d] f32,
 // contiguous: out = (x * rsqrt(mean(x^2) + eps)) * scale in x's dtype.
+// warps_per_row W > 0 takes the row-in-registers path, a row held by W
+// warps (1, 2, 4 or 8) in at most 20 16-byte vectors a lane, which needs d a
+// whole number of vectors and 16-byte aligned pointers; W = 0 the element
+// path, which takes any row.
 int rmsnorm(const void* x, DType dtype, const float* scale, void* out, int rows, int d,
-            float eps, void* stream);
+            int warps_per_row, float eps, void* stream);
 
 // Mamba-2 SSD chunked scan (ssd_scan.cu). x [batch,L,H,P] f32 or bf16,
 // dt [batch,L,H] f32, A [H] f32, B/C [batch,L,G,N] of x's type -> y
@@ -78,5 +82,15 @@ int ssd_scan(const void* x, const float* dt, const float* A, const void* B, cons
              void* y, DType dtype, int batch, int L, int H, int G, int P, int N, int chunk,
              const int64_t* x_strides, const int64_t* dt_strides, const int64_t* b_strides,
              const int64_t* c_strides, void* stream);
+// Its tensor-core route (ssd_scan_mma.cu): the same contract for bf16 x, B
+// and C with P and N multiples of 16, P <= 64, N <= 128, min(chunk, L) <=
+// 2048, and x, B, C and y 16-byte aligned with strides in multiples of 8
+// elements. With nc = ceil(L / min(chunk, L)) chunks and nc > 1, states
+// [batch,nc-1,H,P,N] and decays [batch,nc-1,H] (f32, contiguous) are its
+// workspace; with one chunk both may be null.
+int ssd_scan_mma(const void* x, const float* dt, const float* A, const void* B, const void* C,
+                 void* y, float* states, float* decays, int batch, int L, int H, int G, int P,
+                 int N, int chunk, const int64_t* x_strides, const int64_t* dt_strides,
+                 const int64_t* b_strides, const int64_t* c_strides, void* stream);
 
 }  // namespace repro

@@ -38,10 +38,12 @@
 // tx + 16c of each 64-row tile, and rows ty + 16i, columns tx + 16j of the
 // state. The prefix sums run in one warp in f64 and are rounded once, so
 // each cum is the f32 value nearest the exact sum of the f32 products
-// dt_k * a. x, B and C are read in place through their strides (the model
-// hands over views of the convolution's output): no transposes, no copies.
+// dt_k * a (ssd_scan.cuh, shared with the tensor-core route). x, B and C
+// are read in place through their strides (the model hands over views of
+// the convolution's output): no transposes, no copies.
 
 #include "common.cuh"
+#include "ssd_scan.cuh"
 
 namespace {
 
@@ -113,24 +115,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();                 // the previous chunk is done with dt_s, cum_s, h_s
     for (int i = tid; i < Q; i += kThreads) dt_s[i] = i < nv ? dtb[(c0 + i) * dt_st] : 0.f;
     __syncthreads();
-    if (tid < 32) {   // cum: each lane sums a run of rows, then a warp scan in f64
-      const int per = (Q + 31) / 32;
-      const int i0 = lane * per;
-      double run = 0.0;
-      for (int u = 0; u < per && i0 + u < Q; ++u) run += static_cast<double>(dt_s[i0 + u] * a);
-      double incl = run;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const double v = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += v;
-      }
-      const double before = __shfl_up_sync(0xffffffffu, incl, 1);
-      double acc = lane ? before : 0.0;   // the sum of the lower lanes' runs
-      for (int u = 0; u < per && i0 + u < Q; ++u) {
-        acc += static_cast<double>(dt_s[i0 + u] * a);
-        cum_s[i0 + u] = static_cast<float>(acc);
-      }
-    }
+    if (tid < 32) repro::ssd_chunk_cum(dt_s, cum_s, Q, a, lane);
     __syncthreads();
     const float cum_last = cum_s[Q - 1];
 

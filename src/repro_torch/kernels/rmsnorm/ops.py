@@ -13,6 +13,29 @@ from repro_torch.kernels._dispatch import on_cpu, require
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 
+# the row-in-registers path (csrc/rmsnorm.cu): a row is held by W warps of a
+# block of 8, each lane at most MAX_VECTORS 16-byte vectors
+WARPS_PER_ROW = (1, 2, 4, 8)
+MAX_VECTORS = 20
+
+
+def rmsnorm_layout(d: int, element_size: int, aligned: bool):
+    """How the kernel reads a row of d elements of `element_size` bytes:
+    -> (W, vectors a lane) for the row-in-registers path, the fewest warps
+    W whose lanes hold the row in at most MAX_VECTORS 16-byte vectors; or
+    None for the element path, where the row is not a whole number of
+    vectors, a pointer is not 16-byte aligned (`aligned` False) or the row
+    is wider than 8 warps hold."""
+    if not aligned or (d * element_size) % 16:
+        return None
+    nvec = d * element_size // 16
+    for w in WARPS_PER_ROW:
+        v = -(-nvec // (32 * w))
+        if v <= MAX_VECTORS:
+            return w, v
+    return None
+
+
 def rmsnorm(x, scale, *, eps: float = 1e-6):
     """x [..., d] bf16/f32, scale [d] f32 -> [..., d] in x's dtype; viewed
     as [-1, d] rows, as the JAX op does."""
@@ -44,7 +67,8 @@ class _RMSNorm(torch.autograd.Function):
 
 def rmsnorm_cuda(x, scale, *, eps: float = 1e-6):
     """Launch the CUDA kernel: x [rows, d] bf16/f32 and scale [d] f32, both
-    contiguous on one card -> [rows, d] in x's dtype."""
+    contiguous on one card -> [rows, d] in x's dtype. The path is
+    `rmsnorm_layout`'s."""
     dev = x.device
     require(x, "x", dtypes=(torch.bfloat16, torch.float32), ndim=2, device=dev)
     rows, d = x.shape
@@ -56,11 +80,20 @@ def rmsnorm_cuda(x, scale, *, eps: float = 1e-6):
     out = torch.empty_like(x)
     if rows == 0:
         return out
+    layout = rmsnorm_layout(d, x.element_size(),
+                            all(t.data_ptr() % 16 == 0 for t in (x, scale, out)))
     # launches on the current stream, raises if the launch failed
-    _build.extension().rmsnorm(x, scale, out, float(eps))
+    _build.extension().rmsnorm(x, scale, out, float(eps), layout[0] if layout else 0)
+    if layout:
+        rmsnorm_cuda.register_launches += 1
+    else:
+        rmsnorm_cuda.element_launches += 1
     rmsnorm_cuda.launches += 1
     return out
 
 
-# launches of the CUDA kernel; a run resets it to 0 and reads it back
+# launches of the CUDA kernel (`launches`, and by path: a row held in
+# registers, or element by element); a run resets them to 0 and reads them
 rmsnorm_cuda.launches = 0
+rmsnorm_cuda.register_launches = 0
+rmsnorm_cuda.element_launches = 0

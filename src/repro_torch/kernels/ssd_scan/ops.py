@@ -1,6 +1,10 @@
 """`ssd_scan` dispatch: CPU tensors take the plain version, CUDA tensors
-the hand-written kernel (csrc/ssd_scan.cu), which replaces the JAX
-package's `ssd_scan_fwd` Pallas kernel."""
+one of the two hand-written routes that replace the JAX package's
+`ssd_scan_fwd` Pallas kernel: the chunk-parallel scan on the tensor cores
+(csrc/ssd_scan_mma.cu: bf16 x with head_dim and state multiples of 16,
+head_dim <= 64, state <= 128, chunks up to 2048 rows, 16-byte aligned
+rows) or the CUDA-core kernel (csrc/ssd_scan.cu: f32, and every other
+shape)."""
 from __future__ import annotations
 
 import torch
@@ -12,6 +16,32 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 MAX_HEAD_DIM = 64     # csrc kMaxP
 MAX_STATE = 128       # csrc kMaxN
 MAX_CHUNK = 4096      # dt and cum of a chunk sit in the block's shared memory
+MAX_TC_CHUNK = 2048   # the tensor-core route's: beside four tiles of C, B and x
+
+
+def ssd_route(x, B, C, chunk: int = 256) -> str:
+    """The route a CUDA call takes: "tensor_core" for bf16 x with p and n
+    multiples of 16 (p <= 64, n <= 128), min(chunk, l) <= MAX_TC_CHUNK,
+    and x, B and C starting on 16 bytes with strides in multiples of 8
+    elements (rows the kernels copy 16 bytes at a time); else "cuda_core".
+    Host-known sizes only."""
+    p, n = x.shape[-1], B.shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+                  for t in (x, B, C))
+    return ("tensor_core" if x.dtype == torch.bfloat16 and p % 16 == 0 and n % 16 == 0
+            and p <= MAX_HEAD_DIM and n <= MAX_STATE and min(chunk, x.shape[1]) <= MAX_TC_CHUNK
+            and aligned else "cuda_core")
+
+
+def ssd_workspace(b, l, h, p, n, chunk, device):
+    """The tensor-core route's workspace: f32 states [b, nc - 1, h, p, n]
+    (each chunk's own contribution to the state, then the state entering
+    the next chunk) and decays [b, nc - 1, h] (exp of the chunk's summed
+    dt * A), nc = ceil(l / min(chunk, l)); empty for one chunk."""
+    q = min(chunk, l)
+    nc1 = -(-l // q) - 1
+    return (torch.empty((b, nc1, h, p, n), dtype=torch.float32, device=device),
+            torch.empty((b, nc1, h), dtype=torch.float32, device=device))
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 256):
@@ -23,10 +53,12 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256):
 
 
 def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 256):
-    """Launch the CUDA kernel. x bf16/f32 with p <= 64; dt and A f32; B and
-    C of x's dtype with n <= 128 and h a multiple of g. x, dt, B and C may
-    be strided views (the kernel reads them through their strides) as long
-    as their last dimension is contiguous; A is made contiguous."""
+    """Launch the CUDA kernels of the route `ssd_route` names. x bf16/f32
+    with p <= 64; dt and A f32; B and C of x's dtype with n <= 128 and h a
+    multiple of g. x, dt, B and C may be strided views (the kernels read
+    them through their strides) as long as their last dimension is
+    contiguous; A is made contiguous. The tensor-core route launches up to
+    three kernels on its workspace (`ssd_workspace`)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C)):
         raise RuntimeError("the SSD scan kernel has no backward (nor has the JAX "
                            "package's); take gradients through ssd_impl='ref'")
@@ -53,10 +85,19 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 256):
     if b == 0 or l == 0 or h == 0:
         return y
     # launches on the current stream, raises if the launch failed
-    _build.extension().ssd_scan(x, dt, A.contiguous(), B, C, y, chunk)
+    if ssd_route(x, B, C, chunk) == "tensor_core":
+        states, decays = ssd_workspace(b, l, h, p, n, chunk, dev)
+        _build.extension().ssd_scan_mma(x, dt, A.contiguous(), B, C, y, states, decays, chunk)
+        ssd_scan_cuda.tensor_core_launches += 1
+    else:
+        _build.extension().ssd_scan(x, dt, A.contiguous(), B, C, y, chunk)
+        ssd_scan_cuda.cuda_core_launches += 1
     ssd_scan_cuda.launches += 1
     return y
 
 
-# launches of the CUDA kernel; a run resets it to 0 and reads it back
+# calls that launched a route (`launches`, and by route); a run resets them
+# to 0 and reads them back
 ssd_scan_cuda.launches = 0
+ssd_scan_cuda.tensor_core_launches = 0
+ssd_scan_cuda.cuda_core_launches = 0

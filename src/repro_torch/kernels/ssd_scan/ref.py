@@ -7,7 +7,8 @@ Semantics (per head, diagonal A):
 
 Chunked evaluation as the JAX package's `ssd_scan_ref`: a quadratic
 attention-like term inside each chunk and a linear recurrence of the f32
-state across chunks.
+state across chunks. `ssd_scan_chunked_ref` models the tensor-core route's
+three steps and the operands its bf16 products take, for the tests.
 """
 from __future__ import annotations
 
@@ -21,9 +22,11 @@ def _expand_groups(m, h):
     return m.repeat_interleave(h // g, dim=2)
 
 
-def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 256, h0=None):
-    """x [b,l,h,p]; dt [b,l,h] (post-softplus, >= 0); A [h] (< 0);
-    B, C [b,l,g,n]. -> (y [b,l,h,p] in x's dtype, h_final [b,h,p,n] f32)."""
+def _chunked(x, dt, A, B, C, chunk):
+    """The inputs in f32, padded to whole chunks of q = min(chunk, l) rows
+    with zero rows (dt = 0 leaves the state as it is, x = B = C = 0), as
+    chunked views [b,nc,h,q,...] with the head axis before time-in-chunk,
+    and the chunk's prefix sums cum [b,nc,h,q] of dt * A."""
     b, l, h, p = x.shape
     n = B.shape[-1]
     Bh = _expand_groups(B, h).float()
@@ -34,15 +37,13 @@ def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 256, h0=None):
 
     q = min(chunk, l)
     pad = (-l) % q
-    if pad:   # zero rows: dt = 0 leaves the state as it is, x = B = C = 0
+    if pad:
         xf = torch.nn.functional.pad(xf, (0, 0, 0, 0, 0, pad))
         dtf = torch.nn.functional.pad(dtf, (0, 0, 0, pad))
         Bh = torch.nn.functional.pad(Bh, (0, 0, 0, 0, 0, pad))
         Ch = torch.nn.functional.pad(Ch, (0, 0, 0, 0, 0, pad))
-    lp = l + pad
-    nc = lp // q
+    nc = (l + pad) // q
 
-    # chunked views, head axis before time-in-chunk: [b,nc,h,q,...]
     xc = xf.reshape(b, nc, q, h, p).permute(0, 1, 3, 2, 4)
     dtc = dtf.reshape(b, nc, q, h).permute(0, 1, 3, 2)
     Bc = Bh.reshape(b, nc, q, h, n).permute(0, 1, 3, 2, 4)
@@ -55,11 +56,33 @@ def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 256, h0=None):
     # of an ulp of |cum| (up to ~2e-4 at a chunk's end) moves every decay
     # exp(cum_i - cum_j) by as much, relative
     cum = torch.cumsum(dA.double(), dim=-1).float()          # [b,nc,h,q]
+    return xc, dtc, Bc, Cc, cum
+
+
+def _decay_matrix(cum):
+    """exp(cum_i - cum_j) for j <= i, else 0 [b,nc,h,q,q], masked BEFORE
+    the exp: exp of a masked-out (positive) diff overflows."""
+    q = cum.shape[-1]
+    diff = cum[..., :, None] - cum[..., None, :]
+    tril = torch.ones((q, q), dtype=torch.bool, device=cum.device).tril()
+    return torch.exp(torch.where(tril, diff, -torch.inf))
+
+
+def _unchunk(yc, l):
+    """[b,nc,h,q,p] -> [b,l,h,p]."""
+    b, nc, h, q, p = yc.shape
+    return yc.permute(0, 1, 3, 2, 4).reshape(b, nc * q, h, p)[:, :l]
+
+
+def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 256, h0=None):
+    """x [b,l,h,p]; dt [b,l,h] (post-softplus, >= 0); A [h] (< 0);
+    B, C [b,l,g,n]. -> (y [b,l,h,p] in x's dtype, h_final [b,h,p,n] f32)."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    xc, dtc, Bc, Cc, cum = _chunked(x, dt, A, B, C, chunk)
+    nc = xc.shape[1]
     # intra-chunk "attention": L[i,j] = exp(cum_i - cum_j), i >= j
-    diff = cum[..., :, None] - cum[..., None, :]             # [b,nc,h,q,q]
-    tril = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    # mask BEFORE exp: exp of a masked-out (positive) diff overflows
-    lmat = torch.exp(torch.where(tril, diff, -torch.inf))
+    lmat = _decay_matrix(cum)
     scores = torch.einsum("bchin,bchjn->bchij", Cc, Bc) * lmat
     xdt = xc * dtc[..., None]                                # [b,nc,h,q,p]
     y_intra = torch.einsum("bchij,bchjp->bchip", scores, xdt)
@@ -79,5 +102,59 @@ def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 256, h0=None):
 
     # inter-chunk readout: y_i += exp(cum_i) * C_i · h_{chunk_start}
     y_inter = torch.einsum("bchin,bchpn,bchi->bchip", Cc, h_prevs, torch.exp(cum))
-    y = (y_intra + y_inter).permute(0, 1, 3, 2, 4).reshape(b, lp, h, p)[:, :l]
-    return y.to(x.dtype), hstate
+    return _unchunk(y_intra + y_inter, l).to(x.dtype), hstate
+
+
+def _parts(v, operands):
+    """An f32 operand as a bf16 product takes it: "hi_lo", the nearest bf16
+    hi and the nearest bf16 to what hi leaves, two products into one sum;
+    "bf16", hi alone (a single rounding); "f32", the value itself."""
+    if operands == "f32":
+        return [v]
+    hi = v.to(torch.bfloat16).float()
+    if operands == "bf16":
+        return [hi]
+    if operands != "hi_lo":
+        raise ValueError(f"operands={operands!r}: expected 'hi_lo', 'bf16' or 'f32'")
+    return [hi, (v - hi).to(torch.bfloat16).float()]
+
+
+def ssd_scan_chunked_ref(x, dt, A, B, C, *, chunk: int = 256, operands: str = "hi_lo",
+                         out_f32: bool = False):
+    """Plain model of the tensor-core route (csrc/ssd_scan_mma.cu), for
+    tests only and on no path: its three steps over chunks of q rows, with
+    the operands its bf16 products take. x, B and C enter as they are (bf16
+    inputs are exact in a bf16 product); the three f32 operands — w o x with
+    w = exp(cum_last - cum_i) dt_i (step 1), the scores (C_I B_J^T) o
+    exp(cum_i - cum_j) o dt_j and the state h entering the chunk (step 3) —
+    enter as `operands` says (`_parts`). Products and sums in f32, the
+    decays exp(cum_i - cum_j) taken whole (the kernel forms most of them as
+    a product of two exps, each <= 1: a few f32 ulps apart).
+    -> y [b,l,h,p] in x's dtype (f32, before that rounding, with out_f32)."""
+    l = x.shape[1]
+    xc, dtc, Bc, Cc, cum = _chunked(x, dt, A, B, C, chunk)
+    b, nc, h, q, p = xc.shape
+    n = Bc.shape[-1]
+
+    # step 1: each chunk's own contribution to the state, and its decay
+    wx = (torch.exp(cum[..., -1:] - cum) * dtc)[..., None] * xc
+    S = sum(torch.einsum("bchip,bchin->bchpn", part, Bc) for part in _parts(wx, operands))
+    decay = torch.exp(cum[..., -1])                          # [b,nc,h]
+
+    # step 2: the state entering each chunk, in f32
+    hstate = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(hstate)
+        hstate = decay[:, c, :, None, None] * hstate + S[:, c]
+    h_in = torch.stack(h_in, dim=1)                          # [b,nc,h,p,n]
+
+    # step 3: exp(cum_i) C_i h^T, then the masked scores times x
+    y = sum(torch.einsum("bchin,bchpn->bchip", Cc, part) for part in _parts(h_in, operands))
+    y = y * torch.exp(cum)[..., None]
+    scores = (torch.einsum("bchin,bchjn->bchij", Cc, Bc) * _decay_matrix(cum)
+              * dtc[..., None, :])
+    y = y + sum(torch.einsum("bchij,bchjp->bchip", part, xc)
+                for part in _parts(scores, operands))
+    y = _unchunk(y, l)
+    return y if out_f32 else y.to(x.dtype)

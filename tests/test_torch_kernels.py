@@ -899,3 +899,45 @@ def test_rmsnorm_launcher_rejects_what_the_kernel_does_not_take(x, scale, err, m
     """The CUDA launcher's checks run before anything is built or launched."""
     with pytest.raises(err, match=match):
         rmsnorm_cuda(x, scale)
+
+
+@pytest.mark.parametrize("d,esize,aligned,layout", [
+    (5120, 2, True, (1, 20)),     # qwen2.5-14b in bf16: one warp, 20 vectors a lane
+    (2048, 2, True, (1, 8)),      # mamba2-1.3b
+    (5120, 4, True, (2, 20)),     # f32 at d 5120: two warps
+    (8192, 2, True, (2, 16)),
+    (8192, 4, True, (4, 16)),
+    (16384, 4, True, (8, 16)),
+    (40960, 2, True, (8, 20)),    # the widest row 8 warps hold
+    (40968, 2, True, None),       # one vector more: the element path
+    (64, 2, True, (1, 1)),        # a 37 x 64 row
+    (4, 4, True, (1, 1)),
+    (100, 2, True, None),         # not a whole number of 16-byte vectors
+    (2, 4, True, None),
+    (5120, 2, False, None),       # an unaligned pointer
+])
+def test_rmsnorm_layout_by_width_and_alignment(d, esize, aligned, layout):
+    """The path and layout the RMSNorm launcher passes the kernel: the
+    fewest warps W (1, 2, 4, 8) whose lanes hold a row in at most 20
+    16-byte vectors, or None (the element path) for rows that are no whole
+    number of vectors, unaligned pointers and rows wider than 8 warps hold."""
+    from repro_torch.kernels.rmsnorm.ops import MAX_VECTORS, rmsnorm_layout
+    got = rmsnorm_layout(d, esize, aligned)
+    assert got == layout
+    if got:
+        w, v = got
+        assert v <= MAX_VECTORS and w * 32 * v * 16 >= d * esize
+        assert w == 1 or -(-(d * esize // 16) // (32 * (w // 2))) > MAX_VECTORS
+
+
+def test_rmsnorm_layout_holds_every_config_row_in_registers():
+    """Every model width of the port's configs (full and smoke), in bf16 and
+    f32, takes the row-in-registers path; bf16 at the full widths in one
+    warp a row."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_layout
+    for arch in ("qwen2.5-14b", "mamba2-1.3b"):
+        for cfg in (get_config(arch), get_smoke_config(arch)):
+            for esize in (2, 4):
+                assert rmsnorm_layout(cfg.d_model, esize, True) is not None
+        assert rmsnorm_layout(get_config(arch).d_model, 2, True)[0] == 1

@@ -28,7 +28,7 @@ from tests.test_torch_ref import (jax_ref, jax_ref_scope,  # noqa: F401 (autouse
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref, ssd_scan_ref
 from repro_torch.models import layers, ssm
 from repro_torch.models import transformer as tr
 from repro_torch.models.model import Model
@@ -174,6 +174,188 @@ def test_ssd_scan_plain_keeps_bf16_and_an_initial_state(ref, jssd):
     # one bf16 ulp of the largest |y|: the two f32 results round apart at most there
     assert np.abs(y.float().numpy() - f32(jy)).max() <= bf16_ulp_of_max(jy)
     within_max(hf, jh, 1e-5, "h_final")
+
+
+# ---------------------------------------------------------------------------
+# the plain model of the tensor-core route
+# ---------------------------------------------------------------------------
+
+CHUNKED_CASES = [
+    # (l, chunk, g, dt)
+    (40, 16, 1, "softplus"),    # a ragged last chunk
+    (10, 16, 1, "softplus"),    # l < chunk
+    (64, 16, 2, "softplus"),    # 2 groups
+    (64, 16, 1, "trained"),     # the state carried across chunks shows
+    (40, 16, 2, "trained"),
+    (100, 32, 1, "trained"),
+]
+
+
+def _chunked_inputs(l, chunk, g, dt_kind):
+    x, dt, A, B, C = scan_inputs(2, l, 4, 16, g, 16, seed=l + g)
+    if dt_kind == "trained":
+        dt = trained_dt(2, l, 4, seed=300 + l)
+    return x, dt, A, B, C
+
+
+def _per_head_max(y):
+    """max |y| over each (batch row, head): [b, h]."""
+    return np.abs(f32(y)).max(axis=(1, 3))
+
+
+@pytest.mark.parametrize("l,chunk,g,dt_kind", CHUNKED_CASES)
+def test_ssd_scan_chunked_model_matches_jax_f32(ref, jssd, l, chunk, g, dt_kind):
+    """The three-step model of the tensor-core route (ssd_scan_chunked_ref,
+    with its hi + lo operands) in f32 against the JAX ssd_scan_ref and
+    ssd_scan_fwd(interpret=True): within 2e-5 of each (batch, head)'s max
+    |y| (the hi + lo pair keeps ~16 bits of the three f32 operands: ~1e-5
+    of the terms, which cancel only partly)."""
+    kernel, sref = jssd
+    ins = _chunked_inputs(l, chunk, g, dt_kind)
+    y = ssd_scan_chunked_ref(*map(torch.from_numpy, ins), chunk=chunk)
+    jins = [ref.jnp.asarray(a) for a in ins]
+    assert y.shape == (2, l, 4, 16) and y.dtype == torch.float32
+    for name, want in (("ssd_scan_fwd(interpret=True)",
+                        kernel.ssd_scan_fwd(*jins, chunk=chunk, interpret=True)),
+                       ("ssd_scan_ref", sref.ssd_scan_ref(*jins, chunk=chunk)[0])):
+        err = np.abs(f32(y) - f32(want)).max(axis=(1, 3))
+        assert np.all(err <= 2e-5 * _per_head_max(want)), f"vs {name}: {err}"
+
+
+@pytest.mark.parametrize("l,chunk,g,dt_kind", CHUNKED_CASES)
+def test_ssd_scan_chunked_model_bf16_within_one_ulp(ref, jssd, l, chunk, g, dt_kind):
+    """bf16 x, B and C (exact in a bf16 product), as the tensor-core route
+    takes them. Against the JAX scan in f32 on the same values: the model
+    before y's rounding within 0.01 of one bf16 ulp of each (batch, head)'s
+    max |y| (chip_smoke's unit); its bf16 y within one unit of it and of
+    the JAX scan's own bf16 y (each rounds once, 0.5 of the unit). With
+    each f32 operand rounded once to bf16 instead of split, the model lies
+    more than 0.1 of the unit away: the split is what keeps the rule."""
+    kernel, sref = jssd
+    x, dt, A, B, C = _chunked_inputs(l, chunk, g, dt_kind)
+    x, B, C = (f32(torch.from_numpy(a).bfloat16().float()) for a in (x, B, C))
+    jnp = ref.jnp
+    want = f32(sref.ssd_scan_ref(*map(jnp.asarray, (x, dt, A, B, C)), chunk=chunk)[0])
+    want_bf16 = f32(sref.ssd_scan_ref(jnp.asarray(x, jnp.bfloat16), jnp.asarray(dt),
+                                      jnp.asarray(A), jnp.asarray(B, jnp.bfloat16),
+                                      jnp.asarray(C, jnp.bfloat16), chunk=chunk)[0])
+    unit = 2.0 ** (np.floor(np.log2(np.maximum(_per_head_max(want), 1e-30))) - 7)
+    t = [torch.from_numpy(a) for a in (x, dt, A, B, C)]
+    for i in (0, 3, 4):
+        t[i] = t[i].bfloat16()
+
+    def units(got, against):
+        return (np.abs(f32(got) - against).max(axis=(1, 3)) / unit).max()
+    split = ssd_scan_chunked_ref(*t, chunk=chunk, out_f32=True)
+    y = ssd_scan_chunked_ref(*t, chunk=chunk)
+    single = ssd_scan_chunked_ref(*t, chunk=chunk, operands="bf16", out_f32=True)
+    assert y.dtype == torch.bfloat16 and split.dtype == torch.float32
+    assert units(split, want) <= 0.01
+    assert units(y.float(), want) <= 1.0
+    assert units(y.float(), want_bf16) <= 1.0
+    assert units(single, want) > 0.1
+
+
+def test_ssd_scan_chunked_model_rejects_unknown_operands():
+    ins = [torch.from_numpy(a) for a in scan_inputs(1, 8, 2, 16, 1, 16, seed=5)]
+    with pytest.raises(ValueError, match="operands"):
+        ssd_scan_chunked_ref(*ins, chunk=4, operands="tf32")
+
+
+# ---------------------------------------------------------------------------
+# the routes of the CUDA launcher, with the extension stubbed
+# ---------------------------------------------------------------------------
+
+class _ScanExtension:
+    """Stands in for the built extension's scan entries: records each
+    launch (entry, workspace shapes and dtypes) and computes into y what
+    the entry's kernels compute: the chunked model on the tensor-core
+    entry, the plain scan on the CUDA-core one."""
+
+    def __init__(self):
+        self.launches = []
+
+    def ssd_scan_mma(self, x, dt, A, B, C, y, states, decays, chunk):
+        self.launches.append({"entry": "ssd_scan_mma", "states": tuple(states.shape),
+                              "decays": tuple(decays.shape),
+                              "dtypes": (states.dtype, decays.dtype), "chunk": chunk})
+        y.copy_(ssd_scan_chunked_ref(x, dt, A, B, C, chunk=chunk))
+
+    def ssd_scan(self, x, dt, A, B, C, y, chunk):
+        self.launches.append({"entry": "ssd_scan", "chunk": chunk})
+        y.copy_(ssd_scan_ref(x, dt, A, B, C, chunk=chunk)[0])
+
+
+@pytest.fixture
+def scan_extension(monkeypatch):
+    """CPU tensors routed as CUDA ones: `on_cpu` says False and the
+    extension is the stand-in above."""
+    from repro_torch.kernels import _build
+    ext = _ScanExtension()
+    monkeypatch.setattr(_build, "extension", lambda: ext)
+    monkeypatch.setattr(ssd_ops, "on_cpu", lambda *tensors: False)
+    return ext
+
+
+def _scan_counts():
+    f = ssd_ops.ssd_scan_cuda
+    return f.launches, f.tensor_core_launches, f.cuda_core_launches
+
+
+def _model_views(b, l, h, p, g, n, dtype, seed, offset=0):
+    """x, B and C as views into one [b, l, h*p + 2*g*n] buffer, as apply_ssm
+    hands them over (`offset` elements into it), with dt and A."""
+    x, dt, A, B, C = scan_inputs(b, l, h, p, g, n, seed)
+    di = h * p
+    buf = torch.from_numpy(np.concatenate(
+        [x.reshape(b, l, di), B.reshape(b, l, g * n), C.reshape(b, l, g * n)], axis=-1))
+    buf = torch.cat([buf.new_zeros(offset), buf.flatten()]).to(dtype)[offset:]
+    buf = buf.view(b, l, di + 2 * g * n)
+    return (buf[..., :di].reshape(b, l, h, p), torch.from_numpy(dt), torch.from_numpy(A),
+            buf[..., di:di + g * n].reshape(b, l, g, n), buf[..., di + g * n:].reshape(b, l, g, n))
+
+
+@pytest.mark.parametrize("dtype,h,p,g,n,l,chunk,offset,route", [
+    ("bfloat16", 4, 64, 1, 128, 40, 16, 0, "tensor_core"),   # the model's widths, 3 chunks
+    ("bfloat16", 4, 16, 2, 16, 10, 16, 0, "tensor_core"),    # one chunk: no workspace
+    ("bfloat16", 2, 48, 1, 32, 33, 8, 0, "tensor_core"),
+    ("float32", 4, 64, 1, 128, 40, 16, 0, "cuda_core"),      # f32
+    ("bfloat16", 2, 40, 1, 48, 20, 8, 0, "cuda_core"),       # head_dim 40
+    ("bfloat16", 2, 16, 1, 24, 20, 8, 0, "cuda_core"),       # state 24
+    ("bfloat16", 2, 64, 1, 128, 20, 8, 1, "cuda_core"),      # rows off 16 bytes
+    ("bfloat16", 1, 16, 1, 16, 2100, 2100, 0, "cuda_core"),  # a chunk over 2048 rows
+    ("bfloat16", 1, 16, 1, 16, 2100, 2048, 0, "tensor_core"),
+])
+def test_ssd_scan_routes_by_dtype_and_shape(scan_extension, dtype, h, p, g, n, l, chunk,
+                                            offset, route):
+    """`ssd_scan` on tensors that count as CUDA ones launches once through
+    `ssd_scan_cuda`: bf16 x with head_dim and state multiples of 16 (<= 64,
+    <= 128), chunks of at most 2048 rows and 16-byte rows reaches the
+    tensor-core entry with an f32 workspace of states [b, nc - 1, h, p, n]
+    and decays [b, nc - 1, h] (empty for one chunk); anything else the
+    CUDA-core entry. The total and
+    that route's count each rise by one, and y is what the entry wrote."""
+    tdt = getattr(torch, dtype)
+    x, dt, A, B, C = _model_views(2, l, h, p, g, n, tdt, seed=h * p + n, offset=offset)
+    assert ssd_ops.ssd_route(x, B, C, chunk) == route
+    before = _scan_counts()
+    y = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    after = _scan_counts()
+    [launch] = scan_extension.launches
+    assert after[0] - before[0] == 1
+    assert (after[1] - before[1], after[2] - before[2]) == (
+        (1, 0) if route == "tensor_core" else (0, 1))
+    assert launch["chunk"] == chunk
+    if route == "tensor_core":
+        nc1 = -(-l // min(chunk, l)) - 1
+        assert launch["entry"] == "ssd_scan_mma"
+        assert launch["states"] == (2, nc1, h, p, n) and launch["decays"] == (2, nc1, h)
+        assert launch["dtypes"] == (torch.float32, torch.float32)
+        want = ssd_scan_chunked_ref(x, dt, A, B, C, chunk=chunk)
+    else:
+        assert launch["entry"] == "ssd_scan"
+        want = ssd_scan_ref(x, dt, A, B, C, chunk=chunk)[0]
+    assert y.dtype == tdt and y.shape == x.shape and torch.equal(y, want)
 
 
 def test_ssd_scan_dispatch_goes_by_device():
