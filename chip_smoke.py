@@ -27,6 +27,13 @@ non-zero, printing no result):
    kernel's device time from torch.profiler (quantize and dequantize also
    at DDL's pod-hop slices, bitwise; the SSD rows every kernel a call
    launches, the RMSNorm rows `F.rms_norm`'s device time likewise); the
+   int8 rows assert their path (a row held in registers, or element by
+   element), and so do the decode step's fused K/V write
+   (`quantize_kv_write`: the engine's arena, 16 slots, slot-contiguous,
+   with inactive slots and NaN rows, bitwise on every cache byte, under
+   sync-debug "error") and the pod sum (`dequantize_sum_rows`: 2 and 4
+   pods, the embedding's tail, bitwise), each timed beside the composition
+   of launches it replaces; the
    SSD and RMSNorm rows assert the route or path they took (the scan on
    the tensor cores or the CUDA cores, RMSNorm's row held in registers or
    element by element); SSD rows with dt in a trained model's range
@@ -70,15 +77,19 @@ non-zero, printing no result):
    prefill step timed warm with flash attention on the tensor cores and
    on the CUDA cores, in turns;
 8. determinism — the 48-layer model-width trace again, token for token;
-9. profile — that trace once more under torch.profiler: the device's busy
-   share and its top kernels;
+9. profile — that trace once more with each KV width under torch.profiler:
+   the device's busy share, its top kernels, and the runtime launch calls
+   per layer-tick;
 10. DDL at full width (qwen2.5-14b cut to 1 layer, random weights from a
    seed, 2 ranks spawned on the one card over gloo, a 2x1x1 mesh,
    compress_dcn, the overlapped backward, 2048 tokens a rank) —
    `Trainer.train` for 3 steps: replicas bitwise in sync, the int8 pod hop
    through the kernels bitwise against the plain quantizers and within
-   the int8 bound of the exact sum, the launches the leaf sizes give, the
-   step time, the reduction's share and the pod-hop bytes;
+   the int8 bound of the exact sum, the launches the leaf sizes give
+   (quantize and the pod sum once a slice, no dequantize), the step time,
+   the reduction's share and the pod-hop bytes; then error feedback's path
+   (one leaf reduced with EF: the dequantizer once a slice, bitwise
+   against the plain quantizers);
 11. DDL at smoke width (4 ranks, a 2x2x1 mesh) — the overlapped backward
    off and on x compression off and on, each against one rank on the
    global batch.
@@ -90,8 +101,9 @@ loop's, the engine's whole-prompt prefill's and `Model.forward`'s attention
 launches must all take the tensor-core route, and so must every decode
 launch of the engine, the static loop and the slot decode, and every scan
 launch of the Mamba-2 forward. The line before the last lists every ported
-kernel (flash attention, decode and the SSD scan once per route) with its
-launches on the main path; the last line is {"ok": true, "device": {...}}.
+kernel (flash attention, decode and the SSD scan once per route; the int8
+quantizer and dequantizer with their fused entries) with its launches on
+the main path; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -137,6 +149,9 @@ TRAIN_LAYERS, TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 4, 5, 3e-4, 1
 DDL_LAYERS, DDL_STEPS, DDL_MESH = 1, 3, (2, 1, 1)
 DDL_SMOKE_MESH, DDL_SMOKE_BATCH, DDL_SMOKE_SEQ = (2, 2, 1), 8, 128
 DDL_AXES = ("pod", "data", "model")
+# error feedback's path on the full-width ranks: one leaf of 2**24 + 3000
+# elements reduced with EF (two pod-hop slices), after the training steps
+DDL_EF_LEAF = (1 << 24) + 3000
 DDL_TIMEOUT_S = 420
 # the kernels of each route of the SSD scan and RMSNorm (csrc/ssd_scan_mma.cu,
 # ssd_scan.cu, rmsnorm.cu); the first two SSD ones run on the tensor cores
@@ -441,6 +456,62 @@ def quantize_sig(x):
 
 def dequantize_sig(q, out_dtype):
     return ("dequantize_rows", tuple(q.shape), str(out_dtype))
+
+
+def quantize_kv_write_sig(k, codes, page_table):
+    """k [B,1,K,D] is read through its strides; the cache is the arena
+    (with its table) or slot-contiguous (no table)."""
+    return ("quantize_kv_write", tuple(k.shape), str(k.dtype), tuple(k.stride()),
+            tuple(codes.shape), None if page_table is None else tuple(page_table.shape))
+
+
+def dequantize_sum_sig(q, n):
+    return ("dequantize_sum_rows", tuple(q.shape), int(n))
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def quantize_path(x) -> str:
+    """The path of the quantizer a CUDA call of `quantize` takes, as
+    `q_ops.quantize_layout` chooses it ("vector": the row held in
+    registers, or "element"); its codes are a fresh, aligned tensor."""
+    from repro_torch.kernels.quantize.ops import quantize_layout
+    return ("vector" if quantize_layout(x.shape[-1], x.element_size(), _aligned(x))
+            else "element")
+
+
+def kv_write_path(k, v, k_codes, v_codes) -> str:
+    """The path of the fused decode-step write: `quantize_layout` at width
+    D, with both rows' strides and every pointer aligned."""
+    from repro_torch.kernels.quantize.ops import quantize_layout
+    vec = 16 // k.element_size()
+    aligned = (_aligned(k, v, k_codes, v_codes)
+               and all(t.stride(i) % vec == 0 for t in (k, v) for i in (0, 2)))
+    return ("vector" if quantize_layout(k.shape[-1], k.element_size(), aligned)
+            else "element")
+
+
+def dequantize_path(q) -> str:
+    """The dequantizers' path (`q_ops.dequantize_layout`), with the output
+    a fresh, aligned tensor."""
+    from repro_torch.kernels.quantize.ops import dequantize_layout
+    return "vector" if dequantize_layout(q.shape[-1], _aligned(q)) else "element"
+
+
+def path_launches(launcher) -> dict:
+    """A quantize launcher's counts: all, and by path."""
+    return {"launches": launcher.launches, "vector": launcher.vector_launches,
+            "element": launcher.element_launches}
+
+
+def path_delta(launcher, before: dict, path: str) -> bool:
+    """True iff the launcher counted exactly one launch since `before`, on
+    `path`."""
+    after = path_launches(launcher)
+    want = {"launches": 1, "vector": int(path == "vector"), "element": int(path == "element")}
+    return {k: after[k] - before[k] for k in after} == want
 
 
 def rmsnorm_sig(x, eps):
@@ -767,23 +838,34 @@ def _quantize_input(rows: int, cols: int, dtype: str, seed: int, nonfinite: bool
 
 
 def quantize_kernel_phase(shape: str, rows: int, seed: int, checked: set, *, cols: int = D,
-                          dtype: str = "bfloat16", timed: bool = True, nonfinite: bool = False):
-    """The quantizer against its plain version, bitwise (codes and scales);
-    timed unless `timed` is False (a shape checked only for its launch
-    signature); with `nonfinite`, on rows holding NaN and infinities."""
+                          dtype: str = "bfloat16", timed: bool = True, nonfinite: bool = False,
+                          offset: int = 0):
+    """The quantizer against its plain version, bitwise (codes and scales),
+    asserting the path it took; timed unless `timed` is False (a shape
+    checked only for its launch signature); with `nonfinite`, on rows
+    holding NaN and infinities; with `offset`, on rows that start that many
+    elements into their buffer (unaligned: the element path)."""
     import torch
     from repro_torch.kernels.quantize.ops import quantize_cuda
     from repro_torch.kernels.quantize.ref import quantize_ref
     x = _quantize_input(rows, cols, dtype, seed, nonfinite)
+    if offset:
+        buf = torch.empty(rows * cols + offset, dtype=x.dtype, device="cuda")
+        x = buf[offset:].view(rows, cols).copy_(x)
+    path = quantize_path(x)
+    before = path_launches(quantize_cuda)
     q, s = quantize_cuda(x)
     torch.cuda.synchronize()
+    if not path_delta(quantize_cuda, before, path):
+        raise AssertionError(f"quantize {shape}: did not take the {path} path")
     pq, ps = quantize_ref(x)
     if not (torch.equal(q, pq) and torch.equal(s.view(torch.int32), ps.view(torch.int32))):
         raise AssertionError(f"quantize {shape}: codes or scales differ from the "
                              "plain version")
     checked.add(quantize_sig(x))
     row = {"phase": "kernel", "kernel": "quantize_rows", "shape": shape, "rows": rows,
-           "cols": cols, "dtype": dtype, "max_abs_err": float((q.float() - pq.float()).abs().max()),
+           "cols": cols, "dtype": dtype, "path": path,
+           "max_abs_err": float((q.float() - pq.float()).abs().max()),
            "tolerance": "bitwise"}
     if nonfinite:
         row["nonfinite_rows"] = {"scales": [str(x) for x in s[1:6].tolist()],
@@ -816,15 +898,19 @@ def dequantize_kernel_phase(shape: str, rows: int, cols: int, seed: int, checked
     from repro_torch.kernels.quantize.ref import dequantize_ref, quantize_ref
     q, s = quantize_ref(_quantize_input(rows, cols, "float32", seed))
     dt = getattr(torch, out_dtype)
+    path = dequantize_path(q)
+    before = path_launches(dequantize_cuda)
     out = dequantize_cuda(q, s, dt)
     torch.cuda.synchronize()
+    if not path_delta(dequantize_cuda, before, path):
+        raise AssertionError(f"dequantize {shape}: did not take the {path} path")
     want = dequantize_ref(q, s, dt)
     ints = torch.int32 if dt == torch.float32 else torch.int16
     if not torch.equal(out.view(ints), want.view(ints)):
         raise AssertionError(f"dequantize {shape}: output differs from the plain version")
     checked.add(dequantize_sig(q, dt))
     row = {"phase": "kernel", "kernel": "dequantize_rows", "shape": shape, "rows": rows,
-           "cols": cols, "out_dtype": out_dtype,
+           "cols": cols, "out_dtype": out_dtype, "path": path,
            "max_abs_err": float((out.float() - want.float()).abs().max()),
            "tolerance": "bitwise"}
     if timed:
@@ -838,6 +924,178 @@ def dequantize_kernel_phase(shape: str, rows: int, cols: int, seed: int, checked
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     emit(row)
     del q, s, out, want
+    return row
+
+
+def _kv_write_inputs(b: int, paged: bool, seed: int, dtype: str = "bfloat16"):
+    """The decode step's k/v rows [b, 1, K, D] (slot 0's second kv head of
+    k all NaN, slot 1's v holding one NaN), int8 caches with arbitrary
+    contents (the engine's arena of DEVICE_PAGES + 1 pages of PAGE for 4
+    slots, MAX_LEN / PAGE pages a slot beyond; slot-contiguous [b,
+    MAX_LEN]), positions with writes at a page's start and end (and past
+    MAX_LEN on slot-contiguous caches), every fourth slot inactive, and,
+    paged, a table as the pool keeps it: each active slot's pages distinct
+    and scrambled, the rest on the null page (the arena's last)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    max_pages = MAX_LEN // PAGE
+    if paged:
+        shape = (DEVICE_PAGES + 1 if b <= SLOTS else b * max_pages + 1, PAGE)
+        starts = [PAGE, PAGE - 1, 0, MAX_LEN - 1]
+    else:
+        shape = (b, MAX_LEN)
+        starts = [2 * MAX_LEN, PAGE - 1, 0, MAX_LEN - 1, PAGE]
+    pos = [starts[i % len(starts)] for i in range(b)]
+    act = [i % 4 != 2 for i in range(b)]
+    k, v = ((torch.randn((b, 1, K, D), generator=gen, device="cuda") * 3).to(getattr(torch, dtype))
+            for _ in range(2))
+    k[0, 0, 1] = float("nan")
+    v[min(1, b - 1), 0, 0, 5] = float("nan")
+    caches = [torch.randint(-127, 128, shape + (K, D), generator=gen, device="cuda",
+                            dtype=torch.int8) for _ in range(2)]
+    caches += [torch.rand(shape + (K,), generator=gen, device="cuda") for _ in range(2)]
+    table = None
+    if paged:
+        null = shape[0] - 1
+        table = torch.full((b, max_pages), null, dtype=torch.int32)
+        perm = torch.randperm(null, generator=torch.Generator().manual_seed(seed))
+        nxt = 0
+        for i in range(b):
+            if act[i]:
+                need = pos[i] // PAGE + 1
+                table[i, :need] = perm[nxt:nxt + need]
+                nxt += need
+        table = table.cuda()
+    positions = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    active = torch.tensor(act, device="cuda")
+    return k, v, caches, table, positions, active
+
+
+def _kv_write_composition(k, v, caches, table, positions, active):
+    """The decode step's int8 write as it ran before the fused kernel:
+    each of k and v through the quantize kernel, then codes and scales
+    written by four gather/where/scatter passes (`paging.paged_write`, or
+    `_slot_write` at min(pos, Smax - 1)). A yardstick only."""
+    import torch
+    from repro_torch.kernels.quantize.ops import quantize_cuda
+    from repro_torch.models import paging
+    from repro_torch.models.transformer import _slot_write
+    kc, vc, ks, vs = caches
+    (kq, kss), (vq, vss) = (quantize_cuda(x.reshape(-1, x.shape[-1])) for x in (k, v))
+    b = k.shape[0]
+    new = {"k": kq.reshape(k.shape), "v": vq.reshape(v.shape),
+           "ks": kss.reshape(b, 1, -1), "vs": vss.reshape(b, 1, -1)}
+    slots = None if table is not None else torch.clamp(positions, max=kc.shape[1] - 1)
+    for cache, key in ((ks, "ks"), (vs, "vs"), (kc, "k"), (vc, "v")):
+        if table is None:
+            _slot_write(cache, new[key], slots, active)
+        else:
+            paging.paged_write(cache, new[key], table, positions, active, kc.shape[1])
+
+
+def quantize_kv_write_kernel_phase(shape: str, b: int, paged: bool, seed: int, checked: set,
+                                   *, dtype: str = "bfloat16"):
+    """The fused decode-step write against its plain version on copies of
+    the same caches, bitwise on every byte of codes and scales (inactive
+    slots, NaN rows, a page's first and last position, positions past
+    Smax), under torch.cuda.set_sync_debug_mode("error") (the wrapper reads
+    no device value on the host), asserting its path; timed by
+    torch.profiler beside the composition it replaces (two quantize
+    launches and four plain writes: its device time and device operations
+    a call). Bound: bytes, k and v read and codes and scales written."""
+    import torch
+    from repro_torch.kernels.quantize.ops import quantize_kv_write_cuda
+    from repro_torch.kernels.quantize.ref import quantize_kv_write_ref
+    k, v, caches, table, positions, active = _kv_write_inputs(b, paged, seed, dtype)
+    want = [c.clone() for c in caches]
+    quantize_kv_write_ref(k, v, *want, table, positions, active)
+    got = [c.clone() for c in caches]
+    path = kv_write_path(k, v, got[0], got[1])
+    before = path_launches(quantize_kv_write_cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        quantize_kv_write_cuda(k, v, *got, table, positions, active)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if not path_delta(quantize_kv_write_cuda, before, path):
+        raise AssertionError(f"quantize_kv_write {shape}: did not take the {path} path")
+    same = all(torch.equal(g.view(torch.uint8) if g.dtype == torch.int8 else g.view(torch.int32),
+                           w.view(torch.uint8) if w.dtype == torch.int8 else w.view(torch.int32))
+               for g, w in zip(got, want))
+    if not same:
+        raise AssertionError(f"quantize_kv_write {shape}: caches differ from the plain version")
+    checked.add(quantize_kv_write_sig(k, got[0], table))
+    kernel_ms, ops, by = device_ms_per_call(
+        lambda: quantize_kv_write_cuda(k, v, *got, table, positions, active))
+    comp_ms, comp_ops, _ = device_ms_per_call(
+        lambda: _kv_write_composition(k, v, got, table, positions, active))
+    plain_ms = time_ms(lambda: quantize_kv_write_ref(k, v, *got, table, positions, active),
+                       iters=20)
+    elems = 2 * b * K * D
+    bound_ms, bound_by = bound(elems * k.element_size() + elems + 2 * b * K * 4
+                               + b * (4 + 1 + (4 if paged else 0)), elems * 5)
+    row = {"phase": "kernel", "kernel": "quantize_kv_write", "shape": shape, "slots": b,
+           "kv_heads": K, "head_dim": D, "paged": paged, "dtype": dtype, "path": path,
+           "max_abs_err": 0.0, "tolerance": "bitwise", "sync_debug": "error",
+           "kernel_ms": kernel_ms, "kernel_ms_by": "torch.profiler", "device_ops": ops,
+           "by_kernel": by, "composition_ms": comp_ms, "composition_device_ops": comp_ops,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None}
+    emit(row)
+    return row
+
+
+def dequantize_sum_kernel_phase(shape: str, pods: int, rows: int, n: int, seed: int,
+                                checked: set, *, cols: int = 1024, timed: bool = True):
+    """The pod sum against its plain version (the pod hop's loop), bitwise,
+    on the codes and scales of `pods` pods' quantized rows (one pod's rows
+    holding NaN and infinities), asserting its path; timed unless `timed`
+    is False, by torch.profiler beside the composition it replaces (a zero
+    fill, a dequantize launch and an add a pod). Bound: bytes, every pod's
+    codes and scales read, n f32 written; 2 operations an element a pod.
+    No single PyTorch call computes it: library_ms is null."""
+    import torch
+    from repro_torch.kernels.quantize.ops import dequantize_cuda, dequantize_sum_rows_cuda
+    from repro_torch.kernels.quantize.ref import dequantize_sum_rows_ref, quantize_ref
+    parts = [quantize_ref(_quantize_input(rows, cols, "float32", seed + p,
+                                          nonfinite=p == 1 and rows > 5))
+             for p in range(pods)]
+    qg = torch.stack([c for c, _ in parts])
+    sg = torch.stack([sc for _, sc in parts])
+    del parts
+    path = dequantize_path(qg)
+    before = path_launches(dequantize_sum_rows_cuda)
+    out = dequantize_sum_rows_cuda(qg, sg, n)
+    torch.cuda.synchronize()
+    if not path_delta(dequantize_sum_rows_cuda, before, path):
+        raise AssertionError(f"dequantize_sum_rows {shape}: did not take the {path} path")
+    want = dequantize_sum_rows_ref(qg, sg, n)
+    if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"dequantize_sum_rows {shape}: output differs from the plain "
+                             "version")
+    checked.add(dequantize_sum_sig(qg, n))
+    row = {"phase": "kernel", "kernel": "dequantize_sum_rows", "shape": shape, "pods": pods,
+           "rows": rows, "cols": cols, "n": n, "path": path,
+           "max_abs_err": float((out - want).abs().nan_to_num().max()),
+           "tolerance": "bitwise"}
+    if timed:
+        def composition():
+            total = torch.zeros(n, dtype=torch.float32, device="cuda")
+            for i in range(pods):
+                total = total + dequantize_cuda(qg[i], sg[i]).reshape(-1)[:n]
+            return total
+        kernel_ms, ops, _ = device_ms_per_call(lambda: dequantize_sum_rows_cuda(qg, sg, n))
+        comp_ms, comp_ops, comp_by = device_ms_per_call(composition)
+        plain_ms = time_ms(lambda: dequantize_sum_rows_ref(qg, sg, n), iters=20)
+        bound_ms, bound_by = bound(pods * (rows * cols + rows * 4) + n * 4, 2 * pods * n)
+        row.update({"kernel_ms": kernel_ms, "kernel_ms_by": "torch.profiler", "device_ops": ops,
+                    "composition_ms": comp_ms, "composition_device_ops": comp_ops,
+                    "composition_by_kernel": comp_by, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    emit(row)
+    del qg, sg, out, want
     return row
 
 
@@ -1249,15 +1507,27 @@ def kernel_phases(num_layers: int):
                             pages=DEVICE_PAGES, max_pages=MAX_LEN // PAGE, dtype="float32"),
     ]
     out["quantize_rows"] = [
-        quantize_kernel_phase("decode_token", SLOTS * K, 3, checked),
-        quantize_kernel_phase("decode_token_long", 16 * K, 4, checked),
+        quantize_kernel_phase("kv_rows_32", SLOTS * K, 3, checked),
+        quantize_kernel_phase("kv_rows_128", 16 * K, 4, checked),
         quantize_kernel_phase("prefill", 4 * MAX_LEN * K, 5, checked),
         quantize_kernel_phase("pool_ingest_2_layers", 2 * MAX_LEN * K, 6, checked),
         quantize_kernel_phase(f"pool_ingest_{num_layers}_layers",
                               num_layers * MAX_LEN * K, 7, checked),
         quantize_kernel_phase("nonfinite_rows", 64, 8, checked, timed=False, nonfinite=True),
         quantize_kernel_phase("nonfinite_rows_pod_hop", 64, 9, checked, cols=1024,
-                              dtype="float32", timed=False, nonfinite=True)]
+                              dtype="float32", timed=False, nonfinite=True),
+        # the element path: a width of no whole 16-byte vectors, an unaligned start
+        quantize_kernel_phase("element_37x100", 37, 77, checked, cols=100, timed=False,
+                              nonfinite=True),
+        quantize_kernel_phase("element_unaligned", 64, 78, checked, cols=1024,
+                              dtype="float32", timed=False, offset=1)]
+    # the decode step's fused int8 write: the engine's arena (4 slots) and
+    # 16 slots, paged and slot-contiguous
+    out["quantize_kv_write"] = [
+        quantize_kv_write_kernel_phase("engine", SLOTS, True, 79, checked),
+        quantize_kv_write_kernel_phase("slots_16", 16, True, 80, checked),
+        quantize_kv_write_kernel_phase("contiguous", SLOTS, False, 81, checked),
+        quantize_kv_write_kernel_phase("contiguous_16", 16, False, 82, checked)]
     from repro_torch.configs import get_config
     m = get_config(MAMBA)
     # the SSD scan by route: bf16 at head_dim and state multiples of 16 on
@@ -1318,11 +1588,14 @@ def kernel_phases(num_layers: int):
 
 
 def ddl_kernel_phases(out: dict, checked: set):
-    """The quantizer and dequantizer at DDL's compressed pod hop: a full
-    2**24-element slice of a gradient shard ([16384, 1024] f32), the
-    ragged tail of the embedding's grad, a bf16 output and a narrow shape,
-    each timed; then every other slice the two DDL phases give the
-    kernels, checked without timing. Adds the rows to `out`."""
+    """The quantizer, the pod sum and the dequantizer at DDL's compressed
+    pod hop: a full 2**24-element slice of a gradient shard ([16384, 1024]
+    f32), the ragged tail of the embedding's grad, the pod sum over 2 pods
+    (the main path) and 4, the dequantizer (error feedback's) with a bf16
+    output and at narrow shapes, each timed; then every other slice the two
+    DDL phases give the kernels, and those of the error-feedback path,
+    checked without timing. Adds the rows to `out`; the pod-hop slice is
+    the first row of the quantizer's (its main path's shape)."""
     from repro_torch.configs import get_smoke_config
     cfg = _ddl_config(DDL_LAYERS, DDL_MESH).model
     d = cfg.d_model
@@ -1333,11 +1606,21 @@ def ddl_kernel_phases(out: dict, checked: set):
         dequantize_kernel_phase("embedding_grad_tail", -(-tail // 1024), 1024, 44, checked),
         dequantize_kernel_phase("pod_hop_slice_bf16", 1 << 14, 1024, 45, checked,
                                 out_dtype="bfloat16"),
-        dequantize_kernel_phase("narrow_37x64", 37, 64, 46, checked)]
-    out.setdefault("quantize_rows", []).extend([
-        quantize_kernel_phase("pod_hop_slice", 1 << 14, 47, checked, cols=1024, dtype="float32"),
-        quantize_kernel_phase("embedding_grad_tail", -(-tail // 1024), 48, checked, cols=1024,
-                              dtype="float32")])
+        dequantize_kernel_phase("narrow_37x64", 37, 64, 46, checked),
+        dequantize_kernel_phase("element_5x30", 5, 30, 83, checked, timed=False)]
+    out["dequantize_sum_rows"] = [
+        dequantize_sum_kernel_phase("pod_hop_slice", DDL_MESH[0], 1 << 14, 1 << 24, 84,
+                                    checked),
+        dequantize_sum_kernel_phase("pod_hop_slice_4_pods", 4, 1 << 14, 1 << 24, 85, checked),
+        dequantize_sum_kernel_phase("embedding_grad_tail", DDL_MESH[0], -(-tail // 1024), tail,
+                                    86, checked),
+        dequantize_sum_kernel_phase("element_7x30", 2, 7, 200, 87, checked, cols=30,
+                                    timed=False)]
+    quantize_rows = out.setdefault("quantize_rows", [])
+    quantize_rows.insert(0, quantize_kernel_phase("pod_hop_slice", 1 << 14, 47, checked,
+                                                  cols=1024, dtype="float32"))
+    quantize_rows.append(quantize_kernel_phase("embedding_grad_tail", -(-tail // 1024), 48,
+                                               checked, cols=1024, dtype="float32"))
     smoke = get_smoke_config(ARCH)
     # RMSNorm at each DDL rank's rows
     out.setdefault("rmsnorm", []).extend([
@@ -1346,11 +1629,14 @@ def ddl_kernel_phases(out: dict, checked: set):
                              smoke.d_model, 49, checked, eps=smoke.norm_eps)])
     sizes = set(full) | {n for ov in (False, True)
                          for n in ddl_pod_hop_sizes(smoke, DDL_SMOKE_MESH[1], overlap=ov)}
+    sizes |= set(ddl_ef_slices())
     for i, n in enumerate(sorted(sizes)):
         quantize_kernel_phase(f"pod_hop_{n}", -(-n // 1024), 50 + i, checked, cols=1024,
                               dtype="float32", timed=False)
         dequantize_kernel_phase(f"pod_hop_{n}", -(-n // 1024), 1024, 50 + i, checked,
                                 timed=False)
+        dequantize_sum_kernel_phase(f"pod_hop_{n}", DDL_MESH[0], -(-n // 1024), n, 50 + i,
+                                    checked, timed=False)
 
 
 # the CUDA launchers whose counts a run of a path resets and reads
@@ -1363,7 +1649,9 @@ def _launchers():
             "flash_decode": fa_ops.flash_decode_cuda,
             "flash_decode_paged": fa_ops.flash_decode_paged_cuda,
             "quantize_rows": q_ops.quantize_cuda,
+            "quantize_kv_write": q_ops.quantize_kv_write_cuda,
             "dequantize_rows": q_ops.dequantize_cuda,
+            "dequantize_sum_rows": q_ops.dequantize_sum_rows_cuda,
             "rmsnorm": rms_ops.rmsnorm_cuda,
             "ssd_scan": ssd_ops.ssd_scan_cuda}
 
@@ -1373,7 +1661,8 @@ def launch_signatures():
     """Record the launch signature of every kernel call inside the block,
     with every launch count set to 0 on entry. The dispatchers the model
     calls through (`flash_attention`, `flash_decode`, `flash_decode_paged`,
-    `quantize`, `dequantize`, `rmsnorm`, `ssd_scan`) are swapped for recording stand-ins
+    `quantize`, `quantize_kv_write`, `dequantize`, `dequantize_sum_rows`,
+    `rmsnorm`, `ssd_scan`) are swapped for recording stand-ins
     that call them; the wrappers below them launch and count as always. ->
     (signatures seen, {kernel: calls recorded}, {kernel: launches}), the
     last filled on exit, for the caller to match the calls against. The
@@ -1383,8 +1672,10 @@ def launch_signatures():
     (`flash_decode_tensor_core`, `flash_decode_paged_cuda_core`, ...), the
     scan calls by the route `ssd_ops.ssd_route` names (`ssd_scan_tensor_core`,
     `ssd_scan_cuda_core`) and the RMSNorm calls by the path `rmsnorm_path`
-    names (`rmsnorm_register`, `rmsnorm_element`), against the wrappers'
-    per-route counts."""
+    names (`rmsnorm_register`, `rmsnorm_element`), and the int8 calls by
+    the path `quantize_path`, `kv_write_path` or `dequantize_path` names
+    (`quantize_rows_vector`, `dequantize_sum_rows_element`, ...), against
+    the wrappers' per-route counts."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.quantize import ops as q_ops
@@ -1398,11 +1689,15 @@ def launch_signatures():
     for name in ("flash_decode", "flash_decode_paged", "ssd_scan"):
         for route in ("tensor_core", "cuda_core"):
             routes[f"{name}_{route}"] = (name, f"{route}_launches")
+    for name in ("quantize_rows", "quantize_kv_write", "dequantize_rows", "dequantize_sum_rows"):
+        for path in ("vector", "element"):
+            routes[f"{name}_{path}"] = (name, f"{path}_launches")
     seen, calls, launches = set(), {name: 0 for name in [*launchers, *routes]}, {}
     attend, decode, paged, quantize, scan = (fa_ops.flash_attention, fa_ops.flash_decode,
                                              fa_ops.flash_decode_paged, q_ops.quantize,
                                              ssd_ops.ssd_scan)
     norm, dequantize = rms_ops.rmsnorm, q_ops.dequantize
+    kv_write, dequantize_sum = q_ops.quantize_kv_write, q_ops.dequantize_sum_rows
 
     def attend_spy(q, k, v, *, causal=True, window=0, q_offset=None):
         seen.add(attention_sig(q, k, causal, window, q_offset))
@@ -1427,12 +1722,26 @@ def launch_signatures():
     def quantize_spy(x):
         seen.add(quantize_sig(x))
         calls["quantize_rows"] += 1
+        calls["quantize_rows_" + quantize_path(x)] += 1
         return quantize(x)
+
+    def kv_write_spy(k, v, k_codes, v_codes, k_scale, v_scale, page_table, positions, active):
+        seen.add(quantize_kv_write_sig(k, k_codes, page_table))
+        calls["quantize_kv_write"] += 1
+        calls["quantize_kv_write_" + kv_write_path(k, v, k_codes, v_codes)] += 1
+        return kv_write(k, v, k_codes, v_codes, k_scale, v_scale, page_table, positions, active)
 
     def dequantize_spy(q, scale, out_dtype=torch.float32):
         seen.add(dequantize_sig(q, out_dtype))
         calls["dequantize_rows"] += 1
+        calls["dequantize_rows_" + dequantize_path(q)] += 1
         return dequantize(q, scale, out_dtype)
+
+    def dequantize_sum_spy(q, scale, n):
+        seen.add(dequantize_sum_sig(q, n))
+        calls["dequantize_sum_rows"] += 1
+        calls["dequantize_sum_rows_" + dequantize_path(q)] += 1
+        return dequantize_sum(q, scale, n)
 
     def scan_spy(x, dt, A, B, C, *, chunk=256):
         seen.add(ssd_sig(x, B, chunk))
@@ -1449,6 +1758,7 @@ def launch_signatures():
      q_ops.quantize, ssd_ops.ssd_scan) = (attend_spy, decode_spy, paged_spy, quantize_spy,
                                           scan_spy)
     rms_ops.rmsnorm, q_ops.dequantize = norm_spy, dequantize_spy
+    q_ops.quantize_kv_write, q_ops.dequantize_sum_rows = kv_write_spy, dequantize_sum_spy
     for fn in launchers.values():
         fn.launches = 0
     for owner, attr in routes.values():
@@ -1459,6 +1769,7 @@ def launch_signatures():
         (fa_ops.flash_attention, fa_ops.flash_decode, fa_ops.flash_decode_paged,
          q_ops.quantize, ssd_ops.ssd_scan) = attend, decode, paged, quantize, scan
         rms_ops.rmsnorm, q_ops.dequantize = norm, dequantize
+        q_ops.quantize_kv_write, q_ops.dequantize_sum_rows = kv_write, dequantize_sum
         launches.update({name: fn.launches for name, fn in launchers.items()})
         launches.update({name: getattr(launchers[owner], attr)
                          for name, (owner, attr) in routes.items()})
@@ -1566,8 +1877,15 @@ def engine_phase(model, params, kv_dtype, line, checked, dense_tol=None,
         "returned": m["pool_fetched_pages"] + m["pool_prefetched_pages"] > 0,
         "decode_launches_eq_layers_x_ticks":
             launches["flash_decode_paged"] == layers * int(m["ticks"]),
-        "quantize_launches": (launches["quantize_rows"] > 0) if kv_dtype == "int8"
-                             else launches["quantize_rows"] == 0,
+        # int8: the decode step's fused write once a layer-tick, the row
+        # quantizer only at the pool's boundary (k and v of each prefill)
+        "quantize_launches": (launches["quantize_kv_write"] == layers * int(m["ticks"])
+                              and launches["quantize_rows"] == 2 * len(reqs))
+                             if kv_dtype == "int8"
+                             else launches["quantize_rows"] == launches["quantize_kv_write"] == 0,
+        "quantize_took_vector": launches["quantize_rows_vector"] == launches["quantize_rows"]
+                                and launches["quantize_kv_write_vector"]
+                                == launches["quantize_kv_write"],
         "attention_launches": launches["flash_attention"]
             == (layers * len(reqs) if kernel_prefill else 0),
         "attention_took_wgmma": launches["flash_attention_wgmma"]
@@ -1599,6 +1917,7 @@ def engine_phase(model, params, kv_dtype, line, checked, dense_tol=None,
            "decode_launches": launches["flash_decode_paged"],
            "decode_tensor_core_launches": launches["flash_decode_paged_tensor_core"],
            "quantize_launches": launches["quantize_rows"],
+           "quantize_kv_write_launches": launches["quantize_kv_write"],
            "attention_launches": launches["flash_attention"],
            "attention_wgmma_launches": launches["flash_attention_wgmma"],
            "rmsnorm_launches": launches["rmsnorm"],
@@ -1724,7 +2043,8 @@ def static_phase(model, params, line, checked, engine_tokens, dense_tol=None):
         "decode_took_tensor_core":
             launches["flash_decode_tensor_core"] == launches["flash_decode"],
         "no_paged_or_quantize_launches":
-            launches["flash_decode_paged"] == 0 and launches["quantize_rows"] == 0,
+            launches["flash_decode_paged"] == 0 and launches["quantize_rows"] == 0
+            and launches["quantize_kv_write"] == 0,
         "rmsnorm_launches_eq_norms_x_steps": launches["rmsnorm"] == (2 * layers + 1) * GEN,
         "every_launch_recorded": calls == launches,
         "every_launch_shape_checked": not unchecked,
@@ -1817,7 +2137,7 @@ def slot_decode_phase(model, params, line, checked):
     on the same params, cache contents, positions and tokens, with model-
     width then int8 KV: 4 steps of 4 slots (one inactive), counts reset
     just before and read just after; the logits of the active slots within
-    2**-5 of each row's max |logit|. -> {kv_dtype: flash_decode launches}."""
+    2**-5 of each row's max |logit|. -> {kv_dtype: the run's launches}."""
     import numpy as np
     import torch
     from repro_torch.config.base import ShapeConfig
@@ -1877,14 +2197,16 @@ def slot_decode_phase(model, params, line, checked):
         got, want = runs["contiguous"], runs["paged"]
         dev = ((got - want).abs().amax(dim=-1) / want.abs().amax(dim=-1)).max().item()
         unchecked = sorted(seen - checked)
-        quant = 2 * 2 * layers * steps if kv_dtype == "int8" else 0   # k, v rows per run
+        # int8: one fused k/v write a layer a step, in each of the two runs
+        writes = 2 * layers * steps if kv_dtype == "int8" else 0
         checks = {
             "contiguous_launches_eq_layers_x_steps": launches["flash_decode"] == layers * steps,
             "paged_launches_eq_layers_x_steps": launches["flash_decode_paged"] == layers * steps,
             "decode_took_tensor_core":
                 launches["flash_decode_tensor_core"] == layers * steps
                 and launches["flash_decode_paged_tensor_core"] == layers * steps,
-            "quantize_launches": launches["quantize_rows"] == quant,
+            "quantize_launches": launches["quantize_kv_write"] == writes
+                                 and launches["quantize_rows"] == 0,
             "rmsnorm_launches": launches["rmsnorm"] == 2 * (2 * layers + 1) * steps,
             "every_launch_recorded": calls == launches,
             "every_launch_shape_checked": not unchecked,
@@ -1899,7 +2221,7 @@ def slot_decode_phase(model, params, line, checked):
         if not all(checks.values()):
             raise AssertionError(f"slot decode {kv_dtype}: failed checks "
                                  f"{[k for k, v in checks.items() if not v]}")
-        out[kv_dtype] = launches["flash_decode"]
+        out[kv_dtype] = launches
     return out
 
 
@@ -1961,16 +2283,30 @@ def device_summary(prof, wall: float):
 
 
 def profile_phase(model, params, line):
-    """The model-width trace once more, under torch.profiler: the device's
-    busy share over the seconds of eng.run and its top kernels."""
+    """The trace once more with each KV width, under torch.profiler: the
+    device's busy share over the seconds of eng.run, its top kernels, and
+    the runtime launch calls of the run and per layer-tick (every launch of
+    the run over layers x ticks: what the host dispatches for one layer of
+    one decode step, the prefill's spread over them). -> {kv_dtype: row}."""
     from torch.profiler import ProfilerActivity, profile
-    t0 = time.monotonic()
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    eng, _, _, wall = _serve(model, params, "model", around_run=prof)
-    m = eng.metrics()
-    emit({"phase": "profile", "kv_dtype": "model", "layers": model.cfg.num_layers,
-          "card": line, "seconds": time.monotonic() - t0, **device_summary(prof, wall),
-          "ticks": m["ticks"], "decode_tok_s": m["decode_tok_s"]})
+    rows = {}
+    for kv_dtype in ("model", "int8"):
+        t0 = time.monotonic()
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        eng, _, _, wall = _serve(model, params, kv_dtype, around_run=prof)
+        m = eng.metrics()
+        summary = device_summary(prof, wall)
+        layer_ticks = model.cfg.num_layers * int(m["ticks"])
+        rows[kv_dtype] = {"phase": "profile", "kv_dtype": kv_dtype,
+                          "layers": model.cfg.num_layers, "card": line,
+                          "seconds": time.monotonic() - t0, **summary, "ticks": m["ticks"],
+                          "layer_ticks": layer_ticks,
+                          "launch_calls_per_layer_tick":
+                              summary["runtime_launch_calls"] / layer_ticks,
+                          "decode_tok_s": m["decode_tok_s"]}
+        emit(rows[kv_dtype])
+        del eng, prof
+    return rows
 
 
 def compare_logits(got, want, margin: float):
@@ -2672,6 +3008,12 @@ def ddl_pod_hop_sizes(cfg, data_size: int, *, overlap: bool):
     return [min(POD_SLICE, n - i) for n in shards for i in range(0, n, POD_SLICE)]
 
 
+def ddl_ef_slices():
+    """The pod-hop slices of the error-feedback path's leaf."""
+    from repro_torch.core.ddl.allreduce import POD_SLICE
+    return [min(POD_SLICE, DDL_EF_LEAF - i) for i in range(0, DDL_EF_LEAF, POD_SLICE)]
+
+
 def _tuplify(x):
     return tuple(_tuplify(i) for i in x) if isinstance(x, list) else x
 
@@ -2750,16 +3092,18 @@ def spawn_ranks(name: str, world: int, *args, timeout: float = DDL_TIMEOUT_S):
 
 @contextlib.contextmanager
 def _plain_quantizers():
-    """The quantize/dequantize dispatchers the pod hop calls swapped for
-    their plain versions."""
+    """The quantize, dequantize and pod-sum dispatchers the pod hop calls
+    swapped for their plain versions."""
     from repro_torch.kernels.quantize import ops as q_ops
-    from repro_torch.kernels.quantize.ref import dequantize_ref, quantize_ref
-    saved = q_ops.quantize, q_ops.dequantize
-    q_ops.quantize, q_ops.dequantize = quantize_ref, dequantize_ref
+    from repro_torch.kernels.quantize.ref import (dequantize_ref, dequantize_sum_rows_ref,
+                                                  quantize_ref)
+    saved = q_ops.quantize, q_ops.dequantize, q_ops.dequantize_sum_rows
+    q_ops.quantize, q_ops.dequantize, q_ops.dequantize_sum_rows = (
+        quantize_ref, dequantize_ref, dequantize_sum_rows_ref)
     try:
         yield
     finally:
-        q_ops.quantize, q_ops.dequantize = saved
+        q_ops.quantize, q_ops.dequantize, q_ops.dequantize_sum_rows = saved
 
 
 def _ddl_full_rank(rank: int, world: int):
@@ -2859,8 +3203,10 @@ def _ddl_full_rank(rank: int, world: int):
                       "reduce_ms": reduce_ms,
                       "quantize_launches": q_ops.quantize_cuda.launches,
                       "dequantize_launches": q_ops.dequantize_cuda.launches,
+                      "dequantize_sum_launches": q_ops.dequantize_sum_rows_cuda.launches,
                       "pod_hop_calls": stats["calls"]})
         q_ops.quantize_cuda.launches = q_ops.dequantize_cuda.launches = 0
+        q_ops.dequantize_sum_rows_cuda.launches = 0
         stats["calls"] = 0
         in_sync.append(_same_on_all_ranks(_checksums(box["params"])))
         check[0] = False
@@ -2871,11 +3217,41 @@ def _ddl_full_rank(rank: int, world: int):
         trainer.train(DDL_STEPS, on_step=on_step)
     wall = time.monotonic() - t0
     same_losses = _same_on_all_ranks([(r["loss"], r["grad_norm"]) for r in steps])
+    allreduce.compressed_allreduce_pod = hop
+    ef_row, ef_seen = _ddl_error_feedback(trainer.mesh, rank)
     return {"rank": rank, "steps": steps, "in_sync": in_sync, "same_losses": same_losses,
             "pod_hop": {k: v for k, v in stats.items() if k != "calls"},
-            "signatures": sorted(seen), "seconds": wall,
+            "error_feedback": ef_row,
+            "signatures": sorted(seen | ef_seen), "seconds": wall,
             "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
             "card_free_gb": torch.cuda.mem_get_info()[0] / 1e9}
+
+
+def _ddl_error_feedback(mesh, rank: int):
+    """Error feedback's path on a rank of the 2x1x1 mesh: one leaf of
+    DDL_EF_LEAF elements reduced by `ddl_reduce_leaf` with compress_dcn and
+    a nonzero EF buffer, launch counts reset just before and read just
+    after (the local dequantize once a slice beside the pod sum), then
+    again through the plain quantizers: the mean and the new EF bitwise
+    equal. -> (row, signatures seen)."""
+    import torch
+    from repro_torch.core.ddl.allreduce import ddl_reduce_leaf
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7 + rank)
+    g = torch.randn(DDL_EF_LEAF, generator=gen, device="cuda")
+    ef = torch.randn(DDL_EF_LEAF, generator=gen, device="cuda") * 1e-2
+    kw = dict(mesh=mesh, data_axis="data", pod_axis="pod", data_size=mesh.size("data"),
+              pod_size=mesh.size("pod"), compress_dcn=True, topology_aware=True)
+    with launch_signatures() as (seen, calls, launches):
+        out, new_ef = ddl_reduce_leaf(g.clone(), error_feedback=ef.clone(), **kw)
+    with _plain_quantizers():
+        want, want_ef = ddl_reduce_leaf(g.clone(), error_feedback=ef.clone(), **kw)
+    bitwise = (torch.equal(out.view(torch.int32), want.view(torch.int32))
+               and torch.equal(new_ef.view(torch.int32), want_ef.view(torch.int32)))
+    row = {"leaf": DDL_EF_LEAF, "slices": len(ddl_ef_slices()), "bitwise_vs_plain": bitwise,
+           "every_launch_recorded": calls == launches,
+           "launches": {k: launches[k] for k in ("quantize_rows", "dequantize_rows",
+                                                 "dequantize_sum_rows", "dequantize_rows_vector")}}
+    return row, seen
 
 
 def _ddl_smoke_rank(rank: int, world: int):
@@ -2913,7 +3289,8 @@ def _ddl_smoke_rank(rank: int, world: int):
             out[f"overlap={ov},compress={c}"] = {
                 "rows": rows, "in_sync": in_sync, "signatures": sorted(seen),
                 "quantize_launches": launches["quantize_rows"],
-                "dequantize_launches": launches["dequantize_rows"]}
+                "dequantize_launches": launches["dequantize_rows"],
+                "dequantize_sum_launches": launches["dequantize_sum_rows"]}
     return out
 
 
@@ -2943,11 +3320,13 @@ def ddl_phase(line, checked):
     and after every step; (b) on step 1, every pod-hop call through the
     kernels bitwise equal to the same call through the plain quantizers;
     (c) the int8 sum within the sum over pods of scale/2 of each 1024-row
-    of the exact f32 sum; (d) each step's launches: quantize once and
-    dequantize once per pod for each compressed slice, worked out from the
-    leaf sizes and buckets; (e) finite losses, equal on both ranks; and
-    every launch at a shape the kernel phases checked.
-    -> the phase row."""
+    of the exact f32 sum; (d) each step's launches: quantize and the pod
+    sum once for each compressed slice, worked out from the leaf sizes and
+    buckets, and no dequantize; (e) finite losses, equal on both ranks;
+    (f) error feedback's path after the steps (`_ddl_error_feedback`): its
+    launches, and its mean and EF bitwise through the kernels and through
+    the plain versions; and every launch at a shape the kernel phases
+    checked. -> the phase row."""
     import torch
     tcfg = _ddl_config(DDL_LAYERS, DDL_MESH)
     pods = DDL_MESH[0]
@@ -2964,9 +3343,18 @@ def ddl_phase(line, checked):
                                         and r["pod_hop"]["checked_calls"] == slices
                                         for r in ranks),
         "within_int8_bound": all(r["pod_hop"]["worst_err_over_bound"] <= 1.0 for r in ranks),
+        # a step: quantize and the pod sum once a slice, no dequantize (no EF)
         "launches": all(s["quantize_launches"] == slices
-                        and s["dequantize_launches"] == pods * slices
+                        and s["dequantize_sum_launches"] == slices
+                        and s["dequantize_launches"] == 0
                         and s["pod_hop_calls"] == slices for r in ranks for s in r["steps"]),
+        # error feedback's path: the local dequantize once a slice, on the vector path
+        "error_feedback": all(
+            r["error_feedback"]["bitwise_vs_plain"] and r["error_feedback"]["every_launch_recorded"]
+            and r["error_feedback"]["launches"] == {
+                "quantize_rows": len(ddl_ef_slices()), "dequantize_rows": len(ddl_ef_slices()),
+                "dequantize_sum_rows": len(ddl_ef_slices()),
+                "dequantize_rows_vector": len(ddl_ef_slices())} for r in ranks),
         "finite_equal_losses": all(r["same_losses"] for r in ranks) and all(
             math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) for s in r0["steps"]),
         "shapes_checked": not unchecked}
@@ -2978,6 +3366,7 @@ def ddl_phase(line, checked):
            "note": "two ranks time-slice one card over gloo through host memory: "
                    "not DDL's speed across cards",
            "steps": r0["steps"], "expected_slices_per_step": slices,
+           "error_feedback": r0["error_feedback"],
            "step_ms_steady": sum(s["step_ms"] for s in steady) / len(steady),
            "reduce_ms_steady": sum(s["reduce_ms"] for s in steady) / len(steady),
            "reduce_share_steady": (sum(s["reduce_ms"] for s in steady)
@@ -3010,7 +3399,8 @@ def ddl_smoke_phase(line, checked):
     another order, and the int8 pod hop rounds each grad element by up to
     half its row's scale: loss within 5e-3 relative, grad norm within
     2e-2. Replicas stay bitwise in sync; compressed runs launch quantize
-    and dequantize as the leaf sizes say. -> the phase row."""
+    and the pod sum as the leaf sizes say, and no dequantize. -> the phase
+    row."""
     import torch
     from repro_torch.models.model import Model
     from repro_torch.train.steps import build_train_step, init_train_state
@@ -3026,7 +3416,7 @@ def ddl_smoke_phase(line, checked):
     torch.cuda.empty_cache()
     t0 = time.monotonic()
     ranks = spawn_ranks("_ddl_smoke_rank", 4)
-    pods, data = DDL_SMOKE_MESH[:2]
+    data = DDL_SMOKE_MESH[1]
     variants, checks, unchecked = {}, {}, set()
     for name, v in ranks[0].items():
         ov, c = "overlap=True" in name, "compress=True" in name
@@ -3040,11 +3430,12 @@ def ddl_smoke_phase(line, checked):
             "loss": max(e["loss"] for e in err) <= 5e-3,
             "grad_norm": max(e["grad_norm"] for e in err) <= 2e-2,
             "launches": all(r[name]["quantize_launches"] == slices
-                            and r[name]["dequantize_launches"] == pods * slices
-                            for r in ranks)}
+                            and r[name]["dequantize_sum_launches"] == slices
+                            and r[name]["dequantize_launches"] == 0 for r in ranks)}
         variants[name] = {"rows": v["rows"], "rel_err": err,
                           "quantize_launches": v["quantize_launches"],
-                          "dequantize_launches": v["dequantize_launches"]}
+                          "dequantize_launches": v["dequantize_launches"],
+                          "dequantize_sum_launches": v["dequantize_sum_launches"]}
     ok = all(all(c.values()) for c in checks.values()) and not unchecked
     emit({"phase": "ddl_smoke_width", "arch": ARCH, "config": "smoke",
           "mesh": list(DDL_SMOKE_MESH), "ranks": 4, "backend": "gloo (host-staged)",
@@ -3068,7 +3459,7 @@ def reference_phase(line, checked):
     (argmax), the static loop (2**-5, and the engine's tokens), the slot
     decode step without a page arena against the paged one, and
     `Model.forward` against `Model.prefill`.
-    -> {kv_dtype: flash_decode launches of the slot decode phase}."""
+    -> {kv_dtype: launches of the slot decode phase}."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -3127,7 +3518,15 @@ def main() -> int:
     if not same:
         raise AssertionError("the model-width trace gave other tokens on a rerun")
     del eng
-    profile_phase(model, params, line)
+    profiled = profile_phase(model, params, line)
+    # the engine by KV width, from this run: tok/s of the engine rows,
+    # launch calls per layer-tick of the profiled reruns
+    emit({"phase": "engine_by_kv_width", "layers": model.cfg.num_layers, "card": line,
+          **{kv: {"decode_tok_s": row["decode_tok_s"],
+                  "quantize_kv_write_launches": row["quantize_kv_write_launches"],
+                  "launch_calls_per_layer_tick": profiled[kv]["launch_calls_per_layer_tick"],
+                  "runtime_launch_calls": profiled[kv]["runtime_launch_calls"]}
+             for kv, row in (("model", model_row), ("int8", int8_row))}})
     # the DDL ranks are processes of their own on the same card: free it
     del model, params
     import gc
@@ -3146,7 +3545,9 @@ def main() -> int:
         "flash_decode_paged_int8": f"{decode_kernel}:155",
         "flash_decode_cuda_core": f"{decode_kernel}:233",
         "quantize_rows": "src/repro/kernels/quantize/kernel.py:25",
+        "quantize_kv_write": "src/repro/kernels/quantize/kernel.py:25",
         "dequantize_rows": "src/repro/kernels/quantize/kernel.py:46",
+        "dequantize_sum_rows": "src/repro/kernels/quantize/kernel.py:46",
         "ssd_scan_tensor_core": "src/repro/kernels/ssd_scan/kernel.py:72",
         "ssd_scan_cuda_core": "src/repro/kernels/ssd_scan/kernel.py:72",
         "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:24",
@@ -3161,7 +3562,9 @@ def main() -> int:
         "flash_decode_paged_int8": f"{csrc}/flash_decode.cu",
         "flash_decode_cuda_core": f"{csrc}/flash_decode.cu",
         "quantize_rows": f"{csrc}/quantize.cu",
+        "quantize_kv_write": f"{csrc}/quantize.cu",
         "dequantize_rows": f"{csrc}/quantize.cu",
+        "dequantize_sum_rows": f"{csrc}/quantize.cu",
         "ssd_scan_tensor_core": f"{csrc}/ssd_scan_mma.cu",
         "ssd_scan_cuda_core": f"{csrc}/ssd_scan.cu",
         "rmsnorm": f"{csrc}/rmsnorm.cu",
@@ -3172,17 +3575,21 @@ def main() -> int:
     # the slot decode without an arena (int8), the 48-layer engine,
     # the 48-layer Mamba-2 forward (the scan's tensor-core route), the f32
     # scan call (its CUDA-core route), the 4-layer Trainer's 5 steps, the
-    # full-width DDL Trainer's 3 steps (rank 0)
+    # full-width DDL Trainer's 3 steps (rank 0; the pod sum), and error
+    # feedback's path after them (the dequantizer)
     launches = {"flash_attention_fwd_wgmma": static_row["launches"]["flash_attention_wgmma"],
                 "flash_attention_fwd_cuda_core":
                     f32_attention_row["launches"]["flash_attention_cuda_core"],
                 "flash_decode_bf16": static_row["launches"]["flash_decode"],
-                "flash_decode_int8": slot_launches["int8"],
+                "flash_decode_int8": slot_launches["int8"]["flash_decode"],
                 "flash_decode_paged_bf16": model_row["decode_launches"],
                 "flash_decode_paged_int8": int8_row["decode_launches"],
                 "flash_decode_cuda_core": f32_decode_row["launches"]["flash_decode_cuda_core"],
                 "quantize_rows": int8_row["quantize_launches"],
-                "dequantize_rows": sum(st["dequantize_launches"] for st in ddl_row["steps"]),
+                "quantize_kv_write": int8_row["quantize_kv_write_launches"],
+                "dequantize_rows": ddl_row["error_feedback"]["launches"]["dequantize_rows"],
+                "dequantize_sum_rows": sum(st["dequantize_sum_launches"]
+                                           for st in ddl_row["steps"]),
                 "ssd_scan_tensor_core": mamba_row["launches"]["ssd_scan_tensor_core"],
                 "ssd_scan_cuda_core": f32_ssd_row["launches"]["ssd_scan_cuda_core"],
                 "rmsnorm": trainer_row["launches"]["rmsnorm"]}

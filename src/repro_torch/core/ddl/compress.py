@@ -3,9 +3,10 @@ feedback, applied only on the slow cross-pod fabric (DDL's
 mix-and-match-per-fabric principle). A port of the JAX package's
 `core/ddl/compress.py`, whose quantize/dequantize loop here goes through
 the port's kernels: on the card `compress` launches the CUDA `quantize`
-kernel and `decompress` the CUDA `dequantize` kernel; on the CPU both take
-their plain versions. The numbers are those of the JAX package's jitted
-path, bit for bit.
+kernel, `decompress` (error feedback's local dequantize) the CUDA
+`dequantize` kernel and the pod sum the `dequantize_sum_rows` kernel, one
+pass over every pod's codes; on the CPU all take their plain versions.
+The numbers are those of the JAX package's jitted path, bit for bit.
 """
 from __future__ import annotations
 
@@ -56,7 +57,6 @@ def compressed_allreduce_pod(x, axis: str, *, mesh, error_feedback=None):
     pods = mesh.size(axis)
     qg = mesh.all_gather(q, axis).view((pods,) + tuple(q.shape))
     sg = mesh.all_gather(s, axis).view(pods, -1)
-    total = torch.zeros(xin.shape, dtype=torch.float32, device=xin.device)
-    for i in range(pods):  # pods is small (2): dequantize and sum each
-        total = total + decompress(qg[i], sg[i], xin.numel()).reshape(xin.shape)
+    # each pod's dequantize summed in pod order from an f32 zero, in one pass
+    total = q_ops.dequantize_sum_rows(qg, sg, xin.numel()).reshape(xin.shape)
     return total.to(x.dtype), new_ef

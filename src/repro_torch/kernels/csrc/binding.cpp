@@ -122,20 +122,50 @@ void flash_decode_mma(const torch::Tensor& q, const torch::Tensor& k, const torc
   check_launch(err, "flash_decode_mma");
 }
 
-void quantize_rows(const torch::Tensor& x, torch::Tensor q, torch::Tensor scale) {
+void quantize_rows(const torch::Tensor& x, torch::Tensor q, torch::Tensor scale, int64_t lanes,
+                   int64_t vectors) {
   const c10::cuda::CUDAGuard guard(x.device());
   const int err = repro::quantize_rows(x.data_ptr(), dtype_of(x), q.data_ptr<int8_t>(),
                                        scale.data_ptr<float>(), x.size(0), x.size(1),
+                                       static_cast<int>(lanes), static_cast<int>(vectors),
                                        current_stream());
   check_launch(err, "quantize_rows");
 }
 
-void dequantize_rows(const torch::Tensor& q, const torch::Tensor& scale, torch::Tensor out) {
+void quantize_kv_write(const torch::Tensor& k, const torch::Tensor& v, torch::Tensor k_codes,
+                       torch::Tensor v_codes, torch::Tensor k_scale, torch::Tensor v_scale,
+                       const std::optional<torch::Tensor>& table,
+                       const torch::Tensor& positions, const torch::Tensor& active,
+                       int64_t lanes, int64_t vectors) {
+  const c10::cuda::CUDAGuard guard(k.device());
+  const int64_t ks[2] = {k.stride(0), k.stride(2)};
+  const int64_t vs[2] = {v.stride(0), v.stride(2)};
+  const int err = repro::quantize_kv_write(
+      k.data_ptr(), v.data_ptr(), dtype_of(k), ks, vs, k_codes.data_ptr<int8_t>(),
+      v_codes.data_ptr<int8_t>(), k_scale.data_ptr<float>(), v_scale.data_ptr<float>(),
+      table.has_value() ? table->data_ptr<int32_t>() : nullptr,
+      positions.data_ptr<int32_t>(), active.data_ptr<bool>(), k.size(0), k.size(2), k.size(3),
+      k_codes.size(1), table.has_value() ? table->size(1) : 0, k_codes.size(0),
+      static_cast<int>(lanes), static_cast<int>(vectors), current_stream());
+  check_launch(err, "quantize_kv_write");
+}
+
+void dequantize_rows(const torch::Tensor& q, const torch::Tensor& scale, torch::Tensor out,
+                     bool vector) {
   const c10::cuda::CUDAGuard guard(q.device());
   const int err = repro::dequantize_rows(q.data_ptr<int8_t>(), scale.data_ptr<float>(),
                                          out.data_ptr(), dtype_of(out), q.size(0), q.size(1),
-                                         current_stream());
+                                         vector, current_stream());
   check_launch(err, "dequantize_rows");
+}
+
+void dequantize_sum_rows(const torch::Tensor& q, const torch::Tensor& scale, torch::Tensor out,
+                         bool vector) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const int err = repro::dequantize_sum_rows(q.data_ptr<int8_t>(), scale.data_ptr<float>(),
+                                             out.data_ptr<float>(), q.size(0), q.size(1),
+                                             q.size(2), out.numel(), vector, current_stream());
+  check_launch(err, "dequantize_sum_rows");
 }
 
 void rmsnorm(const torch::Tensor& x, const torch::Tensor& scale, torch::Tensor out,
@@ -193,7 +223,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_decode_paged_mma", &flash_decode_paged_mma,
         "paged flash-decode on the tensor cores (bf16 q) into out");
   m.def("quantize_rows", &quantize_rows, "per-row int8 quantize into q, scale");
+  m.def("quantize_kv_write", &quantize_kv_write,
+        "the decode step's k/v rows quantized into the int8 cache, in place");
   m.def("dequantize_rows", &dequantize_rows, "per-row int8 dequantize into out");
+  m.def("dequantize_sum_rows", &dequantize_sum_rows,
+        "the sum over pods of per-row int8 dequantizes into out (f32)");
   m.def("rmsnorm", &rmsnorm, "RMSNorm forward into out");
   m.def("ssd_scan", &ssd_scan, "Mamba-2 SSD chunked scan into y");
   m.def("ssd_scan_mma", &ssd_scan_mma,

@@ -56,13 +56,40 @@ int flash_decode_mma(const void* q, const void* k, const void* v, DType kv_dtype
                      int smax, int splits, int chunk, float sm_scale, void* stream);
 
 // Symmetric per-row int8 quantizer (quantize.cu). x [rows,cols] f32 or
-// bf16 -> q int8 [rows,cols], scale f32 [rows].
+// bf16, contiguous -> q int8 [rows,cols], scale f32 [rows]. vectors V > 0
+// takes the row-in-registers path, a row held by `lanes` lanes (a power of
+// two <= 32) in at most V (1, 2, 4 or 8) 16-byte vectors a lane, which
+// needs cols a whole number of vectors and 16-byte aligned x and q; V = 0
+// the element path, which takes any row.
 int quantize_rows(const void* x, DType x_dtype, int8_t* q, float* scale, int rows, int cols,
-                  void* stream);
+                  int lanes, int vectors, void* stream);
+// The decode step's int8 cache write (quantize.cu): the rows of k and v
+// [B,1,K,D] (f32 or bf16; strides in elements {batch, head}, the last
+// dimension contiguous) quantized as quantize_rows does, and each active
+// slot b's codes and scales written into k_codes/v_codes [pages,ps,K,D]
+// and k_scale/v_scale [pages,ps,K] (contiguous) at (table[b, pos / ps],
+// pos % ps), pos = positions[b]; with a null table (pages = B, ps = Smax)
+// at (b, min(pos, ps - 1)). Inactive slots write nothing; a negative
+// position, or a page or table entry outside the cache, traps. lanes and
+// vectors as for quantize_rows (at width D), which the vector path needs
+// of every row and cache pointer.
+int quantize_kv_write(const void* k, const void* v, DType dtype, const int64_t* k_strides,
+                      const int64_t* v_strides, int8_t* k_codes, int8_t* v_codes, float* k_scale,
+                      float* v_scale, const int32_t* table, const int32_t* positions,
+                      const bool* active, int B, int K, int D, int ps, int max_pages, int pages,
+                      int lanes, int vectors, void* stream);
 // Its inverse (quantize.cu): q int8 [rows,cols], scale f32 [rows] -> out
 // [rows,cols] of out_dtype (f32 or bf16) = q * scale[row], contiguous.
+// `vector`: one warp a row, 4 codes a lane a store, which needs cols a
+// multiple of 4 and 16-byte aligned q and out; else an element a thread.
 int dequantize_rows(const int8_t* q, const float* scale, void* out, DType out_dtype, int rows,
-                    int cols, void* stream);
+                    int cols, bool vector, void* stream);
+// The pod sum (quantize.cu): q int8 [pods,rows,cols], scale f32 [pods,rows]
+// -> out f32 [n] (n <= rows * cols), out[i] = the sum over pods p in order,
+// from +0, of q[p].flat[i] * scale[p, i / cols], each product and each add
+// rounded once. `vector` as for dequantize_rows.
+int dequantize_sum_rows(const int8_t* q, const float* scale, float* out, int pods, int rows,
+                        int cols, int64_t n, bool vector, void* stream);
 
 // RMSNorm forward (rmsnorm.cu). x/out [rows,d] f32 or bf16, scale [d] f32,
 // contiguous: out = (x * rsqrt(mean(x^2) + eps)) * scale in x's dtype.

@@ -12,8 +12,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.kernels.quantize import ops as q_ops
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import kvquant, paging
+from repro_torch.models import paging
 from repro_torch.models.attention import (attention_defs, decode_attention,
                                           out_proj, project_qkv)
 from repro_torch.models.layers import (ParamDef, apply_mlp, apply_norm,
@@ -318,25 +319,25 @@ def apply_layer_decode_slots(cfg, kind, p, x, cache, positions, active, ctx):
     if table is not None:
         ps = ctx["page_size"]
         cap = table.shape[1] * ps
-
-        def write(arena, new):
-            return paging.paged_write(arena, new, table, positions, active, ps)
     else:
         cap = cache["k"].shape[1]
-        slots = torch.clamp(positions, max=cap - 1)
-
-        def write(cache_t, new):
-            return _slot_write(cache_t, new, slots, active)
     kv_len = torch.where(active, torch.clamp(positions + 1, max=cap),
                          torch.zeros_like(positions)).to(torch.int32)
     scales = {}
     if "k_scale" in cache:
-        k, ks = kvquant.quantize_kv_leaf(k)
-        v, vs = kvquant.quantize_kv_leaf(v)
-        scales["k_scale"] = write(cache["k_scale"], ks)
-        scales["v_scale"] = write(cache["v_scale"], vs)
-    ck = write(cache["k"], k)
-    cv = write(cache["v"], v)
+        # int8 codes and scales quantized and written in one call (one
+        # launch on the card), through the table or at min(pos, Smax - 1)
+        scales = {"k_scale": cache["k_scale"], "v_scale": cache["v_scale"]}
+        q_ops.quantize_kv_write(k, v, cache["k"], cache["v"], scales["k_scale"],
+                                scales["v_scale"], table, positions, active)
+    elif table is not None:
+        paging.paged_write(cache["k"], k, table, positions, active, ps)
+        paging.paged_write(cache["v"], v, table, positions, active, ps)
+    else:
+        slots = torch.clamp(positions, max=cap - 1)
+        _slot_write(cache["k"], k, slots, active)
+        _slot_write(cache["v"], v, slots, active)
+    ck, cv = cache["k"], cache["v"]
     o = decode_attention(q.contiguous(), ck, cv, kv_len,
                          k_scale=scales.get("k_scale"),
                          v_scale=scales.get("v_scale"), page_table=table)

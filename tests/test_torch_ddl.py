@@ -41,7 +41,7 @@ from tests.test_torch_ref import jax_ref, jax_ref_scope  # noqa: F401 (autouse f
 from repro_torch import hw
 from repro_torch.config.base import DDLConfig, MeshSpec
 from repro_torch.core.ddl import allreduce, topology
-from repro_torch.kernels.quantize import dequantize, dequantize_ref
+from repro_torch.kernels.quantize import dequantize, dequantize_ref, dequantize_sum_rows_ref
 
 # the module (the package exports its function `compress` under that name)
 comp = importlib.import_module("repro_torch.core.ddl.compress")
@@ -175,9 +175,9 @@ def test_compress_decompress_match_jax_bitwise(ref, n, dtype):
         assert np.array_equal(bits(got.float()), bits(np.asarray(want, np.float32)))
 
 
-class _TwoPods:
-    """A mesh of two pods in one process: all_gather returns both pods'
-    codes (int8) or scales (f32), as the pod hop's gather would."""
+class _Pods:
+    """A mesh of len(parts) pods in one process: all_gather returns every
+    pod's codes (int8) or scales (f32), as the pod hop's gather would."""
 
     def __init__(self, parts):
         self.parts = parts
@@ -199,7 +199,7 @@ def _pod_hops(ref, xs):
     from repro.core.ddl.compress import compressed_allreduce_pod as jax_pod_hop
     want = np.asarray(jax.jit(jax.vmap(lambda x: jax_pod_hop(x, "pod")[0],
                                        axis_name="pod"))(jnp.asarray(xs)))
-    mesh = _TwoPods([comp.compress(torch.from_numpy(x)) for x in xs])
+    mesh = _Pods([comp.compress(torch.from_numpy(x)) for x in xs])
     got = [comp.compressed_allreduce_pod(torch.from_numpy(x), "pod", mesh=mesh)[0].numpy()
            for x in xs]
     return got, want, mesh.parts
@@ -237,6 +237,94 @@ def test_pod_hop_hides_a_nan_gradient_in_both_packages(ref):
         assert np.isnan(np.linalg.norm(total))
     np.testing.assert_allclose(got[0], want[0], rtol=0,
                                atol=2.0 ** -21 * np.abs(want[0][:2048]).max())
+
+
+@pytest.mark.parametrize("pods", [2, 4])
+@pytest.mark.parametrize("n", [3000, 5000])
+def test_pod_sum_matches_the_composition_and_jax(ref, pods, n):
+    """`dequantize_sum_rows`' plain version on `pods` pods' codes and scales
+    (n not a multiple of the 1024-element row) against the pod hop's loop
+    as it was composed (an f32 zero, then each pod's `decompress` added in
+    pod order): bitwise; the port's pod hop, which calls it, gives the same
+    bits on every pod. Against the JAX package's `compressed_allreduce_pod`
+    (jitted under vmap over the pod axis), where XLA:CPU contracts each
+    product into its add as an FMA (ROADMAP 3.7): the two chains of `pods`
+    products and adds each round every step to within half an ulp of a
+    partial sum no larger than sum_p |q_p s_p|, so they lie within pods
+    ulps (2**-23 relative) of that sum, element by element."""
+    jax, jnp = ref.jax, ref.jnp
+    from repro.core.ddl.compress import compressed_allreduce_pod as jax_pod_hop
+    rng = np.random.default_rng(pods * n)
+    xs = (rng.standard_normal((pods, n)) * rng.uniform(0.1, 10, (pods, 1))).astype(np.float32)
+    parts = [comp.compress(torch.from_numpy(x)) for x in xs]
+    qg = torch.stack([q for q, _ in parts])
+    sg = torch.stack([s for _, s in parts])
+    got = dequantize_sum_rows_ref(qg, sg, n)
+    total = torch.zeros(n)
+    for q, s in parts:
+        total = total + comp.decompress(q, s, n)
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    assert np.array_equal(bits(got), bits(total))
+    mesh = _Pods(parts)
+    for x in xs:
+        hop, _ = comp.compressed_allreduce_pod(torch.from_numpy(x), "pod", mesh=mesh)
+        assert np.array_equal(bits(hop), bits(got))
+    want = np.asarray(jax.jit(jax.vmap(lambda x: jax_pod_hop(x, "pod")[0],
+                                       axis_name="pod"))(jnp.asarray(xs)))
+    terms = sum(np.abs(comp.decompress(q, s, n).numpy()) for q, s in parts)
+    for w in want:
+        assert np.all(np.abs(got.numpy() - w) <= pods * 2.0 ** -23 * terms)
+
+
+class _Echo:
+    """A mesh of `pods` pods in one process whose all_gather gives this
+    pod's tensor for every pod."""
+
+    def __init__(self, pods):
+        self.pods = pods
+
+    def size(self, axis):
+        return self.pods
+
+    def all_gather(self, t, axis):
+        return torch.cat([t] * self.pods)
+
+
+def test_pod_hop_makes_one_pod_sum_launch_a_slice(monkeypatch):
+    """The compressed pod hop with its int8 entries routed as on the card
+    (`on_cpu` False, the plain versions standing in for the kernels) and
+    2048-element slices: a shard of 5000 elements (3 slices) launches the
+    quantizer and the pod sum once a slice and the dequantizer never; with
+    error feedback the dequantizer once a slice too. The mean and the new
+    EF are the plain run's, bitwise."""
+    from tests.test_torch_kernels import _QuantizeExtension
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.quantize import ops as q_ops
+    monkeypatch.setattr(allreduce, "POD_SLICE", 2048)
+    rng = np.random.default_rng(2)
+    shard = torch.from_numpy(rng.standard_normal(5000).astype(np.float32))
+    ef = torch.from_numpy(rng.standard_normal(5000).astype(np.float32) * 1e-2)
+    kw = dict(mesh=_Echo(2), pod_axis="pod", compress_dcn=True, mean_over=2)
+
+    def reduce(with_ef):
+        out = torch.empty(5000)
+        new_ef = allreduce._pod_reduce_(shard, out, error_feedback=ef if with_ef else None, **kw)
+        return out, new_ef
+    plain = [reduce(False), reduce(True)]
+    ext = _QuantizeExtension()
+    monkeypatch.setattr(_build, "extension", lambda: ext)
+    monkeypatch.setattr(q_ops, "on_cpu", lambda *tensors: False)
+    launchers = (q_ops.quantize_cuda, q_ops.dequantize_sum_rows_cuda, q_ops.dequantize_cuda)
+    for with_ef, (want, want_ef) in zip((False, True), plain):
+        for launcher in launchers:
+            monkeypatch.setattr(launcher, "launches", 0)
+        out, new_ef = reduce(with_ef)
+        assert [launcher.launches for launcher in launchers] == [3, 3, 3 if with_ef else 0]
+        assert np.array_equal(bits(out), bits(want))
+        assert (new_ef is None) == (want_ef is None)
+        if with_ef:
+            assert np.array_equal(bits(new_ef), bits(want_ef))
+    assert [e[0] for e in ext.launches].count("dequantize_sum_rows") == 6
 
 
 def test_compress_in_pod_slices_equals_the_whole_leaf():

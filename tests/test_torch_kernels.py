@@ -32,6 +32,8 @@ from repro_torch.kernels.flash_attention.ops import (flash_attention_cuda,
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.flash_attention.ref import attention_mask
 from repro_torch.kernels.quantize import quantize, quantize_ref
+from repro_torch.kernels.quantize import ops as q_ops
+from repro_torch.kernels.quantize import ref as q_ref
 from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd_ref, rmsnorm_cuda,
                                          rmsnorm_ref)
 from repro_torch.models import attention
@@ -941,3 +943,217 @@ def test_rmsnorm_layout_holds_every_config_row_in_registers():
             for esize in (2, 4):
                 assert rmsnorm_layout(cfg.d_model, esize, True) is not None
         assert rmsnorm_layout(get_config(arch).d_model, 2, True)[0] == 1
+
+
+# ---------------------------------------------------------------------------
+# int8 quantize and dequantize: paths and launches
+# ---------------------------------------------------------------------------
+
+class _QuantizeExtension:
+    """Stands in for the built extension's int8 entries: records each
+    launch (entry and path arguments) and computes into the outputs what
+    the entry's kernel computes, by the plain versions."""
+
+    def __init__(self):
+        self.launches = []
+
+    def quantize_rows(self, x, q, scale, lanes, vectors):
+        self.launches.append(("quantize_rows", lanes, vectors))
+        pq, ps = quantize_ref(x)
+        q.copy_(pq)
+        scale.copy_(ps)
+
+    def quantize_kv_write(self, k, v, kc, vc, ks, vs, table, positions, active, lanes, vectors):
+        self.launches.append(("quantize_kv_write", lanes, vectors))
+        q_ref.quantize_kv_write_ref(k, v, kc, vc, ks, vs, table, positions, active)
+
+    def dequantize_rows(self, q, scale, out, vector):
+        self.launches.append(("dequantize_rows", vector))
+        out.copy_(q_ref.dequantize_ref(q, scale, out.dtype))
+
+    def dequantize_sum_rows(self, q, scale, out, vector):
+        self.launches.append(("dequantize_sum_rows", vector))
+        out.copy_(q_ref.dequantize_sum_rows_ref(q, scale, out.numel()))
+
+
+@pytest.fixture
+def quantize_extension(monkeypatch):
+    """CPU tensors routed as CUDA ones through the int8 entries: `on_cpu`
+    says False and the extension is the stand-in above."""
+    ext = _QuantizeExtension()
+    monkeypatch.setattr(_build, "extension", lambda: ext)
+    monkeypatch.setattr(q_ops, "on_cpu", lambda *tensors: False)
+    return ext
+
+
+def _path_counts(launcher):
+    return launcher.launches, launcher.vector_launches, launcher.element_launches
+
+
+@pytest.mark.parametrize("cols,esize,aligned,layout", [
+    (1024, 4, True, (32, 8)),     # DDL's pod-hop row, f32: one warp, 8 vectors a lane
+    (128, 2, True, (16, 1)),      # a k/v row at head_dim 128, bf16: half a warp
+    (128, 4, True, (32, 1)),
+    (64, 2, True, (8, 1)),        # head_dim 64
+    (256, 2, True, (32, 1)),      # head_dim 256
+    (2048, 2, True, (32, 8)),     # the widest row 32 lanes x 8 vectors hold
+    (2056, 2, True, None),        # one vector more: the element path
+    (1000, 4, True, (32, 8)),     # 250 vectors: 8 a lane, the last ones masked
+    (40, 4, True, (16, 1)),       # 10 vectors: 16 lanes
+    (4, 4, True, (1, 1)),
+    (100, 2, True, None),         # not a whole number of 16-byte vectors
+    (1023, 4, True, None),
+    (1024, 4, False, None),       # an unaligned pointer or stride
+])
+def test_quantize_layout_by_width_and_alignment(cols, esize, aligned, layout):
+    """The path the quantizer's launchers pass the kernel: the fewest lanes
+    (a power of two <= 32) whose 16-byte vectors hold the row one a lane,
+    else 32 lanes and the fewest vectors in 1, 2, 4, 8 a lane; None (the
+    element path) exactly for rows of no whole number of vectors, unaligned
+    pointers or strides, and rows wider than 32 lanes x 8 vectors."""
+    got = q_ops.quantize_layout(cols, esize, aligned)
+    assert got == layout
+    if got:
+        lanes, vectors = got
+        nvec = cols * esize // 16
+        assert lanes * vectors >= nvec and vectors <= q_ops.MAX_VECTORS
+        assert lanes == 32 or lanes >= nvec > lanes // 2
+
+
+@pytest.mark.parametrize("cols,aligned,vector", [
+    (1024, True, True), (64, True, True), (4, True, True), (1000, True, True),
+    (30, True, False), (1022, True, False), (1, True, False), (1024, False, False)])
+def test_dequantize_layout_by_width_and_alignment(cols, aligned, vector):
+    """The dequantizers' vector path (a warp a row, 4 codes a lane a store)
+    exactly for rows of a multiple of 4 codes on aligned pointers."""
+    assert q_ops.dequantize_layout(cols, aligned) is vector
+
+
+@pytest.mark.parametrize("rows,cols,dtype,offset,layout", [
+    (40, 1024, torch.float32, 0, (32, 8)),
+    (32, 128, torch.bfloat16, 0, (16, 1)),
+    (7, 100, torch.bfloat16, 0, None),
+    (6, 128, torch.bfloat16, 1, None),          # a view one element in: unaligned
+])
+def test_quantize_routes_by_layout(quantize_extension, rows, cols, dtype, offset, layout):
+    """`quantize` on tensors that count as CUDA ones launches once through
+    `quantize_cuda` with `quantize_layout`'s path ((0, 0) for the element
+    path), counted by path, and returns what the kernel wrote."""
+    g = torch.Generator().manual_seed(rows)
+    # contiguous rows starting `offset` elements into their buffer
+    x = torch.randn(rows * cols + offset, generator=g).to(dtype)[offset:].view(rows, cols)
+    before = _path_counts(q_ops.quantize_cuda)
+    q, s = q_ops.quantize(x)
+    after = _path_counts(q_ops.quantize_cuda)
+    assert quantize_extension.launches == [("quantize_rows", *(layout or (0, 0)))]
+    assert (after[0] - before[0], after[1] - before[1], after[2] - before[2]) == (
+        (1, 1, 0) if layout else (1, 0, 1))
+    pq, ps = quantize_ref(x)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+
+
+@pytest.mark.parametrize("rows,cols,out_dtype,vector", [
+    (16, 1024, torch.float32, True), (5, 1024, torch.bfloat16, True),
+    (37, 64, torch.float32, True), (5, 30, torch.float32, False)])
+def test_dequantize_routes_by_layout(quantize_extension, rows, cols, out_dtype, vector):
+    """`dequantize` launches once through `dequantize_cuda`, on the path
+    `dequantize_layout` gives, counted by path."""
+    q, s = quantize_ref(torch.randn(rows, cols, generator=torch.Generator().manual_seed(cols)))
+    before = _path_counts(q_ops.dequantize_cuda)
+    out = q_ops.dequantize(q, s, out_dtype)
+    after = _path_counts(q_ops.dequantize_cuda)
+    assert quantize_extension.launches == [("dequantize_rows", vector)]
+    assert (after[0] - before[0], after[1] - before[1], after[2] - before[2]) == (
+        (1, 1, 0) if vector else (1, 0, 1))
+    assert torch.equal(out, q_ref.dequantize_ref(q, s, out_dtype))
+
+
+def _kv_case(b, kh, d, dtype, paged, seed):
+    """k/v rows, int8 caches with arbitrary contents, positions (one on a
+    page boundary, an inactive slot, and past Smax on the slot-contiguous
+    caches) and a scrambled table."""
+    g = torch.Generator().manual_seed(seed)
+    ps, max_pages = (4, 3) if paged else (6, 1)
+    pages = b * max_pages + 1 if paged else b
+    k, v = (torch.randn(b, 1, kh, d, generator=g).to(dtype) for _ in range(2))
+    caches = [torch.randint(-127, 128, (pages, ps, kh, d), generator=g, dtype=torch.int8)
+              for _ in range(2)]
+    caches += [torch.rand(pages, ps, kh, generator=g) for _ in range(2)]
+    table = (torch.randperm(pages - 1, generator=g)[:b * max_pages].reshape(b, max_pages)
+             .to(torch.int32) if paged else None)
+    positions = torch.tensor([4, 11, 0, 9][:b], dtype=torch.int32)
+    active = torch.tensor([True, True, False, True][:b])
+    return k, v, caches, table, positions, active
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
+@pytest.mark.parametrize("dtype,d,strided,layout", [
+    (torch.bfloat16, 128, False, (16, 1)),
+    (torch.float32, 64, False, (16, 1)),
+    (torch.bfloat16, 128, True, (16, 1)),     # rows of a wider projection, strides of 8
+    (torch.bfloat16, 12, False, None),        # 24 B rows: the element path
+])
+def test_quantize_kv_write_routes_by_layout(quantize_extension, paged, dtype, d, strided,
+                                            layout):
+    """`quantize_kv_write` on tensors that count as CUDA ones launches once
+    through `quantize_kv_write_cuda` with `quantize_layout`'s path at width
+    D (rows read through their strides), counted by path, and leaves the
+    caches as the plain version does."""
+    k, v, caches, table, positions, active = _kv_case(4, 2, d, dtype, paged, seed=d)
+    if strided:   # k and v as views into one [B, 1, 3K, D] projection output
+        proj = torch.cat([k, v, k], dim=2)
+        k, v = proj[:, :, :2], proj[:, :, 2:4]
+        assert not k.is_contiguous() and k.stride(0) == 6 * d
+    want = [c.clone() for c in caches]
+    q_ref.quantize_kv_write_ref(k, v, *want, table, positions, active)
+    before = _path_counts(q_ops.quantize_kv_write_cuda)
+    assert q_ops.quantize_kv_write(k, v, *caches, table, positions, active) is None
+    after = _path_counts(q_ops.quantize_kv_write_cuda)
+    assert quantize_extension.launches == [("quantize_kv_write", *(layout or (0, 0)))]
+    assert (after[0] - before[0], after[1] - before[1], after[2] - before[2]) == (
+        (1, 1, 0) if layout else (1, 0, 1))
+    assert all(torch.equal(c, w) for c, w in zip(caches, want))
+
+
+@pytest.mark.parametrize("kwargs,err,match", [
+    ({"k": torch.zeros(4, 2, 2, 16, dtype=torch.bfloat16)}, ValueError, "one token a slot"),
+    ({"v": torch.zeros(4, 1, 2, 16)}, TypeError, "dtype"),
+    ({"positions": torch.zeros(4, dtype=torch.int64)}, TypeError, "dtype"),
+    ({"active": torch.ones(3, dtype=torch.bool)}, ValueError, "shape"),
+    ({"table": None}, ValueError, "one page a slot"),
+    ({"k_scale": torch.zeros(13, 4, 2, 1)}, ValueError, "shape"),
+])
+def test_quantize_kv_write_launcher_rejects_what_the_kernel_does_not_take(
+        quantize_extension, kwargs, err, match):
+    """What the fused write's kernel does not take raises before any launch
+    or count."""
+    k, v, (kc, vc, ks, vs), table, positions, active = _kv_case(4, 2, 16, torch.bfloat16,
+                                                                True, 0)
+    args = dict(k=k, v=v, k_codes=kc, v_codes=vc, k_scale=ks, v_scale=vs, table=table,
+                positions=positions, active=active)
+    args.update(kwargs)
+    before = _path_counts(q_ops.quantize_kv_write_cuda)
+    with pytest.raises(err, match=match):
+        q_ops.quantize_kv_write(*args.values())
+    assert _path_counts(q_ops.quantize_kv_write_cuda) == before
+    assert quantize_extension.launches == []
+
+
+def test_dequantize_sum_rows_routes_and_checks(quantize_extension):
+    """`dequantize_sum_rows` launches once through its launcher on the
+    vector path for 1024-code rows (the element path for 30), and rejects
+    an n past a pod's elements and a scale of another shape."""
+    g = torch.Generator().manual_seed(0)
+    for cols, vector in ((1024, True), (30, False)):
+        qg = torch.randint(-127, 128, (2, 3, cols), generator=g, dtype=torch.int8)
+        sg = torch.rand(2, 3, generator=g)
+        before = _path_counts(q_ops.dequantize_sum_rows_cuda)
+        out = q_ops.dequantize_sum_rows(qg, sg, 3 * cols - 5)
+        after = _path_counts(q_ops.dequantize_sum_rows_cuda)
+        assert quantize_extension.launches[-1] == ("dequantize_sum_rows", vector)
+        assert (after[0] - before[0], after[1] - before[1]) == (1, int(vector))
+        assert torch.equal(out, q_ref.dequantize_sum_rows_ref(qg, sg, 3 * cols - 5))
+    for args, match in (((qg, sg, 3 * 30 + 1), "not within"), ((qg, sg[:, :2], 5), "shape")):
+        with pytest.raises(ValueError, match=match):
+            q_ops.dequantize_sum_rows(*args)
+    assert len(quantize_extension.launches) == 2

@@ -263,3 +263,152 @@ def test_launch_serve_static_rejects_engine_flags(capsys, flag):
         launch.main(["--arch", "qwen2.5-14b", "--smoke", "--device", "cpu", "--static"] + flag)
     assert e.value.code == 2
     assert "--static" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# the int8 decode step's cache write: one fused call a layer
+# ---------------------------------------------------------------------------
+
+def _kv_write_case(paged: bool, seed: int = 7):
+    """Rows of k and v (bf16, a NaN in one), int8 caches with arbitrary
+    contents, a scrambled table, positions (4 starts page 1, 11 ends page 2;
+    11 and 9 lie past Smax = 6 of the slot-contiguous caches) and an
+    inactive slot."""
+    rng = np.random.default_rng(seed)
+    b, kh, d = 4, 2, 16
+    ps, max_pages = (4, 3) if paged else (6, 1)
+    pages = b * max_pages + 1 if paged else b
+    k, v = (torch.from_numpy(rng.standard_normal((b, 1, kh, d)).astype(np.float32)).bfloat16()
+            for _ in range(2))
+    k[0, 0, 1, 3] = float("nan")
+    caches = [torch.from_numpy(rng.integers(-127, 128, (pages, ps, kh, d)).astype(np.int8))
+              for _ in range(2)]
+    caches += [torch.from_numpy(rng.uniform(0, 1, (pages, ps, kh)).astype(np.float32))
+               for _ in range(2)]
+    table = (torch.from_numpy(rng.permutation(pages - 1)[:b * max_pages]
+                              .reshape(b, max_pages).astype(np.int32)) if paged else None)
+    positions = torch.tensor([4, 11, 0, 9], dtype=torch.int32)
+    active = torch.tensor([True, True, False, True])
+    return k, v, caches, table, positions, active
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
+def test_quantize_kv_write_plain_matches_jax(paged):
+    """The fused write's plain version against the JAX decode step's
+    composition, jitted: `quantize_kv_leaf` of k and v, then the four
+    writes of codes and scales through `paging.paged_write` (arena) or
+    `transformer._slot_write` at min(pos, Smax - 1) (slot-contiguous, with
+    positions past Smax). Bitwise: codes and scales, every cache byte,
+    inactive slots included, and a row holding a NaN."""
+    ref = jax_ref()
+    jax, jnp = ref.jax, ref.jnp
+    from repro.models import transformer as jtr
+    k, v, caches, table, positions, active = _kv_write_case(paged)
+    ps = caches[0].shape[1]
+
+    def jax_write(k, v, kc, vc, ks, vs, table, positions, active):
+        kq, kss = ref.kvquant.quantize_kv_leaf(k)
+        vq, vss = ref.kvquant.quantize_kv_leaf(v)
+        if paged:
+            def write(cache, new):
+                return ref.paging.paged_write(cache, new, table, positions, active, ps)
+        else:
+            slots = jnp.minimum(positions, ps - 1)
+
+            def write(cache, new):
+                return jtr._slot_write(cache, new, slots, active)
+        return write(kc, kq), write(vc, vq), write(ks, kss), write(vs, vss)
+    want = jax.jit(jax_write)(
+        jnp.asarray(k.float().numpy(), jnp.bfloat16), jnp.asarray(v.float().numpy(), jnp.bfloat16),
+        *(jnp.asarray(c.numpy()) for c in caches),
+        None if table is None else jnp.asarray(table.numpy()),
+        jnp.asarray(positions.numpy()), jnp.asarray(active.numpy()))
+    got = [c.clone() for c in caches]
+    from repro_torch.kernels.quantize import quantize_kv_write_ref
+    quantize_kv_write_ref(k, v, *got, table, positions, active)
+    for g, w, c in zip(got, want, caches):
+        w = np.asarray(w)
+        assert g.dtype == c.dtype and g.shape == c.shape
+        assert np.array_equal(g.numpy().view(np.uint8), w.view(np.uint8))
+    assert not torch.equal(got[0], caches[0])
+
+
+def _quantize_routes(monkeypatch):
+    """Route the int8 entries of CPU tensors as on the card, through the
+    plain versions standing in for the kernels; launch counts reset."""
+    from tests.test_torch_kernels import _QuantizeExtension
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.quantize import ops as q_ops
+    ext = _QuantizeExtension()
+    monkeypatch.setattr(_build, "extension", lambda: ext)
+    monkeypatch.setattr(q_ops, "on_cpu", lambda *tensors: False)
+    for launcher in (q_ops.quantize_cuda, q_ops.quantize_kv_write_cuda,
+                     q_ops.dequantize_cuda, q_ops.dequantize_sum_rows_cuda):
+        monkeypatch.setattr(launcher, "launches", 0)
+    return ext, q_ops
+
+
+def test_int8_engine_writes_each_layer_tick_in_one_launch(params, monkeypatch):
+    """The int8 engine with its quantize entries routed as on the card: the
+    decode step makes one `quantize_kv_write` launch a layer a tick and no
+    `quantize_rows` launch; `quantize_rows` runs only at the pool's boundary,
+    once for k and once for v of each request's prefill cache. The tokens
+    are the plain run's."""
+    _, _, tparams = params
+    cfg = smoke_cfg()
+
+    def run():
+        eng = ServeEngine(Model(cfg, attn_impl="naive"), slots=SLOTS, max_len=MAX_LEN,
+                          page_size=PAGE, prefill_chunk=CHUNK, params=tparams,
+                          kv_dtype="int8", device="cpu")
+        out = eng.run(synth_requests(cfg, N_REQ, PROMPT, GEN, np.random.default_rng(1)))
+        return {rid: t.tolist() for rid, t in out.items()}, eng.metrics()
+    plain, _ = run()
+    ext, q_ops = _quantize_routes(monkeypatch)
+    routed, m = run()
+    assert routed == plain
+    layer_ticks = cfg.num_layers * int(m["ticks"])
+    assert q_ops.quantize_kv_write_cuda.launches == layer_ticks > 0
+    assert q_ops.quantize_cuda.launches == 2 * N_REQ
+    assert [e[0] for e in ext.launches].count("quantize_kv_write") == layer_ticks
+    assert q_ops.dequantize_cuda.launches == q_ops.dequantize_sum_rows_cuda.launches == 0
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
+def test_int8_slot_decode_step_makes_one_write_call_a_layer(params, monkeypatch, paged):
+    """`Model.decode_slots` on int8 caches, paged and slot-contiguous: one
+    `quantize_kv_write` call a layer and no `quantize_rows` call, leaving the
+    caches and logits of the plain step bitwise."""
+    _, _, tparams = params
+    cfg = smoke_cfg()
+    kh, d = cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(4)
+    b, ps, max_pages = 3, PAGE, MAX_LEN // PAGE
+    pages = b * max_pages + 1 if paged else b
+    seq = ps if paged else MAX_LEN
+    kv = {key: torch.from_numpy(rng.standard_normal((cfg.num_layers, pages, seq, kh, d))
+                                .astype(np.float32)).bfloat16() for key in ("k", "v")}
+    from repro_torch.models import kvquant
+    layer = kvquant.quantize_cache_tree(kv)
+    positions = torch.tensor([5, 0, MAX_LEN - 1], dtype=torch.int32)
+    active = torch.tensor([True, False, True])
+    toks = {"tokens": torch.tensor([[3], [0], [200]])}
+
+    def step():
+        cache = {"stack0": {"attn_0": {key: t.clone() for key, t in layer.items()}}}
+        if paged:
+            cache["page_table"] = torch.from_numpy(
+                np.random.default_rng(5).permutation(pages - 1)[:b * max_pages]
+                .reshape(b, max_pages).astype(np.int32))
+        logits, _ = Model(cfg).decode_slots(tparams, cache, toks, positions, active,
+                                            page_size=ps if paged else None)
+        return logits, cache["stack0"]["attn_0"]
+    want_logits, want = step()
+    ext, q_ops = _quantize_routes(monkeypatch)
+    got_logits, got = step()
+    assert [e[0] for e in ext.launches] == ["quantize_kv_write"] * cfg.num_layers
+    assert q_ops.quantize_kv_write_cuda.launches == cfg.num_layers
+    assert q_ops.quantize_cuda.launches == 0
+    assert torch.equal(got_logits, want_logits)
+    assert all(torch.equal(got[key], want[key]) for key in want)
+    assert not torch.equal(got["k"], layer["k"])
