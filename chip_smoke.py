@@ -92,7 +92,28 @@ non-zero, printing no result):
    against the plain quantizers);
 11. DDL at smoke width (4 ranks, a 2x2x1 mesh) — the overlapped backward
    off and on x compression off and on, each against one rank on the
-   global batch.
+   global batch;
+12. host — MemTotal and MemAvailable, and the achieved pinned copy rate
+   host to device, device to host and both at once (1 GiB each way, CUDA
+   events); the gate's depth is chosen here (the most layers L <= 48 whose
+   pinned state fits 80% of MemAvailable, failing unless that state plus
+   the grads exceeds the card's 80 GB) and its pinned state reserved once;
+13. lms_ab (qwen2.5-14b at full width cut to 4 layers, 2 x 2048 tokens, 3
+   steps of `Trainer.train` from one seed) — under the plan of
+   LMSConfig(hbm_budget=16e9) (params and AdamW state streamed from
+   pinned host memory, five activation classes offloaded, mlp_hidden
+   recomputed) against resident: losses, grad norms and every param
+   bitwise equal; the RMSNorm launches the plan implies (2L+1 a step
+   against 4L+1); both step times, the swap counters a step by class
+   against the plan's, the measured peak against the plan's;
+14. lms_gate (qwen2.5-14b at full width, the host phase's L layers, 2 x
+   2048 tokens, 3 steps) — the budget from lms_ab's measured-minus-planned
+   peak fed to the planner as its audited live-bytes margin (lowered until
+   the params stream); finite losses, step 1's loss bitwise equal to a
+   layer-by-layer no-grad forward of the phase's own; step time, tokens/s,
+   model FLOP/s, peak against the plan's, pinned bytes against the plan's
+   host bytes, swap bytes a step against the plan's, the link rate in the
+   step against the host phase's, the set-up times.
 
 Every run of a path records the shape of each kernel call and fails on one
 the kernel phases did not check, and its launch counts (flash attention's
@@ -137,7 +158,7 @@ SSD_BATCH, SSD_LEN = 4, 2048
 # training: 2 sequences of 2048 tokens a step; the reference check at 2
 # layers, the main path (Trainer) at 4, where params, grads and f32 Adam
 # state stay resident (~16 B a param: ~42.5 GB; the 48 layers need ~236 GB,
-# the case of LMS streaming, not ported yet)
+# the case of LMS: the lms phases)
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_STEPS = 2, 3
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 4, 5, 3e-4, 1
@@ -159,6 +180,16 @@ SSD_MMA_KERNELS = ("ssd_chunk_state_kernel", "ssd_chunk_out_kernel")
 SSD_KERNELS = {"tensor_core": (*SSD_MMA_KERNELS, "ssd_state_pass_kernel"),
                "cuda_core": ("ssd_scan_kernel",)}
 RMSNORM_KERNELS = {"register": "rmsnorm_rows_kernel", "element": "rmsnorm_elements_kernel"}
+# LMS on one card: the A/B of streamed against resident at 4 layers under a
+# 16 GB planning budget (params and optimizer streamed, five activation
+# classes offloaded, one recomputed), LMS_STEPS steps; the gate trains the
+# most layers whose pinned state fits LMS_HOST_SHARE of MemAvailable. Its
+# budget margin is lms_ab's measured peak over its plan's, plus the
+# allowance; the host phase copies HOST_COPY_BYTES each way
+LMS_AB_LAYERS, LMS_AB_BUDGET, LMS_STEPS = 4, 16 * 10**9, 3
+LMS_HOST_SHARE, LMS_MARGIN_ALLOWANCE = 0.8, 2 * 10**9
+CARD_BYTES = 80 * 10**9
+HOST_COPY_BYTES, HOST_COPY_REPS = 1 << 30, 5
 # torch.profiler sessions that time a kernel: at most this many for one
 # number, the timed calls this far (s) inside each end of a session
 PROFILE_ATTEMPTS, PROFILE_PAD_S = 8, 0.02
@@ -2929,7 +2960,7 @@ def trainer_phase(line, checked):
            "warmup": TRAIN_WARMUP, "card": line, "params": n_params,
            "why_4_layers": "params + grads + f32 Adam mu/nu/master stay resident at ~16 B a "
                            "param (~42.5 GB); all 48 layers need ~236 GB, the case of LMS "
-                           "streaming, not ported yet",
+                           "(lms_ab, lms_gate)",
            "loss": [r["loss"] for r in hist], "grad_norm": [r["grad_norm"] for r in hist],
            "lr_per_step": [r["lr"] for r in hist], "step_s": [r["time_s"] for r in hist],
            "median_step_s_after_1": step_s, "tokens_per_s": tokens / step_s,
@@ -3448,6 +3479,492 @@ def ddl_smoke_phase(line, checked):
 
 
 
+# ---------------------------------------------------------------------------
+# LMS: training beyond the card's memory on one card
+# ---------------------------------------------------------------------------
+
+def _meminfo() -> dict:
+    """/proc/meminfo in bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for row in f:
+            key, val = row.split(":", 1)
+            parts = val.split()
+            out[key] = int(parts[0]) * (1024 if parts[1:] == ["kB"] else 1)
+    return out
+
+
+MEMINFO_KEYS = ("MemTotal", "MemFree", "MemAvailable", "Cached", "Shmem", "AnonPages",
+                "Mlocked", "Unevictable")
+
+
+def _mem_row() -> dict:
+    """The /proc/meminfo fields of MEMINFO_KEYS, in bytes."""
+    mem = _meminfo()
+    return {k: mem.get(k) for k in MEMINFO_KEYS}
+
+
+def host_phase(line):
+    """The host: MemTotal and MemAvailable, and the achieved pinned copy
+    rate between host and card, HOST_COPY_BYTES each way, host to device,
+    device to host, and both at once (each on a stream of its own), timed
+    with CUDA events, the median of HOST_COPY_REPS: the link rate swap
+    time is held against (`hw.host_bw`, 64 GB/s a direction, is a data
+    sheet's figure). -> the phase row."""
+    import ctypes
+    import gc
+    import statistics
+    import torch
+    # what the earlier phases freed, handed back first: Python's cycles,
+    # the card's cached blocks, and the C heap's free pages (glibc keeps
+    # freed blocks under its mmap threshold in the heap until trimmed)
+    anon_before = _meminfo().get("AnonPages")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+    mem = _meminfo()
+    n = HOST_COPY_BYTES
+    host = [torch.empty(n, dtype=torch.uint8, pin_memory=True) for _ in range(2)]
+    dev = [torch.empty(n, dtype=torch.uint8, device="cuda") for _ in range(2)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+
+    def timed(copies):
+        """Seconds from a start event all streams wait on to the last end."""
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ends = []
+        for stream, fn in zip(streams, copies):
+            stream.wait_event(start)
+            with torch.cuda.stream(stream):
+                fn()
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(stream)
+                ends.append(end)
+        torch.cuda.synchronize()
+        return max(start.elapsed_time(e) for e in ends) / 1e3
+
+    def h2d():
+        dev[0].copy_(host[0], non_blocking=True)
+
+    def d2h():
+        host[1].copy_(dev[1], non_blocking=True)
+    rates = {}
+    for name, copies, nbytes in (("h2d", [h2d], n), ("d2h", [d2h], n),
+                                 ("both", [h2d, d2h], 2 * n)):
+        timed(copies)
+        secs = [timed(copies) for _ in range(HOST_COPY_REPS)]
+        rates[name] = {"bytes": nbytes, "seconds": secs,
+                       "gb_s": nbytes / statistics.median(secs) / 1e9}
+    row = {"phase": "host", "card": line, "meminfo": {k: mem.get(k) for k in MEMINFO_KEYS},
+           "anon_pages_before_trim": anon_before,
+           "mem_total_bytes": mem["MemTotal"],
+           "mem_available_bytes": mem["MemAvailable"], "copy_bytes": n,
+           "h2d_gb_s": rates["h2d"]["gb_s"], "d2h_gb_s": rates["d2h"]["gb_s"],
+           "both_gb_s": rates["both"]["gb_s"], "rates": rates,
+           "hw_host_bw_gb_s": 64.0}
+    emit(row)
+    del host, dev
+    return row
+
+
+def _swap_per_step(before: dict, after: dict, steps: int) -> dict:
+    """{counter: (after - before) / steps} of the `lms.swap_*` counters."""
+    return {k: (v - before.get(k, 0)) / steps for k, v in sorted(after.items())}
+
+
+def _implied_rmsnorm_launches(plan, layers: int) -> int:
+    """RMSNorm launches a step the plan's assignment implies: 2L+1 in the
+    forward (two a layer and the final norm), and in the backward's replay
+    one a layer for each of attn_norm and mlp_norm the plan rematerializes
+    (a saved or offloaded norm output is not recomputed); 4L+1 without a
+    plan (every layer recomputed whole)."""
+    if plan is None:
+        return 4 * layers + 1
+    remat = sum(plan.assignment.get(n, "remat") == "remat" for n in ("attn_norm", "mlp_norm"))
+    return 2 * layers + 1 + remat * layers
+
+
+def _lms_run(tcfg, steps: int, profile=None):
+    """A `Trainer` on the card for `steps` steps from its seed, the state
+    set up (placed as its plan says) and timed first; counts reset just
+    before the steps and read just after. -> (trainer, final state,
+    history, facts)."""
+    import torch
+    from repro_torch.core.lms import offload as off
+    from repro_torch.train.trainer import Trainer
+    trainer = Trainer(tcfg, device="cuda", profile=profile)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    init = [state]
+    trainer.init_state = lambda: init.pop()
+    before = off.swap_counters()
+    t1 = time.monotonic()
+    with launch_signatures() as (seen, calls, launches):
+        state, hist = trainer.train(steps=steps)
+    run_s = time.monotonic() - t1
+    facts = {"setup_s": setup_s, "run_s": run_s, "peak_bytes": torch.cuda.max_memory_allocated(),
+             "pinned_bytes": off.pinned_bytes(),
+             "swap_per_step": _swap_per_step(before, off.swap_counters(), steps),
+             "seen": seen, "calls": calls, "launches": launches}
+    return trainer, state, hist, facts
+
+
+def _plan_row(plan) -> dict:
+    if plan is None:
+        return None
+    return {"peak_bytes": plan.peak_bytes, "budget": plan.budget, "fits": plan.fits,
+            "host_bytes": plan.host_bytes, "swap_bytes_per_step": plan.swap_bytes_per_step,
+            "swap_bytes": dict(plan.swap_schedule.swap_bytes) if plan.swap_schedule else {},
+            "residency": plan.residency, "assignment": plan.assignment,
+            "prefetch_depth": plan.swap_schedule.prefetch_depth if plan.swap_schedule else None,
+            "summary": plan.summary()}
+
+
+def lms_ab_phase(line, checked):
+    """LMS against resident at qwen2.5-14b's full width cut to
+    LMS_AB_LAYERS layers, 2 x 2048 tokens a step, LMS_STEPS steps of
+    `Trainer.train` from one seed: first under the plan of
+    LMSConfig(hbm_budget=LMS_AB_BUDGET) (params and optimizer state in
+    pinned host memory, streamed; resid, attn_norm, qkv, attn_out and
+    mlp_norm offloaded, mlp_hidden recomputed), then resident
+    (LMSConfig(enabled=False)). Held: every step's loss and grad norm and
+    every param after the last step bitwise equal; finite losses; the
+    RMSNorm launches a step the plan's assignment implies
+    (`_implied_rmsnorm_launches`) and none of another kernel. Reported:
+    both step times (median after step 1) and their ratio, LMS's overhead
+    at this size; the swap counters a step by class against the plan's
+    `swap_schedule.swap_bytes`; the measured peak against the plan's.
+    -> the phase row."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.config.base import LMSConfig
+    from repro_torch.core.lms import offload as off
+    from repro_torch.tree import tree_leaves
+    L, n = LMS_AB_LAYERS, LMS_STEPS
+    base = _train_config(L, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=n)
+    runs, params = {}, {}
+    for name, lms in (("streamed", LMSConfig(hbm_budget=LMS_AB_BUDGET)),
+                      ("resident", LMSConfig(enabled=False))):
+        trainer, state, hist, facts = _lms_run(dataclasses.replace(base, lms=lms), n)
+        plan = trainer.plan
+        # kept where they lie (the stack in pinned host memory, the rest on
+        # the card) and compared leaf by leaf on the card
+        params[name] = tree_leaves(state.params)
+        unchecked = sorted(facts["seen"] - checked)
+        launches = facts["launches"]
+        runs[name] = {
+            "plan": _plan_row(plan), "loss": [r["loss"] for r in hist],
+            "grad_norm": [r["grad_norm"] for r in hist], "step_s": [r["time_s"] for r in hist],
+            "median_step_s_after_1": statistics.median(r["time_s"] for r in hist[1:]),
+            "setup_s": facts["setup_s"], "max_memory_allocated_bytes": facts["peak_bytes"],
+            "pinned_bytes": facts["pinned_bytes"], "swap_per_step": facts["swap_per_step"],
+            "rmsnorm_launches_per_step": launches["rmsnorm"] / n,
+            "implied_rmsnorm_launches_per_step": _implied_rmsnorm_launches(plan, L),
+            "launches": launches, "unchecked_signatures": unchecked,
+            "checks": {"finite": all(math.isfinite(r["loss"]) for r in hist),
+                       "rmsnorm_launches_as_the_plan_implies":
+                           launches["rmsnorm"] == n * _implied_rmsnorm_launches(plan, L),
+                       "no_other_launches": all(v == 0 for k, v in launches.items()
+                                                if not k.startswith("rmsnorm")),
+                       "every_launch_recorded": facts["calls"] == launches,
+                       "every_launch_shape_checked": not unchecked}}
+        del trainer, state, hist
+        torch.cuda.empty_cache()
+    s, r = runs["streamed"], runs["resident"]
+    same_params = [torch.equal(a.to(b.device), b)
+                   for a, b in zip(params["streamed"], params["resident"])]
+    del params
+    off.release_arenas()
+    swap = s["swap_per_step"]
+    plan = s["plan"]
+    checks = {**{f"streamed_{k}": v for k, v in s["checks"].items()},
+              **{f"resident_{k}": v for k, v in r["checks"].items()},
+              "plan_streams_params_and_optimizer":
+                  set(plan["swap_bytes"]) == {"params", "optimizer"},
+              "loss_bitwise": s["loss"] == r["loss"],
+              "grad_norm_bitwise": s["grad_norm"] == r["grad_norm"],
+              "params_bitwise": all(same_params)}
+    row = {"phase": "lms_ab", "arch": ARCH, "layers": L, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": n, "card": line, "hbm_budget": LMS_AB_BUDGET,
+           "streamed": s, "resident": r,
+           "overhead": s["median_step_s_after_1"] / r["median_step_s_after_1"] - 1,
+           "params_unequal": [i for i, ok in enumerate(same_params) if not ok],
+           "swap_vs_plan": {
+               "params_in_per_step": swap.get("lms.swap_in_bytes.params", 0),
+               "params_out_per_step": swap.get("lms.swap_out_bytes.params", 0),
+               "params_priced": plan["swap_bytes"].get("params"),
+               "optimizer_in_out_per_step": swap.get("lms.swap_in_bytes.optimizer", 0)
+               + swap.get("lms.swap_out_bytes.optimizer", 0),
+               "optimizer_priced": plan["swap_bytes"].get("optimizer"),
+               "activations_in_out_per_step": swap.get("lms.swap_in_bytes.activations", 0)
+               + swap.get("lms.swap_out_bytes.activations", 0)},
+           "peak_vs_plan": {"measured": s["max_memory_allocated_bytes"],
+                            "plan": plan["peak_bytes"],
+                            "delta": s["max_memory_allocated_bytes"] - plan["peak_bytes"]},
+           "checks": checks}
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"lms_ab: failed checks {[k for k, v in checks.items() if not v]}")
+    return row
+
+
+def copy_seconds(prof) -> dict:
+    """Device seconds of a torch.profiler run's host-device copies by
+    direction, and the busy time of the copies and of everything else
+    (kernels, fills): {h2d_s, d2h_s, copy_busy_s, compute_busy_s,
+    overlap_s}, the last the time both ran at once."""
+    from torch.autograd import DeviceType
+    out = {"h2d_s": 0.0, "d2h_s": 0.0}
+    copies, compute = [], []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        name, start, dur = ev.name(), ev.start_ns(), ev.duration_ns()
+        if "HtoD" in name or "DtoH" in name:
+            out["h2d_s" if "HtoD" in name else "d2h_s"] += dur / 1e9
+            copies.append((start, start + dur))
+        else:
+            compute.append((start, start + dur))
+    out["copy_busy_s"] = busy_seconds(copies)
+    out["compute_busy_s"] = busy_seconds(compute)
+    out["overlap_s"] = (out["copy_busy_s"] + out["compute_busy_s"]
+                        - busy_seconds(copies + compute))
+    return out
+
+
+def _pinned_state_bytes(layers: int) -> int:
+    """Pinned host bytes of qwen2.5-14b's train state at `layers` layers
+    when the plan puts the stack's params and the AdamW state on the host
+    (the port's layout rule, `train.steps._state_layout`)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import DTYPES
+    from repro_torch.models.model import Model
+    from repro_torch.train import steps as steps_mod
+    model = Model(dataclasses.replace(get_config(ARCH), num_layers=layers))
+    paths = [(path, d.shape, DTYPES[d.dtype])
+             for path, d in steps_mod._def_paths(model.param_defs())]
+    return steps_mod._state_layout(paths, "adamw", True, True)[0]
+
+
+def _grad_bytes(layers: int) -> int:
+    """Bytes of the grads (the params' dtypes, on the card)."""
+    import dataclasses
+    import math as m
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import DTYPES
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_leaves
+    model = Model(dataclasses.replace(get_config(ARCH), num_layers=layers))
+    return sum(m.prod(d.shape) * DTYPES[d.dtype].itemsize
+               for d in tree_leaves(model.param_defs()))
+
+
+def _layerwise_loss(model, state, batch):
+    """The loss of `batch` under `state`'s params without the executor: a
+    no-grad forward that copies one layer at a time from pinned host memory
+    to the card and calls `apply_layer`, then the final norm, the head and
+    the cross-entropy, as `Model.loss` composes them."""
+    import torch
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.layers import (apply_norm, cross_entropy, embed_tokens,
+                                           lm_logits)
+    from repro_torch.tree import tree_map
+    cfg = model.cfg
+    params = state.params
+    with torch.no_grad():
+        x = embed_tokens(cfg, params["embed"], batch["tokens"])
+        ctx = model._ctx(x.shape[1], x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(cfg.num_layers):
+            layer = tree_map(lambda t: t.to("cuda"), tr._layer(params["decoder"]["stack0"], i))
+            x, da = tr.apply_layer(cfg, "attn", layer["attn_0"], x, ctx)
+            aux = aux + da
+        x = apply_norm(cfg, params["final_norm"], x)
+        ce = cross_entropy(lm_logits(cfg, params["embed"], x), batch["labels"])
+        return ce + 0.01 * aux
+
+
+def gate_layers(host_row) -> int:
+    """The gate's depth: the most layers L <= 48 whose pinned state fits
+    LMS_HOST_SHARE of MemAvailable as the host phase read it. Fails, naming
+    the host's memory, unless that state plus the grads exceeds the card's
+    80 GB."""
+    avail, total = host_row["mem_available_bytes"], host_row["mem_total_bytes"]
+    fit = [L for L in range(1, 49) if _pinned_state_bytes(L) <= LMS_HOST_SHARE * avail]
+    if not fit:
+        raise AssertionError(f"lms_gate: the host's MemAvailable {avail} B (MemTotal "
+                             f"{total} B) holds no layer's pinned state")
+    L = max(fit)
+    pinned, grads = _pinned_state_bytes(L), _grad_bytes(L)
+    if pinned + grads <= CARD_BYTES:
+        raise AssertionError(
+            f"lms_gate: the host's MemAvailable {avail} B (MemTotal {total} B) holds the "
+            f"pinned state of {L} layers ({pinned} B), which with the grads ({grads} B) "
+            f"does not exceed the card's {CARD_BYTES} B")
+    return L
+
+
+def lms_gate_phase(line, checked, host_row, ab_row, L):
+    """The paper's case: qwen2.5-14b at full width with the most layers
+    L <= 48 whose pinned state (bf16 stack params, f32 AdamW mu, nu and
+    master) fits LMS_HOST_SHARE of MemAvailable, trained LMS_STEPS steps of
+    2 x 2048 tokens by `Trainer` under an LMS plan. It fails, naming the
+    host's memory, unless that state plus the grads exceeds the card's 80
+    GB: the run must be training beyond the card's capacity.
+
+    The budget, by the planner's own means: the audited live-bytes margin
+    m = lms_ab's measured peak - its plan's peak + LMS_MARGIN_ALLOWANCE
+    (what the executor holds beyond the plan's pricing), fed as the plan's
+    profile (`CostModel.from_reports(None, {"steps": [{"name": "train",
+    "plan_delta_bytes": m}]})`), which tightens the budget by m and charges
+    m into the plan's peak. hbm_budget is the card's unless the params
+    would not stream there (params + grads under half the budget): then
+    the largest budget under which they stream. No retry on out of memory.
+
+    Held: finite losses; step 1's loss bitwise equal to the phase's own
+    no-grad forward (`_layerwise_loss`), independent of the executor; the
+    RMSNorm launches the plan implies. Reported: step time (median after
+    step 1), tokens/s, model FLOP/s and its share of 989 TFLOP/s, the
+    measured peak against the plan's, the pinned bytes against
+    `plan.host_bytes`, the host-to-device and device-to-host bytes a step
+    from the counters against `plan.swap_bytes_per_step`, the link rate
+    they give over the step against the host phase's, and the state's set
+    up time. -> the phase row."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.config.base import LMSConfig
+    from repro_torch.core.lms import offload as off
+    from repro_torch.core.lms.costmodel import CostModel
+    from repro_torch.core.lms.planner import PlanRequest, plan as plan_lms
+    from repro_torch.data import DataLoader, SyntheticTokens
+    from repro_torch.models.model import Model
+    n = LMS_STEPS
+    pinned, grads = _pinned_state_bytes(L), _grad_bytes(L)
+    margin = int(ab_row["peak_vs_plan"]["delta"]) + LMS_MARGIN_ALLOWANCE
+    profile = CostModel.from_reports(None, {"steps": [{"name": "train",
+                                                       "plan_delta_bytes": margin}]})
+    base = _train_config(L, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=n)
+
+    def plan_at(budget):
+        lms = LMSConfig(hbm_budget=budget)
+        return lms, plan_lms(PlanRequest(cfg=base.model, shape=base.shape, mesh=base.mesh,
+                                         lms=lms, optimizer=base.optimizer), profile=profile)
+    lms, plan = plan_at(0)
+    budget_why = "the card's: the params stream there"
+    if plan.swap_schedule is None or not plan.swap_schedule.streams_params:
+        n_params = base.model.param_count()
+        # params stream iff 2 N + 2 N > (budget (1 - workspace) - m) / 2
+        budget = int(0.99 * (2 * 4 * n_params + max(margin, 0)) / (1 - lms.workspace_frac))
+        budget_why = (f"lowered from the card's: at {L} layers params + grads "
+                      f"({4 * n_params} B priced) stay under half the budget, so the plan "
+                      f"keeps params resident; at {budget} B they stream")
+        lms, plan = plan_at(budget)
+    derivation = {"lms_ab_measured_peak": ab_row["peak_vs_plan"]["measured"],
+                  "lms_ab_plan_peak": ab_row["peak_vs_plan"]["plan"],
+                  "allowance": LMS_MARGIN_ALLOWANCE, "margin": margin,
+                  "hbm_budget": lms.hbm_budget, "why": budget_why}
+    emit({"phase": "lms_gate_plan", "layers": L,
+          "mem_available_bytes": host_row["mem_available_bytes"],
+          "mem_total_bytes": host_row["mem_total_bytes"], "meminfo_now": _mem_row(),
+          "host_share": LMS_HOST_SHARE, "pinned_state_bytes": pinned,
+          "grad_bytes": grads, "budget_derivation": derivation, "plan": _plan_row(plan)})
+    if not plan.swap_schedule.streams_params:
+        raise AssertionError("lms_gate: the plan does not stream the params")
+    tcfg = dataclasses.replace(base, lms=lms)
+    model = Model(tcfg.model)
+    loader = DataLoader(SyntheticTokens(tcfg.model.vocab_size, seed=SEED), shard=0,
+                        num_shards=1, batch_per_shard=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    first = {k: torch.from_numpy(v).cuda() for k, v in next(loader).items()}
+    from repro_torch.train.trainer import Trainer
+    trainer = Trainer(tcfg, device="cuda", profile=profile)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    ref_loss = float(_layerwise_loss(model, state, first))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init = [state]
+    trainer.init_state = lambda: init.pop()
+    del state
+    before = off.swap_counters()
+    with launch_signatures() as (seen, calls, launches):
+        state, hist = trainer.train(steps=n)
+    peak = torch.cuda.max_memory_allocated()
+    swap = _swap_per_step(before, off.swap_counters(), n)
+    pinned_now = off.pinned_bytes()
+    step_s = statistics.median(r["time_s"] for r in hist[1:])
+    # where the step's time goes: one more step split by CUDA events (the
+    # loss and its grads, the clip, the optimizer sweep), and one under
+    # torch.profiler (the device's busy share, its copies by direction)
+    batch = trainer._make_batch()
+    state, split = step_split_ms(trainer.step_fn, state, batch)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.monotonic()
+        state, _ = trainer.step_fn(state, batch)
+        torch.cuda.synchronize()
+        profiled_s = time.monotonic() - t1
+    profiled = {**device_summary(prof, profiled_s), "copies": copy_seconds(prof)}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    model_flops, hw_flops = _train_flops(tcfg.model, tokens, TRAIN_SEQ)
+    h2d = sum(v for k, v in swap.items() if k.startswith("lms.swap_in_bytes."))
+    d2h = sum(v for k, v in swap.items() if k.startswith("lms.swap_out_bytes."))
+    unchecked = sorted(seen - checked)
+    implied = _implied_rmsnorm_launches(plan, L)
+    checks = {"finite": all(math.isfinite(r["loss"]) for r in hist),
+              "step1_loss_bitwise_layerwise_forward": hist[0]["loss"] == ref_loss,
+              "beyond_the_card": pinned_now + grads > CARD_BYTES,
+              "rmsnorm_launches_as_the_plan_implies": launches["rmsnorm"] == n * implied,
+              "no_other_launches": all(v == 0 for k, v in launches.items()
+                                       if not k.startswith("rmsnorm")),
+              "every_launch_recorded": calls == launches,
+              "every_launch_shape_checked": not unchecked}
+    row = {"phase": "lms_gate", "arch": ARCH, "layers": L, "d_model": tcfg.model.d_model,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": n, "card": line,
+           "params": tcfg.model.param_count(), "hbm_budget": lms.hbm_budget,
+           "loss": [r["loss"] for r in hist], "layerwise_loss_step1": ref_loss,
+           "grad_norm": [r["grad_norm"] for r in hist], "step_s": [r["time_s"] for r in hist],
+           "median_step_s_after_1": step_s, "tokens_per_s": tokens / step_s,
+           "model_tflop_per_step": model_flops / 1e12,
+           "model_tflop_s": model_flops / step_s / 1e12,
+           "model_flops_share_of_989": model_flops / step_s / BF16_TENSOR_FLOPS_PER_S,
+           "with_recompute_tflop_s": hw_flops / step_s / 1e12,
+           "setup_s": setup_s,
+           "peak_vs_plan": {"measured": peak, "plan": plan.peak_bytes},
+           "pinned_vs_plan": {"measured": pinned_now, "plan_host_bytes": plan.host_bytes},
+           "grad_bytes": grads, "state_plus_grads_bytes": pinned_now + grads,
+           "swap_per_step": swap,
+           "h2d_bytes_per_step": h2d, "d2h_bytes_per_step": d2h,
+           "plan_swap_bytes_per_step": plan.swap_bytes_per_step,
+           "link_gb_s_in_step": {"h2d": h2d / step_s / 1e9, "d2h": d2h / step_s / 1e9,
+                                 "both": (h2d + d2h) / step_s / 1e9},
+           "host_phase_gb_s": {"h2d": host_row["h2d_gb_s"], "d2h": host_row["d2h_gb_s"],
+                               "both": host_row["both_gb_s"]},
+           "rmsnorm_launches_per_step": launches["rmsnorm"] / n,
+           "implied_rmsnorm_launches_per_step": implied, "launches": launches,
+           "step_split_ms": split, "profile": profiled,
+           "unchecked_signatures": unchecked, "checks": checks}
+    emit(row)
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    off.release_arenas()
+    if not all(checks.values()):
+        raise AssertionError(f"lms_gate ({L} layers): failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return row
+
+
 def reference_phase(line, checked):
     """The trace at full width but 2 layers, where bf16 rounding stays
     small, held against the dense pass: 4 bf16 ulps of each row's largest
@@ -3479,6 +3996,24 @@ def reference_phase(line, checked):
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+def lms_phases(line, checked):
+    """The LMS phases: the host, lms_ab, lms_gate. The gate's depth is
+    chosen first, from the host phase's MemAvailable, and its pinned state
+    reserved once (`offload.reserve_pinned`), so lms_ab's state and then
+    the gate's reuse one pinned arena: on the card's machine pinned memory
+    does not come back to MemAvailable once freed, even after the process
+    exits (PERF.md §6). -> their rows."""
+    from repro_torch.core.lms import offload as off
+    host_row = host_phase(line)
+    layers = gate_layers(host_row)
+    t0 = time.monotonic()
+    off.reserve_pinned(_pinned_state_bytes(layers), "cuda")
+    emit({"phase": "lms_reserve", "layers": layers, "bytes": _pinned_state_bytes(layers),
+          "seconds": time.monotonic() - t0, "meminfo": _mem_row()})
+    ab_row = lms_ab_phase(line, checked)
+    return host_row, ab_row, lms_gate_phase(line, checked, host_row, ab_row, layers)
 
 
 def main() -> int:
@@ -3534,6 +4069,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ddl_row = ddl_phase(line, checked)
     ddl_smoke_phase(line, checked)
+    lms_phases(line, checked)
 
     decode_kernel = "src/repro/kernels/flash_attention/decode_kernel.py"
     replaces = {

@@ -3,7 +3,12 @@ launcher, whose flag names it keeps). Runs on the card unless
 `--device cpu` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-14b \
-        --smoke --no-lms --steps 20 --batch 8 --seq 128
+        --smoke --steps 20 --batch 8 --seq 128
+
+LMS is on unless `--no-lms` is given, as in the JAX launcher: the trainer
+plans the step's memory for the card (`--profile`: from a calibration
+report instead of the hardware model), and the plan's summary is printed
+when it streams a class from pinned host memory.
 
 Data-parallel training runs one process per mesh device under torchrun,
 which sets RANK, WORLD_SIZE and LOCAL_RANK; the mesh (`--mesh PxDxM`, as
@@ -13,13 +18,15 @@ the JAX launcher parses it) must have WORLD_SIZE devices:
         -m repro_torch.launch.train --arch qwen2.5-14b --smoke --no-lms \
         --mesh 2x1x1 --compress-dcn --steps 20 --batch 8 --seq 128
 
+(LMS on a mesh of several ranks is not ported yet: `--no-lms` there.)
+
 The process group is NCCL when every rank has a card of its own, gloo
 otherwise (ranks on the CPU, or sharing a card). Only rank 0 prints.
 
-LMS, DDL's zero1 mode, tensor parallelism (a `model` axis above 1),
-checkpoints, the Supervisor, fault drills, heartbeats, planner profiles,
-loss-spike telemetry and the trace and obs-report exports are not ported
-yet: their flags raise.
+DDL's zero1 mode, tensor parallelism (a `model` axis above 1), LMS on a
+mesh of several ranks, checkpoints, the Supervisor, fault drills,
+heartbeats, loss-spike telemetry and the trace and obs-report exports are
+not ported yet: their flags raise.
 """
 from __future__ import annotations
 
@@ -53,7 +60,10 @@ def _unported(args) -> list:
     """The flags given whose feature is not ported yet."""
     mesh = parse_mesh(args.mesh)
     given = {
-        "--no-lms absent (LMS)": not args.no_lms,
+        "--no-lms absent on a mesh of several ranks (LMS + DDL)":
+            not args.no_lms and mesh.num_devices > 1,
+        "--no-lms absent with --microbatches above 1 (LMS with microbatches)":
+            not args.no_lms and args.microbatches > 1,
         "--ddl-mode zero1": args.ddl_mode == "zero1",
         "--mesh with a model axis above 1 (tensor parallelism)":
             dict(zip(mesh.axes, mesh.shape)).get("model", 1) > 1,
@@ -64,7 +74,6 @@ def _unported(args) -> list:
         "--ckpt-every": args.ckpt_every is not None,
         "--trace": bool(args.trace),
         "--obs-report": bool(args.obs_report),
-        "--profile": bool(args.profile),
         "--spike-action": args.spike_action != "off",
         "--supervise": args.supervise,
         "--heartbeat-dir": bool(args.heartbeat_dir),
@@ -95,7 +104,7 @@ def main(argv=None):
                    choices=["allreduce", "zero1", "none"])
     p.add_argument("--compress-dcn", action="store_true")
     p.add_argument("--no-lms", action="store_true",
-                   help="required: LMS is not ported yet")
+                   help="train without LMS (everything resident)")
     p.add_argument("--microbatches", type=int, default=1)
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--ckpt-every", type=int, default=None)
@@ -107,7 +116,10 @@ def main(argv=None):
                    help="stream span events to this JSONL file")
     p.add_argument("--trace", default="")
     p.add_argument("--obs-report", default="")
-    p.add_argument("--profile", default="")
+    p.add_argument("--profile", default="",
+                   help="Planner v2 calibration: plan from the measured "
+                        "bandwidths/overlap in this obs_report.json instead "
+                        "of the hardware model")
     p.add_argument("--spike-action", default="off",
                    choices=["off", "record", "stop"])
     p.add_argument("--supervise", action="store_true")
@@ -120,8 +132,8 @@ def main(argv=None):
     unported = _unported(args)
     if unported:
         raise NotImplementedError(
-            f"not ported yet: {', '.join(unported)} (pass --no-lms; the port "
-            "trains without checkpoints)")
+            f"not ported yet: {', '.join(unported)} (the port trains without "
+            "checkpoints)")
     mesh = parse_mesh(args.mesh)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world != mesh.num_devices:
@@ -136,14 +148,18 @@ def main(argv=None):
         model=cfg,
         shape=ShapeConfig("cli", "train", args.seq, args.batch),
         mesh=mesh,
-        lms=LMSConfig(enabled=False),
+        lms=LMSConfig(enabled=not args.no_lms),
         ddl=DDLConfig(mode=args.ddl_mode, compress_dcn=args.compress_dcn),
         learning_rate=args.lr, warmup_steps=args.warmup,
         total_steps=args.steps, microbatches=args.microbatches,
         log_every=max(1, args.log_every))
 
     configure(jsonl_path=args.obs_jsonl or None)
-    trainer = Trainer(tcfg, device=args.device, obs=get_obs())
+    trainer = Trainer(tcfg, device=args.device, obs=get_obs(),
+                      profile=args.profile or None)
+    plan = trainer.plan
+    if rank0 and plan is not None and (plan.swap_schedule is not None or plan.calibrated):
+        print(plan.summary())
 
     def log(step, m):
         if rank0:

@@ -9,6 +9,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.lms.policies import tagged
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (attention_mask,
                                                      flash_decode_ref)
@@ -42,11 +43,17 @@ def _proj(x, w):
     return (x @ w.reshape(d, h * k)).reshape(x.shape[:-1] + (h, k))
 
 
+def _proj_bias(x, w, b=None):
+    y = _proj(x, w)
+    return y if b is None else y + b
+
+
 def project_qkv(cfg, p, x):
-    """-> q [B,S,H,D], k/v [B,S,K,D]."""
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    """-> q [B,S,H,D], k/v [B,S,K,D], each tagged "qkv": saving them spares
+    the backward the projection matmuls under remat."""
+    q = tagged("qkv", _proj_bias, x, p["wq"], p.get("bq"))
+    k = tagged("qkv", _proj_bias, x, p["wk"], p.get("bk"))
+    v = tagged("qkv", _proj_bias, x, p["wv"], p.get("bv"))
     return q, k, v
 
 

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.lms.policies import tagged
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.tree import tree_map
 
@@ -41,25 +42,42 @@ def is_def(x) -> bool:
     return isinstance(x, ParamDef)
 
 
-def init_array(d: ParamDef, generator: torch.Generator, device) -> torch.Tensor:
+def init_pieces(d: ParamDef, generator: torch.Generator, device):
+    """The leaf's initial values in pieces on `device`, in its dtype:
+    yields (index into the leaf, piece). A stacked "normal" leaf is drawn
+    one layer slice at a time, so the f32 temporary is one layer's worth,
+    not the whole stack's, and a caller may place each slice elsewhere
+    (`train/steps.py` puts host-resident layers in pinned memory); any
+    other leaf comes whole. The draws are the same whichever way the
+    pieces are placed."""
     dt = DTYPES[d.dtype]
     if d.init == "zeros":
-        return torch.zeros(d.shape, dtype=dt, device=device)
-    if d.init == "ones":
-        return torch.ones(d.shape, dtype=dt, device=device)
-    if d.init == "ssm_a":   # A_log: log of uniform [1, 16]
+        yield ..., torch.zeros(d.shape, dtype=dt, device=device)
+    elif d.init == "ones":
+        yield ..., torch.ones(d.shape, dtype=dt, device=device)
+    elif d.init == "ssm_a":   # A_log: log of uniform [1, 16]
         u = torch.rand(d.shape, generator=generator, dtype=torch.float32,
                        device=device) * 15.0 + 1.0
-        return torch.log(u).to(dt)
-    if d.init != "normal":
+        yield ..., torch.log(u).to(dt)
+    elif d.init != "normal":
         raise ValueError(d.init)
-    out = torch.empty(d.shape, dtype=dt, device=device)
-    # a stacked leaf is drawn one layer slice at a time, so the f32
-    # temporary is one layer's worth, not the whole stack's
-    parts = out if d.axes[:1] == ("layers",) else out[None]
-    for part in parts:
-        part.copy_(torch.randn(part.shape, generator=generator,
-                               dtype=torch.float32, device=device) * d.scale)
+    elif d.axes[:1] == ("layers",):
+        for i in range(d.shape[0]):
+            yield i, (torch.randn(d.shape[1:], generator=generator, dtype=torch.float32,
+                                  device=device) * d.scale).to(dt)
+    else:
+        yield ..., (torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                                device=device) * d.scale).to(dt)
+
+
+def init_array(d: ParamDef, generator: torch.Generator, device) -> torch.Tensor:
+    out = None
+    for i, piece in init_pieces(d, generator, device):
+        if i is ...:
+            return piece
+        if out is None:
+            out = torch.empty(d.shape, dtype=piece.dtype, device=device)
+        out[i] = piece
     return out
 
 
@@ -108,10 +126,16 @@ def mlp_defs(cfg):
             "w_down": ParamDef((f, d), ("ff", "d_model"), scale=scale_out)}
 
 
+def _swiglu(g, u):
+    return F.silu(g) * u
+
+
 def apply_mlp(cfg, p, x):
-    g = x @ p["w_gate"]
-    u = x @ p["w_up"]
-    return (F.silu(g) * u) @ p["w_down"]
+    # tag the projection outputs: remat otherwise re-runs both matmuls
+    g = tagged("mlp_hidden", torch.matmul, x, p["w_gate"])
+    u = tagged("mlp_hidden", torch.matmul, x, p["w_up"])
+    h = tagged("mlp_hidden", _swiglu, g, u)
+    return h @ p["w_down"]
 
 
 # ---------------------------------------------------------------------------

@@ -57,27 +57,34 @@ class Model:
 
     # ---- train forward ----------------------------------------------------
     def forward(self, params, batch, *, policy=None, no_remat=False,
-                grad_hooks=None):
+                grad_hooks=None, stream=None, stack_grads=None):
         """batch {"tokens" [B,S]} -> (logits [B,S,V], aux_loss f32 scalar).
         Each decoder layer is recomputed in the backward unless no_remat
-        (`transformer.apply_decoder`); `policy` (an LMS remat policy) is not
-        ported yet. grad_hooks: per-stack-group DDL reduce-as-you-go hooks
-        (the overlapped backward, `core/ddl/overlap.py`)."""
+        (`transformer.apply_decoder`). LMS: `policy`, an activation policy
+        (`core/lms/policies.py`), and `stream`, a SwapSchedule whose params
+        stream from pinned host memory (params["decoder"]["stack0"] then
+        lies there), run the stack through the LMS executor, which writes
+        the stack's grads into `stack_grads`. grad_hooks: per-stack-group
+        DDL reduce-as-you-go hooks (the overlapped backward,
+        `core/ddl/overlap.py`)."""
         cfg = self.cfg
         x = embed_tokens(cfg, params["embed"], batch["tokens"])
         ctx = self._ctx(x.shape[1], x.device)
         x, aux = tr.apply_decoder(cfg, params["decoder"], x, ctx,
                                   policy=policy, no_remat=no_remat,
-                                  grad_hooks=grad_hooks)
+                                  grad_hooks=grad_hooks, stream=stream,
+                                  stack_grads=stack_grads)
         x = apply_norm(cfg, params["final_norm"], x)
         return lm_logits(cfg, params["embed"], x), aux
 
     def loss(self, params, batch, *, policy=None, no_remat=False,
-             aux_weight: float = 0.01, grad_hooks=None):
+             aux_weight: float = 0.01, grad_hooks=None, stream=None,
+             stack_grads=None):
         """batch {"tokens", "labels" [B,S]}, label -1 ignored -> (mean token
         cross-entropy + aux_weight * aux, {"ce", "aux"})."""
         logits, aux = self.forward(params, batch, policy=policy,
-                                   no_remat=no_remat, grad_hooks=grad_hooks)
+                                   no_remat=no_remat, grad_hooks=grad_hooks,
+                                   stream=stream, stack_grads=stack_grads)
         ce = cross_entropy(logits, batch["labels"])
         return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 

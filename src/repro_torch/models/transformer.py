@@ -15,12 +15,13 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.kernels.quantize import ops as q_ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import paging
+from repro_torch.core.lms.policies import tag, tagged
 from repro_torch.models.attention import (attention_defs, decode_attention,
                                           out_proj, project_qkv)
 from repro_torch.models.layers import (ParamDef, apply_mlp, apply_norm,
                                        apply_rope, mlp_defs, norm_defs)
 from repro_torch.models.ssm import apply_ssm, ssm_defs
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 # ---------------------------------------------------------------------------
 # Stack layout
@@ -109,18 +110,21 @@ def _rope_qk(cfg, q, k, ctx):
 
 
 def _ffn(cfg, p, x):
-    h = apply_norm(cfg, p["ln2"], x)
+    h = tagged("mlp_norm", apply_norm, cfg, p["ln2"], x)
     return x + apply_mlp(cfg, p["ffn"], h)
 
 
 def _attn_block(cfg, p, x, ctx):
     """A whole-sequence causal "attn" layer: -> (x, k, v). The forward
-    pass and the prefill share it, so they run the same ops."""
-    h = apply_norm(cfg, p["ln1"], x)
+    pass and the prefill share it, so they run the same ops. The tags
+    (`core/lms/policies.py`) are the JAX package's; outside an LMS layer
+    frame they are the identity."""
+    x = tag(x, "resid")
+    h = tagged("attn_norm", apply_norm, cfg, p["ln1"], x)
     q, k, v = project_qkv(cfg, p["attn"], h)
     q, k = _rope_qk(cfg, q, k, ctx)
-    o = attn_mod.attention(q, k, v, causal=True, impl=ctx["attn_impl"],
-                           chunk=ctx["attn_chunk"])
+    o = tagged("attn_out", attn_mod.attention, q, k, v, causal=True,
+               impl=ctx["attn_impl"], chunk=ctx["attn_chunk"])
     return _ffn(cfg, p, x + out_proj(cfg, p["attn"], o)), k, v
 
 
@@ -140,8 +144,158 @@ def apply_layer(cfg, kind, p, x, ctx):
     raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
 
 
+def _stream_depth(stream, n_iter: int) -> int:
+    """Layers in flight for a stack: the schedule's prefetch depth, at most
+    the layer count. (The JAX package's scan groups `depth` layers an
+    iteration, so it falls back to 1 where the depth does not divide the
+    layer count; the port's loop has no such grouping.)"""
+    return min(max(int(getattr(stream, "prefetch_depth", 1)), 1), max(n_iter, 1))
+
+
+class _LayerParams(torch.autograd.Function):
+    """A layer's param leaves as its forward takes them (the device copy of
+    a streamed layer, or views of the resident stack), with autograd
+    attached: the backward hands each leaf's grad to `sink(i, grads)`,
+    which writes it into the preallocated grads tree, so the stacked
+    tensors themselves are never differentiated (autograd's select
+    backward would fill a zero [L, ...] tensor per layer, on the host for
+    a host-resident stack). `anchor`, the layer input, only ties the node
+    into the graph; it gets no grad from here."""
+
+    @staticmethod
+    def forward(ctx, anchor, leaves, sink, i):
+        ctx.sink, ctx.i = sink, i
+        return tuple(t.detach() for t in leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.sink(ctx.i, grads)
+        return None, None, None, None
+
+
+class _Boundary(torch.autograd.Function):
+    """Identity on the residual stream at the input of layer i (i == L: the
+    output of the last layer). Its backward runs when layer i's backward is
+    done and before layer i-1's begins: `on_backward(i)` frees layer i's
+    buffers and issues the copies of the next layers' params and offloaded
+    activations, which then overlap layer i-1's backward."""
+
+    @staticmethod
+    def forward(ctx, x, on_backward, i):
+        ctx.on_backward, ctx.i = on_backward, i
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.on_backward(ctx.i)
+        return g, None, None
+
+
+def _apply_decoder_lms(cfg, kind, stack, x, ctx, *, policy, stream, no_remat,
+                       stack_grads):
+    """The LMS executor of one stack (JAX `_scan_streamed` and the remat of
+    its scan body under a plan's policy).
+
+    stream: a SwapSchedule that streams params. The stacked params lie in
+    pinned host memory; the forward copies layer i in (up to
+    `prefetch_depth` layers ahead, so layer i+1's copy is in flight while
+    layer i computes), and each layer's copy is freed after its forward:
+    it is never a saved tensor (a saved param is a handle, and the layer's
+    recompute boundary is fed the copy made again for the backward). The
+    backward visits the layers in reverse, and the `_Boundary` at each
+    layer's input issues the copies of the layers below it.
+
+    policy: the activation policy (`core/lms/policies.py`), applied by a
+    `LayerFrame` per layer; with a stream and no policy every activation is
+    recomputed, as JAX's `jax.checkpoint(policy=None)`. no_remat: no
+    recompute boundary (the policy is ignored, as in the JAX package).
+
+    stack_grads: the stack's grads tree on the device, into which each
+    layer's param grads are written in the backward."""
+    from repro_torch.core.lms import offload as off
+    from repro_torch.core.lms.policies import LayerFrame, Policy
+    n = cfg.num_layers
+    device = x.device
+    key = f"{kind}_0"
+    struct = _layer(stack, 0)
+    grad_on = torch.is_grad_enabled()
+    depth = _stream_depth(stream, n) if stream is not None else 1
+    if stream is not None and policy is None:
+        policy = Policy()
+    frame_on = grad_on and not no_remat and policy is not None and not policy.everything
+    resident = (set() if stream is not None else
+                {t.untyped_storage().data_ptr() for t in tree_leaves(stack)})
+    fwd, bwd, frames = {}, {}, {}
+
+    def leaves_of(i):
+        return tree_leaves(_layer(stack, i))
+
+    def params_of(leaves):
+        return tree_unflatten(struct, leaves)[key]
+
+    def sink(i, grads):
+        if stack_grads is None:
+            raise ValueError("the backward of a stack under LMS writes its grads "
+                             "into stack_grads: pass one")
+        for dst, g in zip(tree_leaves(_layer(stack_grads, i)), grads):
+            if g is not None:
+                dst.copy_(g)
+
+    def issue_bwd(j):
+        if j < 0 or j in bwd:
+            return
+        if j in frames:
+            frames[j].prefetch()
+        bwd[j] = (off.stream_layer_to_device(_layer(stack, j), device, cls="params")
+                  if stream is not None else None)
+
+    def backward_leaves(i):
+        issue_bwd(i)
+        return tree_leaves(bwd[i].wait()) if stream is not None else leaves_of(i)
+
+    def on_backward(i):
+        if i < n:
+            frame = frames.pop(i, None)
+            if frame is not None:
+                frame.release()
+            bwd.pop(i, None)
+        for j in range(i - 1, i - 1 - depth, -1):
+            issue_bwd(j)
+
+    aux = torch.zeros((), dtype=torch.float32, device=device)
+    for i in range(n):
+        if grad_on:
+            x = _Boundary.apply(x, on_backward, i)
+        if stream is not None:
+            for j in range(i, min(i + depth, n)):
+                if j not in fwd:
+                    fwd[j] = off.stream_layer_to_device(_layer(stack, j), device,
+                                                        cls="params")
+            leaves = tree_leaves(fwd.pop(i).wait())
+        else:
+            leaves = leaves_of(i)
+        if grad_on:
+            leaves = _LayerParams.apply(x, leaves, sink, i)
+        if not frame_on:
+            x, da = apply_layer(cfg, kind, params_of(leaves), x, ctx)
+        else:
+            frame = LayerFrame(
+                policy, device,
+                replay=lambda h, lv: apply_layer(cfg, kind, params_of(lv), h, ctx),
+                device_params=lambda i=i: backward_leaves(i),
+                params_streamed=stream is not None)
+            p = params_of(leaves)
+            x, da = frame.forward(lambda h: apply_layer(cfg, kind, p, h, ctx), x,
+                                  leaves, resident)
+            frames[i] = frame
+        aux = aux + da
+    if grad_on:
+        x = _Boundary.apply(x, on_backward, n)
+    return x, aux
+
+
 def apply_decoder(cfg, params, x, ctx, *, policy=None, no_remat=False,
-                  grad_hooks=None):
+                  grad_hooks=None, stream=None, stack_grads=None):
     """-> (x, aux_loss f32 scalar): every layer of the stack in order, their
     aux losses summed (0 for the dense and SSM layers).
 
@@ -151,17 +305,33 @@ def apply_decoder(cfg, params, x, ctx, *, policy=None, no_remat=False,
     checkpoint, so its grads are reduced once, as soon as the backward has
     them, and the recompute reruns no collective.
 
-    Each layer runs under `torch.utils.checkpoint` (non-reentrant) unless
-    no_remat: its activations are dropped after the forward and recomputed
-    in the backward, as the JAX package's `jax.checkpoint(body,
-    policy=None)` of its layer scan does. The layers draw no random
-    numbers, so no RNG state is kept for the recompute. The LMS planner's
-    remat policies (`policy`) are not ported yet."""
-    if policy is not None:
-        raise NotImplementedError("LMS remat policies are not ported yet")
+    Without a policy or a stream, each layer runs under
+    `torch.utils.checkpoint` (non-reentrant) unless no_remat: its
+    activations are dropped after the forward and recomputed in the
+    backward, as the JAX package's `jax.checkpoint(body, policy=None)` of
+    its layer scan does. The layers draw no random numbers, so no RNG
+    state is kept for the recompute.
+
+    policy (an LMS activation policy, `core/lms/policies.py`) and stream
+    (a SwapSchedule that streams params from pinned host memory) run the
+    stack through the LMS executor (`_apply_decoder_lms`), which writes
+    the stack's param grads into `stack_grads` (a tree like
+    params["stack0"] on the device) in the backward. LMS with grad_hooks
+    (LMS + DDL) and the Mamba-2 stack under a policy or stream are not
+    ported yet."""
     kind = _check_kinds(cfg)
     stack = params["stack0"]
     hook = (grad_hooks or {}).get("stack0")
+    if policy is not None or stream is not None:
+        if hook is not None:
+            raise NotImplementedError(
+                "LMS with the DDL overlapped backward (LMS + DDL) is not ported yet")
+        if kind != "attn":
+            raise NotImplementedError(
+                f"the {kind!r} stack under an LMS policy or stream is not ported yet")
+        return _apply_decoder_lms(cfg, kind, stack, x, ctx, policy=policy,
+                                  stream=stream, no_remat=no_remat,
+                                  stack_grads=stack_grads)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
         lp = _layer(stack, i)

@@ -10,10 +10,15 @@ seed and trains on its own rows of it, in the JAX batch sharding's order;
 the metrics are the means over the ranks, so every rank's history is the
 same.
 
-Not ported yet: LMS (the memory planner and streaming), checkpoints and
-resume, heartbeats, the fault injector, loss-spike telemetry, the
-Supervisor, and the VLM and audio batches. The trainer does not
-checkpoint.
+LMS (`tcfg.lms.enabled`, the default): the trainer plans the step's
+memory with `core/lms/planner.plan`, as the JAX trainer does, from the
+hardware model or a calibration `profile`; the train step executes the
+plan and the state is placed as it says. On one device only: a plan on a
+mesh of several ranks raises "not ported yet" (LMS + DDL).
+
+Not ported yet: checkpoints and resume, heartbeats, the fault injector,
+loss-spike telemetry, the Supervisor, and the VLM and audio batches. The
+trainer does not checkpoint.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.config.base import TrainConfig
+from repro_torch.core.lms.planner import PlanRequest, plan as plan_lms
 from repro_torch.data import DataLoader, SyntheticTokens, local_rows
 from repro_torch.launch.mesh import local_device, make_mesh
 from repro_torch.models.model import Model
@@ -33,18 +39,23 @@ from repro_torch.train.steps import build_train_step, init_train_state
 
 class Trainer:
     def __init__(self, tcfg: TrainConfig, *, attn_impl: str = "blockwise",
-                 device=None, obs: Optional[Obs] = None):
-        if tcfg.lms.enabled:
-            raise NotImplementedError(
-                "LMS is not ported yet; pass LMSConfig(enabled=False)")
+                 device=None, obs: Optional[Obs] = None, profile=None):
         self.tcfg = tcfg
         self.mesh = make_mesh(tcfg.mesh)
         self.device = resolve_device(local_device() if device is None else device)
         # a private registry over the shared span ring, as the JAX trainer's
         self.obs = obs if obs is not None else Obs()
         self.model = Model(tcfg.model, attn_impl=attn_impl)
-        self.plan = None
-        self.step_fn = build_train_step(self.model, tcfg, mesh=self.mesh)
+        # profile: a Planner v2 calibration source (obs_report.json path,
+        # loaded dict, or CostModel); None plans from the hardware model
+        self.plan = (plan_lms(PlanRequest(
+                        cfg=tcfg.model, shape=tcfg.shape, mesh=tcfg.mesh,
+                        lms=tcfg.lms, optimizer=tcfg.optimizer,
+                        zero1=(tcfg.ddl.mode == "zero1"),
+                        microbatches=tcfg.microbatches), profile=profile)
+                     if tcfg.lms.enabled else None)
+        self.step_fn = build_train_step(self.model, tcfg, plan=self.plan,
+                                        mesh=self.mesh)
         self.loader = DataLoader(
             SyntheticTokens(tcfg.model.vocab_size, seed=tcfg.seed),
             shard=0, num_shards=1, batch_per_shard=tcfg.shape.global_batch,
@@ -53,7 +64,7 @@ class Trainer:
     # ---- state ---------------------------------------------------------
     def init_state(self):
         return init_train_state(self.model, self.tcfg, self.tcfg.seed,
-                                self.device)
+                                self.device, plan=self.plan)
 
     def _make_batch(self) -> Dict[str, torch.Tensor]:
         if self.tcfg.model.family in ("vlm", "audio"):

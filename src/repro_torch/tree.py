@@ -17,12 +17,14 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def tree_unflatten(tree, leaves):
-    """`leaves`, in `tree_leaves` order, in tree's structure."""
-    it = iter(leaves)
+def _rebuild(t, it):
+    if isinstance(t, dict):
+        return {k: _rebuild(t[k], it) for k in sorted(t)}
+    return next(it)
 
-    def rebuild(t):
-        if isinstance(t, dict):
-            return {k: rebuild(t[k]) for k in sorted(t)}
-        return next(it)
-    return rebuild(tree)
+
+def tree_unflatten(tree, leaves):
+    """`leaves`, in `tree_leaves` order, in tree's structure. (No nested
+    recursive function: its closure would be a reference cycle holding the
+    leaves until the garbage collector runs.)"""
+    return _rebuild(tree, iter(leaves))

@@ -339,12 +339,15 @@ def test_model_loss_and_grads_match_jax_bf16(ref, no_remat):
 
 
 def test_remat_policy_is_not_ported_yet():
-    cfg = get_smoke_config(ARCH)
+    """LMS policies run the dense stack (tests/test_torch_lms.py); the
+    Mamba-2 stack under a policy is not ported yet."""
+    from repro_torch.core.lms.policies import Policy
+    cfg = get_smoke_config("mamba2-1.3b")
     model = Model(cfg)
     params = model.init(0, "cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        model.loss(params, {"tokens": toks, "labels": toks}, policy=object())
+        model.loss(params, {"tokens": toks, "labels": toks}, policy=Policy())
 
 
 # ---------------------------------------------------------------------------
@@ -412,8 +415,11 @@ def test_train_step_rejects_what_is_not_ported(jmods):
     # a data-parallel mesh needs one process per device (tests/test_torch_ddl_train.py)
     with pytest.raises(ValueError, match="mesh of 2 devices"):
         build_train_step(model, dataclasses.replace(tt, mesh=MeshSpec((2, 1), ("data", "model"))))
-    with pytest.raises(NotImplementedError, match="memory plans"):
-        build_train_step(model, tt, plan=object())
+    from repro_torch.core.lms.planner import MemoryPlan
+    grads_host = MemoryPlan({}, {"params": "device", "grads": "host", "optimizer": "device",
+                                 "kvcache": "device"}, 1, 1, 1, 1, True)
+    with pytest.raises(NotImplementedError, match="grads on the host"):
+        build_train_step(model, tt, plan=grads_host)
     with pytest.raises(ValueError, match="does not divide"):
         _microbatch_split({"tokens": torch.zeros((3, 4))}, 2)
 
@@ -448,9 +454,11 @@ def test_trainer_matches_jax_trainer(ref, jmods, tmp_path):
 
 
 def test_trainer_rejects_lms_and_needs_a_device_here(jmods):
+    """LMS trains on one device (tests/test_torch_lms.py); with
+    microbatches it is not ported yet."""
     _, tt = _tcfgs(jmods)
-    with pytest.raises(NotImplementedError, match="LMS is not ported yet"):
-        Trainer(dataclasses.replace(tt, lms=LMSConfig()), device="cpu")
+    with pytest.raises(NotImplementedError, match="microbatches > 1 is not ported yet"):
+        Trainer(dataclasses.replace(tt, lms=LMSConfig(), microbatches=2), device="cpu")
     if torch.cuda.is_available():
         pytest.skip("CUDA is available here; the default device is the card")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -495,16 +503,17 @@ def test_launch_train_on_cpu(capsys, tmp_path):
     assert all(np.isfinite(r["loss"]) for r in hist)
 
 
-@pytest.mark.parametrize("flags", [[], ["--no-lms", "--ddl-mode", "zero1"],
+@pytest.mark.parametrize("flags", [["--mesh", "2x1"], ["--no-lms", "--ddl-mode", "zero1"],
                                    ["--no-lms", "--mesh", "1x1x2"],
                                    ["--no-lms", "--supervise"],
                                    ["--no-lms", "--fault-step", "1"],
                                    ["--no-lms", "--heartbeat-dir", "hb"],
-                                   ["--no-lms", "--profile", "p.json"],
+                                   ["--microbatches", "2"],
                                    ["--no-lms", "--spike-action", "stop"],
                                    ["--no-lms", "--ckpt-every", "5"],
                                    ["--no-lms", "--mesh", "2x1", "--microbatches", "2"]])
 def test_launch_train_rejects_what_is_not_ported(flags):
-    """Without --no-lms, and with any flag whose feature is not ported."""
+    """LMS on a mesh of several ranks or with microbatches, and any flag
+    whose feature is not ported."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
         launch.main(ARGS + flags)
