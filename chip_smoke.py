@@ -93,12 +93,25 @@ non-zero, printing no result):
 11. DDL at smoke width (4 ranks, a 2x2x1 mesh) — the overlapped backward
    off and on x compression off and on, each against one rank on the
    global batch;
-12. host — MemTotal and MemAvailable, and the achieved pinned copy rate
+12. LMS + DDL (qwen2.5-14b at full width, 2 ranks spawned on the one card
+   over gloo, the 2x1x1 mesh, compress_dcn, 2048 tokens a rank, the plan
+   of LMSConfig(hbm_budget=16e9): params, grads and the AdamW state in
+   pinned host memory, each layer's grads reduced on the DDL queue's
+   thread while the backward goes on and sunk to the host) — (a) 1 layer,
+   3 steps, bitwise against the DDL phase's resident run (losses, grad
+   norms, every param's checksum), its launches, the pod hop on the
+   queue's stream; (b) the most of 2-4 layers whose two ranks' pinned
+   state fits 80% of MemAvailable, 3 steps overlapped and 3 with the
+   overlap off: step time, tokens/s, the reduction's time and its part
+   under the backward, swap bytes, peaks and pinned bytes against the
+   plan's, MemAvailable before and after the ranks (waiting until the host
+   has handed their memory back);
+13. host — MemTotal and MemAvailable, and the achieved pinned copy rate
    host to device, device to host and both at once (1 GiB each way, CUDA
    events); the gate's depth is chosen here (the most layers L <= 48 whose
    pinned state fits 80% of MemAvailable, failing unless that state plus
    the grads exceeds the card's 80 GB) and its pinned state reserved once;
-13. lms_ab (qwen2.5-14b at full width cut to 4 layers, 2 x 2048 tokens, 3
+14. lms_ab (qwen2.5-14b at full width cut to 4 layers, 2 x 2048 tokens, 3
    steps of `Trainer.train` from one seed) — under the plan of
    LMSConfig(hbm_budget=16e9) (params and AdamW state streamed from
    pinned host memory, five activation classes offloaded, mlp_hidden
@@ -106,7 +119,7 @@ non-zero, printing no result):
    bitwise equal; the RMSNorm launches the plan implies (2L+1 a step
    against 4L+1); both step times, the swap counters a step by class
    against the plan's, the measured peak against the plan's;
-14. lms_gate (qwen2.5-14b at full width, the host phase's L layers, 2 x
+15. lms_gate (qwen2.5-14b at full width, the host phase's L layers, 2 x
    2048 tokens, 3 steps) — the budget from lms_ab's measured-minus-planned
    peak fed to the planner as its audited live-bytes margin (lowered until
    the params stream); finite losses, step 1's loss bitwise equal to a
@@ -174,6 +187,17 @@ DDL_AXES = ("pod", "data", "model")
 # elements reduced with EF (two pod-hop slices), after the training steps
 DDL_EF_LEAF = (1 << 24) + 3000
 DDL_TIMEOUT_S = 420
+# LMS + DDL on the same 2x1x1 mesh under LMSConfig(hbm_budget=16e9), whose
+# plan puts params, grads and the AdamW state on the host: (a) at 1 layer
+# against the DDL phase's resident run, (b) at the most of LMS_DDL_DEPTHS
+# layers whose two ranks' pinned state fits LMS_HOST_SHARE of MemAvailable
+LMS_DDL_BUDGET, LMS_DDL_LAYERS_A, LMS_DDL_DEPTHS = 16 * 10**9, 1, (2, 3, 4)
+LMS_DDL_TIMEOUT_S = 720
+# after the ranks exit the host hands their pinned memory back over some
+# seconds: the phase waits (at most LMS_DDL_MEM_WAIT_S) until MemAvailable
+# is back within LMS_DDL_MEM_SLACK of its value before the ranks, so the
+# LMS phases after it size themselves from the whole host
+LMS_DDL_MEM_WAIT_S, LMS_DDL_MEM_SLACK = 180, 2 * 10**9
 # the kernels of each route of the SSD scan and RMSNorm (csrc/ssd_scan_mma.cu,
 # ssd_scan.cu, rmsnorm.cu); the first two SSD ones run on the tensor cores
 SSD_MMA_KERNELS = ("ssd_chunk_state_kernel", "ssd_chunk_out_kernel")
@@ -1661,6 +1685,9 @@ def ddl_kernel_phases(out: dict, checked: set):
     sizes = set(full) | {n for ov in (False, True)
                          for n in ddl_pod_hop_sizes(smoke, DDL_SMOKE_MESH[1], overlap=ov)}
     sizes |= set(ddl_ef_slices())
+    # lms_ddl (b) without the overlapped backward reduces whole stacked leaves
+    sizes |= {n for L in LMS_DDL_DEPTHS
+              for n in ddl_pod_hop_sizes(_ddl_config(L, DDL_MESH).model, 1, overlap=False)}
     for i, n in enumerate(sorted(sizes)):
         quantize_kernel_phase(f"pod_hop_{n}", -(-n // 1024), 50 + i, checked, cols=1024,
                               dtype="float32", timed=False)
@@ -2882,25 +2909,32 @@ def device_time_by_kind(prof) -> dict:
 def step_split_ms(step_fn, state, batch):
     """One train step with CUDA events at its start, at the clip (the end
     of the loss and its grads: forward, the layers' recompute and the
-    backward), after the clip and at its end (the optimizer). -> (state,
-    {part: ms}); device time, idle gaps included."""
+    backward), after the clip (the streamed step: after the clip's norm,
+    its scaling lies in the sweep) and at its end (the optimizer). ->
+    (state, {part: ms}); device time, idle gaps included."""
     import torch
     from repro_torch.train import steps as steps_mod
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    clip = steps_mod.clip_by_global_norm
+    clip, norm = steps_mod.clip_by_global_norm, steps_mod._global_norm_streamed
 
-    def clip_timed(grads, max_norm):
-        ev[1].record()
-        out = clip(grads, max_norm)
-        ev[2].record()
-        return out
-    steps_mod.clip_by_global_norm = clip_timed
+    def timed(fn):
+        def run(*a, **k):
+            ev[1].record()
+            out = fn(*a, **k)
+            ev[2].record()
+            return out
+        return run
+    # the resident step clips in one pass; the streamed step takes the
+    # norm here and scales each slice inside the sweep (optimizer_ms)
+    steps_mod.clip_by_global_norm = timed(clip)
+    steps_mod._global_norm_streamed = timed(norm)
     try:
         ev[0].record()
         state, _ = step_fn(state, batch)
         ev[3].record()
     finally:
         steps_mod.clip_by_global_norm = clip
+        steps_mod._global_norm_streamed = norm
     torch.cuda.synchronize()
     return state, {"loss_and_grads_ms": ev[0].elapsed_time(ev[1]),
                    "clip_ms": ev[1].elapsed_time(ev[2]),
@@ -3050,18 +3084,20 @@ def _tuplify(x):
 
 
 def _checksums(params) -> list:
-    """Each leaf's bits summed with positional weights in int64 (wrapping):
-    two replicas whose leaves are bitwise equal give equal sums, and a
-    changed or moved element changes them."""
+    """Each leaf's bits summed with positional weights in int64 (wrapping),
+    on the card wherever the leaf lies: two replicas whose leaves are
+    bitwise equal give equal sums, and a changed or moved element changes
+    them."""
     import torch
     from repro_torch.tree import tree_leaves
     out = []
     for t in tree_leaves(params):
         flat = t.detach().reshape(-1).view(torch.int32 if t.element_size() == 4 else torch.int16)
-        acc = torch.zeros((), dtype=torch.int64, device=t.device)
+        acc = torch.zeros((), dtype=torch.int64, device="cuda")
         for i in range(0, flat.numel(), 1 << 24):
-            part = flat[i:i + (1 << 24)].long()
-            acc += (part * torch.arange(i + 1, i + 1 + part.numel(), device=t.device)).sum()
+            # a host leaf (LMS) is summed on the card a slice at a time
+            part = flat[i:i + (1 << 24)].to("cuda").long()
+            acc += (part * torch.arange(i + 1, i + 1 + part.numel(), device="cuda")).sum()
         out.append(int(acc))
     return out
 
@@ -3161,10 +3197,13 @@ def _ddl_full_rank(rank: int, world: int):
     box, in_sync = {}, []
     init = trainer.init_state
 
+    sums = []
+
     def init_state():
         st = init()
         box["params"] = st.params
-        in_sync.append(_same_on_all_ranks(_checksums(st.params)))
+        sums.append(_checksums(st.params))
+        in_sync.append(_same_on_all_ranks(sums[-1]))
         return st
     trainer.init_state = init_state
 
@@ -3239,7 +3278,8 @@ def _ddl_full_rank(rank: int, world: int):
         q_ops.quantize_cuda.launches = q_ops.dequantize_cuda.launches = 0
         q_ops.dequantize_sum_rows_cuda.launches = 0
         stats["calls"] = 0
-        in_sync.append(_same_on_all_ranks(_checksums(box["params"])))
+        sums.append(_checksums(box["params"]))
+        in_sync.append(_same_on_all_ranks(sums[-1]))
         check[0] = False
 
     torch.cuda.reset_peak_memory_stats()
@@ -3251,6 +3291,7 @@ def _ddl_full_rank(rank: int, world: int):
     allreduce.compressed_allreduce_pod = hop
     ef_row, ef_seen = _ddl_error_feedback(trainer.mesh, rank)
     return {"rank": rank, "steps": steps, "in_sync": in_sync, "same_losses": same_losses,
+            "checksums": sums,
             "pod_hop": {k: v for k, v in stats.items() if k != "calls"},
             "error_feedback": ef_row,
             "signatures": sorted(seen | ef_seen), "seconds": wall,
@@ -3397,7 +3438,7 @@ def ddl_phase(line, checked):
            "note": "two ranks time-slice one card over gloo through host memory: "
                    "not DDL's speed across cards",
            "steps": r0["steps"], "expected_slices_per_step": slices,
-           "error_feedback": r0["error_feedback"],
+           "error_feedback": r0["error_feedback"], "checksums": r0["checksums"],
            "step_ms_steady": sum(s["step_ms"] for s in steady) / len(steady),
            "reduce_ms_steady": sum(s["reduce_ms"] for s in steady) / len(steady),
            "reduce_share_steady": (sum(s["reduce_ms"] for s in steady)
@@ -3476,6 +3517,315 @@ def ddl_smoke_phase(line, checked):
           "seconds": time.monotonic() - t0})
     if not ok:
         raise AssertionError("ddl (smoke width, 4 ranks): failed checks")
+
+
+# ---------------------------------------------------------------------------
+# LMS + DDL: layer-streamed training on 2 ranks, grads reduced in the backward
+# ---------------------------------------------------------------------------
+
+def _lms_ddl_config(layers: int, overlap=None):
+    """`_ddl_config`'s qwen2.5-14b at full width cut to `layers` on the
+    2x1x1 mesh with compress_dcn, under LMS at LMS_DDL_BUDGET; overlap:
+    DDLConfig.overlap_grads (None: the plan's recommendation)."""
+    import dataclasses
+    from repro_torch.config.base import DDLConfig, LMSConfig
+    tcfg = _ddl_config(layers, DDL_MESH, ddl=DDLConfig(compress_dcn=True, overlap_grads=overlap),
+                       log_every=1)
+    return dataclasses.replace(tcfg, lms=LMSConfig(hbm_budget=LMS_DDL_BUDGET))
+
+
+def _lms_ddl_pinned_bytes(layers: int) -> int:
+    """A rank's pinned state at `layers` layers under a plan with params,
+    grads and the AdamW state on the host (`train.steps._state_layout`)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import DTYPES
+    from repro_torch.models.model import Model
+    from repro_torch.train import steps as steps_mod
+    model = Model(dataclasses.replace(get_config(ARCH), num_layers=layers))
+    paths = [(path, d.shape, DTYPES[d.dtype])
+             for path, d in steps_mod._def_paths(model.param_defs())]
+    return steps_mod._state_layout(paths, "adamw", True, True, grads_host=True)[0]
+
+
+def _lms_ddl_train(tcfg, steps: int, *, pod_hops=None):
+    """One rank's `Trainer` under its plan for `steps` steps: the state set
+    up first (timed), then each step's loss, grad norm, time, the params'
+    checksums (and whether they agree across the ranks), the kernels'
+    launches, the swap bytes by class, the reduction queue's times and the
+    tree pass's (CUDA-synced wall time), all reset just before the step and
+    read just after. `pod_hops`: a list the pod hop's calls are recorded
+    into (thread, stream). -> (plan row, setup, rows, facts)."""
+    import threading
+    import torch
+    from repro_torch.core.ddl import allreduce
+    from repro_torch.core.lms import offload as off
+    from repro_torch.kernels.quantize import ops as q_ops
+    from repro_torch.train import steps as steps_mod
+    from repro_torch.train.trainer import Trainer
+    trainer = Trainer(tcfg, device="cuda")
+    plan = trainer.plan
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    params = state.params
+    sums = [_checksums(params)]
+    in_sync = [_same_on_all_ranks(sums[0])]
+    init = [state]
+    trainer.init_state = lambda: init.pop()
+    del state
+    queue = trainer.step_fn.queue
+    tree = steps_mod.ddl_reduce_tree
+    hop = allreduce.compressed_allreduce_pod
+    tree_s = [0.0]
+
+    def tree_timed(*a, **k):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = tree(*a, **k)
+        torch.cuda.synchronize()
+        tree_s[0] += time.monotonic() - t
+        return out
+
+    def hop_seen(x, axis, **k):
+        pod_hops.append((threading.current_thread().name,
+                         torch.cuda.current_stream().cuda_stream))
+        return hop(x, axis, **k)
+    steps_mod.ddl_reduce_tree = tree_timed
+    if pod_hops is not None:
+        allreduce.compressed_allreduce_pod = hop_seen
+    rows, before = [], [off.swap_counters()]
+    launchers = _launchers()
+
+    def on_step(step, row):
+        swap = _swap_per_step(before[0], off.swap_counters(), 1)
+        before[0] = off.swap_counters()
+        sums.append(_checksums(params))
+        in_sync.append(_same_on_all_ranks(sums[-1]))
+        rows.append({"step": step, "loss": row["loss"], "grad_norm": row["grad_norm"],
+                     "time_s": row["time_s"], "checksums": sums[-1],
+                     "launches": {k: launchers[k].launches for k in
+                                  ("quantize_rows", "dequantize_rows", "dequantize_sum_rows",
+                                   "rmsnorm")},
+                     "swap": swap, "tree_pass_s": tree_s[0],
+                     "queue_reduce_s": queue.reduce_s if queue else None,
+                     "queue_under_backward_s": queue.under_backward_s if queue else None,
+                     "queue_drain_wait_s": queue.drain_wait_s if queue else None})
+        for launcher in launchers.values():
+            launcher.launches = 0
+        tree_s[0] = 0.0
+    try:
+        with launch_signatures() as (seen, calls, launches):
+            state, _ = trainer.train(steps, on_step=on_step)
+    finally:
+        steps_mod.ddl_reduce_tree = tree
+        allreduce.compressed_allreduce_pod = hop
+    facts = {"setup_s": setup_s, "peak_bytes": torch.cuda.max_memory_allocated(),
+             "pinned_bytes": off.pinned_bytes(), "in_sync": in_sync,
+             "init_checksums": sums[0],
+             "signatures": sorted(seen), "overlap": queue is not None,
+             "grads_sunk": state.grads is not None}
+    del trainer, state, params, init
+    torch.cuda.empty_cache()
+    return _plan_row(plan), rows, facts
+
+
+def _lms_ddl_rank(rank: int, world: int, layers: int):
+    """One rank of lms_ddl: its pinned arena reserved once, at the deeper
+    run's state (`offload.reserve_pinned`), then (a) LMS_DDL_LAYERS_A
+    layer(s) for DDL_STEPS steps, the pod hop's calls recorded; then (b)
+    `layers` layers for DDL_STEPS steps with the plan's overlapped backward
+    and again with DDLConfig(overlap_grads=False), each state placed in the
+    same arena. -> {"a", "b_overlapped", "b_serialized", "pinned"}."""
+    import torch
+    from repro_torch.core.ddl import overlap
+    from repro_torch.core.lms import offload as off
+    t0 = time.monotonic()
+    off.reserve_pinned(_lms_ddl_pinned_bytes(max(layers, LMS_DDL_LAYERS_A)), "cuda")
+    pinned = {"bytes": _lms_ddl_pinned_bytes(max(layers, LMS_DDL_LAYERS_A)),
+              "seconds": time.monotonic() - t0}
+    out = {"rank": rank, "pinned": pinned}
+    hops = []
+    plan, rows, facts = _lms_ddl_train(_lms_ddl_config(LMS_DDL_LAYERS_A), DDL_STEPS,
+                                       pod_hops=hops)
+    worker = overlap.worker_stream("cuda").cuda_stream
+    default = torch.cuda.default_stream().cuda_stream
+    off.release_arenas()
+    out["a"] = {"plan": plan, "rows": rows, **facts,
+                "pod_hops_in_worker": sum(t == "ddl-reduce" for t, _ in hops),
+                "pod_hops_in_main": sum(t != "ddl-reduce" for t, _ in hops),
+                "worker_hops_on_worker_stream": all(st == worker for t, st in hops
+                                                    if t == "ddl-reduce"),
+                "main_hops_on_default_stream": all(st == default for t, st in hops
+                                                   if t != "ddl-reduce")}
+    for name, ov in (("b_overlapped", None), ("b_serialized", False)):
+        plan, rows, facts = _lms_ddl_train(_lms_ddl_config(layers, ov), DDL_STEPS)
+        off.release_arenas()
+        out[name] = {"plan": plan, "rows": rows, **facts}
+    return out
+
+
+def _await_mem_available(target: int, timeout_s: float) -> list:
+    """Read MemAvailable every second until it reaches `target` bytes or
+    `timeout_s` passes. -> [(seconds since the call, MemAvailable)], the
+    first reading and every one after."""
+    t0 = time.monotonic()
+    seen = []
+    while True:
+        avail = _meminfo()["MemAvailable"]
+        seen.append((time.monotonic() - t0, avail))
+        if avail >= target or seen[-1][0] > timeout_s:
+            return seen
+        time.sleep(1.0)
+
+
+def _steady(rows, key):
+    vals = [r[key] for r in rows[1:]]
+    return sum(vals) / len(vals) if vals else None
+
+
+def lms_ddl_phase(line, checked, ddl_row):
+    """LMS + DDL: qwen2.5-14b at full width on 2 ranks of the 2x1x1 mesh
+    (gloo, both on the one card) with compress_dcn, 2 x 2048 tokens a step
+    (a row a rank), under the plan of LMSConfig(hbm_budget=LMS_DDL_BUDGET):
+    params, grads and the AdamW state in pinned host memory, each layer's
+    grads reduced by the DDL hook's queue on its own thread and stream
+    while the backward goes on, and sunk into pinned host memory.
+
+    (a) LMS_DDL_LAYERS_A layer, DDL_STEPS steps, against ddl_phase's
+    resident run of the same config (overlapped, compress_dcn): each
+    step's loss, grad norm and every param leaf's checksum bitwise equal;
+    the pod hop's 115 quantize and 115 pod-sum launches a step and no
+    dequantize; the RMSNorm launches `_implied_rmsnorm_launches` gives for
+    the plan; the stack's pod hops on the queue's thread and stream;
+    replicas in sync after every step.
+
+    (b) the most layers of LMS_DDL_DEPTHS whose two ranks' pinned state
+    fits LMS_HOST_SHARE of MemAvailable: DDL_STEPS steps with the plan's
+    overlapped backward (grads sunk), then, on the same ranks and arena,
+    DDLConfig(overlap_grads=False) (planned again: the planner does not
+    read that knob, so the grads stay on the card through the backward and
+    the tree pass and are placed on the host after it). Reported: step time
+    and tokens/s of both; the reduction's wall time and how much of it lay
+    under the backward; swap bytes a step by class against the plan's;
+    each rank's peak against the plan's; pinned bytes against the plan's
+    host bytes; MemAvailable before the ranks start, after they exit, and
+    each second until it is back within LMS_DDL_MEM_SLACK of where it
+    started (the host hands the ranks' pinned memory back over seconds;
+    the phase waits up to LMS_DDL_MEM_WAIT_S, so the LMS phases after it
+    size themselves from the whole host). Held: replicas bitwise in sync; finite losses; step 1's loss equal
+    across the runs; later steps within 2e-3 relative. -> the phase row."""
+    import ctypes
+    import gc
+    import types
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+    mem_before = _mem_row()
+    avail = mem_before["MemAvailable"]
+    fit = [L for L in LMS_DDL_DEPTHS
+           if 2 * _lms_ddl_pinned_bytes(L) <= LMS_HOST_SHARE * avail]
+    if not fit:
+        raise AssertionError(f"lms_ddl: MemAvailable {avail} B holds no depth of "
+                             f"{LMS_DDL_DEPTHS} for two ranks' pinned state")
+    L = max(fit)
+    cfg_a = _lms_ddl_config(LMS_DDL_LAYERS_A).model
+    slices = len(ddl_pod_hop_sizes(cfg_a, DDL_MESH[1], overlap=True))
+    t0 = time.monotonic()
+    ranks = spawn_ranks("_lms_ddl_rank", DDL_MESH[0], L, timeout=LMS_DDL_TIMEOUT_S)
+    seconds = time.monotonic() - t0
+    gc.collect()
+    mem_after = _mem_row()
+    returned = _await_mem_available(avail - LMS_DDL_MEM_SLACK, LMS_DDL_MEM_WAIT_S)
+    r0 = ranks[0]
+    a = r0["a"]
+    unchecked = {_tuplify(sig) for r in ranks for run in ("a", "b_overlapped", "b_serialized")
+                 for sig in r[run]["signatures"]} - checked
+    res = ddl_row["steps"]
+    implied = _implied_rmsnorm_launches(types.SimpleNamespace(assignment=a["plan"]["assignment"]),
+                                        LMS_DDL_LAYERS_A)
+    b_ov, b_ser = r0["b_overlapped"], r0["b_serialized"]
+    checks = {
+        "a_plan_all_on_host": all(a["plan"]["residency"][k] == "host"
+                                  for k in ("params", "grads", "optimizer")),
+        "a_overlapped_and_sunk": a["overlap"] and a["grads_sunk"],
+        "a_losses_bitwise": [s["loss"] for s in a["rows"]] == [s["loss"] for s in res],
+        "a_grad_norms_bitwise": [s["grad_norm"] for s in a["rows"]]
+        == [s["grad_norm"] for s in res],
+        "a_checksums_bitwise": [a["init_checksums"]] + [s["checksums"] for s in a["rows"]]
+        == ddl_row["checksums"],
+        "a_launches": all(s["launches"]["quantize_rows"] == slices
+                          and s["launches"]["dequantize_sum_rows"] == slices
+                          and s["launches"]["dequantize_rows"] == 0
+                          and s["launches"]["rmsnorm"] == implied
+                          for r in ranks for s in r["a"]["rows"]),
+        "a_pod_hops_on_the_queue_stream": all(
+            r["a"]["worker_hops_on_worker_stream"] and r["a"]["main_hops_on_default_stream"]
+            and r["a"]["pod_hops_in_worker"] > 0 and r["a"]["pod_hops_in_main"] > 0
+            for r in ranks),
+        "replicas_in_sync": all(all(r[run]["in_sync"]) and len(r[run]["in_sync"]) == DDL_STEPS + 1
+                                for r in ranks for run in ("a", "b_overlapped", "b_serialized")),
+        "finite_losses": all(math.isfinite(s["loss"]) for run in (a, b_ov, b_ser)
+                             for s in run["rows"]),
+        "b_overlapped_sunk_serialized_not": (b_ov["overlap"] and b_ov["grads_sunk"]
+                                             and not b_ser["overlap"]),
+        "b_step1_loss_equal": b_ov["rows"][0]["loss"] == b_ser["rows"][0]["loss"],
+        "b_later_losses_within_2e-3": all(
+            abs(x["loss"] - y["loss"]) <= 2e-3 * abs(y["loss"])
+            for x, y in zip(b_ov["rows"][1:], b_ser["rows"][1:])),
+        "shapes_checked": not unchecked}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def summary(name):
+        """Run `name` of rank 0 (its peaks from both ranks): the steady
+        steps' means (after step 1)."""
+        run = r0[name]
+        later = run["rows"][1:]
+        step_s = _steady(run["rows"], "time_s")
+        queue = ("queue_reduce_s", "queue_under_backward_s", "queue_drain_wait_s")
+        return {"layers": L, "step_s_steady": step_s, "tokens_per_s": tokens / step_s,
+                "step_s": [r["time_s"] for r in run["rows"]],
+                "loss": [r["loss"] for r in run["rows"]],
+                "grad_norm": [r["grad_norm"] for r in run["rows"]],
+                **{k: _steady(run["rows"], k) if run["overlap"] else None for k in queue},
+                "tree_pass_s": _steady(run["rows"], "tree_pass_s"),
+                "swap_per_step": {k: sum(r["swap"].get(k, 0) for r in later) / len(later)
+                                  for k in later[0]["swap"]},
+                "plan_swap_bytes": run["plan"]["swap_bytes"],
+                "plan_swap_bytes_per_step": run["plan"]["swap_bytes_per_step"],
+                "peak_bytes": [r[name]["peak_bytes"] for r in ranks],
+                "plan_peak_bytes": run["plan"]["peak_bytes"],
+                "pinned_bytes": run["pinned_bytes"], "plan_host_bytes": run["plan"]["host_bytes"],
+                "setup_s": run["setup_s"], "residency": run["plan"]["residency"],
+                "launches": run["rows"][-1]["launches"], "plan_summary": run["plan"]["summary"]}
+    row = {"phase": "lms_ddl", "arch": ARCH, "mesh": list(DDL_MESH), "ranks": DDL_MESH[0],
+           "backend": "gloo (host-staged, pinned)", "compress_dcn": True,
+           "hbm_budget": LMS_DDL_BUDGET, "tokens_per_step": tokens, "card": line,
+           "note": "two ranks time-slice one card over gloo: not DDL's speed across cards",
+           "a": {"layers": LMS_DDL_LAYERS_A, "rows": [{k: v for k, v in s.items()
+                                                       if k != "checksums"} for s in a["rows"]],
+                 "ddl_phase_losses": [s["loss"] for s in res],
+                 "implied_rmsnorm_launches": implied, "expected_slices": slices,
+                 "pod_hops_in_worker": a["pod_hops_in_worker"],
+                 "pod_hops_in_main": a["pod_hops_in_main"],
+                 "peak_bytes": [r["a"]["peak_bytes"] for r in ranks],
+                 "pinned_bytes": a["pinned_bytes"], "plan": a["plan"]},
+           "b_layers": L, "b_fit": fit,
+           "b_overlapped": summary("b_overlapped"), "b_serialized": summary("b_serialized"),
+           "arena": [r["pinned"] for r in ranks],
+           "mem_available_before": avail, "mem_available_after": mem_after["MemAvailable"],
+           "meminfo_before": mem_before, "meminfo_after": mem_after,
+           "mem_available_returning": returned,
+           "seconds": seconds, "checks": checks,
+           "unchecked_shapes": sorted(map(str, unchecked))}
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"lms_ddl: failed checks {[k for k, v in checks.items() if not v]}")
+    return row
 
 
 
@@ -4069,6 +4419,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ddl_row = ddl_phase(line, checked)
     ddl_smoke_phase(line, checked)
+    lms_ddl_phase(line, checked, ddl_row)
     lms_phases(line, checked)
 
     decode_kernel = "src/repro/kernels/flash_attention/decode_kernel.py"

@@ -2,7 +2,9 @@
 
 `stream_layer_to_device` is the swap-in primitive of the layer-streaming
 executor (`models/transformer.py`) and the streamed optimizer sweep
-(`train/steps.py`); `stream_layer_to_host` its swap-out. On the card each
+(`train/steps.py`); `stream_layer_to_host` its swap-out. (The grads' host
+sink writes from the DDL reduction queue's own stream,
+`core/ddl/overlap.py`, and counts there.) On the card each
 copy runs on a side stream of its own direction (host to device, device to
 host), `non_blocking`, and completes at a CUDA event the compute stream
 waits on before it reads the copy, so a copy overlaps the compute that
@@ -51,7 +53,8 @@ def tree_bytes(tree) -> int:
 
 def record_swap(site: str, nbytes: int, cls: str, events: int = 1) -> None:
     """Count one swap of `nbytes` of residency class `cls` ("params",
-    "optimizer", "activations") at site "lms.swap_in" or "lms.swap_out"."""
+    "optimizer", "grads", "activations") at site "lms.swap_in" or
+    "lms.swap_out"."""
     reg = get_obs().registry
     reg.counter(f"{site}_bytes.{cls}").inc(nbytes)
     reg.counter(f"{site}_events.{cls}").inc(events)

@@ -15,8 +15,13 @@ one card (and ranks on the CPU) talk over gloo. A group's collectives pick
 their path by the group's backend, never by catching an error: on NCCL
 they run on the tensors where they lie; on gloo a CUDA tensor is staged
 through a host buffer explicitly, so the port relies on no gloo support
-for CUDA tensors. Reductions run in f32, as the DDL schedule's callers
-cast (`core/ddl/allreduce.py`).
+for CUDA tensors. The staging buffers are pinned (torch's pinned
+allocator, which keeps and reuses its blocks): the copy out waits only
+for the calling thread's current stream, and the copy back in is queued
+on that stream without blocking the host, so a thread reducing on a
+stream of its own (the LMS + DDL reduction queue, `core/ddl/overlap.py`)
+leaves the other streams running. Reductions run in f32, as the DDL
+schedule's callers cast (`core/ddl/allreduce.py`).
 """
 from __future__ import annotations
 
@@ -76,9 +81,9 @@ class Mesh:
         if group is None:
             return x
         if x.is_cuda and self._staged(group):
-            y = x.detach().to("cpu", copy=True)
+            y = _stage_out(x)
             dist.all_reduce(y, group=group)
-            return y.to(x.device)
+            return _stage_in(y, x.device)
         y = x.detach().clone(memory_format=torch.contiguous_format)
         dist.all_reduce(y, group=group)
         return y
@@ -96,10 +101,10 @@ class Mesh:
         x = x.contiguous()
         out_shape = (x.shape[0] // size,) + tuple(x.shape[1:])
         if x.is_cuda and self._staged(group):
-            src = x.detach().to("cpu", copy=True)
-            out = torch.empty(out_shape, dtype=x.dtype)
+            src = _stage_out(x)
+            out = torch.empty(out_shape, dtype=x.dtype, pin_memory=True)
             dist.reduce_scatter_tensor(out, src, group=group)
-            return out.to(x.device)
+            return _stage_in(out, x.device)
         out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
         dist.reduce_scatter_tensor(out, x.detach(), group=group)
         return out
@@ -114,10 +119,10 @@ class Mesh:
         x = x.contiguous()
         out_shape = (x.shape[0] * size,) + tuple(x.shape[1:])
         if x.is_cuda and self._staged(group):
-            src = x.detach().to("cpu", copy=True)
-            out = torch.empty(out_shape, dtype=x.dtype)
+            src = _stage_out(x)
+            out = torch.empty(out_shape, dtype=x.dtype, pin_memory=True)
             dist.all_gather_into_tensor(out, src, group=group)
-            return out.to(x.device)
+            return _stage_in(out, x.device)
         out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
         dist.all_gather_into_tensor(out, x.detach(), group=group)
         return out
@@ -129,6 +134,25 @@ class Mesh:
             x = self.psum(x, a)
             n *= self.size(a)
         return x / n if n > 1 else x
+
+
+def _stage_out(x: torch.Tensor) -> torch.Tensor:
+    """A pinned host copy of the CUDA tensor x, contiguous, complete when
+    this returns: the host waits for the current stream only (the copy
+    and what it queued before), not for the card."""
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x.detach(), non_blocking=True)
+    torch.cuda.current_stream(x.device).synchronize()
+    return host
+
+
+def _stage_in(host: torch.Tensor, device) -> torch.Tensor:
+    """A device copy of the pinned host tensor, queued on the current
+    stream without blocking the host; the pinned allocator does not hand
+    the host block out again until the copy is done."""
+    out = torch.empty(host.shape, dtype=host.dtype, device=device)
+    out.copy_(host, non_blocking=True)
+    return out
 
 
 def local_device() -> torch.device:

@@ -15,16 +15,18 @@ which sets RANK, WORLD_SIZE and LOCAL_RANK; the mesh (`--mesh PxDxM`, as
 the JAX launcher parses it) must have WORLD_SIZE devices:
 
     PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
-        -m repro_torch.launch.train --arch qwen2.5-14b --smoke --no-lms \
+        -m repro_torch.launch.train --arch qwen2.5-14b --smoke \
         --mesh 2x1x1 --compress-dcn --steps 20 --batch 8 --seq 128
 
-(LMS on a mesh of several ranks is not ported yet: `--no-lms` there.)
+With LMS on (LMS + DDL) every rank plans the same step for its card and
+reduces each layer's grads over the ranks while the backward goes on;
+`--no-lms` trains resident.
 
 The process group is NCCL when every rank has a card of its own, gloo
 otherwise (ranks on the CPU, or sharing a card). Only rank 0 prints.
 
-DDL's zero1 mode, tensor parallelism (a `model` axis above 1), LMS on a
-mesh of several ranks, checkpoints, the Supervisor, fault drills,
+DDL's zero1 mode, tensor parallelism (a `model` axis above 1), LMS with
+microbatches, checkpoints, the Supervisor, fault drills,
 heartbeats, loss-spike telemetry and the trace and obs-report exports are
 not ported yet: their flags raise.
 """
@@ -60,8 +62,6 @@ def _unported(args) -> list:
     """The flags given whose feature is not ported yet."""
     mesh = parse_mesh(args.mesh)
     given = {
-        "--no-lms absent on a mesh of several ranks (LMS + DDL)":
-            not args.no_lms and mesh.num_devices > 1,
         "--no-lms absent with --microbatches above 1 (LMS with microbatches)":
             not args.no_lms and args.microbatches > 1,
         "--ddl-mode zero1": args.ddl_mode == "zero1",

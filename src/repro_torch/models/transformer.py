@@ -192,7 +192,7 @@ class _Boundary(torch.autograd.Function):
 
 
 def _apply_decoder_lms(cfg, kind, stack, x, ctx, *, policy, stream, no_remat,
-                       stack_grads):
+                       stack_grads, hook=None):
     """The LMS executor of one stack (JAX `_scan_streamed` and the remat of
     its scan body under a plan's policy).
 
@@ -210,8 +210,14 @@ def _apply_decoder_lms(cfg, kind, stack, x, ctx, *, policy, stream, no_remat,
     recomputed, as JAX's `jax.checkpoint(policy=None)`. no_remat: no
     recompute boundary (the policy is ignored, as in the JAX package).
 
-    stack_grads: the stack's grads tree on the device, into which each
-    layer's param grads are written in the backward."""
+    stack_grads: the stack's grads tree (on the device, or in pinned host
+    memory under the DDL hook's host sink), into which each layer's param
+    grads are written in the backward.
+
+    hook: the stack's DDL hook (`core/ddl/overlap.GradReduceHook`, LMS +
+    DDL): each layer's grads go to the hook's reduction queue instead,
+    which writes their mean over the ranks into `stack_grads` while the
+    backward goes on (the queue is opened and drained by the step)."""
     from repro_torch.core.lms import offload as off
     from repro_torch.core.lms.policies import LayerFrame, Policy
     n = cfg.num_layers
@@ -237,9 +243,13 @@ def _apply_decoder_lms(cfg, kind, stack, x, ctx, *, policy, stream, no_remat,
         if stack_grads is None:
             raise ValueError("the backward of a stack under LMS writes its grads "
                              "into stack_grads: pass one")
-        for dst, g in zip(tree_leaves(_layer(stack_grads, i)), grads):
+        dst = _layer(stack_grads, i)
+        if hook is not None:
+            hook.queue.put(i, tree_unflatten(dst, list(grads)), dst)
+            return
+        for d, g in zip(tree_leaves(dst), grads):
             if g is not None:
-                dst.copy_(g)
+                d.copy_(g)
 
     def issue_bwd(j):
         if j < 0 or j in bwd:
@@ -316,22 +326,19 @@ def apply_decoder(cfg, params, x, ctx, *, policy=None, no_remat=False,
     (a SwapSchedule that streams params from pinned host memory) run the
     stack through the LMS executor (`_apply_decoder_lms`), which writes
     the stack's param grads into `stack_grads` (a tree like
-    params["stack0"] on the device) in the backward. LMS with grad_hooks
-    (LMS + DDL) and the Mamba-2 stack under a policy or stream are not
-    ported yet."""
+    params["stack0"]) in the backward; with grad_hooks (LMS + DDL) their
+    means over the ranks, through the hook's reduction queue. The Mamba-2
+    stack under a policy or stream is not ported yet."""
     kind = _check_kinds(cfg)
     stack = params["stack0"]
     hook = (grad_hooks or {}).get("stack0")
     if policy is not None or stream is not None:
-        if hook is not None:
-            raise NotImplementedError(
-                "LMS with the DDL overlapped backward (LMS + DDL) is not ported yet")
         if kind != "attn":
             raise NotImplementedError(
                 f"the {kind!r} stack under an LMS policy or stream is not ported yet")
         return _apply_decoder_lms(cfg, kind, stack, x, ctx, policy=policy,
                                   stream=stream, no_remat=no_remat,
-                                  stack_grads=stack_grads)
+                                  stack_grads=stack_grads, hook=hook)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
         lp = _layer(stack, i)

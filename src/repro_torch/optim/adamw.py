@@ -12,6 +12,7 @@ Call them under `torch.no_grad()`.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -122,12 +123,69 @@ def sgdm_update(grads, state: SGDState, params, *, lr, beta1=0.9,
     return params, SGDState(step, state.momentum)
 
 
+def leaf_squares(leaf) -> list:
+    """The f32 sum of squares of each `SLICE`-element slice of a leaf (flat,
+    in order): the partial sums `global_norm` adds."""
+    return [torch.sum(s.float() ** 2) for (s,) in _slices(leaf)]
+
+
+def norm_of(squares) -> torch.Tensor:
+    """sqrt of the partial sums, [per leaf, in tree order: [per slice]],
+    added leaf by leaf, each leaf's slices in order (`global_norm`'s
+    order, so a norm from partial sums made elsewhere is the same
+    number)."""
+    total = 0
+    for parts in squares:
+        total = total + sum(parts)
+    return torch.sqrt(total)
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    total = 0
-    for leaf in tree_leaves(tree):
-        total = total + sum(torch.sum(s.float() ** 2) for (s,) in _slices(leaf))
-    return torch.sqrt(total)
+    return norm_of([leaf_squares(leaf) for leaf in tree_leaves(tree)])
+
+
+class StackSquares:
+    """`leaf_squares` of stacked leaves ([L, ...], one layer a row) made
+    from their layers as they come, in any order, as the reduction queue
+    of the LMS + DDL backward hands them out (`core/ddl/overlap.py`): a
+    slice that lies inside one layer is summed as soon as the layer comes;
+    a slice that spans layers keeps a copy of each part until its last
+    part comes, then sums the parts joined in order. The sums are those of
+    `leaf_squares` over the whole stacked leaf, bit for bit: the same
+    elements, in one tensor of the same length, summed by the same call."""
+
+    def __init__(self, shapes):
+        self.layers = shapes[0][0] if shapes else 0
+        self.sizes = [math.prod(s[1:]) for s in shapes]
+        self.sums = [[None] * (-(-self.layers * n // SLICE)) for n in self.sizes]
+        self.parts = [{} for _ in shapes]     # slice -> {flat start: piece}
+
+    def add(self, i: int, leaves) -> None:
+        """Layer i's leaves (each the shape of a stacked leaf's row)."""
+        for j, g in enumerate(leaves):
+            n = self.sizes[j]
+            flat = g.reshape(-1)
+            start, end = i * n, (i + 1) * n
+            for k in range(start // SLICE, (end - 1) // SLICE + 1):
+                lo, hi = max(k * SLICE, start), min((k + 1) * SLICE, end)
+                length = min((k + 1) * SLICE, self.layers * n) - k * SLICE
+                piece = flat[lo - start:hi - start]
+                if hi - lo == length:
+                    self.sums[j][k] = torch.sum(piece.float() ** 2)
+                    continue
+                got = self.parts[j].setdefault(k, {})
+                got[lo] = piece.clone()
+                if sum(p.numel() for p in got.values()) == length:
+                    whole = torch.cat([got[o] for o in sorted(got)])
+                    del self.parts[j][k]
+                    self.sums[j][k] = torch.sum(whole.float() ** 2)
+
+    def squares(self) -> list:
+        """[per leaf: [per slice]]; raises unless every layer came."""
+        if any(s is None for sums in self.sums for s in sums):
+            raise RuntimeError("StackSquares: not every layer's grads came")
+        return self.sums
 
 
 def clip_scale(gnorm, max_norm):

@@ -1,7 +1,8 @@
 """Step construction: the train step in the JAX package's paper-faithful
 mode (DDL allreduce over the ranks of a data-parallel mesh, replicated
-optimizer), under an LMS memory plan on one device, and for the serve path
-the whole-batch prefill and decode steps of the static loop and the serve
+optimizer), resident or under an LMS memory plan (on one device or on
+every rank of the mesh: LMS + DDL), and for the serve path the
+whole-batch prefill and decode steps of the static loop and the serve
 engine's slot decode step. The zero1 step comes in a later slice.
 
 PyTorch runs eagerly, so a step is a plain callable: no jit, no shardings
@@ -12,19 +13,24 @@ Host residency is executed for every class the plan's SwapSchedule
 streams (DESIGN.md §6): the decoder stack's params by the layer-streaming
 executor (`models/transformer.py`), the optimizer state by the streamed
 sweep (`_streamed_opt_update`: a layer's (mu, nu, master) slice copied in
-while the previous one updates, then written back). The state is placed
-where the plan says (`init_train_state(plan=)`, `place_train_state`): the
-host classes in one pinned arena (`core/lms/offload.PinnedArena`).
+while the previous one updates, then written back), and the grads, on a
+mesh of several ranks, by the backward's host sink: each layer's grads
+reduced over the ranks by the DDL hook's queue while the backward goes
+on, into pinned host memory, read back a layer at a time by the sweep.
+The state is placed where the plan says (`init_train_state(plan=)`,
+`place_train_state`): the host classes, and the sunk grads, in one pinned
+arena (`core/lms/offload.PinnedArena`).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.config.base import ShapeConfig, TrainConfig
+from repro_torch.config.base import DDLConfig, ShapeConfig, TrainConfig
 from repro_torch.core.ddl.allreduce import ddl_reduce_tree
 from repro_torch.core.ddl.overlap import make_stack_hooks
 from repro_torch.core.lms import offload as off
@@ -35,8 +41,9 @@ from repro_torch.models import kvquant, paging
 from repro_torch.models import transformer as tr
 from repro_torch.models.layers import DTYPES, init_pieces
 from repro_torch.models.model import Model
-from repro_torch.optim.adamw import (OPTIMIZERS, AdamState, SGDState, _slices,
-                                     adamw_slice_update, clip_by_global_norm,
+from repro_torch.optim.adamw import (OPTIMIZERS, AdamState, SGDState, StackSquares,
+                                     _slices, adamw_slice_update, clip_by_global_norm,
+                                     clip_leaf, clip_scale, leaf_squares, norm_of,
                                      sgdm_slice_update)
 from repro_torch.optim.schedule import SCHEDULES
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -46,6 +53,9 @@ class TrainState(NamedTuple):
     step: torch.Tensor    # int32 scalar on the params' device
     params: Any
     opt: Any
+    # the decoder stack's grads tree in pinned host memory, written by the
+    # backward's host sink each step, when the plan sinks grads; else None
+    grads: Any = None
 
 
 SERVE_PLANS = "memory plans for serving (LMS serve plans) are not ported yet"
@@ -55,11 +65,13 @@ SERVE_PLANS = "memory plans for serving (LMS serve plans) are not ported yet"
 class StepSpec:
     """The argument surface of the `build_*_step` functions. kv_dtype=None
     resolves to model width. plan: the train step's memory plan; serve
-    plans are not ported yet. cache_len: capacity of the cache the prefill
-    step emits."""
+    plans are not ported yet. overlap_grads: the train step's overlapped
+    backward, above the DDLConfig knob (`_resolve_overlap`). cache_len:
+    capacity of the cache the prefill step emits."""
     plan: Optional[MemoryPlan] = None
     kv_dtype: Optional[str] = None
     arena: Optional[paging.PageArena] = None
+    overlap_grads: Optional[bool] = None
     cache_len: Optional[int] = None
 
     def resolved_kv_dtype(self) -> str:
@@ -69,6 +81,15 @@ class StepSpec:
         if self.kv_dtype is not None:
             return kvquant.validate_kv_dtype(self.kv_dtype)
         return "model"
+
+    def ddl_for(self, tcfg: TrainConfig) -> DDLConfig:
+        """The DDL config the step executes with: a calibrated plan's
+        tuned_bucket_mb stands in for bucket_mb=None (auto); a bucket the
+        user gave always wins."""
+        if (tcfg.ddl.bucket_mb is None and self.plan is not None
+                and self.plan.calibrated and self.plan.tuned_bucket_mb):
+            return dataclasses.replace(tcfg.ddl, bucket_mb=self.plan.tuned_bucket_mb)
+        return tcfg.ddl
 
 
 def _param_stream(plan: Optional[MemoryPlan]):
@@ -159,16 +180,20 @@ def build_slot_decode_step(model: Model, shape: ShapeConfig,
 # Train step (paper-faithful mode: DDL allreduce, replicated optimizer)
 # ---------------------------------------------------------------------------
 
-def _resolve_overlap(tcfg: TrainConfig, dp_total: int) -> bool:
-    """The DDLConfig knob, else overlap; forced off with nothing to reduce
-    (dp 1) or no reduction at all, as in the JAX package (whose
-    `overlap_grads` argument of build_train_step and memory plan's
-    recommendation, ranked above the knob and below it, the port does not
-    take yet)."""
+def _resolve_overlap(arg: Optional[bool], plan: Optional[MemoryPlan],
+                     tcfg: TrainConfig, dp_total: int) -> bool:
+    """The builder's argument (`StepSpec.overlap_grads`) > the DDLConfig
+    knob > the plan's priced recommendation > overlap; forced off with
+    nothing to reduce (dp 1) or no reduction at all, as in the JAX
+    package."""
     if tcfg.ddl.mode == "none" or dp_total <= 1:
         return False
+    if arg is not None:
+        return bool(arg)
     if tcfg.ddl.overlap_grads is not None:
         return bool(tcfg.ddl.overlap_grads)
+    if plan is not None and plan.overlap_grads is not None:
+        return bool(plan.overlap_grads)
     return True
 
 
@@ -226,19 +251,19 @@ def _paths(tree, prefix=()):
 
 def _pipelined(items, depth: int, fetch, update) -> None:
     """update(item, fetched) for each item in order, with fetch(item) (a
-    list of offload.Pending) issued up to `depth` items ahead, so the copy
+    dict of offload.Pending) issued up to `depth` items ahead, so the copy
     of item i+1 is in flight while item i updates."""
     pending = {}
     for i, item in enumerate(items):
         for j in range(i, min(i + depth, len(items))):
             if j not in pending:
                 pending[j] = fetch(items[j])
-        update(item, [p.wait() for p in pending.pop(i)])
+        update(item, {k: p.wait() for k, p in pending.pop(i).items()})
 
 
 def _streamed_opt_update(optimizer: str, grads, opt_state, params, *, lr,
                          beta1, beta2, weight_decay, schedule, params_host: bool,
-                         device):
+                         device, clip=None, grads_host: bool = False):
     """The optimizer update as a streamed sweep (JAX `_streamed_opt_update`).
 
     The optimizer state lies in pinned host memory. For each layer of the
@@ -250,9 +275,13 @@ def _streamed_opt_update(optimizer: str, grads, opt_state, params, *, lr,
     new bf16 params are written back to the host as well. The unstacked
     rest (embedding, head, final norm: on the device) updates in
     `_rest_chunks` flat chunks of its state, two in flight, the same way.
-    The grads (on the device) come in clipped. Elementwise math does not
-    depend on how it is sliced, so the result equals the resident
-    `opt_update`'s bitwise. -> (params, state), updated in place."""
+    grads_host: the stack's grads lie in pinned host memory (the backward's
+    host sink) and come in with their layer's state. clip: the clip factor
+    (`clip_scale` of the global norm), applied to each slice of the grads
+    as it updates (`clip_leaf`, as JAX's sweep does); None: the grads come
+    in clipped. Elementwise math does not depend on how it is sliced, so
+    the result equals the resident `opt_update`'s of the clipped grads
+    bitwise. -> (params, state), updated in place."""
     step = opt_state.step + 1
     if optimizer == "adamw":
         sf = step.float()
@@ -269,11 +298,13 @@ def _streamed_opt_update(optimizer: str, grads, opt_state, params, *, lr,
         params' (on the device)."""
         if optimizer == "adamw":
             for gs, ms, vs, mps, ps in _slices(g, *st, p):
+                gs = gs if clip is None else clip_leaf(gs, clip)
                 adamw_slice_update(gs, ms, vs, mps, lr=lr, beta1=beta1, beta2=beta2,
                                    b1c=b1c, b2c=b2c, weight_decay=weight_decay)
                 ps.copy_(mps)
         else:
             for gs, ms, ps in _slices(g, *st, p):
+                gs = gs if clip is None else clip_leaf(gs, clip)
                 sgdm_slice_update(gs, ms, ps, lr=lr, beta1=beta1,
                                   weight_decay=weight_decay)
 
@@ -283,21 +314,24 @@ def _streamed_opt_update(optimizer: str, grads, opt_state, params, *, lr,
     sstacks = [s["decoder"]["stack0"] for s in states]
 
     def fetch_layer(i):
-        out = [off.stream_layer_to_device({str(k): tr._layer(s, i) for k, s in enumerate(sstacks)},
-                                          device, cls="optimizer")]
+        out = {"state": off.stream_layer_to_device(
+            {str(k): tr._layer(s, i) for k, s in enumerate(sstacks)}, device, cls="optimizer")}
         if params_host and optimizer == "sgdm":
-            out.append(off.stream_layer_to_device(tr._layer(stack, i), device, cls="params"))
+            out["params"] = off.stream_layer_to_device(tr._layer(stack, i), device, cls="params")
+        if grads_host:
+            out["grads"] = off.stream_layer_to_device(tr._layer(gstack, i), device, cls="grads")
         return out
 
     def update_layer(i, fetched):
-        st = fetched[0]
+        st = fetched["state"]
         p_dev = tr._layer(stack, i)
         if params_host:
             # AdamW writes the params from the master copy: no copy in
-            p_dev = fetched[1] if optimizer == "sgdm" else tree_map(
+            p_dev = fetched["params"] if optimizer == "sgdm" else tree_map(
                 lambda t: torch.empty(t.shape, dtype=t.dtype, device=device), p_dev)
+        g_dev = fetched["grads"] if grads_host else tr._layer(gstack, i)
         st_leaves = [tree_leaves(st[str(k)]) for k in range(len(states))]
-        for j, (g, p) in enumerate(zip(tree_leaves(tr._layer(gstack, i)), tree_leaves(p_dev))):
+        for j, (g, p) in enumerate(zip(tree_leaves(g_dev), tree_leaves(p_dev))):
             update(g, [sl[j] for sl in st_leaves], p)
         off.stream_layer_to_host(st, {str(k): tr._layer(s, i) for k, s in enumerate(sstacks)},
                                  cls="optimizer")
@@ -324,13 +358,13 @@ def _streamed_opt_update(optimizer: str, grads, opt_state, params, *, lr,
 
     def fetch_chunk(item):
         path, k, c = item
-        return [off.stream_layer_to_device({str(j): piece(at(s, path), k, c)
-                                            for j, s in enumerate(states)},
-                                           device, cls="optimizer")]
+        return {"state": off.stream_layer_to_device({str(j): piece(at(s, path), k, c)
+                                                     for j, s in enumerate(states)},
+                                                    device, cls="optimizer")}
 
     def update_chunk(item, fetched):
         path, k, c = item
-        st = fetched[0]
+        st = fetched["state"]
         update(piece(at(grads, path), k, c), [st[str(j)] for j in range(len(states))],
                piece(at(params, path), k, c))
         off.stream_layer_to_host(st, {str(j): piece(at(s, path), k, c)
@@ -355,6 +389,15 @@ def _host_classes(plan: Optional[MemoryPlan]):
     return res.get("params") == "host", res.get("optimizer") == "host"
 
 
+def _grads_host(plan: Optional[MemoryPlan]) -> bool:
+    """The stack's grads go to pinned host memory: the plan puts grads on
+    the host and the streamed optimizer sweep is there to read them back a
+    layer at a time (the JAX package's condition; a resident update would
+    read the whole sunk tree back at once)."""
+    return (plan is not None and plan.residency.get("grads") == "host"
+            and _opt_stream(plan) is not None)
+
+
 class _Placer:
     """Allocates a train state's leaves where a plan puts them: the host
     ones from one pinned arena of `host_bytes`."""
@@ -369,15 +412,20 @@ class _Placer:
         return self.arena.take(shape, dtype)
 
 
-def _state_layout(paths, optimizer, params_host, opt_host):
-    """-> (host bytes, [(path, shape, dtype, params on host)])."""
+def _state_layout(paths, optimizer, params_host, opt_host, grads_host=False):
+    """-> (host bytes, [(path, shape, dtype, params on host)]); with
+    grads_host the stack's grads (in the params' dtypes) are in the host
+    bytes too."""
     per = {"adamw": 3, "sgdm": 1}[optimizer]
     total, out = 0, []
     for path, shape, dtype in paths:
         n = math.prod(shape)
+        nbytes = off.PinnedArena.padded(n * torch.empty((), dtype=dtype).element_size())
         ph = params_host and _stack_path(path)
         if ph:
-            total += off.PinnedArena.padded(n * torch.empty((), dtype=dtype).element_size())
+            total += nbytes
+        if grads_host and _stack_path(path):
+            total += nbytes
         if opt_host:
             total += per * off.PinnedArena.padded(4 * n)
         out.append((path, shape, dtype, ph))
@@ -397,13 +445,17 @@ def _def_paths(defs, prefix=()):
     return [(prefix, defs)]
 
 
-def _placed_state(optimizer, paths, device, params_host, opt_host, fill):
+def _placed_state(optimizer, paths, device, params_host, opt_host, fill,
+                  grads_host=False):
     """A TrainState laid out by the plan; fill(index, path, p, states)
-    writes each leaf's values."""
-    host_bytes, layout = _state_layout(paths, optimizer, params_host, opt_host)
+    writes each leaf's values. With grads_host the state carries the
+    stack's grads tree in the arena (zeros), for the backward's host
+    sink."""
+    host_bytes, layout = _state_layout(paths, optimizer, params_host, opt_host,
+                                       grads_host)
     placer = _Placer(device, host_bytes)
     nstate = 3 if optimizer == "adamw" else 1
-    params, states = {}, [{} for _ in range(nstate)]
+    params, states, grads = {}, [{} for _ in range(nstate)], {}
     for ix, (path, shape, dtype, ph) in enumerate(layout):
         p = placer.take(shape, dtype, ph)
         st = [placer.take(shape, torch.float32, opt_host) for _ in range(nstate)]
@@ -411,16 +463,19 @@ def _placed_state(optimizer, paths, device, params_host, opt_host, fill):
         _set(params, path, p)
         for tree, t in zip(states, st):
             _set(tree, path, t)
+        if grads_host and _stack_path(path):
+            _set(grads, path[2:], placer.take(shape, dtype, True))
     step = torch.zeros((), dtype=torch.int32, device=device)
     opt = (AdamState(step.clone(), *states) if optimizer == "adamw"
            else SGDState(step.clone(), *states))
-    return TrainState(step, params, opt)
+    return TrainState(step, params, opt, grads if grads_host else None)
 
 
 def place_train_state(state: TrainState, plan: Optional[MemoryPlan], device) -> TrainState:
     """A copy of `state` placed as the plan says: the stack's params in
     pinned host memory when they stream, the optimizer state there when it
-    streams, everything else on `device`."""
+    streams, and a grads tree for the stack there when the plan sinks
+    grads (`_grads_host`), everything else on `device`."""
     device = torch.device(device)
     params_host, opt_host = _host_classes(plan)
     adam = isinstance(state.opt, AdamState)
@@ -440,10 +495,10 @@ def place_train_state(state: TrainState, plan: Optional[MemoryPlan], device) -> 
             dst.copy_(at(s, path))
 
     out = _placed_state("adamw" if adam else "sgdm", paths, device, params_host,
-                        opt_host, fill)
+                        opt_host, fill, _grads_host(plan))
     step = state.step.to(device).clone()
     opt = out.opt._replace(step=state.opt.step.to(device).clone())
-    return TrainState(step, out.params, opt)
+    return TrainState(step, out.params, opt, out.grads)
 
 
 def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan] = None,
@@ -456,37 +511,47 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
     with m = tcfg.microbatches > 1 accumulated in f32 over the microbatches
     and divided by m, as the JAX package's scan does. On a mesh of several
     data-parallel ranks the grads are then DDL-reduced to their mean over
-    the ranks (`core/ddl`): with the overlapped backward (the default, m ==
-    1), the decoder stack's layer by layer inside the backward and the rest
-    (embedding, final norm, head) after it; otherwise the whole tree after
-    the backward. Then the grads are clipped to tcfg.grad_clip by their
-    global norm and the optimizer steps with the lr of
-    `warmup_cosine(state.step)`. The state is updated in place and
-    returned in a new TrainState with step + 1. The metrics are f32
-    scalars on the device: loss, grad_norm, lr, ce and aux, the loss, ce
-    and aux as means over the ranks. Every rank ends the step with the
+    the ranks (`core/ddl`): with the overlapped backward (m == 1; on by
+    default, `_resolve_overlap`), the decoder stack's layer by layer inside
+    the backward and the rest (embedding, final norm, head) after it;
+    otherwise the whole tree after the backward. Then the grads are
+    clipped to tcfg.grad_clip by their global norm and the optimizer steps
+    with the lr of `warmup_cosine(state.step)`. The state is updated in
+    place and returned in a new TrainState with step + 1. The metrics are
+    f32 scalars on the device: loss, grad_norm, lr, ce and aux, the loss,
+    ce and aux as means over the ranks. Every rank ends the step with the
     same params. On one device every reduction is the identity, as the
     JAX package's collectives over axes of size 1 are.
 
-    plan (or spec.plan): an LMS memory plan (`core/lms/planner.py`), on
-    one device. Its policy (`plan_to_policy`) decides per tagged
-    activation of each layer whether it is saved, offloaded to pinned host
-    memory or recomputed; when it streams params, the state's stack lies
-    in pinned host memory (`init_train_state(plan=)`) and each layer is
-    copied in for its forward and again for its backward; when it streams
-    the optimizer, the update is the streamed sweep
-    (`_streamed_opt_update`). The stack's grads are written into a grads
-    tree on the device layer by layer. Streamed and resident steps give
-    the same state bitwise.
+    plan (or spec.plan): an LMS memory plan (`core/lms/planner.py`). Its
+    policy (`plan_to_policy`) decides per tagged activation of each layer
+    whether it is saved, offloaded to pinned host memory or recomputed;
+    when it streams params, the state's stack lies in pinned host memory
+    (`init_train_state(plan=)`) and each layer is copied in for its
+    forward and again for its backward; when it streams the optimizer, the
+    update is the streamed sweep (`_streamed_opt_update`), with the clip
+    inside it. The stack's grads are written into a grads tree layer by
+    layer. On a mesh of several ranks (LMS + DDL) with the overlapped
+    backward each layer's grads go to the DDL hook's reduction queue
+    (`core/ddl/overlap.ReductionQueue`), which reduces them on a thread of
+    its own while the backward goes on and writes their mean into that
+    tree: on the device, or, when the plan puts grads on the host
+    (`_grads_host`), into the state's pinned grads tree (the backward's
+    host sink), read back a layer at a time by the sweep. Without the
+    overlapped backward a plan's sunk grads are placed on the host after
+    the tree pass, as in the JAX package. Streamed and resident steps give
+    the same state bitwise, on one rank or several.
 
     ddl.mode "none" leaves the grads unreduced, as in the JAX package.
     ddl.mode "zero1" and m > 1 with the overlapped backward (the JAX
     package's sharded accumulator) are not ported yet and raise; so does a
-    tensor-parallel `model` axis (`make_mesh`), and, under a plan, a mesh
-    of several ranks (LMS + DDL), m > 1, grads on the host, params on the
-    host with the optimizer on the device, and the Mamba-2 stack."""
-    if spec is not None and spec.plan is not None:
-        plan = spec.plan
+    tensor-parallel `model` axis (`make_mesh`), and, under a plan, m > 1,
+    params on the host with the optimizer on the device, and the Mamba-2
+    stack."""
+    spec = StepSpec() if spec is None else spec
+    if spec.plan is None and plan is not None:
+        spec = dataclasses.replace(spec, plan=plan)
+    plan = spec.plan
     if tcfg.ddl.mode == "zero1":
         raise NotImplementedError("DDL zero1 is not ported yet")
     mesh = make_mesh(tcfg.mesh) if mesh is None else mesh
@@ -496,56 +561,83 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
     pod_size = sizes.get("pod", 1)
     pod_axis = "pod" if "pod" in sizes and pod_size > 1 else None
     mean_over = data_size * pod_size
-    ddl = tcfg.ddl
+    ddl = spec.ddl_for(tcfg)
     _, opt_update = OPTIMIZERS[tcfg.optimizer]
     sched = SCHEDULES["warmup_cosine"]
     m = tcfg.microbatches
-    overlap = _resolve_overlap(tcfg, mean_over)
+    overlap = _resolve_overlap(spec.overlap_grads, plan, tcfg, mean_over)
     if overlap and m > 1:
         raise NotImplementedError(
             f"microbatches={m} with the overlapped backward (the sharded "
             "microbatch accumulator) is not ported yet; pass "
             "DDLConfig(overlap_grads=False)")
-    reduce = dict(mesh=mesh, data_axis="data", pod_axis=pod_axis,
-                  data_size=data_size, pod_size=pod_size)
-    hooks = make_stack_hooks(["stack0"], ddl, **reduce) if overlap else None
     if plan is not None:
-        _check_plan(plan, model, mean_over, m, tcfg.optimizer)
+        _check_plan(plan, model, m)
     # a plan that assigns nothing recomputes every activation (JAX:
     # jax.checkpoint with policy None)
     policy = (plan_to_policy(plan) or Policy()) if plan is not None else None
     stream = _param_stream(plan)
     opt_stream = _opt_stream(plan)
     params_host = _host_classes(plan)[0]
+    grads_host = _grads_host(plan)
+    reduce = dict(mesh=mesh, data_axis="data", pod_axis=pod_axis,
+                  data_size=data_size, pod_size=pod_size)
+    hooks = (make_stack_hooks(["stack0"], ddl, **reduce,
+                              sink=off.HOST if grads_host else None)
+             if overlap else None)
+    queue = hooks["stack0"].queue if hooks is not None and plan is not None else None
+    layers = model.cfg.num_layers
 
-    def lms_loss_and_grads(params, batch):
+    def lms_loss_and_grads(state, batch):
         """Under a plan: the stack is not differentiated through autograd;
-        the LMS executor writes its grads into a grads tree on the device
-        (zeros, so a param no layer used keeps a zero grad)."""
-        stacks, rest = _split_stack_grads(params)
+        the LMS executor writes its grads into a grads tree (zeros on the
+        device, so a param no layer used keeps a zero grad; the state's
+        pinned tree under the host sink, every layer written each step),
+        through the reduction queue with the overlapped backward, which is
+        drained before this returns. -> (..., the stack's per-slice sums of
+        squares when the queue made them, else None)."""
+        stacks, rest = _split_stack_grads(state.params)
         leaves = tree_map(lambda p: p.detach().requires_grad_(), rest)
         device = tree_leaves(leaves)[0].device
-        gstack = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=device),
-                          stacks["stack0"])
-        loss, mets = model.loss(_merge_stack_grads(leaves, stacks), batch,
-                                policy=policy, stream=stream, stack_grads=gstack)
-        grads = torch.autograd.grad(loss, tree_leaves(leaves))
+        sunk = queue is not None and grads_host
+        if sunk:
+            gstack = _sunk_grads(state)
+        else:
+            gstack = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=device),
+                              stacks["stack0"])
+        squares = StackSquares([tuple(t.shape) for t in tree_leaves(gstack)]) if sunk else None
+        if queue is not None:
+            queue.open(device, tr._stream_depth(plan.swap_schedule, layers), squares)
+        try:
+            loss, mets = model.loss(_merge_stack_grads(leaves, stacks), batch,
+                                    policy=policy, stream=stream, stack_grads=gstack,
+                                    grad_hooks=hooks)
+            grads = torch.autograd.grad(loss, tree_leaves(leaves))
+        except BaseException:
+            if queue is not None:
+                queue.abandon()
+            raise
+        if queue is not None:
+            queue.drain(layers)
         return (loss.detach(), {k: v.detach() for k, v in mets.items()},
-                _merge_stack_grads(tree_unflatten(rest, grads), {"stack0": gstack}))
+                _merge_stack_grads(tree_unflatten(rest, grads), {"stack0": gstack}),
+                squares.squares() if sunk else None)
 
-    def loss_and_grads(params, batch):
-        """-> (loss, {"ce", "aux"}, grads): detached tensors; grads in the
-        params' dtypes, or f32 when accumulated over microbatches. With
-        the hooks the decoder stack's grads come back reduced."""
+    def loss_and_grads(state, batch):
+        """-> (loss, {"ce", "aux"}, grads, stack squares or None): detached
+        tensors; grads in the params' dtypes, or f32 when accumulated over
+        microbatches. With the hooks the decoder stack's grads come back
+        reduced."""
         if plan is not None:
-            return lms_loss_and_grads(params, batch)
+            return lms_loss_and_grads(state, batch)
+        params = state.params
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
         flat = tree_leaves(leaves)
         if m == 1:
             loss, mets = model.loss(leaves, batch, grad_hooks=hooks)
             grads = torch.autograd.grad(loss, flat)
             return (loss.detach(), {k: v.detach() for k, v in mets.items()},
-                    tree_unflatten(params, grads))
+                    tree_unflatten(params, grads), None)
         parts = _microbatch_split(batch, m)
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for p in flat]
@@ -558,7 +650,8 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
             l_acc = l_acc + loss.detach()
             m_acc = {k: m_acc[k] + mets[k].detach() for k in m_acc}
         grads = [a.div_(m) for a in acc]
-        return l_acc / m, {k: v / m for k, v in m_acc.items()}, tree_unflatten(params, grads)
+        return (l_acc / m, {k: v / m for k, v in m_acc.items()},
+                tree_unflatten(params, grads), None)
 
     def reduce_grads(grads):
         """The DDL mean over the ranks of what the hooks left unreduced."""
@@ -571,39 +664,70 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
         return _merge_stack_grads(rest, stacks)
 
     def step_fn(state: TrainState, batch):
-        loss, mets, grads = loss_and_grads(state.params, batch)
+        loss, mets, grads, stack_squares = loss_and_grads(state, batch)
         with torch.no_grad():
             grads = reduce_grads(grads)
             lr = sched(state.step, base_lr=tcfg.learning_rate,
                        warmup_steps=tcfg.warmup_steps,
                        total_steps=tcfg.total_steps)
-            grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
             if opt_stream is not None:
+                # the clip's norm now; its scaling inside the sweep, slice
+                # by slice, as the JAX package's streamed sweep
+                gnorm = _global_norm_streamed(grads, stack_squares)
+                scale = clip_scale(gnorm, tcfg.grad_clip)
+                if grads_host and stack_squares is None:
+                    # no queue to sink each layer: place the reduced stack
+                    # on the host after the tree pass (JAX's fallback)
+                    stacks, rest = _split_stack_grads(grads)
+                    host = _sunk_grads(state)
+                    off.stream_layer_to_host(stacks["stack0"], host, cls="grads")
+                    off.fence(state.step.device)
+                    grads = _merge_stack_grads(rest, {"stack0": host})
                 params, opt = _streamed_opt_update(
                     tcfg.optimizer, grads, state.opt, state.params, lr=lr,
                     beta1=tcfg.beta1, beta2=tcfg.beta2,
                     weight_decay=tcfg.weight_decay, schedule=opt_stream,
-                    params_host=params_host, device=state.step.device)
+                    params_host=params_host, device=state.step.device, clip=scale,
+                    grads_host=grads_host)
             else:
+                grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
                 params, opt = opt_update(grads, state.opt, state.params, lr=lr,
                                          beta1=tcfg.beta1, beta2=tcfg.beta2,
                                          weight_decay=tcfg.weight_decay)
             # the means over the ranks, in one collective per axis
             loss, ce, aux = mesh.pmean(torch.stack([loss, mets["ce"], mets["aux"]]), dpa)
             metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr, "ce": ce, "aux": aux}
-        return TrainState(state.step + 1, params, opt), metrics
+        return state._replace(step=state.step + 1, params=params, opt=opt), metrics
 
+    # the LMS + DDL backward's reduction queue (its times of the last
+    # step), None without one
+    step_fn.queue = queue
     return step_fn
 
 
-def _check_plan(plan: MemoryPlan, model: Model, ranks: int, m: int,
-                optimizer: str) -> None:
+def _sunk_grads(state: TrainState):
+    """The state's pinned grads tree of the stack, which a plan that sinks
+    grads writes into."""
+    if state.grads is None:
+        raise ValueError("the plan puts grads on the host: place the state with it "
+                         "(init_train_state(plan=), place_train_state)")
+    return state.grads
+
+
+def _global_norm_streamed(grads, stack_squares=None) -> torch.Tensor:
+    """`global_norm` of the grads tree whose stack's per-slice sums of
+    squares may come made (`stack_squares`, in the stack's leaf order: the
+    reduction queue summed them while the layers were on the device, and
+    the grads now lie on the host); the other leaves' are summed here."""
+    stack = iter(stack_squares or ())
+    return norm_of([next(stack) if stack_squares is not None and _stack_path(path)
+                    else leaf_squares(leaf) for path, leaf in _paths(grads)])
+
+
+def _check_plan(plan: MemoryPlan, model: Model, m: int) -> None:
     """Raise for what a plan asks that the port does not execute yet."""
     res = plan.residency
     unported = {
-        "a plan that puts grads on the host (the backward's host sink)":
-            res.get("grads") == "host",
-        "LMS on a mesh of several ranks (LMS + DDL)": ranks > 1,
         "LMS with microbatches > 1": m > 1,
         "params on the host with the optimizer state on the device":
             res.get("params") == "host" and res.get("optimizer") != "host",
@@ -622,7 +746,8 @@ def init_train_state(model: Model, tcfg: TrainConfig, seed: int,
     built one leaf (a stacked leaf: one layer) at a time, on the device and
     copied out, so it never stands whole on the device: the stack's params
     and the optimizer state go to pinned host memory as the plan says
-    (`_host_classes`), the rest to the device. The values are
+    (`_host_classes`), the rest to the device; a plan that sinks grads
+    (`_grads_host`) also gets the stack's grads tree there. The values are
     `model.init(seed, device)`'s bitwise: the same draws from the same
     generator."""
     device = torch.device(device)
@@ -638,7 +763,8 @@ def init_train_state(model: Model, tcfg: TrainConfig, seed: int,
                 p[i] = piece
                 if tcfg.optimizer == "adamw":
                     st[2][i] = piece.float()
-        return _placed_state(tcfg.optimizer, paths, device, params_host, opt_host, fill)
+        return _placed_state(tcfg.optimizer, paths, device, params_host, opt_host, fill,
+                             _grads_host(plan))
     params = model.init(seed, device)
     opt_init, _ = OPTIMIZERS[tcfg.optimizer]
     return TrainState(torch.zeros((), dtype=torch.int32, device=device),

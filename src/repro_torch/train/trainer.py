@@ -11,10 +11,11 @@ the metrics are the means over the ranks, so every rank's history is the
 same.
 
 LMS (`tcfg.lms.enabled`, the default): the trainer plans the step's
-memory with `core/lms/planner.plan`, as the JAX trainer does, from the
-hardware model or a calibration `profile`; the train step executes the
-plan and the state is placed as it says. On one device only: a plan on a
-mesh of several ranks raises "not ported yet" (LMS + DDL).
+memory with `core/lms/planner.plan` on `tcfg.mesh`, as the JAX trainer
+does, from the hardware model or a calibration `profile`; the train step
+executes the plan and the state is placed as it says. On a mesh of
+several ranks (LMS + DDL) every rank plans the same step and places its
+own state: its pinned arena is its process's own.
 
 Not ported yet: checkpoints and resume, heartbeats, the fault injector,
 loss-spike telemetry, the Supervisor, and the VLM and audio batches. The

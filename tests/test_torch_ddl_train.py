@@ -343,8 +343,11 @@ def _tcfg(mesh=((1, 1), ("data", "model")), **kw):
 
 
 def test_what_is_not_ported_raises():
-    """zero1; m > 1 with the overlapped backward on several ranks; a model
-    axis above 1; a mesh of several devices without a world that size."""
+    """zero1; m > 1 with the overlapped backward on several ranks, and with
+    LMS; a model axis above 1; a mesh of several devices without a world
+    that size. LMS on several ranks (LMS + DDL) builds now
+    (tests/test_torch_lms_ddl.py runs it)."""
+    from repro_torch.core.lms import planner as tp
     model = Model(get_smoke_config(ARCH))
     with pytest.raises(NotImplementedError, match="zero1 is not ported yet"):
         build_train_step(model, _tcfg(ddl=DDLConfig(mode="zero1")))
@@ -352,6 +355,15 @@ def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="overlapped backward.*not ported yet"):
         build_train_step(model, _tcfg(mesh=((2, 1), ("data", "model")), microbatches=2),
                          mesh=Mesh(two, rank=0))
+    res = {"params": "host", "grads": "host", "optimizer": "host", "kvcache": "device"}
+    plan = tp.MemoryPlan({}, res, 1, 1, 1, 1, True, swap_schedule=tp.make_swap_schedule(
+        res, model.cfg.num_layers, "train"))
+    build_train_step(model, _tcfg(mesh=((2, 1), ("data", "model"))), plan=plan,
+                     mesh=Mesh(two, rank=0))
+    with pytest.raises(NotImplementedError, match="LMS with microbatches > 1"):
+        build_train_step(model, _tcfg(mesh=((2, 1), ("data", "model")), microbatches=2,
+                                      ddl=DDLConfig(overlap_grads=False)),
+                         plan=plan, mesh=Mesh(two, rank=0))
     with pytest.raises(NotImplementedError, match="tensor parallelism"):
         build_train_step(model, _tcfg(mesh=((1, 2), ("data", "model"))))
     with pytest.raises(ValueError, match="WORLD_SIZE 4"):

@@ -646,18 +646,22 @@ def test_launch_train_with_lms_on_cpu(capsys, tmp_path):
 
 
 def test_what_is_not_ported_raises():
-    """Grads on the host, LMS + DDL, LMS with microbatches, params on the
-    host with the optimizer on the device, the Mamba-2 stack under a plan,
-    and serve plans: "not ported yet"."""
+    """Grads on the host and LMS + DDL build now (tests/test_torch_lms_ddl.py
+    runs them); LMS with microbatches, params on the host with the
+    optimizer on the device, the Mamba-2 stack under a plan, and serve
+    plans: "not ported yet"."""
+    from repro_torch.launch.mesh import Mesh
     tcfg = _tcfg()
     model = Model(tcfg.model)
-    for residency, match in (({"grads": "host", "optimizer": "host"}, "grads on the host"),
-                             ({"params": "host"}, "optimizer state on the device")):
-        with pytest.raises(NotImplementedError, match=match):
-            tsteps.build_train_step(model, tcfg, plan=_plan(tcfg.model, residency))
+    sink = _plan(tcfg.model, {"grads": "host", "optimizer": "host"})
+    assert tsteps._grads_host(sink)
+    tsteps.build_train_step(model, tcfg, plan=sink)
+    with pytest.raises(NotImplementedError, match="optimizer state on the device"):
+        tsteps.build_train_step(model, tcfg, plan=_plan(tcfg.model, {"params": "host"}))
     plan = _plan(tcfg.model, {"optimizer": "host"})
-    with pytest.raises(NotImplementedError, match="LMS \\+ DDL"):
-        tsteps._check_plan(plan, model, 2, 1, "adamw")
+    two = tb.MeshSpec((2, 1, 1), ("pod", "data", "model"))
+    tsteps.build_train_step(model, dataclasses.replace(tcfg, mesh=two), plan=sink,
+                            mesh=Mesh(two, rank=0))
     with pytest.raises(NotImplementedError, match="microbatches > 1 is not ported yet"):
         tsteps.build_train_step(model, dataclasses.replace(tcfg, microbatches=2), plan=plan)
     mamba = Model(get_smoke_config("mamba2-1.3b"))
