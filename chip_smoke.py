@@ -93,7 +93,21 @@ non-zero, printing no result):
 11. DDL at smoke width (4 ranks, a 2x2x1 mesh) — the overlapped backward
    off and on x compression off and on, each against one rank on the
    global batch;
-12. LMS + DDL (qwen2.5-14b at full width, 2 ranks spawned on the one card
+12. DDL's sharded paths (qwen2.5-14b at full width cut to 1 layer, 2 ranks
+   on a 1x2x1 mesh: 2 data ranks, no pod hop, one step a run at the
+   peak lr, one after another) — (i) allreduce and (ii) zero1, resident, overlapped, a row
+   of 2048 tokens a rank; (iii) zero1 under the plan of
+   LMSConfig(hbm_budget=16e9); (iv) the sharded microbatch accumulator
+   and (v) the serialized one under that plan, two rows a rank in 2
+   microbatches: replicas bitwise in sync, step 1's loss bitwise equal
+   across (i)-(iii) and (iv)-(v), (ii) within the JAX package's zero1
+   bounds of (i) and (iv) of (v), (iii) bitwise (ii), zero1's optimizer
+   bytes a rank exactly 12 x padded / 2 and its peak below allreduce's,
+   RMSNorm's launches, each run's peak against its plan's; then zero1
+   and 2 microbatches at smoke width on 4 ranks (2x2x1, the int8 pod
+   hop), overlapped and serialized, against one rank on the global batch,
+   the quantizer and the pod sum launched as the shard sizes imply;
+13. LMS + DDL (qwen2.5-14b at full width, 2 ranks spawned on the one card
    over gloo, the 2x1x1 mesh, compress_dcn, 2048 tokens a rank, the plan
    of LMSConfig(hbm_budget=16e9): params, grads and the AdamW state in
    pinned host memory, each layer's grads reduced on the DDL queue's
@@ -106,20 +120,22 @@ non-zero, printing no result):
    under the backward, swap bytes, peaks and pinned bytes against the
    plan's, MemAvailable before and after the ranks (waiting until the host
    has handed their memory back);
-13. host — MemTotal and MemAvailable, and the achieved pinned copy rate
+14. host — MemTotal and MemAvailable, and the achieved pinned copy rate
    host to device, device to host and both at once (1 GiB each way, CUDA
    events); the gate's depth is chosen here (the most layers L <= 48 whose
    pinned state fits 80% of MemAvailable, failing unless that state plus
    the grads exceeds the card's 80 GB) and its pinned state reserved once;
-14. lms_ab (qwen2.5-14b at full width cut to 4 layers, 2 x 2048 tokens, 3
+15. lms_ab (qwen2.5-14b at full width cut to 4 layers, 2 x 2048 tokens, 3
    steps of `Trainer.train` from one seed) — under the plan of
    LMSConfig(hbm_budget=16e9) (params and AdamW state streamed from
    pinned host memory, five activation classes offloaded, mlp_hidden
    recomputed) against resident: losses, grad norms and every param
    bitwise equal; the RMSNorm launches the plan implies (2L+1 a step
    against 4L+1); both step times, the swap counters a step by class
-   against the plan's, the measured peak against the plan's;
-15. lms_gate (qwen2.5-14b at full width, the host phase's L layers, 2 x
+   against the plan's, the measured peak against the plan's; then the
+   same at 2 microbatches a step (a row each), streamed against resident
+   m = 2, bitwise, the params swapped in twice as often as at m = 1;
+16. lms_gate (qwen2.5-14b at full width, the host phase's L layers, 2 x
    2048 tokens, 3 steps) — the budget from lms_ab's measured-minus-planned
    peak fed to the planner as its audited live-bytes margin (lowered until
    the params stream); finite losses, step 1's loss bitwise equal to a
@@ -198,6 +214,18 @@ LMS_DDL_TIMEOUT_S = 720
 # is back within LMS_DDL_MEM_SLACK of its value before the ranks, so the
 # LMS phases after it size themselves from the whole host
 LMS_DDL_MEM_WAIT_S, LMS_DDL_MEM_SLACK = 180, 2 * 10**9
+# DDL's sharded paths at full width cut to 1 layer on a 1x2x1 mesh (2 data
+# ranks sharing the card over gloo, no pod hop): (i) allreduce, (ii) zero1,
+# (iii) zero1 under the plan of LMSConfig(hbm_budget=DDL_SHARDED_BUDGET),
+# each on 2 x 2048 tokens; (iv) the sharded microbatch accumulator and (v)
+# the serialized one under that budget, 4 x 2048 tokens in
+# DDL_SHARDED_MICROBATCHES microbatches of a row each; then the smoke
+# config on the 2x2x1 mesh, zero1 and m = 2, each overlapped and serialized.
+# One step a run, at the peak lr (no warmup), so that step updates the
+# params: a second step at this width repeats ~100 s of gloo, and the
+# state carried across steps is held by ddl_sharded_smoke's 3 steps
+DDL_SHARDED_MESH, DDL_SHARDED_STEPS, DDL_SHARDED_BUDGET = (1, 2, 1), 1, 16 * 10**9
+DDL_SHARDED_MICROBATCHES, DDL_SHARDED_TIMEOUT_S = 2, 900
 # the kernels of each route of the SSD scan and RMSNorm (csrc/ssd_scan_mma.cu,
 # ssd_scan.cu, rmsnorm.cu); the first two SSD ones run on the tensor cores
 SSD_MMA_KERNELS = ("ssd_chunk_state_kernel", "ssd_chunk_out_kernel")
@@ -1681,9 +1709,16 @@ def ddl_kernel_phases(out: dict, checked: set):
     out.setdefault("rmsnorm", []).extend([
         rmsnorm_kernel_phase("ddl_rank", TRAIN_BATCH * TRAIN_SEQ // DDL_MESH[0], d, 49, checked),
         rmsnorm_kernel_phase("ddl_smoke_rank", DDL_SMOKE_BATCH // 4 * DDL_SMOKE_SEQ,
+                             smoke.d_model, 49, checked, eps=smoke.norm_eps),
+        rmsnorm_kernel_phase("ddl_smoke_microbatch",
+                             DDL_SMOKE_BATCH // 4 // DDL_SHARDED_MICROBATCHES * DDL_SMOKE_SEQ,
                              smoke.d_model, 49, checked, eps=smoke.norm_eps)])
     sizes = set(full) | {n for ov in (False, True)
                          for n in ddl_pod_hop_sizes(smoke, DDL_SMOKE_MESH[1], overlap=ov)}
+    # ddl_sharded_smoke: zero1 and the microbatch accumulator
+    sizes |= {n for zero1 in (False, True) for ov in (False, True)
+              for n in ddl_sharded_pod_hop_sizes(smoke, DDL_SMOKE_MESH[1], zero1=zero1,
+                                                 overlap=ov)}
     sizes |= set(ddl_ef_slices())
     # lms_ddl (b) without the overlapped backward reduces whole stacked leaves
     sizes |= {n for L in LMS_DDL_DEPTHS
@@ -3073,6 +3108,43 @@ def ddl_pod_hop_sizes(cfg, data_size: int, *, overlap: bool):
     return [min(POD_SLICE, n - i) for n in shards for i in range(0, n, POD_SLICE)]
 
 
+def ddl_sharded_pod_hop_sizes(cfg, data_size: int, *, zero1: bool, overlap: bool,
+                              microbatches: int = DDL_SHARDED_MICROBATCHES):
+    """Elements of each call of the compressed pod hop in one step of zero1
+    (one pass over the batch) or of the microbatch accumulator (m passes),
+    worked out from the leaf sizes: overlapped, each layer's buckets in the
+    hooks' shard mode (a bucket's shard is the sum of its leaves'
+    ceil(n / |data|) slots) and then each other leaf's slot
+    (`local_shard_parts` reduce-scatters its padded flat row), once a pass;
+    serialized, zero1's whole flat vector padded to |data| once, and the
+    accumulator's tree pass once after the last microbatch
+    (`ddl_pod_hop_sizes`). Each shard in POD_SLICE-element slices."""
+    import math
+    from repro_torch.config.base import DDLConfig
+    from repro_torch.core.ddl.allreduce import POD_SLICE, make_buckets
+    from repro_torch.core.ddl.overlap import _bucket_elems
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_leaves
+    if not overlap and not zero1:
+        return ddl_pod_hop_sizes(cfg, data_size, overlap=False)
+    defs = Model(cfg).param_defs()
+    stacked = tree_leaves(defs["decoder"]["stack0"])
+    rest = tree_leaves({k: v for k, v in defs.items() if k != "decoder"})
+
+    def slot(n):
+        return -(-n // data_size)
+    if not overlap:
+        total = sum(math.prod(d.shape) for d in tree_leaves(defs))
+        shards = [slot(total)]
+    else:
+        sizes = [max(math.prod(d.shape[1:]), 1) for d in stacked]
+        one = [sum(slot(sizes[i]) for i in b) for _ in range(cfg.num_layers)
+               for b in make_buckets(sizes, _bucket_elems(DDLConfig()))]
+        one += [slot(max(math.prod(d.shape), 1)) for d in rest]
+        shards = one * (1 if zero1 else microbatches)
+    return [min(POD_SLICE, n - i) for n in shards for i in range(0, n, POD_SLICE)]
+
+
 def ddl_ef_slices():
     """The pod-hop slices of the error-feedback path's leaf."""
     from repro_torch.core.ddl.allreduce import POD_SLICE
@@ -3517,6 +3589,350 @@ def ddl_smoke_phase(line, checked):
           "seconds": time.monotonic() - t0})
     if not ok:
         raise AssertionError("ddl (smoke width, 4 ranks): failed checks")
+    return reference
+
+
+# ---------------------------------------------------------------------------
+# DDL's sharded paths: zero1, the sharded microbatch accumulator, LMS at m > 1
+# ---------------------------------------------------------------------------
+
+def _ddl_sharded_cases():
+    """The full-width runs of ddl_sharded: name -> TrainConfig, in the
+    order they run."""
+    import dataclasses
+    from repro_torch.config.base import DDLConfig, LMSConfig
+    plan = LMSConfig(hbm_budget=DDL_SHARDED_BUDGET)
+    one = dict(batch=TRAIN_BATCH, log_every=1)
+    two = dict(batch=TRAIN_BATCH * DDL_SHARDED_MICROBATCHES, log_every=1,
+               microbatches=DDL_SHARDED_MICROBATCHES)
+    cases = {
+        "i_allreduce": (_ddl_config(1, DDL_SHARDED_MESH, ddl=DDLConfig(), **one), None),
+        "ii_zero1": (_ddl_config(1, DDL_SHARDED_MESH, ddl=DDLConfig(mode="zero1"), **one),
+                     None),
+        "iii_zero1_plan": (_ddl_config(1, DDL_SHARDED_MESH, ddl=DDLConfig(mode="zero1"),
+                                       **one), plan),
+        "iv_sharded_accumulator": (_ddl_config(1, DDL_SHARDED_MESH,
+                                               ddl=DDLConfig(overlap_grads=True), **two), plan),
+        "v_serialized_accumulator": (_ddl_config(1, DDL_SHARDED_MESH,
+                                                 ddl=DDLConfig(overlap_grads=False), **two),
+                                     plan)}
+    return {name: dataclasses.replace(tcfg, total_steps=DDL_SHARDED_STEPS, warmup_steps=0,
+                                      **({"lms": lms} if lms is not None else {}))
+            for name, (tcfg, lms) in cases.items()}
+
+
+def _sharded_train(tcfg, steps: int):
+    """One rank's `Trainer` for `steps` steps: the state set up (timed),
+    then each step's loss, grad norm, time, the params' checksums (and
+    whether they agree across the ranks), RMSNorm's launches and the swap
+    bytes, reset just before the step and read just after. -> (plan row,
+    rows, facts): the optimizer's bytes on this rank, the flat layout's
+    padded length (zero1), the peak and pinned bytes, the queue."""
+    import torch
+    from repro_torch.core.lms import offload as off
+    from repro_torch.train.steps import Zero1State
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves
+    trainer = Trainer(tcfg, device="cuda")
+    plan = trainer.plan
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    zero1 = isinstance(state, Zero1State)
+    opt = ([state.mu, state.nu, state.master] if zero1 else
+           [x for t in (state.opt.mu, state.opt.nu, state.opt.master) for x in tree_leaves(t)])
+    opt_bytes = sum(t.numel() * t.element_size() for t in opt)
+    opt_on_host = all(t.device.type == "cpu" for t in opt)
+    del opt
+    params = state.params
+    sums = [_checksums(params)]
+    in_sync = [_same_on_all_ranks(sums[0])]
+    init = [state]
+    trainer.init_state = lambda: init.pop()
+    del state
+    launchers = _launchers()
+    rows, before = [], [off.swap_counters()]
+
+    def on_step(step, row):
+        swap = _swap_per_step(before[0], off.swap_counters(), 1)
+        before[0] = off.swap_counters()
+        sums.append(_checksums(params))
+        in_sync.append(_same_on_all_ranks(sums[-1]))
+        rows.append({"step": step, "loss": row["loss"], "grad_norm": row["grad_norm"],
+                     "time_s": row["time_s"], "checksums": sums[-1], "swap": swap,
+                     "launches": {k: launchers[k].launches for k in
+                                  ("quantize_rows", "dequantize_sum_rows", "rmsnorm")}})
+        for launcher in launchers.values():
+            launcher.launches = 0
+    with launch_signatures() as (seen, calls, launches):
+        state, _ = trainer.train(steps, on_step=on_step)
+    layout = getattr(trainer.step_fn, "layout", None)
+    facts = {"setup_s": setup_s, "peak_bytes": torch.cuda.max_memory_allocated(),
+             "pinned_bytes": off.pinned_bytes(), "in_sync": in_sync,
+             "init_checksums": sums[0], "signatures": sorted(seen),
+             "opt_bytes": opt_bytes, "opt_on_host": opt_on_host,
+             "padded": layout.padded if layout is not None else None,
+             "layout": type(layout).__name__ if layout is not None else None,
+             "queue": trainer.step_fn.queue is not None}
+    del trainer, state, params, init
+    off.release_arenas()
+    torch.cuda.empty_cache()
+    return _plan_row(plan), rows, facts
+
+
+def _ddl_sharded_rank(rank: int, world: int):
+    """One rank of ddl_sharded: a pinned arena reserved once, at the
+    largest plan's state (`offload.reserve_pinned`), then every case of
+    `_ddl_sharded_cases` in turn. -> {case: {plan, rows, facts}}."""
+    from repro_torch.core.lms import offload as off
+    t0 = time.monotonic()
+    off.reserve_pinned(_lms_ddl_pinned_bytes(1), "cuda")
+    out = {"rank": rank, "pinned": {"bytes": _lms_ddl_pinned_bytes(1),
+                                    "seconds": time.monotonic() - t0}}
+    for name, tcfg in _ddl_sharded_cases().items():
+        plan, rows, facts = _sharded_train(tcfg, DDL_SHARDED_STEPS)
+        out[name] = {"plan": plan, "rows": rows, **facts}
+    return out
+
+
+def ddl_sharded_phase(line, checked):
+    """DDL's sharded paths at qwen2.5-14b's full width cut to 1 layer
+    (1.83 B params), `Trainer.train` for DDL_SHARDED_STEPS step(s) a run,
+    at the peak lr, on
+    2 ranks of a 1x2x1 mesh (2 data ranks on the one card over gloo), all
+    from one seed, the runs one after another: (i) allreduce and (ii)
+    zero1, resident, overlapped, 2 x 2048 tokens (a row a rank); (iii)
+    zero1 under the plan of LMSConfig(hbm_budget=DDL_SHARDED_BUDGET), the
+    same batches; (iv) LMS + DDL allreduce under that budget at m = 2, 4 x
+    2048 tokens (two rows a rank, one a microbatch), overlapped (the
+    sharded accumulator: the executor's queue adds each layer's slot), and
+    (v) the same serialized (the full-tree f32 accumulator). A resident
+    m = 2 run at this width does not fit two ranks on one card (replicated
+    AdamW alone is 22 GB a rank): the CPU tests and lms_ab_microbatches
+    hold it bitwise.
+
+    Held: every rank's params bitwise equal after each step; step 1's loss
+    bitwise equal across (i), (ii), (iii) and between (iv) and (v) (the
+    forward depends on neither the optimizer nor the reduction); each
+    step of (ii) within the JAX package's zero1 bounds of (i), and (iv) of
+    (v) (tests/test_ddl_overlap.py: loss 2e-3, taken relative here at a
+    loss of ~12, grad norm 2e-2 x (1 + grad norm)); (iii) bitwise (ii):
+    losses, grad norms, every checksum; zero1's optimizer bytes a rank
+    exactly 3 x 4 x padded / |data|; (ii)'s peak below (i)'s; RMSNorm 4L+1
+    launches a step in (i) and (ii), m x the plan's implied count under a
+    plan; finite losses; the params changed by the step in every run;
+    every launch at a checked shape. Reported: each run's step times,
+    peaks against its plan's, pinned bytes, swap bytes. Then waits until the host has the ranks' pinned memory back. -> the
+    phase row."""
+    import gc
+    import types
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    avail = _meminfo()["MemAvailable"]
+    t0 = time.monotonic()
+    # (i) peaks at 37 GB a rank: two such ranks beside this process leave
+    # no room on the card for the caching allocator's split blocks, so the
+    # ranks map their memory in growable segments
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = spawn_ranks("_ddl_sharded_rank", DDL_SHARDED_MESH[1],
+                            timeout=DDL_SHARDED_TIMEOUT_S)
+    finally:
+        if saved is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+    seconds = time.monotonic() - t0
+    returned = _await_mem_available(avail - LMS_DDL_MEM_SLACK, LMS_DDL_MEM_WAIT_S)
+    r0 = ranks[0]
+    names = list(_ddl_sharded_cases())
+    runs = {name: r0[name] for name in names}
+    i, ii, iii, iv, v = (runs[n] for n in names)
+    unchecked = {_tuplify(sig) for r in ranks for n in names
+                 for sig in r[n]["signatures"]} - checked
+    L = DDL_LAYERS
+    m = DDL_SHARDED_MICROBATCHES
+
+    def rms_expected(run, micro):
+        if run["plan"] is None:
+            return micro * (4 * L + 1)
+        plan = types.SimpleNamespace(assignment=run["plan"]["assignment"])
+        return micro * _implied_rmsnorm_launches(plan, L)
+
+    def within(a, b):
+        return all(abs(x["loss"] - y["loss"]) <= 2e-3 * abs(y["loss"])
+                   and abs(x["grad_norm"] - y["grad_norm"]) <= 2e-2 * (1 + y["grad_norm"])
+                   for x, y in zip(a["rows"], b["rows"]))
+    peak = {n: max(r[n]["peak_bytes"] for r in ranks) for n in names}
+    zero1_opt = 3 * 4 * ii["padded"] // DDL_SHARDED_MESH[1]
+    checks = {
+        "replicas_in_sync": all(all(r[n]["in_sync"]) and len(r[n]["in_sync"])
+                                == DDL_SHARDED_STEPS + 1 for r in ranks for n in names),
+        "step1_loss_bitwise_i_ii_iii": i["rows"][0]["loss"] == ii["rows"][0]["loss"]
+        == iii["rows"][0]["loss"],
+        "step1_loss_bitwise_iv_v": iv["rows"][0]["loss"] == v["rows"][0]["loss"],
+        "ii_within_jax_bounds_of_i": within(ii, i),
+        "iv_within_jax_bounds_of_v": within(iv, v),
+        "iii_bitwise_ii": ([s["loss"] for s in iii["rows"]] == [s["loss"] for s in ii["rows"]]
+                           and [s["grad_norm"] for s in iii["rows"]]
+                           == [s["grad_norm"] for s in ii["rows"]]
+                           and [iii["init_checksums"]] + [s["checksums"] for s in iii["rows"]]
+                           == [ii["init_checksums"]] + [s["checksums"] for s in ii["rows"]]),
+        "zero1_optimizer_bytes": all(r[n]["opt_bytes"] == zero1_opt and r[n]["padded"]
+                                     == ii["padded"] for r in ranks
+                                     for n in ("ii_zero1", "iii_zero1_plan")),
+        "zero1_peak_below_allreduce": peak["ii_zero1"] < peak["i_allreduce"],
+        "paths": (ii["layout"] == iii["layout"] == "ShardSpec" and iii["queue"] and iv["queue"]
+                  and not v["queue"] and not ii["queue"]),
+        "rmsnorm_launches": all(
+            s["launches"]["rmsnorm"] == rms_expected(r[n], m if n.startswith(("iv", "v_")) else 1)
+            for r in ranks for n in names for s in r[n]["rows"]),
+        "no_pod_hop": all(s["launches"]["quantize_rows"] == 0
+                          and s["launches"]["dequantize_sum_rows"] == 0
+                          for r in ranks for n in names for s in r[n]["rows"]),
+        "finite_losses": all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+                             for run in runs.values() for s in run["rows"]),
+        "params_updated": all(run["rows"][-1]["checksums"] != run["init_checksums"]
+                              for run in runs.values()),
+        "shapes_checked": not unchecked}
+
+    def summary(name):
+        run = runs[name]
+        later = run["rows"][1:] or run["rows"]
+        return {"loss": [s["loss"] for s in run["rows"]],
+                "grad_norm": [s["grad_norm"] for s in run["rows"]],
+                "step_s": [s["time_s"] for s in run["rows"]],
+                "peak_bytes": [r[name]["peak_bytes"] for r in ranks],
+                "plan_peak_bytes": run["plan"]["peak_bytes"] if run["plan"] else None,
+                "plan_residency": run["plan"]["residency"] if run["plan"] else None,
+                "plan_host_bytes": run["plan"]["host_bytes"] if run["plan"] else None,
+                "pinned_bytes": run["pinned_bytes"], "opt_bytes": run["opt_bytes"],
+                "opt_on_host": run["opt_on_host"], "layout": run["layout"],
+                "padded": run["padded"], "queue": run["queue"], "setup_s": run["setup_s"],
+                "rmsnorm_per_step": run["rows"][-1]["launches"]["rmsnorm"],
+                "rmsnorm_expected": rms_expected(run, m if name.startswith(("iv", "v_"))
+                                                 else 1),
+                "swap_per_step": ({k: sum(s["swap"].get(k, 0) for s in later) / len(later)
+                                   for k in later[0]["swap"]} if later else {})}
+    row = {"phase": "ddl_sharded", "arch": ARCH, "layers": L, "mesh": list(DDL_SHARDED_MESH),
+           "ranks": DDL_SHARDED_MESH[1], "backend": "gloo (host-staged)", "card": line,
+           "steps": DDL_SHARDED_STEPS, "hbm_budget": DDL_SHARDED_BUDGET, "microbatches": m,
+           "note": "two ranks time-slice one card over gloo: not DDL's speed across cards",
+           "zero1_opt_bytes_expected": zero1_opt,
+           "runs": {n: summary(n) for n in names}, "peak_bytes": peak,
+           "arena": [r["pinned"] for r in ranks], "mem_available_before": avail,
+           "mem_available_returning": returned, "seconds": seconds, "checks": checks,
+           "unchecked_shapes": sorted(map(str, unchecked))}
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"ddl_sharded: failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return row
+
+
+def _ddl_sharded_smoke_rank(rank: int, world: int):
+    """One rank of ddl_sharded_smoke on the 2x2x1 mesh: zero1 and m = 2,
+    each overlapped and serialized, compress_dcn, DDL_STEPS steps from one
+    seed on this rank's rows; each step's loss and grad norm, replicas'
+    checksums, the int8 kernels' launches over the run."""
+    import dataclasses
+    import torch
+    from repro_torch.config.base import DDLConfig
+    from repro_torch.data import local_rows
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.train.steps import (build_train_step, build_zero1_train_step,
+                                         init_train_state, init_zero1_state)
+    tcfg0 = _ddl_config(0, DDL_SMOKE_MESH, smoke=True, batch=DDL_SMOKE_BATCH,
+                        seq=DDL_SMOKE_SEQ)
+    mesh = make_mesh(tcfg0.mesh)
+    out = {}
+    for zero1 in (True, False):
+        for ov in (True, False):
+            ddl = DDLConfig(mode="zero1" if zero1 else "allreduce", compress_dcn=True,
+                            overlap_grads=ov)
+            tcfg = dataclasses.replace(tcfg0, ddl=ddl,
+                                       microbatches=1 if zero1 else DDL_SHARDED_MICROBATCHES)
+            model = Model(tcfg.model)
+            if zero1:
+                step = build_zero1_train_step(model, tcfg, mesh=mesh)
+                state = init_zero1_state(model, tcfg, SEED, "cuda", mesh.size("data"),
+                                         data_index=mesh.index("data"))
+            else:
+                step = build_train_step(model, tcfg, mesh=mesh)
+                state = init_train_state(model, tcfg, SEED, "cuda")
+            rows, in_sync = [], [_same_on_all_ranks(_checksums(state.params))]
+            with launch_signatures() as (seen, calls, launches):
+                for b in _ddl_batches(tcfg):
+                    local = local_rows(b, mesh.dp_index, mesh.dp_size)
+                    state, met = step(state, {k: torch.from_numpy(v).cuda()
+                                              for k, v in local.items()})
+                    rows.append({"loss": float(met["loss"]),
+                                 "grad_norm": float(met["grad_norm"])})
+                    in_sync.append(_same_on_all_ranks(_checksums(state.params)))
+            out[f"{'zero1' if zero1 else 'microbatches_2'},overlap={ov}"] = {
+                "rows": rows, "in_sync": in_sync, "signatures": sorted(seen),
+                "quantize_calls": calls["quantize_rows"],
+                "dequantize_sum_calls": calls["dequantize_sum_rows"],
+                "quantize_launches": launches["quantize_rows"],
+                "dequantize_launches": launches["dequantize_rows"],
+                "dequantize_sum_launches": launches["dequantize_sum_rows"]}
+    return out
+
+
+def ddl_sharded_smoke_phase(line, checked, reference):
+    """zero1 and the microbatch accumulator (m = 2) with |data| = 2 and the
+    int8 pod hop: 4 ranks on a 2x2x1 mesh at the qwen2.5-14b smoke config,
+    compress_dcn, each overlapped and serialized, 3 steps each from one
+    seed, against one rank on the global batch from the same init
+    (`reference`, ddl_smoke_phase's: the replicated step at m = 1; zero1's
+    update is AdamW's, and the mean over 2 microbatches of a row is the
+    mean over the rows). Tolerance, ddl_smoke_phase's, stated before its
+    first run: loss within 5e-3 relative, grad norm within 2e-2. Replicas
+    bitwise in sync; the quantizer and the pod sum launched once for each
+    compressed slice `ddl_sharded_pod_hop_sizes` gives, no dequantize. ->
+    the phase row."""
+    t0 = time.monotonic()
+    ranks = spawn_ranks("_ddl_sharded_smoke_rank", 4)
+    data = DDL_SMOKE_MESH[1]
+    tcfg = _ddl_config(0, (1, 1, 1), smoke=True, batch=DDL_SMOKE_BATCH, seq=DDL_SMOKE_SEQ)
+    variants, checks, unchecked = {}, {}, set()
+    for name, v in ranks[0].items():
+        zero1, ov = name.startswith("zero1"), "overlap=True" in name
+        slices = len(ddl_sharded_pod_hop_sizes(tcfg.model, data, zero1=zero1,
+                                               overlap=ov)) * DDL_STEPS
+        err = [{k: abs(row[k] - ref[k]) / abs(ref[k]) for k in ("loss", "grad_norm")}
+               for row, ref in zip(v["rows"], reference)]
+        unchecked |= {_tuplify(sig) for r in ranks for sig in r[name]["signatures"]} - checked
+        checks[name] = {
+            "in_sync": all(all(r[name]["in_sync"]) for r in ranks),
+            "same_metrics": all(r[name]["rows"] == v["rows"] for r in ranks),
+            "loss": max(e["loss"] for e in err) <= 5e-3,
+            "grad_norm": max(e["grad_norm"] for e in err) <= 2e-2,
+            "launches": all(r[name]["quantize_launches"] == r[name]["quantize_calls"] == slices
+                            and r[name]["dequantize_sum_launches"]
+                            == r[name]["dequantize_sum_calls"] == slices
+                            and r[name]["dequantize_launches"] == 0 for r in ranks)}
+        variants[name] = {"rows": v["rows"], "rel_err": err, "expected_slices": slices,
+                          "quantize_launches": v["quantize_launches"],
+                          "dequantize_launches": v["dequantize_launches"],
+                          "dequantize_sum_launches": v["dequantize_sum_launches"]}
+    ok = all(all(c.values()) for c in checks.values()) and not unchecked
+    emit({"phase": "ddl_sharded_smoke", "arch": ARCH, "config": "smoke",
+          "mesh": list(DDL_SMOKE_MESH), "ranks": 4, "backend": "gloo (host-staged)",
+          "batch": DDL_SMOKE_BATCH, "seq": DDL_SMOKE_SEQ, "card": line,
+          "reference": reference, "variants": variants, "checks": checks,
+          "unchecked_shapes": sorted(map(str, unchecked)),
+          "seconds": time.monotonic() - t0})
+    if not ok:
+        raise AssertionError(f"ddl_sharded_smoke: failed checks "
+                             f"{[(n, k) for n, c in checks.items() for k, x in c.items() if not x]}"
+                             f", unchecked shapes {sorted(map(str, unchecked))}")
 
 
 # ---------------------------------------------------------------------------
@@ -4064,6 +4480,86 @@ def lms_ab_phase(line, checked):
     return row
 
 
+def lms_ab_microbatches_phase(line, checked, ab_row):
+    """LMS with microbatches against resident on one card: lms_ab's
+    qwen2.5-14b at full width cut to LMS_AB_LAYERS layers, 2 x 2048 tokens
+    a step in DDL_SHARDED_MICROBATCHES microbatches of a row, LMS_STEPS
+    steps of `Trainer.train` from one seed: under the plan of
+    LMSConfig(hbm_budget=LMS_AB_BUDGET) at m = 2 (the executor once a
+    microbatch, its stack grads added into the f32 accumulator on the
+    card), then resident at m = 2. Held: every step's loss and grad norm
+    and every param after the last step bitwise equal; finite losses;
+    RMSNorm m x the plan's implied launches a step, m x (4L+1) resident.
+    Reported: both step times, the params' swap-in bytes a step against m
+    x lms_ab's (m = 1) and against the plan's, both peaks against the
+    plan's. -> the phase row."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.config.base import LMSConfig
+    from repro_torch.core.lms import offload as off
+    from repro_torch.tree import tree_leaves
+    L, n, m = LMS_AB_LAYERS, LMS_STEPS, DDL_SHARDED_MICROBATCHES
+    base = _train_config(L, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=n,
+                         microbatches=m)
+    runs, params = {}, {}
+    for name, lms in (("streamed", LMSConfig(hbm_budget=LMS_AB_BUDGET)),
+                      ("resident", LMSConfig(enabled=False))):
+        trainer, state, hist, facts = _lms_run(dataclasses.replace(base, lms=lms), n)
+        plan = trainer.plan
+        params[name] = tree_leaves(state.params)
+        unchecked = sorted(facts["seen"] - checked)
+        launches = facts["launches"]
+        implied = m * _implied_rmsnorm_launches(plan, L)
+        runs[name] = {
+            "plan": _plan_row(plan), "loss": [r["loss"] for r in hist],
+            "grad_norm": [r["grad_norm"] for r in hist], "step_s": [r["time_s"] for r in hist],
+            "median_step_s_after_1": statistics.median(r["time_s"] for r in hist[1:]),
+            "setup_s": facts["setup_s"], "max_memory_allocated_bytes": facts["peak_bytes"],
+            "pinned_bytes": facts["pinned_bytes"], "swap_per_step": facts["swap_per_step"],
+            "rmsnorm_launches_per_step": launches["rmsnorm"] / n,
+            "implied_rmsnorm_launches_per_step": implied,
+            "unchecked_signatures": unchecked,
+            "checks": {"finite": all(math.isfinite(r["loss"]) for r in hist),
+                       "rmsnorm_launches_as_the_plan_implies": launches["rmsnorm"] == n * implied,
+                       "no_other_launches": all(v == 0 for k, v in launches.items()
+                                                if not k.startswith("rmsnorm")),
+                       "every_launch_recorded": facts["calls"] == launches,
+                       "every_launch_shape_checked": not unchecked}}
+        del trainer, state, hist
+        torch.cuda.empty_cache()
+    s, r = runs["streamed"], runs["resident"]
+    same_params = [torch.equal(a.to(b.device), b)
+                   for a, b in zip(params["streamed"], params["resident"])]
+    del params
+    off.release_arenas()
+    params_in = s["swap_per_step"].get("lms.swap_in_bytes.params", 0)
+    params_in_m1 = ab_row["streamed"]["swap_per_step"].get("lms.swap_in_bytes.params", 0)
+    checks = {**{f"streamed_{k}": v for k, v in s["checks"].items()},
+              **{f"resident_{k}": v for k, v in r["checks"].items()},
+              "plan_streams_params": "params" in s["plan"]["swap_bytes"],
+              "loss_bitwise": s["loss"] == r["loss"],
+              "grad_norm_bitwise": s["grad_norm"] == r["grad_norm"],
+              "params_bitwise": all(same_params),
+              "params_swapped_in_m_times_m1": params_in == m * params_in_m1 > 0}
+    row = {"phase": "lms_ab_microbatches", "arch": ARCH, "layers": L, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "microbatches": m, "steps": n, "card": line,
+           "hbm_budget": LMS_AB_BUDGET, "streamed": s, "resident": r,
+           "overhead": s["median_step_s_after_1"] / r["median_step_s_after_1"] - 1,
+           "params_unequal": [i for i, ok in enumerate(same_params) if not ok],
+           "params_in_per_step": params_in, "params_in_per_step_m1": params_in_m1,
+           "params_priced": s["plan"]["swap_bytes"].get("params"),
+           "peak_vs_plan": {k: {"measured": runs[k]["max_memory_allocated_bytes"],
+                                "plan": runs[k]["plan"]["peak_bytes"] if runs[k]["plan"]
+                                else None} for k in runs},
+           "checks": checks}
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"lms_ab_microbatches: failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return row
+
+
 def copy_seconds(prof) -> dict:
     """Device seconds of a torch.profiler run's host-device copies by
     direction, and the busy time of the copies and of everything else
@@ -4363,6 +4859,7 @@ def lms_phases(line, checked):
     emit({"phase": "lms_reserve", "layers": layers, "bytes": _pinned_state_bytes(layers),
           "seconds": time.monotonic() - t0, "meminfo": _mem_row()})
     ab_row = lms_ab_phase(line, checked)
+    lms_ab_microbatches_phase(line, checked, ab_row)
     return host_row, ab_row, lms_gate_phase(line, checked, host_row, ab_row, layers)
 
 
@@ -4418,7 +4915,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ddl_row = ddl_phase(line, checked)
-    ddl_smoke_phase(line, checked)
+    smoke_reference = ddl_smoke_phase(line, checked)
+    ddl_sharded_phase(line, checked)
+    ddl_sharded_smoke_phase(line, checked, smoke_reference)
     lms_ddl_phase(line, checked, ddl_row)
     lms_phases(line, checked)
 

@@ -1,4 +1,5 @@
-"""Weights and train states from the JAX package into the port.
+"""Weights and train states (replicated or zero1) from the JAX package
+into the port.
 
 The port keeps the JAX param tree's key names and stacked `[L, ...]`
 layout, so converting is a tree map over numpy arrays (as `np.asarray`
@@ -48,3 +49,22 @@ def train_state_from_jax(state, device):
     else:
         opt = SGDState(step(opt.step), params_from_jax(opt.momentum, device))
     return TrainState(step(state.step), params_from_jax(state.params, device), opt)
+
+
+def zero1_state_from_jax(state, device, rank: int, data_size: int):
+    """A JAX `Zero1State` whose leaves are numpy arrays -> the port's
+    `Zero1State` of the rank at `data` coordinate `rank` on `device`: the
+    params through `params_from_jax`, and of the global flat mu, nu and
+    master vectors (sharded over `data`, rank-major in both of the JAX
+    package's layouts) this rank's block of padded / |data| elements,
+    exactly."""
+    from repro_torch.train.steps import Zero1State
+
+    def block(flat):
+        flat = np.asarray(flat)
+        n = flat.shape[0] // data_size
+        return array_to_torch(flat[rank * n:(rank + 1) * n], device)
+    return Zero1State(torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                                   device=device),
+                      params_from_jax(state.params, device),
+                      block(state.mu), block(state.nu), block(state.master))

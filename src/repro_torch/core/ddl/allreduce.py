@@ -14,7 +14,9 @@ Every collective goes through the rank's `launch.mesh.Mesh` (`mesh=`),
 where the JAX package names an axis of its `shard_map`. The port has no
 tensor parallelism yet: every leaf is replicated, so the JAX package's
 per-leaf PartitionSpecs (`param_specs`, `spec`) have no counterpart here.
-The beyond-paper zero1 mode waits for a later slice.
+The beyond-paper zero1 mode (`train/steps.build_zero1_train_step`) stops at
+phase 2 (`hierarchical_reduce_scatter_flat`), updates its 1/|data| shard of
+the optimizer state and all-gathers the params.
 
 Memory. Phase 2 runs on slices of at most `POD_SLICE` = 2**24 elements of
 the flat shard, so its f32 work buffers stay at a few x 64 MiB whatever
@@ -70,6 +72,22 @@ def pack_spec(tree, pad_to: int) -> PackSpec:
 def pack(tree, spec: PackSpec, dtype=torch.float32) -> torch.Tensor:
     flat = torch.cat([l.to(dtype).reshape(-1) for l in tree_leaves(tree)])
     return F.pad(flat, (0, spec.padded - spec.total))
+
+
+def pack_block(tree, spec: PackSpec, rank: int, out: torch.Tensor) -> torch.Tensor:
+    """Rank `rank`'s block of `pack(tree, spec)` split in `spec.pad_to`
+    equal blocks (zero1's shard), leaf by leaf into `out` (f32, anywhere):
+    no leaf's f32 copy stands whole."""
+    n = spec.padded // spec.pad_to
+    lo = rank * n
+    out.zero_()
+    off = 0
+    for leaf, size in zip(tree_leaves(tree), spec.sizes):
+        a, b = max(off, lo), min(off + size, lo + n)
+        if a < b:
+            out[a - lo:b - lo].copy_(leaf.reshape(-1)[a - off:b - off].float())
+        off += size
+    return out
 
 
 def unpack(flat: torch.Tensor, spec: PackSpec):
@@ -202,6 +220,9 @@ def ddl_reduce_leaf(g, *, mesh, data_axis: str, pod_axis: Optional[str],
         return dst, _ef_like(new_ef, error_feedback)
     moved = g.float().movedim(sdim, 0).contiguous()
     shard = mesh.psum_scatter(moved, data_axis).movedim(0, sdim).contiguous()
+    # a bf16 leaf's f32 copy (3.1 GB for qwen2.5-14b's head) goes before
+    # the gathered leaf comes
+    del moved
     new_ef = _pod_reduce_(shard.view(-1), shard.view(-1), mesh=mesh, pod_axis=pod_axis,
                           compress_dcn=compress_dcn,
                           error_feedback=ef, mean_over=mean_over)

@@ -1,6 +1,7 @@
 """Overlapped backward: DDL gradient reduction issued inside the backward
-pass, layer by layer — the port of the JAX package's `core/ddl/overlap.py`
-in its "full" keep mode.
+pass, layer by layer — the port of the JAX package's `core/ddl/overlap.py`,
+in both its keep modes, and the shard-major flat layout of the zero1 step
+and of the sharded microbatch accumulator.
 
 The post-hoc `ddl_reduce_tree` pass serializes every RS/AR/AG behind the
 last layer's backward. `make_grad_reduce_hook` instead wraps one layer's
@@ -15,8 +16,16 @@ Small leaves coalesce into fixed-size buckets (`make_buckets`, sized by
 `DDLConfig.bucket_mb`), so the fabric sees few large collectives instead
 of one per norm-scale vector. Bucketing is per layer: bucketing across
 layers would serialize the backward sweep the hook exists to overlap.
-Each bucket goes RS(data) -> AR(pod) -> AG(data) and comes back as the
-fully reduced mean gradient (the paper's allreduce schedule).
+Two keep modes, as in the JAX package:
+  - "full": each bucket goes RS(data) -> AR(pod) -> AG(data) and comes
+    back as the fully reduced mean gradient (the paper's allreduce
+    schedule);
+  - "shard": stop after AR(pod) and keep only this rank's 1/|data| slot of
+    each leaf, written into a zero grad of the leaf's full shape. The zero1
+    step and the sharded microbatch accumulator slice the slot back out
+    (`collect_local_shards`): no all-gather on the gradient path. A JAX
+    cotangent has the param's dtype, so the f32 mean is rounded to it on
+    its way out of the hook; the port rounds at the same place.
 
 Under LMS (the layer-streaming executor, `models/transformer.py`) the
 stack is not differentiated through autograd: each layer's grads leave the
@@ -32,20 +41,30 @@ while a layer reduces; it waits only when `depth` layers are queued. The
 hook's own backward (`_ReduceGrads`, the resident path) still reduces
 inline, blocking the backward.
 
-Not ported yet: the JAX package's "shard" keep mode, `ShardSpec` and the
-shard-major layout of the zero1 step and of the sharded microbatch
-accumulator; its "full" mode is the only one here, without a `keep`
-argument.
+`ShardSpec` is the shard-major flat layout those slots live in: each leaf
+viewed as [rows, rowsize] (rows = the layer count for a stacked leaf, else
+1), rowsize padded to a multiple of |data|; rank r owns column block r of
+every leaf. The port's collectives scatter and gather along dim 0 only,
+so where the JAX package scatters a [rows, padded_row] matrix along dim 1
+the port lays it out as [|data|, rows, sl] and scatters dim 0: the same
+sums in another layout. In the LMS executor's queue the shard mode adds
+(or, for zero1, copies) each layer's slot into that layer's rows of a
+flat buffer.
+
+Not ported yet: the JAX package's per-leaf PartitionSpecs (`param_specs`),
+which only tensor parallelism needs.
 Error feedback is not threaded through the hooks, as in the JAX package
 (its `custom_vjp` backward returns cotangents only): compressed buckets
 quantize statelessly here.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 import queue
 import threading
 import time
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -90,6 +109,51 @@ def _reduce_bucket_full(flat, *, mesh, data_axis, pod_axis, data_size, pod_size,
     return full[:flat.numel()]
 
 
+def _reduce_bucket_shard(parts, *, mesh, data_axis, pod_axis, data_size, pod_size,
+                         compress_dcn):
+    """Reduce a bucket of leaves keeping only this rank's 1/|data| slot of
+    EACH leaf, written into a zero grad of the leaf's shape and dtype
+    (phases 1-2 only; no all-gather).
+
+    Rank r owns elements [r*sl, (r+1)*sl) of every leaf's padded flat row,
+    the ShardSpec layout (not rank r's chunk of the concatenated bucket).
+    Each leaf is laid out [d, sl], the leaves side by side: row r holds
+    every leaf's rank-r chunk, and one reduce-scatter over the rows hands
+    each rank exactly its chunks."""
+    d = max(data_size, 1)
+    mean_over = data_size * pod_size
+    cols, sls = [], []
+    for g in parts:
+        flat = _flat_f32(g)
+        pr = flat.numel() + ((-flat.numel()) % d)
+        sls.append(pr // d)
+        cols.append(F.pad(flat, (0, pr - flat.numel())).view(d, pr // d))
+    mat = torch.cat(cols, dim=1)                             # [d, bucket_sl]
+    shard = mesh.psum_scatter(mat, data_axis).reshape(-1)   # [bucket_sl]
+    _pod_reduce_(shard, shard, mesh=mesh, pod_axis=pod_axis, compress_dcn=compress_dcn,
+                 mean_over=mean_over)
+    rank = mesh.index(data_axis)
+    out, off = [], 0
+    for g, sl in zip(parts, sls):
+        full = torch.zeros(d * sl, dtype=torch.float32, device=shard.device)
+        full[rank * sl:(rank + 1) * sl] = shard[off:off + sl]
+        out.append(full[:max(g.numel(), 1)].reshape(g.shape).to(g.dtype))
+        off += sl
+    return out
+
+
+def local_slot(g, data_size: int, rank: int) -> torch.Tensor:
+    """Rank `rank`'s slot of one layer's (or unstacked leaf's) grad, as the
+    shard mode lays it out: f32 elements [rank*sl, (rank+1)*sl) of the
+    flat leaf padded to a multiple of |data| with zeros."""
+    d = max(data_size, 1)
+    flat = g.reshape(-1)
+    sl = (flat.numel() + (-flat.numel()) % d) // d
+    lo, hi = rank * sl, min((rank + 1) * sl, flat.numel())
+    part = flat[lo:hi].float()
+    return F.pad(part, (0, sl - part.numel())) if part.numel() < sl else part
+
+
 def _split_bucket(flat, leaves):
     """Undo the concat of `leaves` (original shapes/dtypes) from flat f32."""
     out, off = [], 0
@@ -101,29 +165,36 @@ def _split_bucket(flat, leaves):
 
 
 def reduce_tree_bucketed(ct, cfg: DDLConfig, *, mesh, data_axis: str,
-                         pod_axis: Optional[str], data_size: int, pod_size: int):
-    """DDL-reduce one layer's grad tree with fixed-size bucketing, each
-    bucket to its full mean (the JAX package's keep="full"). This is the
-    hook's backward, exposed for direct testing. Counts the buckets and
-    their f32 bytes on the global registry (`ddl.buckets`,
+                         pod_axis: Optional[str], data_size: int, pod_size: int,
+                         keep: str = "full"):
+    """DDL-reduce one layer's grad tree with fixed-size bucketing: with
+    keep="full" each bucket to its full mean, with keep="shard" to this
+    rank's slot of each leaf in a zero grad (`_reduce_bucket_shard`). This
+    is the hook's backward, exposed for direct testing. Counts the buckets
+    and their f32 bytes on the global registry (`ddl.buckets`,
     `ddl.bucket_bytes`) and records a `ddl.bucket` event, once a call."""
+    if keep not in ("full", "shard"):
+        raise ValueError(f"keep must be 'full' or 'shard', not {keep!r}")
     leaves = tree_leaves(ct)
     out: List[Optional[torch.Tensor]] = [None] * len(leaves)
     sizes = [max(g.numel(), 1) for g in leaves]
     buckets = make_buckets(sizes, _bucket_elems(cfg))
     if buckets:
         obs = get_obs()
-        obs.instant("ddl.bucket", buckets=len(buckets), bytes=4 * sum(sizes), keep="full")
+        obs.instant("ddl.bucket", buckets=len(buckets), bytes=4 * sum(sizes), keep=keep)
         obs.registry.counter("ddl.buckets").inc(len(buckets))
         obs.registry.counter("ddl.bucket_bytes").inc(4 * sum(sizes))
+    axes = dict(mesh=mesh, data_axis=data_axis, pod_axis=pod_axis, data_size=data_size,
+                pod_size=pod_size, compress_dcn=cfg.compress_dcn)
     for bucket in buckets:
         parts = [leaves[i] for i in bucket]
-        flat = torch.cat([_flat_f32(p) for p in parts])
-        red = _reduce_bucket_full(
-            flat, mesh=mesh, data_axis=data_axis, pod_axis=pod_axis,
-            data_size=data_size, pod_size=pod_size, compress_dcn=cfg.compress_dcn,
-            topology_aware=cfg.topology_aware)
-        for i, r in zip(bucket, _split_bucket(red, parts)):
+        if keep == "full":
+            flat = torch.cat([_flat_f32(p) for p in parts])
+            reduced = _split_bucket(_reduce_bucket_full(
+                flat, topology_aware=cfg.topology_aware, **axes), parts)
+        else:
+            reduced = _reduce_bucket_shard(parts, **axes)
+        for i, r in zip(bucket, reduced):
             out[i] = r
     return tree_unflatten(ct, out)
 
@@ -180,24 +251,34 @@ class ReductionQueue:
     while it is on the device: the clip then needs no second read of grads
     sunk to the host.
 
+    With `slot` (the hook's shard mode): each layer's dst is its rows of
+    a flat f32 buffer (one [sl] view a leaf), and the queue writes this
+    rank's slot of the layer's reduced grads there (`slot`, rounded to the
+    param's dtype first, as the hook's output is): added with
+    `open(accumulate=True)` (the sharded microbatch accumulator), copied
+    otherwise (zero1's grad shard).
+
     Timing, of the last step (host clock): `reduce_s`, the worker's time
     reducing; `under_backward_s`, the part of it before the backward
     ended (`drain` was called); `drain_wait_s`, how long `drain` waited."""
 
-    def __init__(self, reduce: Callable, sink: Optional[str] = None):
+    def __init__(self, reduce: Callable, sink: Optional[str] = None,
+                 slot: Optional[Callable] = None):
         self.reduce = reduce
         self.sink = sink
+        self.slot = slot
         self._step = None
         self.reduce_s = self.under_backward_s = self.drain_wait_s = 0.0
 
-    def open(self, device, depth: int, squares=None) -> None:
-        """Start a step's queue: at most `depth` layers waiting."""
+    def open(self, device, depth: int, squares=None, accumulate: bool = False) -> None:
+        """Start a step's queue: at most `depth` layers waiting; in shard
+        mode `accumulate` adds each slot into its dst instead of copying."""
         if self._step is not None:
             raise RuntimeError("ReductionQueue.open: the last step's queue was not drained")
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.stream = worker_stream(self.device) if self.cuda else None
-        step = self._step = _QueueStep(max(int(depth), 1), squares)
+        step = self._step = _QueueStep(max(int(depth), 1), squares, accumulate)
         step.thread = threading.Thread(target=self._work, args=(step,), name="ddl-reduce",
                                        daemon=True)
         step.thread.start()
@@ -230,23 +311,28 @@ class ReductionQueue:
                 if self.cuda:
                     with torch.cuda.stream(self.stream):
                         self.stream.wait_event(event)
-                        self._reduce_into(i, grads, dst, step.squares)
+                        self._reduce_into(i, grads, dst, step.squares, step.accumulate)
                 else:
-                    self._reduce_into(i, grads, dst, step.squares)
+                    self._reduce_into(i, grads, dst, step.squares, step.accumulate)
             except BaseException as e:      # the thread's boundary: drain raises it
                 step.error = e
             step.spans.append((t0, time.monotonic()))
             del item, grads, dst
 
-    def _reduce_into(self, i: int, grads, dst, squares) -> None:
+    def _reduce_into(self, i: int, grads, dst, squares, accumulate: bool = False) -> None:
         red = tree_leaves(self.reduce(grads))
+        if self.slot is not None:
+            red = [self.slot(r) for r in red]
         if squares is not None:
             squares.add(i, red)
         if self.sink == off.HOST:
             off.record_swap("lms.swap_out", sum(r.numel() * r.element_size() for r in red),
                             "grads")
         for d, r in zip(tree_leaves(dst), red):
-            d.copy_(r, non_blocking=self.cuda)
+            if accumulate:
+                d.add_(r)
+            else:
+                d.copy_(r, non_blocking=self.cuda)
 
     def drain(self, layers: int) -> None:
         """Wait for every queued layer; raise what a reduction raised, or
@@ -282,11 +368,13 @@ class ReductionQueue:
 
 class _QueueStep:
     """One step of a ReductionQueue: its FIFO (at most `depth` layers
-    waiting), worker, layers put, the worker's spans and error."""
+    waiting), worker, layers put, the worker's spans and error, and
+    whether shard-mode slots are added or copied."""
 
-    def __init__(self, depth: int, squares):
+    def __init__(self, depth: int, squares, accumulate: bool = False):
         self.items: "queue.Queue" = queue.Queue(maxsize=depth)
         self.squares = squares
+        self.accumulate = accumulate
         self.thread = None
         self.count = 0
         self.spans: List[tuple] = []
@@ -299,19 +387,28 @@ class GradReduceHook:
     (`lp = hook(lp)`), an identity whose backward reduces the layer's
     grads inline (the resident path); `reduce(ct)` reduces one layer's
     grads tree (the same buckets, so the same sums); `queue` reduces
-    layers on a worker thread for the LMS executor. `sink`: where the
-    queue writes the means, None (the device) or the pinned host kind
-    (`offload.HOST`: the gradient host sink)."""
+    layers on a worker thread for the LMS executor. `keep`: "full" or
+    "shard" (the module docstring). `sink`: where the queue writes the
+    means, None (the device) or the pinned host kind (`offload.HOST`: the
+    gradient host sink)."""
 
     def __init__(self, cfg: DDLConfig, *, mesh, data_axis: str, pod_axis: Optional[str],
-                 data_size: int, pod_size: int, sink: Optional[str] = None):
-        self.cfg, self.mesh = cfg, mesh
+                 data_size: int, pod_size: int, keep: str = "full",
+                 sink: Optional[str] = None):
+        if keep not in ("full", "shard"):
+            raise ValueError(f"keep must be 'full' or 'shard', not {keep!r}")
+        self.cfg, self.mesh, self.keep = cfg, mesh, keep
         self.axes = dict(data_axis=data_axis, pod_axis=pod_axis, data_size=data_size,
                          pod_size=pod_size)
-        self.queue = ReductionQueue(self.reduce, sink)
+        self.queue = ReductionQueue(self.reduce, sink,
+                                    self.slot if keep == "shard" else None)
 
     def reduce(self, ct):
-        return reduce_tree_bucketed(ct, self.cfg, mesh=self.mesh, **self.axes)
+        return reduce_tree_bucketed(ct, self.cfg, mesh=self.mesh, keep=self.keep, **self.axes)
+
+    def slot(self, g) -> torch.Tensor:
+        """This rank's slot of one layer's leaf (`local_slot`)."""
+        return local_slot(g, self.axes["data_size"], self.mesh.index(self.axes["data_axis"]))
 
     def __call__(self, tree):
         outs = _ReduceGrads.apply(self.reduce, tree, *tree_leaves(tree))
@@ -320,25 +417,216 @@ class GradReduceHook:
 
 def make_grad_reduce_hook(cfg: DDLConfig, *, mesh, data_axis: str = "data",
                           pod_axis: Optional[str] = None, data_size: int = 1,
-                          pod_size: int = 1, sink: Optional[str] = None) -> GradReduceHook:
+                          pod_size: int = 1, keep: str = "full",
+                          sink: Optional[str] = None) -> GradReduceHook:
     """Identity-forward wrapper whose backward DDL-reduces the grads: wrap a
     layer's param tree before the layer runs (`lp = hook(lp)`), and the
     backward issues that layer's collectives as soon as its grads exist.
-    `sink`: the memory kind the LMS executor's queue writes the reduced
-    grads to (`offload.HOST` for a plan with grads on the host; None keeps
-    them on the device), as the JAX package's `sink`."""
+    `keep`: "full" or "shard". `sink`: the memory kind the LMS executor's
+    queue writes the reduced grads to (`offload.HOST` for a plan with
+    grads on the host; None keeps them on the device), as the JAX
+    package's `sink`."""
     return GradReduceHook(cfg, mesh=mesh, data_axis=data_axis, pod_axis=pod_axis,
-                          data_size=data_size, pod_size=pod_size, sink=sink)
+                          data_size=data_size, pod_size=pod_size, keep=keep, sink=sink)
 
 
 def make_stack_hooks(stack_names: Iterable[str], cfg: DDLConfig, *, mesh,
                      data_axis: str = "data", pod_axis: Optional[str] = None,
-                     data_size: int = 1, pod_size: int = 1,
+                     data_size: int = 1, pod_size: int = 1, keep: str = "full",
                      sink: Optional[str] = None) -> Dict[str, GradReduceHook]:
     """One hook per decoder stack group, by name (the JAX package keys them
     by the groups' PartitionSpec trees, which the port does not have).
-    `sink`: as `make_grad_reduce_hook`'s."""
+    `keep`, `sink`: as `make_grad_reduce_hook`'s."""
     return {name: make_grad_reduce_hook(
                 cfg, mesh=mesh, data_axis=data_axis, pod_axis=pod_axis,
-                data_size=data_size, pod_size=pod_size, sink=sink)
+                data_size=data_size, pod_size=pod_size, keep=keep, sink=sink)
             for name in stack_names}
+
+
+# ---------------------------------------------------------------------------
+# Shard-major flat layout (zero1 state / sharded microbatch accumulator)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ShardSpec:
+    """Layout of one rank's flat shard of a reduce-scattered tree.
+
+    Each leaf is a [rows, rowsize] matrix (rows: the layer count for a
+    stacked decoder leaf, 1 otherwise) with rowsize zero-padded to
+    `padded_row` (a multiple of |data|). Rank r's shard of a leaf is its
+    column block [:, r*sl:(r+1)*sl] (sl = padded_row / |data|); the flat
+    local vector is those blocks flattened and concatenated in leaf
+    order."""
+    shapes: List[Tuple[int, ...]]
+    dtypes: List
+    rows: List[int]
+    rowsizes: List[int]
+    padded_rows: List[int]
+    treedef: object       # the laid-out tree: its structure for unflatten
+    data_size: int
+
+    @property
+    def local_size(self) -> int:
+        d = max(self.data_size, 1)
+        return sum(r * (p // d) for r, p in zip(self.rows, self.padded_rows))
+
+    @property
+    def padded(self) -> int:
+        """Global flat length (every rank's local vector, rank-major)."""
+        return max(self.data_size, 1) * self.local_size
+
+    def offsets(self) -> List[int]:
+        """Each leaf's start in the local vector."""
+        d = max(self.data_size, 1)
+        out, off = [], 0
+        for r, p in zip(self.rows, self.padded_rows):
+            out.append(off)
+            off += r * (p // d)
+        return out
+
+
+def shard_spec(tree, data_size: int, stacked=None) -> ShardSpec:
+    """The layout of a tree of tensors (meta tensors will do). `stacked`: a
+    matching tree of bools, True for leaves whose leading dim is the
+    decoder stack's layer dim."""
+    leaves = tree_leaves(tree)
+    flags = [False] * len(leaves) if stacked is None else tree_leaves(stacked)
+    if len(flags) != len(leaves):
+        raise ValueError(f"stacked has {len(flags)} leaves, the tree {len(leaves)}")
+    d = max(data_size, 1)
+    shapes, dtypes, rows, rowsizes, padded = [], [], [], [], []
+    for leaf, st in zip(leaves, flags):
+        shape = tuple(leaf.shape)
+        n = math.prod(shape)
+        r = shape[0] if (st and shape) else 1
+        rs = max(n // max(r, 1), 1)
+        shapes.append(shape)
+        dtypes.append(leaf.dtype)
+        rows.append(r)
+        rowsizes.append(rs)
+        padded.append(rs + ((-rs) % d))
+    return ShardSpec(shapes, dtypes, rows, rowsizes, padded, tree, d)
+
+
+def _leaf_rows(g, r: int, rs: int, pr: int) -> torch.Tensor:
+    """A leaf as f32 [r, pr]: its rows, zero-padded."""
+    x = g.float().reshape(r, rs)
+    return F.pad(x, (0, pr - rs)) if pr > rs else x
+
+
+def _by_rank(x, d: int) -> torch.Tensor:
+    """[r, d * sl] -> [d, r, sl] contiguous: column block k as block k of
+    dim 0, where the port's collectives scatter and gather."""
+    r, pr = x.shape
+    return x.reshape(r, d, pr // d).transpose(0, 1).contiguous()
+
+
+def local_shard_parts(tree, spec: ShardSpec, reduced, *, mesh, data_axis: str,
+                      pod_axis: Optional[str], mean_over: int, compress_dcn: bool = False):
+    """Yield (offset in the local vector, this rank's flat f32 part of the
+    leaf) for each leaf of the DDL-reduced tree, in leaf order. `reduced`:
+    a matching tree of bools, True for leaves the shard-mode hook already
+    reduced (zeros outside this rank's slot: sliced out, no collective),
+    False for the rest (reduce-scattered over `data`, then the pod hop and
+    the mean). A leaf given as None is skipped (its part is elsewhere
+    already: the LMS executor's queue wrote it)."""
+    leaves = tree_leaves(tree)
+    flags = tree_leaves(reduced)
+    if len(flags) != len(leaves):
+        raise ValueError(f"reduced has {len(flags)} leaves, the tree {len(leaves)}")
+    d = spec.data_size
+    rank = mesh.index(data_axis)
+    for g, was_reduced, r, rs, pr, off in zip(leaves, flags, spec.rows, spec.rowsizes,
+                                             spec.padded_rows, spec.offsets()):
+        if g is None:
+            continue
+        sl = pr // d
+        if was_reduced:
+            rows = g.reshape(r, rs)
+            if r == 1:
+                part = local_slot(rows, d, rank)
+            else:
+                part = torch.stack([local_slot(row, d, rank) for row in rows]).reshape(-1)
+        else:
+            x = _leaf_rows(g, r, rs, pr)
+            x = x.reshape(d, sl) if r == 1 else _by_rank(x, d)
+            part = mesh.psum_scatter(x, data_axis).reshape(-1)
+            if part.data_ptr() == x.data_ptr():
+                part = part.clone()     # |data| 1: the pod hop writes in place
+            _pod_reduce_(part, part, mesh=mesh, pod_axis=pod_axis,
+                         compress_dcn=compress_dcn, mean_over=mean_over)
+        yield off, part
+
+
+def collect_local_shards(tree, spec: ShardSpec, reduced, *, mesh, data_axis: str,
+                         pod_axis: Optional[str], mean_over: int,
+                         compress_dcn: bool = False) -> torch.Tensor:
+    """One rank's flat [local_size] f32 shard of the DDL-reduced tree
+    (`local_shard_parts`, concatenated)."""
+    parts = [p for _, p in local_shard_parts(
+        tree, spec, reduced, mesh=mesh, data_axis=data_axis, pod_axis=pod_axis,
+        mean_over=mean_over, compress_dcn=compress_dcn)]
+    return torch.cat(parts)
+
+
+def leaf_part(flat, spec: ShardSpec, j: int) -> torch.Tensor:
+    """Leaf j's part of the local vector `flat`: [rows * sl], a view."""
+    r, sl = spec.rows[j], spec.padded_rows[j] // spec.data_size
+    off = spec.offsets()[j]
+    return flat[off:off + r * sl]
+
+
+def gather_leaf(part, spec: ShardSpec, j: int, *, mesh, data_axis: str) -> torch.Tensor:
+    """Leaf j from its local part (`leaf_part`): the column blocks
+    all-gathered over `data`, unpadded, in the leaf's shape, f32."""
+    d = spec.data_size
+    r, rs, pr = spec.rows[j], spec.rowsizes[j], spec.padded_rows[j]
+    sl = pr // d
+    full = mesh.all_gather(part.reshape(r, sl), data_axis)   # [d * r, sl]
+    if r > 1 and d > 1:
+        full = full.reshape(d, r, sl).transpose(0, 1)
+    return full.reshape(r, d * sl)[:, :rs].reshape(spec.shapes[j])
+
+
+def allgather_local_shards(flat, spec: ShardSpec, *, mesh, data_axis: str):
+    """Invert `collect_local_shards`: every leaf gathered (`gather_leaf`),
+    f32, in the spec's tree."""
+    return tree_unflatten(spec.treedef, [gather_leaf(leaf_part(flat, spec, j), spec, j,
+                                                     mesh=mesh, data_axis=data_axis)
+                                         for j in range(len(spec.shapes))])
+
+
+def pack_global(tree, spec: ShardSpec) -> torch.Tensor:
+    """Full tree -> the global flat [|data| * local_size] f32 vector in
+    shard-major order (rank r's local vector is block r). No collectives."""
+    d = spec.data_size
+    blocks = [_by_rank(_leaf_rows(g, r, rs, pr), d).reshape(d, -1)
+              for g, r, rs, pr in zip(tree_leaves(tree), spec.rows, spec.rowsizes,
+                                      spec.padded_rows)]
+    return torch.cat(blocks, dim=1).reshape(-1)
+
+
+def rank_block(tree, spec: ShardSpec, rank: int, out: torch.Tensor) -> torch.Tensor:
+    """Rank `rank`'s block of `pack_global(tree, spec)`, leaf by leaf into
+    `out` (f32 [local_size], anywhere): no leaf's f32 copy stands whole."""
+    d = spec.data_size
+    for g, r, rs, pr, off in zip(tree_leaves(tree), spec.rows, spec.rowsizes,
+                                 spec.padded_rows, spec.offsets()):
+        sl = pr // d
+        rows = g.reshape(r, rs)
+        for i in range(r):
+            out[off + i * sl:off + (i + 1) * sl].copy_(local_slot(rows[i], d, rank))
+    return out
+
+
+def unpack_global(flat, spec: ShardSpec):
+    """Inverse of `pack_global` (f32 leaves, their shapes)."""
+    d = spec.data_size
+    mat = flat.reshape(d, spec.local_size)
+    out = []
+    for shape, r, rs, pr, off in zip(spec.shapes, spec.rows, spec.rowsizes,
+                                     spec.padded_rows, spec.offsets()):
+        sl = pr // d
+        x = mat[:, off:off + r * sl].reshape(d, r, sl).transpose(0, 1).reshape(r, pr)
+        out.append(x[:, :rs].reshape(shape))
+    return tree_unflatten(spec.treedef, out)

@@ -20,15 +20,20 @@ the JAX launcher parses it) must have WORLD_SIZE devices:
 
 With LMS on (LMS + DDL) every rank plans the same step for its card and
 reduces each layer's grads over the ranks while the backward goes on;
-`--no-lms` trains resident.
+`--no-lms` trains resident. `--ddl-mode zero1` shards the AdamW state over
+the data ranks; `--microbatches M` accumulates M microbatches a step (on a
+mesh with the overlapped backward, as reduce-scattered shards):
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --arch qwen2.5-14b --smoke \
+        --mesh 1x2x1 --ddl-mode zero1 --steps 20 --batch 8 --seq 128
 
 The process group is NCCL when every rank has a card of its own, gloo
 otherwise (ranks on the CPU, or sharing a card). Only rank 0 prints.
 
-DDL's zero1 mode, tensor parallelism (a `model` axis above 1), LMS with
-microbatches, checkpoints, the Supervisor, fault drills,
-heartbeats, loss-spike telemetry and the trace and obs-report exports are
-not ported yet: their flags raise.
+Tensor parallelism (a `model` axis above 1), checkpoints, the Supervisor,
+fault drills, heartbeats, loss-spike telemetry and the trace and
+obs-report exports are not ported yet: their flags raise.
 """
 from __future__ import annotations
 
@@ -62,14 +67,8 @@ def _unported(args) -> list:
     """The flags given whose feature is not ported yet."""
     mesh = parse_mesh(args.mesh)
     given = {
-        "--no-lms absent with --microbatches above 1 (LMS with microbatches)":
-            not args.no_lms and args.microbatches > 1,
-        "--ddl-mode zero1": args.ddl_mode == "zero1",
         "--mesh with a model axis above 1 (tensor parallelism)":
             dict(zip(mesh.axes, mesh.shape)).get("model", 1) > 1,
-        "--microbatches above 1 with the overlapped backward on a mesh of "
-        "several ranks": (args.microbatches > 1 and args.ddl_mode != "none"
-                          and mesh.num_devices > 1),
         "--ckpt-dir": args.ckpt_dir is not None,
         "--ckpt-every": args.ckpt_every is not None,
         "--trace": bool(args.trace),

@@ -1,9 +1,12 @@
 """Step construction: the train step in the JAX package's paper-faithful
 mode (DDL allreduce over the ranks of a data-parallel mesh, replicated
-optimizer), resident or under an LMS memory plan (on one device or on
-every rank of the mesh: LMS + DDL), and for the serve path the
+optimizer) and in its zero1 mode (the AdamW state sharded over the data
+ranks: `build_zero1_train_step`), each resident or under an LMS memory
+plan (on one device or on every rank of the mesh: LMS + DDL), with
+microbatches accumulated in f32 (on a mesh with the overlapped backward,
+as reduce-scattered 1/|data| shards); and for the serve path the
 whole-batch prefill and decode steps of the static loop and the serve
-engine's slot decode step. The zero1 step comes in a later slice.
+engine's slot decode step. Serve plans are not ported yet.
 
 PyTorch runs eagerly, so a step is a plain callable: no jit, no shardings
 and no buffer donation — where the JAX package donates a cache or a train
@@ -31,7 +34,10 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.config.base import DDLConfig, ShapeConfig, TrainConfig
-from repro_torch.core.ddl.allreduce import ddl_reduce_tree
+from repro_torch.core.ddl import overlap as ddl_overlap
+from repro_torch.core.ddl.allreduce import (PackSpec, ddl_reduce_tree,
+                                            hierarchical_reduce_scatter_flat, pack,
+                                            pack_block, pack_spec)
 from repro_torch.core.ddl.overlap import make_stack_hooks
 from repro_torch.core.lms import offload as off
 from repro_torch.core.lms.planner import MemoryPlan, OPT_REST_CHUNKS, plan_to_policy
@@ -41,10 +47,10 @@ from repro_torch.models import kvquant, paging
 from repro_torch.models import transformer as tr
 from repro_torch.models.layers import DTYPES, init_pieces
 from repro_torch.models.model import Model
-from repro_torch.optim.adamw import (OPTIMIZERS, AdamState, SGDState, StackSquares,
-                                     _slices, adamw_slice_update, clip_by_global_norm,
-                                     clip_leaf, clip_scale, leaf_squares, norm_of,
-                                     sgdm_slice_update)
+from repro_torch.optim.adamw import (OPTIMIZERS, SLICE, AdamState, SGDState,
+                                     StackSquares, _slices, adamw_slice_update,
+                                     clip_by_global_norm, clip_leaf, clip_scale,
+                                     leaf_squares, norm_of, sgdm_slice_update)
 from repro_torch.optim.schedule import SCHEDULES
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -208,6 +214,44 @@ def _split_stack_grads(tree):
 
 def _merge_stack_grads(rest, stacks):
     return {**rest, "decoder": {**rest["decoder"], **stacks}}
+
+
+def _stacked_mask(tree):
+    """A matching tree of bools: True on the leaves of the decoder's stack
+    groups (the leaves the hooks reduce; their leading dim is the layer
+    dim)."""
+    def mark(sub, flag):
+        return tree_map(lambda _: flag, sub)
+    out = {k: mark(v, False) for k, v in tree.items() if k != "decoder"}
+    out["decoder"] = {k: mark(v, k.startswith("stack")) for k, v in tree["decoder"].items()}
+    return out
+
+
+def _meta_params(model: Model):
+    """The params' shapes and dtypes as a tree of meta tensors (no memory):
+    what `shard_spec` and `pack_spec` lay out."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=DTYPES[d.dtype], device="meta"),
+                    model.param_defs())
+
+
+def _stack_rows(flat, spec, stacked):
+    """The stack's leaves' parts of a flat ShardSpec vector as [L, sl]
+    views, in the stack's tree: what the LMS executor's queue writes each
+    layer's slot into (`_layer` takes row i)."""
+    parts = [ddl_overlap.leaf_part(flat, spec, j).view(spec.rows[j], -1)
+             for j, st in enumerate(tree_leaves(stacked)) if st]
+    return tree_unflatten(spec.treedef["decoder"]["stack0"], parts)
+
+
+def _write_parts(out, parts, add: bool = False):
+    """Write (or add) each (offset, part) of `local_shard_parts` into the
+    flat vector `out`."""
+    for o, part in parts:
+        dst = out[o:o + part.numel()]
+        if add:
+            dst.add_(part)
+        else:
+            dst.copy_(part)
 
 
 def _microbatch_split(batch, m: int):
@@ -412,10 +456,11 @@ class _Placer:
         return self.arena.take(shape, dtype)
 
 
-def _state_layout(paths, optimizer, params_host, opt_host, grads_host=False):
+def _state_layout(paths, optimizer, params_host, opt_host, grads_host=False,
+                  grads_f32=False):
     """-> (host bytes, [(path, shape, dtype, params on host)]); with
-    grads_host the stack's grads (in the params' dtypes) are in the host
-    bytes too."""
+    grads_host the stack's grads (in the params' dtypes, or f32 with
+    grads_f32: accumulated over microbatches) are in the host bytes too."""
     per = {"adamw": 3, "sgdm": 1}[optimizer]
     total, out = 0, []
     for path, shape, dtype in paths:
@@ -425,7 +470,7 @@ def _state_layout(paths, optimizer, params_host, opt_host, grads_host=False):
         if ph:
             total += nbytes
         if grads_host and _stack_path(path):
-            total += nbytes
+            total += off.PinnedArena.padded(4 * n) if grads_f32 else nbytes
         if opt_host:
             total += per * off.PinnedArena.padded(4 * n)
         out.append((path, shape, dtype, ph))
@@ -446,13 +491,14 @@ def _def_paths(defs, prefix=()):
 
 
 def _placed_state(optimizer, paths, device, params_host, opt_host, fill,
-                  grads_host=False):
+                  grads_host=False, grads_f32=False):
     """A TrainState laid out by the plan; fill(index, path, p, states)
     writes each leaf's values. With grads_host the state carries the
-    stack's grads tree in the arena (zeros), for the backward's host
-    sink."""
+    stack's grads tree in the arena (zeros), for the backward's host sink
+    (f32 with grads_f32, for the accumulated grads placed there at m >
+    1)."""
     host_bytes, layout = _state_layout(paths, optimizer, params_host, opt_host,
-                                       grads_host)
+                                       grads_host, grads_f32)
     placer = _Placer(device, host_bytes)
     nstate = 3 if optimizer == "adamw" else 1
     params, states, grads = {}, [{} for _ in range(nstate)], {}
@@ -464,18 +510,21 @@ def _placed_state(optimizer, paths, device, params_host, opt_host, fill,
         for tree, t in zip(states, st):
             _set(tree, path, t)
         if grads_host and _stack_path(path):
-            _set(grads, path[2:], placer.take(shape, dtype, True))
+            _set(grads, path[2:], placer.take(shape, torch.float32 if grads_f32 else dtype,
+                                              True))
     step = torch.zeros((), dtype=torch.int32, device=device)
     opt = (AdamState(step.clone(), *states) if optimizer == "adamw"
            else SGDState(step.clone(), *states))
     return TrainState(step, params, opt, grads if grads_host else None)
 
 
-def place_train_state(state: TrainState, plan: Optional[MemoryPlan], device) -> TrainState:
+def place_train_state(state: TrainState, plan: Optional[MemoryPlan], device,
+                      microbatches: int = 1) -> TrainState:
     """A copy of `state` placed as the plan says: the stack's params in
     pinned host memory when they stream, the optimizer state there when it
     streams, and a grads tree for the stack there when the plan sinks
-    grads (`_grads_host`), everything else on `device`."""
+    grads (`_grads_host`; f32 when `microbatches` > 1), everything else on
+    `device`."""
     device = torch.device(device)
     params_host, opt_host = _host_classes(plan)
     adam = isinstance(state.opt, AdamState)
@@ -495,7 +544,7 @@ def place_train_state(state: TrainState, plan: Optional[MemoryPlan], device) -> 
             dst.copy_(at(s, path))
 
     out = _placed_state("adamw" if adam else "sgdm", paths, device, params_host,
-                        opt_host, fill, _grads_host(plan))
+                        opt_host, fill, _grads_host(plan), microbatches > 1)
     step = state.step.to(device).clone()
     opt = out.opt._replace(step=state.opt.step.to(device).clone())
     return TrainState(step, out.params, opt, out.grads)
@@ -511,17 +560,22 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
     with m = tcfg.microbatches > 1 accumulated in f32 over the microbatches
     and divided by m, as the JAX package's scan does. On a mesh of several
     data-parallel ranks the grads are then DDL-reduced to their mean over
-    the ranks (`core/ddl`): with the overlapped backward (m == 1; on by
-    default, `_resolve_overlap`), the decoder stack's layer by layer inside
-    the backward and the rest (embedding, final norm, head) after it;
-    otherwise the whole tree after the backward. Then the grads are
-    clipped to tcfg.grad_clip by their global norm and the optimizer steps
-    with the lr of `warmup_cosine(state.step)`. The state is updated in
-    place and returned in a new TrainState with step + 1. The metrics are
-    f32 scalars on the device: loss, grad_norm, lr, ce and aux, the loss,
-    ce and aux as means over the ranks. Every rank ends the step with the
-    same params. On one device every reduction is the identity, as the
-    JAX package's collectives over axes of size 1 are.
+    the ranks (`core/ddl`): with the overlapped backward (on by default,
+    `_resolve_overlap`) the decoder stack's layer by layer inside the
+    backward and the rest (embedding, final norm, head) after it; otherwise
+    the whole tree after the backward. With the overlapped backward and
+    m > 1 the accumulator is sharded, as in the JAX package: the hooks keep
+    this rank's 1/|data| slot of each layer's mean (keep="shard"), the rest
+    is reduce-scattered after each microbatch, each microbatch's shard is
+    added into one f32 [local_size] vector (`ShardSpec` layout), and after
+    the last one `allgather_local_shards(acc / m)` gives the mean tree.
+    Then the grads are clipped to tcfg.grad_clip by their global norm and
+    the optimizer steps with the lr of `warmup_cosine(state.step)`. The
+    state is updated in place and returned in a new TrainState with step +
+    1. The metrics are f32 scalars on the device: loss, grad_norm, lr, ce
+    and aux, the loss, ce and aux as means over the ranks. Every rank ends
+    the step with the same params. On one device every reduction is the
+    identity, as the JAX package's collectives over axes of size 1 are.
 
     plan (or spec.plan): an LMS memory plan (`core/lms/planner.py`). Its
     policy (`plan_to_policy`) decides per tagged activation of each layer
@@ -536,24 +590,26 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
     (`core/ddl/overlap.ReductionQueue`), which reduces them on a thread of
     its own while the backward goes on and writes their mean into that
     tree: on the device, or, when the plan puts grads on the host
-    (`_grads_host`), into the state's pinned grads tree (the backward's
-    host sink), read back a layer at a time by the sweep. Without the
-    overlapped backward a plan's sunk grads are placed on the host after
-    the tree pass, as in the JAX package. Streamed and resident steps give
-    the same state bitwise, on one rank or several.
+    (`_grads_host`) and m == 1, into the state's pinned grads tree (the
+    backward's host sink), read back a layer at a time by the sweep.
+    Without the overlapped backward a plan's sunk grads are placed on the
+    host after the tree pass, as in the JAX package. With m > 1 the
+    executor runs once a microbatch: without the overlap each microbatch's
+    stack grads are added into the f32 accumulator as the resident path
+    adds them; with it the queue adds each layer's slot into that layer's
+    rows of the sharded accumulator. Streamed and resident steps give the
+    same state bitwise, on one rank or several, at any m.
 
-    ddl.mode "none" leaves the grads unreduced, as in the JAX package.
-    ddl.mode "zero1" and m > 1 with the overlapped backward (the JAX
-    package's sharded accumulator) are not ported yet and raise; so does a
-    tensor-parallel `model` axis (`make_mesh`), and, under a plan, m > 1,
+    ddl.mode "none" leaves the grads unreduced, as in the JAX package;
+    "zero1" is `build_zero1_train_step`'s (here it reduces as "allreduce",
+    as the JAX package's replicated step does). A tensor-parallel `model`
+    axis (`make_mesh`) is not ported yet and raises; so do, under a plan,
     params on the host with the optimizer on the device, and the Mamba-2
     stack."""
     spec = StepSpec() if spec is None else spec
     if spec.plan is None and plan is not None:
         spec = dataclasses.replace(spec, plan=plan)
     plan = spec.plan
-    if tcfg.ddl.mode == "zero1":
-        raise NotImplementedError("DDL zero1 is not ported yet")
     mesh = make_mesh(tcfg.mesh) if mesh is None else mesh
     sizes = mesh_axis_sizes(mesh)
     dpa = dp_axes(mesh)
@@ -566,13 +622,8 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
     sched = SCHEDULES["warmup_cosine"]
     m = tcfg.microbatches
     overlap = _resolve_overlap(spec.overlap_grads, plan, tcfg, mean_over)
-    if overlap and m > 1:
-        raise NotImplementedError(
-            f"microbatches={m} with the overlapped backward (the sharded "
-            "microbatch accumulator) is not ported yet; pass "
-            "DDLConfig(overlap_grads=False)")
     if plan is not None:
-        _check_plan(plan, model, m)
+        _check_plan(plan, model)
     # a plan that assigns nothing recomputes every activation (JAX:
     # jax.checkpoint with policy None)
     policy = (plan_to_policy(plan) or Policy()) if plan is not None else None
@@ -580,54 +631,108 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
     opt_stream = _opt_stream(plan)
     params_host = _host_classes(plan)[0]
     grads_host = _grads_host(plan)
+    # the host sink exists at m == 1 only; at m > 1 with the overlap the
+    # sharded accumulator stays on the device, and without it the
+    # accumulated stack is placed on the host after the tree pass (JAX)
+    sink = grads_host and m == 1 and overlap
     reduce = dict(mesh=mesh, data_axis="data", pod_axis=pod_axis,
                   data_size=data_size, pod_size=pod_size)
-    hooks = (make_stack_hooks(["stack0"], ddl, **reduce,
-                              sink=off.HOST if grads_host else None)
+    hooks = (make_stack_hooks(["stack0"], ddl, **reduce, keep="shard" if m > 1 else "full",
+                              sink=off.HOST if sink else None)
              if overlap else None)
+    sharded = overlap and m > 1
+    if sharded:
+        shapes = _meta_params(model)
+        stacked = _stacked_mask(shapes)
+        sspec = ddl_overlap.shard_spec(shapes, data_size, stacked)
+        shard_axes = dict(mesh=mesh, data_axis="data", pod_axis=pod_axis,
+                          mean_over=mean_over, compress_dcn=ddl.compress_dcn)
     queue = hooks["stack0"].queue if hooks is not None and plan is not None else None
-    layers = model.cfg.num_layers
+
+    def microbatches(batch):
+        """The batch's m microbatches (the batch itself at m == 1)."""
+        if m == 1:
+            return [batch]
+        parts = _microbatch_split(batch, m)
+        return [{k: v[i] for k, v in parts.items()} for i in range(m)]
+
+    def mean_metrics(sums):
+        loss, mets = sums
+        if m == 1:
+            return loss, mets
+        return loss / m, {k: v / m for k, v in mets.items()}
+
+    def add_metrics(sums, loss, mets):
+        if sums is None and m == 1:
+            return loss.detach(), {k: v.detach() for k, v in mets.items()}
+        if sums is None:
+            zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+            sums = (zero, {"ce": zero, "aux": zero})
+        l_acc, m_acc = sums
+        return l_acc + loss.detach(), {k: m_acc[k] + mets[k].detach() for k in m_acc}
 
     def lms_loss_and_grads(state, batch):
         """Under a plan: the stack is not differentiated through autograd;
         the LMS executor writes its grads into a grads tree (zeros on the
         device, so a param no layer used keeps a zero grad; the state's
-        pinned tree under the host sink, every layer written each step),
-        through the reduction queue with the overlapped backward, which is
-        drained before this returns. -> (..., the stack's per-slice sums of
+        pinned tree under the host sink, every layer written each step;
+        with the sharded accumulator, the stack's rows of it), through the
+        reduction queue with the overlapped backward, which is drained
+        before this returns. -> (..., the stack's per-slice sums of
         squares when the queue made them, else None)."""
         stacks, rest = _split_stack_grads(state.params)
         leaves = tree_map(lambda p: p.detach().requires_grad_(), rest)
         device = tree_leaves(leaves)[0].device
-        sunk = queue is not None and grads_host
-        if sunk:
+        if sink:
             gstack = _sunk_grads(state)
+        elif sharded:
+            acc = torch.zeros(sspec.local_size, dtype=torch.float32, device=device)
+            gstack = _stack_rows(acc, sspec, stacked)
         else:
             gstack = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=device),
                               stacks["stack0"])
-        squares = StackSquares([tuple(t.shape) for t in tree_leaves(gstack)]) if sunk else None
-        if queue is not None:
-            queue.open(device, tr._stream_depth(plan.swap_schedule, layers), squares)
-        try:
-            loss, mets = model.loss(_merge_stack_grads(leaves, stacks), batch,
-                                    policy=policy, stream=stream, stack_grads=gstack,
-                                    grad_hooks=hooks)
-            grads = torch.autograd.grad(loss, tree_leaves(leaves))
-        except BaseException:
-            if queue is not None:
-                queue.abandon()
-            raise
-        if queue is not None:
-            queue.drain(layers)
-        return (loss.detach(), {k: v.detach() for k, v in mets.items()},
-                _merge_stack_grads(tree_unflatten(rest, grads), {"stack0": gstack}),
-                squares.squares() if sunk else None)
+        if m > 1 and not sharded:
+            acc = tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32, device=device),
+                           state.params)
+        squares = StackSquares([tuple(t.shape) for t in tree_leaves(gstack)]) if sink else None
+        sums = None
+        for i, mb in enumerate(microbatches(batch)):
+            if m > 1 and not sharded and i:
+                for g in tree_leaves(gstack):
+                    g.zero_()
+            loss, mets, grads = _lms_loss_and_grads(
+                model, leaves, stacks, mb, gstack, plan=plan, policy=policy, stream=stream,
+                hooks=hooks, queue=queue, squares=squares, accumulate=sharded)
+            sums = add_metrics(sums, loss, mets)
+            rest_grads = tree_unflatten(rest, grads)
+            if sharded:
+                # the stack's slots are in acc (the queue added them); the
+                # rest is reduce-scattered into it
+                tree = _merge_stack_grads(rest_grads, {"stack0": tree_map(
+                    lambda _: None, stacks["stack0"])})
+                with torch.no_grad():
+                    _write_parts(acc, ddl_overlap.local_shard_parts(
+                        tree, sspec, stacked, **shard_axes), add=True)
+            elif m > 1:
+                with torch.no_grad():
+                    for a, g in zip(tree_leaves(acc), tree_leaves(_merge_stack_grads(
+                            rest_grads, {"stack0": gstack}))):
+                        a.add_(g)
+        loss, mets = mean_metrics(sums)
+        if sharded:
+            grads = ddl_overlap.allgather_local_shards(acc.div_(m), sspec, mesh=mesh,
+                                                       data_axis="data")
+        elif m > 1:
+            grads = tree_map(lambda a: a.div_(m), acc)
+        else:
+            grads = _merge_stack_grads(rest_grads, {"stack0": gstack})
+        return loss, mets, grads, squares.squares() if sink else None
 
     def loss_and_grads(state, batch):
         """-> (loss, {"ce", "aux"}, grads, stack squares or None): detached
         tensors; grads in the params' dtypes, or f32 when accumulated over
         microbatches. With the hooks the decoder stack's grads come back
-        reduced."""
+        reduced; with the sharded accumulator the whole tree."""
         if plan is not None:
             return lms_loss_and_grads(state, batch)
         params = state.params
@@ -638,24 +743,36 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
             grads = torch.autograd.grad(loss, flat)
             return (loss.detach(), {k: v.detach() for k, v in mets.items()},
                     tree_unflatten(params, grads), None)
-        parts = _microbatch_split(batch, m)
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for p in flat]
-        l_acc = torch.zeros((), dtype=torch.float32, device=flat[0].device)
-        m_acc = {"ce": l_acc.clone(), "aux": l_acc.clone()}
-        for i in range(m):
-            loss, mets = model.loss(leaves, {k: v[i] for k, v in parts.items()})
-            for a, g in zip(acc, torch.autograd.grad(loss, flat)):
-                a.add_(g)
-            l_acc = l_acc + loss.detach()
-            m_acc = {k: m_acc[k] + mets[k].detach() for k in m_acc}
-        grads = [a.div_(m) for a in acc]
-        return (l_acc / m, {k: v / m for k, v in m_acc.items()},
-                tree_unflatten(params, grads), None)
+        device = flat[0].device
+        if sharded:
+            acc = torch.zeros(sspec.local_size, dtype=torch.float32, device=device)
+        else:
+            acc = [torch.zeros(p.shape, dtype=torch.float32, device=device) for p in flat]
+        sums = None
+        for mb in microbatches(batch):
+            loss, mets = model.loss(leaves, mb, grad_hooks=hooks)
+            grads = torch.autograd.grad(loss, flat)
+            with torch.no_grad():
+                if sharded:
+                    _write_parts(acc, ddl_overlap.local_shard_parts(
+                        tree_unflatten(params, grads), sspec, stacked, **shard_axes),
+                        add=True)
+                else:
+                    for a, g in zip(acc, grads):
+                        a.add_(g)
+            del grads
+            sums = add_metrics(sums, loss, mets)
+        loss, mets = mean_metrics(sums)
+        if sharded:
+            grads = ddl_overlap.allgather_local_shards(acc.div_(m), sspec, mesh=mesh,
+                                                       data_axis="data")
+        else:
+            grads = tree_unflatten(params, [a.div_(m) for a in acc])
+        return loss, mets, grads, None
 
     def reduce_grads(grads):
         """The DDL mean over the ranks of what the hooks left unreduced."""
-        if mean_over == 1:
+        if mean_over == 1 or sharded:
             return grads
         if not overlap:
             return ddl_reduce_tree(grads, ddl, **reduce)[0]
@@ -675,11 +792,17 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
                 # by slice, as the JAX package's streamed sweep
                 gnorm = _global_norm_streamed(grads, stack_squares)
                 scale = clip_scale(gnorm, tcfg.grad_clip)
-                if grads_host and stack_squares is None:
+                placed = grads_host and stack_squares is None and not sharded
+                if placed:
                     # no queue to sink each layer: place the reduced stack
                     # on the host after the tree pass (JAX's fallback)
                     stacks, rest = _split_stack_grads(grads)
                     host = _sunk_grads(state)
+                    for h, g in zip(tree_leaves(host), tree_leaves(stacks["stack0"])):
+                        if h.dtype != g.dtype:
+                            raise ValueError(
+                                f"the state's host grads are {h.dtype}, the step's {g.dtype}: "
+                                "place the state with microbatches=tcfg.microbatches")
                     off.stream_layer_to_host(stacks["stack0"], host, cls="grads")
                     off.fence(state.step.device)
                     grads = _merge_stack_grads(rest, {"stack0": host})
@@ -688,7 +811,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
                     beta1=tcfg.beta1, beta2=tcfg.beta2,
                     weight_decay=tcfg.weight_decay, schedule=opt_stream,
                     params_host=params_host, device=state.step.device, clip=scale,
-                    grads_host=grads_host)
+                    grads_host=sink or placed)
             else:
                 grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
                 params, opt = opt_update(grads, state.opt, state.params, lr=lr,
@@ -703,6 +826,31 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
     # step), None without one
     step_fn.queue = queue
     return step_fn
+
+
+def _lms_loss_and_grads(model: Model, leaves, stacks, batch, stack_grads, *, plan, policy,
+                        stream, hooks, queue, squares=None, accumulate=False):
+    """One pass of the LMS executor: the loss of `batch` over the rest's
+    leaves (differentiated) and the stack (written into `stack_grads` by
+    the executor's sink, or by the reduction queue, opened for the pass and
+    drained before this returns; abandoned if the backward raises). ->
+    (loss, {"ce", "aux"}, the rest's grads)."""
+    layers = model.cfg.num_layers
+    if queue is not None:
+        queue.open(tree_leaves(leaves)[0].device,
+                   tr._stream_depth(plan.swap_schedule, layers), squares,
+                   accumulate=accumulate)
+    try:
+        loss, mets = model.loss(_merge_stack_grads(leaves, stacks), batch, policy=policy,
+                                stream=stream, stack_grads=stack_grads, grad_hooks=hooks)
+        grads = torch.autograd.grad(loss, tree_leaves(leaves))
+    except BaseException:
+        if queue is not None:
+            queue.abandon()
+        raise
+    if queue is not None:
+        queue.drain(layers)
+    return loss, mets, grads
 
 
 def _sunk_grads(state: TrainState):
@@ -724,11 +872,10 @@ def _global_norm_streamed(grads, stack_squares=None) -> torch.Tensor:
                     else leaf_squares(leaf) for path, leaf in _paths(grads)])
 
 
-def _check_plan(plan: MemoryPlan, model: Model, m: int) -> None:
+def _check_plan(plan: MemoryPlan, model: Model) -> None:
     """Raise for what a plan asks that the port does not execute yet."""
     res = plan.residency
     unported = {
-        "LMS with microbatches > 1": m > 1,
         "params on the host with the optimizer state on the device":
             res.get("params") == "host" and res.get("optimizer") != "host",
         "the Mamba-2 stack under a plan": tr._check_kinds(model.cfg) != "attn",
@@ -747,7 +894,8 @@ def init_train_state(model: Model, tcfg: TrainConfig, seed: int,
     copied out, so it never stands whole on the device: the stack's params
     and the optimizer state go to pinned host memory as the plan says
     (`_host_classes`), the rest to the device; a plan that sinks grads
-    (`_grads_host`) also gets the stack's grads tree there. The values are
+    (`_grads_host`) also gets the stack's grads tree there (f32 at
+    microbatches > 1). The values are
     `model.init(seed, device)`'s bitwise: the same draws from the same
     generator."""
     device = torch.device(device)
@@ -764,8 +912,284 @@ def init_train_state(model: Model, tcfg: TrainConfig, seed: int,
                 if tcfg.optimizer == "adamw":
                     st[2][i] = piece.float()
         return _placed_state(tcfg.optimizer, paths, device, params_host, opt_host, fill,
-                             _grads_host(plan))
+                             _grads_host(plan), tcfg.microbatches > 1)
     params = model.init(seed, device)
     opt_init, _ = OPTIMIZERS[tcfg.optimizer]
     return TrainState(torch.zeros((), dtype=torch.int32, device=device),
                       params, opt_init(params))
+
+
+# ---------------------------------------------------------------------------
+# Beyond-paper mode: DDL-ZeRO1 (the optimizer update between RS and AG)
+# ---------------------------------------------------------------------------
+
+class Zero1State(NamedTuple):
+    step: torch.Tensor    # int32 scalar on the device
+    params: Any           # the whole params tree (bf16), as the replicated step's
+    mu: torch.Tensor      # f32 [local], this rank's shard of the flat state
+    nu: torch.Tensor
+    master: torch.Tensor
+
+
+def _zero1_layout(model: Model, tcfg: TrainConfig, data_size: int, dp_total: int):
+    """-> (overlap, layout): the overlapped backward resolved from the
+    DDLConfig alone, as the JAX package does (a plan's recommendation or
+    `StepSpec.overlap_grads` would scramble the flat layout between
+    `init_zero1_state` and the step), and the flat layout that goes with
+    it: `ShardSpec` (shard-major, the hooks' slots) with the overlap, the
+    `pack` order padded to |data| without."""
+    overlap = _resolve_overlap(None, None, tcfg, dp_total)
+    shapes = _meta_params(model)
+    if overlap:
+        return overlap, ddl_overlap.shard_spec(shapes, data_size, _stacked_mask(shapes))
+    return overlap, pack_spec(shapes, pad_to=data_size)
+
+
+def _local_size(layout) -> int:
+    if isinstance(layout, PackSpec):
+        return layout.padded // layout.pad_to
+    return layout.local_size
+
+
+def _zero1_params_from(master, layout, params, *, mesh, device) -> None:
+    """Phase 3 of the DDL schedule on the params: all-gather the updated
+    master shard over `data` and write each param as its f32 value cast
+    to the param's dtype, leaf by leaf (ShardSpec) or a slice of the flat
+    vector at a time (the pack order), so the whole f32 tree never stands
+    on the card. A master shard in host memory is copied in a leaf or
+    slice at a time."""
+    leaves = tree_leaves(params)
+
+    def on_device(t):
+        if t.device == device:
+            return t
+        return off.stream_layer_to_device(t, device, cls="optimizer").wait()
+    if isinstance(layout, ddl_overlap.ShardSpec):
+        for j, p in enumerate(leaves):
+            part = on_device(ddl_overlap.leaf_part(master, layout, j))
+            p.copy_(ddl_overlap.gather_leaf(part, layout, j, mesh=mesh, data_axis="data"))
+        return
+    d = layout.pad_to
+    n = layout.padded // d
+    starts = [0]
+    for size in layout.sizes:
+        starts.append(starts[-1] + size)
+    for k in range(0, n, SLICE):
+        got = mesh.all_gather(on_device(master[k:k + SLICE]), "data").view(d, -1)
+        s = got.shape[1]
+        for r in range(d):
+            g0 = r * n + k
+            for p, lo, hi in zip(leaves, starts, starts[1:]):
+                a, b = max(lo, g0), min(hi, g0 + s)
+                if a < b:
+                    p.view(-1)[a - lo:b - lo].copy_(got[r, a - g0:b - g0])
+
+
+def build_zero1_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan] = None,
+                           mesh: Optional[Mesh] = None, spec: Optional[StepSpec] = None):
+    """The zero1 step (JAX `build_zero1_train_step`): DDL's phases 1-2 on
+    the grads, this rank's 1/|data| shard of the AdamW state updated, phase
+    3 on the params. -> step_fn(Zero1State, batch) -> (Zero1State,
+    metrics), updated in place; step_fn.layout is the flat layout
+    (`ShardSpec` or `PackSpec`) and step_fn.queue the LMS executor's
+    reduction queue or None.
+
+    As in the JAX package, whatever the config says otherwise:
+    - the overlapped backward is resolved from the DDLConfig alone
+      (`_resolve_overlap(None, None, tcfg, dp)`), so that the step and
+      `init_zero1_state` lay the flat state out alike (`_zero1_layout`);
+    - the step takes the whole batch in one pass whatever
+      `tcfg.microbatches` says;
+    - the state is AdamW's (mu, nu, master, f32) whatever `tcfg.optimizer`
+      says;
+    - the update is the JAX step's inline expression in its order,
+      mu = b1 mu + (1 - b1) g, nu = b2 nu + (1 - b2) g g, master -= lr
+      ((mu / b1c) / (sqrt(nu / b2c) + 1e-8) + wd master), which is
+      `optim.adamw.adamw_slice_update`'s, applied to `SLICE`-element
+      slices (elementwise, so slicing changes no number), and the clip's
+      norm is the sqrt of the sum over `data` of the shard's sum of
+      squares.
+
+    Overlapped: the decoder stack's hooks run in shard mode and
+    `local_shard_parts` gathers this rank's shard (the stack's slots
+    sliced out, the rest reduce-scattered); the new params come from
+    `gather_leaf`. Serialized: `pack`, `hierarchical_reduce_scatter_flat`,
+    and the params from the gathered flat vector. The metrics are the
+    replicated step's.
+
+    plan: an LMS plan. The LMS executor runs the stack (its policy, and
+    its params streamed from pinned host memory when the plan streams
+    them); with the overlap its queue reduces each layer in shard mode and
+    copies this rank's slot into the layer's rows of the flat grad shard.
+    The flat state lies where the plan's optimizer class says: on the
+    device, or in the pinned arena (`init_zero1_state(plan=)`), and then
+    the update streams it through the card in `SLICE`-element chunks, two
+    in flight (`_pipelined`). Either way the state equals the resident
+    step's bitwise. As for the replicated step, a plan with params on the
+    host and the optimizer on the device, and the Mamba-2 stack under a
+    plan, are not ported yet."""
+    spec = StepSpec() if spec is None else spec
+    if spec.plan is None and plan is not None:
+        spec = dataclasses.replace(spec, plan=plan)
+    plan = spec.plan
+    mesh = make_mesh(tcfg.mesh) if mesh is None else mesh
+    sizes = mesh_axis_sizes(mesh)
+    dpa = dp_axes(mesh)
+    data_size = sizes.get("data", 1)
+    pod_size = sizes.get("pod", 1)
+    pod_axis = "pod" if pod_size > 1 else None
+    mean_over = data_size * pod_size
+    ddl = spec.ddl_for(tcfg)
+    sched = SCHEDULES["warmup_cosine"]
+    if plan is not None:
+        _check_plan(plan, model)
+    policy = (plan_to_policy(plan) or Policy()) if plan is not None else None
+    stream = _param_stream(plan)
+    opt_host = _host_classes(plan)[1]
+    overlap, layout = _zero1_layout(model, tcfg, data_size, mean_over)
+    local = _local_size(layout)
+    hooks, stacked = None, None
+    if overlap:
+        stacked = _stacked_mask(layout.treedef)
+        hooks = make_stack_hooks(["stack0"], ddl, mesh=mesh, data_axis="data",
+                                 pod_axis=pod_axis, data_size=data_size, pod_size=pod_size,
+                                 keep="shard")
+    queue = hooks["stack0"].queue if hooks is not None and plan is not None else None
+    shard_axes = dict(mesh=mesh, data_axis="data", pod_axis=pod_axis, mean_over=mean_over,
+                      compress_dcn=ddl.compress_dcn)
+    beta1, beta2, wd = tcfg.beta1, tcfg.beta2, tcfg.weight_decay
+
+    def grad_shard(state: Zero1State, batch):
+        """-> (loss, {"ce", "aux"}, this rank's f32 [local] grad shard)."""
+        params = state.params
+        if plan is None:
+            leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+            loss, mets = model.loss(leaves, batch, grad_hooks=hooks)
+            grads = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(leaves)))
+            stack_done = None
+        else:
+            stacks, rest = _split_stack_grads(params)
+            leaves = tree_map(lambda p: p.detach().requires_grad_(), rest)
+            device = tree_leaves(leaves)[0].device
+            if overlap:
+                shard = torch.zeros(local, dtype=torch.float32, device=device)
+                gstack = _stack_rows(shard, layout, stacked)
+            else:
+                gstack = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                                        device=device), stacks["stack0"])
+            loss, mets, rest_grads = _lms_loss_and_grads(
+                model, leaves, stacks, batch, gstack, plan=plan, policy=policy,
+                stream=stream, hooks=hooks, queue=queue)
+            # with the queue, the stack's slots are in the shard already
+            stack_done = tree_map(lambda _: None, stacks["stack0"]) if overlap else gstack
+            grads = _merge_stack_grads(tree_unflatten(rest, rest_grads),
+                                       {"stack0": stack_done})
+        with torch.no_grad():
+            if overlap:
+                if stack_done is None:
+                    shard = torch.empty(local, dtype=torch.float32,
+                                        device=tree_leaves(params)[0].device)
+                _write_parts(shard, ddl_overlap.local_shard_parts(grads, layout, stacked,
+                                                                  **shard_axes))
+            else:
+                shard, _ = hierarchical_reduce_scatter_flat(
+                    pack(grads, layout), mesh=mesh, data_axis="data", pod_axis=pod_axis,
+                    compress_dcn=ddl.compress_dcn, mean_over=mean_over)
+        return loss.detach(), {k: v.detach() for k, v in mets.items()}, shard
+
+    def update(g, state: Zero1State, lr):
+        """The AdamW update of the shard, in place: on the device slice by
+        slice, or streamed through the card from pinned host memory."""
+        step = state.step + 1
+        sf = step.float()
+        b1c = 1.0 - beta1 ** sf
+        b2c = 1.0 - beta2 ** sf
+        kw = dict(lr=lr, beta1=beta1, beta2=beta2, b1c=b1c, b2c=b2c, eps=1e-8,
+                  weight_decay=wd)
+        if not opt_host:
+            for gs, ms, vs, mps in _slices(g, state.mu, state.nu, state.master):
+                adamw_slice_update(gs, ms, vs, mps, **kw)
+            return
+        device = g.device
+
+        def host_slices(k):
+            return {"mu": state.mu[k:k + SLICE], "nu": state.nu[k:k + SLICE],
+                    "master": state.master[k:k + SLICE]}
+
+        def fetch(k):
+            return {"state": off.stream_layer_to_device(host_slices(k), device,
+                                                        cls="optimizer")}
+
+        def upd(k, fetched):
+            st = fetched["state"]
+            adamw_slice_update(g[k:k + SLICE], st["mu"], st["nu"], st["master"], **kw)
+            off.stream_layer_to_host(st, host_slices(k), cls="optimizer")
+        _pipelined(list(range(0, local, SLICE)), 2, fetch, upd)
+        off.fence(device)
+
+    def step_fn(state: Zero1State, batch):
+        loss, mets, g = grad_shard(state, batch)
+        device = g.device
+        with torch.no_grad():
+            loss, ce, aux = mesh.pmean(torch.stack([loss, mets["ce"], mets["aux"]]), dpa)
+            total = torch.zeros(1, dtype=torch.float32, device=device)
+            for sq in leaf_squares(g):
+                total = total + sq
+            gnorm = torch.sqrt(mesh.psum(total, "data"))[0]
+            g.mul_(clip_scale(gnorm, tcfg.grad_clip))
+            lr = sched(state.step, base_lr=tcfg.learning_rate,
+                       warmup_steps=tcfg.warmup_steps, total_steps=tcfg.total_steps)
+            update(g, state, lr)
+            del g
+            _zero1_params_from(state.master, layout, state.params, mesh=mesh, device=device)
+            metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr, "ce": ce, "aux": aux}
+        return state._replace(step=state.step + 1), metrics
+
+    step_fn.layout = layout
+    step_fn.queue = queue
+    return step_fn
+
+
+def init_zero1_state(model: Model, tcfg: TrainConfig, seed: int, device, data_size: int,
+                     plan: Optional[MemoryPlan] = None, *, data_index: int) -> Zero1State:
+    """Params from `model.init(seed, device)` (the same draws), zero mu and
+    nu, and the master copy: this rank's shard of the global flat state,
+    equal bitwise to its block of the JAX package's `pack_global` (the
+    overlapped layout) or `pack` (the serialized one), the layout the
+    step takes (`_zero1_layout`: the overlap from the DDLConfig, the
+    `data` extent from tcfg.mesh, falling back to `data_size`).
+    data_index: this rank's `data` coordinate (`Mesh.index("data")`).
+
+    With a plan, the state is placed as it says: the stack's params in
+    pinned host memory when they stream, the flat mu, nu and master there
+    when the optimizer class is on the host; built leaf by leaf (a stacked
+    leaf a layer at a time), so neither stands whole on the device."""
+    device = torch.device(device)
+    sizes = dict(zip(tcfg.mesh.axes, tcfg.mesh.shape))
+    data = sizes.get("data", data_size)
+    dp_total = data * sizes.get("pod", 1)
+    overlap = _resolve_overlap(None, None, tcfg, dp_total)
+    _, layout = _zero1_layout(model, tcfg, data if overlap else data_size, dp_total)
+    local = _local_size(layout)
+    params_host, opt_host = _host_classes(plan)
+    defs = _def_paths(model.param_defs())
+    host_bytes = 3 * off.PinnedArena.padded(4 * local) if opt_host else 0
+    if params_host:
+        host_bytes += sum(off.PinnedArena.padded(
+            math.prod(d.shape) * torch.empty((), dtype=DTYPES[d.dtype]).element_size())
+            for path, d in defs if _stack_path(path))
+    placer = _Placer(device, host_bytes)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = {}
+    for path, d in defs:
+        p = placer.take(d.shape, DTYPES[d.dtype], params_host and _stack_path(path))
+        for i, piece in init_pieces(d, gen, device):
+            p[i] = piece
+        _set(params, path, p)
+    flat = [placer.take((local,), torch.float32, opt_host) for _ in range(3)]
+    if overlap:
+        ddl_overlap.rank_block(params, layout, data_index, flat[2])
+    else:
+        pack_block(params, layout, data_index, flat[2])
+    return Zero1State(torch.zeros((), dtype=torch.int32, device=device), params, *flat)

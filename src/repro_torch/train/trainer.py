@@ -17,6 +17,10 @@ executes the plan and the state is placed as it says. On a mesh of
 several ranks (LMS + DDL) every rank plans the same step and places its
 own state: its pinned arena is its process's own.
 
+DDL's zero1 mode (`tcfg.ddl.mode == "zero1"`) trains with
+`build_zero1_train_step` from `init_zero1_state`, as the JAX trainer does:
+the AdamW state sharded over the data ranks, placed as the plan says.
+
 Not ported yet: checkpoints and resume, heartbeats, the fault injector,
 loss-spike telemetry, the Supervisor, and the VLM and audio batches. The
 trainer does not checkpoint.
@@ -31,11 +35,12 @@ import torch
 from repro_torch.config.base import TrainConfig
 from repro_torch.core.lms.planner import PlanRequest, plan as plan_lms
 from repro_torch.data import DataLoader, SyntheticTokens, local_rows
-from repro_torch.launch.mesh import local_device, make_mesh
+from repro_torch.launch.mesh import local_device, make_mesh, mesh_axis_sizes
 from repro_torch.models.model import Model
 from repro_torch.obs import Obs
 from repro_torch.serve.engine import resolve_device
-from repro_torch.train.steps import build_train_step, init_train_state
+from repro_torch.train.steps import (build_train_step, build_zero1_train_step,
+                                     init_train_state, init_zero1_state)
 
 
 class Trainer:
@@ -55,8 +60,9 @@ class Trainer:
                         zero1=(tcfg.ddl.mode == "zero1"),
                         microbatches=tcfg.microbatches), profile=profile)
                      if tcfg.lms.enabled else None)
-        self.step_fn = build_train_step(self.model, tcfg, plan=self.plan,
-                                        mesh=self.mesh)
+        self.zero1 = tcfg.ddl.mode == "zero1"
+        build = build_zero1_train_step if self.zero1 else build_train_step
+        self.step_fn = build(self.model, tcfg, plan=self.plan, mesh=self.mesh)
         self.loader = DataLoader(
             SyntheticTokens(tcfg.model.vocab_size, seed=tcfg.seed),
             shard=0, num_shards=1, batch_per_shard=tcfg.shape.global_batch,
@@ -64,6 +70,10 @@ class Trainer:
 
     # ---- state ---------------------------------------------------------
     def init_state(self):
+        if self.zero1:
+            return init_zero1_state(self.model, self.tcfg, self.tcfg.seed, self.device,
+                                    mesh_axis_sizes(self.mesh).get("data", 1),
+                                    plan=self.plan, data_index=self.mesh.index("data"))
         return init_train_state(self.model, self.tcfg, self.tcfg.seed,
                                 self.device, plan=self.plan)
 

@@ -22,6 +22,7 @@ after 3 Adam steps of rate lr each master weight within 2 lr N of JAX's
 percentile within 0.1 lr N (0.057). Every rank ends with the same params,
 bit for bit. The Trainer is held to the same 2e-3 (measured 3.5e-4).
 """
+import dataclasses
 import pathlib
 import re
 import subprocess
@@ -41,7 +42,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.launch import train as launch
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.model import Model
-from repro_torch.train.steps import build_train_step
+from repro_torch.train.steps import build_train_step, build_zero1_train_step
 
 ARCH = "qwen2.5-14b"
 MESH = ((2, 2), ("pod", "data"))
@@ -343,27 +344,40 @@ def _tcfg(mesh=((1, 1), ("data", "model")), **kw):
 
 
 def test_what_is_not_ported_raises():
-    """zero1; m > 1 with the overlapped backward on several ranks, and with
-    LMS; a model axis above 1; a mesh of several devices without a world
-    that size. LMS on several ranks (LMS + DDL) builds now
-    (tests/test_torch_lms_ddl.py runs it)."""
+    """A model axis above 1 and a mesh of several devices without a world
+    that size raise; so do, under a plan on several ranks, params on the
+    host with the optimizer on the device and the Mamba-2 stack. zero1,
+    m > 1 with the overlapped backward on several ranks and LMS with
+    microbatches build now (tests/test_torch_zero1.py and
+    tests/test_torch_microbatches.py run them), as does LMS on several
+    ranks (tests/test_torch_lms_ddl.py)."""
     from repro_torch.core.lms import planner as tp
     model = Model(get_smoke_config(ARCH))
-    with pytest.raises(NotImplementedError, match="zero1 is not ported yet"):
-        build_train_step(model, _tcfg(ddl=DDLConfig(mode="zero1")))
     two = MeshSpec((2, 1), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="overlapped backward.*not ported yet"):
-        build_train_step(model, _tcfg(mesh=((2, 1), ("data", "model")), microbatches=2),
-                         mesh=Mesh(two, rank=0))
     res = {"params": "host", "grads": "host", "optimizer": "host", "kvcache": "device"}
     plan = tp.MemoryPlan({}, res, 1, 1, 1, 1, True, swap_schedule=tp.make_swap_schedule(
         res, model.cfg.num_layers, "train"))
-    build_train_step(model, _tcfg(mesh=((2, 1), ("data", "model"))), plan=plan,
+    for kw in (dict(), dict(microbatches=2), dict(microbatches=2,
+                                                  ddl=DDLConfig(overlap_grads=False))):
+        build_train_step(model, _tcfg(mesh=((2, 1), ("data", "model")), **kw), plan=plan,
+                         mesh=Mesh(two, rank=0))
+    build_train_step(model, _tcfg(mesh=((2, 1), ("data", "model")), microbatches=2),
                      mesh=Mesh(two, rank=0))
-    with pytest.raises(NotImplementedError, match="LMS with microbatches > 1"):
-        build_train_step(model, _tcfg(mesh=((2, 1), ("data", "model")), microbatches=2,
-                                      ddl=DDLConfig(overlap_grads=False)),
-                         plan=plan, mesh=Mesh(two, rank=0))
+    build_zero1_train_step(model, _tcfg(mesh=((2, 1), ("data", "model")),
+                                        ddl=DDLConfig(mode="zero1")),
+                           plan=plan, mesh=Mesh(two, rank=0))
+    params_host = dict(res, optimizer="device")
+    bad = tp.MemoryPlan({}, params_host, 1, 1, 1, 1, True, swap_schedule=tp.make_swap_schedule(
+        params_host, model.cfg.num_layers, "train"))
+    for build in (build_train_step, build_zero1_train_step):
+        with pytest.raises(NotImplementedError, match="optimizer state on the device"):
+            build(model, _tcfg(mesh=((2, 1), ("data", "model")), microbatches=2), plan=bad,
+                  mesh=Mesh(two, rank=0))
+    mamba = Model(get_smoke_config("mamba2-1.3b"))
+    with pytest.raises(NotImplementedError, match="Mamba-2 stack under a plan"):
+        build_train_step(mamba, dataclasses.replace(
+            _tcfg(mesh=((2, 1), ("data", "model")), microbatches=2), model=mamba.cfg),
+            plan=plan, mesh=Mesh(two, rank=0))
     with pytest.raises(NotImplementedError, match="tensor parallelism"):
         build_train_step(model, _tcfg(mesh=((1, 2), ("data", "model"))))
     with pytest.raises(ValueError, match="WORLD_SIZE 4"):
@@ -375,7 +389,8 @@ def test_cli_rejects_a_world_that_disagrees_with_the_mesh(monkeypatch):
     args = ["--arch", ARCH, "--smoke", "--no-lms", "--device", "cpu", "--steps", "1"]
     with pytest.raises(ValueError, match="WORLD_SIZE 1 disagrees with --mesh 2x1x1"):
         launch.main(args + ["--mesh", "2x1x1"])
-    for flags in (["--mesh", "1x1x2"], ["--mesh", "2x1x1", "--microbatches", "2"],
-                  ["--ddl-mode", "zero1"]):
+    for flags in (["--mesh", "1x1x2"], ["--mesh", "2x1x1", "--microbatches", "2",
+                                        "--ckpt-dir", "ckpt"],
+                  ["--ddl-mode", "zero1", "--ckpt-every", "2"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             launch.main(args + flags)

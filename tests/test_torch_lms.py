@@ -647,9 +647,10 @@ def test_launch_train_with_lms_on_cpu(capsys, tmp_path):
 
 def test_what_is_not_ported_raises():
     """Grads on the host and LMS + DDL build now (tests/test_torch_lms_ddl.py
-    runs them); LMS with microbatches, params on the host with the
-    optimizer on the device, the Mamba-2 stack under a plan, and serve
-    plans: "not ported yet"."""
+    runs them), and so does LMS with microbatches
+    (tests/test_torch_microbatches.py); params on the host with the
+    optimizer on the device (with microbatches too), the Mamba-2 stack
+    under a plan, and serve plans: "not ported yet"."""
     from repro_torch.launch.mesh import Mesh
     tcfg = _tcfg()
     model = Model(tcfg.model)
@@ -662,8 +663,10 @@ def test_what_is_not_ported_raises():
     two = tb.MeshSpec((2, 1, 1), ("pod", "data", "model"))
     tsteps.build_train_step(model, dataclasses.replace(tcfg, mesh=two), plan=sink,
                             mesh=Mesh(two, rank=0))
-    with pytest.raises(NotImplementedError, match="microbatches > 1 is not ported yet"):
-        tsteps.build_train_step(model, dataclasses.replace(tcfg, microbatches=2), plan=plan)
+    tsteps.build_train_step(model, dataclasses.replace(tcfg, microbatches=2), plan=plan)
+    with pytest.raises(NotImplementedError, match="optimizer state on the device"):
+        tsteps.build_train_step(model, dataclasses.replace(tcfg, microbatches=2),
+                                plan=_plan(tcfg.model, {"params": "host"}))
     mamba = Model(get_smoke_config("mamba2-1.3b"))
     with pytest.raises(NotImplementedError, match="Mamba-2 stack under a plan"):
         tsteps.build_train_step(mamba, dataclasses.replace(tcfg, model=mamba.cfg), plan=plan)

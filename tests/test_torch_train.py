@@ -406,12 +406,14 @@ def test_train_step_matches_jax_over_3_steps(ref, jmods, m):
 def test_train_step_rejects_what_is_not_ported(jmods):
     _, tt = _tcfgs(jmods)
     model = Model(tt.model)
-    for bad, match in (
-            (dataclasses.replace(tt, mesh=MeshSpec((1, 2), ("data", "model"))),
-             "tensor parallelism"),
-            (dataclasses.replace(tt, ddl=dataclasses.replace(tt.ddl, mode="zero1")), "zero1")):
-        with pytest.raises(NotImplementedError, match=match):
-            build_train_step(model, bad)
+    # zero1 builds now (its own step: tests/test_torch_zero1.py); tensor
+    # parallelism does not, in either step
+    from repro_torch.train.steps import build_zero1_train_step
+    zero1 = dataclasses.replace(tt, ddl=dataclasses.replace(tt.ddl, mode="zero1"))
+    build_zero1_train_step(model, zero1)
+    for build, bad in ((build_train_step, tt), (build_zero1_train_step, zero1)):
+        with pytest.raises(NotImplementedError, match="tensor parallelism"):
+            build(model, dataclasses.replace(bad, mesh=MeshSpec((1, 2), ("data", "model"))))
     # a data-parallel mesh needs one process per device (tests/test_torch_ddl_train.py)
     with pytest.raises(ValueError, match="mesh of 2 devices"):
         build_train_step(model, dataclasses.replace(tt, mesh=MeshSpec((2, 1), ("data", "model"))))
@@ -463,11 +465,17 @@ def test_trainer_matches_jax_trainer(ref, jmods, tmp_path):
 
 
 def test_trainer_rejects_lms_and_needs_a_device_here(jmods):
-    """LMS trains on one device (tests/test_torch_lms.py); with
-    microbatches it is not ported yet."""
+    """LMS trains on one device (tests/test_torch_lms.py), with microbatches
+    too (tests/test_torch_microbatches.py); a tensor-parallel mesh is not
+    ported yet, with LMS or without."""
     _, tt = _tcfgs(jmods)
-    with pytest.raises(NotImplementedError, match="microbatches > 1 is not ported yet"):
-        Trainer(dataclasses.replace(tt, lms=LMSConfig(), microbatches=2), device="cpu")
+    trainer = Trainer(dataclasses.replace(tt, lms=LMSConfig(), microbatches=2), device="cpu")
+    assert trainer.plan is not None
+    for lms in (LMSConfig(), LMSConfig(enabled=False)):
+        with pytest.raises(NotImplementedError, match="tensor parallelism"):
+            Trainer(dataclasses.replace(tt, lms=lms, microbatches=2,
+                                        mesh=MeshSpec((1, 2), ("data", "model"))),
+                    device="cpu")
     if torch.cuda.is_available():
         pytest.skip("CUDA is available here; the default device is the card")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -512,19 +520,22 @@ def test_launch_train_on_cpu(capsys, tmp_path):
     assert all(np.isfinite(r["loss"]) for r in hist)
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2x1", "--microbatches", "2"],
-                                   ["--no-lms", "--ddl-mode", "zero1"],
+@pytest.mark.parametrize("flags", [["--mesh", "2x1", "--microbatches", "2", "--ckpt-dir", "c"],
+                                   ["--no-lms", "--ddl-mode", "zero1", "--mesh", "1x1x2"],
                                    ["--no-lms", "--mesh", "1x1x2"],
                                    ["--no-lms", "--supervise"],
                                    ["--no-lms", "--fault-step", "1"],
                                    ["--no-lms", "--heartbeat-dir", "hb"],
-                                   ["--microbatches", "2"],
+                                   ["--microbatches", "2", "--supervise"],
                                    ["--no-lms", "--spike-action", "stop"],
                                    ["--no-lms", "--ckpt-every", "5"],
-                                   ["--no-lms", "--mesh", "2x1", "--microbatches", "2"]])
+                                   ["--no-lms", "--mesh", "2x1", "--microbatches", "2",
+                                    "--trace", "t.json"]])
 def test_launch_train_rejects_what_is_not_ported(flags):
-    """LMS with microbatches (on one device or a mesh), and any flag whose
-    feature is not ported. LMS on a mesh of several ranks is ported
-    (tests/test_torch_lms_ddl.py runs it under torchrun)."""
+    """Any flag whose feature is not ported, also beside ones that are:
+    LMS on a mesh of several ranks (tests/test_torch_lms_ddl.py runs it
+    under torchrun), microbatches with LMS or on a mesh
+    (tests/test_torch_microbatches.py) and zero1
+    (tests/test_torch_zero1.py)."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
         launch.main(ARGS + flags)
