@@ -120,12 +120,31 @@ non-zero, printing no result):
    under the backward, swap bytes, peaks and pinned bytes against the
    plan's, MemAvailable before and after the ranks (waiting until the host
    has handed their memory back);
-14. host — MemTotal and MemAvailable, and the achieved pinned copy rate
+14. ckpt (checkpoints, resume, supervised crash recovery) — (a) in a
+   process spawned on the card, qwen2.5-14b at full width cut to 1 layer
+   under the plan of LMSConfig(hbm_budget=16e9) (params streamed, the
+   AdamW state in a pinned arena reserved once): `Trainer.train` 4 steps
+   without checkpoints, then the `Supervisor` over the same run with
+   async checkpoints every 2 steps and a crash before step 4: step 2
+   written from the arena while step 3 runs, restored into the arena by
+   attempt 2, steps 3-4 replayed, step 4 written; every row, grad norm
+   and leaf checksum bitwise the uninterrupted run's, RMSNorm as the plan
+   implies, committed steps [2, 4], the resident-set peak of each save and
+   of the restore under its bound; the save's blocking and writer seconds,
+   the restore's, GB/s, step 3 beside the write. The files (two 27.2 GB
+   checkpoints) go to RAM (/dev/shm): the machine lets a run write at most
+   45 GiB to its disk; the parent waits for the host to hand the
+   process's memory back before the LMS phases. (b) at smoke width, 2
+   ranks over gloo: zero1 on 1x2x1 under a plan with the optimizer on the
+   host, allreduce on 2x1x1 with the int8 pod hop, each bitwise its
+   uninterrupted run through a crash and restart, the pod hop's launches
+   as the leaf sizes imply;
+15. host — MemTotal and MemAvailable, and the achieved pinned copy rate
    host to device, device to host and both at once (1 GiB each way, CUDA
    events); the gate's depth is chosen here (the most layers L <= 48 whose
    pinned state fits 80% of MemAvailable, failing unless that state plus
    the grads exceeds the card's 80 GB) and its pinned state reserved once;
-15. lms_ab (qwen2.5-14b at full width cut to 4 layers, 2 x 2048 tokens, 3
+16. lms_ab (qwen2.5-14b at full width cut to 4 layers, 2 x 2048 tokens, 3
    steps of `Trainer.train` from one seed) — under the plan of
    LMSConfig(hbm_budget=16e9) (params and AdamW state streamed from
    pinned host memory, five activation classes offloaded, mlp_hidden
@@ -135,7 +154,7 @@ non-zero, printing no result):
    against the plan's, the measured peak against the plan's; then the
    same at 2 microbatches a step (a row each), streamed against resident
    m = 2, bitwise, the params swapped in twice as often as at m = 1;
-16. lms_gate (qwen2.5-14b at full width, the host phase's L layers, 2 x
+17. lms_gate (qwen2.5-14b at full width, the host phase's L layers, 2 x
    2048 tokens, 3 steps) — the budget from lms_ab's measured-minus-planned
    peak fed to the planner as its audited live-bytes margin (lowered until
    the params stream); finite losses, step 1's loss bitwise equal to a
@@ -242,6 +261,17 @@ LMS_AB_LAYERS, LMS_AB_BUDGET, LMS_STEPS = 4, 16 * 10**9, 3
 LMS_HOST_SHARE, LMS_MARGIN_ALLOWANCE = 0.8, 2 * 10**9
 CARD_BYTES = 80 * 10**9
 HOST_COPY_BYTES, HOST_COPY_REPS = 1 << 30, 5
+# checkpoints and supervised recovery (the ckpt phase, before the LMS
+# phases): the plan of lms_ab at CKPT_LAYERS layer, CKPT_STEPS steps, a
+# crash injected before the step of 0-based index CKPT_FAULT_AT; the files
+# need two checkpoints' bytes + CKPT_ROOM_SLACK of room; VmRSS sampled
+# every CKPT_RSS_PERIOD_S; (b) at smoke width under
+# LMSConfig(CKPT_SMOKE_BUDGET)
+CKPT_LAYERS, CKPT_STEPS, CKPT_FAULT_AT = 1, 4, 3
+CKPT_ROOM_SLACK, CKPT_RSS_PERIOD_S, CKPT_SMOKE_BUDGET = 4 * 10**9, 0.01, 600_000
+# the card's machine lets a run write at most 45 GiB to its disk; (a)'s two
+# checkpoints (54.4 GB) go to RAM
+CKPT_RAM_ROOT, CKPT_TIMEOUT_S = "/dev/shm", 900
 # torch.profiler sessions that time a kernel: at most this many for one
 # number, the timed calls this far (s) inside each end of a session
 PROFILE_ATTEMPTS, PROFILE_PAD_S = 8, 0.02
@@ -1712,6 +1742,9 @@ def ddl_kernel_phases(out: dict, checked: set):
                              smoke.d_model, 49, checked, eps=smoke.norm_eps),
         rmsnorm_kernel_phase("ddl_smoke_microbatch",
                              DDL_SMOKE_BATCH // 4 // DDL_SHARDED_MICROBATCHES * DDL_SMOKE_SEQ,
+                             smoke.d_model, 49, checked, eps=smoke.norm_eps),
+        # the ckpt phase's 2 smoke-width ranks
+        rmsnorm_kernel_phase("ckpt_smoke_rank", DDL_SMOKE_BATCH // 2 * DDL_SMOKE_SEQ,
                              smoke.d_model, 49, checked, eps=smoke.norm_eps)])
     sizes = set(full) | {n for ov in (False, True)
                          for n in ddl_pod_hop_sizes(smoke, DDL_SMOKE_MESH[1], overlap=ov)}
@@ -1720,6 +1753,8 @@ def ddl_kernel_phases(out: dict, checked: set):
               for n in ddl_sharded_pod_hop_sizes(smoke, DDL_SMOKE_MESH[1], zero1=zero1,
                                                  overlap=ov)}
     sizes |= set(ddl_ef_slices())
+    # the ckpt phase's compressed 2x1x1 run at smoke width
+    sizes |= set(ddl_pod_hop_sizes(smoke, 1, overlap=True))
     # lms_ddl (b) without the overlapped backward reduces whole stacked leaves
     sizes |= {n for L in LMS_DDL_DEPTHS
               for n in ddl_pod_hop_sizes(_ddl_config(L, DDL_MESH).model, 1, overlap=False)}
@@ -2718,14 +2753,16 @@ def mamba_phases(line, checked):
 
 def _train_config(layers: int, **kw):
     """qwen2.5-14b at full width, cut to `layers`, trained on one device with
-    LMS off on TRAIN_BATCH x TRAIN_SEQ tokens a step."""
+    LMS off on TRAIN_BATCH x TRAIN_SEQ tokens a step, without checkpoints
+    (checkpoint_dir None) unless given one."""
     import dataclasses
     from repro_torch.config.base import LMSConfig, MeshSpec, ShapeConfig, TrainConfig
     from repro_torch.configs import get_config
     cfg = dataclasses.replace(get_config(ARCH), num_layers=layers)
     return TrainConfig(model=cfg, shape=ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_BATCH),
                        mesh=MeshSpec((1, 1), ("data", "model")),
-                       lms=LMSConfig(enabled=False), seed=SEED, **kw)
+                       lms=LMSConfig(enabled=False), seed=SEED,
+                       **{"checkpoint_dir": None, **kw})
 
 
 def _rel_frobenius(got, want) -> float:
@@ -3060,7 +3097,8 @@ def _ddl_config(layers: int, mesh, *, smoke: bool = False, batch: int = TRAIN_BA
                 seq: int = TRAIN_SEQ, **kw):
     """qwen2.5-14b at full width cut to `layers` (or its smoke config) on
     `mesh` (pod, data, model), LMS off, `batch` x `seq` tokens a step over
-    all the ranks."""
+    all the ranks, without checkpoints (checkpoint_dir None) unless given
+    one."""
     import dataclasses
     from repro_torch.config.base import LMSConfig, MeshSpec, ShapeConfig, TrainConfig
     from repro_torch.configs import get_config, get_smoke_config
@@ -3069,7 +3107,7 @@ def _ddl_config(layers: int, mesh, *, smoke: bool = False, batch: int = TRAIN_BA
     return TrainConfig(model=cfg, shape=ShapeConfig("ddl", "train", seq, batch),
                        mesh=MeshSpec(tuple(mesh), DDL_AXES), lms=LMSConfig(enabled=False),
                        seed=SEED, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
-                       total_steps=DDL_STEPS, **kw)
+                       total_steps=DDL_STEPS, **{"checkpoint_dir": None, **kw})
 
 
 def ddl_pod_hop_sizes(cfg, data_size: int, *, overlap: bool):
@@ -4863,6 +4901,391 @@ def lms_phases(line, checked):
     return host_row, ab_row, lms_gate_phase(line, checked, host_row, ab_row, layers)
 
 
+# ---------------------------------------------------------------------------
+# checkpoints, resume and supervised crash recovery
+# ---------------------------------------------------------------------------
+
+class _RssSampler:
+    """The process's VmRSS sampled every CKPT_RSS_PERIOD_S on a thread:
+    (monotonic time, bytes) pairs, for the resident-set peak of a window."""
+
+    def __init__(self):
+        import threading
+        self.samples = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def rss() -> int:
+        with open("/proc/self/status") as f:
+            for row in f:
+                if row.startswith("VmRSS:"):
+                    return int(row.split()[1]) * 1024
+        raise RuntimeError("no VmRSS in /proc/self/status")
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.samples.append((time.monotonic(), self.rss()))
+            self._stop.wait(CKPT_RSS_PERIOD_S)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def over(self, t0: float, t1: float) -> dict:
+        """The peak over the window [t0, t1] above the last sample before
+        t0 (the baseline: the arena is resident by then)."""
+        before = [r for t, r in self.samples if t <= t0]
+        inside = [r for t, r in self.samples if t0 <= t <= t1]
+        base = before[-1] if before else inside[0]
+        peak = max(inside + [base])
+        return {"baseline_bytes": base, "peak_bytes": peak, "over_bytes": peak - base,
+                "samples": len(inside)}
+
+
+def _mount_of(path: str) -> dict:
+    """The filesystem holding `path`: its mount point and type (the longest
+    mount point of /proc/mounts that prefixes it) and its free bytes."""
+    import shutil
+    path = os.path.realpath(path)
+    best = ("", "?")
+    with open("/proc/mounts") as f:
+        for row in f:
+            parts = row.split()
+            mnt, fstype = parts[1], parts[2]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) and len(mnt) > len(best[0]):
+                best = (mnt, fstype)
+    usage = shutil.disk_usage(path)
+    return {"mount": best[0], "fstype": best[1], "free_bytes": usage.free,
+            "total_bytes": usage.total}
+
+
+def _state_checksums(state) -> list:
+    """`_checksums` of every param and optimizer leaf (TrainState or
+    Zero1State), the step counters' values after them."""
+    if hasattr(state, "opt"):
+        return (_checksums({"params": state.params, "opt": dict(state.opt._asdict())})
+                + [int(state.step)])
+    return _checksums({"params": state.params, "mu": state.mu, "nu": state.nu,
+                       "master": state.master}) + [int(state.step)]
+
+
+def _leaf_bytes(state) -> dict:
+    """Bytes of the checkpointed leaves: on the card, all, the largest."""
+    from repro_torch.tree import tree_leaves
+    if hasattr(state, "opt"):
+        leaves = tree_leaves({"params": state.params, "opt": dict(state.opt._asdict())})
+    else:
+        leaves = tree_leaves(state.params) + [state.mu, state.nu, state.master, state.step]
+    sizes = [(t.numel() * t.element_size(), t.device.type) for t in leaves]
+    return {"total": sum(n for n, _ in sizes),
+            "device": sum(n for n, d in sizes if d == "cuda"),
+            "largest": max(n for n, _ in sizes)}
+
+
+def _supervised(tcfg, steps: int, at: int, rows: list):
+    """`Supervisor.run(steps)` of `tcfg` with one injected crash before the
+    at-th step's dispatch (0-based) and no delay; every history row, the
+    replays too, appended to `rows` in order. -> the result."""
+    from repro_torch.runtime import (FaultEvent, FaultInjector, FaultPlan, RestartPolicy,
+                                     Supervisor)
+    sup = Supervisor(tcfg, device="cuda",
+                     policy=RestartPolicy(max_restarts=1, backoff_base=0.0, jitter=False),
+                     injector=FaultInjector(FaultPlan([FaultEvent("trainer.step", at=at)])),
+                     sleep_fn=lambda d: None)
+    res = sup.run(steps=steps, on_step=lambda s, r: rows.append(dict(r)))
+    res.obs = sup.obs
+    return res
+
+
+def _ckpt_full(rank: int, world: int, root: str):
+    """(a) of the ckpt phase, in a process of its own (spawned): its pinned
+    arena reserved once at the 1-layer state's size and reused by every
+    placement; the checkpoint files under `root`. -> the row, with the
+    launch signatures seen (the parent checks them)."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.config.base import LMSConfig
+    from repro_torch.core.lms import offload as off
+    from repro_torch.train import trainer as trainer_mod
+    from repro_torch.train.trainer import Trainer
+    n = CKPT_STEPS
+    tcfg = dataclasses.replace(
+        _train_config(CKPT_LAYERS, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                      total_steps=n), lms=LMSConfig(hbm_budget=LMS_AB_BUDGET))
+    off.reserve_pinned(_pinned_state_bytes(CKPT_LAYERS), "cuda")
+    # the uninterrupted run
+    trainer = Trainer(tcfg, device="cuda")
+    plan = trainer.plan
+    with launch_signatures() as (seen0, calls0, launches0):
+        state, hist0 = trainer.train(steps=n)
+    sums0 = _state_checksums(state)
+    sizes = _leaf_bytes(state)
+    del trainer, state
+    torch.cuda.empty_cache()
+    off.release_arenas()
+    # room for two checkpoints, checked before the first write
+    fs = _mount_of(root)
+    room = {"mem_available_bytes": _meminfo()["MemAvailable"],
+            "needed_bytes": 2 * sizes["total"] + CKPT_ROOM_SLACK}
+    if fs["free_bytes"] < room["needed_bytes"] or (
+            fs["fstype"] == "tmpfs" and room["mem_available_bytes"] < room["needed_bytes"]):
+        raise AssertionError(f"ckpt: {fs} and MemAvailable {room['mem_available_bytes']} B "
+                             f"hold less than two checkpoints ({room['needed_bytes']} B)")
+    # the supervised run, timed by the save calls, the writers' spans and
+    # the restore
+    ck_tcfg = dataclasses.replace(tcfg, checkpoint_dir=os.path.join(root, "a"),
+                                  checkpoint_every=2, async_checkpoint=True)
+    saves, restores = [], []
+    real_save, real_restore = Checkpointer.save, trainer_mod.restore_train_state
+
+    def timed_save(self, step, state_, **kw):
+        saves.append((step, time.monotonic()))
+        return real_save(self, step, state_, **kw)
+
+    def timed_restore(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = real_restore(*a, **kw)
+        torch.cuda.synchronize()
+        restores.append((t0, time.monotonic()))
+        return out
+    Checkpointer.save, trainer_mod.restore_train_state = timed_save, timed_restore
+    rows = []
+    try:
+        with _RssSampler() as rss, launch_signatures() as (seen, calls, launches):
+            res = _supervised(ck_tcfg, n, CKPT_FAULT_AT, rows)
+    finally:
+        Checkpointer.save, trainer_mod.restore_train_state = real_save, real_restore
+    sums = _state_checksums(res.state)
+    del res.state
+    torch.cuda.empty_cache()
+    off.release_arenas()
+    committed = Checkpointer(ck_tcfg.checkpoint_dir).all_steps()
+    writers = {e.attrs["step"]: (e.t0, e.dur) for e in res.obs.ring.events()
+               if e.site == "ckpt.save" and e.kind == "span" and e.t0 >= saves[0][1]}
+    reg = res.obs.registry
+    save_rows = []
+    for (step, t_call), block_s in zip(saves, reg.histogram("ckpt.save_block_s").window):
+        w0, dur = writers[step]
+        save_rows.append({"step": step, "block_s": block_s, "write_s": dur,
+                          "write_gb_s": sizes["total"] / dur / 1e9,
+                          "rss": rss.over(t_call, w0 + dur)})
+    (r0, r1), = restores
+    restore_row = {"seconds": r1 - r0, "gb_s": sizes["total"] / (r1 - r0) / 1e9,
+                   "rss": rss.over(r0, r1)}
+    bound = sizes["device"] + 2 * sizes["largest"] + (1 << 30)
+    executed = [r["step"] for r in rows]
+    want = [hist0[s - 1] for s in executed]
+    implied = _implied_rmsnorm_launches(plan, CKPT_LAYERS)
+    step3 = [r for r in rows if r["step"] == 3]
+    checks = {
+        "attempts_2_restarts_1": (res.attempts, res.restarts) == (2, 1),
+        "history_steps_1_to_4": [r["step"] for r in res.hist] == list(range(1, n + 1)),
+        "executed_1_2_3_3_4": executed == [1, 2, 3, 3, 4],
+        "loss_bitwise": [r["loss"] for r in rows] == [r["loss"] for r in want],
+        "grad_norm_bitwise": [r["grad_norm"] for r in rows] == [r["grad_norm"] for r in want],
+        "checksums_bitwise": sums == sums0,
+        "rmsnorm_launches_as_the_plan_implies":
+            launches0["rmsnorm"] == n * implied and launches["rmsnorm"] == len(rows) * implied,
+        "no_other_launches": all(v == 0 for k, v in {**launches, **launches0}.items()
+                                 if not k.startswith("rmsnorm")),
+        "every_launch_recorded": calls == launches and calls0 == launches0,
+        "committed_2_4": committed == [2, 4],
+        "save_rss_under_bound": all(r["rss"]["over_bytes"] <= bound for r in save_rows),
+        "restore_rss_under_bound": restore_row["rss"]["over_bytes"] <= bound,
+    }
+    return {"phase": "ckpt", "arch": ARCH, "layers": CKPT_LAYERS, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "steps": n, "hbm_budget": LMS_AB_BUDGET,
+            "plan": _plan_row(plan), "checkpoint_bytes": sizes["total"],
+            "device_leaf_bytes": sizes["device"], "largest_leaf_bytes": sizes["largest"],
+            "rss_bound_bytes": bound, "filesystem": fs, "room": room, "saves": save_rows,
+            "restore": restore_row, "writer_wait_s": reg.histogram("ckpt.wait_s").summary(),
+            "step3_beside_write_s": step3[0]["time_s"],
+            "step3_uninterrupted_s": hist0[2]["time_s"],
+            "uninterrupted_step_s": [r["time_s"] for r in hist0],
+            "median_step_s_uninterrupted": statistics.median(r["time_s"] for r in hist0[1:]),
+            "supervised_rows": [{k: r[k] for k in ("step", "loss", "grad_norm", "time_s")}
+                                for r in rows],
+            "committed": committed, "rmsnorm_launches": launches["rmsnorm"],
+            "implied_rmsnorm_launches_per_step": implied,
+            "signatures": sorted(seen | seen0), "checks": checks}
+
+
+def ckpt_phase(line, checked):
+    """Checkpoints, resume and supervised crash recovery.
+
+    (a) The paper's case under checkpoints, in a process spawned on the
+    card (`_ckpt_full`) before the LMS phases: qwen2.5-14b at full width
+    cut to CKPT_LAYERS layer, 2 x 2048 tokens a step, the plan of
+    LMSConfig(hbm_budget=LMS_AB_BUDGET) (params streamed, the AdamW state
+    in a pinned arena reserved once). `Trainer.train` for CKPT_STEPS steps
+    with no checkpoints, then the `Supervisor` over the same run with
+    asynchronous checkpoints every 2 steps and a crash injected before
+    step 4's dispatch: attempt 1 trains steps 1-3 (step 2 written from the
+    arena while step 3 runs), attempt 2 restores step 2 into the arena,
+    replays 3-4 and writes step 4. Held: 2 attempts, 1 restart, steps 1-4;
+    every row's loss and grad norm (attempt 1's step 3 too) and every
+    leaf's checksum after step 4 bitwise the uninterrupted run's;
+    RMSNorm's launches the plan implies a step executed, of shapes the
+    kernel phases checked; committed steps [2, 4]; the resident-set peak
+    during each save and the restore, above its baseline, under the
+    card-resident leaves' bytes + 2 x the largest leaf + 1 GiB. Reported:
+    checkpoint bytes, the save call's blocking seconds, the writer's
+    seconds and GB/s, step 3 beside the write against the uninterrupted
+    step 3, the update's wait for the writer, the restore's seconds and
+    GB/s, the filesystem.
+
+    Where the files go: the card's machine lets a run write at most 45 GiB
+    to its disk, and two checkpoints are 54.4 GB, so they go to
+    a directory of their own in RAM (CKPT_RAM_ROOT, tmpfs; room checked
+    against MemAvailable first, removed at the end); the process runs
+    before the LMS phases, beside no reserved arena of the parent's, and
+    the parent then waits until MemAvailable is back within
+    LMS_DDL_MEM_SLACK of its value before it (the host hands a child's
+    memory back over seconds), so the gate sizes itself from the whole
+    host.
+
+    (b) At smoke width, 2 ranks spawned on the card over gloo
+    (`ckpt_ranks_phase`). -> the phase row."""
+    import shutil
+    import tempfile
+    before = _meminfo()["MemAvailable"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=CKPT_RAM_ROOT)
+    t0 = time.monotonic()
+    try:
+        row, = spawn_ranks("_ckpt_full", 1, root, timeout=CKPT_TIMEOUT_S)
+    finally:
+        shutil.rmtree(root)
+    seconds = time.monotonic() - t0
+    mem = _await_mem_available(before - LMS_DDL_MEM_SLACK, LMS_DDL_MEM_WAIT_S)
+    unchecked = sorted({_tuplify(sig) for sig in row.pop("signatures")} - checked)
+    row["checks"]["every_launch_shape_checked"] = not unchecked
+    row.update(card=line, seconds=seconds, unchecked_signatures=unchecked,
+               mem_available_before=before, mem_available_after=mem)
+    emit(row)
+    if not all(row["checks"].values()):
+        raise AssertionError(f"ckpt: failed checks "
+                             f"{[k for k, v in row['checks'].items() if not v]}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_ranks_", dir=os.path.join(ROOT, "build"))
+    try:
+        row["ranks"] = ckpt_ranks_phase(line, checked, root)
+    finally:
+        shutil.rmtree(root)
+    return row
+
+
+CKPT_RANK_MODES = ("zero1_planned", "allreduce_compress")
+
+
+def _ckpt_rank_config(mode: str, ckpt_dir):
+    """The smoke config on 2 ranks: zero1 on 1x2x1 under
+    LMSConfig(hbm_budget=CKPT_SMOKE_BUDGET), or allreduce on 2x1x1 with
+    the int8 pod hop, CKPT_STEPS steps."""
+    import dataclasses
+    from repro_torch.config.base import DDLConfig, LMSConfig
+    mesh, ddl, lms = {"zero1_planned": ((1, 2, 1), DDLConfig(mode="zero1"),
+                                        LMSConfig(hbm_budget=CKPT_SMOKE_BUDGET)),
+                      "allreduce_compress": ((2, 1, 1), DDLConfig(compress_dcn=True),
+                                             LMSConfig(enabled=False))}[mode]
+    tcfg = _ddl_config(0, mesh, smoke=True, batch=DDL_SMOKE_BATCH, seq=DDL_SMOKE_SEQ, ddl=ddl,
+                       checkpoint_dir=ckpt_dir, checkpoint_every=2)
+    return dataclasses.replace(tcfg, lms=lms, total_steps=CKPT_STEPS)
+
+
+def _ckpt_rank(rank: int, world: int, mode: str, ckpt_dir: str):
+    """One rank of (b): the uninterrupted run, then the supervised one with
+    a crash before step 4; each row, the checksums after the last step,
+    the launches of each run, the plan's residency."""
+    import dataclasses
+    from repro_torch.core.lms import offload as off
+    from repro_torch.train.trainer import Trainer
+    tcfg = _ckpt_rank_config(mode, ckpt_dir)
+    out = {}
+    trainer = Trainer(dataclasses.replace(tcfg, checkpoint_dir=None), device="cuda")
+    with launch_signatures() as (seen0, _, launches0):
+        state, hist0 = trainer.train(steps=CKPT_STEPS)
+    out["uninterrupted"] = {"rows": [{"step": r["step"], "loss": r["loss"],
+                                      "grad_norm": r["grad_norm"]} for r in hist0],
+                            "checksums": _state_checksums(state), "launches": launches0,
+                            "signatures": sorted(seen0)}
+    out["residency"] = trainer.plan.residency if trainer.plan is not None else None
+    del trainer, state
+    off.release_arenas()
+    rows = []
+    with launch_signatures() as (seen, _, launches):
+        res = _supervised(tcfg, CKPT_STEPS, CKPT_FAULT_AT, rows)
+    out["supervised"] = {"rows": [{"step": r["step"], "loss": r["loss"],
+                                   "grad_norm": r["grad_norm"]} for r in rows],
+                         "attempts": res.attempts, "restarts": res.restarts,
+                         "checksums": _state_checksums(res.state), "launches": launches,
+                         "signatures": sorted(seen)}
+    del res
+    off.release_arenas()
+    return out
+
+
+def ckpt_ranks_phase(line, checked, root):
+    """(b) of the ckpt phase: each mode's 2 ranks spawned on the card. ->
+    the row."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.train.steps import _resolve_overlap
+    t0 = time.monotonic()
+    out, checks, unchecked = {}, {}, set()
+    for mode in CKPT_RANK_MODES:
+        ckpt_dir = os.path.join(root, f"b_{mode}")
+        ranks = spawn_ranks("_ckpt_rank", 2, mode, ckpt_dir)
+        tcfg = _ckpt_rank_config(mode, ckpt_dir)
+        c = {}
+        for r, got in enumerate(ranks):
+            u, s = got["uninterrupted"], got["supervised"]
+            by_step = {row["step"]: row for row in u["rows"]}
+            c[f"rank{r}"] = {
+                "attempts_2_restarts_1": (s["attempts"], s["restarts"]) == (2, 1),
+                "rows_bitwise": [row["step"] for row in s["rows"]] == [1, 2, 3, 3, 4]
+                and all(row == by_step[row["step"]] for row in s["rows"]),
+                "checksums_bitwise": s["checksums"] == u["checksums"]}
+            unchecked |= {_tuplify(sig) for sig in u["signatures"] + s["signatures"]} - checked
+        c["same_on_both_ranks"] = ranks[0]["supervised"]["rows"] == ranks[1]["supervised"]["rows"]
+        c["committed_2_4"] = Checkpointer(ckpt_dir).all_steps() == [2, 4]
+        if mode == "zero1_planned":
+            c["optimizer_on_the_host"] = all(got["residency"]["optimizer"] == "host"
+                                             for got in ranks)
+        else:
+            pods, data = tcfg.mesh.shape[0], tcfg.mesh.shape[1]
+            ov = _resolve_overlap(None, None, tcfg, pods * data)
+            per_step = len(ddl_pod_hop_sizes(tcfg.model, data, overlap=ov))
+            c["launches"] = all(
+                got[run]["launches"]["quantize_rows"] == len(got[run]["rows"]) * per_step
+                and got[run]["launches"]["dequantize_sum_rows"] == len(got[run]["rows"]) * per_step
+                and got[run]["launches"]["dequantize_rows"] == 0
+                for got in ranks for run in ("uninterrupted", "supervised"))
+        c["rmsnorm_launched"] = all(got[run]["launches"]["rmsnorm"] > 0 for got in ranks
+                                    for run in ("uninterrupted", "supervised"))
+        checks[mode] = c
+        out[mode] = {"mesh": list(tcfg.mesh.shape), "residency": ranks[0]["residency"],
+                     "rows": ranks[0]["supervised"]["rows"],
+                     "launches": ranks[0]["supervised"]["launches"]}
+    flat = {f"{mode}.{k}": all(v.values()) if isinstance(v, dict) else v
+            for mode, c in checks.items() for k, v in c.items()}
+    flat["every_launch_shape_checked"] = not unchecked
+    row = {"phase": "ckpt_ranks", "arch": ARCH, "config": "smoke", "ranks": 2,
+           "backend": "gloo (host-staged)", "batch": DDL_SMOKE_BATCH, "seq": DDL_SMOKE_SEQ,
+           "steps": CKPT_STEPS, "card": line, "modes": out, "checks": checks,
+           "unchecked_signatures": sorted(map(str, unchecked)),
+           "seconds": time.monotonic() - t0}
+    emit(row)
+    if not all(flat.values()):
+        raise AssertionError(f"ckpt_ranks: failed checks {[k for k, v in flat.items() if not v]}")
+    return row
+
+
 def main() -> int:
     line = device_phase()
     import torch
@@ -4919,6 +5342,7 @@ def main() -> int:
     ddl_sharded_phase(line, checked)
     ddl_sharded_smoke_phase(line, checked, smoke_reference)
     lms_ddl_phase(line, checked, ddl_row)
+    ckpt_phase(line, checked)
     lms_phases(line, checked)
 
     decode_kernel = "src/repro/kernels/flash_attention/decode_kernel.py"

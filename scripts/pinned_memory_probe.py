@@ -12,7 +12,12 @@ starts (spawn), each pinning `--gb` GB (default 8):
    then the parent pins its own mapping, unpins it and closes the file;
 4. the parent pins an anonymous buffer, unpins it and frees it.
 
-    python3 scripts/pinned_memory_probe.py [--gb 8]
+With `--tmpfs DIR` (a RAM filesystem such as /dev/shm) it probes files
+there instead: a child writes a file of `--gb` GB and deletes it; a child
+writes one and exits, and the parent deletes it; the parent writes one and
+deletes it (MemAvailable read again after 5 s each time).
+
+    python3 scripts/pinned_memory_probe.py [--gb 8] [--tmpfs /dev/shm]
 
 Prints one JSON line a step ({"step", "meminfo": {key: bytes}}) and, as
 the last line, {"steps": [...]} with MemFree and MemAvailable after each
@@ -87,6 +92,19 @@ def child_shared(_, path, nbytes):
     os.close(fd)
 
 
+def write_file(path: str, nbytes: int) -> None:
+    chunk = b"\1" * (64 << 20)
+    with open(path, "wb") as f:
+        for lo in range(0, nbytes, len(chunk)):
+            f.write(chunk[:min(len(chunk), nbytes - lo)])
+
+
+def child_tmpfs(_, path, nbytes, delete):
+    write_file(path, nbytes)
+    if delete:
+        os.remove(path)
+
+
 def run_child(fn, *args):
     mp.start_processes(fn, args=args, nprocs=1, start_method="spawn", join=True)
 
@@ -94,6 +112,8 @@ def run_child(fn, *args):
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--gb", type=float, default=8.0)
+    p.add_argument("--tmpfs", default="",
+                   help="probe files in this RAM filesystem instead of pinned memory")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs the card")
@@ -107,6 +127,25 @@ def main() -> int:
         print(json.dumps(row), flush=True)
 
     record("start")
+    if args.tmpfs:
+        import time
+        path = os.path.join(args.tmpfs, "pinned_probe_file")
+
+        def settled(name):
+            record(name)
+            time.sleep(5)
+            record(name + ", 5 s later")
+        run_child(child_tmpfs, path, nbytes, True)
+        settled("child wrote a tmpfs file, deleted it and exited")
+        run_child(child_tmpfs, path, nbytes, False)
+        record("child wrote a tmpfs file and exited")
+        os.remove(path)
+        settled("parent deleted it")
+        write_file(path, nbytes)
+        record("parent wrote a tmpfs file")
+        os.remove(path)
+        settled("parent deleted it")
+        return _summary(args.gb, steps)
     run_child(child_anonymous, nbytes)
     record("child pinned an anonymous buffer and exited")
     run_child(child_torch_pinned, nbytes)
@@ -137,8 +176,12 @@ def main() -> int:
     unregister(buf)
     del buf
     record("parent unpinned and freed it")
+    return _summary(args.gb, steps)
+
+
+def _summary(gb, steps) -> int:
     start = steps[0]["meminfo"]
-    print(json.dumps({"gb": args.gb, "steps": [
+    print(json.dumps({"gb": gb, "steps": [
         {"step": s["step"],
          "mem_free_delta_gb": (s["meminfo"]["MemFree"] - start["MemFree"]) / 1e9,
          "mem_available_delta_gb": (s["meminfo"]["MemAvailable"] - start["MemAvailable"]) / 1e9}

@@ -250,8 +250,9 @@ class TrainConfig:
     microbatches: int = 1             # grad accumulation
     remat_policy: str = "auto"        # "auto" (planner) | "none" | "full" | "offload"
     seed: int = 0
-    # checkpointing
-    checkpoint_dir: str = "/tmp/repro_ckpt"
+    # checkpointing; None: no checkpoints (the port's own setting: the
+    # trainer then neither saves nor resumes)
+    checkpoint_dir: Optional[str] = "/tmp/repro_ckpt"
     checkpoint_every: int = 100
     async_checkpoint: bool = True
     # observability: metrics cross to the host (the per-step float() sync)

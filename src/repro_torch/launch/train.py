@@ -31,9 +31,21 @@ mesh with the overlapped backward, as reduce-scattered shards):
 The process group is NCCL when every rank has a card of its own, gloo
 otherwise (ranks on the CPU, or sharing a card). Only rank 0 prints.
 
-Tensor parallelism (a `model` axis above 1), checkpoints, the Supervisor,
-fault drills, heartbeats, loss-spike telemetry and the trace and
-obs-report exports are not ported yet: their flags raise.
+Checkpoints, the Supervisor and its drills, heartbeats, loss-spike
+telemetry and the trace and obs-report exports take the JAX launcher's
+flags. The run checkpoints into `--ckpt-dir` (default /tmp/repro_ckpt,
+as in JAX) every `--ckpt-every` steps and at the end, and resumes from
+the newest committed step there: give each run a directory of its own.
+`--supervise` restarts a failed run from its last committed checkpoint;
+`--fault-step N` (or `--fault-seed S`) injects the failure, `--lost-devices`
+makes it take devices, and the survivors reshard (under torchrun on a
+fresh rendezvous next to the checkpoints):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-14b \
+        --smoke --steps 8 --ckpt-dir build/ckpt --ckpt-every 2 \
+        --supervise --fault-step 5
+
+Tensor parallelism (a `model` axis above 1) is not ported yet: it raises.
 """
 from __future__ import annotations
 
@@ -50,7 +62,10 @@ from repro_torch.config.base import (DDLConfig, LMSConfig, MeshSpec,
                                      ShapeConfig, TrainConfig)
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch.mesh import local_device
-from repro_torch.obs import configure, get_obs
+from repro_torch.obs import (TelemetryLoop, configure, export_chrome_trace,
+                             get_obs, write_obs_report)
+from repro_torch.runtime import (FaultEvent, FaultInjector, FaultPlan,
+                                 RestartPolicy, Supervisor)
 from repro_torch.train.trainer import Trainer
 
 
@@ -61,27 +76,6 @@ def parse_mesh(s: str) -> MeshSpec:
     if len(dims) == 2:
         return MeshSpec(dims, ("data", "model"))
     return MeshSpec(dims, ("data",))
-
-
-def _unported(args) -> list:
-    """The flags given whose feature is not ported yet."""
-    mesh = parse_mesh(args.mesh)
-    given = {
-        "--mesh with a model axis above 1 (tensor parallelism)":
-            dict(zip(mesh.axes, mesh.shape)).get("model", 1) > 1,
-        "--ckpt-dir": args.ckpt_dir is not None,
-        "--ckpt-every": args.ckpt_every is not None,
-        "--trace": bool(args.trace),
-        "--obs-report": bool(args.obs_report),
-        "--spike-action": args.spike_action != "off",
-        "--supervise": args.supervise,
-        "--heartbeat-dir": bool(args.heartbeat_dir),
-        "--max-restarts": args.max_restarts is not None,
-        "--fault-step": args.fault_step >= 0,
-        "--lost-devices": args.lost_devices > 0,
-        "--fault-seed": args.fault_seed >= 0,
-    }
-    return [flag for flag, on in given.items() if on]
 
 
 def main(argv=None):
@@ -105,35 +99,49 @@ def main(argv=None):
     p.add_argument("--no-lms", action="store_true",
                    help="train without LMS (everything resident)")
     p.add_argument("--microbatches", type=int, default=1)
-    p.add_argument("--ckpt-dir", default=None)
-    p.add_argument("--ckpt-every", type=int, default=None)
+    p.add_argument("--ckpt-dir", default="/tmp/repro_ckpt")
+    p.add_argument("--ckpt-every", type=int, default=50)
     p.add_argument("--log", default="",
                    help="write the history rows to this JSON file")
     p.add_argument("--log-every", type=int, default=1,
                    help="flush device metrics to the host every N steps")
     p.add_argument("--obs-jsonl", default="",
                    help="stream span events to this JSONL file")
-    p.add_argument("--trace", default="")
-    p.add_argument("--obs-report", default="")
+    p.add_argument("--trace", default="",
+                   help="write a Chrome trace_event JSON (chrome://tracing / "
+                        "Perfetto) at exit")
+    p.add_argument("--obs-report", default="",
+                   help="write the overlap/swap obs report JSON at exit (a "
+                        "--profile input)")
     p.add_argument("--profile", default="",
                    help="Planner v2 calibration: plan from the measured "
                         "bandwidths/overlap in this obs_report.json instead "
                         "of the hardware model")
     p.add_argument("--spike-action", default="off",
-                   choices=["off", "record", "stop"])
-    p.add_argument("--supervise", action="store_true")
-    p.add_argument("--heartbeat-dir", default="")
-    p.add_argument("--max-restarts", type=int, default=None)
-    p.add_argument("--fault-step", type=int, default=-1)
-    p.add_argument("--lost-devices", type=int, default=0)
-    p.add_argument("--fault-seed", type=int, default=-1)
+                   choices=["off", "record", "stop"],
+                   help="loss-spike telemetry: record alerts, or stop the "
+                        "run early on a spike")
+    p.add_argument("--supervise", action="store_true",
+                   help="run under the Supervisor: on failure, restore the "
+                        "last committed checkpoint, reshard onto surviving "
+                        "devices, and resume")
+    p.add_argument("--heartbeat-dir", default="",
+                   help="heartbeat store directory (enables liveness beats)")
+    p.add_argument("--max-restarts", type=int, default=10)
+    p.add_argument("--fault-step", type=int, default=-1,
+                   help="drill: inject a fatal fault before this 0-based "
+                        "step (requires --supervise to survive it)")
+    p.add_argument("--lost-devices", type=int, default=0,
+                   help="drill: devices the injected fault takes down "
+                        "(triggers an elastic reshard on restart)")
+    p.add_argument("--fault-seed", type=int, default=-1,
+                   help="drill: sample a random FaultPlan from this seed "
+                        "instead of --fault-step")
     args = p.parse_args(argv)
-    unported = _unported(args)
-    if unported:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(unported)} (the port trains without "
-            "checkpoints)")
     mesh = parse_mesh(args.mesh)
+    if dict(zip(mesh.axes, mesh.shape)).get("model", 1) > 1:
+        raise NotImplementedError(
+            "not ported yet: --mesh with a model axis above 1 (tensor parallelism)")
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world != mesh.num_devices:
         raise ValueError(f"WORLD_SIZE {world} disagrees with --mesh {args.mesh} "
@@ -151,14 +159,13 @@ def main(argv=None):
         ddl=DDLConfig(mode=args.ddl_mode, compress_dcn=args.compress_dcn),
         learning_rate=args.lr, warmup_steps=args.warmup,
         total_steps=args.steps, microbatches=args.microbatches,
+        checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every,
         log_every=max(1, args.log_every))
 
     configure(jsonl_path=args.obs_jsonl or None)
-    trainer = Trainer(tcfg, device=args.device, obs=get_obs(),
-                      profile=args.profile or None)
-    plan = trainer.plan
-    if rank0 and plan is not None and (plan.swap_schedule is not None or plan.calibrated):
-        print(plan.summary())
+    obs = get_obs()
+    telemetry = (TelemetryLoop(action=args.spike_action, obs=obs)
+                 if args.spike_action != "off" else None)
 
     def log(step, m):
         if rank0:
@@ -166,18 +173,74 @@ def main(argv=None):
                   f"{m['grad_norm']:.3f} | lr {m['lr']:.2e} | "
                   f"{m['time_s']*1e3:.0f} ms")
 
-    _, hist = trainer.train(steps=args.steps, on_step=log)
+    injector = None
+    if args.fault_step >= 0:
+        payload = {"lost_devices": args.lost_devices} if args.lost_devices else {}
+        injector = FaultInjector(FaultPlan(
+            [FaultEvent("trainer.step", at=args.fault_step, payload=payload)]))
+    elif args.fault_seed >= 0:
+        injector = FaultInjector(FaultPlan.sample(
+            args.fault_seed, sites=("trainer.step", "ckpt.commit")))
+
+    if args.supervise:
+        sup = Supervisor(tcfg, device=args.device,
+                         heartbeat_dir=args.heartbeat_dir or None,
+                         policy=RestartPolicy(max_restarts=args.max_restarts,
+                                              backoff_base=0.01, max_delay=1.0),
+                         injector=injector, obs=obs, telemetry=telemetry,
+                         rendezvous=_rendezvous(args.ckpt_dir),
+                         profile=args.profile or None)
+        res = sup.run(steps=args.steps, on_step=log)
+        hist, registry = res.hist, sup.obs.registry
+        rank0 = rank0 and not res.left
+        if rank0:
+            for note in res.notes:
+                print(f"reshard: {note}")
+            if res.restarts:
+                print(f"recovered from {res.restarts} failure(s) "
+                      f"in {res.attempts} attempts")
+    else:
+        trainer = Trainer(tcfg, device=args.device,
+                          heartbeat_dir=args.heartbeat_dir or None,
+                          injector=injector, obs=obs, telemetry=telemetry,
+                          profile=args.profile or None)
+        plan = trainer.plan
+        if rank0 and plan is not None and (plan.swap_schedule is not None
+                                           or plan.calibrated):
+            print(plan.summary())
+        _, hist = trainer.train(steps=args.steps, on_step=log)
+        registry = trainer.obs.registry
     if dist.is_initialized():
         dist.destroy_process_group()
     if rank0:
         if args.log:
             with open(args.log, "w") as f:
                 json.dump(hist, f, indent=1)
-        print(f"final loss: {hist[-1]['loss']:.4f} (from {hist[0]['loss']:.4f})")
+        if telemetry is not None:
+            for a in telemetry.alerts:
+                print(f"telemetry alert: {a}")
+        if hist:
+            print(f"final loss: {hist[-1]['loss']:.4f} (from {hist[0]['loss']:.4f})")
+        if args.trace:
+            export_chrome_trace(obs.ring.events(), args.trace)
+            print(f"chrome trace: {args.trace}")
+        if args.obs_report:
+            write_obs_report(args.obs_report, obs=obs)
+            print(f"obs report: {args.obs_report}")
         print("-- metrics --")
-        for line in trainer.obs.registry.summary_lines():
+        for line in registry.summary_lines():
             print(line)
     return 0
+
+
+def _rendezvous(ckpt_dir: str):
+    """The survivors' rendezvous after a reshard under torchrun: a file
+    next to the checkpoints, one a run (torchrun's port) and attempt."""
+    run = os.environ.get("MASTER_PORT", "0")
+
+    def init_method(attempt: int) -> str:
+        return f"file://{os.path.abspath(ckpt_dir)}/.rendezvous_{run}_{attempt}"
+    return init_method
 
 
 def _init_process_group(device, world: int) -> None:

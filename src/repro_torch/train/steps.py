@@ -550,11 +550,46 @@ def place_train_state(state: TrainState, plan: Optional[MemoryPlan], device,
     return TrainState(step, out.params, opt, out.grads)
 
 
+def _read_step(reader, key: str, device) -> torch.Tensor:
+    return reader.read(key).to(device=device, dtype=torch.int32)
+
+
+def restore_train_state(reader, model: Model, tcfg: TrainConfig, device,
+                        plan: Optional[MemoryPlan] = None) -> TrainState:
+    """The TrainState of a checkpoint (`checkpoint.CheckpointReader`: the
+    JAX package's keys, ``step``, ``params/...``, ``opt/step`` and
+    ``opt/mu/...``, ``opt/nu/...``, ``opt/master/...`` or
+    ``opt/momentum/...``), placed as the plan says, as
+    `init_train_state(plan=)` places a fresh one (`_placed_state`: the host
+    classes in one pinned arena, the reserved one when it is free), with a
+    zero grads tree when the plan sinks grads. Leaf by leaf: each stored
+    leaf is read straight into its slot before the next is read, so
+    neither the state nor a whole leaf stands in pageable memory, nor the
+    whole state on the device."""
+    device = torch.device(device)
+    params_host, opt_host = _host_classes(plan)
+    defs = _def_paths(model.param_defs())
+    paths = [(path, d.shape, DTYPES[d.dtype]) for path, d in defs]
+    names = ("mu", "nu", "master") if tcfg.optimizer == "adamw" else ("momentum",)
+
+    def fill(ix, path, p, st):
+        key = "/".join(path)
+        reader.read_into(f"params/{key}", p)
+        for name, t in zip(names, st):
+            reader.read_into(f"opt/{name}/{key}", t)
+    out = _placed_state(tcfg.optimizer, paths, device, params_host, opt_host, fill,
+                        _grads_host(plan), tcfg.microbatches > 1)
+    opt = out.opt._replace(step=_read_step(reader, "opt/step", device))
+    return TrainState(_read_step(reader, "step", device), out.params, opt, out.grads)
+
+
 def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan] = None,
                      mesh: Optional[Mesh] = None, spec: Optional[StepSpec] = None):
     """-> step_fn(state, batch) -> (state, metrics), for this rank of
     `mesh` (default: `make_mesh(tcfg.mesh)`), whose batch is the rank's
-    rows of the global batch.
+    rows of the global batch. step_fn.before_update (None unless set) is
+    called just before the step's first in-place write to the state, the
+    optimizer update (`_before_update`).
 
     The loss and its grads over every param leaf (`torch.autograd.grad`),
     with m = tcfg.microbatches > 1 accumulated in f32 over the microbatches
@@ -806,6 +841,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
                     off.stream_layer_to_host(stacks["stack0"], host, cls="grads")
                     off.fence(state.step.device)
                     grads = _merge_stack_grads(rest, {"stack0": host})
+                _before_update(step_fn)
                 params, opt = _streamed_opt_update(
                     tcfg.optimizer, grads, state.opt, state.params, lr=lr,
                     beta1=tcfg.beta1, beta2=tcfg.beta2,
@@ -814,6 +850,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
                     grads_host=sink or placed)
             else:
                 grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+                _before_update(step_fn)
                 params, opt = opt_update(grads, state.opt, state.params, lr=lr,
                                          beta1=tcfg.beta1, beta2=tcfg.beta2,
                                          weight_decay=tcfg.weight_decay)
@@ -825,7 +862,18 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
     # the LMS + DDL backward's reduction queue (its times of the last
     # step), None without one
     step_fn.queue = queue
+    step_fn.before_update = None
     return step_fn
+
+
+def _before_update(step_fn) -> None:
+    """Call the step's `before_update` hook, if one is set, just before
+    the step's first in-place write to the state (the optimizer update):
+    the trainer's wait for a checkpoint writer that reads the state where
+    it lies (`checkpoint/checkpointer.py`). The forward and backward before
+    it only read the state."""
+    if step_fn.before_update is not None:
+        step_fn.before_update()
 
 
 def _lms_loss_and_grads(model: Model, leaves, stacks, batch, stack_grads, *, plan, policy,
@@ -991,8 +1039,9 @@ def build_zero1_train_step(model: Model, tcfg: TrainConfig, plan: Optional[Memor
     the grads, this rank's 1/|data| shard of the AdamW state updated, phase
     3 on the params. -> step_fn(Zero1State, batch) -> (Zero1State,
     metrics), updated in place; step_fn.layout is the flat layout
-    (`ShardSpec` or `PackSpec`) and step_fn.queue the LMS executor's
-    reduction queue or None.
+    (`ShardSpec` or `PackSpec`), step_fn.queue the LMS executor's
+    reduction queue or None, and step_fn.before_update, as the replicated
+    step's, called before the flat update.
 
     As in the JAX package, whatever the config says otherwise:
     - the overlapped backward is resolved from the DDLConfig alone
@@ -1139,6 +1188,7 @@ def build_zero1_train_step(model: Model, tcfg: TrainConfig, plan: Optional[Memor
             g.mul_(clip_scale(gnorm, tcfg.grad_clip))
             lr = sched(state.step, base_lr=tcfg.learning_rate,
                        warmup_steps=tcfg.warmup_steps, total_steps=tcfg.total_steps)
+            _before_update(step_fn)
             update(g, state, lr)
             del g
             _zero1_params_from(state.master, layout, state.params, mesh=mesh, device=device)
@@ -1147,7 +1197,33 @@ def build_zero1_train_step(model: Model, tcfg: TrainConfig, plan: Optional[Memor
 
     step_fn.layout = layout
     step_fn.queue = queue
+    step_fn.before_update = None
     return step_fn
+
+
+def _zero1_placement(model: Model, tcfg: TrainConfig, data_size: int,
+                     plan: Optional[MemoryPlan], device):
+    """What a Zero1State's placement needs: (layout, local size, the param
+    defs in init order, a placer of its host bytes, stack params on host,
+    optimizer on host). The layout is the step's (`_zero1_layout`: the
+    overlap from the DDLConfig, the `data` extent from tcfg.mesh, falling
+    back to `data_size`); the host bytes are the flat mu, nu and master
+    when the optimizer class is on the host, the stack's params when they
+    stream."""
+    sizes = dict(zip(tcfg.mesh.axes, tcfg.mesh.shape))
+    data = sizes.get("data", data_size)
+    dp_total = data * sizes.get("pod", 1)
+    overlap = _resolve_overlap(None, None, tcfg, dp_total)
+    _, layout = _zero1_layout(model, tcfg, data if overlap else data_size, dp_total)
+    local = _local_size(layout)
+    params_host, opt_host = _host_classes(plan)
+    defs = _def_paths(model.param_defs())
+    host_bytes = 3 * off.PinnedArena.padded(4 * local) if opt_host else 0
+    if params_host:
+        host_bytes += sum(off.PinnedArena.padded(
+            math.prod(d.shape) * torch.empty((), dtype=DTYPES[d.dtype]).element_size())
+            for path, d in defs if _stack_path(path))
+    return layout, local, defs, _Placer(device, host_bytes), params_host, opt_host
 
 
 def init_zero1_state(model: Model, tcfg: TrainConfig, seed: int, device, data_size: int,
@@ -1165,20 +1241,8 @@ def init_zero1_state(model: Model, tcfg: TrainConfig, seed: int, device, data_si
     when the optimizer class is on the host; built leaf by leaf (a stacked
     leaf a layer at a time), so neither stands whole on the device."""
     device = torch.device(device)
-    sizes = dict(zip(tcfg.mesh.axes, tcfg.mesh.shape))
-    data = sizes.get("data", data_size)
-    dp_total = data * sizes.get("pod", 1)
-    overlap = _resolve_overlap(None, None, tcfg, dp_total)
-    _, layout = _zero1_layout(model, tcfg, data if overlap else data_size, dp_total)
-    local = _local_size(layout)
-    params_host, opt_host = _host_classes(plan)
-    defs = _def_paths(model.param_defs())
-    host_bytes = 3 * off.PinnedArena.padded(4 * local) if opt_host else 0
-    if params_host:
-        host_bytes += sum(off.PinnedArena.padded(
-            math.prod(d.shape) * torch.empty((), dtype=DTYPES[d.dtype]).element_size())
-            for path, d in defs if _stack_path(path))
-    placer = _Placer(device, host_bytes)
+    layout, local, defs, placer, params_host, opt_host = _zero1_placement(
+        model, tcfg, data_size, plan, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params = {}
@@ -1188,8 +1252,47 @@ def init_zero1_state(model: Model, tcfg: TrainConfig, seed: int, device, data_si
             p[i] = piece
         _set(params, path, p)
     flat = [placer.take((local,), torch.float32, opt_host) for _ in range(3)]
-    if overlap:
+    if isinstance(layout, ddl_overlap.ShardSpec):      # the overlapped layout
         ddl_overlap.rank_block(params, layout, data_index, flat[2])
     else:
         pack_block(params, layout, data_index, flat[2])
     return Zero1State(torch.zeros((), dtype=torch.int32, device=device), params, *flat)
+
+
+def restore_zero1_state(reader, model: Model, tcfg: TrainConfig, device, data_size: int,
+                        plan: Optional[MemoryPlan] = None, *, data_index: int) -> Zero1State:
+    """The Zero1State of a checkpoint (keys ``step``, ``params/...``,
+    ``mu``, ``nu``, ``master``), placed as `init_zero1_state(plan=)`
+    places a fresh one, leaf by leaf into its slot. The flat state: a
+    checkpoint of one process (the JAX package's, or the port's at |data|
+    1) holds the global flat vectors, of which this rank reads its block
+    (as `convert.zero1_state_from_jax` takes it); one of |data| processes
+    holds each rank's block in ``shard_<rank>``. Any other process count
+    raises: the flat layout depends on the data extent, so zero1 cannot
+    reshard across it."""
+    device = torch.device(device)
+    n = reader.num_processes
+    if n not in (1, data_size):
+        raise RuntimeError(
+            f"zero1 optimizer shards are packed per data rank: a checkpoint of {n} "
+            f"data ranks cannot restore onto {data_size}; restart at the original "
+            "scale or with ddl mode allreduce")
+    _, local, defs, placer, params_host, opt_host = _zero1_placement(
+        model, tcfg, data_size, plan, device)
+    stored = math.prod(reader.info("master")[0])
+    if stored != (local * data_size if n == 1 else local):
+        raise RuntimeError(
+            f"the checkpoint's flat zero1 state holds {stored} elements; this "
+            f"rank's layout takes {local} of {local * data_size}")
+    start = data_index * local if n == 1 else 0
+    params = {}
+    for path, d in defs:
+        p = placer.take(d.shape, DTYPES[d.dtype], params_host and _stack_path(path))
+        reader.read_into("params/" + "/".join(path), p)
+        _set(params, path, p)
+    flat = []
+    for name in ("mu", "nu", "master"):
+        t = placer.take((local,), torch.float32, opt_host)
+        reader.read_into(name, t, start=start)
+        flat.append(t)
+    return Zero1State(_read_step(reader, "step", device), params, *flat)

@@ -211,7 +211,8 @@ def _port_steps(rank, world, out_dir):
         tcfg = TrainConfig(
             model=cfg, shape=ShapeConfig("t", "train", SEQ, BATCH), mesh=MeshSpec(*MESH),
             lms=LMSConfig(enabled=False), ddl=DDLConfig(compress_dcn=c, overlap_grads=ov),
-            learning_rate=LR, warmup_steps=0, total_steps=10, microbatches=m)
+            learning_rate=LR, warmup_steps=0, total_steps=10, microbatches=m,
+            checkpoint_dir=None)
         step = build_train_step(Model(cfg), tcfg, mesh=mesh)
         state = state_from_npz(out / "init.npz")
         for i, b in enumerate(_batches(cfg.vocab_size)):
@@ -236,7 +237,7 @@ def _port_trainer(rank, world, out_dir):
         model=get_smoke_config(ARCH), shape=ShapeConfig("t", "train", SEQ, 4),
         mesh=MeshSpec(*TRAINER_MESH), lms=LMSConfig(enabled=False),
         ddl=DDLConfig(compress_dcn=True), learning_rate=1e-3, warmup_steps=1,
-        total_steps=3, log_every=2)
+        total_steps=3, log_every=2, checkpoint_dir=None)
     trainer = Trainer(tcfg, device="cpu")
     assert trainer.mesh.dp_index == rank
     trainer.init_state = lambda: state_from_npz(out / "trainer_init.npz")
@@ -256,7 +257,7 @@ def runs(tmp_path_factory):
     cli = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", "-m", "repro_torch.launch.train", "--device", "cpu"]
-        + CLI, cwd=REPO, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        + CLI + ["--ckpt-dir", str(out / "port_cli_ckpt")], cwd=REPO, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
     procs = (start_jax(ME, "_jax_side", out, devices=4)
              + start_ranks(ME, "_port_steps", out, 4)
@@ -340,7 +341,8 @@ def test_torchrun_cli_matches_jax_launcher(runs):
 
 def _tcfg(mesh=((1, 1), ("data", "model")), **kw):
     return TrainConfig(model=get_smoke_config(ARCH), shape=ShapeConfig("t", "train", SEQ, 4),
-                       mesh=MeshSpec(*mesh), lms=LMSConfig(enabled=False), **kw)
+                       mesh=MeshSpec(*mesh), lms=LMSConfig(enabled=False),
+                       **{"checkpoint_dir": None, **kw})
 
 
 def test_what_is_not_ported_raises():
@@ -389,8 +391,11 @@ def test_cli_rejects_a_world_that_disagrees_with_the_mesh(monkeypatch):
     args = ["--arch", ARCH, "--smoke", "--no-lms", "--device", "cpu", "--steps", "1"]
     with pytest.raises(ValueError, match="WORLD_SIZE 1 disagrees with --mesh 2x1x1"):
         launch.main(args + ["--mesh", "2x1x1"])
-    for flags in (["--mesh", "1x1x2"], ["--mesh", "2x1x1", "--microbatches", "2",
-                                        "--ckpt-dir", "ckpt"],
-                  ["--ddl-mode", "zero1", "--ckpt-every", "2"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        launch.main(args + ["--mesh", "1x1x2"])
+    # the checkpoint flags are ported: the world is checked before anything
+    # is written
+    for flags in (["--mesh", "2x1x1", "--microbatches", "2", "--ckpt-dir", "ckpt"],
+                  ["--mesh", "2x1x1", "--ddl-mode", "zero1", "--ckpt-every", "2"]):
+        with pytest.raises(ValueError, match="WORLD_SIZE 1 disagrees with --mesh 2x1x1"):
             launch.main(args + flags)

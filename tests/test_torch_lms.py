@@ -287,7 +287,8 @@ def _tcfg(layers=2, **kw):
     return tb.TrainConfig(model=_cfg(layers), shape=tb.ShapeConfig("t", "train", 16, 2),
                           mesh=tb.MeshSpec(*MESH1), **{"warmup_steps": 1,
                                                        "learning_rate": 1e-2,
-                                                       "total_steps": 10, **kw})
+                                                       "total_steps": 10,
+                                                       "checkpoint_dir": None, **kw})
 
 
 def _plan(cfg, residency, depth=2, assignment=None):
@@ -635,13 +636,14 @@ def test_launch_train_with_lms_on_cpu(capsys, tmp_path):
     """The CLI trains with LMS on (no --no-lms) and finite losses; with a
     calibration profile the plan's summary is printed, with --no-lms the
     trainer has no plan."""
-    assert launch.main(ARGS + ["--profile", str(FIXTURE)]) == 0
+    assert launch.main(ARGS + ["--profile", str(FIXTURE),
+                               "--ckpt-dir", str(tmp_path / "profiled")]) == 0
     out = capsys.readouterr().out
     assert "LMS plan:" in out and "calibrated: yes" in out
     losses = [float(line.split("|")[1].split()[1]) for line in out.splitlines()
               if line.startswith("step ")]
     assert len(losses) == 3 and all(np.isfinite(losses))
-    assert launch.main(ARGS) == 0
+    assert launch.main(ARGS + ["--ckpt-dir", str(tmp_path / "planned")]) == 0
     assert "final loss: " in capsys.readouterr().out
 
 

@@ -191,7 +191,7 @@ def _jax_side(out_dir):
 def _tcfg(**kw):
     return tb.TrainConfig(model=get_smoke_config(ARCH), shape=_shape(tb),
                           mesh=tb.MeshSpec(*MESH), learning_rate=LR, warmup_steps=0,
-                          total_steps=10, **kw)
+                          total_steps=10, **{"checkpoint_dir": None, **kw})
 
 
 def _port_steps(rank, world, out_dir):
@@ -341,7 +341,7 @@ def runs(tmp_path_factory):
     cli = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", "-m", "repro_torch.launch.train", "--device", "cpu"]
-        + CLI, cwd=REPO, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        + CLI + ["--ckpt-dir", str(out / "port_cli_ckpt")], cwd=REPO, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
     procs = (start_jax(ME, "_jax_side", out, devices=2)
              + start_ranks(ME, "_port_steps", out, 2)

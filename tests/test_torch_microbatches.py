@@ -135,7 +135,7 @@ def _tcfg(mesh=MESH, batch=BATCH, **kw):
     return tb.TrainConfig(model=get_smoke_config(ARCH),
                           shape=tb.ShapeConfig("t", "train", SEQ, batch),
                           mesh=tb.MeshSpec(*mesh), learning_rate=LR, warmup_steps=0,
-                          total_steps=10, microbatches=M, **kw)
+                          total_steps=10, microbatches=M, **{"checkpoint_dir": None, **kw})
 
 
 def _local(mesh, batches):
@@ -223,7 +223,7 @@ def runs(tmp_path_factory):
     cli = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", "-m", "repro_torch.launch.train", "--device", "cpu"]
-        + CLI, cwd=REPO, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        + CLI + ["--ckpt-dir", str(out / "port_cli_ckpt")], cwd=REPO, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
     procs = (start_jax(ME, "_jax_side", out, devices=WORLD)
              + start_ranks(ME, "_port_steps", out, WORLD)
@@ -310,7 +310,7 @@ def test_lms_microbatches_on_one_device_equal_resident_bitwise(layers, depth, re
     cfg = dataclasses.replace(get_smoke_config(ARCH), num_layers=layers)
     base = dict(model=cfg, shape=tb.ShapeConfig("t", "train", SEQ, 4),
                 mesh=tb.MeshSpec((1, 1), ("data", "model")), learning_rate=1e-2,
-                warmup_steps=1, total_steps=10, microbatches=M)
+                warmup_steps=1, total_steps=10, microbatches=M, checkpoint_dir=None)
     model = Model(cfg)
     batches = [{k: torch.from_numpy(v) for k, v in b.items()}
                for b in _batches(cfg.vocab_size, batch=4)]
@@ -356,7 +356,7 @@ def test_host_grads_at_microbatches_are_f32():
 @pytest.mark.parametrize("flags", [["--microbatches", "2"], ["--ddl-mode", "zero1"],
                                    ["--no-lms", "--microbatches", "2", "--ddl-mode", "zero1"]],
                          ids=["lms_microbatches", "lms_zero1", "zero1_microbatches"])
-def test_cli_trains_on_one_device(capsys, flags):
+def test_cli_trains_on_one_device(capsys, tmp_path, flags):
     """The CLI on one CPU device with LMS and 2 microbatches, with zero1
     under LMS, and with zero1 and --microbatches (which zero1 ignores, as
     the JAX step does: one pass over the batch): 3 steps, finite losses,
@@ -364,7 +364,7 @@ def test_cli_trains_on_one_device(capsys, flags):
     from repro_torch.launch import train as launch
     args = ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "3", "--batch", "4",
             "--seq", "16"]
-    assert launch.main(args + flags) == 0
+    assert launch.main(args + flags + ["--ckpt-dir", str(tmp_path)]) == 0
     out = capsys.readouterr().out.splitlines()
     losses = [float(line.split("|")[1].split()[1]) for line in out if line.startswith("step ")]
     assert len(losses) == 3 and all(np.isfinite(losses))

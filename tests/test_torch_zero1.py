@@ -236,7 +236,8 @@ def _tcfg(mesh=MESH, **kw):
     return tb.TrainConfig(model=get_smoke_config(ARCH),
                           shape=tb.ShapeConfig("t", "train", SEQ, BATCH),
                           mesh=tb.MeshSpec(*mesh), lms=tb.LMSConfig(enabled=False),
-                          learning_rate=LR, warmup_steps=0, total_steps=10, **kw)
+                          learning_rate=LR, warmup_steps=0, total_steps=10,
+                          **{"checkpoint_dir": None, **kw})
 
 
 def _plan(cfg, residency):
@@ -366,7 +367,7 @@ def runs(tmp_path_factory):
     cli = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", "-m", "repro_torch.launch.train", "--device", "cpu"]
-        + CLI, cwd=REPO, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        + CLI + ["--ckpt-dir", str(out / "port_cli_ckpt")], cwd=REPO, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
     procs = (start_jax(ME, "_jax_side", out, devices=WORLD)
              + start_ranks(ME, "_port_steps", out, WORLD)
