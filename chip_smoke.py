@@ -82,17 +82,20 @@ non-zero, printing no result):
    per layer-tick;
 10. DDL at full width (qwen2.5-14b cut to 1 layer, random weights from a
    seed, 2 ranks spawned on the one card over gloo, a 2x1x1 mesh,
-   compress_dcn, the overlapped backward, 2048 tokens a rank) —
-   `Trainer.train` for 3 steps: replicas bitwise in sync, the int8 pod hop
-   through the kernels bitwise against the plain quantizers and within
-   the int8 bound of the exact sum, the launches the leaf sizes give
-   (quantize and the pod sum once a slice, no dequantize), the step time,
-   the reduction's share and the pod-hop bytes; then error feedback's path
-   (one leaf reduced with EF: the dequantizer once a slice, bitwise
-   against the plain quantizers);
+   compress_dcn, the overlapped backward: each layer's grads reduced on the
+   DDL queue's thread and stream while the backward goes on, 2048 tokens a
+   rank) — `Trainer.train` for 3 steps: replicas bitwise in sync, the int8
+   pod hop through the kernels bitwise against the plain quantizers and
+   within the int8 bound of the exact sum, the launches the leaf sizes
+   give (quantize and the pod sum once a slice, no dequantize), the step
+   time, the reduction's share, the queue's times and the pod-hop bytes;
+   then error feedback's path (one leaf reduced with EF: the dequantizer
+   once a slice, bitwise against the plain quantizers);
 11. DDL at smoke width (4 ranks, a 2x2x1 mesh) — the overlapped backward
    off and on x compression off and on, each against one rank on the
-   global batch;
+   global batch; each overlapped run again with the queue's reductions
+   issued inline in the backward (`ReductionQueue.put` patched), bitwise
+   the queued run;
 12. DDL's sharded paths (qwen2.5-14b at full width cut to 1 layer, 2 ranks
    on a 1x2x1 mesh: 2 data ranks, no pod hop, one step a run at the
    peak lr, one after another) — (i) allreduce and (ii) zero1, resident, overlapped, a row
@@ -114,9 +117,8 @@ non-zero, printing no result):
    thread while the backward goes on and sunk to the host) — (a) 1 layer,
    3 steps, bitwise against the DDL phase's resident run (losses, grad
    norms, every param's checksum), its launches, the pod hop on the
-   queue's stream; (b) the most of 2-4 layers whose two ranks' pinned
-   state fits 80% of MemAvailable, 3 steps overlapped and 3 with the
-   overlap off: step time, tokens/s, the reduction's time and its part
+   queue's stream; (b) 2 layers if two ranks' pinned state fits 80% of
+   MemAvailable, 2 steps overlapped and 2 with the overlap off: step time, tokens/s, the reduction's time and its part
    under the backward, swap bytes, peaks and pinned bytes against the
    plan's, MemAvailable before and after the ranks (waiting until the host
    has handed their memory back);
@@ -225,8 +227,11 @@ DDL_TIMEOUT_S = 420
 # LMS + DDL on the same 2x1x1 mesh under LMSConfig(hbm_budget=16e9), whose
 # plan puts params, grads and the AdamW state on the host: (a) at 1 layer
 # against the DDL phase's resident run, (b) at the most of LMS_DDL_DEPTHS
-# layers whose two ranks' pinned state fits LMS_HOST_SHARE of MemAvailable
-LMS_DDL_BUDGET, LMS_DDL_LAYERS_A, LMS_DDL_DEPTHS = 16 * 10**9, 1, (2, 3, 4)
+# layers whose two ranks' pinned state fits LMS_HOST_SHARE of MemAvailable,
+# LMS_DDL_STEPS_B steps a run (2 layers and 2 steps keep the script inside
+# its time limit; scripts/ddl_four_cards.py runs LMS + DDL at depth)
+LMS_DDL_BUDGET, LMS_DDL_LAYERS_A, LMS_DDL_DEPTHS = 16 * 10**9, 1, (2,)
+LMS_DDL_STEPS_B = 2
 LMS_DDL_TIMEOUT_S = 720
 # after the ranks exit the host hands their pinned memory back over some
 # seconds: the phase waits (at most LMS_DDL_MEM_WAIT_S) until MemAvailable
@@ -3267,6 +3272,27 @@ def spawn_ranks(name: str, world: int, *args, timeout: float = DDL_TIMEOUT_S):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _inline_put(self, i, grads, dst):
+    """`ReductionQueue.put` with the layer reduced at once, in the backward:
+    the reductions the queue's worker would make, inline (patched in for
+    the queued-against-inline checks only)."""
+    self._step.count += 1
+    self._reduce_into(i, grads, dst, self._step.squares, self._step.accumulate)
+
+
+@contextlib.contextmanager
+def _inline_reductions():
+    """Every `ReductionQueue.put` inside the block reduces inline
+    (`_inline_put`)."""
+    from repro_torch.core.ddl import overlap
+    put = overlap.ReductionQueue.put
+    overlap.ReductionQueue.put = _inline_put
+    try:
+        yield
+    finally:
+        overlap.ReductionQueue.put = put
+
+
 @contextlib.contextmanager
 def _plain_quantizers():
     """The quantize, dequantize and pod-sum dispatchers the pod hop calls
@@ -3372,6 +3398,7 @@ def _ddl_full_rank(rank: int, world: int):
     trainer.step_fn = step_timed
 
     steps = []
+    queue = step_fn.queue
 
     def on_step(step, row):
         torch.cuda.synchronize()
@@ -3380,7 +3407,9 @@ def _ddl_full_rank(rank: int, world: int):
         spans.clear()
         steps.append({"step": step, "loss": row["loss"], "grad_norm": row["grad_norm"],
                       "time_s": row["time_s"], "step_ms": e0.elapsed_time(e1),
-                      "reduce_ms": reduce_ms,
+                      "reduce_ms": reduce_ms, "queue_reduce_s": queue.reduce_s,
+                      "queue_under_backward_s": queue.under_backward_s,
+                      "queue_drain_wait_s": queue.drain_wait_s,
                       "quantize_launches": q_ops.quantize_cuda.launches,
                       "dequantize_launches": q_ops.dequantize_cuda.launches,
                       "dequantize_sum_launches": q_ops.dequantize_sum_rows_cuda.launches,
@@ -3401,7 +3430,7 @@ def _ddl_full_rank(rank: int, world: int):
     allreduce.compressed_allreduce_pod = hop
     ef_row, ef_seen = _ddl_error_feedback(trainer.mesh, rank)
     return {"rank": rank, "steps": steps, "in_sync": in_sync, "same_losses": same_losses,
-            "checksums": sums,
+            "checksums": sums, "queued": queue is not None,
             "pod_hop": {k: v for k, v in stats.items() if k != "calls"},
             "error_feedback": ef_row,
             "signatures": sorted(seen | ef_seen), "seconds": wall,
@@ -3436,19 +3465,44 @@ def _ddl_error_feedback(mesh, rank: int):
     return row, seen
 
 
+def _ddl_smoke_run(tcfg, mesh, inline: bool = False):
+    """One run of `_ddl_smoke_rank`: 3 steps from the seed's init on this
+    rank's rows, the queue's reductions inline if `inline`. -> (rows,
+    checksums after init and each step, in sync after each, signatures,
+    launches)."""
+    import torch
+    from repro_torch.data import local_rows
+    from repro_torch.models.model import Model
+    from repro_torch.train.steps import build_train_step, init_train_state
+    model = Model(tcfg.model)
+    step = build_train_step(model, tcfg, mesh=mesh)
+    state = init_train_state(model, tcfg, SEED, "cuda")
+    sums = [_checksums(state.params)]
+    rows, in_sync = [], [_same_on_all_ranks(sums[0])]
+    with contextlib.ExitStack() as stack:
+        if inline:
+            stack.enter_context(_inline_reductions())
+        seen, _, launches = stack.enter_context(launch_signatures())
+        for b in _ddl_batches(tcfg):
+            local = local_rows(b, mesh.dp_index, mesh.dp_size)
+            state, met = step(state, {k: torch.from_numpy(v).cuda() for k, v in local.items()})
+            rows.append({"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"])})
+            sums.append(_checksums(state.params))
+            in_sync.append(_same_on_all_ranks(sums[-1]))
+    return rows, sums, in_sync, seen, launches
+
+
 def _ddl_smoke_rank(rank: int, world: int):
     """One rank of the smoke-width DDL phase on the 2x2x1 mesh: the train
     step with the overlapped backward off and on, compression off and on,
     3 steps each from one init, on this rank's rows of the global batch;
     each step's loss and grad norm, and whether the params' checksums agree
-    across all ranks after each step."""
+    across all ranks after each step; each overlapped run again with the
+    queue's reductions inline (`_inline_put`): whether its rows and
+    checksums equal the queued run's."""
     import dataclasses
-    import torch
     from repro_torch.config.base import DDLConfig
-    from repro_torch.data import local_rows
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.model import Model
-    from repro_torch.train.steps import build_train_step, init_train_state
     tcfg0 = _ddl_config(0, DDL_SMOKE_MESH, smoke=True, batch=DDL_SMOKE_BATCH,
                         seq=DDL_SMOKE_SEQ)
     mesh = make_mesh(tcfg0.mesh)
@@ -3456,23 +3510,15 @@ def _ddl_smoke_rank(rank: int, world: int):
     for ov in (False, True):
         for c in (False, True):
             tcfg = dataclasses.replace(tcfg0, ddl=DDLConfig(compress_dcn=c, overlap_grads=ov))
-            model = Model(tcfg.model)
-            step = build_train_step(model, tcfg, mesh=mesh)
-            state = init_train_state(model, tcfg, SEED, "cuda")
-            rows, in_sync = [], [_same_on_all_ranks(_checksums(state.params))]
-            with launch_signatures() as (seen, _, launches):
-                for b in _ddl_batches(tcfg):
-                    local = local_rows(b, mesh.dp_index, mesh.dp_size)
-                    state, met = step(state, {k: torch.from_numpy(v).cuda()
-                                              for k, v in local.items()})
-                    rows.append({"loss": float(met["loss"]),
-                                 "grad_norm": float(met["grad_norm"])})
-                    in_sync.append(_same_on_all_ranks(_checksums(state.params)))
-            out[f"overlap={ov},compress={c}"] = {
+            rows, sums, in_sync, seen, launches = _ddl_smoke_run(tcfg, mesh)
+            got = out[f"overlap={ov},compress={c}"] = {
                 "rows": rows, "in_sync": in_sync, "signatures": sorted(seen),
                 "quantize_launches": launches["quantize_rows"],
                 "dequantize_launches": launches["dequantize_rows"],
                 "dequantize_sum_launches": launches["dequantize_sum_rows"]}
+            if ov:
+                i_rows, i_sums, i_sync, _, _ = _ddl_smoke_run(tcfg, mesh, inline=True)
+                got["inline_bitwise"] = i_rows == rows and i_sums == sums and all(i_sync)
     return out
 
 
@@ -3488,10 +3534,12 @@ def _ddl_batches(tcfg):
 def ddl_phase(line, checked):
     """The main path of data-parallel training at qwen2.5-14b's full width,
     cut to 1 layer: `Trainer.train` for 3 steps on 2 ranks (a 2x1x1 mesh:
-    2 pods of 1 data rank) with compress_dcn and the overlapped backward,
-    2048 tokens a rank a step. The ranks share the one card and talk over
-    gloo, staged through host memory, so the times are those of two ranks
-    time-slicing one card, not DDL's speed across cards.
+    2 pods of 1 data rank) with compress_dcn and the overlapped backward
+    (the layer's grads reduced on the DDL queue's thread and stream; its
+    times reported), 2048 tokens a rank a step. The ranks share the one
+    card and talk over gloo, staged through host memory, so the times are
+    those of two ranks time-slicing one card, not DDL's speed across
+    cards.
 
     Memory: 1 layer is 1.833 B params (embedding and head 778.6 M each, the
     layer 275.3 M); with the f32 embedding, bf16 weights, their grads and
@@ -3539,6 +3587,7 @@ def ddl_phase(line, checked):
                 "dequantize_rows_vector": len(ddl_ef_slices())} for r in ranks),
         "finite_equal_losses": all(r["same_losses"] for r in ranks) and all(
             math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) for s in r0["steps"]),
+        "reduced_on_the_queue": all(r["queued"] for r in ranks),
         "shapes_checked": not unchecked}
     steady = r0["steps"][1:]
     row = {"phase": "ddl_full_width", "arch": ARCH, "layers": DDL_LAYERS,
@@ -3553,6 +3602,8 @@ def ddl_phase(line, checked):
            "reduce_ms_steady": sum(s["reduce_ms"] for s in steady) / len(steady),
            "reduce_share_steady": (sum(s["reduce_ms"] for s in steady)
                                    / sum(s["step_ms"] for s in steady)),
+           **{k: _steady(r0["steps"], k) for k in ("queue_reduce_s", "queue_under_backward_s",
+                                                  "queue_drain_wait_s")},
            "pod_hop_bytes_per_step": r0["pod_hop"]["int8_bytes"] / DDL_STEPS,
            "pod_hop_f32_bytes_per_step": r0["pod_hop"]["f32_bytes"] / DDL_STEPS,
            "pod_hop_worst_err_over_bound": max(r["pod_hop"]["worst_err_over_bound"]
@@ -3581,8 +3632,10 @@ def ddl_smoke_phase(line, checked):
     another order, and the int8 pod hop rounds each grad element by up to
     half its row's scale: loss within 5e-3 relative, grad norm within
     2e-2. Replicas stay bitwise in sync; compressed runs launch quantize
-    and the pod sum as the leaf sizes say, and no dequantize. -> the phase
-    row."""
+    and the pod sum as the leaf sizes say, and no dequantize; each
+    overlapped run equals its rerun with the queue's reductions issued
+    inline in the backward, bit for bit (losses, grad norms, every param's
+    checksum after each step). -> the phase row."""
     import torch
     from repro_torch.models.model import Model
     from repro_torch.train.steps import build_train_step, init_train_state
@@ -3614,6 +3667,9 @@ def ddl_smoke_phase(line, checked):
             "launches": all(r[name]["quantize_launches"] == slices
                             and r[name]["dequantize_sum_launches"] == slices
                             and r[name]["dequantize_launches"] == 0 for r in ranks)}
+        if ov:
+            checks[name]["queued_equals_inline_bitwise"] = all(r[name]["inline_bitwise"]
+                                                               for r in ranks)
         variants[name] = {"rows": v["rows"], "rel_err": err,
                           "quantize_launches": v["quantize_launches"],
                           "dequantize_launches": v["dequantize_launches"],
@@ -3825,8 +3881,8 @@ def ddl_sharded_phase(line, checked):
                                      == ii["padded"] for r in ranks
                                      for n in ("ii_zero1", "iii_zero1_plan")),
         "zero1_peak_below_allreduce": peak["ii_zero1"] < peak["i_allreduce"],
-        "paths": (ii["layout"] == iii["layout"] == "ShardSpec" and iii["queue"] and iv["queue"]
-                  and not v["queue"] and not ii["queue"]),
+        "paths": (ii["layout"] == iii["layout"] == "ShardSpec" and i["queue"] and ii["queue"]
+                  and iii["queue"] and iv["queue"] and not v["queue"]),
         "rmsnorm_launches": all(
             s["launches"]["rmsnorm"] == rms_expected(r[n], m if n.startswith(("iv", "v_")) else 1)
             for r in ranks for n in names for s in r[n]["rows"]),
@@ -3977,14 +4033,15 @@ def ddl_sharded_smoke_phase(line, checked, reference):
 # LMS + DDL: layer-streamed training on 2 ranks, grads reduced in the backward
 # ---------------------------------------------------------------------------
 
-def _lms_ddl_config(layers: int, overlap=None):
-    """`_ddl_config`'s qwen2.5-14b at full width cut to `layers` on the
-    2x1x1 mesh with compress_dcn, under LMS at LMS_DDL_BUDGET; overlap:
+def _lms_ddl_config(layers: int, overlap=None, mesh=DDL_MESH, batch: int = TRAIN_BATCH):
+    """`_ddl_config`'s qwen2.5-14b at full width cut to `layers` on `mesh`
+    (the 2x1x1 one by default) with compress_dcn, `batch` x TRAIN_SEQ
+    tokens a step, under LMS at LMS_DDL_BUDGET; overlap:
     DDLConfig.overlap_grads (None: the plan's recommendation)."""
     import dataclasses
     from repro_torch.config.base import DDLConfig, LMSConfig
-    tcfg = _ddl_config(layers, DDL_MESH, ddl=DDLConfig(compress_dcn=True, overlap_grads=overlap),
-                       log_every=1)
+    tcfg = _ddl_config(layers, mesh, ddl=DDLConfig(compress_dcn=True, overlap_grads=overlap),
+                       batch=batch, log_every=1)
     return dataclasses.replace(tcfg, lms=LMSConfig(hbm_budget=LMS_DDL_BUDGET))
 
 
@@ -4091,7 +4148,7 @@ def _lms_ddl_rank(rank: int, world: int, layers: int):
     """One rank of lms_ddl: its pinned arena reserved once, at the deeper
     run's state (`offload.reserve_pinned`), then (a) LMS_DDL_LAYERS_A
     layer(s) for DDL_STEPS steps, the pod hop's calls recorded; then (b)
-    `layers` layers for DDL_STEPS steps with the plan's overlapped backward
+    `layers` layers for LMS_DDL_STEPS_B steps with the plan's overlapped backward
     and again with DDLConfig(overlap_grads=False), each state placed in the
     same arena. -> {"a", "b_overlapped", "b_serialized", "pinned"}."""
     import torch
@@ -4116,7 +4173,7 @@ def _lms_ddl_rank(rank: int, world: int, layers: int):
                 "main_hops_on_default_stream": all(st == default for t, st in hops
                                                    if t != "ddl-reduce")}
     for name, ov in (("b_overlapped", None), ("b_serialized", False)):
-        plan, rows, facts = _lms_ddl_train(_lms_ddl_config(layers, ov), DDL_STEPS)
+        plan, rows, facts = _lms_ddl_train(_lms_ddl_config(layers, ov), LMS_DDL_STEPS_B)
         off.release_arenas()
         out[name] = {"plan": plan, "rows": rows, **facts}
     return out
@@ -4158,7 +4215,7 @@ def lms_ddl_phase(line, checked, ddl_row):
     replicas in sync after every step.
 
     (b) the most layers of LMS_DDL_DEPTHS whose two ranks' pinned state
-    fits LMS_HOST_SHARE of MemAvailable: DDL_STEPS steps with the plan's
+    fits LMS_HOST_SHARE of MemAvailable: LMS_DDL_STEPS_B steps with the plan's
     overlapped backward (grads sunk), then, on the same ranks and arena,
     DDLConfig(overlap_grads=False) (planned again: the planner does not
     read that knob, so the grads stay on the card through the backward and
@@ -4221,8 +4278,10 @@ def lms_ddl_phase(line, checked, ddl_row):
             r["a"]["worker_hops_on_worker_stream"] and r["a"]["main_hops_on_default_stream"]
             and r["a"]["pod_hops_in_worker"] > 0 and r["a"]["pod_hops_in_main"] > 0
             for r in ranks),
-        "replicas_in_sync": all(all(r[run]["in_sync"]) and len(r[run]["in_sync"]) == DDL_STEPS + 1
-                                for r in ranks for run in ("a", "b_overlapped", "b_serialized")),
+        "replicas_in_sync": all(all(r[run]["in_sync"]) and len(r[run]["in_sync"]) == steps + 1
+                                for r in ranks for run, steps in (
+                                    ("a", DDL_STEPS), ("b_overlapped", LMS_DDL_STEPS_B),
+                                    ("b_serialized", LMS_DDL_STEPS_B))),
         "finite_losses": all(math.isfinite(s["loss"]) for run in (a, b_ov, b_ser)
                              for s in run["rows"]),
         "b_overlapped_sunk_serialized_not": (b_ov["overlap"] and b_ov["grads_sunk"]

@@ -1,0 +1,719 @@
+#!/usr/bin/env python3
+"""DDL across four H100s of one host: one rank a card over NCCL, the
+port's data-parallel training of qwen2.5-14b at its published width.
+
+    python3 scripts/ddl_four_cards.py                # from the repo root
+    python3 scripts/ddl_four_cards.py --phases a,d   # some of the phases
+
+Needs a machine with 4 cards: it raises unless torch.cuda.device_count()
+>= 4. It prints each card's `nvidia-smi --query-gpu=name,power.limit`
+line, the host's MemAvailable and core count, NCCL's version and
+`nvidia-smi topo -m`; builds the kernels; then runs each phase in 4 ranks
+started with the spawn method (a `FileStore` rendezvous in a temp dir, a
+timeout on every spawn), rank r on cuda:r over NCCL, and prints one JSON
+row a phase (the whole rows also go to chiprun_out/ddl_four_cards.json).
+2048 tokens a rank a step, from the synthetic stream; 3 steps a run.
+
+(a) Resident DDL on a 2x2x1 mesh with compress_dcn (the int8 pod hop), at
+    the most layers of 1-4 whose resident state fits the card: the
+    overlapped backward with its reductions on the DDL queue, the same
+    with them issued inline in the backward (`ReductionQueue.put`
+    patched), and serialized (`DDLConfig(overlap_grads=False)`). Held:
+    queued bitwise inline on every rank (losses, grad norms, every param's
+    checksum after each step, the optimizer state's after the last);
+    replicas in sync; serialized within 2e-3 relative of queued from step 2
+    on, step 1's loss equal; the kernels' launches as the leaf sizes imply.
+    Two diagnostic reruns of the queued step, each bitwise the queued run:
+    with the queue's stream and the process groups' NCCL streams at high
+    priority, and with Python's thread switch interval at 0.5 ms (the
+    worker's and the backward's host work share the GIL).
+(b) LMS + DDL on the 2x2x1 mesh with compress_dcn under
+    LMSConfig(hbm_budget=16e9) (params, grads and the AdamW state in
+    pinned host memory, each layer's grads reduced on the queue and sunk
+    to the host), at the most layers whose four ranks' pinned state fits
+    80% of MemAvailable; the plan's overlapped run, then serialized. Held:
+    replicas in sync, finite losses, step 1's loss equal, later steps
+    within 2e-3 relative.
+(c) zero1 under LMS on a 1x4x1 mesh (uncompressed: no pod axis) at that
+    budget, at the most layers up to 48 whose four ranks' pinned state
+    fits 80% of MemAvailable and whose plan puts the optimizer on the
+    host. Held: replicas in sync, finite losses, the optimizer's bytes a
+    rank exactly 12 x padded / 4.
+(d) The smoke config on the 2x2x1 mesh: the overlapped backward off and
+    on x compression off and on, each overlapped run also inline, against
+    one rank on the global batch: loss within 5e-3 relative, grad norm
+    within 2e-2 (chip_smoke's ddl_smoke_phase's tolerances); queued
+    bitwise inline; replicas in sync.
+
+A phase whose depth the host cannot hold at 1 layer raises with the
+numbers. Any failed check raises; the script then exits non-zero and
+prints no last line. The last line is {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402  (after the path set-up)
+
+WORLD = 4
+MESH_A, MESH_C = (2, 2, 1), (1, 4, 1)
+BATCH = WORLD              # a row of TRAIN_SEQ tokens a rank
+STEPS = cs.DDL_STEPS
+RESIDENT_DEPTHS = (1, 2, 3, 4)
+# a resident rank's allowance above params, grads and AdamW state
+# (activations of one 2048-token row, the reductions' f32 work buffers)
+RESIDENT_ALLOWANCE = 12 * 10**9
+MAX_LAYERS = 48
+TIMEOUT_S = {"ad": 600, "b": 900, "c": 900}
+OUT = os.path.join(ROOT, "chiprun_out", "ddl_four_cards.json")
+LAUNCH_KEYS = ("quantize_rows", "dequantize_rows", "dequantize_sum_rows", "rmsnorm")
+
+
+# ---------------------------------------------------------------------------
+# ranks: one a card, NCCL
+# ---------------------------------------------------------------------------
+
+def _rank_main(rank: int, world: int, tmp: str, name: str, args):
+    """A spawned rank on cuda:rank: join the NCCL group through a
+    FileStore in `tmp`, run the function `name`, write its JSON result to
+    tmp/rank<r>.json."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    if torch.cuda.device_count() < world:
+        raise RuntimeError(f"rank {rank}: {torch.cuda.device_count()} cards, "
+                           f"{world} ranks need one each")
+    torch.cuda.set_device(rank)
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    store = dist.FileStore(os.path.join(tmp, "store"), world)
+    dist.init_process_group("nccl", store=store, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=cs.DDL_TIMEOUT_S))
+    try:
+        out = globals()[name](rank, world, *args)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(name: str, *args, timeout: float):
+    """`name`(rank, WORLD, *args) in WORLD processes started with the spawn
+    method, rank r on cuda:r; -> each rank's result. A failed rank stops
+    the others and raises; so does the timeout, after killing them."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp(prefix="ddl_four_cards_")
+    try:
+        ctx = mp.start_processes(_rank_main, args=(WORLD, tmp, name, args), nprocs=WORLD,
+                                 start_method="spawn", join=False)
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=2):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                    p.join()
+                raise TimeoutError(f"{name}: {WORLD} ranks did not finish in {timeout} s")
+        out = []
+        for r in range(WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                out.append(json.load(f))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def _high_priority_streams():
+    """The reduction queue's stream, and the NCCL streams of the process
+    groups made inside the block, at high priority (a diagnostic)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.ddl import overlap
+    dev = torch.device("cuda", torch.cuda.current_device())
+    saved = overlap._WORKER_STREAMS.get(dev)
+    overlap._WORKER_STREAMS[dev] = torch.cuda.Stream(dev, priority=-1)
+    new_group = dist.new_group
+
+    def high_priority_group(*a, **k):
+        opts = dist.ProcessGroupNCCL.Options()
+        opts.is_high_priority_stream = True
+        return new_group(*a, pg_options=opts, **k)
+    dist.new_group = high_priority_group
+    try:
+        yield
+    finally:
+        dist.new_group = new_group
+        overlap._WORKER_STREAMS[dev] = saved
+
+
+@contextlib.contextmanager
+def _switch_interval(seconds: float):
+    """Python's thread switch interval set to `seconds` (a diagnostic)."""
+    saved = sys.getswitchinterval()
+    sys.setswitchinterval(seconds)
+    try:
+        yield
+    finally:
+        sys.setswitchinterval(saved)
+
+
+def _train(tcfg, *, inline: bool = False, steps: int = STEPS, around=None):
+    """One rank's `Trainer` for `steps` steps: the state set up (timed),
+    then each step's loss, grad norm, time (synced), the params' checksums
+    and whether they agree across the ranks, the kernels' launches, the
+    swap bytes by class, the queue's times, and the device time of the
+    stack's reductions (CUDA events around each layer's, on the stream it
+    ran on) and of the rest's tree pass; at the end the optimizer state's
+    checksums. inline: the queue's reductions issued in the backward;
+    around: a context manager the Trainer is built and run inside. ->
+    {"plan", "rows", "facts"}."""
+    with around if around is not None else contextlib.nullcontext():
+        return _train_in(tcfg, inline, steps)
+
+
+def _train_in(tcfg, inline: bool, steps: int):
+    import torch
+    from repro_torch.core.ddl import overlap
+    from repro_torch.core.lms import offload as off
+    from repro_torch.train import steps as steps_mod
+    from repro_torch.train.steps import Zero1State
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves
+    trainer = Trainer(tcfg, device="cuda")
+    plan = trainer.plan
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    zero1 = isinstance(state, Zero1State)
+    opt = _opt_tree(state)
+    opt_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(opt))
+    opt_on_host = all(t.device.type == "cpu" for t in tree_leaves(opt))
+    params = state.params
+    sums = [cs._checksums(params)]
+    in_sync = [cs._same_on_all_ranks(sums[0])]
+    init = [state]
+    trainer.init_state = lambda: init.pop()
+    del state
+    queue = trainer.step_fn.queue
+    spans = {"stack": [], "tree": []}
+    saved = overlap.reduce_tree_bucketed, steps_mod.ddl_reduce_tree
+
+    def timed(fn, key):
+        def run(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            spans[key].append((e0, e1))
+            return out
+        return run
+    overlap.reduce_tree_bucketed = timed(saved[0], "stack")
+    steps_mod.ddl_reduce_tree = timed(saved[1], "tree")
+    launchers = cs._launchers()
+    for launcher in launchers.values():
+        launcher.launches = 0
+    rows, before = [], [off.swap_counters()]
+
+    def on_step(step, row):
+        torch.cuda.synchronize()
+        swap = cs._swap_per_step(before[0], off.swap_counters(), 1)
+        before[0] = off.swap_counters()
+        ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+        layers_reduced = len(spans["stack"])
+        for v in spans.values():
+            v.clear()
+        sums.append(cs._checksums(params))
+        in_sync.append(cs._same_on_all_ranks(sums[-1]))
+        rows.append({"step": step, "loss": row["loss"], "grad_norm": row["grad_norm"],
+                     "time_s": row["time_s"], "checksums": sums[-1],
+                     "launches": {k: launchers[k].launches for k in LAUNCH_KEYS},
+                     "swap": swap, "stack_reduce_ms": ms["stack"],
+                     "stack_reductions": layers_reduced, "tree_pass_ms": ms["tree"],
+                     "queue_reduce_s": queue.reduce_s if queue else None,
+                     "queue_under_backward_s": queue.under_backward_s if queue else None,
+                     "queue_drain_wait_s": queue.drain_wait_s if queue else None})
+        for launcher in launchers.values():
+            launcher.launches = 0
+    try:
+        with contextlib.ExitStack() as stack:
+            if inline:
+                stack.enter_context(cs._inline_reductions())
+            state, _ = trainer.train(steps, on_step=on_step)
+    finally:
+        overlap.reduce_tree_bucketed, steps_mod.ddl_reduce_tree = saved
+    opt_sums = cs._checksums(_opt_tree(state))
+    layout = getattr(trainer.step_fn, "layout", None)
+    facts = {"setup_s": setup_s, "peak_bytes": torch.cuda.max_memory_allocated(),
+             "pinned_bytes": off.pinned_bytes(), "in_sync": in_sync,
+             "init_checksums": sums[0], "opt_checksums": opt_sums,
+             "opt_in_sync": None if zero1 else cs._same_on_all_ranks(opt_sums),
+             "opt_bytes": opt_bytes, "opt_on_host": opt_on_host,
+             "padded": layout.padded if layout is not None else None,
+             "queued": queue is not None,
+             "grads_sunk": (not zero1) and state.grads is not None}
+    del trainer, state, params, init, opt
+    off.release_arenas()
+    torch.cuda.empty_cache()
+    return {"plan": cs._plan_row(plan), "rows": rows, "facts": facts}
+
+
+def _opt_tree(state):
+    """The optimizer state of a TrainState (AdamW) or a Zero1State."""
+    o = state if not hasattr(state, "opt") else state.opt
+    return {"mu": o.mu, "nu": o.nu, "master": o.master}
+
+
+# ---------------------------------------------------------------------------
+# configurations and sizes
+# ---------------------------------------------------------------------------
+
+def _resident_config(layers: int, overlap: bool):
+    from repro_torch.config.base import DDLConfig
+    return cs._ddl_config(layers, MESH_A, ddl=DDLConfig(compress_dcn=True, overlap_grads=overlap),
+                          batch=BATCH, log_every=1)
+
+
+def _zero1_config(layers: int):
+    import dataclasses
+    from repro_torch.config.base import DDLConfig, LMSConfig
+    tcfg = cs._ddl_config(layers, MESH_C, ddl=DDLConfig(mode="zero1"), batch=BATCH,
+                          log_every=1)
+    return dataclasses.replace(tcfg, lms=LMSConfig(hbm_budget=cs.LMS_DDL_BUDGET))
+
+
+def _resident_bytes(layers: int) -> int:
+    """A resident rank's params, grads and AdamW state (f32 mu, nu and
+    master) at `layers` layers, plus RESIDENT_ALLOWANCE."""
+    from repro_torch.models.layers import DTYPES
+    from repro_torch.models.model import Model
+    from repro_torch.train import steps as steps_mod
+    import torch
+    model = Model(_resident_config(layers, True).model)
+    total = RESIDENT_ALLOWANCE
+    for _, d in steps_mod._def_paths(model.param_defs()):
+        n = math.prod(d.shape)
+        total += n * (2 * torch.empty((), dtype=DTYPES[d.dtype]).element_size() + 12)
+    return total
+
+
+def _zero1_sizing(layers: int):
+    """-> (the plan of (c) at `layers`, a rank's pinned bytes under it, or
+    None where the plan keeps the optimizer on the device with the params
+    on the host: not ported). The bytes: the stack's params when they
+    stream (`train.steps._state_layout`), and the flat mu, nu and master
+    (12 B a padded element over |data| = 4) when the optimizer is on the
+    host."""
+    from repro_torch.core.lms import offload as off
+    from repro_torch.core.lms.planner import PlanRequest, plan as plan_lms
+    from repro_torch.models.layers import DTYPES
+    from repro_torch.models.model import Model
+    from repro_torch.train import steps as steps_mod
+    tcfg = _zero1_config(layers)
+    model = Model(tcfg.model)
+    plan = plan_lms(PlanRequest(cfg=tcfg.model, shape=tcfg.shape, mesh=tcfg.mesh, lms=tcfg.lms,
+                                optimizer=tcfg.optimizer, zero1=True,
+                                microbatches=tcfg.microbatches))
+    params_host, opt_host = steps_mod._host_classes(plan)
+    if params_host and not opt_host:
+        return plan, None
+    paths = [(path, d.shape, DTYPES[d.dtype])
+             for path, d in steps_mod._def_paths(model.param_defs())]
+    host = steps_mod._state_layout(paths, "adamw", params_host, False)[0]
+    _, layout = steps_mod._zero1_layout(model, tcfg, MESH_C[1], MESH_C[1])
+    if opt_host:
+        host += 3 * off.PinnedArena.padded(4 * steps_mod._local_size(layout))
+    return plan, host
+
+
+# ---------------------------------------------------------------------------
+# the ranks' phases
+# ---------------------------------------------------------------------------
+
+def _resident_rank(rank: int, world: int, layers: int):
+    """(a) queued, inline and serialized at `layers` layers, then (d) the
+    smoke config: the one-rank reference on the global batch and
+    chip_smoke's `_ddl_smoke_rank` on the 2x2x1 mesh."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.train.steps import build_train_step, init_train_state
+    out = {"rank": rank,
+           "a": {"queued": _train(_resident_config(layers, True)),
+                 "inline": _train(_resident_config(layers, True), inline=True),
+                 "serialized": _train(_resident_config(layers, False)),
+                 "queued_high_priority": _train(_resident_config(layers, True),
+                                                around=_high_priority_streams()),
+                 "queued_switch_0.5ms": _train(_resident_config(layers, True),
+                                               around=_switch_interval(5e-4))}}
+    tcfg = cs._ddl_config(0, (1, 1, 1), smoke=True, batch=cs.DDL_SMOKE_BATCH,
+                          seq=cs.DDL_SMOKE_SEQ)
+    model = Model(tcfg.model)
+    step = build_train_step(model, tcfg)
+    state = init_train_state(model, tcfg, cs.SEED, "cuda")
+    reference = []
+    for b in cs._ddl_batches(tcfg):
+        state, met = step(state, {k: torch.from_numpy(v).cuda() for k, v in b.items()})
+        reference.append({"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"])})
+    del state
+    out["d_reference"] = reference
+    out["d"] = cs._ddl_smoke_rank(rank, world)
+    return out
+
+
+def _lms_rank(rank: int, world: int, layers: int, pinned: int):
+    """(b): the arena reserved once at `pinned` bytes, then the plan's
+    overlapped run and the serialized one in it."""
+    from repro_torch.core.lms import offload as off
+    t0 = time.monotonic()
+    off.reserve_pinned(pinned, "cuda")
+    out = {"rank": rank, "pinned": {"bytes": pinned, "seconds": time.monotonic() - t0}}
+    for name, ov in (("overlapped", None), ("serialized", False)):
+        out[name] = _train(cs._lms_ddl_config(layers, ov, mesh=MESH_A, batch=BATCH))
+    return out
+
+
+def _zero1_rank(rank: int, world: int, layers: int, pinned: int):
+    """(c): the arena reserved at `pinned` bytes, then zero1 under the plan."""
+    from repro_torch.core.lms import offload as off
+    t0 = time.monotonic()
+    off.reserve_pinned(pinned, "cuda")
+    return {"rank": rank, "pinned": {"bytes": pinned, "seconds": time.monotonic() - t0},
+            "run": _train(_zero1_config(layers))}
+
+
+# ---------------------------------------------------------------------------
+# the parent: sizing, checks, rows
+# ---------------------------------------------------------------------------
+
+def _steady(rows, key):
+    vals = [r[key] for r in rows[1:]]
+    return sum(vals) / len(vals) if vals and None not in vals else None
+
+
+def _moved(swap) -> float:
+    """Bytes over the host link in a step's swap counters (in and out)."""
+    return sum(v for k, v in swap.items() if "_bytes." in k)
+
+
+def _run_summary(ranks, get, cfg, line):
+    """A run's row: rank 0's steady steps (after step 1), every rank's peak,
+    the link rate each rank's swaps reached in the step, model FLOP/s."""
+    run = get(ranks[0])
+    rows = run["rows"]
+    step_s = _steady(rows, "time_s")
+    tokens = cs.TRAIN_SEQ
+    flops, _ = cs._train_flops(cfg, tokens, cs.TRAIN_SEQ)
+    later = rows[1:]
+    swap = {k: sum(r["swap"].get(k, 0) for r in later) / len(later) for k in later[0]["swap"]}
+    moved = _moved(swap)
+    link = []
+    for r in ranks:
+        rr = get(r)["rows"][1:]
+        b = sum(_moved(s["swap"]) for s in rr) / len(rr)
+        link.append(b / _steady(get(r)["rows"], "time_s") / 1e9)
+    plan = run["plan"]
+    return {"card": line, "layers": cfg.num_layers, "step_s_steady": step_s,
+            "tokens_per_s": WORLD * tokens / step_s,
+            "tokens_per_s_per_rank": tokens / step_s,
+            "model_flops_per_s_per_rank": flops / step_s,
+            "bf16_peak_share": flops / step_s / cs.BF16_TENSOR_FLOPS_PER_S,
+            "step_s": [r["time_s"] for r in rows], "loss": [r["loss"] for r in rows],
+            "grad_norm": [r["grad_norm"] for r in rows],
+            **{k: _steady(rows, k) for k in ("queue_reduce_s", "queue_under_backward_s",
+                                             "queue_drain_wait_s", "stack_reduce_ms",
+                                             "tree_pass_ms")},
+            "stack_reductions_per_step": rows[-1]["stack_reductions"],
+            "launches_per_step": rows[-1]["launches"], "swap_per_step": swap,
+            "swap_bytes_per_step": moved, "link_gb_s_per_rank": link,
+            "link_gb_s_all_ranks": sum(link),
+            "plan_swap_bytes": plan["swap_bytes"] if plan else None,
+            "plan_swap_bytes_per_step": plan["swap_bytes_per_step"] if plan else None,
+            "plan_residency": plan["residency"] if plan else None,
+            "plan_peak_bytes": plan["peak_bytes"] if plan else None,
+            "plan_host_bytes": plan["host_bytes"] if plan else None,
+            "peak_bytes": [get(r)["facts"]["peak_bytes"] for r in ranks],
+            "pinned_bytes": [get(r)["facts"]["pinned_bytes"] for r in ranks],
+            "opt_bytes": run["facts"]["opt_bytes"], "opt_on_host": run["facts"]["opt_on_host"],
+            "setup_s": [get(r)["facts"]["setup_s"] for r in ranks],
+            "queued": run["facts"]["queued"], "grads_sunk": run["facts"]["grads_sunk"]}
+
+
+def _in_sync(ranks, get) -> bool:
+    return all(all(get(r)["facts"]["in_sync"]) and len(get(r)["facts"]["in_sync"]) == STEPS + 1
+               for r in ranks)
+
+
+def _trace(run) -> list:
+    return ([run["facts"]["init_checksums"]]
+            + [[s["loss"], s["grad_norm"], s["checksums"]] for s in run["rows"]]
+            + [run["facts"]["opt_checksums"]])
+
+
+def _within(a, b, tol=2e-3) -> bool:
+    return all(abs(x["loss"] - y["loss"]) <= tol * abs(y["loss"])
+               for x, y in zip(a["rows"][1:], b["rows"][1:]))
+
+
+def _finite(run) -> bool:
+    return all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) for s in run["rows"])
+
+
+def _fail(name, checks):
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"{name}: failed checks {bad}")
+
+
+def phase_a_d(line, rows_out):
+    """(a) and (d), in one set of 4 ranks."""
+    from repro_torch.configs import get_smoke_config
+    fit = [L for L in RESIDENT_DEPTHS if _resident_bytes(L) <= cs.CARD_BYTES]
+    if not fit:
+        raise AssertionError(f"(a): no depth of {RESIDENT_DEPTHS} fits the card: "
+                             f"{_resident_bytes(RESIDENT_DEPTHS[0])} B at 1 layer")
+    L = max(fit)
+    cfg = _resident_config(L, True).model
+    t0 = time.monotonic()
+    ranks = spawn_ranks("_resident_rank", L, timeout=TIMEOUT_S["ad"])
+    seconds = time.monotonic() - t0
+    runs = {m: (lambda r, m=m: r["a"][m]) for m in ("queued", "inline", "serialized")}
+    diagnostics = ("queued_high_priority", "queued_switch_0.5ms")
+    slices = {ov: len(cs.ddl_pod_hop_sizes(cfg, MESH_A[1], overlap=ov)) for ov in (True, False)}
+
+    def launches_ok(mode):
+        ov = mode != "serialized"
+        return all(s["launches"] == {"quantize_rows": slices[ov], "dequantize_rows": 0,
+                                     "dequantize_sum_rows": slices[ov], "rmsnorm": 4 * L + 1}
+                   for r in ranks for s in runs[mode](r)["rows"])
+    q = ranks[0]["a"]["queued"]
+    s = ranks[0]["a"]["serialized"]
+    checks = {
+        "queued_equals_inline_bitwise_every_rank": all(
+            _trace(r["a"]["queued"]) == _trace(r["a"]["inline"]) for r in ranks),
+        "diagnostics_bitwise_queued": all(_trace(r["a"]["queued"]) == _trace(r["a"][d])
+                                          for r in ranks for d in diagnostics),
+        "replicas_in_sync": all(_in_sync(ranks, g) for g in runs.values())
+        and all(r["a"][m]["facts"]["opt_in_sync"] for r in ranks for m in runs),
+        "serialized_step1_loss_equal": q["rows"][0]["loss"] == s["rows"][0]["loss"],
+        "serialized_within_2e-3_from_step_2": _within(q, s),
+        "finite": all(_finite(r["a"][m]) for r in ranks for m in runs),
+        "queued_on_the_queue": all(r["a"]["queued"]["facts"]["queued"]
+                                   and r["a"]["queued"]["rows"][-1]["stack_reductions"] == L
+                                   for r in ranks),
+        "launches": all(launches_ok(m) for m in runs)}
+    row = {"phase": "a_resident_ddl", "arch": cs.ARCH, "layers": L, "fit": fit,
+           "resident_bytes_estimate": {Lx: _resident_bytes(Lx) for Lx in RESIDENT_DEPTHS},
+           "mesh": list(MESH_A), "ranks": WORLD, "backend": "nccl", "compress_dcn": True,
+           "tokens_per_rank": cs.TRAIN_SEQ, "card": line,
+           "expected_slices_per_step": slices,
+           **{m: _run_summary(ranks, g, cfg, line) for m, g in runs.items()},
+           **{d: _run_summary(ranks, lambda r, d=d: r["a"][d], cfg, line) for d in diagnostics},
+           "seconds": seconds, "checks": checks}
+    emit(row, rows_out)
+    _fail("(a)", checks)
+
+    smoke = get_smoke_config(cs.ARCH)
+    reference = ranks[0]["d_reference"]
+    variants, dchecks = {}, {}
+    for name, v in ranks[0]["d"].items():
+        ov, c = "overlap=True" in name, "compress=True" in name
+        n = len(cs.ddl_pod_hop_sizes(smoke, cs.DDL_SMOKE_MESH[1], overlap=ov)) * STEPS if c else 0
+        err = [{k: abs(row[k] - ref[k]) / abs(ref[k]) for k in ("loss", "grad_norm")}
+               for row, ref in zip(v["rows"], reference)]
+        dchecks[name] = {
+            "in_sync": all(all(r["d"][name]["in_sync"]) for r in ranks),
+            "same_metrics": all(r["d"][name]["rows"] == v["rows"] for r in ranks),
+            "same_reference": all(r["d_reference"] == reference for r in ranks),
+            "loss": max(e["loss"] for e in err) <= 5e-3,
+            "grad_norm": max(e["grad_norm"] for e in err) <= 2e-2,
+            "launches": all(r["d"][name]["quantize_launches"] == n
+                            and r["d"][name]["dequantize_sum_launches"] == n
+                            and r["d"][name]["dequantize_launches"] == 0 for r in ranks)}
+        if ov:
+            dchecks[name]["queued_equals_inline_bitwise"] = all(r["d"][name]["inline_bitwise"]
+                                                                for r in ranks)
+        variants[name] = {"rows": v["rows"], "rel_err": err,
+                          "quantize_launches": v["quantize_launches"],
+                          "dequantize_sum_launches": v["dequantize_sum_launches"]}
+    emit({"phase": "d_smoke_width", "arch": cs.ARCH, "config": "smoke",
+          "mesh": list(cs.DDL_SMOKE_MESH), "ranks": WORLD, "backend": "nccl", "card": line,
+          "batch": cs.DDL_SMOKE_BATCH, "seq": cs.DDL_SMOKE_SEQ, "reference": reference,
+          "variants": variants, "checks": dchecks}, rows_out)
+    _fail("(d)", {f"{n}/{k}": v for n, c in dchecks.items() for k, v in c.items()})
+
+
+def _host_room(what: str, need_one_layer: int):
+    """MemAvailable after gc and malloc_trim, failing if `need_one_layer`
+    (four ranks at 1 layer) does not fit LMS_HOST_SHARE of it."""
+    import ctypes
+    import gc
+    gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+    mem = cs._mem_row()
+    if need_one_layer > cs.LMS_HOST_SHARE * mem["MemAvailable"]:
+        raise AssertionError(
+            f"{what}: four ranks' pinned state at 1 layer is {need_one_layer} B, more than "
+            f"{cs.LMS_HOST_SHARE} of MemAvailable {mem['MemAvailable']} B")
+    return mem
+
+
+def phase_b(line, rows_out):
+    """(b) LMS + DDL at the most layers the host holds."""
+    mem = _host_room("(b)", WORLD * cs._lms_ddl_pinned_bytes(1))
+    avail = mem["MemAvailable"]
+    fit = [L for L in range(1, MAX_LAYERS + 1)
+           if WORLD * cs._lms_ddl_pinned_bytes(L) <= cs.LMS_HOST_SHARE * avail]
+    L = max(fit)
+    pinned = cs._lms_ddl_pinned_bytes(L)
+    cfg = cs._lms_ddl_config(L, mesh=MESH_A, batch=BATCH).model
+    t0 = time.monotonic()
+    ranks = spawn_ranks("_lms_rank", L, pinned, timeout=TIMEOUT_S["b"])
+    seconds = time.monotonic() - t0
+    after = cs._mem_row()
+    returned = cs._await_mem_available(avail - cs.LMS_DDL_MEM_SLACK, cs.LMS_DDL_MEM_WAIT_S)
+    runs = {m: (lambda r, m=m: r[m]) for m in ("overlapped", "serialized")}
+    ov, ser = ranks[0]["overlapped"], ranks[0]["serialized"]
+    checks = {
+        "plan_all_on_host": all(ov["plan"]["residency"][k] == "host"
+                                for k in ("params", "grads", "optimizer")),
+        "overlapped_queued_and_sunk": all(r["overlapped"]["facts"]["queued"]
+                                          and r["overlapped"]["facts"]["grads_sunk"]
+                                          for r in ranks),
+        "serialized_not_queued": not any(r["serialized"]["facts"]["queued"] for r in ranks),
+        "replicas_in_sync": all(_in_sync(ranks, g) for g in runs.values()),
+        "finite": all(_finite(r[m]) for r in ranks for m in runs),
+        "step1_loss_equal": ov["rows"][0]["loss"] == ser["rows"][0]["loss"],
+        "later_losses_within_2e-3": _within(ov, ser)}
+    emit({"phase": "b_lms_ddl", "arch": cs.ARCH, "layers": L, "mesh": list(MESH_A),
+          "ranks": WORLD, "backend": "nccl", "compress_dcn": True,
+          "hbm_budget": cs.LMS_DDL_BUDGET, "card": line, "pinned_bytes_per_rank": pinned,
+          "fits_up_to": L, "arena": [r["pinned"] for r in ranks],
+          **{m: _run_summary(ranks, g, cfg, line) for m, g in runs.items()},
+          "meminfo_before": mem, "meminfo_after": after,
+          "mem_available_returning": returned[-1:], "nproc": os.cpu_count(),
+          "seconds": seconds, "checks": checks}, rows_out)
+    _fail("(b)", checks)
+
+
+def phase_c(line, rows_out):
+    """(c) zero1 under LMS at the most layers up to 48 the host holds (the
+    first depth, from 48 down, whose plan keeps the optimizer on the host
+    and whose four ranks' pinned state fits)."""
+    mem = _host_room("(c)", 0)
+    avail = mem["MemAvailable"]
+    sized = {}
+    for L in range(MAX_LAYERS, 0, -1):
+        plan, host = _zero1_sizing(L)
+        sized[L] = host
+        if host is not None and WORLD * host <= cs.LMS_HOST_SHARE * avail:
+            break
+    else:
+        raise AssertionError(f"(c): no depth up to {MAX_LAYERS} fits {cs.LMS_HOST_SHARE} of "
+                             f"MemAvailable {avail} B with the optimizer on the host: {sized}")
+    pinned = sized[L]
+    cfg = _zero1_config(L).model
+    t0 = time.monotonic()
+    ranks = spawn_ranks("_zero1_rank", L, pinned, timeout=TIMEOUT_S["c"])
+    seconds = time.monotonic() - t0
+    after = cs._mem_row()
+    returned = cs._await_mem_available(avail - cs.LMS_DDL_MEM_SLACK, cs.LMS_DDL_MEM_WAIT_S)
+    run = ranks[0]["run"]
+    padded = run["facts"]["padded"]
+    checks = {
+        "optimizer_on_host": all(r["run"]["facts"]["opt_on_host"] for r in ranks),
+        "optimizer_bytes": padded is not None and all(
+            r["run"]["facts"]["opt_bytes"] == 12 * padded // MESH_C[1] for r in ranks),
+        "queued": all(r["run"]["facts"]["queued"] for r in ranks),
+        "replicas_in_sync": _in_sync(ranks, lambda r: r["run"]),
+        "finite": all(_finite(r["run"]) for r in ranks)}
+    emit({"phase": "c_zero1_lms", "arch": cs.ARCH, "layers": L, "mesh": list(MESH_C),
+          "ranks": WORLD, "backend": "nccl", "compress_dcn": False,
+          "hbm_budget": cs.LMS_DDL_BUDGET, "card": line, "params": cfg.param_count(),
+          "pinned_bytes_per_rank": pinned, "padded": padded,
+          "opt_bytes_expected": 12 * padded // MESH_C[1] if padded else None,
+          "sized_bytes": sized, "arena": [r["pinned"] for r in ranks],
+          "run": _run_summary(ranks, lambda r: r["run"], cfg, line),
+          "meminfo_before": mem, "meminfo_after": after,
+          "mem_available_returning": returned[-1:], "seconds": seconds,
+          "checks": checks}, rows_out)
+    _fail("(c)", checks)
+
+
+def emit(row, rows_out):
+    rows_out.append(row)
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    with open(OUT, "w") as f:
+        json.dump(rows_out, f, indent=1)
+    print(json.dumps(row), flush=True)
+
+
+def header():
+    """The cards, the host and NCCL, printed raw and as one JSON row. ->
+    the first card's nvidia-smi line."""
+    import torch
+    n = torch.cuda.device_count()
+    if n < WORLD:
+        raise SystemExit(f"ddl_four_cards.py needs {WORLD} cards, this machine has {n}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()
+    for s in smi:
+        print(s, flush=True)
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True,
+                          timeout=60).stdout
+    mem = cs._mem_row()
+    print(json.dumps({"phase": "host", "cards": smi, "count": n,
+                      "mem_available": mem["MemAvailable"], "mem_total": mem["MemTotal"],
+                      "nproc": os.cpu_count(), "nccl": str(torch.cuda.nccl.version()),
+                      "torch": torch.__version__, "cuda": torch.version.cuda,
+                      "topo": topo}), flush=True)
+    return smi[0]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="a,b,c,d",
+                    help="comma-separated subset of a,b,c,d (a and d run together)")
+    args = ap.parse_args()
+    phases = set(args.phases.split(","))
+    if not phases <= {"a", "b", "c", "d"}:
+        raise SystemExit(f"--phases: unknown {sorted(phases - {'a', 'b', 'c', 'd'})}")
+    import torch
+    line = header()
+    from repro_torch.kernels import _build
+    t0 = time.monotonic()
+    _build.extension()
+    rows = []
+    emit({"phase": "build", "seconds": time.monotonic() - t0}, rows)
+    if phases & {"a", "d"}:
+        phase_a_d(line, rows)
+    if "b" in phases:
+        phase_b(line, rows)
+    if "c" in phases:
+        phase_c(line, rows)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,10 +5,10 @@ and of the sharded microbatch accumulator.
 
 The post-hoc `ddl_reduce_tree` pass serializes every RS/AR/AG behind the
 last layer's backward. `make_grad_reduce_hook` instead wraps one layer's
-params in an identity `torch.autograd.Function` whose backward applies
-the DDL schedule to that layer's grads, so each layer's collectives are
-issued as soon as the backward has produced them, while the layers below
-are still to come. Forward is the identity: the model's graph is
+params in an identity `torch.autograd.Function` whose backward hands that
+layer's grads to the hook's `ReductionQueue`, so each layer's collectives
+are issued as soon as the backward has produced them, while the layers
+below are still to come. Forward is the identity: the model's graph is
 untouched. The hook wraps the layer outside its activation checkpoint, so
 the recompute in the backward reruns no collective.
 
@@ -27,19 +27,21 @@ Two keep modes, as in the JAX package:
     cotangent has the param's dtype, so the f32 mean is rounded to it on
     its way out of the hook; the port rounds at the same place.
 
-Under LMS (the layer-streaming executor, `models/transformer.py`) the
-stack is not differentiated through autograd: each layer's grads leave the
-backward through the executor's sink, which hands them to the hook's
-`ReductionQueue`. One worker thread a rank, on a CUDA stream of its own,
-reduces the layers one after another in the order the backward produced
-them (so every rank issues the same collectives in the same order, with
-the same buckets as the hook's backward: the same sums) and writes each
-layer's mean into the grads tree, on the device or, with `sink=` the
-pinned host kind, in pinned host memory: the gradient host sink of a plan
-that puts grads on the host. The backward goes on to the layers below
-while a layer reduces; it waits only when `depth` layers are queued. The
-hook's own backward (`_ReduceGrads`, the resident path) still reduces
-inline, blocking the backward.
+The stack is never differentiated through autograd, resident or under
+LMS: each layer's grads leave the backward through the hook's
+`_ReduceGrads` (the resident stack) or the LMS executor's sink (a streamed
+one, `models/transformer.py`), which both hand them to the queue with the
+layer's slot of a grads tree the step allocated. One worker thread a rank,
+on a CUDA stream of its own, reduces the layers one after another in the
+order the backward produced them (so every rank issues the same
+collectives in the same order, with the same buckets and so the same sums
+as a reduction inline in the backward) and writes each layer's mean into
+its slot, on the device or, with `sink=` the pinned host kind, in pinned
+host memory: the gradient host sink of a plan that puts grads on the host.
+The backward goes on to the layers below while a layer reduces; it waits
+only when `depth` layers are queued. The JAX package's hook is a
+`custom_vjp` whose collectives XLA schedules behind the rest of the
+backward; the queue is the port's way to the same overlap.
 
 `ShardSpec` is the shard-major flat layout those slots live in: each leaf
 viewed as [rows, rowsize] (rows = the layer count for a stacked leaf, else
@@ -47,9 +49,9 @@ viewed as [rows, rowsize] (rows = the layer count for a stacked leaf, else
 every leaf. The port's collectives scatter and gather along dim 0 only,
 so where the JAX package scatters a [rows, padded_row] matrix along dim 1
 the port lays it out as [|data|, rows, sl] and scatters dim 0: the same
-sums in another layout. In the LMS executor's queue the shard mode adds
-(or, for zero1, copies) each layer's slot into that layer's rows of a
-flat buffer.
+sums in another layout. In shard mode the queue adds (the sharded
+microbatch accumulator) or copies (zero1's grad shard) each layer's slot
+into that layer's rows of a flat buffer.
 
 Not ported yet: the JAX package's per-leaf PartitionSpecs (`param_specs`),
 which only tensor parallelism needs.
@@ -200,18 +202,23 @@ def reduce_tree_bucketed(ct, cfg: DDLConfig, *, mesh, data_axis: str,
 
 
 class _ReduceGrads(torch.autograd.Function):
-    """Identity over a layer's param leaves whose backward DDL-reduces
-    their grads (a None grad arrives as zeros, as a JAX cotangent would)."""
+    """Identity over a layer's param leaves (views of the resident stack)
+    whose backward hands their grads to the hook's reduction queue with
+    `dst`, the layer's slot of the step's grads tree, and returns no grad
+    for them: autograd accumulates nothing into the stack. A None grad
+    arrives as zeros, as a JAX cotangent would. `anchor`, the layer input,
+    only ties the node into the graph (the stack's leaves need no grad),
+    as the LMS executor's `_LayerParams` does; it gets no grad from here."""
 
     @staticmethod
-    def forward(ctx, reduce, template, *leaves):
-        ctx.reduce, ctx.template = reduce, template
-        return tuple(x.view_as(x) for x in leaves)
+    def forward(ctx, anchor, queue, i, dst, *leaves):
+        ctx.queue, ctx.i, ctx.dst = queue, i, dst
+        return tuple(t.detach() for t in leaves)
 
     @staticmethod
     def backward(ctx, *grads):
-        red = ctx.reduce(tree_unflatten(ctx.template, grads))
-        return (None, None) + tuple(tree_leaves(red))
+        ctx.queue.put(ctx.i, tree_unflatten(ctx.dst, list(grads)), ctx.dst)
+        return (None,) * (4 + len(grads))
 
 
 _WORKER_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
@@ -228,16 +235,20 @@ def worker_stream(device) -> "torch.cuda.Stream":
 
 
 class ReductionQueue:
-    """The LMS + DDL backward's reductions, one layer at a time, on a
+    """The overlapped backward's reductions, one layer at a time, on a
     worker thread of their own (a FIFO: layers reduce in the order they
     were put, so every rank's collectives come in one order).
 
-    A step opens the queue (`open`), the executor's sink puts each layer's
-    grads in (`put`: the layer's grads tree and its slot in the grads tree
-    to write the mean into), and the step drains it (`drain`) before any
-    other collective of its own: no collective runs on two threads at once.
-    Each step has a worker and a FIFO of its own, so a worker left behind
-    by a failed step (`abandon`) never takes the next step's layers.
+    A step opens the queue (`open`), the backward puts each layer's grads
+    in (`put`, from the hook's `_ReduceGrads` or the LMS executor's sink:
+    the layer's grads tree and its slot in the grads tree to write the mean
+    into), and the step drains it (`drain`) before any other collective of
+    its own: no collective runs on two threads at once.
+    Each step has a worker and a FIFO of its own. After a backward that
+    raised, `abandon` lets the worker reduce the layers already put (every
+    rank whose backward raised at the same point so issues the same
+    collectives) and waits for it, so the next step's collectives never
+    run beside the abandoned step's.
 
     On the card the worker reduces on its own stream (`worker_stream`),
     which first waits for an event recorded when the layer's grads exist;
@@ -303,7 +314,7 @@ class ReductionQueue:
             item = step.items.get()
             if item is None:
                 return
-            if step.error is not None or step.stop:
+            if step.error is not None:
                 continue
             i, grads, dst, event = item
             t0 = time.monotonic()
@@ -358,12 +369,17 @@ class ReductionQueue:
                         t.record_stream(cur)
 
     def abandon(self) -> None:
-        """After a failed backward: the step's worker runs no further
-        reduction and ends; nothing waits for it."""
+        """After a failed backward: wait for the step's worker to reduce
+        the layers already put and end, and order the current stream after
+        its stream. A reduction's error is dropped (the backward's is the
+        one raised)."""
         step, self._step = self._step, None
-        if step is not None:
-            step.stop = True
-            step.items.put(None)
+        if step is None:
+            return
+        step.items.put(None)
+        step.thread.join()
+        if self.cuda:
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
 
 
 class _QueueStep:
@@ -379,18 +395,18 @@ class _QueueStep:
         self.count = 0
         self.spans: List[tuple] = []
         self.error: Optional[BaseException] = None
-        self.stop = False
 
 
 class GradReduceHook:
-    """A layer's DDL reduction, two ways: called on a layer's param tree
-    (`lp = hook(lp)`), an identity whose backward reduces the layer's
-    grads inline (the resident path); `reduce(ct)` reduces one layer's
-    grads tree (the same buckets, so the same sums); `queue` reduces
-    layers on a worker thread for the LMS executor. `keep`: "full" or
-    "shard" (the module docstring). `sink`: where the queue writes the
-    means, None (the device) or the pinned host kind (`offload.HOST`: the
-    gradient host sink)."""
+    """A layer's DDL reduction: called on a layer's param tree (`lp =
+    hook(lp, i, dst, x)`), an identity whose backward queues the layer's
+    grads on `queue` (the resident stack; the LMS executor puts them there
+    itself), which reduces them on its worker thread and writes the mean
+    into `dst`; `reduce(ct)` reduces one layer's grads tree (the queue's
+    buckets, so its sums). `keep`: "full" or "shard" (the module
+    docstring). `sink`: where the queue writes the means, None (the
+    device) or the pinned host kind (`offload.HOST`: the gradient host
+    sink)."""
 
     def __init__(self, cfg: DDLConfig, *, mesh, data_axis: str, pod_axis: Optional[str],
                  data_size: int, pod_size: int, keep: str = "full",
@@ -410,8 +426,11 @@ class GradReduceHook:
         """This rank's slot of one layer's leaf (`local_slot`)."""
         return local_slot(g, self.axes["data_size"], self.mesh.index(self.axes["data_axis"]))
 
-    def __call__(self, tree):
-        outs = _ReduceGrads.apply(self.reduce, tree, *tree_leaves(tree))
+    def __call__(self, tree, i: int, dst, anchor):
+        """Layer i's param tree through `_ReduceGrads`: its backward puts
+        the layer's grads on the queue, their mean bound for `dst` (layer
+        i's slot of the step's grads tree); `anchor`: the layer's input."""
+        outs = _ReduceGrads.apply(anchor, self.queue, i, dst, *tree_leaves(tree))
         return tree_unflatten(tree, (outs,) if torch.is_tensor(outs) else outs)
 
 
@@ -419,9 +438,10 @@ def make_grad_reduce_hook(cfg: DDLConfig, *, mesh, data_axis: str = "data",
                           pod_axis: Optional[str] = None, data_size: int = 1,
                           pod_size: int = 1, keep: str = "full",
                           sink: Optional[str] = None) -> GradReduceHook:
-    """Identity-forward wrapper whose backward DDL-reduces the grads: wrap a
-    layer's param tree before the layer runs (`lp = hook(lp)`), and the
-    backward issues that layer's collectives as soon as its grads exist.
+    """Identity-forward wrapper whose backward queues the grads for their
+    DDL reduction: wrap a layer's param tree before the layer runs (`lp =
+    hook(lp, i, dst, x)`), and the queue issues that layer's collectives as
+    soon as its grads exist.
     `keep`: "full" or "shard". `sink`: the memory kind the LMS executor's
     queue writes the reduced grads to (`offload.HOST` for a plan with
     grads on the host; None keeps them on the device), as the JAX

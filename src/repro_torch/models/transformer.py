@@ -312,8 +312,12 @@ def apply_decoder(cfg, params, x, ctx, *, policy=None, no_remat=False,
     grad_hooks: {stack group name -> reduce-as-you-go hook}, the DDL
     overlapped backward (`core/ddl/overlap.py`): each layer's slice of the
     group's params goes through the hook before the layer runs, outside its
-    checkpoint, so its grads are reduced once, as soon as the backward has
-    them, and the recompute reruns no collective.
+    checkpoint, so its grads go to the hook's reduction queue once, as soon
+    as the backward has them, and the recompute reruns no collective. The
+    stack is then not differentiated through autograd (its leaves need no
+    grad): the queue writes each layer's mean over the ranks into
+    `stack_grads` (a tree like params["stack0"]), opened and drained by the
+    step.
 
     Without a policy or a stream, each layer runs under
     `torch.utils.checkpoint` (non-reentrant) unless no_remat: its
@@ -339,11 +343,15 @@ def apply_decoder(cfg, params, x, ctx, *, policy=None, no_remat=False,
         return _apply_decoder_lms(cfg, kind, stack, x, ctx, policy=policy,
                                   stream=stream, no_remat=no_remat,
                                   stack_grads=stack_grads, hook=hook)
+    hooked = hook is not None and torch.is_grad_enabled()
+    if hooked and stack_grads is None:
+        raise ValueError("the overlapped backward writes the stack's reduced grads "
+                         "into stack_grads: pass one")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
         lp = _layer(stack, i)
-        if hook is not None:
-            lp = hook(lp)
+        if hooked:
+            lp = hook(lp, i, _layer(stack_grads, i), x)
         p = lp[f"{kind}_0"]
         if no_remat:
             x, da = apply_layer(cfg, kind, p, x, ctx)

@@ -596,14 +596,22 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
     and divided by m, as the JAX package's scan does. On a mesh of several
     data-parallel ranks the grads are then DDL-reduced to their mean over
     the ranks (`core/ddl`): with the overlapped backward (on by default,
-    `_resolve_overlap`) the decoder stack's layer by layer inside the
-    backward and the rest (embedding, final norm, head) after it; otherwise
-    the whole tree after the backward. With the overlapped backward and
-    m > 1 the accumulator is sharded, as in the JAX package: the hooks keep
-    this rank's 1/|data| slot of each layer's mean (keep="shard"), the rest
-    is reduce-scattered after each microbatch, each microbatch's shard is
-    added into one f32 [local_size] vector (`ShardSpec` layout), and after
-    the last one `allgather_local_shards(acc / m)` gives the mean tree.
+    `_resolve_overlap`) the decoder stack's layer by layer while the
+    backward goes on and the rest (embedding, final norm, head) after it;
+    otherwise the whole tree after the backward. The overlapped backward
+    does not differentiate the stack through autograd: each layer's hook
+    hands the layer's grads to the DDL hook's reduction queue
+    (`core/ddl/overlap.ReductionQueue`), which reduces them on a worker
+    thread and stream of its own and writes their mean into a grads tree
+    the step allocates; the step opens the queue before the loss and
+    drains it before any collective of its own (the rest's, the metrics'),
+    and abandons it if the backward raises. With the overlapped backward
+    and m > 1 the accumulator is sharded, as in the JAX package: the hooks
+    keep this rank's 1/|data| slot of each layer's mean (keep="shard"),
+    which the queue adds into one f32 [local_size] vector (`ShardSpec`
+    layout), the rest is reduce-scattered into it after each microbatch,
+    and after the last one `allgather_local_shards(acc / m)` gives the mean
+    tree.
     Then the grads are clipped to tcfg.grad_clip by their global norm and
     the optimizer steps with the lr of `warmup_cosine(state.step)`. The
     state is updated in place and returned in a new TrainState with step +
@@ -621,12 +629,11 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
     update is the streamed sweep (`_streamed_opt_update`), with the clip
     inside it. The stack's grads are written into a grads tree layer by
     layer. On a mesh of several ranks (LMS + DDL) with the overlapped
-    backward each layer's grads go to the DDL hook's reduction queue
-    (`core/ddl/overlap.ReductionQueue`), which reduces them on a thread of
-    its own while the backward goes on and writes their mean into that
-    tree: on the device, or, when the plan puts grads on the host
-    (`_grads_host`) and m == 1, into the state's pinned grads tree (the
-    backward's host sink), read back a layer at a time by the sweep.
+    backward each layer's grads go to the reduction queue, as on the
+    resident path, which writes their mean into that tree: on the device,
+    or, when the plan puts grads on the host (`_grads_host`) and m == 1,
+    into the state's pinned grads tree (the backward's host sink), read
+    back a layer at a time by the sweep.
     Without the overlapped backward a plan's sunk grads are placed on the
     host after the tree pass, as in the JAX package. With m > 1 the
     executor runs once a microbatch: without the overlap each microbatch's
@@ -682,7 +689,8 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
         sspec = ddl_overlap.shard_spec(shapes, data_size, stacked)
         shard_axes = dict(mesh=mesh, data_axis="data", pod_axis=pod_axis,
                           mean_over=mean_over, compress_dcn=ddl.compress_dcn)
-    queue = hooks["stack0"].queue if hooks is not None and plan is not None else None
+    queue = hooks["stack0"].queue if hooks is not None else None
+    schedule = plan.swap_schedule if plan is not None else None
 
     def microbatches(batch):
         """The batch's m microbatches (the batch itself at m == 1)."""
@@ -706,15 +714,16 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
         l_acc, m_acc = sums
         return l_acc + loss.detach(), {k: m_acc[k] + mets[k].detach() for k in m_acc}
 
-    def lms_loss_and_grads(state, batch):
-        """Under a plan: the stack is not differentiated through autograd;
-        the LMS executor writes its grads into a grads tree (zeros on the
-        device, so a param no layer used keeps a zero grad; the state's
-        pinned tree under the host sink, every layer written each step;
-        with the sharded accumulator, the stack's rows of it), through the
-        reduction queue with the overlapped backward, which is drained
-        before this returns. -> (..., the stack's per-slice sums of
-        squares when the queue made them, else None)."""
+    def sunk_loss_and_grads(state, batch):
+        """Under a plan or with the overlapped backward: the stack is not
+        differentiated through autograd; the LMS executor or the hooks
+        write its grads into a grads tree (zeros on the device, so a param
+        no layer used keeps a zero grad; the state's pinned tree under the
+        host sink, every layer written each step; with the sharded
+        accumulator, the stack's rows of it), through the reduction queue
+        with the overlapped backward, which is drained before this
+        returns. -> (..., the stack's per-slice sums of squares when the
+        queue made them, else None)."""
         stacks, rest = _split_stack_grads(state.params)
         leaves = tree_map(lambda p: p.detach().requires_grad_(), rest)
         device = tree_leaves(leaves)[0].device
@@ -735,9 +744,9 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
             if m > 1 and not sharded and i:
                 for g in tree_leaves(gstack):
                     g.zero_()
-            loss, mets, grads = _lms_loss_and_grads(
-                model, leaves, stacks, mb, gstack, plan=plan, policy=policy, stream=stream,
-                hooks=hooks, queue=queue, squares=squares, accumulate=sharded)
+            loss, mets, grads = _sunk_loss_and_grads(
+                model, leaves, stacks, mb, gstack, schedule=schedule, policy=policy,
+                stream=stream, hooks=hooks, queue=queue, squares=squares, accumulate=sharded)
             sums = add_metrics(sums, loss, mets)
             rest_grads = tree_unflatten(rest, grads)
             if sharded:
@@ -768,42 +777,29 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
         tensors; grads in the params' dtypes, or f32 when accumulated over
         microbatches. With the hooks the decoder stack's grads come back
         reduced; with the sharded accumulator the whole tree."""
-        if plan is not None:
-            return lms_loss_and_grads(state, batch)
+        if plan is not None or hooks is not None:
+            return sunk_loss_and_grads(state, batch)
         params = state.params
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
         flat = tree_leaves(leaves)
         if m == 1:
-            loss, mets = model.loss(leaves, batch, grad_hooks=hooks)
+            loss, mets = model.loss(leaves, batch)
             grads = torch.autograd.grad(loss, flat)
             return (loss.detach(), {k: v.detach() for k, v in mets.items()},
                     tree_unflatten(params, grads), None)
         device = flat[0].device
-        if sharded:
-            acc = torch.zeros(sspec.local_size, dtype=torch.float32, device=device)
-        else:
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=device) for p in flat]
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=device) for p in flat]
         sums = None
         for mb in microbatches(batch):
-            loss, mets = model.loss(leaves, mb, grad_hooks=hooks)
+            loss, mets = model.loss(leaves, mb)
             grads = torch.autograd.grad(loss, flat)
             with torch.no_grad():
-                if sharded:
-                    _write_parts(acc, ddl_overlap.local_shard_parts(
-                        tree_unflatten(params, grads), sspec, stacked, **shard_axes),
-                        add=True)
-                else:
-                    for a, g in zip(acc, grads):
-                        a.add_(g)
+                for a, g in zip(acc, grads):
+                    a.add_(g)
             del grads
             sums = add_metrics(sums, loss, mets)
         loss, mets = mean_metrics(sums)
-        if sharded:
-            grads = ddl_overlap.allgather_local_shards(acc.div_(m), sspec, mesh=mesh,
-                                                       data_axis="data")
-        else:
-            grads = tree_unflatten(params, [a.div_(m) for a in acc])
-        return loss, mets, grads, None
+        return loss, mets, tree_unflatten(params, [a.div_(m) for a in acc]), None
 
     def reduce_grads(grads):
         """The DDL mean over the ranks of what the hooks left unreduced."""
@@ -859,8 +855,8 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
             metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr, "ce": ce, "aux": aux}
         return state._replace(step=state.step + 1, params=params, opt=opt), metrics
 
-    # the LMS + DDL backward's reduction queue (its times of the last
-    # step), None without one
+    # the overlapped backward's reduction queue (its times of the last
+    # step), None without the overlap
     step_fn.queue = queue
     step_fn.before_update = None
     return step_fn
@@ -876,18 +872,19 @@ def _before_update(step_fn) -> None:
         step_fn.before_update()
 
 
-def _lms_loss_and_grads(model: Model, leaves, stacks, batch, stack_grads, *, plan, policy,
-                        stream, hooks, queue, squares=None, accumulate=False):
-    """One pass of the LMS executor: the loss of `batch` over the rest's
-    leaves (differentiated) and the stack (written into `stack_grads` by
-    the executor's sink, or by the reduction queue, opened for the pass and
-    drained before this returns; abandoned if the backward raises). ->
-    (loss, {"ce", "aux"}, the rest's grads)."""
+def _sunk_loss_and_grads(model: Model, leaves, stacks, batch, stack_grads, *, schedule,
+                         policy, stream, hooks, queue, squares=None, accumulate=False):
+    """One pass of the stack with its grads sunk: the loss of `batch` over
+    the rest's leaves (differentiated) and the stack (not differentiated:
+    its grads written into `stack_grads` by the LMS executor's sink, or by
+    the reduction queue, opened for the pass with `schedule`'s prefetch
+    depth, 1 without one, and drained before this returns; abandoned if
+    the backward raises). The resident stack (no policy, no stream) takes
+    the hooks' path. -> (loss, {"ce", "aux"}, the rest's grads)."""
     layers = model.cfg.num_layers
     if queue is not None:
-        queue.open(tree_leaves(leaves)[0].device,
-                   tr._stream_depth(plan.swap_schedule, layers), squares,
-                   accumulate=accumulate)
+        queue.open(tree_leaves(leaves)[0].device, tr._stream_depth(schedule, layers),
+                   squares, accumulate=accumulate)
     try:
         loss, mets = model.loss(_merge_stack_grads(leaves, stacks), batch, policy=policy,
                                 stream=stream, stack_grads=stack_grads, grad_hooks=hooks)
@@ -1005,7 +1002,10 @@ def _zero1_params_from(master, layout, params, *, mesh, device) -> None:
     to the param's dtype, leaf by leaf (ShardSpec) or a slice of the flat
     vector at a time (the pack order), so the whole f32 tree never stands
     on the card. A master shard in host memory is copied in a leaf or
-    slice at a time."""
+    slice at a time. The cast runs on the card: a blocking copy into a
+    param in host memory would convert on the CPU (torch does a blocking
+    device-to-host copy's dtype conversion there), which took most of a
+    48-layer step."""
     leaves = tree_leaves(params)
 
     def on_device(t):
@@ -1015,7 +1015,8 @@ def _zero1_params_from(master, layout, params, *, mesh, device) -> None:
     if isinstance(layout, ddl_overlap.ShardSpec):
         for j, p in enumerate(leaves):
             part = on_device(ddl_overlap.leaf_part(master, layout, j))
-            p.copy_(ddl_overlap.gather_leaf(part, layout, j, mesh=mesh, data_axis="data"))
+            full = ddl_overlap.gather_leaf(part, layout, j, mesh=mesh, data_axis="data")
+            p.copy_(full.to(p.dtype))
         return
     d = layout.pad_to
     n = layout.padded // d
@@ -1030,7 +1031,7 @@ def _zero1_params_from(master, layout, params, *, mesh, device) -> None:
             for p, lo, hi in zip(leaves, starts, starts[1:]):
                 a, b = max(lo, g0), min(hi, g0 + s)
                 if a < b:
-                    p.view(-1)[a - lo:b - lo].copy_(got[r, a - g0:b - g0])
+                    p.view(-1)[a - lo:b - lo].copy_(got[r, a - g0:b - g0].to(p.dtype))
 
 
 def build_zero1_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan] = None,
@@ -1039,7 +1040,7 @@ def build_zero1_train_step(model: Model, tcfg: TrainConfig, plan: Optional[Memor
     the grads, this rank's 1/|data| shard of the AdamW state updated, phase
     3 on the params. -> step_fn(Zero1State, batch) -> (Zero1State,
     metrics), updated in place; step_fn.layout is the flat layout
-    (`ShardSpec` or `PackSpec`), step_fn.queue the LMS executor's
+    (`ShardSpec` or `PackSpec`), step_fn.queue the overlapped backward's
     reduction queue or None, and step_fn.before_update, as the replicated
     step's, called before the flat update.
 
@@ -1059,17 +1060,19 @@ def build_zero1_train_step(model: Model, tcfg: TrainConfig, plan: Optional[Memor
       norm is the sqrt of the sum over `data` of the shard's sum of
       squares.
 
-    Overlapped: the decoder stack's hooks run in shard mode and
-    `local_shard_parts` gathers this rank's shard (the stack's slots
-    sliced out, the rest reduce-scattered); the new params come from
+    Overlapped: the decoder stack is not differentiated through autograd;
+    its hooks hand each layer's grads to the reduction queue, which
+    reduces them in shard mode on its worker thread while the backward
+    goes on and copies this rank's slot into the layer's rows of the flat
+    grad shard; after the queue is drained `local_shard_parts`
+    reduce-scatters the rest into it. The new params come from
     `gather_leaf`. Serialized: `pack`, `hierarchical_reduce_scatter_flat`,
     and the params from the gathered flat vector. The metrics are the
     replicated step's.
 
     plan: an LMS plan. The LMS executor runs the stack (its policy, and
     its params streamed from pinned host memory when the plan streams
-    them); with the overlap its queue reduces each layer in shard mode and
-    copies this rank's slot into the layer's rows of the flat grad shard.
+    them), its grads put on the same queue with the overlap.
     The flat state lies where the plan's optimizer class says: on the
     device, or in the pinned arena (`init_zero1_state(plan=)`), and then
     the update streams it through the card in `SLICE`-element chunks, two
@@ -1103,7 +1106,8 @@ def build_zero1_train_step(model: Model, tcfg: TrainConfig, plan: Optional[Memor
         hooks = make_stack_hooks(["stack0"], ddl, mesh=mesh, data_axis="data",
                                  pod_axis=pod_axis, data_size=data_size, pod_size=pod_size,
                                  keep="shard")
-    queue = hooks["stack0"].queue if hooks is not None and plan is not None else None
+    queue = hooks["stack0"].queue if hooks is not None else None
+    schedule = plan.swap_schedule if plan is not None else None
     shard_axes = dict(mesh=mesh, data_axis="data", pod_axis=pod_axis, mean_over=mean_over,
                       compress_dcn=ddl.compress_dcn)
     beta1, beta2, wd = tcfg.beta1, tcfg.beta2, tcfg.weight_decay
@@ -1111,11 +1115,10 @@ def build_zero1_train_step(model: Model, tcfg: TrainConfig, plan: Optional[Memor
     def grad_shard(state: Zero1State, batch):
         """-> (loss, {"ce", "aux"}, this rank's f32 [local] grad shard)."""
         params = state.params
-        if plan is None:
+        if plan is None and not overlap:
             leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-            loss, mets = model.loss(leaves, batch, grad_hooks=hooks)
+            loss, mets = model.loss(leaves, batch)
             grads = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(leaves)))
-            stack_done = None
         else:
             stacks, rest = _split_stack_grads(params)
             leaves = tree_map(lambda p: p.detach().requires_grad_(), rest)
@@ -1126,8 +1129,8 @@ def build_zero1_train_step(model: Model, tcfg: TrainConfig, plan: Optional[Memor
             else:
                 gstack = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
                                                         device=device), stacks["stack0"])
-            loss, mets, rest_grads = _lms_loss_and_grads(
-                model, leaves, stacks, batch, gstack, plan=plan, policy=policy,
+            loss, mets, rest_grads = _sunk_loss_and_grads(
+                model, leaves, stacks, batch, gstack, schedule=schedule, policy=policy,
                 stream=stream, hooks=hooks, queue=queue)
             # with the queue, the stack's slots are in the shard already
             stack_done = tree_map(lambda _: None, stacks["stack0"]) if overlap else gstack
@@ -1135,9 +1138,6 @@ def build_zero1_train_step(model: Model, tcfg: TrainConfig, plan: Optional[Memor
                                        {"stack0": stack_done})
         with torch.no_grad():
             if overlap:
-                if stack_done is None:
-                    shard = torch.empty(local, dtype=torch.float32,
-                                        device=tree_leaves(params)[0].device)
                 _write_parts(shard, ddl_overlap.local_shard_parts(grads, layout, stacked,
                                                                   **shard_axes))
             else:
