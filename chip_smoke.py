@@ -76,10 +76,24 @@ non-zero, printing no result):
    deviation and its parity with the engine's tokens reported; then its
    prefill step timed warm with flash attention on the tensor cores and
    on the CUDA cores, in turns;
-8. determinism — the 48-layer model-width trace again, token for token;
-9. profile — that trace once more with each KV width under torch.profiler:
-   the device's busy share, its top kernels, and the runtime launch calls
-   per layer-tick;
+8. determinism — the model-width trace twice on the first 4 layers of
+   the 48-layer weights, token for token;
+9. profile — that 4-layer trace once more with each KV width under
+   torch.profiler: the device's busy share, its top kernels, and the
+   runtime launch calls per layer-tick;
+9b. dense_configs — the registry's other dense decoders at their published
+   widths, random weights from a seed: olmo-1b (MHA 16/16, LayerNorm
+   without params, tied embeddings) serving at 2 layers (against the
+   dense pass) and its full 16 (argmax), the engine at both KV widths and
+   `run_static`; `Trainer.train` 3 steps resident and 3 under the plan of
+   LMSConfig(hbm_budget=8e9) (params and AdamW state streamed), in a
+   spawned process, bitwise equal, no kernel launched; starcoder2-7b
+   (GQA 36/4, LayerNorm with a bias, GELU with biases) serving at 2
+   layers (both widths, and the flash-attention prefill) against the
+   dense pass and at its full 32 (argmax), 2 train steps at 2 layers
+   through the kernels against the plain versions; qwen2-72b (GQA 64/8,
+   d_model 8192) serving at 2 layers and 2 train steps at 1 layer through
+   the kernels against the plain versions (4L+1 RMSNorm launches a step);
 10. DDL at full width (qwen2.5-14b cut to 1 layer, random weights from a
    seed, 2 ranks spawned on the one card over gloo, a 2x1x1 mesh,
    compress_dcn, the overlapped backward: each layer's grads reduced on the
@@ -164,6 +178,8 @@ non-zero, printing no result):
    model FLOP/s, peak against the plan's, pinned bytes against the plan's
    host bytes, swap bytes a step against the plan's, the link rate in the
    step against the host phase's, the set-up times.
+
+Every phase's seconds are printed as a row of their own.
 
 Every run of a path records the shape of each kernel call and fails on one
 the kernel phases did not check, and its launch counts (flash attention's
@@ -277,6 +293,22 @@ CKPT_ROOM_SLACK, CKPT_RSS_PERIOD_S, CKPT_SMOKE_BUDGET = 4 * 10**9, 0.01, 600_000
 # the card's machine lets a run write at most 45 GiB to its disk; (a)'s two
 # checkpoints (54.4 GB) go to RAM
 CKPT_RAM_ROOT, CKPT_TIMEOUT_S = "/dev/shm", 900
+# the dense_configs phase: the JAX registry's other dense decoders at their
+# published widths, random weights from a seed. olmo-1b (MHA 16/16,
+# non-parametric LayerNorm, tied embeddings) serves at 2 layers and its full
+# 16 and trains 3 steps resident and under the plan of
+# LMSConfig(hbm_budget=DENSE_OLMO_BUDGET), which streams the params and the
+# AdamW state (in a spawned process: its pinned state goes back to the host
+# when it exits); starcoder2-7b (GQA 36/4, LayerNorm with a bias, GELU with
+# biases) serves and trains 2 steps at 2 layers and serves at its full 32;
+# qwen2-72b (GQA 64/8, d_model 8192) serves at 2 layers and trains 2 steps at
+# 1 (~54 GB of params and AdamW state)
+DENSE_OLMO, DENSE_STARCODER, DENSE_QWEN72 = "olmo-1b", "starcoder2-7b", "qwen2-72b"
+DENSE_OLMO_BUDGET, DENSE_TRAIN_STEPS, DENSE_CHECK_STEPS = 8 * 10**9, 3, 2
+DENSE_TIMEOUT_S = 420
+# the 48-layer engine's determinism and profile reruns run on the first
+# RERUN_LAYERS layers of its weights
+RERUN_LAYERS = 4
 # torch.profiler sessions that time a kernel: at most this many for one
 # number, the timed calls this far (s) inside each end of a session
 PROFILE_ATTEMPTS, PROFILE_PAD_S = 8, 0.02
@@ -656,7 +688,7 @@ def rmsnorm_path(x, scale) -> str:
 
 def decode_kernel_phase(shape: str, kv_lens, int8: bool, seed: int, checked: set,
                         paged: bool = True, pages=None, max_pages=None, smax=None, *,
-                        heads=H, kv_heads=K, d=D, dtype="bfloat16"):
+                        heads=H, kv_heads=K, d=D, dtype="bfloat16", timed: bool = True):
     """One decode kernel (paged, or slot-contiguous with `smax` positions)
     against its plain version: within one bf16 ulp of each output row's
     largest |o| (f32: 1e-5 of it), and exact zeros for kv_len 0. The call
@@ -664,7 +696,8 @@ def decode_kernel_phase(shape: str, kv_lens, int8: bool, seed: int, checked: set
     splits, the device time of one call (every kernel it launches, by
     torch.profiler) and of SDPA on the same values, and the back-to-back
     CUDA-event time (`wall_ms`, which reads the host's time where that is
-    the longer)."""
+    the longer); the times only if `timed` (else a shape checked for its
+    launch signature alone)."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (flash_decode_paged_ref,
@@ -721,6 +754,14 @@ def decode_kernel_phase(shape: str, kv_lens, int8: bool, seed: int, checked: set
     b = len(kv_lens)
     splits = (fa_ops.decode_splits(b, kv_heads, capacity, fa_ops._sm_count(q.device))[0]
               if took[0] == "tensor_core" else 1)
+    if not timed:
+        row = {"phase": "kernel", "kernel": name, "shape": shape, "route": took[0],
+               "splits": splits, "slots": b, "heads": heads, "kv_heads": kv_heads,
+               "head_dim": d, "dtype": dtype, "cache": list(k.shape),
+               "max_abs_err": err.max().item(), "max_err_over_unit": worst,
+               "timed": False}
+        emit(row)
+        return row
     kernel_ms, device_ops, by_kernel = device_ms_per_call(kernel)
     wall_ms = time_ms(kernel)
     plain_ms = time_ms(plain, iters=10, warmup=2)
@@ -849,13 +890,14 @@ def f32_decode_phase(line, checked):
 
 def attention_kernel_phase(shape: str, b: int, sq: int, seed: int, checked: set, *,
                            skv=None, heads=H, kv_heads=K, d=D, dtype="bfloat16",
-                           window=0, q_offset=0):
+                           window=0, q_offset=0, timed: bool = True):
     """Kernel #1 (causal) against its plain version: within one bf16 ulp of
     each output row's largest |o| (f32 inputs: 1e-5 of it), every row; a
     row with no visible key holds the mean of v over all keys of its kv
     head (as the JAX oracle's), which it is held to by the same rule. The
     call must take the route `attention_route` names (bf16 at head_dim 64,
-    128 or 256: wgmma; else the CUDA cores); the row reports it."""
+    128 or 256: wgmma; else the CUDA cores); the row reports it. Timed
+    unless `timed` is False (a shape checked for its launch signature)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
@@ -901,6 +943,14 @@ def attention_kernel_phase(shape: str, b: int, sq: int, seed: int, checked: set,
                              f"{err.max().item()} ({worst} of the tolerance unit), rows "
                              f"without a key {no_key_worst} units from the mean of v")
     checked.add(attention_sig(q, k, True, window, q_offset))
+    if not timed:
+        row = {"phase": "kernel", "kernel": "flash_attention_fwd", "shape": shape,
+               "route": took[0], "q": list(q.shape), "kv": list(k.shape), "dtype": dtype,
+               "max_abs_err": err.max().item(), "max_err_over_unit": worst, "timed": False}
+        emit(row)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+        return row
     kernel_ms = time_ms(kernel, iters=20, warmup=3)
     plain_ms = time_ms(plain, iters=5, warmup=1)
     if q_offset == 0 and window == 0 and sq == skv:
@@ -1045,7 +1095,7 @@ def dequantize_kernel_phase(shape: str, rows: int, cols: int, seed: int, checked
     return row
 
 
-def _kv_write_inputs(b: int, paged: bool, seed: int, dtype: str = "bfloat16"):
+def _kv_write_inputs(b: int, paged: bool, seed: int, dtype: str = "bfloat16", kv_heads=K):
     """The decode step's k/v rows [b, 1, K, D] (slot 0's second kv head of
     k all NaN, slot 1's v holding one NaN), int8 caches with arbitrary
     contents (the engine's arena of DEVICE_PAGES + 1 pages of PAGE for 4
@@ -1065,13 +1115,13 @@ def _kv_write_inputs(b: int, paged: bool, seed: int, dtype: str = "bfloat16"):
         starts = [2 * MAX_LEN, PAGE - 1, 0, MAX_LEN - 1, PAGE]
     pos = [starts[i % len(starts)] for i in range(b)]
     act = [i % 4 != 2 for i in range(b)]
-    k, v = ((torch.randn((b, 1, K, D), generator=gen, device="cuda") * 3).to(getattr(torch, dtype))
-            for _ in range(2))
+    k, v = ((torch.randn((b, 1, kv_heads, D), generator=gen, device="cuda") * 3).to(
+        getattr(torch, dtype)) for _ in range(2))
     k[0, 0, 1] = float("nan")
     v[min(1, b - 1), 0, 0, 5] = float("nan")
-    caches = [torch.randint(-127, 128, shape + (K, D), generator=gen, device="cuda",
+    caches = [torch.randint(-127, 128, shape + (kv_heads, D), generator=gen, device="cuda",
                             dtype=torch.int8) for _ in range(2)]
-    caches += [torch.rand(shape + (K,), generator=gen, device="cuda") for _ in range(2)]
+    caches += [torch.rand(shape + (kv_heads,), generator=gen, device="cuda") for _ in range(2)]
     table = None
     if paged:
         null = shape[0] - 1
@@ -1112,7 +1162,8 @@ def _kv_write_composition(k, v, caches, table, positions, active):
 
 
 def quantize_kv_write_kernel_phase(shape: str, b: int, paged: bool, seed: int, checked: set,
-                                   *, dtype: str = "bfloat16"):
+                                   *, dtype: str = "bfloat16", kv_heads: int = K,
+                                   timed: bool = True):
     """The fused decode-step write against its plain version on copies of
     the same caches, bitwise on every byte of codes and scales (inactive
     slots, NaN rows, a page's first and last position, positions past
@@ -1120,11 +1171,12 @@ def quantize_kv_write_kernel_phase(shape: str, b: int, paged: bool, seed: int, c
     no device value on the host), asserting its path; timed by
     torch.profiler beside the composition it replaces (two quantize
     launches and four plain writes: its device time and device operations
-    a call). Bound: bytes, k and v read and codes and scales written."""
+    a call; unless `timed` is False). Bound: bytes, k and v read and codes
+    and scales written."""
     import torch
     from repro_torch.kernels.quantize.ops import quantize_kv_write_cuda
     from repro_torch.kernels.quantize.ref import quantize_kv_write_ref
-    k, v, caches, table, positions, active = _kv_write_inputs(b, paged, seed, dtype)
+    k, v, caches, table, positions, active = _kv_write_inputs(b, paged, seed, dtype, kv_heads)
     want = [c.clone() for c in caches]
     quantize_kv_write_ref(k, v, *want, table, positions, active)
     got = [c.clone() for c in caches]
@@ -1145,17 +1197,23 @@ def quantize_kv_write_kernel_phase(shape: str, b: int, paged: bool, seed: int, c
     if not same:
         raise AssertionError(f"quantize_kv_write {shape}: caches differ from the plain version")
     checked.add(quantize_kv_write_sig(k, got[0], table))
+    if not timed:
+        row = {"phase": "kernel", "kernel": "quantize_kv_write", "shape": shape, "slots": b,
+               "kv_heads": kv_heads, "head_dim": D, "paged": paged, "dtype": dtype,
+               "path": path, "max_abs_err": 0.0, "tolerance": "bitwise", "timed": False}
+        emit(row)
+        return row
     kernel_ms, ops, by = device_ms_per_call(
         lambda: quantize_kv_write_cuda(k, v, *got, table, positions, active))
     comp_ms, comp_ops, _ = device_ms_per_call(
         lambda: _kv_write_composition(k, v, got, table, positions, active))
     plain_ms = time_ms(lambda: quantize_kv_write_ref(k, v, *got, table, positions, active),
                        iters=20)
-    elems = 2 * b * K * D
-    bound_ms, bound_by = bound(elems * k.element_size() + elems + 2 * b * K * 4
+    elems = 2 * b * kv_heads * D
+    bound_ms, bound_by = bound(elems * k.element_size() + elems + 2 * b * kv_heads * 4
                                + b * (4 + 1 + (4 if paged else 0)), elems * 5)
     row = {"phase": "kernel", "kernel": "quantize_kv_write", "shape": shape, "slots": b,
-           "kv_heads": K, "head_dim": D, "paged": paged, "dtype": dtype, "path": path,
+           "kv_heads": kv_heads, "head_dim": D, "paged": paged, "dtype": dtype, "path": path,
            "max_abs_err": 0.0, "tolerance": "bitwise", "sync_debug": "error",
            "kernel_ms": kernel_ms, "kernel_ms_by": "torch.profiler", "device_ops": ops,
            "by_kernel": by, "composition_ms": comp_ms, "composition_device_ops": comp_ops,
@@ -1226,7 +1284,7 @@ def bf16_ulp(x):
 
 
 def rmsnorm_kernel_phase(shape: str, rows: int, d: int, seed: int, checked: set, *,
-                         dtype="bfloat16", eps=1e-6, offset=0):
+                         dtype="bfloat16", eps=1e-6, offset=0, timed: bool = True):
     """The RMSNorm kernel against its plain version on rows of varied
     scale (one all zero): bf16 within one bf16 ulp of each element (both
     are the f32 value x * r * s rounded once, and the f32 values differ by
@@ -1238,7 +1296,8 @@ def rmsnorm_kernel_phase(shape: str, rows: int, d: int, seed: int, checked: set,
     must take the path `rmsnorm_path` names, which the row reports with the
     warps a row (`ops.rmsnorm_layout`). Kernel and `F.rms_norm` are both
     timed on the card by torch.profiler (every kernel a call launches), and
-    both back to back by CUDA events too."""
+    both back to back by CUDA events too; unless `timed` is False (a shape
+    checked for its launch signature)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm.ops import rmsnorm_cuda, rmsnorm_layout
@@ -1277,6 +1336,12 @@ def rmsnorm_kernel_phase(shape: str, rows: int, d: int, seed: int, checked: set,
         raise AssertionError(f"rmsnorm {shape}: kernel vs plain max |diff| "
                              f"{err.max().item()} ({worst} of the tolerance unit)")
     checked.add(rmsnorm_sig(x, eps))
+    if not timed:
+        row = {"phase": "kernel", "kernel": "rmsnorm", "shape": shape, "rows": rows, "d": d,
+               "dtype": dtype, "eps": eps, "path": path, "max_abs_err": err.max().item(),
+               "max_err_over_unit": worst, "timed": False}
+        emit(row)
+        return row
     back_to_back_ms = time_ms(kernel)
     kernel_ms = device_ms(kernel, RMSNORM_KERNELS[path])
     plain_ms = time_ms(plain, iters=20)
@@ -1547,7 +1612,8 @@ def kernel_phases(num_layers: int):
     serve path's, Mamba-2's, ragged, f32 and a narrow row (the row held in
     registers by 1, 2, 4 and 8 warps), two rows of the element path (a
     width of no whole 16-byte vectors, an unaligned start), and its
-    autograd Function's gradient.
+    autograd Function's gradient; then DDL's shapes (`ddl_kernel_phases`)
+    and the dense configs' (`dense_kernel_phases`).
     The first row of each kernel is the main path's shape.
     -> ({kernel: [rows]}, the launch signatures checked)."""
     import numpy as np
@@ -1702,6 +1768,7 @@ def kernel_phases(num_layers: int):
     ]
     rmsnorm_grad_phase(TRAIN_BATCH * TRAIN_SEQ, d, 42)
     ddl_kernel_phases(out, checked)
+    dense_kernel_phases(out, checked)
     return out, checked
 
 
@@ -1770,6 +1837,61 @@ def ddl_kernel_phases(out: dict, checked: set):
                                 timed=False)
         dequantize_sum_kernel_phase(f"pod_hop_{n}", DDL_MESH[0], -(-n // 1024), n, 50 + i,
                                     checked, timed=False)
+
+
+def dense_kernel_phases(out: dict, checked: set):
+    """The kernels at the dense_configs phase's shapes (`dense_configs_phase`):
+    flash attention at olmo-1b's static prefill (MHA 16/16) and the
+    engine's whole-prompt prefill of starcoder2-7b (36/4) and qwen2-72b
+    (64/8), each timed (each config's main prefill); paged decode at the
+    engine's arena for each config (model width timed: its main decode;
+    int8 for olmo-1b, G = 1, and starcoder2-7b, G = 9, untimed) and
+    olmo-1b's slot-contiguous static decode; the int8 pool's quantize of a
+    prefill cache and the decode step's fused write at olmo-1b's and
+    starcoder2-7b's kv heads; RMSNorm in bf16 at d_model 8192 (qwen2-72b)
+    at the train step's, the whole-prompt prefill's and the decode step's
+    rows and a prefill chunk's. Adds the rows to `out`, after each kernel's
+    main-path row."""
+    from repro_torch.configs import get_config
+    olmo, star, big = (get_config(a) for a in (DENSE_OLMO, DENSE_STARCODER, DENSE_QWEN72))
+
+    def heads(cfg):
+        return {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads}
+    out["flash_attention_fwd_wgmma"] += [
+        attention_kernel_phase("olmo_1b_static_prefill", REQUESTS, PROMPT, 90, checked,
+                               **heads(olmo)),
+        attention_kernel_phase("starcoder2_7b_engine_prefill", 1, PROMPT, 91, checked,
+                               **heads(star)),
+        attention_kernel_phase("qwen2_72b_engine_prefill", 1, PROMPT, 92, checked,
+                               **heads(big))]
+    out["flash_decode_bf16"].append(decode_kernel_phase(
+        "olmo_1b_static_decode", [(PROMPT + 1 + MAX_LEN - 1) // 2] * REQUESTS, False, 93,
+        checked, paged=False, smax=MAX_LEN, timed=False, **heads(olmo)))
+    for name, cfg, widths, seed in (("olmo_1b", olmo, (False, True), 94),
+                                    ("starcoder2_7b", star, (False, True), 96),
+                                    ("qwen2_72b", big, (False,), 98)):
+        for int8 in widths:
+            out["flash_decode_paged_" + ("int8" if int8 else "bf16")].append(
+                decode_kernel_phase(f"{name}_engine", [160, 97, 0, 33], int8, seed + int8,
+                                    checked, pages=DEVICE_PAGES, max_pages=MAX_LEN // PAGE,
+                                    timed=not int8, **heads(cfg)))
+    for name, cfg, layers, seed in (("olmo_1b", olmo, 2, 100),
+                                    ("olmo_1b", olmo, olmo.num_layers, 101),
+                                    ("starcoder2_7b", star, 2, 102)):
+        out["quantize_rows"].append(quantize_kernel_phase(
+            f"{name}_pool_ingest_{layers}_layers", layers * MAX_LEN * cfg.num_kv_heads, seed,
+            checked, timed=False))
+    for name, cfg, seed in (("olmo_1b", olmo, 103), ("starcoder2_7b", star, 104)):
+        out["quantize_kv_write"].append(quantize_kv_write_kernel_phase(
+            f"{name}_engine", SLOTS, True, seed, checked, kv_heads=cfg.num_kv_heads,
+            timed=False))
+    out["rmsnorm"] += [
+        rmsnorm_kernel_phase(f"qwen2_72b_{name}", rows, big.d_model, seed, checked,
+                             eps=big.norm_eps, timed=False)
+        for name, rows, seed in (("train_step", TRAIN_BATCH * TRAIN_SEQ, 105),
+                                 ("engine_whole_prefill", PROMPT, 106),
+                                 ("engine_prefill_chunk", CHUNK, 108),
+                                 ("engine_decode", SLOTS, 107))]
 
 
 # the CUDA launchers whose counts a run of a path resets and reads
@@ -1976,6 +2098,12 @@ def _deviation(reference, rows):
     return {"worst": worst, "prefill_row": first, "argmax_mismatches": mismatches}
 
 
+def _rmsnorm_on(cfg) -> int:
+    """1 where the config's norms are RMSNorm (the kernel's launches), 0 for
+    LayerNorm with or without params (plain torch: no kernel)."""
+    return int(cfg.norm_type == "rmsnorm")
+
+
 def engine_phase(model, params, kv_dtype, line, checked, dense_tol=None,
                  prefill_chunk=CHUNK):
     """Serve the trace with counts reset just before and read just after;
@@ -2003,7 +2131,7 @@ def engine_phase(model, params, kv_dtype, line, checked, dense_tol=None,
     # every model call (each prefill chunk or whole prompt, each tick)
     # normalises 2 x layers + 1 times
     prefill_calls = len(reqs) * (-(-PROMPT // prefill_chunk) if prefill_chunk else 1)
-    norms = (2 * layers + 1) * (int(m["ticks"]) + prefill_calls)
+    norms = (2 * layers + 1) * (int(m["ticks"]) + prefill_calls) * _rmsnorm_on(cfg)
     checks = {
         "all_ok_32_tokens": not bad,
         "spilled": m["pool_spilled_pages"] > 0,
@@ -2034,7 +2162,7 @@ def engine_phase(model, params, kv_dtype, line, checked, dense_tol=None,
     }
     if dense_tol is not None:
         checks["dense_within_tol"] = dense["worst"] <= dense_tol
-    row = {"phase": "engine", "kv_dtype": kv_dtype, "arch": ARCH,
+    row = {"phase": "engine", "kv_dtype": kv_dtype, "arch": cfg.name,
            "layers": layers, "d_model": cfg.d_model, "requests": len(reqs),
            "prompt": PROMPT, "gen": GEN, "slots": SLOTS, "page_size": PAGE,
            "device_pages": DEVICE_PAGES, "prefill_chunk": prefill_chunk,
@@ -2058,7 +2186,7 @@ def engine_phase(model, params, kv_dtype, line, checked, dense_tol=None,
            "dense": dense, "dense_tol": dense_tol, "checks": checks, "bad": bad}
     emit(row)
     if not all(checks.values()):
-        raise AssertionError(f"engine {kv_dtype} ({layers} layers, prefill_chunk "
+        raise AssertionError(f"engine {cfg.name} {kv_dtype} ({layers} layers, prefill_chunk "
                              f"{prefill_chunk}): failed checks "
                              f"{[k for k, v in checks.items() if not v]}")
     return row, {r.rid: list(r.tokens) for r in reqs}
@@ -2178,7 +2306,8 @@ def static_phase(model, params, line, checked, engine_tokens, dense_tol=None):
         "no_paged_or_quantize_launches":
             launches["flash_decode_paged"] == 0 and launches["quantize_rows"] == 0
             and launches["quantize_kv_write"] == 0,
-        "rmsnorm_launches_eq_norms_x_steps": launches["rmsnorm"] == (2 * layers + 1) * GEN,
+        "rmsnorm_launches_eq_norms_x_steps":
+            launches["rmsnorm"] == (2 * layers + 1) * GEN * _rmsnorm_on(cfg),
         "every_launch_recorded": calls == launches,
         "every_launch_shape_checked": not unchecked,
         "finite_logits": bool(np.isfinite(steps).all()),
@@ -2189,7 +2318,7 @@ def static_phase(model, params, line, checked, engine_tokens, dense_tol=None):
         checks["dense_within_tol"] = dense["worst"] <= dense_tol
         checks["dense_argmax"] = dense["argmax_mismatches"] == 0
         checks["engine_parity"] = all(m <= 2.0 ** -4 for _, _, m in parted)
-    row = {"phase": "static", "arch": ARCH, "layers": layers, "d_model": cfg.d_model,
+    row = {"phase": "static", "arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
            "attn_impl": model.attn_impl, "requests": REQUESTS, "prompt": PROMPT, "gen": GEN,
            "card": line, "prefill_ms": t["prefill_s"] * 1e3, "decode_s": t["decode_s"],
            "decode_tok_s": t["decode_tok_s"], "launches": launches,
@@ -2201,7 +2330,7 @@ def static_phase(model, params, line, checked, engine_tokens, dense_tol=None):
            "checks": checks}
     emit(row)
     if not all(checks.values()):
-        raise AssertionError(f"static ({layers} layers): failed checks "
+        raise AssertionError(f"static {cfg.name} ({layers} layers): failed checks "
                              f"{[k for k, v in checks.items() if not v]}")
     return row
 
@@ -2756,14 +2885,14 @@ def mamba_phases(line, checked):
     return row
 
 
-def _train_config(layers: int, **kw):
-    """qwen2.5-14b at full width, cut to `layers`, trained on one device with
-    LMS off on TRAIN_BATCH x TRAIN_SEQ tokens a step, without checkpoints
-    (checkpoint_dir None) unless given one."""
+def _train_config(layers: int, arch: str = ARCH, **kw):
+    """`arch` (qwen2.5-14b unless named) at full width, cut to `layers`,
+    trained on one device with LMS off on TRAIN_BATCH x TRAIN_SEQ tokens a
+    step, without checkpoints (checkpoint_dir None) unless given one."""
     import dataclasses
     from repro_torch.config.base import LMSConfig, MeshSpec, ShapeConfig, TrainConfig
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config(ARCH), num_layers=layers)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     return TrainConfig(model=cfg, shape=ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_BATCH),
                        mesh=MeshSpec((1, 1), ("data", "model")),
                        lms=LMSConfig(enabled=False), seed=SEED,
@@ -2806,8 +2935,15 @@ def _plain_norm_analytic_backward(x, scale, *, eps=1e-6):
     return PlainAnalytic.apply(x, scale)
 
 
-def train_reference_phase(line, checked):
-    """3 steps of `build_train_step` at 2 layers from one init (a seeded
+def _max_or_none(errors: dict):
+    vals = [v for v in errors.values() if v is not None]
+    return max(vals) if vals else None
+
+
+def train_reference_phase(line, checked, arch=ARCH, layers=TRAIN_CHECK_LAYERS,
+                          steps=TRAIN_CHECK_STEPS, ab: bool = True):
+    """`steps` (3) steps of `build_train_step` at `layers` (2) layers of
+    `arch` (qwen2.5-14b) from one init (a seeded
     torch generator, drawn again for each run) on the same 3 batches of the
     synthetic stream, through the kernels (counts reset just before, read
     just after) and through the plain versions; and step 1 once more with
@@ -2816,7 +2952,8 @@ def train_reference_phase(line, checked):
 
     Held: each step's loss and grad norm within 1%; exactly 4L+1 RMSNorm
     launches a step (2L+1 in the forward, 2L in the checkpointed layers'
-    recompute) and none through the plain versions; step 1's grads leaf by
+    recompute; none for a LayerNorm config) and none through the plain
+    versions; step 1's grads leaf by
     leaf within 2**-5 relative Frobenius error. At random init the bf16
     grads are small sums of large terms that cancel, so roundings move
     them far: the kernel's outputs differ from the plain version's in a
@@ -2829,15 +2966,19 @@ def train_reference_phase(line, checked):
     kernel on (in training none other runs), reported against the plain
     run (what a rerun of it gives) and against the kernel run; and the
     floor route against the kernel run, the two differing only in
-    RMSNorm's forward (kernel against plain)."""
+    RMSNorm's forward (kernel against plain); not if `ab` is False. A
+    LayerNorm config runs no kernel in training: its kernel and plain runs
+    are the same computation, and it has no floor route or A/B. Step 1's
+    grads are kept on the host (qwen2-72b's state at 1 layer fills most of
+    the card) and compared leaf by leaf on the card."""
     import torch
     from repro_torch.data import DataLoader, SyntheticTokens
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.models.model import Model
     from repro_torch.train import steps as steps_mod
     from repro_torch.tree import tree_leaves, tree_map
-    L, n = TRAIN_CHECK_LAYERS, TRAIN_CHECK_STEPS
-    tcfg = _train_config(L, learning_rate=TRAIN_LR, warmup_steps=0, total_steps=n)
+    L, n = layers, steps
+    tcfg = _train_config(L, arch, learning_rate=TRAIN_LR, warmup_steps=0, total_steps=n)
     model = Model(tcfg.model)
     loader = DataLoader(SyntheticTokens(tcfg.model.vocab_size, seed=SEED), shard=0,
                         num_shards=1, batch_per_shard=TRAIN_BATCH, seq_len=TRAIN_SEQ)
@@ -2854,7 +2995,7 @@ def train_reference_phase(line, checked):
 
         def clip_rec(grads, max_norm):
             if not first:
-                first.append(tree_map(lambda g: g.clone(), grads))
+                first.append(tree_map(lambda g: g.to("cpu"), grads))
             return clip(grads, max_norm)
         steps_mod.clip_by_global_norm = clip_rec
         mets, per_step = [], []
@@ -2862,8 +3003,11 @@ def train_reference_phase(line, checked):
             with around as rec:
                 for b in batches[:steps]:
                     before = _launchers()["rmsnorm"].launches
+                    torch.cuda.synchronize()
+                    t0 = time.monotonic()
                     state, m = step(state, b)
                     mets.append({k: float(v) for k, v in m.items()})
+                    mets[-1]["step_s"] = time.monotonic() - t0
                     per_step.append(_launchers()["rmsnorm"].launches - before)
         finally:
             steps_mod.clip_by_global_norm = clip
@@ -2872,7 +3016,7 @@ def train_reference_phase(line, checked):
         return first[0], mets, per_step, rec
 
     def leaf_errors(got, want):
-        return {f"/{i}": _rel_frobenius(g, w.to(g.device))
+        return {f"/{i}": _rel_frobenius(g.cuda(), w.cuda())
                 for i, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want)))}
 
     torch.cuda.reset_peak_memory_stats()
@@ -2886,23 +3030,26 @@ def train_reference_phase(line, checked):
     err = leaf_errors(grads_k, grads_p)
     dtypes_ok = all(g.dtype == p.dtype for g, p in zip(tree_leaves(grads_k),
                                                       tree_leaves(grads_p)))
-    grads_k = tree_map(lambda g: g.cpu(), grads_k)     # kept on the host for the A/B
-    torch.cuda.empty_cache()
-    grads_f, _, floor_per_step, _ = run(_norm_as(_plain_norm_analytic_backward), 1)
-    floor = leaf_errors(grads_f, grads_p)
-    floor_vs_kernel = leaf_errors(grads_f, grads_k)
-    del grads_f
-    torch.cuda.empty_cache()
-    # A/B of the kernel route's gap: RMSNorm swapped for its plain version as
-    # plain_versions() swaps it (plain forward, autograd backward), every
-    # other kernel left on (none other runs in training): step 1 again
-    grads_a, _, ab_per_step, _ = run(_norm_as(rmsnorm_ref), 1)
-    ab_vs_plain = leaf_errors(grads_a, grads_p)
-    ab_vs_kernel = leaf_errors(grads_a, grads_k)
-    del grads_p, grads_a, grads_k
+    floor = floor_vs_kernel = ab_vs_plain = ab_vs_kernel = {"/0": None}
+    floor_per_step = ab_per_step = []
+    if _rmsnorm_on(tcfg.model):
+        grads_f, _, floor_per_step, _ = run(_norm_as(_plain_norm_analytic_backward), 1)
+        floor = leaf_errors(grads_f, grads_p)
+        floor_vs_kernel = leaf_errors(grads_f, grads_k)
+        del grads_f
+    if _rmsnorm_on(tcfg.model) and ab:
+        # A/B of the kernel route's gap: RMSNorm swapped for its plain version as
+        # plain_versions() swaps it (plain forward, autograd backward), every
+        # other kernel left on (none other runs in training): step 1 again
+        grads_a, _, ab_per_step, _ = run(_norm_as(rmsnorm_ref), 1)
+        ab_vs_plain = leaf_errors(grads_a, grads_p)
+        ab_vs_kernel = leaf_errors(grads_a, grads_k)
+        del grads_a
+    del grads_p, grads_k
     torch.cuda.empty_cache()
     rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(mets_k, mets_p)]
            for k in ("loss", "grad_norm")}
+    step_s = [m["step_s"] for m in mets_k]
     unchecked = sorted(seen - checked)
     checks = {
         "grads_within_2**-5": max(err.values()) <= 2.0 ** -5,
@@ -2910,24 +3057,27 @@ def train_reference_phase(line, checked):
         "loss_within_1%": max(rel["loss"]) <= 1e-2,
         "grad_norm_within_1%": max(rel["grad_norm"]) <= 1e-2,
         "finite": all(x == x and abs(x) != float("inf") for m in mets_k for x in m.values()),
-        "rmsnorm_launches_4L+1_a_step": per_step == [4 * L + 1] * n,
+        "rmsnorm_launches_4L+1_a_step": per_step == [(4 * L + 1) * _rmsnorm_on(tcfg.model)] * n,
         "plain_runs_launch_no_rmsnorm":
-            plain_per_step + floor_per_step + ab_per_step == [0] * (n + 2),
+            plain_per_step + floor_per_step + ab_per_step
+            == [0] * (n + len(floor_per_step) + len(ab_per_step)),
         "no_other_launches": all(v == 0 for k, v in launches.items()
                                  if not k.startswith("rmsnorm")),
         "every_launch_recorded": calls == launches,
         "every_launch_shape_checked": not unchecked,
     }
-    row = {"phase": "train_reference", "arch": ARCH, "layers": L, "batch": TRAIN_BATCH,
+    row = {"phase": "train_reference", "arch": arch, "layers": L, "batch": TRAIN_BATCH,
            "seq": TRAIN_SEQ, "steps": n, "lr": TRAIN_LR, "card": line,
            "loss_kernel": [m["loss"] for m in mets_k], "loss_plain": [m["loss"] for m in mets_p],
            "grad_norm_kernel": [m["grad_norm"] for m in mets_k],
            "grad_norm_plain": [m["grad_norm"] for m in mets_p], "rel_diff": rel,
+           "step_s_kernel": step_s,
+           "tokens_per_s_last_step": TRAIN_BATCH * TRAIN_SEQ / step_s[-1],
            "grad_rel_frobenius_max": max(err.values()),
-           "grad_rel_frobenius_floor_max": max(floor.values()),
-           "grad_rel_frobenius_floor_vs_kernel_max": max(floor_vs_kernel.values()),
-           "ab_plain_rmsnorm_vs_plain_max": max(ab_vs_plain.values()),
-           "ab_plain_rmsnorm_vs_kernel_max": max(ab_vs_kernel.values()),
+           "grad_rel_frobenius_floor_max": _max_or_none(floor),
+           "grad_rel_frobenius_floor_vs_kernel_max": _max_or_none(floor_vs_kernel),
+           "ab_plain_rmsnorm_vs_plain_max": _max_or_none(ab_vs_plain),
+           "ab_plain_rmsnorm_vs_kernel_max": _max_or_none(ab_vs_kernel),
            "grad_leaf_shapes": names, "grad_rel_frobenius": err,
            "grad_rel_frobenius_floor": floor,
            "grad_rel_frobenius_floor_vs_kernel": floor_vs_kernel,
@@ -2938,7 +3088,7 @@ def train_reference_phase(line, checked):
            "checks": checks}
     emit(row)
     if not all(checks.values()):
-        raise AssertionError(f"train reference ({L} layers): failed checks "
+        raise AssertionError(f"train reference {arch} ({L} layers): failed checks "
                              f"{[k for k, v in checks.items() if not v]}")
     return row
 
@@ -3099,16 +3249,16 @@ def trainer_phase(line, checked):
 # ---------------------------------------------------------------------------
 
 def _ddl_config(layers: int, mesh, *, smoke: bool = False, batch: int = TRAIN_BATCH,
-                seq: int = TRAIN_SEQ, **kw):
-    """qwen2.5-14b at full width cut to `layers` (or its smoke config) on
-    `mesh` (pod, data, model), LMS off, `batch` x `seq` tokens a step over
-    all the ranks, without checkpoints (checkpoint_dir None) unless given
-    one."""
+                seq: int = TRAIN_SEQ, arch: str = ARCH, **kw):
+    """`arch` (qwen2.5-14b unless named) at full width cut to `layers` (or
+    its smoke config) on `mesh` (pod, data, model), LMS off, `batch` x
+    `seq` tokens a step over all the ranks, without checkpoints
+    (checkpoint_dir None) unless given one."""
     import dataclasses
     from repro_torch.config.base import LMSConfig, MeshSpec, ShapeConfig, TrainConfig
     from repro_torch.configs import get_config, get_smoke_config
-    cfg = (get_smoke_config(ARCH) if smoke
-           else dataclasses.replace(get_config(ARCH), num_layers=layers))
+    cfg = (get_smoke_config(arch) if smoke
+           else dataclasses.replace(get_config(arch), num_layers=layers))
     return TrainConfig(model=cfg, shape=ShapeConfig("ddl", "train", seq, batch),
                        mesh=MeshSpec(tuple(mesh), DDL_AXES), lms=LMSConfig(enabled=False),
                        seed=SEED, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
@@ -3635,7 +3785,9 @@ def ddl_smoke_phase(line, checked):
     and the pod sum as the leaf sizes say, and no dequantize; each
     overlapped run equals its rerun with the queue's reductions issued
     inline in the backward, bit for bit (losses, grad norms, every param's
-    checksum after each step). -> the phase row."""
+    checksum after each step). The same 4 ranks then run
+    `ddl_sharded_smoke_phase`'s runs (one spawn for both: `_smoke_ranks`).
+    -> (the one-rank reference, each rank's sharded-run results)."""
     import torch
     from repro_torch.models.model import Model
     from repro_torch.train.steps import build_train_step, init_train_state
@@ -3650,7 +3802,8 @@ def ddl_smoke_phase(line, checked):
     del state
     torch.cuda.empty_cache()
     t0 = time.monotonic()
-    ranks = spawn_ranks("_ddl_smoke_rank", 4)
+    both = spawn_ranks("_smoke_ranks", 4)
+    ranks = [r["smoke"] for r in both]
     data = DDL_SMOKE_MESH[1]
     variants, checks, unchecked = {}, {}, set()
     for name, v in ranks[0].items():
@@ -3683,7 +3836,14 @@ def ddl_smoke_phase(line, checked):
           "seconds": time.monotonic() - t0})
     if not ok:
         raise AssertionError("ddl (smoke width, 4 ranks): failed checks")
-    return reference
+    return reference, [r["sharded"] for r in both]
+
+
+def _smoke_ranks(rank: int, world: int):
+    """One rank of the smoke-width phases, one spawn for both:
+    `_ddl_smoke_rank`'s runs, then `_ddl_sharded_smoke_rank`'s."""
+    return {"smoke": _ddl_smoke_rank(rank, world),
+            "sharded": _ddl_sharded_smoke_rank(rank, world)}
 
 
 # ---------------------------------------------------------------------------
@@ -3979,7 +4139,7 @@ def _ddl_sharded_smoke_rank(rank: int, world: int):
     return out
 
 
-def ddl_sharded_smoke_phase(line, checked, reference):
+def ddl_sharded_smoke_phase(line, checked, reference, ranks):
     """zero1 and the microbatch accumulator (m = 2) with |data| = 2 and the
     int8 pod hop: 4 ranks on a 2x2x1 mesh at the qwen2.5-14b smoke config,
     compress_dcn, each overlapped and serialized, 3 steps each from one
@@ -3989,10 +4149,10 @@ def ddl_sharded_smoke_phase(line, checked, reference):
     mean over the rows). Tolerance, ddl_smoke_phase's, stated before its
     first run: loss within 5e-3 relative, grad norm within 2e-2. Replicas
     bitwise in sync; the quantizer and the pod sum launched once for each
-    compressed slice `ddl_sharded_pod_hop_sizes` gives, no dequantize. ->
-    the phase row."""
+    compressed slice `ddl_sharded_pod_hop_sizes` gives, no dequantize.
+    `ranks`: each rank's results, run in ddl_smoke_phase's spawn. -> the
+    phase row."""
     t0 = time.monotonic()
-    ranks = spawn_ranks("_ddl_sharded_smoke_rank", 4)
     data = DDL_SMOKE_MESH[1]
     tcfg = _ddl_config(0, (1, 1, 1), smoke=True, batch=DDL_SMOKE_BATCH, seq=DDL_SMOKE_SEQ)
     variants, checks, unchecked = {}, {}, set()
@@ -5345,22 +5505,198 @@ def ckpt_ranks_phase(line, checked, root):
     return row
 
 
+# ---------------------------------------------------------------------------
+# the other dense decoders of the registry
+# ---------------------------------------------------------------------------
+
+def _dense_serve(arch: str, layers: int, line, checked, *, dense: bool, int8: bool,
+                 flash_prefill: bool, static: bool) -> dict:
+    """`arch` at full width cut to `layers`, random weights from a seed,
+    served on the trace: the engine at model width (chunked prefill), with
+    int8 pages if `int8`, with the flash-attention whole-prompt prefill if
+    `flash_prefill`, and `run_static` if `static`. With `dense` (2 layers)
+    the engine and the static loop are held to the dense pass's values as
+    `reference_phase` holds qwen2.5-14b's; at depth, its argmax where the
+    margin is wide. -> {run: its row's numbers}."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    model = Model(cfg, attn_impl="blockwise")
+    params = model.init(SEED + 2, "cuda")
+    keep = ("decode_tok_s", "ticks", "decode_launches", "quantize_kv_write_launches",
+            "quantize_launches", "attention_launches", "rmsnorm_launches", "dense")
+    out = {}
+    row, tokens = engine_phase(model, params, "model", line, checked,
+                               dense_tol=2.0 ** -5 if dense else None)
+    out["engine_model"] = {k: row[k] for k in keep}
+    if int8:
+        row, _ = engine_phase(model, params, "int8", line, checked,
+                              dense_tol=2.0 ** -4 if dense else None)
+        out["engine_int8"] = {k: row[k] for k in keep}
+    kernel_model = Model(cfg, attn_impl="pallas")
+    if flash_prefill:
+        row, _ = engine_phase(kernel_model, params, "model", line, checked, prefill_chunk=0)
+        out["engine_flash_prefill"] = {k: row[k] for k in keep}
+    if static:
+        row = static_phase(kernel_model, params, line, checked, tokens,
+                           dense_tol=2.0 ** -5 if dense else None)
+        out["static"] = {k: row[k] for k in ("decode_tok_s", "prefill_ms", "launches",
+                                             "plain", "dense")}
+    del params, model, kernel_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dense_olmo_rank(rank: int, world: int, checked):
+    """In a process of its own: olmo-1b at its full 16 layers, `Trainer.train`
+    for DENSE_TRAIN_STEPS steps resident, then under the plan of
+    LMSConfig(hbm_budget=DENSE_OLMO_BUDGET) from the same seed; counts reset
+    just before each run and read just after. -> both runs' rows."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.config.base import LMSConfig
+    from repro_torch.core.lms import offload as off
+    from repro_torch.configs import get_config
+    n = DENSE_TRAIN_STEPS
+    L = get_config(DENSE_OLMO).num_layers
+    base = _train_config(L, DENSE_OLMO, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                         total_steps=n)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    model_flops, _ = _train_flops(base.model, tokens, TRAIN_SEQ)
+    out = {}
+    for name, lms in (("resident", LMSConfig(enabled=False)),
+                      ("streamed", LMSConfig(hbm_budget=DENSE_OLMO_BUDGET))):
+        trainer, state, hist, facts = _lms_run(dataclasses.replace(base, lms=lms), n)
+        step_s = statistics.median(r["time_s"] for r in hist[1:])
+        out[name] = {
+            "plan": _plan_row(trainer.plan), "loss": [r["loss"] for r in hist],
+            "grad_norm": [r["grad_norm"] for r in hist], "step_s": [r["time_s"] for r in hist],
+            "median_step_s_after_1": step_s, "tokens_per_s": tokens / step_s,
+            "model_tflop_s": model_flops / step_s / 1e12,
+            "setup_s": facts["setup_s"], "max_memory_allocated_bytes": facts["peak_bytes"],
+            "pinned_bytes": facts["pinned_bytes"], "swap_per_step": facts["swap_per_step"],
+            "checksums": _checksums(state.params), "launches": facts["launches"],
+            "every_launch_recorded": facts["calls"] == facts["launches"],
+            "unchecked_signatures": sorted(facts["seen"] - checked)}
+        del trainer, state, hist
+        torch.cuda.empty_cache()
+    off.release_arenas()
+    return out
+
+
+def dense_configs_phase(line, checked):
+    """The registry's other dense decoders at their published widths, each
+    through the kernels, with counts reset just before each run and read
+    just after (the engine's, the static loop's and training's checks;
+    LayerNorm configs launch no RMSNorm kernel):
+
+    - olmo-1b: the engine (model width and int8) and `run_static` at 2
+      layers against the dense pass, and at its full 16 layers (argmax);
+      `Trainer.train` for 3 steps resident and 3 under the plan of
+      LMSConfig(hbm_budget=8e9) (params and AdamW state streamed from
+      pinned host memory), in a spawned process: losses, grad norms and
+      every param's checksum bitwise equal, no kernel launched;
+    - starcoder2-7b: at 2 layers the engine (both widths, and the
+      flash-attention prefill) against the dense pass, and 2 train steps
+      through the kernels against the plain versions; at its full 32
+      layers the engine at model width (argmax, launch counts);
+    - qwen2-72b: at 2 layers the engine at model width (and the
+      flash-attention prefill); at 1 layer (~54 GB of params and AdamW
+      state) 2 train steps through the kernels against the plain versions,
+      4L+1 RMSNorm launches a step. -> the phase row."""
+    import torch
+    from repro_torch.configs import get_config
+    t0 = time.monotonic()
+    times, serve = {}, {}
+
+    def lap(name):
+        times[name] = time.monotonic() - t0 - sum(times.values())
+    olmo_layers = get_config(DENSE_OLMO).num_layers
+    serve["olmo_1b_2"] = _dense_serve(DENSE_OLMO, 2, line, checked, dense=True, int8=True,
+                                      flash_prefill=False, static=True)
+    serve[f"olmo_1b_{olmo_layers}"] = _dense_serve(DENSE_OLMO, olmo_layers, line, checked,
+                                                   dense=False, int8=True,
+                                                   flash_prefill=False, static=True)
+    lap("olmo_1b_serve")
+    train, = spawn_ranks("_dense_olmo_rank", 1, checked, timeout=DENSE_TIMEOUT_S)
+    lap("olmo_1b_train")
+    serve["starcoder2_7b_2"] = _dense_serve(DENSE_STARCODER, 2, line, checked, dense=True,
+                                            int8=True, flash_prefill=True, static=False)
+    star_train = train_reference_phase(line, checked, DENSE_STARCODER, 2, DENSE_CHECK_STEPS,
+                                       ab=False)
+    star_layers = get_config(DENSE_STARCODER).num_layers
+    serve[f"starcoder2_7b_{star_layers}"] = _dense_serve(
+        DENSE_STARCODER, star_layers, line, checked, dense=False, int8=False,
+        flash_prefill=False, static=False)
+    lap("starcoder2_7b")
+    serve["qwen2_72b_2"] = _dense_serve(DENSE_QWEN72, 2, line, checked, dense=True, int8=False,
+                                        flash_prefill=True, static=False)
+    big_train = train_reference_phase(line, checked, DENSE_QWEN72, 1, DENSE_CHECK_STEPS,
+                                      ab=False)
+    lap("qwen2_72b")
+    res, st = train["resident"], train["streamed"]
+    checks = {
+        "olmo_plan_streams_params_and_optimizer":
+            set(st["plan"]["swap_bytes"]) == {"params", "optimizer"},
+        "olmo_loss_bitwise": st["loss"] == res["loss"],
+        "olmo_grad_norm_bitwise": st["grad_norm"] == res["grad_norm"],
+        "olmo_params_bitwise": st["checksums"] == res["checksums"],
+        "olmo_finite": all(math.isfinite(x) for x in res["loss"] + res["grad_norm"]),
+        "olmo_no_launches": all(v == 0 for r in (res, st) for v in r["launches"].values()),
+        "olmo_every_launch_recorded": res["every_launch_recorded"]
+        and st["every_launch_recorded"],
+        "olmo_every_launch_shape_checked": not res["unchecked_signatures"]
+        and not st["unchecked_signatures"],
+        "starcoder2_no_rmsnorm": star_train["launches"]["rmsnorm"] == 0,
+        "qwen2_72b_rmsnorm_4L+1": big_train["rmsnorm_launches_per_step"]
+        == [4 * 1 + 1] * DENSE_CHECK_STEPS}
+    row = {"phase": "dense_configs", "card": line, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "serve": serve, "olmo_1b_train": {"layers": olmo_layers,
+                                             "hbm_budget": DENSE_OLMO_BUDGET, **train},
+           "starcoder2_7b_train": {k: star_train[k] for k in (
+               "layers", "loss_kernel", "loss_plain", "grad_norm_kernel", "grad_norm_plain",
+               "grad_rel_frobenius_max", "step_s_kernel", "tokens_per_s_last_step",
+               "max_memory_allocated_gb")},
+           "qwen2_72b_train": {k: big_train[k] for k in (
+               "layers", "loss_kernel", "loss_plain", "grad_norm_kernel", "grad_norm_plain",
+               "rel_diff", "grad_rel_frobenius_max", "grad_rel_frobenius_floor_max",
+               "rmsnorm_launches_per_step", "step_s_kernel", "tokens_per_s_last_step",
+               "max_memory_allocated_gb")},
+           "seconds_by_part": times, "seconds": time.monotonic() - t0, "checks": checks}
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"dense_configs: failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     line = device_phase()
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
 
-    sass_row = build_phase()
-    kernels, checked = kernel_phases(get_config(ARCH).num_layers)
-    f32_attention_row = f32_attention_phase(line, checked)
-    f32_decode_row = f32_decode_phase(line, checked)
-    f32_ssd_row = f32_ssd_phase(line, checked)
-    decode_sync_phase(line)
-    slot_launches = reference_phase(line, checked)
-    mamba_row = mamba_phases(line, checked)
-    train_reference_phase(line, checked)
-    trainer_row = trainer_phase(line, checked)
+    def timed(fn, *args):
+        """fn(*args), its seconds printed as a row of their own."""
+        t = time.monotonic()
+        out = fn(*args)
+        emit({"phase": "seconds", "of": fn.__name__, "seconds": time.monotonic() - t})
+        return out
+    sass_row = timed(build_phase)
+    kernels, checked = timed(kernel_phases, get_config(ARCH).num_layers)
+    f32_attention_row = timed(f32_attention_phase, line, checked)
+    f32_decode_row = timed(f32_decode_phase, line, checked)
+    f32_ssd_row = timed(f32_ssd_phase, line, checked)
+    timed(decode_sync_phase, line)
+    slot_launches = timed(reference_phase, line, checked)
+    mamba_row = timed(mamba_phases, line, checked)
+    timed(train_reference_phase, line, checked)
+    trainer_row = timed(trainer_phase, line, checked)
 
     t0 = time.monotonic()
     model = Model(get_config(ARCH), attn_impl="blockwise")
@@ -5369,40 +5705,51 @@ def main() -> int:
     emit({"phase": "init", "arch": ARCH, "seconds": time.monotonic() - t0,
           "params": model.cfg.param_count(),
           "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
-    model_row, tokens = engine_phase(model, params, "model", line, checked)
-    int8_row, _ = engine_phase(model, params, "int8", line, checked)
+    model_row, tokens = timed(engine_phase, model, params, "model", line, checked)
+    int8_row, _ = timed(engine_phase, model, params, "int8", line, checked)
     kernel_model = Model(get_config(ARCH), attn_impl="pallas")
-    static_row = static_phase(kernel_model, params, line, checked, tokens)
-    prefill_route_ab_phase(kernel_model, params, line)
+    static_row = timed(static_phase, kernel_model, params, line, checked, tokens)
+    timed(prefill_route_ab_phase, kernel_model, params, line)
 
-    eng, reqs, _, _ = _serve(model, params, "model")
-    again = {r.rid: list(r.tokens) for r in reqs}
-    same = again == tokens
-    emit({"phase": "determinism", "identical_tokens": same})
+    # the determinism and profile reruns at RERUN_LAYERS of the same
+    # weights (the first layers), where a trace costs a twelfth of the 48's
+    t0 = time.monotonic()
+    short = Model(dataclasses.replace(get_config(ARCH), num_layers=RERUN_LAYERS),
+                  attn_impl="blockwise")
+    short_params = _first_layers(params, RERUN_LAYERS)
+    runs = []
+    for _ in range(2):
+        eng, reqs, _, _ = _serve(short, short_params, "model")
+        runs.append({r.rid: list(r.tokens) for r in reqs})
+        del eng
+    same = runs[0] == runs[1]
+    emit({"phase": "determinism", "layers": RERUN_LAYERS, "identical_tokens": same,
+          "seconds": time.monotonic() - t0})
     if not same:
         raise AssertionError("the model-width trace gave other tokens on a rerun")
-    del eng
-    profiled = profile_phase(model, params, line)
+    profiled = timed(profile_phase, short, short_params, line)
     # the engine by KV width, from this run: tok/s of the engine rows,
     # launch calls per layer-tick of the profiled reruns
-    emit({"phase": "engine_by_kv_width", "layers": model.cfg.num_layers, "card": line,
+    emit({"phase": "engine_by_kv_width", "layers": model.cfg.num_layers,
+          "profiled_layers": RERUN_LAYERS, "card": line,
           **{kv: {"decode_tok_s": row["decode_tok_s"],
                   "quantize_kv_write_launches": row["quantize_kv_write_launches"],
                   "launch_calls_per_layer_tick": profiled[kv]["launch_calls_per_layer_tick"],
                   "runtime_launch_calls": profiled[kv]["runtime_launch_calls"]}
              for kv, row in (("model", model_row), ("int8", int8_row))}})
     # the DDL ranks are processes of their own on the same card: free it
-    del model, params
+    del model, params, short, short_params
     import gc
     gc.collect()
     torch.cuda.empty_cache()
-    ddl_row = ddl_phase(line, checked)
-    smoke_reference = ddl_smoke_phase(line, checked)
-    ddl_sharded_phase(line, checked)
-    ddl_sharded_smoke_phase(line, checked, smoke_reference)
-    lms_ddl_phase(line, checked, ddl_row)
-    ckpt_phase(line, checked)
-    lms_phases(line, checked)
+    timed(dense_configs_phase, line, checked)
+    ddl_row = timed(ddl_phase, line, checked)
+    smoke_reference, sharded_smoke = timed(ddl_smoke_phase, line, checked)
+    timed(ddl_sharded_phase, line, checked)
+    timed(ddl_sharded_smoke_phase, line, checked, smoke_reference, sharded_smoke)
+    timed(lms_ddl_phase, line, checked, ddl_row)
+    timed(ckpt_phase, line, checked)
+    timed(lms_phases, line, checked)
 
     decode_kernel = "src/repro/kernels/flash_attention/decode_kernel.py"
     replaces = {

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """DDL across four H100s of one host: one rank a card over NCCL, the
-port's data-parallel training of qwen2.5-14b at its published width.
+port's data-parallel training of qwen2.5-14b and olmo-1b at their
+published widths.
 
     python3 scripts/ddl_four_cards.py                # from the repo root
-    python3 scripts/ddl_four_cards.py --phases a,d   # some of the phases
+    python3 scripts/ddl_four_cards.py --phases c,e   # some of the phases
 
 Needs a machine with 4 cards: it raises unless torch.cuda.device_count()
 >= 4. It prints each card's `nvidia-smi --query-gpu=name,power.limit`
@@ -38,12 +39,20 @@ row a phase (the whole rows also go to chiprun_out/ddl_four_cards.json).
     budget, at the most layers up to 48 whose four ranks' pinned state
     fits 80% of MemAvailable and whose plan puts the optimizer on the
     host. Held: replicas in sync, finite losses, the optimizer's bytes a
-    rank exactly 12 x padded / 4.
+    rank exactly 12 x padded / 4, each rank's peak at most 1.10 x the
+    plan's (phase 3 gathers a stacked leaf a layer at a time).
 (d) The smoke config on the 2x2x1 mesh: the overlapped backward off and
     on x compression off and on, each overlapped run also inline, against
     one rank on the global batch: loss within 5e-3 relative, grad norm
     within 2e-2 (chip_smoke's ddl_smoke_phase's tolerances); queued
     bitwise inline; replicas in sync.
+(e) olmo-1b at its full 16 layers (MHA, non-parametric LayerNorm, tied
+    embeddings), 3 steps resident on the 2x2x1 mesh with compress_dcn (the
+    overlapped backward on the queue, the int8 pod hop) and zero1 on the
+    1x4x1 mesh, each against one rank on the global batch: loss within
+    5e-3 relative, grad norm within 2e-2 ((d)'s tolerances); replicas in
+    sync; the pod hop's launches as olmo-1b's leaf sizes imply, no RMSNorm
+    launch.
 
 A phase whose depth the host cannot hold at 1 layer raises with the
 numbers. Any failed check raises; the script then exits non-zero and
@@ -75,7 +84,11 @@ RESIDENT_DEPTHS = (1, 2, 3, 4)
 # (activations of one 2048-token row, the reductions' f32 work buffers)
 RESIDENT_ALLOWANCE = 12 * 10**9
 MAX_LAYERS = 48
-TIMEOUT_S = {"ad": 600, "b": 900, "c": 900}
+TIMEOUT_S = {"ad": 600, "b": 900, "c": 900, "e": 600}
+# (c): each rank's measured peak against its plan's
+PEAK_OVER_PLAN = 1.10
+# (e): olmo-1b at its full depth, resident on MESH_A and zero1 on MESH_C
+OLMO = "olmo-1b"
 OUT = os.path.join(ROOT, "chiprun_out", "ddl_four_cards.json")
 LAUNCH_KEYS = ("quantize_rows", "dequantize_rows", "dequantize_sum_rows", "rmsnorm")
 
@@ -643,7 +656,10 @@ def phase_c(line, rows_out):
             r["run"]["facts"]["opt_bytes"] == 12 * padded // MESH_C[1] for r in ranks),
         "queued": all(r["run"]["facts"]["queued"] for r in ranks),
         "replicas_in_sync": _in_sync(ranks, lambda r: r["run"]),
-        "finite": all(_finite(r["run"]) for r in ranks)}
+        "finite": all(_finite(r["run"]) for r in ranks),
+        "peak_within_1.10_of_plan": all(
+            r["run"]["facts"]["peak_bytes"] <= PEAK_OVER_PLAN * run["plan"]["peak_bytes"]
+            for r in ranks)}
     emit({"phase": "c_zero1_lms", "arch": cs.ARCH, "layers": L, "mesh": list(MESH_C),
           "ranks": WORLD, "backend": "nccl", "compress_dcn": False,
           "hbm_budget": cs.LMS_DDL_BUDGET, "card": line, "params": cfg.param_count(),
@@ -655,6 +671,111 @@ def phase_c(line, rows_out):
           "mem_available_returning": returned[-1:], "seconds": seconds,
           "checks": checks}, rows_out)
     _fail("(c)", checks)
+
+
+def _olmo_run(tcfg, mesh, zero1: bool = False):
+    """DDL_STEPS steps of the train step (zero1's if `zero1`) from the
+    seed's init on this rank's rows of the global batches (all of them
+    without a mesh): each step's loss, grad norm and time (synced); with a
+    mesh whether the params' checksums agree across the ranks after
+    init and each step; the kernels' launches over the run; the peak."""
+    import torch
+    from repro_torch.data import local_rows
+    from repro_torch.models.model import Model
+    from repro_torch.train.steps import (build_train_step, build_zero1_train_step,
+                                         init_train_state, init_zero1_state)
+    model = Model(tcfg.model)
+    torch.cuda.reset_peak_memory_stats()
+    if zero1:
+        step = build_zero1_train_step(model, tcfg, mesh=mesh)
+        state = init_zero1_state(model, tcfg, cs.SEED, "cuda", mesh.size("data"),
+                                 data_index=mesh.index("data"))
+    else:
+        step = build_train_step(model, tcfg, mesh=mesh)
+        state = init_train_state(model, tcfg, cs.SEED, "cuda")
+    in_sync = [cs._same_on_all_ranks(cs._checksums(state.params))] if mesh else []
+    rows = []
+    with cs.launch_signatures() as (seen, calls, launches):
+        for b in cs._ddl_batches(tcfg):
+            local = local_rows(b, mesh.dp_index, mesh.dp_size) if mesh else b
+            batch = {k: torch.from_numpy(v).cuda() for k, v in local.items()}
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, met = step(state, batch)
+            rows.append({"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+                         "time_s": time.monotonic() - t0})
+            if mesh:
+                in_sync.append(cs._same_on_all_ranks(cs._checksums(state.params)))
+    peak = torch.cuda.max_memory_allocated()
+    del state, step
+    torch.cuda.empty_cache()
+    return {"rows": rows, "in_sync": in_sync, "peak_bytes": peak,
+            "launches": {k: launches[k] for k in LAUNCH_KEYS}}
+
+
+def _olmo_rank(rank: int, world: int):
+    """(e): the one-rank reference on the global batch (every rank runs it
+    on its own card), then resident on MESH_A with the int8 pod hop and
+    the overlapped backward, then zero1 on MESH_C."""
+    from repro_torch.config.base import DDLConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    L = get_config(OLMO).num_layers
+    out = {"rank": rank, "reference": _olmo_run(
+        cs._ddl_config(L, (1, 1, 1), batch=BATCH, arch=OLMO), None)}
+    for name, mesh, ddl in (("resident", MESH_A, DDLConfig(compress_dcn=True,
+                                                           overlap_grads=True)),
+                            ("zero1", MESH_C, DDLConfig(mode="zero1"))):
+        tcfg = cs._ddl_config(L, mesh, batch=BATCH, arch=OLMO, ddl=ddl)
+        out[name] = _olmo_run(tcfg, make_mesh(tcfg.mesh), zero1=name == "zero1")
+    return out
+
+
+def phase_e(line, rows_out):
+    """(e) olmo-1b at full width on 2x2x1 (resident, compressed) and 1x4x1
+    (zero1), each against one rank on the global batch."""
+    from repro_torch.configs import get_config
+    cfg = get_config(OLMO)
+    t0 = time.monotonic()
+    ranks = spawn_ranks("_olmo_rank", timeout=TIMEOUT_S["e"])
+    seconds = time.monotonic() - t0
+    reference = ranks[0]["reference"]["rows"]
+    slices = len(cs.ddl_pod_hop_sizes(cfg, MESH_A[1], overlap=True))
+    expected = {"resident": {"quantize_rows": slices * STEPS, "dequantize_rows": 0,
+                             "dequantize_sum_rows": slices * STEPS, "rmsnorm": 0},
+                "zero1": {k: 0 for k in LAUNCH_KEYS}}
+    runs, checks = {}, {}
+    for name in ("resident", "zero1"):
+        run = ranks[0][name]
+        err = [{k: abs(row[k] - ref[k]) / abs(ref[k]) for k in ("loss", "grad_norm")}
+               for row, ref in zip(run["rows"], reference)]
+        checks[name] = {
+            "in_sync": all(all(r[name]["in_sync"]) and len(r[name]["in_sync"]) == STEPS + 1
+                           for r in ranks),
+            "same_metrics": all([(x["loss"], x["grad_norm"]) for x in r[name]["rows"]]
+                                == [(x["loss"], x["grad_norm"]) for x in run["rows"]]
+                                for r in ranks),
+            "same_reference": all(r["reference"]["rows"][i][k] == reference[i][k]
+                                  for r in ranks for i in range(STEPS)
+                                  for k in ("loss", "grad_norm")),
+            "loss_within_5e-3": max(e["loss"] for e in err) <= 5e-3,
+            "grad_norm_within_2e-2": max(e["grad_norm"] for e in err) <= 2e-2,
+            "finite": all(math.isfinite(x["loss"]) for x in run["rows"]),
+            "launches": all(r[name]["launches"] == expected[name] for r in ranks)}
+        step_s = _steady(run["rows"], "time_s")
+        runs[name] = {"mesh": list(MESH_A if name == "resident" else MESH_C),
+                      "rows": run["rows"], "rel_err": err, "step_s_steady": step_s,
+                      "tokens_per_s": WORLD * cs.TRAIN_SEQ / step_s,
+                      "peak_bytes": [r[name]["peak_bytes"] for r in ranks],
+                      "launches": run["launches"], "expected_launches": expected[name]}
+    emit({"phase": "e_olmo_1b", "arch": OLMO, "layers": cfg.num_layers,
+          "params": cfg.param_count(), "ranks": WORLD, "backend": "nccl", "card": line,
+          "tokens_per_rank": cs.TRAIN_SEQ, "reference": reference,
+          "reference_step_s_steady": _steady(ranks[0]["reference"]["rows"], "time_s"),
+          "reference_peak_bytes": ranks[0]["reference"]["peak_bytes"],
+          "pod_hop_slices_per_step": slices, **runs, "seconds": seconds,
+          "checks": checks}, rows_out)
+    _fail("(e)", {f"{n}/{k}": v for n, c in checks.items() for k, v in c.items()})
 
 
 def emit(row, rows_out):
@@ -690,12 +811,13 @@ def header():
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="a,b,c,d",
-                    help="comma-separated subset of a,b,c,d (a and d run together)")
+    ap.add_argument("--phases", default="a,b,c,d,e",
+                    help="comma-separated subset of a,b,c,d,e (a and d run together)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
-    if not phases <= {"a", "b", "c", "d"}:
-        raise SystemExit(f"--phases: unknown {sorted(phases - {'a', 'b', 'c', 'd'})}")
+    known = {"a", "b", "c", "d", "e"}
+    if not phases <= known:
+        raise SystemExit(f"--phases: unknown {sorted(phases - known)}")
     import torch
     line = header()
     from repro_torch.kernels import _build
@@ -707,6 +829,8 @@ def main() -> int:
         phase_a_d(line, rows)
     if "b" in phases:
         phase_b(line, rows)
+    if "e" in phases:
+        phase_e(line, rows)
     if "c" in phases:
         phase_c(line, rows)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -596,16 +596,26 @@ def leaf_part(flat, spec: ShardSpec, j: int) -> torch.Tensor:
     return flat[off:off + r * sl]
 
 
+def gather_rows(rows, spec: ShardSpec, j: int, *, mesh, data_axis: str) -> torch.Tensor:
+    """Rows i0:i0 + n of leaf j (a stacked leaf's layers i0:i0 + n, or a
+    whole unstacked leaf at n = 1) from the same rows of its local part,
+    `rows` [n, sl]: the column blocks all-gathered over `data`, unpadded,
+    f32 [n, rowsize]. Only those n rows stand gathered."""
+    d = spec.data_size
+    rs, sl = spec.rowsizes[j], spec.padded_rows[j] // d
+    n = rows.shape[0]
+    full = mesh.all_gather(rows, data_axis)                   # [d * n, sl]
+    if n > 1 and d > 1:
+        full = full.reshape(d, n, sl).transpose(0, 1)
+    return full.reshape(n, d * sl)[:, :rs]
+
+
 def gather_leaf(part, spec: ShardSpec, j: int, *, mesh, data_axis: str) -> torch.Tensor:
     """Leaf j from its local part (`leaf_part`): the column blocks
     all-gathered over `data`, unpadded, in the leaf's shape, f32."""
-    d = spec.data_size
-    r, rs, pr = spec.rows[j], spec.rowsizes[j], spec.padded_rows[j]
-    sl = pr // d
-    full = mesh.all_gather(part.reshape(r, sl), data_axis)   # [d * r, sl]
-    if r > 1 and d > 1:
-        full = full.reshape(d, r, sl).transpose(0, 1)
-    return full.reshape(r, d * sl)[:, :rs].reshape(spec.shapes[j])
+    r, sl = spec.rows[j], spec.padded_rows[j] // spec.data_size
+    return gather_rows(part.reshape(r, sl), spec, j, mesh=mesh,
+                       data_axis=data_axis).reshape(spec.shapes[j])
 
 
 def allgather_local_shards(flat, spec: ShardSpec, *, mesh, data_axis: str):

@@ -1,5 +1,7 @@
-"""Common layers: param declaration, RMSNorm and Mamba-2's gated RMSNorm,
-the SwiGLU MLP, RoPE, embedding, head and the cross-entropy loss.
+"""Common layers: param declaration, the norms (RMSNorm, LayerNorm with and
+without params, Mamba-2's gated RMSNorm), the MLPs (SwiGLU, GeGLU, GELU,
+each with or without biases), RoPE, embedding, head and the cross-entropy
+loss.
 
 Params are nested dicts of tensors keyed as in the JAX package. One
 declarative source, `ParamDef`, gives each leaf's shape, dtype and init.
@@ -93,13 +95,29 @@ def tree_init(defs, generator: torch.Generator, device):
 def norm_defs(cfg, dim: int, logical: str = "d_model"):
     if cfg.norm_type == "rmsnorm":
         return {"scale": ParamDef((dim,), (logical,), init="ones", dtype="float32")}
-    raise NotImplementedError(f"norm_type {cfg.norm_type!r} is not ported yet")
+    if cfg.norm_type == "layernorm":
+        return {"scale": ParamDef((dim,), (logical,), init="ones", dtype="float32"),
+                "bias": ParamDef((dim,), (logical,), init="zeros", dtype="float32")}
+    if cfg.norm_type == "layernorm_nonparam":
+        return {}
+    raise ValueError(cfg.norm_type)
 
 
 def apply_norm(cfg, p, x, eps=None):
-    """RMSNorm in f32, cast back to x's dtype: the RMSNorm kernel on a CUDA
-    tensor, its plain version on a CPU one."""
-    return rms_ops.rmsnorm(x, p["scale"], eps=eps or cfg.norm_eps)
+    """The norm in f32, cast back to x's dtype. RMSNorm: the RMSNorm kernel
+    on a CUDA tensor, its plain version on a CPU one. LayerNorm (with or
+    without scale and bias) is plain torch on either device, as the JAX
+    package's is plain jnp: the population variance of the centred row,
+    (x - mu) * rsqrt(var + eps), then * scale + bias."""
+    eps = eps or cfg.norm_eps
+    if cfg.norm_type == "rmsnorm":
+        return rms_ops.rmsnorm(x, p["scale"], eps=eps)
+    xf = x.float()
+    xc = xf - torch.mean(xf, dim=-1, keepdim=True)
+    out = xc * torch.rsqrt(torch.mean(xc * xc, dim=-1, keepdim=True) + eps)
+    if cfg.norm_type == "layernorm":
+        out = out * p["scale"] + p["bias"]
+    return out.to(x.dtype)
 
 
 def gated_rmsnorm(p, x, gate, eps=1e-5):
@@ -118,24 +136,60 @@ def gated_rmsnorm(p, x, gate, eps=1e-5):
 def mlp_defs(cfg):
     d, f = cfg.d_model, cfg.d_ff
     scale_out = 0.02 / math.sqrt(2 * cfg.num_layers)
-    if cfg.mlp_act != "swiglu" or cfg.use_bias:
-        raise NotImplementedError(
-            f"mlp_act={cfg.mlp_act!r} use_bias={cfg.use_bias} is not ported yet")
-    return {"w_gate": ParamDef((d, f), ("d_model", "ff")),
-            "w_up": ParamDef((d, f), ("d_model", "ff")),
-            "w_down": ParamDef((f, d), ("ff", "d_model"), scale=scale_out)}
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        defs = {"w_gate": ParamDef((d, f), ("d_model", "ff")),
+                "w_up": ParamDef((d, f), ("d_model", "ff")),
+                "w_down": ParamDef((f, d), ("ff", "d_model"), scale=scale_out)}
+        if cfg.use_bias:
+            defs["b_gate"] = ParamDef((f,), ("ff",), init="zeros")
+            defs["b_up"] = ParamDef((f,), ("ff",), init="zeros")
+            defs["b_down"] = ParamDef((d,), ("d_model",), init="zeros")
+    elif cfg.mlp_act == "gelu":
+        defs = {"w_up": ParamDef((d, f), ("d_model", "ff")),
+                "w_down": ParamDef((f, d), ("ff", "d_model"), scale=scale_out)}
+        if cfg.use_bias:
+            defs["b_up"] = ParamDef((f,), ("ff",), init="zeros")
+            defs["b_down"] = ParamDef((d,), ("d_model",), init="zeros")
+    else:
+        raise ValueError(cfg.mlp_act)
+    return defs
+
+
+def gelu(x):
+    """`jax.nn.gelu`'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
 
 
 def _swiglu(g, u):
     return F.silu(g) * u
 
 
+def _geglu(g, u):
+    return gelu(g) * u
+
+
 def apply_mlp(cfg, p, x):
+    """The tags sit where the JAX package's do: each projection's matmul
+    output (before its bias), and the hidden after the activation. The
+    LMS planner prices 3 tagged values for a gated MLP and 2 for GELU, and
+    the layer replay matches regions by position."""
     # tag the projection outputs: remat otherwise re-runs both matmuls
-    g = tagged("mlp_hidden", torch.matmul, x, p["w_gate"])
-    u = tagged("mlp_hidden", torch.matmul, x, p["w_up"])
-    h = tagged("mlp_hidden", _swiglu, g, u)
-    return h @ p["w_down"]
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        g = tagged("mlp_hidden", torch.matmul, x, p["w_gate"])
+        u = tagged("mlp_hidden", torch.matmul, x, p["w_up"])
+        if cfg.use_bias:
+            g = g + p["b_gate"]
+            u = u + p["b_up"]
+        h = tagged("mlp_hidden", _swiglu if cfg.mlp_act == "swiglu" else _geglu, g, u)
+    else:
+        u = tagged("mlp_hidden", torch.matmul, x, p["w_up"])
+        if cfg.use_bias:
+            u = u + p["b_up"]
+        h = tagged("mlp_hidden", gelu, u)
+    out = h @ p["w_down"]
+    if cfg.use_bias:
+        out = out + p["b_down"]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -180,10 +234,11 @@ def embed_tokens(cfg, p, tokens):
 
 def lm_logits(cfg, p, x):
     if cfg.tie_embeddings:
-        w = p["embedding"].to(torch.bfloat16).T
-    else:
-        w = p["lm_head"]
-    return x @ w
+        # the table cast to bf16, as the JAX package casts it; rows of another
+        # type promote the product as jnp promotes it (f32 rows: an f32 product)
+        dt = torch.promote_types(x.dtype, torch.bfloat16)
+        return x.to(dt) @ p["embedding"].to(torch.bfloat16).to(dt).T
+    return x @ p["lm_head"]
 
 
 def cross_entropy(logits, labels, ignore_id: int = -1):

@@ -483,6 +483,17 @@ def _set(tree, path, value):
     tree[path[-1]] = value
 
 
+def _with_empty(tree, template):
+    """`tree`, built leaf by leaf from `template`'s leaf paths, with the
+    subtrees of `template` that hold no leaf (a LayerNorm without params
+    is `{}`) put back, in place: trees of one model keep one structure.
+    -> tree."""
+    for k, v in template.items():
+        if isinstance(v, dict):
+            _with_empty(tree.setdefault(k, {}), v)
+    return tree
+
+
 def _def_paths(defs, prefix=()):
     """[(path, ParamDef)] in `tree_init` order (dict insertion order)."""
     if isinstance(defs, dict):
@@ -490,10 +501,11 @@ def _def_paths(defs, prefix=()):
     return [(prefix, defs)]
 
 
-def _placed_state(optimizer, paths, device, params_host, opt_host, fill,
+def _placed_state(optimizer, paths, device, params_host, opt_host, fill, template,
                   grads_host=False, grads_f32=False):
     """A TrainState laid out by the plan; fill(index, path, p, states)
-    writes each leaf's values. With grads_host the state carries the
+    writes each leaf's values; `template` is a tree of the params'
+    structure (`_with_empty`). With grads_host the state carries the
     stack's grads tree in the arena (zeros), for the backward's host sink
     (f32 with grads_f32, for the accumulated grads placed there at m >
     1)."""
@@ -512,6 +524,10 @@ def _placed_state(optimizer, paths, device, params_host, opt_host, fill,
         if grads_host and _stack_path(path):
             _set(grads, path[2:], placer.take(shape, torch.float32 if grads_f32 else dtype,
                                               True))
+    for tree in (params, *states):
+        _with_empty(tree, template)
+    if grads_host:
+        _with_empty(grads, template["decoder"]["stack0"])
     step = torch.zeros((), dtype=torch.int32, device=device)
     opt = (AdamState(step.clone(), *states) if optimizer == "adamw"
            else SGDState(step.clone(), *states))
@@ -544,7 +560,7 @@ def place_train_state(state: TrainState, plan: Optional[MemoryPlan], device,
             dst.copy_(at(s, path))
 
     out = _placed_state("adamw" if adam else "sgdm", paths, device, params_host,
-                        opt_host, fill, _grads_host(plan), microbatches > 1)
+                        opt_host, fill, state.params, _grads_host(plan), microbatches > 1)
     step = state.step.to(device).clone()
     opt = out.opt._replace(step=state.opt.step.to(device).clone())
     return TrainState(step, out.params, opt, out.grads)
@@ -578,7 +594,7 @@ def restore_train_state(reader, model: Model, tcfg: TrainConfig, device,
         for name, t in zip(names, st):
             reader.read_into(f"opt/{name}/{key}", t)
     out = _placed_state(tcfg.optimizer, paths, device, params_host, opt_host, fill,
-                        _grads_host(plan), tcfg.microbatches > 1)
+                        model.param_defs(), _grads_host(plan), tcfg.microbatches > 1)
     opt = out.opt._replace(step=_read_step(reader, "opt/step", device))
     return TrainState(_read_step(reader, "step", device), out.params, opt, out.grads)
 
@@ -957,7 +973,7 @@ def init_train_state(model: Model, tcfg: TrainConfig, seed: int,
                 if tcfg.optimizer == "adamw":
                     st[2][i] = piece.float()
         return _placed_state(tcfg.optimizer, paths, device, params_host, opt_host, fill,
-                             _grads_host(plan), tcfg.microbatches > 1)
+                             model.param_defs(), _grads_host(plan), tcfg.microbatches > 1)
     params = model.init(seed, device)
     opt_init, _ = OPTIMIZERS[tcfg.optimizer]
     return TrainState(torch.zeros((), dtype=torch.int32, device=device),
@@ -999,13 +1015,14 @@ def _local_size(layout) -> int:
 def _zero1_params_from(master, layout, params, *, mesh, device) -> None:
     """Phase 3 of the DDL schedule on the params: all-gather the updated
     master shard over `data` and write each param as its f32 value cast
-    to the param's dtype, leaf by leaf (ShardSpec) or a slice of the flat
-    vector at a time (the pack order), so the whole f32 tree never stands
-    on the card. A master shard in host memory is copied in a leaf or
-    slice at a time. The cast runs on the card: a blocking copy into a
-    param in host memory would convert on the CPU (torch does a blocking
-    device-to-host copy's dtype conversion there), which took most of a
-    48-layer step."""
+    to the param's dtype, a row of a leaf at a time (ShardSpec: one layer
+    of a stacked leaf, or a whole unstacked leaf) or a slice of the flat
+    vector at a time (the pack order), so neither the whole f32 tree nor
+    a whole stacked leaf in f32 stands on the card. A master shard in
+    host memory is copied in a row or slice at a time. The cast runs on
+    the card: a blocking copy into a param in host memory would convert
+    on the CPU (torch does a blocking device-to-host copy's dtype
+    conversion there), which took most of a 48-layer step."""
     leaves = tree_leaves(params)
 
     def on_device(t):
@@ -1014,9 +1031,13 @@ def _zero1_params_from(master, layout, params, *, mesh, device) -> None:
         return off.stream_layer_to_device(t, device, cls="optimizer").wait()
     if isinstance(layout, ddl_overlap.ShardSpec):
         for j, p in enumerate(leaves):
-            part = on_device(ddl_overlap.leaf_part(master, layout, j))
-            full = ddl_overlap.gather_leaf(part, layout, j, mesh=mesh, data_axis="data")
-            p.copy_(full.to(p.dtype))
+            r = layout.rows[j]
+            part = ddl_overlap.leaf_part(master, layout, j).view(r, -1)
+            dst = p.view(r, -1)
+            for i in range(r):
+                row = ddl_overlap.gather_rows(on_device(part[i:i + 1]), layout, j,
+                                              mesh=mesh, data_axis="data")
+                dst[i:i + 1].copy_(row.to(p.dtype))
         return
     d = layout.pad_to
     n = layout.padded // d
@@ -1251,6 +1272,7 @@ def init_zero1_state(model: Model, tcfg: TrainConfig, seed: int, device, data_si
         for i, piece in init_pieces(d, gen, device):
             p[i] = piece
         _set(params, path, p)
+    _with_empty(params, model.param_defs())
     flat = [placer.take((local,), torch.float32, opt_host) for _ in range(3)]
     if isinstance(layout, ddl_overlap.ShardSpec):      # the overlapped layout
         ddl_overlap.rank_block(params, layout, data_index, flat[2])
@@ -1290,6 +1312,7 @@ def restore_zero1_state(reader, model: Model, tcfg: TrainConfig, device, data_si
         p = placer.take(d.shape, DTYPES[d.dtype], params_host and _stack_path(path))
         reader.read_into("params/" + "/".join(path), p)
         _set(params, path, p)
+    _with_empty(params, model.param_defs())
     flat = []
     for name in ("mu", "nu", "master"):
         t = placer.take((local,), torch.float32, opt_host)

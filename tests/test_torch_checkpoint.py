@@ -4,8 +4,10 @@ checkpoint crash drills (tests/test_fault_inject.py) on the port's
 tensors; checkpoints written by either package restored by the other,
 bitwise, bf16 included; the member-by-member reader; the snapshot a save
 takes of a state that the next step updates in place; restore into a
-plan's placement; and the port's Trainer resuming from a JAX Trainer's
-checkpoint, both continuing to step 4.
+plan's placement; the port's Trainer resuming from a JAX Trainer's
+checkpoint, both continuing to step 4; and the trained states of
+olmo-1b (norm subtrees with no leaves, a tied embedding) through either
+package's checkpoints, bitwise both ways.
 
 Inputs are made from a numpy seed (states) or by the trainers from their
 seeds (the qwen2.5-14b smoke config, 2 layers, d_model 64). Tolerances:
@@ -454,3 +456,61 @@ def test_port_trainer_resumes_from_a_jax_trainer_checkpoint(ref, tmp_path):
             np.testing.assert_allclose(row[k], jrow[k], rtol=2e-3, err_msg=k)
         np.testing.assert_allclose(row["lr"], jrow["lr"], rtol=1e-6)
     assert trainer.ckpt.latest_step() == 4
+
+
+def test_olmo_train_states_cross_restore_bitwise(ref, tmp_path):
+    """olmo-1b's smoke config (its LayerNorms have no params: `{}`
+    subtrees, written as the JAX package's `__emptydict__` markers; a tied
+    embedding): the JAX Trainer's checkpoint after 2 steps restores in the
+    port whole (`Checkpointer.restore`: the JAX tree, `{}` included) and
+    as a TrainState placed by a plan (`restore_train_state`, LMS 600 kB:
+    the stack and the AdamW state in the arena), bitwise; the port
+    Trainer's checkpoint after 2 steps restores in the JAX package as the
+    port's state, bitwise, under the manifest keys the JAX package writes
+    for that tree."""
+    from repro.checkpoint import Checkpointer as JaxCheckpointer
+    from repro.config import base as jb
+    from repro.train import trainer as jtrainer
+    from repro_torch.core.lms import planner as tp
+    from repro_torch.models.model import Model
+    arch = "olmo-1b"
+    shape = dict(name="t", kind="train", seq_len=16, global_batch=2)
+    kw = dict(learning_rate=5e-3, warmup_steps=1, total_steps=4, checkpoint_every=2,
+              async_checkpoint=False)
+    jdir, pdir = tmp_path / "jax", tmp_path / "port"
+    jt = jb.TrainConfig(model=ref.get_smoke_config(arch), shape=jb.ShapeConfig(**shape),
+                        mesh=jb.MeshSpec((1, 1), ("data", "model")),
+                        lms=jb.LMSConfig(enabled=False), checkpoint_dir=str(jdir), **kw)
+    jtrainer.Trainer(jt).train(steps=2)
+    _, jtree, _ = JaxCheckpointer(str(jdir)).restore()
+    assert jtree["params"]["final_norm"] == {}
+    assert jtree["params"]["decoder"]["stack0"]["attn_0"]["ln1"] == {}
+    step, tree, _ = Checkpointer(str(jdir)).restore()
+    assert step == 2
+    _same_tree(ref.jax.tree.map(np.asarray, jtree), tree)
+    tt = TrainConfig(model=get_smoke_config(arch), shape=ShapeConfig(**shape),
+                     mesh=MeshSpec((1, 1), ("data", "model")),
+                     lms=LMSConfig(hbm_budget=600_000), **kw)
+    model = Model(tt.model)
+    plan = tp.plan(tp.PlanRequest(cfg=tt.model, shape=tt.shape, mesh=tt.mesh, lms=tt.lms))
+    assert plan.residency["params"] == plan.residency["optimizer"] == "host"
+    with Checkpointer(str(jdir)).open() as reader:
+        got = tsteps.restore_train_state(reader, model, tt, "cpu", plan=plan)
+    _same_tree(ref.jax.tree.map(np.asarray, jtree["params"]), got.params)
+    _same_tree(ref.jax.tree.map(np.asarray, jtree["opt"]["master"]), got.opt.master)
+    assert got.params["final_norm"] == {} and got.opt.mu["final_norm"] == {}
+    off.release_arenas()
+
+    trainer = Trainer(TrainConfig(model=get_smoke_config(arch), shape=ShapeConfig(**shape),
+                                  mesh=MeshSpec((1, 1), ("data", "model")),
+                                  lms=LMSConfig(enabled=False), checkpoint_dir=str(pdir),
+                                  **kw), device="cpu")
+    state, _ = trainer.train(steps=2)
+    step, restored, _ = JaxCheckpointer(str(pdir)).restore()
+    assert step == 2
+    _same_tree(restored, {"step": state.step, "params": state.params,
+                          "opt": dict(state.opt._asdict())})
+    JaxCheckpointer(str(tmp_path / "again"), async_save=False).save(2, restored)
+    keys = [json.loads((d / "step_00000002" / "manifest.json").read_text())["keys"]
+            for d in (pdir, tmp_path / "again")]
+    assert keys[0] == keys[1] and any(k.endswith("__emptydict__") for k in keys[0])

@@ -4,7 +4,11 @@ against the JAX package's step on the same mesh of emulated devices, for
 compress_dcn off and on x the overlapped backward off and on, and 2
 microbatches without it; the `Trainer` on 2 ranks of a 2x1x1 mesh against
 the JAX `Trainer`; `torchrun` of the training CLI on 2 ranks against the
-JAX launcher; and what is not ported yet raises.
+JAX launcher; the train step of olmo-1b (norm subtrees with no leaves,
+a tied embedding) on 2 ranks, a 2x1 ("pod", "data") mesh with
+compress_dcn and the overlapped backward (the reduction queue, the int8
+pod hop) and a 1x2 mesh with and without the overlap, against the JAX
+package's on 2 emulated devices; and what is not ported yet raises.
 
 The train step runs the qwen2.5-14b smoke config (2 layers, d_model 64)
 from one random state converted by `train_state_from_jax`, over 3 steps of
@@ -52,6 +56,10 @@ STEPS, BATCH, SEQ, LR = 3, 8, 16, 1e-3
 VARIANTS = {"plain": (False, False, 1), "overlap": (False, True, 1),
             "compress": (True, False, 1), "compress_overlap": (True, True, 1),
             "microbatches_2": (False, False, 2)}
+# olmo-1b on 2 ranks: name -> (mesh shape over ("pod", "data"), compress_dcn, overlap)
+OLMO = "olmo-1b"
+OLMO_VARIANTS = {"2x1_compress_overlap": ((2, 1), True, True),
+                 "1x2_plain": ((1, 2), False, False), "1x2_overlap": ((1, 2), False, True)}
 CLI = ["--arch", ARCH, "--smoke", "--no-lms", "--mesh", "2x1x1", "--compress-dcn",
        "--steps", "3", "--batch", "4", "--seq", "16"]
 ME = "tests.test_torch_ddl_train"
@@ -61,12 +69,19 @@ ME = "tests.test_torch_ddl_train"
 # trees <-> npz
 # ---------------------------------------------------------------------------
 
+EMPTY = "@empty"
+
+
 def flat_tree(tree, prefix=""):
     """Nested dict of arrays -> {"a/b/c": f32 array}; bf16 leaves get a
-    "@bf16" suffix (f32 holds them exactly)."""
+    "@bf16" suffix (f32 holds them exactly); a subtree with no leaves (a
+    LayerNorm without params) is the key "a/b@empty"."""
     out = {}
     for k in sorted(tree):
         v = tree[k]
+        if isinstance(v, dict) and not v:
+            out[prefix + k + EMPTY] = np.zeros(0, np.float32)
+            continue
         if isinstance(v, dict):
             out.update(flat_tree(v, f"{prefix}{k}/"))
             continue
@@ -88,6 +103,8 @@ def unflat_tree(flat, prefix=""):
         path = key[len(prefix):]
         if path.endswith("@bf16"):
             path, a = path[:-5], a.astype(ml_dtypes.bfloat16)
+        elif path.endswith(EMPTY):
+            path, a = path[:-len(EMPTY)], {}
         node = out
         *dirs, leaf = path.split("/")
         for d in dirs:
@@ -182,6 +199,41 @@ def _jax_side(out_dir):
     (out / "jax_cli.txt").write_text(buf.getvalue())
 
 
+def _jax_olmo(out_dir):
+    """olmo-1b's train step on 2 emulated devices, each OLMO_VARIANTS mesh,
+    from one random state (written for the port's ranks)."""
+    from tests.test_torch_ref import jax_ref, random_params
+    ref = jax_ref()
+    jax, jnp = ref.jax, ref.jnp
+    from repro.config import base as jb
+    from repro.launch.mesh import make_mesh
+    from repro.optim.adamw import adamw_init
+    from repro.train import steps as js
+    out = pathlib.Path(out_dir)
+    cfg = ref.get_smoke_config(OLMO)
+    jparams, _ = random_params(ref, cfg, seed=12)
+    init = js.TrainState(jnp.zeros((), jnp.int32), jparams, adamw_init(jparams))
+    save_state(out / "olmo_init.npz", jax.tree.map(np.asarray, init))
+    res = {}
+    for name, (shape, c, ov) in OLMO_VARIANTS.items():
+        spec = jb.MeshSpec(shape, ("pod", "data"))
+        tcfg = jb.TrainConfig(
+            model=cfg, shape=jb.ShapeConfig("t", "train", SEQ, BATCH), mesh=spec,
+            lms=jb.LMSConfig(enabled=False), ddl=jb.DDLConfig(compress_dcn=c),
+            learning_rate=LR, warmup_steps=0, total_steps=10)
+        step, state_sh, batch_sh = js.build_train_step(ref.Model(cfg), tcfg, make_mesh(spec),
+                                                       donate=False, overlap_grads=ov)
+        state = jax.device_put(init, state_sh)
+        for i, b in enumerate(_batches(cfg.vocab_size)):
+            state, met = step(state, jax.device_put(
+                {k: jnp.asarray(v) for k, v in b.items()}, batch_sh))
+            for k in ("loss", "ce", "grad_norm", "lr"):
+                res[f"{name}/{k}/{i}"] = np.float32(met[k])
+        res.update({f"{name}/master/{k}": v for k, v in
+                    flat_tree(jax.tree.map(np.asarray, state.opt.master)).items()})
+    np.savez(out / "jax_olmo.npz", **res)
+
+
 # ---------------------------------------------------------------------------
 # the port's ranks
 # ---------------------------------------------------------------------------
@@ -225,6 +277,36 @@ def _port_steps(rank, world, out_dir):
     np.savez(out / f"port_steps_{rank}.npz", **res)
 
 
+def _port_olmo(rank, world, out_dir):
+    """olmo-1b's train step on this rank of each OLMO_VARIANTS mesh, from
+    JAX's initial state; results into port_olmo_<rank>.npz."""
+    from repro_torch.data import local_rows
+    from repro_torch.launch.mesh import make_mesh
+    out = pathlib.Path(out_dir)
+    init_gloo(rank, world, out)
+    _wait_for(out / "olmo_init.npz")
+    cfg = get_smoke_config(OLMO)
+    res = {}
+    for name, (shape, c, ov) in OLMO_VARIANTS.items():
+        spec = MeshSpec(shape, ("pod", "data"))
+        mesh = make_mesh(spec)
+        tcfg = TrainConfig(
+            model=cfg, shape=ShapeConfig("t", "train", SEQ, BATCH), mesh=spec,
+            lms=LMSConfig(enabled=False), ddl=DDLConfig(compress_dcn=c, overlap_grads=ov),
+            learning_rate=LR, warmup_steps=0, total_steps=10, checkpoint_dir=None)
+        step = build_train_step(Model(cfg), tcfg, mesh=mesh)
+        assert (step.queue is not None) == ov
+        state = state_from_npz(out / "olmo_init.npz")
+        for i, b in enumerate(_batches(cfg.vocab_size)):
+            rows = local_rows(b, mesh.dp_index, mesh.dp_size)
+            state, met = step(state, {k: torch.from_numpy(v) for k, v in rows.items()})
+            for k in ("loss", "ce", "grad_norm", "lr"):
+                res[f"{name}/{k}/{i}"] = np.float32(met[k].item())
+        res.update({f"{name}/master/{k}": v for k, v in flat_tree(state.opt.master).items()})
+        res.update({f"{name}/params/{k}": v for k, v in flat_tree(state.params).items()})
+    np.savez(out / f"port_olmo_{rank}.npz", **res)
+
+
 def _port_trainer(rank, world, out_dir):
     """The Trainer on this rank of the 2x1x1 mesh from the JAX trainer's
     initial state; its history into port_trainer_<rank>.npz."""
@@ -254,6 +336,7 @@ def runs(tmp_path_factory):
     """Both sides of the train step, the Trainer and the CLI, run at once."""
     out = tmp_path_factory.mktemp("ddl_train")
     (out / "trainer").mkdir()
+    (out / "olmo").mkdir()
     cli = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", "-m", "repro_torch.launch.train", "--device", "cpu"]
@@ -261,7 +344,9 @@ def runs(tmp_path_factory):
         text=True)
     procs = (start_jax(ME, "_jax_side", out, devices=4)
              + start_ranks(ME, "_port_steps", out, 4)
-             + start_ranks(ME, "_port_trainer", out, 2) + [cli])
+             + start_ranks(ME, "_port_trainer", out, 2)
+             + start_jax(ME, "_jax_olmo", out / "olmo", devices=2)
+             + start_ranks(ME, "_port_olmo", out / "olmo", 2) + [cli])
     outs = wait_all(procs, timeout=300)
     return out, outs[-1]
 
@@ -270,17 +355,13 @@ def _rel(a, b):
     return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
 
 
-@pytest.mark.parametrize("variant", list(VARIANTS))
-def test_train_step_on_4_ranks_matches_jax(runs, variant):
-    """Per step: loss, ce, grad norm and lr against the JAX step on the
-    (2, 2) mesh; after 3 steps the master weights; every rank the same."""
-    out, _ = runs
-    jres = dict(np.load(out / "jax_steps.npz"))
-    ranks = [dict(np.load(out / f"port_steps_{r}.npz")) for r in range(4)]
+def _check_steps(jres, ranks, variant):
+    """Per step: loss, ce, grad norm and lr of every rank against the JAX
+    step's; after the steps the master weights; every rank the same."""
     for i in range(STEPS):
         for k, tol in (("loss", 2e-3), ("ce", 2e-3), ("grad_norm", 2e-3), ("lr", 1e-6)):
             key = f"{variant}/{k}/{i}"
-            for r in range(4):
+            for r in range(len(ranks)):
                 assert _rel(ranks[r][key], jres[key]) <= tol, (key, r, ranks[r][key], jres[key])
     masters = sorted(k for k in jres if k.startswith(f"{variant}/master/"))
     diff = np.concatenate([np.abs(ranks[0][k] - jres[k]).ravel() for k in masters])
@@ -289,9 +370,31 @@ def test_train_step_on_4_ranks_matches_jax(runs, variant):
     assert np.median(diff) <= 0.01 * unit, np.median(diff) / unit
     assert np.percentile(diff, 99) <= 0.1 * unit, np.percentile(diff, 99) / unit
     for k in ranks[0]:
-        if "/params/" in k or "/master/" in k:
-            for r in range(1, 4):
+        if k.startswith(f"{variant}/params/") or k.startswith(f"{variant}/master/"):
+            for r in range(1, len(ranks)):
                 assert np.array_equal(ranks[r][k].view(np.int32), ranks[0][k].view(np.int32)), (k, r)
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_train_step_on_4_ranks_matches_jax(runs, variant):
+    """Per step: loss, ce, grad norm and lr against the JAX step on the
+    (2, 2) mesh; after 3 steps the master weights; every rank the same."""
+    out, _ = runs
+    _check_steps(dict(np.load(out / "jax_steps.npz")),
+                 [dict(np.load(out / f"port_steps_{r}.npz")) for r in range(4)], variant)
+
+
+@pytest.mark.parametrize("variant", list(OLMO_VARIANTS))
+def test_olmo_train_step_on_2_ranks_matches_jax(runs, variant):
+    """olmo-1b's train step on 2 ranks (2x1 with compress_dcn and the
+    queue; 1x2 with and without the overlap) against the JAX step on the
+    same mesh of 2 emulated devices: per step loss, ce, grad norm and lr;
+    after 3 steps the master weights, the `{}` norm subtrees included;
+    both ranks the same."""
+    out, _ = runs
+    _check_steps(dict(np.load(out / "olmo" / "jax_olmo.npz")),
+                 [dict(np.load(out / "olmo" / f"port_olmo_{r}.npz")) for r in range(2)],
+                 variant)
 
 
 def test_trainer_on_2x1x1_matches_jax_trainer(runs):

@@ -12,7 +12,10 @@ per step loss and grad norm within 2e-3 relative; master weights within
 2 lr N, median 0.01 lr N, 99th percentile 0.1 lr N). The port's streamed
 steps against its own resident steps: bitwise (the same ops on the same
 values; the optimizer's math is elementwise, so slicing it by layer or
-chunk changes nothing). Inputs are made from a seed with numpy.
+chunk changes nothing). The executor's tests run on the smoke config of
+each dense decoder ported (qwen2.5-14b, olmo-1b: norm subtrees with no
+leaves and a tied embedding, starcoder2-7b, qwen2-72b). Inputs are made
+from a seed with numpy.
 """
 import dataclasses
 import json
@@ -42,6 +45,7 @@ from repro_torch.train.trainer import Trainer
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 ARCH = "qwen2.5-14b"
+DENSE_ARCHS = ("qwen2.5-14b", "olmo-1b", "starcoder2-7b", "qwen2-72b")
 FIXTURE = pathlib.Path(__file__).resolve().parent / "fixtures" / "obs_report.json"
 MESH1 = ((1, 1), ("data", "model"))
 # at 2 x 16 tokens of the smoke config this budget streams the params and
@@ -279,12 +283,13 @@ def test_schedule_invariant_matches_jax(jm):
 # the executor
 # ---------------------------------------------------------------------------
 
-def _cfg(layers=2):
-    return dataclasses.replace(get_smoke_config(ARCH), num_layers=layers)
+def _cfg(layers=2, arch=ARCH, **kw):
+    return dataclasses.replace(get_smoke_config(arch), num_layers=layers, **kw)
 
 
-def _tcfg(layers=2, **kw):
-    return tb.TrainConfig(model=_cfg(layers), shape=tb.ShapeConfig("t", "train", 16, 2),
+def _tcfg(layers=2, arch=ARCH, vocab=None, **kw):
+    cfg = _cfg(layers, arch) if vocab is None else _cfg(layers, arch, vocab_size=vocab)
+    return tb.TrainConfig(model=cfg, shape=tb.ShapeConfig("t", "train", 16, 2),
                           mesh=tb.MeshSpec(*MESH1), **{"warmup_steps": 1,
                                                        "learning_rate": 1e-2,
                                                        "total_steps": 10,
@@ -320,24 +325,24 @@ def _run(tcfg, plan, batches, seed=5):
     return mets, state
 
 
-def test_streamed_loss_and_grads_match_jax(ref, jm):
+def test_streamed_loss_and_grads_match_jax(ref, jm, arch=ARCH):
     """The loss and its grads through the streamed stack (params from
     pinned host, the plan's policy) against jax.value_and_grad of the JAX
     package's streamed model loss with the same plan's policy and
     schedule, from the same random params."""
     jax = ref.jax
     jb, jp = jm["base"], jm["plan"]
-    jcfg = ref.get_smoke_config(ARCH)
+    jcfg = ref.get_smoke_config(arch)
     shape = jb.ShapeConfig("t", "train", 16, 2)
     jplan = jp.plan(jp.PlanRequest(cfg=jcfg, shape=shape, mesh=jb.MeshSpec(*MESH1),
                                    lms=jb.LMSConfig(hbm_budget=SMOKE_BUDGET)))
-    plan = tp.plan(tp.PlanRequest(cfg=_cfg(), shape=conv(shape, tb.ShapeConfig),
+    plan = tp.plan(tp.PlanRequest(cfg=_cfg(arch=arch), shape=conv(shape, tb.ShapeConfig),
                                   mesh=tb.MeshSpec(*MESH1),
                                   lms=tb.LMSConfig(hbm_budget=SMOKE_BUDGET)))
     assert _asdict(plan) == _asdict(jplan)
     assert plan.swap_schedule.stream == ("params", "optimizer")
     jparams, nparams = random_params(ref, jcfg, seed=9)
-    b = _batches(_cfg(), n=1)[0]
+    b = _batches(_cfg(arch=arch), n=1)[0]
     jmodel = ref.Model(jcfg)
 
     def jloss(p):
@@ -350,7 +355,7 @@ def test_streamed_loss_and_grads_match_jax(ref, jm):
     rest = {k: v for k, v in params.items() if k != "decoder"}
     leaves = tree_map(lambda p: p.detach().requires_grad_(), rest)
     gstack = tree_map(torch.zeros_like, stack)
-    loss, _ = Model(_cfg()).loss({**leaves, "decoder": {"stack0": stack}},
+    loss, _ = Model(_cfg(arch=arch)).loss({**leaves, "decoder": {"stack0": stack}},
                                  {k: torch.from_numpy(v) for k, v in b.items()},
                                  policy=tp.plan_to_policy(plan), stream=plan.swap_schedule,
                                  stack_grads=gstack)
@@ -361,7 +366,13 @@ def test_streamed_loss_and_grads_match_jax(ref, jm):
         within_max(got.float(), want, 2.0 ** -4)
 
 
-def test_streamed_train_steps_match_jax(ref, jm):
+@pytest.mark.parametrize("arch", DENSE_ARCHS[1:])
+def test_streamed_loss_and_grads_match_jax_dense(ref, jm, arch):
+    """`test_streamed_loss_and_grads_match_jax` on each other dense smoke config."""
+    test_streamed_loss_and_grads_match_jax(ref, jm, arch)
+
+
+def test_streamed_train_steps_match_jax(ref, jm, arch=ARCH):
     """3 train steps under the smoke plan (params and optimizer streamed,
     the residual stream offloaded, the rest recomputed) on both sides from
     one state (JAX's, converted and placed as the plan says): loss, ce and
@@ -370,10 +381,10 @@ def test_streamed_train_steps_match_jax(ref, jm):
     jb, jp, js = jm["base"], jm["plan"], jm["steps"]
     lr = 1e-3
     kw = dict(learning_rate=lr, warmup_steps=0, total_steps=10)
-    jt = jb.TrainConfig(model=ref.get_smoke_config(ARCH),
+    jt = jb.TrainConfig(model=ref.get_smoke_config(arch),
                         shape=jb.ShapeConfig("t", "train", 16, 2), mesh=jb.MeshSpec(*MESH1),
                         lms=jb.LMSConfig(hbm_budget=SMOKE_BUDGET), **kw)
-    tt = _tcfg(lms=tb.LMSConfig(hbm_budget=SMOKE_BUDGET), **kw)
+    tt = _tcfg(arch=arch, lms=tb.LMSConfig(hbm_budget=SMOKE_BUDGET), **kw)
     req = dict(mesh=jb.MeshSpec(*MESH1))
     jplan = jp.plan(jp.PlanRequest(cfg=jt.model, shape=jt.shape, lms=jt.lms, **req))
     plan = tp.plan(tp.PlanRequest(cfg=tt.model, shape=tt.shape, mesh=tt.mesh, lms=tt.lms))
@@ -395,15 +406,28 @@ def test_streamed_train_steps_match_jax(ref, jm):
     _check_masters(state, jstate, lr, 3)
 
 
-@pytest.mark.parametrize("optimizer", ["adamw", "sgdm"])
-@pytest.mark.parametrize("depth", [1, 2])
-def test_streamed_steps_equal_resident_bitwise(optimizer, depth):
+@pytest.mark.parametrize("arch", DENSE_ARCHS[1:])
+def test_streamed_train_steps_match_jax_dense(ref, jm, arch):
+    """`test_streamed_train_steps_match_jax` on each other dense smoke config."""
+    test_streamed_train_steps_match_jax(ref, jm, arch)
+
+
+@pytest.mark.parametrize("arch,depth,optimizer",
+                         [pytest.param(ARCH, d, o, id=f"{d}-{o}") for d in (1, 2)
+                          for o in ("adamw", "sgdm")]
+                         + [pytest.param("olmo-1b", 2, "adamw", id="olmo-1b-2-adamw")])
+def test_streamed_steps_equal_resident_bitwise(arch, depth, optimizer):
     """The port's streamed steps against its resident steps from one seed,
     3 steps, 4 layers: params and optimizer streamed (and the optimizer
     alone), with the lms_ab policy (five classes offloaded, mlp_hidden
     recomputed) and with full recompute. Every metric and every leaf of
-    the state: bitwise."""
-    tcfg = _tcfg(layers=4, optimizer=optimizer)
+    the state: bitwise. olmo-1b (norm subtrees with no leaves, a tied
+    embedding) with a vocabulary of 2**14, so its tied table (2**20
+    elements) updates in the sweep's 16 rest chunks."""
+    vocab = 1 << 14 if arch == "olmo-1b" else None
+    tcfg = _tcfg(layers=4, arch=arch, vocab=vocab, optimizer=optimizer)
+    if vocab:
+        assert tsteps._rest_chunks(vocab * tcfg.model.d_model) == 16
     batches = _batches(tcfg.model)
     base, base_state = _run(tcfg, None, batches)
     for residency in ({"params": "host", "optimizer": "host"}, {"optimizer": "host"}):

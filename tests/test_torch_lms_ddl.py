@@ -60,6 +60,7 @@ from repro_torch.train import steps as tsteps
 from repro_torch.tree import tree_leaves
 
 ARCH = "qwen2.5-14b"
+OLMO = "olmo-1b"
 MESH = ((2, 1, 1), ("pod", "data", "model"))
 STEPS, BATCH, SEQ, LR = 3, 4, 16, 1e-3
 BUDGET = 600_000
@@ -140,10 +141,8 @@ def _jax_side(out_dir):
     plan = sink_plan(jp, jb, cfg, _shape(jb), spec, _jax_h100())
     (out / "jax_plan.json").write_text(_plan_json(plan))
     res = {}
-    # the step under the plan, compress off and on; the resident step
-    # (overlapped) compressed, which the compressed one equals bitwise
-    for name, c, p in (("compress=False", False, plan), ("compress=True", True, plan),
-                       ("resident_compress", True, None)):
+
+    def run(name, cfg, init, c, p):
         tcfg = jb.TrainConfig(
             model=cfg, shape=_shape(jb), mesh=spec,
             lms=jb.LMSConfig(enabled=p is not None, hbm_budget=BUDGET),
@@ -159,6 +158,21 @@ def _jax_side(out_dir):
                 res[f"{name}/{k}/{i}"] = np.float32(met[k])
         res.update({f"{name}/master/{k}": v for k, v in
                     flat_tree(jax.tree.map(np.asarray, state.opt.master)).items()})
+    # the step under the plan, compress off and on; the resident step
+    # (overlapped) compressed, which the compressed one equals bitwise
+    for name, c, p in (("compress=False", False, plan), ("compress=True", True, plan),
+                       ("resident_compress", True, None)):
+        run(name, cfg, init, c, p)
+    # olmo-1b (norm subtrees with no leaves, a tied embedding), compressed,
+    # under its own sinking plan and resident
+    ocfg = ref.get_smoke_config(OLMO)
+    oparams, _ = random_params(ref, ocfg, seed=12)
+    oinit = js.TrainState(jnp.zeros((), jnp.int32), oparams, adamw_init(oparams))
+    save_state(out / "olmo_init.npz", jax.tree.map(np.asarray, oinit))
+    oplan = sink_plan(jp, jb, ocfg, _shape(jb), spec, _jax_h100())
+    (out / "jax_olmo_plan.json").write_text(_plan_json(oplan))
+    for name, p in ((f"{OLMO}/compress=True", oplan), (f"{OLMO}/resident_compress", None)):
+        run(name, ocfg, oinit, True, p)
     np.savez(out / "jax_steps.npz", **res)
 
     # the Trainer under its own plan, the overlapped backward asked for;
@@ -206,14 +220,14 @@ def _port_steps(rank, world, out_dir):
     cfg = get_smoke_config(ARCH)
     plan = sink_plan(tp, tb, cfg, _shape(tb), tb.MeshSpec(*MESH), tp.hwlib.DEFAULT)
     (out / f"port_plan_{rank}.json").write_text(_plan_json(plan))
-    _wait_for(out / "init.npz")
     res = {}
-    for name, c, p in (("compress=False", False, plan), ("compress=True", True, plan),
-                       ("resident_compress", True, None)):
-        tcfg = _tcfg(lms=tb.LMSConfig(enabled=p is not None, hbm_budget=BUDGET),
-                     ddl=tb.DDLConfig(compress_dcn=c))
+
+    def run(name, cfg, init, c, p):
+        tcfg = dataclasses.replace(
+            _tcfg(lms=tb.LMSConfig(enabled=p is not None, hbm_budget=BUDGET),
+                  ddl=tb.DDLConfig(compress_dcn=c)), model=cfg)
         step = tsteps.build_train_step(Model(cfg), tcfg, plan=p, mesh=mesh)
-        state = tsteps.place_train_state(state_from_npz(out / "init.npz"), p, "cpu")
+        state = tsteps.place_train_state(state_from_npz(init), p, "cpu")
         assert (state.grads is not None) == (p is not None)
         for i, b in enumerate(_batches(cfg.vocab_size)):
             rows = local_rows(b, mesh.dp_index, mesh.dp_size)
@@ -222,6 +236,16 @@ def _port_steps(rank, world, out_dir):
                 res[f"{name}/{k}/{i}"] = np.float32(met[k].item())
         res.update({f"{name}/master/{k}": v for k, v in flat_tree(state.opt.master).items()})
         res.update({f"{name}/params/{k}": v for k, v in flat_tree(state.params).items()})
+    _wait_for(out / "init.npz")
+    for name, c, p in (("compress=False", False, plan), ("compress=True", True, plan),
+                       ("resident_compress", True, None)):
+        run(name, cfg, out / "init.npz", c, p)
+    ocfg = get_smoke_config(OLMO)
+    oplan = sink_plan(tp, tb, ocfg, _shape(tb), tb.MeshSpec(*MESH), tp.hwlib.DEFAULT)
+    (out / f"port_olmo_plan_{rank}.json").write_text(_plan_json(oplan))
+    _wait_for(out / "olmo_init.npz")
+    for name, p in ((f"{OLMO}/compress=True", oplan), (f"{OLMO}/resident_compress", None)):
+        run(name, ocfg, out / "olmo_init.npz", True, p)
     np.savez(out / f"port_steps_{rank}.npz", **res)
 
 
@@ -387,6 +411,40 @@ def test_lms_ddl_step_matches_jax(runs, compress):
                        for k, r in zip(masters, resident))
     else:
         assert np.percentile(diff, 99) <= 0.1 * unit, np.percentile(diff, 99) / unit
+    for k in ranks[0]:
+        if k.startswith(f"{v}/params/") or k.startswith(f"{v}/master/"):
+            assert np.array_equal(ranks[1][k].view(np.int32), ranks[0][k].view(np.int32)), k
+
+
+def test_olmo_lms_ddl_step_matches_jax(runs):
+    """(i) for olmo-1b (norm subtrees with no leaves, a tied embedding;
+    compressed): the same sinking plan on both sides; per step loss, ce,
+    grad norm and lr within (i)'s bounds; after 3 steps the master weights
+    within 2 lr N (median 0.01 lr N); on each side the step under the
+    plan equals the resident step bitwise; both ranks the same."""
+    out, _ = runs
+    jplan = json.loads((out / "jax_olmo_plan.json").read_text())
+    for r in range(2):
+        assert json.loads((out / f"port_olmo_plan_{r}.json").read_text()) == jplan
+    assert jplan["residency"]["grads"] == "host" and jplan["overlap_grads"]
+    jres = dict(np.load(out / "jax_steps.npz"))
+    ranks = [dict(np.load(out / f"port_steps_{r}.npz")) for r in range(2)]
+    v = f"{OLMO}/compress=True"
+    for i in range(STEPS):
+        for k, tol in (("loss", 2e-3), ("ce", 2e-3), ("grad_norm", 2e-3), ("lr", 1e-6)):
+            key = f"{v}/{k}/{i}"
+            for r in range(2):
+                assert _rel(ranks[r][key], jres[key]) <= tol, (key, r, ranks[r][key], jres[key])
+    masters = sorted(k for k in jres if k.startswith(f"{v}/master/"))
+    assert any(k.endswith("@empty") for k in masters)
+    diff = np.concatenate([np.abs(ranks[0][k] - jres[k]).ravel() for k in masters])
+    unit = LR * STEPS
+    assert diff.max() <= 2 * unit + 1e-6, diff.max() / unit
+    assert np.median(diff) <= 0.01 * unit, np.median(diff) / unit
+    resident = [k.replace(v, f"{OLMO}/resident_compress") for k in masters]
+    for side in (jres, ranks[0]):
+        assert all(np.array_equal(side[k].view(np.int32), side[r].view(np.int32))
+                   for k, r in zip(masters, resident))
     for k in ranks[0]:
         if k.startswith(f"{v}/params/") or k.startswith(f"{v}/master/"):
             assert np.array_equal(ranks[1][k].view(np.int32), ranks[0][k].view(np.int32)), k

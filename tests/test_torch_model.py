@@ -1,6 +1,10 @@
 """The port's model pieces against the JAX package on the qwen2.5-14b smoke
 config (2 layers, d_model 64, 4 query / 2 kv heads), with params converted
-from the JAX side.
+from the JAX side; the whole-model paths (prefill, chunked prefill, the
+flash-attention prefill, the whole-batch decode) on the smoke configs of
+every dense decoder ported: qwen2.5-14b, olmo-1b (MHA, LayerNorm without
+params, tied embeddings), starcoder2-7b (LayerNorm with a bias, GELU with
+biases) and qwen2-72b (8 query / 2 kv heads of 8).
 
 Function-level pieces (norm, rope, MLP, attention functions) run in f32 and
 agree to 1e-5. The model runs in bf16 by construction — ParamDef defaults
@@ -34,13 +38,27 @@ def f32(x):
     return np.asarray(x).astype(np.float32)
 
 
+DENSE_ARCHS = ("qwen2.5-14b", "olmo-1b", "starcoder2-7b", "qwen2-72b")
+
+
+def _setup(arch):
+    from repro_torch.configs import get_smoke_config
+    ref = jax_ref()
+    jcfg = ref.get_smoke_config(arch)
+    jparams, nparams = random_params(ref, jcfg, seed=0)
+    return ref, get_smoke_config(arch), jcfg, jparams, params_from_jax(nparams, "cpu")
+
+
 @pytest.fixture(scope="module")
 def setup():
-    ref = jax_ref()
-    cfg = smoke_cfg()
-    jcfg = ref.get_smoke_config("qwen2.5-14b")
-    jparams, nparams = random_params(ref, jcfg, seed=0)
-    return ref, cfg, jcfg, jparams, params_from_jax(nparams, "cpu")
+    assert smoke_cfg() == _setup("qwen2.5-14b")[1]
+    return _setup("qwen2.5-14b")
+
+
+@pytest.fixture(scope="module", params=DENSE_ARCHS[1:])
+def dense_setup(request):
+    """`setup` for each other dense smoke config."""
+    return _setup(request.param)
 
 
 def test_layers_match_jax_f32(setup):
@@ -67,6 +85,50 @@ def test_layers_match_jax_f32(setup):
     got = layers.apply_rope(torch.from_numpy(xr), torch.from_numpy(pos), 1e6)
     want = jl.apply_rope(jnp.asarray(xr), jnp.asarray(pos), 1e6)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+# (norm_type, mlp_act, use_bias): the layer kinds of the dense configs
+LAYER_KINDS = [("layernorm", "gelu", True), ("layernorm", "gelu", False),
+               ("layernorm_nonparam", "swiglu", False), ("layernorm_nonparam", "swiglu", True),
+               ("rmsnorm", "geglu", False), ("rmsnorm", "geglu", True)]
+
+
+@pytest.mark.parametrize("norm_type,mlp_act,use_bias", LAYER_KINDS)
+def test_layer_kinds_match_jax_f32(setup, norm_type, mlp_act, use_bias):
+    """LayerNorm with and without params, and the gated (SwiGLU, GeGLU)
+    and plain GELU MLPs with and without biases, in f32 at d 64 against
+    the JAX package's on the same seeded inputs: the defs key for key and
+    the outputs within 1e-5 (an n/(n-1) variance or the exact instead of
+    the tanh GELU would be ~1e-2 off). Rows of varied mean and scale, so
+    the mean is taken out for real; the input's dtype comes back."""
+    import dataclasses
+    ref, cfg, jcfg, _, _ = setup
+    jnp, jl = ref.jnp, ref.layers
+    kw = dict(norm_type=norm_type, mlp_act=mlp_act, use_bias=use_bias, norm_eps=1e-5)
+    cfg, jcfg = dataclasses.replace(cfg, **kw), dataclasses.replace(jcfg, **kw)
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((2, 5, 64)) * rng.uniform(0.1, 4, (2, 5, 1))
+         + rng.uniform(-3, 3, (2, 5, 1))).astype(np.float32)
+
+    def draw(defs):
+        return {k: (1 + 0.1 * rng.standard_normal(d.shape) if d.init == "ones" else
+                    0.1 * rng.standard_normal(d.shape)).astype(np.float32)
+                for k, d in defs.items()}
+    for defs, jdefs, apply, japply in (
+            (layers.norm_defs(cfg, 64), jl.norm_defs(jcfg, 64),
+             layers.apply_norm, jl.apply_norm),
+            (layers.mlp_defs(cfg), jl.mlp_defs(jcfg), layers.apply_mlp, jl.apply_mlp)):
+        assert {k: dataclasses.astuple(d) for k, d in defs.items()} == \
+            {k: dataclasses.astuple(d) for k, d in jdefs.items()}
+        p = draw(defs)
+        got = apply(cfg, {k: torch.from_numpy(v) for k, v in p.items()}, torch.from_numpy(x))
+        want = japply(jcfg, {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x))
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    xb = torch.from_numpy(x).bfloat16()
+    assert layers.apply_norm(cfg, {k: torch.from_numpy(v) for k, v in
+                                   draw(layers.norm_defs(cfg, 64)).items()}, xb).dtype == \
+        torch.bfloat16
 
 
 @pytest.mark.parametrize("q_offset,kv_len", [(0, None), (4, 7), (8, 12)])
@@ -118,8 +180,14 @@ def test_prefill_matches_jax(setup):
         bf16_close(tlog.float(), f32(jlog), f"{impl} logits")
         for key in ("k", "v"):
             got = tcache["stack0"]["attn_0"][key]
-            assert got.shape == (2, 2, 16, 2, 16) and got.dtype == torch.bfloat16
+            assert got.shape == (2, 2, 16, cfg.num_kv_heads, cfg.head_dim)
+            assert got.dtype == torch.bfloat16
             bf16_close(got.float(), f32(jcache["stack0"]["attn_0"][key]), key)
+
+
+def test_prefill_matches_jax_dense(dense_setup):
+    """`test_prefill_matches_jax` on the other dense smoke configs."""
+    test_prefill_matches_jax(dense_setup)
 
 
 def test_prefill_chunk_matches_whole_prefill(setup):
@@ -150,6 +218,11 @@ def test_prefill_chunk_matches_whole_prefill(setup):
         torch.testing.assert_close(got, wcache["stack0"]["attn_0"][key][:, :, :11],
                                    rtol=0, atol=0)
         bf16_close(got.float(), f32(jcache["stack0"]["attn_0"][key])[:, :, :11], key)
+
+
+def test_prefill_chunk_matches_whole_prefill_dense(dense_setup):
+    """`test_prefill_chunk_matches_whole_prefill` on the other dense smoke configs."""
+    test_prefill_chunk_matches_whole_prefill(dense_setup)
 
 
 def _arena_case(kv_dtype, seed=9):
@@ -237,6 +310,11 @@ def test_pallas_prefill_matches_jax_kernel_prefill(setup, monkeypatch):
     bf16_close(tlog.float(), nlog.float(), "pallas vs naive")
 
 
+def test_pallas_prefill_matches_jax_kernel_prefill_dense(dense_setup, monkeypatch):
+    """`test_pallas_prefill_matches_jax_kernel_prefill` on the other dense smoke configs."""
+    test_pallas_prefill_matches_jax_kernel_prefill(dense_setup, monkeypatch)
+
+
 def _to_jax(ref, t):
     if t.dtype == torch.bfloat16:
         return ref.jnp.asarray(t.float().numpy(), ref.jnp.bfloat16)
@@ -268,6 +346,11 @@ def test_decode_step_matches_jax(setup):
     for key in ("k", "v"):
         bf16_close(tcache["stack0"]["attn_0"][key].float(),
                    f32(jcache["stack0"]["attn_0"][key]), key)
+
+
+def test_decode_step_matches_jax_dense(dense_setup):
+    """`test_decode_step_matches_jax` on the other dense smoke configs."""
+    test_decode_step_matches_jax(dense_setup)
 
 
 def test_apply_layer_decode_matches_jax(setup):

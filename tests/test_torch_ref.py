@@ -17,6 +17,7 @@ worker pass or fail as they would without the port's tests.
 Inputs are made from a seed with numpy and fed to both sides.
 """
 import ast
+import math
 import os
 import pathlib
 import sys
@@ -142,18 +143,72 @@ def smoke_cfg():
 # ---------------------------------------------------------------------------
 
 def test_config_matches_reference():
+    """Every registered config and its smoke config has the JAX package's
+    fields; the JAX registry's other ids raise "not ported yet"."""
     import dataclasses
-    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
     ref = jax_ref()
     from repro.configs import get_config as jget_config
-    assert (dataclasses.asdict(get_config("qwen2.5-14b"))
-            == dataclasses.asdict(jget_config("qwen2.5-14b")))
-    assert (dataclasses.asdict(get_smoke_config("qwen2.5-14b"))
-            == dataclasses.asdict(ref.get_smoke_config("qwen2.5-14b")))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("olmo-1b")
+    assert ARCH_IDS == ("qwen2.5-14b", "olmo-1b", "starcoder2-7b", "qwen2-72b",
+                        "mamba2-1.3b")
+    for arch in ARCH_IDS:
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jget_config(arch))
+        assert (dataclasses.asdict(get_smoke_config(arch))
+                == dataclasses.asdict(ref.get_smoke_config(arch)))
+    for arch in ("grok-1-314b", "qwen3-moe-235b-a22b", "recurrentgemma-9b", "qwen2-vl-2b",
+                 "whisper-tiny"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "olmo-1b", "starcoder2-7b", "qwen2-72b",
+                                  "mamba2-1.3b"])
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+def test_param_defs_match_reference(arch, smoke):
+    """The port's param defs (norms, MLP, attention, embedding: every
+    ParamDef's shape, axes, init, scale and dtype) equal the JAX package's
+    for every registered config, key for key; the published sizes of the
+    dense configs."""
+    import dataclasses
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import layers
+    from repro_torch.models.model import Model
+    ref = jax_ref()
+    from repro.configs import get_config as jget_config
+    cfg = (get_smoke_config if smoke else get_config)(arch)
+    jcfg = (ref.get_smoke_config if smoke else jget_config)(arch)
+    is_def = lambda x: isinstance(x, ref.layers.ParamDef)  # noqa: E731
+
+    def fields(tree, leaf):
+        if isinstance(tree, dict):
+            return {k: fields(v, leaf) for k, v in tree.items()}
+        assert leaf(tree), type(tree)
+        return dataclasses.astuple(tree)
+    for got, want in ((layers.norm_defs(cfg, cfg.d_model), ref.layers.norm_defs(jcfg,
+                                                                                jcfg.d_model)),
+                      (Model(cfg).param_defs(), ref.Model(jcfg).param_defs())):
+        assert fields(got, layers.is_def) == fields(want, is_def)
+    if cfg.family != "dense":
+        return
+    assert fields(layers.mlp_defs(cfg), layers.is_def) == fields(ref.layers.mlp_defs(jcfg),
+                                                                 is_def)
+    if not smoke:
+        count = sum(math.prod(d.shape) for _, d in _def_leaves(Model(cfg).param_defs()))
+        assert count == cfg.param_count()
+        if arch == "olmo-1b":
+            assert count == 1_176_764_416
+        if arch == "qwen2-72b":     # the embedding, the head and the final norm
+            rest = cfg.vocab_size * cfg.d_model * 2 + cfg.d_model
+            assert rest == 2_491_424_768
+            assert count - rest == cfg.num_layers * 877_684_736
+
+
+def _def_leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        return [pd for k, v in tree.items() for pd in _def_leaves(v, prefix + (k,))]
+    return [(prefix, tree)]
 
 
 def test_converter_is_exact_and_keeps_the_tree():
@@ -181,6 +236,39 @@ def test_converter_is_exact_and_keeps_the_tree():
         assert np.array_equal(back, np.asarray(n).astype(np.float32))
     walk(tparams, nparams)
     assert sorted(map(str, got)) == sorted(map(str, want))
+
+
+def test_converter_and_trees_keep_empty_subtrees():
+    """olmo-1b's LayerNorms have no params (`{}` subtrees, as in the JAX
+    package): `params_from_jax` and `train_state_from_jax` keep them, and
+    `tree_unflatten` of a tree's own leaves, and `tree_map`, give them
+    back; the leaves are exact."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import params_from_jax, train_state_from_jax
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+    ref = jax_ref()
+    from repro.optim.adamw import adamw_init
+    from repro.train.steps import TrainState
+    jcfg = ref.get_smoke_config("olmo-1b")
+    jparams, nparams = random_params(ref, jcfg, seed=4)
+    params = params_from_jax(nparams, "cpu")
+
+    def structure(t):
+        return {k: structure(v) for k, v in t.items()} if isinstance(t, dict) else None
+    want = structure(Model(get_smoke_config("olmo-1b")).param_defs())
+    assert want["final_norm"] == {} and want["decoder"]["stack0"]["attn_0"]["ln2"] == {}
+    assert structure(params) == structure(nparams) == want
+    assert structure(tree_unflatten(params, tree_leaves(params))) == want
+    assert structure(tree_map(lambda t: t, params)) == want
+    jstate = ref.jax.tree.map(np.asarray, TrainState(ref.jnp.zeros((), ref.jnp.int32), jparams,
+                                                     adamw_init(jparams)))
+    state = train_state_from_jax(jstate, "cpu")
+    for tree, jtree in ((state.params, jstate.params), (state.opt.mu, jstate.opt.mu),
+                        (state.opt.master, jstate.opt.master)):
+        assert structure(tree) == want
+        for g, w in zip(tree_leaves(tree), ref.jax.tree.leaves(jtree)):
+            assert np.array_equal(g.float().numpy(), np.asarray(w).astype(np.float32))
 
 
 def _imports(path: pathlib.Path):

@@ -1,7 +1,10 @@
 """The port's serve engine against the JAX engine on the CPU: the same
 converted params and request trace (4 requests, 2 slots, page size 4,
 chunk 4, a device page budget that makes two requests spill), for both KV
-widths.
+widths, on the smoke config of each dense decoder ported (qwen2.5-14b;
+olmo-1b: MHA, LayerNorm without params, tied embeddings; starcoder2-7b:
+LayerNorm with a bias, GELU with biases, G = 2; qwen2-72b: G = 4 at head
+dim 8).
 
 Random-init logits at smoke width have near ties in bf16, so the
 comparison is teacher-forced: the port is fed the JAX engine's tokens, and
@@ -38,17 +41,41 @@ from repro_torch.serve import (PagedKVPool, ServeEngine, decode_step_batch,
 
 SLOTS, MAX_LEN, PAGE, CHUNK = 2, 16, 4, 4
 N_REQ, PROMPT, GEN = 4, 8, 8
+DENSE_ARCHS = ("qwen2.5-14b", "olmo-1b", "starcoder2-7b", "qwen2-72b")
+
+
+def _params(arch):
+    ref = jax_ref()
+    jparams, nparams = random_params(ref, ref.get_smoke_config(arch), seed=0)
+    return ref, jparams, params_from_jax(nparams, "cpu")
 
 
 @pytest.fixture(scope="module")
 def params():
-    ref = jax_ref()
-    jparams, nparams = random_params(ref, ref.get_smoke_config("qwen2.5-14b"), seed=0)
-    return ref, jparams, params_from_jax(nparams, "cpu")
+    return _params("qwen2.5-14b")
 
 
-def _run_jax(ref, jparams, kv_dtype):
-    jcfg = ref.get_smoke_config("qwen2.5-14b")
+@pytest.fixture(scope="module")
+def arch_params():
+    """arch -> `params` of that dense smoke config, each made once."""
+    made = {}
+
+    def get(arch):
+        if arch not in made:
+            made[arch] = _params(arch)
+        return made[arch]
+    return get
+
+
+def _arch_cases(values):
+    """(arch, value) cases: qwen2.5-14b's under the value's own id, the
+    other dense configs' as "<arch>-<value>"."""
+    return ([pytest.param(DENSE_ARCHS[0], v, id=v) for v in values]
+            + [pytest.param(a, v, id=f"{a}-{v}") for a in DENSE_ARCHS[1:] for v in values])
+
+
+def _run_jax(ref, jparams, kv_dtype, arch):
+    jcfg = ref.get_smoke_config(arch)
     eng = ref.ServeEngine(ref.Model(jcfg, attn_impl="naive"), ref.mesh(),
                           slots=SLOTS, max_len=MAX_LEN, page_size=PAGE,
                           prefill_chunk=CHUNK, params=jparams, kv_dtype=kv_dtype)
@@ -64,11 +91,12 @@ def _run_jax(ref, jparams, kv_dtype):
     return toks, rows, eng.metrics()
 
 
-@pytest.mark.parametrize("kv_dtype", ["model", "int8"])
-def test_engine_matches_jax_engine_teacher_forced(params, kv_dtype):
-    ref, jparams, tparams = params
-    jtoks, jrows, jmetrics = _run_jax(ref, jparams, kv_dtype)
-    cfg = smoke_cfg()
+@pytest.mark.parametrize("arch,kv_dtype", _arch_cases(["model", "int8"]))
+def test_engine_matches_jax_engine_teacher_forced(arch_params, arch, kv_dtype):
+    from repro_torch.configs import get_smoke_config
+    ref, jparams, tparams = arch_params(arch)
+    jtoks, jrows, jmetrics = _run_jax(ref, jparams, kv_dtype, arch)
+    cfg = get_smoke_config(arch)
     eng = ServeEngine(Model(cfg, attn_impl="naive"), slots=SLOTS, max_len=MAX_LEN,
                       page_size=PAGE, prefill_chunk=CHUNK, params=tparams,
                       kv_dtype=kv_dtype, device="cpu")
@@ -161,10 +189,16 @@ def test_pool_spill_prefetch_attach_round_trip(kv_dtype):
     assert pool.stats["prefetched_pages"] == 2 and pool.stats["fetched_pages"] == 0
 
 
-@pytest.mark.parametrize("kv_dtype", ["model", "int8"])
-def test_launch_serve_on_cpu(capsys, kv_dtype):
+@pytest.mark.parametrize("arch,kv_dtype", [pytest.param("qwen2.5-14b", "model", id="model"),
+                                           pytest.param("qwen2.5-14b", "int8", id="int8"),
+                                           pytest.param("olmo-1b", "int8", id="olmo-1b-int8"),
+                                           pytest.param("starcoder2-7b", "int8",
+                                                        id="starcoder2-7b-int8"),
+                                           pytest.param("qwen2-72b", "model",
+                                                        id="qwen2-72b-model")])
+def test_launch_serve_on_cpu(capsys, arch, kv_dtype):
     from repro_torch.launch import serve as launch
-    argv = ["--arch", "qwen2.5-14b", "--smoke", "--device", "cpu", "--requests", "4",
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--requests", "4",
             "--slots", "2", "--prompt-len", "8", "--gen", "8", "--page-size", "4",
             "--prefill-chunk", "4", "--kv-dtype", kv_dtype]
     assert launch.main(argv) == 0
@@ -172,11 +206,11 @@ def test_launch_serve_on_cpu(capsys, kv_dtype):
     assert "served 4 requests" in out and "pages spilled/returned 4/4" in out
 
 
-def _parted_at_near_tie(ref, jparams, prompt, toks, step):
+def _parted_at_near_tie(ref, jparams, prompt, toks, step, arch="qwen2.5-14b"):
     """The JAX dense logits scoring token `step` of a greedy run (context:
     prompt + toks[:step]) have a top-2 margin within 2 * 2**-5 of their
     largest |logit|."""
-    jm = ref.Model(ref.get_smoke_config("qwen2.5-14b"), attn_impl="naive")
+    jm = ref.Model(ref.get_smoke_config(arch), attn_impl="naive")
     seq = np.concatenate([prompt, toks[:step]]).astype(np.int32)[None]
     jlog, _ = ref.jax.jit(jm.prefill)(jparams, {"tokens": ref.jnp.asarray(seq)})
     w = np.asarray(jlog, np.float32)[0]
@@ -184,19 +218,20 @@ def _parted_at_near_tie(ref, jparams, prompt, toks, step):
     return top[-1] - top[-2] <= 2 * 2.0 ** -5 * np.abs(w).max()
 
 
-@pytest.mark.parametrize("attn_impl", ["naive", "pallas"])
-def test_run_static_matches_jax_and_engine(params, attn_impl):
+@pytest.mark.parametrize("arch,attn_impl", _arch_cases(["naive", "pallas"]))
+def test_run_static_matches_jax_and_engine(arch_params, arch, attn_impl):
     """The port's run_static against the JAX run_static (same params and
     prompts, the JAX prefill with the same attn_impl, its Pallas path on
     the CPU taking its plain reference) and against the port's engine on
     the same requests: greedy tokens identical, or parted at a near tie."""
-    ref, jparams, tparams = params
-    jcfg = ref.get_smoke_config("qwen2.5-14b")
+    from repro_torch.configs import get_smoke_config
+    ref, jparams, tparams = arch_params(arch)
+    jcfg = ref.get_smoke_config(arch)
     _, jtoks, _ = ref.launch_serve.run_static(
         ref.Model(jcfg, attn_impl=attn_impl), ref.mesh(),
         ref.synth_requests(jcfg, N_REQ, PROMPT, GEN, np.random.default_rng(4)),
         PROMPT, GEN, params=jparams)
-    cfg = smoke_cfg()
+    cfg = get_smoke_config(arch)
     reqs = synth_requests(cfg, N_REQ, PROMPT, GEN, np.random.default_rng(4))
     got_params, toks, t = run_static(Model(cfg, attn_impl=attn_impl), reqs, PROMPT, GEN,
                                      params=tparams, device="cpu")
@@ -213,7 +248,7 @@ def test_run_static_matches_jax_and_engine(params, attn_impl):
             if parted.size == 0:
                 identical += 1
             else:
-                assert _parted_at_near_tie(ref, jparams, r.prompt, toks[i], parted[0]), \
+                assert _parted_at_near_tie(ref, jparams, r.prompt, toks[i], parted[0], arch), \
                     (i, parted[0], toks[i], other)
     assert identical >= N_REQ       # half the comparisons token for token
 

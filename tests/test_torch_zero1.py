@@ -8,7 +8,11 @@ the JAX package's; the zero1 step under a plan (the optimizer's flat
 shard on the device and in host memory) bitwise against the resident
 zero1 step; the `Trainer` with zero1 on 2 ranks of a 1x2x1 mesh against
 the JAX `Trainer`; `torchrun` of the CLI with `--ddl-mode zero1` against
-the JAX launcher; and `zero1_state_from_jax`.
+the JAX launcher; and `zero1_state_from_jax`. The zero1 step also on the
+olmo-1b smoke config (norm subtrees with no leaves, a tied embedding),
+overlapped and serialized; and phase 3 (the params gathered from the
+updated master shard) on 2 ranks at 4 layers, a layer's row of a stacked
+leaf at a time.
 
 Inputs: the qwen2.5-14b smoke config (2 layers, d_model 64, bf16 but for
 the f32 embedding table) with random weights from a numpy seed
@@ -58,7 +62,15 @@ TRAINER_MESH = ((1, 2, 1), ("pod", "data", "model"))
 STEPS, BATCH, SEQ, LR = 3, 8, 16, 1e-3
 # name -> (overlap_grads, compress_dcn)
 VARIANTS = {"overlapped": (True, False), "overlapped_compress": (True, True),
-            "serialized": (False, False), "serialized_compress": (False, True)}
+            "serialized": (False, False), "serialized_compress": (False, True),
+            "olmo-1b_overlapped": (True, False), "olmo-1b_serialized": (False, False)}
+# phase 3 of the zero1 step: 2 ranks of a (1, 2) mesh, the smoke config at 4 layers
+PHASE3_LAYERS, PHASE3_MESH = 4, ((1, 2), ("pod", "data"))
+
+
+def _arch(variant: str) -> str:
+    """The smoke config a variant of VARIANTS runs."""
+    return "olmo-1b" if variant.startswith("olmo-1b") else ARCH
 # plan name -> the optimizer class's residency (params on the host with it)
 PLANS = {"optimizer_device": {"optimizer": "device"},
          "optimizer_host": {"optimizer": "host", "params": "host"}}
@@ -182,13 +194,14 @@ def _jax_side(out_dir):
         [jnp.asarray(inp["flat"])]).items()})
     np.savez(out / "jax_collectives.npz", **res)
 
-    # the zero1 step, each variant from its layout's state of one params tree
-    cfg = ref.get_smoke_config(ARCH)
-    jparams, _ = random_params(ref, cfg, seed=11)
+    # the zero1 step, each variant from its layout's state of one params
+    # tree of its config
     spec = jb.MeshSpec(*MESH)
     mesh = make_mesh(spec)
     res = {}
     for name, (ov, c) in VARIANTS.items():
+        cfg = ref.get_smoke_config(_arch(name))
+        jparams, _ = random_params(ref, cfg, seed=11)
         init = _jax_state(ref, jparams, ov, 2)
         save_zero1(out / f"init_{name}.npz", jax.tree.map(np.asarray, init))
         tcfg = jb.TrainConfig(
@@ -208,6 +221,7 @@ def _jax_side(out_dir):
     np.savez(out / "jax_steps.npz", **res)
 
     # the Trainer with zero1 on 1x2x1; its initial state goes to the port's
+    cfg = ref.get_smoke_config(ARCH)
     tspec2 = jb.MeshSpec(*TRAINER_MESH)
     tcfg = jb.TrainConfig(
         model=cfg, shape=jb.ShapeConfig("t", "train", SEQ, 4), mesh=tspec2,
@@ -232,8 +246,8 @@ def _jax_side(out_dir):
 # the port's ranks
 # ---------------------------------------------------------------------------
 
-def _tcfg(mesh=MESH, **kw):
-    return tb.TrainConfig(model=get_smoke_config(ARCH),
+def _tcfg(mesh=MESH, arch=ARCH, **kw):
+    return tb.TrainConfig(model=get_smoke_config(arch),
                           shape=tb.ShapeConfig("t", "train", SEQ, BATCH),
                           mesh=tb.MeshSpec(*mesh), lms=tb.LMSConfig(enabled=False),
                           learning_rate=LR, warmup_steps=0, total_steps=10,
@@ -294,10 +308,11 @@ def _port_steps(rank, world, out_dir):
                                                               mesh.dp_size).items()}
                for b in _batches(cfg.vocab_size)]
     res = {}
-    _wait_for(out / f"init_{list(VARIANTS)[-1]}.npz")
     for name, (ov, c) in VARIANTS.items():
-        tcfg = _tcfg(ddl=tb.DDLConfig(mode="zero1", compress_dcn=c, overlap_grads=ov))
-        step = tsteps.build_zero1_train_step(model, tcfg, mesh=mesh)
+        _wait_for(out / f"init_{name}.npz")
+        tcfg = _tcfg(arch=_arch(name),
+                     ddl=tb.DDLConfig(mode="zero1", compress_dcn=c, overlap_grads=ov))
+        step = tsteps.build_zero1_train_step(Model(tcfg.model), tcfg, mesh=mesh)
         assert isinstance(step.layout, overlap.ShardSpec) == ov
         state = zero1_state_from_jax(load_zero1(out / f"init_{name}.npz"), "cpu",
                                      data_index, 2)
@@ -333,6 +348,43 @@ def _port_steps(rank, world, out_dir):
     (out / f"port_bitwise_{rank}.json").write_text(json.dumps(bitwise))
 
 
+def _port_phase3(rank, world, out_dir):
+    """One zero1 step (overlapped: the ShardSpec layout) on this rank of a
+    (1, 2) mesh at PHASE3_LAYERS layers, every `mesh.all_gather` recorded
+    (the shape it gathers); then the whole-leaf gather of the updated
+    master (`allgather_local_shards`), cast to each param's dtype."""
+    from repro_torch.data import local_rows
+    from repro_torch.launch.mesh import make_mesh
+    out = pathlib.Path(out_dir)
+    init_gloo(rank, world, out)
+    mesh = make_mesh(tb.MeshSpec(*PHASE3_MESH))
+    tcfg = dataclasses.replace(
+        _tcfg(mesh=PHASE3_MESH, ddl=tb.DDLConfig(mode="zero1", overlap_grads=True)),
+        model=dataclasses.replace(get_smoke_config(ARCH), num_layers=PHASE3_LAYERS))
+    model = Model(tcfg.model)
+    step = tsteps.build_zero1_train_step(model, tcfg, mesh=mesh)
+    state = tsteps.init_zero1_state(model, tcfg, 5, "cpu", 2, data_index=mesh.index("data"))
+    gathered = []
+    all_gather = mesh.all_gather
+
+    def spy(t, axis):
+        gathered.append(list(t.shape))
+        return all_gather(t, axis)
+    b = _batches(tcfg.model.vocab_size)[0]
+    mesh.all_gather = spy
+    state, _ = step(state, {k: torch.from_numpy(v) for k, v in
+                            local_rows(b, mesh.dp_index, mesh.dp_size).items()})
+    mesh.all_gather = all_gather
+    whole = overlap.allgather_local_shards(state.master, step.layout, mesh=mesh,
+                                           data_axis="data")
+    layout = step.layout
+    np.savez(out / f"phase3_{rank}.npz", gathered=np.asarray(gathered),
+             rows=np.asarray(layout.rows),
+             sl=np.asarray([pr // layout.data_size for pr in layout.padded_rows]),
+             same=np.asarray([torch.equal(p, w.to(p.dtype)) for p, w in
+                              zip(tree_leaves(state.params), tree_leaves(whole))]))
+
+
 def _port_trainer(rank, world, out_dir):
     """The Trainer with zero1 on this rank of the 1x2x1 mesh, from the JAX
     trainer's initial state."""
@@ -364,6 +416,7 @@ def runs(tmp_path_factory):
     ranks, 2 ranks of the Trainer, and torchrun of the CLI."""
     out = tmp_path_factory.mktemp("zero1")
     (out / "trainer").mkdir()
+    (out / "phase3").mkdir()
     cli = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", "-m", "repro_torch.launch.train", "--device", "cpu"]
@@ -371,7 +424,8 @@ def runs(tmp_path_factory):
         text=True)
     procs = (start_jax(ME, "_jax_side", out, devices=WORLD)
              + start_ranks(ME, "_port_steps", out, WORLD)
-             + start_ranks(ME, "_port_trainer", out, 2) + [cli])
+             + start_ranks(ME, "_port_trainer", out, 2)
+             + start_ranks(ME, "_port_phase3", out / "phase3", 2) + [cli])
     outs = wait_all(procs, timeout=300)
     return out, outs[-1]
 
@@ -512,6 +566,25 @@ def test_zero1_step_on_4_ranks_matches_jax(runs, variant):
         if k.startswith(f"{variant}/params/"):
             for r in range(1, WORLD):
                 assert np.array_equal(bits(ranks[r][k]), bits(ranks[0][k])), (k, r)
+
+
+def test_zero1_phase3_gathers_a_layer_at_a_time(runs):
+    """Phase 3 of the zero1 step (the params gathered from the updated
+    master shard) at 4 stacked layers on 2 ranks: every all-gather of the
+    step takes one row of a leaf ([1, sl]: one layer of a stacked leaf, or
+    a whole unstacked one), one per row of every leaf, so no stacked leaf
+    stands gathered whole; the params equal the whole-leaf gather
+    (`allgather_local_shards`) cast to their dtype, bitwise."""
+    out, _ = runs
+    for r in range(2):
+        got = dict(np.load(out / "phase3" / f"phase3_{r}.npz"))
+        rows, sl = got["rows"], got["sl"]
+        assert PHASE3_LAYERS in rows.tolist()
+        gathered = got["gathered"].tolist()
+        assert all(g[0] == 1 for g in gathered), gathered
+        assert sorted(g[1] for g in gathered) == sorted(
+            int(n) for n, k in zip(sl, rows) for _ in range(k))
+        assert got["same"].all()
 
 
 @pytest.mark.parametrize("plan", list(PLANS))
