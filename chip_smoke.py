@@ -81,6 +81,19 @@ non-zero, printing no result):
 9. profile — that 4-layer trace once more with each KV width under
    torch.profiler: the device's busy share, its top kernels, and the
    runtime launch calls per layer-tick;
+9a. serve_plan — serving under a serve plan, in a spawned process sharing
+   those 4 layers' weights on the card: the plan of
+   LMSConfig(hbm_budget=3e9) puts the params on the host, the weights are
+   copied into its pinned arena, and every prefill chunk and decode tick
+   of the engine streams the stack a layer at a time and the rest (the
+   batch's embedding rows, the final norm, the head) from there: tokens
+   and every logits row bitwise the resident engine's at model width and
+   int8, the params' swap bytes exactly what the sweeps copy, the
+   engine's peak at most 1.10 x the plan's, the kernels' launches as the
+   trace implies; the preemption and pool-exhaustion drills of the fault
+   injector bitwise the undisturbed run; `run_static` under the plan
+   through the prefill kernel and the contiguous decode, bitwise resident,
+   its peak at most 1.10 x the plan's too;
 9b. dense_configs — the registry's other dense decoders at their published
    widths, random weights from a seed: olmo-1b (MHA 16/16, LayerNorm
    without params, tied embeddings) serving at 2 layers (against the
@@ -112,7 +125,8 @@ non-zero, printing no result):
    the queued run;
 12. DDL's sharded paths (qwen2.5-14b at full width cut to 1 layer, 2 ranks
    on a 1x2x1 mesh: 2 data ranks, no pod hop, one step a run at the
-   peak lr, one after another) — (i) allreduce and (ii) zero1, resident, overlapped, a row
+   peak lr, one after another; run first of all the rank phases, just
+   after the kernel checks, for host memory) — (i) allreduce and (ii) zero1, resident, overlapped, a row
    of 2048 tokens a rank; (iii) zero1 under the plan of
    LMSConfig(hbm_budget=16e9); (iv) the sharded microbatch accumulator
    and (v) the serialized one under that plan, two rows a rank in 2
@@ -149,8 +163,8 @@ non-zero, printing no result):
    of the restore under its bound; the save's blocking and writer seconds,
    the restore's, GB/s, step 3 beside the write. The files (two 27.2 GB
    checkpoints) go to RAM (/dev/shm): the machine lets a run write at most
-   45 GiB to its disk; the parent waits for the host to hand the
-   process's memory back before the LMS phases. (b) at smoke width, 2
+   45 GiB to its disk; after (b) the parent waits for the host to hand
+   the process's memory back before the LMS phases. (b) at smoke width, 2
    ranks over gloo: zero1 on 1x2x1 under a plan with the optimizer on the
    host, allreduce on 2x1x1 with the int8 pod hop, each bitwise its
    uninterrupted run through a crash and restart, the pod hop's launches
@@ -309,6 +323,13 @@ DENSE_TIMEOUT_S = 420
 # the 48-layer engine's determinism and profile reruns run on the first
 # RERUN_LAYERS layers of its weights
 RERUN_LAYERS = 4
+# serving under a serve plan (the serve_plan phase, on the RERUN_LAYERS
+# rerun's weights): the budget puts the params on the host (the plan's
+# device params are 2 layers' share of the whole model); the engine's peak
+# is held to 1.10 x the plan's; the preemption drill spills the youngest
+# slot at this tick, the exhaustion drill refuses this many reservations
+SERVE_PLAN_BUDGET, SERVE_PLAN_PEAK_OVER_PLAN = 3 * 10**9, 1.10
+SERVE_PLAN_PREEMPT_TICK, SERVE_PLAN_EXHAUSTIONS, SERVE_PLAN_TIMEOUT_S = 60, 3, 420
 # torch.profiler sessions that time a kernel: at most this many for one
 # number, the timed calls this far (s) inside each end of a session
 PROFILE_ATTEMPTS, PROFILE_PAD_S = 8, 0.02
@@ -2030,14 +2051,18 @@ def launch_signatures():
                          for name, (owner, attr) in routes.items()})
 
 
-def _serve(model, params, kv_dtype, rows=None, around_run=None, prefill_chunk=CHUNK):
+def _serve(model, params, kv_dtype, rows=None, around_run=None, prefill_chunk=CHUNK,
+           plan=None, injector=None):
     """Serve the trace once, inside `around_run` (a context manager) if
-    given; -> (engine, requests, finite logits?, seconds of eng.run)."""
+    given, under a serve plan and a fault injector if given (the page
+    geometry stays the trace's); -> (engine, requests, finite logits?,
+    seconds of eng.run)."""
     import numpy as np
     from repro_torch.serve import ServeEngine, synth_requests
     eng = ServeEngine(model, slots=SLOTS, max_len=MAX_LEN, page_size=PAGE,
-                      prefill_chunk=prefill_chunk, device_pages=DEVICE_PAGES, params=params,
-                      kv_dtype=kv_dtype, device="cuda")
+                      prefill_chunk=prefill_chunk, device_pages=DEVICE_PAGES,
+                      host_pages=2 * SLOTS * (MAX_LEN // PAGE), params=params,
+                      kv_dtype=kv_dtype, plan=plan, injector=injector, device="cuda")
     finite = [True]
     select = eng._select
 
@@ -2569,6 +2594,242 @@ def profile_phase(model, params, line):
         emit(rows[kv_dtype])
         del eng, prof
     return rows
+
+
+def _serve_plan(cfg):
+    """The serve plan of the trace at `cfg` under SERVE_PLAN_BUDGET."""
+    from repro_torch.config.base import LMSConfig, MeshSpec, ShapeConfig
+    from repro_torch.core.lms.planner import PlanRequest, plan
+    return plan(PlanRequest(cfg=cfg, shape=ShapeConfig("serve", "decode", MAX_LEN, SLOTS),
+                            mesh=MeshSpec((1, 1), ("data", "model")),
+                            lms=LMSConfig(hbm_budget=SERVE_PLAN_BUDGET), serve=True,
+                            slots=SLOTS, backlog_slots=2 * SLOTS, page_size=PAGE))
+
+
+def _sweep_bytes(params, rows: int) -> int:
+    """Params bytes one streamed sweep copies in: the stack, the final
+    norm, the head, and `rows` f32 embedding rows."""
+    from repro_torch.core.lms import offload as off
+    embed = params["embed"]
+    return (off.tree_bytes(params["decoder"]["stack0"]) + off.tree_bytes(params["final_norm"])
+            + off.tree_bytes(embed["lm_head"]) + rows * embed["embedding"].shape[1] * 4)
+
+
+def _pool_invariants(eng) -> bool:
+    """The pool after a run: nothing held, every device page free, every
+    spilled page come back."""
+    pool, st = eng.pool, eng.pool.stats
+    return (pool._table == {} and pool._resident == 0
+            and len(pool._free_dev) == pool.device_pages
+            and st["spilled_pages"] == st["fetched_pages"] + st["prefetched_pages"])
+
+
+def _serve_plan_rank(rank: int, world: int, layers: int, box, checked):
+    """`_serve_plan_runs` on the parent's weights, `box[0]` (shared with it
+    on the card through CUDA IPC), which this process then lets go of
+    (every reference dropped and collected before it returns), so the
+    parent can free that memory. -> the rows' facts."""
+    import gc
+    import torch
+    params = box.pop()
+    try:
+        return _serve_plan_runs(layers, params, checked)
+    finally:
+        del params
+        gc.collect()
+        torch.cuda.synchronize()
+
+
+def _serve_plan_runs(layers: int, params, checked):
+    """On the parent's weights of the first `layers` layers (no new
+    init), in the process `_serve_plan_rank` runs: the serve
+    plan of SERVE_PLAN_BUDGET (params on the host); the resident engine at
+    model width and int8 (the references); the params copied into the
+    plan's pinned arena (`train.steps.place_params`); the streamed engine
+    at both widths, counts reset just before and read just after, its peak
+    over the memory allocated before it; the preemption and exhaustion
+    drills (resident, model width); `run_static` resident and under the
+    plan through the prefill kernel, its peak taken as the engine's. ->
+    the rows' facts."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.lms import offload as off
+    from repro_torch.launch.serve import run_static
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.inject import FaultEvent, FaultInjector, FaultPlan
+    from repro_torch.serve import synth_requests
+    from repro_torch.train.steps import place_params
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=layers)
+    model = Model(cfg, attn_impl="blockwise")
+    plan = _serve_plan(cfg)
+    out = {"plan": _plan_row(plan), "plan_calibrated": plan.calibrated}
+
+    def served(params, kv, **kw):
+        rows = {}
+        eng, reqs, finite, wall = _serve(model, params, kv, rows, **kw)
+        return eng, {r.rid: list(r.tokens) for r in reqs}, rows, finite, wall, reqs
+
+    resident = {}
+    for kv in ("model", "int8"):
+        _, toks, rows, _, wall, _ = served(params, kv)
+        resident[kv] = (toks, rows)
+        out[f"resident_{kv}_run_s"] = wall
+    t0 = time.monotonic()
+    placed = place_params(params, plan, "cuda")
+    torch.cuda.synchronize()
+    out["place_s"] = time.monotonic() - t0
+    out["pinned_bytes"] = off.pinned_bytes()
+    sweep = {"chunk": _sweep_bytes(placed, CHUNK), "tick": _sweep_bytes(placed, SLOTS)}
+    for kv in ("model", "int8"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = off.swap_counters()
+        with launch_signatures() as (seen, calls, launches):
+            eng, toks, rows, finite, wall, reqs = served(placed, kv, plan=plan)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        moved = {k: v - before.get(k, 0) for k, v in off.swap_counters().items()}
+        m = eng.metrics()
+        want_toks, want_rows = resident[kv]
+        ticks = int(m["ticks"])
+        chunks = len(reqs) * (-(-PROMPT // CHUNK))
+        out[kv] = {
+            "tokens_bitwise": toks == want_toks,
+            "logits_bitwise": all(len(rows[rid]) == len(want_rows[rid]) and all(
+                np.array_equal(a, b) for a, b in zip(rows[rid], want_rows[rid]))
+                for rid in want_rows),
+            "all_ok": all(r.status == "ok" and len(r.tokens) == GEN for r in reqs),
+            "finite": finite, "run_s": wall, "decode_tok_s": m["decode_tok_s"],
+            "ticks": ticks, "prefill_chunks": chunks,
+            "swap_in_bytes_params": moved.get("lms.swap_in_bytes.params", 0),
+            "swap_in_bytes_predicted": chunks * sweep["chunk"] + ticks * sweep["tick"],
+            "peak_bytes": peak, "launches": launches,
+            "every_launch_recorded": calls == launches,
+            "unchecked": sorted(map(str, seen - checked)),
+            "pool_invariants": _pool_invariants(eng),
+            "spilled_pages": m["pool_spilled_pages"]}
+        del eng
+    drills = {"preempt": [("engine.tick", SERVE_PLAN_PREEMPT_TICK, "preempt", 1)],
+              "exhaust": [("pool.reserve", 0, "exhaust", SERVE_PLAN_EXHAUSTIONS)]}
+    for name, events in drills.items():
+        inj = FaultInjector(FaultPlan([FaultEvent(site, at=at, kind=kind, times=times)
+                                       for site, at, kind, times in events]))
+        eng, toks, _, _, wall, reqs = served(params, "model", injector=inj)
+        st = eng.pool.stats
+        out[f"drill_{name}"] = {
+            "tokens_bitwise": toks == resident["model"][0],
+            "all_ok": all(r.status == "ok" for r in reqs),
+            "fired": len(inj.fired), "preempted_requests": st["preempted_requests"],
+            "preempted_pages": st["preempted_pages"],
+            "injected_exhaustions": st["injected_exhaustions"],
+            "pool_invariants": _pool_invariants(eng), "run_s": wall}
+        del eng
+    kernel_model = Model(cfg, attn_impl="pallas")
+    reqs = synth_requests(cfg, REQUESTS, PROMPT, GEN, np.random.default_rng(SEED))
+    _, want, _ = run_static(kernel_model, reqs, PROMPT, GEN, params=params, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = off.swap_counters()
+    with launch_signatures() as (seen, calls, launches):
+        _, got, t = run_static(kernel_model, reqs, PROMPT, GEN, params=placed, device="cuda",
+                               plan=plan)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    moved = {k: v - before.get(k, 0) for k, v in off.swap_counters().items()}
+    rows_in = len(reqs) * PROMPT + (GEN - 1) * len(reqs)
+    out["static"] = {
+        "tokens_bitwise": bool(np.array_equal(got, want)), "timings": t,
+        "swap_in_bytes_params": moved.get("lms.swap_in_bytes.params", 0),
+        "swap_in_bytes_predicted": GEN * _sweep_bytes(placed, 0)
+        + rows_in * cfg.d_model * 4,
+        "peak_bytes": peak, "launches": launches, "every_launch_recorded": calls == launches,
+        "unchecked": sorted(map(str, seen - checked))}
+    del placed
+    off.release_arenas()
+    return out
+
+
+def serve_plan_phase(short, short_params, line, checked):
+    """Serving under a serve plan at qwen2.5-14b's full width, the first
+    RERUN_LAYERS layers of the 48-layer engine's weights (the determinism
+    rerun's model and params), in a spawned process that shares them on
+    the card through CUDA IPC and lets go of them before it exits
+    (`_serve_plan_rank`): the plan of
+    LMSConfig(hbm_budget=SERVE_PLAN_BUDGET) puts the params on the host, so
+    every prefill chunk and decode tick streams the stack a layer at a
+    time and the rest (the batch's embedding rows, the final norm, the
+    head) from pinned host memory. Held: the streamed engine's tokens and
+    every logits row bitwise the resident engine's, model width and int8;
+    the params' swap bytes exactly (chunks + ticks) sweeps of the stack,
+    the final norm and the head plus the rows; the engine's peak at most
+    SERVE_PLAN_PEAK_OVER_PLAN x the plan's; the paged decode (#2 / #2b),
+    the int8 write (#4b) and RMSNorm (#6) launched as the trace implies,
+    every launch at a checked shape; the preemption drill (a forced
+    spill-and-requeue at tick SERVE_PLAN_PREEMPT_TICK) and the exhaustion
+    drill (pool.reserve full SERVE_PLAN_EXHAUSTIONS times) bitwise the
+    undisturbed run with the pool's invariants; `run_static` under the
+    plan through the prefill kernel (#1) and the contiguous decode (#3)
+    bitwise resident, its peak too at most SERVE_PLAN_PEAK_OVER_PLAN x the
+    plan's. -> the row."""
+    import torch
+    t0 = time.monotonic()
+    got = spawn_ranks("_serve_plan_rank", 1, RERUN_LAYERS, [short_params], checked,
+                      timeout=SERVE_PLAN_TIMEOUT_S)[0]
+    # the weights the process shared go back to the caching allocator
+    # once it has let go of them (a shared block is held until then)
+    torch.cuda.ipc_collect()
+    cfg = short.cfg
+    L = cfg.num_layers
+    plan_peak = got["plan"]["peak_bytes"]
+    checks = {"params_on_host": got["plan"]["residency"].get("params") == "host"}
+    for kv in ("model", "int8"):
+        r = got[kv]
+        la = r["launches"]
+        norms = (2 * L + 1) * (r["ticks"] + r["prefill_chunks"]) * _rmsnorm_on(cfg)
+        checks.update({
+            f"{kv}_tokens_bitwise": r["tokens_bitwise"],
+            f"{kv}_logits_bitwise": r["logits_bitwise"],
+            f"{kv}_all_ok": r["all_ok"] and r["finite"],
+            f"{kv}_swap_bytes_exact": r["swap_in_bytes_params"] == r["swap_in_bytes_predicted"],
+            f"{kv}_peak_within_plan": r["peak_bytes"] <= SERVE_PLAN_PEAK_OVER_PLAN * plan_peak,
+            f"{kv}_paged_decode_launches": la["flash_decode_paged"] == L * r["ticks"]
+            and la["flash_decode_paged_tensor_core"] == la["flash_decode_paged"],
+            f"{kv}_kv_write_launches": (la["quantize_kv_write"] == L * r["ticks"])
+            if kv == "int8" else la["quantize_kv_write"] == 0,
+            f"{kv}_rmsnorm_launches": la["rmsnorm"] == norms,
+            f"{kv}_launches_recorded": r["every_launch_recorded"] and not r["unchecked"],
+            f"{kv}_pool_invariants": r["pool_invariants"] and r["spilled_pages"] > 0})
+    for name in ("preempt", "exhaust"):
+        d = got[f"drill_{name}"]
+        checks[f"drill_{name}"] = (d["tokens_bitwise"] and d["all_ok"] and d["pool_invariants"]
+                                   and d["fired"] > 0
+                                   and (d["preempted_requests"] > 0 if name == "preempt"
+                                        else d["injected_exhaustions"] > 0))
+    st = got["static"]
+    la = st["launches"]
+    checks.update({
+        "static_tokens_bitwise": st["tokens_bitwise"],
+        "static_swap_bytes_exact": st["swap_in_bytes_params"] == st["swap_in_bytes_predicted"],
+        "static_peak_within_plan": st["peak_bytes"] <= SERVE_PLAN_PEAK_OVER_PLAN * plan_peak,
+        "static_prefill_launches": la["flash_attention"] == L
+        and la["flash_attention_wgmma"] == L,
+        "static_decode_launches": la["flash_decode"] == L * (GEN - 1)
+        and la["flash_decode_tensor_core"] == la["flash_decode"],
+        "static_rmsnorm_launches": la["rmsnorm"] == (2 * L + 1) * GEN * _rmsnorm_on(cfg),
+        "static_launches_recorded": st["every_launch_recorded"] and not st["unchecked"]})
+    row = {"phase": "serve_plan", "arch": ARCH, "layers": L, "card": line,
+           "hbm_budget": SERVE_PLAN_BUDGET, "plan_peak_bytes": plan_peak,
+           "peak_over_plan_limit": SERVE_PLAN_PEAK_OVER_PLAN, **got,
+           "seconds": time.monotonic() - t0, "checks": checks}
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"serve_plan: failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return row
 
 
 def compare_logits(got, want, margin: float):
@@ -4748,7 +5009,8 @@ def lms_ab_microbatches_phase(line, checked, ab_row):
     and every param after the last step bitwise equal; finite losses;
     RMSNorm m x the plan's implied launches a step, m x (4L+1) resident.
     Reported: both step times, the params' swap-in bytes a step against m
-    x lms_ab's (m = 1) and against the plan's, both peaks against the
+    x lms_ab's (m = 1) less the embedding rows of m - 1 batches (they come
+    in once a token), and against the plan's, both peaks against the
     plan's. -> the phase row."""
     import dataclasses
     import statistics
@@ -4798,7 +5060,10 @@ def lms_ab_microbatches_phase(line, checked, ab_row):
               "loss_bitwise": s["loss"] == r["loss"],
               "grad_norm_bitwise": s["grad_norm"] == r["grad_norm"],
               "params_bitwise": all(same_params),
-              "params_swapped_in_m_times_m1": params_in == m * params_in_m1 > 0}
+              # the stack, the final norm and the head once a microbatch;
+              # the embedding rows once a token (the rest is on the host)
+              "params_swapped_in_m_times_m1": params_in == m * params_in_m1 - (m - 1)
+              * TRAIN_BATCH * TRAIN_SEQ * base.model.d_model * 4 > 0}
     row = {"phase": "lms_ab_microbatches", "arch": ARCH, "layers": L, "batch": TRAIN_BATCH,
            "seq": TRAIN_SEQ, "microbatches": m, "steps": n, "card": line,
            "hbm_budget": LMS_AB_BUDGET, "streamed": s, "resident": r,
@@ -4871,16 +5136,18 @@ def _grad_bytes(layers: int) -> int:
 
 def _layerwise_loss(model, state, batch):
     """The loss of `batch` under `state`'s params without the executor: a
-    no-grad forward that copies one layer at a time from pinned host memory
-    to the card and calls `apply_layer`, then the final norm, the head and
-    the cross-entropy, as `Model.loss` composes them."""
+    no-grad forward that copies the unstacked rest (embedding, final norm,
+    head) whole and one layer at a time from pinned host memory to the card
+    and calls `apply_layer`, then the final norm, the head and the
+    cross-entropy, as `Model.loss` composes them."""
     import torch
     from repro_torch.models import transformer as tr
     from repro_torch.models.layers import (apply_norm, cross_entropy, embed_tokens,
                                            lm_logits)
     from repro_torch.tree import tree_map
     cfg = model.cfg
-    params = state.params
+    params = {**state.params, **{k: tree_map(lambda t: t.to("cuda"), state.params[k])
+                                 for k in ("embed", "final_norm")}}
     with torch.no_grad():
         x = embed_tokens(cfg, params["embed"], batch["tokens"])
         ctx = model._ctx(x.shape[1], x.device)
@@ -5366,10 +5633,10 @@ def ckpt_phase(line, checked):
     a directory of their own in RAM (CKPT_RAM_ROOT, tmpfs; room checked
     against MemAvailable first, removed at the end); the process runs
     before the LMS phases, beside no reserved arena of the parent's, and
-    the parent then waits until MemAvailable is back within
-    LMS_DDL_MEM_SLACK of its value before it (the host hands a child's
-    memory back over seconds), so the gate sizes itself from the whole
-    host.
+    after (b) the parent waits until MemAvailable is back within
+    LMS_DDL_MEM_SLACK of its value before (a) (the host hands a child's
+    memory back over seconds, while (b) runs), so the gate sizes itself
+    from the whole host.
 
     (b) At smoke width, 2 ranks spawned on the card over gloo
     (`ckpt_ranks_phase`). -> the phase row."""
@@ -5383,11 +5650,10 @@ def ckpt_phase(line, checked):
     finally:
         shutil.rmtree(root)
     seconds = time.monotonic() - t0
-    mem = _await_mem_available(before - LMS_DDL_MEM_SLACK, LMS_DDL_MEM_WAIT_S)
     unchecked = sorted({_tuplify(sig) for sig in row.pop("signatures")} - checked)
     row["checks"]["every_launch_shape_checked"] = not unchecked
     row.update(card=line, seconds=seconds, unchecked_signatures=unchecked,
-               mem_available_before=before, mem_available_after=mem)
+               mem_available_before=before)
     emit(row)
     if not all(row["checks"].values()):
         raise AssertionError(f"ckpt: failed checks "
@@ -5397,6 +5663,13 @@ def ckpt_phase(line, checked):
         row["ranks"] = ckpt_ranks_phase(line, checked, root)
     finally:
         shutil.rmtree(root)
+    # (b) ran while the host handed (a)'s memory back
+    t0 = time.monotonic()
+    row["mem_available_after"] = _await_mem_available(before - LMS_DDL_MEM_SLACK,
+                                                      LMS_DDL_MEM_WAIT_S)
+    emit({"phase": "ckpt_memory", "mem_available_before": before,
+          "mem_available_after": row["mem_available_after"],
+          "wait_s": time.monotonic() - t0})
     return row
 
 
@@ -5675,6 +5948,7 @@ def dense_configs_phase(line, checked):
 
 
 def main() -> int:
+    started = time.monotonic()
     line = device_phase()
     import dataclasses
     import torch
@@ -5689,6 +5963,10 @@ def main() -> int:
         return out
     sass_row = timed(build_phase)
     kernels, checked = timed(kernel_phases, get_config(ARCH).num_layers)
+    # first of the rank phases: its two ranks hold 2 x 27.8 GB of pinned
+    # state and gloo's staging at once, which fits the machine's 96 GiB
+    # only while this process has touched little host memory
+    timed(ddl_sharded_phase, line, checked)
     f32_attention_row = timed(f32_attention_phase, line, checked)
     f32_decode_row = timed(f32_decode_phase, line, checked)
     f32_ssd_row = timed(f32_ssd_phase, line, checked)
@@ -5728,6 +6006,7 @@ def main() -> int:
     if not same:
         raise AssertionError("the model-width trace gave other tokens on a rerun")
     profiled = timed(profile_phase, short, short_params, line)
+    timed(serve_plan_phase, short, short_params, line, checked)
     # the engine by KV width, from this run: tok/s of the engine rows,
     # launch calls per layer-tick of the profiled reruns
     emit({"phase": "engine_by_kv_width", "layers": model.cfg.num_layers,
@@ -5745,7 +6024,6 @@ def main() -> int:
     timed(dense_configs_phase, line, checked)
     ddl_row = timed(ddl_phase, line, checked)
     smoke_reference, sharded_smoke = timed(ddl_smoke_phase, line, checked)
-    timed(ddl_sharded_phase, line, checked)
     timed(ddl_sharded_smoke_phase, line, checked, smoke_reference, sharded_smoke)
     timed(lms_ddl_phase, line, checked, ddl_row)
     timed(ckpt_phase, line, checked)
@@ -5818,6 +6096,7 @@ def main() -> int:
                     "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
                     "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                     "library_ms": main_row["library_ms"]})
+    emit({"phase": "seconds", "of": "chip_smoke", "seconds": time.monotonic() - started})
     emit({"phase": "sass_summary", "kernel": "fa_wgmma_kernel",
           "hgmma_total": sass_row["hgmma_total"], "hgmma": sass_row["hgmma"],
           "decode_kernel": "fd_mma_kernel", "decode_hmma_total": sass_row["decode_hmma_total"],

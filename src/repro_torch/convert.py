@@ -30,6 +30,16 @@ def params_from_jax(tree, device):
     return array_to_torch(tree, device)
 
 
+def serve_params_from_jax(tree, plan, device):
+    """The JAX package's params (numpy arrays) placed for serving under
+    `plan` as `train.steps.init_params(plan=)` places the port's own: in
+    one pinned arena when the plan puts params on the host (converted a
+    leaf at a time on the host, then copied into the arena), else on
+    `device`."""
+    from repro_torch.train.steps import place_params
+    return place_params(params_from_jax(tree, "cpu"), plan, device)
+
+
 def train_state_from_jax(state, device):
     """A JAX `TrainState` whose leaves are numpy arrays (`jax.tree.map(
     np.asarray, state)`) -> the port's `TrainState` on `device`: the step

@@ -72,7 +72,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import DDLConfig
-from repro_torch.core.ddl.allreduce import (_pod_reduce_, flat_allreduce,
+from repro_torch.core.ddl.allreduce import (POD_SLICE, _pod_reduce_, flat_allreduce,
                                             make_buckets)
 from repro_torch.core.lms import offload as off
 from repro_torch.obs import get_obs
@@ -544,38 +544,82 @@ def _by_rank(x, d: int) -> torch.Tensor:
 def local_shard_parts(tree, spec: ShardSpec, reduced, *, mesh, data_axis: str,
                       pod_axis: Optional[str], mean_over: int, compress_dcn: bool = False):
     """Yield (offset in the local vector, this rank's flat f32 part of the
-    leaf) for each leaf of the DDL-reduced tree, in leaf order. `reduced`:
-    a matching tree of bools, True for leaves the shard-mode hook already
-    reduced (zeros outside this rank's slot: sliced out, no collective),
-    False for the rest (reduce-scattered over `data`, then the pod hop and
-    the mean). A leaf given as None is skipped (its part is elsewhere
-    already: the LMS executor's queue wrote it)."""
+    leaf) for each leaf of the DDL-reduced tree, in leaf order
+    (`leaf_shard_parts`). `reduced`: a matching tree of bools, True for
+    leaves the shard-mode hook already reduced, False for the rest. A leaf
+    given as None is skipped (its part is elsewhere already: the LMS
+    executor's queue, or a reduction as the backward made it, wrote it)."""
     leaves = tree_leaves(tree)
     flags = tree_leaves(reduced)
     if len(flags) != len(leaves):
         raise ValueError(f"reduced has {len(flags)} leaves, the tree {len(leaves)}")
+    for j, (g, was_reduced) in enumerate(zip(leaves, flags)):
+        if g is not None:
+            yield from leaf_shard_parts(g, spec, j, was_reduced, mesh=mesh, data_axis=data_axis,
+                                        pod_axis=pod_axis, mean_over=mean_over,
+                                        compress_dcn=compress_dcn)
+
+
+def leaf_shard_parts(g, spec: ShardSpec, j: int, was_reduced: bool = False, *, mesh,
+                     data_axis: str, pod_axis: Optional[str], mean_over: int,
+                     compress_dcn: bool = False):
+    """Yield (offset in the local vector, this rank's flat f32 part) of
+    leaf j's grad `g`: sliced out when the shard-mode hook already reduced
+    it (zeros outside this rank's slot, no collective), else
+    reduce-scattered over `data`, then the pod hop and the mean; an
+    unstacked leaf of more than `POD_SLICE` elements a rank in pieces of
+    that many, each yielded at its own offset. `g` may be a table's grad
+    in its rows' form (`models/rest.RowsGrad`): the pieces form only their
+    own elements."""
     d = spec.data_size
-    rank = mesh.index(data_axis)
-    for g, was_reduced, r, rs, pr, off in zip(leaves, flags, spec.rows, spec.rowsizes,
-                                             spec.padded_rows, spec.offsets()):
-        if g is None:
-            continue
-        sl = pr // d
-        if was_reduced:
-            rows = g.reshape(r, rs)
-            if r == 1:
-                part = local_slot(rows, d, rank)
-            else:
-                part = torch.stack([local_slot(row, d, rank) for row in rows]).reshape(-1)
+    r, rs, pr, off = spec.rows[j], spec.rowsizes[j], spec.padded_rows[j], spec.offsets()[j]
+    sl = pr // d
+    if r == 1 and sl > POD_SLICE and not was_reduced:
+        # a large unstacked leaf (an embedding, a head): reduced POD_SLICE
+        # columns of each rank's block at a time, so no f32 copy of the
+        # whole leaf stands; the pod hop sees the slices it would have cut
+        # from the whole part
+        for k in range(0, sl, POD_SLICE):
+            w = min(POD_SLICE, sl - k)
+            x = torch.zeros(d, w, dtype=torch.float32, device=g.device)
+            for q in range(d):
+                a, b = q * sl + k, min(q * sl + k + w, rs)
+                if a < b:
+                    x[q, :b - a] = _flat_range(g, a, b)
+            yield off + k, _reduced(x, mesh=mesh, data_axis=data_axis, pod_axis=pod_axis,
+                                    compress_dcn=compress_dcn, mean_over=mean_over)
+        return
+    g = g.dense() if hasattr(g, "dense") else g
+    if was_reduced:
+        rank = mesh.index(data_axis)
+        rows = g.reshape(r, rs)
+        if r == 1:
+            part = local_slot(rows, d, rank)
         else:
-            x = _leaf_rows(g, r, rs, pr)
-            x = x.reshape(d, sl) if r == 1 else _by_rank(x, d)
-            part = mesh.psum_scatter(x, data_axis).reshape(-1)
-            if part.data_ptr() == x.data_ptr():
-                part = part.clone()     # |data| 1: the pod hop writes in place
-            _pod_reduce_(part, part, mesh=mesh, pod_axis=pod_axis,
-                         compress_dcn=compress_dcn, mean_over=mean_over)
-        yield off, part
+            part = torch.stack([local_slot(row, d, rank) for row in rows]).reshape(-1)
+    else:
+        x = _leaf_rows(g, r, rs, pr)
+        x = x.reshape(d, sl) if r == 1 else _by_rank(x, d)
+        part = _reduced(x, mesh=mesh, data_axis=data_axis, pod_axis=pod_axis,
+                        compress_dcn=compress_dcn, mean_over=mean_over)
+    yield off, part
+
+
+def _flat_range(g, a: int, b: int) -> torch.Tensor:
+    """Elements a:b of a grad's flattened form; a grad in its rows' form
+    forms only those."""
+    return g.flat_range(a, b) if hasattr(g, "flat_range") else g.reshape(-1)[a:b]
+
+
+def _reduced(x, *, mesh, data_axis, pod_axis, compress_dcn, mean_over):
+    """Phases 1-2 and the mean of `x` [d, ...] laid out by rank: this
+    rank's flat f32 part."""
+    part = mesh.psum_scatter(x, data_axis).reshape(-1)
+    if part.data_ptr() == x.data_ptr():
+        part = part.clone()     # |data| 1: the pod hop writes in place
+    _pod_reduce_(part, part, mesh=mesh, pod_axis=pod_axis,
+                 compress_dcn=compress_dcn, mean_over=mean_over)
+    return part
 
 
 def collect_local_shards(tree, spec: ShardSpec, reduced, *, mesh, data_axis: str,

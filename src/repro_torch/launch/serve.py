@@ -6,6 +6,11 @@ unless `--device cpu` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \
         --requests 8 --slots 4 --prompt-len 128 --gen 32
+
+`--trace` writes a Chrome trace of the run and `--obs-report` its obs
+report; `--profile <report>` plans the engine with a serve plan calibrated
+by such a report and prints the plan's summary. `--mesh` takes 1x1 only:
+serving on a mesh of several devices is not ported yet.
 """
 from __future__ import annotations
 
@@ -16,15 +21,16 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.config.base import ShapeConfig
+from repro_torch.config.base import MeshSpec, ShapeConfig
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.lms.planner import PlanRequest, plan as plan_lms
 from repro_torch.models import kvquant
 from repro_torch.models.model import Model
-from repro_torch.obs import configure, get_obs
+from repro_torch.obs import configure, export_chrome_trace, get_obs, write_obs_report
 from repro_torch.serve import (ServeEngine, decode_step_batch, resolve_device,
                                static_batch_from_requests, synth_requests)
 from repro_torch.train.steps import (StepSpec, build_decode_step,
-                                    build_prefill_step)
+                                    build_prefill_step, init_params)
 
 
 def _sync(device: torch.device) -> None:
@@ -33,21 +39,23 @@ def _sync(device: torch.device) -> None:
 
 
 def run_static(model, reqs, prompt_len: int, gen: int, params=None,
-               device=None):
+               device=None, plan=None):
     """Static whole-batch greedy baseline: one prefill over every request's
     prompt into the decode-capacity cache, then `gen-1` lockstep decode
-    steps. -> (params, tokens [N, gen] numpy, timings dict)."""
+    steps. plan: a serve plan, whose host classes stream (params given
+    must be placed as it says: `train.steps.place_params`). -> (params,
+    tokens [N, gen] numpy, timings dict)."""
     device = resolve_device(device)
     cfg = model.cfg
     n = len(reqs)
     total = prompt_len + gen
     prefill_fn, _ = build_prefill_step(
         model, ShapeConfig("serve_prefill", "prefill", prompt_len, n),
-        StepSpec(cache_len=total))
+        StepSpec(plan=plan, cache_len=total))
     decode_fn, _ = build_decode_step(
-        model, ShapeConfig("serve", "decode", total, n))
+        model, ShapeConfig("serve", "decode", total, n), StepSpec(plan=plan))
     if params is None:
-        params = model.init(0, device)
+        params = init_params(model, 0, device, plan)
     batch = static_batch_from_requests(cfg, reqs, device)
 
     t0 = time.monotonic()
@@ -101,9 +109,22 @@ def main(argv=None):
     p.add_argument("--static", action="store_true",
                    help="run the whole-batch baseline loop instead")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--mesh", default="1x1",
+                   help="device mesh, 1x1 only (serving on several devices is "
+                        "not ported yet)")
     p.add_argument("--obs-jsonl", default="",
                    help="stream span events to this JSONL file")
+    p.add_argument("--trace", default="",
+                   help="write a Chrome trace_event JSON of the run at exit")
+    p.add_argument("--obs-report", default="",
+                   help="write the overlap/swap obs report JSON at exit")
+    p.add_argument("--profile", default="",
+                   help="plan the engine with a serve plan calibrated by this "
+                        "obs_report.json (a run's --obs-report) and print it")
     args = p.parse_args(argv)
+    if args.static and args.profile:
+        p.error("--profile plans the engine's paged pool; the --static "
+                "baseline loop is unplanned")
     if args.static and (args.temperature > 0 or args.top_k):
         p.error("--temperature/--top-k sample in the engine only; the "
                 "--static baseline loop is greedy by construction")
@@ -111,6 +132,12 @@ def main(argv=None):
         p.error("--kv-dtype applies to the engine's paged pool; the "
                 "--static baseline decodes a model-width cache")
 
+    dims = tuple(int(x) for x in args.mesh.split("x"))
+    if any(d > 1 for d in dims):
+        raise NotImplementedError(
+            f"not ported yet: --mesh {args.mesh} (serving on a mesh of several devices)")
+    mesh_spec = MeshSpec(dims, ("data", "model")[:len(dims)] if len(dims) <= 2
+                         else ("pod", "data", "model"))
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = Model(cfg, attn_impl="naive" if args.smoke else "blockwise")
@@ -129,8 +156,16 @@ def main(argv=None):
 
     configure(jsonl_path=args.obs_jsonl or None)
     obs = get_obs()
-    eng = ServeEngine(model, slots=min(args.slots, args.requests),
-                      max_len=args.prompt_len + args.gen,
+    total = args.prompt_len + args.gen
+    slots = min(args.slots, args.requests)
+    plan = None
+    if args.profile:
+        plan = plan_lms(PlanRequest(
+            cfg=cfg, shape=ShapeConfig("cli_serve", "decode", total, args.requests),
+            mesh=mesh_spec, serve=True, slots=slots, page_size=args.page_size,
+            kv_dtype=args.kv_dtype), profile=args.profile)
+        print(plan.summary())
+    eng = ServeEngine(model, slots=slots, max_len=total, plan=plan,
                       page_size=args.page_size,
                       device_pages=args.device_pages,
                       prefill_chunk=args.prefill_chunk,
@@ -150,6 +185,12 @@ def main(argv=None):
           f"({int(m['pool_prefetched_pages'])} staged ahead)")
     print("generated token ids (first request):",
           np.asarray(results[reqs[0].rid])[:16])
+    if args.trace:
+        export_chrome_trace(obs.ring.events(), args.trace)
+        print(f"chrome trace: {args.trace}")
+    if args.obs_report:
+        write_obs_report(args.obs_report, obs=eng.obs)
+        print(f"obs report: {args.obs_report}")
     print("-- metrics --")
     for line in eng.obs.registry.summary_lines():
         print(line)

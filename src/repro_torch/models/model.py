@@ -6,7 +6,12 @@ of tensors. `attn_impl` picks the whole-sequence attention: "naive",
 on the CPU), the name the JAX package gives its Pallas kernel path.
 `ssd_impl` picks Mamba-2's chunked scan: "ref" (the plain version, the
 default as in the JAX package) or "pallas" — the SSD scan kernel (its
-plain version on the CPU)."""
+plain version on the CPU).
+
+Every pass takes `stream=`, the SwapSchedule of a plan: where it streams
+params, the stack and the unstacked rest lie in pinned host memory, the
+stack comes in a layer at a time and the rest as `models/rest.py` reads
+it; the static loop's decode also streams a host-resident KV cache."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -14,6 +19,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.models import rest
 from repro_torch.models import transformer as tr
 from repro_torch.tree import tree_map
 from repro_torch.models.layers import (apply_norm, cross_entropy,
@@ -55,9 +61,30 @@ class Model:
                 "ssd_impl": self.ssd_impl,
                 "positions": torch.arange(seq, device=device)[None, :] + offset}
 
+    # ---- the unstacked rest ----------------------------------------------
+    def _embed(self, params, batch, stream, sink=None):
+        """The batch's token embeddings; with the table on the host its
+        rows are gathered at batch["host_tokens"] where the batch carries
+        the ids on the host too (`serve/batching.py`)."""
+        if rest.on_host(stream):
+            return rest.embed(self.cfg, params["embed"], batch["tokens"], sink,
+                              batch.get("host_tokens"))
+        return embed_tokens(self.cfg, params["embed"], batch["tokens"])
+
+    def _final_norm(self, params, x, stream, sink=None):
+        if rest.on_host(stream):
+            return rest.final_norm(self.cfg, params["final_norm"], x, sink)
+        return apply_norm(self.cfg, params["final_norm"], x)
+
+    def _logits(self, params, x, stream, sink=None):
+        if rest.on_host(stream):
+            return rest.logits(self.cfg, params["embed"], x,
+                               rest.window(self.cfg, stream), sink)
+        return lm_logits(self.cfg, params["embed"], x)
+
     # ---- train forward ----------------------------------------------------
     def forward(self, params, batch, *, policy=None, no_remat=False,
-                grad_hooks=None, stream=None, stack_grads=None):
+                grad_hooks=None, stream=None, stack_grads=None, rest_sink=None):
         """batch {"tokens" [B,S]} -> (logits [B,S,V], aux_loss f32 scalar).
         Each decoder layer is recomputed in the backward unless no_remat
         (`transformer.apply_decoder`). LMS: `policy`, an activation policy
@@ -66,67 +93,71 @@ class Model:
         lies there), run the stack through the LMS executor, which writes
         the stack's grads into `stack_grads`. grad_hooks: per-stack-group
         DDL reduce-as-you-go hooks (the overlapped backward,
-        `core/ddl/overlap.py`)."""
+        `core/ddl/overlap.py`). With the rest in host memory (a stream
+        that streams params) its grads are not autograd's: the backward
+        hands each leaf's to `rest_sink(path, grad)` (`models/rest.py`)."""
         cfg = self.cfg
-        x = embed_tokens(cfg, params["embed"], batch["tokens"])
+        x = self._embed(params, batch, stream, rest_sink)
         ctx = self._ctx(x.shape[1], x.device)
         x, aux = tr.apply_decoder(cfg, params["decoder"], x, ctx,
                                   policy=policy, no_remat=no_remat,
                                   grad_hooks=grad_hooks, stream=stream,
                                   stack_grads=stack_grads)
-        x = apply_norm(cfg, params["final_norm"], x)
-        return lm_logits(cfg, params["embed"], x), aux
+        x = self._final_norm(params, x, stream, rest_sink)
+        return self._logits(params, x, stream, rest_sink), aux
 
     def loss(self, params, batch, *, policy=None, no_remat=False,
              aux_weight: float = 0.01, grad_hooks=None, stream=None,
-             stack_grads=None):
+             stack_grads=None, rest_sink=None):
         """batch {"tokens", "labels" [B,S]}, label -1 ignored -> (mean token
         cross-entropy + aux_weight * aux, {"ce", "aux"})."""
         logits, aux = self.forward(params, batch, policy=policy,
                                    no_remat=no_remat, grad_hooks=grad_hooks,
-                                   stream=stream, stack_grads=stack_grads)
+                                   stream=stream, stack_grads=stack_grads,
+                                   rest_sink=rest_sink)
         ce = cross_entropy(logits, batch["labels"])
         return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
     # ---- serving ----------------------------------------------------------
-    def prefill(self, params, batch, cache_len: Optional[int] = None):
+    def prefill(self, params, batch, cache_len: Optional[int] = None, stream=None):
         """-> (last-token logits [B,V], cache)."""
         cfg = self.cfg
-        x = embed_tokens(cfg, params["embed"], batch["tokens"])
+        x = self._embed(params, batch, stream)
         seq = x.shape[1]
         ctx = self._ctx(seq, x.device)
         x, cache = tr.apply_decoder_prefill(cfg, params["decoder"], x, ctx,
-                                            cache_len or seq)
-        x = apply_norm(cfg, params["final_norm"], x)
-        return lm_logits(cfg, params["embed"], x[:, -1:])[:, 0], cache
+                                            cache_len or seq, stream=stream)
+        x = self._final_norm(params, x, stream)
+        return self._logits(params, x[:, -1:], stream)[:, 0], cache
 
-    def prefill_chunk(self, params, cache, batch, start: int, length: int):
+    def prefill_chunk(self, params, cache, batch, start: int, length: int,
+                      stream=None):
         """One chunked-prefill step: the C-token chunk in `batch` at absolute
         positions [start, start+C) against the already populated cache,
         which is updated in place. `length` is the valid prompt tokens after
         this chunk. -> (chunk logits [B,C,V], cache)."""
         cfg = self.cfg
-        x = embed_tokens(cfg, params["embed"], batch["tokens"])
+        x = self._embed(params, batch, stream)
         ctx = self._ctx(x.shape[1], x.device, offset=start)
         x, cache = tr.apply_decoder_prefill_chunk(
-            cfg, params["decoder"], cache, x, start, length, ctx)
-        x = apply_norm(cfg, params["final_norm"], x)
-        return lm_logits(cfg, params["embed"], x), cache
+            cfg, params["decoder"], cache, x, start, length, ctx, stream=stream)
+        x = self._final_norm(params, x, stream)
+        return self._logits(params, x, stream), cache
 
-    def decode_step(self, params, cache: Dict, batch, pos: int):
+    def decode_step(self, params, cache: Dict, batch, pos: int, stream=None):
         """Whole-batch decode: batch {"tokens" [B,1]}, every row at position
         `pos`. The cache's k/v are updated in place and the same dict is
         returned. -> (logits [B,V], cache)."""
         cfg = self.cfg
-        x = embed_tokens(cfg, params["embed"], batch["tokens"])
+        x = self._embed(params, batch, stream)
         ctx = {"positions": torch.full((1, 1), pos, device=x.device)}
         x, cache = tr.apply_decoder_decode(cfg, params["decoder"], cache, x,
-                                           pos, ctx)
-        x = apply_norm(cfg, params["final_norm"], x)
-        return lm_logits(cfg, params["embed"], x)[:, 0], cache
+                                           pos, ctx, stream=stream)
+        x = self._final_norm(params, x, stream)
+        return self._logits(params, x, stream)[:, 0], cache
 
     def decode_slots(self, params, cache: Dict, batch, positions, active,
-                     page_size: Optional[int] = None):
+                     page_size: Optional[int] = None, stream=None):
         """Slot-batched decode: each batch row is an independent request.
         positions [B] int32, active [B] bool. With a top-level "page_table"
         leaf the cache is the page arena (and `page_size` its page length);
@@ -136,11 +167,12 @@ class Model:
         table = cache.get("page_table")
         if table is not None and page_size is None:
             raise ValueError("a paged cache needs page_size")
-        x = embed_tokens(cfg, params["embed"], batch["tokens"])
+        x = self._embed(params, batch, stream)
         ctx = {"positions": positions[:, None], "page_table": table,
                "page_size": page_size}
         layers = {k: v for k, v in cache.items() if k != "page_table"}
         x, _ = tr.apply_decoder_decode_slots(cfg, params["decoder"], layers, x,
-                                             positions, active, ctx)
-        x = apply_norm(cfg, params["final_norm"], x)
-        return lm_logits(cfg, params["embed"], x)[:, 0], cache
+                                             positions, active, ctx, stream=stream)
+        x = self._final_norm(params, x, stream)
+        return self._logits(params, x, stream)[:, 0], cache
+

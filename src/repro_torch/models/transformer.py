@@ -4,7 +4,10 @@ kinds: stacked [L, ...] params and caches, with the JAX package's
 forward pass (train / loss) for both kinds; for "attn" also prefill,
 chunked prefill, the whole-batch decode of the static loop, and the slot
 decode of the serve engine (through the page arena, or over
-slot-contiguous caches).
+slot-contiguous caches). Each serve sweep takes `stream=`, a serve
+plan's SwapSchedule: params in pinned host memory come in a layer at a
+time (`_LayerStream`), and the static loop's decode also streams a
+host-resident KV cache per layer.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.core.lms import offload as off
 from repro_torch.kernels.quantize import ops as q_ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import paging
@@ -152,6 +156,32 @@ def _stream_depth(stream, n_iter: int) -> int:
     return min(max(int(getattr(stream, "prefetch_depth", 1)), 1), max(n_iter, 1))
 
 
+class _LayerStream:
+    """Layer i of a stacked tree on the compute device, for the serve
+    sweeps (no grads). Without a stream that streams params: views of the
+    resident stack. With one: the stack lies in pinned host memory and
+    `get(i)` copies layer i in, `prefetch_depth` layers ahead on the side
+    stream (`core/lms/offload.py`), after dropping layer i-1's copy, so
+    at most `depth` layers stand on the device (the caller must not keep
+    the layer it got past its use)."""
+
+    def __init__(self, stack, n: int, device, stream, cls: str = "params"):
+        self.stack, self.n, self.device, self.cls = stack, n, device, cls
+        on = stream is not None and (stream.streams_params if cls == "params"
+                                     else stream.streams_kvcache)
+        self.depth = _stream_depth(stream, n) if on else 0
+        self.pending = {}
+
+    def get(self, i: int):
+        if not self.depth:
+            return _layer(self.stack, i)
+        for j in range(i, min(i + self.depth, self.n)):
+            if j not in self.pending:
+                self.pending[j] = off.stream_layer_to_device(_layer(self.stack, j),
+                                                             self.device, cls=self.cls)
+        return self.pending.pop(i).wait()
+
+
 class _LayerParams(torch.autograd.Function):
     """A layer's param leaves as its forward takes them (the device copy of
     a streamed layer, or views of the resident stack), with autograd
@@ -218,7 +248,6 @@ def _apply_decoder_lms(cfg, kind, stack, x, ctx, *, policy, stream, no_remat,
     DDL): each layer's grads go to the hook's reduction queue instead,
     which writes their mean over the ranks into `stack_grads` while the
     backward goes on (the queue is opened and drained by the step)."""
-    from repro_torch.core.lms import offload as off
     from repro_torch.core.lms.policies import LayerFrame, Policy
     n = cfg.num_layers
     device = x.device
@@ -381,13 +410,14 @@ def apply_layer_prefill(cfg, kind, p, x, ctx, cache_len: int):
     return x2, {"k": ck, "v": cv}
 
 
-def apply_decoder_prefill(cfg, params, x, ctx, cache_len: int):
-    """-> (x, stacked cache)."""
+def apply_decoder_prefill(cfg, params, x, ctx, cache_len: int, stream=None):
+    """-> (x, stacked cache). stream: params streamed in a layer at a time
+    (`_LayerStream`)."""
     _check_serve(cfg)
-    stack = params["stack0"]
+    layer = _LayerStream(params["stack0"], cfg.num_layers, x.device, stream)
     layers = []
     for i in range(cfg.num_layers):
-        x, c = apply_layer_prefill(cfg, "attn", _layer(stack, i)["attn_0"],
+        x, c = apply_layer_prefill(cfg, "attn", layer.get(i)["attn_0"],
                                    x, ctx, cache_len)
         layers.append(c)
     cache = {"attn_0": {key: torch.stack([c[key] for c in layers])
@@ -423,13 +453,15 @@ def apply_layer_prefill_chunk(cfg, kind, p, x, cache, start: int, length: int,
 
 
 def apply_decoder_prefill_chunk(cfg, params, caches, x, start: int,
-                                length: int, ctx):
+                                length: int, ctx, stream=None):
     """-> (x, caches): one chunk through every layer; each layer reads the
-    earlier chunks' keys and appends its own to the stacked cache in place."""
-    stack, cstack = params["stack0"], caches["stack0"]
+    earlier chunks' keys and appends its own to the stacked cache in place.
+    stream: params streamed in a layer at a time (`_LayerStream`)."""
+    layer = _LayerStream(params["stack0"], cfg.num_layers, x.device, stream)
+    cstack = caches["stack0"]
     for i in range(cfg.num_layers):
         x, _ = apply_layer_prefill_chunk(
-            cfg, "attn", _layer(stack, i)["attn_0"], x,
+            cfg, "attn", layer.get(i)["attn_0"], x,
             _layer(cstack, i)["attn_0"], start, length, ctx)
     return x, caches
 
@@ -456,12 +488,25 @@ def apply_layer_decode(cfg, kind, p, x, cache, pos: int, ctx):
     return x, {"k": ck, "v": cv}
 
 
-def apply_decoder_decode(cfg, params, caches, x, pos: int, ctx):
-    """Whole-batch decode sweep: -> (x, caches), caches updated in place."""
-    stack, cstack = params["stack0"], caches["stack0"]
-    for i in range(cfg.num_layers):
-        x, _ = apply_layer_decode(cfg, "attn", _layer(stack, i)["attn_0"], x,
-                                  _layer(cstack, i)["attn_0"], pos, ctx)
+def apply_decoder_decode(cfg, params, caches, x, pos: int, ctx, stream=None):
+    """Whole-batch decode sweep: -> (x, caches), caches updated in place.
+    stream: params streamed in a layer at a time, and, when it streams the
+    KV cache (JAX `apply_decoder_decode`), the caches lie in pinned host
+    memory: each layer's comes in with its params, takes the new row on
+    the device and goes back whole."""
+    n = cfg.num_layers
+    layer = _LayerStream(params["stack0"], n, x.device, stream)
+    cstack = caches["stack0"]
+    kv = _LayerStream(cstack, n, x.device, stream, cls="kvcache")
+    for i in range(n):
+        lc = kv.get(i)
+        x, _ = apply_layer_decode(cfg, "attn", layer.get(i)["attn_0"], x,
+                                  lc["attn_0"], pos, ctx)
+        if kv.depth:
+            off.stream_layer_to_host(lc, _layer(cstack, i), cls="kvcache")
+        del lc
+    if kv.depth:
+        off.fence(x.device)
     return x, caches
 
 
@@ -530,11 +575,17 @@ def apply_layer_decode_slots(cfg, kind, p, x, cache, positions, active, ctx):
     return x, {"k": ck, "v": cv, **scales}
 
 
-def apply_decoder_decode_slots(cfg, params, caches, x, positions, active, ctx):
-    """Slot-batched decode sweep: -> (x, caches), caches updated in place."""
-    stack, cstack = params["stack0"], caches["stack0"]
+def apply_decoder_decode_slots(cfg, params, caches, x, positions, active, ctx,
+                               stream=None):
+    """Slot-batched decode sweep: -> (x, caches), caches updated in place.
+    stream: params streamed in a layer at a time; the KV cache never
+    streams here: the paged pool executes its host residency, so the
+    decode step always sees a device-resident cache (JAX
+    `apply_decoder_decode_slots`)."""
+    layer = _LayerStream(params["stack0"], cfg.num_layers, x.device, stream)
+    cstack = caches["stack0"]
     for i in range(cfg.num_layers):
         x, _ = apply_layer_decode_slots(
-            cfg, "attn", _layer(stack, i)["attn_0"], x,
+            cfg, "attn", layer.get(i)["attn_0"], x,
             _layer(cstack, i)["attn_0"], positions, active, ctx)
     return x, caches

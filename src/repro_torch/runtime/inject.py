@@ -14,9 +14,11 @@ Sites wired in this repo:
 
   ``trainer.step``   Trainer.train, before each step dispatch (kind
                      "raise": the step dies like a lost peer)
-  ``engine.tick``,   the serve engine's and the paged KV pool's sites: in
-  ``pool.reserve``,  SITES so that sampled plans match the JAX package's,
-  ``pool.spill``     not wired in the port's serve path yet
+  ``engine.tick``    ServeEngine._tick, before the decode step (kinds
+                     "raise": the active batch fails; "preempt": the
+                     youngest slot spills and re-queues)
+  ``pool.reserve``   PagedKVPool.can_reserve / can_spill (kind "exhaust":
+  ``pool.spill``     the budget check reports full)
   ``ckpt.save``      Checkpointer.save entry (kind "raise": crash before
                      anything is written)
   ``ckpt.commit``    Checkpointer._write, between the shard write and the

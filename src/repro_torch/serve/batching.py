@@ -26,6 +26,14 @@ def synth_prompt_batch(cfg, batch_size: int, prompt_len: int,
     return {"tokens": torch.from_numpy(toks.astype(np.int32)).to(device)}
 
 
+def host_batch(toks: np.ndarray, device) -> Dict:
+    """{"tokens": toks on `device`, "host_tokens": the same ids on the
+    host}: a model whose embedding lies in host memory gathers its rows
+    there without reading the ids back from the card (`models/rest.py`)."""
+    host = torch.from_numpy(toks)
+    return {"tokens": host.to(device), "host_tokens": host}
+
+
 def decode_step_batch(cfg, toks, positions) -> Dict:
     """One-token decode-step inputs: toks [B,1] int tensor; positions [B]
     per-slot positions (a whole-batch loop passes a constant vector; token
@@ -39,7 +47,7 @@ def static_batch_from_requests(cfg, reqs, device) -> Dict:
     list: the static side of the engine-vs-static parity checks."""
     _check_text(cfg)
     toks = np.stack([np.asarray(r.prompt, np.int32) for r in reqs])
-    return {"tokens": torch.from_numpy(toks).to(device)}
+    return host_batch(toks, device)
 
 
 def request_prompt_len(cfg, req) -> int:
@@ -56,7 +64,7 @@ def request_prefill_batch(cfg, req, device, lo: int = 0,
     toks = np.asarray(req.prompt[lo:hi], np.int32)
     if pad_to and pad_to > len(toks):
         toks = np.pad(toks, (0, pad_to - len(toks)))
-    return {"tokens": torch.from_numpy(toks[None]).to(device)}
+    return host_batch(toks[None], device)
 
 
 def synth_requests(cfg, n: int, prompt_len: int, max_new: int,

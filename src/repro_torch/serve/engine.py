@@ -12,8 +12,18 @@ request ends in a terminal status (`ok` / `rejected` / `timeout` /
 `cancelled` / `failed`). Unservable and load-shed requests are rejected at
 submit, per-request deadlines are enforced at every scheduling boundary,
 deadline-aware admission sheds requests whose budget the rolling TTFT/TPOT
-percentiles say is unmeetable, and a stall watchdog fails stuck requests.
-Preemption and the fault injector of the JAX engine are not ported yet.
+percentiles say is unmeetable, a stall watchdog fails stuck requests, and
+a deadline-risk request at the head of the queue may preempt the youngest
+active slot: its pages spill back to the host arena through the pool and
+it re-queues with its tokens, resuming bitwise when it is admitted again.
+A `FaultInjector` (`runtime/inject.py`) drives tick faults, forced
+preemptions and transient pool exhaustion at deterministic points.
+
+Under a serve plan (`plan(PlanRequest(serve=True, ...))`) the plan's
+`kv_paging` sets the page geometry, a calibrated plan's prefetch depth the
+number of spilled requests staged ahead, and when the plan puts params on
+the host they lie in pinned host memory (`train.steps.init_params`) and
+every prefill and decode tick streams them in a layer at a time.
 
 Token selection is host-side numpy: greedy argmax, or temperature/top-k
 sampling with a per-request rng seeded by (engine seed, rid).
@@ -25,7 +35,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,10 +44,12 @@ from repro_torch.config.base import ShapeConfig
 from repro_torch.models.model import Model
 from repro_torch.models.paging import PageArena
 from repro_torch.obs import Obs
-from repro_torch.serve.batching import request_prefill_batch, request_prompt_len
+from repro_torch.runtime.inject import FaultInjector, InjectedFault
+from repro_torch.serve.batching import host_batch, request_prefill_batch, request_prompt_len
 from repro_torch.serve.kvpool import PagedKVPool
 from repro_torch.serve.scheduler import Request, Scheduler
-from repro_torch.train.steps import StepSpec, build_slot_decode_step
+from repro_torch.train.steps import (StepSpec, _serving_stream, build_slot_decode_step,
+                                     init_params)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -59,6 +71,8 @@ class ServeEngine:
                  eos_id: Optional[int] = None, params=None,
                  kv_dtype: Optional[str] = None, max_queue: int = 0,
                  stall_rounds: int = 64, watchdog_s: Optional[float] = None,
+                 preemption: bool = True,
+                 injector: Optional[FaultInjector] = None,
                  obs: Optional[Obs] = None, device=None):
         cfg = model.cfg
         self.device = resolve_device(device)
@@ -70,9 +84,17 @@ class ServeEngine:
         self.obs = obs if obs is not None else Obs()
         self.stall_rounds = stall_rounds
         self.watchdog_s = watchdog_s
+        self.preemption = preemption
+        self._inj = injector
 
+        # kv_dtype: the argument > the plan's paged-pool width > model width
         spec = StepSpec(plan=plan, kv_dtype=kv_dtype)
         self.kv_dtype = spec.resolved_kv_dtype()
+        paging = plan.kv_paging if plan is not None else None
+        if paging is not None:
+            page_size = paging.page_size
+            device_pages = paging.device_pages if device_pages is None else device_pages
+            host_pages = paging.host_pages if host_pages is None else host_pages
         # the page grid must tile the cache exactly: snap a non-dividing
         # request down to the largest page size that does
         page_size = math.gcd(max_len, page_size)
@@ -80,19 +102,29 @@ class ServeEngine:
         full = slots * max_pages
         device_pages = full if device_pages is None else device_pages
         host_pages = 2 * full if host_pages is None else host_pages
+        # the spilled requests the host arena holds: the plan's priced
+        # backlog when it has one
+        host_slots = paging.host_slots if paging is not None and paging.host_slots else 2 * slots
         arena = PageArena(page_size=page_size, device_pages=device_pages,
                           slots=slots, max_pages=max_pages)
 
         shape = ShapeConfig("serve_slots", "decode", max_len, slots)
         self._decode_fn, cache_defs = build_slot_decode_step(
-            model, shape, StepSpec(kv_dtype=self.kv_dtype, arena=arena))
+            model, shape, StepSpec(plan=plan, kv_dtype=self.kv_dtype, arena=arena))
+        # spilled requests staged ahead of their attach: a calibrated plan
+        # that streams the KV class tuned the depth; else one
+        sched = plan.swap_schedule if plan is not None else None
+        self._stage_depth = (max(1, sched.prefetch_depth)
+                             if plan is not None and plan.calibrated and sched is not None
+                             and "kvcache" in sched.stream else 1)
+        self._stream = _serving_stream(plan)
         self.pool = PagedKVPool(model, slots=slots, max_len=max_len,
                                 page_size=page_size,
                                 device_pages=device_pages,
-                                host_pages=host_pages, host_slots=2 * slots,
+                                host_pages=host_pages, host_slots=host_slots,
                                 device=self.device, cache_defs=cache_defs,
-                                kv_dtype=self.kv_dtype, obs=self.obs)
-        self.params = (model.init(seed, self.device) if params is None
+                                kv_dtype=self.kv_dtype, injector=injector, obs=self.obs)
+        self.params = (init_params(model, seed, self.device, plan) if params is None
                        else params)
 
         # chunked prefill needs absolute-position cache writes: pure
@@ -107,6 +139,7 @@ class ServeEngine:
         self.scheduler = Scheduler(slots, max_queue=max_queue,
                                    registry=self.obs.registry)
         self._rngs: Dict[int, np.random.Generator] = {}
+        self._last_run: List[Request] = []
         reg = self.obs.registry
         self._c_ticks = reg.counter("engine.ticks")
         self._c_decode_tokens = reg.counter("engine.decode_tokens")
@@ -149,13 +182,13 @@ class ServeEngine:
                     batch = request_prefill_batch(self.cfg, req, self.device,
                                                   lo, hi, pad_to=c)
                     logits, self._scratch = self.model.prefill_chunk(
-                        self.params, self._scratch, batch, lo, hi)
+                        self.params, self._scratch, batch, lo, hi, stream=self._stream)
                     if hi == plen:
                         row = self._row(logits[0, plen - 1 - lo])
                 return self._scratch, row
             batch = request_prefill_batch(self.cfg, req, self.device)
             logits, cache = self.model.prefill(self.params, batch,
-                                               cache_len=self.max_len)
+                                               cache_len=self.max_len, stream=self._stream)
             return cache, self._row(logits[0])
 
     def _first_token(self, req: Request, row: np.ndarray, t0: float) -> None:
@@ -269,6 +302,57 @@ class ServeEngine:
                              f"deadline unmeetable: est {est:.3f}s remaining "
                              f"vs {dl - now:.3f}s budget left")
 
+    # ---- preemption -------------------------------------------------------
+    def _pick_victim(self, beneficiary: Optional[Request]) -> Optional[int]:
+        """Youngest active slot (latest activation) whose deadline is no
+        tighter than the beneficiary's and that has not been preempted
+        before (which bounds preemption ping-pong)."""
+        best_slot, best_seq = None, -1
+        bdl = self._deadline(beneficiary) if beneficiary is not None else None
+        for slot, r in self.scheduler.active.items():
+            if r.preemptions >= 1:
+                continue
+            vdl = self._deadline(r)
+            if bdl is not None and vdl is not None and vdl < bdl:
+                continue
+            if r.joined_seq > best_seq:
+                best_slot, best_seq = slot, r.joined_seq
+        return best_slot
+
+    def _preempt_slot(self, slot: int) -> bool:
+        """Spill-and-requeue: the victim's pages so far go back to the host
+        arena (exact content, through the pool), its reservation frees,
+        and it re-queues just behind the queue head with its tokens, so
+        resuming later is bitwise as if it had never been preempted."""
+        r = self.scheduler.active[slot]
+        cur_len = request_prompt_len(self.cfg, r) + len(r.tokens) - 1
+        if not self.pool.preempt(r.rid, cur_len):
+            return False               # host arena full: the victim decodes on
+        self.scheduler.evict(slot)
+        self.scheduler.requeue(r, behind=1)
+        self.obs.instant("engine.preempt", rid=r.rid, slot=slot, tokens=len(r.tokens))
+        return True
+
+    def _maybe_preempt(self, now: float) -> None:
+        """A deadline-risk request at the head of the queue may reclaim a
+        slot and its device pages from the youngest active slot."""
+        if not self.preemption or not self.scheduler.queue:
+            return
+        head = self.scheduler.queue[0]
+        dl = self._deadline(head)
+        if dl is None:
+            return
+        need = self._reserve_need(head)
+        staged = self.pool.status(head.rid) == "staged"
+        if self.scheduler.free_slot() is not None and (staged or self.pool._has_dev(need)):
+            return                     # admits this round anyway
+        est = self._est_remaining(head)
+        if est is None or now + est <= dl:
+            return                     # no evidence of deadline risk yet
+        victim = self._pick_victim(head)
+        if victim is not None:
+            self._preempt_slot(victim)
+
     # ---- scheduling -------------------------------------------------------
     def _reserve_need(self, req: Request) -> int:
         total = request_prompt_len(self.cfg, req) + req.max_new
@@ -323,15 +407,41 @@ class ServeEngine:
         return progressed
 
     def _prefetch_next(self) -> None:
-        """Stage the next waiting request's spilled pages back toward the
-        device ahead of its attach; stops when the budget refuses."""
+        """Stage the next waiting requests' spilled pages back toward the
+        device ahead of their attach: up to `_stage_depth` requests (1
+        unless a calibrated plan tuned it); stops when the device budget
+        refuses a claim."""
+        staged = 0
         for req in self.scheduler.queue:
             if self.pool.status(req.rid) == "host":
-                self.pool.prefetch(req.rid)
-                return
+                if not self.pool.prefetch(req.rid):
+                    return
+                staged += 1
+                if staged >= self._stage_depth:
+                    return
 
     # ---- decode -----------------------------------------------------------
+    def _fail_active(self, reason: str) -> None:
+        """A batch-level fault: every active request retires as "failed"
+        (its pool entry freed) and serving goes on with the queue."""
+        for slot, r in list(self.scheduler.active.items()):
+            self.scheduler.evict(slot)
+            self._retire(r, "failed", reason)
+
     def _tick(self) -> None:
+        # injected tick faults fire before the step runs: "raise" fails the
+        # active batch in place of ending run(); "preempt" forces a
+        # spill-and-requeue of the youngest slot (the mid-decode drill)
+        if self._inj is not None:
+            try:
+                ev = self._inj.check("engine.tick")
+            except InjectedFault as e:
+                self._fail_active(str(e))
+                return
+            if ev is not None and ev.kind == "preempt":
+                victim = self._pick_victim(None)
+                if victim is not None:
+                    self._preempt_slot(victim)
         active = self.scheduler.active
         if not active:
             return
@@ -345,8 +455,10 @@ class ServeEngine:
             act[s] = True
         with self.obs.span("engine.tick", batch=len(active)):
             dev = self.device
-            batch = {"tokens": torch.from_numpy(toks).to(dev)}
+            batch = host_batch(toks, dev)
             t0 = time.monotonic()
+            # the pool's page copies (a side stream on the card) land first
+            self.pool.wait_copies()
             logits, self.pool.cache = self._decode_fn(
                 self.params, self.pool.cache, batch,
                 torch.from_numpy(pos).to(dev), torch.from_numpy(act).to(dev))
@@ -387,6 +499,7 @@ class ServeEngine:
             now = time.monotonic()
             self._sweep(now)
             self._shed_doomed(now)
+            self._maybe_preempt(now)
             progressed = self._admit(t0)
             if progressed:
                 last_progress = time.monotonic()
@@ -411,6 +524,7 @@ class ServeEngine:
         done = self.scheduler.drain()
         for r in done:
             self._rngs.pop(r.rid, None)
+        self._last_run = done
         return {r.rid: np.asarray(r.tokens, np.int32) for r in done}
 
     def metrics(self) -> Dict[str, float]:

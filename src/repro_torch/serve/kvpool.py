@@ -23,11 +23,18 @@ only a page-table edit (or copies the pages itself when no prefetch ran);
 reserves ``pages_needed(prompt + max_new)`` device pages up front; a spill
 moves only the ``ceil(prompt / page_size)`` pages that hold keys.
 
-Host<->device page copies are ``non_blocking`` copies on the current
-stream, so they are ordered with the decode ticks on that stream and never
-wait for the host. Running them on a side stream to overlap the tick is
-later work. The free lists are LIFO, so churn scrambles page placement;
-the page table makes that free.
+``preempt`` is spill-and-requeue: an active request's content pages go
+back from the arena to the host arena and its reservation frees, so a
+later attach resumes it bitwise. A `FaultInjector` can make the budget
+checks report full ("exhaust" at ``pool.reserve`` / ``pool.spill``).
+
+On the card the host<->device page copies run on a side stream of the
+pool's own, ``non_blocking``: each batch of copies first waits for what
+the compute stream has queued (the ticks that wrote the pages it reads),
+and the next decode tick waits for the copies at an event
+(`wait_copies`), as does any write to the arena on the compute stream.
+The page table is copied in from a pinned staging row. The free lists are
+LIFO, so churn scrambles page placement; the page table makes that free.
 
 Only layer caches that page are ported: a pool over per-slot state leaves
 (recurrent state, local-attention rings) raises.
@@ -45,6 +52,7 @@ from repro_torch.models import transformer as tr
 from repro_torch.models.layers import DTYPES, is_def
 from repro_torch.models.paging import PAGED_LEAF_KEYS
 from repro_torch.obs import Obs, get_obs
+from repro_torch.runtime.inject import FaultInjector
 
 __all__ = ["PagedKVPool", "PAGED_LEAF_KEYS"]
 
@@ -88,7 +96,8 @@ class PagedKVPool:
     def __init__(self, model, *, slots: int, max_len: int, page_size: int,
                  device_pages: int, host_pages: int, device,
                  host_slots: Optional[int] = None, cache_defs=None,
-                 kv_dtype: str = "model", obs: Optional[Obs] = None):
+                 kv_dtype: str = "model", injector: Optional[FaultInjector] = None,
+                 obs: Optional[Obs] = None):
         cfg = model.cfg
         self._obs = obs if obs is not None else get_obs()
         if max_len % page_size:
@@ -139,6 +148,16 @@ class PagedKVPool:
                 device=self.device))
         self._ptab = np.full((slots, self.max_pages), self.null_page, np.int32)
         self.cache["page_table"] = torch.from_numpy(self._ptab.copy()).to(self.device)
+        # the table's pinned staging row, and the event its last copy
+        # completes at (the row is rewritten only after it)
+        self._ptab_staging = torch.from_numpy(self._ptab.copy())
+        if pin:
+            self._ptab_staging = self._ptab_staging.pin_memory()
+        self._table_copied = None
+        # page copies: a side stream on the card, and the event the last
+        # batch of copies completes at
+        self._copy_stream = torch.cuda.Stream(self.device) if pin else None
+        self._copied = None
         if cache_defs is not None:
             self._check_layout(cache_defs)
 
@@ -147,9 +166,9 @@ class PagedKVPool:
         self._free_host_slots: List[int] = list(range(host_slots))
         self._table: Dict[int, _Entry] = {}
         self._resident = 0          # reserved device pages (active slots)
-        # the JAX pool's stat keys, all kept so the engine's metrics() key set
-        # matches; preemption and fault injection are not ported, so those
-        # counters stay 0, and repack_pages is 0 by construction
+        self._inj = injector
+        # the JAX pool's stat keys, so the engine's metrics() key set
+        # matches; repack_pages is 0 by construction
         self.stats = {"spilled_pages": 0, "fetched_pages": 0,
                       "prefetched_pages": 0, "direct_pages": 0,
                       "peak_resident_pages": 0, "spilled_requests": 0,
@@ -175,9 +194,18 @@ class PagedKVPool:
                 and len(self._free_host_slots) >= 1)
 
     def can_reserve(self, n_pages: int) -> bool:
+        """Admission check. An injected "exhaust" at pool.reserve reports
+        the device budget full here only, never in the internal checks, so
+        an armed event cannot abort an operation already admitted."""
+        if self._inj is not None and self._inj.wants("pool.reserve", "exhaust"):
+            self.stats["injected_exhaustions"] += 1
+            return False
         return self._has_dev(n_pages)
 
     def can_spill(self, content_pages: int) -> bool:
+        if self._inj is not None and self._inj.wants("pool.spill", "exhaust"):
+            self.stats["injected_exhaustions"] += 1
+            return False
         return self._has_host(content_pages)
 
     def status(self, rid: int) -> Optional[str]:
@@ -202,21 +230,44 @@ class PagedKVPool:
         arena = _get(self.cache, keys)
         return arena[:, page] if self._stacked[keys] else arena[page]
 
+    # ---- copies -----------------------------------------------------------
+    def _copies(self):
+        """Context of a batch of page copies: on the card the side stream,
+        after what the compute stream has queued; the event they complete
+        at is kept for `wait_copies`."""
+        return _Copies(self)
+
+    def wait_copies(self) -> None:
+        """Order the compute stream after every page copy issued so far:
+        the decode tick, and any arena write on the compute stream, call
+        it first."""
+        if self._copied is not None:
+            torch.cuda.current_stream(self.device).wait_event(self._copied)
+            self._copied = None
+
     def _host_to_arena(self, e: _Entry) -> None:
         """Copy a request's content pages from the host arena into its
         claimed device pages."""
-        for keys in self._stacked:
-            host = self._host[keys]
-            for hid, pid in zip(e.host_ids[:e.content_pages],
-                                e.dev_ids[:e.content_pages]):
-                self._arena_page(keys, int(pid)).copy_(host[int(hid)],
-                                                       non_blocking=True)
+        with self._copies():
+            for keys in self._stacked:
+                host = self._host[keys]
+                for hid, pid in zip(e.host_ids[:e.content_pages],
+                                    e.dev_ids[:e.content_pages]):
+                    self._arena_page(keys, int(pid)).copy_(host[int(hid)],
+                                                           non_blocking=True)
 
     def _sync_table(self):
         """Copy the numpy master page table into the cache's table tensor,
         in place (the JAX pool swaps in a new array that the decode step
-        then donates)."""
-        self.cache["page_table"].copy_(torch.from_numpy(self._ptab))
+        then donates), from the pinned staging row once its previous copy
+        is done."""
+        if self._table_copied is not None:
+            self._table_copied.synchronize()
+        self._ptab_staging.numpy()[:] = self._ptab
+        self.cache["page_table"].copy_(self._ptab_staging, non_blocking=True)
+        if self.device.type == "cuda":
+            self._table_copied = torch.cuda.Event()
+            self._table_copied.record(torch.cuda.current_stream(self.device))
 
     def _map_slot(self, slot: int, dev_ids: Optional[np.ndarray]):
         """Point a slot's table row at its arena pages (unmapped logical
@@ -258,9 +309,11 @@ class PagedKVPool:
             if n:
                 for keys, leaf in _flatten(req_cache):
                     pages = self._pages(leaf, self._stacked[keys], n)
-                    host = self._host[keys]
-                    for j, hid in enumerate(ids):
-                        host[int(hid)].copy_(pages[j], non_blocking=True)
+                    with self._copies() as c:
+                        c.keep(pages)
+                        host = self._host[keys]
+                        for j, hid in enumerate(ids):
+                            host[int(hid)].copy_(pages[j], non_blocking=True)
             self._table[rid] = _Entry(reserve_pages, n, length, "host",
                                       host_ids=ids, host_slot=hslot)
         self.stats["spilled_pages"] += int(n)
@@ -322,6 +375,8 @@ class PagedKVPool:
                             cls="kvcache", pages=n,
                             bytes=self._swap_bytes(n)):
             if n:
+                # freed pages may still be read by a preempt's copy out
+                self.wait_copies()
                 rows = torch.from_numpy(dev_ids[:n].astype(np.int64)).to(self.device)
                 for keys, leaf in _flatten(req_cache):
                     arena = _get(self.cache, keys)
@@ -349,6 +404,42 @@ class PagedKVPool:
         self._ptab[e.slot] = self.null_page
         self._sync_table()
 
+    def preempt(self, rid: int, length: int) -> bool:
+        """Spill-and-requeue preemption: reclaim an active request's device
+        pages. Its `pages_needed(length)` content pages (the tokens so far)
+        go from the arena back into the host arena, its table row nulls
+        and its whole reservation returns to the free list. The entry goes
+        back to "host" as if spilled after prefill at the new length, so a
+        later attach resumes decoding bitwise. The pages count as spilled
+        too, so spilled == fetched + prefetched still holds. -> False (and
+        nothing changes) when the host arena cannot hold them."""
+        e = self._table[rid]
+        assert e.where == "dev", f"preempt of non-resident request: {e.where}"
+        n = self.pages_needed(length)
+        if not self._has_host(n):
+            return False
+        ids = np.asarray([self._free_host_pages.pop() for _ in range(n)], np.int32)
+        hslot = self._free_host_slots.pop()
+        with self._obs.span("pool.preempt", rid=rid, cls="kvcache", pages=int(n),
+                            bytes=self._swap_bytes(n)):
+            with self._copies():
+                for keys in self._stacked:
+                    host = self._host[keys]
+                    for hid, pid in zip(ids, e.dev_ids[:n]):
+                        host[int(hid)].copy_(self._arena_page(keys, int(pid)),
+                                             non_blocking=True)
+        self._resident -= e.reserve_pages
+        self._free_dev.extend(int(i) for i in e.dev_ids)
+        self._ptab[e.slot] = self.null_page
+        self._sync_table()
+        e.where, e.slot, e.dev_ids = "host", None, None
+        e.host_ids, e.host_slot = ids, hslot
+        e.content_pages, e.length = n, length
+        self.stats["preempted_requests"] += 1
+        self.stats["preempted_pages"] += int(n)
+        self.stats["spilled_pages"] += int(n)
+        return True
+
     def drop(self, rid: int) -> None:
         """Free everything a request holds, wherever it is — the terminal
         path for cancelled / timed-out / failed requests (release() is the
@@ -367,3 +458,34 @@ class PagedKVPool:
         if e.where == "dev":
             self._ptab[e.slot] = self.null_page
             self._sync_table()
+
+
+class _Copies:
+    """`PagedKVPool._copies`: a batch of page copies. On the card they run
+    on the pool's side stream after what the compute stream has queued;
+    tensors made on the compute stream for them are kept alive for the
+    side stream (`keep`), and the event they complete at becomes the
+    pool's `_copied`. On the CPU it does nothing."""
+
+    def __init__(self, pool):
+        self.pool = pool
+        self.stream = pool._copy_stream
+
+    def keep(self, t) -> None:
+        if self.stream is not None:
+            t.record_stream(self.stream)
+
+    def __enter__(self):
+        if self.stream is not None:
+            self.stream.wait_stream(torch.cuda.current_stream(self.pool.device))
+            self._ctx = torch.cuda.stream(self.stream)
+            self._ctx.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.stream is not None:
+            ev = torch.cuda.Event()
+            ev.record(self.stream)
+            self._ctx.__exit__(*exc)
+            self.pool._copied = ev
+        return False

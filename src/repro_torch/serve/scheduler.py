@@ -1,7 +1,7 @@
 """Continuous-batching request scheduler: a FIFO admission queue over a
 fixed set of decode slots, with request lifecycles and bounded bookkeeping.
-A copy of the JAX package's scheduler without its preemption requeue
-(preemption is not ported yet; the "preempted" counter stays 0).
+A copy of the JAX package's scheduler: a preempted request re-queues just
+behind the head (`requeue`), counted in "preempted".
 
 Admission is two-phase, both gated by the page budget the pool enforces:
 
@@ -156,6 +156,16 @@ class Scheduler:
         assert req is not None, f"slot {slot} empty"
         self.slots[slot] = None
         return req
+
+    def requeue(self, req: Request, *, behind: int = 1) -> None:
+        """Put a preempted request back in the queue with its tokens.
+        `behind=1` places it just behind the head: never in front of the
+        deadline-risk request it yielded its pages to, ahead of everyone
+        else."""
+        req.status = "queued"
+        req.preemptions += 1
+        self._req["preempted"].inc()
+        self.queue.insert(min(behind, len(self.queue)), req)
 
     def retire(self, req: Request, status: str,
                error: Optional[str] = None) -> None:

@@ -6,7 +6,9 @@ plan (on one device or on every rank of the mesh: LMS + DDL), with
 microbatches accumulated in f32 (on a mesh with the overlapped backward,
 as reduce-scattered 1/|data| shards); and for the serve path the
 whole-batch prefill and decode steps of the static loop and the serve
-engine's slot decode step. Serve plans are not ported yet.
+engine's slot decode step, each resident or under a serve plan (params
+streamed from pinned host memory a layer at a time; the static loop's
+decode also streams a host-resident KV cache).
 
 PyTorch runs eagerly, so a step is a plain callable: no jit, no shardings
 and no buffer donation — where the JAX package donates a cache or a train
@@ -22,7 +24,11 @@ reduced over the ranks by the DDL hook's queue while the backward goes
 on, into pinned host memory, read back a layer at a time by the sweep.
 The state is placed where the plan says (`init_train_state(plan=)`,
 `place_train_state`): the host classes, and the sunk grads, in one pinned
-arena (`core/lms/offload.PinnedArena`).
+arena (`core/lms/offload.PinnedArena`). One rule places the params: under
+a plan that puts params on the host every leaf goes there, the stack and
+the unstacked rest (embedding, final norm, head) alike (`_host_classes`), and
+the model reads the rest from there (`models/rest.py`). Serve params
+follow the same rule (`init_params`, `place_params`).
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ from repro_torch.core.lms.planner import MemoryPlan, OPT_REST_CHUNKS, plan_to_po
 from repro_torch.core.lms.policies import Policy
 from repro_torch.launch.mesh import Mesh, dp_axes, make_mesh, mesh_axis_sizes
 from repro_torch.models import kvquant, paging
+from repro_torch.models import rest as host_rest
 from repro_torch.models import transformer as tr
 from repro_torch.models.layers import DTYPES, init_pieces
 from repro_torch.models.model import Model
@@ -64,16 +71,14 @@ class TrainState(NamedTuple):
     grads: Any = None
 
 
-SERVE_PLANS = "memory plans for serving (LMS serve plans) are not ported yet"
-
-
 @dataclass(frozen=True)
 class StepSpec:
-    """The argument surface of the `build_*_step` functions. kv_dtype=None
-    resolves to model width. plan: the train step's memory plan; serve
-    plans are not ported yet. overlap_grads: the train step's overlapped
-    backward, above the DDLConfig knob (`_resolve_overlap`). cache_len:
-    capacity of the cache the prefill step emits."""
+    """The argument surface of the `build_*_step` functions. plan: the
+    step's memory plan (a train plan, or a serve plan from
+    `plan(PlanRequest(serve=True, ...))`). kv_dtype=None resolves from the
+    plan (`resolved_kv_dtype`). overlap_grads: the train step's
+    overlapped backward, above the DDLConfig knob (`_resolve_overlap`).
+    cache_len: capacity of the cache the prefill step emits."""
     plan: Optional[MemoryPlan] = None
     kv_dtype: Optional[str] = None
     arena: Optional[paging.PageArena] = None
@@ -81,11 +86,13 @@ class StepSpec:
     cache_len: Optional[int] = None
 
     def resolved_kv_dtype(self) -> str:
-        """Explicit kv_dtype > model width, validated so a typo raises here."""
-        if self.plan is not None:
-            raise NotImplementedError(SERVE_PLANS)
+        """Explicit kv_dtype > the plan's paged-pool width > model width,
+        validated so a typo raises here."""
         if self.kv_dtype is not None:
             return kvquant.validate_kv_dtype(self.kv_dtype)
+        kv_paging = self.plan.kv_paging if self.plan is not None else None
+        if kv_paging is not None:
+            return kvquant.validate_kv_dtype(kv_paging.kv_dtype)
         return "model"
 
     def ddl_for(self, tcfg: TrainConfig) -> DDLConfig:
@@ -106,6 +113,12 @@ def _param_stream(plan: Optional[MemoryPlan]):
     return plan.swap_schedule if plan.swap_schedule.streams_params else None
 
 
+def _serving_stream(plan: Optional[MemoryPlan]):
+    """The SwapSchedule of the serving sweeps, which stream params, and in
+    the static loop's decode the KV cache, per layer."""
+    return plan.swap_schedule if plan is not None else None
+
+
 def _opt_stream(plan: Optional[MemoryPlan]):
     """The plan's SwapSchedule iff it streams the optimizer class: the
     switch that replaces the resident opt_update with the streamed sweep."""
@@ -114,20 +127,34 @@ def _opt_stream(plan: Optional[MemoryPlan]):
     return plan.swap_schedule if plan.swap_schedule.streams_optimizer else None
 
 
+def _to_host(tree):
+    """A copy of a device tree in host memory (pinned where the card is),
+    for a cache the plan keeps on the host."""
+    pin = tree_leaves(tree)[0].device.type == "cuda"
+    out = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=pin), tree)
+    off.stream_layer_to_host(tree, out, cls="kvcache")
+    off.fence(tree_leaves(tree)[0].device)
+    return out
+
+
 def build_prefill_step(model: Model, shape: ShapeConfig,
                        spec: StepSpec = StepSpec()):
     """Whole-prompt prefill of `shape.global_batch` prompts of
     `shape.seq_len` tokens into a cache of `spec.cache_len` positions
     (default: the prompt), so serving prefills straight into the
-    decode-capacity cache. -> (fn(params, batch) -> (last-token logits
-    [B,V], cache), cache_defs)."""
-    if spec.plan is not None:
-        raise NotImplementedError(SERVE_PLANS)
+    decode-capacity cache. Under a serve plan the params stream in a layer
+    at a time when the plan puts them on the host, and the cache is
+    emitted into host memory when it puts the KV cache there (JAX: the
+    cache's host sharding), for `build_decode_step` to stream. ->
+    (fn(params, batch) -> (last-token logits [B,V], cache), cache_defs)."""
     cache_len = spec.cache_len or shape.seq_len
     defs = tr.cache_defs(model.cfg, shape.global_batch, cache_len)
+    stream = _serving_stream(spec.plan)
+    kv_host = spec.plan is not None and spec.plan.residency.get("kvcache") == "host"
 
     def prefill(params, batch):
-        return model.prefill(params, batch, cache_len=cache_len)
+        logits, cache = model.prefill(params, batch, cache_len=cache_len, stream=stream)
+        return logits, (_to_host(cache) if kv_host else cache)
 
     return prefill, defs
 
@@ -136,14 +163,15 @@ def build_decode_step(model: Model, shape: ShapeConfig,
                       spec: StepSpec = StepSpec()):
     """Whole-batch decode step of the static loop: `shape.global_batch`
     rows, each at the same position, against caches of `shape.seq_len`
-    positions, which are updated in place. -> (fn(params, cache, batch,
-    pos) -> (logits [B,V], cache), cache_defs)."""
-    if spec.plan is not None:
-        raise NotImplementedError(SERVE_PLANS)
+    positions, which are updated in place. Under a serve plan the params
+    stream in a layer at a time, and a cache in host memory (the plan
+    streams the KV cache) comes in with them and goes back updated. ->
+    (fn(params, cache, batch, pos) -> (logits [B,V], cache), cache_defs)."""
     defs = tr.cache_defs(model.cfg, shape.global_batch, shape.seq_len)
+    stream = _serving_stream(spec.plan)
 
     def decode(params, cache, batch, pos: int):
-        return model.decode_step(params, cache, batch, pos)
+        return model.decode_step(params, cache, batch, pos, stream=stream)
 
     return decode, defs
 
@@ -162,6 +190,9 @@ def build_slot_decode_step(model: Model, shape: ShapeConfig,
     page table at the top of the cache tree; the int8 transform runs first
     so the scales page too. Without an arena the caches stay
     slot-contiguous [B, seq_len, ...]. The caches are updated in place.
+    Under a serve plan the params stream in a layer at a time when it puts
+    them on the host; the KV cache never streams here: the paged pool
+    executes its host residency (JAX `build_slot_decode_step`).
 
     -> (fn(params, cache, batch, positions, active) -> (logits [B,V],
     cache), cache_defs): cache_defs is the tree of ParamDefs giving the
@@ -174,12 +205,60 @@ def build_slot_decode_step(model: Model, shape: ShapeConfig,
     if spec.arena is not None:
         defs = paging.page_cache_defs(defs, shape.seq_len, spec.arena)
         page_size = spec.arena.page_size
+    stream = _serving_stream(spec.plan)
 
     def decode(params, cache, batch, positions, active):
         return model.decode_slots(params, cache, batch, positions, active,
-                                  page_size=page_size)
+                                  page_size=page_size, stream=stream)
 
     return decode, defs
+
+
+def init_params(model: Model, seed: int, device, plan: Optional[MemoryPlan] = None):
+    """Serve params: `model.init(seed, device)`, or, under a plan that puts
+    params on the host, the same values built one leaf (a stacked leaf:
+    one layer) at a time on the device and copied into one pinned arena
+    (`_host_classes`), as `init_train_state(plan=)` builds training state:
+    the same draws from the same generator, bitwise."""
+    device = torch.device(device)
+    if not _host_classes(plan)[0]:
+        return model.init(seed, device)
+    defs = _def_paths(model.param_defs())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def fill(ix, p):
+        for i, piece in init_pieces(defs[ix][1], gen, device):
+            p[i] = piece
+    return _placed_params([(path, d.shape, DTYPES[d.dtype]) for path, d in defs], device,
+                          fill, model.param_defs())
+
+
+def place_params(params, plan: Optional[MemoryPlan], device):
+    """`params` placed as `init_params(plan=)` places them: in one pinned
+    arena under a plan that puts params on the host, a leaf at a time;
+    else on `device`."""
+    device = torch.device(device)
+    if not _host_classes(plan)[0]:
+        return tree_map(lambda t: t.to(device), params)
+    src = _paths(params)
+
+    def fill(ix, p):
+        p.copy_(src[ix][1])
+    return _placed_params([(path, tuple(t.shape), t.dtype) for path, t in src], device,
+                          fill, params)
+
+
+def _placed_params(paths, device, fill, template):
+    """A params tree with every leaf in one pinned arena; fill(index, p)
+    writes leaf `index`'s values into p."""
+    placer = _Placer(device, sum(_leaf_bytes(shape, dtype) for _, shape, dtype in paths))
+    params = {}
+    for ix, (path, shape, dtype) in enumerate(paths):
+        p = placer.take(shape, dtype, True)
+        fill(ix, p)
+        _set(params, path, p)
+    return _with_empty(params, template)
 
 
 # ---------------------------------------------------------------------------
@@ -317,7 +396,8 @@ def _streamed_opt_update(optimizer: str, grads, opt_state, params, *, lr,
     by the same per-slice kernels the resident path uses
     (`optim/adamw.py`), and written straight back; a host-resident layer's
     new bf16 params are written back to the host as well. The unstacked
-    rest (embedding, head, final norm: on the device) updates in
+    rest (embedding, head, final norm: in pinned host memory beside the
+    stack when the params are, else on the device) updates in
     `_rest_chunks` flat chunks of its state, two in flight, the same way.
     grads_host: the stack's grads lie in pinned host memory (the backward's
     host sink) and come in with their layer's state. clip: the clip factor
@@ -402,17 +482,28 @@ def _streamed_opt_update(optimizer: str, grads, opt_state, params, *, lr,
 
     def fetch_chunk(item):
         path, k, c = item
-        return {"state": off.stream_layer_to_device({str(j): piece(at(s, path), k, c)
-                                                     for j, s in enumerate(states)},
-                                                    device, cls="optimizer")}
+        out = {"state": off.stream_layer_to_device({str(j): piece(at(s, path), k, c)
+                                                    for j, s in enumerate(states)},
+                                                   device, cls="optimizer")}
+        if params_host and optimizer == "sgdm":
+            out["params"] = off.stream_layer_to_device(piece(at(params, path), k, c), device,
+                                                       cls="params")
+        return out
 
     def update_chunk(item, fetched):
         path, k, c = item
         st = fetched["state"]
-        update(piece(at(grads, path), k, c), [st[str(j)] for j in range(len(states))],
-               piece(at(params, path), k, c))
+        p = piece(at(params, path), k, c)
+        p_dev = p
+        if params_host:
+            # as a host layer's: the new params written back from the card
+            p_dev = fetched["params"] if optimizer == "sgdm" else torch.empty(
+                p.shape, dtype=p.dtype, device=device)
+        update(piece(at(grads, path), k, c), [st[str(j)] for j in range(len(states))], p_dev)
         off.stream_layer_to_host(st, {str(j): piece(at(s, path), k, c)
                                       for j, s in enumerate(states)}, cls="optimizer")
+        if params_host:
+            off.stream_layer_to_host(p_dev, p, cls="params")
 
     _pipelined(chunks, 2, fetch_chunk, update_chunk)
     off.fence(device)
@@ -426,11 +517,20 @@ def _streamed_opt_update(optimizer: str, grads, opt_state, params, *, lr,
 # ---------------------------------------------------------------------------
 
 def _host_classes(plan: Optional[MemoryPlan]):
-    """-> (stack params on host, optimizer state on host) by the plan's
-    residency. The unstacked params (embedding, head, final norm) stay on
-    the device whatever it says: the plan prices them inside `params`."""
+    """-> (params on host, optimizer state on host) by the plan's
+    residency. The placement rule of the params: on the host means every
+    leaf in the pinned arena, the stack's and the unstacked rest's
+    (embedding, final norm, head) alike, for the replicated step, zero1
+    and serving. The planner prices the device's params as streamed
+    layers of the whole model, so the rest streams too
+    (`models/rest.py`)."""
     res = plan.residency if plan is not None else {}
     return res.get("params") == "host", res.get("optimizer") == "host"
+
+
+def _leaf_bytes(shape, dtype) -> int:
+    """Arena bytes of a leaf (`PinnedArena.padded`)."""
+    return off.PinnedArena.padded(math.prod(shape) * torch.empty((), dtype=dtype).element_size())
 
 
 def _grads_host(plan: Optional[MemoryPlan]) -> bool:
@@ -465,15 +565,14 @@ def _state_layout(paths, optimizer, params_host, opt_host, grads_host=False,
     total, out = 0, []
     for path, shape, dtype in paths:
         n = math.prod(shape)
-        nbytes = off.PinnedArena.padded(n * torch.empty((), dtype=dtype).element_size())
-        ph = params_host and _stack_path(path)
-        if ph:
+        nbytes = _leaf_bytes(shape, dtype)
+        if params_host:
             total += nbytes
         if grads_host and _stack_path(path):
             total += off.PinnedArena.padded(4 * n) if grads_f32 else nbytes
         if opt_host:
             total += per * off.PinnedArena.padded(4 * n)
-        out.append((path, shape, dtype, ph))
+        out.append((path, shape, dtype, params_host))
     return total, out
 
 
@@ -742,7 +841,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
         queue made them, else None)."""
         stacks, rest = _split_stack_grads(state.params)
         leaves = tree_map(lambda p: p.detach().requires_grad_(), rest)
-        device = tree_leaves(leaves)[0].device
+        device = state.step.device
         if sink:
             gstack = _sunk_grads(state)
         elif sharded:
@@ -889,28 +988,47 @@ def _before_update(step_fn) -> None:
 
 
 def _sunk_loss_and_grads(model: Model, leaves, stacks, batch, stack_grads, *, schedule,
-                         policy, stream, hooks, queue, squares=None, accumulate=False):
+                         policy, stream, hooks, queue, squares=None, accumulate=False,
+                         take=None):
     """One pass of the stack with its grads sunk: the loss of `batch` over
     the rest's leaves (differentiated) and the stack (not differentiated:
     its grads written into `stack_grads` by the LMS executor's sink, or by
     the reduction queue, opened for the pass with `schedule`'s prefetch
     depth, 1 without one, and drained before this returns; abandoned if
     the backward raises). The resident stack (no policy, no stream) takes
-    the hooks' path. -> (loss, {"ce", "aux"}, the rest's grads)."""
+    the hooks' path. With the rest in host memory its grads come from the
+    model's sinks: `take(path, grad)`, if given, may consume one as the
+    backward makes it (-> True; its grad is then None here); the others
+    are returned, the embedding's in its rows' form (`models/rest.py`
+    `RowsGrad`) when `take` is given, else as tensors. -> (loss, {"ce",
+    "aux"}, the rest's grads)."""
     layers = model.cfg.num_layers
     if queue is not None:
-        queue.open(tree_leaves(leaves)[0].device, tr._stream_depth(schedule, layers),
+        queue.open(batch["tokens"].device, tr._stream_depth(schedule, layers),
                    squares, accumulate=accumulate)
+    sunk, sink = {}, None
+    if host_rest.on_host(stream):
+        def sink(key, g):
+            if take is not None and take(key, g):
+                return
+            if isinstance(g, host_rest.HeadGrad):
+                g = g.dense()       # it holds the logits' grads: formed now
+            sunk[key] = g if key not in sunk else host_rest.dense(sunk[key]) + host_rest.dense(g)
     try:
         loss, mets = model.loss(_merge_stack_grads(leaves, stacks), batch, policy=policy,
-                                stream=stream, stack_grads=stack_grads, grad_hooks=hooks)
-        grads = torch.autograd.grad(loss, tree_leaves(leaves))
+                                stream=stream, stack_grads=stack_grads, grad_hooks=hooks,
+                                rest_sink=sink)
+        grads = torch.autograd.grad(loss, tree_leaves(leaves), allow_unused=sink is not None)
     except BaseException:
         if queue is not None:
             queue.abandon()
         raise
     if queue is not None:
         queue.drain(layers)
+    if sink is not None:
+        keep = host_rest.dense if take is None else (lambda g: g)
+        grads = [keep(sunk.get(path)) if g is None else g
+                 for (path, _), g in zip(_paths(leaves), grads)]
     return loss, mets, grads
 
 
@@ -1016,9 +1134,10 @@ def _zero1_params_from(master, layout, params, *, mesh, device) -> None:
     """Phase 3 of the DDL schedule on the params: all-gather the updated
     master shard over `data` and write each param as its f32 value cast
     to the param's dtype, a row of a leaf at a time (ShardSpec: one layer
-    of a stacked leaf, or a whole unstacked leaf) or a slice of the flat
-    vector at a time (the pack order), so neither the whole f32 tree nor
-    a whole stacked leaf in f32 stands on the card. A master shard in
+    of a stacked leaf; `SLICE` columns of each rank's block of an
+    unstacked leaf) or a slice of the flat vector at a time (the pack
+    order), so neither the whole f32 tree nor a whole leaf in f32 stands
+    on the card. A master shard in
     host memory is copied in a row or slice at a time. The cast runs on
     the card: a blocking copy into a param in host memory would convert
     on the CPU (torch does a blocking device-to-host copy's dtype
@@ -1030,9 +1149,21 @@ def _zero1_params_from(master, layout, params, *, mesh, device) -> None:
             return t
         return off.stream_layer_to_device(t, device, cls="optimizer").wait()
     if isinstance(layout, ddl_overlap.ShardSpec):
+        d = layout.data_size
         for j, p in enumerate(leaves):
             r = layout.rows[j]
             part = ddl_overlap.leaf_part(master, layout, j).view(r, -1)
+            if r == 1:
+                # an unstacked leaf: `SLICE` columns of every rank's block
+                # at a time, so no whole leaf stands gathered in f32
+                flat, sl, n = p.view(-1), part.shape[1], p.numel()
+                for k in range(0, sl, SLICE):
+                    got = mesh.all_gather(on_device(part[:, k:k + SLICE]), "data")
+                    for q in range(d):
+                        a, b = q * sl + k, min(q * sl + k + got.shape[1], n)
+                        if a < b:
+                            flat[a:b].copy_(got[q, :b - a].to(p.dtype))
+                continue
             dst = p.view(r, -1)
             for i in range(r):
                 row = ddl_overlap.gather_rows(on_device(part[i:i + 1]), layout, j,
@@ -1093,7 +1224,12 @@ def build_zero1_train_step(model: Model, tcfg: TrainConfig, plan: Optional[Memor
 
     plan: an LMS plan. The LMS executor runs the stack (its policy, and
     its params streamed from pinned host memory when the plan streams
-    them), its grads put on the same queue with the overlap.
+    them), its grads put on the same queue with the overlap. When the
+    params stream, the rest is in host memory too and its grads reach
+    the shard from the model's sinks (overlapped): the head's reduced as
+    the backward makes it, the embedding's from its rows' form a
+    `POD_SLICE` at a time (`leaf_shard_parts`), so neither stands whole
+    through the stack's backward.
     The flat state lies where the plan's optimizer class says: on the
     device, or in the pinned arena (`init_zero1_state(plan=)`), and then
     the update streams it through the card in `SLICE`-element chunks, two
@@ -1121,6 +1257,9 @@ def build_zero1_train_step(model: Model, tcfg: TrainConfig, plan: Optional[Memor
     opt_host = _host_classes(plan)[1]
     overlap, layout = _zero1_layout(model, tcfg, data_size, mean_over)
     local = _local_size(layout)
+    # the untied head's index in the layout's leaf order (None when tied)
+    head_leaf = next((j for j, (path, _) in enumerate(_paths(_meta_params(model)))
+                      if path == host_rest.HEAD), None)
     hooks, stacked = None, None
     if overlap:
         stacked = _stacked_mask(layout.treedef)
@@ -1143,16 +1282,30 @@ def build_zero1_train_step(model: Model, tcfg: TrainConfig, plan: Optional[Memor
         else:
             stacks, rest = _split_stack_grads(params)
             leaves = tree_map(lambda p: p.detach().requires_grad_(), rest)
-            device = tree_leaves(leaves)[0].device
+            device = state.step.device
             if overlap:
                 shard = torch.zeros(local, dtype=torch.float32, device=device)
                 gstack = _stack_rows(shard, layout, stacked)
             else:
                 gstack = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
                                                         device=device), stacks["stack0"])
+            take = None
+            if overlap and host_rest.on_host(stream):
+                def take(key, g):
+                    """The head's grad, reduced into the shard as the
+                    backward makes it, formed a block of rows at a time
+                    from its factors (`models/rest.HeadGrad`), so it never
+                    stands whole: before the first layer's grads reach the
+                    queue (the head's backward comes first), so no
+                    collective runs beside the queue's."""
+                    if key != host_rest.HEAD:
+                        return False
+                    _write_parts(shard, ddl_overlap.leaf_shard_parts(
+                        g, layout, head_leaf, **shard_axes))
+                    return True
             loss, mets, rest_grads = _sunk_loss_and_grads(
                 model, leaves, stacks, batch, gstack, schedule=schedule, policy=policy,
-                stream=stream, hooks=hooks, queue=queue)
+                stream=stream, hooks=hooks, queue=queue, take=take)
             # with the queue, the stack's slots are in the shard already
             stack_done = tree_map(lambda _: None, stacks["stack0"]) if overlap else gstack
             grads = _merge_stack_grads(tree_unflatten(rest, rest_grads),
@@ -1229,8 +1382,8 @@ def _zero1_placement(model: Model, tcfg: TrainConfig, data_size: int,
     optimizer on host). The layout is the step's (`_zero1_layout`: the
     overlap from the DDLConfig, the `data` extent from tcfg.mesh, falling
     back to `data_size`); the host bytes are the flat mu, nu and master
-    when the optimizer class is on the host, the stack's params when they
-    stream."""
+    when the optimizer class is on the host, every param leaf when the
+    params are (`_host_classes`)."""
     sizes = dict(zip(tcfg.mesh.axes, tcfg.mesh.shape))
     data = sizes.get("data", data_size)
     dp_total = data * sizes.get("pod", 1)
@@ -1241,9 +1394,7 @@ def _zero1_placement(model: Model, tcfg: TrainConfig, data_size: int,
     defs = _def_paths(model.param_defs())
     host_bytes = 3 * off.PinnedArena.padded(4 * local) if opt_host else 0
     if params_host:
-        host_bytes += sum(off.PinnedArena.padded(
-            math.prod(d.shape) * torch.empty((), dtype=DTYPES[d.dtype]).element_size())
-            for path, d in defs if _stack_path(path))
+        host_bytes += sum(_leaf_bytes(d.shape, DTYPES[d.dtype]) for _, d in defs)
     return layout, local, defs, _Placer(device, host_bytes), params_host, opt_host
 
 
@@ -1257,8 +1408,8 @@ def init_zero1_state(model: Model, tcfg: TrainConfig, seed: int, device, data_si
     `data` extent from tcfg.mesh, falling back to `data_size`).
     data_index: this rank's `data` coordinate (`Mesh.index("data")`).
 
-    With a plan, the state is placed as it says: the stack's params in
-    pinned host memory when they stream, the flat mu, nu and master there
+    With a plan, the state is placed as it says: the params in pinned
+    host memory when they stream (the rest too), the flat mu, nu and master there
     when the optimizer class is on the host; built leaf by leaf (a stacked
     leaf a layer at a time), so neither stands whole on the device."""
     device = torch.device(device)
@@ -1268,7 +1419,7 @@ def init_zero1_state(model: Model, tcfg: TrainConfig, seed: int, device, data_si
     gen.manual_seed(seed)
     params = {}
     for path, d in defs:
-        p = placer.take(d.shape, DTYPES[d.dtype], params_host and _stack_path(path))
+        p = placer.take(d.shape, DTYPES[d.dtype], params_host)
         for i, piece in init_pieces(d, gen, device):
             p[i] = piece
         _set(params, path, p)
@@ -1309,7 +1460,7 @@ def restore_zero1_state(reader, model: Model, tcfg: TrainConfig, device, data_si
     start = data_index * local if n == 1 else 0
     params = {}
     for path, d in defs:
-        p = placer.take(d.shape, DTYPES[d.dtype], params_host and _stack_path(path))
+        p = placer.take(d.shape, DTYPES[d.dtype], params_host)
         reader.read_into("params/" + "/".join(path), p)
         _set(params, path, p)
     _with_empty(params, model.param_defs())

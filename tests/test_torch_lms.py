@@ -578,13 +578,14 @@ def test_policy_keeps_exactly_the_assigned_classes(monkeypatch):
 def test_swap_counters_count_what_moved():
     """After one step under a plan that streams params and the optimizer
     and offloads five classes, the swap counters hold what the executor
-    moved: the stack's params in twice (forward and backward) and out once
-    (the sweep's write-back), the whole optimizer state in and out once,
-    each offloaded activation out and in once, one event a layer (a slice,
-    an activation). Against the plan's `swap_schedule.swap_bytes`: the
-    optimizer's equals it; the params' prices 2 bytes a param for the
-    unstacked rest too, which stays on the device (so never moves), and
-    leaves the write-back out."""
+    moved: the stack's params in twice (forward and backward), the rest
+    in host memory beside it in once (the batch's embedding rows, the final
+    norm and the head, one event each), every param out once (the sweep's
+    write-back), the whole optimizer state in and out once, each offloaded
+    activation out and in once, one event a layer (a slice, an
+    activation). Against the plan's `swap_schedule.swap_bytes`: the
+    optimizer's equals it; the params' prices 2 bytes a param and leaves
+    the write-back out."""
     tcfg = _tcfg(layers=4)
     cfg = tcfg.model
     shape = tcfg.shape
@@ -603,9 +604,13 @@ def test_swap_counters_count_what_moved():
     acts = {a.name: a.bytes_dev for a in tp.activation_classes(cfg, shape, tcfg.mesh)}
     act_bytes = cfg.num_layers * (acts["resid"] + acts["attn_norm"] + acts["qkv"]
                                   + acts["mlp_norm"] + 2 * 16 * cfg.num_heads * cfg.head_dim * 2)
-    assert moved["lms.swap_in_bytes.params"] == 2 * stack_bytes
-    assert moved["lms.swap_in_events.params"] == 2 * cfg.num_layers
-    assert moved["lms.swap_out_bytes.params"] == stack_bytes
+    rows = b["tokens"].size * cfg.d_model * 4
+    head = off.tree_bytes(state.params["embed"].get("lm_head", state.params["embed"]))
+    norm = state.params["final_norm"]
+    assert moved["lms.swap_in_bytes.params"] == (2 * stack_bytes + rows + head
+                                                 + off.tree_bytes(norm))
+    assert moved["lms.swap_in_events.params"] == 2 * cfg.num_layers + 2 + len(norm)
+    assert moved["lms.swap_out_bytes.params"] == off.tree_bytes(state.params)
     assert moved["lms.swap_in_bytes.optimizer"] == moved["lms.swap_out_bytes.optimizer"] \
         == 12 * n_params
     assert moved["lms.swap_in_bytes.activations"] == moved["lms.swap_out_bytes.activations"] \
@@ -676,7 +681,8 @@ def test_what_is_not_ported_raises():
     runs them), and so does LMS with microbatches
     (tests/test_torch_microbatches.py); params on the host with the
     optimizer on the device (with microbatches too), the Mamba-2 stack
-    under a plan, and serve plans: "not ported yet"."""
+    under a plan: "not ported yet". Serve plans build (tests/
+    test_torch_serve_plan.py runs them)."""
     from repro_torch.launch.mesh import Mesh
     tcfg = _tcfg()
     model = Model(tcfg.model)
@@ -699,8 +705,80 @@ def test_what_is_not_ported_raises():
     spec = tsteps.StepSpec(plan=plan)
     for build in (tsteps.build_prefill_step, tsteps.build_decode_step,
                   tsteps.build_slot_decode_step):
-        with pytest.raises(NotImplementedError, match="serve plans"):
-            build(model, tb.ShapeConfig("d", "decode", 16, 2), spec)
+        fn, _ = build(model, tb.ShapeConfig("d", "decode", 16, 2), spec)
+        assert callable(fn)
+
+
+@pytest.mark.parametrize("arch", [ARCH, "olmo-1b"])
+def test_params_host_plan_places_the_rest_in_the_arena(arch):
+    """Under a plan that puts params on the host every param leaf lies in
+    the one pinned arena, the unstacked rest's (embedding, final norm, head
+    or the tied table) too, and the arena's bytes are `_state_layout`'s;
+    the values are `model.init`'s; a streamed step leaves no rest leaf with
+    an autograd grad (its grads come from the model's sinks) and equals
+    the resident step bitwise."""
+    tcfg = _tcfg(arch=arch)
+    model = Model(tcfg.model)
+    plan = _plan(tcfg.model, {"params": "host", "optimizer": "host"})
+    state = tsteps.init_train_state(model, tcfg, 0, "cpu", plan=plan)
+    arena = off._ARENAS[-1]
+    lo, hi = arena.buffer.data_ptr(), arena.buffer.data_ptr() + arena.buffer.numel()
+    assert all(lo <= t.data_ptr() < hi for t in tree_leaves(state.params))
+    paths = [(path, d.shape, tsteps.DTYPES[d.dtype]) for path, d in
+             tsteps._def_paths(model.param_defs())]
+    assert arena.offset == tsteps._state_layout(paths, "adamw", True, True)[0]
+    want = model.init(0, "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(state.params), tree_leaves(want)))
+    resident = tsteps.init_train_state(model, tcfg, 0, "cpu")
+    b = {k: torch.from_numpy(v) for k, v in _batches(tcfg.model, n=1)[0].items()}
+    state, met = tsteps.build_train_step(model, tcfg, plan=plan)(state, b)
+    resident, rmet = tsteps.build_train_step(model, tcfg)(resident, b)
+    assert all(t.grad is None for t in tree_leaves(state.params))
+    assert {k: v.item() for k, v in met.items()} == {k: v.item() for k, v in rmet.items()}
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(state.params),
+                                                 tree_leaves(resident.params)))
+
+
+def test_rows_grad_is_autograds_table_grad_in_any_range():
+    """The embedding's grad in its rows' form (`models/rest.RowsGrad`, what
+    the model's sink gets for a table in host memory): its dense form is
+    autograd's grad of `table[tokens]` bitwise, repeated tokens included,
+    and every flat range of it is the same elements, made from the rows
+    that fall there alone."""
+    from repro_torch.models.rest import RowsGrad
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn(37, 8, generator=gen).requires_grad_()
+    tokens = torch.randint(0, 37, (3, 11), generator=gen, dtype=torch.int32)
+    tokens[0, :4] = 5                      # a row read four times
+    g = torch.randn(3, 11, 8, generator=gen)
+    want, = torch.autograd.grad(table[tokens], table, g)
+    rows = RowsGrad(table.shape, tokens, g)
+    assert torch.equal(rows.dense(), want)
+    flat = want.reshape(-1)
+    for a, b in ((0, 296), (3, 5), (37, 90), (40, 41), (290, 296), (0, 1)):
+        assert torch.equal(rows.flat_range(a, b), flat[a:b]), (a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_grad_is_autograds_head_grad_in_any_range(monkeypatch, dtype):
+    """An untied head's grad in its factors' form (`models/rest.HeadGrad`,
+    what the model's sink gets for a head in host memory): blocks of
+    HEAD_ROWS rows, its dense form and every flat range of it are
+    autograd's grad of `x @ head` bitwise, and `head_input_grad` is x's."""
+    from repro_torch.models import rest
+    monkeypatch.setattr(rest, "HEAD_ROWS", 8)
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 9, 36, generator=gen).to(dt).requires_grad_()
+    head = torch.randn(36, 50, generator=gen).to(dt).requires_grad_()
+    g = torch.randn(2, 9, 50, generator=gen).to(dt)
+    want_x, want = torch.autograd.grad(x @ head, (x, head), g)
+    got = rest.HeadGrad(head.shape, x.detach(), g)
+    assert torch.equal(got.dense(), want)
+    assert torch.equal(rest.head_input_grad(g, head.detach()), want_x)
+    flat = want.reshape(-1)
+    for a, b in ((0, 1800), (3, 5), (395, 420), (399, 401), (1790, 1800), (0, 1), (450, 1203)):
+        assert torch.equal(got.flat_range(a, b), flat[a:b]), (a, b)
 
 
 def test_state_is_freed_without_the_garbage_collector():

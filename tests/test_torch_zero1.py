@@ -348,6 +348,62 @@ def _port_steps(rank, world, out_dir):
     (out / f"port_bitwise_{rank}.json").write_text(json.dumps(bitwise))
 
 
+def _port_sliced(rank, world, out_dir):
+    """zero1 under the params-host plan (the unstacked rest in the pinned
+    arena beside the stack) on this rank of a 1x2x1 mesh, 3 steps from one
+    init: as it runs, then with `overlap.POD_SLICE` and `steps.SLICE` cut
+    to 64 elements and `rest.HEAD_ROWS` to 8, so the rest's grads are
+    reduce-scattered and its new params gathered in pieces
+    (`local_shard_parts`, `_zero1_params_from`), the head's grad formed a
+    block of 8 rows at a time (`models/rest.HeadGrad`)."""
+    from repro_torch.core.lms import offload as off
+    from repro_torch.models import rest
+    from repro_torch.data import local_rows
+    from repro_torch.launch.mesh import make_mesh
+    out = pathlib.Path(out_dir)
+    init_gloo(rank, world, out)
+    mesh = make_mesh(tb.MeshSpec(*PHASE3_MESH))
+    tcfg = _tcfg(mesh=PHASE3_MESH, ddl=tb.DDLConfig(mode="zero1", overlap_grads=True))
+    model = Model(tcfg.model)
+    plan = _plan(tcfg.model, PLANS["optimizer_host"])
+    batches = [{k: torch.from_numpy(v) for k, v in local_rows(b, mesh.dp_index,
+                                                              mesh.dp_size).items()}
+               for b in _batches(tcfg.model.vocab_size)]
+    scatters = []
+    psum_scatter = mesh.psum_scatter
+
+    def spy(x, axis):
+        scatters.append(x.numel())
+        return psum_scatter(x, axis)
+    mesh.psum_scatter = spy
+
+    def run():
+        state = tsteps.init_zero1_state(model, tcfg, 5, "cpu", 2, plan=plan,
+                                        data_index=mesh.index("data"))
+        arena = off._ARENAS[-1]
+        lo, hi = arena.buffer.data_ptr(), arena.buffer.data_ptr() + arena.buffer.numel()
+        placed = all(lo <= t.data_ptr() < hi for t in tree_leaves(state.params))
+        step = tsteps.build_zero1_train_step(model, tcfg, plan=plan, mesh=mesh)
+        mets = []
+        for b in batches:
+            state, met = step(state, b)
+            mets.append({k: v.item() for k, v in met.items()})
+        return mets, state, placed
+    base, base_state, placed = run()
+    whole = len(scatters)
+    saved = overlap.POD_SLICE, tsteps.SLICE, rest.HEAD_ROWS
+    overlap.POD_SLICE = tsteps.SLICE = 64
+    rest.HEAD_ROWS = 8
+    try:
+        mets, state, _ = run()
+    finally:
+        overlap.POD_SLICE, tsteps.SLICE, rest.HEAD_ROWS = saved
+    (out / f"sliced_{rank}.json").write_text(json.dumps({
+        "placed": placed, "metrics": mets == base, "sliced": len(scatters) - whole > whole,
+        "state": all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                     zip(_zero1_leaves(state), _zero1_leaves(base_state)))}))
+
+
 def _port_phase3(rank, world, out_dir):
     """One zero1 step (overlapped: the ShardSpec layout) on this rank of a
     (1, 2) mesh at PHASE3_LAYERS layers, every `mesh.all_gather` recorded
@@ -417,6 +473,7 @@ def runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("zero1")
     (out / "trainer").mkdir()
     (out / "phase3").mkdir()
+    (out / "sliced").mkdir()
     cli = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", "-m", "repro_torch.launch.train", "--device", "cpu"]
@@ -425,7 +482,8 @@ def runs(tmp_path_factory):
     procs = (start_jax(ME, "_jax_side", out, devices=WORLD)
              + start_ranks(ME, "_port_steps", out, WORLD)
              + start_ranks(ME, "_port_trainer", out, 2)
-             + start_ranks(ME, "_port_phase3", out / "phase3", 2) + [cli])
+             + start_ranks(ME, "_port_phase3", out / "phase3", 2)
+             + start_ranks(ME, "_port_sliced", out / "sliced", 2) + [cli])
     outs = wait_all(procs, timeout=300)
     return out, outs[-1]
 
@@ -599,6 +657,18 @@ def test_zero1_under_a_plan_equals_resident_bitwise(runs, plan, ov):
     for r in range(WORLD):
         got = json.loads((out / f"port_bitwise_{r}.json").read_text())[f"{plan}/overlap={ov}"]
         assert got == {"metrics": True, "state": True, "queued": ov}, (r, got)
+
+
+def test_zero1_rest_on_host_reduced_in_slices_is_bitwise(runs):
+    """zero1 under a plan that puts params on the host: every param leaf,
+    the unstacked rest's too, lies in the pinned arena, and the rest's
+    grads reduced and its params gathered in 64-element pieces (more
+    reduce-scatters than whole leaves) give every metric and state leaf of
+    3 steps bitwise, on both ranks."""
+    out, _ = runs
+    for r in range(2):
+        got = json.loads((out / "sliced" / f"sliced_{r}.json").read_text())
+        assert got == {"placed": True, "metrics": True, "sliced": True, "state": True}, (r, got)
 
 
 def test_trainer_zero1_on_1x2x1_matches_jax_trainer(runs):
