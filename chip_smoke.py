@@ -38,9 +38,13 @@ non-zero, printing no result):
    the tensor cores or the CUDA cores, RMSNorm's row held in registers or
    element by element); SSD rows with dt in a trained model's range
    also show that the plain scan with the decayed state dropped from what
-   each chunk hands on fails the row's rule; the RMSNorm autograd
-   Function's gradient against autograd through the plain version; the
-   scan's CUDA-core route on its own path (the scan entry on f32 views);
+   each chunk hands on fails the row's rule; the scan with its final
+   state (`final_state=True`, the serve path's prefill) by route at every
+   prompt of the Mamba-2 trace and run_static's batch, y and the state
+   against the plain scan's, y bitwise the same call without the state;
+   the RMSNorm autograd Function's gradient against autograd through the
+   plain version; the scan's CUDA-core route on its own path (the scan
+   entry on f32 views, with and without the final state);
 4. reference (qwen2.5-14b at full width, 2 layers, random bf16 weights
    from a seed) — the serve engine with model-width and int8 KV pages;
    the engine with the flash-attention prefill (attn_impl="pallas",
@@ -58,6 +62,23 @@ non-zero, printing no result):
    2 layers (values and argmax) and at the full 48 (launches exactly 48,
    all on the tensor-core route, argmax where the margin is wide, both
    losses, forward time);
+5a. mamba2_serve (mamba2-1.3b's 48-layer weights of 5, in a spawned
+   process sharing them on the card) — 8 requests on 4 slots, prompts of
+   2, 3, 256, 300, 511, 700, 1024 and 1100 tokens, 32 greedy tokens each,
+   half of them prefilled into host slots to wait: the engine at 2 layers
+   against `Model.forward` over each prompt and its tokens; at 48 layers
+   resident, under the serve plan of LMSConfig(hbm_budget=1e9) (params
+   and the waiting state on the host: tokens, the hidden state entering
+   the head and the logits bitwise resident, the head in vocab slices,
+   the swap bytes exact, the peak at most 1.10 x the plan's), through a
+   preemption (tokens bitwise, the
+   slot's state moved whole); `run_static` resident and under the plan;
+   the prefill's scan only with its final state, L launches a prefill;
+5b. mamba2_lms (in that process) — 4 layers, 3 steps of `Trainer.train`
+   on 2 x 2048 tokens under the plan of LMSConfig(hbm_budget=2e9) (params
+   and AdamW state streamed) against resident: losses, grad norms,
+   params, mu, nu and masters bitwise, the swap bytes a step exactly the
+   count, RMSNorm 2L+1 a step, the peak at most 1.10 x the plan's;
 6. training (qwen2.5-14b at full width, bf16, 2 x 2048 tokens of the
    synthetic stream) — at 2 layers, 3 steps of `build_train_step` from one
    init through the kernels and through the plain versions (step 1's
@@ -111,7 +132,7 @@ non-zero, printing no result):
    seed, 2 ranks spawned on the one card over gloo, a 2x1x1 mesh,
    compress_dcn, the overlapped backward: each layer's grads reduced on the
    DDL queue's thread and stream while the backward goes on, 2048 tokens a
-   rank) — `Trainer.train` for 3 steps: replicas bitwise in sync, the int8
+   rank) — `Trainer.train` for 2 steps: replicas bitwise in sync, the int8
    pod hop through the kernels bitwise against the plain quantizers and
    within the int8 bound of the exact sum, the launches the leaf sizes
    give (quantize and the pod sum once a slice, no dequantize), the step
@@ -143,7 +164,7 @@ non-zero, printing no result):
    of LMSConfig(hbm_budget=16e9): params, grads and the AdamW state in
    pinned host memory, each layer's grads reduced on the DDL queue's
    thread while the backward goes on and sunk to the host) — (a) 1 layer,
-   3 steps, bitwise against the DDL phase's resident run (losses, grad
+   2 steps, bitwise against the DDL phase's resident run (losses, grad
    norms, every param's checksum), its launches, the pod hop on the
    queue's stream; (b) 2 layers if two ranks' pinned state fits 80% of
    MemAvailable, 2 steps overlapped and 2 with the overlap off: step time, tokens/s, the reduction's time and its part
@@ -174,7 +195,7 @@ non-zero, printing no result):
    events); the gate's depth is chosen here (the most layers L <= 48 whose
    pinned state fits 80% of MemAvailable, failing unless that state plus
    the grads exceeds the card's 80 GB) and its pinned state reserved once;
-16. lms_ab (qwen2.5-14b at full width cut to 4 layers, 2 x 2048 tokens, 3
+16. lms_ab (qwen2.5-14b at full width cut to 4 layers, 2 x 2048 tokens, 2
    steps of `Trainer.train` from one seed) — under the plan of
    LMSConfig(hbm_budget=16e9) (params and AdamW state streamed from
    pinned host memory, five activation classes offloaded, mlp_hidden
@@ -185,7 +206,7 @@ non-zero, printing no result):
    same at 2 microbatches a step (a row each), streamed against resident
    m = 2, bitwise, the params swapped in twice as often as at m = 1;
 17. lms_gate (qwen2.5-14b at full width, the host phase's L layers, 2 x
-   2048 tokens, 3 steps) — the budget from lms_ab's measured-minus-planned
+   2048 tokens, 2 steps) — the budget from lms_ab's measured-minus-planned
    peak fed to the planner as its audited live-bytes margin (lowered until
    the params stream); finite losses, step 1's loss bitwise equal to a
    layer-by-layer no-grad forward of the phase's own; step time, tokens/s,
@@ -201,10 +222,12 @@ also by route) are reset just before and read just after: the static
 loop's, the engine's whole-prompt prefill's and `Model.forward`'s attention
 launches must all take the tensor-core route, and so must every decode
 launch of the engine, the static loop and the slot decode, and every scan
-launch of the Mamba-2 forward. The line before the last lists every ported
-kernel (flash attention, decode and the SSD scan once per route; the int8
-quantizer and dequantizer with their fused entries) with its launches on
-the main path; the last line is {"ok": true, "device": {...}}.
+launch of the Mamba-2 forward and of its serve path's prefill. The line
+before the last lists every ported kernel (flash attention, decode and the
+SSD scan once per route, the scan with its final state once per route
+again; the int8 quantizer and dequantizer with their fused entries) with
+its launches on the main path; the last line is {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -235,6 +258,28 @@ SLOTS, MAX_LEN, CHUNK, DEVICE_PAGES = 4, 160, 32, 20
 # the Mamba-2 paper's training context
 MAMBA = "mamba2-1.3b"
 SSD_BATCH, SSD_LEN = 4, 2048
+# Mamba-2 serving (mamba2_serve): mamba2-1.3b at full width, 8 requests on 4
+# slots, 32 greedy tokens each, prompts under K - 1 (2), of K - 1 (3), one
+# whole chunk of 256, partial last chunks (300, 511, 700, 1100: 5 chunks) and
+# four whole chunks (1024): the device holds the state of 4 requests, the
+# other 4 wait on the host. The engine against Model.forward at 2 layers,
+# then at all 48 resident, under the serve plan of
+# LMSConfig(hbm_budget=MAMBA_SERVE_BUDGET) (params and the waiting state on
+# the host; its peak held to SERVE_PLAN_PEAK_OVER_PLAN x the plan's) and
+# through a preemption at tick MAMBA_PREEMPT_TICK; `run_static` on 8 prompts
+# of MAMBA_STATIC_PROMPT tokens, MAMBA_STATIC_GEN new tokens each (a decode
+# step under the plan streams the stack and each layer's cache: 8 steps keep
+# the phase inside chip_smoke's time), resident and under the plan
+MAMBA_PROMPTS = (700, 2, 1100, 256, 511, 3, 1024, 300)
+MAMBA_GEN, MAMBA_SLOTS, MAMBA_MAX_LEN = 32, 4, 1136
+MAMBA_SERVE_BUDGET, MAMBA_PREEMPT_TICK = 10**9, 20
+MAMBA_STATIC_PROMPT, MAMBA_STATIC_GEN = 300, 8
+MAMBA_TIMEOUT_S = 720
+# Mamba-2 training under an LMS plan (mamba2_lms): MAMBA_LMS_LAYERS layers at
+# full width, MAMBA_LMS_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens, the plan of
+# LMSConfig(hbm_budget=MAMBA_LMS_BUDGET) (params and AdamW state streamed)
+# against resident
+MAMBA_LMS_LAYERS, MAMBA_LMS_BUDGET, MAMBA_LMS_STEPS = 4, 2 * 10**9, 3
 # training: 2 sequences of 2048 tokens a step; the reference check at 2
 # layers, the main path (Trainer) at 4, where params, grads and f32 Adam
 # state stay resident (~16 B a param: ~42.5 GB; the 48 layers need ~236 GB,
@@ -247,7 +292,7 @@ TRAIN_LAYERS, TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 4, 5, 3e-4, 1
 # params, ~32 GB a rank with AdamW) on a 2x1x1 mesh (2 pods of 1 data rank)
 # with the int8 pod hop, 2048 tokens a rank a step; then the smoke config on
 # a 2x2x1 mesh, held against one rank on the global batch
-DDL_LAYERS, DDL_STEPS, DDL_MESH = 1, 3, (2, 1, 1)
+DDL_LAYERS, DDL_STEPS, DDL_MESH = 1, 2, (2, 1, 1)
 DDL_SMOKE_MESH, DDL_SMOKE_BATCH, DDL_SMOKE_SEQ = (2, 2, 1), 8, 128
 DDL_AXES = ("pod", "data", "model")
 # error feedback's path on the full-width ranks: one leaf of 2**24 + 3000
@@ -277,7 +322,7 @@ LMS_DDL_MEM_WAIT_S, LMS_DDL_MEM_SLACK = 180, 2 * 10**9
 # config on the 2x2x1 mesh, zero1 and m = 2, each overlapped and serialized.
 # One step a run, at the peak lr (no warmup), so that step updates the
 # params: a second step at this width repeats ~100 s of gloo, and the
-# state carried across steps is held by ddl_sharded_smoke's 3 steps
+# state carried across steps is held by ddl_sharded_smoke's DDL_STEPS steps
 DDL_SHARDED_MESH, DDL_SHARDED_STEPS, DDL_SHARDED_BUDGET = (1, 2, 1), 1, 16 * 10**9
 DDL_SHARDED_MICROBATCHES, DDL_SHARDED_TIMEOUT_S = 2, 900
 # the kernels of each route of the SSD scan and RMSNorm (csrc/ssd_scan_mma.cu,
@@ -286,13 +331,17 @@ SSD_MMA_KERNELS = ("ssd_chunk_state_kernel", "ssd_chunk_out_kernel")
 SSD_KERNELS = {"tensor_core": (*SSD_MMA_KERNELS, "ssd_state_pass_kernel"),
                "cuda_core": ("ssd_scan_kernel",)}
 RMSNORM_KERNELS = {"register": "rmsnorm_rows_kernel", "element": "rmsnorm_elements_kernel"}
+# the tensor-core route's h_final, in bf16 units of each head's max
+# |h_final|: its hi + lo operands read ~0.0013 of a unit, the hi operand
+# alone (the lo dropped) ~0.7-0.9, which the timed rows show as a control
+SSD_H_FINAL_BF16_TOL = 0.05
 # LMS on one card: the A/B of streamed against resident at 4 layers under a
 # 16 GB planning budget (params and optimizer streamed, five activation
 # classes offloaded, one recomputed), LMS_STEPS steps; the gate trains the
 # most layers whose pinned state fits LMS_HOST_SHARE of MemAvailable. Its
 # budget margin is lms_ab's measured peak over its plan's, plus the
 # allowance; the host phase copies HOST_COPY_BYTES each way
-LMS_AB_LAYERS, LMS_AB_BUDGET, LMS_STEPS = 4, 16 * 10**9, 3
+LMS_AB_LAYERS, LMS_AB_BUDGET, LMS_STEPS = 4, 16 * 10**9, 2
 LMS_HOST_SHARE, LMS_MARGIN_ALLOWANCE = 0.8, 2 * 10**9
 CARD_BYTES = 80 * 10**9
 HOST_COPY_BYTES, HOST_COPY_REPS = 1 << 30, 5
@@ -691,10 +740,11 @@ def rmsnorm_sig(x, eps):
             float(eps))
 
 
-def ssd_sig(x, B, chunk):
-    """x, B and C are read through their strides: those are part of it."""
+def ssd_sig(x, B, chunk, final_state=False):
+    """x, B and C are read through their strides: those are part of it; and
+    whether the call returns the final state."""
     return ("ssd_scan", tuple(x.shape), str(x.dtype), tuple(x.stride()), tuple(B.shape),
-            tuple(B.stride()), int(chunk))
+            tuple(B.stride()), int(chunk), bool(final_state))
 
 
 def rmsnorm_path(x, scale) -> str:
@@ -1608,6 +1658,112 @@ def ssd_kernel_phase(shape: str, b: int, l: int, seed: int, checked: set, *, h=6
     return row
 
 
+def ssd_final_state_kernel_phase(shape: str, b: int, l: int, seed: int, checked: set, *,
+                                 dtype="bfloat16", timed: bool = True, h=64, p=64, g=1, n=128,
+                                 chunk=256):
+    """The SSD scan with its final state (`final_state=True`, the serve
+    path's prefill) against the plain scan's (y, h_final), per (batch row,
+    head), at the inputs `ssd_kernel_phase` makes with dt in a trained
+    model's range (where the state carried across chunks shows): y by that
+    phase's rule for the route (bf16: one bf16 ulp of the head's max |y|;
+    f32: 2e-5 of it), h_final against the head's max |h_final| (bf16:
+    SSD_H_FINAL_BF16_TOL of its bf16 ulp, and at a timed shape the plain
+    model of the route with the lo operands dropped must miss that rule;
+    f32: 2e-5 of it). y must equal bitwise the same call without the final state
+    (the final state adds an output and changes nothing else), and the
+    call must take the route `ssd_route` names, counted in the launcher's
+    final-state count of that route. Timed (unless `timed` is False: a
+    shape checked for its launch signature) as `ssd_kernel_phase` times,
+    with the same call without the final state beside it."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref, ssd_scan_ref
+    x, dt, A, B, C = _ssd_inputs(b, l, h, p, g, n, getattr(torch, dtype), seed, "trained")
+    launcher = ssd_ops.ssd_scan_cuda
+
+    def kernel():
+        return launcher(x, dt, A, B, C, chunk=chunk, final_state=True)
+
+    def without():
+        return launcher(x, dt, A, B, C, chunk=chunk)
+
+    def plain():
+        return ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
+    route = ssd_ops.ssd_route(x, B, C, chunk)
+    counters = {r: f"final_state_{r}_launches" for r in SSD_KERNELS}
+    before = {r: getattr(launcher, a) for r, a in counters.items()}
+    y, hf = kernel()
+    torch.cuda.synchronize()
+    took = [r for r, a in counters.items() if getattr(launcher, a) > before[r]]
+    want_route = "tensor_core" if dtype == "bfloat16" else "cuda_core"
+    if took != [route] or route != want_route:
+        raise AssertionError(f"ssd_scan final state {shape}: took route {took}, expected "
+                             f"{route} (wanted {want_route})")
+    y0 = without()
+    want_y, want_h = plain()
+    bf16 = dtype == "bfloat16"
+
+    def rule(got, want, dims, tol):
+        err = (got.float() - want.float()).abs().amax(dim=dims)          # [b, h]
+        top = want.float().abs().amax(dim=dims).clamp_min(1e-30)
+        unit = torch.exp2(torch.floor(torch.log2(top)) - 7) if bf16 else top
+        return {"max_abs_err": err.max().item(),
+                "max_err_over_unit": (err / unit).max().item(), "tolerance": tol}
+    rules = {"y": rule(y, want_y, (1, 3), 1.0 if bf16 else 2e-5),
+             "h_final": rule(hf, want_h, (2, 3), SSD_H_FINAL_BF16_TOL if bf16 else 2e-5)}
+    ok = (all(r["max_err_over_unit"] <= r["tolerance"] for r in rules.values())
+          and hf.shape == (b, h, p, n) and hf.dtype == torch.float32
+          and bool(torch.isfinite(hf).all()) and bool(torch.isfinite(y).all()))
+    same_y = torch.equal(y, y0)
+    control = None
+    if bf16 and timed:
+        # the planted fault: the route's bf16 products with the hi operands
+        # alone, whose h_final the rule must refuse
+        _, hc = ssd_scan_chunked_ref(x, dt, A, B, C, chunk=chunk, operands="bf16",
+                                     final_state=True)
+        control = rule(hc, want_h, (2, 3), SSD_H_FINAL_BF16_TOL)
+        control["refused"] = control["max_err_over_unit"] > SSD_H_FINAL_BF16_TOL
+        del hc
+    if not (ok and same_y and (control is None or control["refused"])):
+        raise AssertionError(f"ssd_scan final state {shape}: {rules}, y bitwise the call "
+                             f"without the final state: {same_y}, the hi-operand control: "
+                             f"{control}")
+    checked.add(ssd_sig(x, B, chunk, True))
+    row = {"phase": "kernel", "kernel": "ssd_scan_final_state", "shape": shape, "route": route,
+           "x": list(x.shape), "chunk": chunk, "dtype": dtype, "dt": "trained", **rules,
+           "max_abs_err": max(r["max_abs_err"] for r in rules.values()),
+           "y_bitwise_without_final_state": same_y, "h_final_hi_operands_only": control,
+           "tolerance": (f"y: 1 bf16 ulp, h_final: {SSD_H_FINAL_BF16_TOL} of it, of each "
+                         "(batch, head)'s max |plain|" if bf16
+                         else "y and h_final: 2e-5 of each (batch, head)'s max |plain|"),
+           "timed": timed}
+    if timed:
+        kernel_ms, device_ops, by_kernel = device_ms_per_call(kernel)
+        without_ms, _, _ = device_ms_per_call(without)
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        q = min(chunk, l)
+        rows = [min(q, l - c0) for c0 in range(0, l, q)]
+        pairs = sum(r * (r + 1) // 2 for r in rows)
+        flops = b * h * (2 * pairs * (n + p) + 4 * l * p * n)
+        esize = x.element_size()
+        nbytes = (2 * b * l * h * p * esize + b * l * h * 4 + h * 4 + 2 * b * l * g * n * esize
+                  + b * h * p * n * 4)
+        peak = BF16_TENSOR_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+        bound_ms, bound_by = bound(nbytes, flops, peak)
+        row.update({"gflop": flops / 1e9, "mbytes": nbytes / 1e6, "kernel_ms": kernel_ms,
+                    "device_ops_per_call": device_ops, "device_ms_by_kernel": by_kernel,
+                    "without_final_state_ms": without_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "bound_peak": peak,
+                    "bound_share": bound_ms / kernel_ms, "library_ms": None,
+                    "library": "none: no single PyTorch call computes the scan",
+                    "timing": "kernel_ms, without_final_state_ms: device time a call, every "
+                              "kernel summed (torch.profiler); plain_ms: CUDA events"})
+    emit(row)
+    del x, dt, A, B, C, y, hf, y0, want_y, want_h
+    torch.cuda.empty_cache()
+    return row
+
+
 def kernel_phases(num_layers: int):
     """Each kernel against its plain version at every shape the paths give
     it and at a long-context shape: flash attention's tensor-core route at
@@ -1757,6 +1913,20 @@ def kernel_phases(num_layers: int):
         ssd_kernel_phase("p32_n64_g2_trained_dt", 2, 700, 71, checked, h=8, p=32, g=2, n=64,
                          chunk=128, dt_kind="trained", **tc),
     ]
+    # with its final state (the serve path's prefill): the main prompts timed,
+    # every other prompt of the trace and run_static's batch for its shape
+    out["ssd_scan_final_state_tensor_core"] = [
+        ssd_final_state_kernel_phase("mamba2_prefill_1100", 1, 1100, 110, checked),
+        ssd_final_state_kernel_phase("mamba2_prefill_700", 1, 700, 111, checked)] + [
+        ssd_final_state_kernel_phase(f"mamba2_prefill_{n}", 1, n, 112 + i, checked, timed=False)
+        for i, n in enumerate(sorted(set(MAMBA_PROMPTS) - {700, 1100}))] + [
+        ssd_final_state_kernel_phase("mamba2_static_prefill", REQUESTS, MAMBA_STATIC_PROMPT,
+                                     120, checked, timed=False)]
+    out["ssd_scan_final_state_cuda_core"] = [
+        ssd_final_state_kernel_phase("f32_1100", 1, 1100, 121, checked, dtype="float32"),
+        ssd_final_state_kernel_phase("f32_700", 1, 700, 122, checked, dtype="float32"),
+        ssd_final_state_kernel_phase("narrow_f32_300", 2, 300, 123, checked, dtype="float32",
+                                     timed=False, h=8, p=40, g=2, n=48, chunk=64)]
     out["ssd_scan_cuda_core"] = [
         ssd_kernel_phase("f32", 2, SSD_LEN, 26, checked, dtype="float32", route="cuda_core"),
         ssd_kernel_phase("narrow_f32", 2, 300, 28, checked, h=8, p=40, g=2, n=48, chunk=64,
@@ -1787,6 +1957,13 @@ def kernel_phases(num_layers: int):
         rmsnorm_kernel_phase("f32_8192", 512, 8192, 75, checked, dtype="float32"),
         rmsnorm_kernel_phase("f32_16384", 256, 16384, 76, checked, dtype="float32"),
     ]
+    # Mamba-2 serving's rows: each prompt's prefill, the decode step's slots,
+    # run_static's prefill and decode
+    out["rmsnorm"] += [
+        rmsnorm_kernel_phase(f"mamba2_serve_{rows}", rows, md, 130 + i, checked,
+                             eps=m.norm_eps, timed=False)
+        for i, rows in enumerate(sorted(set(MAMBA_PROMPTS) | {
+            MAMBA_SLOTS, REQUESTS, REQUESTS * MAMBA_STATIC_PROMPT}))]
     rmsnorm_grad_phase(TRAIN_BATCH * TRAIN_SEQ, d, 42)
     ddl_kernel_phases(out, checked)
     dense_kernel_phases(out, checked)
@@ -1947,7 +2124,9 @@ def launch_signatures():
     decode calls by the route `decode_route` expects
     (`flash_decode_tensor_core`, `flash_decode_paged_cuda_core`, ...), the
     scan calls by the route `ssd_ops.ssd_route` names (`ssd_scan_tensor_core`,
-    `ssd_scan_cuda_core`) and the RMSNorm calls by the path `rmsnorm_path`
+    `ssd_scan_cuda_core`; those that return the final state by the route
+    again, `ssd_scan_final_state_tensor_core`, ...) and the RMSNorm calls by
+    the path `rmsnorm_path`
     names (`rmsnorm_register`, `rmsnorm_element`), and the int8 calls by
     the path `quantize_path`, `kv_write_path` or `dequantize_path` names
     (`quantize_rows_vector`, `dequantize_sum_rows_element`, ...), against
@@ -1965,6 +2144,8 @@ def launch_signatures():
     for name in ("flash_decode", "flash_decode_paged", "ssd_scan"):
         for route in ("tensor_core", "cuda_core"):
             routes[f"{name}_{route}"] = (name, f"{route}_launches")
+    for route in ("tensor_core", "cuda_core"):
+        routes[f"ssd_scan_final_state_{route}"] = ("ssd_scan", f"final_state_{route}_launches")
     for name in ("quantize_rows", "quantize_kv_write", "dequantize_rows", "dequantize_sum_rows"):
         for path in ("vector", "element"):
             routes[f"{name}_{path}"] = (name, f"{path}_launches")
@@ -2019,11 +2200,14 @@ def launch_signatures():
         calls["dequantize_sum_rows_" + dequantize_path(q)] += 1
         return dequantize_sum(q, scale, n)
 
-    def scan_spy(x, dt, A, B, C, *, chunk=256):
-        seen.add(ssd_sig(x, B, chunk))
+    def scan_spy(x, dt, A, B, C, *, chunk=256, final_state=False):
+        seen.add(ssd_sig(x, B, chunk, final_state))
+        route = ssd_ops.ssd_route(x, B, C, chunk)
         calls["ssd_scan"] += 1
-        calls["ssd_scan_" + ssd_ops.ssd_route(x, B, C, chunk)] += 1
-        return scan(x, dt, A, B, C, chunk=chunk)
+        calls["ssd_scan_" + route] += 1
+        if final_state:
+            calls["ssd_scan_final_state_" + route] += 1
+        return scan(x, dt, A, B, C, chunk=chunk, final_state=final_state)
 
     def norm_spy(x, scale, *, eps=1e-6):
         seen.add(rmsnorm_sig(x, eps))
@@ -2956,24 +3140,37 @@ def f32_ssd_phase(line, checked):
     buffer, as apply_ssm hands them over, at mamba2-1.3b's widths (64 heads
     of 64, state 128, chunk 256) on 2 x 2048 tokens, counts reset just
     before and read just after: one launch, on the CUDA cores, of a shape
-    the kernel phases checked, and a finite f32 output."""
+    the kernel phases checked, and a finite f32 output; then the same
+    entry with the final state (`final_state=True`, as the prefill asks
+    for it) on a prompt of 1100 tokens: one launch on the CUDA cores,
+    counted as the final-state route's, and a finite f32 state."""
     import torch
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     x, dt, A, B, C = _ssd_inputs(2, SSD_LEN, 64, 64, 1, 128, torch.float32, 26, "softplus")
     with launch_signatures() as (seen, calls, launches):
         y = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=256)
         torch.cuda.synchronize()
-    unchecked = sorted(seen - checked)
+    # the final state's route: the prefill's scan on f32 views of a prompt
+    # of 1100 tokens
+    xf, dtf, Af, Bf, Cf = _ssd_inputs(1, 1100, 64, 64, 1, 128, torch.float32, 121, "trained")
+    with launch_signatures() as (seen_f, calls_f, launches_f):
+        yf, hf = ssd_ops.ssd_scan(xf, dtf, Af, Bf, Cf, chunk=256, final_state=True)
+        torch.cuda.synchronize()
+    unchecked = sorted((seen | seen_f) - checked)
     checks = {
         "one_launch": launches["ssd_scan"] == 1,
         "took_cuda_core": launches["ssd_scan_cuda_core"] == 1,
-        "every_launch_recorded": calls == launches,
+        "every_launch_recorded": calls == launches and calls_f == launches_f,
         "every_launch_shape_checked": not unchecked,
         "f32_output": y.shape == x.shape and y.dtype == torch.float32,
-        "finite": bool(torch.isfinite(y).all()),
+        "finite": bool(torch.isfinite(y).all()) and bool(torch.isfinite(hf).all()),
+        "final_state_one_launch": launches_f["ssd_scan"] == 1
+        and launches_f["ssd_scan_final_state_cuda_core"] == 1,
+        "final_state_f32": hf.shape == (1, 64, 64, 128) and hf.dtype == torch.float32,
     }
     row = {"phase": "f32_ssd", "x": list(x.shape), "card": line, "launches": launches,
-           "launch_signatures": sorted(seen), "unchecked_signatures": unchecked,
+           "final_state_x": list(xf.shape), "final_state_launches": launches_f,
+           "launch_signatures": sorted(seen | seen_f), "unchecked_signatures": unchecked,
            "checks": checks}
     emit(row)
     if not all(checks.values()):
@@ -3141,8 +3338,479 @@ def mamba_phases(line, checked):
     if not all(checks.values()):
         raise AssertionError(f"mamba2 48 layers: failed checks "
                              f"{[k for k, v in checks.items() if not v]}")
-    del params
     torch.cuda.empty_cache()
+    return row, params
+
+
+def _mamba2_requests(cfg, prompts=None):
+    """The Mamba-2 serve trace: a request a prompt length (MAMBA_PROMPTS
+    unless given), random prompts from the seed, MAMBA_GEN new tokens
+    each."""
+    import numpy as np
+    from repro_torch.serve.scheduler import Request
+    rng = np.random.default_rng(SEED + 7)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32),
+                    max_new=MAMBA_GEN) for i, n in enumerate(prompts or MAMBA_PROMPTS)]
+
+
+def _mamba2_serve(model, params, rows=None, plan=None, injector=None, setup=None):
+    """Serve the Mamba-2 trace once on MAMBA_SLOTS slots, greedy, under a
+    serve plan and a fault injector if given; setup(engine) runs before the
+    trace. -> (engine, requests, finite logits?, seconds of eng.run)."""
+    import numpy as np
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(model, slots=MAMBA_SLOTS, max_len=MAMBA_MAX_LEN, plan=plan,
+                      params=params, injector=injector, device="cuda")
+    finite = [True]
+    select = eng._select
+
+    def checked(req, row):
+        finite[0] &= bool(np.isfinite(row).all())
+        if rows is not None:
+            rows.setdefault(req.rid, []).append(row.copy())
+        return select(req, row)
+    eng._select = checked
+    if setup is not None:
+        setup(eng)
+    reqs = _mamba2_requests(model.cfg)
+    t0 = time.monotonic()
+    eng.run(reqs)
+    wall = time.monotonic() - t0
+    del eng._select
+    return eng, reqs, finite[0], wall
+
+
+def _mamba2_serve_plan(cfg):
+    """The serve plan of the Mamba-2 trace under MAMBA_SERVE_BUDGET."""
+    from repro_torch.config.base import LMSConfig, MeshSpec, ShapeConfig
+    from repro_torch.core.lms.planner import PlanRequest, plan
+    return plan(PlanRequest(cfg=cfg, shape=ShapeConfig("serve", "decode", MAMBA_MAX_LEN,
+                                                       MAMBA_SLOTS),
+                            mesh=MeshSpec((1, 1), ("data", "model")),
+                            lms=LMSConfig(hbm_budget=MAMBA_SERVE_BUDGET), serve=True,
+                            slots=MAMBA_SLOTS, backlog_slots=2 * MAMBA_SLOTS, page_size=PAGE))
+
+
+def _serve_launch_checks(launches, calls, unchecked, L, prefills, ticks):
+    """The launches of a Mamba-2 serve run: the scan with its final state
+    once a layer a prefill (on the tensor cores), never without it; RMSNorm
+    L + 1 times a prefill and a tick; no other kernel."""
+    return {"scan_final_state_launches": launches["ssd_scan"] == L * prefills
+            and launches["ssd_scan_final_state_tensor_core"] == L * prefills
+            and launches["ssd_scan_tensor_core"] == L * prefills,
+            "rmsnorm_launches": launches["rmsnorm"] == (L + 1) * (prefills + ticks),
+            "no_other_launches": all(n == 0 for k, n in launches.items()
+                                     if k.split("_")[0] not in ("ssd", "rmsnorm")),
+            "every_launch_recorded": calls == launches,
+            "every_launch_shape_checked": not unchecked}
+
+
+def _mamba2_serve_runs(params, checked):
+    """mamba2_serve's runs, on the parent's 48-layer weights (no new init),
+    in the process `_mamba2_rank` runs. -> the row's facts."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.lms import offload as off
+    from repro_torch.launch.serve import run_static
+    from repro_torch.models import rest
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.inject import FaultEvent, FaultInjector, FaultPlan
+    from repro_torch.train.steps import place_params
+    cfg = get_config(MAMBA)
+    L = cfg.num_layers
+    out = {}
+
+    # 2 layers: the engine's logits against Model.forward over each prompt
+    # and its tokens (the kernel route; the forward outside the recording)
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    model2, params2 = Model(cfg2, ssd_impl="pallas"), _first_layers(params, 2)
+    rows2 = {}
+    with launch_signatures() as (seen, calls, launches):
+        eng, reqs, finite, wall = _mamba2_serve(model2, params2, rows2)
+    ticks = int(eng.metrics()["ticks"])
+    worst, flips, flips_wide, wide = 0.0, 0, 0, 0
+    with torch.no_grad():
+        for r in reqs:
+            toks = np.concatenate([r.prompt, np.asarray(r.tokens[:-1], np.int32)])
+            logits, _ = model2.forward(params2, {"tokens": torch.from_numpy(toks[None]).cuda()})
+            want = logits[0, len(r.prompt) - 1:]
+            got = torch.from_numpy(np.stack(rows2[r.rid])).cuda()
+            cmp = compare_logits(got, want, 2.0 ** -5)
+            worst = max(worst, cmp["worst"])
+            flips += cmp["argmax_flips"]
+            flips_wide += cmp["argmax_flips_wide"]
+            wide += cmp["wide_rows"]
+            del logits, want, got
+    out["layers_2"] = {
+        "run_s": wall, "ticks": ticks, "finite": finite,
+        "all_ok": all(r.status == "ok" and len(r.tokens) == MAMBA_GEN for r in reqs),
+        "worst_over_row_max": worst, "argmax_flips": flips, "argmax_flips_wide": flips_wide,
+        "wide_rows": wide, "launches": launches,
+        "checks": _serve_launch_checks(launches, calls, sorted(map(str, seen - checked)), 2,
+                                       len(reqs), ticks)}
+    del eng, params2
+    torch.cuda.empty_cache()
+
+    model = Model(cfg, ssd_impl="pallas")
+
+    def pool_after(eng):
+        pool = eng.pool
+        return {"empty": pool._table == {},
+                "host_slots_back": len(pool._free_host_slots) == pool._host[
+                    ("stack0", "ssd_0", "h")].shape[0],
+                "spilled_requests": pool.stats["spilled_requests"],
+                "preempted_requests": pool.stats["preempted_requests"],
+                "state_bytes": pool._state_bytes, "has_paged": pool.has_paged}
+
+    def head_inputs(heads):
+        """Record the hidden state entering the head at every prefill and
+        tick of the next run (the model's `_logits` wrapped)."""
+        orig = Model._logits
+
+        def rec(self, params, x, stream, sink=None):
+            heads.append(x.detach().cpu())
+            return orig(self, params, x, stream, sink)
+        return rec
+
+    def served(p, rows, plan=None, injector=None, setup=None, record=True, heads=None):
+        if heads is not None:
+            model._logits = head_inputs(heads).__get__(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = off.swap_counters()
+        ctx = launch_signatures() if record else contextlib.nullcontext((set(), {}, {}))
+        with ctx as (seen, calls, launches):
+            eng, reqs, finite, wall = _mamba2_serve(model, p, rows, plan=plan,
+                                                    injector=injector, setup=setup)
+        torch.cuda.synchronize()
+        m = eng.metrics()
+        facts = {"layers": L, "run_s": wall, "finite": finite, "peak_bytes":
+                 torch.cuda.max_memory_allocated() - base,
+                 "all_ok": all(r.status == "ok" and len(r.tokens) == MAMBA_GEN for r in reqs),
+                 "ticks": int(m["ticks"]), "decode_tok_s": m["decode_tok_s"],
+                 "ttft_mean_s": m.get("ttft_mean_s"), "tpot_p50_s": m.get("tpot_p50_s"),
+                 "pool": pool_after(eng),
+                 "swap_in_bytes_params": off.swap_counters().get("lms.swap_in_bytes.params", 0)
+                 - before.get("lms.swap_in_bytes.params", 0)}
+        if record:
+            facts["launches"] = launches
+            facts["checks"] = _serve_launch_checks(launches, calls,
+                                                   sorted(map(str, seen - checked)), L,
+                                                   len(reqs), facts["ticks"])
+        model.__dict__.pop("_logits", None)
+        return {r.rid: list(r.tokens) for r in reqs}, facts, reqs
+
+    # 48 layers resident, the references
+    rows_res, heads_res = {}, []
+    toks_res, out["resident"], reqs = served(params, rows_res, heads=heads_res)
+    prompt_rows = [len(r.prompt) for r in reqs]
+    # under the serve plan: the params copied into its pinned arena
+    plan = _mamba2_serve_plan(cfg)
+    out["plan"] = _plan_row(plan)
+    t0 = time.monotonic()
+    placed = place_params(params, plan, "cuda")
+    torch.cuda.synchronize()
+    out["place_s"] = time.monotonic() - t0
+    rows_plan, heads_plan = {}, []
+    toks_plan, out["planned"], _ = served(placed, rows_plan, plan=plan, heads=heads_plan)
+    ticks = out["planned"]["ticks"]
+    # the head larger than the plan's window comes in vocab slices of
+    # whole blocks, the products the resident head takes a block at a time
+    out["planned"].update({
+        "head_in_vocab_slices": off.tree_bytes(placed["embed"]["lm_head"])
+        > rest.window(cfg, plan.swap_schedule),
+        "head_inputs_bitwise": len(heads_plan) == len(heads_res) and all(
+            torch.equal(a, b) for a, b in zip(heads_plan, heads_res)),
+        "tokens_bitwise": toks_plan == toks_res,
+        "logits_bitwise": all(len(rows_plan[rid]) == len(rows_res[rid]) and all(
+            np.array_equal(a, b) for a, b in zip(rows_plan[rid], rows_res[rid]))
+            for rid in rows_res),
+        "logits_max_abs_diff": max(float(np.abs(a - b).max()) for rid in rows_res
+                                   for a, b in zip(rows_plan[rid], rows_res[rid])),
+        "swap_in_bytes_predicted": sum(_sweep_bytes(placed, n) for n in prompt_rows)
+        + ticks * _sweep_bytes(placed, MAMBA_SLOTS),
+        "pinned_bytes": off.pinned_bytes()})
+    del rows_plan
+
+    # the preemption drill, resident: the preempted slot's state must reach
+    # its host slot whole
+    moved_whole = []
+
+    def watch(eng):
+        pool, orig = eng.pool, eng.pool.preempt
+
+        def preempt(rid, length):
+            slot = pool._table[rid].slot
+            held = {k: pool._slot_state(k, slot).clone() for k in pool._state}
+            done = orig(rid, length)
+            if done:
+                torch.cuda.synchronize()
+                hslot = pool._table[rid].host_slot
+                moved_whole.append(all(torch.equal(pool._host[k][hslot].cuda(), t)
+                                       for k, t in held.items()))
+            return done
+        pool.preempt = preempt
+    inj = FaultInjector(FaultPlan([FaultEvent("engine.tick", at=MAMBA_PREEMPT_TICK,
+                                              kind="preempt")]))
+    toks_pre, out["preempt"], _ = served(params, None, injector=inj, setup=watch,
+                                         record=False)
+    out["preempt"].update({"tokens_bitwise": toks_pre == toks_res, "fired": len(inj.fired),
+                           "state_moved_whole": moved_whole})
+
+    # run_static, resident and under the plan
+    sreqs = _mamba2_requests(cfg, (MAMBA_STATIC_PROMPT,) * REQUESTS)
+    _, want, t_res = run_static(model, sreqs, MAMBA_STATIC_PROMPT, MAMBA_STATIC_GEN,
+                                params=params, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = off.swap_counters()
+    with launch_signatures() as (seen, calls, launches):
+        _, got, t = run_static(model, sreqs, MAMBA_STATIC_PROMPT, MAMBA_STATIC_GEN,
+                               params=placed, device="cuda", plan=plan)
+    torch.cuda.synchronize()
+    moved = {k: v - before.get(k, 0) for k, v in off.swap_counters().items()}
+    n = len(sreqs)
+    cache_bytes = n * out["resident"]["pool"]["state_bytes"]
+    rows_in = n * MAMBA_STATIC_PROMPT + (MAMBA_STATIC_GEN - 1) * n
+    out["static"] = {
+        "tokens_bitwise": bool(np.array_equal(got, want)), "timings": t, "resident": t_res,
+        "peak_bytes": torch.cuda.max_memory_allocated() - base,
+        "swap_in_bytes_params": moved.get("lms.swap_in_bytes.params", 0),
+        "swap_in_bytes_predicted": MAMBA_STATIC_GEN * _sweep_bytes(placed, 0)
+        + rows_in * cfg.d_model * 4,
+        "swap_bytes_kvcache": [moved.get("lms.swap_out_bytes.kvcache", 0),
+                               moved.get("lms.swap_in_bytes.kvcache", 0)],
+        "swap_bytes_kvcache_predicted": [MAMBA_STATIC_GEN * cache_bytes,
+                                         (MAMBA_STATIC_GEN - 1) * cache_bytes],
+        "launches": launches,
+        "checks": {
+            "scan_final_state_launches": launches["ssd_scan"] == L
+            and launches["ssd_scan_final_state_tensor_core"] == L,
+            "rmsnorm_launches": launches["rmsnorm"] == (L + 1) * MAMBA_STATIC_GEN,
+            "no_other_launches": all(v == 0 for k, v in launches.items()
+                                     if k.split("_")[0] not in ("ssd", "rmsnorm")),
+            "every_launch_recorded": calls == launches,
+            "every_launch_shape_checked": not (seen - checked)}}
+    del placed
+    off.release_arenas()
+    return out
+
+
+def _train_swap_count(cfg, state, plan, tokens: int) -> dict:
+    """The `lms.swap_*` bytes a training step under `plan` moves, from the
+    state's sizes: the stack in twice (the forward, and the backward's
+    re-stream), the head, the final norm and the batch's embedding rows
+    (f32) in once, every param out once (the optimizer sweep writes them
+    back), mu, nu and the masters in and out once, and each activation
+    class the policy offloads out and in once a layer (`resid`, the layer
+    input, [tokens, d] bf16; `ssd_xz`, z, and `ssd_state`, y, [tokens,
+    d_inner] bf16)."""
+    from repro_torch.core.lms import offload as off
+    p, o = state.params, state.opt
+    L = cfg.num_layers
+    stack = off.tree_bytes(p["decoder"]["stack0"])
+    act = {"resid": tokens * cfg.d_model * 2, "ssd_xz": tokens * cfg.d_inner * 2,
+           "ssd_state": tokens * cfg.d_inner * 2}
+    offloaded = sum(b for name, b in act.items()
+                    if plan.assignment.get(name) == "offload") * L
+    optimizer = sum(off.tree_bytes(t) for t in (o.mu, o.nu, o.master))
+    return {"lms.swap_in_bytes.params": 2 * stack + off.tree_bytes(p["embed"]["lm_head"])
+            + off.tree_bytes(p["final_norm"]) + tokens * cfg.d_model * 4,
+            "lms.swap_out_bytes.params": off.tree_bytes(p),
+            "lms.swap_in_bytes.optimizer": optimizer, "lms.swap_out_bytes.optimizer": optimizer,
+            "lms.swap_in_bytes.activations": offloaded,
+            "lms.swap_out_bytes.activations": offloaded}
+
+
+def _mamba2_lms_runs(checked):
+    """mamba2_lms's runs: `Trainer.train` at MAMBA_LMS_LAYERS layers of
+    mamba2-1.3b's full width, MAMBA_LMS_STEPS steps from one seed, under the plan
+    of MAMBA_LMS_BUDGET and resident. -> the row's facts."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.config.base import LMSConfig
+    from repro_torch.core.lms import offload as off
+    from repro_torch.tree import tree_leaves
+    L, n = MAMBA_LMS_LAYERS, MAMBA_LMS_STEPS
+    base = _train_config(L, arch=MAMBA, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                         total_steps=n)
+    runs, leaves = {}, {}
+    for name, lms in (("streamed", LMSConfig(hbm_budget=MAMBA_LMS_BUDGET)),
+                      ("resident", LMSConfig(enabled=False))):
+        # what this process holds before the run (the serve runs' leftovers)
+        # is not the run's: its peak is taken above it
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        trainer, state, hist, facts = _lms_run(dataclasses.replace(base, lms=lms), n)
+        plan = trainer.plan
+        o = state.opt
+        leaves[name] = [t for tree in (state.params, o.mu, o.nu, o.master)
+                        for t in tree_leaves(tree)]
+        launches = facts["launches"]
+        count = (_train_swap_count(base.model, state, plan, TRAIN_BATCH * TRAIN_SEQ)
+                 if name == "streamed" else None)
+        swap = {k: v for k, v in facts["swap_per_step"].items() if "_bytes." in k and v}
+        runs[name] = {
+            "plan": _plan_row(plan), "loss": [r["loss"] for r in hist],
+            "grad_norm": [r["grad_norm"] for r in hist], "step_s": [r["time_s"] for r in hist],
+            "median_step_s_after_1": statistics.median(r["time_s"] for r in hist[1:]),
+            "setup_s": facts["setup_s"], "allocated_before_bytes": before,
+            "max_memory_allocated_bytes": facts["peak_bytes"] - before,
+            "pinned_bytes": facts["pinned_bytes"], "swap_per_step": swap,
+            "swap_per_step_count": count, "launches": launches,
+            "checks": {"finite": all(math.isfinite(r["loss"]) for r in hist),
+                       # ln1 and the final norm in the forward, ln1 again in
+                       # each layer's recompute (its output is never kept)
+                       "rmsnorm_launches": launches["rmsnorm"] == n * (2 * L + 1),
+                       "no_other_launches": all(v == 0 for k, v in launches.items()
+                                                if not k.startswith("rmsnorm")),
+                       "every_launch_recorded": facts["calls"] == launches,
+                       "every_launch_shape_checked": not (facts["seen"] - checked)}}
+        del trainer, state, hist
+        torch.cuda.empty_cache()
+    s, r = runs["streamed"], runs["resident"]
+    same = [torch.equal(a.to(b.device), b) for a, b in zip(leaves["streamed"],
+                                                          leaves["resident"])]
+    del leaves
+    off.release_arenas()
+    return {"streamed": s, "resident": r, "state_bitwise": all(same),
+            "state_unequal": [i for i, ok in enumerate(same) if not ok]}
+
+
+def _mamba2_rank(rank: int, world: int, box, checked):
+    """mamba2_serve's runs on the parent's weights, `box[0]` (shared with it
+    on the card through CUDA IPC, dropped and collected before the LMS runs
+    and before this process returns, so the parent can free them), then
+    mamba2_lms's. -> {"serve": facts, "lms": facts}."""
+    import gc
+    import torch
+    params = box.pop()
+    try:
+        serve = _mamba2_serve_runs(params, checked)
+    finally:
+        del params
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return {"serve": serve, "lms": _mamba2_lms_runs(checked)}
+
+
+def mamba2_phases(line, checked, params):
+    """Mamba-2 serving and training under a plan, in a process spawned on
+    the card that shares mamba_phases' 48-layer weights through CUDA IPC
+    (`_mamba2_rank`; its pinned memory goes back to the host when it
+    exits). Rows:
+
+    mamba2_serve — the trace of MAMBA_PROMPTS (8 requests on MAMBA_SLOTS
+    slots, MAMBA_GEN greedy tokens each: a prompt under K - 1, one of
+    K - 1, one whole chunk, partial last chunks, up to 5 chunks of 256;
+    the device holds the state of 4 requests, the other 4 are prefilled
+    into host slots and wait) through `ServeEngine` with ssd_impl="pallas":
+    the whole-prompt prefill takes the SSD scan with its final state (the
+    tensor-core route, once a layer a prefill) and writes each layer's
+    state straight into its slot or host slot; decode is plain torch
+    (decode_ssm, as the JAX package's is plain jnp). At 2 layers: every
+    decoded logits row within 2**-5 of its max |logit| of Model.forward's
+    over the prompt and the tokens before it (the kernel route), no argmax
+    flip where that row's top-2 margin exceeds 2**-5. At 48 layers: the
+    resident engine; under the serve plan of
+    LMSConfig(hbm_budget=MAMBA_SERVE_BUDGET) (params and the waiting state
+    on the host), tokens and every logits row bitwise resident, the
+    params' swap bytes exactly a sweep a prefill and a tick, the peak at
+    most SERVE_PLAN_PEAK_OVER_PLAN x the plan's; a preemption at tick
+    MAMBA_PREEMPT_TICK, tokens bitwise, the preempted slot's state in its
+    host slot bitwise; the pool empty after each run. Each recorded run:
+    the scan only with its final state, L a prefill; RMSNorm L + 1 a
+    prefill and a tick; every launch at a checked shape. `run_static` on 8
+    prompts of MAMBA_STATIC_PROMPT tokens, MAMBA_STATIC_GEN new tokens each,
+    under the plan (the cache
+    emitted to the host a layer at a time by the prefill, streamed by each
+    decode step) bitwise resident, its swap bytes exact, its peak within
+    the same bound.
+
+    mamba2_lms — MAMBA_LMS_LAYERS layers, MAMBA_LMS_STEPS steps of 2 x 2048
+    tokens of `Trainer.train` under the plan of
+    LMSConfig(hbm_budget=MAMBA_LMS_BUDGET) (params and AdamW state streamed
+    from pinned memory; the scan's plain version, whose autograd gives the
+    grads: the kernel has no backward) against resident: losses, grad
+    norms and every leaf of params, mu, nu and the masters bitwise (mu
+    and nu bitwise mean every step's grads were); the swap bytes a step
+    exactly `_train_swap_count`; RMSNorm 2L + 1 a step; the peak at most
+    SERVE_PLAN_PEAK_OVER_PLAN x the plan's. -> the serve row."""
+    import torch
+    t0 = time.monotonic()
+    got = spawn_ranks("_mamba2_rank", 1, [params], checked, timeout=MAMBA_TIMEOUT_S)[0]
+    torch.cuda.ipc_collect()
+    sv, lm = got["serve"], got["lms"]
+    bound = SERVE_PLAN_PEAK_OVER_PLAN * sv["plan"]["peak_bytes"]
+    two, res, pl, pre, st = (sv[k] for k in ("layers_2", "resident", "planned", "preempt",
+                                             "static"))
+    checks = {f"layers_2_{k}": v for k, v in two["checks"].items()}
+    checks.update({f"resident_{k}": v for k, v in res["checks"].items()})
+    checks.update({f"planned_{k}": v for k, v in pl["checks"].items()})
+    checks.update({f"static_{k}": v for k, v in st["checks"].items()})
+    checks.update({
+        "layers_2_within_2**-5": two["worst_over_row_max"] <= 2.0 ** -5,
+        "layers_2_argmax_wide": two["argmax_flips_wide"] == 0 and two["wide_rows"] > 0,
+        "layers_2_all_ok": two["all_ok"] and two["finite"],
+        "all_ok": res["all_ok"] and pl["all_ok"] and pre["all_ok"] and res["finite"],
+        "state_only_pool": not res["pool"]["has_paged"],
+        "half_wait_on_the_host": res["pool"]["spilled_requests"] == len(MAMBA_PROMPTS)
+        - MAMBA_SLOTS,
+        "pools_empty": all(x["pool"]["empty"] and x["pool"]["host_slots_back"]
+                           for x in (res, pl, pre)),
+        "params_on_host": sv["plan"]["residency"].get("params") == "host",
+        "planned_tokens_bitwise": pl["tokens_bitwise"],
+        "planned_head_inputs_bitwise": pl["head_inputs_bitwise"],
+        "planned_head_in_vocab_slices": pl["head_in_vocab_slices"],
+        "planned_logits_bitwise": pl["logits_bitwise"],
+        "planned_swap_bytes_exact": pl["swap_in_bytes_params"] == pl["swap_in_bytes_predicted"],
+        "planned_peak_within_plan": pl["peak_bytes"] <= bound,
+        "preempt_tokens_bitwise": pre["tokens_bitwise"] and pre["fired"] > 0,
+        "preempt_state_moved_whole": pre["pool"]["preempted_requests"] >= 1
+        and len(pre["state_moved_whole"]) == pre["pool"]["preempted_requests"]
+        and all(pre["state_moved_whole"]),
+        "static_tokens_bitwise": st["tokens_bitwise"],
+        "static_swap_bytes_exact": st["swap_in_bytes_params"] == st["swap_in_bytes_predicted"]
+        and st["swap_bytes_kvcache"] == st["swap_bytes_kvcache_predicted"],
+        "static_peak_within_plan": st["peak_bytes"] <= bound})
+    row = {"phase": "mamba2_serve", "arch": MAMBA, "layers": res["layers"], "card": line,
+           "prompts": MAMBA_PROMPTS, "gen": MAMBA_GEN, "slots": MAMBA_SLOTS,
+           "hbm_budget": MAMBA_SERVE_BUDGET, "plan_peak_bytes": sv["plan"]["peak_bytes"],
+           "peak_over_plan_limit": SERVE_PLAN_PEAK_OVER_PLAN, **sv,
+           "seconds": time.monotonic() - t0, "checks": checks}
+    emit(row)
+    s, r = lm["streamed"], lm["resident"]
+    lchecks = {f"streamed_{k}": v for k, v in s["checks"].items()}
+    lchecks.update({f"resident_{k}": v for k, v in r["checks"].items()})
+    lchecks.update({
+        "plan_streams_params_and_optimizer": s["plan"]["residency"].get("params") == "host"
+        and s["plan"]["residency"].get("optimizer") == "host",
+        "loss_bitwise": s["loss"] == r["loss"],
+        "grad_norm_bitwise": s["grad_norm"] == r["grad_norm"],
+        "state_bitwise": lm["state_bitwise"],
+        "swap_bytes_exact": all(s["swap_per_step"].get(k, 0) == v
+                                for k, v in s["swap_per_step_count"].items())
+        and set(s["swap_per_step"]) <= set(s["swap_per_step_count"]),
+        "peak_within_plan": s["max_memory_allocated_bytes"]
+        <= SERVE_PLAN_PEAK_OVER_PLAN * s["plan"]["peak_bytes"]})
+    lrow = {"phase": "mamba2_lms", "arch": MAMBA, "layers": MAMBA_LMS_LAYERS,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": MAMBA_LMS_STEPS, "card": line,
+            "hbm_budget": MAMBA_LMS_BUDGET, **lm,
+            "overhead": s["median_step_s_after_1"] / r["median_step_s_after_1"] - 1,
+            "peak_vs_plan": {"measured": s["max_memory_allocated_bytes"],
+                             "plan": s["plan"]["peak_bytes"],
+                             "ratio": s["max_memory_allocated_bytes"] / s["plan"]["peak_bytes"]},
+            "checks": lchecks}
+    emit(lrow)
+    failed = [k for k, v in {**checks, **lchecks}.items() if not v]
+    if failed:
+        raise AssertionError(f"mamba2 serve / lms: failed checks {failed}")
     return row
 
 
@@ -3877,7 +4545,7 @@ def _ddl_error_feedback(mesh, rank: int):
 
 
 def _ddl_smoke_run(tcfg, mesh, inline: bool = False):
-    """One run of `_ddl_smoke_rank`: 3 steps from the seed's init on this
+    """One run of `_ddl_smoke_rank`: DDL_STEPS steps from the seed's init on this
     rank's rows, the queue's reductions inline if `inline`. -> (rows,
     checksums after init and each step, in sync after each, signatures,
     launches)."""
@@ -3906,7 +4574,7 @@ def _ddl_smoke_run(tcfg, mesh, inline: bool = False):
 def _ddl_smoke_rank(rank: int, world: int):
     """One rank of the smoke-width DDL phase on the 2x2x1 mesh: the train
     step with the overlapped backward off and on, compression off and on,
-    3 steps each from one init, on this rank's rows of the global batch;
+    DDL_STEPS steps each from one init, on this rank's rows of the global batch;
     each step's loss and grad norm, and whether the params' checksums agree
     across all ranks after each step; each overlapped run again with the
     queue's reductions inline (`_inline_put`): whether its rows and
@@ -3944,7 +4612,7 @@ def _ddl_batches(tcfg):
 
 def ddl_phase(line, checked):
     """The main path of data-parallel training at qwen2.5-14b's full width,
-    cut to 1 layer: `Trainer.train` for 3 steps on 2 ranks (a 2x1x1 mesh:
+    cut to 1 layer: `Trainer.train` for DDL_STEPS steps on 2 ranks (a 2x1x1 mesh:
     2 pods of 1 data rank) with compress_dcn and the overlapped backward
     (the layer's grads reduced on the DDL queue's thread and stream; its
     times reported), 2048 tokens a rank a step. The ranks share the one
@@ -4036,7 +4704,7 @@ def ddl_smoke_phase(line, checked):
     """The hierarchical schedule with |data| = 2 on the card: 4 ranks on a
     2x2x1 mesh at the qwen2.5-14b smoke config (the one part at reduced
     width: 4 full-width replicas do not fit one card), the overlapped
-    backward off and on x compression off and on, 3 steps each, each held
+    backward off and on x compression off and on, DDL_STEPS steps each, each held
     against one rank (the train step on a 1-device mesh) on the global
     batch from the same init. Tolerance, stated before the first run: the
     ranks' bf16 GEMMs have a quarter of the rows, so cuBLAS may sum in
@@ -4403,7 +5071,7 @@ def _ddl_sharded_smoke_rank(rank: int, world: int):
 def ddl_sharded_smoke_phase(line, checked, reference, ranks):
     """zero1 and the microbatch accumulator (m = 2) with |data| = 2 and the
     int8 pod hop: 4 ranks on a 2x2x1 mesh at the qwen2.5-14b smoke config,
-    compress_dcn, each overlapped and serialized, 3 steps each from one
+    compress_dcn, each overlapped and serialized, DDL_STEPS steps each from one
     seed, against one rank on the global batch from the same init
     (`reference`, ddl_smoke_phase's: the replicated step at m = 1; zero1's
     update is AdamW's, and the mean over 2 microbatches of a row is the
@@ -5972,7 +6640,10 @@ def main() -> int:
     f32_ssd_row = timed(f32_ssd_phase, line, checked)
     timed(decode_sync_phase, line)
     slot_launches = timed(reference_phase, line, checked)
-    mamba_row = timed(mamba_phases, line, checked)
+    mamba_row, mamba_params = timed(mamba_phases, line, checked)
+    mamba2_row = timed(mamba2_phases, line, checked, mamba_params)
+    del mamba_params
+    torch.cuda.empty_cache()
     timed(train_reference_phase, line, checked)
     trainer_row = timed(trainer_phase, line, checked)
 
@@ -6044,6 +6715,8 @@ def main() -> int:
         "dequantize_sum_rows": "src/repro/kernels/quantize/kernel.py:46",
         "ssd_scan_tensor_core": "src/repro/kernels/ssd_scan/kernel.py:72",
         "ssd_scan_cuda_core": "src/repro/kernels/ssd_scan/kernel.py:72",
+        "ssd_scan_final_state_tensor_core": "src/repro/kernels/ssd_scan/kernel.py:72",
+        "ssd_scan_final_state_cuda_core": "src/repro/kernels/ssd_scan/kernel.py:72",
         "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:24",
     }
     csrc = "src/repro_torch/kernels/csrc"
@@ -6061,6 +6734,8 @@ def main() -> int:
         "dequantize_sum_rows": f"{csrc}/quantize.cu",
         "ssd_scan_tensor_core": f"{csrc}/ssd_scan_mma.cu",
         "ssd_scan_cuda_core": f"{csrc}/ssd_scan.cu",
+        "ssd_scan_final_state_tensor_core": f"{csrc}/ssd_scan_mma.cu",
+        "ssd_scan_final_state_cuda_core": f"{csrc}/ssd_scan.cu",
         "rmsnorm": f"{csrc}/rmsnorm.cu",
     }
     # each kernel's launches on its main path: the 48-layer static loop
@@ -6068,8 +6743,11 @@ def main() -> int:
     # (kernel #1's CUDA-core route), the f32 decode call (that of #2 and #3),
     # the slot decode without an arena (int8), the 48-layer engine,
     # the 48-layer Mamba-2 forward (the scan's tensor-core route), the f32
-    # scan call (its CUDA-core route), the 4-layer Trainer's 5 steps, the
-    # full-width DDL Trainer's 3 steps (rank 0; the pod sum), and error
+    # scan call (its CUDA-core route), the 48-layer Mamba-2 engine's
+    # prefills (the scan with its final state on the tensor cores) and the
+    # f32 prefill scan (with its final state on the CUDA cores), the 4-layer
+    # Trainer's 5 steps, the
+    # full-width DDL Trainer's DDL_STEPS steps (rank 0; the pod sum), and error
     # feedback's path after them (the dequantizer)
     launches = {"flash_attention_fwd_wgmma": static_row["launches"]["flash_attention_wgmma"],
                 "flash_attention_fwd_cuda_core":
@@ -6086,6 +6764,10 @@ def main() -> int:
                                            for st in ddl_row["steps"]),
                 "ssd_scan_tensor_core": mamba_row["launches"]["ssd_scan_tensor_core"],
                 "ssd_scan_cuda_core": f32_ssd_row["launches"]["ssd_scan_cuda_core"],
+                "ssd_scan_final_state_tensor_core":
+                    mamba2_row["resident"]["launches"]["ssd_scan_final_state_tensor_core"],
+                "ssd_scan_final_state_cuda_core":
+                    f32_ssd_row["final_state_launches"]["ssd_scan_final_state_cuda_core"],
                 "rmsnorm": trainer_row["launches"]["rmsnorm"]}
     out = []
     for name, phase_rows in kernels.items():

@@ -38,8 +38,8 @@ extern "C" int ssd_shim(const void* x, const float* dt, const float* A, const vo
                         const void* C, void* y, float* states, float* decays, int batch, int L,
                         int H, int G, int P, int N, int chunk, const int64_t* xs,
                         const int64_t* dts, const int64_t* bs, const int64_t* cs, void* stream) {
-  return repro::ssd_scan_mma(x, dt, A, B, C, y, states, decays, batch, L, H, G, P, N, chunk, xs,
-                             dts, bs, cs, stream);
+  return repro::ssd_scan_mma(x, dt, A, B, C, y, states, decays, nullptr, batch, L, H, G, P, N,
+                             chunk, xs, dts, bs, cs, stream);
 }
 '''
 

@@ -22,7 +22,11 @@ deprecated wrappers over the facade.
 A copy of the JAX package's `core/lms/planner.py` over the port's
 configs and hardware model (`hw.DEFAULT` is the H100, so an uncalibrated
 plan is priced for the card); plans equal the JAX package's field by field
-for the same inputs. The port's executor of a plan: the layer-streaming
+for the same inputs, but for two working sets the port prices where the
+JAX package's plan prices none, both measured on the card: the plain SSD
+scan's in a Mamba-2 layer's backward (`ssd_scan_work_bytes`) and a serve
+engine's whole-prompt prefill beside its slots (`whole_prefill_bytes`).
+The port's executor of a plan: the layer-streaming
 decoder (`models/transformer.py`), the streamed optimizer sweep and the
 state placement (`train/steps.py`), the activation policy
 (`core/lms/policies.py`).
@@ -389,6 +393,53 @@ def activation_classes(cfg: ModelConfig, shape: ShapeConfig,
     return out
 
 
+# [b, nc, h, q, q] f32 chunk terms the plain SSD scan's working set is
+# priced at: one Mamba-2 layer's recompute and backward (mamba2-1.3b, 2 x
+# 2048, 1 x 2048 and 2 x 1024 tokens) peaks at 9.3-9.6 of them on an H100,
+# its other tensors included (scripts/mamba2_working_sets.py)
+SSD_SCAN_CHUNK_TERMS = 10
+# the largest activation class (at B = 1 over the serve shape's length)
+# a whole-prompt prefill layer holds at once on the kernel route: its
+# projections, the convolution's sums and the gated norm's f32 rows (the
+# same script measures it)
+PREFILL_LAYER_CLASSES = 5
+
+
+def ssd_scan_work_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec) -> int:
+    """Per-device bytes a Mamba-2 layer's recompute and backward hold at
+    once in training, where the scan is its plain version (the kernel has
+    no backward): SSD_SCAN_CHUNK_TERMS x the [b, nc, h, q, q] f32 intra-chunk
+    terms (the decay matrix, C B^T and the scores that autograd keeps, the
+    grads formed from them) at q = min(chunk, seq). 0 without "ssd"
+    layers."""
+    if "ssd" not in cfg.layer_kinds():
+        return 0
+    dp = _axis_size(mesh, "data") * _axis_size(mesh, "pod")
+    tp = _axis_size(mesh, "model")
+    b = max(shape.global_batch // dp, 1)
+    q = min(cfg.ssm_chunk, shape.seq_len)
+    nc = -(-shape.seq_len // q)
+    return SSD_SCAN_CHUNK_TERMS * b * nc * cfg.ssm_nheads * q * q * 4 // tp
+
+
+def whole_prefill_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec,
+                        rules=None) -> int:
+    """Per-device bytes a serve engine's whole-prompt prefill holds beside
+    its slots: two requests' B = 1 caches of the whole stack (the one the
+    pool's side stream still copies out to a host slot while the next
+    request's is made: prefills run back to back), and one layer's
+    temporaries over a prompt of the shape's length (PREFILL_LAYER_CLASSES
+    x its largest activation class). Only a stack that is not all attention
+    takes the whole-prompt prefill (serve/engine.py); 0 for one that is."""
+    if all(k == "attn" for k in cfg.layer_kinds()):
+        return 0
+    dp = _axis_size(mesh, "data") * _axis_size(mesh, "pod")
+    one = dataclasses.replace(shape, global_batch=dp)
+    acts = activation_classes(cfg, one, mesh)
+    return (2 * kv_cache_bytes_dev(cfg, one, mesh, rules=rules)
+            + PREFILL_LAYER_CLASSES * max((a.bytes_dev for a in acts), default=0))
+
+
 def layer_flops_dev(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec) -> float:
     """Approx fwd FLOPs of one layer on one device."""
     dp = _axis_size(mesh, "data") * _axis_size(mesh, "pod")
@@ -664,7 +715,9 @@ def _plan_serve(req: PlanRequest, cost: Optional[CostModel]) -> MemoryPlan:
     params_dev = 2 * cfg.param_count() // tp
     act_shape = dataclasses.replace(shape, seq_len=1)
     acts = activation_classes(cfg, act_shape, mesh)
-    transient = max((a.bytes_dev for a in acts), default=0) * 3
+    # a decode tick's, or a whole-prompt prefill's: they never overlap
+    transient = max(max((a.bytes_dev for a in acts), default=0) * 3,
+                    whole_prefill_bytes(cfg, shape, mesh, rules))
     shape1 = dataclasses.replace(shape, global_batch=dp)
     per_slot = kv_cache_bytes_dev(cfg, shape1, mesh, rules=rules)
 
@@ -828,7 +881,8 @@ def _plan_memory(req: PlanRequest, cost: Optional[CostModel]) -> MemoryPlan:
                                   if assignment[a.name] == "save")
     offload_bytes = lambda: L * sum(a.bytes_dev for a in acts
                                     if assignment[a.name] == "offload")
-    transient = max((a.bytes_dev for a in acts), default=0) * 4
+    transient = max(max((a.bytes_dev for a in acts), default=0) * 4,
+                    ssd_scan_work_bytes(cfg, shape, mesh))
 
     def fixed():
         return params_dev + grads_dev + opt_dev + transient

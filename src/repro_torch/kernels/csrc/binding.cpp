@@ -178,8 +178,14 @@ void rmsnorm(const torch::Tensor& x, const torch::Tensor& scale, torch::Tensor o
   check_launch(err, "rmsnorm");
 }
 
+// h_final: the final state's output, or an empty tensor for none
+float* final_state_ptr(torch::Tensor& h_final) {
+  return h_final.numel() ? h_final.data_ptr<float>() : nullptr;
+}
+
 void ssd_scan(const torch::Tensor& x, const torch::Tensor& dt, const torch::Tensor& A,
-              const torch::Tensor& B, const torch::Tensor& C, torch::Tensor y, int64_t chunk) {
+              const torch::Tensor& B, const torch::Tensor& C, torch::Tensor y, int64_t chunk,
+              torch::Tensor h_final) {
   const c10::cuda::CUDAGuard guard(x.device());
   const int64_t xs[3] = {x.stride(0), x.stride(1), x.stride(2)};
   const int64_t dts[3] = {dt.stride(0), dt.stride(1), dt.stride(2)};
@@ -187,14 +193,16 @@ void ssd_scan(const torch::Tensor& x, const torch::Tensor& dt, const torch::Tens
   const int64_t cs[3] = {C.stride(0), C.stride(1), C.stride(2)};
   const int err = repro::ssd_scan(
       x.data_ptr(), dt.data_ptr<float>(), A.data_ptr<float>(), B.data_ptr(), C.data_ptr(),
-      y.data_ptr(), dtype_of(x), x.size(0), x.size(1), x.size(2), B.size(2), x.size(3),
-      B.size(3), static_cast<int>(chunk), xs, dts, bs, cs, current_stream());
+      y.data_ptr(), final_state_ptr(h_final), dtype_of(x), x.size(0), x.size(1), x.size(2),
+      B.size(2), x.size(3), B.size(3), static_cast<int>(chunk), xs, dts, bs, cs,
+      current_stream());
   check_launch(err, "ssd_scan");
 }
 
 void ssd_scan_mma(const torch::Tensor& x, const torch::Tensor& dt, const torch::Tensor& A,
                   const torch::Tensor& B, const torch::Tensor& C, torch::Tensor y,
-                  torch::Tensor states, torch::Tensor decays, int64_t chunk) {
+                  torch::Tensor states, torch::Tensor decays, int64_t chunk,
+                  torch::Tensor h_final) {
   const c10::cuda::CUDAGuard guard(x.device());
   TORCH_CHECK(x.scalar_type() == torch::kBFloat16, "ssd_scan_mma takes bf16");
   const int64_t xs[3] = {x.stride(0), x.stride(1), x.stride(2)};
@@ -204,9 +212,9 @@ void ssd_scan_mma(const torch::Tensor& x, const torch::Tensor& dt, const torch::
   const int err = repro::ssd_scan_mma(
       x.data_ptr(), dt.data_ptr<float>(), A.data_ptr<float>(), B.data_ptr(), C.data_ptr(),
       y.data_ptr(), states.numel() ? states.data_ptr<float>() : nullptr,
-      decays.numel() ? decays.data_ptr<float>() : nullptr, x.size(0), x.size(1), x.size(2),
-      B.size(2), x.size(3), B.size(3), static_cast<int>(chunk), xs, dts, bs, cs,
-      current_stream());
+      decays.numel() ? decays.data_ptr<float>() : nullptr, final_state_ptr(h_final),
+      x.size(0), x.size(1), x.size(2), B.size(2), x.size(3), B.size(3),
+      static_cast<int>(chunk), xs, dts, bs, cs, current_stream());
   check_launch(err, "ssd_scan_mma");
 }
 
@@ -229,7 +237,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("dequantize_sum_rows", &dequantize_sum_rows,
         "the sum over pods of per-row int8 dequantizes into out (f32)");
   m.def("rmsnorm", &rmsnorm, "RMSNorm forward into out");
-  m.def("ssd_scan", &ssd_scan, "Mamba-2 SSD chunked scan into y");
+  m.def("ssd_scan", &ssd_scan,
+        "Mamba-2 SSD chunked scan into y (and the final state into h_final, if not empty)");
   m.def("ssd_scan_mma", &ssd_scan_mma,
-        "Mamba-2 SSD chunked scan on the tensor cores (bf16) into y, with its workspace");
+        "Mamba-2 SSD chunked scan on the tensor cores (bf16) into y, with its workspace "
+        "(and the final state into h_final, if not empty)");
 }

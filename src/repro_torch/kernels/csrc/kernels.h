@@ -102,22 +102,26 @@ int rmsnorm(const void* x, DType dtype, const float* scale, void* out, int rows,
 
 // Mamba-2 SSD chunked scan (ssd_scan.cu). x [batch,L,H,P] f32 or bf16,
 // dt [batch,L,H] f32, A [H] f32, B/C [batch,L,G,N] of x's type -> y
-// [batch,L,H,P] of x's type, contiguous. x, dt, B and C are read through
-// their strides in elements (batch, token, head or group; the last
-// dimension is contiguous); A contiguous. P <= 64, N <= 128, H % G == 0.
+// [batch,L,H,P] of x's type, contiguous, and, where h_final is not null,
+// the state after the last row into h_final [batch,H,P,N] (f32,
+// contiguous). x, dt, B and C are read through their strides in elements
+// (batch, token, head or group; the last dimension is contiguous); A
+// contiguous. P <= 64, N <= 128, H % G == 0.
 int ssd_scan(const void* x, const float* dt, const float* A, const void* B, const void* C,
-             void* y, DType dtype, int batch, int L, int H, int G, int P, int N, int chunk,
-             const int64_t* x_strides, const int64_t* dt_strides, const int64_t* b_strides,
-             const int64_t* c_strides, void* stream);
+             void* y, float* h_final, DType dtype, int batch, int L, int H, int G, int P,
+             int N, int chunk, const int64_t* x_strides, const int64_t* dt_strides,
+             const int64_t* b_strides, const int64_t* c_strides, void* stream);
 // Its tensor-core route (ssd_scan_mma.cu): the same contract for bf16 x, B
 // and C with P and N multiples of 16, P <= 64, N <= 128, min(chunk, L) <=
 // 2048, and x, B, C and y 16-byte aligned with strides in multiples of 8
-// elements. With nc = ceil(L / min(chunk, L)) chunks and nc > 1, states
-// [batch,nc-1,H,P,N] and decays [batch,nc-1,H] (f32, contiguous) are its
-// workspace; with one chunk both may be null.
+// elements, h_final (where not null) 16-byte aligned. With nc = ceil(L /
+// min(chunk, L)) chunks, states [batch,nws,H,P,N] and decays [batch,nws,H]
+// (f32, contiguous) are its workspace, nws = nc with h_final and nc - 1
+// without; with nws = 0 both may be null.
 int ssd_scan_mma(const void* x, const float* dt, const float* A, const void* B, const void* C,
-                 void* y, float* states, float* decays, int batch, int L, int H, int G, int P,
-                 int N, int chunk, const int64_t* x_strides, const int64_t* dt_strides,
-                 const int64_t* b_strides, const int64_t* c_strides, void* stream);
+                 void* y, float* states, float* decays, float* h_final, int batch, int L,
+                 int H, int G, int P, int N, int chunk, const int64_t* x_strides,
+                 const int64_t* dt_strides, const int64_t* b_strides, const int64_t* c_strides,
+                 void* stream);
 
 }  // namespace repro

@@ -12,8 +12,10 @@
 //            + exp(cum_i) C_i . h_prev
 //   h_next = exp(cum_last) h_prev + sum_i exp(cum_last - cum_i) dt_i x_i ⊗ B_i
 // with the state h [p, n] in f32, zero before the first chunk. y is
-// written in x's type; the final state is not returned (ssd_scan_fwd
-// returns none).
+// written in x's type. Where h_final is not null, the state after the last
+// row (the partial last chunk's rows included) is written there in f32,
+// [batch, H, P, N]: what the serve path's prefill hands to decode
+// (ssd_scan_fwd returns none; the JAX prefill takes the plain scan for it).
 //
 // Bound on this card: at the main path's shape (4 x 2048 tokens, 64 heads
 // of p = 64, n = 128, chunk 256) the work, ~43 GFLOP of causal-useful
@@ -76,7 +78,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ A, const T* __restrict__ Bm,
-                    const T* __restrict__ Cm, T* __restrict__ y, int L, int H, int G, int P,
+                    const T* __restrict__ Cm, T* __restrict__ y, float* __restrict__ h_final,
+                    int L, int H, int G, int P,
                     int N, int Q, int64_t x_sb, int64_t x_st, int64_t x_sh, int64_t dt_sb,
                     int64_t dt_st, int64_t dt_sh, int64_t b_sb, int64_t b_st, int64_t b_sg,
                     int64_t c_sb, int64_t c_st, int64_t c_sg) {
@@ -267,11 +270,20 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
+
+  if (h_final != nullptr) {   // the state after the last row, [P, N] of (b, h)
+    __syncthreads();
+    float* hf = h_final + (static_cast<int64_t>(b) * H + h) * P * N;
+    for (int i = tid; i < P * N; i += kThreads) {
+      const int pr = i / N;
+      hf[i] = h_s[pr * ldn + (i - pr * N)];
+    }
+  }
 }
 
 template <typename T>
 int launch(const void* x, const float* dt, const float* A, const void* B, const void* C, void* y,
-           int Bsz, int L, int H, int G, int P, int N, int Q, const int64_t* xs,
+           float* h_final, int Bsz, int L, int H, int G, int P, int N, int Q, const int64_t* xs,
            const int64_t* dts, const int64_t* bs, const int64_t* cs, cudaStream_t stream) {
   const size_t smem = smem_floats(P, N, Q) * sizeof(float);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
@@ -287,17 +299,18 @@ int launch(const void* x, const float* dt, const float* A, const void* B, const 
   const dim3 grid(H, Bsz);
   ssd_scan_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), dt, A, static_cast<const T*>(B), static_cast<const T*>(C),
-      static_cast<T*>(y), L, H, G, P, N, Q, xs[0], xs[1], xs[2], dts[0], dts[1], dts[2], bs[0],
-      bs[1], bs[2], cs[0], cs[1], cs[2]);
+      static_cast<T*>(y), h_final, L, H, G, P, N, Q, xs[0], xs[1], xs[2], dts[0], dts[1],
+      dts[2], bs[0], bs[1], bs[2], cs[0], cs[1], cs[2]);
   return 0;
 }
 
 }  // namespace
 
 int repro::ssd_scan(const void* x, const float* dt, const float* A, const void* B,
-                    const void* C, void* y, DType dtype, int batch, int L, int H, int G, int P,
-                    int N, int chunk, const int64_t* x_strides, const int64_t* dt_strides,
-                    const int64_t* b_strides, const int64_t* c_strides, void* stream) {
+                    const void* C, void* y, float* h_final, DType dtype, int batch, int L,
+                    int H, int G, int P, int N, int chunk, const int64_t* x_strides,
+                    const int64_t* dt_strides, const int64_t* b_strides,
+                    const int64_t* c_strides, void* stream) {
   // the wrapper checks these too; a bad call must never reach the launch
   if (batch <= 0 || batch > 65535 || L <= 0 || H <= 0 || G <= 0 || H % G != 0 || P <= 0 ||
       P > kMaxP || N <= 0 || N > kMaxN || chunk <= 0)
@@ -307,11 +320,11 @@ int repro::ssd_scan(const void* x, const float* dt, const float* A, const void* 
   int err;
   switch (dtype) {
     case kF32:
-      err = launch<float>(x, dt, A, B, C, y, batch, L, H, G, P, N, Q, x_strides, dt_strides,
-                          b_strides, c_strides, st);
+      err = launch<float>(x, dt, A, B, C, y, h_final, batch, L, H, G, P, N, Q, x_strides,
+                          dt_strides, b_strides, c_strides, st);
       break;
     case kBF16:
-      err = launch<__nv_bfloat16>(x, dt, A, B, C, y, batch, L, H, G, P, N, Q, x_strides,
+      err = launch<__nv_bfloat16>(x, dt, A, B, C, y, h_final, batch, L, H, G, P, N, Q, x_strides,
                                   dt_strides, b_strides, c_strides, st);
       break;
     default:

@@ -6,9 +6,11 @@
 //
 // Replaces: src/repro/kernels/ssd_scan/kernel.py `ssd_scan_fwd` (body
 // `_ssd_kernel`), reached by Model(cfg, ssd_impl="pallas").forward / loss
-// through apply_ssm's scan of every "ssd" layer. It computes what
-// ssd_scan.cu computes (see its note): y in x's type, no final state, rows
-// >= L counted as dt = 0 and x = B = C = 0 and never read.
+// through apply_ssm's scan of every "ssd" layer, and by the serve path's
+// prefill, which also takes the final state. It computes what ssd_scan.cu
+// computes (see its note): y in x's type, rows >= L counted as dt = 0 and
+// x = B = C = 0 and never read, and, where h_final is not null, the state
+// after the last row in f32 [batch, H, P, N].
 //
 // Bound on this card: at the main path's shape (4 x 2048 tokens, 64 heads
 // of P 64, N 128, chunk 256) the causal-useful products, ~43 GFLOP, take
@@ -21,7 +23,9 @@
 // Design: the chunked decomposition of Mamba-2's own GPU kernels, where
 // only the middle step is sequential, over chunks of Q rows:
 //   1. ssd_chunk_state_kernel, one warpgroup per (head, chunk, batch row)
-//      for every chunk but the last: the chunk's prefix sums cum of dt * a
+//      for every chunk but the last (every chunk, the partial last one
+//      included, where the final state is asked for): the chunk's prefix
+//      sums cum of dt * a
 //      (f64, rounded once, ssd_scan.cuh), its own contribution to the state
 //      S_c = sum_i exp(cum_last - cum_i) dt_i x_i ⊗ B_i [P, N] by wgmma
 //      m64n128k16 (A = (w o x)^T in registers, built from x's transposed
@@ -31,6 +35,9 @@
 //      (batch row, head): h_{c+1} = exp(cum_last,c) h_c + S_c in f32,
 //      walking the chunks in order and writing each state in place over the
 //      S it consumed, already split into the bf16 hi and lo step 3 takes;
+//      the final state, where asked for, is the state after the last chunk's
+//      own step, written whole in f32 to h_final instead (its workspace slot
+//      is read by no chunk: the workspace holds nc slots then, nc - 1 else);
 //   3. ssd_chunk_out_kernel, one block per (head, chunk, batch row), two
 //      warpgroups: y_I = sum_{J <= I} ((C_I B_J^T) o exp(cum_I - cum_J) o
 //      dt_J) x_J + exp(cum_I) (C_I h^T) for each 64-row tile I, h the state
@@ -191,23 +198,23 @@ __device__ __forceinline__ void stage_swizzled(unsigned char* dst, const bf16* s
 }
 
 // ---- step 1: each chunk's own contribution to the state ------------------
-// One warpgroup a (head, chunk, batch row) for every chunk but the last:
+// One warpgroup a (head, chunk, batch row) for every chunk but the last (and
+// for the last, partial or whole, where the final state is asked for):
 // S [P, N] = (w o x)^T B over the chunk's rows by wgmma m64n128k16, A = (w o
 // x)^T in registers as hi + lo (built from x's transposed ldmatrix
 // fragments), B = the B rows MN-major from 128-byte swizzled panels.
 __global__ void __launch_bounds__(kThreads)
     ssd_chunk_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                            const float* __restrict__ A, const bf16* __restrict__ Bm,
-                           float* __restrict__ states, float* __restrict__ decays, int H, int G,
-                           int P, int N, int Q, int64_t x_sb, int64_t x_st, int64_t x_sh,
+                           float* __restrict__ states, float* __restrict__ decays, int L, int H,
+                           int G, int P, int N, int Q, int64_t x_sb, int64_t x_st, int64_t x_sh,
                            int64_t dt_sb, int64_t dt_st, int64_t dt_sh, int64_t b_sb,
                            int64_t b_st, int64_t b_sg) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* b_s = smem_raw + (((raw + 1023u) & ~1023u) - raw);   // [2][2 panels]
   const int ldp = P + kPad;
-  const int tiles = (Q + kR - 1) / kR;
-  const int Qp = tiles * kR;
+  const int Qp = round_up(Q, kR);
   bf16* x_s = reinterpret_cast<bf16*>(b_s + 4 * kPanel);         // [2][kR][ldp]
   float* w_s = reinterpret_cast<float*>(x_s + 2 * kR * ldp);     // [Qp]: dt, then w
   float* cum_s = w_s + Qp;                                       // [Qp]
@@ -215,23 +222,28 @@ __global__ void __launch_bounds__(kThreads)
   const int h = blockIdx.x;
   const int c = blockIdx.y;
   const int b = blockIdx.z;
-  const int nc1 = gridDim.y;   // chunks that hand on a state: all but the last, all whole
+  // the workspace's slots a batch row: every chunk that hands on a state
+  // (all but the last, all whole), and the last where the final state is
+  // asked for, which may be partial: its rows >= L take dt = 0 and zeros
+  const int nws = gridDim.y;
   const int g = h * G / H;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t c0 = static_cast<int64_t>(c) * Q;
+  const int nv = L - c0 < Q ? static_cast<int>(L - c0) : Q;   // valid rows
+  const int tiles = (nv + kR - 1) / kR;
   const bf16* xb = x + b * x_sb + h * x_sh + c0 * x_st;
   const bf16* bb = Bm + b * b_sb + g * b_sg + c0 * b_st;
 
-  stage_dt(w_s, dt + b * dt_sb + h * dt_sh + c0 * dt_st, dt_st, Q, Qp);
-  stage_tile(x_s, xb, x_st, 0, min(kR, Q), P);
-  stage_swizzled<2>(b_s, bb, b_st, 0, min(kR, Q), N);
+  stage_dt(w_s, dt + b * dt_sb + h * dt_sh + c0 * dt_st, dt_st, nv, Qp);
+  stage_tile(x_s, xb, x_st, 0, min(kR, nv), P);
+  stage_swizzled<2>(b_s, bb, b_st, 0, min(kR, nv), N);
   cp_async_commit();
   chunk_cum<1>(w_s, cum_s, Q, A[h]);
   const float cum_last = cum_s[Q - 1];
   for (int i = threadIdx.x; i < Q; i += kThreads)
     w_s[i] = expf(cum_last - cum_s[i]) * w_s[i];   // rows >= Q keep w = dt = 0
-  if (threadIdx.x == 0) decays[(static_cast<int64_t>(b) * nc1 + c) * H + h] = expf(cum_last);
+  if (threadIdx.x == 0) decays[(static_cast<int64_t>(b) * nws + c) * H + h] = expf(cum_last);
 
   // d[4 j + 2 r + e] is S's row (of P) 16 warp + lane / 4 + 8 r, column
   // (of N) 8 j + 2 (lane % 4) + e
@@ -245,8 +257,8 @@ __global__ void __launch_bounds__(kThreads)
     if (t + 1 < tiles) {
       const int r0 = (t + 1) * kR;
       const int nxt = (t + 1) & 1;
-      stage_tile(x_s + nxt * kR * ldp, xb, x_st, r0, min(kR, Q - r0), P);
-      stage_swizzled<2>(b_s + nxt * 2 * kPanel, bb, b_st, r0, min(kR, Q - r0), N);
+      stage_tile(x_s + nxt * kR * ldp, xb, x_st, r0, min(kR, nv - r0), P);
+      stage_swizzled<2>(b_s + nxt * 2 * kPanel, bb, b_st, r0, min(kR, nv - r0), N);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -254,7 +266,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();   // tile t (and, at t = 0, w) is in
     const bf16* xt = x_s + (t & 1) * kR * ldp;
-    const int rows = min(kR, Q - t * kR);
+    const int rows = min(kR, nv - t * kR);
     // A = (w o x)^T for the tile's k16 steps: x is stored [row][P], so a
     // transposed ldmatrix gives x^T's fragment, scaled and split in registers
     uint32_t ahi[kR / 16][4], alo[kR / 16][4];
@@ -288,7 +300,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   if (rows_of_p) {
-    float* sb = states + ((static_cast<int64_t>(b) * nc1 + c) * H + h) * P * N;
+    float* sb = states + ((static_cast<int64_t>(b) * nws + c) * H + h) * P * N;
     const int p0 = warp * 16 + (lane >> 2);
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -304,10 +316,13 @@ __global__ void __launch_bounds__(kThreads)
 // Slot c of the workspace holds S_c (f32 [P, N]) on entry and h_{c+1} =
 // exp(cum_last,c) h_c + S_c (h_0 = 0, summed in f32) on exit, split as step
 // 3 takes it: each run of 8 elements (32 bytes) becomes their 8 bf16 hi
-// (16 bytes) then their 8 bf16 lo, in place. One thread a run of 8.
+// (16 bytes) then their 8 bf16 lo, in place. With h_final, the last of the
+// nws slots is the last chunk's: the state after it goes to h_final [batch,
+// H, P, N] whole in f32, and the slot is left as it is. One thread a run
+// of 8.
 __global__ void __launch_bounds__(256)
     ssd_state_pass_kernel(float* __restrict__ states, const float* __restrict__ decays,
-                          int batch, int nc1, int H, int PN8) {
+                          float* __restrict__ h_final, int batch, int nws, int H, int PN8) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= static_cast<int64_t>(batch) * H * PN8) return;
   const int e = static_cast<int>(i % PN8);
@@ -315,8 +330,8 @@ __global__ void __launch_bounds__(256)
   const int h = static_cast<int>(bh % H);
   const int64_t b = bh / H;
   float run[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int c = 0; c < nc1; ++c) {
-    const int64_t slot = (b * nc1 + c) * H + h;
+  for (int c = 0; c < nws; ++c) {
+    const int64_t slot = (b * nws + c) * H + h;
     uint4* p = reinterpret_cast<uint4*>(states) + (slot * PN8 + e) * 2;
     const float d = decays[slot];
     const uint4 s0 = p[0];
@@ -327,6 +342,12 @@ __global__ void __launch_bounds__(256)
     uint32_t hi[4], lo[4];
 #pragma unroll
     for (int k = 0; k < 8; ++k) run[k] = fmaf(d, run[k], s[k]);
+    if (h_final != nullptr && c == nws - 1) {
+      float4* f = reinterpret_cast<float4*>(h_final + (bh * PN8 + e) * 8);
+      f[0] = make_float4(run[0], run[1], run[2], run[3]);
+      f[1] = make_float4(run[4], run[5], run[6], run[7]);
+      break;
+    }
 #pragma unroll
     for (int k = 0; k < 4; ++k) split2(run[2 * k], run[2 * k + 1], hi[k], lo[k]);
     p[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
@@ -338,6 +359,7 @@ __global__ void __launch_bounds__(256)
 // The chunk's 64-row tiles are taken kGroup at a time (an I-group), a tile
 // a warpgroup: warpgroup w takes tiles I_0 = g0 + w and I_1 = g0 + 3 - w,
 // so both have the same number of tile pairs (I, J <= I): 1 + 4 or 2 + 3.
+// nws is the workspace's slots a batch row (step 2's).
 // Tiles J of B and x are staged kGroup at a time (a J-group) and stay while
 // each warpgroup takes the pairs it needs, with no barrier between them;
 // only the first tile of a J-group is waited for before the work starts.
@@ -345,7 +367,7 @@ __global__ void __launch_bounds__(kOutThreads, 1)
     ssd_chunk_out_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                          const float* __restrict__ A, const bf16* __restrict__ Bm,
                          const bf16* __restrict__ Cm, const float* __restrict__ states,
-                         bf16* __restrict__ y, int L, int H, int G, int P, int N, int Q,
+                         bf16* __restrict__ y, int nws, int L, int H, int G, int P, int N, int Q,
                          int64_t x_sb, int64_t x_st, int64_t x_sh, int64_t dt_sb, int64_t dt_st,
                          int64_t dt_sh, int64_t b_sb, int64_t b_st, int64_t b_sg, int64_t c_sb,
                          int64_t c_st, int64_t c_sg) {
@@ -364,7 +386,6 @@ __global__ void __launch_bounds__(kOutThreads, 1)
   const int h = blockIdx.x;
   const int c = blockIdx.y;
   const int b = blockIdx.z;
-  const int nc1 = gridDim.y - 1;
   const int64_t c0 = static_cast<int64_t>(c) * Q;
   const int nv = L - c0 < Q ? static_cast<int>(L - c0) : Q;   // valid rows
   const int tiles = (nv + kR - 1) / kR;
@@ -386,7 +407,7 @@ __global__ void __launch_bounds__(kOutThreads, 1)
   stage_dt(dt_s, dt + b * dt_sb + h * dt_sh + c0 * dt_st, dt_st, nv, Qp);
   if (c > 0) {   // the state entering the chunk, as step 2 split it
     const char* hs = reinterpret_cast<const char*>(
-        states + ((static_cast<int64_t>(b) * nc1 + c - 1) * H + h) * P * N);
+        states + ((static_cast<int64_t>(b) * nws + c - 1) * H + h) * P * N);
     const int per_row = N / 4;   // 16-byte pieces a row of h: hi and lo of N / 8 runs
     for (int i = threadIdx.x; i < P * per_row; i += blockDim.x) {
       const int row = i / per_row;
@@ -587,8 +608,8 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }  // namespace
 
 int repro::ssd_scan_mma(const void* x, const float* dt, const float* A, const void* B,
-                        const void* C, void* y, float* states, float* decays, int batch, int L,
-                        int H, int G, int P, int N, int chunk, const int64_t* xs,
+                        const void* C, void* y, float* states, float* decays, float* h_final,
+                        int batch, int L, int H, int G, int P, int N, int chunk, const int64_t* xs,
                         const int64_t* dts, const int64_t* bs, const int64_t* cs,
                         void* stream) {
   // the wrapper checks these too; a bad call must never reach the launch
@@ -598,13 +619,16 @@ int repro::ssd_scan_mma(const void* x, const float* dt, const float* A, const vo
   // 16-byte rows for cp.async
   for (int k = 0; k < 3; ++k)
     if (xs[k] % 8 || bs[k] % 8 || cs[k] % 8) return static_cast<int>(cudaErrorMisalignedAddress);
-  if (!aligned16(x) || !aligned16(B) || !aligned16(C) || !aligned16(y))
+  if (!aligned16(x) || !aligned16(B) || !aligned16(C) || !aligned16(y) ||
+      (h_final != nullptr && !aligned16(h_final)))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const int Q = chunk < L ? chunk : L;
   const int nc = (L + Q - 1) / Q;
   const int Qp = round_up(Q, kR);
+  // the workspace's slots a batch row: the last chunk's too for the final state
+  const int nws = h_final != nullptr ? nc : nc - 1;
   if (nc > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (nc > 1 && (states == nullptr || decays == nullptr))
+  if (nws > 0 && (states == nullptr || decays == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem1 = state_smem(P, Qp);
   const size_t smem3 = out_smem(Qp);
@@ -618,17 +642,17 @@ int repro::ssd_scan_mma(const void* x, const float* dt, const float* A, const vo
   const bf16* xt = static_cast<const bf16*>(x);
   const bf16* bt = static_cast<const bf16*>(B);
   const bf16* ct = static_cast<const bf16*>(C);
-  if (nc > 1) {
-    ssd_chunk_state_kernel<<<dim3(H, nc - 1, batch), kThreads, smem1, st>>>(
-        xt, dt, A, bt, states, decays, H, G, P, N, Q, xs[0], xs[1], xs[2], dts[0], dts[1],
+  if (nws > 0) {
+    ssd_chunk_state_kernel<<<dim3(H, nws, batch), kThreads, smem1, st>>>(
+        xt, dt, A, bt, states, decays, L, H, G, P, N, Q, xs[0], xs[1], xs[2], dts[0], dts[1],
         dts[2], bs[0], bs[1], bs[2]);
     const int pn8 = P * N / 8;
     const int64_t threads = static_cast<int64_t>(batch) * H * pn8;
     ssd_state_pass_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, st>>>(
-        states, decays, batch, nc - 1, H, pn8);
+        states, decays, h_final, batch, nws, H, pn8);
   }
   ssd_chunk_out_kernel<<<dim3(H, nc, batch), kOutThreads, smem3, st>>>(
-      xt, dt, A, bt, ct, states, static_cast<bf16*>(y), L, H, G, P, N, Q, xs[0], xs[1], xs[2],
+      xt, dt, A, bt, ct, states, static_cast<bf16*>(y), nws, L, H, G, P, N, Q, xs[0], xs[1], xs[2],
       dts[0], dts[1], dts[2], bs[0], bs[1], bs[2], cs[0], cs[1], cs[2]);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,8 @@ Chunked evaluation as the JAX package's `ssd_scan_ref`: a quadratic
 attention-like term inside each chunk and a linear recurrence of the f32
 state across chunks. `ssd_scan_chunked_ref` models the tensor-core route's
 three steps and the operands its bf16 products take, for the tests.
+`ssd_decode_step_ref` is decode's one-token step (no kernel: the JAX
+package's is plain jnp too).
 """
 from __future__ import annotations
 
@@ -105,6 +107,22 @@ def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 256, h0=None):
     return _unchunk(y_intra + y_inter, l).to(x.dtype), hstate
 
 
+def ssd_decode_step_ref(h_state, x, dt, A, B, C):
+    """One token's state update and readout, as the JAX package's
+    `ssd_decode_step_ref` (plain jnp there too: decode has no kernel).
+    h_state [b,h,p,n] f32; x [b,h,p]; dt [b,h]; A [h]; B, C [b,g,n].
+    -> (y [b,h,p] in x's dtype, h_new [b,h,p,n] f32)."""
+    hq = h_state.shape[1]
+    Bh = B.repeat_interleave(hq // B.shape[1], dim=1).float()
+    Ch = C.repeat_interleave(hq // C.shape[1], dim=1).float()
+    dtf = dt.float()
+    dec = torch.exp(dtf * A.float()[None])                  # [b,h]
+    xdt = x.float() * dtf[..., None]                         # [b,h,p]
+    h_new = h_state * dec[..., None, None] + xdt[..., :, None] * Bh[..., None, :]
+    y = torch.einsum("bhn,bhpn->bhp", Ch, h_new)
+    return y.to(x.dtype), h_new
+
+
 def _parts(v, operands):
     """An f32 operand as a bf16 product takes it: "hi_lo", the nearest bf16
     hi and the nearest bf16 to what hi leaves, two products into one sum;
@@ -120,7 +138,7 @@ def _parts(v, operands):
 
 
 def ssd_scan_chunked_ref(x, dt, A, B, C, *, chunk: int = 256, operands: str = "hi_lo",
-                         out_f32: bool = False):
+                         out_f32: bool = False, final_state: bool = False):
     """Plain model of the tensor-core route (csrc/ssd_scan_mma.cu), for
     tests only and on no path: its three steps over chunks of q rows, with
     the operands its bf16 products take. x, B and C enter as they are (bf16
@@ -130,7 +148,9 @@ def ssd_scan_chunked_ref(x, dt, A, B, C, *, chunk: int = 256, operands: str = "h
     enter as `operands` says (`_parts`). Products and sums in f32, the
     decays exp(cum_i - cum_j) taken whole (the kernel forms most of them as
     a product of two exps, each <= 1: a few f32 ulps apart).
-    -> y [b,l,h,p] in x's dtype (f32, before that rounding, with out_f32)."""
+    -> y [b,l,h,p] in x's dtype (f32, before that rounding, with out_f32);
+    with final_state (y, h_final [b,h,p,n] f32): step 2 carried through the
+    last chunk, as the kernel does where the final state is asked for."""
     l = x.shape[1]
     xc, dtc, Bc, Cc, cum = _chunked(x, dt, A, B, C, chunk)
     b, nc, h, q, p = xc.shape
@@ -157,4 +177,5 @@ def ssd_scan_chunked_ref(x, dt, A, B, C, *, chunk: int = 256, operands: str = "h
     y = y + sum(torch.einsum("bchij,bchjp->bchip", part, xc)
                 for part in _parts(scores, operands))
     y = _unchunk(y, l)
-    return y if out_f32 else y.to(x.dtype)
+    y = y if out_f32 else y.to(x.dtype)
+    return (y, hstate) if final_state else y

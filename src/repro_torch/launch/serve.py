@@ -140,7 +140,9 @@ def main(argv=None):
                          else ("pod", "data", "model"))
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    model = Model(cfg, attn_impl="naive" if args.smoke else "blockwise")
+    # the SSD scan kernel (its plain version on CPU tensors): the prefill of
+    # a Mamba-2 stack takes its final state from it
+    model = Model(cfg, attn_impl="naive" if args.smoke else "blockwise", ssd_impl="pallas")
     rng = np.random.default_rng(args.seed)
     reqs = synth_requests(cfg, args.requests, args.prompt_len, args.gen, rng)
 

@@ -232,13 +232,35 @@ def embed_tokens(cfg, p, tokens):
     return p["embedding"][tokens].to(torch.bfloat16)
 
 
+def head_block(cfg) -> int:
+    """Vocab entries of the head one product takes where no grad flows: as
+    many as one layer's share of the params' bf16 bytes holds, a multiple
+    of 128 (a plan that streams params holds two such shares on the
+    device, so a streamed head comes in whole blocks: `models/rest.py`)."""
+    share = 2 * cfg.param_count() // max(cfg.num_layers, 1)
+    return max(share // (2 * cfg.d_model) // 128 * 128, 128)
+
+
 def lm_logits(cfg, p, x):
+    """x [..., d] -> logits [..., V]. Without autograd a head of more than
+    `head_block(cfg)` entries is taken a block at a time, each block's
+    product written into the output, so a resident head and one streamed
+    in vocab slices run the same products and give the same logits."""
     if cfg.tie_embeddings:
         # the table cast to bf16, as the JAX package casts it; rows of another
         # type promote the product as jnp promotes it (f32 rows: an f32 product)
         dt = torch.promote_types(x.dtype, torch.bfloat16)
-        return x.to(dt) @ p["embedding"].to(torch.bfloat16).to(dt).T
-    return x @ p["lm_head"]
+        x, w = x.to(dt), p["embedding"].to(torch.bfloat16).to(dt).T
+    else:
+        w = p["lm_head"]
+    vocab, block = w.shape[1], head_block(cfg)
+    if torch.is_grad_enabled() or vocab <= block:
+        return x @ w
+    out = torch.empty(x.shape[:-1] + (vocab,), dtype=torch.promote_types(x.dtype, w.dtype),
+                      device=x.device)
+    for a in range(0, vocab, block):
+        out[..., a:a + block] = x @ w[:, a:a + block]
+    return out
 
 
 def cross_entropy(logits, labels, ignore_id: int = -1):

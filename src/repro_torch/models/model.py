@@ -1,7 +1,7 @@
-"""Public model API: `Model(cfg)` with init, forward and loss (dense and
-Mamba-2 stacks), and for dense stacks the serve path's init_cache,
-prefill, prefill_chunk, decode_step and decode_slots, over a nested dict
-of tensors. `attn_impl` picks the whole-sequence attention: "naive",
+"""Public model API: `Model(cfg)` with init, forward and loss, and the
+serve path's init_cache, prefill, decode_step and decode_slots (dense and
+Mamba-2 stacks; prefill_chunk for dense ones), over a nested dict of
+tensors. `attn_impl` picks the whole-sequence attention: "naive",
 "blockwise", or "pallas" — the flash-attention kernel (its plain version
 on the CPU), the name the JAX package gives its Pallas kernel path.
 `ssd_impl` picks Mamba-2's chunked scan: "ref" (the plain version, the
@@ -119,14 +119,18 @@ class Model:
         return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
     # ---- serving ----------------------------------------------------------
-    def prefill(self, params, batch, cache_len: Optional[int] = None, stream=None):
-        """-> (last-token logits [B,V], cache)."""
+    def prefill(self, params, batch, cache_len: Optional[int] = None, stream=None,
+                out=None, swap_out: bool = False):
+        """-> (last-token logits [B,V], cache). out: the cache tree to write
+        into, a layer at a time (swap_out: a plan's host cache, each layer
+        copied out as a kvcache swap); see `transformer.apply_decoder_prefill`."""
         cfg = self.cfg
         x = self._embed(params, batch, stream)
         seq = x.shape[1]
         ctx = self._ctx(seq, x.device)
         x, cache = tr.apply_decoder_prefill(cfg, params["decoder"], x, ctx,
-                                            cache_len or seq, stream=stream)
+                                            cache_len or seq, stream=stream, out=out,
+                                            swap_out=swap_out)
         x = self._final_norm(params, x, stream)
         return self._logits(params, x[:, -1:], stream)[:, 0], cache
 

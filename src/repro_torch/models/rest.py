@@ -9,7 +9,9 @@ it from there:
   (`core/lms/offload.py`), when the logits need them; with no sink
   taking its grad (serving, or autograd off) a head larger than the
   window the plan prices for streamed params (two sweeps' layers in
-  flight: `window`) comes in a vocab slice at a time;
+  flight: `window`) comes in a vocab slice at a time, each slice whole
+  blocks of `layers.head_block` entries, the products a resident head
+  takes without grads (`layers.lm_logits`);
 * a tied embedding reads one leaf for both uses.
 
 With grads, each of these device copies carries autograd through a
@@ -30,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.lms import offload as off
-from repro_torch.models.layers import apply_norm, lm_logits
+from repro_torch.models.layers import apply_norm, head_block, lm_logits
 
 EMBED = ("embed", "embedding")
 HEAD = ("embed", "lm_head")
@@ -208,11 +210,13 @@ def final_norm(cfg, p, x, sink=None):
     return apply_norm(cfg, dev, x)
 
 
-def _slices(n: int, nbytes: int, room):
-    """[(a, b)] covering range(n) in the fewest equal pieces of <= room
-    bytes each (one piece when it all fits, or room is None)."""
-    k = 1 if room is None else max(-(-nbytes // max(room, 1)), 1)
-    step = -(-n // k)
+def _slices(n: int, nbytes: int, room, block: int):
+    """[(a, b)] covering range(n) in pieces of as many whole blocks of
+    `block` entries as fit in room bytes, at least one (one piece when it
+    all fits, or room is None)."""
+    if room is None or nbytes <= room:
+        return [(0, n)]
+    step = max(room // (nbytes * block // n), 1) * block
     return [(a, min(a + step, n)) for a in range(0, n, step)]
 
 
@@ -224,7 +228,7 @@ def logits(cfg, p, x, room, sink=None):
     key = EMBED if cfg.tie_embeddings else HEAD
     w = p["embedding"] if cfg.tie_embeddings else p["lm_head"]
     vocab = w.shape[0] if cfg.tie_embeddings else w.shape[1]
-    parts = _slices(vocab, w.numel() * w.element_size(), room)
+    parts = _slices(vocab, w.numel() * w.element_size(), room, head_block(cfg))
     if _hands_back(sink) and not cfg.tie_embeddings:
         return _SunkHead.apply(x, w, (_to_device(w, x.device),), sink, key)
     if len(parts) == 1 or _hands_back(sink):

@@ -1,13 +1,16 @@
 """Decoder stack for the "attn" (dense decoder) and "ssd" (Mamba-2) layer
 kinds: stacked [L, ...] params and caches, with the JAX package's
-`lax.scan` over layers as a Python loop over the leading axis. The
-forward pass (train / loss) for both kinds; for "attn" also prefill,
-chunked prefill, the whole-batch decode of the static loop, and the slot
-decode of the serve engine (through the page arena, or over
-slot-contiguous caches). Each serve sweep takes `stream=`, a serve
-plan's SwapSchedule: params in pinned host memory come in a layer at a
-time (`_LayerStream`), and the static loop's decode also streams a
-host-resident KV cache per layer.
+`lax.scan` over layers as a Python loop over the leading axis. For both
+kinds: the forward pass (train / loss, resident or through the LMS
+executor under a plan), the whole-prompt prefill, the whole-batch decode
+of the static loop and the slot decode of the serve engine. An "attn"
+layer's cache is its k/v (paged through the engine's page arena, or
+slot-contiguous); an "ssd" layer's is per-slot state, the SSM state and
+the convolution's last inputs, which inactive slots keep as they are.
+Chunked prefill is for "attn" stacks only, as in the JAX package. Each
+serve sweep takes `stream=`, a serve plan's SwapSchedule: params in
+pinned host memory come in a layer at a time (`_LayerStream`), and the
+static loop's decode also streams a host-resident cache per layer.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from repro_torch.models.attention import (attention_defs, decode_attention,
                                           out_proj, project_qkv)
 from repro_torch.models.layers import (ParamDef, apply_mlp, apply_norm,
                                        apply_rope, mlp_defs, norm_defs)
-from repro_torch.models.ssm import apply_ssm, ssm_defs
+from repro_torch.models.ssm import apply_ssm, decode_ssm, ssm_cache_defs, ssm_defs
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 # ---------------------------------------------------------------------------
@@ -40,17 +43,6 @@ def _check_kinds(cfg: ModelConfig) -> str:
             f"{cfg.name}: only dense 'attn' and Mamba-2 'ssd' stacks are "
             f"ported yet (layer kinds {sorted(kinds)})")
     return kinds.pop()
-
-
-def _check_serve(cfg: ModelConfig) -> None:
-    """The serve paths run 'attn' stacks only: the caches (which every
-    decode and chunked-prefill step takes) and the whole-prompt prefill
-    check it."""
-    if _check_kinds(cfg) != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: serving Mamba-2 ('ssd' layers: prefill with the "
-            f"final states, decode_ssm, the SSM state caches) is not ported "
-            f"yet; Model.forward and Model.loss are")
 
 
 def _stack(defs, n: int):
@@ -77,11 +69,20 @@ def decoder_defs(cfg: ModelConfig):
                              cfg.num_layers)}
 
 
+def layer_cache_defs(cfg: ModelConfig, kind: str, batch: int, cache_len: int):
+    if kind == "attn":
+        kd = ParamDef((batch, cache_len, cfg.num_kv_heads, cfg.head_dim),
+                      ("batch", "kv_seq", "kv_heads", None), init="zeros")
+        return {"k": kd, "v": kd}
+    if kind == "ssd":
+        return ssm_cache_defs(cfg, batch)
+    raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+
+
 def cache_defs(cfg: ModelConfig, batch: int, cache_len: int):
-    _check_serve(cfg)
-    kd = ParamDef((batch, cache_len, cfg.num_kv_heads, cfg.head_dim),
-                  ("batch", "kv_seq", "kv_heads", None), init="zeros")
-    return {"stack0": _stack({"attn_0": {"k": kd, "v": kd}}, cfg.num_layers)}
+    kind = _check_kinds(cfg)
+    return {"stack0": _stack({f"{kind}_0": layer_cache_defs(cfg, kind, batch, cache_len)},
+                             cfg.num_layers)}
 
 
 def _layer(tree, i: int):
@@ -142,6 +143,7 @@ def apply_layer(cfg, kind, p, x, ctx):
     if kind == "attn":
         return _attn_block(cfg, p, x, ctx)[0], 0.0
     if kind == "ssd":
+        x = tag(x, "resid")
         h = apply_norm(cfg, p["ln1"], x)
         y, _ = apply_ssm(cfg, p["ssm"], h, ssd_impl=ctx["ssd_impl"])
         return x + y, 0.0
@@ -360,15 +362,13 @@ def apply_decoder(cfg, params, x, ctx, *, policy=None, no_remat=False,
     stack through the LMS executor (`_apply_decoder_lms`), which writes
     the stack's param grads into `stack_grads` (a tree like
     params["stack0"]) in the backward; with grad_hooks (LMS + DDL) their
-    means over the ranks, through the hook's reduction queue. The Mamba-2
-    stack under a policy or stream is not ported yet."""
+    means over the ranks, through the hook's reduction queue. Both layer
+    kinds run there: the Mamba-2 layer's tags are `ssd_xz` and `ssd_state`
+    (`models/ssm.py`), as in the JAX package."""
     kind = _check_kinds(cfg)
     stack = params["stack0"]
     hook = (grad_hooks or {}).get("stack0")
     if policy is not None or stream is not None:
-        if kind != "attn":
-            raise NotImplementedError(
-                f"the {kind!r} stack under an LMS policy or stream is not ported yet")
         return _apply_decoder_lms(cfg, kind, stack, x, ctx, policy=policy,
                                   stream=stream, no_remat=no_remat,
                                   stack_grads=stack_grads, hook=hook)
@@ -396,7 +396,15 @@ def apply_decoder(cfg, params, x, ctx, *, policy=None, no_remat=False,
 # ---------------------------------------------------------------------------
 
 def apply_layer_prefill(cfg, kind, p, x, ctx, cache_len: int):
-    """-> (x, layer cache {"k","v"} [B, cache_len, K, D])."""
+    """-> (x, layer cache): "attn" {"k","v"} [B, cache_len, K, D]; "ssd"
+    {"h" [B,H,P,N] f32, the state after the prompt, "conv" [B,K-1,C], the
+    convolution's last inputs, zeros first for a prompt shorter than
+    K-1}, the scan taking ctx["ssd_impl"] (the kernel returns the state
+    from the same launch)."""
+    if kind == "ssd":
+        h = apply_norm(cfg, p["ln1"], x)
+        y, cache = apply_ssm(cfg, p["ssm"], h, ssd_impl=ctx["ssd_impl"], cache=True)
+        return x + y, cache
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     x2, k, v = _attn_block(cfg, p, x, ctx)
@@ -410,19 +418,35 @@ def apply_layer_prefill(cfg, kind, p, x, ctx, cache_len: int):
     return x2, {"k": ck, "v": cv}
 
 
-def apply_decoder_prefill(cfg, params, x, ctx, cache_len: int, stream=None):
+def apply_decoder_prefill(cfg, params, x, ctx, cache_len: int, stream=None, out=None,
+                          swap_out: bool = False):
     """-> (x, stacked cache). stream: params streamed in a layer at a time
-    (`_LayerStream`)."""
-    _check_serve(cfg)
-    layer = _LayerStream(params["stack0"], cfg.num_layers, x.device, stream)
-    layers = []
-    for i in range(cfg.num_layers):
-        x, c = apply_layer_prefill(cfg, "attn", layer.get(i)["attn_0"],
-                                   x, ctx, cache_len)
-        layers.append(c)
-    cache = {"attn_0": {key: torch.stack([c[key] for c in layers])
-                        for key in ("k", "v")}}
-    return x, {"stack0": cache}
+    (`_LayerStream`). Each layer's cache goes into its slot of the stacked
+    cache as soon as the layer is done, so only one layer's stands apart:
+    `out`, a stacked cache tree ({"stack0": ...}, batch rows as x) to
+    write into, in place (a static loop's host cache); by default a new
+    one on x's device, of the layers' dtypes. swap_out:
+    `out` is a plan's host-resident cache, each layer's copied out on the
+    side stream and counted as a kvcache swap (`offload`)."""
+    kind = _check_kinds(cfg)
+    key = f"{kind}_0"
+    n = cfg.num_layers
+    layer = _LayerStream(params["stack0"], n, x.device, stream)
+    for i in range(n):
+        x, c = apply_layer_prefill(cfg, kind, layer.get(i)[key], x, ctx, cache_len)
+        if out is None:
+            out = {"stack0": {key: tree_map(
+                lambda t: torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=t.device),
+                c)}}
+        dst = _layer(out["stack0"], i)[key]
+        if swap_out:
+            off.stream_layer_to_host(c, dst, cls="kvcache")
+        else:
+            tree_map(lambda d, t: d.copy_(t, non_blocking=True), dst, c)
+        del c
+    if swap_out:
+        off.fence(x.device)
+    return x, out
 
 
 # ---------------------------------------------------------------------------
@@ -457,12 +481,13 @@ def apply_decoder_prefill_chunk(cfg, params, caches, x, start: int,
     """-> (x, caches): one chunk through every layer; each layer reads the
     earlier chunks' keys and appends its own to the stacked cache in place.
     stream: params streamed in a layer at a time (`_LayerStream`)."""
+    kind = _check_kinds(cfg)
+    key = f"{kind}_0"
     layer = _LayerStream(params["stack0"], cfg.num_layers, x.device, stream)
     cstack = caches["stack0"]
     for i in range(cfg.num_layers):
         x, _ = apply_layer_prefill_chunk(
-            cfg, "attn", layer.get(i)["attn_0"], x,
-            _layer(cstack, i)["attn_0"], start, length, ctx)
+            cfg, kind, layer.get(i)[key], x, _layer(cstack, i)[key], start, length, ctx)
     return x, caches
 
 
@@ -471,9 +496,17 @@ def apply_decoder_prefill_chunk(cfg, params, caches, x, start: int,
 # ---------------------------------------------------------------------------
 
 def apply_layer_decode(cfg, kind, p, x, cache, pos: int, ctx):
-    """x [B,1,d], pos the position every row decodes at. The new token's
-    k/v row is written into the cache IN PLACE at min(pos, Smax - 1), as
-    JAX's dynamic_update_slice clamps it; -> (x, cache)."""
+    """x [B,1,d], pos the position every row decodes at. "attn": the new
+    token's k/v row is written into the cache IN PLACE at min(pos,
+    Smax - 1), as JAX's dynamic_update_slice clamps it; "ssd": the state
+    and the convolution's inputs are replaced by the step's, in place.
+    -> (x, cache)."""
+    if kind == "ssd":
+        h = apply_norm(cfg, p["ln1"], x)
+        y, new = decode_ssm(cfg, p["ssm"], h, cache)
+        for k, t in new.items():
+            cache[k].copy_(t)
+        return x + y, cache
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     h = apply_norm(cfg, p["ln1"], x)
@@ -494,14 +527,15 @@ def apply_decoder_decode(cfg, params, caches, x, pos: int, ctx, stream=None):
     KV cache (JAX `apply_decoder_decode`), the caches lie in pinned host
     memory: each layer's comes in with its params, takes the new row on
     the device and goes back whole."""
+    kind = _check_kinds(cfg)
+    key = f"{kind}_0"
     n = cfg.num_layers
     layer = _LayerStream(params["stack0"], n, x.device, stream)
     cstack = caches["stack0"]
     kv = _LayerStream(cstack, n, x.device, stream, cls="kvcache")
     for i in range(n):
         lc = kv.get(i)
-        x, _ = apply_layer_decode(cfg, "attn", layer.get(i)["attn_0"], x,
-                                  lc["attn_0"], pos, ctx)
+        x, _ = apply_layer_decode(cfg, kind, layer.get(i)[key], x, lc[key], pos, ctx)
         if kv.depth:
             off.stream_layer_to_host(lc, _layer(cstack, i), cls="kvcache")
         del lc
@@ -529,9 +563,21 @@ def _slot_write(cache_t, new_t, slots, active):
     return cache_t
 
 
+def _gate_state(active, new_tree, cache):
+    """The slot decode's state write, IN PLACE: active rows take the new
+    state, inactive rows keep theirs (JAX `_gate_state`)."""
+    for k, n in new_tree.items():
+        old = cache[k]
+        m = active.reshape((n.shape[0],) + (1,) * (n.dim() - 1))
+        old.copy_(torch.where(m, n.to(old.dtype), old))
+    return cache
+
+
 def apply_layer_decode_slots(cfg, kind, p, x, cache, positions, active, ctx):
     """Slot-batched decode of one layer: every batch row is an independent
     request at its own position. positions [B] int32, active [B] bool.
+    "ssd": the step's state goes into the active rows' slots (`_gate_state`)
+    and inactive rows add nothing to x; the rest is about "attn".
 
     With a page table in ctx the caches are the shared page arena and the
     new token's k/v row (int8 codes + scales under kv_dtype="int8") is
@@ -540,6 +586,11 @@ def apply_layer_decode_slots(cfg, kind, p, x, cache, positions, active, ctx):
     Either write is IN PLACE, and inactive rows attend to nothing (kv_len
     0). Attention math is row-independent, so an active row's output is
     the whole-batch decode's at that row's position."""
+    if kind == "ssd":
+        h = apply_norm(cfg, p["ln1"], x)
+        y, new = decode_ssm(cfg, p["ssm"], h, cache)
+        act = active.reshape((x.shape[0],) + (1,) * (y.dim() - 1))
+        return x + torch.where(act, y, 0), _gate_state(active, new, cache)
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     table = ctx.get("page_table")
@@ -582,10 +633,11 @@ def apply_decoder_decode_slots(cfg, params, caches, x, positions, active, ctx,
     streams here: the paged pool executes its host residency, so the
     decode step always sees a device-resident cache (JAX
     `apply_decoder_decode_slots`)."""
+    kind = _check_kinds(cfg)
+    key = f"{kind}_0"
     layer = _LayerStream(params["stack0"], cfg.num_layers, x.device, stream)
     cstack = caches["stack0"]
     for i in range(cfg.num_layers):
-        x, _ = apply_layer_decode_slots(
-            cfg, "attn", layer.get(i)["attn_0"], x,
-            _layer(cstack, i)["attn_0"], positions, active, ctx)
+        x, _ = apply_layer_decode_slots(cfg, kind, layer.get(i)[key], x, _layer(cstack, i)[key],
+                                        positions, active, ctx)
     return x, caches

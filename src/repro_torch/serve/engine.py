@@ -3,9 +3,10 @@
 One fixed-shape slot-batched decode step serves every tick: finished
 requests leave and queued ones join by editing the page table (through the
 paged pool) and the positions/active vectors. Prompts run through chunked
-prefill on pure-attention stacks (whole-prompt prefill otherwise); the pool
-spills prefilled-but-waiting requests to pinned host memory and brings
-their pages back (prefetched ahead of the decode tick) before they rejoin.
+prefill on pure-attention stacks (whole-prompt prefill otherwise, a
+Mamba-2 stack's among them); the pool spills prefilled-but-waiting
+requests to pinned host memory and brings their pages and state back
+(prefetched ahead of the decode tick) before they rejoin.
 
 Failure is a handled state, never an exception out of `run()`: every
 request ends in a terminal status (`ok` / `rejected` / `timeout` /
@@ -169,8 +170,9 @@ class ServeEngine:
 
     # ---- prefill ----------------------------------------------------------
     def _prefill(self, req: Request):
-        """-> (B=1 cache holding the prompt's keys, last-prompt-token logits
-        row). Chunked on attention stacks, whole-prompt otherwise."""
+        """-> (B=1 cache holding the prompt's keys or state, last-prompt-
+        token logits row). Chunked on attention stacks, whole-prompt
+        otherwise."""
         plen = request_prompt_len(self.cfg, req)
         with self.obs.span("engine.prefill", rid=req.rid, tokens=plen,
                            chunked=bool(self._chunk)):

@@ -1,7 +1,9 @@
 """Paged, host-spilling KV-cache pool — the serving side of the paper's
 Large Model Support: only what a decode tick needs stays on the device.
 
-The pool owns two arenas per paged leaf (attn k/v, and their int8 scales):
+The pool owns two arenas per paged leaf (attn k/v, and their int8 scales)
+and two per state leaf (Mamba-2's SSM state and convolution inputs: per
+slot, whatever the sequence length):
 
 * the **device arena**, a shared page pool ``[L, device_pages + 1,
   page_size, ...]`` addressed through an ``int32[slots, max_pages]`` page
@@ -14,30 +16,38 @@ The pool owns two arenas per paged leaf (attn k/v, and their int8 scales):
   memory on the card (page-major, so each page is one contiguous block),
   holding the pages of requests that are prefilled but still waiting for
   a decode slot.
+* a state leaf keeps the decode step's slot-batched layout on the device,
+  ``[L, slots, ...]``, and a ``[host_slots, L, ...]`` pinned host buffer
+  for the waiting requests; it moves whole, a slot at a time, wherever the
+  pages of a paged leaf move. A stack of state leaves only has no page
+  table (and needs no device pages).
 
-Lifecycle: ``spill`` copies a prefilled request's content pages out to the
-host arena; ``prefetch`` claims the request's device pages and copies its
-content pages into the arena ahead of its slot attach; ``attach`` is then
-only a page-table edit (or copies the pages itself when no prefetch ran);
+Lifecycle: ``spill`` copies a prefilled request's content pages (and
+state) out to the host arena; ``prefetch`` claims the request's device
+pages and copies its content pages into the arena ahead of its slot
+attach; ``attach`` is then only a page-table edit (or copies the pages
+itself when no prefetch ran), and copies the state into the slot;
 ``release`` nulls the slot's table row and returns its pages. A request
-reserves ``pages_needed(prompt + max_new)`` device pages up front; a spill
-moves only the ``ceil(prompt / page_size)`` pages that hold keys.
+of state alone is never staged ahead: a serve plan prices the slots'
+state on the device and the prefill's caches beside it, so its
+attach copies the state from its host slot straight into the slot (the
+JAX pool stages it in a device buffer of its own). A request reserves
+``pages_needed(prompt + max_new)`` device pages up front; a spill moves
+only the ``ceil(prompt / page_size)`` pages that hold keys.
 
-``preempt`` is spill-and-requeue: an active request's content pages go
-back from the arena to the host arena and its reservation frees, so a
-later attach resumes it bitwise. A `FaultInjector` can make the budget
+``preempt`` is spill-and-requeue: an active request's content pages and
+state go back to the host arena and its reservation frees, so a later
+attach resumes it bitwise. A `FaultInjector` can make the budget
 checks report full ("exhaust" at ``pool.reserve`` / ``pool.spill``).
 
-On the card the host<->device page copies run on a side stream of the
-pool's own, ``non_blocking``: each batch of copies first waits for what
-the compute stream has queued (the ticks that wrote the pages it reads),
+On the card the host<->device page and state copies run on a side stream
+of the pool's own, ``non_blocking``: each batch of copies first waits for
+what the compute stream has queued (the ticks that wrote what it reads),
 and the next decode tick waits for the copies at an event
-(`wait_copies`), as does any write to the arena on the compute stream.
-The page table is copied in from a pinned staging row. The free lists are
-LIFO, so churn scrambles page placement; the page table makes that free.
-
-Only layer caches that page are ported: a pool over per-slot state leaves
-(recurrent state, local-attention rings) raises.
+(`wait_copies`), as does any write to the arena or a slot on the compute
+stream. The page table is copied in from a pinned staging row. The free
+lists are LIFO, so churn scrambles page placement; the page table makes
+that free.
 """
 from __future__ import annotations
 
@@ -120,24 +130,33 @@ class PagedKVPool:
             host_pages // max(self.max_pages, 1), 1)
         pin = self.device.type == "cuda"
 
-        # leaf path -> has a leading ("layers",) axis
+        # leaf path -> has a leading ("layers",) axis, for the paged and
+        # the state leaves
         self._stacked: Dict[Tuple[str, ...], bool] = {}
+        self._state: Dict[Tuple[str, ...], bool] = {}
         self._host: Dict[Tuple[str, ...], torch.Tensor] = {}
         self.cache: Dict = {}
-        # bytes one page moves across all leaves: the spans' byte accounting
+        # bytes one page / one slot's state moves across all leaves: the
+        # spans' byte accounting (JAX `_page_bytes`, `_state_bytes`)
         self._page_bytes = 0
+        self._state_bytes = 0
         for keys, d in _flatten(base):
             assert is_def(d)
             stacked = keys[0].startswith("stack")
             ba = 1 if stacked else 0
+            dt = DTYPES[d.dtype]
+            lead = d.shape[:ba]
             if not (keys[-1] in PAGED_LEAF_KEYS and len(d.shape) > ba + 1
                     and d.shape[ba + 1] == max_len):
-                raise NotImplementedError(
-                    f"cache leaf {'/'.join(keys)} does not page; per-slot "
-                    "state leaves are not ported yet")
+                # a state leaf: the slot-batched layout, moved a slot at a time
+                self._state[keys] = stacked
+                self._host[keys] = torch.empty((host_slots,) + lead + d.shape[ba + 1:],
+                                               dtype=dt, pin_memory=pin)
+                self._state_bytes += self._host[keys][0].nbytes
+                _set(self.cache, keys, torch.zeros(d.shape, dtype=dt, device=self.device))
+                continue
             self._stacked[keys] = stacked
-            lead, tail = d.shape[:ba], d.shape[ba + 2:]
-            dt = DTYPES[d.dtype]
+            tail = d.shape[ba + 2:]
             # every host page is written (spill) before it is read (prefetch)
             self._host[keys] = torch.empty(
                 (host_pages,) + lead + (page_size,) + tail, dtype=dt,
@@ -146,8 +165,10 @@ class PagedKVPool:
             _set(self.cache, keys, torch.zeros(
                 lead + (device_pages + 1, page_size) + tail, dtype=dt,
                 device=self.device))
+        self.has_paged = bool(self._stacked)
         self._ptab = np.full((slots, self.max_pages), self.null_page, np.int32)
-        self.cache["page_table"] = torch.from_numpy(self._ptab.copy()).to(self.device)
+        if self.has_paged:
+            self.cache["page_table"] = torch.from_numpy(self._ptab.copy()).to(self.device)
         # the table's pinned staging row, and the event its last copy
         # completes at (the row is rewritten only after it)
         self._ptab_staging = torch.from_numpy(self._ptab.copy())
@@ -184,6 +205,8 @@ class PagedKVPool:
 
     # ---- admission arithmetic --------------------------------------------
     def pages_needed(self, total_len: int) -> int:
+        if not self.has_paged:
+            return 0
         return -(-min(total_len, self.max_len) // self.page_size)
 
     def _has_dev(self, n_pages: int) -> bool:
@@ -230,6 +253,18 @@ class PagedKVPool:
         arena = _get(self.cache, keys)
         return arena[:, page] if self._stacked[keys] else arena[page]
 
+    def _slot_state(self, keys, slot: int, width: int = 0):
+        """A state leaf's rows of one decode slot: a view [*lead, ...], or
+        with width 1 [*lead, 1, ...] (a B = 1 cache's layout)."""
+        leaf = _get(self.cache, keys)
+        rows = slice(slot, slot + 1) if width else slot
+        return leaf[:, rows] if self._state[keys] else leaf[rows]
+
+    @staticmethod
+    def _request_state(leaf, stacked: bool):
+        """A B = 1 request cache's state leaf without its batch axis."""
+        return leaf[:, 0] if stacked else leaf[0]
+
     # ---- copies -----------------------------------------------------------
     def _copies(self):
         """Context of a batch of page copies: on the card the side stream,
@@ -245,9 +280,11 @@ class PagedKVPool:
             torch.cuda.current_stream(self.device).wait_event(self._copied)
             self._copied = None
 
-    def _host_to_arena(self, e: _Entry) -> None:
+    def _host_to_arena(self, e: _Entry, slot: Optional[int] = None) -> None:
         """Copy a request's content pages from the host arena into its
-        claimed device pages."""
+        claimed device pages, and its state into `slot`'s rows (at its
+        attach: a request with state is never staged)."""
+        assert slot is not None or not self._state, "state is copied at attach only"
         with self._copies():
             for keys in self._stacked:
                 host = self._host[keys]
@@ -255,12 +292,17 @@ class PagedKVPool:
                                     e.dev_ids[:e.content_pages]):
                     self._arena_page(keys, int(pid)).copy_(host[int(hid)],
                                                            non_blocking=True)
+            for keys in self._state:
+                self._slot_state(keys, slot).copy_(self._host[keys][e.host_slot],
+                                                   non_blocking=True)
 
     def _sync_table(self):
         """Copy the numpy master page table into the cache's table tensor,
         in place (the JAX pool swaps in a new array that the decode step
         then donates), from the pinned staging row once its previous copy
-        is done."""
+        is done. No table without paged leaves."""
+        if not self.has_paged:
+            return
         if self._table_copied is not None:
             self._table_copied.synchronize()
         self._ptab_staging.numpy()[:] = self._ptab
@@ -289,8 +331,17 @@ class PagedKVPool:
         assert n <= len(self._free_dev), "device arena page budget exceeded"
         return np.asarray([self._free_dev.pop() for _ in range(n)], np.int32)
 
-    def _swap_bytes(self, pages: int) -> int:
-        return pages * self._page_bytes
+    def _swap_bytes(self, pages: int, state: bool = True) -> int:
+        """Bytes one lifecycle move touches: `pages` content pages across
+        every paged leaf, and the slot's state block (JAX `_swap_bytes`)."""
+        return pages * self._page_bytes + (self._state_bytes if state else 0)
+
+    def _state_out(self, keys, leaf, hslot: int, c) -> None:
+        """A B = 1 request cache's state leaf into host slot `hslot`, a
+        copy on the side stream."""
+        src = self._request_state(leaf, self._state[keys])
+        c.keep(src)
+        self._host[keys][hslot].copy_(src, non_blocking=True)
 
     # ---- lifecycle --------------------------------------------------------
     def spill(self, rid: int, req_cache, length: int,
@@ -301,19 +352,24 @@ class PagedKVPool:
             req_cache = self._ingest(req_cache)
             n = self.pages_needed(length)
             ev.attrs.update(pages=n, bytes=self._swap_bytes(n))
-            assert self._has_host(n), f"host arena full (need {n} pages)"
+            assert len(self._free_host_pages) >= n and self._free_host_slots, \
+                f"host arena full (need {n} pages and a slot)"
             assert rid not in self._table, f"request {rid} already pooled"
             ids = np.asarray([self._free_host_pages.pop() for _ in range(n)],
                              np.int32)
             hslot = self._free_host_slots.pop()
-            if n:
+            with self._copies() as c:
                 for keys, leaf in _flatten(req_cache):
+                    if keys in self._state:
+                        self._state_out(keys, leaf, hslot, c)
+                        continue
+                    if not n:
+                        continue
                     pages = self._pages(leaf, self._stacked[keys], n)
-                    with self._copies() as c:
-                        c.keep(pages)
-                        host = self._host[keys]
-                        for j, hid in enumerate(ids):
-                            host[int(hid)].copy_(pages[j], non_blocking=True)
+                    c.keep(pages)
+                    host = self._host[keys]
+                    for j, hid in enumerate(ids):
+                        host[int(hid)].copy_(pages[j], non_blocking=True)
             self._table[rid] = _Entry(reserve_pages, n, length, "host",
                                       host_ids=ids, host_slot=hslot)
         self.stats["spilled_pages"] += int(n)
@@ -324,9 +380,10 @@ class PagedKVPool:
         pages into the arena ahead of its slot attach, so the attach is a
         pure page-table edit. The full reservation is claimed here so the
         attach can never find the budget taken. No-op unless the request is
-        host-resident and the budget admits it."""
+        host-resident and the budget admits it, and for a pool with state
+        leaves (their room on the device is the slots')."""
         e = self._table.get(rid)
-        if e is None or e.where != "host":
+        if e is None or e.where != "host" or self._state:
             return False
         if not self._has_dev(e.reserve_pages):
             return False
@@ -345,12 +402,13 @@ class PagedKVPool:
         page-table edit; a host-resident one pays the copy here."""
         e = self._table[rid]
         assert e.where in ("host", "staged"), e.where
-        moved = self._swap_bytes(e.content_pages) if e.where == "host" else 0
+        # staged: the pages are in already (the JAX pool's count)
+        moved = self._swap_bytes(e.content_pages if e.where == "host" else 0)
         with self._obs.span("pool.attach", rid=rid, slot=slot, cls="kvcache",
                             staged=(e.where == "staged"), bytes=moved):
             if e.where == "host":
                 e.dev_ids = self._claim_dev(e.reserve_pages)
-                self._host_to_arena(e)
+                self._host_to_arena(e, slot)
                 self.stats["fetched_pages"] += int(e.content_pages)
         self._map_slot(slot, e.dev_ids)
         self._free_host_pages.extend(int(i) for i in e.host_ids)
@@ -374,11 +432,17 @@ class PagedKVPool:
         with self._obs.span("pool.attach_fresh", rid=rid, slot=slot,
                             cls="kvcache", pages=n,
                             bytes=self._swap_bytes(n)):
-            if n:
-                # freed pages may still be read by a preempt's copy out
-                self.wait_copies()
-                rows = torch.from_numpy(dev_ids[:n].astype(np.int64)).to(self.device)
-                for keys, leaf in _flatten(req_cache):
+            # freed pages and slot rows may still be read by a preempt's
+            # copy out
+            self.wait_copies()
+            rows = (torch.from_numpy(dev_ids[:n].astype(np.int64)).to(self.device)
+                    if n else None)
+            for keys, leaf in _flatten(req_cache):
+                if keys in self._state:
+                    self._slot_state(keys, slot).copy_(
+                        self._request_state(leaf, self._state[keys]))
+                    continue
+                if n:
                     arena = _get(self.cache, keys)
                     pages = self._pages(leaf, self._stacked[keys], n)
                     if self._stacked[keys]:
@@ -407,8 +471,9 @@ class PagedKVPool:
     def preempt(self, rid: int, length: int) -> bool:
         """Spill-and-requeue preemption: reclaim an active request's device
         pages. Its `pages_needed(length)` content pages (the tokens so far)
-        go from the arena back into the host arena, its table row nulls
-        and its whole reservation returns to the free list. The entry goes
+        go from the arena back into the host arena, its slot's state whole
+        into a host slot, its table row nulls and its whole reservation
+        returns to the free list. The entry goes
         back to "host" as if spilled after prefill at the new length, so a
         later attach resumes decoding bitwise. The pages count as spilled
         too, so spilled == fetched + prefetched still holds. -> False (and
@@ -428,6 +493,9 @@ class PagedKVPool:
                     for hid, pid in zip(ids, e.dev_ids[:n]):
                         host[int(hid)].copy_(self._arena_page(keys, int(pid)),
                                              non_blocking=True)
+                for keys in self._state:
+                    self._host[keys][hslot].copy_(self._slot_state(keys, e.slot),
+                                                  non_blocking=True)
         self._resident -= e.reserve_pages
         self._free_dev.extend(int(i) for i in e.dev_ids)
         self._ptab[e.slot] = self.null_page

@@ -127,16 +127,6 @@ def _opt_stream(plan: Optional[MemoryPlan]):
     return plan.swap_schedule if plan.swap_schedule.streams_optimizer else None
 
 
-def _to_host(tree):
-    """A copy of a device tree in host memory (pinned where the card is),
-    for a cache the plan keeps on the host."""
-    pin = tree_leaves(tree)[0].device.type == "cuda"
-    out = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=pin), tree)
-    off.stream_layer_to_host(tree, out, cls="kvcache")
-    off.fence(tree_leaves(tree)[0].device)
-    return out
-
-
 def build_prefill_step(model: Model, shape: ShapeConfig,
                        spec: StepSpec = StepSpec()):
     """Whole-prompt prefill of `shape.global_batch` prompts of
@@ -145,16 +135,22 @@ def build_prefill_step(model: Model, shape: ShapeConfig,
     decode-capacity cache. Under a serve plan the params stream in a layer
     at a time when the plan puts them on the host, and the cache is
     emitted into host memory when it puts the KV cache there (JAX: the
-    cache's host sharding), for `build_decode_step` to stream. ->
-    (fn(params, batch) -> (last-token logits [B,V], cache), cache_defs)."""
+    cache's host sharding), a layer at a time as the prefill makes it, for
+    `build_decode_step` to stream. -> (fn(params, batch) -> (last-token
+    logits [B,V], cache), cache_defs)."""
     cache_len = spec.cache_len or shape.seq_len
     defs = tr.cache_defs(model.cfg, shape.global_batch, cache_len)
     stream = _serving_stream(spec.plan)
     kv_host = spec.plan is not None and spec.plan.residency.get("kvcache") == "host"
 
     def prefill(params, batch):
-        logits, cache = model.prefill(params, batch, cache_len=cache_len, stream=stream)
-        return logits, (_to_host(cache) if kv_host else cache)
+        out = None
+        if kv_host:
+            pin = batch["tokens"].device.type == "cuda"
+            out = tree_map(lambda d: torch.empty(d.shape, dtype=DTYPES[d.dtype],
+                                                 pin_memory=pin), defs)
+        return model.prefill(params, batch, cache_len=cache_len, stream=stream, out=out,
+                             swap_out=kv_host)
 
     return prefill, defs
 
@@ -1057,7 +1053,6 @@ def _check_plan(plan: MemoryPlan, model: Model) -> None:
     unported = {
         "params on the host with the optimizer state on the device":
             res.get("params") == "host" and res.get("optimizer") != "host",
-        "the Mamba-2 stack under a plan": tr._check_kinds(model.cfg) != "attn",
     }
     for what, on in unported.items():
         if on:

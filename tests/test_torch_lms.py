@@ -25,8 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_ref import (jax_ref, jax_ref_scope,  # noqa: F401 (autouse fixture)
-                                  random_params)
+from tests.test_torch_ref import (jax_pricing, jax_ref,  # noqa: F401 (fixtures)
+                                  jax_ref_scope, random_params)
 from tests.test_torch_train import _check_masters, _jleaves, within_max
 
 from repro_torch import hw as thw
@@ -117,7 +117,7 @@ LMS_KNOBS = ({}, {"hbm_budget": 16_000_000_000}, {"hbm_budget": 2_000_000_000},
 @pytest.mark.parametrize("arch", ["qwen2.5-14b", "olmo-1b", "starcoder2-7b", "qwen2-72b",
                                   "mamba2-1.3b", "grok-1-314b", "qwen3-moe-235b-a22b",
                                   "recurrentgemma-9b", "qwen2-vl-2b", "whisper-tiny"])
-def test_plan_matches_jax(jm, arch):
+def test_plan_matches_jax(jax_pricing, jm, arch):
     """plan() on both sides, every JAX config at full size and smoke size
     (converted field by field into the port's ModelConfig), on both
     hardware models, at every JAX shape and a 2 x 2048 train shape, on
@@ -149,7 +149,7 @@ def test_plan_matches_jax(jm, arch):
 
 
 @pytest.mark.parametrize("kv_dtype", ["model", "int8"])
-def test_serve_plan_matches_jax(jm, kv_dtype):
+def test_serve_plan_matches_jax(jax_pricing, jm, kv_dtype):
     """The serve plans (paged pool sizing included) and the legacy
     wrappers, on both hardware models."""
     jb, jp = jm["base"], jm["plan"]
@@ -192,7 +192,7 @@ def _profiles(jm):
     return out
 
 
-def test_calibrated_plan_matches_jax(jm):
+def test_calibrated_plan_matches_jax(jax_pricing, jm):
     """plan(profile=...) on both sides from the same calibration inputs:
     tuned prefetch depth, the live-bytes margin charged into the budget and
     the peak, the remat-or-swap choice at measured cost, the DDL bucket."""
@@ -679,10 +679,10 @@ def test_launch_train_with_lms_on_cpu(capsys, tmp_path):
 def test_what_is_not_ported_raises():
     """Grads on the host and LMS + DDL build now (tests/test_torch_lms_ddl.py
     runs them), and so does LMS with microbatches
-    (tests/test_torch_microbatches.py); params on the host with the
-    optimizer on the device (with microbatches too), the Mamba-2 stack
-    under a plan: "not ported yet". Serve plans build (tests/
-    test_torch_serve_plan.py runs them)."""
+    (tests/test_torch_microbatches.py), and the Mamba-2 stack under a plan
+    (tests/test_torch_ssm_serve.py runs it); params on the host with the
+    optimizer on the device (with microbatches too): "not ported yet".
+    Serve plans build (tests/test_torch_serve_plan.py runs them)."""
     from repro_torch.launch.mesh import Mesh
     tcfg = _tcfg()
     model = Model(tcfg.model)
@@ -700,8 +700,8 @@ def test_what_is_not_ported_raises():
         tsteps.build_train_step(model, dataclasses.replace(tcfg, microbatches=2),
                                 plan=_plan(tcfg.model, {"params": "host"}))
     mamba = Model(get_smoke_config("mamba2-1.3b"))
-    with pytest.raises(NotImplementedError, match="Mamba-2 stack under a plan"):
-        tsteps.build_train_step(mamba, dataclasses.replace(tcfg, model=mamba.cfg), plan=plan)
+    assert callable(tsteps.build_train_step(mamba, dataclasses.replace(tcfg, model=mamba.cfg),
+                                            plan=plan))
     spec = tsteps.StepSpec(plan=plan)
     for build in (tsteps.build_prefill_step, tsteps.build_decode_step,
                   tsteps.build_slot_decode_step):

@@ -107,6 +107,17 @@ def jax_ref_scope():
     forget_jax_ref()
 
 
+@pytest.fixture
+def jax_pricing(monkeypatch):
+    """The port's planner without the two working sets it prices where the
+    JAX package's prices none (`planner.ssd_scan_work_bytes`,
+    `planner.whole_prefill_bytes`), for a test that holds a plan to the
+    JAX package's field by field."""
+    from repro_torch.core.lms import planner
+    monkeypatch.setattr(planner, "ssd_scan_work_bytes", lambda *a, **k: 0)
+    monkeypatch.setattr(planner, "whole_prefill_bytes", lambda *a, **k: 0)
+
+
 def random_params(ref, cfg, seed: int):
     """Random params for the JAX model of `cfg`, as (JAX tree, numpy tree).
 

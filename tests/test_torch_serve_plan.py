@@ -287,6 +287,35 @@ def test_head_in_vocab_slices_when_larger_than_the_window():
         + rows * cfg.d_model * 4
 
 
+@pytest.mark.parametrize("tied", [False, True])
+def test_head_in_vocab_slices_is_the_resident_head_bitwise(tied):
+    """Without grads a head wider than `layers.head_block` is taken a block
+    at a time, resident or streamed: the vocab slices a window takes are
+    whole blocks, and their logits equal the resident head's bitwise
+    (untied head and tied table); with grads the resident head is one
+    product, as before."""
+    from repro_torch.models import layers, rest
+    cfg = dataclasses.replace(get_smoke_config(ARCH), num_layers=8, vocab_size=4096,
+                              tie_embeddings=tied)
+    block = layers.head_block(cfg)
+    params = Model(cfg, attn_impl="naive").init(0, "cpu")["embed"]
+    w = params["embedding"] if tied else params["lm_head"]
+    nbytes = w.numel() * w.element_size()
+    assert 128 <= block < cfg.vocab_size and block % 128 == 0
+    room = nbytes * block // cfg.vocab_size        # one block a slice
+    parts = rest._slices(cfg.vocab_size, nbytes, room, block)
+    assert len(parts) > 1 and all(a % block == 0 for a, _ in parts)
+    assert parts[-1][1] == cfg.vocab_size
+    x = torch.randn((2, 3, cfg.d_model), generator=torch.Generator().manual_seed(0)).bfloat16()
+    with torch.no_grad():
+        want = layers.lm_logits(cfg, params, x)
+        got = rest.logits(cfg, params, x, room)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    whole = (x @ params["embedding"].bfloat16().T) if tied else x @ w
+    with torch.enable_grad():
+        assert torch.equal(layers.lm_logits(cfg, params, x), whole)
+
+
 def test_placed_serve_params_are_the_init_and_the_converted(jm, ref, params):
     """`init_params(plan=)` builds `model.init`'s values bitwise, every leaf
     (the rest too) in the pinned arena's one buffer; `place_params` and

@@ -30,7 +30,6 @@ from repro_torch.convert import params_from_jax
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref, ssd_scan_ref
 from repro_torch.models import layers, ssm
-from repro_torch.models import transformer as tr
 from repro_torch.models.model import Model
 from repro_torch.tree import tree_map
 
@@ -275,15 +274,23 @@ class _ScanExtension:
     def __init__(self):
         self.launches = []
 
-    def ssd_scan_mma(self, x, dt, A, B, C, y, states, decays, chunk):
+    def ssd_scan_mma(self, x, dt, A, B, C, y, states, decays, chunk, h_final):
         self.launches.append({"entry": "ssd_scan_mma", "states": tuple(states.shape),
                               "decays": tuple(decays.shape),
-                              "dtypes": (states.dtype, decays.dtype), "chunk": chunk})
-        y.copy_(ssd_scan_chunked_ref(x, dt, A, B, C, chunk=chunk))
+                              "dtypes": (states.dtype, decays.dtype), "chunk": chunk,
+                              "h_final": tuple(h_final.shape)})
+        out, h = ssd_scan_chunked_ref(x, dt, A, B, C, chunk=chunk, final_state=True)
+        y.copy_(out)
+        if h_final.numel():
+            h_final.copy_(h)
 
-    def ssd_scan(self, x, dt, A, B, C, y, chunk):
-        self.launches.append({"entry": "ssd_scan", "chunk": chunk})
-        y.copy_(ssd_scan_ref(x, dt, A, B, C, chunk=chunk)[0])
+    def ssd_scan(self, x, dt, A, B, C, y, chunk, h_final):
+        self.launches.append({"entry": "ssd_scan", "chunk": chunk,
+                              "h_final": tuple(h_final.shape)})
+        out, h = ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
+        y.copy_(out)
+        if h_final.numel():
+            h_final.copy_(h)
 
 
 @pytest.fixture
@@ -356,6 +363,70 @@ def test_ssd_scan_routes_by_dtype_and_shape(scan_extension, dtype, h, p, g, n, l
         assert launch["entry"] == "ssd_scan"
         want = ssd_scan_ref(x, dt, A, B, C, chunk=chunk)[0]
     assert y.dtype == tdt and y.shape == x.shape and torch.equal(y, want)
+
+
+@pytest.mark.parametrize("dtype,h,p,g,n,l,chunk,route", [
+    ("bfloat16", 4, 64, 1, 128, 40, 16, "tensor_core"),   # 2 whole chunks and a ragged one
+    ("bfloat16", 4, 16, 2, 16, 10, 16, "tensor_core"),    # one chunk: one workspace slot
+    ("bfloat16", 2, 48, 1, 32, 32, 8, "tensor_core"),     # whole chunks only
+    ("float32", 4, 64, 1, 128, 40, 16, "cuda_core"),
+    ("bfloat16", 2, 40, 1, 48, 20, 8, "cuda_core"),
+])
+def test_ssd_scan_final_state_routes(scan_extension, dtype, h, p, g, n, l, chunk, route):
+    """`ssd_scan(final_state=True)` on tensors that count as CUDA ones: one
+    launch of the route's entry with an f32 h_final [b, h, p, n] to write
+    (the tensor-core entry with a workspace of nc slots, the last chunk's
+    too), counted in the route's final-state count as well as its own;
+    -> (y, h_final) as the entry wrote them. Without the final state the
+    entry gets an empty h_final and the workspace nc - 1 slots."""
+    tdt = getattr(torch, dtype)
+    x, dt, A, B, C = _model_views(2, l, h, p, g, n, tdt, seed=h * p + n + 1)
+    f = ssd_ops.ssd_scan_cuda
+    counts = (f.launches, f.final_state_tensor_core_launches, f.final_state_cuda_core_launches)
+    y, hf = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=chunk, final_state=True)
+    after = (f.launches, f.final_state_tensor_core_launches, f.final_state_cuda_core_launches)
+    assert [a - b for a, b in zip(after, counts)] == (
+        [1, 1, 0] if route == "tensor_core" else [1, 0, 1])
+    y0 = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    first, second = scan_extension.launches
+    assert first["h_final"] == (2, h, p, n) and second["h_final"] == (0,)
+    nc = -(-l // min(chunk, l))
+    if route == "tensor_core":
+        assert first["states"] == (2, nc, h, p, n) and first["decays"] == (2, nc, h)
+        assert second["states"] == (2, nc - 1, h, p, n)
+        want_y, want_h = ssd_scan_chunked_ref(x, dt, A, B, C, chunk=chunk, final_state=True)
+    else:
+        want_y, want_h = ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
+    assert hf.dtype == torch.float32 and torch.equal(hf, want_h)
+    assert torch.equal(y, want_y) and torch.equal(y0, want_y)
+
+
+@pytest.mark.parametrize("l,chunk,dt_kind", [
+    (2, 16, "trained"),      # under K - 1, the prefill's shortest prompt
+    (16, 16, "trained"),     # one whole chunk
+    (40, 16, "trained"),     # a ragged last chunk
+    (64, 16, "softplus"),
+])
+def test_ssd_scan_final_state_on_cpu_matches_plain_and_jax(ref, jssd, l, chunk, dt_kind):
+    """On CPU tensors `ssd_scan(final_state=True)` is the plain scan's (y,
+    h_final) bitwise; h_final within 1e-5 of the JAX `ssd_scan_ref`'s
+    largest |h_final| (f32), and within the same of the plain model of the
+    tensor-core route (`ssd_scan_chunked_ref(final_state=True)`, its hi +
+    lo operands), whose h_final the kernel's carries through the last
+    chunk."""
+    _, sref = jssd
+    x, dt, A, B, C = scan_inputs(2, l, 4, 16, 1, 16, seed=400 + l)
+    if dt_kind == "trained":
+        dt = trained_dt(2, l, 4, seed=500 + l)
+    tins = [torch.from_numpy(a) for a in (x, dt, A, B, C)]
+    y, hf = ssd_ops.ssd_scan(*tins, chunk=chunk, final_state=True)
+    want_y, want_h = ssd_scan_ref(*tins, chunk=chunk)
+    assert torch.equal(y, want_y) and torch.equal(hf, want_h)
+    assert torch.equal(ssd_ops.ssd_scan(*tins, chunk=chunk), want_y)
+    _, jh = sref.ssd_scan_ref(*[ref.jnp.asarray(a) for a in (x, dt, A, B, C)], chunk=chunk)
+    within_max(hf, jh, 1e-5, "h_final vs ssd_scan_ref")
+    _, mh = ssd_scan_chunked_ref(*tins, chunk=chunk, final_state=True)
+    within_max(mh, jh, 1e-5, "the chunked model's h_final")
 
 
 def test_ssd_scan_dispatch_goes_by_device():
@@ -574,15 +645,6 @@ def test_forward_last_row_is_prefill(qwen):
         assert torch.equal(logits[:, -1], last)
 
 
-def test_mamba2_serving_is_not_ported_yet(mamba):
-    cfg, _, _, _, tparams = mamba
-    model = Model(cfg)
-    with pytest.raises(NotImplementedError, match="serving Mamba-2"):
-        model.init_cache(2, 16, "cpu")
-    with pytest.raises(NotImplementedError, match="serving Mamba-2"):
-        model.prefill(tparams, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="serving Mamba-2"):
-        tr.cache_defs(cfg, 1, 8)
 
 
 def test_model_init_draws_every_ssm_leaf():

@@ -362,15 +362,32 @@ def test_model_loss_and_grads_match_jax_bf16(ref, arch, no_remat):
 
 
 def test_remat_policy_is_not_ported_yet():
-    """LMS policies run the dense stack (tests/test_torch_lms.py); the
-    Mamba-2 stack under a policy is not ported yet."""
+    """LMS policies run the dense stack (tests/test_torch_lms.py) and now
+    the Mamba-2 stack too: under a policy that recomputes every activation,
+    and under one that keeps its two tagged classes (`ssd_xz` offloaded,
+    `ssd_state` saved), the loss and every grad equal the checkpointed
+    resident run's bitwise (tests/test_torch_ssm_serve.py holds the
+    streamed step)."""
     from repro_torch.core.lms.policies import Policy
     cfg = get_smoke_config("mamba2-1.3b")
     model = Model(cfg)
     params = model.init(0, "cpu")
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        model.loss(params, {"tokens": toks, "labels": toks}, policy=Policy())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)))
+    batch = {"tokens": toks, "labels": toks}
+    want, gwant = _grads(lambda p: model.loss(p, batch)[0], params)
+    stack = params["decoder"]["stack0"]
+    for policy in (Policy(), Policy(saved=frozenset({"ssd_state"}),
+                                    offloaded=frozenset({"ssd_xz"}))):
+        grads = tree_map(torch.zeros_like, stack)
+        leaves = tree_map(lambda p: p.detach().clone().requires_grad_(), params)
+        got = model.loss(leaves, batch, policy=policy, stack_grads=grads)[0]
+        # the stack's grads go to `grads` (the executor's sink), not autograd
+        g = torch.autograd.grad(got, tree_leaves(leaves), allow_unused=True)
+        assert torch.equal(got.detach(), want)
+        for a, b in zip(g, tree_leaves(gwant)):
+            assert a is None or torch.equal(a, b)
+        for a, b in zip(tree_leaves(grads), tree_leaves(gwant["decoder"]["stack0"])):
+            assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
