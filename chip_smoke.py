@@ -66,8 +66,8 @@ non-zero, printing no result):
    process sharing them on the card) — 8 requests on 4 slots, prompts of
    2, 3, 256, 300, 511, 700, 1024 and 1100 tokens, 32 greedy tokens each,
    half of them prefilled into host slots to wait: the engine at 2 layers
-   against `Model.forward` over each prompt and its tokens; at 48 layers
-   resident, under the serve plan of LMSConfig(hbm_budget=1e9) (params
+   against `Model.forward` over each prompt and its tokens; at 24 layers
+   (the first of the 48) resident, under the serve plan of LMSConfig(hbm_budget=1e9) (params
    and the waiting state on the host: tokens, the hidden state entering
    the head and the logits bitwise resident, the head in vocab slices,
    the swap bytes exact, the peak at most 1.10 x the plan's), through a
@@ -124,7 +124,7 @@ non-zero, printing no result):
    spawned process, bitwise equal, no kernel launched; starcoder2-7b
    (GQA 36/4, LayerNorm with a bias, GELU with biases) serving at 2
    layers (both widths, and the flash-attention prefill) against the
-   dense pass and at its full 32 (argmax), 2 train steps at 2 layers
+   dense pass and at 16 of its 32 (argmax), 2 train steps at 2 layers
    through the kernels against the plain versions; qwen2-72b (GQA 64/8,
    d_model 8192) serving at 2 layers and 2 train steps at 1 layer through
    the kernels against the plain versions (4L+1 RMSNorm launches a step);
@@ -166,7 +166,7 @@ non-zero, printing no result):
    thread while the backward goes on and sunk to the host) — (a) 1 layer,
    2 steps, bitwise against the DDL phase's resident run (losses, grad
    norms, every param's checksum), its launches, the pod hop on the
-   queue's stream; (b) 2 layers if two ranks' pinned state fits 80% of
+   queue's stream; (b) 1 layer if two ranks' pinned state fits 80% of
    MemAvailable, 2 steps overlapped and 2 with the overlap off: step time, tokens/s, the reduction's time and its part
    under the backward, swap bytes, peaks and pinned bytes against the
    plan's, MemAvailable before and after the ranks (waiting until the host
@@ -186,10 +186,28 @@ non-zero, printing no result):
    checkpoints) go to RAM (/dev/shm): the machine lets a run write at most
    45 GiB to its disk; after (b) the parent waits for the host to hand
    the process's memory back before the LMS phases. (b) at smoke width, 2
-   ranks over gloo: zero1 on 1x2x1 under a plan with the optimizer on the
-   host, allreduce on 2x1x1 with the int8 pod hop, each bitwise its
-   uninterrupted run through a crash and restart, the pod hop's launches
-   as the leaf sizes imply;
+   ranks over gloo (one spawn, the modes in turn): zero1 on 1x2x1 under a
+   plan with the optimizer on the host, allreduce on 2x1x1 with the int8
+   pod hop, each bitwise its uninterrupted run through a crash and
+   restart, the pod hop's launches as the leaf sizes imply;
+14a. moe (qwen3-moe-235b-a22b at its published width: 128 experts of
+   d_ff 1536, top-8; random weights drawn on the card; a process of its
+   own, which pins one arena for its largest state while its resident
+   runs go) — the MoE layer at 2 x 2048 tokens with ample capacity
+   against every expert on every token (within 2**-5 of max |y|); the
+   engine at 2 layers with every token routed to every expert against the
+   dense pass, model width and int8 (the kernels of #2b and #4b); at 8
+   layers the trace with a preemption, `run_static` on 4 x (300 + 8)
+   tokens through the prefill kernel, and a 2-request trace resident and
+   under the serve plan of LMSConfig(hbm_budget=16e9) (params on the host:
+   tokens and logits bitwise, swap bytes exact, peak within 1.10 x the
+   plan's); training at 1 layer, 2 steps of 2 x 2048 tokens, resident
+   against the plan of 16e9 (params and AdamW state streamed): losses,
+   aux, grad norms and the state's checksums bitwise, swap bytes exact;
+   grok-1-314b at 1 layer resident and under a serve plan, bitwise. Every
+   call's capacity drops (`moe.dropped`) are printed; every launch at a
+   shape the kernel phases checked; the after-phase waits for the host to
+   hand the pinned memory back before the LMS phases;
 15. host — MemTotal and MemAvailable, and the achieved pinned copy rate
    host to device, device to host and both at once (1 GiB each way, CUDA
    events); the gate's depth is chosen here (the most layers L <= 48 whose
@@ -226,8 +244,8 @@ launch of the Mamba-2 forward and of its serve path's prefill. The line
 before the last lists every ported kernel (flash attention, decode and the
 SSD scan once per route, the scan with its final state once per route
 again; the int8 quantizer and dequantizer with their fused entries) with
-its launches on the main path; the last line is {"ok": true, "device":
-{...}}.
+its launches on the main path and on the MoE path (`moe_launches`); the
+last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -272,6 +290,9 @@ SSD_BATCH, SSD_LEN = 4, 2048
 # the phase inside chip_smoke's time), resident and under the plan
 MAMBA_PROMPTS = (700, 2, 1100, 256, 511, 3, 1024, 300)
 MAMBA_GEN, MAMBA_SLOTS, MAMBA_MAX_LEN = 32, 4, 1136
+# the serve runs take the first MAMBA_SERVE_LAYERS of the 48 layers' weights
+# (24 since the moe phase came: chip_smoke's time limit)
+MAMBA_SERVE_LAYERS = 24
 MAMBA_SERVE_BUDGET, MAMBA_PREEMPT_TICK = 10**9, 20
 MAMBA_STATIC_PROMPT, MAMBA_STATIC_GEN = 300, 8
 MAMBA_TIMEOUT_S = 720
@@ -305,7 +326,7 @@ DDL_TIMEOUT_S = 420
 # layers whose two ranks' pinned state fits LMS_HOST_SHARE of MemAvailable,
 # LMS_DDL_STEPS_B steps a run (2 layers and 2 steps keep the script inside
 # its time limit; scripts/ddl_four_cards.py runs LMS + DDL at depth)
-LMS_DDL_BUDGET, LMS_DDL_LAYERS_A, LMS_DDL_DEPTHS = 16 * 10**9, 1, (2,)
+LMS_DDL_BUDGET, LMS_DDL_LAYERS_A, LMS_DDL_DEPTHS = 16 * 10**9, 1, (1,)
 LMS_DDL_STEPS_B = 2
 LMS_DDL_TIMEOUT_S = 720
 # after the ranks exit the host hands their pinned memory back over some
@@ -363,10 +384,13 @@ CKPT_RAM_ROOT, CKPT_TIMEOUT_S = "/dev/shm", 900
 # LMSConfig(hbm_budget=DENSE_OLMO_BUDGET), which streams the params and the
 # AdamW state (in a spawned process: its pinned state goes back to the host
 # when it exits); starcoder2-7b (GQA 36/4, LayerNorm with a bias, GELU with
-# biases) serves and trains 2 steps at 2 layers and serves at its full 32;
+# biases) serves and trains 2 steps at 2 layers and serves at 16 of its 32;
 # qwen2-72b (GQA 64/8, d_model 8192) serves at 2 layers and trains 2 steps at
 # 1 (~54 GB of params and AdamW state)
 DENSE_OLMO, DENSE_STARCODER, DENSE_QWEN72 = "olmo-1b", "starcoder2-7b", "qwen2-72b"
+# starcoder2-7b's deep serve run: 16 of its 32 layers (since the moe phase
+# came: chip_smoke's time limit)
+DENSE_STARCODER_SERVE_LAYERS = 16
 DENSE_OLMO_BUDGET, DENSE_TRAIN_STEPS, DENSE_CHECK_STEPS = 8 * 10**9, 3, 2
 DENSE_TIMEOUT_S = 420
 # the 48-layer engine's determinism and profile reruns run on the first
@@ -379,6 +403,35 @@ RERUN_LAYERS = 4
 # slot at this tick, the exhaustion drill refuses this many reservations
 SERVE_PLAN_BUDGET, SERVE_PLAN_PEAK_OVER_PLAN = 3 * 10**9, 1.10
 SERVE_PLAN_PREEMPT_TICK, SERVE_PLAN_EXHAUSTIONS, SERVE_PLAN_TIMEOUT_S = 60, 3, 420
+# the moe phase: qwen3-moe-235b-a22b at its published width (d_model 4096,
+# GQA 64/4, 128 experts of d_ff 1536, top-8, vocab 151936), random weights
+# drawn on the card from the seed, in a process of its own. The layer alone
+# at TRAIN_BATCH x TRAIN_SEQ tokens with ample capacity against every expert
+# on every token; the engine at MOE_CHECK_LAYERS layers with every token
+# routed to every expert (k = E: a continuous layer, no call drops) against
+# the dense pass, at model width and int8; at
+# MOE_SERVE_LAYERS layers at the published capacity factor: the trace (8
+# requests of 128 + 32 tokens on 4 slots) with a preemption at tick
+# MOE_PREEMPT_TICK, `run_static` on MOE_STATIC_REQUESTS prompts of
+# MOE_STATIC_PROMPT tokens + MOE_STATIC_GEN, and a shorter trace
+# (MOE_PLAN_REQUESTS requests, MOE_PLAN_GEN tokens, a preemption at tick
+# MOE_PLAN_PREEMPT_TICK: a tick under the plan copies all 8 layers, 41 GB)
+# resident and under the serve plan of LMSConfig(hbm_budget=MOE_BUDGET)
+# (params on the host), bitwise; training at MOE_TRAIN_LAYERS layer,
+# MOE_TRAIN_STEPS steps resident and under the plan of MOE_BUDGET (params and
+# AdamW state streamed), bitwise. grok-1-314b serves the shorter trace at
+# MOE_GROK_LAYERS layer resident and under the plan of MOE_GROK_BUDGET
+# (params and the KV cache on the host: at 1 layer the plan's two layers in
+# flight are the whole stack; the engine keeps the trace's page geometry,
+# so both runs send the same calls). The process pins one arena for its
+# largest state (the training's) while its resident runs go, and every
+# placement reuses it
+MOE, MOE_GROK = "qwen3-moe-235b-a22b", "grok-1-314b"
+MOE_CHECK_LAYERS, MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS, MOE_GROK_LAYERS = 2, 8, 1, 1
+MOE_BUDGET, MOE_GROK_BUDGET = 16 * 10**9, 8 * 10**9
+MOE_PREEMPT_TICK, MOE_PLAN_REQUESTS, MOE_PLAN_GEN, MOE_PLAN_PREEMPT_TICK = 20, 2, 8, 4
+MOE_STATIC_REQUESTS, MOE_STATIC_PROMPT, MOE_STATIC_GEN = 4, 300, 8
+MOE_TRAIN_STEPS, MOE_TIMEOUT_S = 2, 720
 # torch.profiler sessions that time a kernel: at most this many for one
 # number, the timed calls this far (s) inside each end of a session
 PROFILE_ATTEMPTS, PROFILE_PAD_S = 8, 0.02
@@ -1967,6 +2020,7 @@ def kernel_phases(num_layers: int):
     rmsnorm_grad_phase(TRAIN_BATCH * TRAIN_SEQ, d, 42)
     ddl_kernel_phases(out, checked)
     dense_kernel_phases(out, checked)
+    moe_kernel_phases(out, checked)
     return out, checked
 
 
@@ -2090,6 +2144,50 @@ def dense_kernel_phases(out: dict, checked: set):
                                  ("engine_whole_prefill", PROMPT, 106),
                                  ("engine_prefill_chunk", CHUNK, 108),
                                  ("engine_decode", SLOTS, 107))]
+
+
+def moe_kernel_phases(out: dict, checked: set):
+    """The kernels at the moe phase's shapes (`moe_phase`): flash attention
+    at qwen3-moe-235b-a22b's static prefill (GQA 64/4), timed; its static
+    decode; paged decode at the engine's arena for qwen3-moe (G = 16, bf16
+    timed, int8) and grok-1-314b (48/8); the int8 pool's quantize of a
+    2-layer prefill cache and the decode step's fused write at 4 kv heads;
+    RMSNorm at d_model 4096 (the train step's, the static prefill's, a
+    prefill chunk's and the decode step's rows) and 6144 (grok's chunk and
+    decode rows). Adds the rows to `out`, after each kernel's main-path
+    row."""
+    from repro_torch.configs import get_config
+    qw, gk = get_config(MOE), get_config(MOE_GROK)
+
+    def heads(cfg):
+        return {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads}
+    smax = MOE_STATIC_PROMPT + MOE_STATIC_GEN
+    out["flash_attention_fwd_wgmma"].append(attention_kernel_phase(
+        "qwen3_moe_static_prefill", MOE_STATIC_REQUESTS, MOE_STATIC_PROMPT, 140, checked,
+        **heads(qw)))
+    out["flash_decode_bf16"].append(decode_kernel_phase(
+        "qwen3_moe_static_decode", [(MOE_STATIC_PROMPT + smax) // 2] * MOE_STATIC_REQUESTS,
+        False, 141, checked, paged=False, smax=smax, timed=False, **heads(qw)))
+    for name, cfg, widths, seed in (("qwen3_moe", qw, (False, True), 142),
+                                    ("grok_1", gk, (False,), 144)):
+        for int8 in widths:
+            out["flash_decode_paged_" + ("int8" if int8 else "bf16")].append(
+                decode_kernel_phase(f"{name}_engine", [160, 97, 0, 33], int8, seed + int8,
+                                    checked, pages=DEVICE_PAGES, max_pages=MAX_LEN // PAGE,
+                                    timed=cfg is qw and not int8, **heads(cfg)))
+    out["quantize_rows"].append(quantize_kernel_phase(
+        f"qwen3_moe_pool_ingest_{MOE_CHECK_LAYERS}_layers",
+        MOE_CHECK_LAYERS * MAX_LEN * qw.num_kv_heads, 146, checked, timed=False))
+    out["quantize_kv_write"].append(quantize_kv_write_kernel_phase(
+        "qwen3_moe_engine", SLOTS, True, 147, checked, kv_heads=qw.num_kv_heads, timed=False))
+    out["rmsnorm"] += [
+        rmsnorm_kernel_phase(f"{name}_{rows}", rows, cfg.d_model, seed, checked,
+                             eps=cfg.norm_eps, timed=False)
+        for name, cfg, rows, seed in (
+            ("qwen3_moe_train", qw, TRAIN_BATCH * TRAIN_SEQ, 148),
+            ("qwen3_moe_static_prefill", qw, MOE_STATIC_REQUESTS * MOE_STATIC_PROMPT, 149),
+            ("qwen3_moe_chunk", qw, CHUNK, 150), ("qwen3_moe_decode", qw, SLOTS, 151),
+            ("grok_1_chunk", gk, CHUNK, 152), ("grok_1_decode", gk, SLOTS, 153))]
 
 
 # the CUDA launchers whose counts a run of a path resets and reads
@@ -3406,8 +3504,9 @@ def _serve_launch_checks(launches, calls, unchecked, L, prefills, ticks):
 
 
 def _mamba2_serve_runs(params, checked):
-    """mamba2_serve's runs, on the parent's 48-layer weights (no new init),
-    in the process `_mamba2_rank` runs. -> the row's facts."""
+    """mamba2_serve's runs, on the first MAMBA_SERVE_LAYERS layers of the
+    parent's 48-layer weights (no new init), in the process `_mamba2_rank`
+    runs. -> the row's facts."""
     import dataclasses
     import numpy as np
     import torch
@@ -3418,7 +3517,8 @@ def _mamba2_serve_runs(params, checked):
     from repro_torch.models.model import Model
     from repro_torch.runtime.inject import FaultEvent, FaultInjector, FaultPlan
     from repro_torch.train.steps import place_params
-    cfg = get_config(MAMBA)
+    cfg = dataclasses.replace(get_config(MAMBA), num_layers=MAMBA_SERVE_LAYERS)
+    params = _first_layers(params, MAMBA_SERVE_LAYERS)
     L = cfg.num_layers
     out = {}
 
@@ -4030,7 +4130,9 @@ def _train_flops(cfg, tokens: int, seq: int):
     recompute runs every layer's forward once more."""
     d, hd = cfg.d_model, cfg.num_heads * cfg.head_dim
     kvd = cfg.num_kv_heads * cfg.head_dim
-    layer = d * hd + 2 * d * kvd + hd * d + 3 * d * cfg.d_ff
+    # an MoE layer's FFN: its k routed experts and the router
+    layer = (d * hd + 2 * d * kvd + hd * d + 3 * d * cfg.d_ff * max(cfg.experts_per_token, 1)
+             + d * cfg.num_experts)
     head = d * cfg.vocab_size
     pairs = tokens * (seq + 1) / 2                 # visible pairs over the batch
     attn_fwd = 4 * hd * pairs * cfg.num_layers
@@ -6359,10 +6461,16 @@ def _ckpt_rank_config(mode: str, ckpt_dir):
     return dataclasses.replace(tcfg, lms=lms, total_steps=CKPT_STEPS)
 
 
-def _ckpt_rank(rank: int, world: int, mode: str, ckpt_dir: str):
-    """One rank of (b): the uninterrupted run, then the supervised one with
-    a crash before step 4; each row, the checksums after the last step,
-    the launches of each run, the plan's residency."""
+def _ckpt_rank(rank: int, world: int, modes, root: str):
+    """One rank of (b), each mode in turn (its checkpoints in
+    root/b_<mode>): -> {mode: `_ckpt_rank_mode`'s result}."""
+    return {mode: _ckpt_rank_mode(mode, os.path.join(root, f"b_{mode}")) for mode in modes}
+
+
+def _ckpt_rank_mode(mode: str, ckpt_dir: str):
+    """One mode of a rank of (b): the uninterrupted run, then the
+    supervised one with a crash before step 4; each row, the checksums
+    after the last step, the launches of each run, the plan's residency."""
     import dataclasses
     from repro_torch.core.lms import offload as off
     from repro_torch.train.trainer import Trainer
@@ -6398,9 +6506,11 @@ def ckpt_ranks_phase(line, checked, root):
     from repro_torch.train.steps import _resolve_overlap
     t0 = time.monotonic()
     out, checks, unchecked = {}, {}, set()
+    # both modes in one spawn of the 2 ranks
+    by_rank = spawn_ranks("_ckpt_rank", 2, CKPT_RANK_MODES, root)
     for mode in CKPT_RANK_MODES:
         ckpt_dir = os.path.join(root, f"b_{mode}")
-        ranks = spawn_ranks("_ckpt_rank", 2, mode, ckpt_dir)
+        ranks = [r[mode] for r in by_rank]
         tcfg = _ckpt_rank_config(mode, ckpt_dir)
         c = {}
         for r, got in enumerate(ranks):
@@ -6542,7 +6652,7 @@ def dense_configs_phase(line, checked):
       every param's checksum bitwise equal, no kernel launched;
     - starcoder2-7b: at 2 layers the engine (both widths, and the
       flash-attention prefill) against the dense pass, and 2 train steps
-      through the kernels against the plain versions; at its full 32
+      through the kernels against the plain versions; at 16 of its 32
       layers the engine at model width (argmax, launch counts);
     - qwen2-72b: at 2 layers the engine at model width (and the
       flash-attention prefill); at 1 layer (~54 GB of params and AdamW
@@ -6568,7 +6678,7 @@ def dense_configs_phase(line, checked):
                                             int8=True, flash_prefill=True, static=False)
     star_train = train_reference_phase(line, checked, DENSE_STARCODER, 2, DENSE_CHECK_STEPS,
                                        ab=False)
-    star_layers = get_config(DENSE_STARCODER).num_layers
+    star_layers = DENSE_STARCODER_SERVE_LAYERS
     serve[f"starcoder2_7b_{star_layers}"] = _dense_serve(
         DENSE_STARCODER, star_layers, line, checked, dense=False, int8=False,
         flash_prefill=False, static=False)
@@ -6613,6 +6723,481 @@ def dense_configs_phase(line, checked):
                              f"{[k for k, v in checks.items() if not v]}")
     torch.cuda.empty_cache()
     return row
+
+
+# ---------------------------------------------------------------------------
+# the MoE family (the moe phase)
+# ---------------------------------------------------------------------------
+
+def _moe_cfg(layers: int, arch: str = MOE, ample: bool = False, every: bool = False):
+    """`arch` at its published width cut to `layers`; `ample`: capacity for
+    every assignment (cf = E / k), so no call drops one; `every`: each
+    token routed to every expert (k = E, cf 1), so the layer is a
+    continuous function of its input."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    if every:
+        cfg = dataclasses.replace(cfg, experts_per_token=cfg.num_experts,
+                                  moe_capacity_factor=1.0)
+    elif ample:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=cfg.num_experts
+                                  / cfg.experts_per_token)
+    return cfg
+
+
+def _moe_dropped(fn, *args, **kw):
+    """fn(*args, **kw) with the MoE layers' dropped assignments counted
+    from 0. -> (fn's result, dropped)."""
+    from repro_torch.models import moe
+    moe.reset_dropped()
+    out = fn(*args, **kw)
+    return out, moe.dropped()
+
+
+def _moe_layer_run():
+    """`apply_moe` on one layer of qwen3-moe-235b-a22b's FFN (random params
+    from the seed, on the card) over TRAIN_BATCH x TRAIN_SEQ tokens with
+    ample capacity, against `apply_moe_dense_fallback` (every expert on
+    every token): max |diff| over max |dense|, held to 2**-5 (4 bf16
+    ulps: the dispatched path sums a token's k rows in f32 and rounds once,
+    the dense one contracts all E experts' rows, the unrouted ones at
+    weight 0, in one bf16 product); each path timed by CUDA events."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.layers import tree_init
+    cfg = _moe_cfg(1, ample=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    p = tree_init(moe.moe_defs(cfg), gen, "cuda")
+    x = torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model, generator=gen, device="cuda",
+                    dtype=torch.float32).to(torch.bfloat16)
+    with torch.no_grad():
+        (y, aux), dropped = _moe_dropped(moe.apply_moe, cfg, p, x)
+        dense = moe.apply_moe_dense_fallback(cfg, p, x)
+        err = float((y.float() - dense.float()).abs().max())
+        top = float(dense.float().abs().max())
+        ms = time_ms(lambda: moe.apply_moe(cfg, p, x), 5)
+        dense_ms = time_ms(lambda: moe.apply_moe_dense_fallback(cfg, p, x), 3)
+    return {"tokens": TRAIN_BATCH * TRAIN_SEQ, "capacity_factor": cfg.moe_capacity_factor,
+            "capacity": moe._capacity(cfg, TRAIN_BATCH * TRAIN_SEQ), "dropped": dropped,
+            "aux": float(aux), "max_abs_err": err, "max_abs_dense": top,
+            "err_over_max": err / top, "tol_over_max": 2.0 ** -5,
+            "dispatched_ms": ms, "dense_ms": dense_ms}
+
+
+def _moe_calls(model):
+    """Count the serve calls a run makes: {"prefill_chunk", "decode_slots"},
+    each wrapped on the model."""
+    counts = {"prefill_chunk": 0, "decode_slots": 0}
+    for name in counts:
+        fn = getattr(model, name)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            counts[_name] += 1
+            return _fn(*a, **k)
+        setattr(model, name, counted)
+    return counts
+
+
+def _moe_serve(model, params, checked, *, requests=REQUESTS, gen=GEN, preempt_at=None,
+               plan=None):
+    """Serve `requests` of the trace's prompts (PROMPT tokens, `gen` greedy
+    tokens) on SLOTS slots, a preemption at tick `preempt_at` if given,
+    under `plan` if given, counts reset just before and read just after.
+    -> (facts, tokens, rows)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.lms import offload as off
+    from repro_torch.models import moe
+    from repro_torch.runtime.inject import FaultEvent, FaultInjector, FaultPlan
+    from repro_torch.serve import ServeEngine, synth_requests
+    inj = (FaultInjector(FaultPlan([FaultEvent("engine.tick", at=preempt_at, kind="preempt")]))
+           if preempt_at is not None else None)
+    calls_made = _moe_calls(model)
+    eng = ServeEngine(model, slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, prefill_chunk=CHUNK,
+                      device_pages=DEVICE_PAGES, host_pages=2 * SLOTS * (MAX_LEN // PAGE),
+                      params=params, plan=plan, injector=inj, device="cuda")
+    rows = {}
+    select = eng._select
+
+    def record(req, row):
+        rows.setdefault(req.rid, []).append(row.copy())
+        return select(req, row)
+    eng._select = record
+    reqs = synth_requests(model.cfg, requests, PROMPT, gen, np.random.default_rng(SEED))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = off.swap_counters()
+    moe.reset_dropped()
+    try:
+        with launch_signatures() as (seen, calls, launches):
+            t0 = time.monotonic()
+            eng.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+    finally:
+        for name in calls_made:
+            delattr(model, name)
+        del eng._select
+    dropped = moe.dropped()
+    moved = off.swap_counters().get("lms.swap_in_bytes.params", 0) - before.get(
+        "lms.swap_in_bytes.params", 0)
+    m = eng.metrics()
+    L = model.cfg.num_layers
+    model_calls = calls_made["prefill_chunk"] + calls_made["decode_slots"]
+    facts = {"layers": L, "requests": requests, "gen": gen, "run_s": wall,
+             "decode_tok_s": m["decode_tok_s"], "ticks": m["ticks"],
+             "tpot_p50_s": m.get("tpot_p50_s"), "ttft_mean_s": m.get("ttft_mean_s"),
+             "calls": calls_made, "dropped": dropped, "peak_bytes":
+             torch.cuda.max_memory_allocated() - base, "swap_in_bytes_params": moved,
+             "preempted_requests": eng.pool.stats["preempted_requests"],
+             "spilled_pages": m["pool_spilled_pages"], "launches": launches,
+             "pool_invariants": _pool_invariants(eng),
+             "unchecked": sorted(map(str, seen - checked)),
+             "checks": {
+                 "all_ok": all(r.status == "ok" and len(r.tokens) == gen for r in reqs),
+                 "finite": all(np.isfinite(r).all() for v in rows.values() for r in v),
+                 "decode_launches": launches["flash_decode_paged"]
+                 == L * calls_made["decode_slots"]
+                 and launches["flash_decode_paged_tensor_core"] == launches["flash_decode_paged"],
+                 "rmsnorm_launches": launches["rmsnorm"] == (2 * L + 1) * model_calls,
+                 "every_launch_recorded": calls == launches,
+                 "every_launch_shape_checked": not (seen - checked)}}
+    if preempt_at is not None:
+        facts["checks"]["preempted"] = facts["preempted_requests"] >= 1
+    if plan is not None:
+        facts["swap_in_bytes_predicted"] = (calls_made["prefill_chunk"] * _sweep_bytes(params, CHUNK)
+                                            + calls_made["decode_slots"]
+                                            * _sweep_bytes(params, SLOTS))
+    del eng
+    return facts, {r.rid: list(r.tokens) for r in reqs}, rows
+
+
+def _same_rows(a, b) -> bool:
+    import numpy as np
+    return a.keys() == b.keys() and all(
+        len(a[k]) == len(b[k]) and all(np.array_equal(x, y) for x, y in zip(a[k], b[k]))
+        for k in a)
+
+
+def _moe_plan(cfg, budget: int):
+    """The serve plan of the trace's shape at `cfg` under `budget`."""
+    from repro_torch.config.base import LMSConfig, MeshSpec, ShapeConfig
+    from repro_torch.core.lms.planner import PlanRequest, plan
+    return plan(PlanRequest(cfg=cfg, shape=ShapeConfig("serve", "decode", MAX_LEN, SLOTS),
+                            mesh=MeshSpec((1, 1), ("data", "model")),
+                            lms=LMSConfig(hbm_budget=budget), serve=True, slots=SLOTS,
+                            backlog_slots=2 * SLOTS, page_size=PAGE))
+
+
+def _moe_planned_pair(model, params, checked, budget: int):
+    """The short trace (MOE_PLAN_REQUESTS requests, MOE_PLAN_GEN tokens, a
+    preemption at MOE_PLAN_PREEMPT_TICK) resident, then the params placed
+    as the serve plan of `budget` says (the resident copy freed first) and
+    the same trace under it. -> {"resident", "planned", "plan", ...}."""
+    import gc
+    import torch
+    from repro_torch.core.lms import offload as off
+    from repro_torch.train.steps import place_params
+    plan = _moe_plan(model.cfg, budget)
+    kw = dict(requests=MOE_PLAN_REQUESTS, gen=MOE_PLAN_GEN, preempt_at=MOE_PLAN_PREEMPT_TICK)
+    res, res_toks, res_rows = _moe_serve(model, params, checked, **kw)
+    t0 = time.monotonic()
+    placed = place_params(params, plan, "cuda")
+    torch.cuda.synchronize()
+    place_s = time.monotonic() - t0
+    params.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    pl, toks, rows = _moe_serve(model, placed, checked, plan=plan, **kw)
+    pl["tokens_bitwise"] = toks == res_toks
+    pl["logits_bitwise"] = _same_rows(rows, res_rows)
+    bound = SERVE_PLAN_PEAK_OVER_PLAN * plan.peak_bytes
+    pl["checks"].update({
+        "params_on_host": plan.residency.get("params") == "host",
+        "tokens_bitwise": pl["tokens_bitwise"], "logits_bitwise": pl["logits_bitwise"],
+        "dropped_as_resident": pl["dropped"] == res["dropped"],
+        "swap_bytes_exact": pl["swap_in_bytes_params"] == pl["swap_in_bytes_predicted"],
+        "peak_within_plan": pl["peak_bytes"] <= bound})
+    out = {"plan": _plan_row(plan), "place_s": place_s, "pinned_bytes": off.pinned_bytes(),
+           "resident": res, "planned": pl}
+    del placed
+    off.release_arenas()
+    return out
+
+
+def _moe_pinned_bytes() -> int:
+    """The largest pinned state of the moe phase: the training's at
+    MOE_TRAIN_LAYERS layer (params and AdamW state, `_state_layout`), or the
+    serve params of MOE_SERVE_LAYERS or MOE_GROK_LAYERS layers."""
+    from repro_torch.models.layers import DTYPES
+    from repro_torch.models.model import Model
+    from repro_torch.train import steps as steps_mod
+
+    def paths(cfg):
+        return [(path, d.shape, DTYPES[d.dtype])
+                for path, d in steps_mod._def_paths(Model(cfg).param_defs())]
+    train = steps_mod._state_layout(paths(_moe_cfg(MOE_TRAIN_LAYERS)), "adamw", True, True)[0]
+    serve = [sum(steps_mod._leaf_bytes(shape, dt) for _, shape, dt in paths(cfg))
+             for cfg in (_moe_cfg(MOE_SERVE_LAYERS), _moe_cfg(MOE_GROK_LAYERS, arch=MOE_GROK))]
+    return max([train] + serve)
+
+
+def _moe_static(model, params, checked):
+    """`run_static` on MOE_STATIC_REQUESTS prompts of MOE_STATIC_PROMPT
+    tokens, MOE_STATIC_GEN new tokens each, through the prefill kernel,
+    counts reset just before and read just after."""
+    import numpy as np
+    from repro_torch.launch.serve import run_static
+    from repro_torch.models import moe
+    from repro_torch.serve import synth_requests
+    n, p, g = MOE_STATIC_REQUESTS, MOE_STATIC_PROMPT, MOE_STATIC_GEN
+    reqs = synth_requests(model.cfg, n, p, g, np.random.default_rng(SEED))
+    moe.reset_dropped()
+    with launch_signatures() as (seen, calls, launches):
+        _, toks, t = run_static(model, reqs, p, g, params=params, device="cuda")
+    L = model.cfg.num_layers
+    return {"requests": n, "prompt": p, "gen": g, "timings": t, "dropped": moe.dropped(),
+            "launches": launches, "unchecked": sorted(map(str, seen - checked)),
+            "checks": {
+                "tokens": toks.shape == (n, g) and bool((toks >= 0).all()),
+                "attention_launches": launches["flash_attention"] == L
+                and launches["flash_attention_wgmma"] == L,
+                "decode_launches": launches["flash_decode"] == L * (g - 1)
+                and launches["flash_decode_tensor_core"] == L * (g - 1),
+                "rmsnorm_launches": launches["rmsnorm"] == (2 * L + 1) * g,
+                "every_launch_recorded": calls == launches,
+                "every_launch_shape_checked": not (seen - checked)}}
+
+
+def _moe_train_runs(checked):
+    """MOE_TRAIN_LAYERS layer of qwen3-moe-235b-a22b, MOE_TRAIN_STEPS steps
+    of TRAIN_BATCH x TRAIN_SEQ tokens, `Trainer.train` resident and under
+    the plan of LMSConfig(hbm_budget=MOE_BUDGET) (params and AdamW state
+    streamed from pinned memory, six activation classes offloaded): losses,
+    grad norms and aux bitwise, the state's checksums (params, mu, nu,
+    masters) bitwise; the swap bytes a step exactly the count: the stack in
+    twice, the rest once, every param out once, the optimizer in and out
+    once, and each offloaded activation out and in once (the bytes the
+    policy tagged for offload, `lms.offload_bytes.*`); RMSNorm as the plan
+    implies; the peak within 1.10 x the plan's."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.config.base import LMSConfig
+    from repro_torch.core.lms import offload as off
+    from repro_torch.obs import get_obs
+    L, n = MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS
+    base = _train_config(L, arch=MOE, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                         total_steps=n)
+    runs = {}
+    for name, lms in (("resident", LMSConfig(enabled=False)),
+                      ("streamed", LMSConfig(hbm_budget=MOE_BUDGET))):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        reg = get_obs().registry
+
+        def offloaded():
+            return {k: reg.counter(k).value for k in reg.names()
+                    if k.startswith("lms.offload_bytes.")}
+        offl = offloaded()
+        (trainer, state, hist, facts), dropped = _moe_dropped(
+            _lms_run, dataclasses.replace(base, lms=lms), n)
+        offl = {k: (v - offl.get(k, 0)) / n for k, v in offloaded().items()}
+        plan = trainer.plan
+        o = state.opt
+        sums = {"params": _checksums(state.params), "mu": _checksums(o.mu),
+                "nu": _checksums(o.nu), "master": _checksums(o.master)}
+        launches = facts["launches"]
+        swap = {k: v for k, v in facts["swap_per_step"].items() if "_bytes." in k and v}
+        row = {"plan": _plan_row(plan), "loss": [r["loss"] for r in hist],
+               "ce": [r["ce"] for r in hist], "aux": [r["aux"] for r in hist],
+               "grad_norm": [r["grad_norm"] for r in hist],
+               "step_s": [r["time_s"] for r in hist],
+               "median_step_s_after_1": statistics.median(r["time_s"] for r in hist[1:]),
+               "setup_s": facts["setup_s"], "allocated_before_bytes": before,
+               "max_memory_allocated_bytes": facts["peak_bytes"] - before,
+               "pinned_bytes": facts["pinned_bytes"], "swap_per_step": swap,
+               "dropped": dropped, "launches": launches, "checksums": sums,
+               "offload_bytes_per_step": offl,
+               "checks": {"finite": all(math.isfinite(r["loss"]) for r in hist),
+                          "aux_positive": all(r["aux"] > 0 for r in hist),
+                          "rmsnorm_launches": launches["rmsnorm"]
+                          == n * _implied_rmsnorm_launches(plan, L),
+                          "no_other_launches": all(v == 0 for k, v in launches.items()
+                                                   if not k.startswith("rmsnorm")),
+                          "every_launch_recorded": facts["calls"] == launches,
+                          "every_launch_shape_checked": not (facts["seen"] - checked)}}
+        if plan is not None:
+            p = state.params
+            stack = off.tree_bytes(p["decoder"]["stack0"])
+            opt = sum(off.tree_bytes(t) for t in (o.mu, o.nu, o.master))
+            acts = sum(offl.values())
+            row["swap_per_step_count"] = {
+                "lms.swap_in_bytes.params": 2 * stack + off.tree_bytes(p["embed"]["lm_head"])
+                + off.tree_bytes(p["final_norm"]) + TRAIN_BATCH * TRAIN_SEQ
+                * base.model.d_model * 4,
+                "lms.swap_out_bytes.params": off.tree_bytes(p),
+                "lms.swap_in_bytes.optimizer": opt, "lms.swap_out_bytes.optimizer": opt,
+                "lms.swap_in_bytes.activations": acts, "lms.swap_out_bytes.activations": acts}
+        runs[name] = row
+        del trainer, state, hist, o
+        torch.cuda.empty_cache()
+        off.release_arenas()
+    return runs
+
+
+def _moe_rank(rank: int, world: int, line, checked):
+    """The moe phase's runs, in a process of its own on the card (its
+    pinned memory goes back to the host when it exits). -> the rows'
+    facts."""
+    import gc
+    import threading
+    import torch
+    from repro_torch.core.lms import offload as off
+    from repro_torch.models.model import Model
+    out = {}
+    pinned = {"bytes": _moe_pinned_bytes()}
+
+    def reserve():
+        t = time.monotonic()
+        try:
+            off.reserve_pinned(pinned["bytes"], "cuda")
+        except BaseException as e:  # re-raised by the main thread after the join
+            pinned["error"] = e
+        pinned["seconds"] = time.monotonic() - t
+    reserving = threading.Thread(target=reserve)
+    reserving.start()
+    out["pinned"] = pinned
+    t0 = time.monotonic()
+    out["layer"] = _moe_layer_run()
+    out["layer"]["seconds"] = time.monotonic() - t0
+    # 2 layers, every token routed to every expert: the engine against the
+    # dense pass. Top-k routing is discontinuous: where a token's k-th and
+    # (k+1)-th router probabilities lie closer than the two passes' bf16
+    # differences, they pick another expert and the row moves by a share of
+    # the layer's output (top-8 of 128 at this width: the worst row 0.37 of
+    # its max |logit| off the dense pass, an argmax flip at a wide margin in
+    # int8); with k = E (and capacity for all) the layer is continuous and
+    # the rows are held to the bounds
+    t0 = time.monotonic()
+    model = Model(_moe_cfg(MOE_CHECK_LAYERS, every=True), attn_impl="blockwise")
+    params = model.init(SEED, "cuda")
+    (row, _), dropped = _moe_dropped(engine_phase, model, params, "model", line, checked,
+                                     dense_tol=2.0 ** -5)
+    (row8, _), dropped8 = _moe_dropped(engine_phase, model, params, "int8", line, checked,
+                                       dense_tol=2.0 ** -4)
+    out["check"] = {"dropped": dropped, "dropped_int8": dropped8,
+                    "decode_launches": row["decode_launches"],
+                    "int8_decode_launches": row8["decode_launches"],
+                    "quantize_kv_write_launches": row8["quantize_kv_write_launches"],
+                    "quantize_launches": row8["quantize_launches"],
+                    "dense": row["dense"], "dense_int8": row8["dense"],
+                    "seconds": time.monotonic() - t0}
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # MOE_SERVE_LAYERS layers at the published capacity factor
+    t0 = time.monotonic()
+    model = Model(_moe_cfg(MOE_SERVE_LAYERS), attn_impl="blockwise")
+    params = model.init(SEED, "cuda")
+    torch.cuda.synchronize()
+    out["init_s"] = time.monotonic() - t0
+    out["engine"], _, _ = _moe_serve(model, params, checked, preempt_at=MOE_PREEMPT_TICK)
+    out["static"] = _moe_static(Model(model.cfg, attn_impl="pallas"), params, checked)
+    reserving.join()
+    if "error" in pinned:
+        raise pinned.pop("error")
+    out["serve_plan"] = _moe_planned_pair(model, params, checked, MOE_BUDGET)
+    out["serve_s"] = time.monotonic() - t0
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # grok-1-314b at MOE_GROK_LAYERS layers
+    t0 = time.monotonic()
+    model = Model(_moe_cfg(MOE_GROK_LAYERS, arch=MOE_GROK), attn_impl="blockwise")
+    params = model.init(SEED, "cuda")
+    out["grok"] = _moe_planned_pair(model, params, checked, MOE_GROK_BUDGET)
+    out["grok"]["seconds"] = time.monotonic() - t0
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    out["train"] = _moe_train_runs(checked)
+    out["train_s"] = time.monotonic() - t0
+    return out
+
+
+def moe_phase(line, checked):
+    """The MoE family at published width, in a process spawned on the card
+    (`_moe_rank`). Rows: moe_layer, moe_serve, moe_train, moe_grok (see
+    MOE's comment). -> {kernel: launches on the MoE path}."""
+    t0 = time.monotonic()
+    got = spawn_ranks("_moe_rank", 1, line, checked, timeout=MOE_TIMEOUT_S)[0]
+    lay = got["layer"]
+    emit({"phase": "moe_layer", "arch": MOE, "card": line, **lay,
+          "checks": {"within_2**-5": lay["err_over_max"] <= lay["tol_over_max"],
+                     "nothing_dropped": lay["dropped"] == 0,
+                     "aux_positive": lay["aux"] > 0}})
+    eng, st, sp, chk = got["engine"], got["static"], got["serve_plan"], got["check"]
+    checks = {"check_nothing_dropped": chk["dropped"] == 0 and chk["dropped_int8"] == 0}
+    checks.update({f"engine_{k}": v for k, v in eng["checks"].items()})
+    checks.update({f"static_{k}": v for k, v in st["checks"].items()})
+    checks.update({f"plan_resident_{k}": v for k, v in sp["resident"]["checks"].items()})
+    checks.update({f"plan_{k}": v for k, v in sp["planned"]["checks"].items()})
+    checks["engine_pool_invariants"] = eng["pool_invariants"]
+    emit({"phase": "moe_serve", "arch": MOE, "card": line, "layers": MOE_SERVE_LAYERS,
+          "check_layers": MOE_CHECK_LAYERS, "requests": REQUESTS, "prompt": PROMPT,
+          "gen": GEN, "slots": SLOTS, "hbm_budget": MOE_BUDGET, "init_s": got["init_s"],
+          "pinned": got["pinned"],
+          "check": chk, "engine": eng, "static": st, "serve_plan": sp,
+          "seconds": got["serve_s"], "checks": checks})
+    tr = got["train"]
+    s, r = tr["streamed"], tr["resident"]
+    tchecks = {f"streamed_{k}": v for k, v in s["checks"].items()}
+    tchecks.update({f"resident_{k}": v for k, v in r["checks"].items()})
+    tchecks.update({
+        "plan_streams_params_and_optimizer": s["plan"]["residency"].get("params") == "host"
+        and s["plan"]["residency"].get("optimizer") == "host",
+        "loss_bitwise": s["loss"] == r["loss"], "aux_bitwise": s["aux"] == r["aux"],
+        "grad_norm_bitwise": s["grad_norm"] == r["grad_norm"],
+        "state_bitwise": s["checksums"] == r["checksums"],
+        "swap_bytes_exact": all(s["swap_per_step"].get(k, 0) == v
+                                for k, v in s["swap_per_step_count"].items())
+        and set(s["swap_per_step"]) <= set(s["swap_per_step_count"]),
+        "peak_within_plan": s["max_memory_allocated_bytes"]
+        <= SERVE_PLAN_PEAK_OVER_PLAN * s["plan"]["peak_bytes"]})
+    emit({"phase": "moe_train", "arch": MOE, "card": line, "layers": MOE_TRAIN_LAYERS,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": MOE_TRAIN_STEPS,
+          "hbm_budget": MOE_BUDGET, **tr,
+          "overhead": s["median_step_s_after_1"] / r["median_step_s_after_1"] - 1,
+          "peak_vs_plan": {"measured": s["max_memory_allocated_bytes"],
+                           "plan": s["plan"]["peak_bytes"],
+                           "ratio": s["max_memory_allocated_bytes"] / s["plan"]["peak_bytes"]},
+          "seconds": got["train_s"], "checks": tchecks})
+    gk = got["grok"]
+    gchecks = {f"resident_{k}": v for k, v in gk["resident"]["checks"].items()}
+    gchecks.update({f"planned_{k}": v for k, v in gk["planned"]["checks"].items()})
+    emit({"phase": "moe_grok", "arch": MOE_GROK, "card": line, "layers": MOE_GROK_LAYERS,
+          "hbm_budget": MOE_GROK_BUDGET, **gk, "checks": gchecks})
+    failed = [k for c in (checks, tchecks, gchecks) for k, v in c.items() if not v]
+    lay_ok = lay["err_over_max"] <= lay["tol_over_max"] and lay["dropped"] == 0
+    if failed or not lay_ok:
+        raise AssertionError(f"moe: failed checks {failed}, layer ok {lay_ok}")
+    launches = {
+        "flash_attention_fwd_wgmma": st["launches"]["flash_attention_wgmma"],
+        "flash_decode_bf16": st["launches"]["flash_decode"],
+        "flash_decode_paged_bf16": eng["launches"]["flash_decode_paged"],
+        "flash_decode_paged_int8": chk["int8_decode_launches"],
+        "quantize_rows": chk["quantize_launches"],
+        "quantize_kv_write": chk["quantize_kv_write_launches"],
+        "rmsnorm": eng["launches"]["rmsnorm"] + st["launches"]["rmsnorm"]
+        + r["launches"]["rmsnorm"]}
+    emit({"phase": "moe_launches", "card": line, "launches": launches,
+          "seconds": time.monotonic() - t0})
+    return launches
 
 
 def main() -> int:
@@ -6698,6 +7283,11 @@ def main() -> int:
     timed(ddl_sharded_smoke_phase, line, checked, smoke_reference, sharded_smoke)
     timed(lms_ddl_phase, line, checked, ddl_row)
     timed(ckpt_phase, line, checked)
+    # the MoE runs pin up to ~46 GB in a child of their own; the LMS phases
+    # after them size their depth from what the host has back
+    avail = _mem_row()["MemAvailable"]
+    moe_launches = timed(moe_phase, line, checked)
+    _await_mem_available(avail - LMS_DDL_MEM_SLACK, LMS_DDL_MEM_WAIT_S)
     timed(lms_phases, line, checked)
 
     decode_kernel = "src/repro/kernels/flash_attention/decode_kernel.py"
@@ -6777,7 +7367,8 @@ def main() -> int:
                     "max_abs_err": max(r["max_abs_err"] for r in phase_rows),
                     "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
                     "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-                    "library_ms": main_row["library_ms"]})
+                    "library_ms": main_row["library_ms"],
+                    "moe_launches": moe_launches.get(name, 0)})
     emit({"phase": "seconds", "of": "chip_smoke", "seconds": time.monotonic() - started})
     emit({"phase": "sass_summary", "kernel": "fa_wgmma_kernel",
           "hgmma_total": sass_row["hgmma_total"], "hgmma": sass_row["hgmma"],

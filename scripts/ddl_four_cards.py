@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """DDL across four H100s of one host: one rank a card over NCCL, the
-port's data-parallel training of qwen2.5-14b and olmo-1b at their
-published widths.
+port's data-parallel training of qwen2.5-14b, olmo-1b and
+qwen3-moe-235b-a22b at their published widths.
 
     python3 scripts/ddl_four_cards.py                # from the repo root
-    python3 scripts/ddl_four_cards.py --phases c,e   # some of the phases
+    python3 scripts/ddl_four_cards.py --phases c,f   # some of the phases
 
 Needs a machine with 4 cards: it raises unless torch.cuda.device_count()
 >= 4. It prints each card's `nvidia-smi --query-gpu=name,power.limit`
@@ -40,7 +40,11 @@ row a phase (the whole rows also go to chiprun_out/ddl_four_cards.json).
     fits 80% of MemAvailable and whose plan puts the optimizer on the
     host. Held: replicas in sync, finite losses, the optimizer's bytes a
     rank exactly 12 x padded / 4, each rank's peak at most 1.10 x the
-    plan's (phase 3 gathers a stacked leaf a layer at a time).
+    plan's (phase 3 gathers a stacked leaf a layer at a time). Each rank
+    also records the allocator's peak by phase of each step
+    (`phase_peaks`: reset and read at the cross-entropy's entry and exit,
+    at the end of its backward, at the end of the backward, before the
+    update, and around phase 3, `_zero1_params_from`).
 (d) The smoke config on the 2x2x1 mesh: the overlapped backward off and
     on x compression off and on, each overlapped run also inline, against
     one rank on the global batch: loss within 5e-3 relative, grad norm
@@ -53,6 +57,13 @@ row a phase (the whole rows also go to chiprun_out/ddl_four_cards.json).
     5e-3 relative, grad norm within 2e-2 ((d)'s tolerances); replicas in
     sync; the pod hop's launches as olmo-1b's leaf sizes imply, no RMSNorm
     launch.
+(f) qwen3-moe-235b-a22b at 2 layers (128 experts, top-8), zero1 on the
+    1x4x1 mesh, resident, then under LMSConfig(hbm_budget=16e9) (the
+    params and the flat optimizer shard in pinned host memory; the plan's
+    peak and the ranks' peaks by phase recorded). Held: the two runs
+    bitwise on every rank (losses, grad norms, aux, the params' checksums
+    after each step, the shard's at the end), replicas in sync, finite
+    losses, aux > 0.
 
 A phase whose depth the host cannot hold at 1 layer raises with the
 numbers. Any failed check raises; the script then exits non-zero and
@@ -84,13 +95,95 @@ RESIDENT_DEPTHS = (1, 2, 3, 4)
 # (activations of one 2048-token row, the reductions' f32 work buffers)
 RESIDENT_ALLOWANCE = 12 * 10**9
 MAX_LAYERS = 48
-TIMEOUT_S = {"ad": 600, "b": 900, "c": 900, "e": 600}
+TIMEOUT_S = {"ad": 600, "b": 900, "c": 900, "e": 600, "f": 900}
 # (c): each rank's measured peak against its plan's
 PEAK_OVER_PLAN = 1.10
 # (e): olmo-1b at its full depth, resident on MESH_A and zero1 on MESH_C
 OLMO = "olmo-1b"
 OUT = os.path.join(ROOT, "chiprun_out", "ddl_four_cards.json")
 LAUNCH_KEYS = ("quantize_rows", "dequantize_rows", "dequantize_sum_rows", "rmsnorm")
+# (f): the MoE decoder at MOE_LAYERS layers
+MOE, MOE_LAYERS = "qwen3-moe-235b-a22b", 2
+
+
+class _PhasePeaks:
+    """The allocator's peak by phase of a train step: `mark(name)` records
+    the peak since the last mark under `name` (the largest over the steps
+    in `peaks`, each step's in `rows`) and resets it; `overall` is the
+    largest peak of all. Phases, in a step's order: "forward" (from the
+    last step's end to the cross-entropy), "loss" (its forward),
+    "loss_backward" (its backward), "backward" (the rest of the backward),
+    "reduction" (to the update: the shard's reductions, the norm),
+    "update", "phase3" (`_zero1_params_from`)."""
+
+    def __init__(self):
+        self.rows, self.peaks, self.overall, self.row = [], {}, 0, {}
+
+    def mark(self, name):
+        import torch
+        peak = torch.cuda.max_memory_allocated()
+        self.overall = max(self.overall, peak)
+        self.peaks[name] = max(self.peaks.get(name, 0), peak)
+        self.row[name] = max(self.row.get(name, 0), peak)
+        if name == "phase3":
+            self.rows.append(self.row)
+            self.row = {}
+        torch.cuda.reset_peak_memory_stats()
+
+
+@contextlib.contextmanager
+def _phase_peaks():
+    """Record `_PhasePeaks` for the train steps run inside the block (the
+    zero1 step's functions wrapped where they are looked up)."""
+    import torch
+    from repro_torch.models import model as model_mod
+    from repro_torch.train import steps as steps_mod
+    rec = _PhasePeaks()
+
+    class Mark(torch.autograd.Function):
+        """An identity on the logits whose backward marks "loss_backward":
+        the cross-entropy's backward is done when the logits' grad reaches
+        it."""
+
+        @staticmethod
+        def forward(ctx, x):
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            rec.mark("loss_backward")
+            return g
+    saved = (model_mod.cross_entropy, steps_mod._sunk_loss_and_grads,
+             steps_mod._before_update, steps_mod._zero1_params_from)
+    ce, sunk, before, phase3 = saved
+
+    def ce_marked(logits, labels, *a, **k):
+        rec.mark("forward")
+        out = ce(Mark.apply(logits), labels, *a, **k)
+        rec.mark("loss")
+        return out
+
+    def sunk_marked(*a, **k):
+        out = sunk(*a, **k)
+        rec.mark("backward")
+        return out
+
+    def before_marked(*a, **k):
+        rec.mark("reduction")
+        return before(*a, **k)
+
+    def phase3_marked(*a, **k):
+        rec.mark("update")
+        out = phase3(*a, **k)
+        rec.mark("phase3")
+        return out
+    (model_mod.cross_entropy, steps_mod._sunk_loss_and_grads, steps_mod._before_update,
+     steps_mod._zero1_params_from) = ce_marked, sunk_marked, before_marked, phase3_marked
+    try:
+        yield rec
+    finally:
+        (model_mod.cross_entropy, steps_mod._sunk_loss_and_grads, steps_mod._before_update,
+         steps_mod._zero1_params_from) = saved
 
 
 # ---------------------------------------------------------------------------
@@ -185,7 +278,8 @@ def _switch_interval(seconds: float):
         sys.setswitchinterval(saved)
 
 
-def _train(tcfg, *, inline: bool = False, steps: int = STEPS, around=None):
+def _train(tcfg, *, inline: bool = False, steps: int = STEPS, around=None,
+           peaks: bool = False):
     """One rank's `Trainer` for `steps` steps: the state set up (timed),
     then each step's loss, grad norm, time (synced), the params' checksums
     and whether they agree across the ranks, the kernels' launches, the
@@ -193,13 +287,14 @@ def _train(tcfg, *, inline: bool = False, steps: int = STEPS, around=None):
     stack's reductions (CUDA events around each layer's, on the stream it
     ran on) and of the rest's tree pass; at the end the optimizer state's
     checksums. inline: the queue's reductions issued in the backward;
-    around: a context manager the Trainer is built and run inside. ->
+    around: a context manager the Trainer is built and run inside; peaks:
+    the peak by phase of each step recorded (`_phase_peaks`). ->
     {"plan", "rows", "facts"}."""
     with around if around is not None else contextlib.nullcontext():
-        return _train_in(tcfg, inline, steps)
+        return _train_in(tcfg, inline, steps, peaks)
 
 
-def _train_in(tcfg, inline: bool, steps: int):
+def _train_in(tcfg, inline: bool, steps: int, peaks: bool = False):
     import torch
     from repro_torch.core.ddl import overlap
     from repro_torch.core.lms import offload as off
@@ -257,7 +352,7 @@ def _train_in(tcfg, inline: bool, steps: int):
         sums.append(cs._checksums(params))
         in_sync.append(cs._same_on_all_ranks(sums[-1]))
         rows.append({"step": step, "loss": row["loss"], "grad_norm": row["grad_norm"],
-                     "time_s": row["time_s"], "checksums": sums[-1],
+                     "aux": row["aux"], "time_s": row["time_s"], "checksums": sums[-1],
                      "launches": {k: launchers[k].launches for k in LAUNCH_KEYS},
                      "swap": swap, "stack_reduce_ms": ms["stack"],
                      "stack_reductions": layers_reduced, "tree_pass_ms": ms["tree"],
@@ -270,12 +365,17 @@ def _train_in(tcfg, inline: bool, steps: int):
         with contextlib.ExitStack() as stack:
             if inline:
                 stack.enter_context(cs._inline_reductions())
+            rec = stack.enter_context(_phase_peaks()) if peaks else None
             state, _ = trainer.train(steps, on_step=on_step)
     finally:
         overlap.reduce_tree_bucketed, steps_mod.ddl_reduce_tree = saved
     opt_sums = cs._checksums(_opt_tree(state))
     layout = getattr(trainer.step_fn, "layout", None)
-    facts = {"setup_s": setup_s, "peak_bytes": torch.cuda.max_memory_allocated(),
+    peak = torch.cuda.max_memory_allocated()
+    if rec is not None:
+        peak = max(peak, rec.overall)
+    facts = {"setup_s": setup_s, "peak_bytes": peak,
+             "phase_peaks": rec.rows if rec is not None else None,
              "pinned_bytes": off.pinned_bytes(), "in_sync": in_sync,
              "init_checksums": sums[0], "opt_checksums": opt_sums,
              "opt_in_sync": None if zero1 else cs._same_on_all_ranks(opt_sums),
@@ -305,11 +405,13 @@ def _resident_config(layers: int, overlap: bool):
                           batch=BATCH, log_every=1)
 
 
-def _zero1_config(layers: int):
+def _zero1_config(layers: int, arch: str = cs.ARCH, lms: bool = True):
     import dataclasses
     from repro_torch.config.base import DDLConfig, LMSConfig
     tcfg = cs._ddl_config(layers, MESH_C, ddl=DDLConfig(mode="zero1"), batch=BATCH,
-                          log_every=1)
+                          log_every=1, arch=arch)
+    if not lms:
+        return tcfg
     return dataclasses.replace(tcfg, lms=LMSConfig(hbm_budget=cs.LMS_DDL_BUDGET))
 
 
@@ -328,7 +430,7 @@ def _resident_bytes(layers: int) -> int:
     return total
 
 
-def _zero1_sizing(layers: int):
+def _zero1_sizing(layers: int, arch: str = cs.ARCH):
     """-> (the plan of (c) at `layers`, a rank's pinned bytes under it, or
     None where the plan keeps the optimizer on the device with the params
     on the host: not ported). The bytes: the stack's params when they
@@ -340,7 +442,7 @@ def _zero1_sizing(layers: int):
     from repro_torch.models.layers import DTYPES
     from repro_torch.models.model import Model
     from repro_torch.train import steps as steps_mod
-    tcfg = _zero1_config(layers)
+    tcfg = _zero1_config(layers, arch)
     model = Model(tcfg.model)
     plan = plan_lms(PlanRequest(cfg=tcfg.model, shape=tcfg.shape, mesh=tcfg.mesh, lms=tcfg.lms,
                                 optimizer=tcfg.optimizer, zero1=True,
@@ -409,7 +511,20 @@ def _zero1_rank(rank: int, world: int, layers: int, pinned: int):
     t0 = time.monotonic()
     off.reserve_pinned(pinned, "cuda")
     return {"rank": rank, "pinned": {"bytes": pinned, "seconds": time.monotonic() - t0},
-            "run": _train(_zero1_config(layers))}
+            "run": _train(_zero1_config(layers), peaks=True)}
+
+
+def _moe_rank(rank: int, world: int, layers: int, pinned: int):
+    """(f): zero1 resident, then the arena reserved at `pinned` bytes and
+    zero1 under the plan, with the peaks by phase."""
+    from repro_torch.core.lms import offload as off
+    out = {"rank": rank, "resident": _train(_zero1_config(layers, MOE, lms=False),
+                                            peaks=True)}
+    t0 = time.monotonic()
+    off.reserve_pinned(pinned, "cuda")
+    out["pinned"] = {"bytes": pinned, "seconds": time.monotonic() - t0}
+    out["planned"] = _train(_zero1_config(layers, MOE), peaks=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -667,10 +782,47 @@ def phase_c(line, rows_out):
           "opt_bytes_expected": 12 * padded // MESH_C[1] if padded else None,
           "sized_bytes": sized, "arena": [r["pinned"] for r in ranks],
           "run": _run_summary(ranks, lambda r: r["run"], cfg, line),
+          "phase_peaks": [r["run"]["facts"]["phase_peaks"] for r in ranks],
           "meminfo_before": mem, "meminfo_after": after,
           "mem_available_returning": returned[-1:], "seconds": seconds,
           "checks": checks}, rows_out)
     _fail("(c)", checks)
+
+
+def phase_f(line, rows_out):
+    """(f) qwen3-moe-235b-a22b at MOE_LAYERS layers: zero1 on 1x4x1,
+    resident and under the plan, bitwise."""
+    plan, pinned = _zero1_sizing(MOE_LAYERS, MOE)
+    if pinned is None:
+        raise AssertionError(f"(f): the plan keeps the optimizer on the device: "
+                             f"{plan.residency}")
+    mem = _host_room("(f)", WORLD * pinned)
+    cfg = _zero1_config(MOE_LAYERS, MOE).model
+    t0 = time.monotonic()
+    ranks = spawn_ranks("_moe_rank", MOE_LAYERS, pinned, timeout=TIMEOUT_S["f"])
+    seconds = time.monotonic() - t0
+    runs = {m: (lambda r, m=m: r[m]) for m in ("resident", "planned")}
+    pl = ranks[0]["planned"]
+    checks = {
+        "plan_params_and_optimizer_on_host": pl["plan"]["residency"]["params"] == "host"
+        and pl["plan"]["residency"]["optimizer"] == "host",
+        "optimizer_on_host": all(r["planned"]["facts"]["opt_on_host"] for r in ranks),
+        "planned_bitwise_resident_every_rank": all(
+            _trace(r["planned"]) == _trace(r["resident"])
+            and [s["aux"] for s in r["planned"]["rows"]]
+            == [s["aux"] for s in r["resident"]["rows"]] for r in ranks),
+        "replicas_in_sync": all(_in_sync(ranks, g) for g in runs.values()),
+        "finite": all(_finite(r[m]) for r in ranks for m in runs),
+        "aux_positive": all(s["aux"] > 0 for r in ranks for m in runs for s in r[m]["rows"])}
+    emit({"phase": "f_moe_zero1", "arch": MOE, "layers": MOE_LAYERS, "mesh": list(MESH_C),
+          "ranks": WORLD, "backend": "nccl", "hbm_budget": cs.LMS_DDL_BUDGET, "card": line,
+          "params": cfg.param_count(), "pinned_bytes_per_rank": pinned,
+          "arena": [r["pinned"] for r in ranks],
+          **{m: _run_summary(ranks, g, cfg, line) for m, g in runs.items()},
+          "aux": {m: [s["aux"] for s in ranks[0][m]["rows"]] for m in runs},
+          "phase_peaks": {m: [r[m]["facts"]["phase_peaks"] for r in ranks] for m in runs},
+          "meminfo_before": mem, "seconds": seconds, "checks": checks}, rows_out)
+    _fail("(f)", checks)
 
 
 def _olmo_run(tcfg, mesh, zero1: bool = False):
@@ -811,11 +963,11 @@ def header():
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="a,b,c,d,e",
-                    help="comma-separated subset of a,b,c,d,e (a and d run together)")
+    ap.add_argument("--phases", default="a,b,c,d,e,f",
+                    help="comma-separated subset of a,b,c,d,e,f (a and d run together)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
-    known = {"a", "b", "c", "d", "e"}
+    known = {"a", "b", "c", "d", "e", "f"}
     if not phases <= known:
         raise SystemExit(f"--phases: unknown {sorted(phases - known)}")
     import torch
@@ -833,6 +985,8 @@ def main() -> int:
         phase_e(line, rows)
     if "c" in phases:
         phase_c(line, rows)
+    if "f" in phases:
+        phase_f(line, rows)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

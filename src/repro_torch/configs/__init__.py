@@ -2,10 +2,11 @@
 
 Only the architectures whose layer kinds the port runs are registered; the
 JAX package's other ids raise "not ported yet"."""
-from repro_torch.configs import (mamba2_1_3b, olmo_1b, qwen2_5_14b, qwen2_72b,
-                                 starcoder2_7b)
+from repro_torch.configs import (grok_1_314b, mamba2_1_3b, olmo_1b, qwen2_5_14b,
+                                 qwen2_72b, qwen3_moe_235b, starcoder2_7b)
 
-_MODULES = (qwen2_5_14b, olmo_1b, starcoder2_7b, qwen2_72b, mamba2_1_3b)
+_MODULES = (qwen2_5_14b, olmo_1b, starcoder2_7b, qwen2_72b, mamba2_1_3b, qwen3_moe_235b,
+            grok_1_314b)
 
 REGISTRY = {m.ARCH_ID: m for m in _MODULES}
 ARCH_IDS = tuple(REGISTRY)

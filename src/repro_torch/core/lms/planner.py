@@ -23,9 +23,11 @@ A copy of the JAX package's `core/lms/planner.py` over the port's
 configs and hardware model (`hw.DEFAULT` is the H100, so an uncalibrated
 plan is priced for the card); plans equal the JAX package's field by field
 for the same inputs, but for two working sets the port prices where the
-JAX package's plan prices none, both measured on the card: the plain SSD
-scan's in a Mamba-2 layer's backward (`ssd_scan_work_bytes`) and a serve
-engine's whole-prompt prefill beside its slots (`whole_prefill_bytes`).
+JAX package's plan prices none, each measured on the card: the plain SSD
+scan's in a Mamba-2 layer's backward (`ssd_scan_work_bytes`), a serve
+engine's whole-prompt prefill beside its slots (`whole_prefill_bytes`) and
+the loss's logits, their grad and the blocked cross-entropy's f32 terms in
+every training plan (`loss_work_bytes`).
 The port's executor of a plan: the layer-streaming
 decoder (`models/transformer.py`), the streamed optimizer sweep and the
 state placement (`train/steps.py`), the activation policy
@@ -420,6 +422,27 @@ def ssd_scan_work_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec) ->
     q = min(cfg.ssm_chunk, shape.seq_len)
     nc = -(-shape.seq_len // q)
     return SSD_SCAN_CHUNK_TERMS * b * nc * cfg.ssm_nheads * q * q * 4 // tp
+
+
+# [block, V] f32 terms the blocked cross-entropy holds at once: the
+# forward's log-sum-exp takes a block's f32 copy and its shifted
+# exponentials (`models/layers._BlockedNLL`); the backward takes one
+LOSS_BLOCK_TERMS = 2
+
+
+def loss_work_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec) -> int:
+    """Per-device bytes the loss holds at once in training: the bf16
+    logits [T, V], their bf16 grad, and LOSS_BLOCK_TERMS f32 [block, V]
+    terms of the blocked cross-entropy (`models/layers.cross_entropy`, a
+    block of `layers.LOSS_BLOCK` token rows). The layers' backward working
+    set does not stand beside it: the loss's backward is done before the
+    last layer's begins."""
+    from repro_torch.models.layers import LOSS_BLOCK
+    dp = _axis_size(mesh, "data") * _axis_size(mesh, "pod")
+    tp = _axis_size(mesh, "model")
+    t = max(shape.global_batch // dp, 1) * shape.seq_len
+    v = cfg.vocab_size
+    return (2 * 2 * t * v + LOSS_BLOCK_TERMS * min(LOSS_BLOCK, t) * v * 4) // tp
 
 
 def whole_prefill_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec,
@@ -882,7 +905,8 @@ def _plan_memory(req: PlanRequest, cost: Optional[CostModel]) -> MemoryPlan:
     offload_bytes = lambda: L * sum(a.bytes_dev for a in acts
                                     if assignment[a.name] == "offload")
     transient = max(max((a.bytes_dev for a in acts), default=0) * 4,
-                    ssd_scan_work_bytes(cfg, shape, mesh))
+                    ssd_scan_work_bytes(cfg, shape, mesh),
+                    loss_work_bytes(cfg, shape, mesh))
 
     def fixed():
         return params_dev + grads_dev + opt_dev + transient

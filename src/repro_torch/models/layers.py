@@ -263,12 +263,58 @@ def lm_logits(cfg, p, x):
     return out
 
 
+# token rows of the loss's f32 terms at once (`cross_entropy`)
+LOSS_BLOCK = 1024
+
+
+class _BlockedNLL(torch.autograd.Function):
+    """Per-row negative log-likelihood lse(row) - row[label] in f32 of
+    logits [T, V], a block of `block` rows at a time: the forward saves the
+    logits (the head's output, live anyway) and the [T] f32 log-sum-exp;
+    the backward writes softmax minus one-hot, times each row's grad, into
+    a grad of the logits' dtype, a block at a time. So at most one block's
+    f32 [block, V] terms stand at once (two in the forward's log-sum-exp),
+    where autograd of the plain form keeps f32 copies of the whole [T, V].
+    Each row's value and grad are the plain form's ops on that row: the
+    log-sum-exp over the whole row, and the grad's f32 terms summed in the
+    order autograd sums them (the log-sum-exp's, then the gather's)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, block):
+        t = logits.shape[0]
+        lse = torch.empty(t, dtype=torch.float32, device=logits.device)
+        for a in range(0, t, block):
+            lse[a:a + block] = torch.logsumexp(logits[a:a + block].float(), dim=-1)
+        idx = labels.clamp(min=0).long()
+        ll = torch.gather(logits, -1, idx[:, None])[:, 0].float()
+        ctx.save_for_backward(logits, idx, lse)
+        ctx.block = block
+        return lse - ll
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, idx, lse = ctx.saved_tensors
+        grad = torch.empty_like(logits)
+        for a in range(0, logits.shape[0], ctx.block):
+            b = min(a + ctx.block, logits.shape[0])
+            z = logits[a:b].to(torch.float32, copy=True)
+            z.sub_(lse[a:b, None]).exp_().mul_(g[a:b, None])
+            rows = torch.arange(b - a, device=z.device)
+            z[rows, idx[a:b]] += -g[a:b]
+            grad[a:b] = z
+            del z
+        return grad, None, None
+
+
 def cross_entropy(logits, labels, ignore_id: int = -1):
     """Mean token CE in f32; labels == ignore_id are masked (and clipped to
-    0 for the gather, as the JAX package takes them)."""
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.clamp(min=0)[..., None].long())[..., 0]
-    mask = (labels != ignore_id).float()
-    loss = (lse - ll) * mask
+    0 for the gather, as the JAX package takes them). Each row's
+    log-sum-exp is taken whole over the vocabulary, LOSS_BLOCK rows at a
+    time, and the backward forms the logits' grad a block at a time
+    (`_BlockedNLL`): the loss's working set is the logits, their grad and
+    one block's f32 terms (`core/lms/planner.loss_work_bytes`)."""
+    v = logits.shape[-1]
+    nll = _BlockedNLL.apply(logits.reshape(-1, v), labels.reshape(-1), LOSS_BLOCK)
+    mask = (labels.reshape(-1) != ignore_id).float()
+    loss = nll * mask
     return loss.sum() / torch.clamp(mask.sum(), min=1.0)

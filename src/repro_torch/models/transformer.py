@@ -1,5 +1,5 @@
-"""Decoder stack for the "attn" (dense decoder) and "ssd" (Mamba-2) layer
-kinds: stacked [L, ...] params and caches, with the JAX package's
+"""Decoder stack for the "attn" (dense or MoE decoder) and "ssd" (Mamba-2)
+layer kinds: stacked [L, ...] params and caches, with the JAX package's
 `lax.scan` over layers as a Python loop over the leading axis. For both
 kinds: the forward pass (train / loss, resident or through the LMS
 executor under a plan), the whole-prompt prefill, the whole-batch decode
@@ -7,6 +7,9 @@ of the static loop and the slot decode of the serve engine. An "attn"
 layer's cache is its k/v (paged through the engine's page arena, or
 slot-contiguous); an "ssd" layer's is per-slot state, the SSM state and
 the convolution's last inputs, which inactive slots keep as they are.
+An "attn" layer's FFN is an MoE (`models/moe.py`) where the config has
+experts: the forward pass sums its aux loss over the layers, and the
+serve sweeps drop it, as the JAX package's do.
 Chunked prefill is for "attn" stacks only, as in the JAX package. Each
 serve sweep takes `stream=`, a serve plan's SwapSchedule: params in
 pinned host memory come in a layer at a time (`_LayerStream`), and the
@@ -27,6 +30,7 @@ from repro_torch.models.attention import (attention_defs, decode_attention,
                                           out_proj, project_qkv)
 from repro_torch.models.layers import (ParamDef, apply_mlp, apply_norm,
                                        apply_rope, mlp_defs, norm_defs)
+from repro_torch.models.moe import apply_moe, moe_defs
 from repro_torch.models.ssm import apply_ssm, decode_ssm, ssm_cache_defs, ssm_defs
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -35,12 +39,12 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 # ---------------------------------------------------------------------------
 
 def _check_kinds(cfg: ModelConfig) -> str:
-    """-> the stack's one layer kind, "attn" or "ssd"."""
+    """-> the stack's one layer kind, "attn" (dense or MoE FFN) or "ssd"."""
     kinds = set(cfg.layer_kinds())
-    if (kinds not in ({"attn"}, {"ssd"}) or cfg.num_experts
+    if (kinds not in ({"attn"}, {"ssd"}) or (cfg.num_experts and kinds != {"attn"})
             or cfg.mrope_sections or cfg.frontend):
         raise NotImplementedError(
-            f"{cfg.name}: only dense 'attn' and Mamba-2 'ssd' stacks are "
+            f"{cfg.name}: only dense or MoE 'attn' and Mamba-2 'ssd' stacks are "
             f"ported yet (layer kinds {sorted(kinds)})")
     return kinds.pop()
 
@@ -57,7 +61,7 @@ def layer_defs(cfg: ModelConfig, kind: str):
         return {"ln1": norm_defs(cfg, cfg.d_model),
                 "attn": attention_defs(cfg),
                 "ln2": norm_defs(cfg, cfg.d_model),
-                "ffn": mlp_defs(cfg)}
+                "ffn": moe_defs(cfg) if cfg.num_experts else mlp_defs(cfg)}
     if kind == "ssd":
         return {"ln1": norm_defs(cfg, cfg.d_model), "ssm": ssm_defs(cfg)}
     raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
@@ -115,12 +119,16 @@ def _rope_qk(cfg, q, k, ctx):
 
 
 def _ffn(cfg, p, x):
+    """-> (x, aux_loss): the MLP's aux is 0, the MoE's its load-balance loss."""
     h = tagged("mlp_norm", apply_norm, cfg, p["ln2"], x)
-    return x + apply_mlp(cfg, p["ffn"], h)
+    if cfg.num_experts:
+        y, aux = apply_moe(cfg, p["ffn"], h)
+        return x + y, aux
+    return x + apply_mlp(cfg, p["ffn"], h), 0.0
 
 
 def _attn_block(cfg, p, x, ctx):
-    """A whole-sequence causal "attn" layer: -> (x, k, v). The forward
+    """A whole-sequence causal "attn" layer: -> (x, aux, k, v). The forward
     pass and the prefill share it, so they run the same ops. The tags
     (`core/lms/policies.py`) are the JAX package's; outside an LMS layer
     frame they are the identity."""
@@ -130,7 +138,8 @@ def _attn_block(cfg, p, x, ctx):
     q, k = _rope_qk(cfg, q, k, ctx)
     o = tagged("attn_out", attn_mod.attention, q, k, v, causal=True,
                impl=ctx["attn_impl"], chunk=ctx["attn_chunk"])
-    return _ffn(cfg, p, x + out_proj(cfg, p["attn"], o)), k, v
+    x, aux = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o))
+    return x, aux, k, v
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +150,7 @@ def apply_layer(cfg, kind, p, x, ctx):
     """-> (x, aux_loss). ctx carries attn_impl / attn_chunk / positions for
     "attn" and ssd_impl for "ssd"."""
     if kind == "attn":
-        return _attn_block(cfg, p, x, ctx)[0], 0.0
+        return _attn_block(cfg, p, x, ctx)[:2]
     if kind == "ssd":
         x = tag(x, "resid")
         h = apply_norm(cfg, p["ln1"], x)
@@ -338,7 +347,8 @@ def _apply_decoder_lms(cfg, kind, stack, x, ctx, *, policy, stream, no_remat,
 def apply_decoder(cfg, params, x, ctx, *, policy=None, no_remat=False,
                   grad_hooks=None, stream=None, stack_grads=None):
     """-> (x, aux_loss f32 scalar): every layer of the stack in order, their
-    aux losses summed (0 for the dense and SSM layers).
+    aux losses summed (the MoE layers' load-balance losses; 0 for the
+    dense and SSM layers).
 
     grad_hooks: {stack group name -> reduce-as-you-go hook}, the DDL
     overlapped backward (`core/ddl/overlap.py`): each layer's slice of the
@@ -407,7 +417,7 @@ def apply_layer_prefill(cfg, kind, p, x, ctx, cache_len: int):
         return x + y, cache
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-    x2, k, v = _attn_block(cfg, p, x, ctx)
+    x2, _, k, v = _attn_block(cfg, p, x, ctx)
     b, s = x.shape[:2]
     n = min(s, cache_len)
     ck = torch.zeros((b, cache_len, cfg.num_kv_heads, cfg.head_dim),
@@ -472,7 +482,7 @@ def apply_layer_prefill_chunk(cfg, kind, p, x, cache, start: int, length: int,
     cv = dynamic_update_slice_(cache["v"], v, (0, start, 0, 0))
     o = attn_mod.naive_attention(q, ck, cv, causal=True, q_offset=start,
                                  kv_len=length)
-    x2 = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o))
+    x2, _ = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o))
     return x2, {"k": ck, "v": cv}
 
 
@@ -517,7 +527,7 @@ def apply_layer_decode(cfg, kind, p, x, cache, pos: int, ctx):
     ck = dynamic_update_slice_(cache["k"], k, (0, slot, 0, 0))
     cv = dynamic_update_slice_(cache["v"], v, (0, slot, 0, 0))
     o = decode_attention(q, ck, cv, min(pos + 1, smax))
-    x = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o))
+    x, _ = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o))
     return x, {"k": ck, "v": cv}
 
 
@@ -622,7 +632,7 @@ def apply_layer_decode_slots(cfg, kind, p, x, cache, positions, active, ctx):
     o = decode_attention(q.contiguous(), ck, cv, kv_len,
                          k_scale=scales.get("k_scale"),
                          v_scale=scales.get("v_scale"), page_table=table)
-    x = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o))
+    x, _ = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o))
     return x, {"k": ck, "v": cv, **scales}
 
 

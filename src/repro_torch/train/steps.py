@@ -756,9 +756,9 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
     ddl.mode "none" leaves the grads unreduced, as in the JAX package;
     "zero1" is `build_zero1_train_step`'s (here it reduces as "allreduce",
     as the JAX package's replicated step does). A tensor-parallel `model`
-    axis (`make_mesh`) is not ported yet and raises; so do, under a plan,
-    params on the host with the optimizer on the device, and the Mamba-2
-    stack."""
+    axis (`make_mesh`) is not ported yet and raises; so does, under a plan,
+    params on the host with the optimizer on the device. Every ported
+    stack (dense, MoE, Mamba-2) runs under a plan."""
     spec = StepSpec() if spec is None else spec
     if spec.plan is None and plan is not None:
         spec = dataclasses.replace(spec, plan=plan)
@@ -1230,8 +1230,7 @@ def build_zero1_train_step(model: Model, tcfg: TrainConfig, plan: Optional[Memor
     the update streams it through the card in `SLICE`-element chunks, two
     in flight (`_pipelined`). Either way the state equals the resident
     step's bitwise. As for the replicated step, a plan with params on the
-    host and the optimizer on the device, and the Mamba-2 stack under a
-    plan, are not ported yet."""
+    host and the optimizer on the device is not ported yet."""
     spec = StepSpec() if spec is None else spec
     if spec.plan is None and plan is not None:
         spec = dataclasses.replace(spec, plan=plan)

@@ -325,7 +325,7 @@ def _run(tcfg, plan, batches, seed=5):
     return mets, state
 
 
-def test_streamed_loss_and_grads_match_jax(ref, jm, arch=ARCH):
+def test_streamed_loss_and_grads_match_jax(jax_pricing, ref, jm, arch=ARCH):
     """The loss and its grads through the streamed stack (params from
     pinned host, the plan's policy) against jax.value_and_grad of the JAX
     package's streamed model loss with the same plan's policy and
@@ -367,12 +367,12 @@ def test_streamed_loss_and_grads_match_jax(ref, jm, arch=ARCH):
 
 
 @pytest.mark.parametrize("arch", DENSE_ARCHS[1:])
-def test_streamed_loss_and_grads_match_jax_dense(ref, jm, arch):
+def test_streamed_loss_and_grads_match_jax_dense(jax_pricing, ref, jm, arch):
     """`test_streamed_loss_and_grads_match_jax` on each other dense smoke config."""
-    test_streamed_loss_and_grads_match_jax(ref, jm, arch)
+    test_streamed_loss_and_grads_match_jax(jax_pricing, ref, jm, arch)
 
 
-def test_streamed_train_steps_match_jax(ref, jm, arch=ARCH):
+def test_streamed_train_steps_match_jax(jax_pricing, ref, jm, arch=ARCH):
     """3 train steps under the smoke plan (params and optimizer streamed,
     the residual stream offloaded, the rest recomputed) on both sides from
     one state (JAX's, converted and placed as the plan says): loss, ce and
@@ -407,9 +407,9 @@ def test_streamed_train_steps_match_jax(ref, jm, arch=ARCH):
 
 
 @pytest.mark.parametrize("arch", DENSE_ARCHS[1:])
-def test_streamed_train_steps_match_jax_dense(ref, jm, arch):
+def test_streamed_train_steps_match_jax_dense(jax_pricing, ref, jm, arch):
     """`test_streamed_train_steps_match_jax` on each other dense smoke config."""
-    test_streamed_train_steps_match_jax(ref, jm, arch)
+    test_streamed_train_steps_match_jax(jax_pricing, ref, jm, arch)
 
 
 @pytest.mark.parametrize("arch,depth,optimizer",
@@ -628,7 +628,7 @@ def test_swap_counters_count_what_moved():
 # the trainer, the CLI, and what is not ported yet
 # ---------------------------------------------------------------------------
 
-def test_trainer_matches_jax_trainer_under_a_plan(ref, jm, tmp_path):
+def test_trainer_matches_jax_trainer_under_a_plan(jax_pricing, ref, jm, tmp_path):
     """Trainer(LMSConfig(hbm_budget=SMOKE_BUDGET)) on both sides: the same
     plan field by field, and from JAX's initial state (placed as the plan
     says) per step the same loss, ce, grad norm and lr within the train

@@ -109,13 +109,14 @@ def jax_ref_scope():
 
 @pytest.fixture
 def jax_pricing(monkeypatch):
-    """The port's planner without the two working sets it prices where the
+    """The port's planner without the working sets it prices where the
     JAX package's prices none (`planner.ssd_scan_work_bytes`,
-    `planner.whole_prefill_bytes`), for a test that holds a plan to the
-    JAX package's field by field."""
+    `planner.whole_prefill_bytes`, `planner.loss_work_bytes`), for a test
+    that holds a plan to the JAX package's field by field."""
     from repro_torch.core.lms import planner
     monkeypatch.setattr(planner, "ssd_scan_work_bytes", lambda *a, **k: 0)
     monkeypatch.setattr(planner, "whole_prefill_bytes", lambda *a, **k: 0)
+    monkeypatch.setattr(planner, "loss_work_bytes", lambda *a, **k: 0)
 
 
 def random_params(ref, cfg, seed: int):
@@ -161,13 +162,12 @@ def test_config_matches_reference():
     ref = jax_ref()
     from repro.configs import get_config as jget_config
     assert ARCH_IDS == ("qwen2.5-14b", "olmo-1b", "starcoder2-7b", "qwen2-72b",
-                        "mamba2-1.3b")
+                        "mamba2-1.3b", "qwen3-moe-235b-a22b", "grok-1-314b")
     for arch in ARCH_IDS:
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jget_config(arch))
         assert (dataclasses.asdict(get_smoke_config(arch))
                 == dataclasses.asdict(ref.get_smoke_config(arch)))
-    for arch in ("grok-1-314b", "qwen3-moe-235b-a22b", "recurrentgemma-9b", "qwen2-vl-2b",
-                 "whisper-tiny"):
+    for arch in ("recurrentgemma-9b", "qwen2-vl-2b", "whisper-tiny"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             get_config(arch)
     with pytest.raises(KeyError):

@@ -622,6 +622,7 @@ def _jax_priced(monkeypatch, req):
     with monkeypatch.context() as m:
         m.setattr(tp, "ssd_scan_work_bytes", lambda *a, **k: 0)
         m.setattr(tp, "whole_prefill_bytes", lambda *a, **k: 0)
+        m.setattr(tp, "loss_work_bytes", lambda *a, **k: 0)
         return tp.plan(req)
 
 
