@@ -124,7 +124,7 @@ non-zero, printing no result):
    spawned process, bitwise equal, no kernel launched; starcoder2-7b
    (GQA 36/4, LayerNorm with a bias, GELU with biases) serving at 2
    layers (both widths, and the flash-attention prefill) against the
-   dense pass and at 16 of its 32 (argmax), 2 train steps at 2 layers
+   dense pass and at 8 of its 32 (argmax), 2 train steps at 2 layers
    through the kernels against the plain versions; qwen2-72b (GQA 64/8,
    d_model 8192) serving at 2 layers and 2 train steps at 1 layer through
    the kernels against the plain versions (4L+1 RMSNorm launches a step);
@@ -159,6 +159,19 @@ non-zero, printing no result):
    and 2 microbatches at smoke width on 4 ranks (2x2x1, the int8 pod
    hop), overlapped and serialized, against one rank on the global batch,
    the quantizer and the pod sum launched as the shard sizes imply;
+   tp — then, in the same two ranks (warm, their pinned arena reused),
+   tensor parallelism on a 1x1x2 mesh (a `model` axis over the two
+   ranks: 20 / 4 heads, half of d_ff and of the vocab a rank) at 2
+   layers, 2 x 2048 tokens (every `model` rank takes the whole batch), 3
+   steps: (i) resident against the one-device run from the same seed
+   (made by each rank in turn), loss, ce and grad norm within 2e-3 relative each
+   step, the masters within the CPU tests' lr-N bounds, the replicated
+   leaves bitwise across the ranks; (ii) under the plan of
+   LMSConfig(hbm_budget=8e9) (params and the AdamW state in pinned host
+   memory) bitwise against (i), the peak against the plan's; (iii) a
+   forward through kernel #1 at the local heads (2 launches) against the
+   blockwise forward, within 2**-5 of the largest |logit|, RMSNorm's
+   4L+1 launches a step resident and the plan's implied count streamed;
 13. LMS + DDL (qwen2.5-14b at full width, 2 ranks spawned on the one card
    over gloo, the 2x1x1 mesh, compress_dcn, 2048 tokens a rank, the plan
    of LMSConfig(hbm_budget=16e9): params, grads and the AdamW state in
@@ -196,7 +209,7 @@ non-zero, printing no result):
    runs go) — the MoE layer at 2 x 2048 tokens with ample capacity
    against every expert on every token (within 2**-5 of max |y|); the
    engine at 2 layers with every token routed to every expert against the
-   dense pass, model width and int8 (the kernels of #2b and #4b); at 8
+   dense pass, model width and int8 (the kernels of #2b and #4b); at 4
    layers the trace with a preemption, `run_static` on 4 x (300 + 8)
    tokens through the prefill kernel, and a 2-request trace resident and
    under the serve plan of LMSConfig(hbm_budget=16e9) (params on the host:
@@ -244,8 +257,9 @@ launch of the Mamba-2 forward and of its serve path's prefill. The line
 before the last lists every ported kernel (flash attention, decode and the
 SSD scan once per route, the scan with its final state once per route
 again; the int8 quantizer and dequantizer with their fused entries) with
-its launches on the main path and on the MoE path (`moe_launches`); the
-last line is {"ok": true, "device": {...}}.
+its launches on the main path, on the MoE path (`moe_launches`) and on the
+tensor-parallel path (`tp_launches`); the last line is {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -384,13 +398,13 @@ CKPT_RAM_ROOT, CKPT_TIMEOUT_S = "/dev/shm", 900
 # LMSConfig(hbm_budget=DENSE_OLMO_BUDGET), which streams the params and the
 # AdamW state (in a spawned process: its pinned state goes back to the host
 # when it exits); starcoder2-7b (GQA 36/4, LayerNorm with a bias, GELU with
-# biases) serves and trains 2 steps at 2 layers and serves at 16 of its 32;
+# biases) serves and trains 2 steps at 2 layers and serves at 8 of its 32;
 # qwen2-72b (GQA 64/8, d_model 8192) serves at 2 layers and trains 2 steps at
 # 1 (~54 GB of params and AdamW state)
 DENSE_OLMO, DENSE_STARCODER, DENSE_QWEN72 = "olmo-1b", "starcoder2-7b", "qwen2-72b"
-# starcoder2-7b's deep serve run: 16 of its 32 layers (since the moe phase
-# came: chip_smoke's time limit)
-DENSE_STARCODER_SERVE_LAYERS = 16
+# starcoder2-7b's deep serve run: 8 of its 32 layers (16 since the moe
+# phase came, 8 since the tp phase: chip_smoke's time limit)
+DENSE_STARCODER_SERVE_LAYERS = 8
 DENSE_OLMO_BUDGET, DENSE_TRAIN_STEPS, DENSE_CHECK_STEPS = 8 * 10**9, 3, 2
 DENSE_TIMEOUT_S = 420
 # the 48-layer engine's determinism and profile reruns run on the first
@@ -415,7 +429,8 @@ SERVE_PLAN_PREEMPT_TICK, SERVE_PLAN_EXHAUSTIONS, SERVE_PLAN_TIMEOUT_S = 60, 3, 4
 # MOE_PREEMPT_TICK, `run_static` on MOE_STATIC_REQUESTS prompts of
 # MOE_STATIC_PROMPT tokens + MOE_STATIC_GEN, and a shorter trace
 # (MOE_PLAN_REQUESTS requests, MOE_PLAN_GEN tokens, a preemption at tick
-# MOE_PLAN_PREEMPT_TICK: a tick under the plan copies all 8 layers, 41 GB)
+# MOE_PLAN_PREEMPT_TICK: a tick under the plan copies all 4 layers, ~20 GB;
+# 8 layers before the tp phase came: chip_smoke's time limit)
 # resident and under the serve plan of LMSConfig(hbm_budget=MOE_BUDGET)
 # (params on the host), bitwise; training at MOE_TRAIN_LAYERS layer,
 # MOE_TRAIN_STEPS steps resident and under the plan of MOE_BUDGET (params and
@@ -427,11 +442,25 @@ SERVE_PLAN_PREEMPT_TICK, SERVE_PLAN_EXHAUSTIONS, SERVE_PLAN_TIMEOUT_S = 60, 3, 4
 # largest state (the training's) while its resident runs go, and every
 # placement reuses it
 MOE, MOE_GROK = "qwen3-moe-235b-a22b", "grok-1-314b"
-MOE_CHECK_LAYERS, MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS, MOE_GROK_LAYERS = 2, 8, 1, 1
+MOE_CHECK_LAYERS, MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS, MOE_GROK_LAYERS = 2, 4, 1, 1
 MOE_BUDGET, MOE_GROK_BUDGET = 16 * 10**9, 8 * 10**9
 MOE_PREEMPT_TICK, MOE_PLAN_REQUESTS, MOE_PLAN_GEN, MOE_PLAN_PREEMPT_TICK = 20, 2, 8, 4
 MOE_STATIC_REQUESTS, MOE_STATIC_PROMPT, MOE_STATIC_GEN = 4, 300, 8
 MOE_TRAIN_STEPS, MOE_TIMEOUT_S = 2, 720
+# tensor parallelism (the tp phase, in the ddl_sharded ranks after their
+# cases, which reuse their reserved pinned arena): qwen2.5-14b at
+# full width cut to TP_LAYERS layers, TRAIN_BATCH x TRAIN_SEQ tokens a step
+# (every `model` rank takes the whole batch), TP_STEPS steps at TRAIN_LR,
+# on 2 ranks of a TP_MESH mesh sharing the card over gloo (20 of the 40
+# query heads, 4 of the 8 kv heads, half of d_ff and of the vocab a rank):
+# (i) resident against one device (1x1x1) from the same seed, loss, ce and
+# grad norm within TP_REL_TOL relative each step and the masters within
+# the CPU tests' lr-N bounds; (ii) under the plan of
+# LMSConfig(hbm_budget=TP_BUDGET), params and AdamW state on the host,
+# bitwise against (i); (iii) the kernels at the local shapes, and a
+# forward through kernel #1 against the blockwise one
+TP_MESH, TP_LAYERS, TP_STEPS, TP_BUDGET = (1, 1, 2), 2, 3, 8 * 10**9
+TP_REL_TOL = 2e-3
 # torch.profiler sessions that time a kernel: at most this many for one
 # number, the timed calls this far (s) inside each end of a session
 PROFILE_ATTEMPTS, PROFILE_PAD_S = 8, 0.02
@@ -2021,6 +2050,7 @@ def kernel_phases(num_layers: int):
     ddl_kernel_phases(out, checked)
     dense_kernel_phases(out, checked)
     moe_kernel_phases(out, checked)
+    tp_kernel_phases(out, checked)
     return out, checked
 
 
@@ -2188,6 +2218,22 @@ def moe_kernel_phases(out: dict, checked: set):
             ("qwen3_moe_static_prefill", qw, MOE_STATIC_REQUESTS * MOE_STATIC_PROMPT, 149),
             ("qwen3_moe_chunk", qw, CHUNK, 150), ("qwen3_moe_decode", qw, SLOTS, 151),
             ("grok_1_chunk", gk, CHUNK, 152), ("grok_1_decode", gk, SLOTS, 153))]
+
+
+def tp_kernel_phases(out: dict, checked: set):
+    """The kernels at the tp phase's local shapes (`tp_phase`): flash
+    attention at one rank's heads of qwen2.5-14b on TP_MESH (20 / 4 at
+    head_dim 128) over the train step's TRAIN_BATCH x TRAIN_SEQ tokens,
+    timed; RMSNorm at the replicated norms' rows (the whole d_model)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    m = TP_MESH[-1]
+    out["flash_attention_fwd_wgmma"].append(attention_kernel_phase(
+        "tp_local_heads", TRAIN_BATCH, TRAIN_SEQ, 160, checked, d=cfg.head_dim,
+        heads=cfg.num_heads // m, kv_heads=cfg.num_kv_heads // m))
+    out["rmsnorm"].append(rmsnorm_kernel_phase(
+        "tp_replicated_norm", TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, 161, checked,
+        eps=cfg.norm_eps, timed=False))
 
 
 # the CUDA launchers whose counts a run of a path resets and reads
@@ -3155,9 +3201,9 @@ def forward_phase(model, params, line, checked):
     heads = []
     head = model_mod.lm_logits
 
-    def head_rec(cfg, p, x):
+    def head_rec(cfg, p, x, *mesh):
         heads.append(x)
-        return head(cfg, p, x)
+        return head(cfg, p, x, *mesh)
     model_mod.lm_logits = head_rec
     try:
         with torch.no_grad(), launch_signatures() as (seen, calls, launches):
@@ -4022,10 +4068,10 @@ def train_reference_phase(line, checked, arch=ARCH, layers=TRAIN_CHECK_LAYERS,
         step = steps_mod.build_train_step(model, tcfg)
         first = []
 
-        def clip_rec(grads, max_norm):
+        def clip_rec(grads, max_norm, *tp):
             if not first:
                 first.append(tree_map(lambda g: g.to("cpu"), grads))
-            return clip(grads, max_norm)
+            return clip(grads, max_norm, *tp)
         steps_mod.clip_by_global_norm = clip_rec
         mets, per_step = [], []
         try:
@@ -4980,11 +5026,16 @@ def _ddl_sharded_rank(rank: int, world: int):
     for name, tcfg in _ddl_sharded_cases().items():
         plan, rows, facts = _sharded_train(tcfg, DDL_SHARDED_STEPS)
         out[name] = {"plan": plan, "rows": rows, **facts}
+    out["tp"] = _tp_cases(rank, world)
     return out
 
 
 def ddl_sharded_phase(line, checked):
-    """DDL's sharded paths at qwen2.5-14b's full width cut to 1 layer
+    """-> (the row, the tp phase's runs): after their cases the same ranks
+    run `_tp_cases` (the tp phase, `tp_phase`), warm and in the arena they
+    reserved.
+
+    DDL's sharded paths at qwen2.5-14b's full width cut to 1 layer
     (1.83 B params), `Trainer.train` for DDL_SHARDED_STEPS step(s) a run,
     at the peak lr, on
     2 ranks of a 1x2x1 mesh (2 data ranks on the one card over gloo), all
@@ -5117,7 +5168,7 @@ def ddl_sharded_phase(line, checked):
     if not all(checks.values()):
         raise AssertionError(f"ddl_sharded: failed checks "
                              f"{[k for k, v in checks.items() if not v]}")
-    return row
+    return row, [r["tp"] for r in ranks]
 
 
 def _ddl_sharded_smoke_rank(rank: int, world: int):
@@ -6729,6 +6780,256 @@ def dense_configs_phase(line, checked):
 # the MoE family (the moe phase)
 # ---------------------------------------------------------------------------
 
+def _tp_config(mesh, **kw):
+    """The tp phase's TrainConfig on `mesh` (a shape over DDL_AXES)."""
+    import dataclasses
+    from repro_torch.config.base import MeshSpec
+    return dataclasses.replace(
+        _train_config(TP_LAYERS, learning_rate=TRAIN_LR, warmup_steps=0,
+                      total_steps=TP_STEPS), mesh=MeshSpec(mesh, DDL_AXES), **kw)
+
+
+def _tp_batches(tcfg):
+    """TP_STEPS batches of the synthetic stream, on the card."""
+    import torch
+    from repro_torch.data import DataLoader, SyntheticTokens
+    loader = DataLoader(SyntheticTokens(tcfg.model.vocab_size, seed=SEED), shard=0,
+                        num_shards=1, batch_per_shard=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    return [{k: torch.from_numpy(v).cuda() for k, v in next(loader).items()}
+            for _ in range(TP_STEPS)]
+
+
+def _tp_steps(tcfg, plan, mesh):
+    """`build_train_step` of `tcfg` for TP_STEPS steps from the seed, the
+    state placed as `plan` says (None: resident), the counts reset just
+    before each step and read just after. -> (state, rows, facts)."""
+    import torch
+    from repro_torch.core.lms import offload as off
+    from repro_torch.models.model import Model
+    from repro_torch.train import steps as steps_mod
+    model = Model(tcfg.model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    state = steps_mod.init_train_state(model, tcfg, SEED + 11, "cuda", plan=plan, mesh=mesh)
+    step = steps_mod.build_train_step(model, tcfg, plan=plan, mesh=mesh)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    rows = []
+    with launch_signatures() as (seen, calls, launches):
+        for b in _tp_batches(tcfg):
+            before = _launchers()["rmsnorm"].launches
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            rows.append({"step_s": time.monotonic() - t1,
+                         "rmsnorm_launches": _launchers()["rmsnorm"].launches - before,
+                         **{k: float(m[k]) for k in ("loss", "ce", "grad_norm", "lr")}})
+    return state, rows, {"setup_s": setup_s, "peak_bytes": torch.cuda.max_memory_allocated(),
+                         "pinned_bytes": off.pinned_bytes(), "seen": seen, "calls": calls,
+                         "launches": launches}
+
+
+def _tp_reference_masters(masters, mesh):
+    """(i)'s reference: the same steps on one device, run by each `model`
+    rank in turn (the card holds one such run beside the ranks' masters'
+    blocks), and this rank's masters held against its blocks of the
+    reference's. -> (the reference's rows, the masters against them: max
+    and the shares past 0.01 and 0.1 lr N, the median and 99th
+    percentile bounds)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_leaves
+    tcfg = _tp_config((1, 1, 1))
+    specs = tree_leaves(Model(tcfg.model).param_specs(mesh))
+    unit = TRAIN_LR * TP_STEPS
+    out = None
+    for m in range(mesh.size("model")):
+        if m == mesh.index("model"):
+            state, rows, _ = _tp_steps(tcfg, None, None)
+            n = worst = over_median = over_p99 = 0
+            for mine, ref, sp in zip(masters, tree_leaves(state.opt.master), specs):
+                d = (mine - shd.local_shard(ref, sp, mesh)).abs()
+                n += d.numel()
+                worst = max(worst, d.max().item())
+                over_median += int((d > 0.01 * unit).sum())
+                over_p99 += int((d > 0.1 * unit).sum())
+                del d
+            del state
+            torch.cuda.empty_cache()
+            out = rows, {"elements": n, "max_over_lr_n": worst / unit,
+                         "share_over_0.01_lr_n": over_median / n,
+                         "share_over_0.1_lr_n": over_p99 / n}
+        dist.barrier(group=mesh.groups["model"])
+    return out
+
+
+def _tp_cases(rank: int, world: int):
+    """The tp phase's runs, in the ddl_sharded ranks after their cases (its
+    reserved arena and warm processes): (i) resident on TP_MESH, its
+    replicated leaves' checksums against the other rank's and its masters
+    against the one-device run's (`_tp_reference_masters`); (iii) a
+    forward through kernel #1 at this rank's heads against the blockwise
+    forward; (ii) the same steps under the plan of TP_BUDGET. -> the
+    rows' facts."""
+    import gc
+    import torch
+    from repro_torch.config.base import LMSConfig, MeshSpec
+    from repro_torch.core.lms import offload as off
+    from repro_torch.core.lms.planner import PlanRequest, plan as plan_lms
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_leaves
+    t0 = time.monotonic()
+    mesh = make_mesh(MeshSpec(TP_MESH, DDL_AXES))
+    tcfg = _tp_config(TP_MESH)
+    model = Model(tcfg.model)
+    out = {"rank": rank, "model_index": mesh.index("model")}
+    state, rows, facts = _tp_steps(tcfg, None, mesh)
+    sums = _state_checksums(state)
+    sharded = tree_leaves(shd.sharded_tree(model.param_defs(), mesh))
+    # the replicated leaves (params and each AdamW tree) the same on both ranks
+    replicated = _checksums({f"{name}/{i}": t for name, tree in (
+        ("params", state.params), ("master", state.opt.master), ("mu", state.opt.mu),
+        ("nu", state.opt.nu)) for i, (t, sh) in enumerate(zip(tree_leaves(tree), sharded))
+        if not sh})
+    out["resident"] = {"rows": rows, "checksums": sums, **{
+        k: facts[k] for k in ("setup_s", "peak_bytes")},
+        "launches": facts["launches"], "calls": facts["calls"],
+        "signatures": sorted(facts["seen"]), "replicated_leaves": len(replicated),
+        "replicated_same_on_ranks": _same_on_all_ranks(replicated)}
+    # (iii) kernel #1 on the main path at this rank's heads: a forward of the
+    # trained blocks through it against the blockwise one
+    batch = _tp_batches(tcfg)[0]
+    with torch.no_grad():
+        want, _ = Model(tcfg.model, attn_impl="blockwise").forward(state.params, batch,
+                                                                   mesh=mesh)
+        torch.cuda.synchronize()
+        with launch_signatures() as (seen, calls, launches):
+            t1 = time.monotonic()
+            got, _ = Model(tcfg.model, attn_impl="pallas").forward(state.params, batch,
+                                                                   mesh=mesh)
+            torch.cuda.synchronize()
+            fwd_s = time.monotonic() - t1
+        out["forward"] = {"err_over_max": ((got.float() - want.float()).abs().max()
+                                           / want.float().abs().max()).item(),
+                          "logits_shape": list(got.shape), "seconds": fwd_s,
+                          "launches": launches, "calls": calls, "signatures": sorted(seen)}
+    masters = tree_leaves(state.opt.master)
+    del state, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["reference_rows"], out["masters"] = _tp_reference_masters(masters, mesh)
+    del masters
+    # (ii) under the plan: params and the AdamW state in pinned host memory
+    plan = plan_lms(PlanRequest(cfg=tcfg.model, shape=tcfg.shape, mesh=tcfg.mesh,
+                                lms=LMSConfig(hbm_budget=TP_BUDGET)))
+    before = off.swap_counters()
+    state, rows, facts = _tp_steps(tcfg, plan, mesh)
+    out["planned"] = {"rows": rows, "checksums": _state_checksums(state),
+                      "plan": _plan_row(plan),
+                      "implied_rmsnorm_launches": _implied_rmsnorm_launches(plan, TP_LAYERS),
+                      "swap_per_step": _swap_per_step(before, off.swap_counters(), TP_STEPS),
+                      **{k: facts[k] for k in ("setup_s", "peak_bytes", "pinned_bytes")},
+                      "launches": facts["launches"], "calls": facts["calls"],
+                      "signatures": sorted(facts["seen"])}
+    del state
+    off.release_arenas()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def tp_phase(line, checked, ranks):
+    """Tensor parallelism on the port's training path (TP_MESH's comment),
+    from the runs `_tp_cases` made in the ddl_sharded ranks. Row `tp`. ->
+    {kernel: launches on the tensor-parallel path} (rank 0's: the
+    resident and planned steps and the forward)."""
+    L = TP_LAYERS
+    r0 = ranks[0]
+    res, pl, fw, ref = r0["resident"], r0["planned"], r0["forward"], r0["reference_rows"]
+
+    def rel(got, want):
+        return abs(got - want) / abs(want)
+
+    def metrics(rows):
+        return [{k: x[k] for k in ("loss", "ce", "grad_norm", "lr")} for x in rows]
+    rels = {k: max(rel(r["resident"]["rows"][i][k], ref[i][k])
+                   for r in ranks for i in range(TP_STEPS))
+            for k in ("loss", "ce", "grad_norm")}
+    unit_bounds = {"max_over_lr_n": 2.0, "share_over_0.01_lr_n": 0.5,
+                   "share_over_0.1_lr_n": 0.01}
+    runs = ("resident", "planned", "forward")
+    unchecked = sorted({_tuplify(sig) for r in ranks for part in runs
+                        for sig in r[part]["signatures"]} - checked)
+    checks = {
+        **{f"{k}_within_{TP_REL_TOL}": v <= TP_REL_TOL for k, v in rels.items()},
+        **{f"masters_{k}": all(r["masters"][k] <= b for r in ranks)
+           for k, b in unit_bounds.items()},
+        "ranks_same_metrics": all(metrics(r["resident"]["rows"]) == metrics(res["rows"])
+                                  for r in ranks),
+        "replicated_leaves_bitwise_across_model":
+            all(r["resident"]["replicated_same_on_ranks"] for r in ranks),
+        "planned_streams_params_and_optimizer":
+            pl["plan"]["residency"].get("params") == "host"
+            and pl["plan"]["residency"].get("optimizer") == "host",
+        "planned_state_bitwise": all(r["planned"]["checksums"] == r["resident"]["checksums"]
+                                     for r in ranks),
+        "planned_metrics_bitwise": all(metrics(r["planned"]["rows"])
+                                       == metrics(r["resident"]["rows"]) for r in ranks),
+        "rmsnorm_launches_4L+1_a_step": all(
+            [x["rmsnorm_launches"] for x in r["resident"]["rows"]] == [4 * L + 1] * TP_STEPS
+            for r in ranks),
+        "planned_rmsnorm_launches_as_the_plan_implies": all(
+            [x["rmsnorm_launches"] for x in r["planned"]["rows"]]
+            == [r["planned"]["implied_rmsnorm_launches"]] * TP_STEPS for r in ranks),
+        "forward_wgmma_launches_L": all(
+            r["forward"]["launches"].get("flash_attention_wgmma") == L
+            and r["forward"]["launches"].get("flash_attention") == L for r in ranks),
+        "forward_within_2**-5": all(r["forward"]["err_over_max"] <= 2.0 ** -5 for r in ranks),
+        "every_launch_recorded": all(r[p]["calls"] == r[p]["launches"] for r in ranks
+                                     for p in runs),
+        "no_other_launches": all(
+            v == 0 for r in ranks for p in runs for k, v in r[p]["launches"].items()
+            if not (k.startswith("rmsnorm") or k.startswith("flash_attention"))),
+        "every_launch_shape_checked": not unchecked,
+    }
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def steady(rows):
+        return sum(x["step_s"] for x in rows[1:]) / max(len(rows) - 1, 1)
+    row = {"phase": "tp", "arch": ARCH, "card": line, "mesh": "x".join(map(str, TP_MESH)),
+           "ranks": TP_MESH[-1], "backend": "gloo (host-staged)",
+           "note": "two ranks time-slice one card over gloo: not tensor parallelism's speed "
+                   "across cards (scripts/ddl_four_cards.py --phases g); run in the "
+                   "ddl_sharded ranks after their cases",
+           "layers": L, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TP_STEPS,
+           "lr": TRAIN_LR, "hbm_budget": TP_BUDGET, "reference_rows": ref,
+           "rel_vs_one_device": rels, "masters": [r["masters"] for r in ranks],
+           "resident": {k: res[k] for k in ("rows", "setup_s", "peak_bytes")},
+           "planned": {k: pl[k] for k in ("rows", "setup_s", "peak_bytes", "pinned_bytes",
+                                          "plan", "swap_per_step")},
+           "step_s": {"one_device": steady(ref), "resident": steady(res["rows"]),
+                      "planned": steady(pl["rows"])},
+           "tokens_per_s_resident": tokens / steady(res["rows"]),
+           "peak_vs_plan": {"resident_bytes": res["peak_bytes"],
+                            "planned_bytes": pl["peak_bytes"],
+                            "plan_bytes": pl["plan"]["peak_bytes"],
+                            "ratio": pl["peak_bytes"] / pl["plan"]["peak_bytes"]},
+           "forward": {k: fw[k] for k in ("err_over_max", "logits_shape", "seconds")},
+           "unchecked_signatures": unchecked,
+           "seconds_in_ranks": [r["seconds"] for r in ranks], "checks": checks}
+    emit(row)
+    if not all(checks.values()):
+        raise AssertionError(f"tp: failed checks {[k for k, v in checks.items() if not v]}")
+    return {"flash_attention_fwd_wgmma": fw["launches"]["flash_attention_wgmma"],
+            "rmsnorm": sum(x["rmsnorm_launches"] for x in res["rows"] + pl["rows"])}
+
+
 def _moe_cfg(layers: int, arch: str = MOE, ample: bool = False, every: bool = False):
     """`arch` at its published width cut to `layers`; `ample`: capacity for
     every assignment (cf = E / k), so no call drops one; `every`: each
@@ -7219,7 +7520,8 @@ def main() -> int:
     # first of the rank phases: its two ranks hold 2 x 27.8 GB of pinned
     # state and gloo's staging at once, which fits the machine's 96 GiB
     # only while this process has touched little host memory
-    timed(ddl_sharded_phase, line, checked)
+    _, tp_ranks = timed(ddl_sharded_phase, line, checked)
+    tp_launches = timed(tp_phase, line, checked, tp_ranks)
     f32_attention_row = timed(f32_attention_phase, line, checked)
     f32_decode_row = timed(f32_decode_phase, line, checked)
     f32_ssd_row = timed(f32_ssd_phase, line, checked)
@@ -7368,7 +7670,8 @@ def main() -> int:
                     "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
                     "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                     "library_ms": main_row["library_ms"],
-                    "moe_launches": moe_launches.get(name, 0)})
+                    "moe_launches": moe_launches.get(name, 0),
+                    "tp_launches": tp_launches.get(name, 0)})
     emit({"phase": "seconds", "of": "chip_smoke", "seconds": time.monotonic() - started})
     emit({"phase": "sass_summary", "kernel": "fa_wgmma_kernel",
           "hgmma_total": sass_row["hgmma_total"], "hgmma": sass_row["hgmma"],
@@ -7382,4 +7685,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    code = main()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # every rank has exited and every temp dir is gone: skip the
+    # interpreter's teardown of this process's pinned arenas and CUDA
+    # context after the last line (the command has outlasted the script's
+    # own `seconds` row by 23-28 s), which the time limit counts
+    os._exit(code)

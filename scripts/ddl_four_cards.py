@@ -65,6 +65,20 @@ row a phase (the whole rows also go to chiprun_out/ddl_four_cards.json).
     after each step, the shard's at the end), replicas in sync, finite
     losses, aux > 0.
 
+(g) Tensor parallelism (a `model` axis over the cards), qwen2.5-14b at
+    full width, 2048 tokens a data rank, 3 steps: (g1) 1x2x2 at G1_LAYERS
+    layers against 1x2x1 on two cards on the same global batch, both with
+    the overlapped backward: loss, ce and grad norm within 2e-3 relative
+    each step, the masters within the CPU tests' lr-N bounds (max 2 lr N,
+    the shares past 0.01 and 0.1 lr N at most 50% and 1%), the replicated
+    leaves bitwise across `model` and the blocks across `data`; (g2)
+    1x1x4 at G2_LAYERS layers resident (~59 GB of state a rank): s a
+    step, tokens/s, model FLOP/s and its share of the four cards' bf16
+    peak, each rank's peak against the planner's resident plan of that
+    mesh; (g3) 1x2x2 at G3_LAYERS layers under
+    LMSConfig(hbm_budget=16e9) (params, grads and the AdamW state in
+    pinned host memory) bitwise against the resident run at that depth.
+
 A phase whose depth the host cannot hold at 1 layer raises with the
 numbers. Any failed check raises; the script then exits non-zero and
 prints no last line. The last line is {"ok": true, "device": {...}}.
@@ -95,7 +109,7 @@ RESIDENT_DEPTHS = (1, 2, 3, 4)
 # (activations of one 2048-token row, the reductions' f32 work buffers)
 RESIDENT_ALLOWANCE = 12 * 10**9
 MAX_LAYERS = 48
-TIMEOUT_S = {"ad": 600, "b": 900, "c": 900, "e": 600, "f": 900}
+TIMEOUT_S = {"ad": 600, "b": 900, "c": 900, "e": 600, "f": 900, "g": 900}
 # (c): each rank's measured peak against its plan's
 PEAK_OVER_PLAN = 1.10
 # (e): olmo-1b at its full depth, resident on MESH_A and zero1 on MESH_C
@@ -104,6 +118,9 @@ OUT = os.path.join(ROOT, "chiprun_out", "ddl_four_cards.json")
 LAUNCH_KEYS = ("quantize_rows", "dequantize_rows", "dequantize_sum_rows", "rmsnorm")
 # (f): the MoE decoder at MOE_LAYERS layers
 MOE, MOE_LAYERS = "qwen3-moe-235b-a22b", 2
+# (g): tensor parallelism; the meshes, and the depth of each run
+MESH_G1_DP, MESH_G1, MESH_G2 = (1, 2, 1), (1, 2, 2), (1, 1, 4)
+G1_LAYERS, G2_LAYERS, G3_LAYERS, G_STEPS = 4, 48, 16, 3
 
 
 class _PhasePeaks:
@@ -216,16 +233,17 @@ def _rank_main(rank: int, world: int, tmp: str, name: str, args):
         dist.destroy_process_group()
 
 
-def spawn_ranks(name: str, *args, timeout: float):
-    """`name`(rank, WORLD, *args) in WORLD processes started with the spawn
-    method, rank r on cuda:r; -> each rank's result. A failed rank stops
-    the others and raises; so does the timeout, after killing them."""
+def spawn_ranks(name: str, *args, timeout: float, world: int = WORLD):
+    """`name`(rank, world, *args) in `world` processes started with the
+    spawn method, rank r on cuda:r; -> each rank's result. A failed rank
+    stops the others and raises; so does the timeout, after killing
+    them."""
     import shutil
     import tempfile
     import torch.multiprocessing as mp
     tmp = tempfile.mkdtemp(prefix="ddl_four_cards_")
     try:
-        ctx = mp.start_processes(_rank_main, args=(WORLD, tmp, name, args), nprocs=WORLD,
+        ctx = mp.start_processes(_rank_main, args=(world, tmp, name, args), nprocs=world,
                                  start_method="spawn", join=False)
         deadline = time.monotonic() + timeout
         while not ctx.join(timeout=2):
@@ -233,9 +251,9 @@ def spawn_ranks(name: str, *args, timeout: float):
                 for p in ctx.processes:
                     p.kill()
                     p.join()
-                raise TimeoutError(f"{name}: {WORLD} ranks did not finish in {timeout} s")
+                raise TimeoutError(f"{name}: {world} ranks did not finish in {timeout} s")
         out = []
-        for r in range(WORLD):
+        for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 out.append(json.load(f))
         return out
@@ -930,6 +948,234 @@ def phase_e(line, rows_out):
     _fail("(e)", {f"{n}/{k}": v for n, c in checks.items() for k, v in c.items()})
 
 
+# ---------------------------------------------------------------------------
+# (g) tensor parallelism
+# ---------------------------------------------------------------------------
+
+def _tp_config(mesh, layers: int, lms=None):
+    """qwen2.5-14b at `layers` layers on `mesh`, a TRAIN_SEQ row a data
+    rank, the overlapped backward, at the peak lr (no warmup)."""
+    import dataclasses
+    from repro_torch.config.base import DDLConfig
+    tcfg = cs._ddl_config(layers, mesh, ddl=DDLConfig(overlap_grads=True),
+                          batch=mesh[0] * mesh[1], log_every=1)
+    tcfg = dataclasses.replace(tcfg, learning_rate=cs.TRAIN_LR, warmup_steps=0,
+                               total_steps=G_STEPS)
+    return tcfg if lms is None else dataclasses.replace(tcfg, lms=lms)
+
+
+def _tp_run(tcfg, masters_out=None, masters_ref=None):
+    """One rank's `Trainer` on `tcfg` for G_STEPS steps from the seed: each
+    step's loss, ce, grad norm and time (synced), RMSNorm's launches; the
+    state's checksums at the end, the replicated leaves' apart; the
+    masters saved to `masters_out` (rank 0) or held against the global
+    ones in `masters_ref` (this rank's blocks of them)."""
+    import torch
+    from repro_torch.core.lms import offload as off
+    from repro_torch.models import sharding as shd
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves
+    trainer = Trainer(tcfg, device="cuda")
+    mesh = trainer.mesh
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    init = [state]
+    trainer.init_state = lambda: init.pop()
+    del state
+    launchers = cs._launchers()
+    launchers["rmsnorm"].launches = 0
+    rows, before = [], [off.swap_counters()]
+
+    def on_step(step, row):
+        torch.cuda.synchronize()
+        swap = cs._swap_per_step(before[0], off.swap_counters(), 1)
+        before[0] = off.swap_counters()
+        rows.append({"step": step, **{k: row[k] for k in ("loss", "ce", "grad_norm",
+                                                          "time_s")},
+                     "rmsnorm_launches": launchers["rmsnorm"].launches, "swap": swap})
+        launchers["rmsnorm"].launches = 0
+    state, _ = trainer.train(G_STEPS, on_step=on_step)
+    model = trainer.model
+    sharded = tree_leaves(shd.sharded_tree(model.param_defs(), mesh))
+    replicated = cs._checksums({f"{name}/{i}": t for name, tree in (
+        ("params", state.params), ("master", state.opt.master), ("mu", state.opt.mu),
+        ("nu", state.opt.nu)) for i, (t, sh) in enumerate(zip(tree_leaves(tree), sharded))
+        if not sh})
+    sums = cs._state_checksums(state)
+    peers = [None] * mesh.size("data")
+    if mesh.size("data") > 1:
+        import torch.distributed as dist
+        got = [None] * dist.get_world_size()
+        dist.all_gather_object(got, [mesh.index("model"), sums])
+        peers = [s for m, s in got if m == mesh.index("model")]
+    facts = {"setup_s": setup_s, "peak_bytes": torch.cuda.max_memory_allocated(),
+             "pinned_bytes": off.pinned_bytes(), "checksums": sums,
+             "replicated_leaves": len(replicated),
+             "replicated_same_on_ranks": cs._same_on_all_ranks(replicated),
+             "blocks_same_across_data": all(p == sums for p in peers if p is not None),
+             "coords": [mesh.index(a) for a in cs.DDL_AXES]}
+    masters = tree_leaves(state.opt.master)
+    if masters_out is not None and mesh.rank == 0:
+        torch.save([t.cpu() for t in masters], masters_out)
+    if masters_ref is not None:
+        unit = cs.TRAIN_LR * G_STEPS
+        ref = torch.load(masters_ref, mmap=True)
+        specs = tree_leaves(model.param_specs(mesh))
+        n = worst = over_median = over_p99 = 0
+        for got, want, sp in zip(masters, ref, specs):
+            d = (got - shd.local_shard(want, sp, mesh).cuda()).abs()
+            n += d.numel()
+            worst = max(worst, d.max().item())
+            over_median += int((d > 0.01 * unit).sum())
+            over_p99 += int((d > 0.1 * unit).sum())
+        facts["masters"] = {"elements": n, "max_over_lr_n": worst / unit,
+                            "share_over_0.01_lr_n": over_median / n,
+                            "share_over_0.1_lr_n": over_p99 / n}
+    plan = trainer.plan
+    del trainer, state, init, masters
+    off.release_arenas()
+    torch.cuda.empty_cache()
+    return {"plan": cs._plan_row(plan), "rows": rows, "facts": facts}
+
+
+def _tp_dp_rank(rank: int, world: int, path: str):
+    """(g1)'s reference on 1x2x1: its masters saved to `path`."""
+    return _tp_run(_tp_config(MESH_G1_DP, G1_LAYERS), masters_out=path)
+
+
+def _tp_g1_rank(rank: int, world: int, path: str):
+    return _tp_run(_tp_config(MESH_G1, G1_LAYERS), masters_ref=path)
+
+
+def _tp_g2_rank(rank: int, world: int):
+    return _tp_run(_tp_config(MESH_G2, G2_LAYERS))
+
+
+def _tp_g3_rank(rank: int, world: int):
+    """(g3): resident, then under the plan of LMS_DDL_BUDGET."""
+    from repro_torch.config.base import LMSConfig
+    return {"resident": _tp_run(_tp_config(MESH_G1, G3_LAYERS)),
+            "planned": _tp_run(_tp_config(MESH_G1, G3_LAYERS,
+                                          LMSConfig(hbm_budget=cs.LMS_DDL_BUDGET)))}
+
+
+def _tp_summary(ranks, get, cfg, mesh, line):
+    """A tensor-parallel run's row: rank 0's steady steps, tokens/s of the
+    global batch, model FLOP/s over the cards and its share of their bf16
+    peak, each rank's peak."""
+    run = get(ranks[0])
+    rows = run["rows"]
+    step_s = _steady(rows, "time_s")
+    tokens = mesh[0] * mesh[1] * cs.TRAIN_SEQ
+    flops, _ = cs._train_flops(cfg, tokens, cs.TRAIN_SEQ)
+    cards = math.prod(mesh)
+    return {"card": line, "layers": cfg.num_layers, "mesh": list(mesh),
+            "step_s_steady": step_s, "step_s": [r["time_s"] for r in rows],
+            "tokens_per_step": tokens, "tokens_per_s": tokens / step_s,
+            "model_flops_per_s": flops / step_s,
+            "bf16_peak_share": flops / step_s / (cards * cs.BF16_TENSOR_FLOPS_PER_S),
+            "loss": [r["loss"] for r in rows], "grad_norm": [r["grad_norm"] for r in rows],
+            "rmsnorm_launches": [r["rmsnorm_launches"] for r in rows],
+            "swap_bytes_per_step": _steady([{"m": _moved(r["swap"])} for r in rows], "m"),
+            "peak_bytes": [get(r)["facts"]["peak_bytes"] for r in ranks],
+            "pinned_bytes": [get(r)["facts"]["pinned_bytes"] for r in ranks],
+            "setup_s": [get(r)["facts"]["setup_s"] for r in ranks],
+            "plan": run["plan"]}
+
+
+def _tp_plan(mesh, layers: int, lms):
+    from repro_torch.core.lms.planner import PlanRequest, plan as plan_lms
+    tcfg = _tp_config(mesh, layers, lms)
+    return plan_lms(PlanRequest(cfg=tcfg.model, shape=tcfg.shape, mesh=tcfg.mesh,
+                                lms=tcfg.lms))
+
+
+def phase_g(line, rows_out):
+    """(g) tensor parallelism across the cards (the module docstring)."""
+    import shutil
+    import tempfile
+    from repro_torch.config.base import LMSConfig
+    t0 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="ddl_four_cards_tp_", dir=cs.CKPT_RAM_ROOT)
+    try:
+        path = os.path.join(tmp, "masters.pt")
+        dp = spawn_ranks("_tp_dp_rank", path, timeout=TIMEOUT_S["g"], world=2)
+        tp = spawn_ranks("_tp_g1_rank", path, timeout=TIMEOUT_S["g"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def rel(k):
+        return max(abs(r["rows"][i][k] - dp[0]["rows"][i][k]) / abs(dp[0]["rows"][i][k])
+                   for r in tp for i in range(G_STEPS))
+    bounds = {"max_over_lr_n": 2.0, "share_over_0.01_lr_n": 0.5, "share_over_0.1_lr_n": 0.01}
+    cfg = _tp_config(MESH_G1, G1_LAYERS).model
+    checks = {
+        **{f"{k}_within_2e-3": rel(k) <= 2e-3 for k in ("loss", "ce", "grad_norm")},
+        **{f"masters_{k}": all(r["facts"]["masters"][k] <= b for r in tp)
+           for k, b in bounds.items()},
+        "replicated_leaves_bitwise_across_model":
+            all(r["facts"]["replicated_same_on_ranks"] for r in tp),
+        "blocks_bitwise_across_data": all(r["facts"]["blocks_same_across_data"] for r in tp),
+        "rmsnorm_launches_4L+1_a_step": all(
+            x["rmsnorm_launches"] == 4 * G1_LAYERS + 1 for r in tp for x in r["rows"]),
+        "finite": all(_finite(r) for r in tp + dp)}
+    emit({"phase": "g1_tp_against_dp", "arch": cs.ARCH, "layers": G1_LAYERS,
+          "mesh": list(MESH_G1), "reference_mesh": list(MESH_G1_DP), "backend": "nccl",
+          "card": line, "rel": {k: rel(k) for k in ("loss", "ce", "grad_norm")},
+          "masters": [r["facts"]["masters"] for r in tp],
+          "tp": _tp_summary(tp, lambda r: r, cfg, MESH_G1, line),
+          "dp": _tp_summary(dp, lambda r: r, cfg, MESH_G1_DP, line),
+          "seconds": time.monotonic() - t0, "checks": checks}, rows_out)
+    _fail("(g1)", checks)
+
+    t0 = time.monotonic()
+    g2 = spawn_ranks("_tp_g2_rank", timeout=TIMEOUT_S["g"])
+    cfg2 = _tp_config(MESH_G2, G2_LAYERS).model
+    plan2 = _tp_plan(MESH_G2, G2_LAYERS, LMSConfig(enabled=False))
+    summary = _tp_summary(g2, lambda r: r, cfg2, MESH_G2, line)
+    checks = {"finite": all(_finite(r) for r in g2),
+              "replicated_leaves_bitwise_across_model":
+                  all(r["facts"]["replicated_same_on_ranks"] for r in g2),
+              "rmsnorm_launches_4L+1_a_step": all(
+                  x["rmsnorm_launches"] == 4 * G2_LAYERS + 1 for r in g2 for x in r["rows"])}
+    emit({"phase": "g2_tp_resident", "arch": cs.ARCH, "backend": "nccl", **summary,
+          "params": cfg2.param_count(),
+          "plan_peak_bytes": plan2.peak_bytes,
+          "peak_over_plan": [p / plan2.peak_bytes for p in summary["peak_bytes"]],
+          "against_c": {"c_step_s": 8.45, "c_tokens_per_step": WORLD * cs.TRAIN_SEQ,
+                        "c_tokens_per_s": WORLD * cs.TRAIN_SEQ / 8.45},
+          "seconds": time.monotonic() - t0, "checks": checks}, rows_out)
+    _fail("(g2)", checks)
+
+    t0 = time.monotonic()
+    budget = LMSConfig(hbm_budget=cs.LMS_DDL_BUDGET)
+    plan3 = _tp_plan(MESH_G1, G3_LAYERS, budget)
+    need = 4 * plan3.host_bytes
+    mem = _host_room("(g3)", need)
+    g3 = spawn_ranks("_tp_g3_rank", timeout=TIMEOUT_S["g"])
+    cfg3 = _tp_config(MESH_G1, G3_LAYERS).model
+    res = {m: _tp_summary(g3, lambda r, m=m: r[m], cfg3, MESH_G1, line)
+           for m in ("resident", "planned")}
+    checks = {
+        "plan_streams_params": plan3.residency.get("params") == "host",
+        "planned_bitwise_resident_every_rank": all(
+            [(x["loss"], x["grad_norm"]) for x in r["planned"]["rows"]]
+            == [(x["loss"], x["grad_norm"]) for x in r["resident"]["rows"]]
+            and r["planned"]["facts"]["checksums"] == r["resident"]["facts"]["checksums"]
+            for r in g3),
+        "finite": all(_finite(r[m]) for r in g3 for m in res)}
+    emit({"phase": "g3_tp_planned", "arch": cs.ARCH, "backend": "nccl", "card": line,
+          "hbm_budget": cs.LMS_DDL_BUDGET, **res, "plan_peak_bytes": plan3.peak_bytes,
+          "plan_host_bytes": plan3.host_bytes,
+          "peak_over_plan": [p / plan3.peak_bytes for p in res["planned"]["peak_bytes"]],
+          "meminfo_before": mem, "seconds": time.monotonic() - t0, "checks": checks}, rows_out)
+    _fail("(g3)", checks)
+
+
 def emit(row, rows_out):
     rows_out.append(row)
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
@@ -963,11 +1209,11 @@ def header():
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="a,b,c,d,e,f",
-                    help="comma-separated subset of a,b,c,d,e,f (a and d run together)")
+    ap.add_argument("--phases", default="a,b,c,d,e,f,g",
+                    help="comma-separated subset of a,b,c,d,e,f,g (a and d run together)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
-    known = {"a", "b", "c", "d", "e", "f"}
+    known = {"a", "b", "c", "d", "e", "f", "g"}
     if not phases <= known:
         raise SystemExit(f"--phases: unknown {sorted(phases - known)}")
     import torch
@@ -987,6 +1233,8 @@ def main() -> int:
         phase_c(line, rows)
     if "f" in phases:
         phase_f(line, rows)
+    if "g" in phases:
+        phase_g(line, rows)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -39,6 +39,16 @@ the same newest step). A rank that dies before the second barrier leaves
 no committed step. On one process the barriers are nothing, and the order
 is the JAX package's.
 
+Tensor parallelism. Checkpoints keep the global layout, as the JAX
+package's do, written in blocks: on a mesh with a `model` axis above 1
+the data-0 rank of each `model` index m writes ``shard_<m>.npz`` with its
+block of every leaf sharded over `model` under the leaf's own key, and
+`model` 0 also writes the replicated leaves and the step counters
+(`Trainer.save`). A leaf's blocks, joined along its sharded dim in `model`
+order, are the global leaf. A restore on as many `model` ranks reads each
+rank's own block (its shard wins); elsewhere `read_local` joins the blocks
+or cuts the global leaf to the block the reading rank holds.
+
 Restore reads an ``.npz`` one member at a time (`CheckpointReader`): each
 leaf is read into the tensor it goes to, in chunks, so neither the whole
 state nor a whole leaf stands in pageable memory
@@ -64,6 +74,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.models import sharding as shd
 from repro_torch.obs import get_obs
 from repro_torch.runtime import inject
 
@@ -178,6 +189,7 @@ class CheckpointReader:
 
     def __init__(self, directory: str, step: int, process: int = 0):
         self.step = step
+        self.root = directory
         self.dir = os.path.join(directory, f"step_{step:08d}")
         with open(os.path.join(self.dir, "manifest.json")) as f:
             self.manifest = json.load(f)
@@ -286,6 +298,36 @@ class CheckpointReader:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def read_local(reader: CheckpointReader, key: str, dst: torch.Tensor, global_shape,
+               spec, mesh) -> None:
+    """Read into `dst` this rank's block (with `spec` on the tensor-parallel
+    `mesh`, or the whole leaf without one) of the leaf of `global_shape`
+    stored under `key`: straight from the stored leaf when it has dst's
+    shape (a replicated leaf, or this rank's own block of a checkpoint
+    written on as many `model` ranks); else the global leaf, joined from
+    the blocks the checkpoint holds in its `model` ranks' shards where it
+    was written in blocks, and cut to this rank's block."""
+    shape, dtype = reader.info(key)
+    if tuple(shape) == tuple(dst.shape):
+        reader.read_into(key, dst)
+        return
+    whole = torch.empty(tuple(global_shape), dtype=dtype)
+    if tuple(shape) == tuple(global_shape):
+        reader.read_into(key, whole)
+    else:
+        diff = [i for i, (a, b) in enumerate(zip(shape, global_shape)) if a != b]
+        if len(diff) != 1 or global_shape[diff[0]] % shape[diff[0]]:
+            raise ValueError(f"leaf {key!r} is stored {tuple(shape)}: not a block of "
+                             f"{tuple(global_shape)}")
+        d, n = diff[0], shape[diff[0]]
+        for m in range(global_shape[d] // n):
+            with CheckpointReader(reader.root, reader.step, process=m) as r:
+                block = torch.empty(tuple(shape), dtype=dtype)
+                r.read_into(key, block)
+                whole.narrow(d, m * n, n).copy_(block)
+    dst.copy_(shd.local_shard(whole, spec, mesh))
 
 
 def _fill(f, out: Optional[memoryview], key: str) -> None:

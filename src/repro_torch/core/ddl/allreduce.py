@@ -176,33 +176,45 @@ def flat_allreduce(x, axes: Tuple[str, ...], *, mesh, mean_over: int = 1):
 # ---------------------------------------------------------------------------
 #
 # The DDL schedule is applied PER LEAF, never across leaves: each leaf is
-# reduce-scattered over the first dimension divisible by |data| (no leaf is
-# model-sharded in the port); a leaf with no such dimension takes a plain
-# hierarchical psum.
+# reduce-scattered over the first dimension that is divisible by |data| and
+# not sharded over `model` (its spec, `models/sharding.py`: a
+# tensor-parallel leaf is this rank's block, reduced over the data ranks
+# that hold the same block); a leaf with no such dimension takes a plain
+# hierarchical psum. The int8 pod hop compresses replicated leaves only; a
+# sharded leaf's pod hop is a plain f32 sum, as in the JAX package.
 
-def _choose_scatter_dim(shape, data_size: int) -> Optional[int]:
-    for i, s in enumerate(shape):
-        if s % data_size == 0 and s > 0:
+def _choose_scatter_dim(shape, data_size: int, spec=None) -> Optional[int]:
+    spec = tuple(spec) if spec is not None else ()
+    spec = spec + (None,) * (len(shape) - len(spec))
+    for i, (s, ax) in enumerate(zip(shape, spec)):
+        if ax is None and s % data_size == 0 and s > 0:
             return i
     return None
 
 
+def _leaf_is_replicated(spec) -> bool:
+    return spec is None or all(a is None for a in tuple(spec))
+
+
 def ddl_reduce_leaf(g, *, mesh, data_axis: str, pod_axis: Optional[str],
                     data_size: int, pod_size: int, compress_dcn: bool,
-                    topology_aware: bool, error_feedback=None, out=None):
+                    topology_aware: bool, error_feedback=None, out=None, spec=None):
     """DDL schedule on one gradient leaf. Returns (mean grad, new EF): an
     f32 tensor, or `out` (any float dtype, g's shape) with the mean written
     into it — `out` may be g itself, which saves a leaf-sized buffer.
 
     Reductions run in f32. The leaf is reduce-scattered along its scatter
     dimension, and the shard flattened in g's own dimension order, so the
-    1024-element rows the pod hop quantizes are the JAX package's."""
+    1024-element rows the pod hop quantizes are the JAX package's.
+    `spec`: the leaf's spec; a leaf sharded over `model` is never
+    scattered along its sharded dim, and its pod hop is not compressed."""
+    compress_dcn = compress_dcn and _leaf_is_replicated(spec)
     mean_over = data_size * pod_size
     if not topology_aware:
         axes = (data_axis,) + ((pod_axis,) if pod_axis else ())
         r = flat_allreduce(g.float(), axes, mesh=mesh, mean_over=mean_over)
         return _into(r, out), error_feedback
-    sdim = _choose_scatter_dim(g.shape, data_size)
+    sdim = _choose_scatter_dim(g.shape, data_size, spec)
     if sdim is None:
         # fallback: plain hierarchical psum (no RS/AG decomposition)
         r = mesh.psum(g.float(), data_axis)
@@ -244,8 +256,11 @@ def _ef_like(new_ef, error_feedback):
 
 def ddl_reduce_tree(grads, cfg: DDLConfig, *, mesh, data_axis: str = "data",
                     pod_axis: Optional[str] = None, data_size: int,
-                    pod_size: int = 1, error_feedback=None):
+                    pod_size: int = 1, error_feedback=None, param_specs=None):
     """DDL-reduce a gradient tree. Returns (mean grads, new EF list).
+    `param_specs`: a list of the leaves' specs in tree order (`models/
+    sharding.py`), for the scatter dim and the compression (None: every
+    leaf replicated).
 
     IN PLACE: each leaf's mean is written into the leaf and rounded to its
     dtype (what the JAX package's `astype(g.dtype)` gives), so the grads
@@ -254,12 +269,15 @@ def ddl_reduce_tree(grads, cfg: DDLConfig, *, mesh, data_axis: str = "data",
         return grads, error_feedback
     leaves = tree_leaves(grads)
     efs = error_feedback if error_feedback is not None else [None] * len(leaves)
+    specs = param_specs if param_specs is not None else [None] * len(leaves)
+    if len(specs) != len(leaves):
+        raise ValueError(f"{len(specs)} specs for {len(leaves)} leaves")
     out, new_ef = [], []
-    for g, ef in zip(leaves, efs):
+    for g, ef, sp in zip(leaves, efs, specs):
         r, e = ddl_reduce_leaf(
             g, mesh=mesh, data_axis=data_axis, pod_axis=pod_axis, data_size=data_size,
             pod_size=pod_size, compress_dcn=cfg.compress_dcn,
-            topology_aware=cfg.topology_aware, error_feedback=ef, out=g)
+            topology_aware=cfg.topology_aware, error_feedback=ef, out=g, spec=sp)
         out.append(r)
         new_ef.append(e)
     ef_out = new_ef if error_feedback is not None else None

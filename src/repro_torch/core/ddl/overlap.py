@@ -53,8 +53,34 @@ sums in another layout. In shard mode the queue adds (the sharded
 microbatch accumulator) or copies (zero1's grad shard) each layer's slot
 into that layer's rows of a flat buffer.
 
-Not ported yet: the JAX package's per-leaf PartitionSpecs (`param_specs`),
-which only tensor parallelism needs.
+Tensor parallelism: each leaf's spec (`models/sharding.py`, the layer's
+with the layer dim dropped) goes with its grads. In "full" mode a leaf
+sharded over `model` never goes into a bucket: it is this rank's block,
+reduced alone over the data ranks that hold the same block
+(`ddl_reduce_leaf`, scattered along a dim `model` does not shard, its
+pod hop an f32 sum), as in the JAX package; the replicated leaves bucket
+as before. "shard" mode flattens every leaf (zero1's layout is
+TP-oblivious in the JAX package, and the port's zero1 raises under
+tensor parallelism); the sharded microbatch accumulator lays out this
+rank's blocks.
+
+Two communicators in flight. Under tensor parallelism the backward
+issues its sums over `model` (the activations' grads at the column-parallel
+regions' inputs, and a recomputed layer's forward sums) from autograd's
+thread on the compute stream, while the queue's worker reduces over the
+data axes from its own thread on its own stream. No param's grad needs a
+sum over `model` (a sharded leaf's grad is its block's; a replicated
+leaf's is formed from replicated activations, the same on every `model`
+rank), so a layer goes to the queue with nothing left to do over `model`.
+Each process group is used by one thread at a time, in program order:
+every rank issues each group's collectives in one order, and the two
+groups' overlap. The worker depends only on its data-axis peers and on
+the layers put, and the backward on its `model` peers and on the queue's
+room, so no wait closes a cycle. On NCCL the two are separate
+communicators on separate streams, which the card runs side by side; a
+layer's reductions wait (on the card) for what the compute stream had
+queued when its grads were put.
+
 Error feedback is not threaded through the hooks, as in the JAX package
 (its `custom_vjp` backward returns cotangents only): compressed buckets
 quantize statelessly here.
@@ -72,8 +98,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import DDLConfig
-from repro_torch.core.ddl.allreduce import (POD_SLICE, _pod_reduce_, flat_allreduce,
-                                            make_buckets)
+from repro_torch.core.ddl.allreduce import (POD_SLICE, _leaf_is_replicated, _pod_reduce_,
+                                            ddl_reduce_leaf, flat_allreduce, make_buckets)
 from repro_torch.core.lms import offload as off
 from repro_torch.obs import get_obs
 from repro_torch.tree import tree_leaves, tree_unflatten
@@ -168,19 +194,35 @@ def _split_bucket(flat, leaves):
 
 def reduce_tree_bucketed(ct, cfg: DDLConfig, *, mesh, data_axis: str,
                          pod_axis: Optional[str], data_size: int, pod_size: int,
-                         keep: str = "full"):
+                         keep: str = "full", param_specs=None):
     """DDL-reduce one layer's grad tree with fixed-size bucketing: with
     keep="full" each bucket to its full mean, with keep="shard" to this
     rank's slot of each leaf in a zero grad (`_reduce_bucket_shard`). This
     is the hook's backward, exposed for direct testing. Counts the buckets
     and their f32 bytes on the global registry (`ddl.buckets`,
-    `ddl.bucket_bytes`) and records a `ddl.bucket` event, once a call."""
+    `ddl.bucket_bytes`) and records a `ddl.bucket` event, once a call.
+    `param_specs`: the leaves' specs in tree order; in "full" mode (and
+    topology-aware) a leaf sharded over `model` reduces alone
+    (`ddl_reduce_leaf`), never in a bucket, as in the JAX package."""
     if keep not in ("full", "shard"):
         raise ValueError(f"keep must be 'full' or 'shard', not {keep!r}")
     leaves = tree_leaves(ct)
+    specs = param_specs if param_specs is not None else [None] * len(leaves)
+    if len(specs) != len(leaves):
+        raise ValueError(f"{len(specs)} specs for {len(leaves)} leaves")
     out: List[Optional[torch.Tensor]] = [None] * len(leaves)
-    sizes = [max(g.numel(), 1) for g in leaves]
-    buckets = make_buckets(sizes, _bucket_elems(cfg))
+    bucketable = []
+    for i, (g, sp) in enumerate(zip(leaves, specs)):
+        if keep == "full" and cfg.topology_aware and not _leaf_is_replicated(sp):
+            r, _ = ddl_reduce_leaf(g, mesh=mesh, data_axis=data_axis, pod_axis=pod_axis,
+                                   data_size=data_size, pod_size=pod_size,
+                                   compress_dcn=cfg.compress_dcn,
+                                   topology_aware=cfg.topology_aware, spec=sp)
+            out[i] = r.to(g.dtype)
+        else:
+            bucketable.append(i)
+    sizes = [max(leaves[i].numel(), 1) for i in bucketable]
+    buckets = [[bucketable[j] for j in b] for b in make_buckets(sizes, _bucket_elems(cfg))]
     if buckets:
         obs = get_obs()
         obs.instant("ddl.bucket", buckets=len(buckets), bytes=4 * sum(sizes), keep=keep)
@@ -410,17 +452,19 @@ class GradReduceHook:
 
     def __init__(self, cfg: DDLConfig, *, mesh, data_axis: str, pod_axis: Optional[str],
                  data_size: int, pod_size: int, keep: str = "full",
-                 sink: Optional[str] = None):
+                 sink: Optional[str] = None, param_specs=None):
         if keep not in ("full", "shard"):
             raise ValueError(f"keep must be 'full' or 'shard', not {keep!r}")
         self.cfg, self.mesh, self.keep = cfg, mesh, keep
+        self.param_specs = param_specs
         self.axes = dict(data_axis=data_axis, pod_axis=pod_axis, data_size=data_size,
                          pod_size=pod_size)
         self.queue = ReductionQueue(self.reduce, sink,
                                     self.slot if keep == "shard" else None)
 
     def reduce(self, ct):
-        return reduce_tree_bucketed(ct, self.cfg, mesh=self.mesh, keep=self.keep, **self.axes)
+        return reduce_tree_bucketed(ct, self.cfg, mesh=self.mesh, keep=self.keep,
+                                    param_specs=self.param_specs, **self.axes)
 
     def slot(self, g) -> torch.Tensor:
         """This rank's slot of one layer's leaf (`local_slot`)."""
@@ -437,7 +481,7 @@ class GradReduceHook:
 def make_grad_reduce_hook(cfg: DDLConfig, *, mesh, data_axis: str = "data",
                           pod_axis: Optional[str] = None, data_size: int = 1,
                           pod_size: int = 1, keep: str = "full",
-                          sink: Optional[str] = None) -> GradReduceHook:
+                          sink: Optional[str] = None, param_specs=None) -> GradReduceHook:
     """Identity-forward wrapper whose backward queues the grads for their
     DDL reduction: wrap a layer's param tree before the layer runs (`lp =
     hook(lp, i, dst, x)`), and the queue issues that layer's collectives as
@@ -445,21 +489,27 @@ def make_grad_reduce_hook(cfg: DDLConfig, *, mesh, data_axis: str = "data",
     `keep`: "full" or "shard". `sink`: the memory kind the LMS executor's
     queue writes the reduced grads to (`offload.HOST` for a plan with
     grads on the host; None keeps them on the device), as the JAX
-    package's `sink`."""
+    package's `sink`. `param_specs`: the layer's leaves' specs in tree
+    order (`reduce_tree_bucketed`)."""
     return GradReduceHook(cfg, mesh=mesh, data_axis=data_axis, pod_axis=pod_axis,
-                          data_size=data_size, pod_size=pod_size, keep=keep, sink=sink)
+                          data_size=data_size, pod_size=pod_size, keep=keep, sink=sink,
+                          param_specs=param_specs)
 
 
 def make_stack_hooks(stack_names: Iterable[str], cfg: DDLConfig, *, mesh,
                      data_axis: str = "data", pod_axis: Optional[str] = None,
                      data_size: int = 1, pod_size: int = 1, keep: str = "full",
-                     sink: Optional[str] = None) -> Dict[str, GradReduceHook]:
-    """One hook per decoder stack group, by name (the JAX package keys them
-    by the groups' PartitionSpec trees, which the port does not have).
-    `keep`, `sink`: as `make_grad_reduce_hook`'s."""
+                     sink: Optional[str] = None,
+                     stack_specs: Optional[Dict[str, list]] = None) -> Dict[str, GradReduceHook]:
+    """One hook per decoder stack group, by name. `keep`, `sink`: as
+    `make_grad_reduce_hook`'s; `stack_specs`: {name: the group's layer
+    leaves' specs in tree order}, as the JAX package's per-group spec
+    trees."""
+    stack_specs = stack_specs or {}
     return {name: make_grad_reduce_hook(
                 cfg, mesh=mesh, data_axis=data_axis, pod_axis=pod_axis,
-                data_size=data_size, pod_size=pod_size, keep=keep, sink=sink)
+                data_size=data_size, pod_size=pod_size, keep=keep, sink=sink,
+                param_specs=stack_specs.get(name))
             for name in stack_names}
 
 

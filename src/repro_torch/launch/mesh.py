@@ -1,14 +1,18 @@
-"""The device mesh of a data-parallel run over `torch.distributed`.
+"""The device mesh of a run over `torch.distributed`: data parallel over
+`pod` and `data`, tensor parallel over `model`.
 
 The JAX package runs one process over a `("pod", "data", "model")` mesh of
 devices and reduces gradients with collectives over named axes inside a
-`shard_map`. The port runs one process per mesh device, in the torchrun
-idiom (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`), numbered row-major over the
-mesh's axes, which is the JAX mesh's device order: on a
-`("pod", "data", "model")` mesh with |model| = 1, rank = pod * |data| +
-data. `make_mesh` gives each rank a `Mesh`: its coordinates, the axis
-sizes, one process group per axis, and the three collectives the DDL
-schedule needs over a named axis (`psum`, `psum_scatter`, `all_gather`).
+`shard_map` (GSPMD partitions the model over `model`). The port runs one
+process per mesh device, in the torchrun idiom (`RANK`, `WORLD_SIZE`,
+`LOCAL_RANK`), numbered row-major over the mesh's axes, which is the JAX
+mesh's device order: on a `("pod", "data", "model")` mesh, rank =
+(pod * |data| + data) * |model| + model. `make_mesh` gives each rank a
+`Mesh`: its coordinates, the axis sizes, one process group per axis of
+size > 1, and the collectives over a named axis: the three the DDL
+schedule needs (`psum`, `psum_scatter`, `all_gather`) and those of the
+tensor-parallel layers over `model` (`psum`, `all_gather`,
+`models/sharding.py`).
 
 Backends. NCCL needs a card of its own for each rank, so ranks that share
 one card (and ranks on the CPU) talk over gloo. A group's collectives pick
@@ -20,8 +24,9 @@ allocator, which keeps and reuses its blocks): the copy out waits only
 for the calling thread's current stream, and the copy back in is queued
 on that stream without blocking the host, so a thread reducing on a
 stream of its own (the LMS + DDL reduction queue, `core/ddl/overlap.py`)
-leaves the other streams running. Reductions run in f32, as the DDL
-schedule's callers cast (`core/ddl/allreduce.py`).
+leaves the other streams running. The DDL schedule's reductions run in
+f32, as its callers cast (`core/ddl/allreduce.py`); the tensor-parallel
+layers' sums in the dtypes `models/sharding.py` gives them.
 """
 from __future__ import annotations
 
@@ -175,13 +180,7 @@ def make_mesh(spec: MeshSpec) -> Mesh:
     """This rank's `Mesh` of `spec`. A mesh of one device needs no process
     group; a larger one needs `torch.distributed` initialised with a world
     of `spec.num_devices` ranks. Every rank creates every axis group, in
-    the same order, as `dist.new_group` requires. A `model` axis above 1
-    (tensor parallelism) raises: it is not ported yet."""
-    sizes = dict(zip(spec.axes, spec.shape))
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"mesh {spec.shape} {spec.axes}: tensor parallelism (a 'model' axis "
-            "above 1) is not ported yet")
+    the same order, as `dist.new_group` requires."""
     n = spec.num_devices
     if n == 1:
         return Mesh(spec)

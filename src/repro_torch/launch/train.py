@@ -45,7 +45,14 @@ fresh rendezvous next to the checkpoints):
         --smoke --steps 8 --ckpt-dir build/ckpt --ckpt-every 2 \
         --supervise --fault-step 5
 
-Tensor parallelism (a `model` axis above 1) is not ported yet: it raises.
+Tensor parallelism: a `model` axis above 1 splits the dense stacks' heads,
+`ff` and vocab over its ranks (`models/sharding.py`), beside DDL over the
+`pod` and `data` axes, resident or under LMS; zero1 and the Mamba-2 and
+MoE stacks raise there (not ported yet):
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch qwen2.5-14b --smoke --no-lms \
+        --mesh 1x2x2 --steps 20 --batch 8 --seq 128
 """
 from __future__ import annotations
 
@@ -62,10 +69,13 @@ from repro_torch.config.base import (DDLConfig, LMSConfig, MeshSpec,
                                      ShapeConfig, TrainConfig)
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch.mesh import local_device
+from repro_torch.models import transformer as tr
+from repro_torch.models.sharding import model_size
 from repro_torch.obs import (TelemetryLoop, configure, export_chrome_trace,
                              get_obs, write_obs_report)
 from repro_torch.runtime import (FaultEvent, FaultInjector, FaultPlan,
                                  RestartPolicy, Supervisor)
+from repro_torch.train.steps import ZERO1_TP
 from repro_torch.train.trainer import Trainer
 
 
@@ -139,9 +149,12 @@ def main(argv=None):
                         "instead of --fault-step")
     args = p.parse_args(argv)
     mesh = parse_mesh(args.mesh)
-    if dict(zip(mesh.axes, mesh.shape)).get("model", 1) > 1:
-        raise NotImplementedError(
-            "not ported yet: --mesh with a model axis above 1 (tensor parallelism)")
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if model_size(mesh) > 1:
+        # what tensor parallelism does not run yet, before any rank starts
+        if args.ddl_mode == "zero1":
+            raise NotImplementedError(ZERO1_TP)
+        tr._check_kinds(cfg, mesh)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world != mesh.num_devices:
         raise ValueError(f"WORLD_SIZE {world} disagrees with --mesh {args.mesh} "
@@ -150,7 +163,6 @@ def main(argv=None):
         _init_process_group(args.device, world)
     rank0 = not dist.is_initialized() or dist.get_rank() == 0
 
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     tcfg = TrainConfig(
         model=cfg,
         shape=ShapeConfig("cli", "train", args.seq, args.batch),

@@ -13,6 +13,7 @@ from repro_torch.core.lms.policies import tagged
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (attention_mask,
                                                      flash_decode_ref)
+from repro_torch.models import sharding as shd
 from repro_torch.models.layers import ParamDef
 
 NEG_INF = -1e30
@@ -48,18 +49,25 @@ def _proj_bias(x, w, b=None):
     return y if b is None else y + b
 
 
-def project_qkv(cfg, p, x):
+def project_qkv(cfg, p, x, mesh=None):
     """-> q [B,S,H,D], k/v [B,S,K,D], each tagged "qkv": saving them spares
-    the backward the projection matmuls under remat."""
+    the backward the projection matmuls under remat. On a tensor-parallel
+    `mesh` the projections are column-parallel: H and K are this rank's
+    heads (H / |model|, K / |model|; G = H / K is unchanged)."""
+    x = shd.copy_to_model(x, mesh)
     q = tagged("qkv", _proj_bias, x, p["wq"], p.get("bq"))
     k = tagged("qkv", _proj_bias, x, p["wk"], p.get("bk"))
     v = tagged("qkv", _proj_bias, x, p["wv"], p.get("bv"))
     return q, k, v
 
 
-def out_proj(cfg, p, o):
+def out_proj(cfg, p, o, mesh=None):
+    """o [..., H, D] -> [..., d]; row-parallel on a tensor-parallel `mesh`:
+    the partial products of this rank's heads are summed over `model`
+    before `bo` is added."""
     h, hd, d = p["wo"].shape
     out = o.reshape(o.shape[:-2] + (h * hd,)) @ p["wo"].reshape(h * hd, d)
+    out = shd.reduce_from_model(out, mesh)
     if "bo" in p:
         out = out + p["bo"]
     return out

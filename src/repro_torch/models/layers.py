@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.lms.policies import tagged
 from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.models import sharding as shd
 from repro_torch.tree import tree_map
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -72,20 +73,42 @@ def init_pieces(d: ParamDef, generator: torch.Generator, device):
                                 device=device) * d.scale).to(dt)
 
 
-def init_array(d: ParamDef, generator: torch.Generator, device) -> torch.Tensor:
-    out = None
+def local_pieces(d: ParamDef, generator: torch.Generator, device, spec=(), mesh=None):
+    """`init_pieces` of a global leaf with spec `spec`, each piece cut to
+    this rank's block on a tensor-parallel `mesh` (`sharding.local_shard`):
+    every rank draws what one device draws, and keeps its block, so runs
+    on any mesh start from one global state."""
     for i, piece in init_pieces(d, generator, device):
+        yield i, shd.local_shard(piece, spec if i is ... else tuple(spec[1:]), mesh)
+
+
+def init_array(d: ParamDef, generator: torch.Generator, device, spec=(),
+               mesh=None) -> torch.Tensor:
+    """The leaf's initial values (this rank's block of them on a
+    tensor-parallel `mesh`)."""
+    out = None
+    for i, piece in local_pieces(d, generator, device, spec, mesh):
         if i is ...:
-            return piece
+            return piece.contiguous()
         if out is None:
-            out = torch.empty(d.shape, dtype=piece.dtype, device=device)
+            out = torch.empty(shd.local_shape(d.shape, spec, mesh), dtype=piece.dtype,
+                              device=device)
         out[i] = piece
     return out
 
 
-def tree_init(defs, generator: torch.Generator, device):
-    """defs: nested dict of ParamDef -> same-structure dict of tensors."""
-    return tree_map(lambda d: init_array(d, generator, device), defs)
+def tree_init(defs, generator: torch.Generator, device, mesh=None):
+    """defs: nested dict of ParamDef -> same-structure dict of tensors
+    (this rank's blocks on a tensor-parallel `mesh`)."""
+    if shd.tp(mesh) is None:
+        return tree_map(lambda d: init_array(d, generator, device), defs)
+    specs = shd.spec_tree(defs, mesh)
+
+    def go(dd, ss):
+        if isinstance(dd, dict):
+            return {k: go(v, ss[k]) for k, v in dd.items()}
+        return init_array(dd, generator, device, ss, mesh)
+    return go(defs, specs)
 
 
 # ---------------------------------------------------------------------------
@@ -168,11 +191,17 @@ def _geglu(g, u):
     return gelu(g) * u
 
 
-def apply_mlp(cfg, p, x):
+def apply_mlp(cfg, p, x, mesh=None):
     """The tags sit where the JAX package's do: each projection's matmul
     output (before its bias), and the hidden after the activation. The
     LMS planner prices 3 tagged values for a gated MLP and 2 for GELU, and
-    the layer replay matches regions by position."""
+    the layer replay matches regions by position.
+
+    On a tensor-parallel `mesh` the gate and up projections (and their
+    biases) are column-parallel on `ff`, the down projection row-parallel:
+    its partial products are summed over `model` before `b_down` is added
+    (`models/sharding.py`)."""
+    x = shd.copy_to_model(x, mesh)
     # tag the projection outputs: remat otherwise re-runs both matmuls
     if cfg.mlp_act in ("swiglu", "geglu"):
         g = tagged("mlp_hidden", torch.matmul, x, p["w_gate"])
@@ -186,7 +215,7 @@ def apply_mlp(cfg, p, x):
         if cfg.use_bias:
             u = u + p["b_up"]
         h = tagged("mlp_hidden", gelu, u)
-    out = h @ p["w_down"]
+    out = shd.reduce_from_model(h @ p["w_down"], mesh)
     if cfg.use_bias:
         out = out + p["b_down"]
     return out
@@ -225,11 +254,32 @@ def embed_defs(cfg):
     return defs
 
 
-def embed_tokens(cfg, p, tokens):
+def local_ids(cfg, tokens, mesh):
+    """-> (ids into this rank's vocab rows, clamped to 0 where it holds
+    none, and where it holds them) on a tensor-parallel `mesh`."""
+    lo, n = shd.vocab_range(cfg.vocab_size, mesh)
+    local = tokens - lo
+    ok = (local >= 0) & (local < n)
+    return torch.where(ok, local, torch.zeros_like(local)), ok
+
+
+def vocab_parallel_rows(rows, ok, mesh):
+    """The embedding rows of a vocab-parallel lookup: this rank's rows
+    where it holds the token, zeros elsewhere, cast to bf16 and summed
+    over `model` (one term is not zero: the sum is exact)."""
+    rows = torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                        device=rows.device))
+    return shd.reduce_from_model(rows.to(torch.bfloat16), mesh)
+
+
+def embed_tokens(cfg, p, tokens, mesh=None):
     # the JAX package casts the whole f32 table to bf16 and then takes rows;
     # taking the rows first and casting them is the same elementwise cast
     # without writing a bf16 copy of the table every step
-    return p["embedding"][tokens].to(torch.bfloat16)
+    if shd.tp(mesh) is None:
+        return p["embedding"][tokens].to(torch.bfloat16)
+    ids, ok = local_ids(cfg, tokens, mesh)
+    return vocab_parallel_rows(p["embedding"][ids], ok, mesh)
 
 
 def head_block(cfg) -> int:
@@ -241,11 +291,15 @@ def head_block(cfg) -> int:
     return max(share // (2 * cfg.d_model) // 128 * 128, 128)
 
 
-def lm_logits(cfg, p, x):
+def lm_logits(cfg, p, x, mesh=None):
     """x [..., d] -> logits [..., V]. Without autograd a head of more than
     `head_block(cfg)` entries is taken a block at a time, each block's
     product written into the output, so a resident head and one streamed
-    in vocab slices run the same products and give the same logits."""
+    in vocab slices run the same products and give the same logits. On a
+    tensor-parallel `mesh` the head (or the tied table) is this rank's
+    vocab shard, a column-parallel region: the logits are this rank's
+    [..., V / |model|] columns."""
+    x = shd.copy_to_model(x, mesh)
     if cfg.tie_embeddings:
         # the table cast to bf16, as the JAX package casts it; rows of another
         # type promote the product as jnp promotes it (f32 rows: an f32 product)
@@ -306,15 +360,67 @@ class _BlockedNLL(torch.autograd.Function):
         return grad, None, None
 
 
-def cross_entropy(logits, labels, ignore_id: int = -1):
+class _VocabParallelNLL(torch.autograd.Function):
+    """`_BlockedNLL` of logits [T, V / |model|], this rank's vocab columns
+    on a tensor-parallel `mesh`: each rank takes its columns' log-sum-exp
+    and the label's logit where it owns the label (0 elsewhere), a block of
+    rows at a time; one all-gather over `model` brings every rank's [2, T]
+    pair, and each rank forms the row's log-sum-exp over the ranks' and
+    the label's logit (the sum) from them in rank order, so every rank
+    holds the same [T] losses. The backward is local: softmax over the
+    global log-sum-exp minus the one-hot of the labels this rank owns,
+    times each row's grad, a block at a time into the logits' dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, block, mesh):
+        t, v = logits.shape
+        lse = torch.empty(t, dtype=torch.float32, device=logits.device)
+        for a in range(0, t, block):
+            lse[a:a + block] = torch.logsumexp(logits[a:a + block].float(), dim=-1)
+        lo = mesh.index(shd.MODEL) * v
+        local = labels.clamp(min=0).long() - lo
+        ok = (local >= 0) & (local < v)
+        idx = torch.where(ok, local, torch.zeros_like(local))
+        ll = torch.gather(logits, -1, idx[:, None])[:, 0].float()
+        ll = torch.where(ok, ll, torch.zeros_like(ll))
+        got = mesh.all_gather(torch.stack([lse, ll])[None], shd.MODEL)   # [M, 2, T]
+        lse = torch.logsumexp(got[:, 0], dim=0)
+        ctx.save_for_backward(logits, idx, ok, lse)
+        ctx.block = block
+        return lse - got[:, 1].sum(dim=0)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, idx, ok, lse = ctx.saved_tensors
+        grad = torch.empty_like(logits)
+        for a in range(0, logits.shape[0], ctx.block):
+            b = min(a + ctx.block, logits.shape[0])
+            z = logits[a:b].to(torch.float32, copy=True)
+            z.sub_(lse[a:b, None]).exp_().mul_(g[a:b, None])
+            own = ok[a:b]
+            rows = torch.arange(b - a, device=z.device)[own]
+            z[rows, idx[a:b][own]] += -g[a:b][own]
+            grad[a:b] = z
+            del z
+        return grad, None, None, None
+
+
+def cross_entropy(logits, labels, ignore_id: int = -1, mesh=None):
     """Mean token CE in f32; labels == ignore_id are masked (and clipped to
     0 for the gather, as the JAX package takes them). Each row's
     log-sum-exp is taken whole over the vocabulary, LOSS_BLOCK rows at a
     time, and the backward forms the logits' grad a block at a time
     (`_BlockedNLL`): the loss's working set is the logits, their grad and
-    one block's f32 terms (`core/lms/planner.loss_work_bytes`)."""
+    one block's f32 terms (`core/lms/planner.loss_work_bytes`). On a
+    tensor-parallel `mesh` the logits are this rank's vocab columns and
+    the loss is the full vocabulary's (`_VocabParallelNLL`), the same on
+    every rank."""
     v = logits.shape[-1]
-    nll = _BlockedNLL.apply(logits.reshape(-1, v), labels.reshape(-1), LOSS_BLOCK)
+    if shd.tp(mesh) is None:
+        nll = _BlockedNLL.apply(logits.reshape(-1, v), labels.reshape(-1), LOSS_BLOCK)
+    else:
+        nll = _VocabParallelNLL.apply(logits.reshape(-1, v), labels.reshape(-1),
+                                      LOSS_BLOCK, mesh)
     mask = (labels.reshape(-1) != ignore_id).float()
     loss = nll * mask
     return loss.sum() / torch.clamp(mask.sum(), min=1.0)

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import rest
+from repro_torch.models import sharding as shd
 from repro_torch.models import transformer as tr
 from repro_torch.tree import tree_map
 from repro_torch.models.layers import (apply_norm, cross_entropy,
@@ -42,13 +43,24 @@ class Model:
                 "decoder": tr.decoder_defs(cfg),
                 "final_norm": norm_defs(cfg, cfg.d_model)}
 
-    def init(self, seed: int, device):
+    def param_specs(self, mesh=None):
+        """Each leaf's spec on `mesh` (`models/sharding.py`), a tree like
+        `param_defs()`."""
+        return shd.spec_tree(self.param_defs(), mesh)
+
+    def local_param_defs(self, mesh=None):
+        """`param_defs()` with this rank's block shapes on a
+        tensor-parallel `mesh` (the global ones without one)."""
+        return shd.local_defs(self.param_defs(), mesh)
+
+    def init(self, seed: int, device, mesh=None):
         """Random params from a seeded torch Generator on `device` (torch and
         jax.random draw different numbers from one seed; tests copy params
-        across with `repro_torch.convert.params_from_jax`)."""
+        across with `repro_torch.convert.params_from_jax`). On a
+        tensor-parallel `mesh` this rank's blocks of the one-device draws."""
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        return tree_init(self.param_defs(), gen, device)
+        return tree_init(self.param_defs(), gen, device, mesh)
 
     def init_cache(self, batch: int, cache_len: int, device):
         return tree_map(
@@ -56,35 +68,36 @@ class Model:
             tr.cache_defs(self.cfg, batch, cache_len))
 
     # ---- context ---------------------------------------------------------
-    def _ctx(self, seq: int, device, offset: int = 0):
+    def _ctx(self, seq: int, device, offset: int = 0, mesh=None):
         return {"attn_impl": self.attn_impl, "attn_chunk": self.attn_chunk,
-                "ssd_impl": self.ssd_impl,
+                "ssd_impl": self.ssd_impl, "mesh": shd.tp(mesh),
                 "positions": torch.arange(seq, device=device)[None, :] + offset}
 
     # ---- the unstacked rest ----------------------------------------------
-    def _embed(self, params, batch, stream, sink=None):
+    def _embed(self, params, batch, stream, sink=None, mesh=None):
         """The batch's token embeddings; with the table on the host its
         rows are gathered at batch["host_tokens"] where the batch carries
         the ids on the host too (`serve/batching.py`)."""
         if rest.on_host(stream):
             return rest.embed(self.cfg, params["embed"], batch["tokens"], sink,
-                              batch.get("host_tokens"))
-        return embed_tokens(self.cfg, params["embed"], batch["tokens"])
+                              batch.get("host_tokens"), mesh=mesh)
+        return embed_tokens(self.cfg, params["embed"], batch["tokens"], mesh)
 
     def _final_norm(self, params, x, stream, sink=None):
         if rest.on_host(stream):
             return rest.final_norm(self.cfg, params["final_norm"], x, sink)
         return apply_norm(self.cfg, params["final_norm"], x)
 
-    def _logits(self, params, x, stream, sink=None):
+    def _logits(self, params, x, stream, sink=None, mesh=None):
         if rest.on_host(stream):
             return rest.logits(self.cfg, params["embed"], x,
-                               rest.window(self.cfg, stream), sink)
-        return lm_logits(self.cfg, params["embed"], x)
+                               rest.window(self.cfg, stream), sink, mesh=mesh)
+        return lm_logits(self.cfg, params["embed"], x, mesh)
 
     # ---- train forward ----------------------------------------------------
     def forward(self, params, batch, *, policy=None, no_remat=False,
-                grad_hooks=None, stream=None, stack_grads=None, rest_sink=None):
+                grad_hooks=None, stream=None, stack_grads=None, rest_sink=None,
+                mesh=None):
         """batch {"tokens" [B,S]} -> (logits [B,S,V], aux_loss f32 scalar).
         Each decoder layer is recomputed in the backward unless no_remat
         (`transformer.apply_decoder`). LMS: `policy`, an activation policy
@@ -95,27 +108,34 @@ class Model:
         DDL reduce-as-you-go hooks (the overlapped backward,
         `core/ddl/overlap.py`). With the rest in host memory (a stream
         that streams params) its grads are not autograd's: the backward
-        hands each leaf's to `rest_sink(path, grad)` (`models/rest.py`)."""
+        hands each leaf's to `rest_sink(path, grad)` (`models/rest.py`).
+        mesh: with a `model` axis above 1, tensor parallelism: `params` are
+        this rank's blocks (`init(mesh=)`, `convert.params_from_jax(mesh=)`)
+        and the logits this rank's vocab columns [B,S,V/|model|]."""
         cfg = self.cfg
-        x = self._embed(params, batch, stream, rest_sink)
-        ctx = self._ctx(x.shape[1], x.device)
+        mesh = shd.tp(mesh)
+        x = self._embed(params, batch, stream, rest_sink, mesh)
+        ctx = self._ctx(x.shape[1], x.device, mesh=mesh)
         x, aux = tr.apply_decoder(cfg, params["decoder"], x, ctx,
                                   policy=policy, no_remat=no_remat,
                                   grad_hooks=grad_hooks, stream=stream,
                                   stack_grads=stack_grads)
         x = self._final_norm(params, x, stream, rest_sink)
-        return self._logits(params, x, stream, rest_sink), aux
+        return self._logits(params, x, stream, rest_sink, mesh), aux
 
     def loss(self, params, batch, *, policy=None, no_remat=False,
              aux_weight: float = 0.01, grad_hooks=None, stream=None,
-             stack_grads=None, rest_sink=None):
+             stack_grads=None, rest_sink=None, mesh=None):
         """batch {"tokens", "labels" [B,S]}, label -1 ignored -> (mean token
-        cross-entropy + aux_weight * aux, {"ce", "aux"})."""
+        cross-entropy + aux_weight * aux, {"ce", "aux"}); on a
+        tensor-parallel `mesh` the cross-entropy over the whole vocabulary
+        from this rank's columns (`layers.cross_entropy`), the same on
+        every `model` rank."""
         logits, aux = self.forward(params, batch, policy=policy,
                                    no_remat=no_remat, grad_hooks=grad_hooks,
                                    stream=stream, stack_grads=stack_grads,
-                                   rest_sink=rest_sink)
-        ce = cross_entropy(logits, batch["labels"])
+                                   rest_sink=rest_sink, mesh=mesh)
+        ce = cross_entropy(logits, batch["labels"], mesh=shd.tp(mesh))
         return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
     # ---- serving ----------------------------------------------------------

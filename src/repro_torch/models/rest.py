@@ -12,7 +12,12 @@ it from there:
   flight: `window`) comes in a vocab slice at a time, each slice whole
   blocks of `layers.head_block` entries, the products a resident head
   takes without grads (`layers.lm_logits`);
-* a tied embedding reads one leaf for both uses.
+* a tied embedding reads one leaf for both uses;
+* on a tensor-parallel mesh each of the table and the head is this
+  rank's vocab shard: the lookup gathers this rank's rows (`layers.
+  local_ids`) and sums them over `model`, the head gives this rank's
+  logit columns, and the sinks take the grads of the local rows and
+  columns.
 
 With grads, each of these device copies carries autograd through a
 function whose backward hands the leaf's grad to `sink(path, grad)`, so
@@ -32,7 +37,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.lms import offload as off
-from repro_torch.models.layers import apply_norm, head_block, lm_logits
+from repro_torch.models import sharding as shd
+from repro_torch.models.layers import (apply_norm, head_block, lm_logits, local_ids,
+                                       vocab_parallel_rows)
 
 EMBED = ("embed", "embedding")
 HEAD = ("embed", "lm_head")
@@ -166,15 +173,23 @@ def _hands_back(sink) -> bool:
     return sink is not None and torch.is_grad_enabled()
 
 
-def embed(cfg, p, tokens, sink=None, host_tokens=None):
+def embed(cfg, p, tokens, sink=None, host_tokens=None, mesh=None):
     """`layers.embed_tokens` with the table in host memory: its rows at
-    `tokens` copied in, cast to bf16 on the device."""
+    `tokens` copied in, cast to bf16 on the device (on a tensor-parallel
+    `mesh`, this rank's rows, zeros where another rank holds the token,
+    summed over `model`)."""
     table = p["embedding"]
+    ok = None
+    if shd.tp(mesh) is not None:
+        tokens, ok = local_ids(cfg, tokens, mesh)
+        host_tokens = None if host_tokens is None else local_ids(cfg, host_tokens, mesh)[0]
     rows = _to_device(_host_rows(table, tokens, host_tokens), tokens.device)
     if _hands_back(sink):
         shape = tuple(table.shape)
         rows = _Sunk.apply(table, (rows,), sink, EMBED,
                            lambda g: RowsGrad(shape, tokens, g))
+    if ok is not None:
+        return vocab_parallel_rows(rows, ok, mesh)
     return rows.to(torch.bfloat16)
 
 
@@ -220,11 +235,14 @@ def _slices(n: int, nbytes: int, room, block: int):
     return [(a, min(a + step, n)) for a in range(0, n, step)]
 
 
-def logits(cfg, p, x, room, sink=None):
+def logits(cfg, p, x, room, sink=None, mesh=None):
     """`layers.lm_logits` with the head (or the tied table) in host
     memory: copied in whole, or, when no grad goes back to `sink` and it
     is larger than `room` bytes, a vocab slice at a time, each slice's
-    logits written into the [..., V] output."""
+    logits written into the [..., V] output. On a tensor-parallel `mesh`
+    the head is this rank's vocab shard and x enters its column-parallel
+    region (`sharding.copy_to_model`)."""
+    x = shd.copy_to_model(x, mesh)
     key = EMBED if cfg.tie_embeddings else HEAD
     w = p["embedding"] if cfg.tie_embeddings else p["lm_head"]
     vocab = w.shape[0] if cfg.tie_embeddings else w.shape[1]

@@ -25,6 +25,7 @@ from repro_torch.core.lms import offload as off
 from repro_torch.kernels.quantize import ops as q_ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import paging
+from repro_torch.models import sharding as shd
 from repro_torch.core.lms.policies import tag, tagged
 from repro_torch.models.attention import (attention_defs, decode_attention,
                                           out_proj, project_qkv)
@@ -38,14 +39,20 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 # Stack layout
 # ---------------------------------------------------------------------------
 
-def _check_kinds(cfg: ModelConfig) -> str:
-    """-> the stack's one layer kind, "attn" (dense or MoE FFN) or "ssd"."""
+def _check_kinds(cfg: ModelConfig, mesh=None) -> str:
+    """-> the stack's one layer kind, "attn" (dense or MoE FFN) or "ssd".
+    On a tensor-parallel `mesh` only the dense "attn" stack is ported."""
     kinds = set(cfg.layer_kinds())
     if (kinds not in ({"attn"}, {"ssd"}) or (cfg.num_experts and kinds != {"attn"})
             or cfg.mrope_sections or cfg.frontend):
         raise NotImplementedError(
             f"{cfg.name}: only dense or MoE 'attn' and Mamba-2 'ssd' stacks are "
             f"ported yet (layer kinds {sorted(kinds)})")
+    if shd.tp(mesh) is not None and (kinds != {"attn"} or cfg.num_experts):
+        what = "MoE (expert parallelism)" if cfg.num_experts else "Mamba-2 ('ssd')"
+        raise NotImplementedError(
+            f"{cfg.name}: not ported yet: a {what} stack under tensor parallelism "
+            f"(|model| = {shd.model_size(mesh)})")
     return kinds.pop()
 
 
@@ -118,27 +125,33 @@ def _rope_qk(cfg, q, k, ctx):
             apply_rope(k, ctx["positions"], cfg.rope_theta))
 
 
-def _ffn(cfg, p, x):
-    """-> (x, aux_loss): the MLP's aux is 0, the MoE's its load-balance loss."""
+def _ffn(cfg, p, x, mesh=None):
+    """-> (x, aux_loss): the MLP's aux is 0, the MoE's its load-balance loss.
+    `mesh`: tensor-parallel, the MLP's `ff` split over `model`."""
     h = tagged("mlp_norm", apply_norm, cfg, p["ln2"], x)
     if cfg.num_experts:
         y, aux = apply_moe(cfg, p["ffn"], h)
         return x + y, aux
-    return x + apply_mlp(cfg, p["ffn"], h), 0.0
+    return x + apply_mlp(cfg, p["ffn"], h, mesh), 0.0
 
 
 def _attn_block(cfg, p, x, ctx):
     """A whole-sequence causal "attn" layer: -> (x, aux, k, v). The forward
     pass and the prefill share it, so they run the same ops. The tags
     (`core/lms/policies.py`) are the JAX package's; outside an LMS layer
-    frame they are the identity."""
+    frame they are the identity. ctx["mesh"], where it is tensor-parallel,
+    splits the heads and `ff` over `model`: two sums over `model` in the
+    forward (the out and down projections) and two in the backward (the
+    normed inputs' grads), in one order on every rank, a recomputed or
+    replayed layer's included."""
+    mesh = ctx.get("mesh")
     x = tag(x, "resid")
     h = tagged("attn_norm", apply_norm, cfg, p["ln1"], x)
-    q, k, v = project_qkv(cfg, p["attn"], h)
+    q, k, v = project_qkv(cfg, p["attn"], h, mesh)
     q, k = _rope_qk(cfg, q, k, ctx)
     o = tagged("attn_out", attn_mod.attention, q, k, v, causal=True,
                impl=ctx["attn_impl"], chunk=ctx["attn_chunk"])
-    x, aux = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o))
+    x, aux = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o, mesh), mesh)
     return x, aux, k, v
 
 
@@ -350,6 +363,12 @@ def apply_decoder(cfg, params, x, ctx, *, policy=None, no_remat=False,
     aux losses summed (the MoE layers' load-balance losses; 0 for the
     dense and SSM layers).
 
+    ctx["mesh"], where it has a `model` axis above 1: tensor parallelism
+    (`models/sharding.py`), the stack's leaves this rank's blocks; each
+    layer runs its collectives over `model` (`_attn_block`), again in a
+    recompute or an LMS replay, in one order on every rank. Only the dense
+    "attn" stack runs there (`_check_kinds`).
+
     grad_hooks: {stack group name -> reduce-as-you-go hook}, the DDL
     overlapped backward (`core/ddl/overlap.py`): each layer's slice of the
     group's params goes through the hook before the layer runs, outside its
@@ -375,7 +394,7 @@ def apply_decoder(cfg, params, x, ctx, *, policy=None, no_remat=False,
     means over the ranks, through the hook's reduction queue. Both layer
     kinds run there: the Mamba-2 layer's tags are `ssd_xz` and `ssd_state`
     (`models/ssm.py`), as in the JAX package."""
-    kind = _check_kinds(cfg)
+    kind = _check_kinds(cfg, ctx.get("mesh"))
     stack = params["stack0"]
     hook = (grad_hooks or {}).get("stack0")
     if policy is not None or stream is not None:

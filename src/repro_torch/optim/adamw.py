@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.models import sharding as shd
 from repro_torch.tree import tree_leaves, tree_map
 
 # elements per slice of a leaf: the f32 temporaries stay at a few x 64 MiB
@@ -129,20 +130,35 @@ def leaf_squares(leaf) -> list:
     return [torch.sum(s.float() ** 2) for (s,) in _slices(leaf)]
 
 
-def norm_of(squares) -> torch.Tensor:
+def norm_of(squares, mesh=None, sharded=None) -> torch.Tensor:
     """sqrt of the partial sums, [per leaf, in tree order: [per slice]],
     added leaf by leaf, each leaf's slices in order (`global_norm`'s
     order, so a norm from partial sums made elsewhere is the same
-    number)."""
-    total = 0
-    for parts in squares:
-        total = total + sum(parts)
-    return torch.sqrt(total)
+    number). On a tensor-parallel `mesh`, `sharded` (a bool per leaf)
+    marks the leaves that hold only this rank's block: their sums are
+    added apart and summed over `model` in one collective, the
+    replicated leaves' counted once, so the norm is the global tree's,
+    the same on every rank."""
+    if shd.tp(mesh) is None or sharded is None:
+        total = 0
+        for parts in squares:
+            total = total + sum(parts)
+        return torch.sqrt(total)
+    rep, part = 0, 0
+    for parts, sh in zip(squares, sharded):
+        if sh:
+            part = part + sum(parts)
+        else:
+            rep = rep + sum(parts)
+    if not torch.is_tensor(part):
+        part = torch.zeros((), dtype=torch.float32, device=rep.device)
+    return torch.sqrt(rep + mesh.psum(part, shd.MODEL))
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    return norm_of([leaf_squares(leaf) for leaf in tree_leaves(tree)])
+def global_norm(tree, mesh=None, sharded=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares (of
+    the global tree on a tensor-parallel `mesh`: `norm_of`)."""
+    return norm_of([leaf_squares(leaf) for leaf in tree_leaves(tree)], mesh, sharded)
 
 
 class StackSquares:
@@ -194,9 +210,10 @@ def clip_scale(gnorm, max_norm):
     return torch.clamp(top / torch.clamp(gnorm, min=1e-9), max=1.0)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """-> (grads, global norm): the grads scaled IN PLACE, slice by slice."""
-    gn = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, mesh=None, sharded=None):
+    """-> (grads, global norm): the grads scaled IN PLACE, slice by slice
+    (`mesh`, `sharded`: `norm_of`'s)."""
+    gn = global_norm(grads, mesh, sharded)
     scale = clip_scale(gn, max_norm)
     for leaf in tree_leaves(grads):
         for (s,) in _slices(leaf):

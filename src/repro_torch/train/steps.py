@@ -38,6 +38,7 @@ from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.config.base import DDLConfig, ShapeConfig, TrainConfig
 from repro_torch.core.ddl import overlap as ddl_overlap
@@ -51,8 +52,9 @@ from repro_torch.core.lms.policies import Policy
 from repro_torch.launch.mesh import Mesh, dp_axes, make_mesh, mesh_axis_sizes
 from repro_torch.models import kvquant, paging
 from repro_torch.models import rest as host_rest
+from repro_torch.models import sharding as shd
 from repro_torch.models import transformer as tr
-from repro_torch.models.layers import DTYPES, init_pieces
+from repro_torch.models.layers import DTYPES, init_pieces, local_pieces
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import (OPTIMIZERS, SLICE, AdamState, SGDState,
                                      StackSquares, _slices, adamw_slice_update,
@@ -60,6 +62,9 @@ from repro_torch.optim.adamw import (OPTIMIZERS, SLICE, AdamState, SGDState,
                                      leaf_squares, norm_of, sgdm_slice_update)
 from repro_torch.optim.schedule import SCHEDULES
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+ZERO1_TP = "zero1 under tensor parallelism (a 'model' axis above 1) is not ported yet"
 
 
 class TrainState(NamedTuple):
@@ -302,11 +307,38 @@ def _stacked_mask(tree):
     return out
 
 
-def _meta_params(model: Model):
+def _meta_params(model: Model, mesh=None):
     """The params' shapes and dtypes as a tree of meta tensors (no memory):
-    what `shard_spec` and `pack_spec` lay out."""
+    what `shard_spec` and `pack_spec` lay out; this rank's blocks' on a
+    tensor-parallel `mesh`."""
     return tree_map(lambda d: torch.empty(d.shape, dtype=DTYPES[d.dtype], device="meta"),
-                    model.param_defs())
+                    model.local_param_defs(mesh))
+
+
+def _tp_mesh(tcfg: TrainConfig, mesh=None):
+    """The tensor-parallel mesh of a run (`sharding.tp`), or None: `mesh`
+    when given, else this rank's coordinates on `tcfg.mesh` (enough to cut
+    its blocks; no process group)."""
+    if mesh is not None:
+        return shd.tp(mesh)
+    if shd.model_size(tcfg.mesh) <= 1:
+        return None
+    return Mesh(tcfg.mesh, rank=dist.get_rank() if dist.is_initialized() else 0)
+
+
+def _path_specs(model: Model, defs, tp) -> list:
+    """The spec of each (path, ParamDef) of `defs` on `tp` (() without
+    tensor parallelism)."""
+    if tp is None:
+        return [()] * len(defs)
+    tree = model.param_specs(tp)
+    out = []
+    for path, _ in defs:
+        node = tree
+        for k in path:
+            node = node[k]
+        out.append(node)
+    return out
 
 
 def _stack_rows(flat, spec, stacked):
@@ -666,7 +698,7 @@ def _read_step(reader, key: str, device) -> torch.Tensor:
 
 
 def restore_train_state(reader, model: Model, tcfg: TrainConfig, device,
-                        plan: Optional[MemoryPlan] = None) -> TrainState:
+                        plan: Optional[MemoryPlan] = None, mesh=None) -> TrainState:
     """The TrainState of a checkpoint (`checkpoint.CheckpointReader`: the
     JAX package's keys, ``step``, ``params/...``, ``opt/step`` and
     ``opt/mu/...``, ``opt/nu/...``, ``opt/master/...`` or
@@ -676,18 +708,29 @@ def restore_train_state(reader, model: Model, tcfg: TrainConfig, device,
     zero grads tree when the plan sinks grads. Leaf by leaf: each stored
     leaf is read straight into its slot before the next is read, so
     neither the state nor a whole leaf stands in pageable memory, nor the
-    whole state on the device."""
+    whole state on the device.
+
+    On a tensor-parallel mesh (`mesh`, else this rank's place on
+    `tcfg.mesh`) each leaf sharded over `model` gets this rank's block
+    (`checkpoint.read_local`): from its own block where the checkpoint
+    was written on as many `model` ranks, else cut from the global leaf,
+    and a leaf of a checkpoint written in blocks is joined from them on a
+    mesh without tensor parallelism."""
+    from repro_torch.checkpoint.checkpointer import read_local
     device = torch.device(device)
+    tp = _tp_mesh(tcfg, mesh)
     params_host, opt_host = _host_classes(plan)
     defs = _def_paths(model.param_defs())
-    paths = [(path, d.shape, DTYPES[d.dtype]) for path, d in defs]
+    specs = _path_specs(model, defs, tp)
+    paths = [(path, shd.local_shape(d.shape, sp, tp), DTYPES[d.dtype])
+             for (path, d), sp in zip(defs, specs)]
     names = ("mu", "nu", "master") if tcfg.optimizer == "adamw" else ("momentum",)
 
     def fill(ix, path, p, st):
         key = "/".join(path)
-        reader.read_into(f"params/{key}", p)
+        read_local(reader, f"params/{key}", p, defs[ix][1].shape, specs[ix], tp)
         for name, t in zip(names, st):
-            reader.read_into(f"opt/{name}/{key}", t)
+            read_local(reader, f"opt/{name}/{key}", t, defs[ix][1].shape, specs[ix], tp)
     out = _placed_state(tcfg.optimizer, paths, device, params_host, opt_host, fill,
                         model.param_defs(), _grads_host(plan), tcfg.microbatches > 1)
     opt = out.opt._replace(step=_read_step(reader, "opt/step", device))
@@ -755,14 +798,28 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
 
     ddl.mode "none" leaves the grads unreduced, as in the JAX package;
     "zero1" is `build_zero1_train_step`'s (here it reduces as "allreduce",
-    as the JAX package's replicated step does). A tensor-parallel `model`
-    axis (`make_mesh`) is not ported yet and raises; so does, under a plan,
-    params on the host with the optimizer on the device. Every ported
-    stack (dense, MoE, Mamba-2) runs under a plan."""
+    as the JAX package's replicated step does). Under a plan, params on
+    the host with the optimizer on the device raises (not ported yet).
+    Every ported stack (dense, MoE, Mamba-2) runs under a plan.
+
+    Tensor parallelism (a `model` axis above 1, the dense "attn" stack
+    only): the state holds this rank's blocks of the leaves the rule table
+    shards over `model` (`init_train_state`, `convert.train_state_from_jax(
+    mesh=)`), the model runs its column- and row-parallel layers and the
+    vocab-parallel loss with their sums over `model` (`models/
+    sharding.py`), and the step runs as above on the local blocks: the
+    DDL reduction over the data ranks that hold the same blocks, the
+    sharded leaves kept out of the overlapped backward's buckets and of
+    the int8 pod hop (`core/ddl`), resident or under a plan alike; the
+    clip's global norm sums the sharded leaves' squares over `model`
+    (`optim/adamw.norm_of`), so it and the metrics are the global tree's,
+    the same on every rank."""
     spec = StepSpec() if spec is None else spec
     if spec.plan is None and plan is not None:
         spec = dataclasses.replace(spec, plan=plan)
     plan = spec.plan
+    if shd.model_size(tcfg.mesh if mesh is None else mesh) > 1:
+        tr._check_kinds(model.cfg, tcfg.mesh if mesh is None else mesh)
     mesh = make_mesh(tcfg.mesh) if mesh is None else mesh
     sizes = mesh_axis_sizes(mesh)
     dpa = dp_axes(mesh)
@@ -770,6 +827,17 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
     pod_size = sizes.get("pod", 1)
     pod_axis = "pod" if "pod" in sizes and pod_size > 1 else None
     mean_over = data_size * pod_size
+    tp = shd.tp(mesh)
+    # each leaf's spec (tree order), which ones hold a block, the stack's
+    # per-layer specs and the rest's; all None without tensor parallelism
+    leaf_specs = sharded_leaves = stack_specs = rest_specs = None
+    if tp is not None:
+        spec_tree = model.param_specs(tp)
+        leaf_specs = tree_leaves(spec_tree)
+        sharded_leaves = [shd.model_dim(sp) is not None for sp in leaf_specs]
+        stack_specs = {"stack0": [sp[1:] for sp in
+                                  tree_leaves(spec_tree["decoder"]["stack0"])]}
+        rest_specs = tree_leaves(_split_stack_grads(spec_tree)[1])
     ddl = spec.ddl_for(tcfg)
     _, opt_update = OPTIMIZERS[tcfg.optimizer]
     sched = SCHEDULES["warmup_cosine"]
@@ -791,11 +859,11 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
     reduce = dict(mesh=mesh, data_axis="data", pod_axis=pod_axis,
                   data_size=data_size, pod_size=pod_size)
     hooks = (make_stack_hooks(["stack0"], ddl, **reduce, keep="shard" if m > 1 else "full",
-                              sink=off.HOST if sink else None)
+                              sink=off.HOST if sink else None, stack_specs=stack_specs)
              if overlap else None)
     sharded = overlap and m > 1
     if sharded:
-        shapes = _meta_params(model)
+        shapes = _meta_params(model, tp)
         stacked = _stacked_mask(shapes)
         sspec = ddl_overlap.shard_spec(shapes, data_size, stacked)
         shard_axes = dict(mesh=mesh, data_axis="data", pod_axis=pod_axis,
@@ -857,7 +925,8 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
                     g.zero_()
             loss, mets, grads = _sunk_loss_and_grads(
                 model, leaves, stacks, mb, gstack, schedule=schedule, policy=policy,
-                stream=stream, hooks=hooks, queue=queue, squares=squares, accumulate=sharded)
+                stream=stream, hooks=hooks, queue=queue, squares=squares, accumulate=sharded,
+                mesh=tp)
             sums = add_metrics(sums, loss, mets)
             rest_grads = tree_unflatten(rest, grads)
             if sharded:
@@ -894,7 +963,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
         flat = tree_leaves(leaves)
         if m == 1:
-            loss, mets = model.loss(leaves, batch)
+            loss, mets = model.loss(leaves, batch, mesh=tp)
             grads = torch.autograd.grad(loss, flat)
             return (loss.detach(), {k: v.detach() for k, v in mets.items()},
                     tree_unflatten(params, grads), None)
@@ -902,7 +971,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=device) for p in flat]
         sums = None
         for mb in microbatches(batch):
-            loss, mets = model.loss(leaves, mb)
+            loss, mets = model.loss(leaves, mb, mesh=tp)
             grads = torch.autograd.grad(loss, flat)
             with torch.no_grad():
                 for a, g in zip(acc, grads):
@@ -917,9 +986,9 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
         if mean_over == 1 or sharded:
             return grads
         if not overlap:
-            return ddl_reduce_tree(grads, ddl, **reduce)[0]
+            return ddl_reduce_tree(grads, ddl, **reduce, param_specs=leaf_specs)[0]
         stacks, rest = _split_stack_grads(grads)
-        rest, _ = ddl_reduce_tree(rest, ddl, **reduce)
+        rest, _ = ddl_reduce_tree(rest, ddl, **reduce, param_specs=rest_specs)
         return _merge_stack_grads(rest, stacks)
 
     def step_fn(state: TrainState, batch):
@@ -932,7 +1001,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
             if opt_stream is not None:
                 # the clip's norm now; its scaling inside the sweep, slice
                 # by slice, as the JAX package's streamed sweep
-                gnorm = _global_norm_streamed(grads, stack_squares)
+                gnorm = _global_norm_streamed(grads, stack_squares, tp, sharded_leaves)
                 scale = clip_scale(gnorm, tcfg.grad_clip)
                 placed = grads_host and stack_squares is None and not sharded
                 if placed:
@@ -956,7 +1025,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, plan: Optional[MemoryPlan]
                     params_host=params_host, device=state.step.device, clip=scale,
                     grads_host=sink or placed)
             else:
-                grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+                grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, tp, sharded_leaves)
                 _before_update(step_fn)
                 params, opt = opt_update(grads, state.opt, state.params, lr=lr,
                                          beta1=tcfg.beta1, beta2=tcfg.beta2,
@@ -985,7 +1054,7 @@ def _before_update(step_fn) -> None:
 
 def _sunk_loss_and_grads(model: Model, leaves, stacks, batch, stack_grads, *, schedule,
                          policy, stream, hooks, queue, squares=None, accumulate=False,
-                         take=None):
+                         take=None, mesh=None):
     """One pass of the stack with its grads sunk: the loss of `batch` over
     the rest's leaves (differentiated) and the stack (not differentiated:
     its grads written into `stack_grads` by the LMS executor's sink, or by
@@ -1013,7 +1082,7 @@ def _sunk_loss_and_grads(model: Model, leaves, stacks, batch, stack_grads, *, sc
     try:
         loss, mets = model.loss(_merge_stack_grads(leaves, stacks), batch, policy=policy,
                                 stream=stream, stack_grads=stack_grads, grad_hooks=hooks,
-                                rest_sink=sink)
+                                rest_sink=sink, mesh=mesh)
         grads = torch.autograd.grad(loss, tree_leaves(leaves), allow_unused=sink is not None)
     except BaseException:
         if queue is not None:
@@ -1037,14 +1106,16 @@ def _sunk_grads(state: TrainState):
     return state.grads
 
 
-def _global_norm_streamed(grads, stack_squares=None) -> torch.Tensor:
+def _global_norm_streamed(grads, stack_squares=None, mesh=None,
+                          sharded=None) -> torch.Tensor:
     """`global_norm` of the grads tree whose stack's per-slice sums of
     squares may come made (`stack_squares`, in the stack's leaf order: the
     reduction queue summed them while the layers were on the device, and
-    the grads now lie on the host); the other leaves' are summed here."""
+    the grads now lie on the host); the other leaves' are summed here.
+    `mesh`, `sharded`: tensor parallelism (`optim/adamw.norm_of`)."""
     stack = iter(stack_squares or ())
     return norm_of([next(stack) if stack_squares is not None and _stack_path(path)
-                    else leaf_squares(leaf) for path, leaf in _paths(grads)])
+                    else leaf_squares(leaf) for path, leaf in _paths(grads)], mesh, sharded)
 
 
 def _check_plan(plan: MemoryPlan, model: Model) -> None:
@@ -1060,7 +1131,7 @@ def _check_plan(plan: MemoryPlan, model: Model) -> None:
 
 
 def init_train_state(model: Model, tcfg: TrainConfig, seed: int,
-                     device, plan: Optional[MemoryPlan] = None) -> TrainState:
+                     device, plan: Optional[MemoryPlan] = None, mesh=None) -> TrainState:
     """Params from `model.init(seed, device)` and a fresh optimizer state.
 
     With a plan that puts params or the optimizer on the host, the state is
@@ -1071,23 +1142,28 @@ def init_train_state(model: Model, tcfg: TrainConfig, seed: int,
     (`_grads_host`) also gets the stack's grads tree there (f32 at
     microbatches > 1). The values are
     `model.init(seed, device)`'s bitwise: the same draws from the same
-    generator."""
+    generator. On a tensor-parallel mesh (`mesh`, else this rank's place
+    on `tcfg.mesh`) the state holds this rank's blocks of those values
+    (`model.init(mesh=)`), placed alike."""
     device = torch.device(device)
+    tp = _tp_mesh(tcfg, mesh)
     params_host, opt_host = _host_classes(plan)
     if params_host or opt_host:
         defs = _def_paths(model.param_defs())
+        specs = _path_specs(model, defs, tp)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        paths = [(path, d.shape, DTYPES[d.dtype]) for path, d in defs]
+        paths = [(path, shd.local_shape(d.shape, sp, tp), DTYPES[d.dtype])
+                 for (path, d), sp in zip(defs, specs)]
 
         def fill(ix, path, p, st):
-            for i, piece in init_pieces(defs[ix][1], gen, device):
+            for i, piece in local_pieces(defs[ix][1], gen, device, specs[ix], tp):
                 p[i] = piece
                 if tcfg.optimizer == "adamw":
                     st[2][i] = piece.float()
         return _placed_state(tcfg.optimizer, paths, device, params_host, opt_host, fill,
                              model.param_defs(), _grads_host(plan), tcfg.microbatches > 1)
-    params = model.init(seed, device)
+    params = model.init(seed, device, mesh=tp)
     opt_init, _ = OPTIMIZERS[tcfg.optimizer]
     return TrainState(torch.zeros((), dtype=torch.int32, device=device),
                       params, opt_init(params))
@@ -1235,6 +1311,8 @@ def build_zero1_train_step(model: Model, tcfg: TrainConfig, plan: Optional[Memor
     if spec.plan is None and plan is not None:
         spec = dataclasses.replace(spec, plan=plan)
     plan = spec.plan
+    if shd.model_size(tcfg.mesh if mesh is None else mesh) > 1:
+        raise NotImplementedError(ZERO1_TP)
     mesh = make_mesh(tcfg.mesh) if mesh is None else mesh
     sizes = mesh_axis_sizes(mesh)
     dpa = dp_axes(mesh)

@@ -28,6 +28,16 @@ and at the end, into `tcfg.checkpoint_dir`, in the JAX package's layout:
 `step`, `params` and `opt` (zero1: `step`, `params`, `mu`, `nu`,
 `master`); the grads' host sink is not part of one. The replicated leaves
 are written by data rank 0 only, each rank's zero1 blocks by that rank.
+
+Tensor parallelism (a `model` axis above 1, the dense stacks): every
+`model` rank of a data-parallel group takes the same rows
+(`Mesh.dp_index` leaves `model` out), and each holds its blocks of the
+sharded leaves (`init_train_state(mesh=)`). A checkpoint keeps the global
+layout in blocks (`checkpoint/checkpointer.py`): the data-0 rank of each
+`model` index writes its blocks of the sharded leaves as its own shard,
+`model` 0 the replicated leaves and the counters; a resume reads this
+rank's blocks back, and a restore on a mesh without the `model` axis
+joins them into the global leaves.
 A save copies only the leaves on the card; leaves in host memory (the
 pinned arena under a plan) are written by the writer thread where they
 lie, and the next step's optimizer update waits for it
@@ -61,6 +71,7 @@ from repro_torch.config.base import TrainConfig
 from repro_torch.core.lms.planner import PlanRequest, plan as plan_lms
 from repro_torch.data import DataLoader, SyntheticTokens, local_rows
 from repro_torch.launch.mesh import local_device, make_mesh, mesh_axis_sizes
+from repro_torch.models import sharding as shd
 from repro_torch.models.model import Model
 from repro_torch.obs import Obs, TelemetryLoop
 from repro_torch.runtime import HeartbeatStore, StepTimer, inject
@@ -128,7 +139,7 @@ class Trainer:
                                     self._data_size(), plan=self.plan,
                                     data_index=self.mesh.index("data"))
         return init_train_state(self.model, self.tcfg, self.tcfg.seed,
-                                self.device, plan=self.plan)
+                                self.device, plan=self.plan, mesh=self.mesh)
 
     def resume_or_init(self):
         """-> (state, the step it is after): the newest committed
@@ -136,14 +147,15 @@ class Trainer:
         its position; else a fresh state at step 0."""
         if self.ckpt is None or self.ckpt.latest_step() is None:
             return self.init_state(), 0
-        with self.ckpt.open(process=self.mesh.index("data") if self.zero1 else 0) as reader:
+        process = self.mesh.index("data") if self.zero1 else self.mesh.index("model")
+        with self.ckpt.open(process=process) as reader:
             if self.zero1:
                 state = restore_zero1_state(reader, self.model, self.tcfg, self.device,
                                             self._data_size(), plan=self.plan,
                                             data_index=self.mesh.index("data"))
             else:
                 state = restore_train_state(reader, self.model, self.tcfg, self.device,
-                                            plan=self.plan)
+                                            plan=self.plan, mesh=self.mesh)
             if reader.extra.get("data_state"):
                 self.loader.restore(reader.extra["data_state"])
             return state, reader.step
@@ -241,10 +253,12 @@ class Trainer:
 
     def save(self, step: int, state):
         """Checkpoint `state` as step `step`: this rank's leaves (all of
-        them on data rank 0, and each rank's own zero1 blocks), the data
-        stream's position in the manifest. The device is synchronized
-        first: the step's last copies into the pinned arena run on a side
-        stream, and the writer reads the arena from the host."""
+        them on data rank 0, and each rank's own zero1 blocks; under tensor
+        parallelism each `model` rank's blocks of the sharded leaves, with
+        the replicated ones on `model` 0), the data stream's position in
+        the manifest. The device is synchronized first: the step's last
+        copies into the pinned arena run on a side stream, and the writer
+        reads the arena from the host."""
         self._sync()
         first = self.mesh.dp_index == 0
         if self.zero1:
@@ -253,11 +267,40 @@ class Trainer:
             if first:
                 shard = {"step": state.step, "params": state.params, **shard}
             where = dict(process=self.mesh.index("data"), num_processes=self._data_size())
+        elif shd.tp(self.mesh) is not None:
+            m = self.mesh.index("model")
+            shard = None
+            if first:
+                keep = shd.sharded_tree(self.model.param_defs(), self.mesh)
+                opt = dict(state.opt._asdict())
+                shard = {"params": state.params, "opt": opt}
+                if m == 0:
+                    shard["step"] = state.step
+                else:
+                    # the replicated leaves and the counters are model 0's
+                    shard = {"params": _only(state.params, keep),
+                             "opt": {k: _only(v, keep) for k, v in opt.items()
+                                     if k != "step"}}
+            where = dict(process=m, num_processes=shd.model_size(self.mesh))
         else:
             shard = ({"step": state.step, "params": state.params,
                       "opt": dict(state.opt._asdict())} if first else None)
             where = dict(process=0, num_processes=1)
         self.ckpt.save(step, shard, extra={"data_state": self.loader.snapshot()}, **where)
+
+
+def _only(tree, keep):
+    """The leaves of `tree` where the tree of bools `keep` is True, with
+    the subtrees left without a leaf dropped."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            sub = _only(v, keep[k])
+            if sub:
+                out[k] = sub
+        elif keep[k]:
+            out[k] = v
+    return out
 
 
 def _writer_wait(ckpt: Checkpointer, waits):

@@ -449,9 +449,11 @@ def _tcfg(mesh=((1, 1), ("data", "model")), **kw):
 
 
 def test_what_is_not_ported_raises():
-    """A model axis above 1 and a mesh of several devices without a world
-    that size raise; so do, under a plan on several ranks, params on the
-    host with the optimizer on the device. The Mamba-2 stack under a plan,
+    """zero1 under a model axis above 1 and a mesh of several devices
+    without a world that size raise; so do, under a plan on several ranks,
+    params on the host with the optimizer on the device. The replicated
+    step under a model axis above 1 builds (tests/test_torch_tp_train.py
+    runs it). The Mamba-2 stack under a plan,
     zero1, m > 1 with the overlapped backward on several ranks and LMS with
     microbatches build now (tests/test_torch_zero1.py and
     tests/test_torch_microbatches.py run them), as does LMS on several
@@ -482,7 +484,13 @@ def test_what_is_not_ported_raises():
     assert callable(build_train_step(mamba, dataclasses.replace(
         _tcfg(mesh=((2, 1), ("data", "model")), microbatches=2), model=mamba.cfg),
         plan=plan, mesh=Mesh(two, rank=0)))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    tp_mesh = MeshSpec((1, 2), ("data", "model"))
+    assert callable(build_train_step(model, _tcfg(mesh=((1, 2), ("data", "model"))),
+                                     mesh=Mesh(tp_mesh, rank=0)))
+    with pytest.raises(NotImplementedError, match="zero1 under tensor parallelism"):
+        build_zero1_train_step(model, _tcfg(mesh=((1, 2), ("data", "model")),
+                                            ddl=DDLConfig(mode="zero1")))
+    with pytest.raises(ValueError, match="WORLD_SIZE 2"):
         build_train_step(model, _tcfg(mesh=((1, 2), ("data", "model"))))
     with pytest.raises(ValueError, match="WORLD_SIZE 4"):
         build_train_step(model, _tcfg(mesh=((2, 2, 1), ("pod", "data", "model"))))
@@ -493,8 +501,10 @@ def test_cli_rejects_a_world_that_disagrees_with_the_mesh(monkeypatch):
     args = ["--arch", ARCH, "--smoke", "--no-lms", "--device", "cpu", "--steps", "1"]
     with pytest.raises(ValueError, match="WORLD_SIZE 1 disagrees with --mesh 2x1x1"):
         launch.main(args + ["--mesh", "2x1x1"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="WORLD_SIZE 1 disagrees with --mesh 1x1x2"):
         launch.main(args + ["--mesh", "1x1x2"])
+    with pytest.raises(NotImplementedError, match="zero1 under tensor parallelism"):
+        launch.main(args + ["--mesh", "1x1x2", "--ddl-mode", "zero1"])
     # the checkpoint flags are ported: the world is checked before anything
     # is written
     for flags in (["--mesh", "2x1x1", "--microbatches", "2", "--ckpt-dir", "ckpt"],

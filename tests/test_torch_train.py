@@ -447,17 +447,23 @@ def test_train_step_matches_jax_over_3_steps(ref, jmods, arch, m):
 def test_train_step_rejects_what_is_not_ported(jmods):
     _, tt = _tcfgs(jmods)
     model = Model(tt.model)
-    # zero1 builds now (its own step: tests/test_torch_zero1.py); tensor
-    # parallelism does not, in either step
+    # zero1 builds now (its own step: tests/test_torch_zero1.py); so does
+    # the replicated step under tensor parallelism (tests/test_torch_tp_*.py),
+    # but zero1 under it does not
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.train.steps import build_zero1_train_step
     zero1 = dataclasses.replace(tt, ddl=dataclasses.replace(tt.ddl, mode="zero1"))
     build_zero1_train_step(model, zero1)
-    for build, bad in ((build_train_step, tt), (build_zero1_train_step, zero1)):
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            build(model, dataclasses.replace(bad, mesh=MeshSpec((1, 2), ("data", "model"))))
-    # a data-parallel mesh needs one process per device (tests/test_torch_ddl_train.py)
-    with pytest.raises(ValueError, match="mesh of 2 devices"):
-        build_train_step(model, dataclasses.replace(tt, mesh=MeshSpec((2, 1), ("data", "model"))))
+    tp_mesh = MeshSpec((1, 2), ("data", "model"))
+    assert callable(build_train_step(model, dataclasses.replace(tt, mesh=tp_mesh),
+                                     mesh=Mesh(tp_mesh, rank=0)))
+    with pytest.raises(NotImplementedError, match="zero1 under tensor parallelism"):
+        build_zero1_train_step(model, dataclasses.replace(zero1, mesh=tp_mesh))
+    # a mesh of several devices needs one process per device
+    # (tests/test_torch_ddl_train.py, tests/test_torch_tp_train.py)
+    for dims in ((2, 1), (1, 2)):
+        with pytest.raises(ValueError, match="mesh of 2 devices"):
+            build_train_step(model, dataclasses.replace(tt, mesh=MeshSpec(dims, ("data", "model"))))
     from repro_torch.core.lms.planner import MemoryPlan
     from repro_torch.train import steps as tsteps
     # grads on the host with the optimizer on the device: no streamed sweep
@@ -507,16 +513,22 @@ def test_trainer_matches_jax_trainer(ref, jmods, tmp_path):
 
 def test_trainer_rejects_lms_and_needs_a_device_here(jmods):
     """LMS trains on one device (tests/test_torch_lms.py), with microbatches
-    too (tests/test_torch_microbatches.py); a tensor-parallel mesh is not
-    ported yet, with LMS or without."""
+    too (tests/test_torch_microbatches.py); a tensor-parallel mesh trains
+    on its ranks (tests/test_torch_tp_lms.py), with LMS or without, and in
+    one process it raises for the ranks it lacks; zero1 under it is not
+    ported yet."""
     _, tt = _tcfgs(jmods, checkpoint_dir=None)
     trainer = Trainer(dataclasses.replace(tt, lms=LMSConfig(), microbatches=2), device="cpu")
     assert trainer.plan is not None
+    tp_mesh = MeshSpec((1, 2), ("data", "model"))
     for lms in (LMSConfig(), LMSConfig(enabled=False)):
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            Trainer(dataclasses.replace(tt, lms=lms, microbatches=2,
-                                        mesh=MeshSpec((1, 2), ("data", "model"))),
+        with pytest.raises(ValueError, match="mesh of 2 devices"):
+            Trainer(dataclasses.replace(tt, lms=lms, microbatches=2, mesh=tp_mesh),
                     device="cpu")
+    with pytest.raises(NotImplementedError, match="zero1 under tensor parallelism"):
+        from repro_torch.train.steps import build_zero1_train_step
+        build_zero1_train_step(Model(tt.model), dataclasses.replace(
+            tt, mesh=tp_mesh, ddl=dataclasses.replace(tt.ddl, mode="zero1")))
     if torch.cuda.is_available():
         pytest.skip("CUDA is available here; the default device is the card")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -584,15 +596,17 @@ def test_launch_train_on_cpu_dense(capsys, tmp_path, monkeypatch, arch):
                                    ["--no-lms", "--mesh", "2x1", "--microbatches", "2",
                                     "--trace", "t.json"]])
 def test_launch_train_rejects_what_is_not_ported(flags):
-    """Tensor parallelism (a model axis above 1) is what the CLI does not
-    run yet, and it is rejected for that alone beside any other flags:
-    LMS on a mesh of several ranks (tests/test_torch_lms_ddl.py runs it
-    under torchrun), microbatches with LMS or on a mesh
-    (tests/test_torch_microbatches.py), zero1 (tests/test_torch_zero1.py),
-    and the checkpoint, supervision, drill, heartbeat, telemetry and
-    export flags (tests/test_torch_runtime.py, test_torch_supervisor.py)
-    are ported and named nowhere in the error."""
+    """zero1 under tensor parallelism (a model axis above 1) is what the
+    CLI does not run yet, and it is rejected for that alone beside any
+    other flags, before any rank starts: tensor parallelism
+    (tests/test_torch_tp_lms.py runs it under torchrun), LMS on a mesh of
+    several ranks (tests/test_torch_lms_ddl.py), microbatches with LMS or
+    on a mesh (tests/test_torch_microbatches.py), zero1 without tensor
+    parallelism (tests/test_torch_zero1.py), and the checkpoint,
+    supervision, drill, heartbeat, telemetry and export flags
+    (tests/test_torch_runtime.py, test_torch_supervisor.py) are ported
+    and named nowhere in the error."""
     with pytest.raises(NotImplementedError) as err:
-        launch.main(ARGS + flags + ["--mesh", "1x2"])
-    assert str(err.value) == ("not ported yet: --mesh with a model axis above 1 "
-                              "(tensor parallelism)")
+        launch.main(ARGS + flags + ["--mesh", "1x2", "--ddl-mode", "zero1"])
+    assert str(err.value) == ("zero1 under tensor parallelism (a 'model' axis above 1) "
+                              "is not ported yet")
