@@ -162,7 +162,7 @@ non-zero, printing no result):
    tp — then, in the same two ranks (warm, their pinned arena reused),
    tensor parallelism on a 1x1x2 mesh (a `model` axis over the two
    ranks: 20 / 4 heads, half of d_ff and of the vocab a rank) at 2
-   layers, 2 x 2048 tokens (every `model` rank takes the whole batch), 3
+   layers, 2 x 2048 tokens (every `model` rank takes the whole batch), 2
    steps: (i) resident against the one-device run from the same seed
    (made by each rank in turn), loss, ce and grad norm within 2e-3 relative each
    step, the masters within the CPU tests' lr-N bounds, the replicated
@@ -172,6 +172,14 @@ non-zero, printing no result):
    forward through kernel #1 at the local heads (2 launches) against the
    blockwise forward, within 2**-5 of the largest |logit|, RMSNorm's
    4L+1 launches a step resident and the plan's implied count streamed;
+   tp_serve — then serving on that mesh (TP_SERVE_LAYERS' comment):
+   qwen2.5-14b at 2 layers, the engine at both KV widths through a
+   preemption teacher-forced against the one-device engine, `run_static`
+   through kernel #1 against one device, the engine under a serve plan
+   bitwise resident; qwen3-moe's layer under expert parallelism against
+   the one-device layer and its engine with k = E against the dense pass;
+   the gathered logits bitwise the same on both ranks; the decode kernels
+   at one rank's heads timed first (`tp_serve_kernel_phases`);
 13. LMS + DDL (qwen2.5-14b at full width, 2 ranks spawned on the one card
    over gloo, the 2x1x1 mesh, compress_dcn, 2048 tokens a rank, the plan
    of LMSConfig(hbm_budget=16e9): params, grads and the AdamW state in
@@ -305,9 +313,12 @@ SSD_BATCH, SSD_LEN = 4, 2048
 MAMBA_PROMPTS = (700, 2, 1100, 256, 511, 3, 1024, 300)
 MAMBA_GEN, MAMBA_SLOTS, MAMBA_MAX_LEN = 32, 4, 1136
 # the serve runs take the first MAMBA_SERVE_LAYERS of the 48 layers' weights
-# (24 since the moe phase came: chip_smoke's time limit)
-MAMBA_SERVE_LAYERS = 24
-MAMBA_SERVE_BUDGET, MAMBA_PREEMPT_TICK = 10**9, 20
+# (24 since the moe phase came, 16 since the tp_serve cases: chip_smoke's
+# time limit). The budget puts the params and the state on the host (at 16
+# layers a plan of 1e9, 24's, keeps the state on the card, and the static
+# loop would no longer stream its cache)
+MAMBA_SERVE_LAYERS = 16
+MAMBA_SERVE_BUDGET, MAMBA_PREEMPT_TICK = 8 * 10**8, 20
 MAMBA_STATIC_PROMPT, MAMBA_STATIC_GEN = 300, 8
 MAMBA_TIMEOUT_S = 720
 # Mamba-2 training under an LMS plan (mamba2_lms): MAMBA_LMS_LAYERS layers at
@@ -398,13 +409,14 @@ CKPT_RAM_ROOT, CKPT_TIMEOUT_S = "/dev/shm", 900
 # LMSConfig(hbm_budget=DENSE_OLMO_BUDGET), which streams the params and the
 # AdamW state (in a spawned process: its pinned state goes back to the host
 # when it exits); starcoder2-7b (GQA 36/4, LayerNorm with a bias, GELU with
-# biases) serves and trains 2 steps at 2 layers and serves at 8 of its 32;
+# biases) serves and trains 2 steps at 2 layers and serves at 4 of its 32;
 # qwen2-72b (GQA 64/8, d_model 8192) serves at 2 layers and trains 2 steps at
 # 1 (~54 GB of params and AdamW state)
 DENSE_OLMO, DENSE_STARCODER, DENSE_QWEN72 = "olmo-1b", "starcoder2-7b", "qwen2-72b"
-# starcoder2-7b's deep serve run: 8 of its 32 layers (16 since the moe
-# phase came, 8 since the tp phase: chip_smoke's time limit)
-DENSE_STARCODER_SERVE_LAYERS = 8
+# starcoder2-7b's deep serve run: 4 of its 32 layers (16 since the moe
+# phase came, 8 since the tp phase, 4 since the tp_serve cases: chip_smoke's
+# time limit)
+DENSE_STARCODER_SERVE_LAYERS = 4
 DENSE_OLMO_BUDGET, DENSE_TRAIN_STEPS, DENSE_CHECK_STEPS = 8 * 10**9, 3, 2
 DENSE_TIMEOUT_S = 420
 # the 48-layer engine's determinism and profile reruns run on the first
@@ -430,7 +442,9 @@ SERVE_PLAN_PREEMPT_TICK, SERVE_PLAN_EXHAUSTIONS, SERVE_PLAN_TIMEOUT_S = 60, 3, 4
 # MOE_STATIC_PROMPT tokens + MOE_STATIC_GEN, and a shorter trace
 # (MOE_PLAN_REQUESTS requests, MOE_PLAN_GEN tokens, a preemption at tick
 # MOE_PLAN_PREEMPT_TICK: a tick under the plan copies all 4 layers, ~20 GB;
-# 8 layers before the tp phase came: chip_smoke's time limit)
+# 8 layers before the tp phase came: chip_smoke's time limit; at 2 the
+# plan's two layers in flight are the whole stack, and the serve plan of
+# MOE_BUDGET keeps the params on the card)
 # resident and under the serve plan of LMSConfig(hbm_budget=MOE_BUDGET)
 # (params on the host), bitwise; training at MOE_TRAIN_LAYERS layer,
 # MOE_TRAIN_STEPS steps resident and under the plan of MOE_BUDGET (params and
@@ -459,8 +473,32 @@ MOE_TRAIN_STEPS, MOE_TIMEOUT_S = 2, 720
 # LMSConfig(hbm_budget=TP_BUDGET), params and AdamW state on the host,
 # bitwise against (i); (iii) the kernels at the local shapes, and a
 # forward through kernel #1 against the blockwise one
-TP_MESH, TP_LAYERS, TP_STEPS, TP_BUDGET = (1, 1, 2), 2, 3, 8 * 10**9
+# (TP_STEPS 3 before the tp_serve cases: chip_smoke's time limit)
+TP_MESH, TP_LAYERS, TP_STEPS, TP_BUDGET = (1, 1, 2), 2, 2, 8 * 10**9
 TP_REL_TOL = 2e-3
+# serving on the model axis (the tp_serve cases, in the ddl_sharded ranks
+# after the tp cases, on TP_MESH over gloo): (i) qwen2.5-14b at full width
+# cut to TP_SERVE_LAYERS layers (20 / 4 heads, half of d_ff and of the
+# vocab a rank): the trace on the engine at both KV widths (DEVICE_PAGES
+# device pages: requests spill; a preemption at tick TP_SERVE_PREEMPT_TICK),
+# teacher-forced with the one-device engine's tokens on the same params
+# (rank 0 runs the one-device references and sends their tokens), each
+# row within 2**-5 of the one-device row's max |logit|, the gathered rows
+# bitwise the same on both ranks; `run_static` through kernel #1 against
+# the one-device loop (greedy tokens the same or parted at a near tie, its
+# loop teacher-forced within 2**-5); the engine under the serve plan of
+# LMSConfig(hbm_budget=TP_SERVE_BUDGET) (params and the KV backlog on the
+# host, pinned per rank) bitwise the resident engine of the plan's page
+# geometry, its peak within SERVE_PLAN_PEAK_OVER_PLAN x the plan's; (ii)
+# qwen3-moe-235b-a22b under expert parallelism (64 of the 128 experts a
+# rank): one layer at TRAIN_BATCH x TRAIN_SEQ tokens at the published
+# capacity against the one-device `apply_moe` (within 2**-5 of its max
+# |y|, the same drops and aux), and the engine at TP_MOE_LAYERS layer
+# with k = E against the one-device dense pass (within 2**-5)
+TP_SERVE_LAYERS, TP_SERVE_BUDGET, TP_SERVE_PREEMPT_TICK = 2, 15 * 10**8, 20
+# the runs generate TP_SERVE_GEN tokens a request (the trace's prompts; the
+# planned pair serves its first TP_PLAN_REQUESTS requests)
+TP_MOE_LAYERS, TP_PLAN_REQUESTS, TP_SERVE_GEN = 1, 4, 16
 # torch.profiler sessions that time a kernel: at most this many for one
 # number, the timed calls this far (s) inside each end of a session
 PROFILE_ATTEMPTS, PROFILE_PAD_S = 8, 0.02
@@ -2234,6 +2272,53 @@ def tp_kernel_phases(out: dict, checked: set):
     out["rmsnorm"].append(rmsnorm_kernel_phase(
         "tp_replicated_norm", TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, 161, checked,
         eps=cfg.norm_eps, timed=False))
+    tp_serve_kernel_phases(out, checked)
+
+
+# serving on a model axis: one rank's head counts (q / kv) of each config at
+# its |model| (the tp_serve cases on TP_MESH, four cards (h1) and (h2))
+TP_SERVE_HEADS = (("qwen2_5_14b", ARCH, 2), ("qwen3_moe", MOE, 2), ("qwen2_72b", "qwen2-72b", 4))
+
+
+def tp_serve_kernel_phases(out: dict, checked: set):
+    """The decode kernels at one rank's local decode shapes (TP_SERVE_HEADS):
+    #2 paged bf16 and #2b int8 at the engine's arena, #3 at `run_static`'s
+    slot-contiguous cache and #4b, the int8 step's fused write, each timed
+    with its bound, at qwen2.5-14b on 2 ranks (20 / 4 heads, G 5),
+    qwen3-moe on 2 (32 / 2, G 16) and qwen2-72b on 4 (16 / 2, G 8); and,
+    untimed, the other shapes the tp_serve runs launch: the arena of the
+    serve plan of TP_SERVE_BUDGET, the int8 pool's quantize at 4 kv heads,
+    and kernel #1 at `run_static`'s prefill on 20 / 4 heads."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    smax = PROMPT + TP_SERVE_GEN
+    for name, arch, m in TP_SERVE_HEADS:
+        cfg = get_config(arch)
+        hk = {"heads": cfg.num_heads // m, "kv_heads": cfg.num_kv_heads // m,
+              "d": cfg.head_dim}
+        for int8 in (False, True):
+            out["flash_decode_paged_" + ("int8" if int8 else "bf16")].append(
+                decode_kernel_phase(f"tp_serve_{name}_engine", [160, 97, 0, 33], int8,
+                                    170 + int8, checked, pages=DEVICE_PAGES,
+                                    max_pages=MAX_LEN // PAGE, **hk))
+        out["flash_decode_bf16"].append(decode_kernel_phase(
+            f"tp_serve_{name}_static_decode", [(PROMPT + smax) // 2] * REQUESTS, False, 172,
+            checked, paged=False, smax=smax, **hk))
+        out["quantize_kv_write"].append(quantize_kv_write_kernel_phase(
+            f"tp_serve_{name}_engine", SLOTS, True, 173, checked, kv_heads=hk["kv_heads"]))
+    cfg = get_config(ARCH)
+    m = TP_MESH[-1]
+    hk = {"heads": cfg.num_heads // m, "kv_heads": cfg.num_kv_heads // m, "d": cfg.head_dim}
+    plan = _tp_serve_plan(dataclasses.replace(cfg, num_layers=TP_SERVE_LAYERS))
+    out["flash_decode_paged_bf16"].append(decode_kernel_phase(
+        "tp_serve_planned_engine", [80, 40, 0, 16], False, 174, checked,
+        pages=plan.kv_paging.device_pages, max_pages=MAX_LEN // plan.kv_paging.page_size,
+        timed=False, **hk))
+    out["quantize_rows"].append(quantize_kernel_phase(
+        f"tp_serve_pool_ingest_{TP_SERVE_LAYERS}_layers",
+        TP_SERVE_LAYERS * MAX_LEN * hk["kv_heads"], 175, checked, timed=False))
+    out["flash_attention_fwd_wgmma"].append(attention_kernel_phase(
+        "tp_serve_static_prefill", REQUESTS, PROMPT, 176, checked, timed=False, **hk))
 
 
 # the CUDA launchers whose counts a run of a path resets and reads
@@ -3615,9 +3700,9 @@ def _mamba2_serve_runs(params, checked):
         tick of the next run (the model's `_logits` wrapped)."""
         orig = Model._logits
 
-        def rec(self, params, x, stream, sink=None):
+        def rec(self, params, x, stream, sink=None, mesh=None):
             heads.append(x.detach().cpu())
-            return orig(self, params, x, stream, sink)
+            return orig(self, params, x, stream, sink, mesh=mesh)
         return rec
 
     def served(p, rows, plan=None, injector=None, setup=None, record=True, heads=None):
@@ -3649,7 +3734,7 @@ def _mamba2_serve_runs(params, checked):
         model.__dict__.pop("_logits", None)
         return {r.rid: list(r.tokens) for r in reqs}, facts, reqs
 
-    # 48 layers resident, the references
+    # MAMBA_SERVE_LAYERS layers resident, the references
     rows_res, heads_res = {}, []
     toks_res, out["resident"], reqs = served(params, rows_res, heads=heads_res)
     prompt_rows = [len(r.prompt) for r in reqs]
@@ -3722,6 +3807,11 @@ def _mamba2_serve_runs(params, checked):
     n = len(sreqs)
     cache_bytes = n * out["resident"]["pool"]["state_bytes"]
     rows_in = n * MAMBA_STATIC_PROMPT + (MAMBA_STATIC_GEN - 1) * n
+    # what the plan says of the cache: on the host, the prefill emits it
+    # and each decode step streams it; on the card, it stays there, and the
+    # plan's peak holds MAMBA_SLOTS requests' state where the static loop
+    # holds n
+    cache_on_host = plan.residency.get("kvcache") == "host"
     out["static"] = {
         "tokens_bitwise": bool(np.array_equal(got, want)), "timings": t, "resident": t_res,
         "peak_bytes": torch.cuda.max_memory_allocated() - base,
@@ -3731,7 +3821,11 @@ def _mamba2_serve_runs(params, checked):
         "swap_bytes_kvcache": [moved.get("lms.swap_out_bytes.kvcache", 0),
                                moved.get("lms.swap_in_bytes.kvcache", 0)],
         "swap_bytes_kvcache_predicted": [MAMBA_STATIC_GEN * cache_bytes,
-                                         (MAMBA_STATIC_GEN - 1) * cache_bytes],
+                                         (MAMBA_STATIC_GEN - 1) * cache_bytes]
+        if cache_on_host else [0, 0],
+        "cache_on_host": cache_on_host,
+        "unpriced_state_bytes": 0 if cache_on_host
+        else (n - MAMBA_SLOTS) * out["resident"]["pool"]["state_bytes"],
         "launches": launches,
         "checks": {
             "scan_final_state_launches": launches["ssd_scan"] == L
@@ -3863,7 +3957,7 @@ def mamba2_phases(line, checked, params):
     (decode_ssm, as the JAX package's is plain jnp). At 2 layers: every
     decoded logits row within 2**-5 of its max |logit| of Model.forward's
     over the prompt and the tokens before it (the kernel route), no argmax
-    flip where that row's top-2 margin exceeds 2**-5. At 48 layers: the
+    flip where that row's top-2 margin exceeds 2**-5. At MAMBA_SERVE_LAYERS layers: the
     resident engine; under the serve plan of
     LMSConfig(hbm_budget=MAMBA_SERVE_BUDGET) (params and the waiting state
     on the host), tokens and every logits row bitwise resident, the
@@ -3876,8 +3970,10 @@ def mamba2_phases(line, checked, params):
     prompts of MAMBA_STATIC_PROMPT tokens, MAMBA_STATIC_GEN new tokens each,
     under the plan (the cache
     emitted to the host a layer at a time by the prefill, streamed by each
-    decode step) bitwise resident, its swap bytes exact, its peak within
-    the same bound.
+    decode step, as the plan's residency says at MAMBA_SERVE_LAYERS)
+    bitwise resident, its swap bytes exact as that residency implies, its
+    peak within the same bound (plus the state of the requests beyond
+    MAMBA_SLOTS where the plan keeps the cache on the card).
 
     mamba2_lms — MAMBA_LMS_LAYERS layers, MAMBA_LMS_STEPS steps of 2 x 2048
     tokens of `Trainer.train` under the plan of
@@ -3924,7 +4020,9 @@ def mamba2_phases(line, checked, params):
         "static_tokens_bitwise": st["tokens_bitwise"],
         "static_swap_bytes_exact": st["swap_in_bytes_params"] == st["swap_in_bytes_predicted"]
         and st["swap_bytes_kvcache"] == st["swap_bytes_kvcache_predicted"],
-        "static_peak_within_plan": st["peak_bytes"] <= bound})
+        "static_peak_within_plan": st["peak_bytes"] <= bound + st["unpriced_state_bytes"],
+        # the path this run is here for: the cache through the host
+        "static_cache_streamed": st["cache_on_host"]})
     row = {"phase": "mamba2_serve", "arch": MAMBA, "layers": res["layers"], "card": line,
            "prompts": MAMBA_PROMPTS, "gen": MAMBA_GEN, "slots": MAMBA_SLOTS,
            "hbm_budget": MAMBA_SERVE_BUDGET, "plan_peak_bytes": sv["plan"]["peak_bytes"],
@@ -5027,12 +5125,14 @@ def _ddl_sharded_rank(rank: int, world: int):
         plan, rows, facts = _sharded_train(tcfg, DDL_SHARDED_STEPS)
         out[name] = {"plan": plan, "rows": rows, **facts}
     out["tp"] = _tp_cases(rank, world)
+    out["tp_serve"] = _tp_serve_cases(rank, world)
     return out
 
 
 def ddl_sharded_phase(line, checked):
-    """-> (the row, the tp phase's runs): after their cases the same ranks
-    run `_tp_cases` (the tp phase, `tp_phase`), warm and in the arena they
+    """-> (the row, the tp phase's runs, the tp_serve runs): after their
+    cases the same ranks run `_tp_cases` (the tp phase, `tp_phase`) and
+    `_tp_serve_cases` (`tp_serve_phase`), warm and in the arena they
     reserved.
 
     DDL's sharded paths at qwen2.5-14b's full width cut to 1 layer
@@ -5168,7 +5268,7 @@ def ddl_sharded_phase(line, checked):
     if not all(checks.values()):
         raise AssertionError(f"ddl_sharded: failed checks "
                              f"{[k for k, v in checks.items() if not v]}")
-    return row, [r["tp"] for r in ranks]
+    return row, [r["tp"] for r in ranks], [r["tp_serve"] for r in ranks]
 
 
 def _ddl_sharded_smoke_rank(rank: int, world: int):
@@ -7030,6 +7130,455 @@ def tp_phase(line, checked, ranks):
             "rmsnorm": sum(x["rmsnorm_launches"] for x in res["rows"] + pl["rows"])}
 
 
+def _tp_serve_plan(cfg, mesh_shape=TP_MESH):
+    """The serve plan of the trace at `cfg` on a model mesh under
+    TP_SERVE_BUDGET (params and the KV backlog on the host)."""
+    from repro_torch.config.base import LMSConfig, MeshSpec, ShapeConfig
+    from repro_torch.core.lms.planner import PlanRequest, plan
+    return plan(PlanRequest(cfg=cfg, shape=ShapeConfig("serve", "decode", MAX_LEN, SLOTS),
+                            mesh=MeshSpec(mesh_shape, DDL_AXES),
+                            lms=LMSConfig(hbm_budget=TP_SERVE_BUDGET), serve=True,
+                            slots=SLOTS, backlog_slots=2 * SLOTS, page_size=PAGE))
+
+
+def _serve_on(model, params, kv_dtype, mesh, *, forced=None, plan=None, geometry=None,
+              preempt_at=None, requests=REQUESTS, gen=GEN):
+    """The trace (`requests` of PROMPT + `gen` tokens on SLOTS slots) on the
+    engine on `mesh` (None: one device), teacher-forced with `forced` {rid:
+    tokens} where given (the rows are the engine's, the argmaxes its own),
+    a preemption at tick `preempt_at`, under `plan`; the page geometry the
+    trace's (DEVICE_PAGES), or `geometry`, or the plan's. The counts (the
+    kernels' launches, the MoE drops, the params' swap bytes) are reset
+    just before and read just after the run. -> facts, with the tokens,
+    the rows and each row's argmax."""
+    import numpy as np
+    import torch
+    from repro_torch.core.lms import offload as off
+    from repro_torch.models import moe
+    from repro_torch.runtime.inject import FaultEvent, FaultInjector, FaultPlan
+    from repro_torch.serve import ServeEngine, synth_requests
+    inj = (FaultInjector(FaultPlan([FaultEvent("engine.tick", at=preempt_at, kind="preempt")]))
+           if preempt_at is not None else None)
+    if geometry is None and plan is None:
+        geometry = {"page_size": PAGE, "device_pages": DEVICE_PAGES,
+                    "host_pages": 2 * SLOTS * (MAX_LEN // PAGE)}
+    made = _moe_calls(model)
+    torch.cuda.synchronize()
+    before_engine = torch.cuda.memory_allocated()
+    eng = ServeEngine(model, slots=SLOTS, max_len=MAX_LEN, prefill_chunk=CHUNK,
+                      params=params, kv_dtype=kv_dtype, plan=plan, injector=inj,
+                      device="cuda", mesh=mesh, **(geometry or {}))
+    rows, own = {}, {}
+    select = eng._select
+
+    def pick(req, row):
+        rows.setdefault(req.rid, []).append(row.copy())
+        own.setdefault(req.rid, []).append(int(np.argmax(row)))
+        if forced is None:
+            return select(req, row)
+        return int(forced[req.rid][len(req.tokens)])
+    eng._select = pick
+    reqs = synth_requests(model.cfg, requests, PROMPT, gen, np.random.default_rng(SEED))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = off.swap_counters()
+    moe.reset_dropped()
+    try:
+        with launch_signatures() as (seen, calls, launches):
+            t0 = time.monotonic()
+            eng.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+    finally:
+        for name in made:
+            delattr(model, name)
+        del eng._select
+    m = eng.metrics()
+    moved = off.swap_counters().get("lms.swap_in_bytes.params", 0) - before.get(
+        "lms.swap_in_bytes.params", 0)
+    facts = {"run_s": wall, "decode_tok_s": m["decode_tok_s"], "ticks": m["ticks"],
+             "decode_tokens": m["decode_tokens"],
+             "ttft_mean_s": m.get("ttft_mean_s"), "tpot_p50_s": m.get("tpot_p50_s"),
+             "tpot_p95_s": m.get("tpot_p95_s"), "peak_bytes": torch.cuda.max_memory_allocated(),
+             "base_bytes": base, "engine_base_bytes": before_engine,
+             "dropped": moe.dropped(), "swap_in_bytes_params": moved,
+             "pool_invariants": _pool_invariants(eng),
+             "pool": {k: m[f"pool_{k}"] for k in ("spilled_pages", "fetched_pages",
+                                                  "prefetched_pages", "preempted_requests")},
+             "page_geometry": [eng.pool.page_size, eng.pool.device_pages],
+             "statuses": sorted(r.status for r in reqs), "calls": calls, "launches": launches,
+             "model_calls": dict(made), "seen": seen,
+             "tokens": {r.rid: list(map(int, r.tokens)) for r in reqs},
+             "rows": {rid: np.stack(v) for rid, v in rows.items()}, "own": own,
+             "finite": all(np.isfinite(r).all() for v in rows.values() for r in v)}
+    del eng
+    return facts
+
+
+def _static_rows(model, params, mesh, forced=None, gen=TP_SERVE_GEN):
+    """The static loop of `run_static` (the trace's REQUESTS prompts, `gen`
+    tokens each) with every step's logits kept, greedy or fed `forced`
+    [N, gen]. -> (tokens [N, gen], {rid: rows [gen, V]})."""
+    import numpy as np
+    import torch
+    from repro_torch.config.base import ShapeConfig
+    from repro_torch.serve import decode_step_batch, static_batch_from_requests, synth_requests
+    from repro_torch.train.steps import StepSpec, build_decode_step, build_prefill_step
+    cfg = model.cfg
+    reqs = synth_requests(cfg, REQUESTS, PROMPT, gen, np.random.default_rng(SEED))
+    n, total = len(reqs), PROMPT + gen
+    prefill, _ = build_prefill_step(model, ShapeConfig("p", "prefill", PROMPT, n),
+                                    StepSpec(cache_len=total), mesh=mesh)
+    decode, _ = build_decode_step(model, ShapeConfig("d", "decode", total, n), mesh=mesh)
+    rows, toks = [], []
+    with torch.no_grad():
+        logits, cache = prefill(params, static_batch_from_requests(cfg, reqs, "cuda"))
+        for i in range(gen):
+            rows.append(logits.float().cpu().numpy())
+            t = (torch.argmax(logits, -1) if forced is None
+                 else torch.from_numpy(np.asarray(forced)[:, i]).cuda())
+            toks.append(t.cpu().numpy())
+            if i < gen - 1:
+                logits, cache = decode(params, cache, decode_step_batch(
+                    cfg, t[:, None].to(torch.int32), None), PROMPT + i)
+    rows = np.stack(rows, 1)
+    return np.stack(toks, 1).astype(np.int32), {i: rows[i] for i in range(n)}
+
+
+def _near_tie_parting(reference_rows, want, got, tol: float) -> bool:
+    """Two greedy runs' tokens agree, or first part where the reference's
+    top-2 margin lies within 2 tol of its row's max |logit|."""
+    import numpy as np
+    for i in range(want.shape[0]):
+        parted = np.flatnonzero(want[i] != got[i])
+        if parted.size:
+            w = reference_rows[i][parted[0]]
+            top = np.sort(w)
+            if top[-1] - top[-2] > 2 * tol * np.abs(w).max():
+                return False
+    return True
+
+
+def _attn_serve_launch_checks(run, L, kv_dtype):
+    """An "attn" stack's engine run (`_serve_on`): its launches as its
+    calls imply, L paged decodes a tick (int8: L fused writes), 2L + 1
+    RMSNorms a model call; every launch recorded (the shapes: the caller
+    checks `seen`)."""
+    mc = run["model_calls"]
+    ln = run["launches"]
+    out = {"decode_launches": ln["flash_decode_paged"] == L * mc["decode_slots"]
+           and ln["flash_decode_paged_tensor_core"] == ln["flash_decode_paged"],
+           "rmsnorm_launches": ln["rmsnorm"] == (2 * L + 1) * sum(mc.values()),
+           "every_launch_recorded": run["calls"] == ln}
+    if kv_dtype == "int8":
+        out["quantize_kv_write_launches"] = ln["quantize_kv_write"] == L * mc["decode_slots"]
+    return out
+
+
+def _tp_serve_cases(rank: int, world: int):
+    """The tp_serve runs (TP_SERVE_LAYERS' comment), in the ddl_sharded
+    ranks after the tp cases. The one-device references run on rank 0 and
+    go to rank 1 over the mesh (`broadcast_object_list`). -> the rows'
+    facts (rank 0's hold the comparisons)."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.config.base import MeshSpec
+    from repro_torch.configs import get_config
+    from repro_torch.core.lms import offload as off
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import run_static
+    from repro_torch.models import moe
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.layers import tree_init
+    from repro_torch.models.model import Model
+    from repro_torch.serve import synth_requests
+    from repro_torch.train.steps import init_params, place_params
+    t0 = time.monotonic()
+    mesh = make_mesh(MeshSpec(TP_MESH, DDL_AXES))
+    group = mesh.groups["model"]
+    lead = rank == 0
+
+    def share(obj):
+        box = [obj]
+        dist.broadcast_object_list(box, src=0, group=group)
+        return box[0]
+
+    def public(run):
+        """A run's facts for the JSON row (no rows), its launch signatures
+        as `signatures`."""
+        out = {k: v for k, v in run.items() if k not in ("rows", "own", "seen", "tokens")}
+        out["signatures"] = sorted(run["seen"])
+        return out
+
+    def rows_sum(run):
+        return _checksums({str(k): torch.from_numpy(v) for k, v in sorted(run["rows"].items())})
+    out = {"rank": rank}
+    # (i) qwen2.5-14b at TP_SERVE_LAYERS layers: the one-device references
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=TP_SERVE_LAYERS)
+    model = Model(cfg, attn_impl="blockwise")
+    kernel_model = Model(cfg, attn_impl="pallas")
+    L = TP_SERVE_LAYERS
+    ref = None
+    if lead:
+        full = model.init(SEED, "cuda")
+        ref = {kv: _serve_on(model, full, kv, None, preempt_at=TP_SERVE_PREEMPT_TICK,
+                             gen=TP_SERVE_GEN) for kv in ("model", "int8")}
+        ref["static"] = _static_rows(kernel_model, full, None)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+    forced = share(None if ref is None else {kv: ref[kv]["tokens"] for kv in ("model", "int8")}
+                   | {"static": ref["static"][0]})
+    blocks = init_params(model, SEED, "cuda", mesh=mesh)
+    engine = {}
+    for kv in ("model", "int8"):
+        run = _serve_on(model, blocks, kv, mesh, forced=forced[kv],
+                        preempt_at=TP_SERVE_PREEMPT_TICK, gen=TP_SERVE_GEN)
+        facts = public(run)
+        facts["checks"] = _attn_serve_launch_checks(run, L, kv)
+        facts["rows_checksums"] = rows_sum(run)
+        facts["own"] = run["own"]
+        if lead:
+            facts["against_one_device"] = _deviation(ref[kv]["rows"], run["rows"])
+            facts["one_device"] = public(ref[kv])
+        engine[kv] = facts
+    out["engine"] = engine
+    # run_static on the mesh (the kernel prefill), and its loop teacher-forced
+    t1 = time.monotonic()
+    reqs = synth_requests(cfg, REQUESTS, PROMPT, TP_SERVE_GEN, np.random.default_rng(SEED))
+    with launch_signatures() as (seen, calls, launches):
+        toks, timing = run_static(kernel_model, reqs, PROMPT, TP_SERVE_GEN, params=blocks,
+                                  device="cuda", mesh=mesh)[1:]
+    forced_toks, forced_rows = _static_rows(kernel_model, blocks, mesh, forced["static"])
+    static = {"seconds": time.monotonic() - t1, "timing": timing, "launches": launches,
+              "tokens_checksum": int(np.asarray(toks, np.int64).sum()),
+              "tokens": toks.tolist(),
+              "rows_checksums": _checksums({str(k): torch.from_numpy(v)
+                                            for k, v in sorted(forced_rows.items())}),
+              "signatures": sorted(seen),
+              "checks": {"every_launch_recorded": calls == launches,
+                         "prefill_wgmma_launches_L":
+                             launches["flash_attention_wgmma"] == L,
+                         "decode_launches": launches["flash_decode"] == L * (TP_SERVE_GEN - 1)
+                         and launches["flash_decode_tensor_core"]
+                         == L * (TP_SERVE_GEN - 1)}}
+    if lead:
+        one_toks, one_rows = ref["static"]
+        static["forced_against_one_device"] = _deviation(one_rows, forced_rows)
+        static["greedy_same_or_near_tie"] = _near_tie_parting(one_rows, one_toks, toks,
+                                                              2.0 ** -5)
+        static["greedy_identical_requests"] = int((one_toks == toks).all(axis=1).sum())
+    out["static"] = static
+    # under the serve plan: params (and the KV backlog) pinned per rank,
+    # bitwise the resident run of the plan's page geometry
+    plan = _tp_serve_plan(cfg)
+    geo = {"page_size": plan.kv_paging.page_size, "device_pages": plan.kv_paging.device_pages,
+           "host_pages": plan.kv_paging.host_pages}
+    resident = _serve_on(model, blocks, "model", mesh, geometry=geo, requests=TP_PLAN_REQUESTS,
+                         gen=TP_SERVE_GEN)
+    placed = place_params(blocks, plan, "cuda")
+    del blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = off.swap_counters()
+    planned = _serve_on(model, placed, "model", mesh, plan=plan, requests=TP_PLAN_REQUESTS,
+                        gen=TP_SERVE_GEN)
+    moved = off.swap_counters().get("lms.swap_in_bytes.params", 0) - before.get(
+        "lms.swap_in_bytes.params", 0)
+    same = (resident["tokens"] == planned["tokens"]
+            and all(resident["rows"][k].tobytes() == planned["rows"][k].tobytes()
+                    for k in resident["rows"]))
+    out["serve_plan"] = {
+        "plan": _plan_row(plan), "geometry": geo, "resident": public(resident),
+        "peak_over_plan": (planned["peak_bytes"] - planned["engine_base_bytes"])
+        / plan.peak_bytes,
+        "planned": public(planned), "swap_in_bytes_params": moved,
+        "checks": {"plan_puts_params_on_the_host": plan.residency.get("params") == "host",
+                   "planned_bitwise_resident": same,
+                   "peak_within_plan": planned["peak_bytes"] - planned["engine_base_bytes"]
+                   <= SERVE_PLAN_PEAK_OVER_PLAN * plan.peak_bytes,
+                   **{f"planned_{k}": v for k, v in
+                      _attn_serve_launch_checks(planned, L, "model").items()},
+                   **{f"resident_{k}": v for k, v in
+                      _attn_serve_launch_checks(resident, L, "model").items()}}}
+    del placed, resident, planned
+    off.release_arenas()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["qwen_seconds"] = time.monotonic() - t0
+
+    # (ii) qwen3-moe-235b-a22b under expert parallelism: one layer
+    t1 = time.monotonic()
+    mcfg = _moe_cfg(1)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    defs = moe.moe_defs(mcfg)
+    whole = tree_init(defs, gen, "cuda")
+    specs = shd.spec_tree(defs, mesh)
+    mine = {k: shd.local_shard(v, specs[k], mesh).contiguous() for k, v in whole.items()}
+    x = torch.randn(TRAIN_BATCH, TRAIN_SEQ, mcfg.d_model, generator=gen, device="cuda",
+                    dtype=torch.float32).to(torch.bfloat16)
+    layer = {}
+    # the published capacity factor, and half of it (the capacity drops
+    # assignments: the drop mask on both paths)
+    for cf in (mcfg.moe_capacity_factor, mcfg.moe_capacity_factor / 2):
+        c = dataclasses.replace(mcfg, moe_capacity_factor=cf)
+        with torch.no_grad():
+            (y_ep, aux_ep), dropped_ep = _moe_dropped(moe.apply_moe, c, mine, x, mesh)
+            (y_one, aux_one), dropped_one = _moe_dropped(moe.apply_moe, c, whole, x)
+            err = float((y_ep.float() - y_one.float()).abs().max())
+            top = float(y_one.float().abs().max())
+            ep_ms = time_ms(lambda: moe.apply_moe(c, mine, x, mesh), 3)
+            one_ms = time_ms(lambda: moe.apply_moe(c, whole, x), 3)
+        layer[str(cf)] = {
+            "capacity_factor": cf, "capacity": moe._capacity(c, TRAIN_BATCH * TRAIN_SEQ),
+            "dropped": [dropped_ep, dropped_one], "aux": [float(aux_ep), float(aux_one)],
+            "err_over_max": err / top, "expert_parallel_ms": ep_ms, "one_device_ms": one_ms,
+            "y_checksum": _checksums({"y": y_ep}),
+            "checks": {"within_2**-5": err <= 2.0 ** -5 * top,
+                       "dropped_equal": dropped_ep == dropped_one,
+                       "aux_bitwise": float(aux_ep) == float(aux_one)}}
+        del y_ep, y_one
+    halved = layer[str(mcfg.moe_capacity_factor / 2)]
+    halved["checks"]["drops_some"] = halved["dropped"][0] > 0
+    out["moe_layer"] = {
+        "tokens": TRAIN_BATCH * TRAIN_SEQ, "experts_a_rank": mine["w_gate"].shape[0],
+        "tol_over_max": 2.0 ** -5, "by_capacity_factor": layer,
+        "y_checksums": [v["y_checksum"] for v in layer.values()],
+        "seconds": time.monotonic() - t1,
+        "checks": {f"{k}_cf_{cf}": v for cf, run in layer.items()
+                   for k, v in run["checks"].items()}}
+    del whole, mine, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the engine at TP_MOE_LAYERS layers with k = E against the dense pass
+    t1 = time.monotonic()
+    ecfg = _moe_cfg(TP_MOE_LAYERS, every=True)
+    emodel = Model(ecfg, attn_impl="blockwise")
+    eblocks = init_params(emodel, SEED, "cuda", mesh=mesh)
+    run = _serve_on(emodel, eblocks, "model", mesh, gen=TP_SERVE_GEN)
+    del eblocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    facts = public(run)
+    facts["checks"] = _attn_serve_launch_checks(run, TP_MOE_LAYERS, "model")
+    facts["rows_checksums"] = rows_sum(run)
+    if lead:
+        full = emodel.init(SEED, "cuda")
+        reqs = _mesh_requests(ecfg, run["tokens"])
+        dense = {r.rid: _dense_rows(emodel, full, r) for r in reqs}
+        facts["against_dense"] = _deviation(dense, run["rows"])
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+    facts["seconds"] = time.monotonic() - t1
+    out["moe_engine"] = facts
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def _mesh_requests(cfg, tokens):
+    """The trace's requests with the tokens a run generated (for
+    `_dense_rows`)."""
+    import numpy as np
+    from repro_torch.serve import synth_requests
+    reqs = synth_requests(cfg, REQUESTS, PROMPT, TP_SERVE_GEN, np.random.default_rng(SEED))
+    for r in reqs:
+        r.tokens = list(tokens[r.rid])
+    return reqs
+
+
+def tp_serve_phase(line, checked, ranks):
+    """Serving on the model axis (TP_SERVE_LAYERS' comment), from the runs
+    `_tp_serve_cases` made in the ddl_sharded ranks. Row `tp_serve`. ->
+    {kernel: launches on the serve-on-mesh path} (rank 0's: the engines at
+    both KV widths, `run_static`, the planned engine, the MoE engine)."""
+    r0 = ranks[0]
+    eng, st, sp, ml, me = (r0["engine"], r0["static"], r0["serve_plan"], r0["moe_layer"],
+                           r0["moe_engine"])
+    tol = 2.0 ** -5
+
+    def same(key):
+        return all(json.dumps(key(r), sort_keys=True) == json.dumps(key(r0), sort_keys=True)
+                   for r in ranks)
+    checks = {
+        **{f"engine_{kv}_within_2**-5_of_one_device": eng[kv]["against_one_device"]["worst"]
+           <= tol for kv in ("model", "int8")},
+        **{f"engine_{kv}_{k}": all(r["engine"][kv]["checks"][k] for r in ranks)
+           for kv in ("model", "int8") for k in eng[kv]["checks"]},
+        **{f"engine_{kv}_preempted_and_spilled": eng[kv]["pool"]["preempted_requests"] >= 1
+           and eng[kv]["pool"]["spilled_pages"] > 0 for kv in ("model", "int8")},
+        **{f"engine_{kv}_all_ok": eng[kv]["statuses"] == ["ok"] * REQUESTS
+           for kv in ("model", "int8")},
+        "engine_rows_bitwise_across_ranks": same(lambda r: [r["engine"][kv]["rows_checksums"]
+                                                            for kv in ("model", "int8")]),
+        "engine_tokens_and_pool_same_across_ranks": same(
+            lambda r: [[r["engine"][kv][k] for k in ("own", "pool", "ticks", "statuses")]
+                       for kv in ("model", "int8")]),
+        "engine_finite": all(r["engine"][kv]["finite"] for r in ranks for kv in ("model", "int8")),
+        "static_forced_within_2**-5_of_one_device":
+            st["forced_against_one_device"]["worst"] <= tol,
+        "static_greedy_same_or_parted_at_a_near_tie": st["greedy_same_or_near_tie"],
+        "static_same_across_ranks": same(lambda r: [r["static"]["tokens"],
+                                                    r["static"]["rows_checksums"]]),
+        **{f"static_{k}": all(r["static"]["checks"][k] for r in ranks)
+           for k in st["checks"]},
+        **{f"serve_plan_{k}": all(r["serve_plan"]["checks"][k] for r in ranks)
+           for k in sp["checks"]},
+        **{f"moe_layer_{k}": all(r["moe_layer"]["checks"][k] for r in ranks)
+           for k in ml["checks"]},
+        "moe_layer_same_across_ranks": same(lambda r: r["moe_layer"]["y_checksums"]),
+        "moe_engine_within_2**-5_of_the_dense_pass": me["against_dense"]["worst"] <= tol,
+        **{f"moe_engine_{k}": all(r["moe_engine"]["checks"][k] for r in ranks)
+           for k in me["checks"]},
+        "moe_engine_rows_bitwise_across_ranks": same(lambda r: r["moe_engine"]["rows_checksums"]),
+    }
+    runs = [r["engine"][kv] for r in ranks for kv in ("model", "int8")] + [
+        r[k] for r in ranks for k in ("static", "moe_engine")] + [
+        r["serve_plan"][k] for r in ranks for k in ("resident", "planned")]
+    unchecked = sorted({_tuplify(sig) for run in runs for sig in run["signatures"]} - checked)
+    checks["every_launch_shape_checked"] = not unchecked
+    drop = ("own", "rows_checksums", "signatures")
+    row = {"phase": "tp_serve", "arch": ARCH, "moe_arch": MOE, "card": line,
+           "mesh": "x".join(map(str, TP_MESH)), "backend": "gloo (host-staged)",
+           "note": "two ranks time-slice one card over gloo: correctness, not serving speed "
+                   "across cards (scripts/ddl_four_cards.py --phases h)",
+           "layers": TP_SERVE_LAYERS, "moe_layers": TP_MOE_LAYERS,
+           "engine": {kv: {k: v for k, v in eng[kv].items() if k not in drop}
+                      for kv in ("model", "int8")},
+           "static": {k: v for k, v in st.items()
+                      if k not in ("tokens", "rows_checksums", "signatures")},
+           "serve_plan": {k: ({kk: vv for kk, vv in v.items() if kk != "signatures"}
+                              if k in ("resident", "planned") else v) for k, v in sp.items()},
+           "moe_layer": ml, "unchecked_signatures": unchecked,
+           "moe_engine": {k: v for k, v in me.items() if k not in drop},
+           "seconds_in_ranks": [r["seconds"] for r in ranks], "checks": checks}
+    emit(row)
+    emit({"phase": "seconds", "of": "tp_serve_in_ranks",
+          "seconds": max(r["seconds"] for r in ranks)})
+    if not all(checks.values()):
+        raise AssertionError(f"tp_serve: failed checks {[k for k, v in checks.items() if not v]}")
+    launches = {}
+    for run in (eng["model"], eng["int8"], sp["planned"], me):
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for k, v in st["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    return {"flash_attention_fwd_wgmma": launches.get("flash_attention_wgmma", 0),
+            "flash_decode_bf16": launches.get("flash_decode", 0),
+            "flash_decode_paged_bf16": eng["model"]["launches"]["flash_decode_paged"]
+            + sp["planned"]["launches"]["flash_decode_paged"]
+            + me["launches"]["flash_decode_paged"],
+            "flash_decode_paged_int8": eng["int8"]["launches"]["flash_decode_paged"],
+            "quantize_rows": eng["int8"]["launches"]["quantize_rows"],
+            "quantize_kv_write": eng["int8"]["launches"]["quantize_kv_write"],
+            "rmsnorm": launches.get("rmsnorm", 0)}
+
+
 def _moe_cfg(layers: int, arch: str = MOE, ample: bool = False, every: bool = False):
     """`arch` at its published width cut to `layers`; `ample`: capacity for
     every assignment (cf = E / k), so no call drops one; `every`: each
@@ -7104,76 +7653,35 @@ def _moe_calls(model):
 def _moe_serve(model, params, checked, *, requests=REQUESTS, gen=GEN, preempt_at=None,
                plan=None):
     """Serve `requests` of the trace's prompts (PROMPT tokens, `gen` greedy
-    tokens) on SLOTS slots, a preemption at tick `preempt_at` if given,
-    under `plan` if given, counts reset just before and read just after.
-    -> (facts, tokens, rows)."""
-    import numpy as np
-    import torch
-    from repro_torch.core.lms import offload as off
-    from repro_torch.models import moe
-    from repro_torch.runtime.inject import FaultEvent, FaultInjector, FaultPlan
-    from repro_torch.serve import ServeEngine, synth_requests
-    inj = (FaultInjector(FaultPlan([FaultEvent("engine.tick", at=preempt_at, kind="preempt")]))
-           if preempt_at is not None else None)
-    calls_made = _moe_calls(model)
-    eng = ServeEngine(model, slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, prefill_chunk=CHUNK,
-                      device_pages=DEVICE_PAGES, host_pages=2 * SLOTS * (MAX_LEN // PAGE),
-                      params=params, plan=plan, injector=inj, device="cuda")
-    rows = {}
-    select = eng._select
-
-    def record(req, row):
-        rows.setdefault(req.rid, []).append(row.copy())
-        return select(req, row)
-    eng._select = record
-    reqs = synth_requests(model.cfg, requests, PROMPT, gen, np.random.default_rng(SEED))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    before = off.swap_counters()
-    moe.reset_dropped()
-    try:
-        with launch_signatures() as (seen, calls, launches):
-            t0 = time.monotonic()
-            eng.run(reqs)
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t0
-    finally:
-        for name in calls_made:
-            delattr(model, name)
-        del eng._select
-    dropped = moe.dropped()
-    moved = off.swap_counters().get("lms.swap_in_bytes.params", 0) - before.get(
-        "lms.swap_in_bytes.params", 0)
-    m = eng.metrics()
-    L = model.cfg.num_layers
-    model_calls = calls_made["prefill_chunk"] + calls_made["decode_slots"]
-    facts = {"layers": L, "requests": requests, "gen": gen, "run_s": wall,
-             "decode_tok_s": m["decode_tok_s"], "ticks": m["ticks"],
-             "tpot_p50_s": m.get("tpot_p50_s"), "ttft_mean_s": m.get("ttft_mean_s"),
-             "calls": calls_made, "dropped": dropped, "peak_bytes":
-             torch.cuda.max_memory_allocated() - base, "swap_in_bytes_params": moved,
-             "preempted_requests": eng.pool.stats["preempted_requests"],
-             "spilled_pages": m["pool_spilled_pages"], "launches": launches,
-             "pool_invariants": _pool_invariants(eng),
-             "unchecked": sorted(map(str, seen - checked)),
-             "checks": {
-                 "all_ok": all(r.status == "ok" and len(r.tokens) == gen for r in reqs),
-                 "finite": all(np.isfinite(r).all() for v in rows.values() for r in v),
-                 "decode_launches": launches["flash_decode_paged"]
-                 == L * calls_made["decode_slots"]
-                 and launches["flash_decode_paged_tensor_core"] == launches["flash_decode_paged"],
-                 "rmsnorm_launches": launches["rmsnorm"] == (2 * L + 1) * model_calls,
-                 "every_launch_recorded": calls == launches,
-                 "every_launch_shape_checked": not (seen - checked)}}
+    tokens) on SLOTS slots at the trace's page geometry, a preemption at
+    tick `preempt_at` if given, under `plan` if given (`_serve_on`). ->
+    (facts, tokens, rows)."""
+    geometry = {"page_size": PAGE, "device_pages": DEVICE_PAGES,
+                "host_pages": 2 * SLOTS * (MAX_LEN // PAGE)}
+    run = _serve_on(model, params, None, None, plan=plan, geometry=geometry,
+                    preempt_at=preempt_at, requests=requests, gen=gen)
+    calls_made = run["model_calls"]
+    unchecked = run["seen"] - checked
+    facts = {"layers": model.cfg.num_layers, "requests": requests, "gen": gen,
+             **{k: run[k] for k in ("run_s", "decode_tok_s", "ticks", "tpot_p50_s",
+                                    "ttft_mean_s", "dropped", "swap_in_bytes_params",
+                                    "launches", "pool_invariants")},
+             "calls": calls_made, "peak_bytes": run["peak_bytes"] - run["base_bytes"],
+             "preempted_requests": run["pool"]["preempted_requests"],
+             "spilled_pages": run["pool"]["spilled_pages"],
+             "unchecked": sorted(map(str, unchecked)),
+             "checks": {"all_ok": run["statuses"] == ["ok"] * requests
+                        and all(len(t) == gen for t in run["tokens"].values()),
+                        "finite": run["finite"],
+                        **_attn_serve_launch_checks(run, model.cfg.num_layers, "model"),
+                        "every_launch_shape_checked": not unchecked}}
     if preempt_at is not None:
         facts["checks"]["preempted"] = facts["preempted_requests"] >= 1
     if plan is not None:
         facts["swap_in_bytes_predicted"] = (calls_made["prefill_chunk"] * _sweep_bytes(params, CHUNK)
                                             + calls_made["decode_slots"]
                                             * _sweep_bytes(params, SLOTS))
-    del eng
-    return facts, {r.rid: list(r.tokens) for r in reqs}, rows
+    return facts, run["tokens"], {rid: list(r) for rid, r in run["rows"].items()}
 
 
 def _same_rows(a, b) -> bool:
@@ -7520,8 +8028,9 @@ def main() -> int:
     # first of the rank phases: its two ranks hold 2 x 27.8 GB of pinned
     # state and gloo's staging at once, which fits the machine's 96 GiB
     # only while this process has touched little host memory
-    _, tp_ranks = timed(ddl_sharded_phase, line, checked)
+    _, tp_ranks, tp_serve_ranks = timed(ddl_sharded_phase, line, checked)
     tp_launches = timed(tp_phase, line, checked, tp_ranks)
+    tp_serve_launches = timed(tp_serve_phase, line, checked, tp_serve_ranks)
     f32_attention_row = timed(f32_attention_phase, line, checked)
     f32_decode_row = timed(f32_decode_phase, line, checked)
     f32_ssd_row = timed(f32_ssd_phase, line, checked)
@@ -7671,7 +8180,8 @@ def main() -> int:
                     "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                     "library_ms": main_row["library_ms"],
                     "moe_launches": moe_launches.get(name, 0),
-                    "tp_launches": tp_launches.get(name, 0)})
+                    "tp_launches": tp_launches.get(name, 0),
+                    "tp_serve_launches": tp_serve_launches.get(name, 0)})
     emit({"phase": "seconds", "of": "chip_smoke", "seconds": time.monotonic() - started})
     emit({"phase": "sass_summary", "kernel": "fa_wgmma_kernel",
           "hgmma_total": sass_row["hgmma_total"], "hgmma": sass_row["hgmma"],

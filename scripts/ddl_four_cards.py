@@ -79,6 +79,32 @@ row a phase (the whole rows also go to chiprun_out/ddl_four_cards.json).
     LMSConfig(hbm_budget=16e9) (params, grads and the AdamW state in
     pinned host memory) bitwise against the resident run at that depth.
 
+(h) Serving on a `model` axis over the cards (one rank a card, NCCL):
+    (h1) qwen2-72b at all H1_LAYERS layers resident on MESH_H (~37 GB of
+    params a rank), chip_smoke's trace (8 requests of 128 + 32 tokens on 4
+    slots, half the device pages full residency needs): decode tok/s,
+    TTFT, TPOT p50/p95, s a tick against PR27_TICK_S (its tick streamed
+    from pinned host memory on one card), each rank's peak against the
+    resident serve plan of the mesh, the tokens and the gathered rows the
+    same on every rank; first the same run at H_CHECK_LAYERS layers
+    teacher-forced against one card (rank 0's) on the same params, every
+    row within 2**-5 of its max |logit|. (h2) qwen3-moe-235b-a22b at
+    H2_LAYERS layers on MESH_H, the experts over `model` (32 of 128 a
+    rank): teacher-forced against rank 0's one-card engine (top-8 routing
+    moves near ties between the two: reported, not held), free-running
+    (tok/s against PR30_MOE_TOK_S on one card), and with k = E held within
+    2**-5 of rank 0's one-card dense pass. (h3) the MoE layer training:
+    qwen3-moe at H3_LAYERS layers, 3 steps on 1x2x2 (expert parallelism
+    and tensor parallelism over `model`, DDL over `data`) against 1x2x1 on
+    two cards (whose replicated state does not fit a card at this depth:
+    under LMSConfig(hbm_budget=16e9), which the port runs bitwise
+    resident). With k = E (each token to every expert, H3E_SEQ tokens a
+    data rank: a continuous layer), every one of (g1)'s bounds; with the
+    published top-8, whose routing parts at near ties of the router's 8th
+    and 9th choices, loss and ce within 2e-3, the masters within 2 lr N
+    and the leaves bitwise across ranks, the grad norm and the masters'
+    shares reported (`--phases h3e` runs the k = E run alone).
+
 A phase whose depth the host cannot hold at 1 layer raises with the
 numbers. Any failed check raises; the script then exits non-zero and
 prints no last line. The last line is {"ok": true, "device": {...}}.
@@ -109,7 +135,7 @@ RESIDENT_DEPTHS = (1, 2, 3, 4)
 # (activations of one 2048-token row, the reductions' f32 work buffers)
 RESIDENT_ALLOWANCE = 12 * 10**9
 MAX_LAYERS = 48
-TIMEOUT_S = {"ad": 600, "b": 900, "c": 900, "e": 600, "f": 900, "g": 900}
+TIMEOUT_S = {"ad": 600, "b": 900, "c": 900, "e": 600, "f": 900, "g": 900, "h": 600}
 # (c): each rank's measured peak against its plan's
 PEAK_OVER_PLAN = 1.10
 # (e): olmo-1b at its full depth, resident on MESH_A and zero1 on MESH_C
@@ -121,6 +147,17 @@ MOE, MOE_LAYERS = "qwen3-moe-235b-a22b", 2
 # (g): tensor parallelism; the meshes, and the depth of each run
 MESH_G1_DP, MESH_G1, MESH_G2 = (1, 2, 1), (1, 2, 2), (1, 1, 4)
 G1_LAYERS, G2_LAYERS, G3_LAYERS, G_STEPS = 4, 48, 16, 3
+# (h): serving on a model axis; the mesh, the configs and their depths; the
+# one-card numbers it is held beside (qwen2-72b's tick streamed from pinned
+# host memory, PR 27's serve_beyond_card.py; qwen3-moe's 8-layer engine on
+# one card, PR 30's chip_smoke)
+MESH_H = (1, 1, 4)
+H1_ARCH, H1_LAYERS, H_CHECK_LAYERS, H2_LAYERS, H3_LAYERS = "qwen2-72b", 80, 2, 8, 2
+# (h3)'s k = E run: H3E_SEQ tokens a data rank, so that its E x H3E_SEQ
+# assignments a layer are the top-8 run's 8 x TRAIN_SEQ (the same dispatch
+# buffers; the reference's peak stays where the top-8 run's was)
+H3E_SEQ = 128
+PR27_TICK_S, PR30_MOE_TOK_S = 3.04, 52.9
 
 
 class _PhasePeaks:
@@ -1063,15 +1100,15 @@ def _tp_g3_rank(rank: int, world: int):
                                           LMSConfig(hbm_budget=cs.LMS_DDL_BUDGET)))}
 
 
-def _tp_summary(ranks, get, cfg, mesh, line):
+def _tp_summary(ranks, get, cfg, mesh, line, seq: int = cs.TRAIN_SEQ):
     """A tensor-parallel run's row: rank 0's steady steps, tokens/s of the
-    global batch, model FLOP/s over the cards and its share of their bf16
-    peak, each rank's peak."""
+    global batch (a row of `seq` tokens a data rank), model FLOP/s over the
+    cards and its share of their bf16 peak, each rank's peak."""
     run = get(ranks[0])
     rows = run["rows"]
     step_s = _steady(rows, "time_s")
-    tokens = mesh[0] * mesh[1] * cs.TRAIN_SEQ
-    flops, _ = cs._train_flops(cfg, tokens, cs.TRAIN_SEQ)
+    tokens = mesh[0] * mesh[1] * seq
+    flops, _ = cs._train_flops(cfg, tokens, seq)
     cards = math.prod(mesh)
     return {"card": line, "layers": cfg.num_layers, "mesh": list(mesh),
             "step_s_steady": step_s, "step_s": [r["time_s"] for r in rows],
@@ -1176,6 +1213,262 @@ def phase_g(line, rows_out):
     _fail("(g3)", checks)
 
 
+# ---------------------------------------------------------------------------
+# (h) serving on a model axis, and the MoE layer under expert parallelism
+# ---------------------------------------------------------------------------
+
+def _share(obj, mesh):
+    """Rank 0's `obj` on every rank of the mesh's `model` group."""
+    import torch.distributed as dist
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, group=mesh.groups["model"])
+    return box[0]
+
+
+def _serve_summary(run, line) -> dict:
+    """An engine run's serving metrics (`cs._serve_on`'s facts)."""
+    return {"card": line, "run_s": run["run_s"], "decode_tok_s": run["decode_tok_s"],
+            "ticks": run["ticks"], "tick_s": run["decode_tokens"] / run["decode_tok_s"]
+            / run["ticks"], "ttft_mean_s": run["ttft_mean_s"], "tpot_p50_s": run["tpot_p50_s"],
+            "tpot_p95_s": run["tpot_p95_s"], "pool": run["pool"],
+            "statuses": run["statuses"], "launches": {k: v for k, v in run["launches"].items()
+                                                      if v}}
+
+
+def _mesh_facts(run, mesh):
+    """What every rank must hold alike: its tokens and the checksums of the
+    gathered rows."""
+    import torch
+    return {"tokens": run["tokens"], "rows": cs._checksums(
+        {str(k): torch.from_numpy(v) for k, v in sorted(run["rows"].items())})}
+
+
+def _serve_h1_rank(rank: int, world: int, line):
+    """(h1): qwen2-72b on MESH_H, first H_CHECK_LAYERS layers teacher-forced
+    against one card (rank 0's), then all H1_LAYERS resident."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.config.base import LMSConfig, MeshSpec, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.lms.planner import PlanRequest, plan as plan_lms
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.train.steps import init_params
+    from repro_torch.tree import tree_leaves
+    mesh = make_mesh(MeshSpec(MESH_H, cs.DDL_AXES))
+    out = {"rank": rank}
+    small = Model(dataclasses.replace(get_config(H1_ARCH), num_layers=H_CHECK_LAYERS))
+    ref = None
+    if rank == 0:
+        full = small.init(cs.SEED, "cuda")
+        ref = cs._serve_on(small, full, "model", None)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+    forced = _share(None if ref is None else ref["tokens"], mesh)
+    blocks = init_params(small, cs.SEED, "cuda", mesh=mesh)
+    run = cs._serve_on(small, blocks, "model", mesh, forced=forced)
+    out["check"] = {"same": cs._same_on_all_ranks(_mesh_facts(run, mesh)),
+                    "finite": run["finite"]}
+    if ref is not None:
+        out["check"]["against_one_card"] = cs._deviation(ref["rows"], run["rows"])
+        out["check"]["one_card"] = _serve_summary(ref, line)
+    del blocks, run, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(H1_ARCH)
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    blocks = init_params(model, cs.SEED, "cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    out["init_s"] = time.monotonic() - t0
+    out["params_bytes"] = sum(t.numel() * t.element_size() for t in tree_leaves(blocks))
+    run = cs._serve_on(model, blocks, "model", mesh)
+    plan = plan_lms(PlanRequest(cfg=cfg, shape=ShapeConfig("serve", "decode", cs.MAX_LEN,
+                                                          cs.SLOTS),
+                                mesh=MeshSpec(MESH_H, cs.DDL_AXES), lms=LMSConfig(enabled=False),
+                                serve=True, slots=cs.SLOTS, backlog_slots=2 * cs.SLOTS,
+                                page_size=cs.PAGE))
+    out["resident"] = {**_serve_summary(run, line), "peak_bytes": run["peak_bytes"],
+                       "plan_peak_bytes": plan.peak_bytes, "finite": run["finite"],
+                       "same_on_all_ranks": cs._same_on_all_ranks(_mesh_facts(run, mesh))}
+    return out
+
+
+def _serve_h2_rank(rank: int, world: int, line):
+    """(h2): qwen3-moe at H2_LAYERS layers on MESH_H, the experts over
+    `model`: teacher-forced against one card (rank 0's), free-running, and
+    with k = E against rank 0's one-card dense pass."""
+    import gc
+    import torch
+    from repro_torch.config.base import MeshSpec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.train.steps import init_params
+    mesh = make_mesh(MeshSpec(MESH_H, cs.DDL_AXES))
+    out = {"rank": rank}
+    model = Model(cs._moe_cfg(H2_LAYERS))
+    every = Model(cs._moe_cfg(H2_LAYERS, every=True))
+    ref, full = None, None
+    if rank == 0:
+        full = model.init(cs.SEED, "cuda")
+        ref = cs._serve_on(model, full, "model", None)
+        out["one_card"] = _serve_summary(ref, line)
+    forced = _share(None if ref is None else ref["tokens"], mesh)
+    blocks = init_params(model, cs.SEED, "cuda", mesh=mesh)
+    run = cs._serve_on(model, blocks, "model", mesh, forced=forced)
+    out["forced"] = {"same": cs._same_on_all_ranks(_mesh_facts(run, mesh)),
+                     "finite": run["finite"]}
+    if ref is not None:
+        out["forced"]["against_one_card"] = cs._deviation(ref["rows"], run["rows"])
+    del run, ref
+    free = cs._serve_on(model, blocks, "model", mesh)
+    out["engine"] = {**_serve_summary(free, line), "peak_bytes": free["peak_bytes"],
+                     "finite": free["finite"],
+                     "same_on_all_ranks": cs._same_on_all_ranks(_mesh_facts(free, mesh))}
+    del free
+    # k = E: the same params (the router is E wide either way)
+    erun = cs._serve_on(every, blocks, "model", mesh)
+    out["every"] = {"same": cs._same_on_all_ranks(_mesh_facts(erun, mesh)),
+                    "finite": erun["finite"], "statuses": erun["statuses"]}
+    if full is not None:
+        reqs = cs._mesh_requests(every.cfg, erun["tokens"])
+        dense = {r.rid: cs._dense_rows(every, full, r) for r in reqs}
+        out["every"]["against_dense"] = cs._deviation(dense, erun["rows"])
+    del blocks, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_tp_config(mesh, lms=None, every: bool = False):
+    """(h3): qwen3-moe at H3_LAYERS layers on `mesh`, as `_tp_config`;
+    `every`: k = E (each token to every expert) at H3E_SEQ tokens a data
+    rank."""
+    import dataclasses
+    from repro_torch.config.base import DDLConfig
+    tcfg = cs._ddl_config(H3_LAYERS, mesh, ddl=DDLConfig(overlap_grads=True),
+                          batch=mesh[0] * mesh[1], seq=H3E_SEQ if every else cs.TRAIN_SEQ,
+                          log_every=1, arch=MOE)
+    tcfg = dataclasses.replace(tcfg, model=cs._moe_cfg(H3_LAYERS, every=every),
+                               learning_rate=cs.TRAIN_LR, warmup_steps=0, total_steps=G_STEPS)
+    return tcfg if lms is None else dataclasses.replace(tcfg, lms=lms)
+
+
+def _moe_dp_rank(rank: int, world: int, path: str, every: bool):
+    """(h3)'s reference on MESH_G1_DP (each rank's replicated state does
+    not fit the card at H3_LAYERS layers: under the plan of
+    LMS_DDL_BUDGET, which the port runs bitwise resident)."""
+    from repro_torch.config.base import LMSConfig
+    return _tp_run(_moe_tp_config(MESH_G1_DP, LMSConfig(hbm_budget=cs.LMS_DDL_BUDGET), every),
+                   masters_out=path)
+
+
+def _moe_tp_rank(rank: int, world: int, path: str, every: bool):
+    return _tp_run(_moe_tp_config(MESH_G1, every=every), masters_ref=path)
+
+
+def _h3(line, rows_out, every: bool):
+    """(h3), top-8 (the published routing) or k = E (`every`): 1x2x2 against
+    1x2x1 on two cards. k = E is a continuous layer: every one of (g1)'s
+    bounds is held. Top-8 moves whole token rows between experts where
+    bf16 roundings part a near tie of the router's 8th and 9th choices
+    (random init makes such ties common): loss and ce within 2e-3, the
+    masters within 2 lr N, the leaves bitwise across ranks are held; the
+    grad norm's distance and the masters' shares are reported."""
+    import shutil
+    import tempfile
+    t0 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="ddl_four_cards_h3_", dir=cs.CKPT_RAM_ROOT)
+    try:
+        path = os.path.join(tmp, "masters.pt")
+        dp = spawn_ranks("_moe_dp_rank", path, every, timeout=TIMEOUT_S["h"], world=2)
+        tp = spawn_ranks("_moe_tp_rank", path, every, timeout=TIMEOUT_S["h"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def rel(k):
+        return max(abs(r["rows"][i][k] - dp[0]["rows"][i][k]) / abs(dp[0]["rows"][i][k])
+                   for r in tp for i in range(G_STEPS))
+    bounds = {"max_over_lr_n": 2.0, "share_over_0.01_lr_n": 0.5, "share_over_0.1_lr_n": 0.01}
+    held_rel = ("loss", "ce", "grad_norm") if every else ("loss", "ce")
+    held_masters = tuple(bounds) if every else ("max_over_lr_n",)
+    cfg = _moe_tp_config(MESH_G1, every=every).model
+    seq = H3E_SEQ if every else cs.TRAIN_SEQ
+    checks = {
+        **{f"{k}_within_2e-3": rel(k) <= 2e-3 for k in held_rel},
+        **{f"masters_{k}": all(r["facts"]["masters"][k] <= bounds[k] for r in tp)
+           for k in held_masters},
+        "replicated_leaves_bitwise_across_model":
+            all(r["facts"]["replicated_same_on_ranks"] for r in tp),
+        "blocks_bitwise_across_data": all(r["facts"]["blocks_same_across_data"] for r in tp),
+        "finite": all(_finite(r) for r in tp + dp)}
+    name = "(h3e)" if every else "(h3)"
+    emit({"phase": "h3e_moe_train_every_expert" if every else "h3_moe_train_expert_parallel",
+          "arch": MOE, "layers": H3_LAYERS, "experts_per_token": cfg.experts_per_token,
+          "seq": seq, "mesh": list(MESH_G1), "reference_mesh": list(MESH_G1_DP),
+          "reference_hbm_budget": cs.LMS_DDL_BUDGET, "backend": "nccl", "card": line,
+          "rel": {k: rel(k) for k in ("loss", "ce", "grad_norm")}, "bounds": bounds,
+          "held": {"rel": list(held_rel), "masters": list(held_masters)},
+          "masters": [r["facts"]["masters"] for r in tp],
+          "tp": _tp_summary(tp, lambda r: r, cfg, MESH_G1, line, seq),
+          "dp": _tp_summary(dp, lambda r: r, cfg, MESH_G1_DP, line, seq),
+          "seconds": time.monotonic() - t0, "checks": checks}, rows_out)
+    _fail(name, checks)
+
+
+def phase_h(line, rows_out):
+    """(h) serving on a `model` axis across the cards, and the MoE layer
+    under expert parallelism (the module docstring)."""
+    t0 = time.monotonic()
+    h1 = spawn_ranks("_serve_h1_rank", line, timeout=TIMEOUT_S["h"])
+    r0 = h1[0]
+    res = r0["resident"]
+    tol = 2.0 ** -5
+    checks = {"check_within_2**-5_of_one_card": r0["check"]["against_one_card"]["worst"] <= tol,
+              "check_same_on_all_ranks": all(r["check"]["same"] for r in h1),
+              "tokens_same_on_all_ranks": all(r["resident"]["same_on_all_ranks"] for r in h1),
+              "finite": all(r["check"]["finite"] and r["resident"]["finite"] for r in h1),
+              "all_ok": res["statuses"] == ["ok"] * cs.REQUESTS}
+    emit({"phase": "h1_serve_qwen2_72b", "arch": H1_ARCH, "layers": H1_LAYERS,
+          "mesh": list(MESH_H), "backend": "nccl", "card": line,
+          "requests": cs.REQUESTS, "prompt": cs.PROMPT, "gen": cs.GEN, "slots": cs.SLOTS,
+          "resident": res, "init_s": [r["init_s"] for r in h1],
+          "params_bytes_a_rank": [r["params_bytes"] for r in h1],
+          "peak_bytes": [r["resident"]["peak_bytes"] for r in h1],
+          "peak_over_plan": [r["resident"]["peak_bytes"] / res["plan_peak_bytes"] for r in h1],
+          "check": r0["check"], "check_layers": H_CHECK_LAYERS,
+          "against_host_streamed": {"tick_s_pr27": PR27_TICK_S,
+                                    "speedup": PR27_TICK_S / res["tick_s"]},
+          "seconds": time.monotonic() - t0, "checks": checks}, rows_out)
+    _fail("(h1)", checks)
+
+    t0 = time.monotonic()
+    h2 = spawn_ranks("_serve_h2_rank", line, timeout=TIMEOUT_S["h"])
+    r0 = h2[0]
+    checks = {"every_within_2**-5_of_the_dense_pass":
+                  r0["every"]["against_dense"]["worst"] <= tol,
+              "same_on_all_ranks": all(r["forced"]["same"] and r["engine"]["same_on_all_ranks"]
+                                       and r["every"]["same"] for r in h2),
+              "finite": all(r["forced"]["finite"] and r["engine"]["finite"]
+                            and r["every"]["finite"] for r in h2),
+              "all_ok": r0["engine"]["statuses"] == ["ok"] * cs.REQUESTS
+              and r0["every"]["statuses"] == ["ok"] * cs.REQUESTS}
+    emit({"phase": "h2_serve_qwen3_moe_expert_parallel", "arch": MOE, "layers": H2_LAYERS,
+          "mesh": list(MESH_H), "backend": "nccl", "card": line, "engine": r0["engine"],
+          "one_card": r0["one_card"], "one_card_tok_s_pr30": PR30_MOE_TOK_S,
+          "forced_against_one_card": r0["forced"]["against_one_card"],
+          "every_against_dense": r0["every"]["against_dense"],
+          "peak_bytes": [r["engine"]["peak_bytes"] for r in h2],
+          "seconds": time.monotonic() - t0, "checks": checks}, rows_out)
+    _fail("(h2)", checks)
+
+    _h3(line, rows_out, every=False)
+    _h3(line, rows_out, every=True)
+
+
 def emit(row, rows_out):
     rows_out.append(row)
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
@@ -1209,11 +1502,12 @@ def header():
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="a,b,c,d,e,f,g",
-                    help="comma-separated subset of a,b,c,d,e,f,g (a and d run together)")
+    ap.add_argument("--phases", default="a,b,c,d,e,f,g,h",
+                    help="comma-separated subset of a,b,c,d,e,f,g,h (a and d run together), "
+                    "or h3e: (h3)'s k = E run alone")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
-    known = {"a", "b", "c", "d", "e", "f", "g"}
+    known = {"a", "b", "c", "d", "e", "f", "g", "h", "h3e"}
     if not phases <= known:
         raise SystemExit(f"--phases: unknown {sorted(phases - known)}")
     import torch
@@ -1235,6 +1529,10 @@ def main() -> int:
         phase_f(line, rows)
     if "g" in phases:
         phase_g(line, rows)
+    if "h" in phases:
+        phase_h(line, rows)
+    elif "h3e" in phases:
+        _h3(line, rows, every=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

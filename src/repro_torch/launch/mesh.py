@@ -30,6 +30,7 @@ layers' sums in the dtypes `models/sharding.py` gives them.
 """
 from __future__ import annotations
 
+import datetime
 import itertools
 import os
 from typing import Dict, Optional, Tuple
@@ -75,7 +76,18 @@ class Mesh:
 
     # ---- collectives over one named axis --------------------------------
     def _group(self, axis: str):
-        return self.groups.get(axis) if self.size(axis) > 1 else None
+        """The axis's process group; None for an axis of size 1. A mesh built
+        without groups (coordinates only, to cut blocks) raises at its
+        first collective over a larger axis: never the identity."""
+        if self.size(axis) <= 1:
+            return None
+        group = self.groups.get(axis)
+        if group is None:
+            raise RuntimeError(
+                f"a collective over {axis!r} (size {self.size(axis)}) needs this rank's "
+                "process group: build the mesh with make_mesh after "
+                "torch.distributed.init_process_group")
+        return group
 
     def _staged(self, group) -> bool:
         return dist.get_backend(group) == "gloo"
@@ -221,3 +233,27 @@ def mesh_axis_sizes(mesh: Mesh) -> dict:
 
 def dp_axes(mesh: Mesh) -> tuple:
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def parse_mesh(s: str) -> MeshSpec:
+    """A launcher's `--mesh` ("AxBxC", "AxB" or "A") -> its MeshSpec, with
+    the JAX launchers' axis names."""
+    dims = tuple(int(x) for x in s.split("x"))
+    if len(dims) == 3:
+        return MeshSpec(dims, ("pod", "data", "model"))
+    if len(dims) == 2:
+        return MeshSpec(dims, ("data", "model"))
+    return MeshSpec(dims, ("data",))
+
+
+def init_process_group(device, world: int) -> None:
+    """Join the torchrun world: NCCL when the ranks are on the card and each
+    has a card of its own (`local_device`), gloo otherwise."""
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    on_card = device is None or torch.device(device).type == "cuda"
+    if on_card and torch.cuda.is_available() and local_world <= torch.cuda.device_count():
+        torch.cuda.set_device(local_device())
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend, timeout=datetime.timedelta(minutes=10))

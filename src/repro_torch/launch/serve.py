@@ -9,26 +9,41 @@ unless `--device cpu` is given.
 
 `--trace` writes a Chrome trace of the run and `--obs-report` its obs
 report; `--profile <report>` plans the engine with a serve plan calibrated
-by such a report and prints the plan's summary. `--mesh` takes 1x1 only:
-serving on a mesh of several devices is not ported yet.
+by such a report and prints the plan's summary.
+
+`--mesh 1xM` or `1x1xM` serves on a `model` axis of M devices (tensor
+parallelism, the MoE family's experts over it: expert parallelism), one
+process a device under torchrun, joined as the training launcher joins
+them (NCCL with a card a rank, gloo otherwise); rank 0 prints:
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.serve --arch qwen2.5-14b --smoke --mesh 1x2 --device cpu
+
+A `data` or `pod` axis above 1 raises (serving on a data or pod axis is not
+ported).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.config.base import MeshSpec, ShapeConfig
+from repro_torch.config.base import ShapeConfig
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.lms.planner import PlanRequest, plan as plan_lms
+from repro_torch.launch.mesh import init_process_group, make_mesh, parse_mesh
 from repro_torch.models import kvquant
+from repro_torch.models import transformer as tr
 from repro_torch.models.model import Model
 from repro_torch.obs import configure, export_chrome_trace, get_obs, write_obs_report
 from repro_torch.serve import (ServeEngine, decode_step_batch, resolve_device,
                                static_batch_from_requests, synth_requests)
+from repro_torch.serve.engine import check_serve_mesh
 from repro_torch.train.steps import (StepSpec, build_decode_step,
                                     build_prefill_step, init_params)
 
@@ -39,23 +54,26 @@ def _sync(device: torch.device) -> None:
 
 
 def run_static(model, reqs, prompt_len: int, gen: int, params=None,
-               device=None, plan=None):
+               device=None, plan=None, mesh=None):
     """Static whole-batch greedy baseline: one prefill over every request's
     prompt into the decode-capacity cache, then `gen-1` lockstep decode
     steps. plan: a serve plan, whose host classes stream (params given
-    must be placed as it says: `train.steps.place_params`). -> (params,
-    tokens [N, gen] numpy, timings dict)."""
+    must be placed as it says: `train.steps.place_params`). mesh: a
+    tensor-parallel mesh (params this rank's blocks; every rank gets the
+    same tokens from the whole logits). -> (params, tokens [N, gen]
+    numpy, timings dict)."""
+    check_serve_mesh(mesh)
     device = resolve_device(device)
     cfg = model.cfg
     n = len(reqs)
     total = prompt_len + gen
     prefill_fn, _ = build_prefill_step(
         model, ShapeConfig("serve_prefill", "prefill", prompt_len, n),
-        StepSpec(plan=plan, cache_len=total))
+        StepSpec(plan=plan, cache_len=total), mesh=mesh)
     decode_fn, _ = build_decode_step(
-        model, ShapeConfig("serve", "decode", total, n), StepSpec(plan=plan))
+        model, ShapeConfig("serve", "decode", total, n), StepSpec(plan=plan), mesh=mesh)
     if params is None:
-        params = init_params(model, 0, device, plan)
+        params = init_params(model, 0, device, plan, mesh)
     batch = static_batch_from_requests(cfg, reqs, device)
 
     t0 = time.monotonic()
@@ -110,8 +128,9 @@ def main(argv=None):
                    help="run the whole-batch baseline loop instead")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh", default="1x1",
-                   help="device mesh, 1x1 only (serving on several devices is "
-                        "not ported yet)")
+                   help="device mesh: 1x1, or 1xM / 1x1xM over `model` (one "
+                        "process a device under torchrun); a data or pod axis "
+                        "above 1 raises")
     p.add_argument("--obs-jsonl", default="",
                    help="stream span events to this JSONL file")
     p.add_argument("--trace", default="",
@@ -132,14 +151,24 @@ def main(argv=None):
         p.error("--kv-dtype applies to the engine's paged pool; the "
                 "--static baseline decodes a model-width cache")
 
-    dims = tuple(int(x) for x in args.mesh.split("x"))
-    if any(d > 1 for d in dims):
-        raise NotImplementedError(
-            f"not ported yet: --mesh {args.mesh} (serving on a mesh of several devices)")
-    mesh_spec = MeshSpec(dims, ("data", "model")[:len(dims)] if len(dims) <= 2
-                         else ("pod", "data", "model"))
-    device = resolve_device(args.device)
+    mesh_spec = parse_mesh(args.mesh)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    # what does not serve on a mesh, before any rank starts
+    check_serve_mesh(mesh_spec)
+    tr._check_kinds(cfg, mesh_spec)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != mesh_spec.num_devices:
+        raise ValueError(f"WORLD_SIZE {world} disagrees with --mesh {args.mesh} "
+                         f"({mesh_spec.num_devices} devices): run one process per device")
+    # the world this launcher joins it leaves once serving is done, every
+    # rank together (a rank that exits while its peer still holds the
+    # group aborts it)
+    joined = world > 1 and not dist.is_initialized()
+    if joined:
+        init_process_group(args.device, world)
+    mesh = make_mesh(mesh_spec)
+    rank0 = mesh.rank == 0
+    device = resolve_device(args.device)
     # the SSD scan kernel (its plain version on CPU tensors): the prefill of
     # a Mamba-2 stack takes its final state from it
     model = Model(cfg, attn_impl="naive" if args.smoke else "blockwise", ssd_impl="pallas")
@@ -148,8 +177,12 @@ def main(argv=None):
 
     if args.static:
         _, gen_toks, t = run_static(model, reqs, args.prompt_len, args.gen,
-                                    params=model.init(args.seed, device),
-                                    device=device)
+                                    params=model.init(args.seed, device, mesh=mesh),
+                                    device=device, mesh=mesh)
+        if joined:
+            dist.destroy_process_group()
+        if not rank0:
+            return 0
         print(f"device {device} | prefill: {t['prefill_s']*1e3:.1f} ms | "
               f"decode: {t['decode_s']*1e3:.1f} ms "
               f"({t['decode_tok_s']:.1f} tok/s)")
@@ -166,15 +199,20 @@ def main(argv=None):
             cfg=cfg, shape=ShapeConfig("cli_serve", "decode", total, args.requests),
             mesh=mesh_spec, serve=True, slots=slots, page_size=args.page_size,
             kv_dtype=args.kv_dtype), profile=args.profile)
-        print(plan.summary())
+        if rank0:
+            print(plan.summary())
     eng = ServeEngine(model, slots=slots, max_len=total, plan=plan,
                       page_size=args.page_size,
                       device_pages=args.device_pages,
                       prefill_chunk=args.prefill_chunk,
                       temperature=args.temperature, top_k=args.top_k,
                       seed=args.seed, kv_dtype=args.kv_dtype, obs=obs,
-                      device=device)
+                      device=device, mesh=mesh)
     results = eng.run(reqs)
+    if joined:
+        dist.destroy_process_group()
+    if not rank0:
+        return 0
     m = eng.metrics()
     returned = int(m["pool_fetched_pages"] + m["pool_prefetched_pages"])
     print(f"device {device} | served {len(results)} requests | decode "

@@ -57,18 +57,15 @@ MoE stacks raise there (not ported yet):
 from __future__ import annotations
 
 import argparse
-import datetime
 import json
 import os
 import sys
 
-import torch
 import torch.distributed as dist
 
-from repro_torch.config.base import (DDLConfig, LMSConfig, MeshSpec,
-                                     ShapeConfig, TrainConfig)
+from repro_torch.config.base import DDLConfig, LMSConfig, ShapeConfig, TrainConfig
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.launch.mesh import local_device
+from repro_torch.launch.mesh import init_process_group as _init_process_group, parse_mesh
 from repro_torch.models import transformer as tr
 from repro_torch.models.sharding import model_size
 from repro_torch.obs import (TelemetryLoop, configure, export_chrome_trace,
@@ -77,15 +74,6 @@ from repro_torch.runtime import (FaultEvent, FaultInjector, FaultPlan,
                                  RestartPolicy, Supervisor)
 from repro_torch.train.steps import ZERO1_TP
 from repro_torch.train.trainer import Trainer
-
-
-def parse_mesh(s: str) -> MeshSpec:
-    dims = tuple(int(x) for x in s.split("x"))
-    if len(dims) == 3:
-        return MeshSpec(dims, ("pod", "data", "model"))
-    if len(dims) == 2:
-        return MeshSpec(dims, ("data", "model"))
-    return MeshSpec(dims, ("data",))
 
 
 def main(argv=None):
@@ -253,19 +241,6 @@ def _rendezvous(ckpt_dir: str):
     def init_method(attempt: int) -> str:
         return f"file://{os.path.abspath(ckpt_dir)}/.rendezvous_{run}_{attempt}"
     return init_method
-
-
-def _init_process_group(device, world: int) -> None:
-    """Join the torchrun world: NCCL when the ranks are on the card and each
-    has a card of its own (`local_device`), gloo otherwise."""
-    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-    on_card = device is None or torch.device(device).type == "cuda"
-    if on_card and torch.cuda.is_available() and local_world <= torch.cuda.device_count():
-        torch.cuda.set_device(local_device())
-        backend = "nccl"
-    else:
-        backend = "gloo"
-    dist.init_process_group(backend, timeout=datetime.timedelta(minutes=10))
 
 
 if __name__ == "__main__":

@@ -11,7 +11,14 @@ plain version on the CPU).
 Every pass takes `stream=`, the SwapSchedule of a plan: where it streams
 params, the stack and the unstacked rest lie in pinned host memory, the
 stack comes in a layer at a time and the rest as `models/rest.py` reads
-it; the static loop's decode also streams a host-resident KV cache."""
+it; the static loop's decode also streams a host-resident KV cache.
+
+Every serve pass takes `mesh=` too: on a tensor-parallel mesh the params
+and the cache are this rank's blocks (`init(mesh=)`, `init_cache(mesh=)`),
+the embedding is the vocab-parallel lookup, and the logits leave the pass
+whole, [B, V] (or [B, C, V]) bitwise the same on every rank, this rank's
+vocab columns all-gathered over `model` (`sharding.gather_from_model`),
+as the JAX package's serve steps hand them out replicated."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -62,10 +69,12 @@ class Model:
         gen.manual_seed(seed)
         return tree_init(self.param_defs(), gen, device, mesh)
 
-    def init_cache(self, batch: int, cache_len: int, device):
+    def init_cache(self, batch: int, cache_len: int, device, mesh=None):
+        """A zero serve cache; this rank's `kv_heads` block on a
+        tensor-parallel `mesh`."""
         return tree_map(
             lambda d: torch.zeros(d.shape, dtype=DTYPES[d.dtype], device=device),
-            tr.cache_defs(self.cfg, batch, cache_len))
+            tr.cache_defs(self.cfg, batch, cache_len, mesh))
 
     # ---- context ---------------------------------------------------------
     def _ctx(self, seq: int, device, offset: int = 0, mesh=None):
@@ -139,49 +148,56 @@ class Model:
         return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
     # ---- serving ----------------------------------------------------------
+    def _serve_logits(self, params, x, stream, mesh):
+        """The logits a serve pass hands out: whole on every rank."""
+        return shd.gather_from_model(self._logits(params, x, stream, mesh=mesh), mesh)
+
     def prefill(self, params, batch, cache_len: Optional[int] = None, stream=None,
-                out=None, swap_out: bool = False):
+                out=None, swap_out: bool = False, mesh=None):
         """-> (last-token logits [B,V], cache). out: the cache tree to write
         into, a layer at a time (swap_out: a plan's host cache, each layer
         copied out as a kvcache swap); see `transformer.apply_decoder_prefill`."""
         cfg = self.cfg
-        x = self._embed(params, batch, stream)
+        mesh = shd.tp(mesh)
+        x = self._embed(params, batch, stream, mesh=mesh)
         seq = x.shape[1]
-        ctx = self._ctx(seq, x.device)
+        ctx = self._ctx(seq, x.device, mesh=mesh)
         x, cache = tr.apply_decoder_prefill(cfg, params["decoder"], x, ctx,
                                             cache_len or seq, stream=stream, out=out,
                                             swap_out=swap_out)
         x = self._final_norm(params, x, stream)
-        return self._logits(params, x[:, -1:], stream)[:, 0], cache
+        return self._serve_logits(params, x[:, -1:], stream, mesh)[:, 0], cache
 
     def prefill_chunk(self, params, cache, batch, start: int, length: int,
-                      stream=None):
+                      stream=None, mesh=None):
         """One chunked-prefill step: the C-token chunk in `batch` at absolute
         positions [start, start+C) against the already populated cache,
         which is updated in place. `length` is the valid prompt tokens after
         this chunk. -> (chunk logits [B,C,V], cache)."""
         cfg = self.cfg
-        x = self._embed(params, batch, stream)
-        ctx = self._ctx(x.shape[1], x.device, offset=start)
+        mesh = shd.tp(mesh)
+        x = self._embed(params, batch, stream, mesh=mesh)
+        ctx = self._ctx(x.shape[1], x.device, offset=start, mesh=mesh)
         x, cache = tr.apply_decoder_prefill_chunk(
             cfg, params["decoder"], cache, x, start, length, ctx, stream=stream)
         x = self._final_norm(params, x, stream)
-        return self._logits(params, x, stream), cache
+        return self._serve_logits(params, x, stream, mesh), cache
 
-    def decode_step(self, params, cache: Dict, batch, pos: int, stream=None):
+    def decode_step(self, params, cache: Dict, batch, pos: int, stream=None, mesh=None):
         """Whole-batch decode: batch {"tokens" [B,1]}, every row at position
         `pos`. The cache's k/v are updated in place and the same dict is
         returned. -> (logits [B,V], cache)."""
         cfg = self.cfg
-        x = self._embed(params, batch, stream)
-        ctx = {"positions": torch.full((1, 1), pos, device=x.device)}
+        mesh = shd.tp(mesh)
+        x = self._embed(params, batch, stream, mesh=mesh)
+        ctx = {"positions": torch.full((1, 1), pos, device=x.device), "mesh": mesh}
         x, cache = tr.apply_decoder_decode(cfg, params["decoder"], cache, x,
                                            pos, ctx, stream=stream)
         x = self._final_norm(params, x, stream)
-        return self._logits(params, x, stream)[:, 0], cache
+        return self._serve_logits(params, x, stream, mesh)[:, 0], cache
 
     def decode_slots(self, params, cache: Dict, batch, positions, active,
-                     page_size: Optional[int] = None, stream=None):
+                     page_size: Optional[int] = None, stream=None, mesh=None):
         """Slot-batched decode: each batch row is an independent request.
         positions [B] int32, active [B] bool. With a top-level "page_table"
         leaf the cache is the page arena (and `page_size` its page length);
@@ -191,12 +207,13 @@ class Model:
         table = cache.get("page_table")
         if table is not None and page_size is None:
             raise ValueError("a paged cache needs page_size")
-        x = self._embed(params, batch, stream)
+        mesh = shd.tp(mesh)
+        x = self._embed(params, batch, stream, mesh=mesh)
         ctx = {"positions": positions[:, None], "page_table": table,
-               "page_size": page_size}
+               "page_size": page_size, "mesh": mesh}
         layers = {k: v for k, v in cache.items() if k != "page_table"}
         x, _ = tr.apply_decoder_decode_slots(cfg, params["decoder"], layers, x,
                                              positions, active, ctx, stream=stream)
         x = self._final_norm(params, x, stream)
-        return self._logits(params, x, stream)[:, 0], cache
+        return self._serve_logits(params, x, stream, mesh)[:, 0], cache
 

@@ -16,6 +16,22 @@ order and a call gives the same bits every time (resident and streamed
 runs, DDL ranks). The combine sums a token's k rows in f32 and rounds
 once, where JAX adds them in bf16.
 
+Expert parallelism (a tensor-parallel mesh: the `experts` axis on
+`model`, `models/sharding.py`). Each rank holds E / |model| experts' w_gate,
+w_up and w_down; the router is replicated. The tokens are replicated over
+`model` after the attention block, so no all-to-all is needed: every rank
+routes every token (the router in f32, the top-k, the stable-argsort ranks,
+the capacity and the drop mask: the same bits on every rank, so the same
+`dropped()`), fills its [E / |model|, C, d] buffer with only the rows
+routed to its own experts, and sums its own combine rows in f32; the sum
+over `model` runs in f32 and is rounded to the layer's dtype once
+(`sharding.reduce_from_model`: backward the identity). So the output is
+the one-device f32 sum of a token's k rows, added in another order. The
+token rows and the combine weights enter the experts' region through
+`sharding.copy_to_model` (backward: their grads summed over `model`), so
+the replicated router and the layer input get whole grads on every rank;
+the aux loss is computed on every rank alike.
+
 `dropped()` counts the assignments the capacity dropped over every call
 since `reset_dropped()` (forward passes, recomputes and serve sweeps
 alike), without a sync: the count stays on the device until read.
@@ -26,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.lms.policies import tag
+from repro_torch.models import sharding as shd
 from repro_torch.models.layers import ParamDef, gelu
 
 _DROPPED = {}   # device -> int64 count of dropped assignments
@@ -78,8 +95,10 @@ def _route(cfg, p, xf):
     return probs, top_w, top_i
 
 
-def apply_moe(cfg, p, x):
-    """x [B,S,d] -> ([B,S,d], aux_loss f32 scalar)."""
+def apply_moe(cfg, p, x, mesh=None):
+    """x [B,S,d] -> ([B,S,d], aux_loss f32 scalar). On a tensor-parallel
+    `mesh` the experts are this rank's block (expert parallelism, the
+    module docstring)."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     t = b * s
@@ -105,12 +124,22 @@ def apply_moe(cfg, p, x):
     keep = ranks < cap
     _count_dropped(keep)
 
-    # each token's k rows into the [E, C, d] buffer; a dropped row goes to
-    # slot C - 1 with a zero contribution, as JAX's mode="drop" add
+    # this rank's experts [lo, lo + el): all of them without expert
+    # parallelism; another rank's rows weigh nothing here
+    mesh = shd.tp(mesh)
+    el = p["w_gate"].shape[0]
+    lo = 0 if mesh is None else mesh.index(shd.MODEL) * el
+    take = keep if mesh is None else keep & (flat_e >= lo) & (flat_e < lo + el)
+    local_e = flat_e if mesh is None else torch.clamp(flat_e - lo, 0, el - 1)
+    xd = shd.copy_to_model(xf, mesh)
+
+    # each token's k rows into the [E, C, d] buffer; a dropped row (or
+    # another rank's) goes to slot C - 1 with a zero contribution, as
+    # JAX's mode="drop" add
     safe_rank = torch.where(keep, ranks, cap - 1)
-    contrib = xf[:, None, :].expand(t, k, d).reshape(t * k, d) * keep[:, None].to(x.dtype)
-    buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((flat_e, safe_rank), contrib, accumulate=True)
+    contrib = xd[:, None, :].expand(t, k, d).reshape(t * k, d) * take[:, None].to(x.dtype)
+    buf = torch.zeros((el, cap, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((local_e, safe_rank), contrib, accumulate=True)
 
     # expert FFN (gated)
     g = torch.bmm(buf, p["w_gate"])
@@ -118,10 +147,11 @@ def apply_moe(cfg, p, x):
     h = tag(_act(cfg)(g) * u, "moe_hidden")
     out_e = torch.bmm(h, p["w_down"])                     # [E, C, d]
 
-    # combine back: each token's k rows weighted, summed in f32
-    w = (flat_w * keep)[:, None].to(x.dtype)
-    picked = out_e[flat_e, safe_rank] * w
-    y = picked.float().view(t, k, d).sum(dim=1).to(x.dtype)
+    # combine back: each token's k rows weighted, summed in f32 (this
+    # rank's rows, then over `model` in f32), rounded once
+    w = (shd.copy_to_model(flat_w, mesh) * take)[:, None].to(x.dtype)
+    picked = out_e[local_e, safe_rank] * w
+    y = shd.reduce_from_model(picked.float().view(t, k, d).sum(dim=1), mesh).to(x.dtype)
     return y.reshape(b, s, d), aux
 
 

@@ -12,9 +12,12 @@ GSPMD partitions it over `model`. The port runs eagerly, one process a
 mesh device, so it does by hand what GSPMD inserts:
 
 * each rank holds only its block of every leaf that a spec maps to
-  `model` (`local_shard`, `shard_params`, `local_defs`); a dim the rule
-  maps to `model` that |model| does not divide raises (the JAX package
-  replicates such a leaf, `prune_spec`: not ported yet);
+  `model` (`local_shard`, `shard_params`, `local_defs`): the MoE's
+  experts too (expert parallelism: `[E, d, ff]` and `[E, ff, d]` keep
+  `experts` on `model`, and `spec` drops their `ff` entry), and a serve
+  cache's `kv_heads` (`local_defs` of `transformer.cache_defs`); a dim
+  the rule maps to `model` that |model| does not divide raises (the JAX
+  package replicates such a leaf, `prune_spec`: not ported yet);
 * a column-parallel region (the q/k/v projections, the MLP's gate and
   up, the head) takes its replicated input through `copy_to_model`
   (forward the identity, backward the sum of the input's grads over
@@ -24,7 +27,10 @@ mesh device, so it does by hand what GSPMD inserts:
   identity). The forward's row-parallel sum runs in f32 over the bf16
   partial products and is rounded once to bf16 (`sum_partials`); the
   backward's sum of the input grads runs in bf16 (`sum_input_grads`).
-  At |model| 2 either dtype gives the same bits; at 4 the CPU tests
+  The serve paths hand the logits out whole on every rank, as the JAX
+  package's serve steps do (`out_shardings=P()`): `gather_from_model`
+  all-gathers each rank's vocab columns, so every rank reads the same
+  bits. At |model| 2 either dtype gives the same bits; at 4 the CPU tests
   measured each choice against the JAX package (olmo-1b smoke,
   `tests/test_torch_tp_model.py`), relative Frobenius of the grads and
   the loss: forward f32 and backward bf16 1.46e-2 and 4.2e-5; both bf16
@@ -64,7 +70,7 @@ DEFAULT_RULES = {
 MODEL = "model"
 
 
-def _sizes(mesh) -> dict:
+def axis_sizes(mesh) -> dict:
     """{axis: size} of a port `Mesh`, a `MeshSpec`, or anything with
     `axis_names` and a `shape` mapping (as a JAX mesh)."""
     if mesh is None:
@@ -88,7 +94,7 @@ def spec(*logical_axes: Optional[str], mesh=None, rules: Optional[dict] = None) 
     axes the mesh lacks are dropped, and a mesh axis appears at most once
     (its first logical axis takes it)."""
     rules = rules or DEFAULT_RULES
-    mesh_axes = set(_sizes(mesh))
+    mesh_axes = set(axis_sizes(mesh))
     parts, used = [], set()
     for ax in logical_axes:
         if ax is None:
@@ -108,7 +114,7 @@ def prune_spec(shape: Sequence[int], s: tuple, mesh) -> tuple:
     wins)."""
     if mesh is None:
         return tuple(s)
-    sizes = _sizes(mesh)
+    sizes = axis_sizes(mesh)
     parts = list(s) + [None] * (len(shape) - len(s))
     out, used = [], set()
     for dim, ax in zip(shape, parts):
@@ -131,7 +137,7 @@ def shard_factor(mesh, logical_axis: str, rules: Optional[dict] = None) -> int:
     if mesh is None:
         return 1
     rules = rules or DEFAULT_RULES
-    sizes = _sizes(mesh)
+    sizes = axis_sizes(mesh)
     return math.prod(sizes[a] for a in rules.get(logical_axis, ()) if a in sizes)
 
 
@@ -140,7 +146,7 @@ def shard_factor(mesh, logical_axis: str, rules: Optional[dict] = None) -> int:
 # ---------------------------------------------------------------------------
 
 def model_size(mesh) -> int:
-    return _sizes(mesh).get(MODEL, 1)
+    return axis_sizes(mesh).get(MODEL, 1)
 
 
 def tp(mesh):
@@ -306,3 +312,14 @@ def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
     """The sum over `model` of a row-parallel region's partial output (the
     identity without tensor parallelism)."""
     return x if tp(mesh) is None else _ReduceFromModel.apply(x, mesh)
+
+
+def gather_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's vocab columns [..., V / |model|] -> the whole [..., V],
+    the ranks' blocks in `model` order, bitwise the same on every rank (an
+    all-gather; forward only: the serve paths take no grads through it).
+    The identity without tensor parallelism."""
+    if tp(mesh) is None:
+        return x
+    got = mesh.all_gather(x.movedim(-1, 0).contiguous(), MODEL)
+    return got.movedim(0, -1)

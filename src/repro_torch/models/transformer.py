@@ -10,7 +10,11 @@ the convolution's last inputs, which inactive slots keep as they are.
 An "attn" layer's FFN is an MoE (`models/moe.py`) where the config has
 experts: the forward pass sums its aux loss over the layers, and the
 serve sweeps drop it, as the JAX package's do.
-Chunked prefill is for "attn" stacks only, as in the JAX package. Each
+Chunked prefill is for "attn" stacks only, as in the JAX package. On a
+tensor-parallel ctx["mesh"] every sweep runs the "attn" layer on this
+rank's heads and `ff` block (or experts) with its two sums over `model`,
+and its caches are this rank's `kv_heads` block (`cache_defs(mesh=)`).
+Each
 serve sweep takes `stream=`, a serve plan's SwapSchedule: params in
 pinned host memory come in a layer at a time (`_LayerStream`), and the
 static loop's decode also streams a host-resident cache per layer.
@@ -41,18 +45,18 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 def _check_kinds(cfg: ModelConfig, mesh=None) -> str:
     """-> the stack's one layer kind, "attn" (dense or MoE FFN) or "ssd".
-    On a tensor-parallel `mesh` only the dense "attn" stack is ported."""
+    On a tensor-parallel `mesh` only the "attn" stack is ported, dense or
+    MoE (expert parallelism, `models/moe.py`)."""
     kinds = set(cfg.layer_kinds())
     if (kinds not in ({"attn"}, {"ssd"}) or (cfg.num_experts and kinds != {"attn"})
             or cfg.mrope_sections or cfg.frontend):
         raise NotImplementedError(
             f"{cfg.name}: only dense or MoE 'attn' and Mamba-2 'ssd' stacks are "
             f"ported yet (layer kinds {sorted(kinds)})")
-    if shd.tp(mesh) is not None and (kinds != {"attn"} or cfg.num_experts):
-        what = "MoE (expert parallelism)" if cfg.num_experts else "Mamba-2 ('ssd')"
+    if shd.tp(mesh) is not None and kinds != {"attn"}:
         raise NotImplementedError(
-            f"{cfg.name}: not ported yet: a {what} stack under tensor parallelism "
-            f"(|model| = {shd.model_size(mesh)})")
+            f"{cfg.name}: not ported yet: a Mamba-2 ('ssd') stack under tensor "
+            f"parallelism (|model| = {shd.model_size(mesh)})")
     return kinds.pop()
 
 
@@ -90,10 +94,14 @@ def layer_cache_defs(cfg: ModelConfig, kind: str, batch: int, cache_len: int):
     raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
 
 
-def cache_defs(cfg: ModelConfig, batch: int, cache_len: int):
-    kind = _check_kinds(cfg)
-    return {"stack0": _stack({f"{kind}_0": layer_cache_defs(cfg, kind, batch, cache_len)},
+def cache_defs(cfg: ModelConfig, batch: int, cache_len: int, mesh=None):
+    """The stacked serve cache's ParamDefs; on a tensor-parallel `mesh`
+    this rank's block: `kv_heads` over `model`, as the JAX package's
+    `cache_abstract(shape, mesh)` lays the cache out."""
+    kind = _check_kinds(cfg, mesh)
+    defs = {"stack0": _stack({f"{kind}_0": layer_cache_defs(cfg, kind, batch, cache_len)},
                              cfg.num_layers)}
+    return shd.local_defs(defs, shd.tp(mesh))
 
 
 def _layer(tree, i: int):
@@ -127,10 +135,11 @@ def _rope_qk(cfg, q, k, ctx):
 
 def _ffn(cfg, p, x, mesh=None):
     """-> (x, aux_loss): the MLP's aux is 0, the MoE's its load-balance loss.
-    `mesh`: tensor-parallel, the MLP's `ff` split over `model`."""
+    `mesh`: tensor-parallel, the MLP's `ff` split over `model`, the MoE's
+    experts (expert parallelism)."""
     h = tagged("mlp_norm", apply_norm, cfg, p["ln2"], x)
     if cfg.num_experts:
-        y, aux = apply_moe(cfg, p["ffn"], h)
+        y, aux = apply_moe(cfg, p["ffn"], h, mesh)
         return x + y, aux
     return x + apply_mlp(cfg, p["ffn"], h, mesh), 0.0
 
@@ -366,8 +375,8 @@ def apply_decoder(cfg, params, x, ctx, *, policy=None, no_remat=False,
     ctx["mesh"], where it has a `model` axis above 1: tensor parallelism
     (`models/sharding.py`), the stack's leaves this rank's blocks; each
     layer runs its collectives over `model` (`_attn_block`), again in a
-    recompute or an LMS replay, in one order on every rank. Only the dense
-    "attn" stack runs there (`_check_kinds`).
+    recompute or an LMS replay, in one order on every rank. Only the
+    "attn" stack runs there, dense or MoE (`_check_kinds`).
 
     grad_hooks: {stack group name -> reduce-as-you-go hook}, the DDL
     overlapped backward (`core/ddl/overlap.py`): each layer's slice of the
@@ -439,8 +448,8 @@ def apply_layer_prefill(cfg, kind, p, x, ctx, cache_len: int):
     x2, _, k, v = _attn_block(cfg, p, x, ctx)
     b, s = x.shape[:2]
     n = min(s, cache_len)
-    ck = torch.zeros((b, cache_len, cfg.num_kv_heads, cfg.head_dim),
-                     dtype=k.dtype, device=k.device)
+    # k's own head count: this rank's kv heads under tensor parallelism
+    ck = torch.zeros((b, cache_len) + tuple(k.shape[2:]), dtype=k.dtype, device=k.device)
     cv = torch.zeros_like(ck)
     dynamic_update_slice_(ck, k[:, :n], (0, 0, 0, 0))
     dynamic_update_slice_(cv, v[:, :n], (0, 0, 0, 0))
@@ -457,7 +466,7 @@ def apply_decoder_prefill(cfg, params, x, ctx, cache_len: int, stream=None, out=
     one on x's device, of the layers' dtypes. swap_out:
     `out` is a plan's host-resident cache, each layer's copied out on the
     side stream and counted as a kvcache swap (`offload`)."""
-    kind = _check_kinds(cfg)
+    kind = _check_kinds(cfg, ctx.get("mesh"))
     key = f"{kind}_0"
     n = cfg.num_layers
     layer = _LayerStream(params["stack0"], n, x.device, stream)
@@ -494,14 +503,15 @@ def apply_layer_prefill_chunk(cfg, kind, p, x, cache, start: int, length: int,
     if kind != "attn":
         raise ValueError(
             f"chunked prefill supports 'attn' layers only, got {kind!r}")
+    mesh = ctx.get("mesh")
     h = apply_norm(cfg, p["ln1"], x)
-    q, k, v = project_qkv(cfg, p["attn"], h)
+    q, k, v = project_qkv(cfg, p["attn"], h, mesh)
     q, k = _rope_qk(cfg, q, k, ctx)
     ck = dynamic_update_slice_(cache["k"], k, (0, start, 0, 0))
     cv = dynamic_update_slice_(cache["v"], v, (0, start, 0, 0))
     o = attn_mod.naive_attention(q, ck, cv, causal=True, q_offset=start,
                                  kv_len=length)
-    x2, _ = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o))
+    x2, _ = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o, mesh), mesh)
     return x2, {"k": ck, "v": cv}
 
 
@@ -510,7 +520,7 @@ def apply_decoder_prefill_chunk(cfg, params, caches, x, start: int,
     """-> (x, caches): one chunk through every layer; each layer reads the
     earlier chunks' keys and appends its own to the stacked cache in place.
     stream: params streamed in a layer at a time (`_LayerStream`)."""
-    kind = _check_kinds(cfg)
+    kind = _check_kinds(cfg, ctx.get("mesh"))
     key = f"{kind}_0"
     layer = _LayerStream(params["stack0"], cfg.num_layers, x.device, stream)
     cstack = caches["stack0"]
@@ -538,15 +548,16 @@ def apply_layer_decode(cfg, kind, p, x, cache, pos: int, ctx):
         return x + y, cache
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    mesh = ctx.get("mesh")
     h = apply_norm(cfg, p["ln1"], x)
-    q, k, v = project_qkv(cfg, p["attn"], h)
+    q, k, v = project_qkv(cfg, p["attn"], h, mesh)
     q, k = _rope_qk(cfg, q, k, ctx)
     smax = cache["k"].shape[1]
     slot = min(pos, smax - 1)
     ck = dynamic_update_slice_(cache["k"], k, (0, slot, 0, 0))
     cv = dynamic_update_slice_(cache["v"], v, (0, slot, 0, 0))
     o = decode_attention(q, ck, cv, min(pos + 1, smax))
-    x, _ = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o))
+    x, _ = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o, mesh), mesh)
     return x, {"k": ck, "v": cv}
 
 
@@ -556,7 +567,7 @@ def apply_decoder_decode(cfg, params, caches, x, pos: int, ctx, stream=None):
     KV cache (JAX `apply_decoder_decode`), the caches lie in pinned host
     memory: each layer's comes in with its params, takes the new row on
     the device and goes back whole."""
-    kind = _check_kinds(cfg)
+    kind = _check_kinds(cfg, ctx.get("mesh"))
     key = f"{kind}_0"
     n = cfg.num_layers
     layer = _LayerStream(params["stack0"], n, x.device, stream)
@@ -623,8 +634,9 @@ def apply_layer_decode_slots(cfg, kind, p, x, cache, positions, active, ctx):
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     table = ctx.get("page_table")
+    mesh = ctx.get("mesh")
     h = apply_norm(cfg, p["ln1"], x)
-    q, k, v = project_qkv(cfg, p["attn"], h)
+    q, k, v = project_qkv(cfg, p["attn"], h, mesh)
     q, k = _rope_qk(cfg, q, k, ctx)
     if table is not None:
         ps = ctx["page_size"]
@@ -651,7 +663,7 @@ def apply_layer_decode_slots(cfg, kind, p, x, cache, positions, active, ctx):
     o = decode_attention(q.contiguous(), ck, cv, kv_len,
                          k_scale=scales.get("k_scale"),
                          v_scale=scales.get("v_scale"), page_table=table)
-    x, _ = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o))
+    x, _ = _ffn(cfg, p, x + out_proj(cfg, p["attn"], o, mesh), mesh)
     return x, {"k": ck, "v": cv, **scales}
 
 
@@ -662,7 +674,7 @@ def apply_decoder_decode_slots(cfg, params, caches, x, positions, active, ctx,
     streams here: the paged pool executes its host residency, so the
     decode step always sees a device-resident cache (JAX
     `apply_decoder_decode_slots`)."""
-    kind = _check_kinds(cfg)
+    kind = _check_kinds(cfg, ctx.get("mesh"))
     key = f"{kind}_0"
     layer = _LayerStream(params["stack0"], cfg.num_layers, x.device, stream)
     cstack = caches["stack0"]

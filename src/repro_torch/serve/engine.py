@@ -31,6 +31,20 @@ sampling with a per-request rng seeded by (engine seed, rid).
 
 The engine runs on the card unless the caller asks for the CPU
 (`device="cpu"`); without CUDA, the default raises.
+
+On a tensor-parallel mesh (`mesh=`, a `model` axis above 1: one process a
+mesh device) every rank runs this same engine on the same requests: the
+params, the pool's arenas and the decode step are the rank's blocks, and
+the logits come back whole and bitwise the same on every rank
+(`sharding.gather_from_model`), so every rank selects the same tokens
+(the per-request generators are seeded alike). Every other input of a
+decision is made the same on every rank too: the page decisions read
+only lengths, the fault injector counts the same calls, and the clock the
+decisions read (the arrival stamp, the deadlines and shedding, the stall
+watchdog) is rank 0's, sent to every rank over the mesh once a round
+(`_clock`). The latency stamps are taken locally and replaced by rank 0's
+once a run, before they reach the TTFT/TPOT windows (`_share_stamps`). A
+`data` or `pod` axis above 1 raises (`check_serve_mesh`).
 """
 from __future__ import annotations
 
@@ -42,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import ShapeConfig
+from repro_torch.models import sharding as shd
 from repro_torch.models.model import Model
 from repro_torch.models.paging import PageArena
 from repro_torch.obs import Obs
@@ -63,6 +78,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def check_serve_mesh(mesh) -> None:
+    """Serving runs on a mesh whose `pod` and `data` axes are 1: one
+    process a device over `model` (the JAX package also shards the slot
+    batch over `data` against a replicated arena, which is not ported)."""
+    if mesh is None:
+        return
+    sizes = shd.axis_sizes(mesh)
+    if sizes.get("pod", 1) > 1 or sizes.get("data", 1) > 1:
+        raise NotImplementedError(
+            f"not ported yet: serving on a data or pod axis (mesh {sizes}); a mesh "
+            "of 1xM or 1x1xM serves over `model`")
+
+
 class ServeEngine:
     def __init__(self, model: Model, *, slots: int, max_len: int,
                  plan=None, page_size: int = 16,
@@ -74,9 +102,11 @@ class ServeEngine:
                  stall_rounds: int = 64, watchdog_s: Optional[float] = None,
                  preemption: bool = True,
                  injector: Optional[FaultInjector] = None,
-                 obs: Optional[Obs] = None, device=None):
+                 obs: Optional[Obs] = None, device=None, mesh=None):
         cfg = model.cfg
+        check_serve_mesh(mesh)
         self.device = resolve_device(device)
+        self.mesh = shd.tp(mesh)
         self.model, self.cfg = model, cfg
         self.slots, self.max_len = slots, max_len
         self.temperature, self.top_k = temperature, top_k
@@ -111,7 +141,8 @@ class ServeEngine:
 
         shape = ShapeConfig("serve_slots", "decode", max_len, slots)
         self._decode_fn, cache_defs = build_slot_decode_step(
-            model, shape, StepSpec(plan=plan, kv_dtype=self.kv_dtype, arena=arena))
+            model, shape, StepSpec(plan=plan, kv_dtype=self.kv_dtype, arena=arena),
+            mesh=self.mesh)
         # spilled requests staged ahead of their attach: a calibrated plan
         # that streams the KV class tuned the depth; else one
         sched = plan.swap_schedule if plan is not None else None
@@ -124,9 +155,10 @@ class ServeEngine:
                                 device_pages=device_pages,
                                 host_pages=host_pages, host_slots=host_slots,
                                 device=self.device, cache_defs=cache_defs,
-                                kv_dtype=self.kv_dtype, injector=injector, obs=self.obs)
-        self.params = (init_params(model, seed, self.device, plan) if params is None
-                       else params)
+                                kv_dtype=self.kv_dtype, injector=injector, obs=self.obs,
+                                mesh=self.mesh)
+        self.params = (init_params(model, seed, self.device, plan, self.mesh)
+                       if params is None else params)
 
         # chunked prefill needs absolute-position cache writes: pure
         # attention stacks only. A chunk is never wider than the cache.
@@ -135,7 +167,7 @@ class ServeEngine:
                        and all(k == "attn" for k in cfg.layer_kinds())
                        else 0)
         if self._chunk:
-            self._scratch = model.init_cache(1, max_len, self.device)
+            self._scratch = model.init_cache(1, max_len, self.device, self.mesh)
 
         self.scheduler = Scheduler(slots, max_queue=max_queue,
                                    registry=self.obs.registry)
@@ -146,6 +178,35 @@ class ServeEngine:
         self._c_decode_tokens = reg.counter("engine.decode_tokens")
         self._c_decode_s = reg.counter("engine.decode_s")
         self._g_wall = reg.gauge("engine.wall_s")
+
+    def _share(self, values: np.ndarray) -> np.ndarray:
+        """f64 `values` as rank 0 holds them, on every rank of a tensor-
+        parallel mesh (a sum over `model` to which the other ranks add
+        zeros: exact); unchanged on one device."""
+        if self.mesh is None:
+            return values
+        mine = values if self.mesh.index(shd.MODEL) == 0 else np.zeros_like(values)
+        t = torch.from_numpy(np.ascontiguousarray(mine, np.float64)).to(self.device)
+        return self.mesh.psum(t, shd.MODEL).cpu().numpy()
+
+    def _clock(self) -> float:
+        """The clock the scheduling decisions read (`time.monotonic`); on a
+        mesh rank 0's reading, so the decisions are the same on every rank.
+        `run` reads it once a round, at the same point on every rank."""
+        return float(self._share(np.array([time.monotonic()]))[0])
+
+    def _share_stamps(self, reqs: Sequence[Request]) -> None:
+        """On a mesh, every rank takes rank 0's latency stamps of `reqs` (one
+        sum for the run), so the TTFT/TPOT windows, and the shedding and
+        preemption they feed, are the same on every rank."""
+        if self.mesh is None or not reqs:
+            return
+        keys = ("ttft_s", "first_tok_mono", "done_mono")
+        stamps = np.array([[np.nan if getattr(r, k) is None else getattr(r, k)
+                            for k in keys] for r in reqs], np.float64)
+        for r, row in zip(reqs, self._share(stamps)):
+            for k, v in zip(keys, row):
+                setattr(r, k, None if np.isnan(v) else float(v))
 
     # ---- token selection --------------------------------------------------
     def _select(self, req: Request, row: np.ndarray) -> int:
@@ -184,13 +245,15 @@ class ServeEngine:
                     batch = request_prefill_batch(self.cfg, req, self.device,
                                                   lo, hi, pad_to=c)
                     logits, self._scratch = self.model.prefill_chunk(
-                        self.params, self._scratch, batch, lo, hi, stream=self._stream)
+                        self.params, self._scratch, batch, lo, hi, stream=self._stream,
+                        mesh=self.mesh)
                     if hi == plen:
                         row = self._row(logits[0, plen - 1 - lo])
                 return self._scratch, row
             batch = request_prefill_batch(self.cfg, req, self.device)
             logits, cache = self.model.prefill(self.params, batch,
-                                               cache_len=self.max_len, stream=self._stream)
+                                               cache_len=self.max_len, stream=self._stream,
+                                               mesh=self.mesh)
             return cache, self._row(logits[0])
 
     def _first_token(self, req: Request, row: np.ndarray, t0: float) -> None:
@@ -219,7 +282,7 @@ class ServeEngine:
         """Admission control: unservable requests and load-shed submissions
         are rejected (a terminal status, not an exception)."""
         if req.arrival is None:
-            req.arrival = time.monotonic() if t0 is None else t0
+            req.arrival = self._clock() if t0 is None else t0
         total = request_prompt_len(self.cfg, req) + req.max_new
         if total > self.max_len:
             self._retire(req, "rejected",
@@ -492,19 +555,22 @@ class ServeEngine:
         """Serve a request trace to completion; -> {rid: generated token
         ids} for every terminal request (check `Request.status`). Never
         raises for a per-request failure."""
-        t0 = time.monotonic()
+        t0 = self._clock()
         for r in requests:
             self.submit(r, t0)
         idle_rounds = 0
-        last_progress = time.monotonic()
+        last_progress = t0
+        progressed = False
         while self.scheduler.has_work():
-            now = time.monotonic()
+            # the round's one reading; progress in the round before is
+            # stamped with it
+            now = self._clock()
+            if progressed:
+                last_progress = now
             self._sweep(now)
             self._shed_doomed(now)
             self._maybe_preempt(now)
             progressed = self._admit(t0)
-            if progressed:
-                last_progress = time.monotonic()
             if not self.scheduler.active:
                 if progressed:
                     idle_rounds = 0
@@ -521,8 +587,9 @@ class ServeEngine:
             idle_rounds = 0
             self._prefetch_next()
             self._tick()
-            last_progress = time.monotonic()
-        self._g_wall.set(time.monotonic() - t0)
+            progressed = True
+        self._g_wall.set(self._clock() - t0)
+        self._share_stamps(self.scheduler.finished)
         done = self.scheduler.drain()
         for r in done:
             self._rngs.pop(r.rid, None)

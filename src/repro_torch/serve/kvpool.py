@@ -48,6 +48,12 @@ and the next decode tick waits for the copies at an event
 stream. The page table is copied in from a pinned staging row. The free
 lists are LIFO, so churn scrambles page placement; the page table makes
 that free.
+
+On a tensor-parallel mesh (`mesh=`) each rank's pool holds its own block
+of every leaf, the `kv_heads` over `model` (`transformer.cache_defs`),
+in both arenas; the page table, the page dims and every page decision
+are the same on every rank, since they read only lengths and the
+engine's one schedule.
 """
 from __future__ import annotations
 
@@ -107,7 +113,7 @@ class PagedKVPool:
                  device_pages: int, host_pages: int, device,
                  host_slots: Optional[int] = None, cache_defs=None,
                  kv_dtype: str = "model", injector: Optional[FaultInjector] = None,
-                 obs: Optional[Obs] = None):
+                 obs: Optional[Obs] = None, mesh=None):
         cfg = model.cfg
         self._obs = obs if obs is not None else get_obs()
         if max_len % page_size:
@@ -121,7 +127,7 @@ class PagedKVPool:
         self.max_pages = max_len // page_size
         self.null_page = device_pages
         self.kv_dtype = kvquant.validate_kv_dtype(kv_dtype)
-        base = tr.cache_defs(cfg, slots, max_len)
+        base = tr.cache_defs(cfg, slots, max_len, mesh)
         if kvquant.is_int8(self.kv_dtype):
             # int8 KV pages: both arenas store codes + per-row scales
             base = kvquant.quantize_cache_defs(base, max_len)

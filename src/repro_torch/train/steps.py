@@ -133,7 +133,7 @@ def _opt_stream(plan: Optional[MemoryPlan]):
 
 
 def build_prefill_step(model: Model, shape: ShapeConfig,
-                       spec: StepSpec = StepSpec()):
+                       spec: StepSpec = StepSpec(), mesh=None):
     """Whole-prompt prefill of `shape.global_batch` prompts of
     `shape.seq_len` tokens into a cache of `spec.cache_len` positions
     (default: the prompt), so serving prefills straight into the
@@ -141,10 +141,14 @@ def build_prefill_step(model: Model, shape: ShapeConfig,
     at a time when the plan puts them on the host, and the cache is
     emitted into host memory when it puts the KV cache there (JAX: the
     cache's host sharding), a layer at a time as the prefill makes it, for
-    `build_decode_step` to stream. -> (fn(params, batch) -> (last-token
-    logits [B,V], cache), cache_defs)."""
+    `build_decode_step` to stream. mesh: on a tensor-parallel mesh the
+    params and the cache are this rank's blocks (`kv_heads` over `model`)
+    and the logits leave whole on every rank, as each serve step's do.
+    -> (fn(params, batch) -> (last-token logits [B,V], cache),
+    cache_defs)."""
     cache_len = spec.cache_len or shape.seq_len
-    defs = tr.cache_defs(model.cfg, shape.global_batch, cache_len)
+    mesh = shd.tp(mesh)
+    defs = tr.cache_defs(model.cfg, shape.global_batch, cache_len, mesh)
     stream = _serving_stream(spec.plan)
     kv_host = spec.plan is not None and spec.plan.residency.get("kvcache") == "host"
 
@@ -155,30 +159,32 @@ def build_prefill_step(model: Model, shape: ShapeConfig,
             out = tree_map(lambda d: torch.empty(d.shape, dtype=DTYPES[d.dtype],
                                                  pin_memory=pin), defs)
         return model.prefill(params, batch, cache_len=cache_len, stream=stream, out=out,
-                             swap_out=kv_host)
+                             swap_out=kv_host, mesh=mesh)
 
     return prefill, defs
 
 
 def build_decode_step(model: Model, shape: ShapeConfig,
-                      spec: StepSpec = StepSpec()):
+                      spec: StepSpec = StepSpec(), mesh=None):
     """Whole-batch decode step of the static loop: `shape.global_batch`
     rows, each at the same position, against caches of `shape.seq_len`
     positions, which are updated in place. Under a serve plan the params
     stream in a layer at a time, and a cache in host memory (the plan
     streams the KV cache) comes in with them and goes back updated. ->
-    (fn(params, cache, batch, pos) -> (logits [B,V], cache), cache_defs)."""
-    defs = tr.cache_defs(model.cfg, shape.global_batch, shape.seq_len)
+    (fn(params, cache, batch, pos) -> (logits [B,V], cache), cache_defs);
+    on a tensor-parallel `mesh` as `build_prefill_step`."""
+    mesh = shd.tp(mesh)
+    defs = tr.cache_defs(model.cfg, shape.global_batch, shape.seq_len, mesh)
     stream = _serving_stream(spec.plan)
 
     def decode(params, cache, batch, pos: int):
-        return model.decode_step(params, cache, batch, pos, stream=stream)
+        return model.decode_step(params, cache, batch, pos, stream=stream, mesh=mesh)
 
     return decode, defs
 
 
 def build_slot_decode_step(model: Model, shape: ShapeConfig,
-                           spec: StepSpec = StepSpec()):
+                           spec: StepSpec = StepSpec(), mesh=None):
     """Fixed-shape slot-batched decode step of the continuous-batching serve
     engine: `shape.global_batch` is the slot count, `shape.seq_len` the
     per-slot cache capacity. Each call advances every active slot one token
@@ -197,9 +203,12 @@ def build_slot_decode_step(model: Model, shape: ShapeConfig,
 
     -> (fn(params, cache, batch, positions, active) -> (logits [B,V],
     cache), cache_defs): cache_defs is the tree of ParamDefs giving the
-    cache layout fn expects."""
+    cache layout fn expects (this rank's `kv_heads` block on a
+    tensor-parallel `mesh`; the page table and the page dims are
+    replicated, as the JAX package's `page_cache_abstract` keeps them)."""
     kv_dtype = spec.resolved_kv_dtype()
-    defs = tr.cache_defs(model.cfg, shape.global_batch, shape.seq_len)
+    mesh = shd.tp(mesh)
+    defs = tr.cache_defs(model.cfg, shape.global_batch, shape.seq_len, mesh)
     if kvquant.is_int8(kv_dtype):
         defs = kvquant.quantize_cache_defs(defs, shape.seq_len)
     page_size = None
@@ -210,28 +219,33 @@ def build_slot_decode_step(model: Model, shape: ShapeConfig,
 
     def decode(params, cache, batch, positions, active):
         return model.decode_slots(params, cache, batch, positions, active,
-                                  page_size=page_size, stream=stream)
+                                  page_size=page_size, stream=stream, mesh=mesh)
 
     return decode, defs
 
 
-def init_params(model: Model, seed: int, device, plan: Optional[MemoryPlan] = None):
+def init_params(model: Model, seed: int, device, plan: Optional[MemoryPlan] = None,
+                mesh=None):
     """Serve params: `model.init(seed, device)`, or, under a plan that puts
     params on the host, the same values built one leaf (a stacked leaf:
     one layer) at a time on the device and copied into one pinned arena
     (`_host_classes`), as `init_train_state(plan=)` builds training state:
-    the same draws from the same generator, bitwise."""
+    the same draws from the same generator, bitwise. On a tensor-parallel
+    `mesh` this rank's blocks of those values (each rank pins its own)."""
     device = torch.device(device)
+    tp = shd.tp(mesh)
     if not _host_classes(plan)[0]:
-        return model.init(seed, device)
+        return model.init(seed, device, mesh=tp)
     defs = _def_paths(model.param_defs())
+    specs = _path_specs(model, defs, tp)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
     def fill(ix, p):
-        for i, piece in init_pieces(defs[ix][1], gen, device):
+        for i, piece in local_pieces(defs[ix][1], gen, device, specs[ix], tp):
             p[i] = piece
-    return _placed_params([(path, d.shape, DTYPES[d.dtype]) for path, d in defs], device,
+    return _placed_params([(path, shd.local_shape(d.shape, sp, tp), DTYPES[d.dtype])
+                           for (path, d), sp in zip(defs, specs)], device,
                           fill, model.param_defs())
 
 

@@ -400,9 +400,11 @@ def test_launch_serve_trace_report_and_profile(jm, ref, capsys, tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "2x1"], "not ported yet"),
-    (["--mesh", "1x2"], "not ported yet"),
+    (["--mesh", "2x1x1"], "not ported yet"),
 ])
 def test_launch_serve_mesh_above_1x1_raises(argv, match):
+    """A data or pod axis above 1 still raises (serving on a `model` axis
+    runs: tests/test_torch_tp_serve.py)."""
     from repro_torch.launch import serve as launch
     with pytest.raises(NotImplementedError, match=match):
         launch.main(SMOKE_ARGV + argv)

@@ -40,6 +40,8 @@ from repro_torch.models import sharding as shd
 from repro_torch.models.model import Model
 
 DENSE = ("qwen2.5-14b", "olmo-1b", "starcoder2-7b", "qwen2-72b")
+# the MoE family: the experts on `model` (expert parallelism)
+MOE = ("qwen3-moe-235b-a22b", "grok-1-314b")
 SPEC_MESHES = {"1x1x2": ((1, 1, 2), ("pod", "data", "model")),
                "1x2x2": ((1, 2, 2), ("pod", "data", "model")),
                "2x1x2": ((2, 1, 2), ("pod", "data", "model")),
@@ -67,13 +69,15 @@ def _leaf_defs(defs, prefix=""):
 
 @pytest.mark.parametrize("mesh", list(SPEC_MESHES))
 @pytest.mark.parametrize("size", ["smoke", "full"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_specs_match_jax(arch, size, mesh):
     """Every leaf: `spec`, `prune_spec` and the shard factor of each logical
     axis equal the JAX package's on the mesh (a stand-in with its axis
     names and sizes); the port's `leaf_spec` is the pruned spec, and raises
     exactly where the JAX package's pruning replicates a dim the rules map
-    to `model`; the local shape divides that dim by |model|."""
+    to `model`; the local shape divides that dim by |model|. The MoE
+    leaves [E, d, ff] and [E, ff, d] keep the experts on `model` (their
+    `ff` entry dropped: a mesh axis appears once a spec)."""
     ref = jax_ref()
     from repro.configs import get_config as jget_config
     from repro.models import sharding as jshd
@@ -113,6 +117,11 @@ def test_specs_match_jax(arch, size, mesh):
         assert replicated == 0
     if (arch, size, mesh) == ("qwen2.5-14b", "full", "16x16"):
         assert replicated > 0
+    if arch in MOE and shape[-1] == 2:
+        ffn = Model(cfg).param_specs(spec_mesh)["decoder"]["stack0"]["attn_0"]["ffn"]
+        for leaf in ("w_gate", "w_up", "w_down"):
+            assert ffn[leaf] == (None, "model"), leaf
+        assert ffn["router"] == ()
 
 
 # ---------------------------------------------------------------------------
@@ -320,15 +329,15 @@ def _tp_tcfg(arch, **kw):
                        lms=LMSConfig(enabled=False), checkpoint_dir=None, **kw)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "qwen3-moe-235b-a22b"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b"])
 def test_mamba2_and_moe_under_tp_raise(arch):
-    """A Mamba-2 or MoE stack on a mesh with |model| 2: the step and the
-    model's forward raise, naming what is not ported."""
+    """A Mamba-2 stack on a mesh with |model| 2: the step and the model's
+    forward raise, naming what is not ported. (An MoE stack runs there
+    since expert parallelism: tests/test_torch_tp_moe.py.)"""
     from repro_torch.train.steps import build_train_step
     tcfg = _tp_tcfg(arch)
     mesh = Mesh(tcfg.mesh, rank=0)
-    what = "MoE" if "moe" in arch else "Mamba-2"
-    with pytest.raises(NotImplementedError, match=f"not ported yet: a {what}"):
+    with pytest.raises(NotImplementedError, match="not ported yet: a Mamba-2"):
         build_train_step(Model(tcfg.model), tcfg, mesh=mesh)
     from repro_torch.models import transformer as tr
     model = Model(tcfg.model)
@@ -340,17 +349,37 @@ def test_mamba2_and_moe_under_tp_raise(arch):
 
 
 def test_zero1_and_serving_under_tp_raise():
-    """zero1 on a mesh with |model| 2 raises; serving on any mesh above 1x1
-    raises in the launcher (serving on a mesh is the next slice)."""
+    """zero1 on a mesh with |model| 2 raises; serving on a `data` or `pod`
+    axis above 1 raises in the launcher, the engine and `run_static`
+    (serving on a `model` axis runs: tests/test_torch_tp_serve.py), and so
+    does Mamba-2 serving on a `model` axis; a model mesh without a process
+    group raises at its first collective (never the one-device path)."""
     from repro_torch.launch import serve
+    from repro_torch.serve import ServeEngine
     from repro_torch.train.steps import build_zero1_train_step
     tcfg = _tp_tcfg("qwen2.5-14b", ddl=DDLConfig(mode="zero1"))
     with pytest.raises(NotImplementedError, match="zero1 under tensor parallelism"):
         build_zero1_train_step(Model(tcfg.model), tcfg, mesh=Mesh(tcfg.mesh, rank=0))
-    for mesh in ("1x2", "2x1", "1x1x2"):
-        with pytest.raises(NotImplementedError, match="serving on a mesh"):
-            serve.main(["--arch", "qwen2.5-14b", "--smoke", "--device", "cpu",
-                        "--mesh", mesh])
+    cli = ["--arch", "qwen2.5-14b", "--smoke", "--device", "cpu"]
+    for mesh in ("2x1", "2x1x1", "1x2x1", "2x2"):
+        with pytest.raises(NotImplementedError, match="serving on a data or pod axis"):
+            serve.main(cli + ["--mesh", mesh])
+        spec = serve.parse_mesh(mesh)
+        with pytest.raises(NotImplementedError, match="serving on a data or pod axis"):
+            ServeEngine(Model(get_smoke_config("qwen2.5-14b")), slots=2, max_len=16,
+                        device="cpu", mesh=Mesh(spec, rank=0))
+        with pytest.raises(NotImplementedError, match="serving on a data or pod axis"):
+            serve.run_static(Model(get_smoke_config("qwen2.5-14b")), [], 8, 8,
+                             device="cpu", mesh=Mesh(spec, rank=0))
+    with pytest.raises(NotImplementedError, match="not ported yet: a Mamba-2"):
+        serve.main(["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu", "--mesh", "1x2"])
+    # one process, a mesh of two: the launcher wants one process a device
+    with pytest.raises(ValueError, match="WORLD_SIZE 1 disagrees"):
+        serve.main(cli + ["--mesh", "1x1x2"])
+    with pytest.raises(RuntimeError, match="needs this rank's process group"):
+        ServeEngine(Model(get_smoke_config("qwen2.5-14b")), slots=2, max_len=16,
+                    device="cpu", mesh=Mesh(MeshSpec((1, 1, 2), ("pod", "data", "model")),
+                                            rank=0)).run([])
 
 
 def test_a_dim_that_does_not_divide_raises():
